@@ -1,0 +1,309 @@
+// Causal attention over a paged KV pool, fp32, for Hopper (sm_90a).
+//
+// Replaces bigdl_tpu/ops/pallas_kernels.py `_paged_attn_kernel` and
+// `_paged_attention_call` (the Mosaic page walk behind `paged_attention`
+// and `paged_spec_verify`), fp32 pools only.  Contract, as there:
+//   q (B, S, H, hd) f32, pos (B, S) i32, kpool/vpool (n_pages, ps, H, hd)
+//   f32, ptab (B, P) i32 -> out (B, S, H, hd) f32.  Key position t of row
+//   b lives at pool[ptab[b, t / ps], t % ps]; keys with t <= pos[b, s]
+//   attend, with scale 1/sqrt(hd).
+//
+// What bounds it on this card: bytes.  Each live K and V row is read once
+// per (row, head) and used for S dot products and S axpys: about S/2
+// flops per byte read, far below the H100's fp32 ridge (67 TFLOP/s over
+// 3.35 TB/s, about 20 flops per byte).  So the least time is the live K/V
+// bytes over the memory rate.
+//
+// What this design does about it:
+//  - one block per (b, h) copies that row's page table into shared memory
+//    (no global load waits behind a barrier), walks it in order and loads
+//    each live page ONCE for all S queries (the spec-verify window reuses
+//    the page from shared memory);
+//  - pages wholly beyond the row's largest query position are never read:
+//    under the online softmax they contribute exactly zero, so the skip is
+//    exact, and a short request on a long reservation costs only its own
+//    pages;
+//  - pages stream through a ring of up to kMaxStages shared-memory buffers
+//    (the deepest that fits, chosen at launch) with cp.async (16 bytes a thread, neighbouring threads on neighbouring
+//    addresses; each page row is hd contiguous floats): while one page is
+//    scored, the next ones are in flight, so a block keeps several pages of
+//    loads outstanding instead of waiting out one memory latency per page.
+// What it does not do yet: split one row's page walk over several blocks.
+// At decode batch sizes B*H blocks leave most of the 132 SMs idle, which
+// caps the bytes in flight; that split (with a second pass to merge the
+// partial softmaxes) is the next change of a faster version.
+//
+// A query with pos < 0 (a slot that was never admitted) attends to
+// nothing: no page is read and its output is 0 (the gathered-view
+// reference gives NaN there; callers discard such rows).  A page id
+// outside [0, n_pages) is never read, and its ring stage (stale shared
+// memory) is skipped whole: it contributes nothing.
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxStages = 4;
+constexpr size_t kMaxSmem = 232448;  // 227 KB a block can opt into
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <int VEC>
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (VEC == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(src));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// wait_group takes an immediate: dispatch the ring's runtime depth
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  static_assert(kMaxStages == 4, "one case per pending count");
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    default: cp_async_wait<3>(); break;
+  }
+}
+
+// Start copying one page's (ps, hd) K and V tiles of head h into a stage.
+template <int VEC>
+__device__ __forceinline__ void issue_page(float* k_dst, float* v_dst,
+                                           const float* k_src,
+                                           const float* v_src, int ps, int hd,
+                                           size_t row_stride) {
+  const int per_row = hd / VEC;
+  for (int idx = threadIdx.x; idx < ps * per_row; idx += kThreads) {
+    const int r = idx / per_row;
+    const int c = (idx - r * per_row) * VEC;
+    cp_async<VEC>(k_dst + r * hd + c, k_src + r * row_stride + c);
+    cp_async<VEC>(v_dst + r * hd + c, v_src + r * row_stride + c);
+  }
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+paged_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ kpool,
+                       const float* __restrict__ vpool,
+                       const int* __restrict__ ptab,
+                       const int* __restrict__ pos,
+                       float* __restrict__ out,
+                       int S, int H, int hd, int ps, int P, int n_pages,
+                       int stages, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int tile = ps * hd;
+  float* ring = smem;                       // stages x (K tile, V tile)
+  float* q_s = ring + stages * 2 * tile;    // (S, hd) queries
+  float* acc = q_s + S * hd;                // (S, hd) unnormalised P.V
+  float* w_s = acc + S * hd;                // (S, ps) scores, then weights
+  float* m_s = w_s + S * ps;                // (S) running max
+  float* l_s = m_s + S;                     // (S) running denominator
+  float* a_s = l_s + S;                     // (S) this page's rescale factor
+  int* pos_s = reinterpret_cast<int*>(a_s + S);  // (S) query positions
+  int* ptab_s = pos_s + S;                  // (P) the row's page table
+  __shared__ int n_live;
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x - b * H;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const float neg_inf = -__int_as_float(0x7f800000);
+  const size_t row_stride = (size_t)H * hd;
+  for (int p = tid; p < P; p += kThreads)
+    ptab_s[p] = ptab[(size_t)b * P + p];
+  for (int s = tid; s < S; s += kThreads) {
+    pos_s[s] = pos[b * S + s];
+    m_s[s] = neg_inf;
+    l_s[s] = 0.f;
+  }
+  for (int idx = tid; idx < S * hd; idx += kThreads) {
+    const int s = idx / hd;
+    const int d = idx - s * hd;
+    q_s[idx] = q[((size_t)(b * S + s) * H + h) * hd + d];
+    acc[idx] = 0.f;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int last = -1;
+    for (int s = 0; s < S; ++s) last = max(last, pos_s[s]);
+    n_live = last < 0 ? 0 : min(P, last / ps + 1);
+  }
+  __syncthreads();
+  const int n = n_live;
+
+  auto issue = [&](int p, int stage) {
+    const int phys = ptab_s[p];
+    if (phys >= 0 && phys < n_pages) {
+      const size_t base = ((size_t)phys * ps * H + h) * hd;
+      float* k_dst = ring + stage * 2 * tile;
+      issue_page<VEC>(k_dst, k_dst + tile, kpool + base, vpool + base, ps, hd,
+                      row_stride);
+    }
+  };
+
+  // prologue: the first stages-1 pages in flight (one group each, empty
+  // groups past the end keep the wait count uniform)
+  for (int p = 0; p < stages - 1; ++p) {
+    if (p < n) issue(p, p);
+    cp_async_commit();
+  }
+  // page p sits in stage `rd`; page p + stages - 1 goes into stage `wr`
+  int rd = 0, wr = stages - 1;
+  for (int p = 0; p < n; ++p) {
+    if (p + stages - 1 < n) issue(p + stages - 1, wr);
+    cp_async_commit();
+    cp_async_wait_pending(stages - 1);  // this thread's copies of page p
+    __syncthreads();                    // ... and every other thread's
+    const float* k_s = ring + rd * 2 * tile;
+    const float* v_s = k_s + tile;
+    rd = (rd + 1 == stages) ? 0 : rd + 1;
+    wr = (wr + 1 == stages) ? 0 : wr + 1;
+    // a page id out of range was never issued: its stage holds stale
+    // data, so skip the page whole (exact: it would add zero weight).
+    // The branch is uniform over the block, and the stage is not read.
+    const int phys = ptab_s[p];
+    if (phys < 0 || phys >= n_pages) continue;
+
+    // scores: one warp per (query, key row), lanes split hd
+    for (int j = warp; j < S * ps; j += kWarps) {
+      const int s = j / ps;
+      const int r = j - s * ps;
+      float dot = 0.f;
+      for (int d = lane; d < hd; d += 32) dot += q_s[s * hd + d] * k_s[r * hd + d];
+      dot = warp_sum(dot);
+      if (lane == 0)
+        w_s[j] = (p * ps + r <= pos_s[s]) ? dot * scale : neg_inf;
+    }
+    __syncthreads();
+
+    // online softmax: running max / denominator, one thread per query
+    for (int s = tid; s < S; s += kThreads) {
+      const float m_old = m_s[s];
+      float m_new = m_old;
+      for (int r = 0; r < ps; ++r) m_new = fmaxf(m_new, w_s[s * ps + r]);
+      // still fully masked: keep every weight at exactly zero
+      const float m_ref = (m_new == neg_inf) ? 0.f : m_new;
+      const float alpha = expf(m_old - m_ref);  // 0 while m_old is -inf
+      float sum = 0.f;
+      for (int r = 0; r < ps; ++r) {
+        const float w = expf(w_s[s * ps + r] - m_ref);
+        w_s[s * ps + r] = w;
+        sum += w;
+      }
+      l_s[s] = l_s[s] * alpha + sum;
+      m_s[s] = m_new;
+      a_s[s] = alpha;
+    }
+    __syncthreads();
+
+    // acc = acc * alpha + w . V; each (s, d) is owned by one thread
+    for (int idx = tid; idx < S * hd; idx += kThreads) {
+      const int s = idx / hd;
+      const int d = idx - s * hd;
+      float o = acc[idx] * a_s[s];
+      for (int r = 0; r < ps; ++r) o = fmaf(w_s[s * ps + r], v_s[r * hd + d], o);
+      acc[idx] = o;
+    }
+    __syncthreads();  // the stage is refilled and the weights rewritten next
+  }
+  cp_async_wait<0>();
+
+  for (int idx = tid; idx < S * hd; idx += kThreads) {
+    const int s = idx / hd;
+    const int d = idx - s * hd;
+    const float l = l_s[s];
+    out[((size_t)(b * S + s) * H + h) * hd + d] = l > 0.f ? acc[idx] / l : 0.f;
+  }
+}
+
+size_t smem_bytes(int S, int hd, int ps, int P, int stages) {
+  return sizeof(float) * ((size_t)stages * 2 * ps * hd + 2 * (size_t)S * hd +
+                          (size_t)S * ps + 3 * (size_t)S) +
+         sizeof(int) * ((size_t)S + P);
+}
+
+// The deepest ring (kMaxStages down to 1) whose shared memory fits; 0
+// when even one stage does not.
+int ring_stages(int S, int hd, int ps, int P) {
+  for (int st = kMaxStages; st >= 1; --st)
+    if (smem_bytes(S, hd, ps, P, st) <= kMaxSmem) return st;
+  return 0;
+}
+
+template <int VEC>
+cudaError_t launch(const float* q, const float* kpool, const float* vpool,
+                   const int* ptab, const int* pos, float* out, int B, int S,
+                   int H, int hd, int ps, int P, int n_pages,
+                   cudaStream_t stream) {
+  const int stages = ring_stages(S, hd, ps, P);
+  if (stages == 0) return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(S, hd, ps, P, stages);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        paged_attention_kernel<VEC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const float scale = 1.0f / sqrtf((float)hd);
+  paged_attention_kernel<VEC><<<B * H, kThreads, smem, stream>>>(
+      q, kpool, vpool, ptab, pos, out, S, H, hd, ps, P, n_pages, stages,
+      scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch on `stream` of `device`; returns the cudaError_t of the launch
+// (0 on success).  vec = 4 needs hd % 4 == 0 and 16-byte aligned pools.
+int bigdl_paged_attention_f32(const float* q, const float* kpool,
+                              const float* vpool, const int* ptab,
+                              const int* pos, float* out, int B, int S, int H,
+                              int hd, int ps, int P, int n_pages, int vec,
+                              int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec == 4)
+    return (int)launch<4>(q, kpool, vpool, ptab, pos, out, B, S, H, hd, ps, P,
+                          n_pages, st);
+  return (int)launch<1>(q, kpool, vpool, ptab, pos, out, B, S, H, hd, ps, P,
+                        n_pages, st);
+}
+
+// Depth of the ring a launch at this shape uses; 0 when even one stage
+// needs more than 227 KB of shared memory (the shape cannot launch).
+int bigdl_paged_attention_stages(int S, int hd, int ps, int P) {
+  return ring_stages(S, hd, ps, P);
+}
+
+const char* bigdl_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,0 +1,23 @@
+"""Hand-written Hopper kernels of the port (counterpart of
+bigdl_tpu/ops/pallas_kernels.py), each beside its plain PyTorch version.
+
+``KERNELS`` lists every kernel wrapper; each carries a ``launches`` count
+that only a real kernel launch increments.
+"""
+from bigdl_tpu_torch.ops.paged_attention import (paged_attention,
+                                                 paged_attention_reference)
+
+KERNELS = (paged_attention,)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+__all__ = ["KERNELS", "launch_counts", "paged_attention",
+           "paged_attention_reference", "reset_launch_counts"]

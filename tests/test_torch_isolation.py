@@ -1,0 +1,53 @@
+"""The port stands alone: no module of ``bigdl_tpu_torch`` and not
+``chip_smoke.py`` imports JAX or the JAX package (the machine with the
+card has no JAX).  Top-level names are matched exactly, since
+``bigdl_tpu_torch`` starts with ``bigdl_tpu``."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "bigdl_tpu"}
+
+_PROBE = """
+import importlib, pkgutil, sys
+import bigdl_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(bigdl_tpu_torch.__path__,
+                                                 "bigdl_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
+print(len(names), bad)
+""" % (FORBIDDEN,)
+
+
+def test_importing_every_module_pulls_in_no_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 20          # every module was walked
+    assert bad == "[]"
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0], node.lineno
+
+
+def test_no_source_names_jax_or_the_jax_package():
+    files = sorted((ROOT / "bigdl_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    hits = [f"{p.relative_to(ROOT)}:{line} imports {root}"
+            for p in files for root, line in _imported_roots(p)
+            if root in FORBIDDEN]
+    assert hits == []

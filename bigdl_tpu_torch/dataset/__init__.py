@@ -1,0 +1,21 @@
+"""Host data pipeline of the port (counterpart of bigdl_tpu/dataset):
+records, datasets, transformers, MNIST.  numpy only."""
+from bigdl_tpu_torch.dataset.dataset import (DataSet, LocalArrayDataSet,
+                                             LocalDataSet,
+                                             TransformedDataSet)
+from bigdl_tpu_torch.dataset.image import (ImgNormalizer, ImgToBatch,
+                                           LabeledImage)
+from bigdl_tpu_torch.dataset.sample import MiniBatch, Sample
+from bigdl_tpu_torch.dataset.transformer import (ChainedTransformer,
+                                                 Identity, SampleToBatch,
+                                                 Transformer)
+
+GreyImgNormalizer = ImgNormalizer
+GreyImgToBatch = ImgToBatch
+
+__all__ = [
+    "ChainedTransformer", "DataSet", "GreyImgNormalizer", "GreyImgToBatch",
+    "Identity", "ImgNormalizer", "ImgToBatch", "LabeledImage",
+    "LocalArrayDataSet", "LocalDataSet", "MiniBatch", "Sample",
+    "SampleToBatch", "TransformedDataSet", "Transformer",
+]

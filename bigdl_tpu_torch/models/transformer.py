@@ -4,7 +4,8 @@ bigdl_tpu/models/transformer.py).
 Structure per block (pre-LN): x + Attn(LN(x)); x + FFN(LN(x)), with the
 residuals spelled ConcatTable(Identity, branch) + CAddTable exactly as in
 the JAX package, so the nested parameter trees of the two packages line
-up path for path (:func:`load_jax_params` / :func:`export_params`).
+up path for path (``load_jax_params`` / ``export_params``, shared by
+every port model in nn/module.py and re-exported here).
 
 The decode step (:func:`_lm_forward_window`) reads the KV cache through
 ``ops.paged_attention``: on the card that is the hand-written CUDA page
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 import bigdl_tpu_torch.nn as nn
+from bigdl_tpu_torch.nn.module import export_params, load_jax_params  # noqa: F401
 from bigdl_tpu_torch.nn.normalization import layer_norm
 from bigdl_tpu_torch.ops import paged_attention
 from bigdl_tpu_torch.utils.device import pin_fp32, resolve_device
@@ -72,21 +74,6 @@ def TransformerLM(vocab_size: int, d_model: int = 128, n_heads: int = 4,
     m.add(nn.TimeDistributed(nn.Sequential(
         nn.Linear(d_model, vocab_size, **kw), nn.LogSoftMax())))
     return m
-
-
-def load_jax_params(model: nn.Module, tree: dict) -> nn.Module:
-    """Fill the port's model from the JAX model's ``params()`` pytree
-    (numpy leaves, same ``{'~', '<i>'}`` paths) in place."""
-    return model.load_params(tree)
-
-
-def export_params(model: nn.Module) -> dict:
-    """The inverse of :func:`load_jax_params`: the nested tree with numpy
-    leaves, as the JAX package's ``load_params`` takes it."""
-    def to_np(tree):
-        return {k: ({n: v.cpu().numpy().copy() for n, v in sub.items()}
-                    if k == "~" else to_np(sub)) for k, sub in tree.items()}
-    return to_np(model.params())
 
 
 _LMHandles = collections.namedtuple(

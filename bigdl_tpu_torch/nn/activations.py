@@ -19,3 +19,8 @@ class LogSoftMax(TensorModule):
         if x.dtype in (torch.bfloat16, torch.float16):
             x = x.float()
         return torch.log_softmax(x, dim=-1)
+
+
+class Tanh(TensorModule):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(x)

@@ -4,7 +4,7 @@ Every layer is a ``torch.nn.Module``.  On top of PyTorch's own machinery
 the port keeps the JAX package's nested parameter view,
 ``{'~': own params, '<i>': child tree, ...}`` (bigdl_tpu/nn/module.py
 ``Module.params``), so one pytree moves between the two packages
-(``models.transformer.load_jax_params`` / ``export_params``), and the
+(:func:`load_jax_params` / :func:`export_params`, for every model), and the
 Torch-style ``evaluate()`` mode switch.  Containers name their children
 ``'0'``, ``'1'``, ... exactly as the JAX containers do.
 """
@@ -54,6 +54,10 @@ class Module(torch.nn.Module):
             m.load_params(tree[name])
         return self
 
+    def set_name(self, name: str) -> "Module":
+        self.name = name
+        return self
+
     def evaluate(self) -> "Module":
         """Inference mode (ref AbstractModule.evaluate): dropout off."""
         self.eval()
@@ -79,3 +83,18 @@ class Container(Module):
     def get(self, index: int) -> Module:
         """1-based indexing, like Torch ``container:get(i)``."""
         return list(self._modules.values())[index - 1]
+
+
+def load_jax_params(model: Module, tree: dict) -> Module:
+    """Fill a port model from the JAX model's ``params()`` pytree (numpy
+    leaves, same ``{'~', '<i>'}`` paths) in place."""
+    return model.load_params(tree)
+
+
+def export_params(model: Module) -> dict:
+    """The inverse of :func:`load_jax_params`: the nested tree with numpy
+    leaves, as the JAX package's ``load_params`` takes it."""
+    def to_np(tree):
+        return {k: ({n: v.cpu().numpy().copy() for n, v in sub.items()}
+                    if k == "~" else to_np(sub)) for k, sub in tree.items()}
+    return to_np(model.params())

@@ -4,10 +4,15 @@ bigdl_tpu/ops/pallas_kernels.py), each beside its plain PyTorch version.
 ``KERNELS`` lists every kernel wrapper; each carries a ``launches`` count
 that only a real kernel launch increments.
 """
+from bigdl_tpu_torch.ops.maxpool import (maxpool2d, maxpool2d_backward,
+                                         maxpool2d_backward_reference,
+                                         maxpool2d_forward,
+                                         maxpool2d_forward_reference)
 from bigdl_tpu_torch.ops.paged_attention import (paged_attention,
                                                  paged_attention_reference)
+from bigdl_tpu_torch.ops.sgd import fused_sgd, fused_sgd_reference
 
-KERNELS = (paged_attention,)
+KERNELS = (paged_attention, fused_sgd, maxpool2d_forward, maxpool2d_backward)
 
 
 def reset_launch_counts() -> None:
@@ -19,5 +24,8 @@ def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
-__all__ = ["KERNELS", "launch_counts", "paged_attention",
-           "paged_attention_reference", "reset_launch_counts"]
+__all__ = ["KERNELS", "fused_sgd", "fused_sgd_reference", "launch_counts",
+           "maxpool2d", "maxpool2d_backward", "maxpool2d_backward_reference",
+           "maxpool2d_forward", "maxpool2d_forward_reference",
+           "paged_attention", "paged_attention_reference",
+           "reset_launch_counts"]

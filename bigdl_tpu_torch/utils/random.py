@@ -4,7 +4,7 @@ The JAX package draws every initial weight from one global numpy stream.
 Here each layer takes an explicit ``torch.Generator``; ``None`` means
 PyTorch's own default generator (``torch.manual_seed``).  The two
 packages give different numbers from the same seed — tests carry weights
-across with ``models.transformer.load_jax_params`` instead.
+across with ``nn.module.load_jax_params`` instead.
 """
 from __future__ import annotations
 

@@ -51,3 +51,17 @@ def test_no_source_names_jax_or_the_jax_package():
             for p in files for root, line in _imported_roots(p)
             if root in FORBIDDEN]
     assert hits == []
+
+
+def test_walk_covers_the_training_slice():
+    """The import probe above reaches the training slice's modules."""
+    import pkgutil
+
+    import bigdl_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(bigdl_tpu_torch.__path__,
+                                                   "bigdl_tpu_torch.")}
+    assert {f"bigdl_tpu_torch.{n}" for n in (
+        "ops.sgd", "ops.maxpool", "nn.conv", "nn.pooling", "nn.criterion",
+        "models.lenet", "dataset.dataset", "dataset.image", "dataset.mnist",
+        "optim.local_optimizer", "optim.optimizer", "optim.optim_method",
+        "utils.table")} <= names

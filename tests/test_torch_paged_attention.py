@@ -53,7 +53,7 @@ def test_cpu_never_counts_a_launch():
     rs = np.random.RandomState(0)
     args = _case(rs, bsz=2, S=1, P=2, page_size=4, n_pages=5)
     ops.paged_attention(*(torch.from_numpy(a) for a in args))
-    assert ops.launch_counts() == {"paged_attention": 0}
+    assert set(ops.launch_counts().values()) == {0}
 
 
 def test_int8_pools_raise():

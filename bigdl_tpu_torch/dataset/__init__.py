@@ -3,7 +3,8 @@ records, datasets, transformers, MNIST.  numpy only."""
 from bigdl_tpu_torch.dataset.dataset import (DataSet, LocalArrayDataSet,
                                              LocalDataSet,
                                              TransformedDataSet)
-from bigdl_tpu_torch.dataset.image import (ImgNormalizer, ImgToBatch,
+from bigdl_tpu_torch.dataset.image import (HFlip, ImgNormalizer,
+                                           ImgRdmCropper, ImgToBatch,
                                            LabeledImage)
 from bigdl_tpu_torch.dataset.sample import MiniBatch, Sample
 from bigdl_tpu_torch.dataset.transformer import (ChainedTransformer,
@@ -15,7 +16,8 @@ GreyImgToBatch = ImgToBatch
 
 __all__ = [
     "ChainedTransformer", "DataSet", "GreyImgNormalizer", "GreyImgToBatch",
-    "Identity", "ImgNormalizer", "ImgToBatch", "LabeledImage",
+    "HFlip", "Identity", "ImgNormalizer", "ImgRdmCropper", "ImgToBatch",
+    "LabeledImage",
     "LocalArrayDataSet", "LocalDataSet", "MiniBatch", "Sample",
     "SampleToBatch", "TransformedDataSet", "Transformer",
 ]

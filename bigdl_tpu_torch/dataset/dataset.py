@@ -8,13 +8,17 @@ the same draws, in the same order, as the JAX package's main-thread
 ``RNG.np_rng()`` after ``set_seed(seed)`` (an in-place ``shuffle`` of
 the records at each epoch rollover, then one ``permutation`` as each
 training pass starts), so the two packages see the same epoch order.
+``ds >> transformer`` hands that stream to every random (``stochastic``)
+stage of the transformer that has none of its own, so the crops and
+flips draw from it too, lazily, record by record, as the JAX pipeline
+draws from ``RNG.np_rng()``.
 The sharded (distributed) dataset comes with the distributed slice.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from bigdl_tpu_torch.dataset.transformer import Transformer
+from bigdl_tpu_torch.dataset.transformer import Transformer, stages
 
 
 class AbstractDataSet:
@@ -72,6 +76,11 @@ class TransformedDataSet(AbstractDataSet):
     def __init__(self, base: AbstractDataSet, transformer: Transformer):
         self.base = base
         self.transformer = transformer
+        #: the random stream of the dataset at the chain's root, if any
+        self.rng = getattr(base, "rng", None)
+        for stage in stages(transformer):
+            if getattr(stage, "stochastic", False) and stage.rng is None:
+                stage.rng = self.rng
 
     def size(self):
         return self.base.size()

@@ -37,6 +37,13 @@ class ChainedTransformer(Transformer):
         return self.last(self.first(iterator))
 
 
+def stages(transformer: Transformer) -> list:
+    """The stages of a (possibly chained) transformer, in order."""
+    if isinstance(transformer, ChainedTransformer):
+        return stages(transformer.first) + stages(transformer.last)
+    return [transformer]
+
+
 class Identity(Transformer):
     def __call__(self, iterator):
         return iterator

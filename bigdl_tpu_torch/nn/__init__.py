@@ -2,24 +2,27 @@
 from bigdl_tpu_torch.nn.activations import LogSoftMax, ReLU, Tanh
 from bigdl_tpu_torch.nn.attention import (MultiHeadSelfAttention,
                                           SinusoidalPositionalEncoding)
-from bigdl_tpu_torch.nn.containers import ConcatTable, Sequential
+from bigdl_tpu_torch.nn.containers import Concat, ConcatTable, Sequential
 from bigdl_tpu_torch.nn.conv import SpatialConvolution
 from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion, Criterion,
                                           CrossEntropyCriterion)
 from bigdl_tpu_torch.nn.dropout import Dropout
+from bigdl_tpu_torch.nn.init import Default, Xavier
 from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.module import Container, Module, TensorModule
-from bigdl_tpu_torch.nn.normalization import LayerNorm
-from bigdl_tpu_torch.nn.pooling import SpatialMaxPooling
+from bigdl_tpu_torch.nn.normalization import LayerNorm, SpatialCrossMapLRN
+from bigdl_tpu_torch.nn.pooling import (SpatialAveragePooling,
+                                        SpatialMaxPooling)
 from bigdl_tpu_torch.nn.recurrent import TimeDistributed
-from bigdl_tpu_torch.nn.shape_ops import Identity, Reshape
+from bigdl_tpu_torch.nn.shape_ops import Identity, Reshape, View
 from bigdl_tpu_torch.nn.table_ops import CAddTable
 
 __all__ = [
-    "CAddTable", "ClassNLLCriterion", "ConcatTable", "Container",
-    "Criterion", "CrossEntropyCriterion", "Dropout", "Identity",
+    "CAddTable", "ClassNLLCriterion", "Concat", "ConcatTable", "Container",
+    "Criterion", "CrossEntropyCriterion", "Default", "Dropout", "Identity",
     "LayerNorm", "Linear", "LogSoftMax", "Module",
     "MultiHeadSelfAttention", "ReLU", "Reshape", "Sequential",
-    "SinusoidalPositionalEncoding", "SpatialConvolution",
-    "SpatialMaxPooling", "Tanh", "TensorModule", "TimeDistributed",
+    "SinusoidalPositionalEncoding", "SpatialAveragePooling",
+    "SpatialConvolution", "SpatialCrossMapLRN", "SpatialMaxPooling", "Tanh",
+    "TensorModule", "TimeDistributed", "View", "Xavier",
 ]

@@ -7,6 +7,14 @@ from bigdl_tpu_torch.nn.module import TensorModule
 
 
 class ReLU(TensorModule):
+    """max(x, 0).  ``ip`` (in place) is taken for the reference's
+    signature; the result is computed out of place, as in the JAX
+    package."""
+
+    def __init__(self, ip: bool = False):
+        super().__init__()
+        self.inplace = ip
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(x)
 

@@ -19,14 +19,17 @@ from bigdl_tpu_torch.nn.module import TensorModule
 
 class SpatialConvolution(TensorModule):
     """2D convolution over NCHW (or one CHW sample) with ``weight``
-    (O, I/groups, kh, kw) and ``bias`` (O,), drawn Torch-style from
-    U(-1/sqrt(kw*kh*I), 1/sqrt(kw*kh*I)).  Arguments follow the
+    (O, I/groups, kh, kw) and ``bias`` (O,).  ``init_method`` Default
+    draws both Torch-style from U(-1/sqrt(kw*kh*I), 1/sqrt(kw*kh*I));
+    Xavier draws the weight with fan-in (I/groups)*kh*kw and fan-out
+    (O/groups)*kh*kw and zeroes the bias.  Arguments follow the
     reference constructor."""
 
     def __init__(self, n_input_plane: int, n_output_plane: int,
                  kernel_w: int, kernel_h: int, stride_w: int = 1,
                  stride_h: int = 1, pad_w: int = 0, pad_h: int = 0,
-                 n_group: int = 1, with_bias: bool = True, device=None,
+                 n_group: int = 1, with_bias: bool = True,
+                 init_method: str = init_.Default, device=None,
                  generator=None):
         super().__init__()
         if n_input_plane % n_group or n_output_plane % n_group:
@@ -39,13 +42,26 @@ class SpatialConvolution(TensorModule):
         self.stride_w, self.stride_h = stride_w, stride_h
         self.pad_w, self.pad_h = pad_w, pad_h
         self.n_group = n_group
-        stdv = 1.0 / math.sqrt(kernel_w * kernel_h * n_input_plane)
-        self._add_param("weight", init_.uniform(
-            (n_output_plane, n_input_plane // n_group, kernel_h, kernel_w),
-            -stdv, stdv, generator), device)
+        self.init_method = init_method
+        shape = (n_output_plane, n_input_plane // n_group, kernel_h,
+                 kernel_w)
+        if init_method == init_.Xavier:
+            area = kernel_h * kernel_w
+            weight = init_.xavier(shape, n_input_plane // n_group * area,
+                                  n_output_plane // n_group * area,
+                                  generator)
+            bias = torch.zeros(n_output_plane)
+        elif init_method == init_.Default:
+            stdv = 1.0 / math.sqrt(kernel_w * kernel_h * n_input_plane)
+            weight = init_.uniform(shape, -stdv, stdv, generator)
+            bias = (init_.uniform((n_output_plane,), -stdv, stdv, generator)
+                    if with_bias else None)
+        else:
+            raise ValueError(f"SpatialConvolution: no init method "
+                             f"{init_method!r} in this port")
+        self._add_param("weight", weight, device)
         if with_bias:
-            self._add_param("bias", init_.uniform(
-                (n_output_plane,), -stdv, stdv, generator), device)
+            self._add_param("bias", bias, device)
         else:
             self.bias = None
 

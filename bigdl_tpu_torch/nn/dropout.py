@@ -15,6 +15,10 @@ class Dropout(TensorModule):
         super().__init__()
         self.p = init_p
 
+    def set_p(self, p: float) -> "Dropout":
+        self.p = p
+        return self
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p <= 0.0:
             return x

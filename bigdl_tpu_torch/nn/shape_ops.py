@@ -39,3 +39,34 @@ class Reshape(TensorModule):
 
     def extra_repr(self) -> str:
         return "x".join(map(str, self.size))
+
+
+class View(TensorModule):
+    """(ref View.scala) — reshape keeping the element count.  With
+    ``num_input_dims`` set, an input of more dims than that is a batch
+    over dim 0; otherwise the JAX module's rule: the whole input is one
+    view unless its leading dim is a batch (``shape_ops.py:81-85``)."""
+
+    def __init__(self, *sizes):
+        super().__init__()
+        if len(sizes) == 1 and isinstance(sizes[0], (tuple, list)):
+            sizes = tuple(sizes[0])
+        self.sizes = tuple(int(s) for s in sizes)
+        self.num_input_dims = 0
+
+    def set_num_input_dims(self, n: int) -> "View":
+        self.num_input_dims = n
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.num_input_dims:
+            batched = x.dim() > self.num_input_dims
+        else:
+            batched = not (x.numel() == math.prod(self.sizes) and not (
+                x.shape[0] == 1 and x.dim() > len(self.sizes)))
+        if batched:
+            return x.reshape((x.shape[0],) + self.sizes)
+        return x.reshape(self.sizes)
+
+    def extra_repr(self) -> str:
+        return "x".join(map(str, self.sizes))

@@ -4,15 +4,25 @@ bigdl_tpu/ops/pallas_kernels.py), each beside its plain PyTorch version.
 ``KERNELS`` lists every kernel wrapper; each carries a ``launches`` count
 that only a real kernel launch increments.
 """
+from bigdl_tpu_torch.ops.lrn import (lrn_backward, lrn_backward_reference,
+                                     lrn_channel, lrn_forward,
+                                     lrn_forward_reference)
 from bigdl_tpu_torch.ops.maxpool import (maxpool2d, maxpool2d_backward,
                                          maxpool2d_backward_reference,
                                          maxpool2d_forward,
                                          maxpool2d_forward_reference)
+from bigdl_tpu_torch.ops.maxpool_s1 import (maxpool2d_s1,
+                                            maxpool2d_s1_backward,
+                                            maxpool2d_s1_backward_reference,
+                                            maxpool2d_s1_forward,
+                                            maxpool2d_s1_forward_reference)
 from bigdl_tpu_torch.ops.paged_attention import (paged_attention,
                                                  paged_attention_reference)
 from bigdl_tpu_torch.ops.sgd import fused_sgd, fused_sgd_reference
 
-KERNELS = (paged_attention, fused_sgd, maxpool2d_forward, maxpool2d_backward)
+KERNELS = (paged_attention, fused_sgd, maxpool2d_forward, maxpool2d_backward,
+           maxpool2d_s1_forward, maxpool2d_s1_backward, lrn_forward,
+           lrn_backward)
 
 
 def reset_launch_counts() -> None:
@@ -25,7 +35,12 @@ def launch_counts() -> dict:
 
 
 __all__ = ["KERNELS", "fused_sgd", "fused_sgd_reference", "launch_counts",
+           "lrn_backward", "lrn_backward_reference", "lrn_channel",
+           "lrn_forward", "lrn_forward_reference",
            "maxpool2d", "maxpool2d_backward", "maxpool2d_backward_reference",
            "maxpool2d_forward", "maxpool2d_forward_reference",
+           "maxpool2d_s1", "maxpool2d_s1_backward",
+           "maxpool2d_s1_backward_reference", "maxpool2d_s1_forward",
+           "maxpool2d_s1_forward_reference",
            "paged_attention", "paged_attention_reference",
            "reset_launch_counts"]

@@ -17,12 +17,16 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 #: kernel name -> source file under csrc/
 SOURCES = {"paged_attention": "paged_attention.cu",
            "fused_sgd": "fused_sgd.cu",
-           "maxpool2d": "maxpool2d.cu"}
+           "maxpool2d": "maxpool2d.cu",
+           "maxpool2d_s1": "maxpool2d_s1.cu",
+           "lrn": "lrn.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -87,3 +91,10 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = _LIBS[name] = ctypes.CDLL(str(target(name)))
     return lib
+
+
+def device_stream(dev: torch.device) -> tuple:
+    """(device index, current stream handle) of a CUDA device, as every
+    kernel's C entry point takes them."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return index, torch.cuda.current_stream(dev).cuda_stream

@@ -158,13 +158,9 @@ def _run(which, a, b, c, xshape, oshape, window, strides, pads):
     lib = _lib()
     fn = (lib.bigdl_maxpool2d_fwd_f32 if which == "fwd"
           else lib.bigdl_maxpool2d_bwd_f32)
-    dev = a.device
     err = fn(a.data_ptr(), b.data_ptr(),
              None if c is None else c.data_ptr(), n * ch, h, w, *oshape,
-             *window, *strides, plh, plw,
-             dev.index if dev.index is not None
-             else torch.cuda.current_device(),
-             torch.cuda.current_stream(dev).cuda_stream)
+             *window, *strides, plh, plw, *_build.device_stream(a.device))
     if err != 0:
         raise RuntimeError(f"maxpool2d {which} kernel launch failed: "
                            + lib.bigdl_cuda_error_string(err).decode())

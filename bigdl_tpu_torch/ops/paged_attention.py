@@ -118,9 +118,7 @@ def _launch(q, kpool, vpool, ptab, pos):
     err = lib.bigdl_paged_attention_f32(
         q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(), ptab.data_ptr(),
         pos.data_ptr(), out.data_ptr(), bsz, S, H, hd, ps, P, n_pages, vec,
-        q.device.index if q.device.index is not None
-        else torch.cuda.current_device(),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        *_build.device_stream(q.device))
     if err != 0:
         raise RuntimeError("paged_attention kernel launch failed: "
                            + lib.bigdl_cuda_error_string(err).decode())

@@ -170,8 +170,7 @@ def _launch(params, grads, velocity, lr, momentum, weight_decay, dampening,
         float(momentum), float(weight_decay), float(dampening),
         int(bool(nesterov)),
         None if finite is None else finite.data_ptr(),
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        *_build.device_stream(dev))
     if err != 0:
         raise RuntimeError("fused_sgd kernel launch failed: "
                            + lib.bigdl_cuda_error_string(err).decode())

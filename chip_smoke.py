@@ -3,8 +3,9 @@
 
 Run from the repository root on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py            # the smoke, about two minutes
+    python3 chip_smoke.py            # the smoke, a few minutes
     python3 chip_smoke.py --profile  # plus torch.profiler breakdowns
+    python3 chip_smoke.py --kernels  # phases 1-2 alone, no result line
 
 Phases, each failing with a non-zero exit:
 
@@ -17,7 +18,10 @@ Phases, each failing with a non-zero exit:
    the max pool's forward, argmax and backward on tied inputs at nine
    geometries (LeNet's two pools and Inception-v1's first among them)
    and on inputs with NaNs at three; fused SGD on six hyper sets, timed
-   at LeNet's and at the serving model's parameter counts;
+   at LeNet's and at the serving model's parameter counts; the LRN
+   (forward with and without z, backward) at six shapes, Inception-v1's
+   two among them; the stride-1 pool on tied inputs at ten geometries
+   (Inception-v1's among them) and with NaNs at three;
 3. serving: a full-width ``TransformerLM`` (vocab 4000, d_model 1024,
    4 heads, 6 layers, hidden 4096, random weights from seed 0) serves 16
    requests through ``ContinuousDecoder``; the kernels' launch counts
@@ -31,7 +35,14 @@ Phases, each failing with a non-zero exit:
    through the SGD kernel and every pool through the pool kernels, and
    the same run on the CPU (plain versions) from the same parameters and
    batch order gives the same losses and final parameters;
-5. one JSON line of kernels, then the card line, then the result line.
+5. Inception-v1 (examples/train_inception.py --synthetic: 6,998,552
+   parameters, batch 128 of random 224 crops and flips of 512 synthetic
+   256x256 images, SGD with weight decay, momentum 0.9, dampening 0 and
+   Poly(0.5)) trains 20 steps through ``Optimizer(...).optimize()`` and
+   validates Top1/Top5 once; the launch counts show every LRN, pool and
+   update went through its kernel, and three steps at batch 16, dropout
+   off, equal the same steps on the CPU;
+6. one JSON line of kernels, then the card line, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -71,6 +82,48 @@ POOL_CASES = [
     ((32, 64, 112, 112), (3, 3), (2, 2), ((0, 1), (0, 1))),
 ]
 NAN_POOL_CASES = (0, 2, 6)   # padded, asymmetric pads, LeNet's first pool
+# Inception-v1 training slice: examples/train_inception.py --synthetic
+IBATCH, ICLASSES, IMAGES, ISIZE, ICROP = 128, 1000, 4 * 128, 256, 224
+ILR, IWD, ISTEPS, IVAL = 0.0898, 1e-4, 20, 256
+ICHECK_BATCH, ICHECK_STEPS = 16, 3
+# Inception card vs CPU.  conv1's weight gradient sums 16 x 112 x 112
+# products of pixels of +-128 that mostly cancel: each fp32 run lands
+# ~2e-3 of the leaf's scale from the float64 value (the card 2.53e-3,
+# the CPU 2.17e-3 in the run that set these), so the card is held to
+# twice the CPU's own fp32 error against float64, not to the CPU; three
+# steps at lr 0.0898 carry that into conv1's weights (4.6e-4 apart).
+IGRAD_VS_CPU64, IPARAM_ATOL = 2.0, 1e-3
+IPARAMS = 6998552
+LRN = (5, 1e-4, 0.75, 1.0)            # models/inception.py:37,42
+LRN_FWD_TOL = dict(rtol=1e-5, atol=1e-6)   # tests/test_pallas_ops.py:148
+LRN_BWD_TOL = dict(rtol=1e-4, atol=1e-5)   # tests/test_pallas_ops.py:155
+# (shape, (size, alpha, beta, k)): tests/test_pallas_ops.py:116-121 (an
+# even size, ragged H*W), then Inception-v1's two LRNs at batch 128
+LRN_CASES = [
+    ((2, 8, 16, 8), (5, 1.0, 0.75, 1.0)),
+    ((2, 6, 16, 16), (3, 2e-4, 0.9, 2.0)),
+    ((2, 8, 7, 9), (5, 1.0, 0.75, 1.0)),
+    ((2, 8, 16, 8), (4, 1.0, 0.75, 1.0)),
+    ((IBATCH, 64, 56, 56), LRN),
+    ((IBATCH, 192, 56, 56), LRN),
+]
+# (shape, window, pads), stride 1: tests/test_pallas_ops.py:80-84, then
+# Inception-v1's 3a, 3b, 4a and 5a pools at batch 128, a plane of many
+# tiles, one whose backward tile needs more than 48 KB of shared memory,
+# and a window no shared-memory tile holds (the unstaged kernels)
+S1_CASES = [
+    ((2, 4, 14, 14), (3, 3), ((1, 1), (1, 1))),
+    ((1, 2, 8, 8), (3, 3), ((1, 1), (1, 1))),
+    ((2, 3, 10, 12), (2, 2), ((0, 1), (1, 0))),
+    ((IBATCH, 192, 28, 28), (3, 3), ((1, 1), (1, 1))),
+    ((IBATCH, 256, 28, 28), (3, 3), ((1, 1), (1, 1))),
+    ((IBATCH, 480, 14, 14), (3, 3), ((1, 1), (1, 1))),
+    ((IBATCH, 832, 7, 7), (3, 3), ((1, 1), (1, 1))),
+    ((2, 3, 112, 112), (3, 3), ((1, 1), (1, 1))),
+    ((1, 2, 100, 100), (40, 40), ((0, 0), (0, 0))),
+    ((1, 1, 243, 243), (242, 242), ((0, 0), (0, 0))),
+]
+NAN_S1_CASES = (0, 2, 7)
 # tests/test_pallas_ops.py:37-44
 SGD_HYPERS = [
     {"lr": 0.1}, {"lr": 0.1, "dampening": 0.9},
@@ -122,6 +175,24 @@ def time_queued_ms(torch, fn, reps=20):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def byte_bound(nbytes, ops):
+    """The least time for ``nbytes`` moved and ``ops`` fp32 operations:
+    the larger of the two over the card's rates, and which one it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bytes": nbytes,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def timed(torch, flush, kernel, plain, library):
+    """A kernel row's times: the wrapper, its plain version and the
+    library call, each L2-flushed, and the wrapper queued."""
+    return {"ms": time_ms(torch, kernel, flush),
+            "plain_ms": time_ms(torch, plain, flush),
+            "library_ms": time_ms(torch, library, flush),
+            "queued_ms": time_queued_ms(torch, kernel)}
 
 
 def paged_case(torch, g, bsz, S, H, hd, ps, P, n_pages, pos, shared=False):
@@ -292,33 +363,179 @@ def pool_times(torch, ops, flush, g, shape, win, st, pads):
     y_lib, idx = F.max_pool2d(x, return_indices=True, **lib)
     if not torch.equal(y_lib, y):
         raise AssertionError("F.max_pool2d is not the same pool")
-    fwd = {
-        "ms": time_ms(torch, lambda: ops.maxpool2d_forward(
-            x, win, st, pads), flush),
-        "plain_ms": time_ms(torch, lambda: ops.maxpool2d_forward_reference(
-            x, win, st, pads), flush),
-        "library_ms": time_ms(torch, lambda: F.max_pool2d(
-            x, return_indices=True, **lib), flush),
-    }
-    bwd = {
-        "ms": time_ms(torch, lambda: ops.maxpool2d_backward(
-            arg, gy, win, st, pads, shape), flush),
-        "plain_ms": time_ms(torch, lambda: ops.maxpool2d_backward_reference(
-            arg, gy, win, st, pads, shape), flush),
-        "library_ms": time_ms(
-            torch, lambda: torch.ops.aten.max_pool2d_with_indices_backward(
-                gy, x, win, st, (plh, plw), (1, 1), ceil, idx), flush),
-    }
-    fwd["queued_ms"] = time_queued_ms(torch, lambda: ops.maxpool2d_forward(
-        x, win, st, pads))
-    bwd["queued_ms"] = time_queued_ms(torch, lambda: ops.maxpool2d_backward(
-        arg, gy, win, st, pads, shape))
-    nbytes = 4 * (x.numel() + 2 * y.numel())
+    fwd = timed(torch, flush,
+                lambda: ops.maxpool2d_forward(x, win, st, pads),
+                lambda: ops.maxpool2d_forward_reference(x, win, st, pads),
+                lambda: F.max_pool2d(x, return_indices=True, **lib))
+    bwd = timed(
+        torch, flush,
+        lambda: ops.maxpool2d_backward(arg, gy, win, st, pads, shape),
+        lambda: ops.maxpool2d_backward_reference(arg, gy, win, st, pads,
+                                                 shape),
+        lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+            gy, x, win, st, (plh, plw), (1, 1), ceil, idx))
     for row in (fwd, bwd):
-        row["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
-        row["bound_by"] = "bytes"
-        row["bytes"] = nbytes
+        row.update(byte_bound(4 * (x.numel() + 2 * y.numel()), 0))
     return fwd, bwd
+
+
+def check_lrn(torch, ops, g, shape, hyper):
+    """Forward (y, z and the primal y), the backward wrapper and the
+    autograd path against the plain versions; returns (forward error,
+    backward error)."""
+    x = torch.randn(shape, generator=g, device="cuda")
+    gy = torch.randn(shape, generator=g, device="cuda")
+    y, z = ops.lrn_forward(x, *hyper)
+    y_only = ops.lrn_forward(x, *hyper, with_z=False)
+    y_ref, z_ref = ops.lrn_forward_reference(x, *hyper)
+    dx = ops.lrn_backward(x, z, gy, *hyper)
+    dx_ref = ops.lrn_backward_reference(x, z_ref, gy, *hyper)
+    xg = x.clone().requires_grad_()
+    ops.lrn_channel(xg, *hyper).backward(gy)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_ref, **LRN_FWD_TOL)
+    torch.testing.assert_close(z, z_ref, **LRN_FWD_TOL)
+    torch.testing.assert_close(y_only, y, rtol=0, atol=0)
+    torch.testing.assert_close(dx, dx_ref, **LRN_BWD_TOL)
+    torch.testing.assert_close(xg.grad, dx_ref, **LRN_BWD_TOL)
+    return (max(float((y - y_ref).abs().max()),
+                float((z - z_ref).abs().max())),
+            float((dx - dx_ref).abs().max()))
+
+
+def lrn_times(torch, ops, flush, g, shape, hyper):
+    """Forward (with z, as training runs it) and backward rows.  Library:
+    ``F.local_response_norm`` and its autograd backward (the same
+    function at size 5, whose window is symmetric).  Bound: x read, y and
+    z written (backward: x, z, g read, dx written); operations counted
+    per element (window squares and adds, scale, two square roots, the
+    cube, a quotient; backward: u, g/z^b, the adjoint adds, the update)."""
+    import torch.nn.functional as F
+
+    size, alpha, beta, k = hyper
+    x = torch.randn(shape, generator=g, device="cuda")
+    gy = torch.randn(shape, generator=g, device="cuda")
+    y, z = ops.lrn_forward(x, *hyper)
+    xl = x.clone().requires_grad_()
+    yl = F.local_response_norm(xl, size, alpha, beta, k)
+    torch.testing.assert_close(yl, y, rtol=1e-4, atol=1e-5)
+    n = x.numel()
+    fwd = timed(torch, flush, lambda: ops.lrn_forward(x, *hyper),
+                lambda: ops.lrn_forward_reference(x, *hyper),
+                lambda: F.local_response_norm(x, size, alpha, beta, k))
+    fwd.update(byte_bound(12 * n, (2 * size + 6) * n))
+    bwd = timed(torch, flush, lambda: ops.lrn_backward(x, z, gy, *hyper),
+                lambda: ops.lrn_backward_reference(x, z, gy, *hyper),
+                lambda: torch.autograd.grad(yl, xl, gy, retain_graph=True))
+    bwd.update(byte_bound(16 * n, (size + 11) * n))
+    return fwd, bwd
+
+
+def check_pool_s1(torch, ops, g, shape, win, pads, nan=False):
+    """Forward and backward (wrapper and autograd) against the plain
+    versions on tied inputs (with ``nan``, a seventh of them NaN); the
+    forward also equals the any-stride kernel's at stride 1.  Returns
+    (forward error, backward error)."""
+    x = torch.randn(shape, generator=g, device="cuda").mul_(2).round_().div_(2)
+    if nan:
+        x[torch.rand(shape, generator=g, device="cuda") < 1 / 7] = float("nan")
+    y = ops.maxpool2d_s1_forward(x, win, pads)
+    y_ref = ops.maxpool2d_s1_forward_reference(x, win, pads)
+    y_any = ops.maxpool2d_forward(x, win, (1, 1), pads, with_argmax=False)
+    gy = torch.randn(y.shape, generator=g, device="cuda")
+    dx = ops.maxpool2d_s1_backward(x, gy, win, pads)
+    dx_ref = ops.maxpool2d_s1_backward_reference(x, gy, win, pads)
+    xg = x.clone().requires_grad_()
+    ops.maxpool2d_s1(xg, win, pads).backward(gy)
+    torch.cuda.synchronize()
+    exact = dict(rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(y, y_ref, **exact)
+    torch.testing.assert_close(y_any, y, **exact)
+    if nan and not bool(y.isnan().any()):
+        raise AssertionError(f"maxpool2d_s1: no NaN output at {shape}")
+    torch.testing.assert_close(dx, dx_ref, **POOL_TOL)
+    torch.testing.assert_close(xg.grad, dx_ref, **POOL_TOL)
+    return (float((y - y_ref).nan_to_num(nan=0.0).abs().max()),
+            float((dx - dx_ref).abs().max()))
+
+
+def pool_s1_times(torch, ops, flush, g, shape, win, pads):
+    """Forward and backward rows.  Library: ``F.max_pool2d`` with indices
+    and ``aten.max_pool2d_with_indices_backward`` (symmetric pads).
+    Bound: x read, y written (backward: x and g read, dx written); the
+    window's compares (backward: again, plus a compare and add a tap)."""
+    import torch.nn.functional as F
+
+    (plh, _), (plw, _) = pads
+    x = torch.randn(shape, generator=g, device="cuda")
+    y = ops.maxpool2d_s1_forward(x, win, pads)
+    gy = torch.randn(y.shape, generator=g, device="cuda")
+    lib = dict(kernel_size=win, stride=1, padding=(plh, plw))
+    y_lib, idx = F.max_pool2d(x, return_indices=True, **lib)
+    if not torch.equal(y_lib, y):
+        raise AssertionError("F.max_pool2d is not the same pool")
+    taps = win[0] * win[1]
+    fwd = timed(torch, flush, lambda: ops.maxpool2d_s1_forward(x, win, pads),
+                lambda: ops.maxpool2d_s1_forward_reference(x, win, pads),
+                lambda: F.max_pool2d(x, return_indices=True, **lib))
+    fwd.update(byte_bound(4 * (x.numel() + y.numel()), taps * y.numel()))
+    bwd = timed(
+        torch, flush, lambda: ops.maxpool2d_s1_backward(x, gy, win, pads),
+        lambda: ops.maxpool2d_s1_backward_reference(x, gy, win, pads),
+        lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+            gy, x, win, (1, 1), (plh, plw), (1, 1), False, idx))
+    bwd.update(byte_bound(4 * (2 * x.numel() + y.numel()),
+                          taps * (y.numel() + 2 * x.numel())))
+    return fwd, bwd
+
+
+def phase_conv_kernels(torch, ops):
+    """The Inception slice's new kernels against their plain versions,
+    with times at Inception-v1's shapes at batch 128: both LRNs, the 3a
+    and 3b pools (3b's input is the largest a stride-1 pool takes)."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    lrn_errs = [check_lrn(torch, ops, g, *case) for case in LRN_CASES]
+    s1_errs = [check_pool_s1(torch, ops, g, *case) for case in S1_CASES]
+    s1_errs += [check_pool_s1(torch, ops, g, *S1_CASES[k], nan=True)
+                for k in NAN_S1_CASES]
+    flush = torch.empty(64 * 2**20, device="cuda")   # 256 MB > 50 MB L2
+    rows = {}
+    for label, times, cases in (
+            ("lrn", lrn_times, LRN_CASES[-2:]),
+            ("maxpool2d_s1", pool_s1_times, S1_CASES[3:5])):
+        for case in cases:
+            fwd, bwd = times(torch, ops, flush, g, *case)
+            for name, row in (("forward", fwd), ("backward", bwd)):
+                print(f"{label}_{name} {case[0]} {case[1:]}: "
+                      f"kernel_ms={row['ms']:.5f} "
+                      f"queued_ms={row['queued_ms']:.5f} "
+                      f"plain_ms={row['plain_ms']:.5f} "
+                      f"library_ms={row['library_ms']:.5f} "
+                      f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}, "
+                      f"{row['bytes']} bytes)")
+                rows[f"{label}_{name}"] = row   # the last, largest case
+    print(f"lrn: {len(LRN_CASES)} cases, forward max_abs_err="
+          f"{max(e[0] for e in lrn_errs):.3e} (rtol/atol "
+          f"{LRN_FWD_TOL['rtol']}/{LRN_FWD_TOL['atol']}), backward "
+          f"max_abs_err={max(e[1] for e in lrn_errs):.3e} (rtol/atol "
+          f"{LRN_BWD_TOL['rtol']}/{LRN_BWD_TOL['atol']}); maxpool2d_s1: "
+          f"{len(S1_CASES)} geometries with ties and {len(NAN_S1_CASES)} "
+          f"with NaNs, forward equal to the plain version and to the "
+          f"any-stride kernel, backward max_abs_err="
+          f"{max(e[1] for e in s1_errs):.3e}")
+    src = "bigdl_tpu_torch/csrc/"
+    at = "bigdl_tpu/ops/pallas_kernels.py:"
+    errs = {"lrn_forward": max(e[0] for e in lrn_errs),
+            "lrn_backward": max(e[1] for e in lrn_errs),
+            "maxpool2d_s1_forward": max(e[0] for e in s1_errs),
+            "maxpool2d_s1_backward": max(e[1] for e in s1_errs)}
+    where = {"lrn_forward": ("lrn.cu", 384), "lrn_backward": ("lrn.cu", 395),
+             "maxpool2d_s1_forward": ("maxpool2d_s1.cu", 197),
+             "maxpool2d_s1_backward": ("maxpool2d_s1.cu", 214)}
+    return [{"name": name, "route": "cuda", "ok": True,
+             "source": src + where[name][0],
+             "replaces": at + str(where[name][1]),
+             "max_abs_err": errs[name], **rows[name]} for name in where]
 
 
 def sgd_leaves(torch, g, shapes):
@@ -372,18 +589,13 @@ def sgd_times(torch, ops, flush, g, shapes):
         t.grad = d
     lib = torch.optim.SGD(lib_params, lr=LR, fused=True, **kw)
     lib.step()   # allocates its momentum buffers
-    n = sum(t.numel() for t in p)
-    row = {
-        "ms": time_ms(torch, lambda: ops.fused_sgd(
-            p, gr, v, LR, finite=ok, **kw), flush),
-        "plain_ms": time_ms(torch, lambda: ops.fused_sgd_reference(
-            p, gr, v, LR, finite=ok, **kw), flush),
-        "library_ms": time_ms(torch, lib.step, flush),
-        "bound_ms": 20 * n / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "params": n,
-        "queued_ms": time_queued_ms(torch, lambda: ops.fused_sgd(
-            p, gr, v, LR, finite=ok, **kw)),
-    }
+    row = timed(torch, flush,
+                lambda: ops.fused_sgd(p, gr, v, LR, finite=ok, **kw),
+                lambda: ops.fused_sgd_reference(p, gr, v, LR, finite=ok,
+                                                **kw),
+                lib.step)
+    row["params"] = sum(t.numel() for t in p)
+    row.update(byte_bound(20 * row["params"], 0))
     return row
 
 
@@ -528,22 +740,23 @@ def phase_train(torch, ops, profile: bool):
     if len(want_l) != len(got_l) or rel > LOSS_RTOL or p_err > PARAM_ATOL:
         raise AssertionError("the card's training left the CPU's")
     if profile:
-        busy_ms = profile_train(torch, init)
+        busy_ms = profile_train(torch, lambda end: lenet_run(
+            torch, "cuda", init, end, validate=False), 16)
         print(f"profile: device idle share of the unprofiled train step "
               f"{1 - busy_ms / step_ms:.4f} ({busy_ms:.4f} of "
               f"{step_ms:.4f} ms/step busy)")
     return counts
 
 
-def profile_train(torch, init):
-    """Device time by kernel over a window of train steps (no
-    validation), after two warm steps."""
+def profile_train(torch, make_opt, n):
+    """Device time by kernel over a window of ``n`` train steps (no
+    validation) of the optimizer ``make_opt(end_trigger)`` builds, after
+    two warm steps."""
     from torch.profiler import ProfilerActivity, profile
 
     from bigdl_tpu_torch.optim import max_iteration
 
-    n = 16
-    opt = lenet_run(torch, "cuda", init, max_iteration(2), validate=False)
+    opt = make_opt(max_iteration(2))
     opt.optimize()
     opt.set_end_when(max_iteration(2 + n))
     torch.cuda.synchronize()
@@ -561,10 +774,238 @@ def profile_train(torch, init):
           f"{wall * 1e3:.3f} ms ({wall / n * 1e3:.4f} ms/step), device busy "
           f"{busy:.3f} ms ({busy / n:.4f} ms/step, "
           f"{sum(e.count for e in rows) / n:.1f} device ops/step)")
-    for e in rows[:12]:
+    # the twelve largest, then the port's own kernels among the rest
+    # (each csrc/ kernel lives in an anonymous namespace)
+    own = [e for e in rows[12:] if "(anonymous namespace)::" in e.key]
+    for e in rows[:12] + own:
         print(f"profile:   {e.device_time_total / n:9.2f} us/step "
               f"{e.count / n:5.1f}/step  {e.key[:80]}")
     return busy / n
+
+
+def inception_images(n, size, seed):
+    """examples/train_inception.py:55-58 (``--synthetic``): ``n`` RGB
+    images of ``size`` x ``size``, uniform [0, 255), labels 1..1000."""
+    from bigdl_tpu_torch.dataset import LabeledImage
+
+    rng = np.random.RandomState(seed)
+    return [LabeledImage(rng.uniform(0, 255, (size, size, 3)),
+                         rng.randint(1, ICLASSES + 1)) for _ in range(n)]
+
+
+def inception_run(torch, device, init_tree, images, batch, end_trigger,
+                  val_images=None, dropout=None):
+    """examples/train_inception.py:59-82 from ``init_tree``: random
+    224 crops, flips and the mean subtraction over ``images``, the SGD
+    state with Poly(0.5, ISTEPS); validation (Top1, Top5) after ISTEPS
+    iterations when ``val_images`` are given.  An optimizer ready to
+    run."""
+    from bigdl_tpu_torch.dataset import (DataSet, HFlip, ImgNormalizer,
+                                         ImgRdmCropper, ImgToBatch)
+    from bigdl_tpu_torch.models.inception import Inception_v1
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, Dropout
+    from bigdl_tpu_torch.optim import (Optimizer, Poly, Top1Accuracy,
+                                       Top5Accuracy, several_iteration)
+    from bigdl_tpu_torch.utils.table import T
+
+    norm = ImgNormalizer((123.0, 117.0, 104.0), (1.0, 1.0, 1.0))
+    train = (DataSet.array(images) >> ImgRdmCropper(ICROP, ICROP) >> HFlip()
+             >> norm >> ImgToBatch(batch))
+    model = Inception_v1(ICLASSES, device=device).load_params(init_tree)
+    if dropout is not None:
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.set_p(dropout)
+    opt = Optimizer(model, train, ClassNLLCriterion(), state=T(
+        learningRate=ILR, weightDecay=IWD, momentum=0.9, dampening=0.0,
+        learningRateSchedule=Poly(0.5, ISTEPS)), end_trigger=end_trigger,
+        device=device)
+    if val_images is not None:
+        val = DataSet.array(val_images) >> norm >> ImgToBatch(batch)
+        opt.set_validation(several_iteration(ISTEPS), val,
+                           [Top1Accuracy(), Top5Accuracy()])
+    return opt
+
+
+def phase_inception(torch, ops, profile: bool):
+    """Inception-v1 trains at full width on the card through
+    ``Optimizer(...).optimize()``; the launch counts show every LRN,
+    pool and update went through its kernel; the same few steps on the
+    CPU at batch 16 give the same losses and parameters."""
+    from bigdl_tpu_torch.models.inception import Inception_v1
+    from bigdl_tpu_torch.nn.module import export_params
+    from bigdl_tpu_torch.optim import max_iteration
+    from bigdl_tpu_torch.utils.random import generator
+
+    init = export_params(Inception_v1(ICLASSES, device="cpu",
+                                      generator=generator(0)))
+    n_params = sum(v.size for v in _leaves(init))
+    if n_params != IPARAMS:
+        raise AssertionError(f"Inception-v1 has {n_params} parameters, "
+                             f"expected {IPARAMS}")
+    t0 = time.perf_counter()
+    images = inception_images(IMAGES, ISIZE, 0)
+    val_images = inception_images(IVAL, ICROP, 1)
+    make_s = time.perf_counter() - t0
+    torch.manual_seed(0)   # the dropout masks
+    # warm-up: cuDNN's algorithm choice, allocator, kernel library loads
+    inception_run(torch, "cuda", init, images, IBATCH,
+                  max_iteration(2)).optimize()
+    opt = inception_run(torch, "cuda", init, images, IBATCH,
+                        max_iteration(ISTEPS), val_images)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    opt.optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    steps = int(opt.state["neval"]) - 1
+    val_batches = len(opt.validation_log) * -(-IVAL // IBATCH)
+    want = {"fused_sgd": steps,
+            "lrn_forward": 2 * steps + 2 * val_batches,
+            "lrn_backward": 2 * steps,
+            "maxpool2d_s1_forward": 9 * steps + 9 * val_batches,
+            "maxpool2d_s1_backward": 9 * steps,
+            "maxpool2d_forward": 4 * steps + 4 * val_batches,
+            "maxpool2d_backward": 4 * steps, "paged_attention": 0}
+    if steps != ISTEPS or val_batches != 2 or counts != want:
+        raise AssertionError(f"Inception launches {counts} after {steps} "
+                             f"steps and {val_batches} validation batches, "
+                             f"expected {want}")
+    losses = [l for _, l in opt.loss_log]
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"Inception losses: {losses}")
+    val_s = opt.metrics.get("validate")[0]
+    step_ms = (wall - val_s) / steps * 1e3
+    fetch_s, fetches = opt.metrics.get("data fetch time")
+    dispatch_s, _ = opt.metrics.get("train time")
+    (_, _, val), = opt.validation_log
+    print(f"inception: Inception-v1 {n_params} params, {steps} steps of "
+          f"{IBATCH} at {ICROP}x{ICROP} over {IMAGES} synthetic "
+          f"{ISIZE}x{ISIZE} images (made in {make_s:.2f} s), 1 validation "
+          f"of {val_batches} batches; wall {wall:.4f} s, {step_ms:.4f} "
+          f"ms/step and {steps * IBATCH / (wall - val_s):.1f} images/s "
+          f"(validation {val_s:.4f} s excluded); host: dataset iterator "
+          f"and H2D copy {fetch_s / fetches * 1e3:.4f} ms/batch "
+          f"({fetch_s / (wall - val_s):.4f} of the loop), dispatch "
+          f"{dispatch_s / steps * 1e3:.4f} ms/step; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} B; "
+          f"launches {counts}; losses {losses[0]:.6f} -> {losses[-1]:.6f}; "
+          f"Top1 {val['Top1Accuracy']:.4f} Top5 {val['Top5Accuracy']:.4f}")
+
+    diff = inception_vs_cpu(torch, init)
+    print(f"inception vs CPU, first batch of {ICHECK_BATCH}, dropout 0: "
+          f"loss card {diff['loss'][0]:.8f} CPU {diff['loss'][1]:.8f}; "
+          f"gradients, largest |card - CPU| / max|CPU| of a leaf "
+          f"{diff['grad_rel']:.3e} ({diff['grad_leaf']}); against "
+          f"float64 on the CPU, the card's largest {diff['card_vs_64']:.3e} "
+          f"({diff['leaf_64']}, where the CPU's fp32 is "
+          f"{diff['cpu_vs_64']:.3e}; the CPU's largest "
+          f"{diff['cpu_vs_64_max']:.3e}); "
+          f"limit {IGRAD_VS_CPU64} x the CPU's; {ICHECK_STEPS} optimizer "
+          f"steps: losses card {diff['losses'][0]} CPU {diff['losses'][1]}, "
+          f"largest relative difference {diff['loss_rel']:.3e} (limit "
+          f"{LOSS_RTOL}); final params, largest absolute difference "
+          f"{diff['param_abs']:.3e} ({diff['param_leaf']}, whose largest "
+          f"update is {diff['param_step']:.3e}; limit {IPARAM_ATOL}); CPU "
+          f"{diff['cpu_s']:.2f} s")
+    if profile:
+        busy_ms = profile_train(torch, lambda end: inception_run(
+            torch, "cuda", init, images, IBATCH, end), 5)
+        print(f"profile: device idle share of the unprofiled Inception "
+              f"train step {1 - busy_ms / step_ms:.4f} ({busy_ms:.4f} of "
+              f"{step_ms:.4f} ms/step busy)")
+    if (abs(diff["loss"][0] - diff["loss"][1]) > LOSS_RTOL * diff["loss"][1]
+            or diff["card_vs_64"] > IGRAD_VS_CPU64 * diff["cpu_vs_64_max"]
+            or diff["loss_rel"] > LOSS_RTOL
+            or diff["param_abs"] > IPARAM_ATOL):
+        raise AssertionError("the card's Inception training left the CPU's")
+    return counts
+
+
+def inception_vs_cpu(torch, init):
+    """The card against the CPU (plain versions) from the same parameters
+    on the same batches, dropout off (the two draw different masks): the
+    first batch's loss and gradients, then ICHECK_STEPS optimizer steps'
+    losses and final parameters."""
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import max_iteration
+    from bigdl_tpu_torch.optim.local_optimizer import to_device
+
+    check = inception_images(ICHECK_BATCH * ICHECK_STEPS, ISIZE, 2)
+    names = [".".join(k) for k in _paths(init)]
+    out = {}
+    t0 = time.perf_counter()
+    for device in ("cuda", "cpu"):
+        run = inception_run(torch, device, init, check, ICHECK_BATCH,
+                            max_iteration(ICHECK_STEPS), dropout=0.0)
+        batch = next(run.dataset.data(train=True))
+        dev = torch.device(device)
+        run.model.train()
+        loss = ClassNLLCriterion()(run.model(to_device(batch.data, dev)),
+                                   to_device(batch.labels, dev))
+        loss.backward()
+        grads = [p.grad.detach().cpu() for p in run.model.parameters()]
+        run.model.zero_grad(set_to_none=True)
+        t1 = time.perf_counter()
+        run.optimize()
+        out[device] = (float(loss.detach()), grads, run,
+                       time.perf_counter() - t1)
+    (loss_g, grad_g, card, _), (loss_c, grad_c, cpu, cpu_s) = (
+        out["cuda"], out["cpu"])
+    # the same first batch on the CPU in float64: how far each fp32 run's
+    # gradients lie from it, leaf by leaf, over the leaf's largest entry
+    ref = inception_run(torch, "cpu", init, check, ICHECK_BATCH,
+                        max_iteration(ICHECK_STEPS), dropout=0.0)
+    batch = next(ref.dataset.data(train=True))
+    ref.model.double().train()
+    ClassNLLCriterion()(ref.model(torch.from_numpy(batch.data).double()),
+                        torch.from_numpy(batch.labels)).backward()
+    grad_64 = [p.grad for p in ref.model.parameters()]
+
+    def rel(a, b):
+        return float((a.double() - b).abs().max()
+                     / b.abs().max().clamp_min(1e-30))
+
+    g_rel = [rel(a, b.double()) for a, b in zip(grad_g, grad_c)]
+    e_card = [rel(a, b) for a, b in zip(grad_g, grad_64)]
+    e_cpu = [rel(a, b) for a, b in zip(grad_c, grad_64)]
+    init_leaves = [torch.from_numpy(v) for v in _leaves(init)]
+    p_abs, p_step = [], []
+    for a, b, p0 in zip(card.model.parameters(), cpu.model.parameters(),
+                        init_leaves):
+        p_abs.append(float((a.detach().cpu() - b.detach()).abs().max()))
+        p_step.append(float((b.detach() - p0).abs().max()))
+    got_l = np.asarray([l for _, l in card.loss_log])
+    want_l = np.asarray([l for _, l in cpu.loss_log])
+    gi, pi = int(np.argmax(g_rel)), int(np.argmax(p_abs))
+    ei = int(np.argmax(e_card))
+    return {"loss": (float(loss_g), float(loss_c)),
+            "grad_rel": g_rel[gi], "grad_leaf": names[gi],
+            "card_vs_64": e_card[ei], "cpu_vs_64": e_cpu[ei],
+            "leaf_64": names[ei], "cpu_vs_64_max": max(e_cpu),
+            "losses": (got_l.tolist(), want_l.tolist()),
+            "loss_rel": float(np.max(np.abs(got_l - want_l)
+                                     / np.abs(want_l))),
+            "param_abs": p_abs[pi], "param_leaf": names[pi],
+            "param_step": p_step[pi],
+            "cpu_s": cpu_s}
+
+
+def _leaves(tree):
+    """The leaves of a parameter tree, in ``model.parameters()`` order."""
+    for k, sub in tree.items():
+        yield from (sub.values() if k == "~" else _leaves(sub))
+
+
+def _paths(tree, prefix=()):
+    for k, sub in tree.items():
+        if k == "~":
+            yield from (prefix + (n,) for n in sub)
+        else:
+            yield from _paths(sub, prefix + (k,))
 
 
 def forced_gaps(torch, model, row, n_seed):
@@ -753,19 +1194,29 @@ def main(argv) -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
 
-    kernel_rows = [phase_kernels(torch, ops)] + phase_train_kernels(torch,
-                                                                    ops)
+    kernel_rows = ([phase_kernels(torch, ops)]
+                   + phase_train_kernels(torch, ops)
+                   + phase_conv_kernels(torch, ops))
+    if "--kernels" in argv:
+        # the kernel phase alone: to time two trees' kernels in turns
+        print(json.dumps({"kernels": kernel_rows}))
+        return 0
     # each path's counts are read right after it ran, from zero
-    counts = phase_slice(torch, ops, "--profile" in argv)
-    counts_train = phase_train(torch, ops, "--profile" in argv)
+    profile = "--profile" in argv
+    by_path = {"serving": phase_slice(torch, ops, profile),
+               "lenet": phase_train(torch, ops, profile),
+               "inception": phase_inception(torch, ops, profile)}
     for row in kernel_rows:
-        row["launches"] = (counts if row["name"] == "paged_attention"
-                           else counts_train)[row["name"]]
+        row["launches_by_path"] = {path: counts.get(row["name"], 0)
+                                   for path, counts in by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
+        if row["launches"] == 0:
+            raise AssertionError(f"{row['name']}: no launch on any path")
     # queued_ms: calls queued back to back, the device's time where it
     # outlasts the wrapper's host work (no L2 flush)
     keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "queued_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "ok")
+            "launches_by_path", "max_abs_err", "ms", "queued_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "ok")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in kernel_rows]}))
     print(smi)

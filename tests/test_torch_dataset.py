@@ -218,3 +218,65 @@ def test_color_images_to_batch_equal_jax(to_chw):
         np.testing.assert_allclose(x, wx, rtol=1e-6, atol=1e-6)
         np.testing.assert_array_equal(y, wy)
     assert got[0][0].shape == ((2, 3, 4, 5) if to_chw else (2, 4, 5, 3))
+
+
+def _color_records(n=10, h=12, w=10, seed=0):
+    rs = np.random.RandomState(seed)
+    return [(rs.uniform(0, 255, (h, w, 3)).astype(np.float32),
+             float(rs.randint(1, 11))) for _ in range(n)]
+
+
+@pytest.mark.parametrize("padding", [0, 1])
+def test_crop_flip_pipeline_equals_jax_first_pass(padding):
+    """``DataSet.array(records, seed) >> ImgRdmCropper >> HFlip >>
+    ImgNormalizer >> ImgToBatch`` gives, over its first pass, the JAX
+    pipeline's batches after ``set_seed(seed)`` bit for bit: the epoch
+    permutation, each record's two crop offsets and its flip draw come
+    from one stream in the same order.  The records are left untouched
+    (the JAX crop and flip rebind them, so its later passes differ)."""
+    from bigdl_tpu.dataset.image import HFlip as JaxHFlip
+    from bigdl_tpu.dataset.image import ImgRdmCropper as JaxCropper
+    from bigdl_tpu.dataset.image import LabeledImage as JaxImage
+    from bigdl_tpu_torch.dataset import HFlip, ImgRdmCropper, LabeledImage
+
+    recs = _color_records()
+    mean, std = (123.0, 117.0, 104.0), (1.0, 1.0, 1.0)
+    set_seed(4)
+    jax_ds = (JaxDataSet.array([JaxImage(d.copy(), lbl) for d, lbl in recs])
+              >> JaxCropper(8, 6, padding) >> JaxHFlip()
+              >> JaxNormalizer(mean, std) >> JaxToBatch(5))
+    it = jax_ds.data(train=True)
+    want = [next(it) for _ in range(2)]
+    records = [LabeledImage(d.copy(), lbl) for d, lbl in recs]
+    port = (DataSet.array(records, seed=4) >> ImgRdmCropper(8, 6, padding)
+            >> HFlip() >> ImgNormalizer(mean, std) >> ImgToBatch(5))
+    it = port.data(train=True)
+    got = [next(it) for _ in range(2)]
+    for b, w in zip(got, want):
+        assert b.data.shape == (5, 3, 6, 8)
+        np.testing.assert_array_equal(b.data, w.data)
+        np.testing.assert_array_equal(b.labels, w.labels)
+    for r, (d, lbl) in zip(records, recs):
+        np.testing.assert_array_equal(r.data, d)
+        assert r.data.shape == (12, 10, 3) and r.label == lbl
+
+
+def test_random_stages_take_their_own_stream_or_the_datasets():
+    """A stage's own ``rng`` wins over the dataset's; a stage with none,
+    chained onto nothing, has no stream to draw from."""
+    from bigdl_tpu_torch.dataset import HFlip, ImgRdmCropper, LabeledImage
+
+    recs = [LabeledImage(d, lbl) for d, lbl in _color_records(4)]
+    own = np.random.RandomState(3)
+    crop = ImgRdmCropper(4, 4, rng=own)
+    flip = HFlip(threshold=1.0)
+    ds = DataSet.array(recs, seed=9) >> (crop >> flip)
+    assert crop.rng is own and flip.rng is ds.rng is ds.base.rng
+    out = list(ds.data(train=False))
+    ref = np.random.RandomState(3)
+    for img, rec in zip(out, recs):
+        y0, x0 = ref.randint(0, 9), ref.randint(0, 7)
+        np.testing.assert_array_equal(
+            img.data, rec.data[y0:y0 + 4, x0:x0 + 4][:, ::-1])
+    with pytest.raises(ValueError, match="no random stream"):
+        list(HFlip()(iter(recs)))

@@ -65,3 +65,16 @@ def test_walk_covers_the_training_slice():
         "models.lenet", "dataset.dataset", "dataset.image", "dataset.mnist",
         "optim.local_optimizer", "optim.optimizer", "optim.optim_method",
         "utils.table")} <= names
+
+
+def test_walk_covers_the_inception_slice():
+    """The import probe reaches the conv-net slice's modules too."""
+    import pkgutil
+
+    import bigdl_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(bigdl_tpu_torch.__path__,
+                                                   "bigdl_tpu_torch.")}
+    assert {f"bigdl_tpu_torch.{n}" for n in (
+        "ops.lrn", "ops.maxpool_s1", "ops._build", "nn.normalization",
+        "nn.containers", "nn.shape_ops", "nn.init", "models.inception",
+        "dataset.transformer")} <= names

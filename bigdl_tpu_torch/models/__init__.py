@@ -3,7 +3,10 @@ from bigdl_tpu_torch.models.inception import (Inception_v1,
                                               Inception_v1_NoAuxClassifier,
                                               inception_module)
 from bigdl_tpu_torch.models.lenet import LeNet5
+from bigdl_tpu_torch.models.textclassifier import (TextClassifierBiLSTM,
+                                                   TextClassifierConv)
 from bigdl_tpu_torch.models.transformer import TransformerLM
 
 __all__ = ["Inception_v1", "Inception_v1_NoAuxClassifier", "LeNet5",
-           "TransformerLM", "inception_module"]
+           "TextClassifierBiLSTM", "TextClassifierConv", "TransformerLM",
+           "inception_module"]

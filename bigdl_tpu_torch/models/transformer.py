@@ -34,9 +34,11 @@ def _residual(branch: nn.Module) -> nn.Module:
 
 
 def encoder_block(d_model: int, n_heads: int, hidden: int,
-                  dropout: float = 0.1, causal: bool = False, device=None,
+                  dropout: float = 0.1, causal: bool = False, device="cuda",
                   generator=None) -> nn.Module:
-    """One pre-LN block (the JAX ``encoder_block`` without the MoE FFN)."""
+    """One pre-LN block (the JAX ``encoder_block`` without the MoE FFN),
+    on ``device``: the card unless the caller asks for the CPU."""
+    device = resolve_device(device)
     kw = dict(device=device, generator=generator)
     return nn.Sequential(
         _residual(nn.Sequential(
@@ -58,10 +60,11 @@ def encoder_block(d_model: int, n_heads: int, hidden: int,
 
 def TransformerLM(vocab_size: int, d_model: int = 128, n_heads: int = 4,
                   n_layers: int = 2, hidden: int = 256,
-                  dropout: float = 0.1, device=None, generator=None):
+                  dropout: float = 0.1, device="cuda", generator=None):
     """Causal word LM over (B, T, vocab) one-hot input -> per-token
     log-probs.  Weights are drawn on the CPU from ``generator`` and placed
-    on ``device``."""
+    on ``device``: the card unless the caller asks for the CPU."""
+    device = resolve_device(device)
     kw = dict(device=device, generator=generator)
     m = nn.Sequential(
         nn.TimeDistributed(nn.Linear(vocab_size, d_model, **kw)),

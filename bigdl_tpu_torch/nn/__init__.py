@@ -13,15 +13,19 @@ from bigdl_tpu_torch.nn.module import Container, Module, TensorModule
 from bigdl_tpu_torch.nn.normalization import LayerNorm, SpatialCrossMapLRN
 from bigdl_tpu_torch.nn.pooling import (SpatialAveragePooling,
                                         SpatialMaxPooling)
-from bigdl_tpu_torch.nn.recurrent import TimeDistributed
+from bigdl_tpu_torch.nn.recurrent import (BiRecurrent, Cell, GRUCell,
+                                          LSTMCell, Recurrent, RnnCell,
+                                          TimeDistributed)
+from bigdl_tpu_torch.nn.reductions import Mean
 from bigdl_tpu_torch.nn.shape_ops import Identity, Reshape, View
 from bigdl_tpu_torch.nn.table_ops import CAddTable
 
 __all__ = [
-    "CAddTable", "ClassNLLCriterion", "Concat", "ConcatTable", "Container",
-    "Criterion", "CrossEntropyCriterion", "Default", "Dropout", "Identity",
-    "LayerNorm", "Linear", "LogSoftMax", "Module",
-    "MultiHeadSelfAttention", "ReLU", "Reshape", "Sequential",
+    "BiRecurrent", "CAddTable", "Cell", "ClassNLLCriterion", "Concat",
+    "ConcatTable", "Container", "Criterion", "CrossEntropyCriterion",
+    "Default", "Dropout", "GRUCell", "Identity", "LSTMCell", "LayerNorm",
+    "Linear", "LogSoftMax", "Mean", "Module", "MultiHeadSelfAttention",
+    "Recurrent", "ReLU", "Reshape", "RnnCell", "Sequential",
     "SinusoidalPositionalEncoding", "SpatialAveragePooling",
     "SpatialConvolution", "SpatialCrossMapLRN", "SpatialMaxPooling", "Tanh",
     "TensorModule", "TimeDistributed", "View", "Xavier",

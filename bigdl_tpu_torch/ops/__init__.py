@@ -4,6 +4,11 @@ bigdl_tpu/ops/pallas_kernels.py), each beside its plain PyTorch version.
 ``KERNELS`` lists every kernel wrapper; each carries a ``launches`` count
 that only a real kernel launch increments.
 """
+from bigdl_tpu_torch.ops.bilstm import (bilstm_backward,
+                                        bilstm_backward_reference, bilstm_dwh,
+                                        bilstm_dwh_reference, bilstm_forward,
+                                        bilstm_forward_reference,
+                                        bilstm_recurrence)
 from bigdl_tpu_torch.ops.lrn import (lrn_backward, lrn_backward_reference,
                                      lrn_channel, lrn_forward,
                                      lrn_forward_reference)
@@ -22,7 +27,7 @@ from bigdl_tpu_torch.ops.sgd import fused_sgd, fused_sgd_reference
 
 KERNELS = (paged_attention, fused_sgd, maxpool2d_forward, maxpool2d_backward,
            maxpool2d_s1_forward, maxpool2d_s1_backward, lrn_forward,
-           lrn_backward)
+           lrn_backward, bilstm_forward, bilstm_backward, bilstm_dwh)
 
 
 def reset_launch_counts() -> None:
@@ -34,7 +39,9 @@ def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
-__all__ = ["KERNELS", "fused_sgd", "fused_sgd_reference", "launch_counts",
+__all__ = ["KERNELS", "bilstm_backward", "bilstm_backward_reference",
+           "bilstm_dwh", "bilstm_dwh_reference", "bilstm_forward",
+           "bilstm_forward_reference", "bilstm_recurrence", "fused_sgd", "fused_sgd_reference", "launch_counts",
            "lrn_backward", "lrn_backward_reference", "lrn_channel",
            "lrn_forward", "lrn_forward_reference",
            "maxpool2d", "maxpool2d_backward", "maxpool2d_backward_reference",

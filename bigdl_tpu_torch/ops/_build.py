@@ -26,7 +26,8 @@ SOURCES = {"paged_attention": "paged_attention.cu",
            "fused_sgd": "fused_sgd.cu",
            "maxpool2d": "maxpool2d.cu",
            "maxpool2d_s1": "maxpool2d_s1.cu",
-           "lrn": "lrn.cu"}
+           "lrn": "lrn.cu",
+           "bilstm": "bilstm.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

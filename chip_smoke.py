@@ -42,7 +42,20 @@ Phases, each failing with a non-zero exit:
    validates Top1/Top5 once; the launch counts show every LRN, pool and
    update went through its kernel, and three steps at batch 16, dropout
    off, equal the same steps on the CPU;
-6. one JSON line of kernels, then the card line, then the result line.
+6. the Bi-LSTM text classifier (examples/text_classifier.py --model
+   lstm at BASELINE config 4: 364,616 parameters, embed 200, hidden 128,
+   batch 128 of 500-token synthetic documents, lr 0.01, momentum 0.9)
+   trains two epochs (16 steps, Top1 every epoch); the launch counts show
+   every recurrence went through the ``bilstm`` kernels, forward,
+   backward and weight gradient, and three steps at batch 16 equal the
+   same steps on the CPU.  Its kernels are checked before the paths,
+   with phase 2: at the JAX tests' shapes, a ragged H, the largest H the
+   kernels take, T = 1 and the full width, against the plain versions
+   (or, where the 500-step chain leaves the tolerance, against twice the
+   plain version's own error from float64), with the weight gradient
+   timed beside one ``torch.einsum`` and the whole layer beside cuDNN's
+   ``torch.nn.LSTM``; one H past the limit is refused before a launch;
+7. one JSON line of kernels, then the card line, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -124,6 +137,27 @@ S1_CASES = [
     ((1, 1, 243, 243), (242, 242), ((0, 0), (0, 0))),
 ]
 NAN_S1_CASES = (0, 2, 7)
+# Bi-LSTM text classifier: examples/text_classifier.py --model lstm at
+# BASELINE config 4 (bench.py:317-323): 20 classes, embed 200, hidden 128,
+# batch 128, T 500; 1,280 synthetic documents (80/20 split: 8 steps and 2
+# validation batches an epoch), 2 epochs, lr 0.01, momentum 0.9
+TCLASSES, TEMBED, THIDDEN, TSEQ, TBATCH = 20, 200, 128, 500, 128
+TDOCS, TEPOCHS, TLR, TPARAMS = 1280, 2, 0.01, 364616
+TCHECK_BATCH, TCHECK_STEPS = 16, 3
+BILSTM_FWD_TOL = dict(rtol=1e-5, atol=1e-6)   # tests/test_recurrent.py:189
+BILSTM_BWD_TOL = dict(rtol=1e-4, atol=1e-5)   # tests/test_recurrent.py:193
+# where the 500-step chain or the 64,000-term weight-gradient sum leaves
+# those tolerances, the card is held to twice the plain fp32 version's own
+# error against a float64 plain run on the same inputs
+BILSTM_VS_64 = 2.0
+# (T, D, B, H): tests/test_recurrent.py:129,211 and
+# tests/test_pallas_ops.py:240, a ragged H, the largest H the kernels take
+# (ops.bilstm.MAX_HIDDEN), T = 1, then the classifier's full width in both
+# directions and in one
+BILSTM_CASES = [(7, 2, 3, 5), (9, 1, 4, 5), (13, 2, 37, 4),
+                (13, 2, 37, 100), (3, 2, 9, 558), (1, 2, 3, 5),
+                (1, 2, 128, 128),
+                (TSEQ, 2, TBATCH, THIDDEN), (TSEQ, 1, TBATCH, THIDDEN)]
 # tests/test_pallas_ops.py:37-44
 SGD_HYPERS = [
     {"lr": 0.1}, {"lr": 0.1, "dampening": 0.9},
@@ -538,6 +572,213 @@ def phase_conv_kernels(torch, ops):
              "max_abs_err": errs[name], **rows[name]} for name in where]
 
 
+def bilstm_inputs(torch, g, t, nd, b, h):
+    """zx and the cotangent of hs from N(0, 1), wht from the LSTMCell
+    init's U(-1/sqrt(H), 1/sqrt(H))."""
+    zx = torch.randn(t, nd, b, 4 * h, generator=g, device="cuda")
+    wht = (torch.rand(nd, h, 4 * h, generator=g, device="cuda") * 2
+           - 1) / h ** 0.5
+    gout = torch.randn(t, nd, b, h, generator=g, device="cuda")
+    return zx, wht, gout
+
+
+def held(torch, name, got, plain, want64, tol):
+    """``got`` against the plain fp32 version within ``tol``, or failing
+    that within BILSTM_VS_64 times the plain version's own error against
+    a float64 run on the same inputs; raises otherwise."""
+    err = float((got - plain).abs().max())
+    e_card = float((got.double() - want64).abs().max())
+    e_plain = float((plain.double() - want64).abs().max())
+    if torch.allclose(got, plain, **tol):
+        rule = "tol"
+    elif e_card <= BILSTM_VS_64 * e_plain:
+        rule = "float64"
+    else:
+        raise AssertionError(
+            f"{name}: {err:.3e} from the plain version; against float64 "
+            f"the card {e_card:.3e}, the plain version {e_plain:.3e}")
+    return {"err": err, "rule": rule, "card_vs_64": e_card,
+            "plain_vs_64": e_plain}
+
+
+def check_bilstm(torch, ops, g, case):
+    """Both forwards, the backward and the weight gradient against the
+    plain versions on the same inputs (float64 rule where the tolerances
+    are not met), and the autograd path equal to the wrappers bit for
+    bit (the kernels are deterministic)."""
+    zx, wht, gout = bilstm_inputs(torch, g, *case)
+    hs, cs = ops.bilstm_forward(zx, wht)
+    h_only = ops.bilstm_forward(zx, wht, with_c=False)
+    dzx = ops.bilstm_backward(zx, wht, hs, cs, gout)
+    dwh = ops.bilstm_dwh(hs, dzx)
+    zg, wg = zx.clone().requires_grad_(), wht.clone().requires_grad_()
+    ops.bilstm_recurrence(zg, wg).backward(gout)
+    torch.cuda.synchronize()
+    if not (torch.equal(h_only, hs) and torch.equal(zg.grad, dzx)
+            and torch.equal(wg.grad, dwh)):
+        raise AssertionError(f"bilstm {case}: the primal forward or the "
+                             f"autograd path differs from the wrappers")
+    hs_p, cs_p = ops.bilstm_forward_reference(zx, wht)
+    dzx_p = ops.bilstm_backward_reference(zx, wht, hs, cs, gout)
+    dwh_p = ops.bilstm_dwh_reference(hs, dzx)
+    z64, w64, h64, c64 = zx.double(), wht.double(), hs.double(), cs.double()
+    hs_64, cs_64 = ops.bilstm_forward_reference(z64, w64)
+    dzx_64 = ops.bilstm_backward_reference(z64, w64, h64, c64, gout.double())
+    dwh_64 = ops.bilstm_dwh_reference(h64, dzx.double())
+    name = f"bilstm {case}"
+    return {"h": held(torch, name + " h", hs, hs_p, hs_64, BILSTM_FWD_TOL),
+            "c": held(torch, name + " c", cs, cs_p, cs_64, BILSTM_FWD_TOL),
+            "dzx": held(torch, name + " dzx", dzx, dzx_p, dzx_64,
+                        BILSTM_BWD_TOL),
+            "dwh": held(torch, name + " dwh", dwh, dwh_p, dwh_64,
+                        BILSTM_BWD_TOL)}
+
+
+def bilstm_times(torch, ops, flush, g, case):
+    """Forward (with the c stack, as training runs it), backward and
+    weight-gradient rows at ``case``.  Bounds: forward zx, wht read, hs,
+    cs written, the recurrent product's multiply-adds; backward zx, wht,
+    hs, cs, gout read, dzx written, the gates' product recomputed and
+    dz . wht^T; weight gradient hs, dzx read, dwht written, one product.
+    The gate arithmetic (a few dozen operations per hidden unit) is left
+    out of the operation counts."""
+    zx, wht, gout = bilstm_inputs(torch, g, *case)
+    hs, cs = ops.bilstm_forward(zx, wht)
+    dzx = ops.bilstm_backward(zx, wht, hs, cs, gout)
+    n_h, n_w = hs.numel(), wht.numel()
+    flops = 2 * n_h * 4 * case[3]
+    rows = {}
+    for name, kernel, plain, nbytes, n_ops in (
+            ("forward", lambda: ops.bilstm_forward(zx, wht),
+             lambda: ops.bilstm_forward_reference(zx, wht),
+             4 * (4 * n_h + n_w + 2 * n_h), flops),
+            ("backward", lambda: ops.bilstm_backward(zx, wht, hs, cs, gout),
+             lambda: ops.bilstm_backward_reference(zx, wht, hs, cs, gout),
+             4 * (8 * n_h + n_w + 3 * n_h), 2 * flops),
+            ("dwh", lambda: ops.bilstm_dwh(hs, dzx),
+             lambda: ops.bilstm_dwh_reference(hs, dzx),
+             4 * (5 * n_h + n_w), flops)):
+        rows[name] = {"ms": time_ms(torch, kernel, flush),
+                      "plain_ms": time_ms(torch, plain, flush, reps=5),
+                      "queued_ms": time_queued_ms(torch, kernel),
+                      "library_ms": None, **byte_bound(nbytes, n_ops)}
+    rows["forward"]["primal_ms"] = time_ms(
+        torch, lambda: ops.bilstm_forward(zx, wht, with_c=False), flush)
+    # the weight gradient is one einsum in PyTorch (the t = 0 term is
+    # zero); the yardstick only, the port never calls it
+    library = lambda: torch.einsum("tdbk,tdbj->dkj", hs[:-1], dzx[1:])
+    rows["dwh"]["library_ms"] = time_ms(torch, library, flush)
+    rows["dwh"]["library_diff"] = float(
+        (library() - ops.bilstm_dwh(hs, dzx)).abs().max())
+    return rows
+
+
+def lstm_library_times(torch, flush, g):
+    """The yardstick the port never calls: ``torch.nn.LSTM`` (cuDNN),
+    bidirectional, at the classifier's full width, with the weights of
+    the port's ``BiRecurrent`` (w_ih = w[:, :E], w_hh = w[:, E:], b_ih =
+    bias, b_hh = 0).  It includes the input projection, so it stands
+    beside the port's whole layer (projection and kernels), forward with
+    autograd on and backward to the input and every weight."""
+    from bigdl_tpu_torch.nn import BiRecurrent, LSTMCell
+    from bigdl_tpu_torch.utils.random import generator
+
+    gen = generator(3)
+    port = BiRecurrent(*[LSTMCell(TEMBED, THIDDEN, device="cuda",
+                                  generator=gen) for _ in range(2)])
+    lib = torch.nn.LSTM(TEMBED, THIDDEN, batch_first=True,
+                        bidirectional=True).cuda()
+    with torch.no_grad():
+        for sfx, rec in (("", port.get(1)), ("_reverse", port.get(2))):
+            w = rec.cell.w
+            getattr(lib, "weight_ih_l0" + sfx).copy_(w[:, :TEMBED])
+            getattr(lib, "weight_hh_l0" + sfx).copy_(w[:, TEMBED:])
+            getattr(lib, "bias_ih_l0" + sfx).copy_(rec.cell.bias)
+            getattr(lib, "bias_hh_l0" + sfx).zero_()
+    x = torch.randn(TBATCH, TSEQ, TEMBED, generator=g, device="cuda")
+    gy = torch.randn(TBATCH, TSEQ, 2 * THIDDEN, generator=g, device="cuda")
+    xl, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+    yl, yp = lib(xl)[0], port(xp)
+    diff = float((yl - yp).detach().abs().max())
+    if diff > 1e-3:
+        raise AssertionError(f"nn.LSTM is not the same layer: {diff:.3e}")
+    return {"same_layer_diff": diff,
+            "library_fwd_ms": time_ms(torch, lambda: lib(x), flush),
+            "port_fwd_ms": time_ms(torch, lambda: port(x), flush),
+            "library_bwd_ms": time_ms(torch, lambda: torch.autograd.grad(
+                yl, [xl, *lib.parameters()], gy, retain_graph=True), flush),
+            "port_bwd_ms": time_ms(torch, lambda: torch.autograd.grad(
+                yp, [xp, *port.parameters()], gy, retain_graph=True), flush)}
+
+
+def check_hidden_limit(torch, ops):
+    """The largest H the recurrence blocks hold runs (one step against
+    the plain versions is in BILSTM_CASES); one more is refused before a
+    launch, by name."""
+    from bigdl_tpu_torch.ops.bilstm import MAX_HIDDEN
+
+    h = MAX_HIDDEN + 1
+    zx = torch.zeros(2, 1, 3, 4 * h, device="cuda")
+    try:
+        ops.bilstm_forward(zx, torch.zeros(1, h, 4 * h, device="cuda"))
+    except NotImplementedError as e:
+        print(f"bilstm H={h}: refused ({e})")
+    else:
+        raise AssertionError(f"bilstm H={h}: launched past the limit")
+
+
+def phase_bilstm_kernels(torch, ops):
+    """The recurrence kernels against their plain versions at the JAX
+    tests' shapes, a ragged H, T = 1 and the classifier's full width,
+    with times at the full width of both directions and the cuDNN
+    yardstick."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    errs = {case: check_bilstm(torch, ops, g, case) for case in BILSTM_CASES}
+    for case, res in errs.items():
+        print(f"bilstm {case}: " + "; ".join(
+            f"{q} max_abs_err={r['err']:.3e} ({r['rule']}; vs float64 card "
+            f"{r['card_vs_64']:.3e} plain {r['plain_vs_64']:.3e})"
+            for q, r in res.items()))
+    flush = torch.empty(64 * 2**20, device="cuda")   # 256 MB > 50 MB L2
+    full = (TSEQ, 2, TBATCH, THIDDEN)
+    rows = bilstm_times(torch, ops, flush, g, full)
+    check_hidden_limit(torch, ops)
+    # no PyTorch call runs the recurrence from a hoisted projection, so
+    # the forward and backward rows have no library_ms; cuDNN's layer
+    # (projection included) stands beside the port's whole layer instead
+    lib = lstm_library_times(torch, flush, g)
+    for name in ("fwd", "bwd"):
+        row = rows["forward" if name == "fwd" else "backward"]
+        row["layer_library_ms"] = lib[f"library_{name}_ms"]
+        row["layer_port_ms"] = lib[f"port_{name}_ms"]
+    for name, row in rows.items():
+        print(f"bilstm_{name} {full}: kernel_ms={row['ms']:.5f} "
+              f"({row['ms'] / TSEQ * 1e3:.3f} us/step) queued_ms="
+              f"{row['queued_ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+              f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}, "
+              f"{row['bytes']} bytes)"
+              + (f" primal_ms={row['primal_ms']:.5f}"
+                 if "primal_ms" in row else "")
+              + (f" library_ms={row['library_ms']:.5f} (einsum, "
+                 f"{row['library_diff']:.3e} from the kernel)"
+                 if row["library_ms"] is not None else ""))
+    print(f"bilstm layer (128, 500, 200) -> (128, 500, 256): port "
+          f"BiRecurrent forward {lib['port_fwd_ms']:.5f} ms, backward "
+          f"{lib['port_bwd_ms']:.5f} ms; torch.nn.LSTM (cuDNN) forward "
+          f"{lib['library_fwd_ms']:.5f} ms, backward "
+          f"{lib['library_bwd_ms']:.5f} ms; outputs "
+          f"{lib['same_layer_diff']:.3e} apart")
+    quantity = {"forward": ("h", "c"), "backward": ("dzx",), "dwh": ("dwh",)}
+    at = "bigdl_tpu/ops/pallas_kernels.py:"
+    replaces = {"forward": 606, "backward": 631, "dwh": 631}
+    return [{"name": f"bilstm_{name}", "route": "cuda", "ok": True,
+             "source": "bigdl_tpu_torch/csrc/bilstm.cu",
+             "replaces": at + str(replaces[name]),
+             "max_abs_err": max(r[q]["err"] for r in errs.values()
+                                for q in quantity[name]),
+             **rows[name]} for name in rows]
+
+
 def sgd_leaves(torch, g, shapes):
     return [[torch.randn(s, generator=g, device="cuda") for s in shapes]
             for _ in range(3)]
@@ -863,13 +1104,13 @@ def phase_inception(torch, ops, profile: bool):
     counts = ops.launch_counts()
     steps = int(opt.state["neval"]) - 1
     val_batches = len(opt.validation_log) * -(-IVAL // IBATCH)
-    want = {"fused_sgd": steps,
+    want = {**dict.fromkeys(counts, 0), "fused_sgd": steps,
             "lrn_forward": 2 * steps + 2 * val_batches,
             "lrn_backward": 2 * steps,
             "maxpool2d_s1_forward": 9 * steps + 9 * val_batches,
             "maxpool2d_s1_backward": 9 * steps,
             "maxpool2d_forward": 4 * steps + 4 * val_batches,
-            "maxpool2d_backward": 4 * steps, "paged_attention": 0}
+            "maxpool2d_backward": 4 * steps}
     if steps != ISTEPS or val_batches != 2 or counts != want:
         raise AssertionError(f"Inception launches {counts} after {steps} "
                              f"steps and {val_batches} validation batches, "
@@ -895,7 +1136,10 @@ def phase_inception(torch, ops, profile: bool):
           f"launches {counts}; losses {losses[0]:.6f} -> {losses[-1]:.6f}; "
           f"Top1 {val['Top1Accuracy']:.4f} Top5 {val['Top5Accuracy']:.4f}")
 
-    diff = inception_vs_cpu(torch, init)
+    check = inception_images(ICHECK_BATCH * ICHECK_STEPS, ISIZE, 2)
+    diff = card_vs_cpu(torch, init, lambda device: inception_run(
+        torch, device, init, check, ICHECK_BATCH,
+        max_iteration(ICHECK_STEPS), dropout=0.0))
     print(f"inception vs CPU, first batch of {ICHECK_BATCH}, dropout 0: "
           f"loss card {diff['loss'][0]:.8f} CPU {diff['loss'][1]:.8f}; "
           f"gradients, largest |card - CPU| / max|CPU| of a leaf "
@@ -925,22 +1169,157 @@ def phase_inception(torch, ops, profile: bool):
     return counts
 
 
-def inception_vs_cpu(torch, init):
-    """The card against the CPU (plain versions) from the same parameters
-    on the same batches, dropout off (the two draw different masks): the
-    first batch's loss and gradients, then ICHECK_STEPS optimizer steps'
-    losses and final parameters."""
+def text_docs(n, seed=0):
+    """examples/text_classifier.py:56-64, its synthetic corpus: class
+    means from N(0, 1) in embedding space, each document TSEQ embeddings
+    of N(0, 0.25) about its class's mean, label c + 1."""
+    from bigdl_tpu_torch.dataset import Sample
+
+    rng = np.random.RandomState(seed)
+    means = rng.randn(TCLASSES, TEMBED)
+    docs = []
+    for i in range(n):
+        c = i % TCLASSES
+        doc = (rng.randn(TSEQ, TEMBED) * 0.5 + means[c]).astype(np.float32)
+        docs.append(Sample(doc, np.asarray([c + 1.0])))
+    return docs
+
+
+def bilstm_run(torch, device, init_tree, docs, batch, end_trigger,
+               val_docs=None):
+    """examples/text_classifier.py:66-82 with ``--model lstm`` from
+    ``init_tree``: batches of ``batch`` (the tail dropped),
+    ``ClassNLLCriterion``, SGD at lr 0.01 and momentum 0.9, Top1 every
+    epoch when ``val_docs`` are given.  An optimizer ready to run."""
+    from bigdl_tpu_torch.dataset import DataSet, SampleToBatch
+    from bigdl_tpu_torch.models.textclassifier import TextClassifierBiLSTM
     from bigdl_tpu_torch.nn import ClassNLLCriterion
-    from bigdl_tpu_torch.optim import max_iteration
+    from bigdl_tpu_torch.optim import Optimizer, Top1Accuracy, every_epoch
+    from bigdl_tpu_torch.utils.table import T
+
+    train = DataSet.array(docs) >> SampleToBatch(batch, drop_last=True)
+    model = TextClassifierBiLSTM(TCLASSES, TEMBED, THIDDEN,
+                                 device=device).load_params(init_tree)
+    opt = Optimizer(model, train, ClassNLLCriterion(),
+                    state=T(learningRate=TLR, momentum=0.9),
+                    end_trigger=end_trigger, device=device)
+    if val_docs is not None:
+        val = DataSet.array(val_docs) >> SampleToBatch(batch, drop_last=True)
+        opt.set_validation(every_epoch(), val, [Top1Accuracy()])
+    return opt
+
+
+def phase_bilstm(torch, ops, profile: bool):
+    """The Bi-LSTM text classifier trains at full width on the card
+    through ``Optimizer(...).optimize()``; the launch counts show every
+    recurrence and update went through its kernel; three steps at batch
+    16 equal the same steps on the CPU."""
+    from bigdl_tpu_torch.models.textclassifier import TextClassifierBiLSTM
+    from bigdl_tpu_torch.nn.module import export_params
+    from bigdl_tpu_torch.optim import max_epoch, max_iteration
+    from bigdl_tpu_torch.utils.random import generator
+
+    init = export_params(TextClassifierBiLSTM(
+        TCLASSES, TEMBED, THIDDEN, device="cpu", generator=generator(0)))
+    n_params = sum(v.size for v in _leaves(init))
+    if n_params != TPARAMS:
+        raise AssertionError(f"TextClassifierBiLSTM has {n_params} "
+                             f"parameters, expected {TPARAMS}")
+    t0 = time.perf_counter()
+    docs = text_docs(TDOCS)
+    make_s = time.perf_counter() - t0
+    split = int(len(docs) * 0.8)
+    train, val = docs[:split], docs[split:]
+    # warm-up: cuBLAS handles, allocator, kernel library loads
+    bilstm_run(torch, "cuda", init, train, TBATCH, max_iteration(2)).optimize()
+    opt = bilstm_run(torch, "cuda", init, train, TBATCH, max_epoch(TEPOCHS),
+                     val)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    opt.optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    steps = int(opt.state["neval"]) - 1
+    val_batches = len(opt.validation_log) * (len(val) // TBATCH)
+    want = {**dict.fromkeys(counts, 0), "fused_sgd": steps,
+            "bilstm_forward": steps + val_batches,
+            "bilstm_backward": steps, "bilstm_dwh": steps}
+    if steps != TEPOCHS * (split // TBATCH) or counts != want:
+        raise AssertionError(f"Bi-LSTM launches {counts} after {steps} "
+                             f"steps and {val_batches} validation batches, "
+                             f"expected {want}")
+    losses = [l for _, l in opt.loss_log]
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"Bi-LSTM losses: {losses}")
+    val_s = opt.metrics.get("validate")[0]
+    loop_s = wall - val_s
+    fetch_s, fetches = opt.metrics.get("data fetch time")
+    dispatch_s, _ = opt.metrics.get("train time")
+    top1 = " ".join(f"{v['Top1Accuracy']:.4f}" for _, _, v in
+                    opt.validation_log)
+    step_ms = loop_s / steps * 1e3
+    print(f"bilstm: TextClassifierBiLSTM {n_params} params, {steps} steps "
+          f"of {TBATCH} x {TSEQ} x {TEMBED} over {split} synthetic "
+          f"documents (made in {make_s:.2f} s), {len(opt.validation_log)} "
+          f"validations of {len(val) // TBATCH} batches; wall {wall:.4f} s, "
+          f"{step_ms:.4f} ms/step and {steps * TBATCH * TSEQ / loop_s:.1f} "
+          f"tokens/s (validation {val_s:.4f} s excluded); host: dataset "
+          f"iterator and H2D copy {fetch_s / fetches * 1e3:.4f} ms/batch "
+          f"({fetch_s / loop_s:.4f} of the loop), dispatch "
+          f"{dispatch_s / steps * 1e3:.4f} ms/step; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B; launches {counts}; "
+          f"losses {' '.join(f'{l:.6f}' for l in losses)}; Top1 {top1}")
+
+    check = train[:TCHECK_BATCH * TCHECK_STEPS]
+    diff = card_vs_cpu(torch, init, lambda device: bilstm_run(
+        torch, device, init, check, TCHECK_BATCH,
+        max_iteration(TCHECK_STEPS)))
+    print(f"bilstm vs CPU, first batch of {TCHECK_BATCH} at full T/E/H: "
+          f"loss card {diff['loss'][0]:.8f} CPU {diff['loss'][1]:.8f}; "
+          f"gradients, largest |card - CPU| / max|CPU| of a leaf "
+          f"{diff['grad_rel']:.3e} ({diff['grad_leaf']}); against float64 "
+          f"on the CPU, the card's largest {diff['card_vs_64']:.3e} "
+          f"({diff['leaf_64']}, where the CPU's fp32 is "
+          f"{diff['cpu_vs_64']:.3e}; the CPU's largest "
+          f"{diff['cpu_vs_64_max']:.3e}); {TCHECK_STEPS} optimizer steps: "
+          f"losses card {diff['losses'][0]} CPU {diff['losses'][1]}, "
+          f"largest relative difference {diff['loss_rel']:.3e} (limit "
+          f"{LOSS_RTOL}); final params, largest absolute difference "
+          f"{diff['param_abs']:.3e} ({diff['param_leaf']}, whose largest "
+          f"update is {diff['param_step']:.3e}; limit {PARAM_ATOL}); CPU "
+          f"{diff['cpu_s']:.2f} s")
+    if profile:
+        busy_ms = profile_train(torch, lambda end: bilstm_run(
+            torch, "cuda", init, train, TBATCH, end), 5)
+        print(f"profile: device idle share of the unprofiled Bi-LSTM train "
+              f"step {1 - busy_ms / step_ms:.4f} ({busy_ms:.4f} of "
+              f"{step_ms:.4f} ms/step busy)")
+    grads_ok = (diff["grad_rel"] <= BILSTM_BWD_TOL["rtol"]
+                or diff["card_vs_64"] <= BILSTM_VS_64 * diff["cpu_vs_64_max"])
+    if (abs(diff["loss"][0] - diff["loss"][1]) > LOSS_RTOL * diff["loss"][1]
+            or not grads_ok or diff["loss_rel"] > LOSS_RTOL
+            or diff["param_abs"] > PARAM_ATOL):
+        raise AssertionError("the card's Bi-LSTM training left the CPU's")
+    return counts
+
+
+def card_vs_cpu(torch, init, make_run):
+    """The card against the CPU (plain versions) from the same parameters
+    ``init`` on the same batches: the first batch's loss and gradients,
+    then the optimizer's steps' losses and final parameters.
+    ``make_run(device)`` builds the optimizer of a few steps on
+    ``device`` (Inception: dropout off, since the two draw different
+    masks)."""
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
     from bigdl_tpu_torch.optim.local_optimizer import to_device
 
-    check = inception_images(ICHECK_BATCH * ICHECK_STEPS, ISIZE, 2)
     names = [".".join(k) for k in _paths(init)]
     out = {}
-    t0 = time.perf_counter()
     for device in ("cuda", "cpu"):
-        run = inception_run(torch, device, init, check, ICHECK_BATCH,
-                            max_iteration(ICHECK_STEPS), dropout=0.0)
+        run = make_run(device)
         batch = next(run.dataset.data(train=True))
         dev = torch.device(device)
         run.model.train()
@@ -957,8 +1336,7 @@ def inception_vs_cpu(torch, init):
         out["cuda"], out["cpu"])
     # the same first batch on the CPU in float64: how far each fp32 run's
     # gradients lie from it, leaf by leaf, over the leaf's largest entry
-    ref = inception_run(torch, "cpu", init, check, ICHECK_BATCH,
-                        max_iteration(ICHECK_STEPS), dropout=0.0)
+    ref = make_run("cpu")
     batch = next(ref.dataset.data(train=True))
     ref.model.double().train()
     ClassNLLCriterion()(ref.model(torch.from_numpy(batch.data).double()),
@@ -1196,7 +1574,8 @@ def main(argv) -> int:
 
     kernel_rows = ([phase_kernels(torch, ops)]
                    + phase_train_kernels(torch, ops)
-                   + phase_conv_kernels(torch, ops))
+                   + phase_conv_kernels(torch, ops)
+                   + phase_bilstm_kernels(torch, ops))
     if "--kernels" in argv:
         # the kernel phase alone: to time two trees' kernels in turns
         print(json.dumps({"kernels": kernel_rows}))
@@ -1205,7 +1584,8 @@ def main(argv) -> int:
     profile = "--profile" in argv
     by_path = {"serving": phase_slice(torch, ops, profile),
                "lenet": phase_train(torch, ops, profile),
-               "inception": phase_inception(torch, ops, profile)}
+               "inception": phase_inception(torch, ops, profile),
+               "bilstm": phase_bilstm(torch, ops, profile)}
     for row in kernel_rows:
         row["launches_by_path"] = {path: counts.get(row["name"], 0)
                                    for path, counts in by_path.items()}
@@ -1217,8 +1597,12 @@ def main(argv) -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "queued_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "ok")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in kernel_rows]}))
+    # the recurrence rows also carry the whole layer's times, cuDNN's
+    # nn.LSTM beside the port's BiRecurrent
+    extra = ("layer_library_ms", "layer_port_ms")
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
+        for r in kernel_rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

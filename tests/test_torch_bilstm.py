@@ -1,0 +1,197 @@
+"""The port's LSTM recurrence (bigdl_tpu_torch/ops/bilstm.py) against the
+JAX package's ``bilstm_recurrence`` run through the Pallas interpreter:
+the plain forward (h and c stacks), the plain backward (dzx) and weight
+gradient (dwht) against the kernel and its ``jax.vjp``, for one and two
+directions, T of 1, 7 and 13, ragged batches and gate blocks whose
+inputs differ, and against the JAX kernel's multi-step blocking
+(``block_t=4``); the primal forward; the ``torch.autograd.Function`` by
+``gradcheck`` in float64.  Tolerances are the JAX tests' own: forward
+rtol 1e-5 / atol 1e-6, gradients rtol 1e-4 / atol 1e-5 (the products sum
+in other orders).
+
+On the CPU the wrappers take their plain versions; the CUDA kernels are
+held against those on the card by ``chip_smoke.py``.
+"""
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bigdl_tpu.ops.pallas_kernels import _bilstm_fwd_call, bilstm_recurrence
+from bigdl_tpu_torch import ops
+from bigdl_tpu_torch.ops import bilstm
+from bigdl_tpu_torch.ops.bilstm import dwh_slices
+
+FWD = dict(rtol=1e-5, atol=1e-6)
+BWD = dict(rtol=1e-4, atol=1e-5)
+# (T, D, B, H): tests/test_recurrent.py:129,211, test_pallas_ops.py:240,
+# then T = 1 and ragged batches
+CASES = [(7, 2, 3, 5), (9, 1, 4, 5), (13, 2, 37, 4), (1, 2, 3, 5),
+         (1, 1, 2, 4), (13, 1, 5, 3), (7, 2, 1, 6)]
+# added to each gate block's inputs: a gate order that differs from
+# i, f, g, o changes every output
+GATE_SHIFT = (1.5, -1.0, 0.5, -2.0)
+
+
+def _inputs(t, nd, b, h, seed=0, shift=False):
+    rs = np.random.RandomState(seed)
+    zx = rs.randn(t, nd, b, 4 * h).astype(np.float32)
+    if shift:
+        zx += np.repeat(np.asarray(GATE_SHIFT, np.float32), h)
+    wht = (rs.randn(nd, h, 4 * h) * 0.3).astype(np.float32)
+    go = rs.randn(t, nd, b, h).astype(np.float32)
+    return zx, wht, go
+
+
+def _jax(zx, wht, go, block_t=1):
+    hs, vjp = jax.vjp(lambda a, w: bilstm_recurrence(a, w, True, block_t),
+                      jnp.asarray(zx), jnp.asarray(wht))
+    dzx, dwht = vjp(jnp.asarray(go))
+    return np.asarray(hs), np.asarray(dzx), np.asarray(dwht)
+
+
+@pytest.mark.parametrize("shift", [False, True], ids=["plain", "gates"])
+@pytest.mark.parametrize("case", CASES)
+def test_plain_versions_match_the_pallas_kernel(case, shift):
+    """h and c stacks, dzx and dwht of the wrappers (plain versions on the
+    CPU) and of the autograd path against the JAX kernel pair
+    interpreted."""
+    zx, wht, go = _inputs(*case, shift=shift)
+    hs_j, dzx_j, dw_j = _jax(zx, wht, go)
+    _, cs_j = _bilstm_fwd_call(jnp.asarray(zx), jnp.asarray(wht),
+                               interpret=True)
+    z, w, g = map(torch.from_numpy, (zx, wht, go))
+    hs, cs = ops.bilstm_forward(z, w)
+    np.testing.assert_allclose(hs.numpy(), hs_j, **FWD)
+    np.testing.assert_allclose(cs.numpy(), np.asarray(cs_j), **FWD)
+    dzx = ops.bilstm_backward(z, w, hs, cs, g)
+    np.testing.assert_allclose(dzx.numpy(), dzx_j, **BWD)
+    np.testing.assert_allclose(ops.bilstm_dwh(hs, dzx).numpy(), dw_j, **BWD)
+    zt, wt = z.clone().requires_grad_(), w.clone().requires_grad_()
+    y = ops.bilstm_recurrence(zt, wt)
+    (y * g).sum().backward()
+    np.testing.assert_allclose(y.detach().numpy(), hs_j, **FWD)
+    np.testing.assert_allclose(zt.grad.numpy(), dzx_j, **BWD)
+    np.testing.assert_allclose(wt.grad.numpy(), dw_j, **BWD)
+
+
+def test_matches_the_blocked_kernel():
+    """The JAX kernel at block_t = 4 over T = 13 (time zero-padded to 16)
+    is the same function."""
+    zx, wht, go = _inputs(13, 2, 37, 4, seed=1)
+    hs_j, dzx_j, dw_j = _jax(zx, wht, go, block_t=4)
+    zt = torch.from_numpy(zx).requires_grad_()
+    wt = torch.from_numpy(wht).requires_grad_()
+    y = ops.bilstm_recurrence(zt, wt)
+    (y * torch.from_numpy(go)).sum().backward()
+    np.testing.assert_allclose(y.detach().numpy(), hs_j, **FWD)
+    np.testing.assert_allclose(zt.grad.numpy(), dzx_j, **BWD)
+    np.testing.assert_allclose(wt.grad.numpy(), dw_j, **BWD)
+
+
+def test_gate_order_is_i_f_g_o():
+    """One step from h = c = 0 with no recurrent weight: c = s(i) tanh(g)
+    and h = s(o) tanh(c), whatever f is."""
+    zx, wht, _ = _inputs(1, 1, 2, 3, seed=2, shift=True)
+    wht[:] = 0.0
+    i, _, g, o = np.split(zx[0, 0].astype(np.float64), 4, axis=-1)
+    sig = lambda v: 1.0 / (1.0 + np.exp(-v))
+    c = sig(i) * np.tanh(g)
+    hs, cs = ops.bilstm_forward(torch.from_numpy(zx), torch.from_numpy(wht))
+    np.testing.assert_allclose(cs[0, 0].numpy(), c, **FWD)
+    np.testing.assert_allclose(hs[0, 0].numpy(), sig(o) * np.tanh(c), **FWD)
+
+
+@pytest.mark.parametrize("case", [CASES[0], CASES[3]])
+def test_primal_forward_writes_no_c_stack(case):
+    """The no-grad forward returns the with-c forward's h stack alone, and
+    ``bilstm_recurrence`` takes it when nothing needs a gradient."""
+    zx, wht, _ = _inputs(*case, seed=3)
+    z, w = torch.from_numpy(zx), torch.from_numpy(wht)
+    hs, _ = ops.bilstm_forward(z, w)
+    primal = ops.bilstm_forward(z, w, with_c=False)
+    assert isinstance(primal, torch.Tensor)
+    assert torch.equal(primal, hs)
+    with torch.no_grad():
+        assert torch.equal(ops.bilstm_recurrence(z.requires_grad_(), w), hs)
+
+
+def test_function_gradcheck_in_float64():
+    rs = np.random.RandomState(4)
+    zx = torch.from_numpy(rs.randn(3, 2, 2, 8)).requires_grad_()
+    wht = torch.from_numpy(rs.randn(2, 2, 8) * 0.5).requires_grad_()
+    assert torch.autograd.gradcheck(ops.bilstm_recurrence, (zx, wht))
+
+
+def test_cpu_path_counts_no_launch():
+    zx, wht, go = _inputs(7, 2, 3, 5)
+    ops.reset_launch_counts()
+    zt = torch.from_numpy(zx).requires_grad_()
+    (ops.bilstm_recurrence(zt, torch.from_numpy(wht))
+     * torch.from_numpy(go)).sum().backward()
+    with torch.no_grad():
+        ops.bilstm_recurrence(torch.from_numpy(zx), torch.from_numpy(wht))
+    counts = ops.launch_counts()
+    assert counts["bilstm_forward"] == counts["bilstm_backward"] == 0
+    assert counts["bilstm_dwh"] == 0
+    for k in (ops.bilstm_forward, ops.bilstm_backward, ops.bilstm_dwh):
+        assert k in ops.KERNELS
+
+
+def test_no_kernel_for_other_devices():
+    z = torch.zeros(2, 1, 3, 8, device="meta")
+    w = torch.zeros(1, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.bilstm_forward(z, w)
+
+
+def test_hidden_limit_mirrors_the_kernel_source():
+    """The wrapper's copy of the kernel's block constants is the source's,
+    and every H up to the limit fits a block's shared memory."""
+    src = (Path(bilstm.__file__).parents[1] / "csrc" / "bilstm.cu").read_text()
+    for name, value in (("kRows", bilstm._ROWS),
+                        ("kThreads", bilstm._THREADS),
+                        ("kMaxSmem", bilstm._MAX_SMEM)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    assert "kRows * 10 * H + (G > 1 ? G * kRows * 4 * H : 0)" in src
+    assert "kRows * 13 * H + (G > 1 ? G * kRows * H : 0)" in src
+    assert bilstm.MAX_HIDDEN == 558
+    assert all(max(bilstm.smem_bytes(h)) <= bilstm._MAX_SMEM
+               for h in range(1, bilstm.MAX_HIDDEN + 1))
+    assert max(bilstm.smem_bytes(bilstm.MAX_HIDDEN + 1)) > bilstm._MAX_SMEM
+
+
+@pytest.mark.parametrize("which", ["forward", "backward"])
+def test_hidden_above_the_limit_raises_before_a_launch(which):
+    """H = 559 is refused by name; H = 558 gets past the limit (and here
+    stops at the device check)."""
+    def call(h):
+        z = torch.zeros(2, 1, 3, 4 * h, device="meta")
+        w = torch.zeros(1, h, 4 * h, device="meta")
+        hs = torch.zeros(2, 1, 3, h, device="meta")
+        if which == "forward":
+            return ops.bilstm_forward(z, w)
+        return ops.bilstm_backward(z, w, hs, hs, hs)
+
+    with pytest.raises(NotImplementedError, match="run H <= 558"):
+        call(559)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        call(558)
+
+
+@pytest.mark.parametrize("t,b,h,nd,want", [
+    (500, 128, 128, 2, (9, 7120)),     # the classifier: 288 blocks
+    (13, 37, 4, 2, (8, 64)),
+    (1, 3, 5, 2, (1, 16)),
+    (0, 3, 5, 2, (1, 16)),
+])
+def test_weight_gradient_slices(t, b, h, nd, want):
+    """The slices of the weight gradient's split depend on the shape
+    alone and cover every time*batch row once."""
+    s, per = dwh_slices(t, b, h, nd)
+    assert (s, per) == want
+    assert per % 16 == 0 and (s - 1) * per < max(t * b, 1) <= s * per

@@ -30,7 +30,7 @@ def lm():
 @pytest.fixture()
 def port(lm):
     m = tt.TransformerLM(vocab_size=11, d_model=16, n_heads=2, n_layers=2,
-                         hidden=32)
+                         hidden=32, device="cpu")
     return tt.load_jax_params(
         m, jax.tree_util.tree_map(np.asarray, lm.params())).evaluate()
 

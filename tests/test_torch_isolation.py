@@ -78,3 +78,15 @@ def test_walk_covers_the_inception_slice():
         "ops.lrn", "ops.maxpool_s1", "ops._build", "nn.normalization",
         "nn.containers", "nn.shape_ops", "nn.init", "models.inception",
         "dataset.transformer")} <= names
+
+
+def test_walk_covers_the_recurrence_slice():
+    """The import probe reaches the text-classifier slice's modules."""
+    import pkgutil
+
+    import bigdl_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(bigdl_tpu_torch.__path__,
+                                                   "bigdl_tpu_torch.")}
+    assert {f"bigdl_tpu_torch.{n}" for n in (
+        "ops.bilstm", "nn.recurrent", "nn.reductions",
+        "models.textclassifier", "dataset.news20")} <= names

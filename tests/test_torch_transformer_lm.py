@@ -31,7 +31,7 @@ def lm():
 @pytest.fixture()
 def port(lm):
     m = tt.TransformerLM(vocab_size=11, d_model=16, n_heads=2, n_layers=2,
-                         hidden=32)
+                         hidden=32, device="cpu")
     tree = jax.tree_util.tree_map(np.asarray, lm.params())
     return tt.load_jax_params(m, tree).evaluate()
 
@@ -108,7 +108,7 @@ def test_lm_decode_spans_pages(lm, port):
 def test_export_params_round_trip(port):
     tree = tt.export_params(port)
     other = tt.TransformerLM(vocab_size=11, d_model=16, n_heads=2,
-                             n_layers=2, hidden=32)
+                             n_layers=2, hidden=32, device="cpu")
     tt.load_jax_params(other, tree)
     again = tt.export_params(other)
     flat_a = jax.tree_util.tree_leaves(tree)
@@ -131,3 +131,15 @@ def test_lm_decode_without_a_card_raises(port, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tt.lm_decode(port, [1, 2], 3)
+
+
+@pytest.mark.parametrize("build", [
+    lambda: tt.TransformerLM(11, 16, 2, 2, 32),
+    lambda: tt.encoder_block(16, 2, 32),
+])
+def test_model_factories_default_to_the_card(build, monkeypatch):
+    """Like every entry point of the port, the model factories place the
+    weights on the card unless the caller asks for the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build()

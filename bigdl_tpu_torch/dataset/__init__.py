@@ -1,12 +1,12 @@
 """Host data pipeline of the port (counterpart of bigdl_tpu/dataset):
-records, datasets, transformers, MNIST.  numpy only."""
+records, datasets, transformers, MNIST, text.  numpy only."""
 from bigdl_tpu_torch.dataset.dataset import (DataSet, LocalArrayDataSet,
                                              LocalDataSet,
                                              TransformedDataSet)
 from bigdl_tpu_torch.dataset.image import (HFlip, ImgNormalizer,
                                            ImgRdmCropper, ImgToBatch,
                                            LabeledImage)
-from bigdl_tpu_torch.dataset.sample import MiniBatch, Sample
+from bigdl_tpu_torch.dataset.sample import LabeledSentence, MiniBatch, Sample
 from bigdl_tpu_torch.dataset.transformer import (ChainedTransformer,
                                                  Identity, SampleToBatch,
                                                  Transformer)
@@ -17,7 +17,7 @@ GreyImgToBatch = ImgToBatch
 __all__ = [
     "ChainedTransformer", "DataSet", "GreyImgNormalizer", "GreyImgToBatch",
     "HFlip", "Identity", "ImgNormalizer", "ImgRdmCropper", "ImgToBatch",
-    "LabeledImage",
+    "LabeledImage", "LabeledSentence",
     "LocalArrayDataSet", "LocalDataSet", "MiniBatch", "Sample",
     "SampleToBatch", "TransformedDataSet", "Transformer",
 ]

@@ -2,8 +2,8 @@
 dataset/Sample.scala:33, Types.scala:74).
 
 ``Sample`` is a (feature, label) numpy pair on the host; ``MiniBatch`` a
-batched pair.  Host data stays numpy until a whole batch crosses to the
-device.
+batched pair; ``LabeledSentence`` a token-id sequence and its labels.
+Host data stays numpy until a whole batch crosses to the device.
 """
 from __future__ import annotations
 
@@ -54,3 +54,19 @@ class MiniBatch:
     def __repr__(self):
         return (f"MiniBatch(data{tuple(self.data.shape)}, "
                 f"labels{tuple(self.labels.shape)})")
+
+
+class LabeledSentence:
+    """Token-id sequence + per-position labels (ref text/Types.scala:33)."""
+
+    __slots__ = ("data", "label")
+
+    def __init__(self, data, label):
+        self.data = np.asarray(data)
+        self.label = np.asarray(label)
+
+    def data_length(self):
+        return len(self.data)
+
+    def label_length(self):
+        return len(self.label)

@@ -5,7 +5,8 @@ from bigdl_tpu_torch.nn.attention import (MultiHeadSelfAttention,
 from bigdl_tpu_torch.nn.containers import Concat, ConcatTable, Sequential
 from bigdl_tpu_torch.nn.conv import SpatialConvolution
 from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion, Criterion,
-                                          CrossEntropyCriterion)
+                                          CrossEntropyCriterion,
+                                          TimeDistributedCriterion)
 from bigdl_tpu_torch.nn.dropout import Dropout
 from bigdl_tpu_torch.nn.init import Default, Xavier
 from bigdl_tpu_torch.nn.linear import Linear
@@ -28,5 +29,6 @@ __all__ = [
     "Recurrent", "ReLU", "Reshape", "RnnCell", "Sequential",
     "SinusoidalPositionalEncoding", "SpatialAveragePooling",
     "SpatialConvolution", "SpatialCrossMapLRN", "SpatialMaxPooling", "Tanh",
-    "TensorModule", "TimeDistributed", "View", "Xavier",
+    "TensorModule", "TimeDistributed", "TimeDistributedCriterion", "View",
+    "Xavier",
 ]

@@ -72,3 +72,25 @@ class CrossEntropyCriterion(Criterion):
 
     def apply_loss(self, input, target):
         return self.nll.apply_loss(torch.log_softmax(input, dim=-1), target)
+
+
+class TimeDistributedCriterion(Criterion):
+    """``critrn`` at every timestep of (N, T, ...) input, against a
+    per-step target (N, T, ...) when the target has more than one dim,
+    else the same target at every step; the steps' losses summed, then
+    divided by T when ``size_average`` (ref
+    TimeDistributedCriterion.scala)."""
+
+    def __init__(self, critrn: Criterion, size_average: bool = False):
+        super().__init__(size_average)
+        self.critrn = critrn
+
+    def apply_loss(self, input, target):
+        t_len = input.shape[1]
+        target = torch.as_tensor(target, device=input.device)
+        per_step = target.dim() > 1
+        total = torch.stack([
+            self.critrn.apply_loss(input[:, t],
+                                   target[:, t] if per_step else target)
+            for t in range(t_len)]).sum()
+        return total / t_len if self.size_average else total

@@ -9,6 +9,9 @@ from bigdl_tpu_torch.ops.bilstm import (bilstm_backward,
                                         bilstm_dwh_reference, bilstm_forward,
                                         bilstm_forward_reference,
                                         bilstm_recurrence)
+from bigdl_tpu_torch.ops.gru import (gru_backward, gru_backward_reference,
+                                     gru_dwh, gru_dwh_reference, gru_forward,
+                                     gru_forward_reference, gru_recurrence)
 from bigdl_tpu_torch.ops.lrn import (lrn_backward, lrn_backward_reference,
                                      lrn_channel, lrn_forward,
                                      lrn_forward_reference)
@@ -23,11 +26,16 @@ from bigdl_tpu_torch.ops.maxpool_s1 import (maxpool2d_s1,
                                             maxpool2d_s1_forward_reference)
 from bigdl_tpu_torch.ops.paged_attention import (paged_attention,
                                                  paged_attention_reference)
+from bigdl_tpu_torch.ops.rnn import (rnn_backward, rnn_backward_reference,
+                                     rnn_dwh, rnn_dwh_reference, rnn_forward,
+                                     rnn_forward_reference, rnn_recurrence)
 from bigdl_tpu_torch.ops.sgd import fused_sgd, fused_sgd_reference
 
 KERNELS = (paged_attention, fused_sgd, maxpool2d_forward, maxpool2d_backward,
            maxpool2d_s1_forward, maxpool2d_s1_backward, lrn_forward,
-           lrn_backward, bilstm_forward, bilstm_backward, bilstm_dwh)
+           lrn_backward, bilstm_forward, bilstm_backward, bilstm_dwh,
+           rnn_forward, rnn_backward, rnn_dwh, gru_forward, gru_backward,
+           gru_dwh)
 
 
 def reset_launch_counts() -> None:
@@ -41,7 +49,10 @@ def launch_counts() -> dict:
 
 __all__ = ["KERNELS", "bilstm_backward", "bilstm_backward_reference",
            "bilstm_dwh", "bilstm_dwh_reference", "bilstm_forward",
-           "bilstm_forward_reference", "bilstm_recurrence", "fused_sgd", "fused_sgd_reference", "launch_counts",
+           "bilstm_forward_reference", "bilstm_recurrence", "fused_sgd",
+           "fused_sgd_reference", "gru_backward", "gru_backward_reference",
+           "gru_dwh", "gru_dwh_reference", "gru_forward",
+           "gru_forward_reference", "gru_recurrence", "launch_counts",
            "lrn_backward", "lrn_backward_reference", "lrn_channel",
            "lrn_forward", "lrn_forward_reference",
            "maxpool2d", "maxpool2d_backward", "maxpool2d_backward_reference",
@@ -50,4 +61,6 @@ __all__ = ["KERNELS", "bilstm_backward", "bilstm_backward_reference",
            "maxpool2d_s1_backward_reference", "maxpool2d_s1_forward",
            "maxpool2d_s1_forward_reference",
            "paged_attention", "paged_attention_reference",
-           "reset_launch_counts"]
+           "reset_launch_counts", "rnn_backward", "rnn_backward_reference",
+           "rnn_dwh", "rnn_dwh_reference", "rnn_forward",
+           "rnn_forward_reference", "rnn_recurrence"]

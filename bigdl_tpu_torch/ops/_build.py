@@ -3,15 +3,17 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into its own shared library, loaded with ``ctypes`` (no PyTorch headers,
 so a build takes seconds).  Builds run at first use, land in
-``bigdl_tpu_torch/build/`` and are cached by a hash of the source and
-the flags; :func:`build` starts one ``nvcc`` per missing library, all at
-once.  Nothing here runs at import time.
+``bigdl_tpu_torch/build/`` and are cached by a hash of the source, the
+local headers it includes (``#include "..."``, followed through the
+headers they include) and the flags; :func:`build` starts one ``nvcc``
+per missing library, all at once.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -27,7 +29,9 @@ SOURCES = {"paged_attention": "paged_attention.cu",
            "maxpool2d": "maxpool2d.cu",
            "maxpool2d_s1": "maxpool2d_s1.cu",
            "lrn": "lrn.cu",
-           "bilstm": "bilstm.cu"}
+           "bilstm": "bilstm.cu",
+           "rnn": "rnn.cu",
+           "gru": "gru.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,10 +52,30 @@ def nvcc() -> str:
                        "kernels are built from source at first use")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list:
+    """The files a kernel's library is built from: its source, then every
+    local header it includes, directly or through another header, in the
+    order first met."""
+    files, todo = [], [CSRC / SOURCES[name]]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _LOCAL_INCLUDE.findall(path.read_bytes())]
+    return files
+
+
 def target(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return build_dir() / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> dict:

@@ -1,0 +1,118 @@
+"""What the recurrence wrappers (``ops.bilstm``, ``ops.rnn``, ``ops.gru``)
+share: the row rule of ``csrc/recurrence_block.cuh``, the weight
+gradient's slices (``csrc/recurrence_dwh.cuh``) and their argument
+checks.
+
+A recurrence block keeps the state of its batch rows in shared memory.
+It takes the most of 8, 4, 2 or 1 rows whose forward and backward blocks
+both fit a block's shared memory (:func:`rows_for`); the largest H that
+fits at one row (:func:`max_hidden`) is a kernel's limit, and the
+wrappers refuse a larger H before any launch.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from bigdl_tpu_torch.ops import _build
+
+# csrc/recurrence_block.cuh's kRowChoices, kThreads and kMaxSmem (a
+# block's shared memory on sm_90, bytes)
+ROW_CHOICES, THREADS, MAX_SMEM = (8, 4, 2, 1), 512, 232448
+VP, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+DIMS = [I, I, I, I, I, VP]   # T D B H, device, stream
+
+
+def groups(m, n):
+    """recurrence_block.cuh ``groups``: the split of an m-long reduction
+    of an n-wide product across a recurrence block."""
+    return 1 if n >= THREADS else min(THREADS // n, m)
+
+
+def rows_for(hdim, smem_bytes):
+    """The batch rows of a block at H = ``hdim``: the most of
+    ROW_CHOICES whose blocks fit, ``smem_bytes(hdim, rows)`` giving their
+    (forward, backward) bytes; 0 when not even one row fits."""
+    return next((r for r in ROW_CHOICES
+                 if max(smem_bytes(hdim, r)) <= MAX_SMEM), 0)
+
+
+def max_hidden(smem_bytes):
+    """The largest H a kernel takes: the last that fits at one row (every
+    smaller H fits too; the tests check it)."""
+    lo, hi = 1, 1
+    while max(smem_bytes(hi, 1)) <= MAX_SMEM:
+        lo, hi = hi, hi * 2
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if max(smem_bytes(mid, 1)) <= MAX_SMEM else (lo, mid)
+    return lo
+
+
+def dwh_slices(t, b, k, j, nd):
+    """(S, rows a slice) of a weight gradient's split over the time*batch
+    axis, for a (K, J) gradient of ``nd`` directions: enough 64x64 output
+    tiles to give two waves of blocks on 132 SMs, slices a multiple of 16
+    rows; a function of the shape alone, so the sum's order is too."""
+    rows = t * b
+    if rows == 0 or nd * k * j == 0:
+        return 1, 16
+    tiles = nd * -(-k // 64) * -(-j // 64)
+    s = max(1, min(-(-264 // tiles), -(-rows // 64)))
+    per = -(-rows // s)
+    per = -(-per // 16) * 16
+    return -(-rows // per), per
+
+
+_TYPED: dict = {}
+
+
+def load(name, setup):
+    """The kernel library ``name``, its entry points typed by
+    ``setup(lib)`` once."""
+    lib = _TYPED.get(name)
+    if lib is None:
+        lib = _build.load(name)
+        setup(lib)
+        lib.bigdl_cuda_error_string.argtypes = [I]
+        lib.bigdl_cuda_error_string.restype = ctypes.c_char_p
+        _TYPED[name] = lib
+    return lib
+
+
+def check(kernel, v, name, device, shape):
+    if v.device != device:
+        raise ValueError(f"{kernel}: {name} on {v.device}, expected {device}")
+    if v.dtype != torch.float32:
+        raise TypeError(f"{kernel}: {name} must be float32, got {v.dtype}")
+    if tuple(v.shape) != tuple(shape) or not v.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be a contiguous "
+                         f"{tuple(shape)} tensor, got {tuple(v.shape)}")
+
+
+def check_hidden(kernel, hdim, limit, smem_bytes):
+    """Refuses an H past the kernel's limit, by name, before a launch."""
+    if hdim > limit:
+        raise NotImplementedError(
+            f"{kernel}: H={hdim} needs {max(smem_bytes(hdim, 1))} bytes of "
+            f"shared memory a block even at one batch row, more than the "
+            f"card's {MAX_SMEM}; the kernels run H <= {limit}")
+
+
+def check_device(kernel, t):
+    if t.device.type != "cuda":
+        raise ValueError(f"{kernel}: no kernel for device {t.device}")
+
+
+def raise_on(lib, err, kernel, which, hdim):
+    if err != 0:
+        msg = lib.bigdl_cuda_error_string(err).decode()
+        raise RuntimeError(f"{kernel} {which} kernel launch failed at "
+                           f"H={hdim}: {msg}")
+
+
+def shift_prev(xs, x0=None):
+    """xs[t] -> xs[t-1] along time, ``x0`` (zeros when None) at t = 0."""
+    first = torch.zeros_like(xs[:1]) if x0 is None else x0[None]
+    return torch.cat([first, xs[:-1]])

@@ -14,64 +14,53 @@ three wrappers launch the hand-written ``csrc/bilstm.cu`` kernels or
 raise; on CPU tensors they run the plain versions beside them.  There is
 no other path.  Each wrapper's ``launches`` counts its kernel calls only.
 
-The recurrence blocks keep their 8 batch rows' state in shared memory,
-which grows with H: the kernels run H <= ``MAX_HIDDEN`` (558), and a
-larger H raises ``NotImplementedError`` before any launch (the plain
+The recurrence blocks keep their batch rows' state in shared memory:
+8 rows up to H = 558, then 4, 2 and 1 as H grows (the row rule of
+``ops._recurrence``), so the kernels run H <= ``MAX_HIDDEN`` (4,470) and
+a larger H raises ``NotImplementedError`` before any launch (the plain
 versions on the CPU have no such limit).
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from bigdl_tpu_torch.ops import _build
+from bigdl_tpu_torch.ops import _recurrence as rec
 
-_VP = ctypes.c_void_p
-_I = ctypes.c_int
-_LL = ctypes.c_longlong
-_DIMS = [_I, _I, _I, _I, _I, _VP]  # T D B H, device, stream
-_lib_cache = []
-# csrc/bilstm.cu's kRows, kThreads and kMaxSmem (a block's shared memory
-# on sm_90, bytes)
-_ROWS, _THREADS, _MAX_SMEM = 8, 512, 232448
+_KERNEL = "bilstm"
 
 
-def _groups(m, n):
-    """csrc/bilstm.cu ``groups``: the split of an m-long reduction of an
-    n-wide product across a recurrence block."""
-    return 1 if n >= _THREADS else min(_THREADS // n, m)
-
-
-def smem_bytes(hdim):
-    """(forward, backward) shared memory of a recurrence block at H =
-    ``hdim``, as csrc/bilstm.cu's ``fwd_smem_floats``/``bwd_smem_floats``
-    size it."""
-    g_f, g_b = _groups(hdim, 4 * hdim), _groups(4 * hdim, hdim)
-    fwd = _ROWS * 10 * hdim + (g_f * _ROWS * 4 * hdim if g_f > 1 else 0)
-    bwd = _ROWS * 13 * hdim + (g_b * _ROWS * hdim if g_b > 1 else 0)
+def smem_bytes(hdim, rows=8):
+    """(forward, backward) shared memory of a recurrence block of
+    ``rows`` batch rows at H = ``hdim``, as csrc/bilstm.cu's
+    ``fwd_smem_floats``/``bwd_smem_floats`` size it."""
+    g_f, g_b = rec.groups(hdim, 4 * hdim), rec.groups(4 * hdim, hdim)
+    fwd = rows * 10 * hdim + (g_f * rows * 4 * hdim if g_f > 1 else 0)
+    bwd = rows * 13 * hdim + (g_b * rows * hdim if g_b > 1 else 0)
     return 4 * fwd, 4 * bwd
 
 
-# the largest H whose blocks fit; every smaller H fits too (tested)
-MAX_HIDDEN = max(h for h in range(1, 4096)
-                 if max(smem_bytes(h)) <= _MAX_SMEM)
+def rows_for(hdim):
+    """The batch rows of a recurrence block at H = ``hdim``."""
+    return rec.rows_for(hdim, smem_bytes)
 
 
-def _lib() -> ctypes.CDLL:
-    if not _lib_cache:
-        lib = _build.load("bilstm")
-        lib.bigdl_lstm_fwd_f32.argtypes = [_VP] * 4 + _DIMS
-        lib.bigdl_lstm_fwd_f32.restype = _I
-        lib.bigdl_lstm_bwd_f32.argtypes = [_VP] * 7 + _DIMS
-        lib.bigdl_lstm_bwd_f32.restype = _I
-        lib.bigdl_lstm_dwh_f32.argtypes = ([_VP] * 4 + [_I] * 5 + [_LL]
-                                           + _DIMS[4:])
-        lib.bigdl_lstm_dwh_f32.restype = _I
-        lib.bigdl_cuda_error_string.argtypes = [_I]
-        lib.bigdl_cuda_error_string.restype = ctypes.c_char_p
-        _lib_cache.append(lib)
-    return _lib_cache[0]
+#: the largest H the kernels take (one batch row a block)
+MAX_HIDDEN = rec.max_hidden(smem_bytes)
+
+
+def _setup(lib):
+    lib.bigdl_lstm_fwd_f32.argtypes = [rec.VP] * 4 + rec.DIMS
+    lib.bigdl_lstm_fwd_f32.restype = rec.I
+    lib.bigdl_lstm_bwd_f32.argtypes = [rec.VP] * 7 + rec.DIMS
+    lib.bigdl_lstm_bwd_f32.restype = rec.I
+    lib.bigdl_lstm_dwh_f32.argtypes = ([rec.VP] * 4 + [rec.I] * 5
+                                       + [rec.LL] + rec.DIMS[4:])
+    lib.bigdl_lstm_dwh_f32.restype = rec.I
+
+
+def _lib():
+    return rec.load(_KERNEL, _setup)
 
 
 def _gates(z, hdim):
@@ -79,11 +68,6 @@ def _gates(z, hdim):
     return (torch.sigmoid(z[..., :hdim]), torch.sigmoid(z[..., hdim:2 * hdim]),
             torch.tanh(z[..., 2 * hdim:3 * hdim]),
             torch.sigmoid(z[..., 3 * hdim:]))
-
-
-def _shift_prev(xs):
-    """xs[t] -> xs[t-1] along time, zeros at t = 0 (the initial state)."""
-    return torch.cat([torch.zeros_like(xs[:1]), xs[:-1]])
 
 
 def bilstm_forward_reference(zx, wht, with_c=True):
@@ -109,7 +93,7 @@ def bilstm_backward_reference(zx, wht, hs, cs, gout):
     """Plain version of the backward: dzx, from a reverse loop over T that
     recomputes the gates from zx[t] + hprev . wht."""
     hdim = wht.shape[1]
-    hprev, cprev = _shift_prev(hs), _shift_prev(cs)
+    hprev, cprev = rec.shift_prev(hs), rec.shift_prev(cs)
     dh = zx.new_zeros(hs.shape[1:])
     dc = zx.new_zeros(hs.shape[1:])
     dzx = torch.empty_like(zx)
@@ -132,7 +116,7 @@ def bilstm_backward_reference(zx, wht, hs, cs, gout):
 def bilstm_dwh_reference(hs, dzx):
     """Plain version of the weight gradient: one einsum of the h stack
     read at t - 1 and dzx."""
-    return torch.einsum("tdbk,tdbj->dkj", _shift_prev(hs), dzx)
+    return torch.einsum("tdbk,tdbj->dkj", rec.shift_prev(hs), dzx)
 
 
 def bilstm_forward(zx, wht, with_c=True):
@@ -166,17 +150,8 @@ def bilstm_backward(zx, wht, hs, cs, gout):
 
 def dwh_slices(t, b, hdim, nd):
     """(S, rows a slice) of the weight gradient's split over the
-    time*batch axis: enough 64x64 output tiles to give two waves of
-    blocks on 132 SMs, slices a multiple of 16 rows; a function of the
-    shape alone, so the sum's order is too."""
-    rows = t * b
-    if rows == 0 or nd * hdim == 0:
-        return 1, 16
-    tiles = nd * -(-hdim // 64) * -(-4 * hdim // 64)
-    s = max(1, min(-(-264 // tiles), -(-rows // 64)))
-    per = -(-rows // s)
-    per = -(-per // 16) * 16
-    return -(-rows // per), per
+    time*batch axis (``ops._recurrence.dwh_slices`` at J = 4H)."""
+    return rec.dwh_slices(t, b, hdim, 4 * hdim, nd)
 
 
 def bilstm_dwh(hs, dzx):
@@ -184,8 +159,7 @@ def bilstm_dwh(hs, dzx):
     stack ``hs`` (T, D, B, H) and ``dzx`` (T, D, B, 4H)."""
     if hs.device.type == "cpu":
         return bilstm_dwh_reference(hs, dzx)
-    if hs.device.type != "cuda":
-        raise ValueError(f"bilstm: no kernel for device {hs.device}")
+    rec.check_device(_KERNEL, hs)
     t, nd, b, h4 = dzx.shape
     hdim = h4 // 4
     _check(dzx, "dzx", hs.device, (t, nd, b, h4))
@@ -198,7 +172,7 @@ def bilstm_dwh(hs, dzx):
                                  part.data_ptr(), dwht.data_ptr(), t, nd, b,
                                  hdim, s, rows,
                                  *_build.device_stream(hs.device))
-    _raise_on(err, "dwh", hdim)
+    rec.raise_on(lib, err, _KERNEL, "dwh", hdim)
     bilstm_dwh.launches += 1
     return dwht
 
@@ -209,13 +183,7 @@ bilstm_dwh.launches = 0
 
 
 def _check(v, name, device, shape):
-    if v.device != device:
-        raise ValueError(f"bilstm: {name} on {v.device}, expected {device}")
-    if v.dtype != torch.float32:
-        raise TypeError(f"bilstm: {name} must be float32, got {v.dtype}")
-    if tuple(v.shape) != tuple(shape) or not v.is_contiguous():
-        raise ValueError(f"bilstm: {name} must be a contiguous "
-                         f"{tuple(shape)} tensor, got {tuple(v.shape)}")
+    rec.check(_KERNEL, v, name, device, shape)
 
 
 def _check_inputs(zx, wht):
@@ -223,13 +191,8 @@ def _check_inputs(zx, wht):
         raise ValueError(f"bilstm: zx must be (T, D, B, 4H), got "
                          f"{tuple(zx.shape)}")
     t, nd, b, h4 = zx.shape
-    if h4 // 4 > MAX_HIDDEN:
-        raise NotImplementedError(
-            f"bilstm: H={h4 // 4} needs {max(smem_bytes(h4 // 4))} bytes of "
-            f"shared memory a block, more than the card's {_MAX_SMEM}; the "
-            f"recurrence kernels run H <= {MAX_HIDDEN} (ROADMAP, queue 3)")
-    if zx.device.type != "cuda":
-        raise ValueError(f"bilstm: no kernel for device {zx.device}")
+    rec.check_hidden(_KERNEL, h4 // 4, MAX_HIDDEN, smem_bytes)
+    rec.check_device(_KERNEL, zx)
     _check(zx, "zx", zx.device, (t, nd, b, h4))
     _check(wht, "wht", zx.device, (nd, h4 // 4, h4))
     return t, nd, b, h4 // 4
@@ -240,14 +203,7 @@ def _run(which, tensors, t, nd, b, hdim):
     fn = lib.bigdl_lstm_fwd_f32 if which == "fwd" else lib.bigdl_lstm_bwd_f32
     ptrs = [None if v is None else v.data_ptr() for v in tensors]
     err = fn(*ptrs, t, nd, b, hdim, *_build.device_stream(tensors[0].device))
-    _raise_on(err, which, hdim)
-
-
-def _raise_on(err, which, hdim):
-    if err != 0:
-        msg = _lib().bigdl_cuda_error_string(err).decode()
-        raise RuntimeError(f"bilstm {which} kernel launch failed at "
-                           f"H={hdim}: {msg}")
+    rec.raise_on(lib, err, _KERNEL, which, hdim)
 
 
 class _BiLSTM(torch.autograd.Function):

@@ -1,0 +1,232 @@
+"""Direction-batched GRU recurrence over hoisted input projections
+(counterpart of bigdl_tpu/ops/pallas_kernels.py ``gru_recurrence``,
+:857).
+
+:func:`gru_recurrence` is the differentiable entry point: zrz
+(T, D, B, 2H) and zn (T, D, B, H), the projections plus biases of D
+directions, and wrz (D, H, 2H) and wh (D, H, H) give the h stack
+(T, D, B, H) from h = 0:
+
+    r, z = sig(zrz[t] + h . wrz),  n = tanh(zn[t] + (r o h) . wh),
+    h' = (1 - z) n + z h
+
+(``_gru_gates``/``_gru_fwd_kernel``).  Under autograd it runs
+:func:`gru_forward` with its inputs and hs as residuals (the JAX
+``_gru_vjp_fwd``), and its backward is :func:`gru_backward` (dzrz and
+dzn in reverse time, r, z and n recomputed from the h stack, and the
+r o hprev stack) then :func:`gru_dwh` (dwrz = sum_t hprev^T . dzrz, dwh =
+sum_t (r o hprev)^T . dzn).  On CUDA tensors the three wrappers launch
+the hand-written ``csrc/gru.cu`` kernels or raise; on CPU tensors they
+run the plain versions beside them.  Each wrapper's ``launches`` counts
+its kernel calls only.  The blocks follow the row rule of
+``ops._recurrence``: H <= ``MAX_HIDDEN``, a larger H is refused before a
+launch.
+"""
+from __future__ import annotations
+
+import torch
+
+from bigdl_tpu_torch.ops import _build
+from bigdl_tpu_torch.ops import _recurrence as rec
+
+_KERNEL = "gru"
+
+
+def smem_bytes(hdim, rows=8):
+    """(forward, backward) shared memory of a recurrence block of
+    ``rows`` batch rows at H = ``hdim``, as csrc/gru.cu's
+    ``gru_fwd_smem_floats``/``gru_bwd_smem_floats`` size it."""
+    def red(*products):   # (groups, width) of each product of the block
+        return max(g * rows * n if g > 1 else 0 for g, n in products)
+
+    h, g = hdim, rec.groups
+    fwd = rows * 9 * h + red((g(h, 2 * h), 2 * h), (g(h, h), h))
+    bwd = rows * 11 * h + red((g(h, h), h), (g(2 * h, h), h))
+    return 4 * fwd, 4 * bwd
+
+
+def rows_for(hdim):
+    return rec.rows_for(hdim, smem_bytes)
+
+
+#: the largest H the kernels take (one batch row a block)
+MAX_HIDDEN = rec.max_hidden(smem_bytes)
+
+
+def _setup(lib):
+    lib.bigdl_gru_fwd_f32.argtypes = [rec.VP] * 5 + rec.DIMS
+    lib.bigdl_gru_fwd_f32.restype = rec.I
+    lib.bigdl_gru_bwd_f32.argtypes = [rec.VP] * 11 + rec.DIMS
+    lib.bigdl_gru_bwd_f32.restype = rec.I
+    lib.bigdl_gru_dwh_f32.argtypes = ([rec.VP] * 7 + [rec.I] * 5
+                                      + [rec.LL, rec.I, rec.LL]
+                                      + rec.DIMS[4:])
+    lib.bigdl_gru_dwh_f32.restype = rec.I
+
+
+def _lib():
+    return rec.load(_KERNEL, _setup)
+
+
+def _gates(zrz_t, zn_t, h, wrz, wh):
+    """r, z and n of one step from the carried h (``_gru_gates``)."""
+    hdim = h.shape[-1]
+    rz = torch.sigmoid(zrz_t + torch.matmul(h, wrz))
+    r, z = rz[..., :hdim], rz[..., hdim:]
+    return r, z, torch.tanh(zn_t + torch.matmul(r * h, wh))
+
+
+def gru_forward_reference(zrz, zn, wrz, wh):
+    """Plain version of the forward: a loop over T with ``torch.matmul``."""
+    t, nd, b, hdim = zn.shape
+    h = zn.new_zeros(nd, b, hdim)
+    hs = []
+    for step in range(t):
+        _, z, n = _gates(zrz[step], zn[step], h, wrz, wh)
+        h = (1.0 - z) * n + z * h
+        hs.append(h)
+    return torch.stack(hs) if hs else zn.new_zeros(0, nd, b, hdim)
+
+
+def gru_backward_reference(zrz, zn, wrz, wh, hs, gout):
+    """Plain version of the backward (``_gru_bwd_kernel``): (dzrz, dzn,
+    rh) from a reverse loop over T that recomputes r, z and n from
+    zrz[t], zn[t] and hprev; rh is the r o hprev stack."""
+    hprev = rec.shift_prev(hs)
+    dh = hs.new_zeros(hs.shape[1:])
+    dzrz, dzn, rh = torch.empty_like(zrz), torch.empty_like(zn), \
+        torch.empty_like(hs)
+    wh_t, wrz_t = wh.transpose(1, 2), wrz.transpose(1, 2)
+    for step in reversed(range(hs.shape[0])):
+        hp = hprev[step]
+        r, z, n = _gates(zrz[step], zn[step], hp, wrz, wh)
+        dh_tot = gout[step] + dh
+        dz = dh_tot * (hp - n)
+        dn = dh_tot * (1.0 - z) * (1.0 - n * n)
+        drh = torch.matmul(dn, wh_t)
+        d_rz = torch.cat([drh * hp * r * (1.0 - r), dz * z * (1.0 - z)],
+                         dim=-1)
+        dzrz[step], dzn[step], rh[step] = d_rz, dn, r * hp
+        dh = dh_tot * z + drh * r + torch.matmul(d_rz, wrz_t)
+    return dzrz, dzn, rh
+
+
+def gru_dwh_reference(hs, rh, dzrz, dzn):
+    """Plain version of the weight gradients: dwrz from the h stack read
+    at t - 1 and dzrz, dwh from the r o hprev stack and dzn."""
+    return (torch.einsum("tdbk,tdbj->dkj", rec.shift_prev(hs), dzrz),
+            torch.einsum("tdbk,tdbj->dkj", rh, dzn))
+
+
+def gru_forward(zrz, zn, wrz, wh):
+    """The h stack (T, D, B, H) over ``zrz`` (T, D, B, 2H), ``zn``
+    (T, D, B, H), ``wrz`` (D, H, 2H) and ``wh`` (D, H, H), all f32."""
+    if zn.device.type == "cpu":
+        return gru_forward_reference(zrz, zn, wrz, wh)
+    t, nd, b, hdim = _check_inputs(zrz, zn, wrz, wh)
+    hs = zn.new_empty(t, nd, b, hdim)
+    lib = _lib()
+    err = lib.bigdl_gru_fwd_f32(zrz.data_ptr(), zn.data_ptr(),
+                                wrz.data_ptr(), wh.data_ptr(), hs.data_ptr(),
+                                t, nd, b, hdim,
+                                *_build.device_stream(zn.device))
+    rec.raise_on(lib, err, _KERNEL, "fwd", hdim)
+    gru_forward.launches += 1
+    return hs
+
+
+def gru_backward(zrz, zn, wrz, wh, hs, gout):
+    """(dzrz (T, D, B, 2H), dzn (T, D, B, H), rh (T, D, B, H)) from the
+    forward's inputs, its ``hs`` and the cotangent ``gout`` of hs; rh is
+    the r o hprev stack the weight gradient of wh reads."""
+    if zn.device.type == "cpu":
+        return gru_backward_reference(zrz, zn, wrz, wh, hs, gout)
+    t, nd, b, hdim = _check_inputs(zrz, zn, wrz, wh)
+    for v, name in ((hs, "hs"), (gout, "gout")):
+        _check(v, name, zn.device, (t, nd, b, hdim))
+    dzrz, dzn, rh = torch.empty_like(zrz), torch.empty_like(zn), \
+        torch.empty_like(zn)
+    wrzt = zn.new_empty(nd, 2 * hdim, hdim)   # scratch: the weights
+    wht = zn.new_empty(nd, hdim, hdim)        # transposed
+    lib = _lib()
+    err = lib.bigdl_gru_bwd_f32(*(v.data_ptr() for v in (
+        zrz, zn, wrz, wh, hs, gout, dzrz, dzn, rh, wrzt, wht)),
+        t, nd, b, hdim, *_build.device_stream(zn.device))
+    rec.raise_on(lib, err, _KERNEL, "bwd", hdim)
+    gru_backward.launches += 1
+    return dzrz, dzn, rh
+
+
+def gru_dwh(hs, rh, dzrz, dzn):
+    """(dwrz (D, H, 2H), dwh (D, H, H)): sums over t and b of hprev^T .
+    dzrz (the h stack ``hs`` read at t - 1, zeros at t = 0) and of rh^T .
+    dzn."""
+    if hs.device.type == "cpu":
+        return gru_dwh_reference(hs, rh, dzrz, dzn)
+    rec.check_device(_KERNEL, hs)
+    t, nd, b, hdim = hs.shape
+    for v, name, width in ((hs, "hs", hdim), (rh, "rh", hdim),
+                           (dzrz, "dzrz", 2 * hdim), (dzn, "dzn", hdim)):
+        _check(v, name, hs.device, (t, nd, b, width))
+    s1, rows1 = rec.dwh_slices(t, b, hdim, 2 * hdim, nd)
+    s2, rows2 = rec.dwh_slices(t, b, hdim, hdim, nd)
+    part = hs.new_empty(max(2 * s1, s2), nd, hdim, hdim)
+    dwrz = hs.new_empty(nd, hdim, 2 * hdim)
+    dwh = hs.new_empty(nd, hdim, hdim)
+    lib = _lib()
+    err = lib.bigdl_gru_dwh_f32(*(v.data_ptr() for v in (
+        hs, rh, dzrz, dzn, part, dwrz, dwh)), t, nd, b, hdim, s1, rows1, s2,
+        rows2, *_build.device_stream(hs.device))
+    rec.raise_on(lib, err, _KERNEL, "dwh", hdim)
+    gru_dwh.launches += 1
+    return dwrz, dwh
+
+
+gru_forward.launches = 0
+gru_backward.launches = 0
+gru_dwh.launches = 0
+
+
+def _check(v, name, device, shape):
+    rec.check(_KERNEL, v, name, device, shape)
+
+
+def _check_inputs(zrz, zn, wrz, wh):
+    if zn.dim() != 4:
+        raise ValueError(f"gru: zn must be (T, D, B, H), got "
+                         f"{tuple(zn.shape)}")
+    t, nd, b, hdim = zn.shape
+    rec.check_hidden(_KERNEL, hdim, MAX_HIDDEN, smem_bytes)
+    rec.check_device(_KERNEL, zn)
+    _check(zrz, "zrz", zn.device, (t, nd, b, 2 * hdim))
+    _check(zn, "zn", zn.device, (t, nd, b, hdim))
+    _check(wrz, "wrz", zn.device, (nd, hdim, 2 * hdim))
+    _check(wh, "wh", zn.device, (nd, hdim, hdim))
+    return t, nd, b, hdim
+
+
+class _GRU(torch.autograd.Function):
+    """The recurrence whose residuals are zrz, zn, wrz, wh and hs (the JAX
+    ``gru_recurrence`` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, zrz, zn, wrz, wh):
+        hs = gru_forward(zrz, zn, wrz, wh)
+        ctx.save_for_backward(zrz, zn, wrz, wh, hs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, gout):
+        zrz, zn, wrz, wh, hs = ctx.saved_tensors
+        dzrz, dzn, rh = gru_backward(zrz, zn, wrz, wh, hs, gout.contiguous())
+        return (dzrz, dzn) + gru_dwh(hs, rh, dzrz, dzn)
+
+
+def gru_recurrence(zrz, zn, wrz, wh):
+    """The h stack (T, D, B, H) of the GRU recurrence over ``zrz``
+    (T, D, B, 2H), ``zn`` (T, D, B, H), ``wrz`` (D, H, 2H) and ``wh``
+    (D, H, H), differentiable in all four."""
+    if torch.is_grad_enabled() and any(
+            v.requires_grad for v in (zrz, zn, wrz, wh)):
+        return _GRU.apply(zrz, zn, wrz, wh)
+    return gru_forward(zrz, zn, wrz, wh)

@@ -1,0 +1,204 @@
+"""Direction-batched tanh-RNN recurrence over a hoisted input projection
+(counterpart of bigdl_tpu/ops/pallas_kernels.py ``rnn_recurrence``,
+:998).
+
+:func:`rnn_recurrence` is the differentiable entry point: zx (T, D, B, H),
+the projection plus both biases of D directions, and wht (D, H, H) give
+the h stack (T, D, B, H) of h' = tanh(zx[t] + h . wht) from the initial
+state h0 (D, B, H), or zeros as in the JAX kernel.  h0 is a carried
+state (a truncated run's chunk boundary) and is never differentiated.
+Under autograd it runs :func:`rnn_forward` with wht, hs and h0 as
+residuals (the JAX ``_rnn_vjp_fwd`` keeps wht and hs), and its backward
+is :func:`rnn_backward` (dzx = (gout + dh)(1 - h^2), in reverse time,
+from the h stack alone) then :func:`rnn_dwh` (dwht = sum_t hprev^T . dz,
+hprev h0 at t = 0).  On CUDA tensors the three wrappers launch the
+hand-written ``csrc/rnn.cu`` kernels or raise; on CPU tensors they run
+the plain versions beside them.  Each wrapper's ``launches`` counts its
+kernel calls only.  The blocks follow the row rule of
+``ops._recurrence``: H <= ``MAX_HIDDEN``, a larger H is refused before a
+launch.
+"""
+from __future__ import annotations
+
+import torch
+
+from bigdl_tpu_torch.ops import _build
+from bigdl_tpu_torch.ops import _recurrence as rec
+
+_KERNEL = "rnn"
+
+
+def smem_bytes(hdim, rows=8):
+    """(forward, backward) shared memory of a recurrence block of
+    ``rows`` batch rows at H = ``hdim`` without the staged weight, as
+    csrc/rnn.cu's ``rnn_fwd_smem_floats``/``rnn_bwd_smem_floats`` size
+    it (wht is staged beside the state only when it fits)."""
+    g = rec.groups(hdim, hdim)
+    red = g * rows * hdim if g > 1 else 0
+    return 4 * (rows * 3 * hdim + red), 4 * (rows * 4 * hdim + red)
+
+
+def rows_for(hdim):
+    return rec.rows_for(hdim, smem_bytes)
+
+
+#: the largest H the kernels take (one batch row a block)
+MAX_HIDDEN = rec.max_hidden(smem_bytes)
+
+
+def _setup(lib):
+    lib.bigdl_rnn_fwd_f32.argtypes = [rec.VP] * 4 + rec.DIMS
+    lib.bigdl_rnn_fwd_f32.restype = rec.I
+    lib.bigdl_rnn_bwd_f32.argtypes = [rec.VP] * 5 + rec.DIMS
+    lib.bigdl_rnn_bwd_f32.restype = rec.I
+    lib.bigdl_rnn_dwh_f32.argtypes = ([rec.VP] * 5 + [rec.I] * 5
+                                      + [rec.LL] + rec.DIMS[4:])
+    lib.bigdl_rnn_dwh_f32.restype = rec.I
+
+
+def _lib():
+    return rec.load(_KERNEL, _setup)
+
+
+def rnn_forward_reference(zx, wht, h0=None):
+    """Plain version of the forward: a loop over T with ``torch.matmul``."""
+    t, nd, b, hdim = zx.shape
+    h = zx.new_zeros(nd, b, hdim) if h0 is None else h0
+    hs = []
+    for step in range(t):
+        h = torch.tanh(zx[step] + torch.matmul(h, wht))
+        hs.append(h)
+    return torch.stack(hs) if hs else zx.new_zeros(0, nd, b, hdim)
+
+
+def rnn_backward_reference(wht, hs, gout):
+    """Plain version of the backward: dzx from a reverse loop over T."""
+    dh = hs.new_zeros(hs.shape[1:])
+    dzx = torch.empty_like(hs)
+    wh = wht.transpose(1, 2)
+    for step in reversed(range(hs.shape[0])):
+        dz = (gout[step] + dh) * (1.0 - hs[step] * hs[step])
+        dzx[step] = dz
+        dh = torch.matmul(dz, wh)
+    return dzx
+
+
+def rnn_dwh_reference(hs, dzx, h0=None):
+    """Plain version of the weight gradient: one einsum of the h stack
+    read at t - 1 (h0 or zeros at t = 0) and dzx."""
+    return torch.einsum("tdbk,tdbj->dkj", rec.shift_prev(hs, h0), dzx)
+
+
+def rnn_forward(zx, wht, h0=None):
+    """The h stack (T, D, B, H) over ``zx`` (T, D, B, H) f32 and ``wht``
+    (D, H, H) f32 from ``h0`` (D, B, H) or zeros."""
+    if zx.device.type == "cpu":
+        return rnn_forward_reference(zx, wht, h0)
+    t, nd, b, hdim = _check_inputs(zx, wht, "zx")
+    if h0 is not None:
+        _check(h0, "h0", zx.device, (nd, b, hdim))
+    hs = zx.new_empty(t, nd, b, hdim)
+    lib = _lib()
+    err = lib.bigdl_rnn_fwd_f32(zx.data_ptr(), wht.data_ptr(),
+                                None if h0 is None else h0.data_ptr(),
+                                hs.data_ptr(), t, nd, b, hdim,
+                                *_build.device_stream(zx.device))
+    rec.raise_on(lib, err, _KERNEL, "fwd", hdim)
+    rnn_forward.launches += 1
+    return hs
+
+
+def rnn_backward(wht, hs, gout):
+    """dzx (T, D, B, H) from ``wht``, the forward's ``hs`` and the
+    cotangent ``gout`` of hs."""
+    if hs.device.type == "cpu":
+        return rnn_backward_reference(wht, hs, gout)
+    t, nd, b, hdim = _check_inputs(hs, wht, "hs")
+    _check(gout, "gout", hs.device, (t, nd, b, hdim))
+    dzx = torch.empty_like(hs)
+    wh = hs.new_empty(nd, hdim, hdim)   # scratch: wht^T
+    lib = _lib()
+    err = lib.bigdl_rnn_bwd_f32(wht.data_ptr(), hs.data_ptr(),
+                                gout.data_ptr(), dzx.data_ptr(),
+                                wh.data_ptr(), t, nd, b, hdim,
+                                *_build.device_stream(hs.device))
+    rec.raise_on(lib, err, _KERNEL, "bwd", hdim)
+    rnn_backward.launches += 1
+    return dzx
+
+
+def rnn_dwh(hs, dzx, h0=None):
+    """dwht (D, H, H) = sum over t and b of hprev^T . dz, from the h stack
+    ``hs`` (T, D, B, H) read at t - 1, ``h0`` (or zeros) at t = 0, and
+    ``dzx`` (T, D, B, H)."""
+    if hs.device.type == "cpu":
+        return rnn_dwh_reference(hs, dzx, h0)
+    rec.check_device(_KERNEL, hs)
+    t, nd, b, hdim = hs.shape
+    _check(hs, "hs", hs.device, (t, nd, b, hdim))
+    _check(dzx, "dzx", hs.device, (t, nd, b, hdim))
+    if h0 is not None:
+        _check(h0, "h0", hs.device, (nd, b, hdim))
+    s, rows = rec.dwh_slices(t, b, hdim, hdim, nd)
+    part = hs.new_empty(s, nd, hdim, hdim)
+    dwht = hs.new_empty(nd, hdim, hdim)
+    lib = _lib()
+    err = lib.bigdl_rnn_dwh_f32(hs.data_ptr(),
+                                None if h0 is None else h0.data_ptr(),
+                                dzx.data_ptr(), part.data_ptr(),
+                                dwht.data_ptr(), t, nd, b, hdim, s, rows,
+                                *_build.device_stream(hs.device))
+    rec.raise_on(lib, err, _KERNEL, "dwh", hdim)
+    rnn_dwh.launches += 1
+    return dwht
+
+
+rnn_forward.launches = 0
+rnn_backward.launches = 0
+rnn_dwh.launches = 0
+
+
+def _check(v, name, device, shape):
+    rec.check(_KERNEL, v, name, device, shape)
+
+
+def _check_inputs(x, wht, name):
+    """(T, D, B, H) of a (T, D, B, H) stack ``x`` and ``wht`` (D, H, H)."""
+    if x.dim() != 4:
+        raise ValueError(f"rnn: expected a (T, D, B, H) tensor, got "
+                         f"{tuple(x.shape)}")
+    t, nd, b, hdim = x.shape
+    rec.check_hidden(_KERNEL, hdim, MAX_HIDDEN, smem_bytes)
+    rec.check_device(_KERNEL, x)
+    _check(x, name, x.device, (t, nd, b, hdim))
+    _check(wht, "wht", x.device, (nd, hdim, hdim))
+    return t, nd, b, hdim
+
+
+class _RNN(torch.autograd.Function):
+    """The recurrence whose residuals are wht, hs and h0 (the JAX
+    ``rnn_recurrence`` custom VJP keeps wht and hs; h0 is a detached
+    carry)."""
+
+    @staticmethod
+    def forward(ctx, zx, wht, h0):
+        hs = rnn_forward(zx, wht, h0)
+        ctx.save_for_backward(wht, hs, h0)
+        return hs
+
+    @staticmethod
+    def backward(ctx, gout):
+        wht, hs, h0 = ctx.saved_tensors
+        dzx = rnn_backward(wht, hs, gout.contiguous())
+        return dzx, rnn_dwh(hs, dzx, h0), None
+
+
+def rnn_recurrence(zx, wht, h0=None):
+    """The h stack (T, D, B, H) of the tanh-RNN recurrence over ``zx``
+    (T, D, B, H) and ``wht`` (D, H, H) from ``h0`` (D, B, H) or zeros,
+    differentiable in zx and wht; ``h0`` is taken as a constant."""
+    if h0 is not None:
+        h0 = h0.detach()
+    if torch.is_grad_enabled() and (zx.requires_grad or wht.requires_grad):
+        return _RNN.apply(zx, wht, h0)
+    return rnn_forward(zx, wht, h0)

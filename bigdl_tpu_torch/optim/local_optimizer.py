@@ -17,8 +17,8 @@ What the JAX loop keeps, this one keeps:
 - validation at its trigger, and the end trigger.
 
 Not ported yet: checkpoints, taps and summaries, fault drills, the
-background prefetch threads, several iterations per dispatch and
-gradient checkpointing.
+background prefetch threads, several iterations per dispatch (only
+``set_iterations_per_dispatch(1)``) and gradient checkpointing.
 """
 from __future__ import annotations
 
@@ -165,6 +165,17 @@ class LocalOptimizer:
         self.validation_trigger = trigger
         self.validation_dataset = dataset
         self.validation_methods = methods
+        return self
+
+    def set_iterations_per_dispatch(self, n: int):
+        """One iteration a dispatch, as the JAX loop's default; several
+        (the JAX ``lax.scan`` of n steps) are not ported yet: a CUDA graph
+        of n steps comes with ROADMAP slice 2b."""
+        if int(n) > 1:
+            raise NotImplementedError(
+                f"set_iterations_per_dispatch({n}): several iterations a "
+                f"dispatch are not ported yet (a CUDA graph of the steps, "
+                f"ROADMAP slice 2b); use 1")
         return self
 
     def set_nonfinite_policy(self, abort_after: int | None = 10):

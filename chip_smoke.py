@@ -49,13 +49,27 @@ Phases, each failing with a non-zero exit:
    every recurrence went through the ``bilstm`` kernels, forward,
    backward and weight gradient, and three steps at batch 16 equal the
    same steps on the CPU.  Its kernels are checked before the paths,
-   with phase 2: at the JAX tests' shapes, a ragged H, the largest H the
-   kernels take, T = 1 and the full width, against the plain versions
-   (or, where the 500-step chain leaves the tolerance, against twice the
-   plain version's own error from float64), with the weight gradient
-   timed beside one ``torch.einsum`` and the whole layer beside cuDNN's
-   ``torch.nn.LSTM``; one H past the limit is refused before a launch;
-7. one JSON line of kernels, then the card line, then the result line.
+   with phase 2: at the JAX tests' shapes, a ragged H, H = 558, 600 and
+   1,200 (8, 4 and 2 batch rows a block), T = 1 and the full width,
+   against the plain versions (or, where the 500-step chain leaves the
+   tolerance, against twice the plain version's own error from float64),
+   with the weight gradient timed beside one ``torch.einsum`` and the
+   whole layer beside cuDNN's ``torch.nn.LSTM``; one H past the limit is
+   refused before a launch;
+7. SimpleRNN (examples/train_rnn.py's defaults: 4,001 words in and out,
+   hidden 40, batch 4, seqLength 8, bptt 4, lr 0.1, 1,024 synthetic
+   sentences) trains two epochs, every step two chunks of the ``rnn``
+   kernels; then 8 steps at bptt 8 (one call a step); then ``generate``
+   samples 20 words, each a forward through the kernel, equal to the
+   CPU's from the same parameters and ``RandomState``; three steps equal
+   the CPU's.  The ``rnn`` and ``gru`` kernels are checked with phase 2
+   as the ``bilstm`` ones are, h0 and each kernel's largest H included,
+   cuDNN's ``nn.RNN`` timed beside the port's layer and ``nn.GRU`` as a
+   same-size reference (another function);
+8. the Bi-LSTM classifier's composition with GRU cells trains one epoch
+   at full width through the ``gru`` kernels (both directions in one
+   call); three steps at batch 16 equal the CPU's;
+9. one JSON line of kernels, then the card line, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -144,6 +158,7 @@ NAN_S1_CASES = (0, 2, 7)
 TCLASSES, TEMBED, THIDDEN, TSEQ, TBATCH = 20, 200, 128, 500, 128
 TDOCS, TEPOCHS, TLR, TPARAMS = 1280, 2, 0.01, 364616
 TCHECK_BATCH, TCHECK_STEPS = 16, 3
+GPARAMS = 280392   # the classifier's composition with GRU cells
 BILSTM_FWD_TOL = dict(rtol=1e-5, atol=1e-6)   # tests/test_recurrent.py:189
 BILSTM_BWD_TOL = dict(rtol=1e-4, atol=1e-5)   # tests/test_recurrent.py:193
 # where the 500-step chain or the 64,000-term weight-gradient sum leaves
@@ -151,13 +166,35 @@ BILSTM_BWD_TOL = dict(rtol=1e-4, atol=1e-5)   # tests/test_recurrent.py:193
 # error against a float64 plain run on the same inputs
 BILSTM_VS_64 = 2.0
 # (T, D, B, H): tests/test_recurrent.py:129,211 and
-# tests/test_pallas_ops.py:240, a ragged H, the largest H the kernels take
-# (ops.bilstm.MAX_HIDDEN), T = 1, then the classifier's full width in both
-# directions and in one
+# tests/test_pallas_ops.py:240, a ragged H, the largest H of 8-row blocks
+# (558), then H = 600 and 1,200 (4 and 2 rows a block, the row rule of
+# csrc/recurrence_block.cuh), T = 1, then the classifier's full width in
+# both directions and in one
 BILSTM_CASES = [(7, 2, 3, 5), (9, 1, 4, 5), (13, 2, 37, 4),
-                (13, 2, 37, 100), (3, 2, 9, 558), (1, 2, 3, 5),
-                (1, 2, 128, 128),
+                (13, 2, 37, 100), (3, 2, 9, 558), (3, 2, 9, 600),
+                (3, 2, 9, 1200), (1, 2, 3, 5), (1, 2, 128, 128),
                 (TSEQ, 2, TBATCH, THIDDEN), (TSEQ, 1, TBATCH, THIDDEN)]
+# SimpleRNN training slice: examples/train_rnn.py's defaults (vocabSize
+# 4000, so 4,001 inputs and outputs with the OOV bucket; hiddenSize 40,
+# batchSize 4, seqLength 8, bptt 4, learningRate 0.1), 2 of its 5 epochs
+RVOCAB, RHIDDEN, RBATCH, RSEQ, RBPTT, RLR, REPOCHS = 4000, 40, 4, 8, 4, 0.1, 2
+RSENTENCES, RCHECK_STEPS, RWORDS = 1024, 3, 20
+# (T, D, B, H, h0 given): tests/test_pallas_ops.py:283, tests/
+# test_recurrent.py's Recurrent(RnnCell(6, 5)) over (4, 9, 6), a ragged H
+# from h0, T = 1, SimpleRNN's chunk and whole sequence, the largest H
+# (ops.rnn.MAX_HIDDEN, filled in at run time), then (500, D, 128, 128)
+RNN_CASES = [(9, 2, 3, 6, False), (9, 2, 3, 6, True), (9, 1, 4, 5, False),
+             (13, 2, 37, 100, True), (1, 2, 3, 5, True),
+             (RBPTT, 1, RBATCH, RHIDDEN, True),
+             (RSEQ, 1, RBATCH, RHIDDEN, False), (2, 1, 3, None, True),
+             (TSEQ, 2, TBATCH, THIDDEN, False),
+             (TSEQ, 1, TBATCH, THIDDEN, False)]
+# (T, D, B, H): tests/test_pallas_ops.py:260, tests/test_recurrent.py's
+# GRUCell(6, 5) over (4, 9, 6), a ragged H, T = 1, the largest H
+# (ops.gru.MAX_HIDDEN), then the classifier's width with GRU cells
+GRU_CASES = [(13, 1, 5, 100), (9, 1, 4, 5), (7, 2, 37, 33), (1, 2, 3, 5),
+             (2, 1, 3, None), (TSEQ, 2, TBATCH, THIDDEN),
+             (TSEQ, 1, TBATCH, THIDDEN)]
 # tests/test_pallas_ops.py:37-44
 SGD_HYPERS = [
     {"lr": 0.1}, {"lr": 0.1, "dampening": 0.9},
@@ -647,29 +684,21 @@ def bilstm_times(torch, ops, flush, g, case):
     dzx = ops.bilstm_backward(zx, wht, hs, cs, gout)
     n_h, n_w = hs.numel(), wht.numel()
     flops = 2 * n_h * 4 * case[3]
-    rows = {}
-    for name, kernel, plain, nbytes, n_ops in (
-            ("forward", lambda: ops.bilstm_forward(zx, wht),
-             lambda: ops.bilstm_forward_reference(zx, wht),
-             4 * (4 * n_h + n_w + 2 * n_h), flops),
-            ("backward", lambda: ops.bilstm_backward(zx, wht, hs, cs, gout),
-             lambda: ops.bilstm_backward_reference(zx, wht, hs, cs, gout),
-             4 * (8 * n_h + n_w + 3 * n_h), 2 * flops),
-            ("dwh", lambda: ops.bilstm_dwh(hs, dzx),
-             lambda: ops.bilstm_dwh_reference(hs, dzx),
-             4 * (5 * n_h + n_w), flops)):
-        rows[name] = {"ms": time_ms(torch, kernel, flush),
-                      "plain_ms": time_ms(torch, plain, flush, reps=5),
-                      "queued_ms": time_queued_ms(torch, kernel),
-                      "library_ms": None, **byte_bound(nbytes, n_ops)}
+    rows = recurrence_times(torch, flush, {
+        "forward": (lambda: ops.bilstm_forward(zx, wht),
+                    lambda: ops.bilstm_forward_reference(zx, wht),
+                    4 * (4 * n_h + n_w + 2 * n_h), flops),
+        "backward": (lambda: ops.bilstm_backward(zx, wht, hs, cs, gout),
+                     lambda: ops.bilstm_backward_reference(zx, wht, hs, cs,
+                                                           gout),
+                     4 * (8 * n_h + n_w + 3 * n_h), 2 * flops),
+        "dwh": (lambda: ops.bilstm_dwh(hs, dzx),
+                lambda: ops.bilstm_dwh_reference(hs, dzx),
+                4 * (5 * n_h + n_w), flops)})
     rows["forward"]["primal_ms"] = time_ms(
         torch, lambda: ops.bilstm_forward(zx, wht, with_c=False), flush)
-    # the weight gradient is one einsum in PyTorch (the t = 0 term is
-    # zero); the yardstick only, the port never calls it
-    library = lambda: torch.einsum("tdbk,tdbj->dkj", hs[:-1], dzx[1:])
-    rows["dwh"]["library_ms"] = time_ms(torch, library, flush)
-    rows["dwh"]["library_diff"] = float(
-        (library() - ops.bilstm_dwh(hs, dzx)).abs().max())
+    einsum_yardstick(torch, flush, rows["dwh"], hs, dzx,
+                     lambda: ops.bilstm_dwh(hs, dzx))
     return rows
 
 
@@ -677,9 +706,7 @@ def lstm_library_times(torch, flush, g):
     """The yardstick the port never calls: ``torch.nn.LSTM`` (cuDNN),
     bidirectional, at the classifier's full width, with the weights of
     the port's ``BiRecurrent`` (w_ih = w[:, :E], w_hh = w[:, E:], b_ih =
-    bias, b_hh = 0).  It includes the input projection, so it stands
-    beside the port's whole layer (projection and kernels), forward with
-    autograd on and backward to the input and every weight."""
+    bias, b_hh = 0): the same layer, projection included."""
     from bigdl_tpu_torch.nn import BiRecurrent, LSTMCell
     from bigdl_tpu_torch.utils.random import generator
 
@@ -695,36 +722,7 @@ def lstm_library_times(torch, flush, g):
             getattr(lib, "weight_hh_l0" + sfx).copy_(w[:, TEMBED:])
             getattr(lib, "bias_ih_l0" + sfx).copy_(rec.cell.bias)
             getattr(lib, "bias_hh_l0" + sfx).zero_()
-    x = torch.randn(TBATCH, TSEQ, TEMBED, generator=g, device="cuda")
-    gy = torch.randn(TBATCH, TSEQ, 2 * THIDDEN, generator=g, device="cuda")
-    xl, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
-    yl, yp = lib(xl)[0], port(xp)
-    diff = float((yl - yp).detach().abs().max())
-    if diff > 1e-3:
-        raise AssertionError(f"nn.LSTM is not the same layer: {diff:.3e}")
-    return {"same_layer_diff": diff,
-            "library_fwd_ms": time_ms(torch, lambda: lib(x), flush),
-            "port_fwd_ms": time_ms(torch, lambda: port(x), flush),
-            "library_bwd_ms": time_ms(torch, lambda: torch.autograd.grad(
-                yl, [xl, *lib.parameters()], gy, retain_graph=True), flush),
-            "port_bwd_ms": time_ms(torch, lambda: torch.autograd.grad(
-                yp, [xp, *port.parameters()], gy, retain_graph=True), flush)}
-
-
-def check_hidden_limit(torch, ops):
-    """The largest H the recurrence blocks hold runs (one step against
-    the plain versions is in BILSTM_CASES); one more is refused before a
-    launch, by name."""
-    from bigdl_tpu_torch.ops.bilstm import MAX_HIDDEN
-
-    h = MAX_HIDDEN + 1
-    zx = torch.zeros(2, 1, 3, 4 * h, device="cuda")
-    try:
-        ops.bilstm_forward(zx, torch.zeros(1, h, 4 * h, device="cuda"))
-    except NotImplementedError as e:
-        print(f"bilstm H={h}: refused ({e})")
-    else:
-        raise AssertionError(f"bilstm H={h}: launched past the limit")
+    return layer_times(torch, flush, g, port, lib, 2 * THIDDEN, "nn.LSTM")
 
 
 def phase_bilstm_kernels(torch, ops):
@@ -732,17 +730,20 @@ def phase_bilstm_kernels(torch, ops):
     tests' shapes, a ragged H, T = 1 and the classifier's full width,
     with times at the full width of both directions and the cuDNN
     yardstick."""
+    from bigdl_tpu_torch.ops import bilstm
+
     g = torch.Generator(device="cuda").manual_seed(4)
     errs = {case: check_bilstm(torch, ops, g, case) for case in BILSTM_CASES}
-    for case, res in errs.items():
-        print(f"bilstm {case}: " + "; ".join(
-            f"{q} max_abs_err={r['err']:.3e} ({r['rule']}; vs float64 card "
-            f"{r['card_vs_64']:.3e} plain {r['plain_vs_64']:.3e})"
-            for q, r in res.items()))
+    print_errs("bilstm", errs)
     flush = torch.empty(64 * 2**20, device="cuda")   # 256 MB > 50 MB L2
     full = (TSEQ, 2, TBATCH, THIDDEN)
     rows = bilstm_times(torch, ops, flush, g, full)
-    check_hidden_limit(torch, ops)
+    # the largest H the blocks hold is in BILSTM_CASES; one more is
+    # refused before a launch, by name
+    h = bilstm.MAX_HIDDEN + 1
+    refused(torch, f"bilstm H={h}", lambda: ops.bilstm_forward(
+        torch.zeros(2, 1, 3, 4 * h, device="cuda"),
+        torch.zeros(1, h, 4 * h, device="cuda")))
     # no PyTorch call runs the recurrence from a hoisted projection, so
     # the forward and backward rows have no library_ms; cuDNN's layer
     # (projection included) stands beside the port's whole layer instead
@@ -751,17 +752,7 @@ def phase_bilstm_kernels(torch, ops):
         row = rows["forward" if name == "fwd" else "backward"]
         row["layer_library_ms"] = lib[f"library_{name}_ms"]
         row["layer_port_ms"] = lib[f"port_{name}_ms"]
-    for name, row in rows.items():
-        print(f"bilstm_{name} {full}: kernel_ms={row['ms']:.5f} "
-              f"({row['ms'] / TSEQ * 1e3:.3f} us/step) queued_ms="
-              f"{row['queued_ms']:.5f} plain_ms={row['plain_ms']:.5f} "
-              f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}, "
-              f"{row['bytes']} bytes)"
-              + (f" primal_ms={row['primal_ms']:.5f}"
-                 if "primal_ms" in row else "")
-              + (f" library_ms={row['library_ms']:.5f} (einsum, "
-                 f"{row['library_diff']:.3e} from the kernel)"
-                 if row["library_ms"] is not None else ""))
+    print_rows("bilstm", full, rows)
     print(f"bilstm layer (128, 500, 200) -> (128, 500, 256): port "
           f"BiRecurrent forward {lib['port_fwd_ms']:.5f} ms, backward "
           f"{lib['port_bwd_ms']:.5f} ms; torch.nn.LSTM (cuDNN) forward "
@@ -777,6 +768,345 @@ def phase_bilstm_kernels(torch, ops):
              "max_abs_err": max(r[q]["err"] for r in errs.values()
                                 for q in quantity[name]),
              **rows[name]} for name in rows]
+
+
+def refused(torch, name, call):
+    """``call()`` must raise NotImplementedError before any launch."""
+    try:
+        call()
+    except NotImplementedError as e:
+        print(f"{name}: refused ({e})")
+    else:
+        raise AssertionError(f"{name}: launched past the limit")
+
+
+def rnn_inputs(torch, g, t, nd, b, h, with_h0):
+    """zx, the cotangent and h0 from N(0, 1) (h0 through tanh), wht from
+    the RnnCell init's U(-1/sqrt(H), 1/sqrt(H))."""
+    zx = torch.randn(t, nd, b, h, generator=g, device="cuda")
+    wht = (torch.rand(nd, h, h, generator=g, device="cuda") * 2 - 1) / h ** .5
+    gout = torch.randn(t, nd, b, h, generator=g, device="cuda")
+    h0 = (torch.randn(nd, b, h, generator=g, device="cuda").tanh()
+          if with_h0 else None)
+    return zx, wht, gout, h0
+
+
+def check_rnn(torch, ops, g, case):
+    """The forward, backward and weight gradient against the plain
+    versions (float64 rule where the tolerances are not met), the
+    autograd path equal to the wrappers bit for bit."""
+    zx, wht, gout, h0 = rnn_inputs(torch, g, *case)
+    hs = ops.rnn_forward(zx, wht, h0)
+    dzx = ops.rnn_backward(wht, hs, gout)
+    dwh = ops.rnn_dwh(hs, dzx, h0)
+    zg, wg = zx.clone().requires_grad_(), wht.clone().requires_grad_()
+    y = ops.rnn_recurrence(zg, wg, h0)
+    y.backward(gout)
+    torch.cuda.synchronize()
+    if not (torch.equal(y, hs) and torch.equal(zg.grad, dzx)
+            and torch.equal(wg.grad, dwh)):
+        raise AssertionError(f"rnn {case}: the autograd path differs from "
+                             f"the wrappers")
+    d64 = lambda v: None if v is None else v.double()
+    z64, w64, h64, g64 = zx.double(), wht.double(), hs.double(), gout.double()
+    name = f"rnn {case}"
+    return {"h": held(torch, name + " h", hs,
+                      ops.rnn_forward_reference(zx, wht, h0),
+                      ops.rnn_forward_reference(z64, w64, d64(h0)),
+                      BILSTM_FWD_TOL),
+            "dzx": held(torch, name + " dzx", dzx,
+                        ops.rnn_backward_reference(wht, hs, gout),
+                        ops.rnn_backward_reference(w64, h64, g64),
+                        BILSTM_BWD_TOL),
+            "dwh": held(torch, name + " dwh", dwh,
+                        ops.rnn_dwh_reference(hs, dzx, h0),
+                        ops.rnn_dwh_reference(h64, dzx.double(), d64(h0)),
+                        BILSTM_BWD_TOL)}
+
+
+def gru_inputs(torch, g, t, nd, b, h):
+    """zrz, zn and the cotangent from N(0, 1), wrz and wh from the
+    GRUCell init's U(-1/sqrt(H), 1/sqrt(H))."""
+    u = lambda *shape: (torch.rand(*shape, generator=g, device="cuda") * 2
+                        - 1) / h ** .5
+    zrz = torch.randn(t, nd, b, 2 * h, generator=g, device="cuda")
+    zn = torch.randn(t, nd, b, h, generator=g, device="cuda")
+    gout = torch.randn(t, nd, b, h, generator=g, device="cuda")
+    return zrz, zn, u(nd, h, 2 * h), u(nd, h, h), gout
+
+
+def check_gru(torch, ops, g, case):
+    """As ``check_rnn`` for the GRU: hs, dzrz, dzn, the r o hprev stack
+    and both weight gradients."""
+    zrz, zn, wrz, wh, gout = gru_inputs(torch, g, *case)
+    hs = ops.gru_forward(zrz, zn, wrz, wh)
+    dzrz, dzn, rh = ops.gru_backward(zrz, zn, wrz, wh, hs, gout)
+    dwrz, dwh = ops.gru_dwh(hs, rh, dzrz, dzn)
+    args = [v.clone().requires_grad_() for v in (zrz, zn, wrz, wh)]
+    y = ops.gru_recurrence(*args)
+    y.backward(gout)
+    torch.cuda.synchronize()
+    if not (torch.equal(y, hs) and all(
+            torch.equal(a.grad, b) for a, b in zip(args, (dzrz, dzn, dwrz,
+                                                        dwh)))):
+        raise AssertionError(f"gru {case}: the autograd path differs from "
+                             f"the wrappers")
+    x64 = [v.double() for v in (zrz, zn, wrz, wh)]
+    bwd_p = ops.gru_backward_reference(zrz, zn, wrz, wh, hs, gout)
+    bwd_64 = ops.gru_backward_reference(*x64, hs.double(), gout.double())
+    dw_p = ops.gru_dwh_reference(hs, rh, dzrz, dzn)
+    dw_64 = ops.gru_dwh_reference(hs.double(), rh.double(), dzrz.double(),
+                                  dzn.double())
+    name = f"gru {case}"
+    out = {"h": held(torch, name + " h", hs,
+                     ops.gru_forward_reference(zrz, zn, wrz, wh),
+                     ops.gru_forward_reference(*x64), BILSTM_FWD_TOL)}
+    for q, got, p, w, tol in (("dzrz", dzrz, bwd_p[0], bwd_64[0],
+                               BILSTM_BWD_TOL),
+                              ("dzn", dzn, bwd_p[1], bwd_64[1],
+                               BILSTM_BWD_TOL),
+                              ("rh", rh, bwd_p[2], bwd_64[2],
+                               BILSTM_FWD_TOL),
+                              ("dwrz", dwrz, dw_p[0], dw_64[0],
+                               BILSTM_BWD_TOL),
+                              ("dwh", dwh, dw_p[1], dw_64[1],
+                               BILSTM_BWD_TOL)):
+        out[q] = held(torch, f"{name} {q}", got, p, w, tol)
+    return out
+
+
+def recurrence_times(torch, flush, rows_of):
+    """``rows_of``: {row name: (kernel, plain, bytes, operations)}; each
+    row's kernel, queued and plain times and its bound (library_ms null:
+    filled in by the caller where a PyTorch call computes the same
+    function)."""
+    return {name: {"ms": time_ms(torch, kernel, flush),
+                   "plain_ms": time_ms(torch, plain, flush, reps=5),
+                   "queued_ms": time_queued_ms(torch, kernel),
+                   "library_ms": None, **byte_bound(nbytes, n_ops)}
+            for name, (kernel, plain, nbytes, n_ops) in rows_of.items()}
+
+
+def einsum_yardstick(torch, flush, row, hs, dzx, kernel):
+    """The weight gradient's library_ms: one einsum of the h stack read at
+    t - 1 and dzx (the t = 0 term is zero), timed beside ``kernel()``;
+    the yardstick only, the port never calls it."""
+    library = lambda: torch.einsum("tdbk,tdbj->dkj", hs[:-1], dzx[1:])
+    row["library_ms"] = time_ms(torch, library, flush)
+    row["library_diff"] = float((library() - kernel()).abs().max())
+
+
+def rnn_times(torch, ops, flush, g, case):
+    """Forward, backward and weight-gradient rows at ``case``.  Bounds:
+    forward zx, wht read, hs written, the recurrent product's
+    multiply-adds; backward wht, hs, gout read, dzx written, dz . wht^T;
+    weight gradient hs, dzx read, dwht written, one product (tanh and
+    the element-wise terms left out of the operation counts)."""
+    zx, wht, gout, _ = rnn_inputs(torch, g, *case, False)
+    hs = ops.rnn_forward(zx, wht)
+    dzx = ops.rnn_backward(wht, hs, gout)
+    n_h, n_w = hs.numel(), wht.numel()
+    flops = 2 * n_h * case[3]
+    rows = recurrence_times(torch, flush, {
+        "forward": (lambda: ops.rnn_forward(zx, wht),
+                    lambda: ops.rnn_forward_reference(zx, wht),
+                    4 * (2 * n_h + n_w), flops),
+        "backward": (lambda: ops.rnn_backward(wht, hs, gout),
+                     lambda: ops.rnn_backward_reference(wht, hs, gout),
+                     4 * (3 * n_h + n_w), flops),
+        "dwh": (lambda: ops.rnn_dwh(hs, dzx),
+                lambda: ops.rnn_dwh_reference(hs, dzx),
+                4 * (2 * n_h + n_w), flops)})
+    einsum_yardstick(torch, flush, rows["dwh"], hs, dzx,
+                     lambda: ops.rnn_dwh(hs, dzx))
+    return rows
+
+
+def gru_times(torch, ops, flush, g, case):
+    """As ``rnn_times`` for the GRU.  Bounds: forward zrz, zn, wrz, wh
+    read, hs written, the two recurrent products (3H columns); backward
+    zrz, zn, wrz, wh, hs, gout read, dzrz, dzn, rh written, the gates'
+    products recomputed (3H) and dn . wh^T, dzrz . wrz^T (3H); weight
+    gradients hs, rh, dzrz, dzn read, dwrz, dwh written, two products
+    (3H)."""
+    zrz, zn, wrz, wh, gout = gru_inputs(torch, g, *case)
+    hs = ops.gru_forward(zrz, zn, wrz, wh)
+    dzrz, dzn, rh = ops.gru_backward(zrz, zn, wrz, wh, hs, gout)
+    n_h, n_w = hs.numel(), wrz.numel() + wh.numel()
+    flops = 2 * n_h * 3 * case[3]
+    rows = recurrence_times(torch, flush, {
+        "forward": (lambda: ops.gru_forward(zrz, zn, wrz, wh),
+                    lambda: ops.gru_forward_reference(zrz, zn, wrz, wh),
+                    4 * (4 * n_h + n_w), flops),
+        "backward": (lambda: ops.gru_backward(zrz, zn, wrz, wh, hs, gout),
+                     lambda: ops.gru_backward_reference(zrz, zn, wrz, wh,
+                                                        hs, gout),
+                     4 * (9 * n_h + n_w), 2 * flops),
+        "dwh": (lambda: ops.gru_dwh(hs, rh, dzrz, dzn),
+                lambda: ops.gru_dwh_reference(hs, rh, dzrz, dzn),
+                4 * (5 * n_h + n_w), flops)})
+    # no one PyTorch call computes both weight gradients; two einsums do
+    # (beside the row, not its library_ms)
+    rows["dwh"]["two_einsum_ms"] = time_ms(torch, lambda: (
+        torch.einsum("tdbk,tdbj->dkj", hs[:-1], dzrz[1:]),
+        torch.einsum("tdbk,tdbj->dkj", rh, dzn)), flush)
+    return rows
+
+
+def rnn_library_times(torch, flush, g):
+    """The yardstick the port never calls: cuDNN's ``torch.nn.RNN``
+    (tanh), one direction, at the classifier's width (batch 128, T 500,
+    200 -> 128), with the weights of the port's ``Recurrent(RnnCell)``:
+    the same layer, projection included, forward with autograd on and
+    backward to the input and every weight."""
+    from bigdl_tpu_torch.nn import Recurrent, RnnCell
+    from bigdl_tpu_torch.utils.random import generator
+
+    port = Recurrent().add(RnnCell(TEMBED, THIDDEN, device="cuda",
+                                   generator=generator(5)))
+    lib = torch.nn.RNN(TEMBED, THIDDEN, nonlinearity="tanh",
+                       batch_first=True).cuda()
+    with torch.no_grad():
+        cell = port.cell
+        for mine, theirs in ((cell.i2h, "weight_ih_l0"),
+                             (cell.h2h, "weight_hh_l0"),
+                             (cell.bias_i, "bias_ih_l0"),
+                             (cell.bias_h, "bias_hh_l0")):
+            getattr(lib, theirs).copy_(mine)
+    return layer_times(torch, flush, g, port, lib, THIDDEN, "nn.RNN")
+
+
+def gru_library_times(torch, flush, g):
+    """A same-size reference, not the same function: cuDNN's
+    ``torch.nn.GRU``, bidirectional, at the classifier's width, beside
+    the port's ``BiRecurrent(GRUCell, GRUCell)``.  cuDNN's GRU applies r
+    after the recurrent product (n = tanh(W x + r o (U h + b))); the
+    port's, as the JAX package's, before it (n = tanh(W x + U (r o h))),
+    so their outputs differ and no PyTorch call is the port's function."""
+    from bigdl_tpu_torch.nn import BiRecurrent, GRUCell
+    from bigdl_tpu_torch.utils.random import generator
+
+    gen = generator(6)
+    port = BiRecurrent(*[GRUCell(TEMBED, THIDDEN, device="cuda",
+                                 generator=gen) for _ in range(2)])
+    lib = torch.nn.GRU(TEMBED, THIDDEN, batch_first=True,
+                       bidirectional=True).cuda()
+    return layer_times(torch, flush, g, port, lib, 2 * THIDDEN, None)
+
+
+def layer_times(torch, flush, g, port, lib, width, same):
+    """Forward (autograd on) and backward times of the port's layer and
+    of cuDNN's over one (128, 500, 200) batch; with ``same`` the two must
+    give the same output (within 1e-3)."""
+    x = torch.randn(TBATCH, TSEQ, TEMBED, generator=g, device="cuda")
+    gy = torch.randn(TBATCH, TSEQ, width, generator=g, device="cuda")
+    xl, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+    yl, yp = lib(xl)[0], port(xp)
+    out = {}
+    if same is not None:
+        out["same_layer_diff"] = float((yl - yp).detach().abs().max())
+        if out["same_layer_diff"] > 1e-3:
+            raise AssertionError(f"{same} is not the same layer: "
+                                 f"{out['same_layer_diff']:.3e}")
+    return out | {
+        "library_fwd_ms": time_ms(torch, lambda: lib(x), flush),
+        "port_fwd_ms": time_ms(torch, lambda: port(x), flush),
+        "library_bwd_ms": time_ms(torch, lambda: torch.autograd.grad(
+            yl, [xl, *lib.parameters()], gy, retain_graph=True), flush),
+        "port_bwd_ms": time_ms(torch, lambda: torch.autograd.grad(
+            yp, [xp, *port.parameters()], gy, retain_graph=True), flush)}
+
+
+def print_errs(label, errs):
+    for case, res in errs.items():
+        print(f"{label} {case}: " + "; ".join(
+            f"{q} max_abs_err={r['err']:.3e} ({r['rule']}; vs float64 card "
+            f"{r['card_vs_64']:.3e} plain {r['plain_vs_64']:.3e})"
+            for q, r in res.items()))
+
+
+def print_rows(label, case, rows):
+    for name, row in rows.items():
+        extra = "".join(
+            f" {k}={row[k]:.5f}" for k in ("primal_ms", "two_einsum_ms",
+                                           "layer_library_ms",
+                                           "layer_port_ms",
+                                           "same_size_library_ms")
+            if k in row)
+        print(f"{label}_{name} {case}: kernel_ms={row['ms']:.5f} "
+              f"({row['ms'] / case[0] * 1e3:.3f} us/step) queued_ms="
+              f"{row['queued_ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+              f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}, "
+              f"{row['bytes']} bytes)" + extra
+              + (f" library_ms={row['library_ms']:.5f} (einsum, "
+                 f"{row['library_diff']:.3e} from the kernel)"
+                 if row["library_ms"] is not None else ""))
+
+
+def phase_rnn_gru_kernels(torch, ops):
+    """The RNN and GRU kernels against their plain versions at the JAX
+    tests' shapes, a ragged H, T = 1, h0 (RNN), the largest H each takes
+    and the full widths, with times at (500, 2, 128, 128) beside the
+    bilstm rows, cuDNN's nn.RNN beside the port's layer and nn.GRU as a
+    same-size reference; one H past each limit is refused."""
+    from bigdl_tpu_torch.ops import gru, rnn
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    rnn_cases = [c if c[3] is not None else c[:3] + (rnn.MAX_HIDDEN, c[4])
+                 for c in RNN_CASES]
+    gru_cases = [c if c[3] is not None else c[:3] + (gru.MAX_HIDDEN,)
+                 for c in GRU_CASES]
+    rnn_errs = {c: check_rnn(torch, ops, g, c) for c in rnn_cases}
+    gru_errs = {c: check_gru(torch, ops, g, c) for c in gru_cases}
+    print_errs("rnn", rnn_errs)
+    print_errs("gru", gru_errs)
+    for name, limit, call in (
+            ("rnn", rnn.MAX_HIDDEN, lambda h: ops.rnn_forward(
+                torch.zeros(2, 1, 3, h, device="cuda"),
+                torch.zeros(1, h, h, device="cuda"))),
+            ("gru", gru.MAX_HIDDEN, lambda h: ops.gru_forward(
+                torch.zeros(2, 1, 3, 2 * h, device="cuda"),
+                torch.zeros(2, 1, 3, h, device="cuda"),
+                torch.zeros(1, h, 2 * h, device="cuda"),
+                torch.zeros(1, h, h, device="cuda")))):
+        refused(torch, f"{name} H={limit + 1}", lambda: call(limit + 1))
+    flush = torch.empty(64 * 2**20, device="cuda")   # 256 MB > 50 MB L2
+    full = (TSEQ, 2, TBATCH, THIDDEN)
+    rows = {"rnn": rnn_times(torch, ops, flush, g, full),
+            "gru": gru_times(torch, ops, flush, g, full)}
+    # SimpleRNN's own shapes: a 4-step chunk of 4 rows at H 40
+    small = (RBPTT, 1, RBATCH, RHIDDEN)
+    simple = rnn_times(torch, ops, flush, g, small)
+    # cuDNN's nn.RNN is the same layer; nn.GRU only a same-size reference
+    for label, lib, key in (
+            ("rnn", rnn_library_times(torch, flush, g), "layer_library_ms"),
+            ("gru", gru_library_times(torch, flush, g),
+             "same_size_library_ms")):
+        for name, short in (("forward", "fwd"), ("backward", "bwd")):
+            rows[label][name][key] = lib[f"library_{short}_ms"]
+            rows[label][name]["layer_port_ms"] = lib[f"port_{short}_ms"]
+        if "same_layer_diff" in lib:
+            print(f"{label} layer: cuDNN and the port "
+                  f"{lib['same_layer_diff']:.3e} apart")
+    for label in ("rnn", "gru"):
+        print_rows(label, full, rows[label])
+    print_rows("rnn", small, simple)
+    src = "bigdl_tpu_torch/csrc/"
+    at = "bigdl_tpu/ops/pallas_kernels.py:"
+    quantity = {"rnn": {"forward": ("h",), "backward": ("dzx",),
+                        "dwh": ("dwh",)},
+                "gru": {"forward": ("h",), "backward": ("dzrz", "dzn", "rh"),
+                        "dwh": ("dwrz", "dwh")}}
+    replaces = {"rnn": {"forward": 948, "backward": 969, "dwh": 969},
+                "gru": {"forward": 792, "backward": 818, "dwh": 818}}
+    errs = {"rnn": rnn_errs, "gru": gru_errs}
+    return [{"name": f"{label}_{name}", "route": "cuda", "ok": True,
+             "source": f"{src}{label}.cu",
+             "replaces": at + str(replaces[label][name]),
+             "max_abs_err": max(r[q]["err"] for r in errs[label].values()
+                                for q in quantity[label][name]),
+             **rows[label][name]}
+            for label in ("rnn", "gru") for name in rows[label]]
 
 
 def sgd_leaves(torch, g, shapes):
@@ -1140,21 +1470,7 @@ def phase_inception(torch, ops, profile: bool):
     diff = card_vs_cpu(torch, init, lambda device: inception_run(
         torch, device, init, check, ICHECK_BATCH,
         max_iteration(ICHECK_STEPS), dropout=0.0))
-    print(f"inception vs CPU, first batch of {ICHECK_BATCH}, dropout 0: "
-          f"loss card {diff['loss'][0]:.8f} CPU {diff['loss'][1]:.8f}; "
-          f"gradients, largest |card - CPU| / max|CPU| of a leaf "
-          f"{diff['grad_rel']:.3e} ({diff['grad_leaf']}); against "
-          f"float64 on the CPU, the card's largest {diff['card_vs_64']:.3e} "
-          f"({diff['leaf_64']}, where the CPU's fp32 is "
-          f"{diff['cpu_vs_64']:.3e}; the CPU's largest "
-          f"{diff['cpu_vs_64_max']:.3e}); "
-          f"limit {IGRAD_VS_CPU64} x the CPU's; {ICHECK_STEPS} optimizer "
-          f"steps: losses card {diff['losses'][0]} CPU {diff['losses'][1]}, "
-          f"largest relative difference {diff['loss_rel']:.3e} (limit "
-          f"{LOSS_RTOL}); final params, largest absolute difference "
-          f"{diff['param_abs']:.3e} ({diff['param_leaf']}, whose largest "
-          f"update is {diff['param_step']:.3e}; limit {IPARAM_ATOL}); CPU "
-          f"{diff['cpu_s']:.2f} s")
+    print_vs_cpu("inception", ICHECK_BATCH, diff, IPARAM_ATOL)
     if profile:
         busy_ms = profile_train(torch, lambda end: inception_run(
             torch, "cuda", init, images, IBATCH, end), 5)
@@ -1186,20 +1502,23 @@ def text_docs(n, seed=0):
 
 
 def bilstm_run(torch, device, init_tree, docs, batch, end_trigger,
-               val_docs=None):
+               val_docs=None, build=None):
     """examples/text_classifier.py:66-82 with ``--model lstm`` from
     ``init_tree``: batches of ``batch`` (the tail dropped),
     ``ClassNLLCriterion``, SGD at lr 0.01 and momentum 0.9, Top1 every
-    epoch when ``val_docs`` are given.  An optimizer ready to run."""
+    epoch when ``val_docs`` are given.  ``build(device)`` makes the model
+    (default ``TextClassifierBiLSTM``).  An optimizer ready to run."""
     from bigdl_tpu_torch.dataset import DataSet, SampleToBatch
     from bigdl_tpu_torch.models.textclassifier import TextClassifierBiLSTM
     from bigdl_tpu_torch.nn import ClassNLLCriterion
     from bigdl_tpu_torch.optim import Optimizer, Top1Accuracy, every_epoch
     from bigdl_tpu_torch.utils.table import T
 
+    if build is None:
+        build = lambda dev: TextClassifierBiLSTM(TCLASSES, TEMBED, THIDDEN,
+                                                 device=dev)
     train = DataSet.array(docs) >> SampleToBatch(batch, drop_last=True)
-    model = TextClassifierBiLSTM(TCLASSES, TEMBED, THIDDEN,
-                                 device=device).load_params(init_tree)
+    model = build(device).load_params(init_tree)
     opt = Optimizer(model, train, ClassNLLCriterion(),
                     state=T(learningRate=TLR, momentum=0.9),
                     end_trigger=end_trigger, device=device)
@@ -1277,43 +1596,293 @@ def phase_bilstm(torch, ops, profile: bool):
     diff = card_vs_cpu(torch, init, lambda device: bilstm_run(
         torch, device, init, check, TCHECK_BATCH,
         max_iteration(TCHECK_STEPS)))
-    print(f"bilstm vs CPU, first batch of {TCHECK_BATCH} at full T/E/H: "
-          f"loss card {diff['loss'][0]:.8f} CPU {diff['loss'][1]:.8f}; "
-          f"gradients, largest |card - CPU| / max|CPU| of a leaf "
-          f"{diff['grad_rel']:.3e} ({diff['grad_leaf']}); against float64 "
-          f"on the CPU, the card's largest {diff['card_vs_64']:.3e} "
-          f"({diff['leaf_64']}, where the CPU's fp32 is "
-          f"{diff['cpu_vs_64']:.3e}; the CPU's largest "
-          f"{diff['cpu_vs_64_max']:.3e}); {TCHECK_STEPS} optimizer steps: "
-          f"losses card {diff['losses'][0]} CPU {diff['losses'][1]}, "
-          f"largest relative difference {diff['loss_rel']:.3e} (limit "
-          f"{LOSS_RTOL}); final params, largest absolute difference "
-          f"{diff['param_abs']:.3e} ({diff['param_leaf']}, whose largest "
-          f"update is {diff['param_step']:.3e}; limit {PARAM_ATOL}); CPU "
-          f"{diff['cpu_s']:.2f} s")
+    print_vs_cpu("bilstm", TCHECK_BATCH, diff, PARAM_ATOL)
     if profile:
         busy_ms = profile_train(torch, lambda end: bilstm_run(
             torch, "cuda", init, train, TBATCH, end), 5)
         print(f"profile: device idle share of the unprofiled Bi-LSTM train "
               f"step {1 - busy_ms / step_ms:.4f} ({busy_ms:.4f} of "
               f"{step_ms:.4f} ms/step busy)")
+    held_to_cpu("Bi-LSTM", diff)
+    return counts
+
+
+def rnn_corpus(n, seed=0):
+    """``n`` synthetic lines for examples/train_rnn.py: 6 to 14 words
+    each, drawn uniformly from 6,000 made-up words, so that more than
+    RVOCAB distinct words occur and the dictionary is full width."""
+    rng = np.random.RandomState(seed)
+    return [" ".join(f"w{k}" for k in rng.randint(0, 6000,
+                                                  rng.randint(6, 15)))
+            for _ in range(n)]
+
+
+def rnn_data(lines):
+    """examples/train_rnn.py:70-80: the tokens, the dictionary and the
+    vocabulary (with the OOV bucket)."""
+    from bigdl_tpu_torch.dataset.text import Dictionary, WordTokenizer
+
+    tokens = list(WordTokenizer()(iter(lines)))
+    dictionary = Dictionary(tokens, vocab_size=RVOCAB)
+    return tokens, dictionary, dictionary.vocab_size() + 1
+
+
+def rnn_run(torch, device, init_tree, tokens, dictionary, end_trigger,
+            bptt=RBPTT):
+    """examples/train_rnn.py:76-89 from ``init_tree``: one-hot words of
+    ``seqLength`` 8 in batches of 4, ``SimpleRNN`` with ``bptt``,
+    ``TimeDistributedCriterion(ClassNLLCriterion(), size_average=True)``,
+    SGD at lr 0.1, one iteration a dispatch.  An optimizer ready to
+    run."""
+    from bigdl_tpu_torch.dataset import DataSet, SampleToBatch
+    from bigdl_tpu_torch.dataset.text import (LabeledSentenceToSample,
+                                              SentenceToLabeledSentence)
+    from bigdl_tpu_torch.models.rnn import SimpleRNN
+    from bigdl_tpu_torch.nn import (ClassNLLCriterion,
+                                    TimeDistributedCriterion)
+    from bigdl_tpu_torch.optim import LocalOptimizer
+    from bigdl_tpu_torch.utils.table import T
+
+    vocab = dictionary.vocab_size() + 1
+    ds = (DataSet.array(tokens)
+          >> SentenceToLabeledSentence(dictionary)
+          >> LabeledSentenceToSample(n_input_dims=vocab, fixed_length=RSEQ)
+          >> SampleToBatch(RBATCH))
+    model = SimpleRNN(vocab, RHIDDEN, vocab, bptt_truncate=bptt,
+                      device=device).load_params(init_tree)
+    opt = LocalOptimizer(model, ds, TimeDistributedCriterion(
+        ClassNLLCriterion(), size_average=True), device=device)
+    opt.set_state(T(learningRate=RLR)).set_end_when(end_trigger)
+    return opt.set_iterations_per_dispatch(1)
+
+
+def run_path(torch, ops, fn):
+    """``fn()`` with every launch count set to 0 just before it; (its
+    result, the counts read just after, wall seconds)."""
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, ops.launch_counts(), time.perf_counter() - t0
+
+
+def phase_simple_rnn(torch, ops, profile: bool):
+    """examples/train_rnn.py's defaults at full width on the card: 2
+    epochs at bptt 4 (two kernel calls a step), a short run at bptt 8 (the
+    whole sequence in one call), then 20 generated words; the launch
+    counts of each, three steps against the CPU and the generated words
+    against the CPU's from the same parameters and draws."""
+    from bigdl_tpu_torch.models.rnn import SimpleRNN, generate
+    from bigdl_tpu_torch.nn.module import export_params
+    from bigdl_tpu_torch.optim import max_epoch, max_iteration
+    from bigdl_tpu_torch.utils.random import generator
+
+    t0 = time.perf_counter()
+    tokens, dictionary, vocab = rnn_data(rnn_corpus(RSENTENCES))
+    make_s = time.perf_counter() - t0
+    if vocab != RVOCAB + 1:
+        raise AssertionError(f"the dictionary holds {vocab - 1} words, not "
+                             f"{RVOCAB}")
+    init = export_params(SimpleRNN(vocab, RHIDDEN, vocab, RBPTT, device="cpu",
+                                   generator=generator(0)))
+    n_params = sum(v.size for v in _leaves(init))
+    # warm-up: cuBLAS handles, allocator, kernel library loads
+    rnn_run(torch, "cuda", init, tokens, dictionary, max_iteration(2)).optimize()
+    opt = rnn_run(torch, "cuda", init, tokens, dictionary, max_epoch(REPOCHS))
+    torch.cuda.reset_peak_memory_stats()
+    _, counts, wall = run_path(torch, ops, opt.optimize)
+    steps = int(opt.state["neval"]) - 1
+    batches = -(-len(tokens) // RBATCH)
+    want = {**dict.fromkeys(counts, 0), "fused_sgd": steps,
+            "rnn_forward": 2 * steps, "rnn_backward": 2 * steps,
+            "rnn_dwh": 2 * steps}
+    if steps != REPOCHS * batches or counts != want:
+        raise AssertionError(f"SimpleRNN launches {counts} after {steps} "
+                             f"steps, expected {want}")
+    losses = [l for _, l in opt.loss_log]
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"SimpleRNN losses: {losses}")
+    fetch_s, fetches = opt.metrics.get("data fetch time")
+    dispatch_s, _ = opt.metrics.get("train time")
+    step_ms = wall / steps * 1e3
+    first = np.mean(losses[:batches])
+    last = np.mean(losses[-batches:])
+    print(f"simple_rnn: SimpleRNN {n_params} params ({vocab} words in and "
+          f"out, hidden {RHIDDEN}), {steps} steps of {RBATCH} x {RSEQ} at "
+          f"bptt {RBPTT} over {len(tokens)} synthetic sentences (made in "
+          f"{make_s:.2f} s), {REPOCHS} epochs; wall {wall:.4f} s, "
+          f"{step_ms:.4f} ms/step, {steps * RBATCH * RSEQ / wall:.1f} "
+          f"words/s; host: dataset iterator and H2D copy "
+          f"{fetch_s / fetches * 1e3:.4f} ms/batch ({fetch_s / wall:.4f} of "
+          f"the loop), dispatch {dispatch_s / steps * 1e3:.4f} ms/step; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} B; "
+          f"launches {counts}; mean loss epoch 1 {first:.6f}, epoch "
+          f"{REPOCHS} {last:.6f}")
+    if not last < first:
+        raise AssertionError("SimpleRNN: the loss did not fall")
+
+    # the whole sequence in one kernel call
+    opt8 = rnn_run(torch, "cuda", init, tokens, dictionary, max_iteration(8),
+                   bptt=RSEQ)
+    _, counts8, wall8 = run_path(torch, ops, opt8.optimize)
+    want8 = {**dict.fromkeys(counts8, 0), "fused_sgd": 8, "rnn_forward": 8,
+             "rnn_backward": 8, "rnn_dwh": 8}
+    if counts8 != want8:
+        raise AssertionError(f"SimpleRNN at bptt {RSEQ}: launches {counts8}, "
+                             f"expected {want8}")
+    print(f"simple_rnn bptt {RSEQ}: 8 steps, {wall8 / 8 * 1e3:.4f} ms/step, "
+          f"launches {counts8}")
+
+    # generation from the first sentence, on the card and on the CPU
+    seed = [dictionary.index(w) for w in tokens[0]]
+    trained = export_params(opt.model)
+    ids, counts_g, wall_g = run_path(torch, ops, lambda: generate(
+        opt.model, dictionary, seed, RWORDS, np.random.RandomState(0)))
+    cpu_model = SimpleRNN(vocab, RHIDDEN, vocab, RBPTT, device="cpu")
+    cpu_ids = generate(cpu_model.load_params(trained), dictionary, seed,
+                       RWORDS, np.random.RandomState(0))
+    want_g = {**dict.fromkeys(counts_g, 0), "rnn_forward": RWORDS}
+    if counts_g != want_g or len(ids) != len(seed) + RWORDS:
+        raise AssertionError(f"generate: launches {counts_g}, expected "
+                             f"{want_g}, {len(ids)} ids")
+    if ids != cpu_ids:
+        raise AssertionError(f"generate: the card's words {ids[len(seed):]} "
+                             f"are not the CPU's {cpu_ids[len(seed):]}")
+    print(f"generate: seed of {len(seed)} words + {RWORDS} sampled, "
+          f"{wall_g / RWORDS * 1e3:.4f} ms/word, equal to the CPU's; "
+          f"launches {counts_g}; "
+          f"{' '.join(dictionary.word(i) for i in ids[len(seed):])}")
+
+    diff = card_vs_cpu(torch, init, lambda device: rnn_run(
+        torch, device, init, tokens, dictionary,
+        max_iteration(RCHECK_STEPS)))
+    print_vs_cpu("simple_rnn", RBATCH, diff, PARAM_ATOL)
+    if profile:
+        busy_ms = profile_train(torch, lambda end: rnn_run(
+            torch, "cuda", init, tokens, dictionary, end), 32)
+        print(f"profile: device idle share of the unprofiled SimpleRNN "
+              f"train step {1 - busy_ms / step_ms:.4f} ({busy_ms:.4f} of "
+              f"{step_ms:.4f} ms/step busy)")
+    held_to_cpu("SimpleRNN", diff)
+    return {"simple_rnn": counts, f"simple_rnn_bptt{RSEQ}": counts8,
+            "generate": counts_g}
+
+
+def gru_classifier(device, generator=None):
+    """The Bi-LSTM classifier's composition with GRU cells, from the
+    package's public modules: 280,392 parameters at (20, 200, 128)."""
+    from bigdl_tpu_torch import nn
+
+    kw = dict(device=device, generator=generator)
+    return nn.Sequential(
+        nn.BiRecurrent(nn.GRUCell(TEMBED, THIDDEN, **kw),
+                       nn.GRUCell(TEMBED, THIDDEN, **kw)),
+        nn.Mean(1, n_input_dims=2),
+        nn.Linear(2 * THIDDEN, 100, **kw), nn.ReLU(),
+        nn.Linear(100, TCLASSES, **kw), nn.LogSoftMax())
+
+
+def phase_gru(torch, ops, profile: bool):
+    """The GRU classifier trains one epoch of the Bi-LSTM phase's
+    documents at full width (Top1 every epoch); the launch counts show
+    both directions of every recurrence went through one call of each
+    ``gru`` kernel; three steps at batch 16 equal the CPU's."""
+    from bigdl_tpu_torch.nn.module import export_params
+    from bigdl_tpu_torch.optim import max_epoch, max_iteration
+    from bigdl_tpu_torch.utils.random import generator
+
+    init = export_params(gru_classifier("cpu", generator(0)))
+    n_params = sum(v.size for v in _leaves(init))
+    if n_params != GPARAMS:
+        raise AssertionError(f"the GRU classifier has {n_params} "
+                             f"parameters, expected {GPARAMS}")
+    docs = text_docs(TDOCS)
+    split = int(len(docs) * 0.8)
+    train, val = docs[:split], docs[split:]
+    run = lambda device, docs_, batch, end, val_=None: bilstm_run(
+        torch, device, init, docs_, batch, end, val_, build=gru_classifier)
+    run("cuda", train, TBATCH, max_iteration(2)).optimize()   # warm-up
+    opt = run("cuda", train, TBATCH, max_epoch(1), val)
+    torch.cuda.reset_peak_memory_stats()
+    _, counts, wall = run_path(torch, ops, opt.optimize)
+    steps = int(opt.state["neval"]) - 1
+    val_batches = len(opt.validation_log) * (len(val) // TBATCH)
+    want = {**dict.fromkeys(counts, 0), "fused_sgd": steps,
+            "gru_forward": steps + val_batches, "gru_backward": steps,
+            "gru_dwh": steps}
+    if steps != split // TBATCH or counts != want:
+        raise AssertionError(f"GRU launches {counts} after {steps} steps and "
+                             f"{val_batches} validation batches, expected "
+                             f"{want}")
+    losses = [l for _, l in opt.loss_log]
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"GRU losses: {losses}")
+    val_s = opt.metrics.get("validate")[0]
+    loop_s = wall - val_s
+    fetch_s, fetches = opt.metrics.get("data fetch time")
+    step_ms = loop_s / steps * 1e3
+    print(f"gru: GRU classifier {n_params} params, {steps} steps of "
+          f"{TBATCH} x {TSEQ} x {TEMBED}, {len(opt.validation_log)} "
+          f"validations of {len(val) // TBATCH} batches; wall {wall:.4f} s, "
+          f"{step_ms:.4f} ms/step and {steps * TBATCH * TSEQ / loop_s:.1f} "
+          f"tokens/s (validation {val_s:.4f} s excluded); host: dataset "
+          f"iterator and H2D copy {fetch_s / fetches * 1e3:.4f} ms/batch "
+          f"({fetch_s / loop_s:.4f} of the loop); max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B; launches {counts}; "
+          f"losses {' '.join(f'{l:.6f}' for l in losses)}; Top1 "
+          f"{' '.join(f'{v["Top1Accuracy"]:.4f}' for _, _, v in opt.validation_log)}")
+    diff = card_vs_cpu(torch, init, lambda device: run(
+        device, train[:TCHECK_BATCH * TCHECK_STEPS], TCHECK_BATCH,
+        max_iteration(TCHECK_STEPS)))
+    print_vs_cpu("gru", TCHECK_BATCH, diff, PARAM_ATOL)
+    if profile:
+        busy_ms = profile_train(torch, lambda end: run(
+            "cuda", train, TBATCH, end), 5)
+        print(f"profile: device idle share of the unprofiled GRU train "
+              f"step {1 - busy_ms / step_ms:.4f} ({busy_ms:.4f} of "
+              f"{step_ms:.4f} ms/step busy)")
+    held_to_cpu("GRU", diff)
+    return counts
+
+
+def held_to_cpu(label, diff):
+    """A recurrence path's card-vs-CPU gate: the first batch's loss and
+    the steps' losses within LOSS_RTOL, the final params within
+    PARAM_ATOL, the gradients within the backward tolerance or no further
+    from float64 than BILSTM_VS_64 times the CPU's own fp32 error."""
     grads_ok = (diff["grad_rel"] <= BILSTM_BWD_TOL["rtol"]
                 or diff["card_vs_64"] <= BILSTM_VS_64 * diff["cpu_vs_64_max"])
     if (abs(diff["loss"][0] - diff["loss"][1]) > LOSS_RTOL * diff["loss"][1]
             or not grads_ok or diff["loss_rel"] > LOSS_RTOL
             or diff["param_abs"] > PARAM_ATOL):
-        raise AssertionError("the card's Bi-LSTM training left the CPU's")
-    return counts
+        raise AssertionError(f"the card's {label} training left the CPU's")
+
+
+def print_vs_cpu(label, batch, diff, param_limit):
+    print(f"{label} vs CPU, first batch of {batch}: loss card "
+          f"{diff['loss'][0]:.8f} CPU {diff['loss'][1]:.8f}; gradients, "
+          f"largest |card - CPU| / max|CPU| of a leaf {diff['grad_rel']:.3e} "
+          f"({diff['grad_leaf']}); against float64 on the CPU, the card's "
+          f"largest {diff['card_vs_64']:.3e} ({diff['leaf_64']}, where the "
+          f"CPU's fp32 is {diff['cpu_vs_64']:.3e}; the CPU's largest "
+          f"{diff['cpu_vs_64_max']:.3e}); {len(diff['losses'][0])} optimizer "
+          f"steps: losses card {diff['losses'][0]} CPU {diff['losses'][1]}, "
+          f"largest relative difference {diff['loss_rel']:.3e} (limit "
+          f"{LOSS_RTOL}); final params, largest absolute difference "
+          f"{diff['param_abs']:.3e} ({diff['param_leaf']}, whose largest "
+          f"update is {diff['param_step']:.3e}; limit {param_limit}); CPU "
+          f"{diff['cpu_s']:.2f} s")
 
 
 def card_vs_cpu(torch, init, make_run):
     """The card against the CPU (plain versions) from the same parameters
-    ``init`` on the same batches: the first batch's loss and gradients,
-    then the optimizer's steps' losses and final parameters.
+    ``init`` on the same batches: the first batch's loss (under the run's
+    criterion) and gradients, then the optimizer's steps' losses and final
+    parameters.
     ``make_run(device)`` builds the optimizer of a few steps on
     ``device`` (Inception: dropout off, since the two draw different
     masks)."""
-    from bigdl_tpu_torch.nn import ClassNLLCriterion
     from bigdl_tpu_torch.optim.local_optimizer import to_device
 
     names = [".".join(k) for k in _paths(init)]
@@ -1323,8 +1892,8 @@ def card_vs_cpu(torch, init, make_run):
         batch = next(run.dataset.data(train=True))
         dev = torch.device(device)
         run.model.train()
-        loss = ClassNLLCriterion()(run.model(to_device(batch.data, dev)),
-                                   to_device(batch.labels, dev))
+        loss = run.criterion(run.model(to_device(batch.data, dev)),
+                             to_device(batch.labels, dev))
         loss.backward()
         grads = [p.grad.detach().cpu() for p in run.model.parameters()]
         run.model.zero_grad(set_to_none=True)
@@ -1339,8 +1908,8 @@ def card_vs_cpu(torch, init, make_run):
     ref = make_run("cpu")
     batch = next(ref.dataset.data(train=True))
     ref.model.double().train()
-    ClassNLLCriterion()(ref.model(torch.from_numpy(batch.data).double()),
-                        torch.from_numpy(batch.labels)).backward()
+    ref.criterion(ref.model(torch.from_numpy(batch.data).double()),
+                  torch.from_numpy(batch.labels)).backward()
     grad_64 = [p.grad for p in ref.model.parameters()]
 
     def rel(a, b):
@@ -1575,7 +2144,8 @@ def main(argv) -> int:
     kernel_rows = ([phase_kernels(torch, ops)]
                    + phase_train_kernels(torch, ops)
                    + phase_conv_kernels(torch, ops)
-                   + phase_bilstm_kernels(torch, ops))
+                   + phase_bilstm_kernels(torch, ops)
+                   + phase_rnn_gru_kernels(torch, ops))
     if "--kernels" in argv:
         # the kernel phase alone: to time two trees' kernels in turns
         print(json.dumps({"kernels": kernel_rows}))
@@ -1585,7 +2155,9 @@ def main(argv) -> int:
     by_path = {"serving": phase_slice(torch, ops, profile),
                "lenet": phase_train(torch, ops, profile),
                "inception": phase_inception(torch, ops, profile),
-               "bilstm": phase_bilstm(torch, ops, profile)}
+               "bilstm": phase_bilstm(torch, ops, profile),
+               **phase_simple_rnn(torch, ops, profile),
+               "gru": phase_gru(torch, ops, profile)}
     for row in kernel_rows:
         row["launches_by_path"] = {path: counts.get(row["name"], 0)
                                    for path, counts in by_path.items()}
@@ -1597,9 +2169,12 @@ def main(argv) -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "queued_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "ok")
-    # the recurrence rows also carry the whole layer's times, cuDNN's
-    # nn.LSTM beside the port's BiRecurrent
-    extra = ("layer_library_ms", "layer_port_ms")
+    # the recurrence rows also carry the whole layer's times: cuDNN's
+    # nn.LSTM and nn.RNN beside the port's layer (the same function), and
+    # nn.GRU beside the port's as a same-size reference (another
+    # function); the GRU weight gradient's two einsums
+    extra = ("layer_library_ms", "layer_port_ms", "same_size_library_ms",
+             "two_einsum_ms")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
         for r in kernel_rows]}))

@@ -23,6 +23,7 @@ import torch
 
 from bigdl_tpu.ops.pallas_kernels import _bilstm_fwd_call, bilstm_recurrence
 from bigdl_tpu_torch import ops
+from bigdl_tpu_torch.ops import _recurrence as rec
 from bigdl_tpu_torch.ops import bilstm
 from bigdl_tpu_torch.ops.bilstm import dwh_slices
 
@@ -150,25 +151,33 @@ def test_no_kernel_for_other_devices():
 
 
 def test_hidden_limit_mirrors_the_kernel_source():
-    """The wrapper's copy of the kernel's block constants is the source's,
-    and every H up to the limit fits a block's shared memory."""
-    src = (Path(bilstm.__file__).parents[1] / "csrc" / "bilstm.cu").read_text()
-    for name, value in (("kRows", bilstm._ROWS),
-                        ("kThreads", bilstm._THREADS),
-                        ("kMaxSmem", bilstm._MAX_SMEM)):
-        assert re.search(rf"constexpr int {name} = {value};", src), name
-    assert "kRows * 10 * H + (G > 1 ? G * kRows * 4 * H : 0)" in src
-    assert "kRows * 13 * H + (G > 1 ? G * kRows * H : 0)" in src
-    assert bilstm.MAX_HIDDEN == 558
-    assert all(max(bilstm.smem_bytes(h)) <= bilstm._MAX_SMEM
+    """The wrapper's block sizes are csrc/bilstm.cu's, on the row rule of
+    csrc/recurrence_block.cuh: 8 rows a block up to H = 558 (the grid and
+    bits of the 8-row kernels), then 4, 2 and 1; every H up to the limit
+    fits one row, and the limit is the 1-row one."""
+    csrc = Path(bilstm.__file__).parents[1] / "csrc"
+    src = (csrc / "bilstm.cu").read_text()
+    block = (csrc / "recurrence_block.cuh").read_text()
+    assert re.search(r"constexpr int kRowChoices\[\] = \{8, 4, 2, 1\};",
+                     block)
+    assert f"constexpr int kThreads = {rec.THREADS};" in block
+    assert f"constexpr int kMaxSmem = {rec.MAX_SMEM};" in block
+    assert "R * 10 * H + (G > 1 ? G * R * 4 * H : 0)" in src
+    assert "R * 13 * H + (G > 1 ? G * R * H : 0)" in src
+    assert "return rows_for([H](int r) {" in src
+    assert bilstm.MAX_HIDDEN == 4470
+    assert [bilstm.rows_for(h) for h in (5, 128, 558, 559, 600, 1117, 1200,
+                                         2235, 2236, 4470, 4471)] == [
+        8, 8, 8, 4, 4, 4, 2, 2, 1, 1, 0]
+    assert all(max(bilstm.smem_bytes(h, 1)) <= rec.MAX_SMEM
                for h in range(1, bilstm.MAX_HIDDEN + 1))
-    assert max(bilstm.smem_bytes(bilstm.MAX_HIDDEN + 1)) > bilstm._MAX_SMEM
+    assert max(bilstm.smem_bytes(bilstm.MAX_HIDDEN + 1, 1)) > rec.MAX_SMEM
 
 
 @pytest.mark.parametrize("which", ["forward", "backward"])
 def test_hidden_above_the_limit_raises_before_a_launch(which):
-    """H = 559 is refused by name; H = 558 gets past the limit (and here
-    stops at the device check)."""
+    """H = MAX_HIDDEN + 1 is refused by name; MAX_HIDDEN gets past the
+    limit (and here stops at the device check)."""
     def call(h):
         z = torch.zeros(2, 1, 3, 4 * h, device="meta")
         w = torch.zeros(1, h, 4 * h, device="meta")
@@ -177,10 +186,25 @@ def test_hidden_above_the_limit_raises_before_a_launch(which):
             return ops.bilstm_forward(z, w)
         return ops.bilstm_backward(z, w, hs, hs, hs)
 
-    with pytest.raises(NotImplementedError, match="run H <= 558"):
-        call(559)
+    with pytest.raises(NotImplementedError,
+                       match=f"run H <= {bilstm.MAX_HIDDEN}"):
+        call(bilstm.MAX_HIDDEN + 1)
     with pytest.raises(ValueError, match="no kernel for device"):
-        call(558)
+        call(bilstm.MAX_HIDDEN)
+
+
+def test_plain_versions_at_four_rows_a_block():
+    """H = 600, past the 8-row limit (4 rows a block on the card): the
+    plain versions against the JAX kernel pair interpreted."""
+    assert bilstm.rows_for(600) == 4
+    zx, wht, go = _inputs(2, 1, 3, 600, seed=9)
+    hs_j, dzx_j, dw_j = _jax(zx, wht, go)
+    z, w, g = map(torch.from_numpy, (zx, wht, go))
+    hs, cs = ops.bilstm_forward(z, w)
+    np.testing.assert_allclose(hs.numpy(), hs_j, **FWD)
+    dzx = ops.bilstm_backward(z, w, hs, cs, g)
+    np.testing.assert_allclose(dzx.numpy(), dzx_j, **BWD)
+    np.testing.assert_allclose(ops.bilstm_dwh(hs, dzx).numpy(), dw_j, **BWD)
 
 
 @pytest.mark.parametrize("t,b,h,nd,want", [

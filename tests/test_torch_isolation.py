@@ -1,7 +1,7 @@
-"""The port stands alone: no module of ``bigdl_tpu_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package (the machine with the
-card has no JAX).  Top-level names are matched exactly, since
-``bigdl_tpu_torch`` starts with ``bigdl_tpu``."""
+"""The port stands alone: no module of ``bigdl_tpu_torch`` and neither
+``chip_smoke.py`` nor ``recurrence_ab.py`` imports JAX or the JAX
+package (the machine with the card has no JAX).  Top-level names are
+matched exactly, since ``bigdl_tpu_torch`` starts with ``bigdl_tpu``."""
 import ast
 import os
 import subprocess
@@ -45,7 +45,7 @@ def _imported_roots(path: Path):
 
 def test_no_source_names_jax_or_the_jax_package():
     files = sorted((ROOT / "bigdl_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "recurrence_ab.py"]
     assert len(files) > 20
     hits = [f"{p.relative_to(ROOT)}:{line} imports {root}"
             for p in files for root, line in _imported_roots(p)
@@ -90,3 +90,15 @@ def test_walk_covers_the_recurrence_slice():
     assert {f"bigdl_tpu_torch.{n}" for n in (
         "ops.bilstm", "nn.recurrent", "nn.reductions",
         "models.textclassifier", "dataset.news20")} <= names
+
+
+def test_walk_covers_the_rnn_and_gru_slice():
+    """The import probe reaches the SimpleRNN and GRU slice's modules."""
+    import pkgutil
+
+    import bigdl_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(bigdl_tpu_torch.__path__,
+                                                   "bigdl_tpu_torch.")}
+    assert {f"bigdl_tpu_torch.{n}" for n in (
+        "ops.rnn", "ops.gru", "ops._recurrence", "models.rnn",
+        "dataset.text")} <= names

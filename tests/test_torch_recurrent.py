@@ -1,12 +1,15 @@
 """The port's recurrence modules (bigdl_tpu_torch/nn/recurrent.py) and
-``Mean`` against the JAX package: ``Recurrent(LSTMCell)`` forward and
-reverse, ``BiRecurrent`` on its fused two-direction path (concat and add)
-and on its two-child path, outputs, input gradients and every parameter
+``Mean`` against the JAX package: ``Recurrent`` of ``LSTMCell``,
+``GRUCell`` and ``RnnCell`` forward and reverse, ``BiRecurrent`` on its
+fused two-direction paths (LSTM and GRU, concat and add) and on its
+two-child path, and ``Recurrent(RnnCell)`` with truncated BPTT against
+the JAX chunked scan: outputs, input gradients and every parameter
 gradient, with the weights carried across by ``load_jax_params``.  The
-JAX modules run on both of their routes: the Pallas kernel pair through
+JAX modules run on both of their routes: the Pallas kernel pairs through
 the interpreter (``_PALLAS_BILSTM = "interpret"``) and ``lax.scan``
-(False).  Tolerances are the JAX tests' own: forward rtol 1e-5 / atol
-1e-6, gradients rtol 1e-4 / atol 1e-5.
+(False); a truncated run takes the scan on either.  Tolerances are the
+JAX tests' own: forward rtol 1e-5 / atol 1e-6, gradients rtol 1e-4 /
+atol 1e-5.
 """
 import jax
 import jax.numpy as jnp
@@ -20,6 +23,7 @@ from bigdl_tpu.nn.module import Context
 from bigdl_tpu.utils.random import set_seed
 from bigdl_tpu_torch import nn, ops
 from bigdl_tpu_torch.nn.module import export_params, load_jax_params
+from bigdl_tpu_torch.optim import LocalOptimizer
 
 FWD = dict(rtol=1e-5, atol=1e-6)
 BWD = dict(rtol=1e-4, atol=1e-5)
@@ -167,14 +171,156 @@ def test_mean_matches_jax(args, shape):
     np.testing.assert_allclose(got.numpy(), want, **FWD)
 
 
+@ROUTES
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("cell", ["rnn", "gru"])
+def test_recurrent_rnn_and_gru_match_jax(monkeypatch, route, reverse, cell):
+    """tests/test_recurrent.py:198's shapes, the kernels' D = 1 case."""
+    monkeypatch.setattr(jax_recurrent, "_PALLAS_BILSTM", route)
+    set_seed(11)
+    make = {"rnn": lambda N, **kw: N.RnnCell(6, 5, **kw),
+            "gru": lambda N, **kw: N.GRUCell(6, 5, **kw)}[cell]
+    jm = jnn.Recurrent(reverse=reverse).add(make(jnn))
+    pm = nn.Recurrent(reverse=reverse).add(make(nn, device="cpu"))
+    _compare(jm, pm, (4, 9, 6), seed=12)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("bptt,t", [(4, 9), (4, 8), (3, 7), (1, 4)])
+def test_truncated_rnn_matches_the_jax_chunked_scan(monkeypatch, reverse,
+                                                    bptt, t):
+    """Chunks of ``bptt`` steps, each one kernel call from the last h of
+    the one before, detached: the JAX chunked lax.scan with the carry
+    stop-gradiented (the kernel gate is on, but truncation takes the
+    scan)."""
+    monkeypatch.setattr(jax_recurrent, "_PALLAS_BILSTM", "interpret")
+    set_seed(13)
+    jm = jnn.Recurrent(bptt, reverse=reverse).add(jnn.RnnCell(6, 5))
+    pm = nn.Recurrent(bptt, reverse=reverse).add(nn.RnnCell(6, 5))
+    _compare(jm, pm, (3, t, 6), seed=14)
+
+
+def test_truncation_cuts_the_gradient_at_chunk_boundaries():
+    """tests/test_recurrent.py::test_bptt_truncation_stops_gradient: the
+    last step's output does not reach x_0 through a chunk boundary."""
+    def grad_x0(bptt):
+        torch.manual_seed(0)
+        m = nn.Recurrent(bptt).add(nn.RnnCell(3, 4))
+        x = torch.randn(2, 8, 3, requires_grad=True)
+        m(x)[:, -1].sum().backward()
+        return float(x.grad[:, 0].abs().max())
+
+    assert grad_x0(0) > 0 and grad_x0(8) > 0
+    assert grad_x0(4) == 0.0
+
+
+def test_truncated_forward_without_gradient_is_one_call(monkeypatch):
+    """Chunks only where a gradient is taken: a no-grad forward (the
+    validation's and the sampler's) runs the whole sequence in one call,
+    and gives the chunked forward's values."""
+    from bigdl_tpu_torch.nn import recurrent
+    calls = []
+
+    def spy(zx, wht, h0=None):
+        calls.append(zx.shape[0])
+        return ops.rnn_recurrence(zx, wht, h0)
+
+    monkeypatch.setattr(recurrent, "rnn_recurrence", spy)
+    m = nn.Recurrent(4).add(nn.RnnCell(6, 5))
+    x = torch.randn(3, 10, 6)
+    y = m(x)
+    assert calls == [4, 4, 2]
+    with torch.no_grad():
+        np.testing.assert_allclose(m(x).numpy(), y.detach().numpy(), **FWD)
+    assert calls == [4, 4, 2, 10]
+
+
+@ROUTES
+@pytest.mark.parametrize("merge", ["concat", "add"])
+def test_birecurrent_gru_fused_matches_jax(monkeypatch, route, merge):
+    """Both GRU directions in one D = 2 call against the JAX fused path
+    (route pallas) and its two scans (route scan)."""
+    monkeypatch.setattr(jax_recurrent, "_PALLAS_BILSTM", route)
+    set_seed(15)
+    jm = jnn.BiRecurrent(jnn.GRUCell(6, 5), jnn.GRUCell(6, 5), merge=merge)
+    pm = nn.BiRecurrent(nn.GRUCell(6, 5), nn.GRUCell(6, 5), merge=merge)
+    assert pm._fused_gru_eligible() and not pm._fused_lstm_eligible()
+    assert jm._fused_gru_eligible() == (route == "interpret")
+    _compare(jm, pm, (3, 7, 6), seed=16)
+
+
+def test_birecurrent_of_rnn_cells_runs_two_calls(monkeypatch):
+    """No fused RNN form, in the JAX package either: two D = 1 calls."""
+    from bigdl_tpu_torch.nn import recurrent
+    shapes = []
+
+    def spy(zx, wht, h0=None):
+        shapes.append(tuple(zx.shape))
+        return ops.rnn_recurrence(zx, wht, h0)
+
+    monkeypatch.setattr(recurrent, "rnn_recurrence", spy)
+    monkeypatch.setattr(jax_recurrent, "_PALLAS_BILSTM", "interpret")
+    set_seed(17)
+    jm = jnn.BiRecurrent(jnn.RnnCell(6, 5), jnn.RnnCell(6, 5))
+    pm = nn.BiRecurrent(nn.RnnCell(6, 5), nn.RnnCell(6, 5))
+    _compare(jm, pm, (3, 7, 6), seed=18)
+    assert shapes[:2] == [(7, 1, 3, 5), (7, 1, 3, 5)]
+
+
+def test_fused_gru_path_is_one_kernel_call(monkeypatch):
+    """The fused GRU BiRecurrent hands the recurrence (T, 2, N, 2H),
+    (T, 2, N, H), (2, H, 2H) and (2, H, H)."""
+    from bigdl_tpu_torch.nn import recurrent
+    shapes = []
+
+    def spy(*args):
+        shapes.append([tuple(a.shape) for a in args])
+        return ops.gru_recurrence(*args)
+
+    monkeypatch.setattr(recurrent, "gru_recurrence", spy)
+    nn.BiRecurrent(nn.GRUCell(6, 5), nn.GRUCell(6, 5))(torch.randn(3, 7, 6))
+    assert shapes == [[(7, 2, 3, 10), (7, 2, 3, 5), (2, 5, 10), (2, 5, 5)]]
+
+
+@pytest.mark.parametrize("cell", ["rnn", "gru"])
+def test_rnn_and_gru_param_trees_carry_across(cell):
+    """The JAX cells' parameter names and shapes (an RnnCell's activation
+    is no child), drawn U(-1/sqrt(H), 1/sqrt(H)); the JAX tree goes in
+    and comes out unchanged."""
+    from bigdl_tpu_torch.utils.random import generator
+    set_seed(19)
+    make = {"rnn": lambda N, **kw: N.RnnCell(7, 40, **kw),
+            "gru": lambda N, **kw: N.GRUCell(7, 40, **kw)}[cell]
+    jm = jnn.Recurrent().add(make(jnn))
+    pm = nn.Recurrent().add(make(nn, generator=generator(2)))
+    got = jax.tree_util.tree_leaves_with_path(export_params(pm))
+    want = jax.tree_util.tree_leaves_with_path(_tree(jm))
+    assert [(k, v.shape) for k, v in got] == [(k, v.shape) for k, v in want]
+    bound = 1 / np.sqrt(40)
+    assert all(bound * 0.9 < np.abs(v).max() <= bound for _, v in got)
+    load_jax_params(pm, _tree(jm))
+    _assert_trees_close(export_params(pm), jm.params(), rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("build,match", [
-    (lambda: nn.RnnCell(6, 5), "rnn_recurrence"),
-    (lambda: nn.GRUCell(6, 5), "gru_recurrence"),
     (lambda: nn.Recurrent(bptt_truncate=2).add(nn.LSTMCell(6, 5))(
         torch.zeros(3, 7, 6)), "truncated BPTT"),
+    (lambda: nn.Recurrent(bptt_truncate=2).add(nn.GRUCell(6, 5))(
+        torch.zeros(3, 7, 6)), "truncated BPTT .* of GRUCell"),
+    (lambda: nn.Recurrent().add(nn.RnnCell(6, 5, nn.ReLU()))(
+        torch.zeros(3, 7, 6)), "RnnCell with ReLU: only Tanh"),
     (lambda: nn.Recurrent().add(type("MyCell", (nn.LSTMCell,), {})(6, 5))(
         torch.zeros(3, 7, 6)), "only LSTMCell"),
+    (lambda: LocalOptimizer(nn.Recurrent().add(nn.RnnCell(6, 5)), None,
+                            None, device="cpu")
+     .set_iterations_per_dispatch(2), "several iterations"),
 ])
 def test_what_is_not_ported_raises(build, match):
     with pytest.raises(NotImplementedError, match=match):
         build()
+
+
+def test_one_iteration_per_dispatch_is_accepted():
+    opt = LocalOptimizer(nn.Recurrent().add(nn.RnnCell(6, 5)), None, None,
+                         device="cpu")
+    assert opt.set_iterations_per_dispatch(1) is opt

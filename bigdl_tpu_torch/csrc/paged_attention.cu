@@ -1,18 +1,26 @@
-// Causal attention over a paged KV pool, fp32, for Hopper (sm_90a).
+// Causal attention over a paged KV pool, fp32 or int8 pools, for Hopper
+// (sm_90a).
 //
 // Replaces bigdl_tpu/ops/pallas_kernels.py `_paged_attn_kernel` and
 // `_paged_attention_call` (the Mosaic page walk behind `paged_attention`
-// and `paged_spec_verify`), fp32 pools only.  Contract, as there:
+// and `paged_spec_verify`), both of its variants.  Contract, as there:
 //   q (B, S, H, hd) f32, pos (B, S) i32, kpool/vpool (n_pages, ps, H, hd)
 //   f32, ptab (B, P) i32 -> out (B, S, H, hd) f32.  Key position t of row
 //   b lives at pool[ptab[b, t / ps], t % ps]; keys with t <= pos[b, s]
 //   attend, with scale 1/sqrt(hd).
+// The int8 variant (`quantized=True` there) takes int8 pools and f32
+// scales kscale/vscale (n_pages, ps, H), one per (page row, head), as
+// bigdl_tpu/quant/kv.py writes them, and dequantizes in the loop:
+//   score = (q . k_int8) * ks[row] * scale,  acc += (w * vs[row]) . v_int8
+// (the JAX kernel multiplies the scales into K and V first; the two
+// differ by rounding only).
 //
 // What bounds it on this card: bytes.  Each live K and V row is read once
 // per (row, head) and used for S dot products and S axpys: about S/2
-// flops per byte read, far below the H100's fp32 ridge (67 TFLOP/s over
-// 3.35 TB/s, about 20 flops per byte).  So the least time is the live K/V
-// bytes over the memory rate.
+// flops per byte read for fp32 (2S for int8), far below the H100's fp32
+// ridge (67 TFLOP/s over 3.35 TB/s, about 20 flops per byte).  So the
+// least time is the live K/V bytes (int8: values and scales) over the
+// memory rate.
 //
 // What this design does about it:
 //  - one block per (b, h) copies that row's page table into shared memory
@@ -24,10 +32,17 @@
 //    exact, and a short request on a long reservation costs only its own
 //    pages;
 //  - pages stream through a ring of up to kMaxStages shared-memory buffers
-//    (the deepest that fits, chosen at launch) with cp.async (16 bytes a thread, neighbouring threads on neighbouring
-//    addresses; each page row is hd contiguous floats): while one page is
-//    scored, the next ones are in flight, so a block keeps several pages of
-//    loads outstanding instead of waiting out one memory latency per page.
+//    (the deepest that fits, chosen at launch) with cp.async, neighbouring
+//    threads on neighbouring addresses (each page row is hd contiguous
+//    values): while one page is scored, the next ones are in flight, so a
+//    block keeps several pages of loads outstanding instead of waiting out
+//    one memory latency per page.  fp32 rows move 16 bytes a copy (4 when
+//    hd % 4 != 0); int8 rows 16 bytes when hd % 16 == 0, 4 when hd % 4 ==
+//    0 and one byte at a time by plain loads otherwise (cp.async moves 4,
+//    8 or 16 bytes).  An int8 stage also holds the page's ps K and ps V
+//    scales of head h (4-byte copies, strided by H in the pool), so an
+//    int8 page takes a quarter of an fp32 page's shared memory and the
+//    ring's depth is computed for its own stage size.
 // What it does not do yet: split one row's page walk over several blocks.
 // At decode batch sizes B*H blocks leave most of the 132 SMs idle, which
 // caps the bytes in flight; that split (with a second pass to merge the
@@ -42,6 +57,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -56,15 +72,30 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int VEC>
-__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+// One asynchronous copy of BYTES (16 or 4) from global to shared memory.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (VEC == 4) {
+  if constexpr (BYTES == 16) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                  "l"(src));
   } else {
+    static_assert(BYTES == 4, "cp.async here moves 16 or 4 bytes");
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                  "l"(src));
+  }
+}
+
+// VEC consecutive values of T: one cp.async where they make 16 or 4
+// bytes, else plain loads (int8 rows whose hd is not a multiple of 4).
+template <typename T, int VEC>
+__device__ __forceinline__ void copy_values(T* dst, const T* src) {
+  constexpr int kBytes = VEC * (int)sizeof(T);
+  if constexpr (kBytes == 16 || kBytes == 4) {
+    cp_async<kBytes>(dst, src);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) dst[i] = src[i];
   }
 }
 
@@ -89,34 +120,52 @@ __device__ __forceinline__ void cp_async_wait_pending(int n) {
 }
 
 // Start copying one page's (ps, hd) K and V tiles of head h into a stage.
-template <int VEC>
-__device__ __forceinline__ void issue_page(float* k_dst, float* v_dst,
-                                           const float* k_src,
-                                           const float* v_src, int ps, int hd,
+template <typename T, int VEC>
+__device__ __forceinline__ void issue_page(T* k_dst, T* v_dst,
+                                           const T* k_src, const T* v_src,
+                                           int ps, int hd,
                                            size_t row_stride) {
   const int per_row = hd / VEC;
   for (int idx = threadIdx.x; idx < ps * per_row; idx += kThreads) {
     const int r = idx / per_row;
     const int c = (idx - r * per_row) * VEC;
-    cp_async<VEC>(k_dst + r * hd + c, k_src + r * row_stride + c);
-    cp_async<VEC>(v_dst + r * hd + c, v_src + r * row_stride + c);
+    copy_values<T, VEC>(k_dst + r * hd + c, k_src + r * row_stride + c);
+    copy_values<T, VEC>(v_dst + r * hd + c, v_src + r * row_stride + c);
   }
 }
 
-template <int VEC>
+__host__ __device__ inline size_t align16(size_t n) {
+  return (n + 15) & ~size_t(15);
+}
+
+// Bytes of one K (or V) tile of a stage, and of a whole stage: the two
+// tiles and, for int8 pools, the page's ps K and ps V scales.
+__host__ __device__ inline size_t tile_bytes(int ps, int hd, int elem) {
+  return align16((size_t)ps * hd * elem);
+}
+__host__ __device__ inline size_t stage_bytes(int ps, int hd, int elem) {
+  return 2 * tile_bytes(ps, hd, elem) +
+         (elem == 1 ? align16(2 * sizeof(float) * (size_t)ps) : 0);
+}
+
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const float* __restrict__ q,
-                       const float* __restrict__ kpool,
-                       const float* __restrict__ vpool,
+                       const T* __restrict__ kpool,
+                       const T* __restrict__ vpool,
+                       const float* __restrict__ kscale,
+                       const float* __restrict__ vscale,
                        const int* __restrict__ ptab,
                        const int* __restrict__ pos,
                        float* __restrict__ out,
                        int S, int H, int hd, int ps, int P, int n_pages,
                        int stages, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int tile = ps * hd;
-  float* ring = smem;                       // stages x (K tile, V tile)
-  float* q_s = ring + stages * 2 * tile;    // (S, hd) queries
+  constexpr bool kQuant = sizeof(T) == 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const size_t tile_b = tile_bytes(ps, hd, (int)sizeof(T));
+  const size_t stage_b = stage_bytes(ps, hd, (int)sizeof(T));
+  unsigned char* ring = smem;               // stages x (K, V[, ks, vs])
+  float* q_s = reinterpret_cast<float*>(ring + stages * stage_b);  // (S, hd)
   float* acc = q_s + S * hd;                // (S, hd) unnormalised P.V
   float* w_s = acc + S * hd;                // (S, ps) scores, then weights
   float* m_s = w_s + S * ps;                // (S) running max
@@ -159,9 +208,19 @@ paged_attention_kernel(const float* __restrict__ q,
     const int phys = ptab_s[p];
     if (phys >= 0 && phys < n_pages) {
       const size_t base = ((size_t)phys * ps * H + h) * hd;
-      float* k_dst = ring + stage * 2 * tile;
-      issue_page<VEC>(k_dst, k_dst + tile, kpool + base, vpool + base, ps, hd,
-                      row_stride);
+      T* k_dst = reinterpret_cast<T*>(ring + stage * stage_b);
+      T* v_dst = reinterpret_cast<T*>(ring + stage * stage_b + tile_b);
+      issue_page<T, VEC>(k_dst, v_dst, kpool + base, vpool + base, ps, hd,
+                         row_stride);
+      if constexpr (kQuant) {
+        float* ks_dst =
+            reinterpret_cast<float*>(ring + stage * stage_b + 2 * tile_b);
+        const size_t sbase = (size_t)phys * ps * H + h;
+        for (int r = tid; r < ps; r += kThreads) {
+          cp_async<4>(ks_dst + r, kscale + sbase + (size_t)r * H);
+          cp_async<4>(ks_dst + ps + r, vscale + sbase + (size_t)r * H);
+        }
+      }
     }
   };
 
@@ -178,8 +237,11 @@ paged_attention_kernel(const float* __restrict__ q,
     cp_async_commit();
     cp_async_wait_pending(stages - 1);  // this thread's copies of page p
     __syncthreads();                    // ... and every other thread's
-    const float* k_s = ring + rd * 2 * tile;
-    const float* v_s = k_s + tile;
+    const T* k_s = reinterpret_cast<const T*>(ring + rd * stage_b);
+    const T* v_s = reinterpret_cast<const T*>(ring + rd * stage_b + tile_b);
+    const float* ks_s =
+        reinterpret_cast<const float*>(ring + rd * stage_b + 2 * tile_b);
+    const float* vs_s = ks_s + ps;
     rd = (rd + 1 == stages) ? 0 : rd + 1;
     wr = (wr + 1 == stages) ? 0 : wr + 1;
     // a page id out of range was never issued: its stage holds stale
@@ -193,14 +255,21 @@ paged_attention_kernel(const float* __restrict__ q,
       const int s = j / ps;
       const int r = j - s * ps;
       float dot = 0.f;
-      for (int d = lane; d < hd; d += 32) dot += q_s[s * hd + d] * k_s[r * hd + d];
+      for (int d = lane; d < hd; d += 32)
+        dot += q_s[s * hd + d] * static_cast<float>(k_s[r * hd + d]);
       dot = warp_sum(dot);
-      if (lane == 0)
-        w_s[j] = (p * ps + r <= pos_s[s]) ? dot * scale : neg_inf;
+      if (lane == 0) {
+        if constexpr (kQuant) {
+          w_s[j] = (p * ps + r <= pos_s[s]) ? dot * ks_s[r] * scale : neg_inf;
+        } else {
+          w_s[j] = (p * ps + r <= pos_s[s]) ? dot * scale : neg_inf;
+        }
+      }
     }
     __syncthreads();
 
-    // online softmax: running max / denominator, one thread per query
+    // online softmax: running max / denominator, one thread per query;
+    // int8 pages fold each row's V scale into its weight after the sum
     for (int s = tid; s < S; s += kThreads) {
       const float m_old = m_s[s];
       float m_new = m_old;
@@ -211,7 +280,11 @@ paged_attention_kernel(const float* __restrict__ q,
       float sum = 0.f;
       for (int r = 0; r < ps; ++r) {
         const float w = expf(w_s[s * ps + r] - m_ref);
-        w_s[s * ps + r] = w;
+        if constexpr (kQuant) {
+          w_s[s * ps + r] = w * vs_s[r];
+        } else {
+          w_s[s * ps + r] = w;
+        }
         sum += w;
       }
       l_s[s] = l_s[s] * alpha + sum;
@@ -225,7 +298,8 @@ paged_attention_kernel(const float* __restrict__ q,
       const int s = idx / hd;
       const int d = idx - s * hd;
       float o = acc[idx] * a_s[s];
-      for (int r = 0; r < ps; ++r) o = fmaf(w_s[s * ps + r], v_s[r * hd + d], o);
+      for (int r = 0; r < ps; ++r)
+        o = fmaf(w_s[s * ps + r], static_cast<float>(v_s[r * hd + d]), o);
       acc[idx] = o;
     }
     __syncthreads();  // the stage is refilled and the weights rewritten next
@@ -240,38 +314,43 @@ paged_attention_kernel(const float* __restrict__ q,
   }
 }
 
-size_t smem_bytes(int S, int hd, int ps, int P, int stages) {
-  return sizeof(float) * ((size_t)stages * 2 * ps * hd + 2 * (size_t)S * hd +
-                          (size_t)S * ps + 3 * (size_t)S) +
+// Shared memory of a launch: the ring of `stages` stages of `elem`-byte
+// pool values, then the queries, accumulators, weights, softmax state,
+// positions and page table.
+size_t smem_bytes(int S, int hd, int ps, int P, int stages, int elem) {
+  return (size_t)stages * stage_bytes(ps, hd, elem) +
+         sizeof(float) * (2 * (size_t)S * hd + (size_t)S * ps +
+                          3 * (size_t)S) +
          sizeof(int) * ((size_t)S + P);
 }
 
 // The deepest ring (kMaxStages down to 1) whose shared memory fits; 0
 // when even one stage does not.
-int ring_stages(int S, int hd, int ps, int P) {
+int ring_stages(int S, int hd, int ps, int P, int elem) {
   for (int st = kMaxStages; st >= 1; --st)
-    if (smem_bytes(S, hd, ps, P, st) <= kMaxSmem) return st;
+    if (smem_bytes(S, hd, ps, P, st, elem) <= kMaxSmem) return st;
   return 0;
 }
 
-template <int VEC>
-cudaError_t launch(const float* q, const float* kpool, const float* vpool,
-                   const int* ptab, const int* pos, float* out, int B, int S,
-                   int H, int hd, int ps, int P, int n_pages,
-                   cudaStream_t stream) {
-  const int stages = ring_stages(S, hd, ps, P);
+template <typename T, int VEC>
+cudaError_t launch(const float* q, const T* kpool, const T* vpool,
+                   const float* kscale, const float* vscale, const int* ptab,
+                   const int* pos, float* out, int B, int S, int H, int hd,
+                   int ps, int P, int n_pages, cudaStream_t stream) {
+  const int elem = (int)sizeof(T);
+  const int stages = ring_stages(S, hd, ps, P, elem);
   if (stages == 0) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(S, hd, ps, P, stages);
+  const size_t smem = smem_bytes(S, hd, ps, P, stages, elem);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<VEC>,
+        paged_attention_kernel<T, VEC>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const float scale = 1.0f / sqrtf((float)hd);
-  paged_attention_kernel<VEC><<<B * H, kThreads, smem, stream>>>(
-      q, kpool, vpool, ptab, pos, out, S, H, hd, ps, P, n_pages, stages,
-      scale);
+  paged_attention_kernel<T, VEC><<<B * H, kThreads, smem, stream>>>(
+      q, kpool, vpool, kscale, vscale, ptab, pos, out, S, H, hd, ps, P,
+      n_pages, stages, scale);
   return cudaGetLastError();
 }
 
@@ -290,16 +369,40 @@ int bigdl_paged_attention_f32(const float* q, const float* kpool,
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec == 4)
-    return (int)launch<4>(q, kpool, vpool, ptab, pos, out, B, S, H, hd, ps, P,
-                          n_pages, st);
-  return (int)launch<1>(q, kpool, vpool, ptab, pos, out, B, S, H, hd, ps, P,
-                        n_pages, st);
+    return (int)launch<float, 4>(q, kpool, vpool, nullptr, nullptr, ptab, pos,
+                                 out, B, S, H, hd, ps, P, n_pages, st);
+  return (int)launch<float, 1>(q, kpool, vpool, nullptr, nullptr, ptab, pos,
+                               out, B, S, H, hd, ps, P, n_pages, st);
 }
 
-// Depth of the ring a launch at this shape uses; 0 when even one stage
-// needs more than 227 KB of shared memory (the shape cannot launch).
-int bigdl_paged_attention_stages(int S, int hd, int ps, int P) {
-  return ring_stages(S, hd, ps, P);
+// The int8 variant: kpool/vpool int8 (n_pages, ps, H, hd), kscale/vscale
+// f32 (n_pages, ps, H).  vec = 16 needs hd % 16 == 0 and 16-byte aligned
+// pools, vec = 4 hd % 4 == 0 and 4-byte aligned pools; vec = 1 takes
+// any hd.
+int bigdl_paged_attention_int8(const float* q, const int8_t* kpool,
+                               const int8_t* vpool, const float* kscale,
+                               const float* vscale, const int* ptab,
+                               const int* pos, float* out, int B, int S,
+                               int H, int hd, int ps, int P, int n_pages,
+                               int vec, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec == 16)
+    return (int)launch<int8_t, 16>(q, kpool, vpool, kscale, vscale, ptab, pos,
+                                   out, B, S, H, hd, ps, P, n_pages, st);
+  if (vec == 4)
+    return (int)launch<int8_t, 4>(q, kpool, vpool, kscale, vscale, ptab, pos,
+                                  out, B, S, H, hd, ps, P, n_pages, st);
+  return (int)launch<int8_t, 1>(q, kpool, vpool, kscale, vscale, ptab, pos,
+                                out, B, S, H, hd, ps, P, n_pages, st);
+}
+
+// Depth of the ring a launch at this shape uses for pools of `elem`-byte
+// values (4: fp32, 1: int8); 0 when even one stage needs more than
+// 227 KB of shared memory (the shape cannot launch).
+int bigdl_paged_attention_stages(int S, int hd, int ps, int P, int elem) {
+  return ring_stages(S, hd, ps, P, elem);
 }
 
 const char* bigdl_cuda_error_string(int err) {

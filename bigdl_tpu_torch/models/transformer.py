@@ -7,9 +7,10 @@ the JAX package, so the nested parameter trees of the two packages line
 up path for path (``load_jax_params`` / ``export_params``, shared by
 every port model in nn/module.py and re-exported here).
 
-The decode step (:func:`_lm_forward_window`) reads the KV cache through
-``ops.paged_attention``: on the card that is the hand-written CUDA page
-walk, always — the port has no gathered-view attention path on the card.
+The decode step (:func:`_lm_forward_window`) reads the KV cache, fp32 or
+int8 (``quant/kv.py``), through ``ops.paged_attention``: on the card that
+is the hand-written CUDA page walk, always — the port has no
+gathered-view attention path on the card.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import bigdl_tpu_torch.nn as nn
 from bigdl_tpu_torch.nn.module import export_params, load_jax_params  # noqa: F401
 from bigdl_tpu_torch.nn.normalization import layer_norm
 from bigdl_tpu_torch.ops import paged_attention
+from bigdl_tpu_torch.quant import kv as kvq
 from bigdl_tpu_torch.utils.device import pin_fp32, resolve_device
 
 #: tokens per KV page, for the serving decoder and ``lm_decode`` alike
@@ -148,24 +150,37 @@ def _handles_to(h: _LMHandles, device) -> _LMHandles:
 
 
 def new_pools(handles: _LMHandles, n_pages: int, page_size: int,
-              device) -> tuple:
-    """Zeroed fp32 K and V pools (layers, n_pages + 1, page_size, H, hd).
-    Page ``n_pages`` is the scratch page that gated writes land on; no
-    page table ever points at it."""
+              device, kv_quant: str = "off") -> tuple:
+    """Zeroed K and V pools (layers, n_pages + 1, page_size, H, hd): fp32,
+    or under ``kv_quant="int8"`` four arrays, int8 pools and their f32
+    scales (layers, n_pages + 1, page_size, H) (``quant/kv.py``).  Page
+    ``n_pages`` is the scratch page that gated writes land on; no page
+    table ever points at it."""
     shape = (handles.n_layers, n_pages + 1, page_size, handles.n_heads,
              handles.hd)
+    if kv_quant == "int8":
+        sshape = kvq.scale_shape(shape)
+        return (torch.zeros(shape, dtype=kvq.storage_dtype, device=device),
+                torch.zeros(shape, dtype=kvq.storage_dtype, device=device),
+                torch.zeros(sshape, dtype=kvq.scale_dtype, device=device),
+                torch.zeros(sshape, dtype=kvq.scale_dtype, device=device))
     return (torch.zeros(shape, device=device),
             torch.zeros(shape, device=device))
 
 
 def _lm_forward_window(tok, i, caches, handles, pe, pages, valid=None):
     """Paged multi-position forward: token ids (B, S) at per-row
-    positions ``i`` (B, S) against block-paged fp32 KV pools.
+    positions ``i`` (B, S) against block-paged KV pools.
 
     ``pages`` is ``(page_table, page_size)``; ``caches`` the ``(kpool,
     vpool)`` pair of :func:`new_pools`, (layers, n_pages + 1, page_size,
     H, hd), updated IN PLACE (the pools are the decoder's largest tensors;
     a functional copy per layer would double their traffic) and returned.
+    Four arrays ``(kpool, vpool, kscale, vscale)`` select int8 KV storage
+    (``quant/kv.py``): each written K and V head-row is quantized with
+    its own scale (amax/127), values and scales written at the same
+    ``phys``/``off`` (so a gated write sends both to the scratch page),
+    and the attention dequantizes in its page walk.
     The window's K/V writes land before the attention reads, so window
     position j attends to positions j' <= j and the committed past through
     one causal mask ``t <= i[b, j]``.
@@ -178,11 +193,10 @@ def _lm_forward_window(tok, i, caches, handles, pe, pages, valid=None):
     keeps one page no table references.  The gate is a correctness
     contract: a stale write from a finished row must never reach a page
     another request owns."""
-    if len(caches) != 2:
-        raise NotImplementedError("int8 KV pools come with the "
-                                  "KV-quantisation slice")
     h_ = handles
-    kpool, vpool = caches
+    quantized = len(caches) == 4
+    kpool, vpool = caches[:2]
+    kscale, vscale = caches[2:] if quantized else (None, None)
     ptab, ps = pages
     bsz, S = tok.shape
     scratch = kpool.shape[1] - 1
@@ -199,9 +213,19 @@ def _lm_forward_window(tok, i, caches, handles, pe, pages, valid=None):
         q = (a @ m["wq"] + m["bq"]).reshape(bsz, S, h_.n_heads, h_.hd)
         k = (a @ m["wk"] + m["bk"]).reshape(bsz, S, h_.n_heads, h_.hd)
         v = (a @ m["wv"] + m["bv"]).reshape(bsz, S, h_.n_heads, h_.hd)
-        kpool[li, phys, off] = k
-        vpool[li, phys, off] = v
-        o = paged_attention(q, kpool[li], vpool[li], ptab, pos)
+        if quantized:
+            qk, sk = kvq.quantize_rows(k)
+            qv, sv = kvq.quantize_rows(v)
+            kpool[li, phys, off] = qk
+            vpool[li, phys, off] = qv
+            kscale[li, phys, off] = sk
+            vscale[li, phys, off] = sv
+            o = paged_attention(q, kpool[li], vpool[li], ptab, pos,
+                                kscale[li], vscale[li])
+        else:
+            kpool[li, phys, off] = k
+            vpool[li, phys, off] = v
+            o = paged_attention(q, kpool[li], vpool[li], ptab, pos)
         x = x + o.reshape(bsz, S, h_.n_heads * h_.hd) @ m["wo"] + m["bo"]
         a2 = layer_norm(x, ln2["weight"], ln2["bias"], h_.block_eps[li][1])
         hid = torch.relu(a2 @ lin1["weight"].t() + lin1["bias"])
@@ -209,7 +233,7 @@ def _lm_forward_window(tok, i, caches, handles, pe, pages, valid=None):
     xf = layer_norm(x, h_.ln_f["weight"], h_.ln_f["bias"], h_.eps_f)
     logp = torch.log_softmax(xf @ h_.head["weight"].t() + h_.head["bias"],
                              dim=-1)
-    return logp, (kpool, vpool)
+    return logp, tuple(caches)
 
 
 def _lm_forward_one(tok, i, caches, handles, pe, pages, valid=None):

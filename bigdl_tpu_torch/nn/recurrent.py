@@ -11,6 +11,14 @@ one large product: ``ops.bilstm_recurrence`` for ``LSTMCell``,
 ``BiRecurrent`` of two equal ``LSTMCell``s or two equal ``GRUCell``s
 without truncation runs both directions in one D = 2 call.
 
+A ``Recurrent(LSTMCell)`` forward that takes no gradient (grad mode off,
+or neither the projection nor the recurrent weight requires grad:
+validation and inference) runs ``ops.lstm_scan`` from zero state instead,
+the forward-only kernel the JAX package wrote for it; so do the reverse
+direction and the two children of a ``BiRecurrent`` that cannot share a
+call.  A forward that takes a gradient keeps ``bilstm_recurrence`` at
+D = 1, and the fused D = 2 call is the same with or without one.
+
 Truncated BPTT (``bptt_truncate`` of k, 0 < k < T) runs for ``RnnCell``:
 chunks of k steps, each one kernel call from the previous chunk's last h,
 detached, which is the JAX package's chunked ``lax.scan`` with the carry
@@ -30,7 +38,7 @@ from bigdl_tpu_torch.nn import init as init_
 from bigdl_tpu_torch.nn.activations import Tanh
 from bigdl_tpu_torch.nn.module import Container, Module
 from bigdl_tpu_torch.ops import (bilstm_recurrence, gru_recurrence,
-                                 rnn_recurrence)
+                                 lstm_scan, rnn_recurrence)
 
 _TRUNCATION = ("truncated BPTT inside the sequence (bptt_truncate={} < "
                "T={}) of {} is not ported yet: the kernels' chunked runs "
@@ -133,11 +141,19 @@ def _kernel_of(kind):
     return _gru_inputs, gru_recurrence
 
 
+def _takes_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def _one_direction(cell, xs):
     """The h stack (T, N, H) of an LSTM or GRU cell: the kernel's D = 1
-    case."""
+    case, or for an LSTM that takes no gradient ``lstm_scan`` from zero
+    state."""
     inputs, run = _kernel_of(type(cell))
     zs, ws = inputs(cell, xs)
+    if type(cell) is LSTMCell and not _takes_grad(*zs, *ws):
+        h0 = zs[0].new_zeros(zs[0].shape[1], cell.hidden_size)
+        return lstm_scan(zs[0], ws[0].contiguous(), h0, h0)
     return run(*[z[:, None] for z in zs],
                *[w[None].contiguous() for w in ws])[:, 0]
 
@@ -149,8 +165,7 @@ def _rnn(cell: RnnCell, xs, k):
           + cell.bias_h)[:, None]                             # (T, 1, N, H)
     wh = cell.h2h.t()[None].contiguous()
     t = zx.shape[0]
-    grad = torch.is_grad_enabled() and (zx.requires_grad or wh.requires_grad)
-    if not (grad and 0 < k < t):
+    if not (_takes_grad(zx, wh) and 0 < k < t):
         return rnn_recurrence(zx, wh)[:, 0]
     outs, h = [], None
     for start in range(0, t, k):

@@ -15,10 +15,15 @@ needs, and a per-slot slot->page table on the device maps its positions
 to pool pages.  Attention over the pool is ``ops.paged_attention``, the
 hand-written CUDA kernel on the card.
 
+``kv_quant="int8"`` (default from ``BIGDL_SERVE_KV_QUANT``) stores the
+pool's K and V in int8 with per-page-row, per-head scales
+(``quant/kv.py``), about a quarter of the fp32 pool's bytes; the page
+walk is then the kernel's int8 variant, ``ops.paged_attention_int8``.
+
 Not in this slice (each is listed in ROADMAP.md): the prefix cache,
-speculative decode, int8 KV, tensor parallelism, the host KV tier,
-streaming delivery, sampled decode, stop sequences, the flight recorder
-and the metrics registry.
+speculative decode, tensor parallelism, the host KV tier, streaming
+delivery, sampled decode, stop sequences, the flight recorder and the
+metrics registry.
 """
 from __future__ import annotations
 
@@ -31,6 +36,8 @@ import torch
 from bigdl_tpu_torch.models.transformer import (DEFAULT_PAGE_SIZE,
                                                 _handles_to, _lm_forward_one,
                                                 _lm_handles, new_pools)
+from bigdl_tpu_torch.quant import kv_mode_default, normalize_mode
+from bigdl_tpu_torch.quant import kv as kvq
 from bigdl_tpu_torch.serve.paging import PagePool, RequestTooLongError
 from bigdl_tpu_torch.utils.device import pin_fp32, resolve_device
 
@@ -80,6 +87,10 @@ class ContinuousDecoder:
     of the full token row (seed included, ``lm_decode``'s output);
     :meth:`run` drives the slots until every request has resolved.
 
+    ``kv_quant`` is ``"off"`` (fp32 pools) or ``"int8"``; ``None`` reads
+    ``BIGDL_SERVE_KV_QUANT`` (default off), and an unknown mode raises
+    ``ValueError`` naming it.
+
     ``device`` defaults to ``"cuda"`` and raises when there is no card;
     the weights are used on that device (moved there once if the model
     lives elsewhere)."""
@@ -87,7 +98,9 @@ class ContinuousDecoder:
     def __init__(self, model, max_slots: int = 4, n_pos: int = 64,
                  sync_interval: int | None = None,
                  page_size: int | None = None, n_pages: int | None = None,
-                 device="cuda"):
+                 kv_quant: str | None = None, device="cuda"):
+        self.kv_quant = (kv_mode_default() if kv_quant is None else
+                         normalize_mode(kv_quant, kvq.ON_MODES, "kv_quant"))
         self.device = dev = resolve_device(device)
         pin_fp32(dev)
         self.B = B = int(max_slots)
@@ -103,7 +116,11 @@ class ContinuousDecoder:
         self._n_view = n_view = self.pages_per_slot * ps
         self._handles = _handles_to(_lm_handles(model), dev)
         self._pe = self._handles.mods[1].table(n_view).to(dev)
-        self._caches = new_pools(self._handles, self._pool.n_pages, ps, dev)
+        self._caches = new_pools(self._handles, self._pool.n_pages, ps, dev,
+                                 self.kv_quant)
+        self.kv_bytes_per_token = kvq.bytes_per_token(
+            self._handles.n_layers, self._handles.n_heads, self._handles.hd,
+            self.kv_quant)
 
         def z(*shape, dtype=torch.int32):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -273,6 +290,8 @@ class ContinuousDecoder:
                 "admitted": self.admitted, "retired": self.retired,
                 "slots": self.B, "live_hwm": self.live_hwm,
                 "n_pos": self.n_pos, "sync_interval": self.sync_interval,
+                "kv_quant": self.kv_quant,
+                "kv_bytes_per_token": self.kv_bytes_per_token,
                 "pool": self._pool.stats()}
 
 
@@ -281,8 +300,10 @@ def continuous_decode(model, seed_rows, n_words, max_slots: int = 4,
                       sync_interval: int | None = None, device="cuda",
                       **decoder_kwargs):
     """One-shot: decode every seed row with a shared decoder.  ``n_pos``
-    defaults to the largest request's need.  Returns the extended rows in
-    submission order (``lm_decode`` greedy semantics per row)."""
+    defaults to the largest request's need; other keyword arguments
+    (``page_size``, ``n_pages``, ``kv_quant``) pass through to
+    :class:`ContinuousDecoder`.  Returns the extended rows in submission
+    order (``lm_decode`` greedy semantics per row)."""
     reqs = [np.asarray(s, np.int64) for s in seed_rows]
     if n_pos is None:
         n_pos = max(int(s.size) + int(n_words) - 1 for s in reqs)

@@ -21,14 +21,23 @@ Phases, each failing with a non-zero exit:
    at LeNet's and at the serving model's parameter counts; the LRN
    (forward with and without z, backward) at six shapes, Inception-v1's
    two among them; the stride-1 pool on tied inputs at ten geometries
-   (Inception-v1's among them) and with NaNs at three;
+   (Inception-v1's among them) and with NaNs at three; the int8 variant
+   of paged attention at the decode step's full width, an S = 4 window
+   and small pages taking each of its copy paths, with the two-call
+   reference (dequantize, then SDPA) beside it; ``lstm_scan`` from
+   non-zero states at (T 500, B 128, H 128), a ragged shape and its
+   largest H, beside cuDNN's no-grad ``nn.LSTM`` layer;
 3. serving: a full-width ``TransformerLM`` (vocab 4000, d_model 1024,
    4 heads, 6 layers, hidden 4096, random weights from seed 0) serves 16
    requests through ``ContinuousDecoder``; the kernels' launch counts
    show the path went through them, and every generated token is held
    against the plain full-sequence forward by teacher forcing; then
    ``lm_decode`` extends the longest seed on the same weights and is held
-   against the decoder's row for it;
+   against the decoder's row for it; then the same requests with
+   ``kv_quant="int8"``: every attention launch is the int8 kernel's,
+   every token is held by teacher forcing against the plain int8 window
+   forward, and the pools' bytes and the share of tokens equal to the
+   fp32 stream are printed;
 4. training: ``LeNet5`` (seed 0) trains two epochs of synthetic MNIST
    through ``Optimizer(...).optimize()`` with its default ``SGD``,
    validating Top1 every epoch; the launch counts show every step went
@@ -55,7 +64,10 @@ Phases, each failing with a non-zero exit:
    tolerance, against twice the plain version's own error from float64),
    with the weight gradient timed beside one ``torch.einsum`` and the
    whole layer beside cuDNN's ``torch.nn.LSTM``; one H past the limit is
-   refused before a launch;
+   refused before a launch; then the classifier with one LSTM direction
+   (183,368 parameters) trains one epoch through the ``bilstm`` kernels
+   at D = 1 and validates through ``lstm_scan``, and three steps at
+   batch 16 equal the CPU's;
 7. SimpleRNN (examples/train_rnn.py's defaults: 4,001 words in and out,
    hidden 40, batch 4, seqLength 8, bptt 4, lr 0.1, 1,024 synthetic
    sentences) trains two epochs, every step two chunks of the ``rnn``
@@ -75,6 +87,7 @@ Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -159,6 +172,7 @@ TCLASSES, TEMBED, THIDDEN, TSEQ, TBATCH = 20, 200, 128, 500, 128
 TDOCS, TEPOCHS, TLR, TPARAMS = 1280, 2, 0.01, 364616
 TCHECK_BATCH, TCHECK_STEPS = 16, 3
 GPARAMS = 280392   # the classifier's composition with GRU cells
+LPARAMS = 183368   # ... and with one LSTM direction
 BILSTM_FWD_TOL = dict(rtol=1e-5, atol=1e-6)   # tests/test_recurrent.py:189
 BILSTM_BWD_TOL = dict(rtol=1e-4, atol=1e-5)   # tests/test_recurrent.py:193
 # where the 500-step chain or the 64,000-term weight-gradient sum leaves
@@ -211,6 +225,20 @@ def smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def ptxas_lines(log):
+    """One line per kernel of ``nvcc -Xptxas -v`` output: its (mangled)
+    name, then its registers and its stack and spills."""
+    out, name, spill = [], "?", ""
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for", 1)[1].strip()
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+    return out
 
 
 def time_ms(torch, fn, flush, reps=25, warm=3):
@@ -299,18 +327,22 @@ def check_paged(torch, ops, args):
     return float((out[live] - ref[live]).abs().max())
 
 
+def live_key_rows(pos, n_view):
+    """Key rows a call needs: per batch row, those up to its largest query
+    position (none for a row whose positions are all < 0), summed."""
+    return int((pos.max(dim=1).values + 1).clamp(0, n_view).sum())
+
+
 def paged_bound(args):
-    """Least time for this call's work: each live K/V page read once, q,
+    """Least time for this call's work: each live K/V row read once, q,
     pos, ptab read and out written once, over the memory rate; its
-    QK and PV flops over the fp32 rate.  Pages past a row's last query
+    QK and PV flops over the fp32 rate.  Rows past a row's last query
     position are not needed and not counted."""
     q, kpool, _, ptab, pos = args
     bsz, S, H, hd = q.shape
     ps, P = kpool.shape[1], ptab.shape[1]
-    last = pos.max(dim=1).values.cpu().numpy()
-    pages = np.where(last < 0, 0, np.minimum(P, last // ps + 1))
     live_keys = pos.clamp(min=-1).cpu().numpy() + 1          # (B, S)
-    kv = 2 * int(pages.sum()) * ps * H * hd * 4
+    kv = 2 * live_key_rows(pos, P * ps) * H * hd * 4
     io = 2 * q.numel() * 4 + pos.numel() * 4 + ptab.numel() * 4
     flops = 4 * hd * H * int(live_keys.sum())
     t_bytes = (kv + io) / HBM_BYTES_PER_S * 1e3
@@ -1029,6 +1061,7 @@ def print_rows(label, case, rows):
     for name, row in rows.items():
         extra = "".join(
             f" {k}={row[k]:.5f}" for k in ("primal_ms", "two_einsum_ms",
+                                           "bilstm_forward_ms",
                                            "layer_library_ms",
                                            "layer_port_ms",
                                            "same_size_library_ms")
@@ -1107,6 +1140,219 @@ def phase_rnn_gru_kernels(torch, ops):
                                 for q in quantity[label][name]),
              **rows[label][name]}
             for label in ("rnn", "gru") for name in rows[label]]
+
+
+def paged_int8_case(torch, g, bsz, S, H, hd, ps, P, n_pages, pos,
+                    shared=False):
+    """``paged_case``'s inputs with the pools written as the decoder
+    writes them: ``quant.kv.quantize_rows`` of the N(0, 1) fp32 rows."""
+    from bigdl_tpu_torch.quant.kv import quantize_rows
+
+    q, kf, vf, ptab, pos = paged_case(torch, g, bsz, S, H, hd, ps, P,
+                                      n_pages, pos, shared)
+    (k, ks), (v, vs) = quantize_rows(kf), quantize_rows(vf)
+    return q, k, v, ptab, pos, ks, vs
+
+
+def check_paged_int8(torch, ops, args):
+    """The int8 kernel against its plain version on the same inputs, live
+    rows only; ``paged_attention`` hands int8 pools to the same kernel."""
+    out = ops.paged_attention_int8(*args)
+    ref = ops.paged_attention_int8_reference(*args)
+    again = ops.paged_attention(*args)
+    torch.cuda.synchronize()
+    live = args[4] >= 0
+    torch.testing.assert_close(out[live], ref[live], rtol=RTOL, atol=ATOL)
+    if not (bool(torch.isfinite(out).all()) and torch.equal(out, again)):
+        raise AssertionError("paged_attention_int8: non-finite output, or "
+                             "paged_attention did not give its bits")
+    return float((out[live] - ref[live]).abs().max())
+
+
+def paged_int8_bound(args):
+    """``paged_bound`` for int8 pools: each live int8 K and V row and its
+    f32 scale read once, q, pos, ptab read and out written once; the QK
+    and PV flops."""
+    q, kpool, _, ptab, pos, _, _ = args
+    _, _, H, hd = q.shape
+    ps, P = kpool.shape[1], ptab.shape[1]
+    kv = 2 * live_key_rows(pos, P * ps) * H * (hd + 4)
+    io = 2 * q.numel() * 4 + pos.numel() * 4 + ptab.numel() * 4
+    flops = 4 * hd * H * int((pos.clamp(min=-1) + 1).sum())
+    return byte_bound(kv + io, flops)
+
+
+def phase_int8_attention_kernels(torch, ops):
+    """The int8 page walk against its plain version: the decode step's
+    full-width shape, an S = 4 window at the same width, small pages at
+    hd 16, 8 and 6 (the 16-byte, 4-byte and plain-load copies, a shared
+    head page, fully masked tail pages) and wide pages at hd 256; times at
+    the full width beside the plain version and the two-call reference
+    (dequantize the gathered view, then SDPA).  No one PyTorch call
+    computes attention over int8 pages: its library_ms is null."""
+    import torch.nn.functional as F
+
+    from bigdl_tpu_torch.quant.kv import dequantize_view
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    hd = D_MODEL // HEADS
+    spread = [[-1]] + [[int(p)] for p in np.linspace(0, N_POS - 1, 7)]
+    full = paged_int8_case(torch, g, SLOTS, 1, HEADS, hd, PAGE,
+                           N_POS // PAGE, 512, spread)
+    window = paged_int8_case(torch, g, SLOTS, 4, HEADS, hd, PAGE,
+                             N_POS // PAGE, 512, window_pos(SLOTS, 4, N_POS))
+    errs = {"full": check_paged_int8(torch, ops, full),
+            "window S=4": check_paged_int8(torch, ops, window)}
+    for S, d in ((1, 16), (3, 8), (3, 6)):
+        args = paged_int8_case(torch, g, 3, S, 2, d, 4, 3, 10,
+                               window_pos(3, S, 12), shared=True)
+        errs[f"S={S} hd={d} ps=4"] = check_paged_int8(torch, ops, args)
+    for ps, P in ((32, 4), (64, 2)):
+        args = paged_int8_case(torch, g, 3, 1, 2, hd, ps, P, 3 * P + 1,
+                               window_pos(3, 1, ps * P))
+        errs[f"hd={hd} ps={ps}"] = check_paged_int8(torch, ops, args)
+
+    flush = torch.empty(64 * 2**20, device="cuda")   # 256 MB > 50 MB L2
+    q, k, v, ptab, pos, ks, vs = full
+    bsz, S, H, _ = q.shape
+    n_view = ptab.shape[1] * PAGE
+    idx = ptab.long()
+    mask = (torch.arange(n_view, device="cuda")[None, None, None, :]
+            <= pos[:, None, :, None])
+    qh = q.transpose(1, 2)
+
+    def dequant_sdpa():
+        kview = dequantize_view(k[idx], ks[idx]).reshape(bsz, n_view, H, hd)
+        vview = dequantize_view(v[idx], vs[idx]).reshape(bsz, n_view, H, hd)
+        return F.scaled_dot_product_attention(
+            qh, kview.transpose(1, 2), vview.transpose(1, 2), attn_mask=mask)
+
+    live = pos >= 0
+    ref_diff = float((dequant_sdpa().transpose(1, 2)[live]
+                      - ops.paged_attention_int8(*full)[live]).abs().max())
+    row = {"ms": time_ms(torch, lambda: ops.paged_attention_int8(*full),
+                         flush),
+           "plain_ms": time_ms(torch, lambda: (
+               ops.paged_attention_int8_reference(*full)), flush),
+           "queued_ms": time_queued_ms(
+               torch, lambda: ops.paged_attention_int8(*full)),
+           "library_ms": None,
+           "dequant_sdpa_ms": time_ms(torch, dequant_sdpa, flush),
+           **paged_int8_bound(full)}
+    window_ms = time_ms(torch, lambda: ops.paged_attention_int8(*window),
+                        flush)
+    window_bound = paged_int8_bound(window)
+    all_live = full[:4] + (torch.full_like(pos, N_POS - 1),) + full[5:]
+    errs["all live"] = check_paged_int8(torch, ops, all_live)
+    live_ms = time_ms(torch, lambda: ops.paged_attention_int8(*all_live),
+                      flush)
+    live_bound = paged_int8_bound(all_live)
+    print("paged_attention_int8: " + "; ".join(
+        f"{k_} max_abs_err={e:.3e}" for k_, e in errs.items()))
+    print(f"paged_attention_int8 full-width (B=8 S=1 H=4 hd=256 ps=16 P=64, "
+          f"pos spread, row 0 masked): kernel_ms={row['ms']:.5f} queued_ms="
+          f"{row['queued_ms']:.5f} (pages warm in L2) plain_ms="
+          f"{row['plain_ms']:.5f} dequant_sdpa_ms={row['dequant_sdpa_ms']:.5f}"
+          f" ({ref_diff:.3e} from the kernel) bound_ms={row['bound_ms']:.5f} "
+          f"({row['bound_by']}, {row['bytes']} bytes)")
+    print(f"paged_attention_int8 S=4 window at the same width: kernel_ms="
+          f"{window_ms:.5f} bound_ms={window_bound['bound_ms']:.5f} "
+          f"({window_bound['bytes']} bytes)")
+    print(f"paged_attention_int8 all positions live (pos=1023): kernel_ms="
+          f"{live_ms:.5f} bound_ms={live_bound['bound_ms']:.5f} "
+          f"({live_bound['bytes']} bytes)")
+    return {"name": "paged_attention_int8", "route": "cuda",
+            "source": "bigdl_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "bigdl_tpu/ops/pallas_kernels.py:1299",
+            "max_abs_err": max(errs.values()), "ok": True, **row}
+
+
+def lstm_scan_inputs(torch, g, t, b, h):
+    """zx N(0, 1), wht from the LSTMCell init's U(-1/sqrt(H), 1/sqrt(H)),
+    h0 in (-1, 1), c0 N(0, 1)."""
+    zx = torch.randn(t, b, 4 * h, generator=g, device="cuda")
+    wht = (torch.rand(h, 4 * h, generator=g, device="cuda") * 2 - 1) / h ** .5
+    h0 = torch.randn(b, h, generator=g, device="cuda").tanh()
+    c0 = torch.randn(b, h, generator=g, device="cuda")
+    return zx, wht, h0, c0
+
+
+def lstm_scan_layer_times(torch, flush, g):
+    """The yardstick the port never calls: cuDNN's ``torch.nn.LSTM``, one
+    direction, at the classifier's width (batch 128, T 500, 200 -> 128),
+    no gradient, with the weights of the port's ``Recurrent(LSTMCell)``,
+    whose no-grad forward is the projection and ``lstm_scan``."""
+    from bigdl_tpu_torch.nn import LSTMCell, Recurrent
+    from bigdl_tpu_torch.utils.random import generator
+
+    port = Recurrent().add(LSTMCell(TEMBED, THIDDEN, device="cuda",
+                                    generator=generator(8)))
+    lib = torch.nn.LSTM(TEMBED, THIDDEN, batch_first=True).cuda()
+    x = torch.randn(TBATCH, TSEQ, TEMBED, generator=g, device="cuda")
+    with torch.no_grad():
+        w = port.cell.w
+        lib.weight_ih_l0.copy_(w[:, :TEMBED])
+        lib.weight_hh_l0.copy_(w[:, TEMBED:])
+        lib.bias_ih_l0.copy_(port.cell.bias)
+        lib.bias_hh_l0.zero_()
+        diff = float((lib(x)[0] - port(x)).abs().max())
+        if diff > 1e-3:
+            raise AssertionError(f"nn.LSTM is not the same layer: {diff:.3e}")
+        return {"same_layer_diff": diff,
+                "layer_library_ms": time_ms(torch, lambda: lib(x), flush),
+                "layer_port_ms": time_ms(torch, lambda: port(x), flush)}
+
+
+def phase_lstm_scan_kernels(torch, ops):
+    """``lstm_scan`` against its plain version from non-zero h0 and c0 at
+    the classifier's validation width (500, 128, 128), a ragged shape and
+    the largest H (float64 rule where a long sum needs it); H past the
+    limit refused; times at the full width beside ``bilstm_forward``'s
+    primal forward at D = 1 on the same inputs (from zero state) and
+    cuDNN's no-grad layer beside the port's."""
+    import importlib
+
+    scan = importlib.import_module("bigdl_tpu_torch.ops.lstm_scan")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    errs = {}
+    for case in ((TSEQ, TBATCH, THIDDEN), (13, 37, 100),
+                 (3, 9, scan.MAX_HIDDEN)):
+        args = lstm_scan_inputs(torch, g, *case)
+        hs = ops.lstm_scan(*args)
+        torch.cuda.synchronize()
+        errs[case] = {"h": held(
+            torch, f"lstm_scan {case} h", hs, scan.lstm_scan_reference(*args),
+            scan.lstm_scan_reference(*(a.double() for a in args)),
+            BILSTM_FWD_TOL)}
+        del args, hs
+    print_errs("lstm_scan", errs)
+    h = scan.MAX_HIDDEN + 1
+    refused(torch, f"lstm_scan H={h}", lambda: ops.lstm_scan(
+        torch.zeros(2, 3, 4 * h, device="cuda"),
+        torch.zeros(h, 4 * h, device="cuda"),
+        torch.zeros(3, h, device="cuda"), torch.zeros(3, h, device="cuda")))
+    flush = torch.empty(64 * 2**20, device="cuda")   # 256 MB > 50 MB L2
+    full = (TSEQ, TBATCH, THIDDEN)
+    zx, wht, h0, c0 = lstm_scan_inputs(torch, g, *full)
+    n_h = TSEQ * TBATCH * THIDDEN
+    row = recurrence_times(torch, flush, {"lstm_scan": (
+        lambda: ops.lstm_scan(zx, wht, h0, c0),
+        lambda: scan.lstm_scan_reference(zx, wht, h0, c0),
+        4 * (zx.numel() + wht.numel() + 2 * h0.numel() + n_h),
+        2 * n_h * 4 * THIDDEN)})["lstm_scan"]
+    row["bilstm_forward_ms"] = time_ms(torch, lambda: ops.bilstm_forward(
+        zx[:, None], wht[None], with_c=False), flush)
+    row |= lstm_scan_layer_times(torch, flush, g)
+    print_rows("lstm", (TSEQ, 1, TBATCH, THIDDEN), {"scan": row})
+    print(f"lstm_scan layer (128, 500, 200) -> (128, 500, 128), no "
+          f"gradient: port Recurrent {row['layer_port_ms']:.5f} ms, "
+          f"torch.nn.LSTM (cuDNN) {row['layer_library_ms']:.5f} ms, outputs "
+          f"{row['same_layer_diff']:.3e} apart")
+    return {"name": "lstm_scan", "route": "cuda",
+            "source": "bigdl_tpu_torch/csrc/lstm_scan.cu",
+            "replaces": "bigdl_tpu/ops/pallas_kernels.py:117",
+            "max_abs_err": max(r["h"]["err"] for r in errs.values()),
+            "ok": True, **row}
 
 
 def sgd_leaves(torch, g, shapes):
@@ -1406,7 +1652,7 @@ def phase_inception(torch, ops, profile: bool):
     from bigdl_tpu_torch.models.inception import Inception_v1
     from bigdl_tpu_torch.nn.module import export_params
     from bigdl_tpu_torch.optim import max_iteration
-    from bigdl_tpu_torch.utils.random import generator
+    from bigdl_tpu_torch.utils.random import RNG, generator
 
     init = export_params(Inception_v1(ICLASSES, device="cpu",
                                       generator=generator(0)))
@@ -1418,7 +1664,7 @@ def phase_inception(torch, ops, profile: bool):
     images = inception_images(IMAGES, ISIZE, 0)
     val_images = inception_images(IVAL, ICROP, 1)
     make_s = time.perf_counter() - t0
-    torch.manual_seed(0)   # the dropout masks
+    RNG.set_seed(0)   # the dropout masks
     # warm-up: cuDNN's algorithm choice, allocator, kernel library loads
     inception_run(torch, "cuda", init, images, IBATCH,
                   max_iteration(2)).optimize()
@@ -1846,6 +2092,82 @@ def phase_gru(torch, ops, profile: bool):
     return counts
 
 
+def lstm_classifier(device, generator=None):
+    """The Bi-LSTM classifier's composition with one direction, from the
+    package's public modules: 183,368 parameters at (20, 200, 128)."""
+    from bigdl_tpu_torch import nn
+
+    kw = dict(device=device, generator=generator)
+    return nn.Sequential(
+        nn.Recurrent().add(nn.LSTMCell(TEMBED, THIDDEN, **kw)),
+        nn.Mean(1, n_input_dims=2),
+        nn.Linear(THIDDEN, 100, **kw), nn.ReLU(),
+        nn.Linear(100, TCLASSES, **kw), nn.LogSoftMax())
+
+
+def phase_lstm(torch, ops, profile: bool):
+    """The single-direction LSTM classifier trains one epoch of the
+    Bi-LSTM phase's documents at full width (the ``bilstm`` kernels at
+    D = 1 and ``fused_sgd``) and validates Top1 through ``lstm_scan``, the
+    no-grad route; the launch counts show each; three steps at batch 16
+    equal the CPU's."""
+    from bigdl_tpu_torch.nn.module import export_params
+    from bigdl_tpu_torch.optim import max_epoch, max_iteration
+    from bigdl_tpu_torch.utils.random import generator
+
+    init = export_params(lstm_classifier("cpu", generator(0)))
+    n_params = sum(v.size for v in _leaves(init))
+    if n_params != LPARAMS:
+        raise AssertionError(f"the LSTM classifier has {n_params} "
+                             f"parameters, expected {LPARAMS}")
+    docs = text_docs(TDOCS)
+    split = int(len(docs) * 0.8)
+    train, val = docs[:split], docs[split:]
+    run = lambda device, docs_, batch, end, val_=None: bilstm_run(
+        torch, device, init, docs_, batch, end, val_, build=lstm_classifier)
+    run("cuda", train, TBATCH, max_iteration(2), val).optimize()  # warm-up
+    opt = run("cuda", train, TBATCH, max_epoch(1), val)
+    torch.cuda.reset_peak_memory_stats()
+    _, counts, wall = run_path(torch, ops, opt.optimize)
+    steps = int(opt.state["neval"]) - 1
+    val_batches = len(opt.validation_log) * (len(val) // TBATCH)
+    want = {**dict.fromkeys(counts, 0), "fused_sgd": steps,
+            "bilstm_forward": steps, "bilstm_backward": steps,
+            "bilstm_dwh": steps, "lstm_scan": val_batches}
+    if steps != split // TBATCH or val_batches == 0 or counts != want:
+        raise AssertionError(f"LSTM launches {counts} after {steps} steps "
+                             f"and {val_batches} validation batches, "
+                             f"expected {want}")
+    losses = [l for _, l in opt.loss_log]
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"LSTM losses: {losses}")
+    val_s = opt.metrics.get("validate")[0]
+    loop_s = wall - val_s
+    step_ms = loop_s / steps * 1e3
+    print(f"lstm: LSTM classifier {n_params} params, {steps} steps of "
+          f"{TBATCH} x {TSEQ} x {TEMBED}, {len(opt.validation_log)} "
+          f"validations of {len(val) // TBATCH} batches through lstm_scan "
+          f"({val_s / val_batches * 1e3:.4f} ms per validation batch); wall "
+          f"{wall:.4f} s, {step_ms:.4f} ms/step and "
+          f"{steps * TBATCH * TSEQ / loop_s:.1f} tokens/s (validation "
+          f"excluded); max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B; launches {counts}; losses "
+          f"{' '.join(f'{l:.6f}' for l in losses)}; Top1 "
+          f"{' '.join(f'{v["Top1Accuracy"]:.4f}' for _, _, v in opt.validation_log)}")
+    diff = card_vs_cpu(torch, init, lambda device: run(
+        device, train[:TCHECK_BATCH * TCHECK_STEPS], TCHECK_BATCH,
+        max_iteration(TCHECK_STEPS)))
+    print_vs_cpu("lstm", TCHECK_BATCH, diff, PARAM_ATOL)
+    if profile:
+        busy_ms = profile_train(torch, lambda end: run(
+            "cuda", train, TBATCH, end), 5)
+        print(f"profile: device idle share of the unprofiled LSTM train "
+              f"step {1 - busy_ms / step_ms:.4f} ({busy_ms:.4f} of "
+              f"{step_ms:.4f} ms/step busy)")
+    held_to_cpu("LSTM", diff)
+    return counts
+
+
 def held_to_cpu(label, diff):
     """A recurrence path's card-vs-CPU gate: the first batch's loss and
     the steps' losses within LOSS_RTOL, the final params within
@@ -2039,10 +2361,11 @@ def phase_slice(torch, ops, profile: bool):
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     rows = [f.result() for f in futs]
-    if counts["paged_attention"] != LAYERS * dec.steps:
-        raise AssertionError(f"paged_attention launched "
-                             f"{counts['paged_attention']} times, expected "
-                             f"{LAYERS} x {dec.steps} steps")
+    if counts != {**dict.fromkeys(counts, 0),
+                  "paged_attention": LAYERS * dec.steps}:
+        raise AssertionError(f"serving launches {counts}, expected "
+                             f"paged_attention {LAYERS} x {dec.steps} steps "
+                             f"and no other kernel")
     st = dec.stats()
     print(f"decode: {N_REQ} requests, seeds {min(map(len, seeds))}.."
           f"{max(map(len, seeds))} tokens, n_words={N_WORDS}, "
@@ -2077,17 +2400,122 @@ def phase_slice(torch, ops, profile: bool):
         print(f"profile: device idle share of the unprofiled step "
               f"{1 - busy_ms / step_ms:.4f} ({busy_ms:.4f} of "
               f"{step_ms:.4f} ms/step busy)")
+    return counts, model, seeds, rows
+
+
+@contextlib.contextmanager
+def plain_int8_attention(tt, ops):
+    """The window forward's attention as the int8 kernel's plain version
+    (the dequantized gathered view), for teacher forcing on the card."""
+    tt.paged_attention = ops.paged_attention_int8_reference
+    try:
+        yield
+    finally:
+        tt.paged_attention = ops.paged_attention
+
+
+def int8_forced_gaps(torch, ops, handles, row, n_seed):
+    """Teacher forcing under the plain int8 window forward, the function
+    the int8 kernel computes: the row's positions in one window over int8
+    pools, their attention the plain version; for each generated token,
+    how far its log-prob sits below its position's maximum."""
+    from bigdl_tpu_torch.models import transformer as tt
+
+    n = len(row) - 1
+    P = -(-n // PAGE)
+    caches = tt.new_pools(handles, P, PAGE, "cuda", kv_quant="int8")
+    pages = (torch.arange(P, dtype=torch.int32, device="cuda")[None], PAGE)
+    ids = torch.tensor([row], device="cuda")
+    with torch.no_grad(), plain_int8_attention(tt, ops):
+        lp, _ = tt._lm_forward_window(
+            ids[:, :-1], torch.arange(n, device="cuda")[None], caches,
+            handles, handles.mods[1].table(P * PAGE).to("cuda"), pages)
+    if not bool(torch.isfinite(lp).all()):
+        raise AssertionError("non-finite log-probs")
+    j = torch.arange(n_seed - 1, n, device="cuda")
+    return lp[0, j].max(dim=-1).values - lp[0, j, ids[0, j + 1]]
+
+
+def phase_serving_int8(torch, ops, model, seeds, fp_rows, profile: bool):
+    """The serving phase again with ``kv_quant="int8"``: the same model
+    and 16 requests through int8 KV pools; every attention launch is the
+    int8 kernel's, every token is held by teacher forcing against the
+    plain int8 window forward, and the share of tokens equal to the fp32
+    stream is printed beside the drift budget (a reading: the weights are
+    random)."""
+    from bigdl_tpu_torch.models.transformer import _lm_handles
+    from bigdl_tpu_torch.quant import KV_TOKEN_DRIFT_BUDGET
+    from bigdl_tpu_torch.quant import kv as kvq
+    from bigdl_tpu_torch.serve.decode import (ContinuousDecoder,
+                                              continuous_decode)
+
+    continuous_decode(model, [[1, 2, 3]], 4, max_slots=SLOTS, n_pos=N_POS,
+                      kv_quant="int8", device="cuda")    # warm-up
+    dec = ContinuousDecoder(model, max_slots=SLOTS, n_pos=N_POS,
+                            page_size=PAGE, kv_quant="int8", device="cuda")
+    futs = [dec.submit(s, N_WORDS) for s in seeds]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, counts, wall = run_path(torch, ops, dec.run)
+    rows = [f.result() for f in futs]
+    st = dec.stats()
+    if counts != {**dict.fromkeys(counts, 0),
+                  "paged_attention_int8": LAYERS * dec.steps}:
+        raise AssertionError(f"int8 serving launches {counts}, expected "
+                             f"paged_attention_int8 {LAYERS} x {dec.steps} "
+                             f"steps and no other kernel")
+    if st["pool"]["in_use"] != 0 or st["kv_quant"] != "int8":
+        raise AssertionError(f"int8 serving: {st}")
+    tokens = (st["pool"]["pages"] + 1) * PAGE     # the scratch page too
+    pool_int8 = sum(c.numel() * c.element_size() for c in dec._caches)
+    pool_fp32 = tokens * kvq.bytes_per_token(LAYERS, HEADS, D_MODEL // HEADS)
+    if pool_int8 != tokens * st["kv_bytes_per_token"]:
+        raise AssertionError(f"int8 pools hold {pool_int8} bytes, not "
+                             f"{tokens} x {st['kv_bytes_per_token']}")
+    print(f"decode int8 KV: {N_REQ} requests, {st['steps']} steps, "
+          f"{st['host_syncs']} host syncs, wall {wall:.4f} s, "
+          f"{N_REQ * N_WORDS / wall:.1f} generated tokens/s, "
+          f"{wall / st['steps'] * 1e3:.4f} ms/step, pools {pool_int8} B "
+          f"against fp32's {pool_fp32} B ({pool_fp32 / pool_int8:.3f}x), "
+          f"kv_bytes_per_token {st['kv_bytes_per_token']}, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} B, "
+          f"paged_attention_int8 launches {counts['paged_attention_int8']}")
+
+    handles = _lm_handles(model)
+    worst, same, total = 0.0, 0, 0
+    for seed, row, fp in zip(seeds, rows, fp_rows):
+        if len(row) != len(seed) + N_WORDS or row[:len(seed)] != seed:
+            raise AssertionError("returned row has the wrong shape")
+        worst = max(worst, float(int8_forced_gaps(torch, ops, handles, row,
+                                                  len(seed)).max()))
+        same += sum(a == b for a, b in zip(row[len(seed):], fp[len(seed):]))
+        total += N_WORDS
+    if worst > 1e-3:
+        raise AssertionError(f"int8 teacher forcing: a generated token sits "
+                             f"{worst:.3e} below the position's maximum")
+    print(f"int8 teacher forcing: {total} tokens checked against the plain "
+          f"int8 window forward, largest gap to the position's max log-prob "
+          f"{worst:.3e} (limit 1e-3); tokens equal to the fp32 stream "
+          f"{same / total:.4f} (a reading: drift {1 - same / total:.4f} "
+          f"beside KV_TOKEN_DRIFT_BUDGET {KV_TOKEN_DRIFT_BUDGET})")
+    if profile:
+        busy_ms = profile_decode(torch, model, seeds, kv_quant="int8")
+        step_ms = wall / st["steps"] * 1e3
+        print(f"profile: device idle share of the unprofiled int8 step "
+              f"{1 - busy_ms / step_ms:.4f} ({busy_ms:.4f} of "
+              f"{step_ms:.4f} ms/step busy)")
     return counts
 
 
-def profile_decode(torch, model, seeds):
+def profile_decode(torch, model, seeds, kv_quant="off"):
     """Device time by kernel over a steady window of the same traffic."""
     from torch.profiler import ProfilerActivity, profile
 
     from bigdl_tpu_torch.serve.decode import ContinuousDecoder
 
     dec = ContinuousDecoder(model, max_slots=SLOTS, n_pos=N_POS,
-                            page_size=PAGE, device="cuda")
+                            page_size=PAGE, kv_quant=kv_quant,
+                            device="cuda")
     for s in seeds[:SLOTS]:
         dec.submit(s, N_WORDS)
     dec.step_boundary()
@@ -2137,14 +2565,15 @@ def main(argv) -> int:
     print(f"kernel build: {len(built)} built in "
           f"{time.perf_counter() - t0:.2f} s (wall, parallel)")
     for name, info in built.items():
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  {name}: {line.strip()}")
+        for line in ptxas_lines(info["log"]):
+            print(f"  {name}: {line}")
 
-    kernel_rows = ([phase_kernels(torch, ops)]
+    kernel_rows = ([phase_kernels(torch, ops),
+                    phase_int8_attention_kernels(torch, ops)]
                    + phase_train_kernels(torch, ops)
                    + phase_conv_kernels(torch, ops)
                    + phase_bilstm_kernels(torch, ops)
+                   + [phase_lstm_scan_kernels(torch, ops)]
                    + phase_rnn_gru_kernels(torch, ops))
     if "--kernels" in argv:
         # the kernel phase alone: to time two trees' kernels in turns
@@ -2152,10 +2581,14 @@ def main(argv) -> int:
         return 0
     # each path's counts are read right after it ran, from zero
     profile = "--profile" in argv
-    by_path = {"serving": phase_slice(torch, ops, profile),
+    serving, model, seeds, fp_rows = phase_slice(torch, ops, profile)
+    by_path = {"serving": serving,
+               "serving_int8": phase_serving_int8(torch, ops, model, seeds,
+                                                  fp_rows, profile),
                "lenet": phase_train(torch, ops, profile),
                "inception": phase_inception(torch, ops, profile),
                "bilstm": phase_bilstm(torch, ops, profile),
+               "lstm": phase_lstm(torch, ops, profile),
                **phase_simple_rnn(torch, ops, profile),
                "gru": phase_gru(torch, ops, profile)}
     for row in kernel_rows:
@@ -2172,9 +2605,11 @@ def main(argv) -> int:
     # the recurrence rows also carry the whole layer's times: cuDNN's
     # nn.LSTM and nn.RNN beside the port's layer (the same function), and
     # nn.GRU beside the port's as a same-size reference (another
-    # function); the GRU weight gradient's two einsums
+    # function); the GRU weight gradient's two einsums; lstm_scan's row
+    # bilstm_forward's primal forward at D = 1 on its inputs; the int8
+    # attention row the two-call reference (dequantize, then SDPA)
     extra = ("layer_library_ms", "layer_port_ms", "same_size_library_ms",
-             "two_einsum_ms")
+             "two_einsum_ms", "dequant_sdpa_ms", "bilstm_forward_ms")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
         for r in kernel_rows]}))

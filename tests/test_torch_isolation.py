@@ -102,3 +102,16 @@ def test_walk_covers_the_rnn_and_gru_slice():
     assert {f"bigdl_tpu_torch.{n}" for n in (
         "ops.rnn", "ops.gru", "ops._recurrence", "models.rnn",
         "dataset.text")} <= names
+
+
+def test_walk_covers_the_int8_kv_and_lstm_scan_slice():
+    """The import probe reaches the int8-KV serving and lstm_scan
+    slice's modules."""
+    import pkgutil
+
+    import bigdl_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(bigdl_tpu_torch.__path__,
+                                                   "bigdl_tpu_torch.")}
+    assert {f"bigdl_tpu_torch.{n}" for n in (
+        "quant", "quant.kv", "ops.lstm_scan", "ops.paged_attention",
+        "utils.random", "nn.dropout")} <= names

@@ -1,29 +1,44 @@
 """The port's ``paged_attention`` (bigdl_tpu_torch/ops/paged_attention.py)
-against the JAX package's Pallas kernel run in interpret mode.
+against the JAX package's Pallas kernel run in interpret mode, fp32 and
+int8 pools.
 
-On the CPU the port's wrapper takes its plain PyTorch version (the CUDA
-kernel is held against that same plain version on the card by
+On the CPU the port's wrappers take their plain PyTorch versions (the
+CUDA kernel is held against those same plain versions on the card by
 ``chip_smoke.py``).  Inputs come from a numpy seed and go through both.
+Tolerance: tests/test_paged_attention.py's own, rtol 1e-5 / atol 1e-6,
+for both pool types.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from bigdl_tpu.ops import pallas_kernels as pk
+from bigdl_tpu.quant import kv as jax_kvq
 from bigdl_tpu_torch import ops
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 
 
 def _case(rs, bsz, S, P, page_size, n_pages, H=2, hd=8,
-          share_first_page=False):
-    """tests/test_paged_attention.py ``_case`` (fp32): row 0 at the
-    minimal window position, so its reserved tail pages are fully
-    masked; the last row at the final view position."""
+          share_first_page=False, quantized=False):
+    """tests/test_paged_attention.py ``_case``: row 0 at the minimal
+    window position, so its reserved tail pages are fully masked; the
+    last row at the final view position.  ``quantized``: int8 pools and
+    per-(page row, head) scales drawn as there; the scales come last."""
     q = rs.randn(bsz, S, H, hd).astype(np.float32)
-    kpool = rs.randn(n_pages, page_size, H, hd).astype(np.float32)
-    vpool = rs.randn(n_pages, page_size, H, hd).astype(np.float32)
+    if quantized:
+        kpool = rs.randint(-127, 128, (n_pages, page_size, H, hd)).astype(
+            np.int8)
+        vpool = rs.randint(-127, 128, (n_pages, page_size, H, hd)).astype(
+            np.int8)
+        scales = [(0.01 + 0.05 * rs.rand(n_pages, page_size, H)).astype(
+            np.float32) for _ in range(2)]
+    else:
+        kpool = rs.randn(n_pages, page_size, H, hd).astype(np.float32)
+        vpool = rs.randn(n_pages, page_size, H, hd).astype(np.float32)
+        scales = []
     perm = rs.permutation(n_pages)
     ptab = perm[:bsz * P].reshape(bsz, P)
     if share_first_page:
@@ -33,7 +48,22 @@ def _case(rs, bsz, S, P, page_size, n_pages, H=2, hd=8,
         np.int32)
     pos = (t_last[:, None] - (S - 1) + np.arange(S)[None, :]).astype(
         np.int32)
-    return q, kpool, vpool, ptab, pos
+    return (q, kpool, vpool, ptab, pos, *scales)
+
+
+def _jax_gathered(q, kpool, vpool, ptab, pos, kscale, vscale):
+    """tests/test_paged_attention.py ``_ref_attention``, int8 branch: the
+    dequantized gathered view, masked softmax, in JAX."""
+    bsz, S, H, hd = q.shape
+    n_view = ptab.shape[1] * kpool.shape[1]
+    kview = jax_kvq.dequantize_view(kpool[ptab], kscale[ptab]).reshape(
+        bsz, n_view, H, hd)
+    vview = jax_kvq.dequantize_view(vpool[ptab], vscale[ptab]).reshape(
+        bsz, n_view, H, hd)
+    s = jnp.einsum("bshd,bthd->bhst", q, kview) / np.sqrt(hd)
+    mask = jnp.arange(n_view)[None, None, None, :] <= pos[:, None, :, None]
+    p = jax.nn.softmax(jnp.where(mask, s, -jnp.inf), axis=-1)
+    return jnp.einsum("bhst,bthd->bshd", p, vview)
 
 
 @pytest.mark.parametrize("ps,P", [(4, 3), (2, 2), (5, 1)])
@@ -51,28 +81,74 @@ def test_matches_pallas_interpret(S, ps, P):
 def test_cpu_never_counts_a_launch():
     ops.reset_launch_counts()
     rs = np.random.RandomState(0)
-    args = _case(rs, bsz=2, S=1, P=2, page_size=4, n_pages=5)
-    ops.paged_attention(*(torch.from_numpy(a) for a in args))
+    for quantized in (False, True):
+        args = _case(rs, bsz=2, S=1, P=2, page_size=4, n_pages=5,
+                     quantized=quantized)
+        ops.paged_attention(*(torch.from_numpy(a) for a in args))
     assert set(ops.launch_counts().values()) == {0}
 
 
+@pytest.mark.parametrize("S,shared", [(1, False), (3, False), (3, True)],
+                         ids=["S1", "S3", "S3-shared-head-page"])
+def test_int8_matches_pallas_interpret(S, shared):
+    """tests/test_paged_attention.py's ``_case(quantized=True)`` shapes
+    (ps 4, P 3, 10 pages): the plain int8 version against the JAX kernel
+    in interpret mode and against the JAX gathered-view reference."""
+    rs = np.random.RandomState(100 + S)
+    args = _case(rs, bsz=3, S=S, P=3, page_size=4, n_pages=10,
+                 quantized=True, share_first_page=shared)
+    jargs = [jnp.asarray(a) for a in args]
+    want = pk.paged_attention(*jargs, interpret=True)
+    got = ops.paged_attention(*(torch.from_numpy(a) for a in args))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(_jax_gathered(*jargs)),
+                               **TOL)
+    again = ops.paged_attention_int8(*(torch.from_numpy(a) for a in args))
+    assert torch.equal(again, got)
+
+
+def test_int8_equals_fp32_over_the_dequantized_pools():
+    """The int8 plain version is the fp32 one over the pools
+    ``quant.kv.dequantize_view`` gives back."""
+    rs = np.random.RandomState(7)
+    q, kq, vq, ptab, pos, ks, vs = (torch.from_numpy(a) for a in _case(
+        rs, bsz=3, S=2, P=3, page_size=5, n_pages=10, quantized=True))
+    from bigdl_tpu_torch.quant.kv import dequantize_view
+    want = ops.paged_attention(q, dequantize_view(kq, ks),
+                               dequantize_view(vq, vs), ptab, pos)
+    got = ops.paged_attention(q, kq, vq, ptab, pos, ks, vs)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 def test_int8_pools_raise():
+    """A mix of int8 and fp32 inputs raises before any attention runs:
+    int8 pools without scales, scales with fp32 pools, one int8 pool,
+    one scale array, scales of another shape or type."""
     rs = np.random.RandomState(1)
-    q, kpool, vpool, ptab, pos = (torch.from_numpy(a) for a in _case(
-        rs, bsz=2, S=1, P=2, page_size=4, n_pages=5))
-    with pytest.raises(NotImplementedError, match="int8"):
-        ops.paged_attention(q, kpool.to(torch.int8), vpool.to(torch.int8),
-                            ptab, pos)
-    scale = torch.ones(kpool.shape[:3])
-    with pytest.raises(NotImplementedError, match="int8"):
-        ops.paged_attention(q, kpool, vpool, ptab, pos, scale, scale)
+    q, kq, vq, ptab, pos, ks, vs = (torch.from_numpy(a) for a in _case(
+        rs, bsz=2, S=1, P=2, page_size=4, n_pages=5, quantized=True))
+    kf, vf = kq.float(), vq.float()
+    for bad in ((kq, vq, None, None), (kf, vf, ks, vs), (kq, vf, ks, vs),
+                (kq, vq, ks, None), (kq, vq, None, vs)):
+        with pytest.raises(ValueError, match="int8 pools come with both"):
+            ops.paged_attention(q, bad[0], bad[1], ptab, pos, *bad[2:])
+    with pytest.raises(ValueError, match="scale shape"):
+        ops.paged_attention(q, kq, vq, ptab, pos, ks[:, :2], vs[:, :2])
+    with pytest.raises(ValueError, match="scale shape"):
+        ops.paged_attention_int8(q, kq, vq, ptab, pos, ks, vs[..., None])
+    with pytest.raises(TypeError, match="float32"):
+        ops.paged_attention(q, kq, vq, ptab, pos, ks.double(), vs)
+    with pytest.raises(ValueError, match="must be int8"):
+        ops.paged_attention_int8(q, kf, vf, ptab, pos, None, None)
 
 
 def test_no_plain_path_off_the_cpu():
     """A tensor that is not on the CPU never reaches the plain version:
     the wrapper launches its kernel or raises."""
     rs = np.random.RandomState(2)
-    args = [torch.from_numpy(a).to("meta") for a in _case(
-        rs, bsz=2, S=1, P=2, page_size=4, n_pages=5)]
-    with pytest.raises(ValueError, match="no kernel"):
-        ops.paged_attention(*args)
+    for quantized in (False, True):
+        args = [torch.from_numpy(a).to("meta") for a in _case(
+            rs, bsz=2, S=1, P=2, page_size=4, n_pages=5,
+            quantized=quantized)]
+        with pytest.raises(ValueError, match="no kernel"):
+            ops.paged_attention(*args)

@@ -130,6 +130,68 @@ def test_fused_path_is_one_kernel_call_of_two_directions(monkeypatch):
     assert shapes == [((7, 2, 3, 20), (2, 5, 20)), ((7, 1, 3, 16), (1, 4, 16))]
 
 
+def _spy_routes(monkeypatch):
+    """Count the calls of each LSTM route nn.recurrent takes."""
+    from bigdl_tpu_torch.nn import recurrent
+    calls = []
+    for name in ("bilstm_recurrence", "lstm_scan"):
+        real = getattr(recurrent, name)
+        monkeypatch.setattr(recurrent, name, lambda *a, _n=name, _f=real: (
+            calls.append(_n), _f(*a))[1])
+    return calls
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_no_grad_lstm_runs_lstm_scan(monkeypatch, reverse):
+    """A forward that takes no gradient (grad mode off, or nothing that
+    requires grad) goes through lstm_scan from zero state, one call;
+    a forward that takes one keeps bilstm_recurrence at D = 1; both give
+    the JAX module's output."""
+    calls = _spy_routes(monkeypatch)
+    monkeypatch.setattr(jax_recurrent, "_PALLAS_BILSTM", "interpret")
+    set_seed(7)
+    jm = jnn.Recurrent(reverse=reverse).add(jnn.LSTMCell(6, 5))
+    pm = nn.Recurrent(reverse=reverse).add(nn.LSTMCell(6, 5, device="cpu"))
+    load_jax_params(pm, _tree(jm))
+    x = np.random.RandomState(3).randn(4, 9, 6).astype(np.float32)
+    want = np.asarray(jm.apply(jm.params(), jnp.asarray(x), jm.state(),
+                               Context(training=False,
+                                       key=jax.random.PRNGKey(0)))[0])
+    with torch.no_grad():
+        y = pm(torch.from_numpy(x))
+    assert calls == ["lstm_scan"]
+    np.testing.assert_allclose(y.numpy(), want, **FWD)
+    for p in pm.parameters():
+        p.requires_grad_(False)
+    np.testing.assert_allclose(pm(torch.from_numpy(x)).numpy(), want, **FWD)
+    assert calls == ["lstm_scan"] * 2
+    for p in pm.parameters():
+        p.requires_grad_(True)
+    y = pm(torch.from_numpy(x))
+    assert calls == ["lstm_scan"] * 2 + ["bilstm_recurrence"]
+    assert y.requires_grad
+    np.testing.assert_allclose(y.detach().numpy(), want, **FWD)
+
+
+def test_no_grad_birecurrent_children_run_lstm_scan(monkeypatch):
+    """Unequal cells: each child, forward and reverse, takes lstm_scan
+    without a gradient and bilstm_recurrence with one; the fused call of
+    two equal cells stays one D = 2 bilstm_recurrence either way."""
+    calls = _spy_routes(monkeypatch)
+    x = torch.randn(3, 7, 6)
+    two = nn.BiRecurrent(nn.LSTMCell(6, 5), nn.LSTMCell(6, 4))
+    fused = nn.BiRecurrent(nn.LSTMCell(6, 5), nn.LSTMCell(6, 5))
+    with torch.no_grad():
+        y_scan = two(x)
+        fused(x)
+    assert calls == ["lstm_scan", "lstm_scan", "bilstm_recurrence"]
+    y_grad = two(x)
+    fused(x)
+    assert calls[3:] == ["bilstm_recurrence"] * 3
+    torch.testing.assert_close(y_scan, y_grad.detach(), rtol=1e-6,
+                               atol=1e-7)
+
+
 def test_param_tree_carries_across():
     set_seed(8)
     jm = jnn.BiRecurrent(jnn.LSTMCell(6, 5), jnn.LSTMCell(6, 5))

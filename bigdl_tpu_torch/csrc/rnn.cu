@@ -22,190 +22,51 @@
 // and again the chain of T steps, each needing the previous step's h,
 // sets the time.
 //
-// What this design does about it: bilstm.cu's block.  One block per
-// (direction, tile of R batch rows) walks all T steps with its rows' h in
-// shared memory, so no step needs a barrier across blocks; the step's zx
-// rows are staged by cp.async under the product.  wht[d] (H x H) is
-// staged into shared memory once when it fits beside the state (H <= 229
-// at 8 rows: 6.4 KB at SimpleRNN's H 40) and read through L2 above that.
-// The backward's serial loop carries only dz . wht^T, from wht
-// transposed once.  R follows the row rule of recurrence_block.cuh.
+// What this design does about it: the cluster recurrence of
+// recurrence_cluster.cuh.  One cluster of C blocks per (direction, tile
+// of R batch rows) walks all T steps; block k owns hidden units [k H /
+// C, (k + 1) H / C), holds its columns of wht[d] (forward) or its rows
+// (backward: dh[u] = sum_j dz[j] wht[u, j] needs row u, so no transpose
+// launch) in shared memory for all T steps when they fit, and sends its
+// new h (dz) slice to every block of the cluster through distributed
+// shared memory before the step's one cluster barrier.  Each lane
+// prefetches its own zx (gout and h_t) values several steps ahead into a
+// cp.async ring, so no step waits on device memory.  The plan (C, R) is
+// a function of (D, B, H) (ops/_recurrence.py mirrors it): C = 1 at
+// SimpleRNN's width, where one block's barrier is cheaper than a
+// cluster's.  The product sums runs of 32 terms from zero, then runs of
+// those: at H = 14,528 one fp32 chain of H roundings leaves h about ten
+// times further from the exact sum than the blocked plain version.
 
-#include "recurrence_block.cuh"
+#include "recurrence_cluster.cuh"
 #include "recurrence_dwh.cuh"
 
 namespace {
 
-// each run of kChunk products summed from zero, then added (matvec)
-constexpr int kChunk = 32;
-
-// Shared memory of the forward block at R rows without wht, in floats.
-__host__ __device__ inline int rnn_fwd_smem_floats(int H, int R) {
-  const int G = groups(H, H);
-  return R * 3 * H + (G > 1 ? G * R * H : 0);
-}
-
-// Shared memory of the backward's serial block at R rows without wht^T.
-__host__ __device__ inline int rnn_bwd_smem_floats(int H, int R) {
-  const int G = groups(H, H);
-  return R * 4 * H + (G > 1 ? G * R * H : 0);
-}
-
-inline int rnn_rows(int H) {
-  return rows_for([H](int r) {
-    const int f = rnn_fwd_smem_floats(H, r), b = rnn_bwd_smem_floats(H, r);
-    return 4 * (f > b ? f : b);
-  });
-}
-
-// The block's bytes at `base` floats of state, with wht[d] staged when it
-// fits; `staged` says whether it is.
-inline int with_weight(int base, int H, bool* staged) {
-  const long long all = 4LL * (base + (long long)H * H);
-  *staged = all <= kMaxSmem;
-  return *staged ? (int)all : 4 * base;
-}
-
-// Copies W (n floats) into shared memory at `w_s`; the caller syncs.
-__device__ __forceinline__ void stage_weight(float* w_s, const float* W,
-                                             int n) {
-  for (int e = threadIdx.x; e < n; e += kThreads) cp_async4(w_s + e, W + e);
-  cp_async_wait_all();
-}
-
-template <int R, bool W_SHARED>
-__global__ void __launch_bounds__(kThreads)
-    rnn_fwd_kernel(const float* __restrict__ zx,
-                   const float* __restrict__ wht,
-                   const float* __restrict__ h0, float* __restrict__ hs,
-                   Dims dm) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int H = dm.H, tid = threadIdx.x;
-  const int tiles = (dm.B + R - 1) / R;
-  const int d = blockIdx.x / tiles, b0 = (blockIdx.x % tiles) * R;
-  const int rows = min(R, dm.B - b0);
-  const int G = groups(H, H);
-  float* h_s = smem;              // [H][R], rows past `rows` stay 0
-  float* z_s = h_s + H * R;       // [R][H]: h . wht
-  float* x_s = z_s + H * R;       // [rows][H]: this step's zx rows
-  float* red = x_s + H * R;       // [G][R][H]
-  float* w_s = red + (G > 1 ? G * R * H : 0);   // [H][H] when staged
-  const float* W = wht + (size_t)d * H * H;
-  for (int e = tid; e < H * R; e += kThreads) {
-    const int u = e / R, r = e - u * R;
-    h_s[e] = (h0 != nullptr && r < rows)
-                 ? h0[((size_t)d * dm.B + b0 + r) * H + u] : 0.0f;
+// h' = tanh(zx + h . wht[d])
+struct RnnFwd {
+  static constexpr int G = 1, kIn = 1;
+  static constexpr bool kReverse = false, kHasC = false, kWeightT = false;
+  __device__ static float update(const float* x, const float* z, float&) {
+    return tanhf(x[0] + z[0]);
   }
-  if (W_SHARED) {
-    stage_weight(w_s, W, H * H);
-    W = w_s;
-  }
-  __syncthreads();
-  for (int t = 0; t < dm.T; ++t) {
-    const size_t row0 = ((size_t)t * dm.D + d) * dm.B + b0;
-    const float* src = zx + row0 * H;
-    for (int e = tid; e < rows * H; e += kThreads)
-      cp_async4(x_s + e, src + e);
-    matvec<R, W_SHARED, kChunk>(W, H, H, h_s, z_s, red, G);
-    cp_async_wait_all();
-    __syncthreads();
-    for (int p = tid; p < rows * H; p += kThreads) {
-      const int r = p / H, u = p - r * H;
-      const float h = tanhf(x_s[p] + z_s[p]);
-      h_s[u * R + r] = h;
-      hs[(row0 + r) * H + u] = h;
-    }
-    __syncthreads();
-  }
-}
+};
 
-// The serial backward: one block per (direction, row tile) in reverse
-// time.  dzx[t] = (gout[t] + dh) (1 - h_t^2), dh = dz . wht^T.
-template <int R, bool W_SHARED>
-__global__ void __launch_bounds__(kThreads)
-    rnn_bwd_kernel(const float* __restrict__ hs,
-                   const float* __restrict__ gout,
-                   const float* __restrict__ wh, float* __restrict__ dzx,
-                   Dims dm) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int H = dm.H, tid = threadIdx.x;
-  const int tiles = (dm.B + R - 1) / R;
-  const int d = blockIdx.x / tiles, b0 = (blockIdx.x % tiles) * R;
-  const int rows = min(R, dm.B - b0);
-  const int G = groups(H, H);
-  float* dz_s = smem;              // [H][R]: dz of step t + 1
-  float* dh_s = dz_s + H * R;      // [R][H]: dz . wht^T
-  float* g_s = dh_s + H * R;       // [rows][H]: gout[t]
-  float* h_s = g_s + H * R;        // [rows][H]: h_t
-  float* red = h_s + H * R;        // [G][R][H]
-  float* w_s = red + (G > 1 ? G * R * H : 0);   // [H][H] when staged
-  const float* W = wh + (size_t)d * H * H;
-  for (int e = tid; e < H * R; e += kThreads) dz_s[e] = 0.0f;
-  if (W_SHARED) {
-    stage_weight(w_s, W, H * H);
-    W = w_s;
+// dz = (gout + dz' . wht[d]^T) (1 - h^2), in reverse time; x = (gout, h)
+struct RnnBwd {
+  static constexpr int G = 1, kIn = 2;
+  static constexpr bool kReverse = true, kHasC = false, kWeightT = true;
+  __device__ static float update(const float* x, const float* z, float&) {
+    return (x[0] + z[0]) * (1.0f - x[1] * x[1]);
   }
-  __syncthreads();
-  for (int t = dm.T - 1; t >= 0; --t) {
-    const size_t row0 = ((size_t)t * dm.D + d) * dm.B + b0;
-    for (int e = tid; e < rows * H; e += kThreads) {
-      cp_async4(g_s + e, gout + row0 * H + e);
-      cp_async4(h_s + e, hs + row0 * H + e);
-    }
-    matvec<R, W_SHARED, kChunk>(W, H, H, dz_s, dh_s, red, G);
-    cp_async_wait_all();
-    __syncthreads();
-    for (int p = tid; p < rows * H; p += kThreads) {
-      const int r = p / H, u = p - r * H;
-      const float h = h_s[p];
-      const float dz = (g_s[p] + dh_s[p]) * (1.0f - h * h);
-      dzx[(row0 + r) * H + u] = dz;
-      dz_s[u * R + r] = dz;
-    }
-    __syncthreads();
-  }
-}
+};
 
-template <int R>
-cudaError_t launch_fwd(const float* zx, const float* wht, const float* h0,
-                       float* hs, const Dims& dm, cudaStream_t st) {
-  bool staged;
-  const int bytes = with_weight(rnn_fwd_smem_floats(dm.H, R), dm.H, &staged);
-  const dim3 grid(dm.D * ((dm.B + R - 1) / R));
-  if (staged) {
-    cudaError_t err = set_smem((const void*)rnn_fwd_kernel<R, true>, bytes);
-    if (err != cudaSuccess) return err;
-    rnn_fwd_kernel<R, true><<<grid, kThreads, bytes, st>>>(zx, wht, h0, hs,
-                                                           dm);
-  } else {
-    cudaError_t err = set_smem((const void*)rnn_fwd_kernel<R, false>, bytes);
-    if (err != cudaSuccess) return err;
-    rnn_fwd_kernel<R, false><<<grid, kThreads, bytes, st>>>(zx, wht, h0, hs,
-                                                            dm);
-  }
-  return cudaGetLastError();
-}
-
-template <int R>
-cudaError_t launch_bwd(const float* hs, const float* gout, const float* wh,
-                       float* dzx, const Dims& dm, cudaStream_t st) {
-  bool staged;
-  const int bytes = with_weight(rnn_bwd_smem_floats(dm.H, R), dm.H, &staged);
-  const dim3 grid(dm.D * ((dm.B + R - 1) / R));
-  if (staged) {
-    cudaError_t err = set_smem((const void*)rnn_bwd_kernel<R, true>, bytes);
-    if (err != cudaSuccess) return err;
-    rnn_bwd_kernel<R, true><<<grid, kThreads, bytes, st>>>(hs, gout, wh, dzx,
-                                                           dm);
-  } else {
-    cudaError_t err = set_smem((const void*)rnn_bwd_kernel<R, false>, bytes);
-    if (err != cudaSuccess) return err;
-    rnn_bwd_kernel<R, false><<<grid, kThreads, bytes, st>>>(hs, gout, wh,
-                                                            dzx, dm);
-  }
-  return cudaGetLastError();
+// The plan of the shape, or with C > 0 the plan at (C, R) (C = 0 in it
+// when that does not fit): recurrence_plans.py times them all.
+template <class Cell>
+Plan plan_of(int D, int B, int H, int C = 0, int R = 0) {
+  return C > 0 ? plan_at(Cell::G, Cell::kIn, Cell::kHasC, H, R, C)
+               : make_plan(Cell::G, Cell::kIn, Cell::kHasC, D, B, H);
 }
 
 }  // namespace
@@ -213,45 +74,41 @@ cudaError_t launch_bwd(const float* hs, const float* gout, const float* wh,
 extern "C" {
 
 // Forward over zx (T, D, B, H) and wht (D, H, H) from h0 (D, B, H), or
-// zeros when h0 is null: hs (T, D, B, H).  One launch.  Returns the
-// cudaError_t of the launch.
+// zeros when h0 is null: hs (T, D, B, H), under the plan of the shape
+// (C = R = 0) or at (C, R).  One launch.  Returns the cudaError_t of the
+// launch.
 int bigdl_rnn_fwd_f32(const float* zx, const float* wht, const float* h0,
-                      float* hs, int T, int D, int B, int H, int device,
-                      void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const Dims dm{T, D, B, H};
-  if (empty(dm)) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (rnn_rows(H)) {
-    case 8: return (int)launch_fwd<8>(zx, wht, h0, hs, dm, st);
-    case 4: return (int)launch_fwd<4>(zx, wht, h0, hs, dm, st);
-    case 2: return (int)launch_fwd<2>(zx, wht, h0, hs, dm, st);
-    case 1: return (int)launch_fwd<1>(zx, wht, h0, hs, dm, st);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-// Backward: dzx (T, D, B, H) from wht, the forward's hs and the cotangent
-// gout (T, D, B, H).  `wh` is scratch of D * H * H floats.  Two launches:
-// wht^T, the serial loop.
-int bigdl_rnn_bwd_f32(const float* wht, const float* hs, const float* gout,
-                      float* dzx, float* wh, int T, int D, int B, int H,
+                      float* hs, int T, int D, int B, int H, int C, int R,
                       int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Dims dm{T, D, B, H};
   if (empty(dm)) return 0;
-  const int rows = rnn_rows(H);
-  if (rows == 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  launch_transpose(wht, wh, D, H, H, st);
-  switch (rows) {
-    case 8: return (int)launch_bwd<8>(hs, gout, wh, dzx, dm, st);
-    case 4: return (int)launch_bwd<4>(hs, gout, wh, dzx, dm, st);
-    case 2: return (int)launch_bwd<2>(hs, gout, wh, dzx, dm, st);
-    default: return (int)launch_bwd<1>(hs, gout, wh, dzx, dm, st);
-  }
+  const Args a{{zx, nullptr}, wht, h0, nullptr, hs, dm};
+  return (int)launch_planned<RnnFwd>(a, plan_of<RnnFwd>(D, B, H, C, R),
+                                     static_cast<cudaStream_t>(stream));
+}
+
+// Backward: dzx (T, D, B, H) from wht, the forward's hs and the cotangent
+// gout (T, D, B, H), under the plan as the forward's.  One launch.
+int bigdl_rnn_bwd_f32(const float* wht, const float* hs, const float* gout,
+                      float* dzx, int T, int D, int B, int H, int C, int R,
+                      int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Dims dm{T, D, B, H};
+  if (empty(dm)) return 0;
+  const Args a{{gout, hs}, wht, nullptr, nullptr, dzx, dm};
+  return (int)launch_planned<RnnBwd>(a, plan_of<RnnBwd>(D, B, H, C, R),
+                                     static_cast<cudaStream_t>(stream));
+}
+
+// The plan of the forward (bwd = 0) or backward (1) at (D, B, H) into
+// out[8]: C, R, RT, KP, S, staged, depth, bytes (C = 0: none fits).
+void bigdl_rnn_plan(int bwd, int D, int B, int H, int* out) {
+  const Plan p = bwd ? plan_of<RnnBwd>(D, B, H) : plan_of<RnnFwd>(D, B, H);
+  const int v[8] = {p.C, p.R, p.RT, p.KP, p.S, p.staged, p.depth, p.bytes};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
 }
 
 // dwht (D, H, H) = sum over t, b of hprev^T . dzx, hprev the h stack at

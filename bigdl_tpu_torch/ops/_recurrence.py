@@ -1,13 +1,18 @@
-"""What the recurrence wrappers (``ops.bilstm``, ``ops.rnn``, ``ops.gru``)
-share: the row rule of ``csrc/recurrence_block.cuh``, the weight
+"""What the recurrence wrappers (``ops.bilstm``, ``ops.rnn``, ``ops.gru``,
+``ops.lstm_scan``) share: the row rule of ``csrc/recurrence_block.cuh``,
+the cluster plan of ``csrc/recurrence_cluster.cuh``, the weight
 gradient's slices (``csrc/recurrence_dwh.cuh``) and their argument
 checks.
 
-A recurrence block keeps the state of its batch rows in shared memory.
-It takes the most of 8, 4, 2 or 1 rows whose forward and backward blocks
-both fit a block's shared memory (:func:`rows_for`); the largest H that
-fits at one row (:func:`max_hidden`) is a kernel's limit, and the
-wrappers refuse a larger H before any launch.
+A recurrence block of ``recurrence_block.cuh`` (bilstm, gru) keeps the
+state of its batch rows in shared memory.  It takes the most of 8, 4, 2
+or 1 rows whose forward and backward blocks both fit a block's shared
+memory (:func:`rows_for`); the largest H that fits at one row
+(:func:`max_hidden`) is a kernel's limit, and the wrappers refuse a
+larger H before any launch.  A cluster recurrence (rnn, lstm_scan) is
+planned by :func:`cluster_plan`, the mirror of the header's
+``make_plan``; its limit is the largest H a 16-block cluster of one row
+holds.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from bigdl_tpu_torch.ops import _build
 ROW_CHOICES, THREADS, MAX_SMEM = (8, 4, 2, 1), 512, 232448
 VP, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 DIMS = [I, I, I, I, I, VP]   # T D B H, device, stream
+PLANNED_DIMS = [I] * 6 + [I, VP]   # T D B H, C R, device, stream
 
 
 def groups(m, n):
@@ -48,6 +54,95 @@ def max_hidden(smem_bytes):
         mid = (lo + hi) // 2
         lo, hi = (mid, hi) if max(smem_bytes(mid, 1)) <= MAX_SMEM else (lo, mid)
     return lo
+
+
+# csrc/recurrence_cluster.cuh: the cluster block's threads, the ring's
+# shallowest and deepest, the card's SMs, the run length of a lane's sum,
+# the cluster sizes and batch rows the plan tries, and the accumulators a
+# lane holds
+CLUSTER_THREADS, MIN_DEPTH, MAX_DEPTH, SMS, CHUNK = 256, 3, 8, 132, 32
+CLUSTER_SIZES, CLUSTER_ROWS, MAX_ACC = (1, 2, 4, 8, 16), (1, 2, 4, 8, 16), 16
+PLAN_FIELDS = ("C", "R", "RT", "KP", "S", "staged", "depth", "bytes")
+
+
+def _round4(x):
+    return (x + 3) & ~3
+
+
+def _pow2_floor(x):
+    p = 1
+    while p * 2 <= x:
+        p *= 2
+    return p
+
+
+def cluster_smem_floats(g, n_in, has_c, hdim, rows, c, staged, depth):
+    """recurrence_cluster.cuh ``smem_floats``: the two state buffers, c,
+    the weight slice when staged and ``depth`` ring stages, in floats."""
+    s = -(-hdim // c)
+    return (2 * _round4(hdim * rows) + (_round4(rows * s) if has_c else 0)
+            + (_round4(hdim * (s * g + 4)) if staged else 0)
+            + depth * _round4(n_in * g * rows * s))
+
+
+def cluster_plan_at(g, n_in, has_c, hdim, rows, c):
+    """recurrence_cluster.cuh ``plan_at``: the plan of (C, R) as a dict of
+    PLAN_FIELDS, C = 0 when it does not fit; the weight slice staged in
+    shared memory when it fits beside the shallowest ring."""
+    s = -(-hdim // c)
+    p = dict(C=0, R=rows, RT=min(rows, MAX_ACC // g), KP=1, S=s, staged=0,
+             depth=0, bytes=0)
+    cap = MAX_SMEM // 4
+    if c > hdim:
+        return p
+    stage = _round4(n_in * g * rows * s)
+    fixed = cluster_smem_floats(g, n_in, has_c, hdim, rows, c, True, 0)
+    p["staged"] = int(fixed + MIN_DEPTH * stage <= cap)
+    if not p["staged"]:
+        fixed = cluster_smem_floats(g, n_in, has_c, hdim, rows, c, False, 0)
+    if fixed + MIN_DEPTH * stage > cap:
+        return p
+    p["depth"] = min((cap - fixed) // stage, MAX_DEPTH)
+    p["bytes"] = 4 * (fixed + p["depth"] * stage)
+    items = s * (rows // p["RT"])
+    p["KP"] = _pow2_floor(max(1, min(CLUSTER_THREADS // items, 32, hdim)))
+    p["C"] = c
+    return p
+
+
+def fill_rows(nd, b, c):
+    """recurrence_cluster.cuh ``fill_rows``: the fewest batch rows a
+    cluster whose D x ceil(B / R) clusters of C blocks fit the SMs side by
+    side (16 when none do)."""
+    return next((r for r in CLUSTER_ROWS if nd * -(-b // r) * c <= SMS),
+                CLUSTER_ROWS[-1])
+
+
+def cluster_plan(g, n_in, has_c, nd, b, hdim):
+    """recurrence_cluster.cuh ``make_plan``: the smallest cluster whose
+    blocks hold their weight slice in shared memory, with the rows that
+    fill the SMs; else 16 blocks reading their slices through L2 with as
+    many of those rows as fit; C = 0 when nothing fits.  A function of
+    the shape alone."""
+    for c in CLUSTER_SIZES:
+        p = cluster_plan_at(g, n_in, has_c, hdim, fill_rows(nd, b, c), c)
+        if p["C"] and p["staged"]:
+            return p
+    rows = fill_rows(nd, b, 16)
+    while rows >= 1:
+        p = cluster_plan_at(g, n_in, has_c, hdim, rows, 16)
+        if p["C"]:
+            return p
+        rows //= 2
+    return dict.fromkeys(PLAN_FIELDS, 0)
+
+
+def kernel_plan(entry, *args):
+    """The plan a kernel library's ``bigdl_*_plan(*args, out)`` entry
+    computes, as a dict of PLAN_FIELDS."""
+    out = (ctypes.c_int * len(PLAN_FIELDS))()
+    entry(*args, out)
+    return dict(zip(PLAN_FIELDS, out))
 
 
 def dwh_slices(t, b, k, j, nd):

@@ -9,9 +9,9 @@ gradient (the JAX kernel has no VJP): validation and inference of a
 ``bilstm_recurrence``.  On a CUDA tensor it launches the hand-written
 ``csrc/lstm_scan.cu`` kernel or raises; on a CPU tensor it runs
 :func:`lstm_scan_reference`, the plain step loop.  ``lstm_scan.launches``
-counts kernel launches only.  The block follows the row rule of
-``ops._recurrence`` over its one (forward) block: H <= ``MAX_HIDDEN``
-(5,811), a larger H is refused before a launch.
+counts kernel launches only.  The kernel is a cluster recurrence
+(``csrc/recurrence_cluster.cuh``) whose plan :func:`plan` mirrors: H <=
+``MAX_HIDDEN``, a larger H is refused before a launch.
 """
 from __future__ import annotations
 
@@ -24,27 +24,42 @@ from bigdl_tpu_torch.ops.bilstm import _gates
 _KERNEL = "lstm_scan"
 
 
-def smem_bytes(hdim, rows=8):
-    """(bytes,) of the block of ``rows`` batch rows at H = ``hdim``, as
-    csrc/lstm_scan.cu's ``scan_smem_floats`` sizes it: bilstm.cu's forward
-    block, and no backward block beside it."""
-    g = rec.groups(hdim, 4 * hdim)
-    return (4 * (rows * 10 * hdim + (g * rows * 4 * hdim if g > 1 else 0)),)
+# (G, kIn, kHasC) of csrc/lstm_scan.cu's LstmFwd cell
+CELL = (4, 1, True)
 
 
-def rows_for(hdim):
-    """The batch rows of the block at H = ``hdim``."""
-    return rec.rows_for(hdim, smem_bytes)
+def plan(b, hdim):
+    """The cluster plan at (B, H), as csrc/lstm_scan.cu's ``scan_plan``
+    computes it: a dict of ``_recurrence.PLAN_FIELDS``."""
+    return rec.cluster_plan(*CELL, 1, b, hdim)
 
 
-#: the largest H the kernel takes (one batch row a block)
+def smem_bytes(hdim, rows=1):
+    """(bytes,) of a block of ``rows`` batch rows in a 16-block cluster at
+    H = ``hdim``, with wht read through L2 and the shallowest ring: the
+    least any plan at ``rows`` needs."""
+    return (4 * rec.cluster_smem_floats(*CELL, hdim, rows,
+                                        rec.CLUSTER_SIZES[-1], False,
+                                        rec.MIN_DEPTH),)
+
+
+#: the largest H the kernel takes (a 16-block cluster of one batch row)
 MAX_HIDDEN = rec.max_hidden(smem_bytes)
 
 
 def _setup(lib):
-    lib.bigdl_lstm_scan_f32.argtypes = [rec.VP] * 5 + [rec.I] * 3 + [rec.I,
-                                                                     rec.VP]
+    # T B H, then C R (0 0: the plan of the shape), device, stream
+    lib.bigdl_lstm_scan_f32.argtypes = [rec.VP] * 5 + rec.PLANNED_DIMS[1:]
     lib.bigdl_lstm_scan_f32.restype = rec.I
+    lib.bigdl_lstm_scan_plan.argtypes = [rec.I, rec.I, rec.VP]
+    lib.bigdl_lstm_scan_plan.restype = None
+
+
+def kernel_plan(b, hdim):
+    """The plan csrc/lstm_scan.cu itself computes (the library built and
+    loaded), to hold :func:`plan` to it on the card."""
+    return rec.kernel_plan(rec.load(_KERNEL, _setup).bigdl_lstm_scan_plan,
+                           b, hdim)
 
 
 def lstm_scan_reference(zx, wht, h0, c0):
@@ -80,7 +95,7 @@ def lstm_scan(zx, wht, h0, c0):
     lib = rec.load(_KERNEL, _setup)
     err = lib.bigdl_lstm_scan_f32(zx.data_ptr(), wht.data_ptr(),
                                   h0.data_ptr(), c0.data_ptr(),
-                                  hs.data_ptr(), t, b, hdim,
+                                  hs.data_ptr(), t, b, hdim, 0, 0,
                                   *_build.device_stream(zx.device))
     rec.raise_on(lib, err, _KERNEL, "fwd", hdim)
     lstm_scan.launches += 1

@@ -14,9 +14,9 @@ from the h stack alone) then :func:`rnn_dwh` (dwht = sum_t hprev^T . dz,
 hprev h0 at t = 0).  On CUDA tensors the three wrappers launch the
 hand-written ``csrc/rnn.cu`` kernels or raise; on CPU tensors they run
 the plain versions beside them.  Each wrapper's ``launches`` counts its
-kernel calls only.  The blocks follow the row rule of
-``ops._recurrence``: H <= ``MAX_HIDDEN``, a larger H is refused before a
-launch.
+kernel calls only.  The kernels are cluster recurrences
+(``csrc/recurrence_cluster.cuh``) whose plan :func:`plan` mirrors: H <=
+``MAX_HIDDEN``, a larger H is refused before a launch.
 """
 from __future__ import annotations
 
@@ -28,36 +28,53 @@ from bigdl_tpu_torch.ops import _recurrence as rec
 _KERNEL = "rnn"
 
 
-def smem_bytes(hdim, rows=8):
-    """(forward, backward) shared memory of a recurrence block of
-    ``rows`` batch rows at H = ``hdim`` without the staged weight, as
-    csrc/rnn.cu's ``rnn_fwd_smem_floats``/``rnn_bwd_smem_floats`` size
-    it (wht is staged beside the state only when it fits)."""
-    g = rec.groups(hdim, hdim)
-    red = g * rows * hdim if g > 1 else 0
-    return 4 * (rows * 3 * hdim + red), 4 * (rows * 4 * hdim + red)
+# (G, kIn, kHasC) of csrc/rnn.cu's RnnFwd and RnnBwd cells
+FWD_CELL, BWD_CELL = (1, 1, False), (1, 2, False)
 
 
-def rows_for(hdim):
-    return rec.rows_for(hdim, smem_bytes)
+def plan(nd, b, hdim, backward=False):
+    """The forward's (or backward's) cluster plan at (D, B, H), as
+    csrc/rnn.cu's ``plan_of`` computes it: a dict of
+    ``_recurrence.PLAN_FIELDS``."""
+    return rec.cluster_plan(*(BWD_CELL if backward else FWD_CELL), nd, b,
+                            hdim)
 
 
-#: the largest H the kernels take (one batch row a block)
+def smem_bytes(hdim, rows=1):
+    """(forward, backward) shared memory of a block of ``rows`` batch rows
+    in a 16-block cluster at H = ``hdim``, with the weight read through L2
+    and the shallowest ring: the least any plan at ``rows`` needs."""
+    return tuple(4 * rec.cluster_smem_floats(*cell, hdim, rows,
+                                             rec.CLUSTER_SIZES[-1], False,
+                                             rec.MIN_DEPTH)
+                 for cell in (FWD_CELL, BWD_CELL))
+
+
+#: the largest H the kernels take (a 16-block cluster of one batch row)
 MAX_HIDDEN = rec.max_hidden(smem_bytes)
 
 
 def _setup(lib):
-    lib.bigdl_rnn_fwd_f32.argtypes = [rec.VP] * 4 + rec.DIMS
+    # T D B H, then C R (0 0: the plan of the shape), device, stream
+    lib.bigdl_rnn_fwd_f32.argtypes = [rec.VP] * 4 + rec.PLANNED_DIMS
     lib.bigdl_rnn_fwd_f32.restype = rec.I
-    lib.bigdl_rnn_bwd_f32.argtypes = [rec.VP] * 5 + rec.DIMS
+    lib.bigdl_rnn_bwd_f32.argtypes = [rec.VP] * 4 + rec.PLANNED_DIMS
     lib.bigdl_rnn_bwd_f32.restype = rec.I
     lib.bigdl_rnn_dwh_f32.argtypes = ([rec.VP] * 5 + [rec.I] * 5
                                       + [rec.LL] + rec.DIMS[4:])
     lib.bigdl_rnn_dwh_f32.restype = rec.I
+    lib.bigdl_rnn_plan.argtypes = [rec.I] * 4 + [rec.VP]
+    lib.bigdl_rnn_plan.restype = None
 
 
 def _lib():
     return rec.load(_KERNEL, _setup)
+
+
+def kernel_plan(nd, b, hdim, backward=False):
+    """The plan csrc/rnn.cu itself computes (the library built and
+    loaded), to hold :func:`plan` to it on the card."""
+    return rec.kernel_plan(_lib().bigdl_rnn_plan, int(backward), nd, b, hdim)
 
 
 def rnn_forward_reference(zx, wht, h0=None):
@@ -101,7 +118,7 @@ def rnn_forward(zx, wht, h0=None):
     lib = _lib()
     err = lib.bigdl_rnn_fwd_f32(zx.data_ptr(), wht.data_ptr(),
                                 None if h0 is None else h0.data_ptr(),
-                                hs.data_ptr(), t, nd, b, hdim,
+                                hs.data_ptr(), t, nd, b, hdim, 0, 0,
                                 *_build.device_stream(zx.device))
     rec.raise_on(lib, err, _KERNEL, "fwd", hdim)
     rnn_forward.launches += 1
@@ -116,12 +133,10 @@ def rnn_backward(wht, hs, gout):
     t, nd, b, hdim = _check_inputs(hs, wht, "hs")
     _check(gout, "gout", hs.device, (t, nd, b, hdim))
     dzx = torch.empty_like(hs)
-    wh = hs.new_empty(nd, hdim, hdim)   # scratch: wht^T
     lib = _lib()
     err = lib.bigdl_rnn_bwd_f32(wht.data_ptr(), hs.data_ptr(),
-                                gout.data_ptr(), dzx.data_ptr(),
-                                wh.data_ptr(), t, nd, b, hdim,
-                                *_build.device_stream(hs.device))
+                                gout.data_ptr(), dzx.data_ptr(), t, nd, b,
+                                hdim, 0, 0, *_build.device_stream(hs.device))
     rec.raise_on(lib, err, _KERNEL, "bwd", hdim)
     rnn_backward.launches += 1
     return dzx

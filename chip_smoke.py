@@ -25,8 +25,9 @@ Phases, each failing with a non-zero exit:
    of paged attention at the decode step's full width, an S = 4 window
    and small pages taking each of its copy paths, with the two-call
    reference (dequantize, then SDPA) beside it; ``lstm_scan`` from
-   non-zero states at (T 500, B 128, H 128), a ragged shape and its
-   largest H, beside cuDNN's no-grad ``nn.LSTM`` layer;
+   non-zero states at (T 500, B 128, H 128), a ragged shape, shapes whose
+   cluster plans take 1, 2, 4, 8 and 16 blocks, and its largest H, beside
+   cuDNN's no-grad ``nn.LSTM`` layer;
 3. serving: a full-width ``TransformerLM`` (vocab 4000, d_model 1024,
    4 heads, 6 layers, hidden 4096, random weights from seed 0) serves 16
    requests through ``ContinuousDecoder``; the kernels' launch counts
@@ -75,7 +76,8 @@ Phases, each failing with a non-zero exit:
    samples 20 words, each a forward through the kernel, equal to the
    CPU's from the same parameters and ``RandomState``; three steps equal
    the CPU's.  The ``rnn`` and ``gru`` kernels are checked with phase 2
-   as the ``bilstm`` ones are, h0 and each kernel's largest H included,
+   as the ``bilstm`` ones are, h0, each kernel's largest H and (rnn)
+   shapes whose cluster plans take 1, 2, 4, 8 and 16 blocks included,
    cuDNN's ``nn.RNN`` timed beside the port's layer and ``nn.GRU`` as a
    same-size reference (another function);
 8. the Bi-LSTM classifier's composition with GRU cells trains one epoch
@@ -196,13 +198,29 @@ RSENTENCES, RCHECK_STEPS, RWORDS = 1024, 3, 20
 # (T, D, B, H, h0 given): tests/test_pallas_ops.py:283, tests/
 # test_recurrent.py's Recurrent(RnnCell(6, 5)) over (4, 9, 6), a ragged H
 # from h0, T = 1, SimpleRNN's chunk and whole sequence, the largest H
-# (ops.rnn.MAX_HIDDEN, filled in at run time), then (500, D, 128, 128)
+# (ops.rnn.MAX_HIDDEN, filled in at run time), then (500, D, 128, 128);
+# then both directions from h0 at an odd batch and an H that the plan's
+# clusters of 2, 4, 8 and 16 blocks split raggedly (the weight slice in
+# shared memory), and at H = 1,001 (16 blocks, through L2)
 RNN_CASES = [(9, 2, 3, 6, False), (9, 2, 3, 6, True), (9, 1, 4, 5, False),
              (13, 2, 37, 100, True), (1, 2, 3, 5, True),
              (RBPTT, 1, RBATCH, RHIDDEN, True),
              (RSEQ, 1, RBATCH, RHIDDEN, False), (2, 1, 3, None, True),
              (TSEQ, 2, TBATCH, THIDDEN, False),
-             (TSEQ, 1, TBATCH, THIDDEN, False)]
+             (TSEQ, 1, TBATCH, THIDDEN, False),
+             (7, 2, 37, 301, True), (7, 2, 37, 331, True),
+             (7, 2, 37, 471, True), (7, 2, 37, 669, True),
+             (5, 2, 37, 1001, True)]
+# (T, B, H): the classifier's validation width, a ragged shape, an odd
+# batch at an H that the plan's clusters of 2, 4, 8 and 16 blocks split
+# raggedly, H = 1,001 (16 blocks, wht through L2), the largest H
+# (ops.lstm_scan.MAX_HIDDEN, filled in at run time)
+SCAN_CASES = [(TSEQ, TBATCH, THIDDEN), (13, 37, 100), (7, 37, 151),
+              (7, 37, 203), (7, 37, 301), (7, 37, 403), (5, 37, 1001),
+              (3, 9, None)]
+# the cluster sizes csrc/recurrence_cluster.cuh's plan picks from; the
+# rnn and lstm_scan cases run every one, and both weight placements
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
 # (T, D, B, H): tests/test_pallas_ops.py:260, tests/test_recurrent.py's
 # GRUCell(6, 5) over (4, 9, 6), a ragged H, T = 1, the largest H
 # (ops.gru.MAX_HIDDEN), then the classifier's width with GRU cells
@@ -239,6 +257,40 @@ def ptxas_lines(log):
         elif "registers" in line:
             out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
     return out
+
+
+def cluster_plan_line(label, lib, cell, plan, kernel_plan, nd, b):
+    """A case's cluster plan (the Python mirror, held equal to the plan
+    the library computes) with ptxas's registers and spills for the
+    instantiation it launches; returns the plan's (C, staged)."""
+    from bigdl_tpu_torch.ops import _build
+
+    if plan != kernel_plan:
+        raise AssertionError(f"{label}: the plan mirror {plan} differs from "
+                             f"the kernel's {kernel_plan}")
+    log = _build.target(lib).with_suffix(".log").read_text()
+    inst = f"{len(cell)}{cell}ELi{plan['RT']}ELb{plan['staged']}E"
+    regs = [line.split(": ", 1)[1] for line in ptxas_lines(log)
+            if "cluster_recurrence" in line and inst in line]
+    grid = nd * -(-b // plan["R"]) * plan["C"]
+    print(f"{label}: C={plan['C']} R={plan['R']} RT={plan['RT']} "
+          f"KP={plan['KP']} grid={grid} ({grid // plan['C']} clusters) "
+          f"depth={plan['depth']} weight "
+          f"{'in shared memory' if plan['staged'] else 'through L2'} "
+          f"smem={plan['bytes']} B; {cell}<{plan['RT']}, "
+          f"{bool(plan['staged'])}>: {'; '.join(regs) or 'no ptxas line'}")
+    return plan["C"], plan["staged"]
+
+
+def covered(label, plans):
+    """Raises unless the (C, staged) pairs ``plans`` ran every cluster
+    size and both weight placements (shared memory, through L2)."""
+    sizes, staged = {c for c, _ in plans}, {w for _, w in plans}
+    if sizes != set(CLUSTER_SIZES) or staged != {0, 1}:
+        raise AssertionError(f"{label}: the cases ran cluster sizes "
+                             f"{sorted(sizes)} and placements "
+                             f"{sorted(staged)}, not all of "
+                             f"{CLUSTER_SIZES} and (0, 1)")
 
 
 def time_ms(torch, fn, flush, reps=25, warm=3):
@@ -1079,9 +1131,11 @@ def print_rows(label, case, rows):
 def phase_rnn_gru_kernels(torch, ops):
     """The RNN and GRU kernels against their plain versions at the JAX
     tests' shapes, a ragged H, T = 1, h0 (RNN), the largest H each takes
-    and the full widths, with times at (500, 2, 128, 128) beside the
-    bilstm rows, cuDNN's nn.RNN beside the port's layer and nn.GRU as a
-    same-size reference; one H past each limit is refused."""
+    and the full widths, the RNN's cluster plan printed for each case and
+    every cluster size run, with times at (500, 2, 128, 128) beside the
+    bilstm rows and at SimpleRNN's chunk, cuDNN's nn.RNN beside the port's
+    layer and nn.GRU as a same-size reference; one H past each limit is
+    refused."""
     from bigdl_tpu_torch.ops import gru, rnn
 
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -1092,6 +1146,12 @@ def phase_rnn_gru_kernels(torch, ops):
     rnn_errs = {c: check_rnn(torch, ops, g, c) for c in rnn_cases}
     gru_errs = {c: check_gru(torch, ops, g, c) for c in gru_cases}
     print_errs("rnn", rnn_errs)
+    plans = {cluster_plan_line(f"rnn {(t, nd, b, h)} {cell}", "rnn", cell,
+                               rnn.plan(nd, b, h, bwd),
+                               rnn.kernel_plan(nd, b, h, bwd), nd, b)
+             for t, nd, b, h, _ in rnn_cases
+             for cell, bwd in (("RnnFwd", False), ("RnnBwd", True))}
+    covered("rnn", plans)
     print_errs("gru", gru_errs)
     for name, limit, call in (
             ("rnn", rnn.MAX_HIDDEN, lambda h: ops.rnn_forward(
@@ -1124,6 +1184,9 @@ def phase_rnn_gru_kernels(torch, ops):
     for label in ("rnn", "gru"):
         print_rows(label, full, rows[label])
     print_rows("rnn", small, simple)
+    for name in ("forward", "backward"):
+        rows["rnn"][name]["simplernn_ms"] = simple[name]["ms"]
+        rows["rnn"][name]["simplernn_bound_ms"] = simple[name]["bound_ms"]
     src = "bigdl_tpu_torch/csrc/"
     at = "bigdl_tpu/ops/pallas_kernels.py:"
     quantity = {"rnn": {"forward": ("h",), "backward": ("dzx",),
@@ -1305,18 +1368,18 @@ def lstm_scan_layer_times(torch, flush, g):
 
 def phase_lstm_scan_kernels(torch, ops):
     """``lstm_scan`` against its plain version from non-zero h0 and c0 at
-    the classifier's validation width (500, 128, 128), a ragged shape and
-    the largest H (float64 rule where a long sum needs it); H past the
-    limit refused; times at the full width beside ``bilstm_forward``'s
-    primal forward at D = 1 on the same inputs (from zero state) and
-    cuDNN's no-grad layer beside the port's."""
+    SCAN_CASES (float64 rule where a long sum needs it), each case's
+    cluster plan printed and every cluster size run; H past the limit
+    refused; times at the full width beside ``bilstm_forward``'s primal
+    forward at D = 1 on the same inputs (from zero state) and cuDNN's
+    no-grad layer beside the port's."""
     import importlib
 
     scan = importlib.import_module("bigdl_tpu_torch.ops.lstm_scan")
     g = torch.Generator(device="cuda").manual_seed(9)
     errs = {}
-    for case in ((TSEQ, TBATCH, THIDDEN), (13, 37, 100),
-                 (3, 9, scan.MAX_HIDDEN)):
+    for case in [c if c[2] is not None else c[:2] + (scan.MAX_HIDDEN,)
+                 for c in SCAN_CASES]:
         args = lstm_scan_inputs(torch, g, *case)
         hs = ops.lstm_scan(*args)
         torch.cuda.synchronize()
@@ -1326,6 +1389,9 @@ def phase_lstm_scan_kernels(torch, ops):
             BILSTM_FWD_TOL)}
         del args, hs
     print_errs("lstm_scan", errs)
+    covered("lstm_scan", {cluster_plan_line(
+        f"lstm_scan {case}", "lstm_scan", "LstmFwd", scan.plan(*case[1:]),
+        scan.kernel_plan(*case[1:]), 1, case[1]) for case in errs})
     h = scan.MAX_HIDDEN + 1
     refused(torch, f"lstm_scan H={h}", lambda: ops.lstm_scan(
         torch.zeros(2, 3, 4 * h, device="cuda"),
@@ -2607,9 +2673,11 @@ def main(argv) -> int:
     # nn.GRU beside the port's as a same-size reference (another
     # function); the GRU weight gradient's two einsums; lstm_scan's row
     # bilstm_forward's primal forward at D = 1 on its inputs; the int8
-    # attention row the two-call reference (dequantize, then SDPA)
+    # attention row the two-call reference (dequantize, then SDPA); the
+    # rnn forward and backward rows also their time at SimpleRNN's chunk
     extra = ("layer_library_ms", "layer_port_ms", "same_size_library_ms",
-             "two_einsum_ms", "dequant_sdpa_ms", "bilstm_forward_ms")
+             "two_einsum_ms", "dequant_sdpa_ms", "bilstm_forward_ms",
+             "simplernn_ms", "simplernn_bound_ms")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
         for r in kernel_rows]}))

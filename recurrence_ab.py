@@ -7,24 +7,36 @@ Each tree is a checkout of the repository (unpack the other one with
 run in turns, parent, change, change, parent, each turn a fresh process
 that imports that tree's ``bigdl_tpu_torch`` and builds its kernels.  A
 turn times every recurrence wrapper the tree has (``bilstm_*``, and
-``rnn_*`` and ``gru_*`` where present) at (T, D, B, H) = (500, 2, 128,
-128): CUDA events, L2 flushed before each call, median of 25.  It lists
-the four longest kernels of three bilstm forward and backward calls under
-the profiler, and digests (sha256) the four bilstm outputs of fixed
-inputs at three shapes, so the trees are compared bit for bit.  Prints
-the card's name and power limit first; exits 1 if a turn fails or the
-bilstm outputs of the two trees differ.
+``rnn_*``, ``gru_*`` and ``lstm_scan`` where present) at (T, D, B, H) =
+(500, 2, 128, 128), ``lstm_scan`` at (T, B, H) = (500, 128, 128) and
+``rnn_forward`` / ``rnn_backward`` at SimpleRNN's (4, 1, 4, 40) and (8,
+1, 4, 40): CUDA events, L2 flushed before each call, median of 25.  It
+lists the four longest kernels of three bilstm forward and backward
+calls under the profiler, and digests (sha256) the four bilstm outputs
+and the gru outputs of fixed inputs at three shapes, so the trees are
+compared bit for bit.  The rnn and ``lstm_scan`` outputs of fixed inputs
+are kept (``.recurrence_ab/`` in the working directory) and their largest
+differences between the trees printed.  Prints the card's name and power
+limit first; exits 1 if a turn fails or the bilstm or gru outputs of the
+two trees differ.
 """
 from __future__ import annotations
 
 import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
 
 FULL = (500, 2, 128, 128)
 BIT_CASES = [FULL, (13, 2, 37, 100), (3, 2, 9, 558)]
+SIMPLE = [(4, 1, 4, 40), (8, 1, 4, 40)]   # SimpleRNN's chunk and sequence
+KEEP = ".recurrence_ab"
+
+
+def _digest(v):
+    return hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()
 
 
 def _ms(torch, fn, flush, reps=25, warm=3):
@@ -42,8 +54,9 @@ def _ms(torch, fn, flush, reps=25, warm=3):
     return statistics.median(times)
 
 
-def turn(tree):
-    """One tree's times, top kernels and bilstm digests, as a dict."""
+def turn(tree, keep):
+    """One tree's times, top kernels and bilstm and gru digests, as a
+    dict; its rnn and lstm_scan outputs saved to ``keep``."""
     sys.path.insert(0, tree)
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -62,8 +75,27 @@ def turn(tree):
         hs, cs = ops.bilstm_forward(zx, wht)
         dzx = ops.bilstm_backward(zx, wht, hs, cs, go)
         digests[str((t, nd, b, h))] = [
-            hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()
-            for v in (hs, cs, dzx, ops.bilstm_dwh(hs, dzx))]
+            _digest(v) for v in (hs, cs, dzx, ops.bilstm_dwh(hs, dzx))]
+    gru_digests = {}
+    for t, nd, b, h in BIT_CASES:
+        zrz, zn = r(t, nd, b, 2 * h), r(t, nd, b, h)
+        wrz, wh, go = u(h, nd, h, 2 * h), u(h, nd, h, h), r(t, nd, b, h)
+        hg = ops.gru_forward(zrz, zn, wrz, wh)
+        dzrz, dzn, rh = ops.gru_backward(zrz, zn, wrz, wh, hg, go)
+        gru_digests[str((t, nd, b, h))] = [
+            _digest(v) for v in (hg, dzrz, dzn, rh,
+                                 *ops.gru_dwh(hg, rh, dzrz, dzn))]
+    kept = {}
+    for t, nd, b, h in [FULL] + SIMPLE:
+        zr, wr, go = r(t, nd, b, h), u(h, nd, h, h), r(t, nd, b, h)
+        hr = ops.rnn_forward(zr, wr)
+        kept[f"rnn_forward {(t, nd, b, h)}"] = hr.cpu()
+        kept[f"rnn_backward {(t, nd, b, h)}"] = ops.rnn_backward(
+            wr, hr, go).cpu()
+    scan_args = (r(500, 128, 512), u(128, 128, 512),
+                 r(128, 128).tanh(), r(128, 128))
+    kept["lstm_scan (500, 128, 128)"] = ops.lstm_scan(*scan_args).cpu()
+    torch.save(kept, keep)
     flush = torch.empty(64 * 2 ** 20, device="cuda")
     t, nd, b, h = FULL
     zx, wht, go = r(t, nd, b, 4 * h), u(h, nd, h, 4 * h), r(t, nd, b, h)
@@ -73,21 +105,29 @@ def turn(tree):
              "bilstm_backward": lambda: ops.bilstm_backward(zx, wht, hs, cs,
                                                             go),
              "bilstm_dwh": lambda: ops.bilstm_dwh(hs, dzx)}
-    if hasattr(ops, "rnn_forward"):
-        zr, wr = r(t, nd, b, h), u(h, nd, h, h)
-        hr = ops.rnn_forward(zr, wr)
-        dr = ops.rnn_backward(wr, hr, go)
-        zrz, zn = r(t, nd, b, 2 * h), r(t, nd, b, h)
-        wrz, wh = u(h, nd, h, 2 * h), u(h, nd, h, h)
-        hg = ops.gru_forward(zrz, zn, wrz, wh)
-        dzrz, dzn, rh = ops.gru_backward(zrz, zn, wrz, wh, hg, go)
-        calls |= {"rnn_forward": lambda: ops.rnn_forward(zr, wr),
-                  "rnn_backward": lambda: ops.rnn_backward(wr, hr, go),
-                  "rnn_dwh": lambda: ops.rnn_dwh(hr, dr),
-                  "gru_forward": lambda: ops.gru_forward(zrz, zn, wrz, wh),
-                  "gru_backward": lambda: ops.gru_backward(zrz, zn, wrz, wh,
-                                                           hg, go),
-                  "gru_dwh": lambda: ops.gru_dwh(hg, rh, dzrz, dzn)}
+    zr, wr = r(t, nd, b, h), u(h, nd, h, h)
+    hr = ops.rnn_forward(zr, wr)
+    dr = ops.rnn_backward(wr, hr, go)
+    zrz, zn = r(t, nd, b, 2 * h), r(t, nd, b, h)
+    wrz, wh = u(h, nd, h, 2 * h), u(h, nd, h, h)
+    hg = ops.gru_forward(zrz, zn, wrz, wh)
+    dzrz, dzn, rh = ops.gru_backward(zrz, zn, wrz, wh, hg, go)
+    calls |= {"rnn_forward": lambda: ops.rnn_forward(zr, wr),
+              "rnn_backward": lambda: ops.rnn_backward(wr, hr, go),
+              "rnn_dwh": lambda: ops.rnn_dwh(hr, dr),
+              "gru_forward": lambda: ops.gru_forward(zrz, zn, wrz, wh),
+              "gru_backward": lambda: ops.gru_backward(zrz, zn, wrz, wh,
+                                                       hg, go),
+              "gru_dwh": lambda: ops.gru_dwh(hg, rh, dzrz, dzn),
+              "lstm_scan": lambda: ops.lstm_scan(*scan_args)}
+    for case in SIMPLE:
+        zs, ws, gs = r(*case), u(case[3], 1, case[3], case[3]), r(*case)
+        hsm = ops.rnn_forward(zs, ws)
+        calls |= {f"rnn_forward {case}": (
+                      lambda zs=zs, ws=ws: ops.rnn_forward(zs, ws)),
+                  f"rnn_backward {case}": (
+                      lambda ws=ws, hsm=hsm, gs=gs: ops.rnn_backward(
+                          ws, hsm, gs))}
     times = {name: _ms(torch, fn, flush) for name, fn in calls.items()}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -99,12 +139,13 @@ def turn(tree):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     top = [(e.key[:80], e.device_time_total / 3)
            for e in sorted(events, key=lambda e: -e.device_time_total)[:4]]
-    return {"ms": times, "top_us_per_call": top, "digests": digests}
+    return {"ms": times, "top_us_per_call": top, "digests": digests,
+            "gru_digests": gru_digests}
 
 
 def main(argv) -> int:
-    if len(argv) == 2 and argv[0] == "--turn":
-        print(json.dumps(turn(argv[1])))
+    if len(argv) == 3 and argv[0] == "--turn":
+        print(json.dumps(turn(argv[1], argv[2])))
         return 0
     if len(argv) != 2:
         print(__doc__, file=sys.stderr)
@@ -114,8 +155,11 @@ def main(argv) -> int:
                          text=True, timeout=60, check=True).stdout.strip())
     trees = {"parent": argv[0], "change": argv[1]}
     runs = []
-    for tag in ("parent", "change", "change", "parent"):
-        out = subprocess.run([sys.executable, __file__, "--turn", trees[tag]],
+    os.makedirs(KEEP, exist_ok=True)
+    keep = [os.path.join(KEEP, f"turn{i}.pt") for i in range(4)]
+    for i, tag in enumerate(("parent", "change", "change", "parent")):
+        out = subprocess.run([sys.executable, __file__, "--turn", trees[tag],
+                              keep[i]],
                              capture_output=True, text=True, timeout=900)
         if out.returncode != 0:
             print(f"{tag} ({trees[tag]}) failed:\n{out.stderr}",
@@ -126,14 +170,25 @@ def main(argv) -> int:
         print(tag, " ".join(f"{k} {v:.5f}" for k, v in res["ms"].items()))
         for key, us in res["top_us_per_call"]:
             print(f"{tag}   {us:10.1f} us/call {key}")
-    first = runs[0][1]["digests"]
-    same = all(res["digests"] == first for _, res in runs)
-    for case in first:
-        print(f"bilstm bits {case}: " + " ".join(
-            f"{tag} {[a == b for a, b in zip(res['digests'][case], first[case])]}"
-            for tag, res in runs[1:]))
-    print(json.dumps({"bilstm_bits_equal": same}))
-    return 0 if same else 1
+    equal = {}
+    for label, key in (("bilstm", "digests"), ("gru", "gru_digests")):
+        first = runs[0][1][key]
+        equal[label] = all(res[key] == first for _, res in runs)
+        for case in first:
+            print(f"{label} bits {case}: " + " ".join(
+                f"{tag} {[a == b for a, b in zip(res[key][case], first[case])]}"
+                for tag, res in runs[1:]))
+    import torch
+
+    parent, change = torch.load(keep[0]), torch.load(keep[1])
+    again = torch.load(keep[2])
+    for name in parent:
+        print(f"{name}: change vs parent max |diff| "
+              f"{float((change[name] - parent[name]).abs().max()):.3e}; "
+              f"change bits repeat {torch.equal(change[name], again[name])}")
+    print(json.dumps({"bilstm_bits_equal": equal["bilstm"],
+                      "gru_bits_equal": equal["gru"]}))
+    return 0 if all(equal.values()) else 1
 
 
 if __name__ == "__main__":

@@ -1,0 +1,129 @@
+"""Every cluster plan of the rnn and lstm_scan kernels, timed, on one card.
+
+    python3 recurrence_plans.py
+
+For each shape the kernels run on a main path -- ``rnn_forward`` and
+``rnn_backward`` at (T, D, B, H) = (500, 2, 128, 128), (500, 1, 128, 128)
+and SimpleRNN's (4, 1, 4, 40), ``lstm_scan`` at (T, B, H) = (500, 128,
+128) -- it launches the kernel at every (C, R) of
+``csrc/recurrence_cluster.cuh``'s choices that fits (the C entries take
+an explicit plan; the wrappers pass none and get the plan of the shape),
+holds each output to the plain version (rtol 1e-5 / atol 1e-6 forward,
+1e-4 / 1e-5 backward), and times it: CUDA events, L2 flushed before each
+call, median of 10.  Prints the card's name and power limit, then a line
+a shape with the plans fastest first, the one the plan rule picks
+marked ``*``, then one JSON line of every time.  Exits 1 if a plan's
+output leaves the tolerance.
+"""
+from __future__ import annotations
+
+import importlib
+import json
+import statistics
+import subprocess
+import sys
+
+RNN_SHAPES = [(500, 2, 128, 128), (500, 1, 128, 128), (4, 1, 4, 40)]
+SCAN_SHAPE = (500, 128, 128)
+
+
+def _ms(torch, fn, flush, reps=10, warm=2):
+    times = []
+    for r in range(warm + reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        if r >= warm:
+            times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def main() -> int:
+    import torch
+
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.ops import _recurrence as rec
+    from bigdl_tpu_torch.ops import rnn
+    from bigdl_tpu_torch.utils.device import pin_fp32
+
+    scan = importlib.import_module("bigdl_tpu_torch.ops.lstm_scan")
+    if not torch.cuda.is_available():
+        print("recurrence_plans: no CUDA device", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip())
+    pin_fp32(torch.device("cuda"))
+    g = torch.Generator(device="cuda").manual_seed(11)
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    u = lambda h, *s: (torch.rand(*s, generator=g, device="cuda") * 2
+                       - 1) / h ** 0.5
+    flush = torch.empty(64 * 2 ** 20, device="cuda")
+    dev = _build.device_stream(torch.device("cuda"))
+    rnn_lib = rec.load("rnn", rnn._setup)
+    scan_lib = rec.load("lstm_scan", scan._setup)
+    fwd = dict(rtol=1e-5, atol=1e-6)
+    bwd = dict(rtol=1e-4, atol=1e-5)
+
+    def rnn_case(t, nd, b, h, backward):
+        """(name, chosen plan, launch(C, R), output, plain output, tol)."""
+        zx, wht, gout = r(t, nd, b, h), u(h, nd, h, h), r(t, nd, b, h)
+        hs = ops.rnn_forward_reference(zx, wht)
+        out = torch.empty_like(hs)
+        if backward:
+            want = ops.rnn_backward_reference(wht, hs, gout)
+            launch = lambda c, rows: rnn_lib.bigdl_rnn_bwd_f32(
+                wht.data_ptr(), hs.data_ptr(), gout.data_ptr(),
+                out.data_ptr(), t, nd, b, h, c, rows, *dev)
+        else:
+            want = hs
+            launch = lambda c, rows: rnn_lib.bigdl_rnn_fwd_f32(
+                zx.data_ptr(), wht.data_ptr(), None, out.data_ptr(), t, nd,
+                b, h, c, rows, *dev)
+        name = f"rnn_{'backward' if backward else 'forward'} {(t, nd, b, h)}"
+        return (name, rnn.plan(nd, b, h, backward), launch, out, want,
+                bwd if backward else fwd)
+
+    def scan_case(t, b, h):
+        args = (r(t, b, 4 * h), u(h, h, 4 * h), r(b, h).tanh(), r(b, h))
+        out = torch.empty(t, b, h, device="cuda")
+        launch = lambda c, rows: scan_lib.bigdl_lstm_scan_f32(
+            *(a.data_ptr() for a in args), out.data_ptr(), t, b, h, c, rows,
+            *dev)
+        return (f"lstm_scan {(t, b, h)}", scan.plan(b, h), launch, out,
+                scan.lstm_scan_reference(*args), fwd)
+
+    cases = [rnn_case(*shape, backward) for shape in RNN_SHAPES
+             for backward in (False, True)] + [scan_case(*SCAN_SHAPE)]
+    report, ok = {}, True
+    for name, chosen, launch, out, want, tol in cases:
+        times = []
+        for c in rec.CLUSTER_SIZES:
+            for rows in rec.CLUSTER_ROWS:
+                if launch(c, rows) != 0:   # (C, R) does not fit
+                    continue
+                torch.cuda.synchronize()
+                if not torch.allclose(out, want, **tol):
+                    ok = False
+                    print(f"{name} C={c} R={rows}: "
+                          f"{float((out - want).abs().max()):.3e} from the "
+                          f"plain version")
+                times.append((_ms(torch, lambda: launch(c, rows), flush),
+                              f"C{c}R{rows}"))
+        times.sort()
+        pick = f"C{chosen['C']}R{chosen['R']}"
+        print(f"{name}: " + " ".join(
+            f"{key}{'*' if key == pick else ''}={ms:.5f}"
+            for ms, key in times))
+        report[name] = {key: ms for ms, key in times}
+    print(json.dumps({"plans_ms": report, "ok": ok}))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,9 +1,10 @@
 """The port's forward-only LSTM (bigdl_tpu_torch/ops/lstm_scan.py)
 against the JAX package's ``lstm_scan`` run through the Pallas
 interpreter, from non-zero initial states h0 and c0, at T of 1 to 13 and
-ragged batches, and against a float64 loop; the gate order; the block
-sizes mirrored from ``csrc/lstm_scan.cu`` and H past ``MAX_HIDDEN``
-refused before a launch.  Tolerance: the JAX recurrence tests' forward
+ragged batches, and against a float64 loop; the gate order; the cluster
+plan and sizes mirrored from ``csrc/lstm_scan.cu`` and
+``csrc/recurrence_cluster.cuh``, and H past ``MAX_HIDDEN`` refused before
+a launch.  Tolerance: the JAX recurrence tests' forward
 one, rtol 1e-5 / atol 1e-6.
 
 On the CPU the wrapper takes its plain version and counts no launch; the
@@ -11,7 +12,6 @@ CUDA kernel is held against that plain version on the card by
 ``chip_smoke.py``.
 """
 import importlib
-import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -105,27 +105,52 @@ def test_no_kernel_for_other_devices():
 
 
 def test_hidden_limit_mirrors_the_kernel_source():
-    """The wrapper's block size is csrc/lstm_scan.cu's, bilstm.cu's
-    forward block alone, on the row rule of csrc/recurrence_block.cuh;
-    every H up to the limit fits one row, and the limit is the 1-row
-    one."""
+    """The wrapper's cell is csrc/lstm_scan.cu's, on the cluster plan of
+    csrc/recurrence_cluster.cuh; the limit is the largest H whose 16-block
+    cluster of one batch row fits a block's shared memory, at least PR
+    6's 5,811, and every H up to it has a plan."""
     src = (CSRC / "lstm_scan.cu").read_text()
-    block = (CSRC / "recurrence_block.cuh").read_text()
-    assert re.search(r"constexpr int kRowChoices\[\] = \{8, 4, 2, 1\};",
-                     block)
-    assert f"constexpr int kThreads = {rec.THREADS};" in block
-    assert f"constexpr int kMaxSmem = {rec.MAX_SMEM};" in block
-    assert "const int G = groups(H, 4 * H);" in src
-    assert "R * 10 * H + (G > 1 ? G * R * 4 * H : 0)" in src
-    assert ("return rows_for([H](int r) { return 4 * scan_smem_floats(H, "
-            "r); });") in src
-    assert scan.MAX_HIDDEN == 5811
-    assert [scan.rows_for(h) for h in (5, 128, 726, 727, 1452, 1453, 2905,
-                                       2906, 5811, 5812)] == [
-        8, 8, 8, 4, 4, 2, 2, 1, 1, 0]
-    assert all(max(scan.smem_bytes(h, 1)) <= rec.MAX_SMEM
-               for h in range(1, scan.MAX_HIDDEN + 1))
-    assert max(scan.smem_bytes(scan.MAX_HIDDEN + 1, 1)) > rec.MAX_SMEM
+    assert '#include "recurrence_cluster.cuh"' in src
+    assert '#include "recurrence_block.cuh"' not in src
+    assert "__global__" not in src   # the kernel is the header's template
+    g, n_in, has_c = scan.CELL
+    assert f"static constexpr int G = {g}, kIn = {n_in};" in src
+    assert f"kHasC = {str(has_c).lower()}" in src
+    assert "make_plan(LstmFwd::G, LstmFwd::kIn, LstmFwd::kHasC, 1, B," in src
+    assert scan.MAX_HIDDEN == 20656 >= 5811
+    assert max(scan.smem_bytes(scan.MAX_HIDDEN)) <= rec.MAX_SMEM
+    assert max(scan.smem_bytes(scan.MAX_HIDDEN + 1)) > rec.MAX_SMEM
+    for h in (1, 2, 15, 16, 17, 128, 5811, scan.MAX_HIDDEN):
+        assert scan.plan(3, h)["C"] > 0
+    assert scan.plan(9, scan.MAX_HIDDEN)["C"] == 16
+
+
+# (B, H) -> (C, R, RT, KP, S, staged, depth, bytes): the classifier's
+# validation width (wht's 256 KB split over 2 blocks), a shape whose
+# wht fits one block, ragged H at 2 and 4 blocks with B = 37, H =
+# 1,001 and the largest H (16 blocks, wht through L2)
+SCAN_PLANS = {
+    (128, 128): (2, 2, 2, 4, 64, 1, 8, 152064),
+    (37, 100): (1, 1, 1, 2, 100, 1, 8, 175600),
+    (37, 151): (2, 1, 1, 2, 76, 1, 8, 197280),
+    (37, 203): (4, 2, 2, 4, 51, 1, 8, 185632),
+    (37, 1001): (16, 8, 4, 2, 63, 0, 8, 130592),
+    (9, 20656): (16, 1, 1, 1, 1291, 0, 3, 232384),
+}
+
+
+@pytest.mark.parametrize("shape", list(SCAN_PLANS))
+def test_plan_is_pinned(shape):
+    """The plan at each shape: a function of (B, H) alone, the smallest
+    cluster that holds its wht slices in shared memory where one does."""
+    got = scan.plan(*shape)
+    assert tuple(got[f] for f in rec.PLAN_FIELDS) == SCAN_PLANS[shape]
+    assert got["bytes"] <= rec.MAX_SMEM
+    if got["staged"] and got["C"] > 1:
+        c = got["C"] // 2
+        smaller = rec.cluster_plan_at(*scan.CELL, shape[1],
+                                      rec.fill_rows(1, shape[0], c), c)
+        assert not (smaller["C"] and smaller["staged"])
 
 
 def test_hidden_above_the_limit_raises_before_a_launch():

@@ -9,9 +9,11 @@ take, against a float64 loop; the ``torch.autograd.Function`` by
 ``gradcheck`` in float64.  Tolerances are the JAX tests' own: forward
 rtol 1e-5 / atol 1e-6, gradients rtol 1e-4 / atol 1e-5.
 
-Also the shared build and row rules: the kernels' block sizes mirror
-``csrc/rnn.cu``, H past ``MAX_HIDDEN`` is refused before a launch, and
-the library's cache key moves with the bytes of a header it includes.
+Also the shared build and plan rules: the cluster plan and shared-memory
+sizes mirror ``csrc/recurrence_cluster.cuh`` and ``csrc/rnn.cu``, H past
+``MAX_HIDDEN`` is refused before a launch, the row rule of
+``csrc/recurrence_block.cuh`` (bilstm and gru) is mirrored, and the
+library's cache key moves with the bytes of a header it includes.
 
 On the CPU the wrappers take their plain versions; the CUDA kernels are
 held against those on the card by ``chip_smoke.py``.
@@ -152,18 +154,100 @@ def test_no_kernel_for_other_devices():
 
 
 def test_hidden_limit_mirrors_the_kernel_source():
-    """The wrapper's block sizes are csrc/rnn.cu's, on the shared row
-    rule of csrc/recurrence_block.cuh; every H up to the limit fits one
-    row, and 8 rows fit SimpleRNN's H 40 and the classifier's 128."""
+    """The wrapper's cells and sizes are csrc/rnn.cu's, on the cluster
+    plan of csrc/recurrence_cluster.cuh; the limit is the largest H whose
+    16-block cluster of one batch row fits a block's shared memory, at
+    least PR 5's 14,528, and every H up to it has a plan."""
     src = (CSRC / "rnn.cu").read_text()
-    assert "R * 3 * H + (G > 1 ? G * R * H : 0)" in src
-    assert "R * 4 * H + (G > 1 ? G * R * H : 0)" in src
-    assert "const int G = groups(H, H);" in src
-    assert rnn.MAX_HIDDEN == 14528
-    assert max(rnn.smem_bytes(rnn.MAX_HIDDEN, 1)) <= rec.MAX_SMEM
-    assert max(rnn.smem_bytes(rnn.MAX_HIDDEN + 1, 1)) > rec.MAX_SMEM
-    assert rnn.rows_for(40) == rnn.rows_for(128) == 8
-    assert rnn.rows_for(rnn.MAX_HIDDEN) == 1
+    assert '#include "recurrence_cluster.cuh"' in src
+    assert '#include "recurrence_block.cuh"' not in src
+    for cell, (g, n_in, has_c) in (("RnnFwd", rnn.FWD_CELL),
+                                   ("RnnBwd", rnn.BWD_CELL)):
+        body = src[src.index(f"struct {cell} {{"):]
+        assert f"static constexpr int G = {g}, kIn = {n_in};" in body
+        assert f"kHasC = {str(has_c).lower()}" in body.split("};")[0]
+    assert "rnn_fwd_kernel" not in src and "rnn_bwd_kernel" not in src
+    assert "__global__" not in src   # the kernels are the header's template
+    assert "launch_transpose" not in src
+    assert rnn.MAX_HIDDEN == 24464 >= 14528
+    assert max(rnn.smem_bytes(rnn.MAX_HIDDEN)) <= rec.MAX_SMEM
+    assert max(rnn.smem_bytes(rnn.MAX_HIDDEN + 1)) > rec.MAX_SMEM
+    for h in (1, 2, 15, 16, 17, 40, 128, 5000, rnn.MAX_HIDDEN):
+        for bwd in (False, True):
+            assert rnn.plan(2, 3, h, bwd)["C"] > 0
+    assert rnn.plan(1, 3, rnn.MAX_HIDDEN)["C"] == 16
+
+
+def test_cluster_header_constants_are_mirrored():
+    """ops._recurrence mirrors csrc/recurrence_cluster.cuh: the block's
+    threads and shared memory, the ring's depth rule, the SMs the rows
+    fill, the run length of a lane's sum, the cluster sizes and batch rows
+    the plan tries, the accumulators a lane holds, the weight slice's
+    stride and the plan's order of choice."""
+    src = (CSRC / "recurrence_cluster.cuh").read_text()
+    for line in (f"constexpr int kThreads = {rec.CLUSTER_THREADS};",
+                 f"constexpr int kMaxSmem = {rec.MAX_SMEM};",
+                 f"constexpr int kMinDepth = {rec.MIN_DEPTH};",
+                 f"constexpr int kMaxDepth = {rec.MAX_DEPTH};",
+                 f"constexpr int kSms = {rec.SMS};",
+                 f"constexpr int kChunk = {rec.CHUNK};",
+                 "constexpr int kClusterSizes[] = {1, 2, 4, 8, 16};",
+                 "constexpr int kRowChoices[] = {1, 2, 4, 8, 16};",
+                 f"constexpr int kMaxAcc = {rec.MAX_ACC};",
+                 "return S * G + 4;",
+                 "p.staged = fixed + kMinDepth * stage <= cap;",
+                 "p.depth = depth < kMaxDepth ? (int)depth : kMaxDepth;",
+                 "if (p.C != 0 && p.staged) return p;",
+                 "for (int R = fill_rows(D, B, 16); R >= 1; R /= 2) {",
+                 "if ((long long)D * ((B + R - 1) / R) * C <= kSms) return R;"):
+        assert line in src, line
+    assert rec.CLUSTER_SIZES == rec.CLUSTER_ROWS == (1, 2, 4, 8, 16)
+    assert "cudaLaunchAttributeClusterDimension" in src
+    assert "cudaOccupancyMaxActiveClusters" in src
+    assert "barrier.cluster.arrive.release.aligned" in src
+    assert "st.shared::cluster.v4.f32" in src
+
+
+# (D, B, H) -> (C, R, RT, KP, S, staged, depth, bytes) of the forward and
+# the backward: SimpleRNN's chunk, the classifier's width in both
+# directions and in one, ragged H at 2, 4, 8 and 16 blocks with B = 37
+# (no R divides it), H = 1,001 and the largest H (16 blocks, wht
+# through L2)
+PLANS = {
+    (1, 4, 40): ((1, 1, 1, 4, 40, 1, 8, 8640),
+                 (1, 1, 1, 4, 40, 1, 8, 9920)),
+    (2, 128, 128): ((1, 2, 2, 2, 128, 1, 8, 77824),
+                    (1, 2, 2, 2, 128, 1, 8, 86016)),
+    (1, 128, 128): ((1, 1, 1, 2, 128, 1, 8, 72704),
+                    (1, 1, 1, 2, 128, 1, 8, 76800)),
+    (2, 37, 301): ((2, 2, 2, 1, 151, 1, 8, 201184),
+                   (2, 2, 2, 1, 151, 1, 8, 210784)),
+    (2, 37, 331): ((4, 4, 4, 2, 83, 1, 8, 136416),
+                   (4, 4, 4, 2, 83, 1, 8, 147040)),
+    (2, 37, 471): ((8, 8, 8, 4, 59, 1, 8, 163952),
+                   (8, 8, 8, 4, 59, 1, 8, 179056)),
+    (2, 37, 669): ((16, 16, 16, 4, 42, 1, 8, 230240),
+                   (16, 16, 16, 4, 42, 1, 4, 230240)),
+    (2, 37, 1001): ((16, 16, 16, 4, 63, 0, 8, 160384),
+                    (16, 16, 16, 4, 63, 0, 8, 192640)),
+    (1, 3, 24464): ((16, 1, 1, 1, 1529, 0, 5, 226352),
+                    (16, 1, 1, 1, 1529, 0, 3, 232432)),
+}
+
+
+@pytest.mark.parametrize("shape", list(PLANS))
+def test_plan_is_pinned(shape):
+    """The plan at each shape, forward and backward: a function of the
+    shape alone, within a block's shared memory, its units split into C
+    slices that cover H, its clusters side by side on the SMs."""
+    for want, bwd in zip(PLANS[shape], (False, True)):
+        got = rnn.plan(*shape, backward=bwd)
+        assert tuple(got[f] for f in rec.PLAN_FIELDS) == want
+        nd, b, h = shape
+        c, rows = got["C"], got["R"]
+        assert got["bytes"] <= rec.MAX_SMEM and got["depth"] >= rec.MIN_DEPTH
+        assert sum((k + 1) * h // c - k * h // c for k in range(c)) == h
+        assert nd * -(-b // rows) * c <= rec.SMS or rows == 16
 
 
 @pytest.mark.parametrize("which", ["forward", "backward"])
@@ -183,8 +267,12 @@ def test_hidden_above_the_limit_raises_before_a_launch(which):
 
 
 def test_row_rule_is_the_block_headers():
-    """ops._recurrence mirrors csrc/recurrence_block.cuh: the row choices,
-    the block's threads and shared memory, and the split of a product."""
+    """ops._recurrence mirrors csrc/recurrence_block.cuh, which bilstm.cu
+    and gru.cu still use (rnn.cu and lstm_scan.cu no longer include it):
+    the row choices, the block's threads and shared memory, and the split
+    of a product."""
+    for name in ("bilstm.cu", "gru.cu"):
+        assert '#include "recurrence_block.cuh"' in (CSRC / name).read_text()
     src = (CSRC / "recurrence_block.cuh").read_text()
     assert re.search(r"constexpr int kRowChoices\[\] = \{8, 4, 2, 1\};", src)
     assert f"constexpr int kThreads = {rec.THREADS};" in src
@@ -206,18 +294,25 @@ def test_weight_gradient_slices(t, b, k, j, nd, want):
     assert per % 16 == 0 and (s - 1) * per < max(t * b, 1) <= s * per
 
 
-def test_build_key_follows_included_headers(tmp_path, monkeypatch):
+@pytest.mark.parametrize("header,moved", [
+    ("recurrence_dwh.cuh", {"bilstm", "rnn", "gru"}),
+    ("recurrence_cluster.cuh", {"rnn", "lstm_scan"}),
+])
+def test_build_key_follows_included_headers(tmp_path, monkeypatch, header,
+                                            moved):
     """A library's cache key hashes its source and every local header it
-    includes: editing recurrence_dwh.cuh moves the key of all three
-    recurrence libraries and of nothing else."""
+    includes: editing recurrence_dwh.cuh moves the key of the three
+    libraries with a weight gradient, editing recurrence_cluster.cuh the
+    keys of rnn and lstm_scan, and nothing else."""
     csrc = tmp_path / "csrc"
     shutil.copytree(CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     assert [p.name for p in _build.sources("rnn")] == [
-        "rnn.cu", "recurrence_block.cuh", "recurrence_dwh.cuh"]
+        "rnn.cu", "recurrence_cluster.cuh", "recurrence_dwh.cuh"]
+    assert [p.name for p in _build.sources("lstm_scan")] == [
+        "lstm_scan.cu", "recurrence_cluster.cuh"]
     before = {n: _build.target(n) for n in _build.SOURCES}
-    header = csrc / "recurrence_dwh.cuh"
-    header.write_text(header.read_text() + "\n// edited\n")
+    path = csrc / header
+    path.write_text(path.read_text() + "\n// edited\n")
     after = {n: _build.target(n) for n in _build.SOURCES}
-    moved = {n for n in _build.SOURCES if before[n] != after[n]}
-    assert moved == {"bilstm", "rnn", "gru"}
+    assert {n for n in _build.SOURCES if before[n] != after[n]} == moved

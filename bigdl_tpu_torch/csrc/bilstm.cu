@@ -1,11 +1,12 @@
 // Direction-batched LSTM recurrence, forward and backward, fp32, for
-// Hopper (sm_90a).
+// Hopper (sm_90a), and the forward-only LSTM from a given state.
 //
 // Replaces bigdl_tpu/ops/pallas_kernels.py `_bilstm_fwd_call` and
-// `_bilstm_bwd_call` (the pair behind `bilstm_recurrence`).  Contract, as
-// there, over the hoisted input projection zx (T, D, B, 4H) and the
-// recurrent weights wht (D, H, 4H), D directions (1: Recurrent, 2:
-// BiRecurrent; the kernels know nothing of reversal), h = c = 0 at t = 0:
+// `_bilstm_bwd_call` (the pair behind `bilstm_recurrence`) and
+// `_lstm_scan_kernel` (behind `lstm_scan`).  Contract, as there, over the
+// hoisted input projection zx (T, D, B, 4H) and the recurrent weights wht
+// (D, H, 4H), D directions (1: Recurrent, 2: BiRecurrent; the kernels
+// know nothing of reversal), from h0, c0 (lstm_scan, D = 1) or h = c = 0:
 //   z   = zx[t,d] + h . wht[d]             gates i, f, g, o: the four
 //   c'  = sig(f) c + sig(i) tanh(g)        H-wide slices of z, in order
 //   h'  = sig(o) tanh(c')                  -> hs[t,d] (and cs[t,d])
@@ -24,98 +25,83 @@
 // (0.25 ms at the fp32 peak) against ~0.4 GB moved (0.12 ms), but the
 // serial chain is what sets the time: every step needs the whole of
 // wht[d] (256 KB, more than a block's 227 KB of shared memory) and the
-// previous step's h.
+// previous step's h (the backward: dz).
 //
-// What this design does about it: one block per (direction, tile of R
-// batch rows) walks all T steps in a loop, so no block waits for
-// another (batch rows never interact) and no step needs a grid-wide
-// barrier.  Its rows' h and c stay in shared memory; each step it reads
-// wht[d] through L2 (512 KB for both directions stays resident in the
-// 50 MB L2), R rows at a time, while cp.async stages the step's zx
-// rows into shared memory under the product.  The backward first
-// recomputes every step's gates in one parallel tiled product (they
-// depend only on the stored h stack), so its serial loop carries only
-// dz . wht^T; dwht is a second tiled product over dzx and the h stack,
-// split over the time*batch axis into fixed slices summed in a fixed
-// order: no atomics, the same bits every run.  The TPU kernel's VMEM-
-// resident Wh, `block_t` grid steps and time padding exist for its
-// sequential grid and have no counterpart here.
+// What this design does about it: both serial loops are the cluster
+// recurrence of recurrence_cluster.cuh.  One cluster of C blocks per
+// (direction, tile of R batch rows) walks all T steps; block k owns units
+// [k H / C, (k + 1) H / C) and all four gate columns of each, so c (the
+// backward: dc) stays in its shared memory; its slice of wht[d] stays in
+// shared memory for all T steps where it fits (128 KB at the classifier's
+// width with C = 2), so each step reads wht once a cluster, not once a
+// block through L2.  The forward (LstmFwd) exchanges h; the with-c
+// forward, the primal forward and lstm_scan are one instantiation, the c
+// stack a runtime option, so they take one plan and give the same bits.
+// The backward (LstmBwd) exchanges dz, four values a unit, unit-major, so
+// a block's slice is one contiguous run; block k reads its units' rows of
+// wht[d] in place (dh[u] = sum_j dz[j] wht[d][u][j]), staged in the
+// order of the state.  Its seven inputs a unit and a step (the four
+// activated gates, c_t, c_{t-1}, gout) are prefetched into the ring; the
+// gates come from a parallel tiled product over every step first (they
+// depend only on the stored h stack), written into dzx, which the loop
+// overwrites with dz unit by unit.  dwht is a tiled product over dzx and
+// the h stack (recurrence_dwh.cuh), split over the time*batch axis into
+// fixed slices summed in a fixed order.  No atomics: the same bits every
+// run.  The TPU kernels' VMEM-resident Wh, `block_t` grid steps and time
+// padding exist for their sequential grid and have no counterpart here.
 //
-// R is 8 up to H = 558 and falls to 4, 2, 1 as H grows (the row rule of
-// recurrence_block.cuh), up to H = 4,470; the wrapper refuses a larger H.
+// The plan (C, R) is a function of (cell, D, B, H) (ops/_recurrence.py
+// mirrors it); H up to the largest whose 16-block cluster of one row fits
+// shared memory, in the forward and the backward, is taken, and the
+// wrapper refuses a larger H.
+//
+// What it does not do yet: the product is fp32 FMAs on the CUDA cores
+// from shared memory; the serial chain of T steps, each with one cluster
+// barrier, sets the time, not the product's operations.
 
-#include "recurrence_block.cuh"
+#include "recurrence_cluster.cuh"
 #include "recurrence_dwh.cuh"
 
 namespace {
 
-// Shared memory of the forward block at R rows, in floats.
-__host__ __device__ inline int fwd_smem_floats(int H, int R) {
-  const int G = groups(H, 4 * H);
-  return R * 10 * H + (G > 1 ? G * R * 4 * H : 0);
-}
-
-// Shared memory of the backward's serial block at R rows, in floats.
-__host__ __device__ inline int bwd_smem_floats(int H, int R) {
-  const int G = groups(4 * H, H);
-  return R * 13 * H + (G > 1 ? G * R * H : 0);
-}
-
-// The batch rows of a block at H: the row rule over both blocks.
-inline int lstm_rows(int H) {
-  return rows_for([H](int r) {
-    const int f = fwd_smem_floats(H, r), b = bwd_smem_floats(H, r);
-    return 4 * (f > b ? f : b);
-  });
-}
-
-template <int R, bool WITH_C>
-__global__ void __launch_bounds__(kThreads)
-    lstm_fwd_kernel(const float* __restrict__ zx,
-                    const float* __restrict__ wht, float* __restrict__ hs,
-                    float* __restrict__ cs, Dims dm) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int H = dm.H, H4 = 4 * H, tid = threadIdx.x;
-  const int tiles = (dm.B + R - 1) / R;
-  const int d = blockIdx.x / tiles, b0 = (blockIdx.x % tiles) * R;
-  const int rows = min(R, dm.B - b0);
-  float* h_s = smem;              // [H][R], rows past `rows` stay 0
-  float* c_s = h_s + H * R;       // [rows][H]
-  float* z_s = c_s + H * R;       // [R][4H]: h . wht
-  float* x_s = z_s + H4 * R;      // [rows][4H]: this step's zx rows
-  float* red = x_s + H4 * R;      // [G][R][4H]
-  const int G = groups(H, H4);
-  for (int e = tid; e < 2 * H * R; e += kThreads) smem[e] = 0.0f;
-  const float* W = wht + (size_t)d * H * H4;
-  __syncthreads();
-  for (int t = 0; t < dm.T; ++t) {
-    const size_t row0 = ((size_t)t * dm.D + d) * dm.B + b0;
-    const float* src = zx + row0 * H4;
-    for (int e = tid; e < rows * H4; e += kThreads)
-      cp_async4(x_s + e, src + e);
-    matvec<R>(W, H, H4, h_s, z_s, red, G);
-    cp_async_wait_all();
-    __syncthreads();
-    for (int p = tid; p < rows * H; p += kThreads) {
-      const int r = p / H, u = p - r * H;
-      const float* x = x_s + r * H4;
-      const float* z = z_s + r * H4;
-      const float i = sigm(x[u] + z[u]);
-      const float f = sigm(x[H + u] + z[H + u]);
-      const float g = tanhf(x[2 * H + u] + z[2 * H + u]);
-      const float o = sigm(x[3 * H + u] + z[3 * H + u]);
-      const float c = f * c_s[p] + i * g;
-      const float h = o * tanhf(c);
-      c_s[p] = c;
-      h_s[u * R + r] = h;
-      const size_t at = (row0 + r) * H + u;
-      hs[at] = h;
-      if (WITH_C) cs[at] = c;
-    }
-    __syncthreads();
+// z = zx + h . wht; c' = sig(f) c + sig(i) tanh(g); h' = sig(o) tanh(c')
+struct LstmFwd {
+  static constexpr int G = 4, V = 1, E = 4;
+  static constexpr bool kReverse = false, kHasC = true, kWeightT = false;
+  __host__ __device__ static constexpr In input(int q) { return {0, q, 4, 0}; }
+  __device__ static void update(const float* x, const float* z, float& c,
+                                float* y) {
+    const float i = sigm(x[0] + z[0]);
+    const float f = sigm(x[1] + z[1]);
+    const float g = tanhf(x[2] + z[2]);
+    const float o = sigm(x[3] + z[3]);
+    c = f * c + i * g;
+    y[0] = o * tanhf(c);
   }
-}
+};
+
+// dz of the four gates in reverse time, c the carried dc; x = (i, f, g,
+// o activated, c_t, c_{t-1}, gout) from the stacks (gates, cs, gout)
+struct LstmBwd {
+  static constexpr int G = 1, V = 4, E = 7;
+  static constexpr bool kReverse = true, kHasC = true, kWeightT = true;
+  __host__ __device__ static constexpr In input(int q) {
+    return q < 4 ? In{0, q, 4, 0}
+                 : (q == 6 ? In{2, 0, 1, 0} : In{1, 0, 1, q == 5 ? -1 : 0});
+  }
+  __device__ static void update(const float* x, const float* z, float& c,
+                                float* y) {
+    const float i = x[0], f = x[1], g = x[2], o = x[3];
+    const float tc = tanhf(x[4]);
+    const float dh_tot = x[6] + z[0];
+    const float dc_tot = c + dh_tot * o * (1.0f - tc * tc);
+    y[0] = dc_tot * g * i * (1.0f - i);
+    y[1] = dc_tot * x[5] * f * (1.0f - f);
+    y[2] = dc_tot * i * (1.0f - g * g);
+    y[3] = dh_tot * tc * o * (1.0f - o);
+    c = dc_tot * f;
+  }
+};
 
 // The backward's gates, all steps at once: gates[t,d,b,:] =
 // act(zx[t,d,b,:] + hprev[t,d,b,:] . wht[d]), sigmoid on i, f, o and tanh
@@ -168,155 +154,53 @@ __global__ void __launch_bounds__(kGemmThreads)
   }
 }
 
-// The serial part of the backward: one block per (direction, row tile)
-// in reverse time.  `dzx` holds the activated gates on entry (from
-// gates_kernel) and dz on exit, each step's rows overwritten by the
-// block that staged them.  The grid is small (32 blocks at the
-// classifier's shape) and one block an SM is enough; saying so (the 1)
-// matters: without it ptxas gave the 8-row block 32 registers and
-// spills, and the loop took 1.5x as long.
-template <int R>
-__global__ void __launch_bounds__(kThreads, 1)
-    lstm_bwd_kernel(float* __restrict__ dzx, const float* __restrict__ cs,
-                    const float* __restrict__ gout,
-                    const float* __restrict__ wh, Dims dm) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int H = dm.H, H4 = 4 * H, tid = threadIdx.x;
-  const int tiles = (dm.B + R - 1) / R;
-  const int d = blockIdx.x / tiles, b0 = (blockIdx.x % tiles) * R;
-  const int rows = min(R, dm.B - b0);
-  float* dz_s = smem;              // [4H][R]: dz of step t + 1
-  float* dh_s = dz_s + H4 * R;     // [R][H]: dz . wht^T
-  float* dc_s = dh_s + H * R;      // [rows][H]
-  float* g_s = dc_s + H * R;       // [rows][4H]: step t's gates
-  float* c_s = g_s + H4 * R;       // [rows][H]: c_t
-  float* cp_s = c_s + H * R;       // [rows][H]: c_{t-1}
-  float* go_s = cp_s + H * R;      // [rows][H]: gout[t]
-  float* red = go_s + H * R;       // [G][R][H]
-  const int G = groups(H4, H);
-  for (int e = tid; e < 6 * H * R; e += kThreads) smem[e] = 0.0f;
-  const float* W = wh + (size_t)d * H4 * H;
-  __syncthreads();
-  for (int t = dm.T - 1; t >= 0; --t) {
-    const size_t row0 = ((size_t)t * dm.D + d) * dm.B + b0;
-    for (int e = tid; e < rows * H4; e += kThreads)
-      cp_async4(g_s + e, dzx + row0 * H4 + e);
-    const float* c_prev = cs + (row0 - (size_t)dm.D * dm.B) * H;
-    for (int e = tid; e < rows * H; e += kThreads) {
-      cp_async4(c_s + e, cs + row0 * H + e);
-      cp_async4(go_s + e, gout + row0 * H + e);
-      if (t > 0) cp_async4(cp_s + e, c_prev + e);
-    }
-    matvec<R>(W, H4, H, dz_s, dh_s, red, G);
-    cp_async_wait_all();
-    __syncthreads();
-    for (int p = tid; p < rows * H; p += kThreads) {
-      const int r = p / H, u = p - r * H;
-      const float* gr = g_s + r * H4;
-      const float i = gr[u], f = gr[H + u], g = gr[2 * H + u],
-                  o = gr[3 * H + u];
-      const float cprev = t > 0 ? cp_s[p] : 0.0f;
-      const float tc = tanhf(c_s[p]);
-      const float dh_tot = go_s[p] + dh_s[p];
-      const float dc_tot = dc_s[p] + dh_tot * o * (1.0f - tc * tc);
-      const float dz[4] = {dc_tot * g * i * (1.0f - i),
-                           dc_tot * cprev * f * (1.0f - f),
-                           dc_tot * i * (1.0f - g * g),
-                           dh_tot * tc * o * (1.0f - o)};
-      float* out = dzx + (row0 + r) * H4 + u;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        out[q * H] = dz[q];
-        dz_s[(q * H + u) * R + r] = dz[q];
-      }
-      dc_s[p] = dc_tot * f;
-    }
-    __syncthreads();
-  }
-}
-
-template <int R>
-cudaError_t launch_fwd(const float* zx, const float* wht, float* hs,
-                       float* cs, const Dims& dm, cudaStream_t st) {
-  const int bytes = fwd_smem_floats(dm.H, R) * (int)sizeof(float);
-  const dim3 grid(dm.D * ((dm.B + R - 1) / R));
-  cudaError_t err;
-  if (cs != nullptr) {
-    err = set_smem((const void*)lstm_fwd_kernel<R, true>, bytes);
-    if (err != cudaSuccess) return err;
-    lstm_fwd_kernel<R, true><<<grid, kThreads, bytes, st>>>(zx, wht, hs, cs,
-                                                            dm);
-  } else {
-    err = set_smem((const void*)lstm_fwd_kernel<R, false>, bytes);
-    if (err != cudaSuccess) return err;
-    lstm_fwd_kernel<R, false><<<grid, kThreads, bytes, st>>>(zx, wht, hs,
-                                                             nullptr, dm);
-  }
-  return cudaGetLastError();
-}
-
-template <int R>
-cudaError_t launch_bwd(float* dzx, const float* cs, const float* gout,
-                       const float* wh, const Dims& dm, cudaStream_t st) {
-  const int bytes = bwd_smem_floats(dm.H, R) * (int)sizeof(float);
-  cudaError_t err = set_smem((const void*)lstm_bwd_kernel<R>, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(dm.D * ((dm.B + R - 1) / R));
-  lstm_bwd_kernel<R><<<grid, kThreads, bytes, st>>>(dzx, cs, gout, wh, dm);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
-// Forward over zx (T, D, B, 4H) and wht (D, H, 4H): hs (T, D, B, H) and,
-// unless `cs` is null (the primal variant), cs.  One launch.  Returns the
-// cudaError_t of the launch.
-int bigdl_lstm_fwd_f32(const float* zx, const float* wht, float* hs,
-                       float* cs, int T, int D, int B, int H, int device,
-                       void* stream) {
+// Forward over zx (T, D, B, 4H) and wht (D, H, 4H) from h0, c0 (D, B, H),
+// or zeros where null: hs (T, D, B, H) and, unless `cs` is null, cs.
+// Under the plan of the shape (C = R = 0) or at (C, R).  One launch.
+// Returns the cudaError_t of the launch.
+int bigdl_lstm_fwd_f32(const float* zx, const float* wht, const float* h0,
+                       const float* c0, float* hs, float* cs, int T, int D,
+                       int B, int H, int C, int R, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Dims dm{T, D, B, H};
   if (empty(dm)) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (lstm_rows(H)) {
-    case 8: return (int)launch_fwd<8>(zx, wht, hs, cs, dm, st);
-    case 4: return (int)launch_fwd<4>(zx, wht, hs, cs, dm, st);
-    case 2: return (int)launch_fwd<2>(zx, wht, hs, cs, dm, st);
-    case 1: return (int)launch_fwd<1>(zx, wht, hs, cs, dm, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  const Args a{{zx}, wht, h0, c0, hs, cs, dm};
+  return (int)launch_planned<LstmFwd>(a, plan_of<LstmFwd>(D, B, H, C, R),
+                                      static_cast<cudaStream_t>(stream));
 }
 
 // Backward: dzx (T, D, B, 4H) from the forward's zx, wht, hs and cs and
-// the cotangent gout (T, D, B, H).  `wh` is scratch of D * 4H * H floats.
-// Three launches on the stream: wht^T, the gates of every step, the
-// serial loop.
+// the cotangent gout (T, D, B, H), under the plan of the shape (C = R =
+// 0) or at (C, R).  Two launches on the stream: the gates of every step
+// (into dzx), then the serial loop.
 int bigdl_lstm_bwd_f32(const float* zx, const float* wht, const float* hs,
-                       const float* cs, const float* gout, float* dzx,
-                       float* wh, int T, int D, int B, int H, int device,
+                       const float* cs, const float* gout, float* dzx, int T,
+                       int D, int B, int H, int C, int R, int device,
                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Dims dm{T, D, B, H};
   if (empty(dm)) return 0;
-  const int rows = lstm_rows(H);
-  if (rows == 0) return (int)cudaErrorInvalidValue;
+  const Plan p = plan_of<LstmBwd>(D, B, H, C, R);
+  if (p.C == 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  launch_transpose(wht, wh, D, H, 4 * H, st);
   const long long M = (long long)T * B;
   const dim3 ggrid((unsigned)((M + kBM - 1) / kBM), (4 * H + kBN - 1) / kBN,
                    D);
   gates_kernel<<<ggrid, kGemmThreads, 0, st>>>(zx, wht, hs, dzx, dm);
-  switch (rows) {
-    case 8: return (int)launch_bwd<8>(dzx, cs, gout, wh, dm, st);
-    case 4: return (int)launch_bwd<4>(dzx, cs, gout, wh, dm, st);
-    case 2: return (int)launch_bwd<2>(dzx, cs, gout, wh, dm, st);
-    default: return (int)launch_bwd<1>(dzx, cs, gout, wh, dm, st);
-  }
+  const Args a{{dzx, cs, gout}, wht, nullptr, nullptr, dzx, nullptr, dm};
+  return (int)launch_planned<LstmBwd>(a, p, st);
+}
+
+// The plan of the forward (bwd = 0) or backward (1) at (D, B, H) into
+// out[8]: C, R, RT, KP, S, staged, depth, bytes (C = 0: none fits).
+void bigdl_lstm_plan(int bwd, int D, int B, int H, int* out) {
+  plan_out(bwd ? plan_of<LstmBwd>(D, B, H) : plan_of<LstmFwd>(D, B, H), out);
 }
 
 // dwht (D, H, 4H) = sum over t, b of hprev^T . dzx (recurrence_dwh.cuh),

@@ -1,17 +1,19 @@
 // The thread-block-cluster recurrence: one cluster of C blocks walks all
 // T steps of a tile of R batch rows of one direction, the C blocks
-// splitting the hidden units (rnn.cu and lstm_scan.cu run on it).
+// splitting the hidden units (rnn.cu and bilstm.cu run on it).
 //
 // Block k of a cluster owns units [k H / C, (k + 1) H / C) and, for a
 // cell of G gates, the G columns of each (an LSTM's i, f, g and o of the
 // same unit), so its gate arithmetic and cell state never leave it.  It
 // holds its slice of the recurrent weight in shared memory for all T
 // steps when it fits, else reads only that slice through L2.  Every
-// block keeps the full state (h, or the RNN backward's dz) of its R rows
-// in a double-buffered array: its lanes write their new values into its
-// own next buffer, and after a block barrier the block copies that slice,
-// one contiguous run, into the next buffer of every other block of the
-// cluster (distributed shared memory, 16-byte st.shared::cluster); the
+// block keeps the full state of its R rows -- V values a unit: h (V = 1),
+// the RNN backward's dz (1) or the LSTM backward's four gates' dz (4) --
+// unit-major, [u][v][R], in a double-buffered array: its lanes write their
+// new values into its own next buffer, and after a block barrier the
+// block copies that slice, one contiguous run, into the next buffer of
+// every other block of the cluster (distributed shared memory, 16-byte
+// st.shared::cluster); the
 // cluster then meets at one barrier a step (release / acquire).  The last
 // step's barrier is each block's final one, so no block's shared memory
 // is written after it leaves.  Clusters are independent: nothing
@@ -19,19 +21,22 @@
 // barrier alone.  A cluster costs its exchange and barrier every step, so
 // the plan takes the smallest C whose blocks hold the weight slice.
 //
-// Inside a block, a column's H-long dot product is split across KP lanes
-// of a warp (lane kp takes m = kp, kp + KP, ...), each lane summing runs
-// of kChunk terms from zero, runs of kChunk such runs from zero, then
-// their total; the KP partials meet in an xor butterfly of shuffles.
+// Inside a block, a column's product over the H units of the state (V
+// terms each) is split across KP lanes of a warp (lane kp takes units m =
+// kp, kp + KP, ...), each lane summing runs of kChunk units from zero,
+// runs of kChunk such runs from zero, then their total; the KP partials
+// meet in an xor butterfly of shuffles.
 // Every lane of the group then holds the same sums, and lane kp updates
 // rows kp, kp + KP, ... of its tile.  The split is a function of the
 // shape alone, so the bits are the same every run.
 //
-// The block's inputs of a step (its units' columns of its rows) are
-// prefetched into a ring of `depth` stages in shared memory (cp.async,
-// 16 bytes a copy where aligned) depth - 1 steps ahead, so a step waits
-// on no device memory; the step's barrier makes them visible.  Outputs
-// are coalesced fire-and-forget global stores of the block's new slice.
+// The block's inputs of a step (its units' columns of its rows, from
+// stacks of different widths and, for an input of step t - 1, another
+// time) are prefetched into a ring of `depth` stages in shared memory
+// (cp.async, 16 bytes a copy where aligned) depth - 1 steps ahead, so a
+// step waits on no device memory; the step's barrier makes them visible.
+// Outputs are coalesced fire-and-forget global stores of the block's new
+// slice and, where asked, of its cell state.
 //
 // The plan -- C, R, the lanes a column and the ring's depth -- is a
 // function of (cell, D, B, H) alone (`make_plan`), mirrored by
@@ -51,28 +56,40 @@ constexpr int kSms = 132;       // SMs of an H100 SXM, which the rows fill
 constexpr int kChunk = 32;      // terms a run (and runs a run of runs)
 constexpr int kClusterSizes[] = {1, 2, 4, 8, 16};
 constexpr int kRowChoices[] = {1, 2, 4, 8, 16};
-constexpr int kMaxAcc = 16;     // rows x gates a lane accumulates
+constexpr int kMaxAcc = 16;     // rows x gates x values a lane holds
 
 struct Dims {
   int T, D, B, H;
 };
 
+// Where input q of a unit comes from: value v of the unit's `width`
+// values (at v * H + u) of stack `a`, a (T, D, B, width * H) array, at
+// step t + shift (zeros outside [0, T)).
+struct In {
+  int a, v, width, shift;
+};
+
 // What a cell of the recurrence is, to the cluster block (a policy:
-// rnn.cu and lstm_scan.cu define theirs):
-//   G          columns (gates) a hidden unit has
-//   kIn        input stacks, each (T, D, B, G*H), prefetched per step
+// rnn.cu and bilstm.cu define theirs):
+//   G          columns (gates) of a hidden unit's product
+//   V          values a unit holds in the exchanged state; the product
+//              of a column sums over every unit's V values
+//   E          inputs a unit takes a step, input(q) saying from where
 //   kReverse   walks t from T - 1 down to 0
-//   kHasC      keeps a cell state c (from c0) beside the exchanged one
-//   kWeightT   the weight element of (m, column) is w[d][col][m], not
-//              w[d][m][col] (the RNN backward reads wht's rows)
-//   update(x, z, c) -> the unit's new exchanged value, given its kIn*G
-//              prefetched inputs x[a*G + g], its G sums z and its c
+//   kHasC      keeps a cell state c (from c0, or zeros) beside the
+//              exchanged one
+//   kWeightT   (G = 1) the weight of state value (m, v) for unit u is
+//              w[d][u][v*H + m], not w[d][m][g*H + u] (V = 1): a
+//              backward reads wht's rows in place
+//   update(x, z, c, y) -> y[0..V), the unit's new exchanged values,
+//              given its E prefetched inputs x, its G sums z and its c
 struct Args {
-  const float* in[2];   // the cell's input stacks
-  const float* w;       // (D, H, G*H), or read transposed (kWeightT)
-  const float* h0;      // (D, B, H) initial state, null for zeros
-  const float* c0;      // (D, B, H) initial cell state (kHasC)
-  float* out;           // (T, D, B, H)
+  const float* in[4];   // the cell's input stacks
+  const float* w;       // (D, H, G*V*H): wht, read transposed (kWeightT)
+  const float* h0;      // (D, B, H) initial state (V = 1), null for zeros
+  const float* c0;      // (D, B, H) initial cell state, null for zeros
+  float* out;           // (T, D, B, V*H): the state, value v at v*H + u
+  float* cout;          // (T, D, B, H) the cell state (kHasC), or null
   Dims dm;
 };
 
@@ -88,9 +105,9 @@ inline int pow2_floor(int x) {
   return p;
 }
 
-// rows a lane accumulates in one item: R, at most kMaxAcc / G
-inline int row_tile(int R, int G) {
-  const int cap = kMaxAcc / G;
+// rows a lane takes in one item: R, at most kMaxAcc / (G * V)
+inline int row_tile(int R, int GV) {
+  const int cap = kMaxAcc / GV;
   return R < cap ? R : cap;
 }
 
@@ -98,27 +115,32 @@ inline int row_tile(int R, int G) {
 // slice, so the KP lanes of a column read distinct banks.
 __host__ __device__ inline int w_stride(int S, int G) { return S * G + 4; }
 
-// Shared memory of a block, in floats, at `depth` ring stages: the two
-// state buffers, c, the weight slice when staged, the ring.
-inline long long smem_floats(int G, int kIn, bool has_c, int H, int R,
-                             int C, bool staged, int depth) {
+// Shared memory of a block of `Cell`, in floats, at `depth` ring
+// stages: the two state buffers, c, the weight slice when staged, the
+// ring.
+template <class Cell>
+inline long long smem_floats(int H, int R, int C, bool staged, int depth) {
   const long long S = (H + C - 1) / C;
-  return 2LL * round4(H * R) + (has_c ? round4((int)(R * S)) : 0) +
-         (staged ? ((long long)H * w_stride((int)S, G) + 3) / 4 * 4 : 0) +
-         depth * (long long)round4((int)(kIn * G * R * S));
+  return 2LL * round4(Cell::V * H * R) +
+         (Cell::kHasC ? round4((int)(R * S)) : 0) +
+         (staged ? ((long long)H * w_stride((int)S, Cell::G * Cell::V) + 3) /
+                       4 * 4
+                 : 0) +
+         depth * (long long)round4((int)(Cell::E * R * S));
 }
 
-// The plan of (C, R) for a cell at (D, B, H), or C = 0 when it does not
-// fit: the weight slice staged when it fits beside the shallowest ring,
-// the ring as deep as the rest leaves room for (kMinDepth to kMaxDepth).
-inline Plan plan_at(int G, int kIn, bool has_c, int H, int R, int C) {
-  Plan p{0, R, row_tile(R, G), 1, (H + C - 1) / C, 0, 0, 0};
+// The plan of (C, R) for `Cell` at H, or C = 0 when it does not fit: the
+// weight slice staged when it fits beside the shallowest ring, the ring
+// as deep as the rest leaves room for (kMinDepth to kMaxDepth).
+template <class Cell>
+inline Plan plan_at(int H, int R, int C) {
+  Plan p{0, R, row_tile(R, Cell::G * Cell::V), 1, (H + C - 1) / C, 0, 0, 0};
   const long long cap = kMaxSmem / 4;
   if (C > H) return p;
-  const long long stage = round4(kIn * G * R * p.S);
-  long long fixed = smem_floats(G, kIn, has_c, H, R, C, true, 0);
+  const long long stage = round4(Cell::E * R * p.S);
+  long long fixed = smem_floats<Cell>(H, R, C, true, 0);
   p.staged = fixed + kMinDepth * stage <= cap;
-  if (!p.staged) fixed = smem_floats(G, kIn, has_c, H, R, C, false, 0);
+  if (!p.staged) fixed = smem_floats<Cell>(H, R, C, false, 0);
   if (fixed + kMinDepth * stage > cap) return p;
   const long long depth = (cap - fixed) / stage;
   p.depth = depth < kMaxDepth ? (int)depth : kMaxDepth;
@@ -147,16 +169,30 @@ inline int fill_rows(int D, int B, int C) {
 // weight at the price of a DSMEM exchange and a cluster barrier a step,
 // so a cluster takes no more blocks than its weight needs.  C = 0 when
 // nothing fits.
-inline Plan make_plan(int G, int kIn, bool has_c, int D, int B, int H) {
+template <class Cell>
+inline Plan make_plan(int D, int B, int H) {
   for (int C : kClusterSizes) {
-    const Plan p = plan_at(G, kIn, has_c, H, fill_rows(D, B, C), C);
+    const Plan p = plan_at<Cell>(H, fill_rows(D, B, C), C);
     if (p.C != 0 && p.staged) return p;
   }
   for (int R = fill_rows(D, B, 16); R >= 1; R /= 2) {
-    const Plan p = plan_at(G, kIn, has_c, H, R, 16);
+    const Plan p = plan_at<Cell>(H, R, 16);
     if (p.C != 0) return p;
   }
   return Plan{0, 0, 0, 0, 0, 0, 0, 0};
+}
+
+// The plan of the shape, or with C > 0 the plan at (C, R) (C = 0 in it
+// when that does not fit): recurrence_plans.py times them all.
+template <class Cell>
+Plan plan_of(int D, int B, int H, int C = 0, int R = 0) {
+  return C > 0 ? plan_at<Cell>(H, R, C) : make_plan<Cell>(D, B, H);
+}
+
+// A plan into out[8]: C, R, RT, KP, S, staged, depth, bytes.
+inline void plan_out(const Plan& p, int* out) {
+  const int v[8] = {p.C, p.R, p.RT, p.KP, p.S, p.staged, p.depth, p.bytes};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
 }
 
 __device__ __forceinline__ float sigm(float x) {
@@ -244,30 +280,33 @@ __device__ __forceinline__ void load_rt(const float* a, float (&v)[RT]) {
   }
 }
 
-// The G weights w[g] = wp[g * gs] of a unit at one reduction index, from
-// shared memory (STAGED) or through L2.
-template <int G, bool STAGED>
+// The N weights w[n] = wp[n * gs] of a unit at one reduction index (n =
+// g * V + v), from shared memory (STAGED, gs = 1) or through L2.
+template <int N, bool STAGED>
 __device__ __forceinline__ void load_w(const float* wp, int gs,
-                                       float (&w)[G]) {
-  if constexpr (STAGED && G == 4) {
+                                       float (&w)[N]) {
+  if constexpr (STAGED && N == 4) {
     const float4 f = *reinterpret_cast<const float4*>(wp);
     w[0] = f.x; w[1] = f.y; w[2] = f.z; w[3] = f.w;
   } else {
 #pragma unroll
-    for (int g = 0; g < G; ++g) w[g] = STAGED ? wp[g] : __ldg(wp + g * gs);
+    for (int n = 0; n < N; ++n) w[n] = STAGED ? wp[n] : __ldg(wp + n * gs);
   }
 }
 
-// acc[r][g] += sum over this lane's nm terms of h[r] * w[g], the term
-// i's h row at hp + i * hstep and its weights at wp + i * wstep (stride
-// gs between gates): runs of kChunk terms summed from zero, runs of
-// kChunk runs from zero, then their total.  Terms are loaded U at a time
-// before their multiply-adds, which keep the order of i.
-template <int G, int RT, bool STAGED>
+// acc[r][g] += sum over this lane's nm units and their V values of
+// h[v][r] * w[g * V + v], the unit i's state rows at hp + i * hstep (value
+// v at + v * vstep) and its weights at wp + i * wstep (stride gs between
+// them): runs of kChunk units summed from zero, runs of kChunk runs from
+// zero, then their total.  Units are loaded U at a time before their
+// multiply-adds, which keep the order of i, then v.
+template <int G, int V, int RT, bool STAGED>
 __device__ __forceinline__ void lane_dot(const float* hp, int hstep,
-                                         const float* wp, int wstep, int gs,
-                                         int nm, float (&acc)[RT][G]) {
-  constexpr int U = G + RT <= 4 ? 8 : (G + RT <= 8 ? 4 : 2);
+                                         int vstep, const float* wp,
+                                         int wstep, int gs, int nm,
+                                         float (&acc)[RT][G]) {
+  constexpr int N = G * V, L = N + V * RT;   // values loaded a unit
+  constexpr int U = L <= 4 ? 8 : (L <= 8 ? 4 : 2);
   for (int s0 = 0; s0 < nm; s0 += kChunk * kChunk) {
     const int s1 = min(s0 + kChunk * kChunk, nm);
     float mid[RT][G] = {};
@@ -276,30 +315,38 @@ __device__ __forceinline__ void lane_dot(const float* hp, int hstep,
       float part[RT][G] = {};
       int i = c0;
       for (; i + U <= c1; i += U) {
-        float w[U][G], h[U][RT];
+        float w[U][N], h[U][V][RT];
 #pragma unroll
         for (int q = 0; q < U; ++q) {
-          load_w<G, STAGED>(wp + q * wstep, gs, w[q]);
-          load_rt<RT>(hp + q * hstep, h[q]);
+          load_w<N, STAGED>(wp + q * wstep, gs, w[q]);
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            load_rt<RT>(hp + q * hstep + v * vstep, h[q][v]);
         }
 #pragma unroll
         for (int q = 0; q < U; ++q)
 #pragma unroll
-          for (int r = 0; r < RT; ++r)
+          for (int v = 0; v < V; ++v)
 #pragma unroll
-            for (int g = 0; g < G; ++g)
-              part[r][g] = fmaf(h[q][r], w[q][g], part[r][g]);
+            for (int r = 0; r < RT; ++r)
+#pragma unroll
+              for (int g = 0; g < G; ++g)
+                part[r][g] = fmaf(h[q][v][r], w[q][g * V + v], part[r][g]);
         hp += U * hstep;
         wp += U * wstep;
       }
       for (; i < c1; ++i) {
-        float w[G], h[RT];
-        load_w<G, STAGED>(wp, gs, w);
-        load_rt<RT>(hp, h);
+        float w[N], h[V][RT];
+        load_w<N, STAGED>(wp, gs, w);
 #pragma unroll
-        for (int r = 0; r < RT; ++r)
+        for (int v = 0; v < V; ++v) load_rt<RT>(hp + v * vstep, h[v]);
 #pragma unroll
-          for (int g = 0; g < G; ++g) part[r][g] = fmaf(h[r], w[g], part[r][g]);
+        for (int v = 0; v < V; ++v)
+#pragma unroll
+          for (int r = 0; r < RT; ++r)
+#pragma unroll
+            for (int g = 0; g < G; ++g)
+              part[r][g] = fmaf(h[v][r], w[g * V + v], part[r][g]);
         hp += hstep;
         wp += wstep;
       }
@@ -319,17 +366,22 @@ __device__ __forceinline__ void lane_dot(const float* hp, int hstep,
 // argument) and weight placement (STAGED: in shared memory).
 //
 // A step: each lane's product, its group's butterfly and the owners'
-// updates into the block's own next state buffer; one block barrier;
-// then (C > 1) the block's new slice, a contiguous run of that buffer,
-// pushed to every other block in 16-byte stores, and the cluster
-// barrier's arrive; then, under the barrier, the slice's coalesced store
-// to `out` and the prefetch of step s + depth - 1; then the barrier's
-// wait.  The stores and the prefetch come after the arrive because its
-// release waits for this thread's pending global writes.
+// updates into the block's own next state buffer (and, where c is
+// stored, the new c into its row's slot of input 0 in the ring stage just
+// read); one block barrier; then (C > 1) the block's new slice, a
+// contiguous run of that buffer, pushed to every other block in 16-byte
+// stores, and the cluster barrier's arrive; then, under the barrier, the
+// slice's coalesced store to `out` (and c's to `cout`) and the prefetch of
+// step s + depth - 1; then the barrier's wait.  The stores and the
+// prefetch come after the arrive because its release waits for this
+// thread's pending global writes.  The stage the c stack is read from is
+// next written by the prefetch of step s + 1, after that step's block
+// barrier, so after every thread's stores.
 template <class Cell, int RT, bool STAGED>
 __global__ void __launch_bounds__(kThreads, 1)
     cluster_recurrence(Args a, Plan p) {
-  constexpr int G = Cell::G, E = Cell::kIn * Cell::G;
+  constexpr int G = Cell::G, V = Cell::V, E = Cell::E, N = G * V;
+  static_assert(V == 1 || Cell::kWeightT, "V > 1 reads the weight's rows");
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const Dims dm = a.dm;
@@ -341,19 +393,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int rows = min(R, dm.B - b0);
   const int u0 = (int)((long long)k * H / C);
   const int sb = (int)((long long)(k + 1) * H / C) - u0;   // units owned
-  const int ws = w_stride(S, G), hstride = round4(H * R);
-  float* hb = smem;                                  // [2][H][R]
+  const int ws = w_stride(S, N), hstride = round4(V * H * R);
+  float* hb = smem;                                  // [2][H][V][R]
   float* c_s = hb + 2 * hstride;                     // [R][S]
   float* w_s = c_s + (Cell::kHasC ? round4(R * S) : 0);   // [H][ws]
   float* ring = w_s + (STAGED ? round4(H * ws) : 0);  // [P][E][R][S]
   const int stage = round4(E * R * S);
-  const float* W = a.w + (size_t)d * H * G * H;
-  const size_t gstride = (size_t)G * H;
+  const float* W = a.w + (size_t)d * H * N * H;
 
-  // h0 (or zeros), c0 and the weight slice join step 0's copy group
-  for (int e = tid; e < H * R; e += kThreads) {
-    const int u = e / R, r = e - u * R;
-    if (a.h0 != nullptr && r < rows) {
+  // h0 (or zeros), c0 (or zeros) and the weight slice join step 0's copy
+  // group
+  for (int e = tid; e < V * H * R; e += kThreads) {
+    const int u = e / R, r = e - u * R;   // V = 1 where h0 is given
+    if (V == 1 && a.h0 != nullptr && r < rows) {
       cp_async4(hb + e, a.h0 + ((size_t)d * dm.B + b0 + r) * H + u);
     } else {
       hb[e] = 0.0f;
@@ -362,7 +414,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if constexpr (Cell::kHasC) {
     for (int e = tid; e < R * S; e += kThreads) {
       const int r = e / S, j = e - r * S;
-      if (r < rows && j < sb) {
+      if (a.c0 != nullptr && r < rows && j < sb) {
         cp_async4(c_s + e, a.c0 + ((size_t)d * dm.B + b0 + r) * H + u0 + j);
       } else {
         c_s[e] = 0.0f;
@@ -370,14 +422,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
   if constexpr (STAGED) {
-    for (int e = tid; e < H * S * G; e += kThreads) {
-      const int m = e / (S * G), jg = e - m * S * G;
-      const int j = jg / G, g = jg - j * G;
+    for (int e = tid; e < H * S * N; e += kThreads) {
+      const int m = e / (S * N), jn = e - m * S * N;
+      const int j = jn / N, n = jn - j * N;
+      const int g = n / V, v = n - g * V;
       const int u = u0 + j;
-      float* dst = w_s + (size_t)m * ws + jg;
+      float* dst = w_s + (size_t)m * ws + jn;
       if (j < sb) {
-        cp_async4(dst, Cell::kWeightT ? W + (size_t)(g * H + u) * H + m
-                                      : W + (size_t)m * G * H + g * H + u);
+        cp_async4(dst, Cell::kWeightT
+                           ? W + (size_t)(g * H + u) * (V * H) + v * H + m
+                           : W + (size_t)m * G * H + g * H + u);
       } else {
         *dst = 0.0f;
       }
@@ -385,24 +439,37 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   // the block's inputs of step s into ring stage `stg`: E x rows runs of
-  // sb floats, in 16-byte copies where aligned; read after a barrier
+  // sb floats, in 16-byte copies where aligned, zeros for an input whose
+  // step is outside [0, T); read after a barrier.  a.in[in.a] with a
+  // runtime stack copies Args to local memory (88 bytes of stack in the
+  // backward cells); unrolling over q, or a select, measured slower
   const bool vec = ((S | H | u0 | sb) & 3) == 0;
   const int per = vec ? sb / 4 : sb, copies = E * rows * per;
   auto prefetch = [&](int s, float* stg) {
     if (s < dm.T) {
       const int t = Cell::kReverse ? dm.T - 1 - s : s;
-      const size_t row0 = ((size_t)t * dm.D + d) * dm.B + b0;
       for (int e = tid; e < copies; e += kThreads) {
         const int qr = e / per, i = e - qr * per;
         const int q = qr / rows, r = qr - q * rows;
-        const int ai = q / G, g = q - ai * G;
-        const float* src = (ai == 0 ? a.in[0] : a.in[1]) +
-                           (row0 + r) * gstride + (size_t)g * H + u0;
-        float* dst = stg + ((size_t)q * R + r) * S;
+        const In in = Cell::input(q);
+        const int ti = t + in.shift;
+        float* dst = stg + ((size_t)q * R + r) * S + (vec ? 4 * i : i);
+        if (ti < 0 || ti >= dm.T) {
+          if (vec) {
+            *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+          } else {
+            *dst = 0.0f;
+          }
+          continue;
+        }
+        const float* src =
+            a.in[in.a] +
+            (((size_t)ti * dm.D + d) * dm.B + b0 + r) * ((size_t)in.width * H) +
+            (size_t)in.v * H + u0 + (vec ? 4 * i : i);
         if (vec) {
-          cp_async16(dst + 4 * i, src + 4 * i);
+          cp_async16(dst, src);
         } else {
-          cp_async4(dst + i, src + i);
+          cp_async4(dst, src);
         }
       }
     }
@@ -422,18 +489,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int kp = tid % KP, slot = tid / KP, slots = kThreads / KP;
   const int rounds = (S * (R / RT) + slots - 1) / slots;
   const int j_first = slot % S, tile_first = slot / S;
-  // a lane's weight steps: between its terms, and between gates
+  // a lane's weight steps: between its units, and between its weights
   const int wstep = STAGED ? KP * ws : (Cell::kWeightT ? KP : KP * G * H);
-  const int gs = STAGED ? 1 : (Cell::kWeightT ? H * H : H);
+  const int gs = STAGED ? 1 : H;
   const int j_step = slots % S, tile_step = slots / S;
-  const int base = u0 * R, n = sb * R;   // this block's slice of a buffer
+  const int base = u0 * V * R, n = sb * V * R;   // this block's slice
   const int n4 = (base & 3) == 0 ? n / 4 : 0;
+  const bool store_c = Cell::kHasC && a.cout != nullptr;
   int ps = 0, pf = P - 1;   // ring stages of steps s and s + P - 1
   for (int s = 0; s < dm.T; ++s) {
     const int t = Cell::kReverse ? dm.T - 1 - s : s;
     const float* cur = hb + (size_t)(s & 1) * hstride;
     float* nxt = hb + (size_t)((s + 1) & 1) * hstride;
-    const float* st = ring + (size_t)ps * stage;
+    float* st = ring + (size_t)ps * stage;
     int j = j_first, rt0 = tile_first * RT;
     for (int round = 0; round < rounds; ++round) {
       const bool live = rt0 < R && j < sb;
@@ -441,11 +509,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (live && kp < H) {
         const int u = u0 + j;
         const float* wp =
-            STAGED ? w_s + kp * ws + j * G
-                   : (Cell::kWeightT ? W + (size_t)u * H + kp
+            STAGED ? w_s + kp * ws + j * N
+                   : (Cell::kWeightT ? W + (size_t)u * (V * H) + kp
                                      : W + (size_t)kp * G * H + u);
-        lane_dot<G, RT, STAGED>(cur + kp * R + rt0, KP * R, wp, wstep, gs,
-                                (H - kp + KP - 1) / KP, acc);
+        lane_dot<G, V, RT, STAGED>(cur + kp * V * R + rt0, KP * V * R, R, wp,
+                                   wstep, gs, (H - kp + KP - 1) / KP, acc);
       }
       for (int o = KP / 2; o >= 1; o >>= 1)
 #pragma unroll
@@ -458,17 +526,22 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int rr = 0; rr < RT; ++rr) {
           const int r = rt0 + rr;
           if ((rr & (KP - 1)) != kp) continue;
-          float v = 0.0f;
+          float y[V] = {};
           if (r < rows) {
             float x[E];
 #pragma unroll
             for (int q = 0; q < E; ++q) x[q] = st[((size_t)q * R + r) * S + j];
             float c = 0.0f;
             if constexpr (Cell::kHasC) c = c_s[r * S + j];
-            v = Cell::update(x, acc[rr], c);
-            if constexpr (Cell::kHasC) c_s[r * S + j] = c;
+            Cell::update(x, acc[rr], c, y);
+            if constexpr (Cell::kHasC) {
+              c_s[r * S + j] = c;
+              if (store_c) st[(size_t)r * S + j] = c;   // input 0, read
+            }
           }
-          nxt[(size_t)(u0 + j) * R + r] = v;
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            nxt[((size_t)(u0 + j) * V + v) * R + r] = y[v];
         }
       }
       j += j_step;
@@ -495,10 +568,18 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       cluster_arrive();
     }
-    for (int e = tid; e < rows * sb; e += kThreads) {
-      const int r = e / sb, jj = e - r * sb;
-      a.out[(((size_t)t * dm.D + d) * dm.B + b0 + r) * H + u0 + jj] =
-          nxt[(size_t)(u0 + jj) * R + r];
+    const size_t row0 = ((size_t)t * dm.D + d) * dm.B + b0;
+    for (int e = tid; e < rows * V * sb; e += kThreads) {
+      const int rv = e / sb, jj = e - rv * sb;
+      const int r = rv / V, v = rv - r * V;
+      a.out[(row0 + r) * (V * H) + v * H + u0 + jj] =
+          nxt[((size_t)(u0 + jj) * V + v) * R + r];
+    }
+    if (store_c) {
+      for (int e = tid; e < rows * sb; e += kThreads) {
+        const int r = e / sb, jj = e - r * sb;
+        a.cout[(row0 + r) * H + u0 + jj] = st[(size_t)r * S + jj];
+      }
     }
     prefetch(s + P - 1, ring + (size_t)pf * stage);
     if (C > 1) cluster_wait();
@@ -556,10 +637,10 @@ cudaError_t launch_cluster(const Args& a, const Plan& p, cudaStream_t st) {
 }
 
 // The launch at the plan's RT and weight placement; RT is R capped at
-// kMaxAcc / G.
+// kMaxAcc / (G * V).
 template <class Cell, int RT>
 cudaError_t launch_rt(const Args& a, const Plan& p, cudaStream_t st) {
-  if constexpr (RT * Cell::G <= kMaxAcc) {
+  if constexpr (RT * Cell::G * Cell::V <= kMaxAcc) {
     return p.staged ? launch_cluster<Cell, RT, true>(a, p, st)
                     : launch_cluster<Cell, RT, false>(a, p, st);
   }

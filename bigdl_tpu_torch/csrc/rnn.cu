@@ -45,29 +45,25 @@ namespace {
 
 // h' = tanh(zx + h . wht[d])
 struct RnnFwd {
-  static constexpr int G = 1, kIn = 1;
+  static constexpr int G = 1, V = 1, E = 1;
   static constexpr bool kReverse = false, kHasC = false, kWeightT = false;
-  __device__ static float update(const float* x, const float* z, float&) {
-    return tanhf(x[0] + z[0]);
+  __host__ __device__ static constexpr In input(int) { return {0, 0, 1, 0}; }
+  __device__ static void update(const float* x, const float* z, float&,
+                                float* y) {
+    y[0] = tanhf(x[0] + z[0]);
   }
 };
 
 // dz = (gout + dz' . wht[d]^T) (1 - h^2), in reverse time; x = (gout, h)
 struct RnnBwd {
-  static constexpr int G = 1, kIn = 2;
+  static constexpr int G = 1, V = 1, E = 2;
   static constexpr bool kReverse = true, kHasC = false, kWeightT = true;
-  __device__ static float update(const float* x, const float* z, float&) {
-    return (x[0] + z[0]) * (1.0f - x[1] * x[1]);
+  __host__ __device__ static constexpr In input(int q) { return {q, 0, 1, 0}; }
+  __device__ static void update(const float* x, const float* z, float&,
+                                float* y) {
+    y[0] = (x[0] + z[0]) * (1.0f - x[1] * x[1]);
   }
 };
-
-// The plan of the shape, or with C > 0 the plan at (C, R) (C = 0 in it
-// when that does not fit): recurrence_plans.py times them all.
-template <class Cell>
-Plan plan_of(int D, int B, int H, int C = 0, int R = 0) {
-  return C > 0 ? plan_at(Cell::G, Cell::kIn, Cell::kHasC, H, R, C)
-               : make_plan(Cell::G, Cell::kIn, Cell::kHasC, D, B, H);
-}
 
 }  // namespace
 
@@ -84,7 +80,7 @@ int bigdl_rnn_fwd_f32(const float* zx, const float* wht, const float* h0,
   if (err != cudaSuccess) return (int)err;
   const Dims dm{T, D, B, H};
   if (empty(dm)) return 0;
-  const Args a{{zx, nullptr}, wht, h0, nullptr, hs, dm};
+  const Args a{{zx}, wht, h0, nullptr, hs, nullptr, dm};
   return (int)launch_planned<RnnFwd>(a, plan_of<RnnFwd>(D, B, H, C, R),
                                      static_cast<cudaStream_t>(stream));
 }
@@ -98,7 +94,7 @@ int bigdl_rnn_bwd_f32(const float* wht, const float* hs, const float* gout,
   if (err != cudaSuccess) return (int)err;
   const Dims dm{T, D, B, H};
   if (empty(dm)) return 0;
-  const Args a{{gout, hs}, wht, nullptr, nullptr, dzx, dm};
+  const Args a{{gout, hs}, wht, nullptr, nullptr, dzx, nullptr, dm};
   return (int)launch_planned<RnnBwd>(a, plan_of<RnnBwd>(D, B, H, C, R),
                                      static_cast<cudaStream_t>(stream));
 }
@@ -106,9 +102,7 @@ int bigdl_rnn_bwd_f32(const float* wht, const float* hs, const float* gout,
 // The plan of the forward (bwd = 0) or backward (1) at (D, B, H) into
 // out[8]: C, R, RT, KP, S, staged, depth, bytes (C = 0: none fits).
 void bigdl_rnn_plan(int bwd, int D, int B, int H, int* out) {
-  const Plan p = bwd ? plan_of<RnnBwd>(D, B, H) : plan_of<RnnFwd>(D, B, H);
-  const int v[8] = {p.C, p.R, p.RT, p.KP, p.S, p.staged, p.depth, p.bytes};
-  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  plan_out(bwd ? plan_of<RnnBwd>(D, B, H) : plan_of<RnnFwd>(D, B, H), out);
 }
 
 // dwht (D, H, H) = sum over t, b of hprev^T . dzx, hprev the h stack at

@@ -63,7 +63,7 @@ class Cell(Module):
 class LSTMCell(Cell):
     """Standard LSTM cell with ``w`` (4H, D+H) over [x, h] and ``bias``
     (4H), both U(-1/sqrt(H), 1/sqrt(H)); gates i, f, g, o.  On the card
-    the recurrence kernels take H up to ``ops.bilstm.MAX_HIDDEN`` (4,470):
+    the recurrence kernels take H up to ``ops.bilstm.MAX_HIDDEN`` (6,197):
     a larger H raises ``NotImplementedError`` at the first forward."""
 
     def __init__(self, input_size: int, hidden_size: int, device=None,

@@ -31,8 +31,7 @@ SOURCES = {"paged_attention": "paged_attention.cu",
            "lrn": "lrn.cu",
            "bilstm": "bilstm.cu",
            "rnn": "rnn.cu",
-           "gru": "gru.cu",
-           "lstm_scan": "lstm_scan.cu"}
+           "gru": "gru.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -4,15 +4,17 @@ the cluster plan of ``csrc/recurrence_cluster.cuh``, the weight
 gradient's slices (``csrc/recurrence_dwh.cuh``) and their argument
 checks.
 
-A recurrence block of ``recurrence_block.cuh`` (bilstm, gru) keeps the
-state of its batch rows in shared memory.  It takes the most of 8, 4, 2
-or 1 rows whose forward and backward blocks both fit a block's shared
-memory (:func:`rows_for`); the largest H that fits at one row
+A recurrence block of ``recurrence_block.cuh`` (gru) keeps the state of
+its batch rows in shared memory.  It takes the most of 8, 4, 2 or 1 rows
+whose forward and backward blocks both fit a block's shared memory
+(:func:`rows_for`); the largest H that fits at one row
 (:func:`max_hidden`) is a kernel's limit, and the wrappers refuse a
-larger H before any launch.  A cluster recurrence (rnn, lstm_scan) is
-planned by :func:`cluster_plan`, the mirror of the header's
-``make_plan``; its limit is the largest H a 16-block cluster of one row
-holds.
+larger H before any launch.  A cluster recurrence (rnn, bilstm,
+lstm_scan) is planned by :func:`cluster_plan`, the mirror of the
+header's ``make_plan``; its limit is the largest H a 16-block cluster of
+one row holds.  A cell is described by (G, E, kHasC) -- its gate
+columns, its inputs a unit and a step, whether it keeps c -- and V, the
+values a unit holds in the exchanged state (the LSTM backward's 4).
 """
 from __future__ import annotations
 
@@ -76,30 +78,30 @@ def _pow2_floor(x):
     return p
 
 
-def cluster_smem_floats(g, n_in, has_c, hdim, rows, c, staged, depth):
+def cluster_smem_floats(g, e, has_c, hdim, rows, c, staged, depth, v=1):
     """recurrence_cluster.cuh ``smem_floats``: the two state buffers, c,
     the weight slice when staged and ``depth`` ring stages, in floats."""
     s = -(-hdim // c)
-    return (2 * _round4(hdim * rows) + (_round4(rows * s) if has_c else 0)
-            + (_round4(hdim * (s * g + 4)) if staged else 0)
-            + depth * _round4(n_in * g * rows * s))
+    return (2 * _round4(v * hdim * rows) + (_round4(rows * s) if has_c else 0)
+            + (_round4(hdim * (s * g * v + 4)) if staged else 0)
+            + depth * _round4(e * rows * s))
 
 
-def cluster_plan_at(g, n_in, has_c, hdim, rows, c):
+def cluster_plan_at(g, e, has_c, hdim, rows, c, v=1):
     """recurrence_cluster.cuh ``plan_at``: the plan of (C, R) as a dict of
     PLAN_FIELDS, C = 0 when it does not fit; the weight slice staged in
     shared memory when it fits beside the shallowest ring."""
     s = -(-hdim // c)
-    p = dict(C=0, R=rows, RT=min(rows, MAX_ACC // g), KP=1, S=s, staged=0,
-             depth=0, bytes=0)
+    p = dict(C=0, R=rows, RT=min(rows, MAX_ACC // (g * v)), KP=1, S=s,
+             staged=0, depth=0, bytes=0)
     cap = MAX_SMEM // 4
     if c > hdim:
         return p
-    stage = _round4(n_in * g * rows * s)
-    fixed = cluster_smem_floats(g, n_in, has_c, hdim, rows, c, True, 0)
+    stage = _round4(e * rows * s)
+    fixed = cluster_smem_floats(g, e, has_c, hdim, rows, c, True, 0, v)
     p["staged"] = int(fixed + MIN_DEPTH * stage <= cap)
     if not p["staged"]:
-        fixed = cluster_smem_floats(g, n_in, has_c, hdim, rows, c, False, 0)
+        fixed = cluster_smem_floats(g, e, has_c, hdim, rows, c, False, 0, v)
     if fixed + MIN_DEPTH * stage > cap:
         return p
     p["depth"] = min((cap - fixed) // stage, MAX_DEPTH)
@@ -118,19 +120,19 @@ def fill_rows(nd, b, c):
                 CLUSTER_ROWS[-1])
 
 
-def cluster_plan(g, n_in, has_c, nd, b, hdim):
+def cluster_plan(g, e, has_c, nd, b, hdim, v=1):
     """recurrence_cluster.cuh ``make_plan``: the smallest cluster whose
     blocks hold their weight slice in shared memory, with the rows that
     fill the SMs; else 16 blocks reading their slices through L2 with as
     many of those rows as fit; C = 0 when nothing fits.  A function of
     the shape alone."""
     for c in CLUSTER_SIZES:
-        p = cluster_plan_at(g, n_in, has_c, hdim, fill_rows(nd, b, c), c)
+        p = cluster_plan_at(g, e, has_c, hdim, fill_rows(nd, b, c), c, v)
         if p["C"] and p["staged"]:
             return p
     rows = fill_rows(nd, b, 16)
     while rows >= 1:
-        p = cluster_plan_at(g, n_in, has_c, hdim, rows, 16)
+        p = cluster_plan_at(g, e, has_c, hdim, rows, 16, v)
         if p["C"]:
             return p
         rows //= 2

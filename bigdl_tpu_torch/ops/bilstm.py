@@ -14,11 +14,13 @@ three wrappers launch the hand-written ``csrc/bilstm.cu`` kernels or
 raise; on CPU tensors they run the plain versions beside them.  There is
 no other path.  Each wrapper's ``launches`` counts its kernel calls only.
 
-The recurrence blocks keep their batch rows' state in shared memory:
-8 rows up to H = 558, then 4, 2 and 1 as H grows (the row rule of
-``ops._recurrence``), so the kernels run H <= ``MAX_HIDDEN`` (4,470) and
-a larger H raises ``NotImplementedError`` before any launch (the plain
-versions on the CPU have no such limit).
+The serial forward and backward are cluster recurrences
+(``csrc/recurrence_cluster.cuh``) whose plans :func:`plan` mirrors; the
+forward is the one ``ops.lstm_scan`` launches.  The kernels run H <=
+``MAX_HIDDEN``, the largest H whose forward and backward 16-block
+clusters of one batch row fit shared memory, and a larger H raises
+``NotImplementedError`` before any launch (the plain versions on the CPU
+have no such limit).
 """
 from __future__ import annotations
 
@@ -29,38 +31,59 @@ from bigdl_tpu_torch.ops import _recurrence as rec
 
 _KERNEL = "bilstm"
 
-
-def smem_bytes(hdim, rows=8):
-    """(forward, backward) shared memory of a recurrence block of
-    ``rows`` batch rows at H = ``hdim``, as csrc/bilstm.cu's
-    ``fwd_smem_floats``/``bwd_smem_floats`` size it."""
-    g_f, g_b = rec.groups(hdim, 4 * hdim), rec.groups(4 * hdim, hdim)
-    fwd = rows * 10 * hdim + (g_f * rows * 4 * hdim if g_f > 1 else 0)
-    bwd = rows * 13 * hdim + (g_b * rows * hdim if g_b > 1 else 0)
-    return 4 * fwd, 4 * bwd
+# (G, E, kHasC) of csrc/bilstm.cu's LstmFwd and LstmBwd cells, and the
+# backward's V: it exchanges dz, four values a unit
+FWD_CELL, BWD_CELL, BWD_VALUES = (4, 4, True), (1, 7, True), 4
 
 
-def rows_for(hdim):
-    """The batch rows of a recurrence block at H = ``hdim``."""
-    return rec.rows_for(hdim, smem_bytes)
+def _cell(backward):
+    return (BWD_CELL, BWD_VALUES) if backward else (FWD_CELL, 1)
 
 
-#: the largest H the kernels take (one batch row a block)
+def plan(nd, b, hdim, backward=False):
+    """The forward's (or backward's) cluster plan at (D, B, H), as
+    csrc/bilstm.cu's ``plan_of`` computes it: a dict of
+    ``_recurrence.PLAN_FIELDS``."""
+    cell, v = _cell(backward)
+    return rec.cluster_plan(*cell, nd, b, hdim, v=v)
+
+
+def smem_bytes(hdim, rows=1):
+    """(forward, backward) shared memory of a block of ``rows`` batch rows
+    in a 16-block cluster at H = ``hdim``, with wht read through L2 and
+    the shallowest ring: the least any plan at ``rows`` needs."""
+    return tuple(4 * rec.cluster_smem_floats(*cell, hdim, rows,
+                                             rec.CLUSTER_SIZES[-1], False,
+                                             rec.MIN_DEPTH, v)
+                 for cell, v in map(_cell, (False, True)))
+
+
+#: the largest H the kernels take (16-block clusters of one batch row)
 MAX_HIDDEN = rec.max_hidden(smem_bytes)
 
 
 def _setup(lib):
-    lib.bigdl_lstm_fwd_f32.argtypes = [rec.VP] * 4 + rec.DIMS
+    # T D B H, then C R (0 0: the plan of the shape), device, stream
+    lib.bigdl_lstm_fwd_f32.argtypes = [rec.VP] * 6 + rec.PLANNED_DIMS
     lib.bigdl_lstm_fwd_f32.restype = rec.I
-    lib.bigdl_lstm_bwd_f32.argtypes = [rec.VP] * 7 + rec.DIMS
+    lib.bigdl_lstm_bwd_f32.argtypes = [rec.VP] * 6 + rec.PLANNED_DIMS
     lib.bigdl_lstm_bwd_f32.restype = rec.I
     lib.bigdl_lstm_dwh_f32.argtypes = ([rec.VP] * 4 + [rec.I] * 5
                                        + [rec.LL] + rec.DIMS[4:])
     lib.bigdl_lstm_dwh_f32.restype = rec.I
+    lib.bigdl_lstm_plan.argtypes = [rec.I] * 4 + [rec.VP]
+    lib.bigdl_lstm_plan.restype = None
 
 
 def _lib():
     return rec.load(_KERNEL, _setup)
+
+
+def kernel_plan(nd, b, hdim, backward=False):
+    """The plan csrc/bilstm.cu itself computes (the library built and
+    loaded), to hold :func:`plan` to it on the card."""
+    return rec.kernel_plan(_lib().bigdl_lstm_plan, int(backward), nd, b,
+                           hdim)
 
 
 def _gates(z, hdim):
@@ -128,7 +151,7 @@ def bilstm_forward(zx, wht, with_c=True):
     t, nd, b, hdim = _check_inputs(zx, wht)
     hs = zx.new_empty(t, nd, b, hdim)
     cs = zx.new_empty(t, nd, b, hdim) if with_c else None
-    _run("fwd", [zx, wht, hs, cs], t, nd, b, hdim)
+    _run("fwd", [zx, wht, None, None, hs, cs], t, nd, b, hdim)
     bilstm_forward.launches += 1
     return (hs, cs) if with_c else hs
 
@@ -142,8 +165,7 @@ def bilstm_backward(zx, wht, hs, cs, gout):
     for v, name in ((hs, "hs"), (cs, "cs"), (gout, "gout")):
         _check(v, name, zx.device, (t, nd, b, hdim))
     dzx = torch.empty_like(zx)
-    wh = zx.new_empty(nd, 4 * hdim, hdim)   # scratch: wht^T
-    _run("bwd", [zx, wht, hs, cs, gout, dzx, wh], t, nd, b, hdim)
+    _run("bwd", [zx, wht, hs, cs, gout, dzx], t, nd, b, hdim)
     bilstm_backward.launches += 1
     return dzx
 
@@ -198,12 +220,15 @@ def _check_inputs(zx, wht):
     return t, nd, b, h4 // 4
 
 
-def _run(which, tensors, t, nd, b, hdim):
+def _run(which, tensors, t, nd, b, hdim, kernel=_KERNEL):
+    """One launch of the forward (``fwd``) or backward entry under the
+    plan of the shape; ``kernel`` names the wrapper in an error."""
     lib = _lib()
     fn = lib.bigdl_lstm_fwd_f32 if which == "fwd" else lib.bigdl_lstm_bwd_f32
     ptrs = [None if v is None else v.data_ptr() for v in tensors]
-    err = fn(*ptrs, t, nd, b, hdim, *_build.device_stream(tensors[0].device))
-    rec.raise_on(lib, err, _KERNEL, which, hdim)
+    err = fn(*ptrs, t, nd, b, hdim, 0, 0,
+             *_build.device_stream(tensors[0].device))
+    rec.raise_on(lib, err, kernel, which, hdim)
 
 
 class _BiLSTM(torch.autograd.Function):

@@ -7,31 +7,33 @@ give the h stack (T, B, H), gates i, f, g, o in that order.  It takes no
 gradient (the JAX kernel has no VJP): validation and inference of a
 ``Recurrent(LSTMCell)`` (``nn/recurrent.py``) run it, training keeps
 ``bilstm_recurrence``.  On a CUDA tensor it launches the hand-written
-``csrc/lstm_scan.cu`` kernel or raises; on a CPU tensor it runs
-:func:`lstm_scan_reference`, the plain step loop.  ``lstm_scan.launches``
-counts kernel launches only.  The kernel is a cluster recurrence
-(``csrc/recurrence_cluster.cuh``) whose plan :func:`plan` mirrors: H <=
-``MAX_HIDDEN``, a larger H is refused before a launch.
+forward of ``csrc/bilstm.cu`` from h0 and c0 at D = 1, the kernel that
+``bilstm_forward`` launches from zero state, or raises; on a CPU tensor
+it runs :func:`lstm_scan_reference`, the plain step loop.
+``lstm_scan.launches`` counts its own kernel launches only.  The kernel
+is a cluster recurrence (``csrc/recurrence_cluster.cuh``) whose plan
+:func:`plan` mirrors: H <= ``MAX_HIDDEN``, a larger H is refused before
+a launch.
 """
 from __future__ import annotations
 
 import torch
 
-from bigdl_tpu_torch.ops import _build
 from bigdl_tpu_torch.ops import _recurrence as rec
+from bigdl_tpu_torch.ops import bilstm
 from bigdl_tpu_torch.ops.bilstm import _gates
 
 _KERNEL = "lstm_scan"
 
 
-# (G, kIn, kHasC) of csrc/lstm_scan.cu's LstmFwd cell
-CELL = (4, 1, True)
+# (G, E, kHasC) of csrc/bilstm.cu's LstmFwd cell
+CELL = bilstm.FWD_CELL
 
 
 def plan(b, hdim):
-    """The cluster plan at (B, H), as csrc/lstm_scan.cu's ``scan_plan``
-    computes it: a dict of ``_recurrence.PLAN_FIELDS``."""
-    return rec.cluster_plan(*CELL, 1, b, hdim)
+    """The cluster plan at (B, H): ``bilstm.plan`` of the forward at D =
+    1, a dict of ``_recurrence.PLAN_FIELDS``."""
+    return bilstm.plan(1, b, hdim)
 
 
 def smem_bytes(hdim, rows=1):
@@ -47,19 +49,11 @@ def smem_bytes(hdim, rows=1):
 MAX_HIDDEN = rec.max_hidden(smem_bytes)
 
 
-def _setup(lib):
-    # T B H, then C R (0 0: the plan of the shape), device, stream
-    lib.bigdl_lstm_scan_f32.argtypes = [rec.VP] * 5 + rec.PLANNED_DIMS[1:]
-    lib.bigdl_lstm_scan_f32.restype = rec.I
-    lib.bigdl_lstm_scan_plan.argtypes = [rec.I, rec.I, rec.VP]
-    lib.bigdl_lstm_scan_plan.restype = None
-
-
 def kernel_plan(b, hdim):
-    """The plan csrc/lstm_scan.cu itself computes (the library built and
-    loaded), to hold :func:`plan` to it on the card."""
-    return rec.kernel_plan(rec.load(_KERNEL, _setup).bigdl_lstm_scan_plan,
-                           b, hdim)
+    """The plan csrc/bilstm.cu itself computes for the forward at D = 1
+    (the library built and loaded), to hold :func:`plan` to it on the
+    card."""
+    return bilstm.kernel_plan(1, b, hdim)
 
 
 def lstm_scan_reference(zx, wht, h0, c0):
@@ -92,12 +86,8 @@ def lstm_scan(zx, wht, h0, c0):
                            (h0, "h0", (b, hdim)), (c0, "c0", (b, hdim))):
         rec.check(_KERNEL, v, name, zx.device, shape)
     hs = zx.new_empty(t, b, hdim)
-    lib = rec.load(_KERNEL, _setup)
-    err = lib.bigdl_lstm_scan_f32(zx.data_ptr(), wht.data_ptr(),
-                                  h0.data_ptr(), c0.data_ptr(),
-                                  hs.data_ptr(), t, b, hdim, 0, 0,
-                                  *_build.device_stream(zx.device))
-    rec.raise_on(lib, err, _KERNEL, "fwd", hdim)
+    bilstm._run("fwd", [zx, wht, h0, c0, hs, None], t, 1, b, hdim,
+                kernel=_KERNEL)
     lstm_scan.launches += 1
     return hs
 

@@ -28,7 +28,7 @@ from bigdl_tpu_torch.ops import _recurrence as rec
 _KERNEL = "rnn"
 
 
-# (G, kIn, kHasC) of csrc/rnn.cu's RnnFwd and RnnBwd cells
+# (G, E, kHasC) of csrc/rnn.cu's RnnFwd and RnnBwd cells
 FWD_CELL, BWD_CELL = (1, 1, False), (1, 2, False)
 
 

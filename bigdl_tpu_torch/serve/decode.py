@@ -133,6 +133,7 @@ class ContinuousDecoder:
         self._seed_len = z(B)
         self._gen = z(B, n_view)
         self._ptab = z(B, self.pages_per_slot)
+        self._ptab_live = self._ptab     # the columns a cycle reads
         # a never-admitted slot clips to position -1 (it wraps in every
         # index and is never live); admission sets the real capacity
         self._cap = z(B)
@@ -158,7 +159,7 @@ class ContinuousDecoder:
                           self._seeds[rows, wp], self._prev)
         logp, self._caches = _lm_forward_one(
             tok, wp, self._caches, self._handles, self._pe,
-            (self._ptab, self.page_size), valid=live)
+            (self._ptab_live, self.page_size), valid=live)
         nxt = logp.argmax(dim=-1).to(torch.int32)
         # rows are distinct, so a masked read-modify-write is exact here
         self._gen[rows, wp] = torch.where(live, nxt, self._gen[rows, wp])
@@ -185,8 +186,12 @@ class ContinuousDecoder:
 
     def _apply_retire(self, slot: int):
         """decode.py ``retire``: frozen rows' writes are already gated to
-        the scratch page, so the table reset is hygiene."""
+        the scratch page, so the table reset is hygiene.  The slot goes
+        back to a never-admitted one's position -1, so its dead row reads
+        the table at no column past a live request's pages."""
         self._ptab[slot] = 0
+        self._pos[slot] = 0
+        self._cap[slot] = 0
         self._active[slot] = False
 
     # -- submit -------------------------------------------------------------
@@ -258,6 +263,13 @@ class ContinuousDecoder:
                 self._pending.clear()
             return 0
         self.live_hwm = max(self.live_hwm, len(live))
+        # the cycle's steps read no page past their rows' positions: the
+        # table it passes is as wide as those pages, so the attention's
+        # split walk follows the contexts served, not the n_pos reservation
+        width = max(_pages_needed(min(r.start_pos + r.steps_run
+                                      + self.sync_interval, r.steps_needed),
+                                  self.page_size) for r in live)
+        self._ptab_live = self._ptab[:, :width].contiguous()
         for _ in range(self.sync_interval):
             self._run_step()
         self.steps += self.sync_interval

@@ -24,10 +24,14 @@ Phases, each failing with a non-zero exit:
    (Inception-v1's among them) and with NaNs at three; the int8 variant
    of paged attention at the decode step's full width, an S = 4 window
    and small pages taking each of its copy paths, with the two-call
-   reference (dequantize, then SDPA) beside it; ``lstm_scan`` from
+   reference (dequantize, then SDPA) beside it; both pools' split walks
+   at the plan's split count and at 1, 3 and 64 splits (empty splits and
+   a row with pos < 0 among them) against the plain split-and-merge
+   version, and timed at serving's own context; ``lstm_scan`` from
    non-zero states at (T 500, B 128, H 128), a ragged shape, shapes whose
    cluster plans take 1, 2, 4, 8 and 16 blocks, and its largest H, beside
-   cuDNN's no-grad ``nn.LSTM`` layer;
+   cuDNN's no-grad ``nn.LSTM`` layer, and from zero state the same bits
+   as ``bilstm_forward`` at D = 1;
 3. serving: a full-width ``TransformerLM`` (vocab 4000, d_model 1024,
    4 heads, 6 layers, hidden 4096, random weights from seed 0) serves 16
    requests through ``ContinuousDecoder``; the kernels' launch counts
@@ -60,7 +64,8 @@ Phases, each failing with a non-zero exit:
    backward and weight gradient, and three steps at batch 16 equal the
    same steps on the CPU.  Its kernels are checked before the paths,
    with phase 2: at the JAX tests' shapes, a ragged H, H = 558, 600 and
-   1,200 (8, 4 and 2 batch rows a block), T = 1 and the full width,
+   1,200, T = 1, the full width, shapes whose cluster plans take 4, 8 and
+   16 blocks and the largest H, each case's cluster plans printed,
    against the plain versions (or, where the 500-step chain leaves the
    tolerance, against twice the plain version's own error from float64),
    with the weight gradient timed beside one ``torch.einsum`` and the
@@ -182,14 +187,19 @@ BILSTM_BWD_TOL = dict(rtol=1e-4, atol=1e-5)   # tests/test_recurrent.py:193
 # error against a float64 plain run on the same inputs
 BILSTM_VS_64 = 2.0
 # (T, D, B, H): tests/test_recurrent.py:129,211 and
-# tests/test_pallas_ops.py:240, a ragged H, the largest H of 8-row blocks
-# (558), then H = 600 and 1,200 (4 and 2 rows a block, the row rule of
-# csrc/recurrence_block.cuh), T = 1, then the classifier's full width in
-# both directions and in one
+# tests/test_pallas_ops.py:240, a ragged H, the largest H of the former
+# 8-row blocks (558), then H = 600 and 1,200 (wht through L2 in 16-block
+# clusters), T = 1, the classifier's full width in both directions and in
+# one, an odd batch at H that the plans' clusters of 4, 8 and 16 blocks
+# split raggedly (the forward's weight in shared memory, the backward's
+# at 16 through L2), then the largest H (ops.bilstm.MAX_HIDDEN, filled in
+# at run time)
 BILSTM_CASES = [(7, 2, 3, 5), (9, 1, 4, 5), (13, 2, 37, 4),
                 (13, 2, 37, 100), (3, 2, 9, 558), (3, 2, 9, 600),
                 (3, 2, 9, 1200), (1, 2, 3, 5), (1, 2, 128, 128),
-                (TSEQ, 2, TBATCH, THIDDEN), (TSEQ, 1, TBATCH, THIDDEN)]
+                (TSEQ, 2, TBATCH, THIDDEN), (TSEQ, 1, TBATCH, THIDDEN),
+                (7, 2, 37, 203), (7, 2, 37, 250), (7, 2, 37, 330),
+                (2, 1, 3, None)]
 # SimpleRNN training slice: examples/train_rnn.py's defaults (vocabSize
 # 4000, so 4,001 inputs and outputs with the OOV bucket; hiddenSize 40,
 # batchSize 4, seqLength 8, bptt 4, learningRate 0.1), 2 of its 5 epochs
@@ -227,6 +237,11 @@ CLUSTER_SIZES = (1, 2, 4, 8, 16)
 GRU_CASES = [(13, 1, 5, 100), (9, 1, 4, 5), (7, 2, 37, 33), (1, 2, 3, 5),
              (2, 1, 3, None), (TSEQ, 2, TBATCH, THIDDEN),
              (TSEQ, 1, TBATCH, THIDDEN)]
+# one query a row at positions spread over serving's context: seeds of
+# 16-256 tokens and 128 generated, in the widest table ContinuousDecoder
+# passes that traffic, the pages its longest request reaches (24)
+SERVE_POS = [[int(p)] for p in np.linspace(15, 256 + N_WORDS - 1, SLOTS)]
+SERVE_PAGES = -(-(256 + N_WORDS) // PAGE)
 # tests/test_pallas_ops.py:37-44
 SGD_HYPERS = [
     {"lr": 0.1}, {"lr": 0.1, "dampening": 0.9},
@@ -379,6 +394,61 @@ def check_paged(torch, ops, args):
     return float((out[live] - ref[live]).abs().max())
 
 
+def check_splits(torch, ops, args, counts):
+    """The kernel (fp32 or, with scales, int8 pools) cut into each split
+    count of ``counts`` (None: the plan's) against the plain split-and-
+    merge version at that count and the gathered-view plain version on
+    live rows; a row with pos < 0 comes out 0, and the bits repeat from
+    one call to the next.  Returns {count: max_abs_err} and the (row,
+    split) blocks of the plan's count that found no live page."""
+    import importlib
+
+    pa = importlib.import_module("bigdl_tpu_torch.ops.paged_attention")
+    int8 = len(args) == 7
+    plain = (ops.paged_attention_int8_reference if int8
+             else ops.paged_attention_reference)
+    q, kpool, _, ptab, pos = args[:5]
+    bsz, _, H, _ = q.shape
+    ps, P = kpool.shape[1], ptab.shape[1]
+    plan = pa.split_count(bsz, H, P)
+    if plan != pa._lib().bigdl_paged_attention_splits(bsz, H, P):
+        raise AssertionError(f"split plan mirror {plan} differs from the "
+                             f"kernel's at (B, H, P) = {(bsz, H, P)}")
+    live = pos >= 0
+    ref = plain(*args)
+    errs = {}
+    for n in counts:
+        out = pa._launch(*args, splits=n)
+        again = pa._launch(*args, splits=n)
+        split = pa.paged_attention_split_reference(*args[:5], n, *args[5:])
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out[live], ref[live], rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(out, split, rtol=RTOL, atol=ATOL)
+        if not torch.equal(out, again) or bool(out[~live].any()):
+            raise AssertionError(f"paged split {n}: bits differ between "
+                                 f"calls, or a dead row is not 0")
+        errs[n or plan] = float((out[live] - ref[live]).abs().max())
+    per = -(-P // plan)
+    pages = (pos.max(dim=1).values.clamp(min=-1) // ps + 1).tolist()
+    empty = sum(k * per >= n_live for n_live in pages for k in range(plan))
+    return errs, plan, empty
+
+
+def sdpa_view(torch, args):
+    """The yardstick's inputs: q and each row's gathered K and V views as
+    (B, H, S or keys, hd), and the mask of keys past pos."""
+    q, kpool, vpool, ptab, pos = args
+    bsz, _, H, hd = q.shape
+    n_view = ptab.shape[1] * kpool.shape[1]
+    idx = ptab.long()
+    kview = kpool[idx].reshape(bsz, n_view, H, hd).transpose(1, 2)
+    vview = vpool[idx].reshape(bsz, n_view, H, hd).transpose(1, 2)
+    mask = (torch.arange(n_view, device="cuda")[None, None, None, :]
+            <= pos[:, None, :, None])
+    return (q.transpose(1, 2).contiguous(), kview.contiguous(),
+            vview.contiguous(), mask)
+
+
 def live_key_rows(pos, n_view):
     """Key rows a call needs: per batch row, those up to its largest query
     position (none for a row whose positions are all < 0), summed."""
@@ -404,7 +474,12 @@ def paged_bound(args):
 
 
 def phase_kernels(torch, ops):
+    import importlib
+
     import torch.nn.functional as F
+
+    split_count = importlib.import_module(
+        "bigdl_tpu_torch.ops.paged_attention").split_count
 
     g = torch.Generator(device="cuda").manual_seed(0)
     # full-width decode step: B=8, S=1, H=4, hd=256, ps=16, P=64 pages of
@@ -426,23 +501,26 @@ def phase_kernels(torch, ops):
                           window_pos(3, 1, ps * P))
         errs.append(check_paged(torch, ops, args))
 
+    # the split walk at the plan's count (row 0 dead, the short rows'
+    # later splits empty), at one split, at three and at one page a split
+    split_errs, plan, empty = check_splits(torch, ops, full,
+                                           (None, 1, 3, N_POS // PAGE))
+    if not empty:
+        raise AssertionError("paged splits: no split without a live page")
+    errs += list(split_errs.values())
+    print(f"paged_attention splits (plan {plan}, {empty} (row, split) "
+          f"blocks with no live page, row 0 pos < 0): " + "; ".join(
+              f"{n} max_abs_err={e:.3e}" for n, e in split_errs.items()))
+
     flush = torch.empty(64 * 2**20, device="cuda")   # 256 MB > 50 MB L2
     q, kpool, vpool, ptab, pos = full
-    bsz, S, H, hd = q.shape
-    n_view = ptab.shape[1] * PAGE
-    kview = kpool[ptab.long()].reshape(bsz, n_view, H, hd).transpose(1, 2)
-    vview = vpool[ptab.long()].reshape(bsz, n_view, H, hd).transpose(1, 2)
-    kview, vview = kview.contiguous(), vview.contiguous()
-    mask = (torch.arange(n_view, device="cuda")[None, None, None, :]
-            <= pos[:, None, :, None])
-    qh = q.transpose(1, 2).contiguous()
+    view = sdpa_view(torch, full)
     times = {
         "ms": time_ms(torch, lambda: ops.paged_attention(*full), flush),
         "plain_ms": time_ms(
             torch, lambda: ops.paged_attention_reference(*full), flush),
-        "library_ms": time_ms(
-            torch, lambda: F.scaled_dot_product_attention(
-                qh, kview, vview, attn_mask=mask), flush),
+        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            *view[:3], attn_mask=view[3]), flush),
     }
     bound, bound_by, nbytes = paged_bound(full)
     # every position live: the worst case a full reservation reaches
@@ -451,19 +529,42 @@ def phase_kernels(torch, ops):
     errs.append(check_paged(torch, ops, all_live))
     live_ms = time_ms(torch, lambda: ops.paged_attention(*all_live), flush)
     live_bound, _, live_bytes = paged_bound(all_live)
+    # serving's own context: seeds of 16-256 tokens and 128 generated, so
+    # positions up to 383 (at most 24 live pages of the 64)
+    serve = paged_case(torch, g, SLOTS, 1, HEADS, D_MODEL // HEADS, PAGE,
+                       SERVE_PAGES, 512, SERVE_POS)
+    errs.append(check_paged(torch, ops, serve))
+    sview = sdpa_view(torch, serve)
+    serving = {
+        "serving_ms": time_ms(torch, lambda: ops.paged_attention(*serve),
+                              flush),
+        "serving_plain_ms": time_ms(
+            torch, lambda: ops.paged_attention_reference(*serve), flush),
+        "serving_library_ms": time_ms(torch, lambda: (
+            F.scaled_dot_product_attention(*sview[:3], attn_mask=sview[3])),
+            flush),
+        "serving_bound_ms": paged_bound(serve)[0]}
     print(f"paged_attention full-width (B=8 S=1 H=4 hd=256 ps=16 P=64, "
-          f"pos spread, row 0 masked): kernel_ms={times['ms']:.5f} "
-          f"plain_ms={times['plain_ms']:.5f} "
+          f"pos spread, row 0 masked, {plan} splits): kernel_ms="
+          f"{times['ms']:.5f} plain_ms={times['plain_ms']:.5f} "
           f"library_ms={times['library_ms']:.5f} bound_ms={bound:.5f} "
           f"({nbytes} bytes) max_abs_err={max(errs):.3e}")
     print(f"paged_attention all positions live (pos=1023): "
           f"kernel_ms={live_ms:.5f} bound_ms={live_bound:.5f} "
           f"({live_bytes} bytes)")
+    print(f"paged_attention serving context (pos "
+          f"{SERVE_POS[0][0]}..{SERVE_POS[-1][0]}, P={SERVE_PAGES}, "
+          f"{split_count(SLOTS, HEADS, SERVE_PAGES)} splits): kernel_ms="
+          f"{serving['serving_ms']:.5f} plain_ms="
+          f"{serving['serving_plain_ms']:.5f} library_ms="
+          f"{serving['serving_library_ms']:.5f} bound_ms="
+          f"{serving['serving_bound_ms']:.5f}")
     return {"name": "paged_attention", "route": "cuda",
             "source": "bigdl_tpu_torch/csrc/paged_attention.cu",
             "replaces": "bigdl_tpu/ops/pallas_kernels.py:1299",
             "max_abs_err": max(errs), "bound_ms": bound,
-            "bound_by": bound_by, "ok": True, **times,
+            "bound_by": bound_by, "ok": True, "splits": plan, **times,
+            **serving,
             # its pages fit in L2, so queued calls would read them warm;
             # its ms, L2 flushed, is already the device's time
             "queued_ms": None}
@@ -811,18 +912,26 @@ def lstm_library_times(torch, flush, g):
 
 def phase_bilstm_kernels(torch, ops):
     """The recurrence kernels against their plain versions at the JAX
-    tests' shapes, a ragged H, T = 1 and the classifier's full width,
-    with times at the full width of both directions and the cuDNN
-    yardstick."""
+    tests' shapes, a ragged H, T = 1, the classifier's full width and the
+    largest H, each case's forward and backward cluster plans printed and
+    every cluster size run, with times at the full width of both
+    directions and the cuDNN yardstick."""
     from bigdl_tpu_torch.ops import bilstm
 
     g = torch.Generator(device="cuda").manual_seed(4)
-    errs = {case: check_bilstm(torch, ops, g, case) for case in BILSTM_CASES}
+    cases = [c if c[3] is not None else c[:3] + (bilstm.MAX_HIDDEN,)
+             for c in BILSTM_CASES]
+    errs = {case: check_bilstm(torch, ops, g, case) for case in cases}
     print_errs("bilstm", errs)
+    covered("bilstm", {cluster_plan_line(
+        f"bilstm {(t, nd, b, h)} {cell}", "bilstm", cell,
+        bilstm.plan(nd, b, h, bwd), bilstm.kernel_plan(nd, b, h, bwd), nd, b)
+        for t, nd, b, h in cases
+        for cell, bwd in (("LstmFwd", False), ("LstmBwd", True))})
     flush = torch.empty(64 * 2**20, device="cuda")   # 256 MB > 50 MB L2
     full = (TSEQ, 2, TBATCH, THIDDEN)
     rows = bilstm_times(torch, ops, flush, g, full)
-    # the largest H the blocks hold is in BILSTM_CASES; one more is
+    # the largest H the clusters hold is checked above; one more is
     # refused before a launch, by name
     h = bilstm.MAX_HIDDEN + 1
     refused(torch, f"bilstm H={h}", lambda: ops.bilstm_forward(
@@ -1274,6 +1383,17 @@ def phase_int8_attention_kernels(torch, ops):
         args = paged_int8_case(torch, g, 3, 1, 2, hd, ps, P, 3 * P + 1,
                                window_pos(3, 1, ps * P))
         errs[f"hd={hd} ps={ps}"] = check_paged_int8(torch, ops, args)
+    # the split walk at the plan's count, at one split, at three and at
+    # one page a split, on the full-width case (row 0 dead, the short rows'
+    # later splits empty) and the S = 4 window
+    splits = {}
+    for label, args in (("full", full), ("window S=4", window)):
+        split_errs, plan, empty = check_splits(torch, ops, args,
+                                               (None, 1, 3, N_POS // PAGE))
+        splits[label] = (plan, empty)
+        errs |= {f"{label} splits={n}": e for n, e in split_errs.items()}
+    if not splits["full"][1]:
+        raise AssertionError("int8 splits: no split without a live page")
 
     flush = torch.empty(64 * 2**20, device="cuda")   # 256 MB > 50 MB L2
     q, k, v, ptab, pos, ks, vs = full
@@ -1310,8 +1430,20 @@ def phase_int8_attention_kernels(torch, ops):
     live_ms = time_ms(torch, lambda: ops.paged_attention_int8(*all_live),
                       flush)
     live_bound = paged_int8_bound(all_live)
+    serve = paged_int8_case(torch, g, SLOTS, 1, HEADS, hd, PAGE,
+                            SERVE_PAGES, 512, SERVE_POS)
+    errs["serving context"] = check_paged_int8(torch, ops, serve)
+    row |= {"splits": splits["full"][0],
+            "serving_ms": time_ms(
+                torch, lambda: ops.paged_attention_int8(*serve), flush),
+            "serving_plain_ms": time_ms(torch, lambda: (
+                ops.paged_attention_int8_reference(*serve)), flush),
+            "serving_bound_ms": paged_int8_bound(serve)["bound_ms"]}
     print("paged_attention_int8: " + "; ".join(
         f"{k_} max_abs_err={e:.3e}" for k_, e in errs.items()))
+    print("paged_attention_int8 splits: " + "; ".join(
+        f"{k_} plan {n}, {e} (row, split) blocks with no live page"
+        for k_, (n, e) in splits.items()))
     print(f"paged_attention_int8 full-width (B=8 S=1 H=4 hd=256 ps=16 P=64, "
           f"pos spread, row 0 masked): kernel_ms={row['ms']:.5f} queued_ms="
           f"{row['queued_ms']:.5f} (pages warm in L2) plain_ms="
@@ -1324,6 +1456,10 @@ def phase_int8_attention_kernels(torch, ops):
     print(f"paged_attention_int8 all positions live (pos=1023): kernel_ms="
           f"{live_ms:.5f} bound_ms={live_bound['bound_ms']:.5f} "
           f"({live_bound['bytes']} bytes)")
+    print(f"paged_attention_int8 serving context (pos "
+          f"{SERVE_POS[0][0]}..{SERVE_POS[-1][0]}): kernel_ms="
+          f"{row['serving_ms']:.5f} plain_ms={row['serving_plain_ms']:.5f} "
+          f"bound_ms={row['serving_bound_ms']:.5f}")
     return {"name": "paged_attention_int8", "route": "cuda",
             "source": "bigdl_tpu_torch/csrc/paged_attention.cu",
             "replaces": "bigdl_tpu/ops/pallas_kernels.py:1299",
@@ -1369,10 +1505,11 @@ def lstm_scan_layer_times(torch, flush, g):
 def phase_lstm_scan_kernels(torch, ops):
     """``lstm_scan`` against its plain version from non-zero h0 and c0 at
     SCAN_CASES (float64 rule where a long sum needs it), each case's
-    cluster plan printed and every cluster size run; H past the limit
-    refused; times at the full width beside ``bilstm_forward``'s primal
-    forward at D = 1 on the same inputs (from zero state) and cuDNN's
-    no-grad layer beside the port's."""
+    cluster plan printed and every cluster size run; from zero state the
+    same bits as ``bilstm_forward`` at D = 1, with and without the c stack
+    (one kernel); H past the limit refused; times at the full width beside
+    ``bilstm_forward``'s primal forward at D = 1 on the same inputs (from
+    zero state) and cuDNN's no-grad layer beside the port's."""
     import importlib
 
     scan = importlib.import_module("bigdl_tpu_torch.ops.lstm_scan")
@@ -1390,8 +1527,20 @@ def phase_lstm_scan_kernels(torch, ops):
         del args, hs
     print_errs("lstm_scan", errs)
     covered("lstm_scan", {cluster_plan_line(
-        f"lstm_scan {case}", "lstm_scan", "LstmFwd", scan.plan(*case[1:]),
+        f"lstm_scan {case}", "bilstm", "LstmFwd", scan.plan(*case[1:]),
         scan.kernel_plan(*case[1:]), 1, case[1]) for case in errs})
+    for case in list(errs)[:-1]:
+        zx, wht, h0, _ = lstm_scan_inputs(torch, g, *case)
+        zero = torch.zeros_like(h0)
+        got = ops.lstm_scan(zx, wht, zero, zero)
+        hs, _ = ops.bilstm_forward(zx[:, None], wht[None])
+        h_only = ops.bilstm_forward(zx[:, None], wht[None], with_c=False)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, hs[:, 0]) and torch.equal(got, h_only[:, 0])):
+            raise AssertionError(f"lstm_scan {case} from zero state is not "
+                                 f"bilstm_forward's bits at D = 1")
+    print(f"lstm_scan from zero state: bilstm_forward's bits at D = 1, both "
+          f"modes, at {len(errs) - 1} shapes")
     h = scan.MAX_HIDDEN + 1
     refused(torch, f"lstm_scan H={h}", lambda: ops.lstm_scan(
         torch.zeros(2, 3, 4 * h, device="cuda"),
@@ -1415,7 +1564,7 @@ def phase_lstm_scan_kernels(torch, ops):
           f"torch.nn.LSTM (cuDNN) {row['layer_library_ms']:.5f} ms, outputs "
           f"{row['same_layer_diff']:.3e} apart")
     return {"name": "lstm_scan", "route": "cuda",
-            "source": "bigdl_tpu_torch/csrc/lstm_scan.cu",
+            "source": "bigdl_tpu_torch/csrc/bilstm.cu",
             "replaces": "bigdl_tpu/ops/pallas_kernels.py:117",
             "max_abs_err": max(r["h"]["err"] for r in errs.values()),
             "ok": True, **row}
@@ -2674,10 +2823,13 @@ def main(argv) -> int:
     # function); the GRU weight gradient's two einsums; lstm_scan's row
     # bilstm_forward's primal forward at D = 1 on its inputs; the int8
     # attention row the two-call reference (dequantize, then SDPA); the
-    # rnn forward and backward rows also their time at SimpleRNN's chunk
+    # rnn forward and backward rows also their time at SimpleRNN's chunk;
+    # the attention rows their split count and their time at serving's
+    # own context
     extra = ("layer_library_ms", "layer_port_ms", "same_size_library_ms",
              "two_einsum_ms", "dequant_sdpa_ms", "bilstm_forward_ms",
-             "simplernn_ms", "simplernn_bound_ms")
+             "simplernn_ms", "simplernn_bound_ms", "splits", "serving_ms",
+             "serving_plain_ms", "serving_library_ms", "serving_bound_ms")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
         for r in kernel_rows]}))

@@ -1,4 +1,5 @@
-"""A/B of the port's recurrence kernels between two trees, on one card.
+"""A/B of the port's recurrence and paged-attention kernels between two
+trees, on one card.
 
     python3 recurrence_ab.py PARENT_TREE CHANGE_TREE
 
@@ -6,19 +7,34 @@ Each tree is a checkout of the repository (unpack the other one with
 ``git archive`` into a directory that ``.gitignore`` lists).  The trees
 run in turns, parent, change, change, parent, each turn a fresh process
 that imports that tree's ``bigdl_tpu_torch`` and builds its kernels.  A
-turn times every recurrence wrapper the tree has (``bilstm_*``, and
-``rnn_*``, ``gru_*`` and ``lstm_scan`` where present) at (T, D, B, H) =
-(500, 2, 128, 128), ``lstm_scan`` at (T, B, H) = (500, 128, 128) and
-``rnn_forward`` / ``rnn_backward`` at SimpleRNN's (4, 1, 4, 40) and (8,
-1, 4, 40): CUDA events, L2 flushed before each call, median of 25.  It
-lists the four longest kernels of three bilstm forward and backward
-calls under the profiler, and digests (sha256) the four bilstm outputs
-and the gru outputs of fixed inputs at three shapes, so the trees are
-compared bit for bit.  The rnn and ``lstm_scan`` outputs of fixed inputs
-are kept (``.recurrence_ab/`` in the working directory) and their largest
-differences between the trees printed.  Prints the card's name and power
-limit first; exits 1 if a turn fails or the bilstm or gru outputs of the
-two trees differ.
+turn times every recurrence wrapper (``bilstm_*``, ``rnn_*``, ``gru_*``,
+``lstm_scan``) at (T, D, B, H) = (500, 2, 128, 128), ``bilstm_forward``
+and ``bilstm_backward`` also at D = 1, ``lstm_scan`` at (T, B, H) =
+(500, 128, 128), ``rnn_forward`` / ``rnn_backward`` at SimpleRNN's (4,
+1, 4, 40) and (8, 1, 4, 40), and ``paged_attention`` over fp32 and int8
+pools at the decode step's full width (B 8, S 1, H 4, hd 256, ps 16, P
+64, positions spread to 1023, row 0 dead), at serving's own context
+(positions up to 383) and in an S = 4 window: CUDA events, L2 flushed
+before each call, median of 25.  Then it serves ``chip_smoke.py``'s 16
+requests on its full-width ``TransformerLM`` (seed 0) through
+``ContinuousDecoder`` with fp32 and with int8 KV pages: wall ms a step,
+and under the profiler (four step boundaries) device ms a step and the
+attention kernels' device us a step; and it serves eight long requests
+(860-874-token seeds, 128 words) with each pool, the attention's device
+us a step profiled in seven windows of 32 steps whose rows reach 8, 16,
+..., 56 pages (the pages L2-warm, as the loop leaves them): the tree's
+plan, and, where the tree splits the walk, one walk a row and the split
+rule at every table width.  It lists the four longest kernels
+of three bilstm forward and backward calls under the profiler and digests
+(sha256) the gru outputs of fixed inputs at three shapes, so the trees'
+GRU is compared bit for bit.  The bilstm, rnn, ``lstm_scan`` and
+attention outputs of fixed inputs are kept (``.recurrence_ab/`` in the
+working directory); their largest differences between the trees are
+printed, and whether each tree's bits repeat across its two turns.
+Prints the card's name and power limit first; exits 1 if a turn fails,
+the gru outputs of the two trees differ, an rnn or ``lstm_scan`` output
+moves more than RNN_LIMIT from the parent's, or a tree's outputs do not
+repeat.
 """
 from __future__ import annotations
 
@@ -33,6 +49,19 @@ FULL = (500, 2, 128, 128)
 BIT_CASES = [FULL, (13, 2, 37, 100), (3, 2, 9, 558)]
 SIMPLE = [(4, 1, 4, 40), (8, 1, 4, 40)]   # SimpleRNN's chunk and sequence
 KEEP = ".recurrence_ab"
+# the largest difference of an rnn or lstm_scan output from the parent's
+# that the comparison takes (the cluster recurrence's sum order against
+# the one-block recurrence's)
+RNN_LIMIT = 1.2e-06
+# the first steps of the long-context windows: their rows reach 8, 16, ...,
+# 56 pages
+LONG_WINDOWS = (96, 224, 352, 480, 608, 736, 864)
+# attention: (B, S) positions of the decode step's full width, serving's
+# own context (seeds of 16-256 tokens, 128 generated) and an S = 4 window
+PAGED = {"full": [[-1]] + [[int(round(1023 * i / 6))] for i in range(7)],
+         "serving": [[int(round(15 + (383 - 15) * i / 7))] for i in range(8)],
+         "window": [[int(round(3 + 1020 * i / 7)) - 3 + k for k in range(4)]
+                    for i in range(8)]}
 
 
 def _digest(v):
@@ -54,14 +83,133 @@ def _ms(torch, fn, flush, reps=25, warm=3):
     return statistics.median(times)
 
 
+def paged_inputs(torch, g, quantize_rows, name):
+    """Fixed attention inputs at PAGED[name]: the fp32 call's arguments
+    and the int8 call's (the pools written by ``quantize_rows``); 64-page
+    tables, serving's as wide as its longest request (24 pages)."""
+    pos = torch.tensor(PAGED[name], dtype=torch.int32, device="cuda")
+    bsz, S = pos.shape
+    P = 24 if name == "serving" else 64
+    q = torch.randn(bsz, S, 4, 256, generator=g, device="cuda")
+    kp = torch.randn(512, 16, 4, 256, generator=g, device="cuda")
+    vp = torch.randn(512, 16, 4, 256, generator=g, device="cuda")
+    perm = torch.randperm(512, generator=g, device="cuda")
+    ptab = perm[:bsz * P].reshape(bsz, P).to(torch.int32)
+    (k8, ks), (v8, vs) = quantize_rows(kp), quantize_rows(vp)
+    return (q, kp, vp, ptab, pos), (q, k8, v8, ptab, pos, ks, vs)
+
+
+def _model():
+    """chip_smoke.py's full-width TransformerLM (seed 0)."""
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.utils.random import generator
+
+    return TransformerLM(4000, 1024, 4, 6, 4096, dropout=0.0, device="cuda",
+                         generator=generator(0)).evaluate()
+
+
+def _attention_us_step(torch, prof, steps):
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return rows, sum(e.device_time_total for e in rows
+                     if "paged_attention" in e.key
+                     or "merge_kernel" in e.key) / steps
+
+
+def long_context(torch, model, kv_quant, split_from=None):
+    """The decode loop's attention us a step at long contexts, L2 warm as
+    the loop leaves it: eight requests of 860-874-token seeds and 128
+    generated words on ``model`` with ``kv_quant`` pools, profiled over
+    the four step boundaries of each LONG_WINDOWS window, keyed by the
+    pages its rows reach.  ``split_from`` (a tree that splits the walk)
+    sets the table width from which the walk is split for this run only:
+    past every table, one walk a row; 1, the split rule at every width."""
+    import importlib
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch.serve.decode import ContinuousDecoder
+
+    pa = importlib.import_module("bigdl_tpu_torch.ops.paged_attention")
+    default = getattr(pa, "SPLIT_FROM_PAGES", None)
+    if split_from is not None:
+        pa.SPLIT_FROM_PAGES = split_from
+    rs = np.random.RandomState(1)
+    out = {}
+    try:
+        dec = ContinuousDecoder(model, max_slots=8, n_pos=1024, page_size=16,
+                                kv_quant=kv_quant, device="cuda")
+        for i in range(8):
+            dec.submit(rs.randint(0, 4000, size=860 + 2 * i).tolist(), 128)
+        for start in LONG_WINDOWS:
+            while dec.steps < start:
+                dec.step_boundary()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(4):
+                    dec.step_boundary()
+                torch.cuda.synchronize()
+            steps = 4 * dec.sync_interval
+            pages = (start + steps) // 16
+            out[f"{pages}p"] = _attention_us_step(torch, prof, steps)[1]
+        dec.run()
+    finally:
+        if split_from is not None:
+            pa.SPLIT_FROM_PAGES = default
+    return out
+
+
+def serving(torch, model, kv_quant):
+    """chip_smoke.py's serving traffic on ``model``: {wall ms a step,
+    device ms a step, attention us a step} with ``kv_quant`` pools."""
+    import time
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch.serve.decode import ContinuousDecoder
+
+    rs = np.random.RandomState(0)
+    seeds = [rs.randint(0, 4000, size=int(rs.randint(16, 257))).tolist()
+             for _ in range(16)]
+    out = {}
+    for run in ("warm", "timed"):
+        dec = ContinuousDecoder(model, max_slots=8, n_pos=1024, page_size=16,
+                                kv_quant=kv_quant, device="cuda")
+        for seed in seeds:
+            dec.submit(seed, 128)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dec.run()
+        torch.cuda.synchronize()
+        out["wall_ms_step"] = (time.perf_counter() - t0) / dec.steps * 1e3
+    dec = ContinuousDecoder(model, max_slots=8, n_pos=1024, page_size=16,
+                            kv_quant=kv_quant, device="cuda")
+    for seed in seeds[:8]:
+        dec.submit(seed, 128)
+    dec.step_boundary()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            dec.step_boundary()
+        torch.cuda.synchronize()
+    steps = 4 * dec.sync_interval
+    rows, out["attention_us_step"] = _attention_us_step(torch, prof, steps)
+    out["device_ms_step"] = sum(e.device_time_total for e in rows) / steps / 1e3
+    dec.run()
+    return out
+
+
 def turn(tree, keep):
-    """One tree's times, top kernels and bilstm and gru digests, as a
-    dict; its rnn and lstm_scan outputs saved to ``keep``."""
+    """One tree's times, top kernels and gru digests, as a dict; its
+    bilstm, rnn, lstm_scan and attention outputs saved to ``keep``."""
     sys.path.insert(0, tree)
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.quant.kv import quantize_rows
     from bigdl_tpu_torch.utils.device import pin_fp32
 
     pin_fp32(torch.device("cuda"))
@@ -69,13 +217,14 @@ def turn(tree, keep):
     r = lambda *s: torch.randn(*s, generator=g, device="cuda")
     u = lambda h, *s: (torch.rand(*s, generator=g, device="cuda") * 2
                        - 1) / h ** 0.5
-    digests = {}
+    kept = {}
     for t, nd, b, h in BIT_CASES:
         zx, wht, go = r(t, nd, b, 4 * h), u(h, nd, h, 4 * h), r(t, nd, b, h)
         hs, cs = ops.bilstm_forward(zx, wht)
         dzx = ops.bilstm_backward(zx, wht, hs, cs, go)
-        digests[str((t, nd, b, h))] = [
-            _digest(v) for v in (hs, cs, dzx, ops.bilstm_dwh(hs, dzx))]
+        for label, v in (("hs", hs), ("cs", cs), ("dzx", dzx),
+                         ("dwh", ops.bilstm_dwh(hs, dzx))):
+            kept[f"bilstm {label} {(t, nd, b, h)}"] = v.cpu()
     gru_digests = {}
     for t, nd, b, h in BIT_CASES:
         zrz, zn = r(t, nd, b, 2 * h), r(t, nd, b, h)
@@ -85,7 +234,6 @@ def turn(tree, keep):
         gru_digests[str((t, nd, b, h))] = [
             _digest(v) for v in (hg, dzrz, dzn, rh,
                                  *ops.gru_dwh(hg, rh, dzrz, dzn))]
-    kept = {}
     for t, nd, b, h in [FULL] + SIMPLE:
         zr, wr, go = r(t, nd, b, h), u(h, nd, h, h), r(t, nd, b, h)
         hr = ops.rnn_forward(zr, wr)
@@ -95,6 +243,12 @@ def turn(tree, keep):
     scan_args = (r(500, 128, 512), u(128, 128, 512),
                  r(128, 128).tanh(), r(128, 128))
     kept["lstm_scan (500, 128, 128)"] = ops.lstm_scan(*scan_args).cpu()
+    paged = {name: paged_inputs(torch, g, quantize_rows, name)
+             for name in PAGED}
+    for name, (fp, i8) in paged.items():
+        kept[f"paged_attention {name}"] = ops.paged_attention(*fp).cpu()
+        kept[f"paged_attention_int8 {name}"] = (
+            ops.paged_attention_int8(*i8).cpu())
     torch.save(kept, keep)
     flush = torch.empty(64 * 2 ** 20, device="cuda")
     t, nd, b, h = FULL
@@ -105,6 +259,17 @@ def turn(tree, keep):
              "bilstm_backward": lambda: ops.bilstm_backward(zx, wht, hs, cs,
                                                             go),
              "bilstm_dwh": lambda: ops.bilstm_dwh(hs, dzx)}
+    z1, w1, g1 = zx[:, :1].contiguous(), wht[:1].contiguous(), go[:, :1]
+    g1 = g1.contiguous()
+    h1, c1 = ops.bilstm_forward(z1, w1)
+    calls |= {"bilstm_forward D=1": lambda: ops.bilstm_forward(z1, w1),
+              "bilstm_backward D=1": lambda: ops.bilstm_backward(
+                  z1, w1, h1, c1, g1)}
+    for name, (fp, i8) in paged.items():
+        calls |= {f"paged_attention {name}": (
+                      lambda fp=fp: ops.paged_attention(*fp)),
+                  f"paged_attention_int8 {name}": (
+                      lambda i8=i8: ops.paged_attention_int8(*i8))}
     zr, wr = r(t, nd, b, h), u(h, nd, h, h)
     hr = ops.rnn_forward(zr, wr)
     dr = ops.rnn_backward(wr, hr, go)
@@ -139,7 +304,23 @@ def turn(tree, keep):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     top = [(e.key[:80], e.device_time_total / 3)
            for e in sorted(events, key=lambda e: -e.device_time_total)[:4]]
-    return {"ms": times, "top_us_per_call": top, "digests": digests,
+    import importlib
+
+    pa = importlib.import_module("bigdl_tpu_torch.ops.paged_attention")
+    # a tree that splits the walk also runs the long contexts with one
+    # walk a row and with the split rule at every width
+    modes = {"plan": None}
+    if hasattr(pa, "SPLIT_FROM_PAGES"):
+        modes |= {"one-walk": 10 ** 9, "split-all": 1}
+    model = _model()
+    for kv_quant in ("off", "int8"):
+        for k, v in serving(torch, model, kv_quant).items():
+            times[f"serving {kv_quant} {k}"] = v
+        for mode, split_from in modes.items():
+            for k, v in long_context(torch, model, kv_quant,
+                                     split_from).items():
+                times[f"long {kv_quant} {mode} attention_us_step {k}"] = v
+    return {"ms": times, "top_us_per_call": top,
             "gru_digests": gru_digests}
 
 
@@ -170,25 +351,32 @@ def main(argv) -> int:
         print(tag, " ".join(f"{k} {v:.5f}" for k, v in res["ms"].items()))
         for key, us in res["top_us_per_call"]:
             print(f"{tag}   {us:10.1f} us/call {key}")
-    equal = {}
-    for label, key in (("bilstm", "digests"), ("gru", "gru_digests")):
-        first = runs[0][1][key]
-        equal[label] = all(res[key] == first for _, res in runs)
-        for case in first:
-            print(f"{label} bits {case}: " + " ".join(
-                f"{tag} {[a == b for a, b in zip(res[key][case], first[case])]}"
-                for tag, res in runs[1:]))
+    first = runs[0][1]["gru_digests"]
+    gru_equal = all(res["gru_digests"] == first for _, res in runs)
+    for case in first:
+        print(f"gru bits {case}: " + " ".join(
+            f"{tag} {[a == b for a, b in zip(res['gru_digests'][case], first[case])]}"
+            for tag, res in runs[1:]))
     import torch
 
     parent, change = torch.load(keep[0]), torch.load(keep[1])
-    again = torch.load(keep[2])
+    again, parent2 = torch.load(keep[2]), torch.load(keep[3])
+    worst, repeat = {}, True
     for name in parent:
-        print(f"{name}: change vs parent max |diff| "
-              f"{float((change[name] - parent[name]).abs().max()):.3e}; "
-              f"change bits repeat {torch.equal(change[name], again[name])}")
-    print(json.dumps({"bilstm_bits_equal": equal["bilstm"],
-                      "gru_bits_equal": equal["gru"]}))
-    return 0 if all(equal.values()) else 1
+        diff = float((change[name] - parent[name]).abs().max())
+        same = (torch.equal(change[name], again[name])
+                and torch.equal(parent[name], parent2[name]))
+        repeat &= same
+        worst[name.split()[0]] = max(worst.get(name.split()[0], 0.0), diff)
+        print(f"{name}: change vs parent max |diff| {diff:.3e}; each "
+              f"tree's bits repeat {same}")
+    rnn_within = all(worst[k] <= RNN_LIMIT for k in worst
+                     if k.startswith(("rnn", "lstm_scan")))
+    print(json.dumps({"gru_bits_equal": gru_equal,
+                      "max_diff_from_parent": worst,
+                      "rnn_lstm_scan_within": rnn_within,
+                      "bits_repeat": repeat}))
+    return 0 if gru_equal and rnn_within and repeat else 1
 
 
 if __name__ == "__main__":

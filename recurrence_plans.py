@@ -1,11 +1,13 @@
-"""Every cluster plan of the rnn and lstm_scan kernels, timed, on one card.
+"""Every cluster plan of the rnn and LSTM kernels, timed, on one card.
 
     python3 recurrence_plans.py
 
 For each shape the kernels run on a main path -- ``rnn_forward`` and
 ``rnn_backward`` at (T, D, B, H) = (500, 2, 128, 128), (500, 1, 128, 128)
-and SimpleRNN's (4, 1, 4, 40), ``lstm_scan`` at (T, B, H) = (500, 128,
-128) -- it launches the kernel at every (C, R) of
+and SimpleRNN's (4, 1, 4, 40), ``bilstm_forward`` (with the c stack) and
+``bilstm_backward`` at (500, 2, 128, 128) and (500, 1, 128, 128) (the
+forward at D = 1 is also ``lstm_scan``'s kernel and plan at (T, B, H) =
+(500, 128, 128)) -- it launches the kernel at every (C, R) of
 ``csrc/recurrence_cluster.cuh``'s choices that fits (the C entries take
 an explicit plan; the wrappers pass none and get the plan of the shape),
 holds each output to the plain version (rtol 1e-5 / atol 1e-6 forward,
@@ -17,14 +19,13 @@ output leaves the tolerance.
 """
 from __future__ import annotations
 
-import importlib
 import json
 import statistics
 import subprocess
 import sys
 
 RNN_SHAPES = [(500, 2, 128, 128), (500, 1, 128, 128), (4, 1, 4, 40)]
-SCAN_SHAPE = (500, 128, 128)
+LSTM_SHAPES = [(500, 2, 128, 128), (500, 1, 128, 128)]
 
 
 def _ms(torch, fn, flush, reps=10, warm=2):
@@ -48,10 +49,9 @@ def main() -> int:
     from bigdl_tpu_torch import ops
     from bigdl_tpu_torch.ops import _build
     from bigdl_tpu_torch.ops import _recurrence as rec
-    from bigdl_tpu_torch.ops import rnn
+    from bigdl_tpu_torch.ops import bilstm, rnn
     from bigdl_tpu_torch.utils.device import pin_fp32
 
-    scan = importlib.import_module("bigdl_tpu_torch.ops.lstm_scan")
     if not torch.cuda.is_available():
         print("recurrence_plans: no CUDA device", file=sys.stderr)
         return 1
@@ -66,7 +66,7 @@ def main() -> int:
     flush = torch.empty(64 * 2 ** 20, device="cuda")
     dev = _build.device_stream(torch.device("cuda"))
     rnn_lib = rec.load("rnn", rnn._setup)
-    scan_lib = rec.load("lstm_scan", scan._setup)
+    lstm_lib = rec.load("bilstm", bilstm._setup)
     fwd = dict(rtol=1e-5, atol=1e-6)
     bwd = dict(rtol=1e-4, atol=1e-5)
 
@@ -89,17 +89,32 @@ def main() -> int:
         return (name, rnn.plan(nd, b, h, backward), launch, out, want,
                 bwd if backward else fwd)
 
-    def scan_case(t, b, h):
-        args = (r(t, b, 4 * h), u(h, h, 4 * h), r(b, h).tanh(), r(b, h))
-        out = torch.empty(t, b, h, device="cuda")
-        launch = lambda c, rows: scan_lib.bigdl_lstm_scan_f32(
-            *(a.data_ptr() for a in args), out.data_ptr(), t, b, h, c, rows,
-            *dev)
-        return (f"lstm_scan {(t, b, h)}", scan.plan(b, h), launch, out,
-                scan.lstm_scan_reference(*args), fwd)
+    def lstm_case(t, nd, b, h, backward):
+        """The bilstm forward (with the c stack) or backward at (C, R);
+        the backward's call includes its gates pre-pass."""
+        zx, wht, gout = r(t, nd, b, 4 * h), u(h, nd, h, 4 * h), r(t, nd, b, h)
+        hs, cs = ops.bilstm_forward_reference(zx, wht)
+        if backward:
+            out = torch.empty_like(zx)
+            want = ops.bilstm_backward_reference(zx, wht, hs, cs, gout)
+            launch = lambda c, rows: lstm_lib.bigdl_lstm_bwd_f32(
+                zx.data_ptr(), wht.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+                gout.data_ptr(), out.data_ptr(), t, nd, b, h, c, rows, *dev)
+        else:
+            out, c_out = torch.empty_like(hs), torch.empty_like(cs)
+            want = hs
+            launch = lambda c, rows: lstm_lib.bigdl_lstm_fwd_f32(
+                zx.data_ptr(), wht.data_ptr(), None, None, out.data_ptr(),
+                c_out.data_ptr(), t, nd, b, h, c, rows, *dev)
+        name = (f"bilstm_{'backward' if backward else 'forward'} "
+                f"{(t, nd, b, h)}")
+        return (name, bilstm.plan(nd, b, h, backward), launch, out, want,
+                bwd if backward else fwd)
 
     cases = [rnn_case(*shape, backward) for shape in RNN_SHAPES
-             for backward in (False, True)] + [scan_case(*SCAN_SHAPE)]
+             for backward in (False, True)] + [
+        lstm_case(*shape, backward) for shape in LSTM_SHAPES
+        for backward in (False, True)]
     report, ok = {}, True
     for name, chosen, launch, out, want, tol in cases:
         times = []

@@ -12,7 +12,6 @@ in other orders).
 On the CPU the wrappers take their plain versions; the CUDA kernels are
 held against those on the card by ``chip_smoke.py``.
 """
-import re
 from pathlib import Path
 
 import jax
@@ -151,27 +150,82 @@ def test_no_kernel_for_other_devices():
 
 
 def test_hidden_limit_mirrors_the_kernel_source():
-    """The wrapper's block sizes are csrc/bilstm.cu's, on the row rule of
-    csrc/recurrence_block.cuh: 8 rows a block up to H = 558 (the grid and
-    bits of the 8-row kernels), then 4, 2 and 1; every H up to the limit
-    fits one row, and the limit is the 1-row one."""
+    """The wrapper's cells are csrc/bilstm.cu's, on the cluster plan of
+    csrc/recurrence_cluster.cuh: the forward (LstmFwd, also lstm_scan's)
+    and the backward (LstmBwd, dz four values a unit, wht's rows read in
+    place); the limit is the largest H whose forward and backward
+    16-block clusters of one batch row fit a block's shared memory, at
+    least the former row rule's 4,470, and every H up to it has both plans."""
     csrc = Path(bilstm.__file__).parents[1] / "csrc"
     src = (csrc / "bilstm.cu").read_text()
-    block = (csrc / "recurrence_block.cuh").read_text()
-    assert re.search(r"constexpr int kRowChoices\[\] = \{8, 4, 2, 1\};",
-                     block)
-    assert f"constexpr int kThreads = {rec.THREADS};" in block
-    assert f"constexpr int kMaxSmem = {rec.MAX_SMEM};" in block
-    assert "R * 10 * H + (G > 1 ? G * R * 4 * H : 0)" in src
-    assert "R * 13 * H + (G > 1 ? G * R * H : 0)" in src
-    assert "return rows_for([H](int r) {" in src
-    assert bilstm.MAX_HIDDEN == 4470
-    assert [bilstm.rows_for(h) for h in (5, 128, 558, 559, 600, 1117, 1200,
-                                         2235, 2236, 4470, 4471)] == [
-        8, 8, 8, 4, 4, 4, 2, 2, 1, 1, 0]
-    assert all(max(bilstm.smem_bytes(h, 1)) <= rec.MAX_SMEM
-               for h in range(1, bilstm.MAX_HIDDEN + 1))
-    assert max(bilstm.smem_bytes(bilstm.MAX_HIDDEN + 1, 1)) > rec.MAX_SMEM
+    assert '#include "recurrence_cluster.cuh"' in src
+    assert '#include "recurrence_block.cuh"' not in src
+    for cell, (g, e, has_c), v in (("LstmFwd", bilstm.FWD_CELL, 1),
+                                   ("LstmBwd", bilstm.BWD_CELL,
+                                    bilstm.BWD_VALUES)):
+        body = src[src.index(f"struct {cell} {{"):].split("};")[0]
+        assert f"static constexpr int G = {g}, V = {v}, E = {e};" in body
+        assert f"kHasC = {str(has_c).lower()}" in body
+    # where each unit's E inputs come from: the forward's four gates of
+    # zx; the backward's four activated gates, c_t, c_{t-1} and gout
+    assert "input(int q) { return {0, q, 4, 0}; }" in src
+    assert ("return q < 4 ? In{0, q, 4, 0}\n"
+            "                 : (q == 6 ? In{2, 0, 1, 0} : "
+            "In{1, 0, 1, q == 5 ? -1 : 0});") in src
+    assert "lstm_fwd_kernel" not in src and "lstm_bwd_kernel" not in src
+    assert "launch_transpose" not in src   # no wht^T scratch
+    assert "launch_planned<LstmFwd>" in src
+    assert "launch_planned<LstmBwd>" in src
+    assert not (csrc / "lstm_scan.cu").exists()   # one forward template
+    assert bilstm.MAX_HIDDEN == 6197 >= 4470
+    fwd, bwd = bilstm.smem_bytes(bilstm.MAX_HIDDEN)
+    assert fwd < bwd <= rec.MAX_SMEM   # the backward's dz state sets it
+    assert max(bilstm.smem_bytes(bilstm.MAX_HIDDEN + 1)) > rec.MAX_SMEM
+    for h in (1, 2, 5, 15, 16, 17, 128, 558, 1200, 4470, bilstm.MAX_HIDDEN):
+        for bwd_ in (False, True):
+            assert bilstm.plan(2, 3, h, bwd_)["C"] > 0
+    assert bilstm.plan(1, 3, bilstm.MAX_HIDDEN, True)["C"] == 16
+
+
+# (D, B, H) -> (C, R, RT, KP, S, staged, depth, bytes) of the forward and
+# the backward: the Bi-LSTM and LSTM classifiers' widths (wht[d]'s 256 KB
+# split over 2 blocks), a ragged H in one block, ragged H whose clusters
+# take 4, 8 and 16 blocks with B = 37, H = 1,200 (16 blocks, wht through
+# L2) and the largest H
+PLANS = {
+    (2, 128, 128): ((2, 4, 4, 4, 64, 1, 8, 171008),
+                    (2, 4, 4, 4, 64, 1, 8, 207872)),
+    (1, 128, 128): ((2, 2, 2, 4, 64, 1, 8, 152064),
+                    (2, 2, 2, 4, 64, 1, 8, 170496)),
+    (2, 37, 100): ((1, 1, 1, 2, 100, 1, 8, 175600),
+                   (1, 1, 1, 2, 100, 1, 8, 187600)),
+    (2, 37, 203): ((4, 4, 4, 4, 51, 1, 8, 202320),
+                   (4, 4, 4, 4, 51, 1, 6, 229968)),
+    (2, 37, 250): ((8, 8, 4, 4, 32, 1, 8, 181792),
+                   (8, 8, 4, 4, 32, 1, 4, 225696)),
+    (2, 37, 330): ((16, 16, 4, 2, 21, 1, 8, 202752),
+                   (16, 16, 4, 2, 21, 0, 6, 226752)),
+    (2, 9, 1200): ((16, 4, 4, 2, 75, 0, 8, 78000),
+                   (16, 4, 4, 2, 75, 0, 8, 222000)),
+    (1, 3, 6197): ((16, 1, 1, 1, 388, 0, 8, 100816),
+                   (16, 1, 1, 1, 388, 0, 3, 232448)),
+}
+
+
+@pytest.mark.parametrize("shape", list(PLANS))
+def test_plan_is_pinned(shape):
+    """The forward's and backward's plans at each shape: a function of the
+    shape alone, within a block's shared memory, its units split into C
+    slices that cover H, its clusters side by side on the SMs; the
+    primal and with-c forwards and lstm_scan share the forward's."""
+    nd, b, h = shape
+    for want, bwd in zip(PLANS[shape], (False, True)):
+        got = bilstm.plan(nd, b, h, bwd)
+        assert tuple(got[f] for f in rec.PLAN_FIELDS) == want
+        c, rows = got["C"], got["R"]
+        assert got["bytes"] <= rec.MAX_SMEM and got["depth"] >= rec.MIN_DEPTH
+        assert sum((k + 1) * h // c - k * h // c for k in range(c)) == h
+        assert nd * -(-b // rows) * c <= rec.SMS or rows == 16
 
 
 @pytest.mark.parametrize("which", ["forward", "backward"])
@@ -194,10 +248,13 @@ def test_hidden_above_the_limit_raises_before_a_launch(which):
 
 
 def test_plain_versions_at_four_rows_a_block():
-    """H = 600, past the 8-row limit (4 rows a block on the card): the
-    plain versions against the JAX kernel pair interpreted."""
-    assert bilstm.rows_for(600) == 4
-    zx, wht, go = _inputs(2, 1, 3, 600, seed=9)
+    """H = 600 at D = 2, B = 9: a plan unlike the classifier's (clusters
+    of 16 blocks of 4 batch rows, wht through L2, both ways): the plain
+    versions against the JAX kernel pair interpreted."""
+    for bwd in (False, True):
+        plan = bilstm.plan(2, 9, 600, bwd)
+        assert (plan["C"], plan["R"], plan["staged"]) == (16, 4, 0)
+    zx, wht, go = _inputs(2, 2, 9, 600, seed=9)
     hs_j, dzx_j, dw_j = _jax(zx, wht, go)
     z, w, g = map(torch.from_numpy, (zx, wht, go))
     hs, cs = ops.bilstm_forward(z, w)

@@ -263,3 +263,49 @@ def test_kv_quant_resolves_and_reports(port, monkeypatch):
         ContinuousDecoder(port, kv_quant="int4", **kw)
     with pytest.raises(ValueError, match="kv_quant='int4'"):
         continuous_decode(port, SEEDS, 5, kv_quant="int4", **kw)
+
+
+def test_step_reads_a_table_as_wide_as_its_positions(lm, port,
+                                                     monkeypatch):
+    """Each cycle's attention gets the page table cut to the pages its
+    live rows' positions reach in that cycle (no column past them is
+    read), and the tokens are the JAX decoder's all the same."""
+    widths = []
+    real = tt.paged_attention
+
+    def spy(q, kpool, vpool, ptab, pos, *scales):
+        widths.append(ptab.shape[1])
+        return real(q, kpool, vpool, ptab, pos, *scales)
+
+    monkeypatch.setattr(tt, "paged_attention", spy)
+    seeds = [[1, 2, 3], [4]]
+    dec = ContinuousDecoder(port, max_slots=2, n_pos=17, sync_interval=3,
+                            page_size=4, device="cpu")
+    futs = [dec.submit(s, n) for s, n in zip(seeds, (10, 2))]
+    dec.run()
+    assert dec.pages_per_slot == 5
+    # 12 positions and 2, three steps of two layers a cycle: positions 3,
+    # 6, 9 and 12 are reached, so 1, 2, 3 and 3 pages, never the
+    # reservation's 5
+    assert widths == [1] * 6 + [2] * 6 + [3] * 6 + [3] * 6
+    want = jax_continuous(lm, seeds[:1], 10, max_slots=2, n_pos=17,
+                          sync_interval=3, page_size=4, prefix_cache=False)
+    assert futs[0].result() == want[0]
+
+
+def test_a_retired_long_request_reads_no_column_past_the_table(lm, port):
+    """A slot whose request had more pages than every live one is read at
+    position -1 once retired (never at its old last position), so a
+    table cut to the live rows' pages holds every column a step indexes;
+    the tokens are the JAX decoder's.  Requests of 12, 10 and 8 steps on
+    two slots of 4-position pages: the 12-step one (3 pages) retires at
+    step 12 while only the 8-step one is live."""
+    seeds, n_words = [[1, 2, 3], [4, 5], [6]], (10, 9, 8)
+    kw = dict(max_slots=2, n_pos=12, sync_interval=2, page_size=4)
+    dec = ContinuousDecoder(port, device="cpu", **kw)
+    futs = [dec.submit(s, n) for s, n in zip(seeds, n_words)]
+    dec.run()
+    assert dec.retired == 3
+    for seed, n, fut in zip(seeds, n_words, futs):
+        want = jax_continuous(lm, [seed], n, prefix_cache=False, **kw)
+        assert fut.result() == want[0]

@@ -2,9 +2,9 @@
 against the JAX package's ``lstm_scan`` run through the Pallas
 interpreter, from non-zero initial states h0 and c0, at T of 1 to 13 and
 ragged batches, and against a float64 loop; the gate order; the cluster
-plan and sizes mirrored from ``csrc/lstm_scan.cu`` and
-``csrc/recurrence_cluster.cuh``, and H past ``MAX_HIDDEN`` refused before
-a launch.  Tolerance: the JAX recurrence tests' forward
+plan and sizes mirrored from ``csrc/bilstm.cu`` (whose forward the scan
+launches) and ``csrc/recurrence_cluster.cuh``, and H past ``MAX_HIDDEN``
+refused before a launch.  Tolerance: the JAX recurrence tests' forward
 one, rtol 1e-5 / atol 1e-6.
 
 On the CPU the wrapper takes its plain version and counts no launch; the
@@ -105,18 +105,26 @@ def test_no_kernel_for_other_devices():
 
 
 def test_hidden_limit_mirrors_the_kernel_source():
-    """The wrapper's cell is csrc/lstm_scan.cu's, on the cluster plan of
+    """The wrapper's cell is csrc/bilstm.cu's LstmFwd, the forward that
+    ``bilstm_forward`` launches, on the cluster plan of
     csrc/recurrence_cluster.cuh; the limit is the largest H whose 16-block
     cluster of one batch row fits a block's shared memory, at least PR
     6's 5,811, and every H up to it has a plan."""
-    src = (CSRC / "lstm_scan.cu").read_text()
+    src = (CSRC / "bilstm.cu").read_text()
+    assert not (CSRC / "lstm_scan.cu").exists()
     assert '#include "recurrence_cluster.cuh"' in src
     assert '#include "recurrence_block.cuh"' not in src
-    assert "__global__" not in src   # the kernel is the header's template
-    g, n_in, has_c = scan.CELL
-    assert f"static constexpr int G = {g}, kIn = {n_in};" in src
-    assert f"kHasC = {str(has_c).lower()}" in src
-    assert "make_plan(LstmFwd::G, LstmFwd::kIn, LstmFwd::kHasC, 1, B," in src
+    body = src[src.index("struct LstmFwd {"):].split("};")[0]
+    g, e, has_c = scan.CELL
+    assert f"static constexpr int G = {g}, V = 1, E = {e};" in body
+    head = src[src.index("struct LstmFwd {"):]
+    head = head[:head.index("update(")]
+    assert "input(int q) { return {0, q, 4, 0}; }" in head   # zx's gates
+    assert f"kHasC = {str(has_c).lower()}" in body
+    # one entry for the scan and both bilstm forwards: h0, c0 and the c
+    # stack are pointers that may be null
+    assert src.count("launch_planned<LstmFwd>") == 1
+    assert "plan_of<LstmFwd>(D, B, H, C, R)" in src
     assert scan.MAX_HIDDEN == 20656 >= 5811
     assert max(scan.smem_bytes(scan.MAX_HIDDEN)) <= rec.MAX_SMEM
     assert max(scan.smem_bytes(scan.MAX_HIDDEN + 1)) > rec.MAX_SMEM

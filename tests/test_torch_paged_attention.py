@@ -1,6 +1,7 @@
 """The port's ``paged_attention`` (bigdl_tpu_torch/ops/paged_attention.py)
 against the JAX package's Pallas kernel run in interpret mode, fp32 and
-int8 pools.
+int8 pools; the plain version of the kernel's split walk and merge at
+the split plan's counts, and the plan mirrored from the kernel source.
 
 On the CPU the port's wrappers take their plain PyTorch versions (the
 CUDA kernel is held against those same plain versions on the card by
@@ -8,6 +9,9 @@ CUDA kernel is held against those same plain versions on the card by
 Tolerance: tests/test_paged_attention.py's own, rtol 1e-5 / atol 1e-6,
 for both pool types.
 """
+import importlib
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +21,8 @@ import torch
 from bigdl_tpu.ops import pallas_kernels as pk
 from bigdl_tpu.quant import kv as jax_kvq
 from bigdl_tpu_torch import ops
+
+paged = importlib.import_module("bigdl_tpu_torch.ops.paged_attention")
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -152,3 +158,85 @@ def test_no_plain_path_off_the_cpu():
             quantized=quantized)]
         with pytest.raises(ValueError, match="no kernel"):
             ops.paged_attention(*args)
+
+
+# (P, each row's last position, the plan's split count at B 3, H 2): a
+# table too short to split; eight splits whose rows reach into every
+# split; eight where row 0's keys all lie in the first split (its other
+# seven have no live page); and eight with a row never admitted (pos < 0
+# throughout)
+SPLIT_CASES = {"one split": (3, [1, 5, 11], 1),
+               "several": (32, [115, 120, 127], 8),
+               "empty split": (32, [2, 127, 50], 8),
+               "dead row": (32, [-1, 127, 60], 8)}
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_and_merge_matches_pallas_interpret(case, quantized):
+    """The plain split-and-merge version at the plan's split count (and
+    at one split, two, and one page a split) against the JAX kernel in
+    interpret mode and the gathered-view plain version, on live rows, in
+    S = 2 windows; a row with pos < 0 comes out 0."""
+    P, last, want_splits = SPLIT_CASES[case]
+    assert paged.split_count(3, 2, P) == want_splits
+    rs = np.random.RandomState(len(case) + 10 * quantized)
+    args = list(_case(rs, bsz=3, S=2, P=P, page_size=4, n_pages=3 * P + 1,
+                      quantized=quantized))
+    pos = np.asarray(last)[:, None] - 1 + np.arange(2)[None, :]
+    args[4] = np.where(np.asarray(last)[:, None] < 0, -1, pos).astype(
+        np.int32)
+    per = -(-P // want_splits)
+    empty = [k * per > t // 4 for t in last for k in range(want_splits)]
+    assert any(empty) == (case in ("empty split", "dead row"))
+    want = np.asarray(pk.paged_attention(*(jnp.asarray(a) for a in args),
+                                         interpret=True))
+    t = [torch.from_numpy(a) for a in args]
+    got = paged.paged_attention_split_reference(*t[:5], None, *t[5:])
+    live = args[4] >= 0
+    np.testing.assert_allclose(got.numpy()[live], want[live], **TOL)
+    np.testing.assert_allclose(got.numpy()[live],
+                               ops.paged_attention(*t).numpy()[live], **TOL)
+    assert not got.numpy()[~live].any()
+    for n in (1, 2, P):
+        np.testing.assert_allclose(paged.paged_attention_split_reference(
+            *t[:5], n, *t[5:]).numpy(), got.numpy(), **TOL)
+
+
+def test_split_plan_mirrors_the_kernel_source():
+    """ops.paged_attention's ``split_count`` is csrc/paged_attention.cu's:
+    the same constants and steps, and every split count it gives leaves
+    no page range empty by construction."""
+    src = (Path(paged.__file__).parents[1] / "csrc"
+           / "paged_attention.cu").read_text()
+    for line in (f"constexpr int kSms = {paged.SMS};",
+                 f"constexpr int kSplitBlocks = {paged.SPLIT_BLOCKS};",
+                 f"constexpr int kMinSplitPages = {paged.MIN_SPLIT_PAGES};",
+                 f"constexpr int kSplitFromPages = {paged.SPLIT_FROM_PAGES};",
+                 "if (P < kSplitFromPages) return 1;",
+                 "int n = (kSplitBlocks * kSms + rows - 1) / rows;",
+                 "const int most = (P + kMinSplitPages - 1) / kMinSplitPages;",
+                 "const int pages = (P + n - 1) / n;",
+                 "return (P + pages - 1) / pages;",
+                 "dim3(B * H, part.splits)"):
+        assert line in src, line
+    for b in (1, 3, 8, 16, 64):
+        for p in (1, 2, 3, 9, 24, 64, 100):
+            n = paged.split_count(b, 4, p)
+            per = -(-p // n)
+            assert 1 <= n and (n - 1) * per < p <= n * per
+
+
+# (B, H, P) -> splits: the decode step's width at a full 64-page table
+# (the kernel phase), at the 24-page table serving's requests reach and at
+# the shortest table that is split, the fixtures' small tables, the
+# longest table that is not split, a wider batch, one row, a table of four
+# pages and a batch that fills the SMs twice over
+SPLIT_PLANS = {(8, 4, 64): 16, (8, 4, 24): 6, (8, 4, 8): 2, (3, 2, 3): 1,
+               (3, 2, 9): 3, (3, 2, 32): 8, (3, 2, 7): 1, (16, 8, 64): 5,
+               (1, 1, 64): 16, (8, 4, 4): 1, (64, 4, 64): 3}
+
+
+@pytest.mark.parametrize("shape", list(SPLIT_PLANS))
+def test_split_plan_is_pinned(shape):
+    assert paged.split_count(*shape) == SPLIT_PLANS[shape]

@@ -12,7 +12,7 @@ rtol 1e-5 / atol 1e-6, gradients rtol 1e-4 / atol 1e-5.
 Also the shared build and plan rules: the cluster plan and shared-memory
 sizes mirror ``csrc/recurrence_cluster.cuh`` and ``csrc/rnn.cu``, H past
 ``MAX_HIDDEN`` is refused before a launch, the row rule of
-``csrc/recurrence_block.cuh`` (bilstm and gru) is mirrored, and the
+``csrc/recurrence_block.cuh`` (gru) is mirrored, and the
 library's cache key moves with the bytes of a header it includes.
 
 On the CPU the wrappers take their plain versions; the CUDA kernels are
@@ -161,11 +161,16 @@ def test_hidden_limit_mirrors_the_kernel_source():
     src = (CSRC / "rnn.cu").read_text()
     assert '#include "recurrence_cluster.cuh"' in src
     assert '#include "recurrence_block.cuh"' not in src
-    for cell, (g, n_in, has_c) in (("RnnFwd", rnn.FWD_CELL),
-                                   ("RnnBwd", rnn.BWD_CELL)):
+    # the forward's one input is zx; the backward's two are gout and h
+    for cell, (g, e, has_c), where in (
+            ("RnnFwd", rnn.FWD_CELL, "input(int) { return {0, 0, 1, 0}; }"),
+            ("RnnBwd", rnn.BWD_CELL,
+             "input(int q) { return {q, 0, 1, 0}; }")):
         body = src[src.index(f"struct {cell} {{"):]
-        assert f"static constexpr int G = {g}, kIn = {n_in};" in body
-        assert f"kHasC = {str(has_c).lower()}" in body.split("};")[0]
+        body = body[:body.index("update(")]
+        assert f"static constexpr int G = {g}, V = 1, E = {e};" in body
+        assert f"kHasC = {str(has_c).lower()}" in body
+        assert where in body
     assert "rnn_fwd_kernel" not in src and "rnn_bwd_kernel" not in src
     assert "__global__" not in src   # the kernels are the header's template
     assert "launch_transpose" not in src
@@ -267,12 +272,13 @@ def test_hidden_above_the_limit_raises_before_a_launch(which):
 
 
 def test_row_rule_is_the_block_headers():
-    """ops._recurrence mirrors csrc/recurrence_block.cuh, which bilstm.cu
-    and gru.cu still use (rnn.cu and lstm_scan.cu no longer include it):
-    the row choices, the block's threads and shared memory, and the split
-    of a product."""
-    for name in ("bilstm.cu", "gru.cu"):
-        assert '#include "recurrence_block.cuh"' in (CSRC / name).read_text()
+    """ops._recurrence mirrors csrc/recurrence_block.cuh, which gru.cu
+    still uses (rnn.cu and bilstm.cu no longer include it): the row
+    choices, the block's threads and shared memory, and the split of a
+    product."""
+    assert '#include "recurrence_block.cuh"' in (CSRC / "gru.cu").read_text()
+    for name in ("rnn.cu", "bilstm.cu"):
+        assert "recurrence_block.cuh" not in (CSRC / name).read_text()
     src = (CSRC / "recurrence_block.cuh").read_text()
     assert re.search(r"constexpr int kRowChoices\[\] = \{8, 4, 2, 1\};", src)
     assert f"constexpr int kThreads = {rec.THREADS};" in src
@@ -296,21 +302,21 @@ def test_weight_gradient_slices(t, b, k, j, nd, want):
 
 @pytest.mark.parametrize("header,moved", [
     ("recurrence_dwh.cuh", {"bilstm", "rnn", "gru"}),
-    ("recurrence_cluster.cuh", {"rnn", "lstm_scan"}),
+    ("recurrence_cluster.cuh", {"rnn", "bilstm"}),
 ])
 def test_build_key_follows_included_headers(tmp_path, monkeypatch, header,
                                             moved):
     """A library's cache key hashes its source and every local header it
     includes: editing recurrence_dwh.cuh moves the key of the three
     libraries with a weight gradient, editing recurrence_cluster.cuh the
-    keys of rnn and lstm_scan, and nothing else."""
+    keys of rnn and bilstm, and nothing else."""
     csrc = tmp_path / "csrc"
     shutil.copytree(CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     assert [p.name for p in _build.sources("rnn")] == [
         "rnn.cu", "recurrence_cluster.cuh", "recurrence_dwh.cuh"]
-    assert [p.name for p in _build.sources("lstm_scan")] == [
-        "lstm_scan.cu", "recurrence_cluster.cuh"]
+    assert [p.name for p in _build.sources("bilstm")] == [
+        "bilstm.cu", "recurrence_cluster.cuh", "recurrence_dwh.cuh"]
     before = {n: _build.target(n) for n in _build.SOURCES}
     path = csrc / header
     path.write_text(path.read_text() + "\n// edited\n")

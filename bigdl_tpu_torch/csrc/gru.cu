@@ -26,108 +26,100 @@
 // dependent products that need the previous step's h and all of wrz[d]
 // and wh[d] (192 KB at H 128), sets the time.
 //
-// What this design does about it: bilstm.cu's block.  One block per
-// (direction, tile of R batch rows) walks all T steps with its rows' h in
-// shared memory, reading wrz[d] and wh[d] through L2 (384 KB for both
-// directions stays resident in the 50 MB L2); forward, two products a
-// step with a barrier between.  The backward first recomputes r, z for
-// every step in one tiled product (they depend only on the stored h
-// stack), writing r o hprev beside them, then n in a second one, so its
-// serial loop carries only dn . wh^T and then dzrz . wrz^T, from the
-// weights transposed once.  Both weight gradients are tiled products of
-// recurrence_dwh.cuh.  R follows the row rule of recurrence_block.cuh.
+// What this design does about it: both serial loops are two-phase cells
+// of the cluster recurrence (recurrence_cluster.cuh).  One cluster of C
+// blocks per (direction, tile of R batch rows) walks all T steps; block k
+// owns units [k H / C, (k + 1) H / C) and holds its columns of wrz[d] and
+// wh[d] (its rows, backward) in shared memory for all T steps where they
+// fit, so no step reads a weight through L2.  Forward (GruFwd): phase 0
+// is h . wrz, whose update keeps z and exchanges r o h; phase 1 is
+// (r o h) . wh, whose update exchanges and stores h'.  Backward (GruBwd),
+// in reverse time: phase 0 is dzrz' . wrz^T over the dr, dz that phase 1
+// exchanged a step before (t + 1), whose update forms dh_tot and
+// exchanges and stores dn; phase 1 is dn . wh^T, whose update exchanges
+// and stores dr, dz and keeps dh_tot z + drh r for the next step.  z and
+// h (forward), dh_tot and the carried dh (backward) are each unit's two
+// local values.  The backward's r, z and n depend only on the stored h
+// stack, so a parallel pre-pass computes them for every step first (two
+// tiled products, writing r o hprev beside them) into dzrz and dzn, which
+// the loop overwrites unit by unit; its five inputs a unit and a step are
+// r, z, n, h_{t-1} and gout.  Both weight gradients are tiled products of
+// recurrence_dwh.cuh.  The plan (C, R) is a function of (cell, D, B, H)
+// (ops/_recurrence.py mirrors it); H up to the largest whose 16-block
+// cluster of one row fits shared memory, forward and backward, is taken,
+// and the wrapper refuses a larger H.
 
-#include "recurrence_block.cuh"
+#include "recurrence_cluster.cuh"
 #include "recurrence_dwh.cuh"
 
 namespace {
 
-// each run of kChunk products summed from zero, then added (matvec)
-constexpr int kChunk = 32;
-
-__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
-
-// Reduction buffer of a block at R rows: the larger of its two products'.
-__host__ __device__ inline int red_floats(int G1, int N1, int G2, int N2,
-                                          int R) {
-  return imax(G1 > 1 ? G1 * R * N1 : 0, G2 > 1 ? G2 * R * N2 : 0);
-}
-
-// Shared memory of the forward block at R rows, in floats: products
-// h . wrz (H -> 2H) and (r o h) . wh (H -> H).
-__host__ __device__ inline int gru_fwd_smem_floats(int H, int R) {
-  return R * 9 * H + red_floats(groups(H, 2 * H), 2 * H, groups(H, H), H, R);
-}
-
-// Shared memory of the backward's serial block at R rows: products
-// dn . wh^T (H -> H) and dzrz . wrz^T (2H -> H).
-__host__ __device__ inline int gru_bwd_smem_floats(int H, int R) {
-  return R * 11 * H + red_floats(groups(H, H), H, groups(2 * H, H), H, R);
-}
-
-inline int gru_rows(int H) {
-  return rows_for([H](int r) {
-    return 4 * imax(gru_fwd_smem_floats(H, r), gru_bwd_smem_floats(H, r));
-  });
-}
-
-template <int R>
-__global__ void __launch_bounds__(kThreads)
-    gru_fwd_kernel(const float* __restrict__ zrz,
-                   const float* __restrict__ zn,
-                   const float* __restrict__ wrz,
-                   const float* __restrict__ wh, float* __restrict__ hs,
-                   Dims dm) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int H = dm.H, H2 = 2 * H, tid = threadIdx.x;
-  const int tiles = (dm.B + R - 1) / R;
-  const int d = blockIdx.x / tiles, b0 = (blockIdx.x % tiles) * R;
-  const int rows = min(R, dm.B - b0);
-  float* h_s = smem;              // [H][R], rows past `rows` stay 0
-  float* rh_s = h_s + H * R;      // [H][R]: r o h
-  float* p1 = rh_s + H * R;       // [R][2H]: h . wrz
-  float* p2 = p1 + H2 * R;        // [R][H]: (r o h) . wh
-  float* xrz = p2 + H * R;        // [rows][2H]: this step's zrz rows
-  float* xn = xrz + H2 * R;       // [rows][H]: this step's zn rows
-  float* z_s = xn + H * R;        // [rows][H]: z
-  float* red = z_s + H * R;
-  const int G1 = groups(H, H2), G2 = groups(H, H);
-  for (int e = tid; e < 2 * H * R; e += kThreads) smem[e] = 0.0f;
-  const float* Wrz = wrz + (size_t)d * H * H2;
-  const float* Wh = wh + (size_t)d * H * H;
-  __syncthreads();
-  for (int t = 0; t < dm.T; ++t) {
-    const size_t row0 = ((size_t)t * dm.D + d) * dm.B + b0;
-    for (int e = tid; e < rows * H2; e += kThreads)
-      cp_async4(xrz + e, zrz + row0 * H2 + e);
-    for (int e = tid; e < rows * H; e += kThreads)
-      cp_async4(xn + e, zn + row0 * H + e);
-    matvec<R, false, kChunk>(Wrz, H, H2, h_s, p1, red, G1);
-    cp_async_wait_all();
-    __syncthreads();
-    for (int p = tid; p < rows * H; p += kThreads) {
-      const int r = p / H, u = p - r * H;
-      const float* x = xrz + r * H2;
-      const float* q = p1 + r * H2;
-      const float rr = sigm(x[u] + q[u]);
-      z_s[p] = sigm(x[H + u] + q[H + u]);
-      rh_s[u * R + r] = rr * h_s[u * R + r];
-    }
-    __syncthreads();
-    matvec<R, false, kChunk>(Wh, H, H, rh_s, p2, red, G2);
-    __syncthreads();
-    for (int p = tid; p < rows * H; p += kThreads) {
-      const int r = p / H, u = p - r * H;
-      const float n = tanhf(xn[p] + p2[p]);
-      const float z = z_s[p], h = h_s[u * R + r];
-      const float hn = (1.0f - z) * n + z * h;
-      h_s[u * R + r] = hn;
-      hs[(row0 + r) * H + u] = hn;
-    }
-    __syncthreads();
+// phase 0: r, z = sig(zrz + h . wrz[d]), exchanging r o h; phase 1:
+// n = tanh(zn + (r o h) . wh[d]), h' = (1 - z) n + z h, exchanged.  Local
+// values z and h; x = (zr, zz, zn) from the stacks (zrz, zn).
+struct GruFwd {
+  static constexpr int E = 3, L = 2;
+  static constexpr bool kReverse = false, kHasC = false;
+  __host__ __device__ static constexpr In input(int q) {
+    return q < 2 ? In{0, q, 2, 0} : In{1, 0, 1, 0};
   }
-}
+  struct P0 {
+    static constexpr int G = 2, V = 1;
+    static constexpr bool kWeightT = false;
+    __device__ static void update(const float* x, const float* z, float* loc,
+                                  float* y) {
+      const float r = sigm(x[0] + z[0]);
+      loc[0] = sigm(x[1] + z[1]);
+      y[0] = r * loc[1];
+    }
+  };
+  struct P1 {
+    static constexpr int G = 1, V = 1;
+    static constexpr bool kWeightT = false;
+    __device__ static void update(const float* x, const float* z, float* loc,
+                                  float* y) {
+      const float n = tanhf(x[2] + z[0]);
+      loc[1] = (1.0f - loc[0]) * n + loc[0] * loc[1];
+      y[0] = loc[1];
+    }
+  };
+};
+
+// In reverse time from dh = 0; x = (r, z, n, h_{t-1}, gout) from the
+// stacks (dzrz, dzn, hs, gout).  Phase 0: dq = dzrz' . wrz[d]^T (dzrz' of
+// step t + 1), dh_tot = gout + (dh + dq), dn exchanged; phase 1: drh =
+// dn . wh[d]^T, dr and dz exchanged.  Local values dh_tot and dh.
+struct GruBwd {
+  static constexpr int E = 5, L = 2;
+  static constexpr bool kReverse = true, kHasC = false;
+  __host__ __device__ static constexpr In input(int q) {
+    return q < 2 ? In{0, q, 2, 0}
+                 : (q == 2 ? In{1, 0, 1, 0}
+                           : (q == 3 ? In{2, 0, 1, -1} : In{3, 0, 1, 0}));
+  }
+  struct P0 {
+    static constexpr int G = 1, V = 1;
+    static constexpr bool kWeightT = true;
+    __device__ static void update(const float* x, const float* z, float* loc,
+                                  float* y) {
+      const float dh_tot = x[4] + (loc[1] + z[0]);
+      loc[0] = dh_tot;
+      y[0] = dh_tot * (1.0f - x[1]) * (1.0f - x[2] * x[2]);
+    }
+  };
+  struct P1 {
+    static constexpr int G = 1, V = 2;
+    static constexpr bool kWeightT = true;
+    __device__ static void update(const float* x, const float* z, float* loc,
+                                  float* y) {
+      const float r = x[0], zz = x[1], hp = x[3], dh_tot = loc[0];
+      const float drh = z[0];
+      y[0] = drh * hp * r * (1.0f - r);
+      y[1] = dh_tot * (hp - x[2]) * zz * (1.0f - zz);
+      loc[1] = dh_tot * zz + drh * r;
+    }
+  };
+};
 
 // The backward's gates, all steps at once, as a tiled product over k < H
 // of the stack `left` and W[d] (H x J): out[row, n] = act(in[row, n] +
@@ -183,151 +175,42 @@ __global__ void __launch_bounds__(kGemmThreads)
   }
 }
 
-// The serial part of the backward: one block per (direction, row tile)
-// in reverse time.  `dzrz` holds r, z and `dzn` holds n on entry (from
-// gates_kernel), dz on exit, each step's rows overwritten by the block
-// that staged them.  `wrzt` (D, 2H, H) and `wht` (D, H, H) are the
-// weights transposed.
-template <int R>
-__global__ void __launch_bounds__(kThreads)
-    gru_bwd_kernel(float* __restrict__ dzrz, float* __restrict__ dzn,
-                   const float* __restrict__ hs,
-                   const float* __restrict__ gout,
-                   const float* __restrict__ wrzt,
-                   const float* __restrict__ wht, Dims dm) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int H = dm.H, H2 = 2 * H, tid = threadIdx.x;
-  const int tiles = (dm.B + R - 1) / R;
-  const int d = blockIdx.x / tiles, b0 = (blockIdx.x % tiles) * R;
-  const int rows = min(R, dm.B - b0);
-  float* dh_s = smem;              // [R][H]: dh carried, then dh_tot
-  float* dq_s = dh_s + H * R;      // [R][H]: dzrz . wrz^T of step t + 1
-  float* dn_s = dq_s + H * R;      // [H][R]: dn
-  float* dzrz_s = dn_s + H * R;    // [2H][R]: dzrz
-  float* drh_s = dzrz_s + H2 * R;  // [R][H]: dn . wh^T
-  float* rz_s = drh_s + H * R;     // [rows][2H]: r, z of step t
-  float* n_s = rz_s + H2 * R;      // [rows][H]: n of step t
-  float* g_s = n_s + H * R;        // [rows][H]: gout[t]
-  float* hp_s = g_s + H * R;       // [rows][H]: h_{t-1}
-  float* red = hp_s + H * R;
-  const int G1 = groups(H, H), G2 = groups(H2, H);
-  for (int e = tid; e < 6 * H * R; e += kThreads) smem[e] = 0.0f;
-  const float* Wht = wht + (size_t)d * H * H;
-  const float* Wrzt = wrzt + (size_t)d * H2 * H;
-  __syncthreads();
-  for (int t = dm.T - 1; t >= 0; --t) {
-    const size_t row0 = ((size_t)t * dm.D + d) * dm.B + b0;
-    for (int e = tid; e < rows * H2; e += kThreads)
-      cp_async4(rz_s + e, dzrz + row0 * H2 + e);
-    const float* h_prev = hs + (row0 - (size_t)dm.D * dm.B) * H;
-    for (int e = tid; e < rows * H; e += kThreads) {
-      cp_async4(n_s + e, dzn + row0 * H + e);
-      cp_async4(g_s + e, gout + row0 * H + e);
-      if (t > 0) cp_async4(hp_s + e, h_prev + e);
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    for (int p = tid; p < rows * H; p += kThreads) {
-      const int r = p / H, u = p - r * H;
-      const float z = rz_s[r * H2 + H + u], n = n_s[p];
-      const float dh_tot = g_s[p] + (dh_s[p] + dq_s[p]);
-      const float dn = dh_tot * (1.0f - z) * (1.0f - n * n);
-      dh_s[p] = dh_tot;
-      dn_s[u * R + r] = dn;
-      dzn[(row0 + r) * H + u] = dn;
-    }
-    __syncthreads();
-    matvec<R, false, kChunk>(Wht, H, H, dn_s, drh_s, red, G1);
-    __syncthreads();
-    for (int p = tid; p < rows * H; p += kThreads) {
-      const int r = p / H, u = p - r * H;
-      const float rr = rz_s[r * H2 + u], z = rz_s[r * H2 + H + u];
-      const float hp = t > 0 ? hp_s[p] : 0.0f;
-      const float n = n_s[p], dh_tot = dh_s[p], drh = drh_s[p];
-      const float dr = drh * hp * rr * (1.0f - rr);
-      const float dz = dh_tot * (hp - n) * z * (1.0f - z);
-      dzrz_s[u * R + r] = dr;
-      dzrz_s[(H + u) * R + r] = dz;
-      float* out = dzrz + (row0 + r) * H2 + u;
-      out[0] = dr;
-      out[H] = dz;
-      dh_s[p] = dh_tot * z + drh * rr;
-    }
-    __syncthreads();
-    matvec<R, false, kChunk>(Wrzt, H2, H, dzrz_s, dq_s, red, G2);
-    __syncthreads();
-  }
-}
-
-template <int R>
-cudaError_t launch_fwd(const float* zrz, const float* zn, const float* wrz,
-                       const float* wh, float* hs, const Dims& dm,
-                       cudaStream_t st) {
-  const int bytes = gru_fwd_smem_floats(dm.H, R) * (int)sizeof(float);
-  cudaError_t err = set_smem((const void*)gru_fwd_kernel<R>, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(dm.D * ((dm.B + R - 1) / R));
-  gru_fwd_kernel<R><<<grid, kThreads, bytes, st>>>(zrz, zn, wrz, wh, hs, dm);
-  return cudaGetLastError();
-}
-
-template <int R>
-cudaError_t launch_bwd(float* dzrz, float* dzn, const float* hs,
-                       const float* gout, const float* wrzt,
-                       const float* wht, const Dims& dm, cudaStream_t st) {
-  const int bytes = gru_bwd_smem_floats(dm.H, R) * (int)sizeof(float);
-  cudaError_t err = set_smem((const void*)gru_bwd_kernel<R>, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(dm.D * ((dm.B + R - 1) / R));
-  gru_bwd_kernel<R><<<grid, kThreads, bytes, st>>>(dzrz, dzn, hs, gout, wrzt,
-                                                   wht, dm);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
 // Forward over zrz (T, D, B, 2H), zn (T, D, B, H), wrz (D, H, 2H) and wh
-// (D, H, H): hs (T, D, B, H).  One launch.  Returns the cudaError_t of
-// the launch.
+// (D, H, H): hs (T, D, B, H), under the plan of the shape (C = R = 0) or
+// at (C, R).  One launch.  Returns the cudaError_t of the launch.
 int bigdl_gru_fwd_f32(const float* zrz, const float* zn, const float* wrz,
                       const float* wh, float* hs, int T, int D, int B, int H,
-                      int device, void* stream) {
+                      int C, int R, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Dims dm{T, D, B, H};
   if (empty(dm)) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (gru_rows(H)) {
-    case 8: return (int)launch_fwd<8>(zrz, zn, wrz, wh, hs, dm, st);
-    case 4: return (int)launch_fwd<4>(zrz, zn, wrz, wh, hs, dm, st);
-    case 2: return (int)launch_fwd<2>(zrz, zn, wrz, wh, hs, dm, st);
-    case 1: return (int)launch_fwd<1>(zrz, zn, wrz, wh, hs, dm, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  const Args a{{zrz, zn}, wrz, nullptr, nullptr, hs, nullptr, dm, wh,
+               nullptr};
+  return (int)launch_planned<GruFwd>(a, plan_of<GruFwd>(D, B, H, C, R),
+                                     static_cast<cudaStream_t>(stream));
 }
 
 // Backward: dzrz (T, D, B, 2H), dzn (T, D, B, H) and the r o hprev stack
 // rh (T, D, B, H), from the forward's inputs, its hs and the cotangent
-// gout (T, D, B, H).  `wrzt` (D * 2H * H floats) and `wht` (D * H * H)
-// are scratch.  Five launches on the stream: the two transposes, r and z
-// of every step (with rh), n of every step, the serial loop.
+// gout (T, D, B, H), under the plan of the shape (C = R = 0) or at (C,
+// R).  Three launches on the stream: r and z of every step (with rh), n
+// of every step, the serial loop.
 int bigdl_gru_bwd_f32(const float* zrz, const float* zn, const float* wrz,
                       const float* wh, const float* hs, const float* gout,
-                      float* dzrz, float* dzn, float* rh, float* wrzt,
-                      float* wht, int T, int D, int B, int H, int device,
-                      void* stream) {
+                      float* dzrz, float* dzn, float* rh, int T, int D, int B,
+                      int H, int C, int R, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Dims dm{T, D, B, H};
   if (empty(dm)) return 0;
-  const int rows = gru_rows(H);
-  if (rows == 0) return (int)cudaErrorInvalidValue;
+  const Plan p = plan_of<GruBwd>(D, B, H, C, R);
+  if (p.C == 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  launch_transpose(wrz, wrzt, D, H, 2 * H, st);
-  launch_transpose(wh, wht, D, H, H, st);
   const long long M = (long long)T * B;
   const unsigned mt = (unsigned)((M + kBM - 1) / kBM);
   gates_kernel<false, true><<<dim3(mt, (2 * H + kBN - 1) / kBN, D),
@@ -336,13 +219,15 @@ int bigdl_gru_bwd_f32(const float* zrz, const float* zn, const float* wrz,
   gates_kernel<true, false><<<dim3(mt, (H + kBN - 1) / kBN, D), kGemmThreads,
                               0, st>>>(zn, wh, Stack{rh, nullptr, false},
                                        dzn, nullptr, dm, H);
-  switch (rows) {
-    case 8: return (int)launch_bwd<8>(dzrz, dzn, hs, gout, wrzt, wht, dm, st);
-    case 4: return (int)launch_bwd<4>(dzrz, dzn, hs, gout, wrzt, wht, dm, st);
-    case 2: return (int)launch_bwd<2>(dzrz, dzn, hs, gout, wrzt, wht, dm, st);
-    default:
-      return (int)launch_bwd<1>(dzrz, dzn, hs, gout, wrzt, wht, dm, st);
-  }
+  const Args a{{dzrz, dzn, hs, gout}, wrz, nullptr, nullptr, dzrz, nullptr,
+               dm, wh, dzn};
+  return (int)launch_planned<GruBwd>(a, p, st);
+}
+
+// The plan of the forward (bwd = 0) or backward (1) at (D, B, H) into
+// out[8]: C, R, RT, KP, S, staged, depth, bytes (C = 0: none fits).
+void bigdl_gru_plan(int bwd, int D, int B, int H, int* out) {
+  plan_out(bwd ? plan_of<GruBwd>(D, B, H) : plan_of<GruFwd>(D, B, H), out);
 }
 
 // dwrz (D, H, 2H) = sum over t, b of hprev^T . dzrz (the h stack at

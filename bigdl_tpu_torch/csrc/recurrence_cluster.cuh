@@ -1,25 +1,37 @@
 // The thread-block-cluster recurrence: one cluster of C blocks walks all
 // T steps of a tile of R batch rows of one direction, the C blocks
-// splitting the hidden units (rnn.cu and bilstm.cu run on it).
+// splitting the hidden units (rnn.cu, bilstm.cu and gru.cu run on it).
 //
 // Block k of a cluster owns units [k H / C, (k + 1) H / C) and, for a
 // cell of G gates, the G columns of each (an LSTM's i, f, g and o of the
-// same unit), so its gate arithmetic and cell state never leave it.  It
-// holds its slice of the recurrent weight in shared memory for all T
-// steps when it fits, else reads only that slice through L2.  Every
-// block keeps the full state of its R rows -- V values a unit: h (V = 1),
-// the RNN backward's dz (1) or the LSTM backward's four gates' dz (4) --
-// unit-major, [u][v][R], in a double-buffered array: its lanes write their
-// new values into its own next buffer, and after a block barrier the
-// block copies that slice, one contiguous run, into the next buffer of
-// every other block of the cluster (distributed shared memory, 16-byte
-// st.shared::cluster); the
+// same unit), so its gate arithmetic and local values (an LSTM's c) never
+// leave it.  It holds its slice of the recurrent weight in shared memory
+// for all T steps when it fits, else reads only that slice through L2.
+// Every block keeps the full state of its R rows -- V values a unit: h
+// (V = 1), the RNN backward's dz (1) or the LSTM backward's four gates' dz
+// (4) -- unit-major, [u][v][R], in a double-buffered array: its lanes
+// write their new values into its own next buffer, and after a block
+// barrier the block copies that slice, one contiguous run, into the next
+// buffer of every other block of the cluster (distributed shared memory,
+// 16-byte st.shared::cluster); the
 // cluster then meets at one barrier a step (release / acquire).  The last
 // step's barrier is each block's final one, so no block's shared memory
 // is written after it leaves.  Clusters are independent: nothing
 // synchronises the grid.  C = 1 is the same template with the block
 // barrier alone.  A cluster costs its exchange and barrier every step, so
 // the plan takes the smallest C whose blocks hold the weight slice.
+//
+// A cell whose step is two dependent products (the GRU's h . wrz, then
+// (r o h) . wh) declares two phases.  A step runs phase 0, then phase 1;
+// each is a product over the state the other phase last exchanged (phase
+// 0 of step 0: the initial state), with its own gates, weight and weight
+// slice, then the owners' update, then the exchange of the phase's own
+// state with its own block barrier and, where C > 1, its own push and
+// cluster barrier.  Each phase's state has one buffer: the other phase's
+// barrier lies between its reads and its next writes, in every block of
+// the cluster.  What one phase hands the other for the same unit and row
+// stays in the owning block as the cell's L local values.  A one-phase
+// cell is the same template with its state in two buffers.
 //
 // Inside a block, a column's product over the H units of the state (V
 // terms each) is split across KP lanes of a warp (lane kp takes units m =
@@ -46,6 +58,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;   // threads of a cluster block
@@ -70,7 +84,7 @@ struct In {
 };
 
 // What a cell of the recurrence is, to the cluster block (a policy:
-// rnn.cu and bilstm.cu define theirs):
+// rnn.cu, bilstm.cu and gru.cu define theirs).  A one-phase cell:
 //   G          columns (gates) of a hidden unit's product
 //   V          values a unit holds in the exchanged state; the product
 //              of a column sums over every unit's V values
@@ -83,14 +97,23 @@ struct In {
 //              backward reads wht's rows in place
 //   update(x, z, c, y) -> y[0..V), the unit's new exchanged values,
 //              given its E prefetched inputs x, its G sums z and its c
+// A two-phase cell has E, kReverse, input(q), kHasC = false, L local
+// values a unit (zeros at the start) and two phases P0 and P1, each with
+// G, kWeightT and V, the values it exchanges; a phase's product sums over
+// the other phase's V values a unit, and its update(x, z, loc, y) may
+// read and write the unit's L local values.
 struct Args {
   const float* in[4];   // the cell's input stacks
-  const float* w;       // (D, H, G*V*H): wht, read transposed (kWeightT)
+  const float* w;       // (D, H, G*V*H): wht, read transposed (kWeightT);
+                        // a two-phase cell's phase 0 weight
   const float* h0;      // (D, B, H) initial state (V = 1), null for zeros
   const float* c0;      // (D, B, H) initial cell state, null for zeros
   float* out;           // (T, D, B, V*H): the state, value v at v*H + u
+                        // (a two-phase cell: phase 1's)
   float* cout;          // (T, D, B, H) the cell state (kHasC), or null
   Dims dm;
+  const float* w1;      // a two-phase cell's phase 1 weight
+  float* mid;           // (T, D, B, V*H) its phase 0 state, or null
 };
 
 struct Plan {
@@ -115,16 +138,60 @@ inline int row_tile(int R, int GV) {
 // slice, so the KP lanes of a column read distinct banks.
 __host__ __device__ inline int w_stride(int S, int G) { return S * G + 4; }
 
+template <class T>
+struct Tag {
+  using type = T;
+};
+
+// A cell's phases: a one-phase cell is its own phase 0 and 1 (its local
+// value is c where kHasC); a two-phase cell names P0 and P1.  Phase 0's
+// product reads P1::V values a unit, phase 1's P0::V.
+template <class Cell, class = void>
+struct Phases {
+  using P0 = Cell;
+  using P1 = Cell;
+  static constexpr int n = 1, L = Cell::kHasC ? 1 : 0;
+};
+
+template <class Cell>
+struct Phases<Cell, std::void_t<typename Cell::P1>> {
+  using P0 = typename Cell::P0;
+  using P1 = typename Cell::P1;
+  static constexpr int n = 2, L = Cell::L;
+};
+
+// the weights a unit takes at one reduction index, in phase 0 and 1, and
+// the larger: a lane's accumulators a row
+template <class Cell>
+__host__ __device__ constexpr int weights0() {
+  using Ps = Phases<Cell>;
+  return Ps::P0::G * Ps::P1::V;
+}
+template <class Cell>
+__host__ __device__ constexpr int weights1() {
+  using Ps = Phases<Cell>;
+  return Ps::P1::G * Ps::P0::V;
+}
+template <class Cell>
+__host__ __device__ constexpr int max_gv() {
+  return weights0<Cell>() > weights1<Cell>() ? weights0<Cell>()
+                                             : weights1<Cell>();
+}
+
 // Shared memory of a block of `Cell`, in floats, at `depth` ring
-// stages: the two state buffers, c, the weight slice when staged, the
-// ring.
+// stages: the states (one phase: two buffers), the local values, the
+// weight slices when staged, the ring.
 template <class Cell>
 inline long long smem_floats(int H, int R, int C, bool staged, int depth) {
+  using Ps = Phases<Cell>;
   const long long S = (H + C - 1) / C;
-  return 2LL * round4(Cell::V * H * R) +
-         (Cell::kHasC ? round4((int)(R * S)) : 0) +
-         (staged ? ((long long)H * w_stride((int)S, Cell::G * Cell::V) + 3) /
-                       4 * 4
+  const auto slice = [&](int gv) {
+    return ((long long)H * w_stride((int)S, gv) + 3) / 4 * 4;
+  };
+  return round4(Ps::P0::V * H * R) + round4(Ps::P1::V * H * R) +
+         round4((int)(Ps::L * R * S)) +
+         (staged ? slice(weights0<Cell>()) +
+                       (Ps::n == 2 ? slice(weights1<Cell>()) : 0)
                  : 0) +
          depth * (long long)round4((int)(Cell::E * R * S));
 }
@@ -134,7 +201,7 @@ inline long long smem_floats(int H, int R, int C, bool staged, int depth) {
 // as deep as the rest leaves room for (kMinDepth to kMaxDepth).
 template <class Cell>
 inline Plan plan_at(int H, int R, int C) {
-  Plan p{0, R, row_tile(R, Cell::G * Cell::V), 1, (H + C - 1) / C, 0, 0, 0};
+  Plan p{0, R, row_tile(R, max_gv<Cell>()), 1, (H + C - 1) / C, 0, 0, 0};
   const long long cap = kMaxSmem / 4;
   if (C > H) return p;
   const long long stage = round4(Cell::E * R * p.S);
@@ -365,23 +432,27 @@ __device__ __forceinline__ void lane_dot(const float* hp, int hstep,
 // The cluster recurrence of `Cell` at the plan's RT (a template
 // argument) and weight placement (STAGED: in shared memory).
 //
-// A step: each lane's product, its group's butterfly and the owners'
-// updates into the block's own next state buffer (and, where c is
-// stored, the new c into its row's slot of input 0 in the ring stage just
-// read); one block barrier; then (C > 1) the block's new slice, a
-// contiguous run of that buffer, pushed to every other block in 16-byte
-// stores, and the cluster barrier's arrive; then, under the barrier, the
-// slice's coalesced store to `out` (and c's to `cout`) and the prefetch of
-// step s + depth - 1; then the barrier's wait.  The stores and the
-// prefetch come after the arrive because its release waits for this
-// thread's pending global writes.  The stage the c stack is read from is
-// next written by the prefetch of step s + 1, after that step's block
-// barrier, so after every thread's stores.
+// A phase of a step: each lane's product, its group's butterfly and the
+// owners' updates into the phase's next state (and, where c is stored,
+// the new c into its row's slot of input 0 in the ring stage just read);
+// one block barrier; then (C > 1) the block's new slice, a contiguous run
+// of that state, pushed to every other block in 16-byte stores, and the
+// cluster barrier's arrive; then, under the barrier, the slice's
+// coalesced store to its output (and c's to `cout`) and, after a step's
+// last phase, the prefetch of step s + depth - 1; then the barrier's
+// wait.  The stores and the prefetch come after the arrive because its
+// release waits for this thread's pending global writes.  The stage the
+// c stack is read from is next written by the prefetch of step s + 1,
+// after that step's block barrier, so after every thread's stores.
 template <class Cell, int RT, bool STAGED>
 __global__ void __launch_bounds__(kThreads, 1)
     cluster_recurrence(Args a, Plan p) {
-  constexpr int G = Cell::G, V = Cell::V, E = Cell::E, N = G * V;
-  static_assert(V == 1 || Cell::kWeightT, "V > 1 reads the weight's rows");
+  using Ps = Phases<Cell>;
+  using P0 = typename Ps::P0;
+  using P1 = typename Ps::P1;
+  constexpr int NP = Ps::n, E = Cell::E, L = Ps::L;
+  static_assert((P0::V == 1 || P1::kWeightT) && (P1::V == 1 || P0::kWeightT),
+                "a product over V > 1 values a unit reads the weight's rows");
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const Dims dm = a.dm;
@@ -393,35 +464,45 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int rows = min(R, dm.B - b0);
   const int u0 = (int)((long long)k * H / C);
   const int sb = (int)((long long)(k + 1) * H / C) - u0;   // units owned
-  const int ws = w_stride(S, N), hstride = round4(V * H * R);
-  float* hb = smem;                                  // [2][H][V][R]
-  float* c_s = hb + 2 * hstride;                     // [R][S]
-  float* w_s = c_s + (Cell::kHasC ? round4(R * S) : 0);   // [H][ws]
-  float* ring = w_s + (STAGED ? round4(H * ws) : 0);  // [P][E][R][S]
-  const int stage = round4(E * R * S);
-  const float* W = a.w + (size_t)d * H * N * H;
+  const int ws0 = w_stride(S, weights0<Cell>());
+  const int ws1 = w_stride(S, weights1<Cell>());
+  // s1: the state phase 0 reads ([u][v][R]); s0: the state phase 0
+  // writes.  One phase: two buffers of one state, step s reading s1 where
+  // s is even and s0 where it is odd.
+  float* s1 = smem;
+  float* s0 = s1 + round4(P1::V * H * R);
+  float* loc_s = s0 + round4(P0::V * H * R);                // [L][R][S]
+  float* w0_s = loc_s + round4(L * R * S);                  // [H][ws0]
+  float* w1_s = w0_s + (STAGED ? round4(H * ws0) : 0);      // [H][ws1]
+  float* ring = w1_s + (STAGED && NP == 2 ? round4(H * ws1) : 0);
+  const int stage = round4(E * R * S);                      // [P][E][R][S]
+  const float* W0 = a.w + (size_t)d * H * weights0<Cell>() * H;
+  const float* W1 =
+      NP == 2 ? a.w1 + (size_t)d * H * weights1<Cell>() * H : W0;
 
-  // h0 (or zeros), c0 (or zeros) and the weight slice join step 0's copy
-  // group
-  for (int e = tid; e < V * H * R; e += kThreads) {
+  // h0 (or zeros), c0 (or zeros) and the weight slices join step 0's
+  // copy group
+  for (int e = tid; e < P1::V * H * R; e += kThreads) {
     const int u = e / R, r = e - u * R;   // V = 1 where h0 is given
-    if (V == 1 && a.h0 != nullptr && r < rows) {
-      cp_async4(hb + e, a.h0 + ((size_t)d * dm.B + b0 + r) * H + u);
+    if (P1::V == 1 && a.h0 != nullptr && r < rows) {
+      cp_async4(s1 + e, a.h0 + ((size_t)d * dm.B + b0 + r) * H + u);
     } else {
-      hb[e] = 0.0f;
+      s1[e] = 0.0f;
     }
   }
-  if constexpr (Cell::kHasC) {
-    for (int e = tid; e < R * S; e += kThreads) {
-      const int r = e / S, j = e - r * S;
-      if (a.c0 != nullptr && r < rows && j < sb) {
-        cp_async4(c_s + e, a.c0 + ((size_t)d * dm.B + b0 + r) * H + u0 + j);
-      } else {
-        c_s[e] = 0.0f;
-      }
+  for (int e = tid; e < L * R * S; e += kThreads) {
+    const int lr = e / S, j = e - lr * S, r = lr % R;   // c: l = 0
+    if (Cell::kHasC && a.c0 != nullptr && r < rows && j < sb) {
+      cp_async4(loc_s + e, a.c0 + ((size_t)d * dm.B + b0 + r) * H + u0 + j);
+    } else {
+      loc_s[e] = 0.0f;
     }
   }
-  if constexpr (STAGED) {
+  // phase `ph`'s weight slice, reading the values of phase `pr`'s state
+  const auto stage_w = [&](auto ph, auto pr, const float* W, float* w_s,
+                           int ws) {
+    using Ph = typename decltype(ph)::type;
+    constexpr int G = Ph::G, V = decltype(pr)::type::V, N = G * V;
     for (int e = tid; e < H * S * N; e += kThreads) {
       const int m = e / (S * N), jn = e - m * S * N;
       const int j = jn / N, n = jn - j * N;
@@ -429,13 +510,17 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int u = u0 + j;
       float* dst = w_s + (size_t)m * ws + jn;
       if (j < sb) {
-        cp_async4(dst, Cell::kWeightT
+        cp_async4(dst, Ph::kWeightT
                            ? W + (size_t)(g * H + u) * (V * H) + v * H + m
                            : W + (size_t)m * G * H + g * H + u);
       } else {
         *dst = 0.0f;
       }
     }
+  };
+  if constexpr (STAGED) {
+    stage_w(Tag<P0>{}, Tag<P1>{}, W0, w0_s, ws0);
+    if constexpr (NP == 2) stage_w(Tag<P1>{}, Tag<P0>{}, W1, w1_s, ws1);
   }
 
   // the block's inputs of step s into ring stage `stg`: E x rows runs of
@@ -489,19 +574,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int kp = tid % KP, slot = tid / KP, slots = kThreads / KP;
   const int rounds = (S * (R / RT) + slots - 1) / slots;
   const int j_first = slot % S, tile_first = slot / S;
-  // a lane's weight steps: between its units, and between its weights
-  const int wstep = STAGED ? KP * ws : (Cell::kWeightT ? KP : KP * G * H);
-  const int gs = STAGED ? 1 : H;
   const int j_step = slots % S, tile_step = slots / S;
-  const int base = u0 * V * R, n = sb * V * R;   // this block's slice
-  const int n4 = (base & 3) == 0 ? n / 4 : 0;
   const bool store_c = Cell::kHasC && a.cout != nullptr;
-  int ps = 0, pf = P - 1;   // ring stages of steps s and s + P - 1
-  for (int s = 0; s < dm.T; ++s) {
-    const int t = Cell::kReverse ? dm.T - 1 - s : s;
-    const float* cur = hb + (size_t)(s & 1) * hstride;
-    float* nxt = hb + (size_t)((s + 1) & 1) * hstride;
-    float* st = ring + (size_t)ps * stage;
+
+  // phase `ph` of a step: the products over `cur` (phase `pr`'s state),
+  // the butterflies and the owners' updates into `nxt`, inputs from stage
+  // `st`
+  const auto run = [&](auto ph, auto pr, const float* cur, float* nxt,
+                       const float* W, const float* w_s, int ws, float* st) {
+    using Ph = typename decltype(ph)::type;
+    constexpr int G = Ph::G, VI = decltype(pr)::type::V, V = Ph::V;
+    constexpr int N = G * VI;
+    // a lane's weight steps: between its units, and between its weights
+    const int wstep = STAGED ? KP * ws : (Ph::kWeightT ? KP : KP * G * H);
+    const int gs = STAGED ? 1 : H;
     int j = j_first, rt0 = tile_first * RT;
     for (int round = 0; round < rounds; ++round) {
       const bool live = rt0 < R && j < sb;
@@ -510,10 +596,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int u = u0 + j;
         const float* wp =
             STAGED ? w_s + kp * ws + j * N
-                   : (Cell::kWeightT ? W + (size_t)u * (V * H) + kp
-                                     : W + (size_t)kp * G * H + u);
-        lane_dot<G, V, RT, STAGED>(cur + kp * V * R + rt0, KP * V * R, R, wp,
-                                   wstep, gs, (H - kp + KP - 1) / KP, acc);
+                   : (Ph::kWeightT ? W + (size_t)u * (VI * H) + kp
+                                   : W + (size_t)kp * G * H + u);
+        lane_dot<G, VI, RT, STAGED>(cur + kp * VI * R + rt0, KP * VI * R, R,
+                                    wp, wstep, gs, (H - kp + KP - 1) / KP,
+                                    acc);
       }
       for (int o = KP / 2; o >= 1; o >>= 1)
 #pragma unroll
@@ -531,12 +618,18 @@ __global__ void __launch_bounds__(kThreads, 1)
             float x[E];
 #pragma unroll
             for (int q = 0; q < E; ++q) x[q] = st[((size_t)q * R + r) * S + j];
-            float c = 0.0f;
-            if constexpr (Cell::kHasC) c = c_s[r * S + j];
-            Cell::update(x, acc[rr], c, y);
+            float lv[L > 0 ? L : 1] = {};
+#pragma unroll
+            for (int l = 0; l < L; ++l) lv[l] = loc_s[(l * R + r) * S + j];
+            if constexpr (NP == 1) {
+              Cell::update(x, acc[rr], lv[0], y);
+            } else {
+              Ph::update(x, acc[rr], lv, y);
+            }
+#pragma unroll
+            for (int l = 0; l < L; ++l) loc_s[(l * R + r) * S + j] = lv[l];
             if constexpr (Cell::kHasC) {
-              c_s[r * S + j] = c;
-              if (store_c) st[(size_t)r * S + j] = c;   // input 0, read
+              if (store_c) st[(size_t)r * S + j] = lv[0];   // input 0, read
             }
           }
 #pragma unroll
@@ -551,9 +644,20 @@ __global__ void __launch_bounds__(kThreads, 1)
         rt0 += RT;
       }
     }
-    cp_async_wait(P - 3);   // step s + 1's inputs, issued P - 2 steps ago
-    __syncthreads();
+  };
+
+  // the exchange of phase `ph`'s new state `nxt` and its store to `out`
+  // (where given); after the step's last phase also c's store and the
+  // prefetch
+  int ps = 0, pf = P - 1;   // ring stages of steps s and s + P - 1
+  const auto exchange = [&](auto ph, float* nxt, float* out, bool last,
+                            int s, int t, float* st) {
+    constexpr int V = decltype(ph)::type::V;
+    if (last) cp_async_wait(P - 3);   // step s + 1's inputs, issued P - 2
+    __syncthreads();                  // steps ago
     if (C > 1) {
+      const int base = u0 * V * R, n = sb * V * R;   // this block's slice
+      const int n4 = (base & 3) == 0 ? n / 4 : 0;
       for (int e = tid; e < n4 * (C - 1); e += kThreads) {
         const int q = e / n4, i = e - q * n4;
         const float* v4 = nxt + base + 4 * i;
@@ -569,20 +673,40 @@ __global__ void __launch_bounds__(kThreads, 1)
       cluster_arrive();
     }
     const size_t row0 = ((size_t)t * dm.D + d) * dm.B + b0;
-    for (int e = tid; e < rows * V * sb; e += kThreads) {
-      const int rv = e / sb, jj = e - rv * sb;
-      const int r = rv / V, v = rv - r * V;
-      a.out[(row0 + r) * (V * H) + v * H + u0 + jj] =
-          nxt[((size_t)(u0 + jj) * V + v) * R + r];
-    }
-    if (store_c) {
-      for (int e = tid; e < rows * sb; e += kThreads) {
-        const int r = e / sb, jj = e - r * sb;
-        a.cout[(row0 + r) * H + u0 + jj] = st[(size_t)r * S + jj];
+    if (out != nullptr) {
+      for (int e = tid; e < rows * V * sb; e += kThreads) {
+        const int rv = e / sb, jj = e - rv * sb;
+        const int r = rv / V, v = rv - r * V;
+        out[(row0 + r) * (V * H) + v * H + u0 + jj] =
+            nxt[((size_t)(u0 + jj) * V + v) * R + r];
       }
     }
-    prefetch(s + P - 1, ring + (size_t)pf * stage);
+    if (last) {
+      if (store_c) {
+        for (int e = tid; e < rows * sb; e += kThreads) {
+          const int r = e / sb, jj = e - r * sb;
+          a.cout[(row0 + r) * H + u0 + jj] = st[(size_t)r * S + jj];
+        }
+      }
+      prefetch(s + P - 1, ring + (size_t)pf * stage);
+    }
     if (C > 1) cluster_wait();
+  };
+
+  for (int s = 0; s < dm.T; ++s) {
+    const int t = Cell::kReverse ? dm.T - 1 - s : s;
+    float* st = ring + (size_t)ps * stage;
+    if constexpr (NP == 1) {
+      float* cur = (s & 1) ? s0 : s1;
+      float* nxt = (s & 1) ? s1 : s0;
+      run(Tag<P0>{}, Tag<P1>{}, cur, nxt, W0, w0_s, ws0, st);
+      exchange(Tag<P0>{}, nxt, a.out, true, s, t, st);
+    } else {
+      run(Tag<P0>{}, Tag<P1>{}, s1, s0, W0, w0_s, ws0, st);
+      exchange(Tag<P0>{}, s0, a.mid, false, s, t, st);
+      run(Tag<P1>{}, Tag<P0>{}, s0, s1, W1, w1_s, ws1, st);
+      exchange(Tag<P1>{}, s1, a.out, true, s, t, st);
+    }
     ps = ps + 1 == P ? 0 : ps + 1;
     pf = pf + 1 == P ? 0 : pf + 1;
   }
@@ -640,7 +764,7 @@ cudaError_t launch_cluster(const Args& a, const Plan& p, cudaStream_t st) {
 // kMaxAcc / (G * V).
 template <class Cell, int RT>
 cudaError_t launch_rt(const Args& a, const Plan& p, cudaStream_t st) {
-  if constexpr (RT * Cell::G * Cell::V <= kMaxAcc) {
+  if constexpr (RT * max_gv<Cell>() <= kMaxAcc) {
     return p.staged ? launch_cluster<Cell, RT, true>(a, p, st)
                     : launch_cluster<Cell, RT, false>(a, p, st);
   }

@@ -1,20 +1,16 @@
 """What the recurrence wrappers (``ops.bilstm``, ``ops.rnn``, ``ops.gru``,
-``ops.lstm_scan``) share: the row rule of ``csrc/recurrence_block.cuh``,
-the cluster plan of ``csrc/recurrence_cluster.cuh``, the weight
-gradient's slices (``csrc/recurrence_dwh.cuh``) and their argument
-checks.
+``ops.lstm_scan``) share: the cluster plan of
+``csrc/recurrence_cluster.cuh``, the weight gradient's slices
+(``csrc/recurrence_dwh.cuh``) and their argument checks.
 
-A recurrence block of ``recurrence_block.cuh`` (gru) keeps the state of
-its batch rows in shared memory.  It takes the most of 8, 4, 2 or 1 rows
-whose forward and backward blocks both fit a block's shared memory
-(:func:`rows_for`); the largest H that fits at one row
-(:func:`max_hidden`) is a kernel's limit, and the wrappers refuse a
-larger H before any launch.  A cluster recurrence (rnn, bilstm,
-lstm_scan) is planned by :func:`cluster_plan`, the mirror of the
-header's ``make_plan``; its limit is the largest H a 16-block cluster of
-one row holds.  A cell is described by (G, E, kHasC) -- its gate
-columns, its inputs a unit and a step, whether it keeps c -- and V, the
-values a unit holds in the exchanged state (the LSTM backward's 4).
+A cluster recurrence is planned by :func:`cluster_plan`, the mirror of
+the header's ``make_plan``; its limit (:func:`max_hidden`) is the
+largest H a 16-block cluster of one row holds, and the wrappers refuse a
+larger H before any launch.  A cell is described by (G, E, L) -- its
+gate columns, its inputs a unit and a step, its local values a unit
+(an LSTM's c: ``True``) -- and V, the values a unit holds in the
+exchanged state (the LSTM backward's 4); a two-phase cell (the GRU's)
+adds its second phase's (G, V) as ``phase1``.
 """
 from __future__ import annotations
 
@@ -24,31 +20,17 @@ import torch
 
 from bigdl_tpu_torch.ops import _build
 
-# csrc/recurrence_block.cuh's kRowChoices, kThreads and kMaxSmem (a
-# block's shared memory on sm_90, bytes)
-ROW_CHOICES, THREADS, MAX_SMEM = (8, 4, 2, 1), 512, 232448
+# a block's shared memory on sm_90, bytes (recurrence_cluster.cuh kMaxSmem)
+MAX_SMEM = 232448
 VP, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 DIMS = [I, I, I, I, I, VP]   # T D B H, device, stream
 PLANNED_DIMS = [I] * 6 + [I, VP]   # T D B H, C R, device, stream
 
 
-def groups(m, n):
-    """recurrence_block.cuh ``groups``: the split of an m-long reduction
-    of an n-wide product across a recurrence block."""
-    return 1 if n >= THREADS else min(THREADS // n, m)
-
-
-def rows_for(hdim, smem_bytes):
-    """The batch rows of a block at H = ``hdim``: the most of
-    ROW_CHOICES whose blocks fit, ``smem_bytes(hdim, rows)`` giving their
-    (forward, backward) bytes; 0 when not even one row fits."""
-    return next((r for r in ROW_CHOICES
-                 if max(smem_bytes(hdim, r)) <= MAX_SMEM), 0)
-
-
 def max_hidden(smem_bytes):
-    """The largest H a kernel takes: the last that fits at one row (every
-    smaller H fits too; the tests check it)."""
+    """The largest H a kernel takes: the last whose ``smem_bytes(h, 1)``
+    (forward and backward bytes at one batch row) fit (every smaller H
+    fits too; the tests check it)."""
     lo, hi = 1, 1
     while max(smem_bytes(hi, 1)) <= MAX_SMEM:
         lo, hi = hi, hi * 2
@@ -78,30 +60,46 @@ def _pow2_floor(x):
     return p
 
 
-def cluster_smem_floats(g, e, has_c, hdim, rows, c, staged, depth, v=1):
-    """recurrence_cluster.cuh ``smem_floats``: the two state buffers, c,
-    the weight slice when staged and ``depth`` ring stages, in floats."""
+def _weights(g, v, phase1):
+    """The weights a unit takes at one reduction index in each phase: a
+    phase's product sums over the other phase's V values a unit."""
+    if phase1 is None:
+        return (g * v,)
+    g1, v1 = phase1
+    return g * v1, g1 * v
+
+
+def cluster_smem_floats(g, e, n_loc, hdim, rows, c, staged, depth, v=1,
+                        phase1=None):
+    """recurrence_cluster.cuh ``smem_floats``: the states (one phase: two
+    buffers), the ``n_loc`` local values a unit, the weight slices when
+    staged and ``depth`` ring stages, in floats."""
     s = -(-hdim // c)
-    return (2 * _round4(v * hdim * rows) + (_round4(rows * s) if has_c else 0)
-            + (_round4(hdim * (s * g * v + 4)) if staged else 0)
+    v1 = v if phase1 is None else phase1[1]
+    return (_round4(v * hdim * rows) + _round4(v1 * hdim * rows)
+            + _round4(n_loc * rows * s)
+            + (sum(_round4(hdim * (s * n + 4))
+                   for n in _weights(g, v, phase1)) if staged else 0)
             + depth * _round4(e * rows * s))
 
 
-def cluster_plan_at(g, e, has_c, hdim, rows, c, v=1):
+def cluster_plan_at(g, e, n_loc, hdim, rows, c, v=1, phase1=None):
     """recurrence_cluster.cuh ``plan_at``: the plan of (C, R) as a dict of
-    PLAN_FIELDS, C = 0 when it does not fit; the weight slice staged in
-    shared memory when it fits beside the shallowest ring."""
+    PLAN_FIELDS, C = 0 when it does not fit; the weight slices staged in
+    shared memory when they fit beside the shallowest ring."""
     s = -(-hdim // c)
-    p = dict(C=0, R=rows, RT=min(rows, MAX_ACC // (g * v)), KP=1, S=s,
-             staged=0, depth=0, bytes=0)
+    rt = min(rows, MAX_ACC // max(_weights(g, v, phase1)))
+    p = dict(C=0, R=rows, RT=rt, KP=1, S=s, staged=0, depth=0, bytes=0)
     cap = MAX_SMEM // 4
     if c > hdim:
         return p
     stage = _round4(e * rows * s)
-    fixed = cluster_smem_floats(g, e, has_c, hdim, rows, c, True, 0, v)
+    fixed = cluster_smem_floats(g, e, n_loc, hdim, rows, c, True, 0, v,
+                                phase1)
     p["staged"] = int(fixed + MIN_DEPTH * stage <= cap)
     if not p["staged"]:
-        fixed = cluster_smem_floats(g, e, has_c, hdim, rows, c, False, 0, v)
+        fixed = cluster_smem_floats(g, e, n_loc, hdim, rows, c, False, 0, v,
+                                    phase1)
     if fixed + MIN_DEPTH * stage > cap:
         return p
     p["depth"] = min((cap - fixed) // stage, MAX_DEPTH)
@@ -120,19 +118,20 @@ def fill_rows(nd, b, c):
                 CLUSTER_ROWS[-1])
 
 
-def cluster_plan(g, e, has_c, nd, b, hdim, v=1):
+def cluster_plan(g, e, n_loc, nd, b, hdim, v=1, phase1=None):
     """recurrence_cluster.cuh ``make_plan``: the smallest cluster whose
     blocks hold their weight slice in shared memory, with the rows that
     fill the SMs; else 16 blocks reading their slices through L2 with as
     many of those rows as fit; C = 0 when nothing fits.  A function of
     the shape alone."""
     for c in CLUSTER_SIZES:
-        p = cluster_plan_at(g, e, has_c, hdim, fill_rows(nd, b, c), c, v)
+        p = cluster_plan_at(g, e, n_loc, hdim, fill_rows(nd, b, c), c, v,
+                            phase1)
         if p["C"] and p["staged"]:
             return p
     rows = fill_rows(nd, b, 16)
     while rows >= 1:
-        p = cluster_plan_at(g, e, has_c, hdim, rows, 16, v)
+        p = cluster_plan_at(g, e, n_loc, hdim, rows, 16, v, phase1)
         if p["C"]:
             return p
         rows //= 2

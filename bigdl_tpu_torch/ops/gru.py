@@ -18,9 +18,14 @@ r o hprev stack) then :func:`gru_dwh` (dwrz = sum_t hprev^T . dzrz, dwh =
 sum_t (r o hprev)^T . dzn).  On CUDA tensors the three wrappers launch
 the hand-written ``csrc/gru.cu`` kernels or raise; on CPU tensors they
 run the plain versions beside them.  Each wrapper's ``launches`` counts
-its kernel calls only.  The blocks follow the row rule of
-``ops._recurrence``: H <= ``MAX_HIDDEN``, a larger H is refused before a
-launch.
+its kernel calls only.
+
+The serial forward and backward are two-phase cluster recurrences
+(``csrc/recurrence_cluster.cuh``) whose plans :func:`plan` mirrors.  The
+kernels run H <= ``MAX_HIDDEN``, the largest H whose forward and
+backward 16-block clusters of one batch row fit shared memory, and a
+larger H raises ``NotImplementedError`` before any launch (the plain
+versions on the CPU have no such limit).
 """
 from __future__ import annotations
 
@@ -32,40 +37,62 @@ from bigdl_tpu_torch.ops import _recurrence as rec
 _KERNEL = "gru"
 
 
-def smem_bytes(hdim, rows=8):
-    """(forward, backward) shared memory of a recurrence block of
-    ``rows`` batch rows at H = ``hdim``, as csrc/gru.cu's
-    ``gru_fwd_smem_floats``/``gru_bwd_smem_floats`` size it."""
-    def red(*products):   # (groups, width) of each product of the block
-        return max(g * rows * n if g > 1 else 0 for g, n in products)
-
-    h, g = hdim, rec.groups
-    fwd = rows * 9 * h + red((g(h, 2 * h), 2 * h), (g(h, h), h))
-    bwd = rows * 11 * h + red((g(h, h), h), (g(2 * h, h), h))
-    return 4 * fwd, 4 * bwd
+# (G, E, local values) and V of csrc/gru.cu's GruFwd and GruBwd cells'
+# phase 0, and (G, V) of their phase 1: the forward exchanges r o h, then
+# h; the backward dn, then dr and dz (two values a unit)
+FWD_CELL, FWD_VALUES, FWD_PHASE1 = (2, 3, 2), 1, (1, 1)
+BWD_CELL, BWD_VALUES, BWD_PHASE1 = (1, 5, 2), 1, (1, 2)
 
 
-def rows_for(hdim):
-    return rec.rows_for(hdim, smem_bytes)
+def _cell(backward):
+    return ((BWD_CELL, dict(v=BWD_VALUES, phase1=BWD_PHASE1)) if backward
+            else (FWD_CELL, dict(v=FWD_VALUES, phase1=FWD_PHASE1)))
 
 
-#: the largest H the kernels take (one batch row a block)
+def plan(nd, b, hdim, backward=False):
+    """The forward's (or backward's) cluster plan at (D, B, H), as
+    csrc/gru.cu's ``plan_of`` computes it: a dict of
+    ``_recurrence.PLAN_FIELDS``."""
+    cell, kw = _cell(backward)
+    return rec.cluster_plan(*cell, nd, b, hdim, **kw)
+
+
+def smem_bytes(hdim, rows=1):
+    """(forward, backward) shared memory of a block of ``rows`` batch rows
+    in a 16-block cluster at H = ``hdim``, with the weights read through
+    L2 and the shallowest ring: the least any plan at ``rows`` needs."""
+    return tuple(4 * rec.cluster_smem_floats(*cell, hdim, rows,
+                                             rec.CLUSTER_SIZES[-1], False,
+                                             rec.MIN_DEPTH, **kw)
+                 for cell, kw in map(_cell, (False, True)))
+
+
+#: the largest H the kernels take (16-block clusters of one batch row)
 MAX_HIDDEN = rec.max_hidden(smem_bytes)
 
 
 def _setup(lib):
-    lib.bigdl_gru_fwd_f32.argtypes = [rec.VP] * 5 + rec.DIMS
+    # T D B H, then C R (0 0: the plan of the shape), device, stream
+    lib.bigdl_gru_fwd_f32.argtypes = [rec.VP] * 5 + rec.PLANNED_DIMS
     lib.bigdl_gru_fwd_f32.restype = rec.I
-    lib.bigdl_gru_bwd_f32.argtypes = [rec.VP] * 11 + rec.DIMS
+    lib.bigdl_gru_bwd_f32.argtypes = [rec.VP] * 9 + rec.PLANNED_DIMS
     lib.bigdl_gru_bwd_f32.restype = rec.I
     lib.bigdl_gru_dwh_f32.argtypes = ([rec.VP] * 7 + [rec.I] * 5
                                       + [rec.LL, rec.I, rec.LL]
                                       + rec.DIMS[4:])
     lib.bigdl_gru_dwh_f32.restype = rec.I
+    lib.bigdl_gru_plan.argtypes = [rec.I] * 4 + [rec.VP]
+    lib.bigdl_gru_plan.restype = None
 
 
 def _lib():
     return rec.load(_KERNEL, _setup)
+
+
+def kernel_plan(nd, b, hdim, backward=False):
+    """The plan csrc/gru.cu itself computes (the library built and
+    loaded), to hold :func:`plan` to it on the card."""
+    return rec.kernel_plan(_lib().bigdl_gru_plan, int(backward), nd, b, hdim)
 
 
 def _gates(zrz_t, zn_t, h, wrz, wh):
@@ -128,7 +155,7 @@ def gru_forward(zrz, zn, wrz, wh):
     lib = _lib()
     err = lib.bigdl_gru_fwd_f32(zrz.data_ptr(), zn.data_ptr(),
                                 wrz.data_ptr(), wh.data_ptr(), hs.data_ptr(),
-                                t, nd, b, hdim,
+                                t, nd, b, hdim, 0, 0,
                                 *_build.device_stream(zn.device))
     rec.raise_on(lib, err, _KERNEL, "fwd", hdim)
     gru_forward.launches += 1
@@ -146,12 +173,10 @@ def gru_backward(zrz, zn, wrz, wh, hs, gout):
         _check(v, name, zn.device, (t, nd, b, hdim))
     dzrz, dzn, rh = torch.empty_like(zrz), torch.empty_like(zn), \
         torch.empty_like(zn)
-    wrzt = zn.new_empty(nd, 2 * hdim, hdim)   # scratch: the weights
-    wht = zn.new_empty(nd, hdim, hdim)        # transposed
     lib = _lib()
     err = lib.bigdl_gru_bwd_f32(*(v.data_ptr() for v in (
-        zrz, zn, wrz, wh, hs, gout, dzrz, dzn, rh, wrzt, wht)),
-        t, nd, b, hdim, *_build.device_stream(zn.device))
+        zrz, zn, wrz, wh, hs, gout, dzrz, dzn, rh)),
+        t, nd, b, hdim, 0, 0, *_build.device_stream(zn.device))
     rec.raise_on(lib, err, _KERNEL, "bwd", hdim)
     gru_backward.launches += 1
     return dzrz, dzn, rh

@@ -17,8 +17,11 @@ Phases, each failing with a non-zero exit:
    at the decode step's full-width shape and at ragged page layouts;
    the max pool's forward, argmax and backward on tied inputs at nine
    geometries (LeNet's two pools and Inception-v1's first among them)
-   and on inputs with NaNs at three; fused SGD on six hyper sets, timed
-   at LeNet's and at the serving model's parameter counts; the LRN
+   and at Inception-v1's four 3x3 s2 pools at batch 128, and on inputs
+   with NaNs at three, timed at each of Inception's pools of either pool
+   kernel (the step's sums beside the rows); fused SGD on six hyper
+   sets, timed at LeNet's and at the serving model's parameter counts;
+   the LRN
    (forward with and without z, backward) at six shapes, Inception-v1's
    two among them; the stride-1 pool on tied inputs at ten geometries
    (Inception-v1's among them) and with NaNs at three; the int8 variant
@@ -81,8 +84,8 @@ Phases, each failing with a non-zero exit:
    samples 20 words, each a forward through the kernel, equal to the
    CPU's from the same parameters and ``RandomState``; three steps equal
    the CPU's.  The ``rnn`` and ``gru`` kernels are checked with phase 2
-   as the ``bilstm`` ones are, h0, each kernel's largest H and (rnn)
-   shapes whose cluster plans take 1, 2, 4, 8 and 16 blocks included,
+   as the ``bilstm`` ones are, h0, each kernel's largest H and shapes
+   whose cluster plans take 1, 2, 4, 8 and 16 blocks included,
    cuDNN's ``nn.RNN`` timed beside the port's layer and ``nn.GRU`` as a
    same-size reference (another function);
 8. the Bi-LSTM classifier's composition with GRU cells trains one epoch
@@ -129,6 +132,12 @@ POOL_CASES = [
     ((32, 64, 112, 112), (3, 3), (2, 2), ((0, 1), (0, 1))),
 ]
 NAN_POOL_CASES = (0, 2, 6)   # padded, asymmetric pads, LeNet's first pool
+# Inception-v1's four 3x3 s2 ceil pools at batch 128 (models/inception.py:
+# 56, 63, 66, 72), one launch each way a step
+INCEPTION_POOLS = [((128, 64, 112, 112), (3, 3), (2, 2), ((0, 1), (0, 1))),
+                   ((128, 192, 56, 56), (3, 3), (2, 2), ((0, 1), (0, 1))),
+                   ((128, 480, 28, 28), (3, 3), (2, 2), ((0, 1), (0, 1))),
+                   ((128, 832, 14, 14), (3, 3), (2, 2), ((0, 1), (0, 1)))]
 # Inception-v1 training slice: examples/train_inception.py --synthetic
 IBATCH, ICLASSES, IMAGES, ISIZE, ICROP = 128, 1000, 4 * 128, 256, 224
 ILR, IWD, ISTEPS, IVAL = 0.0898, 1e-4, 20, 256
@@ -171,6 +180,12 @@ S1_CASES = [
     ((1, 1, 243, 243), (242, 242), ((0, 0), (0, 0))),
 ]
 NAN_S1_CASES = (0, 2, 7)
+# Inception-v1's nine stride-1 pools at batch 128, by input: 3a, 3b, 4a,
+# 4b-4d (three), 4e, 5a-5b (two), one launch each way a step
+INCEPTION_S1_POOLS = [((IBATCH, c, hw, hw), (3, 3), ((1, 1), (1, 1)), n)
+                      for c, hw, n in ((192, 28, 1), (256, 28, 1),
+                                       (480, 14, 1), (512, 14, 3),
+                                       (528, 14, 1), (832, 7, 2))]
 # Bi-LSTM text classifier: examples/text_classifier.py --model lstm at
 # BASELINE config 4 (bench.py:317-323): 20 classes, embed 200, hidden 128,
 # batch 128, T 500; 1,280 synthetic documents (80/20 split: 8 steps and 2
@@ -233,10 +248,15 @@ SCAN_CASES = [(TSEQ, TBATCH, THIDDEN), (13, 37, 100), (7, 37, 151),
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
 # (T, D, B, H): tests/test_pallas_ops.py:260, tests/test_recurrent.py's
 # GRUCell(6, 5) over (4, 9, 6), a ragged H, T = 1, the largest H
-# (ops.gru.MAX_HIDDEN), then the classifier's width with GRU cells
+# (ops.gru.MAX_HIDDEN, filled in at run time), then the classifier's
+# width with GRU cells in both directions and in one; then an odd batch
+# at H that the plans' clusters of 2, 4, 8 and 16 blocks split raggedly
+# (the forward's weights in shared memory at 16, the backward's through
+# L2), and H = 700 (16 blocks, both through L2)
 GRU_CASES = [(13, 1, 5, 100), (9, 1, 4, 5), (7, 2, 37, 33), (1, 2, 3, 5),
              (2, 1, 3, None), (TSEQ, 2, TBATCH, THIDDEN),
-             (TSEQ, 1, TBATCH, THIDDEN)]
+             (TSEQ, 1, TBATCH, THIDDEN), (7, 2, 37, 150), (7, 2, 37, 200),
+             (7, 2, 37, 301), (7, 2, 37, 400), (5, 2, 37, 700)]
 # one query a row at positions spread over serving's context: seeds of
 # 16-256 tokens and 128 generated, in the widest table ContinuousDecoder
 # passes that traffic, the pages its longest request reaches (24)
@@ -601,6 +621,29 @@ def check_pool(torch, ops, g, shape, win, st, pads, nan=False):
             float((dx - dx_ref).abs().max()))
 
 
+def print_pool_row(label, case, row):
+    shape, win, st = case[:3]
+    print(f"{label} {shape} {win[0]}x{win[1]} s{st[0] if st else 1} pads "
+          f"{case[-1]}: kernel_ms={row['ms']:.5f} "
+          f"queued_ms={row['queued_ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+          f"library_ms={row['library_ms']:.5f} "
+          f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}, "
+          f"{row['bytes']} bytes)")
+
+
+def inception_sum(sums, name, row, n):
+    """Adds ``n`` launches of ``row`` to a pass's Inception step totals:
+    kernel, bound and library ms and launches a step."""
+    out = sums.setdefault(name, {"inception_ms": 0.0,
+                                 "inception_bound_ms": 0.0,
+                                 "inception_library_ms": 0.0,
+                                 "inception_launches_step": 0})
+    out["inception_ms"] += n * row["ms"]
+    out["inception_bound_ms"] += n * row["bound_ms"]
+    out["inception_library_ms"] += n * row["library_ms"]
+    out["inception_launches_step"] += n
+
+
 def pool_times(torch, ops, flush, g, shape, win, st, pads):
     """Kernel, plain and library (``F.max_pool2d`` with indices and its
     backward) times of the forward with argmax and of the backward, and
@@ -756,20 +799,30 @@ def phase_conv_kernels(torch, ops):
                 for k in NAN_S1_CASES]
     flush = torch.empty(64 * 2**20, device="cuda")   # 256 MB > 50 MB L2
     rows = {}
-    for label, times, cases in (
-            ("lrn", lrn_times, LRN_CASES[-2:]),
-            ("maxpool2d_s1", pool_s1_times, S1_CASES[3:5])):
-        for case in cases:
-            fwd, bwd = times(torch, ops, flush, g, *case)
-            for name, row in (("forward", fwd), ("backward", bwd)):
-                print(f"{label}_{name} {case[0]} {case[1:]}: "
-                      f"kernel_ms={row['ms']:.5f} "
-                      f"queued_ms={row['queued_ms']:.5f} "
-                      f"plain_ms={row['plain_ms']:.5f} "
-                      f"library_ms={row['library_ms']:.5f} "
-                      f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}, "
-                      f"{row['bytes']} bytes)")
-                rows[f"{label}_{name}"] = row   # the last, largest case
+    for case in LRN_CASES[-2:]:
+        fwd, bwd = lrn_times(torch, ops, flush, g, *case)
+        for name, row in (("forward", fwd), ("backward", bwd)):
+            print(f"lrn_{name} {case[0]} {case[1:]}: "
+                  f"kernel_ms={row['ms']:.5f} "
+                  f"queued_ms={row['queued_ms']:.5f} "
+                  f"plain_ms={row['plain_ms']:.5f} "
+                  f"library_ms={row['library_ms']:.5f} "
+                  f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}, "
+                  f"{row['bytes']} bytes)")
+            rows[f"lrn_{name}"] = row   # the last, largest case
+    # the stride-1 rows at 3b's input, the largest; beside them the step's
+    # nine pools
+    inception = {}
+    for *case, n in INCEPTION_S1_POOLS:
+        for name, row in zip(("forward", "backward"),
+                             pool_s1_times(torch, ops, flush, g, *case)):
+            print_pool_row(f"maxpool2d_s1_{name}", (case[0], case[1], None,
+                                                   case[2]), row)
+            inception_sum(inception, name, row, n)
+            if case[0] == S1_CASES[4][0]:
+                rows[f"maxpool2d_s1_{name}"] = row
+    for name in ("forward", "backward"):
+        rows[f"maxpool2d_s1_{name}"].update(inception[name])
     print(f"lrn: {len(LRN_CASES)} cases, forward max_abs_err="
           f"{max(e[0] for e in lrn_errs):.3e} (rtol/atol "
           f"{LRN_FWD_TOL['rtol']}/{LRN_FWD_TOL['atol']}), backward "
@@ -1240,8 +1293,8 @@ def print_rows(label, case, rows):
 def phase_rnn_gru_kernels(torch, ops):
     """The RNN and GRU kernels against their plain versions at the JAX
     tests' shapes, a ragged H, T = 1, h0 (RNN), the largest H each takes
-    and the full widths, the RNN's cluster plan printed for each case and
-    every cluster size run, with times at (500, 2, 128, 128) beside the
+    and the full widths, each case's cluster plans printed and every
+    cluster size run, with times at (500, 2, 128, 128) beside the
     bilstm rows and at SimpleRNN's chunk, cuDNN's nn.RNN beside the port's
     layer and nn.GRU as a same-size reference; one H past each limit is
     refused."""
@@ -1262,6 +1315,12 @@ def phase_rnn_gru_kernels(torch, ops):
              for cell, bwd in (("RnnFwd", False), ("RnnBwd", True))}
     covered("rnn", plans)
     print_errs("gru", gru_errs)
+    plans = {cluster_plan_line(f"gru {(t, nd, b, h)} {cell}", "gru", cell,
+                               gru.plan(nd, b, h, bwd),
+                               gru.kernel_plan(nd, b, h, bwd), nd, b)
+             for t, nd, b, h in gru_cases
+             for cell, bwd in (("GruFwd", False), ("GruBwd", True))}
+    covered("gru", plans)
     for name, limit, call in (
             ("rnn", rnn.MAX_HIDDEN, lambda h: ops.rnn_forward(
                 torch.zeros(2, 1, 3, h, device="cuda"),
@@ -1633,26 +1692,28 @@ def sgd_times(torch, ops, flush, g, shapes):
 
 def phase_train_kernels(torch, ops):
     """The training slice's kernels against their plain versions, with
-    times at LeNet's shapes and at one larger shape a model of the repo
-    has: Inception-v1's first pool, the serving model's parameters."""
+    times at LeNet's shapes and at larger shapes models of the repo have:
+    Inception-v1's first pool at batch 32 (the rows' shape) and its four
+    3x3 s2 pools at batch 128, the serving model's parameters."""
     from bigdl_tpu_torch.models.lenet import LeNet5
     from bigdl_tpu_torch.models.transformer import TransformerLM
 
     g = torch.Generator(device="cuda").manual_seed(1)
-    errs = [check_pool(torch, ops, g, *case) for case in POOL_CASES]
+    errs = [check_pool(torch, ops, g, *case)
+            for case in POOL_CASES + INCEPTION_POOLS]
     errs += [check_pool(torch, ops, g, *POOL_CASES[k], nan=True)
              for k in NAN_POOL_CASES]
     sgd_err = check_sgd(torch, ops, g)
     flush = torch.empty(64 * 2**20, device="cuda")   # 256 MB > 50 MB L2
-    for case in POOL_CASES[-3:]:
-        fwd, bwd = pool_times(torch, ops, flush, g, *case)
-        for name, row in (("forward", fwd), ("backward", bwd)):
-            print(f"maxpool2d_{name} {case[0]} {case[1][0]}x{case[1][1]} "
-                  f"s{case[2][0]} pads {case[3]}: kernel_ms={row['ms']:.5f} "
-                  f"plain_ms={row['plain_ms']:.5f} "
-                  f"library_ms={row['library_ms']:.5f} "
-                  f"bound_ms={row['bound_ms']:.5f} ({row['bytes']} bytes) "
-                  f"queued_ms={row['queued_ms']:.5f}")
+    inception = {}
+    for case in POOL_CASES[-3:] + INCEPTION_POOLS:
+        rows = pool_times(torch, ops, flush, g, *case)
+        for name, row in zip(("forward", "backward"), rows):
+            print_pool_row(f"maxpool2d_{name}", case, row)
+            if case in INCEPTION_POOLS:
+                inception_sum(inception, name, row, 1)
+        if case == POOL_CASES[-1]:
+            fwd, bwd = rows   # the rows' shape
     lenet = [tuple(p.shape) for p in LeNet5(device="cuda").parameters()]
     serving = [tuple(p.shape) for p in TransformerLM(
         VOCAB, D_MODEL, HEADS, LAYERS, HIDDEN, dropout=0.0,
@@ -1664,9 +1725,12 @@ def phase_train_kernels(torch, ops):
               f"library_ms={sgd['library_ms']:.5f} "
               f"bound_ms={sgd['bound_ms']:.5f} ({20 * sgd['params']} bytes) "
               f"queued_ms={sgd['queued_ms']:.5f}")
+    for name, row in (("forward", fwd), ("backward", bwd)):
+        row.update(inception[name])
     fwd_err = max(e[0] for e in errs)
     bwd_err = max(e[1] for e in errs)
-    print(f"maxpool2d: {len(POOL_CASES)} geometries with ties and "
+    print(f"maxpool2d: {len(POOL_CASES) + len(INCEPTION_POOLS)} geometries "
+          f"with ties and "
           f"{len(NAN_POOL_CASES)} with NaNs, forward and argmax equal, "
           f"backward max_abs_err={bwd_err:.3e}; fused_sgd: "
           f"{len(SGD_HYPERS)} hyper sets x 3 steps, max_abs_err="
@@ -2825,11 +2889,14 @@ def main(argv) -> int:
     # attention row the two-call reference (dequantize, then SDPA); the
     # rnn forward and backward rows also their time at SimpleRNN's chunk;
     # the attention rows their split count and their time at serving's
-    # own context
+    # own context; the pool rows the sums over an Inception step's pools
+    # at their own shapes (kernel, bound and library ms, launches a step)
     extra = ("layer_library_ms", "layer_port_ms", "same_size_library_ms",
              "two_einsum_ms", "dequant_sdpa_ms", "bilstm_forward_ms",
              "simplernn_ms", "simplernn_bound_ms", "splits", "serving_ms",
-             "serving_plain_ms", "serving_library_ms", "serving_bound_ms")
+             "serving_plain_ms", "serving_library_ms", "serving_bound_ms",
+             "inception_ms", "inception_bound_ms", "inception_library_ms",
+             "inception_launches_step")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
         for r in kernel_rows]}))

@@ -7,7 +7,9 @@ kernel's multi-step blocking (``test_pallas_ops.py::test_gru_blocked``'s
 shape at ``block_t=4``); the r o hprev stack the backward hands the
 weight gradient; the ``torch.autograd.Function`` by ``gradcheck`` in
 float64.  Tolerances are the JAX tests' own: forward rtol 1e-5 / atol
-1e-6, gradients rtol 1e-4 / atol 1e-5.
+1e-6, gradients rtol 1e-4 / atol 1e-5.  Also the two-phase cluster
+plan of ``csrc/gru.cu`` on ``csrc/recurrence_cluster.cuh``, mirrored by
+``ops.gru.plan``, and the limit it sets.
 
 On the CPU the wrappers take their plain versions; the CUDA kernels are
 held against those on the card by ``chip_smoke.py``.
@@ -135,18 +137,120 @@ def test_no_kernel_for_other_devices():
 
 
 def test_hidden_limit_mirrors_the_kernel_source():
-    """The wrapper's block sizes are csrc/gru.cu's; every H up to the
-    limit fits one row, and 8 rows fit the classifier's 128."""
-    src = (Path(gru.__file__).parents[1] / "csrc" / "gru.cu").read_text()
-    assert ("R * 9 * H + red_floats(groups(H, 2 * H), 2 * H, groups(H, H), "
-            "H, R)") in src
-    assert ("R * 11 * H + red_floats(groups(H, H), H, groups(2 * H, H), H, "
-            "R)") in src
-    assert gru.MAX_HIDDEN == 5282
-    assert max(gru.smem_bytes(gru.MAX_HIDDEN, 1)) <= rec.MAX_SMEM
-    assert max(gru.smem_bytes(gru.MAX_HIDDEN + 1, 1)) > rec.MAX_SMEM
-    assert gru.rows_for(128) == gru.rows_for(100) == 8
-    assert gru.rows_for(gru.MAX_HIDDEN) == 1
+    """The wrapper's cells are csrc/gru.cu's two-phase cells on the cluster
+    plan of csrc/recurrence_cluster.cuh: the forward (GruFwd: r, z over h,
+    then n over r o h) and the backward (GruBwd: dq over dr, dz with
+    wrz's rows in place, then drh over dn with wh's); the limit is the
+    largest H whose forward and backward 16-block clusters of one batch
+    row fit a block's shared memory, above the former row rule's 5,282,
+    and every H up to it has both plans."""
+    csrc = Path(gru.__file__).parents[1] / "csrc"
+    src = (csrc / "gru.cu").read_text()
+    assert '#include "recurrence_cluster.cuh"' in src
+    assert not (csrc / "recurrence_block.cuh").exists()
+    for path in csrc.iterdir():
+        assert "recurrence_block.cuh" not in path.read_text(), path.name
+    for cell, (g, e, n_loc), v, (g1, v1), reverse, weight_t in (
+            ("GruFwd", gru.FWD_CELL, gru.FWD_VALUES, gru.FWD_PHASE1,
+             "false", "false"),
+            ("GruBwd", gru.BWD_CELL, gru.BWD_VALUES, gru.BWD_PHASE1,
+             "true", "true")):
+        body = src[src.index(f"struct {cell} {{"):]
+        body = body[:body.index("\n};\n")]
+        assert f"static constexpr int E = {e}, L = {n_loc};" in body
+        assert f"kReverse = {reverse}, kHasC = false;" in body
+        p0 = body[body.index("struct P0 {"):body.index("struct P1 {")]
+        p1 = body[body.index("struct P1 {"):]
+        assert f"static constexpr int G = {g}, V = {v};" in p0
+        assert f"static constexpr int G = {g1}, V = {v1};" in p1
+        for phase in (p0, p1):
+            assert f"kWeightT = {weight_t};" in phase
+    # where each unit's E inputs come from: zr, zz of zrz and zn; the
+    # backward's r, z (dzrz), n (dzn), h_{t-1} (hs at t - 1) and gout
+    assert "return q < 2 ? In{0, q, 2, 0} : In{1, 0, 1, 0};" in src
+    assert ("return q < 2 ? In{0, q, 2, 0}\n"
+            "                 : (q == 2 ? In{1, 0, 1, 0}\n"
+            "                           : (q == 3 ? In{2, 0, 1, -1} : "
+            "In{3, 0, 1, 0}));") in src
+    assert "__global__ void __launch_bounds__(kThreads)" not in src
+    assert "launch_transpose" not in src   # the rows read in place
+    assert "launch_planned<GruFwd>" in src and "launch_planned<GruBwd>" in src
+    head = (csrc / "recurrence_cluster.cuh").read_text()
+    assert "struct Phases<Cell, std::void_t<typename Cell::P1>>" in head
+    assert "static constexpr int n = 2, L = Cell::L;" in head
+    assert gru.MAX_HIDDEN == 14302 > 5282
+    fwd, bwd = gru.smem_bytes(gru.MAX_HIDDEN)
+    assert fwd < bwd <= rec.MAX_SMEM   # the backward's dr, dz state sets it
+    assert max(gru.smem_bytes(gru.MAX_HIDDEN + 1)) > rec.MAX_SMEM
+    for h in (1, 2, 5, 15, 16, 17, 128, 1200, 5282, gru.MAX_HIDDEN):
+        for bwd_ in (False, True):
+            assert gru.plan(2, 3, h, bwd_)["C"] > 0
+    assert gru.plan(1, 3, gru.MAX_HIDDEN, True)["C"] == 16
+
+
+# (D, B, H) -> (C, R, RT, KP, S, staged, depth, bytes) of the forward and
+# the backward: the GRU classifier's width in both directions and in one
+# (both weight slices in one block: no cluster), ragged H whose clusters
+# take 2, 4, 8 and 16 blocks with B = 37, H = 700 and 1,500 (16 blocks,
+# the weights through L2) and the largest H
+PLANS = {
+    (2, 128, 128): ((1, 2, 2, 2, 128, 1, 8, 229376),
+                    (1, 2, 2, 2, 128, 1, 5, 231424)),
+    (1, 128, 128): ((1, 1, 1, 2, 128, 1, 8, 215040),
+                    (1, 1, 1, 2, 128, 1, 8, 223744)),
+    (2, 37, 100): ((1, 1, 1, 2, 100, 1, 8, 134400),
+                   (1, 1, 1, 2, 100, 1, 8, 141200)),
+    (2, 37, 150): ((2, 2, 2, 2, 75, 1, 8, 157872),
+                   (2, 2, 2, 2, 75, 1, 8, 168672)),
+    (2, 37, 200): ((4, 4, 4, 4, 50, 1, 8, 153600),
+                   (4, 4, 4, 4, 50, 1, 8, 169600)),
+    (2, 37, 301): ((8, 8, 8, 4, 38, 1, 8, 197776),
+                   (8, 8, 8, 4, 38, 1, 8, 226864)),
+    (2, 37, 400): ((16, 16, 8, 4, 25, 1, 8, 225600),
+                   (16, 16, 8, 4, 25, 0, 8, 144000)),
+    (2, 37, 700): ((16, 16, 8, 2, 44, 0, 8, 162816),
+                   (16, 16, 8, 2, 44, 0, 6, 224512)),
+    (2, 9, 1500): ((16, 4, 4, 2, 94, 0, 8, 87104),
+                   (16, 4, 4, 2, 94, 0, 8, 135168)),
+    (1, 3, 14302): ((16, 1, 1, 1, 894, 0, 8, 207472),
+                    (16, 1, 1, 1, 894, 0, 3, 232448)),
+}
+
+
+@pytest.mark.parametrize("shape", list(PLANS))
+def test_plan_is_pinned(shape):
+    """The forward's and backward's plans at each shape: a function of the
+    shape alone, within a block's shared memory, its units split into C
+    slices that cover H, its clusters side by side on the SMs; RT keeps
+    a lane's accumulators (rows x two weights a unit) within 16."""
+    nd, b, h = shape
+    for want, bwd in zip(PLANS[shape], (False, True)):
+        got = gru.plan(nd, b, h, bwd)
+        assert tuple(got[f] for f in rec.PLAN_FIELDS) == want
+        c, rows = got["C"], got["R"]
+        assert got["bytes"] <= rec.MAX_SMEM and got["depth"] >= rec.MIN_DEPTH
+        assert got["RT"] * 2 <= rec.MAX_ACC
+        assert sum((k + 1) * h // c - k * h // c for k in range(c)) == h
+        assert nd * -(-b // rows) * c <= rec.SMS or rows == 16
+
+
+def test_two_phase_sizes_mirror_the_header():
+    """A two-phase block holds each phase's state once (the other phase's
+    barrier separates its reads from its next writes), L local values a
+    unit, both weight slices where staged (phase 0's product reads phase
+    1's V values a unit, and the other way round) and the ring; a
+    one-phase block the same sizes as before, its state double-buffered."""
+    h, rows, c, depth = 128, 2, 1, 5
+    s = h
+    ws = lambda n: -(-h * (s * n + 4) // 4) * 4
+    want = (h * rows + 2 * h * rows + 2 * rows * s + ws(1 * 2) + ws(1 * 1)
+            + depth * 5 * rows * s)
+    assert rec.cluster_smem_floats(*gru.BWD_CELL, h, rows, c, True, depth,
+                                   v=gru.BWD_VALUES,
+                                   phase1=gru.BWD_PHASE1) == want
+    # one phase (the LSTM forward): two buffers of h, c, one weight slice
+    assert rec.cluster_smem_floats(4, 4, True, h, rows, c, True, depth) == (
+        2 * h * rows + rows * s + ws(4) + depth * 4 * rows * s)
 
 
 @pytest.mark.parametrize("which", ["forward", "backward"])

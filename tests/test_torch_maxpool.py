@@ -2,8 +2,9 @@
 ``nn.SpatialMaxPooling``) against the JAX package's Mosaic pool
 ``mosaic_maxpool2d`` in interpret mode, as tests/test_pallas_ops.py's
 ``TestMosaicMaxPool`` runs it: output, the stored window argmax and the
-gradient, on that test's six geometries with quantized inputs, so that
-ties occur and the first-max rule decides where the gradient goes.
+gradient, on that test's six geometries and Inception-v1's four 3x3 s2
+pools with quantized inputs, so that ties occur and the first-max rule
+decides where the gradient goes.
 
 On the CPU the wrappers take their plain versions; the CUDA kernels are
 held against those on the card by ``chip_smoke.py``.
@@ -29,13 +30,21 @@ CASES = [   # tests/test_pallas_ops.py TestMosaicMaxPool.CASES
     ((37, 1, 13, 7), (3, 3), (2, 2), ((1, 1), (1, 1))),
     ((1, 100, 8, 8), (3, 3), (1, 1), ((0, 0), (0, 0))),
 ]
+# Inception-v1's four 3x3 s2 ceil pools (models/inception.py): inputs of
+# 112, 56, 28 and 14 a side, at N = 1 and a few channels
+INCEPTION_CASES = [
+    ((1, 2, 112, 112), (3, 3), (2, 2), ((0, 1), (0, 1))),
+    ((1, 3, 56, 56), (3, 3), (2, 2), ((0, 1), (0, 1))),
+    ((1, 4, 28, 28), (3, 3), (2, 2), ((0, 1), (0, 1))),
+    ((1, 5, 14, 14), (3, 3), (2, 2), ((0, 1), (0, 1))),
+]
 
 
 def _quantized(rs, shape):
     return (np.round(rs.randn(*shape) * 2) / 2).astype(np.float32)
 
 
-@pytest.mark.parametrize("shape,win,st,pads", CASES)
+@pytest.mark.parametrize("shape,win,st,pads", CASES + INCEPTION_CASES)
 def test_forward_argmax_grad_match_mosaic(shape, win, st, pads):
     rs = np.random.RandomState(0)
     x = _quantized(rs, shape)
@@ -81,7 +90,7 @@ def test_nan_rule_matches_mosaic(shape, win, st, pads):
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(d_jax), **TOL)
 
 
-@pytest.mark.parametrize("shape,win,st,pads", CASES)
+@pytest.mark.parametrize("shape,win,st,pads", CASES + INCEPTION_CASES)
 def test_plain_backward_equals_autograd_of_plain_forward(shape, win, st,
                                                          pads):
     """The gather backward (from the argmax alone) equals autograd

@@ -11,14 +11,12 @@ rtol 1e-5 / atol 1e-6, gradients rtol 1e-4 / atol 1e-5.
 
 Also the shared build and plan rules: the cluster plan and shared-memory
 sizes mirror ``csrc/recurrence_cluster.cuh`` and ``csrc/rnn.cu``, H past
-``MAX_HIDDEN`` is refused before a launch, the row rule of
-``csrc/recurrence_block.cuh`` (gru) is mirrored, and the
-library's cache key moves with the bytes of a header it includes.
+``MAX_HIDDEN`` is refused before a launch, and the library's cache key
+moves with the bytes of a header it includes.
 
 On the CPU the wrappers take their plain versions; the CUDA kernels are
 held against those on the card by ``chip_smoke.py``.
 """
-import re
 import shutil
 from pathlib import Path
 
@@ -271,24 +269,6 @@ def test_hidden_above_the_limit_raises_before_a_launch(which):
         call(rnn.MAX_HIDDEN)
 
 
-def test_row_rule_is_the_block_headers():
-    """ops._recurrence mirrors csrc/recurrence_block.cuh, which gru.cu
-    still uses (rnn.cu and bilstm.cu no longer include it): the row
-    choices, the block's threads and shared memory, and the split of a
-    product."""
-    assert '#include "recurrence_block.cuh"' in (CSRC / "gru.cu").read_text()
-    for name in ("rnn.cu", "bilstm.cu"):
-        assert "recurrence_block.cuh" not in (CSRC / name).read_text()
-    src = (CSRC / "recurrence_block.cuh").read_text()
-    assert re.search(r"constexpr int kRowChoices\[\] = \{8, 4, 2, 1\};", src)
-    assert f"constexpr int kThreads = {rec.THREADS};" in src
-    assert f"constexpr int kMaxSmem = {rec.MAX_SMEM};" in src
-    assert rec.ROW_CHOICES == (8, 4, 2, 1)
-    assert "if (N >= kThreads) return 1;" in src
-    assert [rec.groups(m, n) for m, n in ((40, 40), (128, 512), (4, 100),
-                                          (600, 600))] == [12, 1, 4, 1]
-
-
 @pytest.mark.parametrize("t,b,k,j,nd,want", [
     (500, 128, 128, 128, 2, (33, 1952)),
     (4, 4, 40, 40, 1, (1, 16)),
@@ -302,14 +282,13 @@ def test_weight_gradient_slices(t, b, k, j, nd, want):
 
 @pytest.mark.parametrize("header,moved", [
     ("recurrence_dwh.cuh", {"bilstm", "rnn", "gru"}),
-    ("recurrence_cluster.cuh", {"rnn", "bilstm"}),
+    ("recurrence_cluster.cuh", {"rnn", "bilstm", "gru"}),
 ])
 def test_build_key_follows_included_headers(tmp_path, monkeypatch, header,
                                             moved):
     """A library's cache key hashes its source and every local header it
-    includes: editing recurrence_dwh.cuh moves the key of the three
-    libraries with a weight gradient, editing recurrence_cluster.cuh the
-    keys of rnn and bilstm, and nothing else."""
+    includes: editing recurrence_dwh.cuh or recurrence_cluster.cuh moves
+    the keys of the three recurrence libraries, and nothing else."""
     csrc = tmp_path / "csrc"
     shutil.copytree(CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
@@ -317,6 +296,8 @@ def test_build_key_follows_included_headers(tmp_path, monkeypatch, header,
         "rnn.cu", "recurrence_cluster.cuh", "recurrence_dwh.cuh"]
     assert [p.name for p in _build.sources("bilstm")] == [
         "bilstm.cu", "recurrence_cluster.cuh", "recurrence_dwh.cuh"]
+    assert [p.name for p in _build.sources("gru")] == [
+        "gru.cu", "recurrence_cluster.cuh", "recurrence_dwh.cuh"]
     before = {n: _build.target(n) for n in _build.SOURCES}
     path = csrc / header
     path.write_text(path.read_text() + "\n// edited\n")

@@ -12,7 +12,9 @@ plain versions, written on those of ``ops.maxpool`` at stride 1.  There
 is no other path.  The tie and NaN rules are those of ``ops.maxpool``:
 the first max in row-major window order wins, a NaN counts only at a
 window's first tap.  The ``launches`` counts count kernel launches
-only.
+only.  :func:`plan` mirrors how the kernels cut a launch into groups
+(whole planes, row bands, or the unstaged kernels), so that the CPU tests
+reach it; :func:`kernel_plan` asks the built library itself.
 """
 from __future__ import annotations
 
@@ -32,6 +34,20 @@ _GEOM = [_LL, *[_I] * 9, _VP]  # NC, H W OH OW kh kw plh plw dev, stream
 _S1 = (1, 1)
 _lib_cache = []
 
+# csrc/maxpool2d_s1.cu's constants: a block's threads (a group's tasks),
+# the rows a task slides down, the ring's stages, a bulk copy's alignment
+# in bytes, the shared bytes a block takes at most while two fit an SM,
+# and where a band needs more, at most
+MAX_THREADS = 512
+STRIP_ROWS = 8
+STAGES = 3
+ALIGN = 16
+SMEM_CAP = 113 * 1024 - 64
+SMEM_MAX = 227 * 1024 - 64
+PATHS = ("direct", "planes", "bands")
+_PLAN_KEYS = ("path", "planes", "rows", "xrows", "grows", "threads",
+              "groups", "smem_bytes")
+
 
 def _lib() -> ctypes.CDLL:
     if not _lib_cache:
@@ -40,10 +56,109 @@ def _lib() -> ctypes.CDLL:
         lib.bigdl_maxpool2d_s1_fwd_f32.restype = _I
         lib.bigdl_maxpool2d_s1_bwd_f32.argtypes = [_VP, _VP, _VP, *_GEOM]
         lib.bigdl_maxpool2d_s1_bwd_f32.restype = _I
+        lib.bigdl_maxpool2d_s1_plan.argtypes = [_LL, *[_I] * 7, _VP]
+        lib.bigdl_maxpool2d_s1_plan.restype = None
         lib.bigdl_cuda_error_string.argtypes = [_I]
         lib.bigdl_cuda_error_string.restype = ctypes.c_char_p
         _lib_cache.append(lib)
     return _lib_cache[0]
+
+
+def _round4(n):
+    return (n + 3) // 4 * 4
+
+
+def _strips(n):
+    return -(-n // STRIP_ROWS)
+
+
+def _tap_bytes(kh, kw):
+    """Bytes of a first-max tap in the backward's shared array; 0: too
+    many taps for two bytes (the unstaged kernel)."""
+    return 1 if kh * kw <= 256 else (2 if kh * kw <= 65536 else 0)
+
+
+def _sized(nc, h, w, oh, ow, kh, kw, bwd, planes, rows):
+    """(tasks of a group, plan sizes) at ``planes`` planes and ``rows``
+    rows of the pass's own output a group, as ``size_plan``."""
+    total = h if bwd else oh
+    bands = -(-total // rows)
+    if bands == 1:
+        xrows, grows = h, (oh if bwd else 0)
+    elif not bwd:
+        xrows, grows = min(h, rows + kh - 1), 0
+    else:
+        grows = min(oh, rows + kh - 1)
+        xrows = min(h, grows + kh - 1)
+    tasks = planes * ow * _strips(grows if bwd else rows)
+    if bwd:
+        tasks = max(tasks, planes * w * _strips(rows))
+    xbuf = _round4(planes * xrows * w + 3)
+    obuf = _round4(planes * rows * (w if bwd else ow) + 3)
+    if bwd:
+        gbuf = _round4(planes * grows * ow + 3)
+        taps = -(-planes * grows * ow * _tap_bytes(kh, kw) // ALIGN) * ALIGN
+        smem = 4 * (STAGES * (xbuf + gbuf) + obuf) + taps
+    else:
+        smem = 4 * (STAGES * xbuf + 2 * obuf)
+    return tasks, {"planes": planes, "rows": rows, "xrows": xrows,
+                   "grows": grows,
+                   "threads": (min(tasks, MAX_THREADS) + 31) // 32 * 32,
+                   "groups": -(-nc // planes) * bands, "smem_bytes": smem}
+
+
+def plan(shape, window, pads, backward=False):
+    """How csrc/maxpool2d_s1.cu cuts a forward (or backward) launch on x
+    of ``shape``, as its ``make_plan``: a dict of ``path`` ("planes":
+    ``planes`` whole planes a group; "bands": one band of ``rows`` rows of
+    one plane; "direct": the unstaged kernels), ``rows`` (of y forward, dx
+    backward, a group), ``xrows`` / ``grows`` (staged rows of x and g a
+    plane), ``threads``, ``groups``, ``stages`` and ``smem_bytes``."""
+    n, c, h, w = shape
+    kh, kw = window
+    oh, ow = out_size(h, w, window, _S1, pads)
+    nc = n * c
+    out = {"path": "direct", "planes": 0, "rows": 0, "xrows": 0,
+           "grows": 0, "threads": 0, "groups": 0, "smem_bytes": 0,
+           "stages": STAGES}
+    if backward and _tap_bytes(kh, kw) == 0:
+        return out
+    total = h if backward else oh
+    tasks, sized = _sized(nc, h, w, oh, ow, kh, kw, backward, 1, total)
+    if tasks <= MAX_THREADS and sized["smem_bytes"] <= SMEM_CAP:
+        planes = min(MAX_THREADS // tasks, nc)
+        while True:
+            _, sized = _sized(nc, h, w, oh, ow, kh, kw, backward, planes,
+                              total)
+            if planes == 1 or sized["smem_bytes"] <= SMEM_CAP:
+                break
+            planes -= 1
+        return out | sized | {"path": "planes"}
+    cols = max(w, ow) if backward else ow
+    first = min(total, STRIP_ROWS * max(1, MAX_THREADS // cols))
+    for cap in (SMEM_CAP, SMEM_MAX):
+        rows = first
+        while True:
+            _, sized = _sized(nc, h, w, oh, ow, kh, kw, backward, 1, rows)
+            if rows == 1 or sized["smem_bytes"] <= cap:
+                break
+            rows -= 1
+        if sized["smem_bytes"] <= cap:
+            return out | sized | {"path": "bands"}
+    return out | sized | {"path": "direct"}
+
+
+def kernel_plan(shape, window, pads, backward=False):
+    """The plan the built library computes (needs nvcc), to hold
+    :func:`plan` to it on the card."""
+    n, c, h, w = shape
+    oh, ow = out_size(h, w, window, _S1, pads)
+    got = (ctypes.c_longlong * 8)()
+    _lib().bigdl_maxpool2d_s1_plan(n * c, h, w, oh, ow, *window,
+                                   int(backward), got)
+    out = dict(zip(_PLAN_KEYS, got)) | {"stages": STAGES}
+    out["path"] = PATHS[out["path"]]
+    return out
 
 
 def maxpool2d_s1_forward_reference(x, window, pads):

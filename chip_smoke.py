@@ -164,9 +164,13 @@ LRN_CASES = [
     ((IBATCH, 192, 56, 56), LRN),
 ]
 # (shape, window, pads), stride 1: tests/test_pallas_ops.py:80-84, then
-# Inception-v1's 3a, 3b, 4a and 5a pools at batch 128, a plane of many
-# tiles, one whose backward tile needs more than 48 KB of shared memory,
-# and a window no shared-memory tile holds (the unstaged kernels)
+# Inception-v1's 3a, 3b, 4a and 5a pools at batch 128, a plane cut into
+# row bands, a window whose backward bands need more than two blocks an SM
+# of shared memory, and a window no band holds (the unstaged kernels);
+# then 7x7 planes whose groups of 73 start off 16-byte boundaries (NC 150:
+# two misaligned starts, a tail group of 4), a plane too large for a block
+# (360 KB) cut into 8-row bands with W not a multiple of 4, and a 5x5
+# window with pads 2 on 14x14 planes (the runtime-window kernels)
 S1_CASES = [
     ((2, 4, 14, 14), (3, 3), ((1, 1), (1, 1))),
     ((1, 2, 8, 8), (3, 3), ((1, 1), (1, 1))),
@@ -178,8 +182,11 @@ S1_CASES = [
     ((2, 3, 112, 112), (3, 3), ((1, 1), (1, 1))),
     ((1, 2, 100, 100), (40, 40), ((0, 0), (0, 0))),
     ((1, 1, 243, 243), (242, 242), ((0, 0), (0, 0))),
+    ((3, 50, 7, 7), (3, 3), ((1, 1), (1, 1))),
+    ((1, 2, 301, 299), (3, 3), ((1, 1), (1, 1))),
+    ((4, 37, 14, 14), (5, 5), ((2, 2), (2, 2))),
 ]
-NAN_S1_CASES = (0, 2, 7)
+NAN_S1_CASES = (0, 2, 7, 10)
 # Inception-v1's nine stride-1 pools at batch 128, by input: 3a, 3b, 4a,
 # 4b-4d (three), 4e, 5a-5b (two), one launch each way a step
 INCEPTION_S1_POOLS = [((IBATCH, c, hw, hw), (3, 3), ((1, 1), (1, 1)), n)
@@ -758,6 +765,31 @@ def check_pool_s1(torch, ops, g, shape, win, pads, nan=False):
             float((dx - dx_ref).abs().max()))
 
 
+def pool_s1_plan_line(ops, shape, win, pads):
+    """The plan each pass takes at ``shape`` (``ops.maxpool_s1.plan``),
+    held equal to the one the built library computes; one line."""
+    plans = []
+    for bwd in (False, True):
+        want = ops.maxpool_s1.plan(shape, win, pads, bwd)
+        got = ops.maxpool_s1.kernel_plan(shape, win, pads, bwd)
+        if want != got:
+            raise AssertionError(f"maxpool2d_s1 plan at {shape} {win} "
+                                 f"{pads} bwd={bwd}: the library's {got}, "
+                                 f"the mirror's {want}")
+        if want["path"] == "planes":
+            how = f"planes, {want['planes']} a group"
+        elif want["path"] == "bands":
+            how = f"bands of {want['rows']} rows"
+        else:
+            how = "direct (unstaged)"
+        if want["path"] != "direct":
+            how += (f" ({want['threads']} threads, {want['groups']} groups, "
+                    f"{want['stages']} stages, {want['smem_bytes']} B)")
+        plans.append(how)
+    return (f"maxpool2d_s1 plan {shape} {win[0]}x{win[1]} pads {pads}: "
+            f"forward {plans[0]}; backward {plans[1]}")
+
+
 def pool_s1_times(torch, ops, flush, g, shape, win, pads):
     """Forward and backward rows.  Library: ``F.max_pool2d`` with indices
     and ``aten.max_pool2d_with_indices_backward`` (symmetric pads).
@@ -785,6 +817,13 @@ def pool_s1_times(torch, ops, flush, g, shape, win, pads):
             gy, x, win, (1, 1), (plh, plw), (1, 1), False, idx))
     bwd.update(byte_bound(4 * (2 * x.numel() + y.numel()),
                           taps * (y.numel() + 2 * x.numel())))
+    if y.shape == x.shape:
+        # what the card reaches for the same bytes: a copy (x read, y
+        # written) and an add (x and g read, dx written)
+        out = torch.empty_like(x)
+        fwd["same_bytes_ms"] = time_ms(torch, lambda: out.copy_(x), flush)
+        bwd["same_bytes_ms"] = time_ms(
+            torch, lambda: torch.add(x, gy, out=out), flush)
     return fwd, bwd
 
 
@@ -794,7 +833,10 @@ def phase_conv_kernels(torch, ops):
     and 3b pools (3b's input is the largest a stride-1 pool takes)."""
     g = torch.Generator(device="cuda").manual_seed(2)
     lrn_errs = [check_lrn(torch, ops, g, *case) for case in LRN_CASES]
-    s1_errs = [check_pool_s1(torch, ops, g, *case) for case in S1_CASES]
+    s1_errs = []
+    for case in S1_CASES:
+        s1_errs.append(check_pool_s1(torch, ops, g, *case))
+        print(pool_s1_plan_line(ops, *case))
     s1_errs += [check_pool_s1(torch, ops, g, *S1_CASES[k], nan=True)
                 for k in NAN_S1_CASES]
     flush = torch.empty(64 * 2**20, device="cuda")   # 256 MB > 50 MB L2
@@ -811,13 +853,16 @@ def phase_conv_kernels(torch, ops):
                   f"{row['bytes']} bytes)")
             rows[f"lrn_{name}"] = row   # the last, largest case
     # the stride-1 rows at 3b's input, the largest; beside them the step's
-    # nine pools
+    # nine pools (and, at each shape, a copy or add of the same bytes)
     inception = {}
     for *case, n in INCEPTION_S1_POOLS:
         for name, row in zip(("forward", "backward"),
                              pool_s1_times(torch, ops, flush, g, *case)):
             print_pool_row(f"maxpool2d_s1_{name}", (case[0], case[1], None,
                                                    case[2]), row)
+            print(f"  the same bytes through "
+                  f"{'a copy' if name == 'forward' else 'an add'}: "
+                  f"{row['same_bytes_ms']:.5f} ms")
             inception_sum(inception, name, row, n)
             if case[0] == S1_CASES[4][0]:
                 rows[f"maxpool2d_s1_{name}"] = row
@@ -2890,13 +2935,14 @@ def main(argv) -> int:
     # rnn forward and backward rows also their time at SimpleRNN's chunk;
     # the attention rows their split count and their time at serving's
     # own context; the pool rows the sums over an Inception step's pools
-    # at their own shapes (kernel, bound and library ms, launches a step)
+    # at their own shapes (kernel, bound and library ms, launches a step);
+    # the stride-1 rows a PyTorch copy or add moving their bytes
     extra = ("layer_library_ms", "layer_port_ms", "same_size_library_ms",
              "two_einsum_ms", "dequant_sdpa_ms", "bilstm_forward_ms",
              "simplernn_ms", "simplernn_bound_ms", "splits", "serving_ms",
              "serving_plain_ms", "serving_library_ms", "serving_bound_ms",
              "inception_ms", "inception_bound_ms", "inception_library_ms",
-             "inception_launches_step")
+             "inception_launches_step", "same_bytes_ms")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
         for r in kernel_rows]}))

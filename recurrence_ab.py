@@ -13,7 +13,9 @@ and ``bilstm_backward`` also at D = 1, ``gru_forward`` and
 ``gru_backward`` also at D = 1, ``lstm_scan`` at (T, B, H) = (500, 128,
 128), ``rnn_forward`` / ``rnn_backward`` at SimpleRNN's (4, 1, 4, 40) and
 (8, 1, 4, 40), ``maxpool2d_backward`` at (32, 64, 112, 112) and at
-Inception-v1's four 3x3 s2 pools at batch 128, and ``paged_attention``
+Inception-v1's four 3x3 s2 pools at batch 128, ``maxpool2d_s1_forward``
+and ``maxpool2d_s1_backward`` at Inception-v1's six stride-1 pool inputs
+(3x3 p1, batch 128), and ``paged_attention``
 over fp32 and int8
 pools at the decode step's full width (B 8, S 1, H 4, hd 256, ps 16, P
 64, positions spread to 1023, row 0 dead), at serving's own context
@@ -32,12 +34,13 @@ bilstm forward and backward calls and of three gru forward and backward
 calls under the profiler.  The bilstm, rnn, gru, ``lstm_scan`` and
 attention outputs of fixed inputs are kept (``.recurrence_ab/`` in the
 working directory), with the gru's distance from a float64 plain run,
-and the pool backward's dx at each timed shape is digested (sha256);
-their largest differences between the trees are printed, and whether
-each tree's bits repeat across its two turns.  Prints the card's name
-and power limit first; exits 1 if a turn fails, a tree's outputs do not
-repeat, an rnn, bilstm or ``lstm_scan`` output or a pool dx differs from
-the parent's in a bit, or a gru output leaves the kernel tolerances of
+and the pool backward's dx at each timed shape, and the stride-1 pool's
+y and dx at each of its shapes, are digested (sha256); their largest
+differences between the trees are printed, and whether each tree's bits
+repeat across its two turns.  Prints the card's name and power limit
+first; exits 1 if a turn fails, a tree's outputs do not repeat, an rnn,
+bilstm or ``lstm_scan`` output or a pool digest differs from the
+parent's in a bit, or a gru output leaves the kernel tolerances of
 the parent's (rtol 1e-5 / atol 1e-6 forward, 1e-4 / 1e-5 backward) and
 lies further from the float64 run than twice the parent's.
 """
@@ -63,6 +66,11 @@ GRU_TOL = {"hs": FWD_TOL, "dzrz": BWD_TOL, "dzn": BWD_TOL, "rh": FWD_TOL,
 # and Inception-v1's four 3x3 s2 ceil pools at batch 128
 POOLS = [(32, 64, 112, 112), (128, 64, 112, 112), (128, 192, 56, 56),
          (128, 480, 28, 28), (128, 832, 14, 14)]
+# the stride-1 pool: Inception-v1's six distinct 3x3 p1 pool inputs at
+# batch 128 (3a, 3b, 4a, 4b-4d, 4e, 5a-5b)
+S1_POOLS = [(128, 192, 28, 28), (128, 256, 28, 28), (128, 480, 14, 14),
+            (128, 512, 14, 14), (128, 528, 14, 14), (128, 832, 7, 7)]
+S1_GEOM = ((3, 3), ((1, 1), (1, 1)))
 # the first steps of the long-context windows: their rows reach 8, 16, ...,
 # 56 pages
 LONG_WINDOWS = (96, 224, 352, 480, 608, 736, 864)
@@ -258,8 +266,19 @@ def turn(tree, keep):
         gy = r(*arg.shape)
         call = (lambda arg=arg, gy=gy, geom=geom, shape=shape:
                 ops.maxpool2d_backward(arg, gy, *geom, shape))
-        pool_digests[str(shape)] = _digest(call())
+        pool_digests[f"maxpool2d_backward dx {shape}"] = _digest(call())
         pool_calls[f"maxpool2d_backward {shape}"] = call
+    for shape in S1_POOLS:
+        x = r(*shape).mul_(2).round_().div_(2)   # ties
+        y = ops.maxpool2d_s1_forward(x, *S1_GEOM)
+        gy = r(*y.shape)
+        pool_digests[f"maxpool2d_s1 y {shape}"] = _digest(y)
+        pool_digests[f"maxpool2d_s1 dx {shape}"] = _digest(
+            ops.maxpool2d_s1_backward(x, gy, *S1_GEOM))
+        pool_calls[f"maxpool2d_s1_forward {shape}"] = (
+            lambda x=x: ops.maxpool2d_s1_forward(x, *S1_GEOM))
+        pool_calls[f"maxpool2d_s1_backward {shape}"] = (
+            lambda x=x, gy=gy: ops.maxpool2d_s1_backward(x, gy, *S1_GEOM))
     for t, nd, b, h in [FULL] + SIMPLE:
         zr, wr, go = r(t, nd, b, h), u(h, nd, h, h), r(t, nd, b, h)
         hr = ops.rnn_forward(zr, wr)
@@ -388,10 +407,16 @@ def main(argv) -> int:
             print(f"{tag}   {us:10.1f} us/call {key}")
     digests = [res["pool_digests"] for _, res in runs]
     pool_equal = all(d == digests[0] for d in digests)
-    for shape in digests[0]:
-        print(f"maxpool2d_backward dx {shape}: " + " ".join(
-            f"{tag} {d[shape] == digests[0][shape]}"
+    for key in digests[0]:
+        print(f"{key} equal to the parent's first turn: " + " ".join(
+            f"{tag} {d[key] == digests[0][key]}"
             for (tag, _), d in zip(runs[1:], digests[1:])))
+    for name in runs[0][1]["ms"]:
+        if name.startswith("maxpool2d_s1_"):
+            par = [res["ms"][name] for tag, res in runs if tag == "parent"]
+            chg = [res["ms"][name] for tag, res in runs if tag == "change"]
+            print(f"{name}: change faster than both parent turns in both "
+                  f"of its turns {max(chg) < min(par)}")
     import torch
 
     parent, change = torch.load(keep[0]), torch.load(keep[1])
@@ -419,7 +444,7 @@ def main(argv) -> int:
     bits_equal = all(worst[k] == 0.0 for k in worst
                      if k.startswith(("rnn", "bilstm", "lstm_scan")))
     print(json.dumps({"rnn_bilstm_lstm_scan_bits_equal": bits_equal,
-                      "pool_dx_bits_equal": pool_equal,
+                      "pool_bits_equal": pool_equal,
                       "gru_within_tolerance": gru_within,
                       "max_diff_from_parent": worst,
                       "bits_repeat": repeat}))

@@ -6,13 +6,15 @@
 // `_lstm_scan_kernel` (behind `lstm_scan`).  Contract, as there, over the
 // hoisted input projection zx (T, D, B, 4H) and the recurrent weights wht
 // (D, H, 4H), D directions (1: Recurrent, 2: BiRecurrent; the kernels
-// know nothing of reversal), from h0, c0 (lstm_scan, D = 1) or h = c = 0:
+// know nothing of reversal), from h0, c0 (lstm_scan, a truncated run's
+// carried state) or h = c = 0:
 //   z   = zx[t,d] + h . wht[d]             gates i, f, g, o: the four
 //   c'  = sig(f) c + sig(i) tanh(g)        H-wide slices of z, in order
 //   h'  = sig(o) tanh(c')                  -> hs[t,d] (and cs[t,d])
-// and the backward in reverse time from dh = dc = 0, with hprev/cprev the
-// step t-1 values (zeros at t = 0) and the gates recomputed from
-// zx[t] + hprev . wht:
+// and the backward in reverse time from dh = dc = 0 (a truncated run's
+// chunk starts its dc at 0 too: h0 and c0 are constants), with
+// hprev/cprev the step t-1 values (h0, c0 or zeros at t = 0) and the
+// gates recomputed from zx[t] + hprev . wht:
 //   dh_tot = gout[t] + dh,  dc_tot = dc + dh_tot o (1 - tanh(c_t)^2)
 //   dz     = [dc_tot g i(1-i), dc_tot cprev f(1-f), dc_tot i(1-g^2),
 //             dh_tot tanh(c_t) o(1-o)]    -> dzx[t]
@@ -44,8 +46,10 @@
 // activated gates, c_t, c_{t-1}, gout) are prefetched into the ring; the
 // gates come from a parallel tiled product over every step first (they
 // depend only on the stored h stack), written into dzx, which the loop
-// overwrites with dz unit by unit.  dwht is a tiled product over dzx and
-// the h stack (recurrence_dwh.cuh), split over the time*batch axis into
+// overwrites with dz unit by unit; c_{t-1} at t = 0 is c0, read through
+// the ring's initial-value pointer.  dwht is a tiled product over dzx
+// and the h stack (h0 at t = 0) (recurrence_dwh.cuh), split over the
+// time*batch axis into
 // fixed slices summed in a fixed order.  No atomics: the same bits every
 // run.  The TPU kernels' VMEM-resident Wh, `block_t` grid steps and time
 // padding exist for their sequential grid and have no counterpart here.
@@ -105,12 +109,12 @@ struct LstmBwd {
 
 // The backward's gates, all steps at once: gates[t,d,b,:] =
 // act(zx[t,d,b,:] + hprev[t,d,b,:] . wht[d]), sigmoid on i, f, o and tanh
-// on g.  Rows m = t * B + b of direction blockIdx.z; a tiled product over
-// k < H.
+// on g, hprev h0 (or zeros when null) at t = 0.  Rows m = t * B + b of
+// direction blockIdx.z; a tiled product over k < H.
 __global__ void __launch_bounds__(kGemmThreads)
     gates_kernel(const float* __restrict__ zx, const float* __restrict__ wht,
-                 const float* __restrict__ hs, float* __restrict__ gates,
-                 Dims dm) {
+                 const float* __restrict__ hs, const float* __restrict__ h0,
+                 float* __restrict__ gates, Dims dm) {
   __shared__ __align__(16) float As[kBK][kBM + kPad];
   __shared__ __align__(16) float Bs[kBK][kBN + kPad];
   const int H = dm.H, H4 = 4 * H, d = blockIdx.z, tid = threadIdx.x;
@@ -119,7 +123,7 @@ __global__ void __launch_bounds__(kGemmThreads)
   const int n0 = blockIdx.y * kBN;
   const int ty = tid / 16, tx = tid % 16;
   const float* W = wht + (size_t)d * H * H4;
-  const Stack hprev{hs, nullptr, true};
+  const Stack hprev{hs, h0, true};
   // loaders: A rows (m, 4 consecutive k), B rows (k, 4 consecutive n)
   const int am = tid / 4, ak = (tid % 4) * 4;
   const int bk = tid / 16, bn = (tid % 16) * 4;
@@ -174,14 +178,15 @@ int bigdl_lstm_fwd_f32(const float* zx, const float* wht, const float* h0,
                                       static_cast<cudaStream_t>(stream));
 }
 
-// Backward: dzx (T, D, B, 4H) from the forward's zx, wht, hs and cs and
-// the cotangent gout (T, D, B, H), under the plan of the shape (C = R =
-// 0) or at (C, R).  Two launches on the stream: the gates of every step
-// (into dzx), then the serial loop.
+// Backward: dzx (T, D, B, 4H) from the forward's zx, wht, hs and cs, its
+// initial state h0, c0 (D, B, H) (zeros where null) and the cotangent
+// gout (T, D, B, H), under the plan of the shape (C = R = 0) or at (C,
+// R).  Two launches on the stream: the gates of every step (into dzx),
+// then the serial loop.
 int bigdl_lstm_bwd_f32(const float* zx, const float* wht, const float* hs,
-                       const float* cs, const float* gout, float* dzx, int T,
-                       int D, int B, int H, int C, int R, int device,
-                       void* stream) {
+                       const float* cs, const float* h0, const float* c0,
+                       const float* gout, float* dzx, int T, int D, int B,
+                       int H, int C, int R, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Dims dm{T, D, B, H};
@@ -192,8 +197,9 @@ int bigdl_lstm_bwd_f32(const float* zx, const float* wht, const float* hs,
   const long long M = (long long)T * B;
   const dim3 ggrid((unsigned)((M + kBM - 1) / kBM), (4 * H + kBN - 1) / kBN,
                    D);
-  gates_kernel<<<ggrid, kGemmThreads, 0, st>>>(zx, wht, hs, dzx, dm);
-  const Args a{{dzx, cs, gout}, wht, nullptr, nullptr, dzx, nullptr, dm};
+  gates_kernel<<<ggrid, kGemmThreads, 0, st>>>(zx, wht, hs, h0, dzx, dm);
+  const Args a{{dzx, cs, gout}, wht, nullptr, nullptr, dzx, nullptr, dm,
+               nullptr, nullptr, c0};
   return (int)launch_planned<LstmBwd>(a, p, st);
 }
 
@@ -204,16 +210,17 @@ void bigdl_lstm_plan(int bwd, int D, int B, int H, int* out) {
 }
 
 // dwht (D, H, 4H) = sum over t, b of hprev^T . dzx (recurrence_dwh.cuh),
-// the time*batch axis cut into S slices of `slice` rows; `part` is
-// scratch of S * D * H * 4H floats.  Two launches: the sliced products,
-// then their sum in order.
-int bigdl_lstm_dwh_f32(const float* hs, const float* dzx, float* part,
-                       float* dwht, int T, int D, int B, int H, int S,
-                       long long slice, int device, void* stream) {
+// hprev the h stack at t - 1 and h0 (or zeros when null) at t = 0, the
+// time*batch axis cut into S slices of `slice` rows; `part` is scratch of
+// S * D * H * 4H floats.  Two launches: the sliced products, then their
+// sum in order.
+int bigdl_lstm_dwh_f32(const float* hs, const float* h0, const float* dzx,
+                       float* part, float* dwht, int T, int D, int B, int H,
+                       int S, long long slice, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const DwhShape sh{T, D, B, H, 4 * H, slice};
-  return (int)launch_dwh(Stack{hs, nullptr, true}, dzx, part, dwht, sh, S,
+  return (int)launch_dwh(Stack{hs, h0, true}, dzx, part, dwht, sh, S,
                          static_cast<cudaStream_t>(stream));
 }
 

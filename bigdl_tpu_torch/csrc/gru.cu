@@ -5,12 +5,14 @@
 // `_gru_bwd_call` (the pair behind `gru_recurrence`).  Contract, as
 // there, over the hoisted input projections zrz (T, D, B, 2H) and zn
 // (T, D, B, H) (biases added) and the recurrent weights wrz (D, H, 2H)
-// and wh (D, H, H), D directions, h = 0 at t = 0:
+// and wh (D, H, H), D directions, from h0 (D, B, H) (a truncated run's
+// carried state) or h = 0 at t = 0:
 //   r, z = sig(zrz[t,d] + h . wrz[d])       the two H-wide halves
 //   n    = tanh(zn[t,d] + (r o h) . wh[d])
 //   h'   = (1 - z) n + z h                  -> hs[t,d]
-// and the backward in reverse time from dh = 0, with hprev the step t-1
-// value (zeros at t = 0) and r, z, n recomputed from the h stack:
+// and the backward in reverse time from dh = 0 (h0 is a constant), with
+// hprev the step t-1 value (h0 or zeros at t = 0) and r, z, n recomputed
+// from the h stack:
 //   dh_tot = gout[t] + dh
 //   dn     = dh_tot (1 - z)(1 - n^2)                    -> dzn[t]
 //   drh    = dn . wh[d]^T
@@ -38,12 +40,15 @@
 // exchanged a step before (t + 1), whose update forms dh_tot and
 // exchanges and stores dn; phase 1 is dn . wh^T, whose update exchanges
 // and stores dr, dz and keeps dh_tot z + drh r for the next step.  z and
-// h (forward), dh_tot and the carried dh (backward) are each unit's two
-// local values.  The backward's r, z and n depend only on the stored h
-// stack, so a parallel pre-pass computes them for every step first (two
-// tiled products, writing r o hprev beside them) into dzrz and dzn, which
-// the loop overwrites unit by unit; its five inputs a unit and a step are
-// r, z, n, h_{t-1} and gout.  Both weight gradients are tiled products of
+// h (forward, h from h0), dh_tot and the carried dh (backward) are each
+// unit's two local values; h0 is also the state phase 0 of step 0 reads.
+// The backward's r, z and n depend only on the stored h stack, so a
+// parallel pre-pass (recurrence_dwh.cuh) computes them for every step
+// first (two tiled products, writing r o hprev beside them) into dzrz and
+// dzn, which the loop overwrites unit by unit; its five inputs a unit and
+// a step are
+// r, z, n, h_{t-1} (h0 at t = 0, through the ring's initial-value
+// pointer) and gout.  Both weight gradients are tiled products of
 // recurrence_dwh.cuh.  The plan (C, R) is a function of (cell, D, B, H)
 // (ops/_recurrence.py mirrors it); H up to the largest whose 16-block
 // cluster of one row fits shared memory, forward and backward, is taken,
@@ -56,9 +61,10 @@ namespace {
 
 // phase 0: r, z = sig(zrz + h . wrz[d]), exchanging r o h; phase 1:
 // n = tanh(zn + (r o h) . wh[d]), h' = (1 - z) n + z h, exchanged.  Local
-// values z and h; x = (zr, zz, zn) from the stacks (zrz, zn).
+// values z and h (h from h0); x = (zr, zz, zn) from the stacks (zrz, zn).
 struct GruFwd {
   static constexpr int E = 3, L = 2;
+  static constexpr int kLocalH0 = 1;   // h starts from h0
   static constexpr bool kReverse = false, kHasC = false;
   __host__ __device__ static constexpr In input(int q) {
     return q < 2 ? In{0, q, 2, 0} : In{1, 0, 1, 0};
@@ -91,6 +97,7 @@ struct GruFwd {
 // dn . wh[d]^T, dr and dz exchanged.  Local values dh_tot and dh.
 struct GruBwd {
   static constexpr int E = 5, L = 2;
+  static constexpr int kLocalH0 = -1;
   static constexpr bool kReverse = true, kHasC = false;
   __host__ __device__ static constexpr In input(int q) {
     return q < 2 ? In{0, q, 2, 0}
@@ -121,89 +128,37 @@ struct GruBwd {
   };
 };
 
-// The backward's gates, all steps at once, as a tiled product over k < H
-// of the stack `left` and W[d] (H x J): out[row, n] = act(in[row, n] +
-// left[row] . W[d][:, n]) for rows m = t * B + b of direction blockIdx.z.
-// TANH picks tanh (n) or the sigmoid (r, z); with RH the r half also
-// writes rh[row, n] = r * hprev[row, n] (left is the h stack at t - 1).
-template <bool TANH, bool RH>
-__global__ void __launch_bounds__(kGemmThreads)
-    gates_kernel(const float* __restrict__ in, const float* __restrict__ w,
-                 Stack left, float* __restrict__ out, float* __restrict__ rh,
-                 Dims dm, int J) {
-  __shared__ __align__(16) float As[kBK][kBM + kPad];
-  __shared__ __align__(16) float Bs[kBK][kBN + kPad];
-  const int H = dm.H, d = blockIdx.z, tid = threadIdx.x;
-  const long long M = (long long)dm.T * dm.B;
-  const long long m0 = (long long)blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int ty = tid / 16, tx = tid % 16;
-  const float* W = w + (size_t)d * H * J;
-  const int am = tid / 4, ak = (tid % 4) * 4;
-  const int bk = tid / 16, bn = (tid % 16) * 4;
-  const float* arow =
-      m0 + am < M ? stack_row(left, dm.D, dm.B, H, d, m0 + am) : nullptr;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < H; k0 += kBK) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int k = k0 + ak + q;
-      As[ak + q][am] = (arow != nullptr && k < H) ? arow[k] : 0.0f;
-      const int n = n0 + bn + q, kb = k0 + bk;
-      Bs[bk][bn + q] = (kb < H && n < J) ? W[(size_t)kb * J + n] : 0.0f;
-    }
-    __syncthreads();
-    tile_fma(As, Bs, acc, ty, tx);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-    const long long t = m / dm.B, b = m - t * dm.B;
-    const size_t row = ((size_t)t * dm.D + d) * dm.B + b;
-    const float* hp = RH ? stack_row(left, dm.D, dm.B, H, d, m) : nullptr;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= J) continue;
-      const float v = in[row * J + n] + acc[i][j];
-      const float a = TANH ? tanhf(v) : sigm(v);
-      out[row * J + n] = a;
-      if (RH && n < H) rh[row * H + n] = hp != nullptr ? a * hp[n] : 0.0f;
-    }
-  }
-}
-
 }  // namespace
 
 extern "C" {
 
 // Forward over zrz (T, D, B, 2H), zn (T, D, B, H), wrz (D, H, 2H) and wh
-// (D, H, H): hs (T, D, B, H), under the plan of the shape (C = R = 0) or
-// at (C, R).  One launch.  Returns the cudaError_t of the launch.
+// (D, H, H) from h0 (D, B, H), or zeros when null: hs (T, D, B, H), under
+// the plan of the shape (C = R = 0) or at (C, R).  One launch.  Returns
+// the cudaError_t of the launch.
 int bigdl_gru_fwd_f32(const float* zrz, const float* zn, const float* wrz,
-                      const float* wh, float* hs, int T, int D, int B, int H,
-                      int C, int R, int device, void* stream) {
+                      const float* wh, const float* h0, float* hs, int T,
+                      int D, int B, int H, int C, int R, int device,
+                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Dims dm{T, D, B, H};
   if (empty(dm)) return 0;
-  const Args a{{zrz, zn}, wrz, nullptr, nullptr, hs, nullptr, dm, wh,
-               nullptr};
+  const Args a{{zrz, zn}, wrz, h0, nullptr, hs, nullptr, dm, wh, nullptr};
   return (int)launch_planned<GruFwd>(a, plan_of<GruFwd>(D, B, H, C, R),
                                      static_cast<cudaStream_t>(stream));
 }
 
 // Backward: dzrz (T, D, B, 2H), dzn (T, D, B, H) and the r o hprev stack
-// rh (T, D, B, H), from the forward's inputs, its hs and the cotangent
-// gout (T, D, B, H), under the plan of the shape (C = R = 0) or at (C,
-// R).  Three launches on the stream: r and z of every step (with rh), n
-// of every step, the serial loop.
+// rh (T, D, B, H), from the forward's inputs, its hs, its h0 (zeros when
+// null) and the cotangent gout (T, D, B, H), under the plan of the shape
+// (C = R = 0) or at (C, R).  Three launches on the stream: r and z of
+// every step (with rh), n of every step, the serial loop.
 int bigdl_gru_bwd_f32(const float* zrz, const float* zn, const float* wrz,
-                      const float* wh, const float* hs, const float* gout,
-                      float* dzrz, float* dzn, float* rh, int T, int D, int B,
-                      int H, int C, int R, int device, void* stream) {
+                      const float* wh, const float* hs, const float* h0,
+                      const float* gout, float* dzrz, float* dzn, float* rh,
+                      int T, int D, int B, int H, int C, int R, int device,
+                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Dims dm{T, D, B, H};
@@ -211,16 +166,12 @@ int bigdl_gru_bwd_f32(const float* zrz, const float* zn, const float* wrz,
   const Plan p = plan_of<GruBwd>(D, B, H, C, R);
   if (p.C == 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long M = (long long)T * B;
-  const unsigned mt = (unsigned)((M + kBM - 1) / kBM);
-  gates_kernel<false, true><<<dim3(mt, (2 * H + kBN - 1) / kBN, D),
-                              kGemmThreads, 0, st>>>(
-      zrz, wrz, Stack{hs, nullptr, true}, dzrz, rh, dm, 2 * H);
-  gates_kernel<true, false><<<dim3(mt, (H + kBN - 1) / kBN, D), kGemmThreads,
-                              0, st>>>(zn, wh, Stack{rh, nullptr, false},
-                                       dzn, nullptr, dm, H);
+  launch_prepass<kSigmoid, true>(zrz, wrz, Stack{hs, h0, true}, dzrz, rh,
+                                 DwhShape{T, D, B, H, 2 * H, 0}, st);
+  launch_prepass<kTanh, false>(zn, wh, Stack{rh, nullptr, false}, dzn,
+                               nullptr, DwhShape{T, D, B, H, H, 0}, st);
   const Args a{{dzrz, dzn, hs, gout}, wrz, nullptr, nullptr, dzrz, nullptr,
-               dm, wh, dzn};
+               dm, wh, dzn, h0};
   return (int)launch_planned<GruBwd>(a, p, st);
 }
 
@@ -231,18 +182,19 @@ void bigdl_gru_plan(int bwd, int D, int B, int H, int* out) {
 }
 
 // dwrz (D, H, 2H) = sum over t, b of hprev^T . dzrz (the h stack at
-// t - 1, zeros at t = 0) and dwh (D, H, H) = sum of rh^T . dzn, in S1 and
-// S2 slices of slice1 and slice2 rows (recurrence_dwh.cuh); `part` is
-// scratch of max(S1 * 2, S2) * D * H * H floats, used by one product
-// after the other.  Four launches.
-int bigdl_gru_dwh_f32(const float* hs, const float* rh, const float* dzrz,
-                      const float* dzn, float* part, float* dwrz, float* dwh,
-                      int T, int D, int B, int H, int S1, long long slice1,
-                      int S2, long long slice2, int device, void* stream) {
+// t - 1, h0 or zeros when null at t = 0) and dwh (D, H, H) = sum of rh^T
+// . dzn, in S1 and S2 slices of slice1 and slice2 rows
+// (recurrence_dwh.cuh); `part` is scratch of max(S1 * 2, S2) * D * H * H
+// floats, used by one product after the other.  Four launches.
+int bigdl_gru_dwh_f32(const float* hs, const float* h0, const float* rh,
+                      const float* dzrz, const float* dzn, float* part,
+                      float* dwrz, float* dwh, int T, int D, int B, int H,
+                      int S1, long long slice1, int S2, long long slice2,
+                      int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = launch_dwh(Stack{hs, nullptr, true}, dzrz, part, dwrz,
+  err = launch_dwh(Stack{hs, h0, true}, dzrz, part, dwrz,
                    DwhShape{T, D, B, H, 2 * H, slice1}, S1, st);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_dwh(Stack{rh, nullptr, false}, dzn, part, dwh,

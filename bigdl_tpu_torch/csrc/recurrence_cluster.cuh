@@ -97,11 +97,14 @@ struct In {
 //              backward reads wht's rows in place
 //   update(x, z, c, y) -> y[0..V), the unit's new exchanged values,
 //              given its E prefetched inputs x, its G sums z and its c
+// A one-phase cell that declares kAct (rnn.cu's) is handed the launch's
+// activation as update(act, x, z, c, y).
 // A two-phase cell has E, kReverse, input(q), kHasC = false, L local
-// values a unit (zeros at the start) and two phases P0 and P1, each with
-// G, kWeightT and V, the values it exchanges; a phase's product sums over
-// the other phase's V values a unit, and its update(x, z, loc, y) may
-// read and write the unit's L local values.
+// values a unit (zeros at the start, but local value kLocalH0, where it
+// is not -1, from h0) and two phases P0 and P1, each with G, kWeightT
+// and V, the values it exchanges; a phase's product sums over the other
+// phase's V values a unit, and its update(x, z, loc, y) may read and
+// write the unit's L local values.
 struct Args {
   const float* in[4];   // the cell's input stacks
   const float* w;       // (D, H, G*V*H): wht, read transposed (kWeightT);
@@ -114,7 +117,30 @@ struct Args {
   Dims dm;
   const float* w1;      // a two-phase cell's phase 1 weight
   float* mid;           // (T, D, B, V*H) its phase 0 state, or null
+  const float* prev0;   // (D, B, width*H): what an input reads at a step
+                        // before 0 (a carried c0 or h0), null for zeros
 };
+
+// An element-wise activation: a kind (rnn.cu's codes) and up to three
+// parameters.  Cells without kAct ignore it.
+struct Act {
+  int kind;
+  float a, b, c;
+};
+
+// Whether an input of `Cell` is read a step back (and so may read prev0).
+template <class Cell>
+__host__ __device__ constexpr bool reads_prev() {
+  for (int q = 0; q < Cell::E; ++q)
+    if (Cell::input(q).shift < 0) return true;
+  return false;
+}
+
+template <class Cell, class = void>
+struct TakesAct : std::false_type {};
+
+template <class Cell>
+struct TakesAct<Cell, std::void_t<decltype(Cell::kAct)>> : std::true_type {};
 
 struct Plan {
   int C, R, RT, KP, S, staged, depth, bytes;
@@ -151,6 +177,7 @@ struct Phases {
   using P0 = Cell;
   using P1 = Cell;
   static constexpr int n = 1, L = Cell::kHasC ? 1 : 0;
+  static constexpr int kH0 = -1;
 };
 
 template <class Cell>
@@ -158,6 +185,7 @@ struct Phases<Cell, std::void_t<typename Cell::P1>> {
   using P0 = typename Cell::P0;
   using P1 = typename Cell::P1;
   static constexpr int n = 2, L = Cell::L;
+  static constexpr int kH0 = Cell::kLocalH0;
 };
 
 // the weights a unit takes at one reduction index, in phase 0 and 1, and
@@ -446,7 +474,7 @@ __device__ __forceinline__ void lane_dot(const float* hp, int hstep,
 // after that step's block barrier, so after every thread's stores.
 template <class Cell, int RT, bool STAGED>
 __global__ void __launch_bounds__(kThreads, 1)
-    cluster_recurrence(Args a, Plan p) {
+    cluster_recurrence(Args a, Plan p, Act act) {
   using Ps = Phases<Cell>;
   using P0 = typename Ps::P0;
   using P1 = typename Ps::P1;
@@ -480,8 +508,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float* W1 =
       NP == 2 ? a.w1 + (size_t)d * H * weights1<Cell>() * H : W0;
 
-  // h0 (or zeros), c0 (or zeros) and the weight slices join step 0's
-  // copy group
+  // h0 (or zeros), the local values from c0 or h0 (or zeros) and the
+  // weight slices join step 0's copy group
   for (int e = tid; e < P1::V * H * R; e += kThreads) {
     const int u = e / R, r = e - u * R;   // V = 1 where h0 is given
     if (P1::V == 1 && a.h0 != nullptr && r < rows) {
@@ -491,9 +519,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
   for (int e = tid; e < L * R * S; e += kThreads) {
-    const int lr = e / S, j = e - lr * S, r = lr % R;   // c: l = 0
-    if (Cell::kHasC && a.c0 != nullptr && r < rows && j < sb) {
-      cp_async4(loc_s + e, a.c0 + ((size_t)d * dm.B + b0 + r) * H + u0 + j);
+    const int lr = e / S, j = e - lr * S, l = lr / R, r = lr - l * R;
+    const float* init = Cell::kHasC && l == 0 ? a.c0
+                        : (l == Ps::kH0 ? a.h0 : nullptr);   // c: l = 0
+    if (init != nullptr && r < rows && j < sb) {
+      cp_async4(loc_s + e, init + ((size_t)d * dm.B + b0 + r) * H + u0 + j);
     } else {
       loc_s[e] = 0.0f;
     }
@@ -525,11 +555,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // the block's inputs of step s into ring stage `stg`: E x rows runs of
   // sb floats, in 16-byte copies where aligned, zeros for an input whose
-  // step is outside [0, T); read after a barrier.  a.in[in.a] with a
+  // step is outside [0, T) (prev0 for one before 0, where given); read
+  // after a barrier.  a.in[in.a] with a
   // runtime stack copies Args to local memory (88 bytes of stack in the
   // backward cells); unrolling over q, or a select, measured slower
   const bool vec = ((S | H | u0 | sb) & 3) == 0;
   const int per = vec ? sb / 4 : sb, copies = E * rows * per;
+  constexpr bool kReadsPrev = reads_prev<Cell>();
   auto prefetch = [&](int s, float* stg) {
     if (s < dm.T) {
       const int t = Cell::kReverse ? dm.T - 1 - s : s;
@@ -537,9 +569,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int qr = e / per, i = e - qr * per;
         const int q = qr / rows, r = qr - q * rows;
         const In in = Cell::input(q);
-        const int ti = t + in.shift;
+        int ti = t + in.shift;
         float* dst = stg + ((size_t)q * R + r) * S + (vec ? 4 * i : i);
-        if (ti < 0 || ti >= dm.T) {
+        const float* stack = a.in[in.a];
+        if (kReadsPrev && ti < 0 && a.prev0 != nullptr) {
+          stack = a.prev0;   // one (D, B, width * H) step
+          ti = 0;
+        } else if (ti < 0 || ti >= dm.T) {
           if (vec) {
             *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
           } else {
@@ -548,7 +584,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           continue;
         }
         const float* src =
-            a.in[in.a] +
+            stack +
             (((size_t)ti * dm.D + d) * dm.B + b0 + r) * ((size_t)in.width * H) +
             (size_t)in.v * H + u0 + (vec ? 4 * i : i);
         if (vec) {
@@ -621,7 +657,9 @@ __global__ void __launch_bounds__(kThreads, 1)
             float lv[L > 0 ? L : 1] = {};
 #pragma unroll
             for (int l = 0; l < L; ++l) lv[l] = loc_s[(l * R + r) * S + j];
-            if constexpr (NP == 1) {
+            if constexpr (NP == 1 && TakesAct<Cell>::value) {
+              Cell::update(act, x, acc[rr], lv[0], y);
+            } else if constexpr (NP == 1) {
               Cell::update(x, acc[rr], lv[0], y);
             } else {
               Ph::update(x, acc[rr], lv, y);
@@ -726,7 +764,8 @@ inline cudaError_t set_attrs(const void* fn, int bytes, int C) {
 // The first launch of a (kernel, C > 1, bytes) checks that at least one
 // such cluster can be resident; a refused launch returns its error.
 template <class Cell, int RT, bool STAGED>
-cudaError_t launch_cluster(const Args& a, const Plan& p, cudaStream_t st) {
+cudaError_t launch_cluster(const Args& a, const Plan& p, cudaStream_t st,
+                           const Act& act) {
   const void* fn = (const void*)cluster_recurrence<Cell, RT, STAGED>;
   cudaError_t err = set_attrs(fn, p.bytes, p.C);
   if (err != cudaSuccess) return err;
@@ -755,7 +794,8 @@ cudaError_t launch_cluster(const Args& a, const Plan& p, cudaStream_t st) {
     if (clusters < 1) return cudaErrorLaunchOutOfResources;
     if (n_seen < 32) seen[n_seen++] = {fn, p.C, p.bytes};
   }
-  err = cudaLaunchKernelEx(&cfg, cluster_recurrence<Cell, RT, STAGED>, a, p);
+  err = cudaLaunchKernelEx(&cfg, cluster_recurrence<Cell, RT, STAGED>, a, p,
+                           act);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -763,23 +803,26 @@ cudaError_t launch_cluster(const Args& a, const Plan& p, cudaStream_t st) {
 // The launch at the plan's RT and weight placement; RT is R capped at
 // kMaxAcc / (G * V).
 template <class Cell, int RT>
-cudaError_t launch_rt(const Args& a, const Plan& p, cudaStream_t st) {
+cudaError_t launch_rt(const Args& a, const Plan& p, cudaStream_t st,
+                      const Act& act) {
   if constexpr (RT * max_gv<Cell>() <= kMaxAcc) {
-    return p.staged ? launch_cluster<Cell, RT, true>(a, p, st)
-                    : launch_cluster<Cell, RT, false>(a, p, st);
+    return p.staged ? launch_cluster<Cell, RT, true>(a, p, st, act)
+                    : launch_cluster<Cell, RT, false>(a, p, st, act);
   }
   return cudaErrorInvalidValue;
 }
 
+// `act` reaches the update of a cell that declares kAct.
 template <class Cell>
-cudaError_t launch_planned(const Args& a, const Plan& p, cudaStream_t st) {
+cudaError_t launch_planned(const Args& a, const Plan& p, cudaStream_t st,
+                           const Act& act = Act{}) {
   if (p.C == 0) return cudaErrorInvalidValue;
   switch (p.RT) {
-    case 1: return launch_rt<Cell, 1>(a, p, st);
-    case 2: return launch_rt<Cell, 2>(a, p, st);
-    case 4: return launch_rt<Cell, 4>(a, p, st);
-    case 8: return launch_rt<Cell, 8>(a, p, st);
-    case 16: return launch_rt<Cell, 16>(a, p, st);
+    case 1: return launch_rt<Cell, 1>(a, p, st, act);
+    case 2: return launch_rt<Cell, 2>(a, p, st, act);
+    case 4: return launch_rt<Cell, 4>(a, p, st, act);
+    case 8: return launch_rt<Cell, 8>(a, p, st, act);
+    case 16: return launch_rt<Cell, 16>(a, p, st, act);
   }
   return cudaErrorInvalidValue;
 }

@@ -1,5 +1,7 @@
 // The recurrence kernels' weight gradient, shared by bilstm.cu, rnn.cu
-// and gru.cu, and the tiled product it is built from.
+// and gru.cu, the tiled product it is built from, and the backward's
+// pre-pass over every step at once (gru.cu's gates, rnn.cu's
+// pre-activation).
 //
 // dw[d] (K x J) = sum over the time*batch rows kk = t * B + b of
 // left[kk]^T . right[kk], where `right` is a (T, D, B, J) stack (dz) and
@@ -111,6 +113,78 @@ __global__ void __launch_bounds__(kGemmThreads)
       if (n < J) out[(size_t)k * J + n] = acc[i][j];
     }
   }
+}
+
+// The pre-pass's epilogue: none, the sigmoid or tanh.
+enum Epi { kIdentity, kSigmoid, kTanh };
+
+// A backward's pre-pass, all steps at once, as a tiled product over k < K
+// of the stack `left` and W[d] (K x J): out[row, n] = EPI(in[row, n] +
+// left[row] . W[d][:, n]) for rows m = t * B + b of direction blockIdx.z
+// (sh.slice unused).  With RH, columns n < K also write rh[row, n] =
+// out[row, n] * left[row][n] (gru.cu: r o hprev, `left` the h stack at
+// t - 1).
+template <int EPI, bool RH>
+__global__ void __launch_bounds__(kGemmThreads)
+    prepass_kernel(const float* __restrict__ in,
+                   const float* __restrict__ w, Stack left,
+                   float* __restrict__ out, float* __restrict__ rh,
+                   DwhShape sh) {
+  __shared__ __align__(16) float As[kBK][kBM + kPad];
+  __shared__ __align__(16) float Bs[kBK][kBN + kPad];
+  const int H = sh.K, J = sh.J, d = blockIdx.z, tid = threadIdx.x;
+  const long long M = (long long)sh.T * sh.B;
+  const long long m0 = (long long)blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+  const int ty = tid / 16, tx = tid % 16;
+  const float* W = w + (size_t)d * H * J;
+  const int am = tid / 4, ak = (tid % 4) * 4;
+  const int bk = tid / 16, bn = (tid % 16) * 4;
+  const float* arow =
+      m0 + am < M ? stack_row(left, sh.D, sh.B, H, d, m0 + am) : nullptr;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < H; k0 += kBK) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int k = k0 + ak + q;
+      As[ak + q][am] = (arow != nullptr && k < H) ? arow[k] : 0.0f;
+      const int n = n0 + bn + q, kb = k0 + bk;
+      Bs[bk][bn + q] = (kb < H && n < J) ? W[(size_t)kb * J + n] : 0.0f;
+    }
+    __syncthreads();
+    tile_fma(As, Bs, acc, ty, tx);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long m = m0 + ty * 4 + i;
+    if (m >= M) continue;
+    const long long t = m / sh.B, b = m - t * sh.B;
+    const size_t row = ((size_t)t * sh.D + d) * sh.B + b;
+    const float* hp = RH ? stack_row(left, sh.D, sh.B, H, d, m) : nullptr;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n >= J) continue;
+      const float v = in[row * J + n] + acc[i][j];
+      const float a = EPI == kTanh      ? tanhf(v)
+                      : EPI == kSigmoid ? 1.0f / (1.0f + expf(-v))
+                                        : v;
+      out[row * J + n] = a;
+      if (RH && n < H) rh[row * H + n] = hp != nullptr ? a * hp[n] : 0.0f;
+    }
+  }
+}
+
+// The pre-pass's launch: rows t * B + b of D directions, J columns.
+template <int EPI, bool RH>
+void launch_prepass(const float* in, const float* w, const Stack& left,
+                  float* out, float* rh, const DwhShape& sh, cudaStream_t st) {
+  const long long M = (long long)sh.T * sh.B;
+  const dim3 grid((unsigned)((M + kBM - 1) / kBM), (sh.J + kBN - 1) / kBN,
+                  sh.D);
+  prepass_kernel<EPI, RH><<<grid, kGemmThreads, 0, st>>>(in, w, left, out,
+                                                          rh, sh);
 }
 
 // dw[e] = sum_s part[s][e], slices in order.

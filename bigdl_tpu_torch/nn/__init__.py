@@ -1,5 +1,9 @@
 """Torch-style layers of the port (counterpart of bigdl_tpu/nn)."""
-from bigdl_tpu_torch.nn.activations import LogSoftMax, ReLU, Tanh
+from bigdl_tpu_torch.nn.activations import (
+    ELU, Abs, Clamp, Exp, GradientReversal, HardShrink, HardTanh, LeakyReLU,
+    Log, LogSigmoid, LogSoftMax, Power, PReLU, ReLU, ReLU6, RReLU, Sigmoid,
+    SoftMax, SoftMin, SoftPlus, SoftShrink, SoftSign, Sqrt, Square, Tanh,
+    TanhShrink, Threshold)
 from bigdl_tpu_torch.nn.attention import (MultiHeadSelfAttention,
                                           SinusoidalPositionalEncoding)
 from bigdl_tpu_torch.nn.containers import Concat, ConcatTable, Sequential
@@ -22,13 +26,17 @@ from bigdl_tpu_torch.nn.shape_ops import Identity, Reshape, View
 from bigdl_tpu_torch.nn.table_ops import CAddTable
 
 __all__ = [
-    "BiRecurrent", "CAddTable", "Cell", "ClassNLLCriterion", "Concat",
-    "ConcatTable", "Container", "Criterion", "CrossEntropyCriterion",
-    "Default", "Dropout", "GRUCell", "Identity", "LSTMCell", "LayerNorm",
-    "Linear", "LogSoftMax", "Mean", "Module", "MultiHeadSelfAttention",
-    "Recurrent", "ReLU", "Reshape", "RnnCell", "Sequential",
-    "SinusoidalPositionalEncoding", "SpatialAveragePooling",
-    "SpatialConvolution", "SpatialCrossMapLRN", "SpatialMaxPooling", "Tanh",
-    "TensorModule", "TimeDistributed", "TimeDistributedCriterion", "View",
-    "Xavier",
+    "Abs", "BiRecurrent", "CAddTable", "Cell", "Clamp", "ClassNLLCriterion",
+    "Concat", "ConcatTable", "Container", "Criterion",
+    "CrossEntropyCriterion", "Default", "Dropout", "ELU", "Exp",
+    "GRUCell", "GradientReversal", "HardShrink", "HardTanh", "Identity",
+    "LSTMCell", "LayerNorm", "LeakyReLU", "Linear", "Log", "LogSigmoid",
+    "LogSoftMax", "Mean", "Module", "MultiHeadSelfAttention", "PReLU",
+    "Power", "RReLU", "ReLU", "ReLU6", "Recurrent", "Reshape", "RnnCell",
+    "Sequential", "Sigmoid", "SinusoidalPositionalEncoding", "SoftMax",
+    "SoftMin", "SoftPlus", "SoftShrink", "SoftSign",
+    "SpatialAveragePooling", "SpatialConvolution", "SpatialCrossMapLRN",
+    "SpatialMaxPooling", "Sqrt", "Square", "Tanh", "TanhShrink",
+    "TensorModule", "Threshold", "TimeDistributed",
+    "TimeDistributedCriterion", "View", "Xavier",
 ]

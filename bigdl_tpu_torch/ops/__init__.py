@@ -2,8 +2,10 @@
 bigdl_tpu/ops/pallas_kernels.py), each beside its plain PyTorch version.
 
 ``KERNELS`` lists every kernel wrapper; each carries a ``launches`` count
-that only a real kernel launch increments.
+that only a real kernel launch increments.  ``Act`` describes the
+element-wise activation the RNN kernels apply.
 """
+from bigdl_tpu_torch.ops._activation import Act
 from bigdl_tpu_torch.ops.bilstm import (bilstm_backward,
                                         bilstm_backward_reference, bilstm_dwh,
                                         bilstm_dwh_reference, bilstm_forward,
@@ -50,7 +52,7 @@ def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
-__all__ = ["KERNELS", "bilstm_backward", "bilstm_backward_reference",
+__all__ = ["Act", "KERNELS", "bilstm_backward", "bilstm_backward_reference",
            "bilstm_dwh", "bilstm_dwh_reference", "bilstm_forward",
            "bilstm_forward_reference", "bilstm_recurrence", "fused_sgd",
            "fused_sgd_reference", "gru_backward", "gru_backward_reference",

@@ -187,6 +187,19 @@ def check(kernel, v, name, device, shape):
                          f"{tuple(shape)} tensor, got {tuple(v.shape)}")
 
 
+def check_states(kernel, device, shape, **states):
+    """Each initial state given (h0=..., c0=...; None for zeros) as a
+    contiguous f32 ``shape`` tensor on ``device``."""
+    for name, v in states.items():
+        if v is not None:
+            check(kernel, v, name, device, shape)
+
+
+def ptr(v):
+    """The device pointer of ``v``, or None (a null pointer) for None."""
+    return None if v is None else v.data_ptr()
+
+
 def check_hidden(kernel, hdim, limit, smem_bytes):
     """Refuses an H past the kernel's limit, by name, before a launch."""
     if hdim > limit:

@@ -5,11 +5,16 @@
 :func:`bilstm_recurrence` is the differentiable entry point: zx
 (T, D, B, 4H), the projection plus bias of D directions (the backward
 direction's input already flipped in time), and wht (D, H, 4H) give the h
-stack (T, D, B, H) from h = c = 0, gates i, f, g, o in that order.  Under
-autograd it runs :func:`bilstm_forward` with the c stack as a residual
-beside zx, wht and hs, and its backward is :func:`bilstm_backward` (dzx,
-in reverse time) then :func:`bilstm_dwh` (dwht = sum_t hprev^T . dz); a
-forward that needs no gradient writes no c stack.  On CUDA tensors the
+stack (T, D, B, H) from h0, c0 (D, B, H) or h = c = 0, gates i, f, g, o
+in that order; with ``with_last_c`` it also hands back the last step's c,
+detached: the next chunk's c0 in a truncated run.  h0 and c0 are carried
+states, taken as constants (the carried dc starts at 0 in every chunk).
+Under autograd it runs :func:`bilstm_forward` with the c stack as a
+residual beside zx, wht, hs, h0 and c0, and its backward is
+:func:`bilstm_backward` (dzx, in reverse time, hprev and cprev h0 and c0
+at t = 0) then :func:`bilstm_dwh` (dwht = sum_t hprev^T . dz); a forward
+that needs no gradient writes no c stack unless it is asked for the last
+c.  On CUDA tensors the
 three wrappers launch the hand-written ``csrc/bilstm.cu`` kernels or
 raise; on CPU tensors they run the plain versions beside them.  There is
 no other path.  Each wrapper's ``launches`` counts its kernel calls only.
@@ -66,9 +71,9 @@ def _setup(lib):
     # T D B H, then C R (0 0: the plan of the shape), device, stream
     lib.bigdl_lstm_fwd_f32.argtypes = [rec.VP] * 6 + rec.PLANNED_DIMS
     lib.bigdl_lstm_fwd_f32.restype = rec.I
-    lib.bigdl_lstm_bwd_f32.argtypes = [rec.VP] * 6 + rec.PLANNED_DIMS
+    lib.bigdl_lstm_bwd_f32.argtypes = [rec.VP] * 8 + rec.PLANNED_DIMS
     lib.bigdl_lstm_bwd_f32.restype = rec.I
-    lib.bigdl_lstm_dwh_f32.argtypes = ([rec.VP] * 4 + [rec.I] * 5
+    lib.bigdl_lstm_dwh_f32.argtypes = ([rec.VP] * 5 + [rec.I] * 5
                                        + [rec.LL] + rec.DIMS[4:])
     lib.bigdl_lstm_dwh_f32.restype = rec.I
     lib.bigdl_lstm_plan.argtypes = [rec.I] * 4 + [rec.VP]
@@ -93,13 +98,14 @@ def _gates(z, hdim):
             torch.sigmoid(z[..., 3 * hdim:]))
 
 
-def bilstm_forward_reference(zx, wht, with_c=True):
-    """Plain version of the forward: a loop over T with ``torch.matmul``;
-    ``(hs, cs)``, or ``hs`` alone when ``with_c`` is False."""
+def bilstm_forward_reference(zx, wht, with_c=True, h0=None, c0=None):
+    """Plain version of the forward: a loop over T with ``torch.matmul``
+    from ``h0``, ``c0`` (zeros where None); ``(hs, cs)``, or ``hs`` alone
+    when ``with_c`` is False."""
     t, nd, b, h4 = zx.shape
     hdim = h4 // 4
-    h = zx.new_zeros(nd, b, hdim)
-    c = zx.new_zeros(nd, b, hdim)
+    h = zx.new_zeros(nd, b, hdim) if h0 is None else h0
+    c = zx.new_zeros(nd, b, hdim) if c0 is None else c0
     hs, cs = [], []
     for step in range(t):
         i, f, g, o = _gates(zx[step] + torch.matmul(h, wht), hdim)
@@ -112,11 +118,12 @@ def bilstm_forward_reference(zx, wht, with_c=True):
     return (hs, cs) if with_c else hs
 
 
-def bilstm_backward_reference(zx, wht, hs, cs, gout):
+def bilstm_backward_reference(zx, wht, hs, cs, gout, h0=None, c0=None):
     """Plain version of the backward: dzx, from a reverse loop over T that
-    recomputes the gates from zx[t] + hprev . wht."""
+    recomputes the gates from zx[t] + hprev . wht (hprev, cprev h0, c0 or
+    zeros at t = 0)."""
     hdim = wht.shape[1]
-    hprev, cprev = rec.shift_prev(hs), rec.shift_prev(cs)
+    hprev, cprev = rec.shift_prev(hs, h0), rec.shift_prev(cs, c0)
     dh = zx.new_zeros(hs.shape[1:])
     dc = zx.new_zeros(hs.shape[1:])
     dzx = torch.empty_like(zx)
@@ -136,36 +143,40 @@ def bilstm_backward_reference(zx, wht, hs, cs, gout):
     return dzx
 
 
-def bilstm_dwh_reference(hs, dzx):
+def bilstm_dwh_reference(hs, dzx, h0=None):
     """Plain version of the weight gradient: one einsum of the h stack
-    read at t - 1 and dzx."""
-    return torch.einsum("tdbk,tdbj->dkj", rec.shift_prev(hs), dzx)
+    read at t - 1 (h0 or zeros at t = 0) and dzx."""
+    return torch.einsum("tdbk,tdbj->dkj", rec.shift_prev(hs, h0), dzx)
 
 
-def bilstm_forward(zx, wht, with_c=True):
+def bilstm_forward(zx, wht, with_c=True, h0=None, c0=None):
     """The recurrence over ``zx`` (T, D, B, 4H) f32 and ``wht`` (D, H, 4H)
-    f32.  Returns ``(hs, cs)``, each (T, D, B, H), or ``hs`` alone when
-    ``with_c`` is False."""
+    f32 from ``h0``, ``c0`` (D, B, H) f32 (zeros where None).  Returns
+    ``(hs, cs)``, each (T, D, B, H), or ``hs`` alone when ``with_c`` is
+    False."""
     if zx.device.type == "cpu":
-        return bilstm_forward_reference(zx, wht, with_c)
+        return bilstm_forward_reference(zx, wht, with_c, h0, c0)
     t, nd, b, hdim = _check_inputs(zx, wht)
+    rec.check_states(_KERNEL, zx.device, (nd, b, hdim), h0=h0, c0=c0)
     hs = zx.new_empty(t, nd, b, hdim)
     cs = zx.new_empty(t, nd, b, hdim) if with_c else None
-    _run("fwd", [zx, wht, None, None, hs, cs], t, nd, b, hdim)
+    _run("fwd", [zx, wht, h0, c0, hs, cs], t, nd, b, hdim)
     bilstm_forward.launches += 1
     return (hs, cs) if with_c else hs
 
 
-def bilstm_backward(zx, wht, hs, cs, gout):
-    """dzx (T, D, B, 4H) from the forward's ``zx``, ``wht``, ``hs`` and
-    ``cs`` and the cotangent ``gout`` of hs."""
+def bilstm_backward(zx, wht, hs, cs, gout, h0=None, c0=None):
+    """dzx (T, D, B, 4H) from the forward's ``zx``, ``wht``, ``hs``, ``cs``,
+    ``h0`` and ``c0`` (zeros where None) and the cotangent ``gout`` of
+    hs."""
     if zx.device.type == "cpu":
-        return bilstm_backward_reference(zx, wht, hs, cs, gout)
+        return bilstm_backward_reference(zx, wht, hs, cs, gout, h0, c0)
     t, nd, b, hdim = _check_inputs(zx, wht)
     for v, name in ((hs, "hs"), (cs, "cs"), (gout, "gout")):
         _check(v, name, zx.device, (t, nd, b, hdim))
+    rec.check_states(_KERNEL, zx.device, (nd, b, hdim), h0=h0, c0=c0)
     dzx = torch.empty_like(zx)
-    _run("bwd", [zx, wht, hs, cs, gout, dzx], t, nd, b, hdim)
+    _run("bwd", [zx, wht, hs, cs, h0, c0, gout, dzx], t, nd, b, hdim)
     bilstm_backward.launches += 1
     return dzx
 
@@ -176,23 +187,25 @@ def dwh_slices(t, b, hdim, nd):
     return rec.dwh_slices(t, b, hdim, 4 * hdim, nd)
 
 
-def bilstm_dwh(hs, dzx):
+def bilstm_dwh(hs, dzx, h0=None):
     """dwht (D, H, 4H) = sum over t and b of hprev^T . dz, from the h
-    stack ``hs`` (T, D, B, H) and ``dzx`` (T, D, B, 4H)."""
+    stack ``hs`` (T, D, B, H) read at t - 1, ``h0`` (or zeros) at t = 0,
+    and ``dzx`` (T, D, B, 4H)."""
     if hs.device.type == "cpu":
-        return bilstm_dwh_reference(hs, dzx)
+        return bilstm_dwh_reference(hs, dzx, h0)
     rec.check_device(_KERNEL, hs)
     t, nd, b, h4 = dzx.shape
     hdim = h4 // 4
     _check(dzx, "dzx", hs.device, (t, nd, b, h4))
     _check(hs, "hs", hs.device, (t, nd, b, hdim))
+    rec.check_states(_KERNEL, hs.device, (nd, b, hdim), h0=h0)
     s, rows = dwh_slices(t, b, hdim, nd)
     part = hs.new_empty(s, nd, hdim, h4)
     dwht = hs.new_empty(nd, hdim, h4)
     lib = _lib()
-    err = lib.bigdl_lstm_dwh_f32(hs.data_ptr(), dzx.data_ptr(),
-                                 part.data_ptr(), dwht.data_ptr(), t, nd, b,
-                                 hdim, s, rows,
+    err = lib.bigdl_lstm_dwh_f32(hs.data_ptr(), rec.ptr(h0),
+                                 dzx.data_ptr(), part.data_ptr(),
+                                 dwht.data_ptr(), t, nd, b, hdim, s, rows,
                                  *_build.device_stream(hs.device))
     rec.raise_on(lib, err, _KERNEL, "dwh", hdim)
     bilstm_dwh.launches += 1
@@ -225,7 +238,7 @@ def _run(which, tensors, t, nd, b, hdim, kernel=_KERNEL):
     plan of the shape; ``kernel`` names the wrapper in an error."""
     lib = _lib()
     fn = lib.bigdl_lstm_fwd_f32 if which == "fwd" else lib.bigdl_lstm_bwd_f32
-    ptrs = [None if v is None else v.data_ptr() for v in tensors]
+    ptrs = [rec.ptr(v) for v in tensors]
     err = fn(*ptrs, t, nd, b, hdim, 0, 0,
              *_build.device_stream(tensors[0].device))
     rec.raise_on(lib, err, kernel, which, hdim)
@@ -233,25 +246,37 @@ def _run(which, tensors, t, nd, b, hdim, kernel=_KERNEL):
 
 class _BiLSTM(torch.autograd.Function):
     """The recurrence whose residuals are zx, wht, hs and cs (the JAX
-    ``bilstm_recurrence`` custom VJP)."""
+    ``bilstm_recurrence`` custom VJP), and the constants h0 and c0; its
+    second output, the last step's c, takes no gradient."""
 
     @staticmethod
-    def forward(ctx, zx, wht):
-        hs, cs = bilstm_forward(zx, wht)
-        ctx.save_for_backward(zx, wht, hs, cs)
-        return hs
+    def forward(ctx, zx, wht, h0, c0):
+        hs, cs = bilstm_forward(zx, wht, h0=h0, c0=c0)
+        ctx.save_for_backward(zx, wht, hs, cs, h0, c0)
+        last_c = cs[-1].clone()
+        ctx.mark_non_differentiable(last_c)
+        return hs, last_c
 
     @staticmethod
-    def backward(ctx, gout):
-        zx, wht, hs, cs = ctx.saved_tensors
-        dzx = bilstm_backward(zx, wht, hs, cs, gout.contiguous())
-        return dzx, bilstm_dwh(hs, dzx)
+    def backward(ctx, gout, _):
+        zx, wht, hs, cs, h0, c0 = ctx.saved_tensors
+        dzx = bilstm_backward(zx, wht, hs, cs, gout.contiguous(), h0, c0)
+        return dzx, bilstm_dwh(hs, dzx, h0), None, None
 
 
-def bilstm_recurrence(zx, wht):
+def bilstm_recurrence(zx, wht, h0=None, c0=None, with_last_c=False):
     """The h stack (T, D, B, H) of the LSTM recurrence over ``zx``
-    (T, D, B, 4H) and ``wht`` (D, H, 4H), differentiable in both; a
-    forward that needs no gradient writes no c stack."""
+    (T, D, B, 4H) and ``wht`` (D, H, 4H) from ``h0``, ``c0`` (D, B, H) or
+    zeros, differentiable in zx and wht; h0 and c0 are taken as
+    constants.  With ``with_last_c``, ``(hs, c)``: the last step's c
+    (D, B, H), detached.  A forward that needs no gradient writes no c
+    stack unless it is asked for c."""
+    h0, c0 = (None if v is None else v.detach() for v in (h0, c0))
     if torch.is_grad_enabled() and (zx.requires_grad or wht.requires_grad):
-        return _BiLSTM.apply(zx, wht)
-    return bilstm_forward(zx, wht, with_c=False)
+        hs, last_c = _BiLSTM.apply(zx, wht, h0, c0)
+    elif with_last_c:
+        hs, cs = bilstm_forward(zx, wht, h0=h0, c0=c0)
+        last_c = cs[-1]
+    else:
+        return bilstm_forward(zx, wht, with_c=False, h0=h0, c0=c0)
+    return (hs, last_c) if with_last_c else hs

@@ -5,20 +5,21 @@
 :func:`gru_recurrence` is the differentiable entry point: zrz
 (T, D, B, 2H) and zn (T, D, B, H), the projections plus biases of D
 directions, and wrz (D, H, 2H) and wh (D, H, H) give the h stack
-(T, D, B, H) from h = 0:
+(T, D, B, H) from h0 (D, B, H), a truncated run's carried state taken as
+a constant, or h = 0:
 
     r, z = sig(zrz[t] + h . wrz),  n = tanh(zn[t] + (r o h) . wh),
     h' = (1 - z) n + z h
 
 (``_gru_gates``/``_gru_fwd_kernel``).  Under autograd it runs
-:func:`gru_forward` with its inputs and hs as residuals (the JAX
+:func:`gru_forward` with its inputs, h0 and hs as residuals (the JAX
 ``_gru_vjp_fwd``), and its backward is :func:`gru_backward` (dzrz and
-dzn in reverse time, r, z and n recomputed from the h stack, and the
-r o hprev stack) then :func:`gru_dwh` (dwrz = sum_t hprev^T . dzrz, dwh =
-sum_t (r o hprev)^T . dzn).  On CUDA tensors the three wrappers launch
-the hand-written ``csrc/gru.cu`` kernels or raise; on CPU tensors they
-run the plain versions beside them.  Each wrapper's ``launches`` counts
-its kernel calls only.
+dzn in reverse time, r, z and n recomputed from the h stack, hprev h0 at
+t = 0, and the r o hprev stack) then :func:`gru_dwh` (dwrz = sum_t
+hprev^T . dzrz, dwh = sum_t (r o hprev)^T . dzn).  On CUDA tensors the
+three wrappers launch the hand-written ``csrc/gru.cu`` kernels or raise;
+on CPU tensors they run the plain versions beside them.  Each wrapper's
+``launches`` counts its kernel calls only.
 
 The serial forward and backward are two-phase cluster recurrences
 (``csrc/recurrence_cluster.cuh``) whose plans :func:`plan` mirrors.  The
@@ -73,11 +74,11 @@ MAX_HIDDEN = rec.max_hidden(smem_bytes)
 
 def _setup(lib):
     # T D B H, then C R (0 0: the plan of the shape), device, stream
-    lib.bigdl_gru_fwd_f32.argtypes = [rec.VP] * 5 + rec.PLANNED_DIMS
+    lib.bigdl_gru_fwd_f32.argtypes = [rec.VP] * 6 + rec.PLANNED_DIMS
     lib.bigdl_gru_fwd_f32.restype = rec.I
-    lib.bigdl_gru_bwd_f32.argtypes = [rec.VP] * 9 + rec.PLANNED_DIMS
+    lib.bigdl_gru_bwd_f32.argtypes = [rec.VP] * 10 + rec.PLANNED_DIMS
     lib.bigdl_gru_bwd_f32.restype = rec.I
-    lib.bigdl_gru_dwh_f32.argtypes = ([rec.VP] * 7 + [rec.I] * 5
+    lib.bigdl_gru_dwh_f32.argtypes = ([rec.VP] * 8 + [rec.I] * 5
                                       + [rec.LL, rec.I, rec.LL]
                                       + rec.DIMS[4:])
     lib.bigdl_gru_dwh_f32.restype = rec.I
@@ -103,10 +104,11 @@ def _gates(zrz_t, zn_t, h, wrz, wh):
     return r, z, torch.tanh(zn_t + torch.matmul(r * h, wh))
 
 
-def gru_forward_reference(zrz, zn, wrz, wh):
-    """Plain version of the forward: a loop over T with ``torch.matmul``."""
+def gru_forward_reference(zrz, zn, wrz, wh, h0=None):
+    """Plain version of the forward: a loop over T with ``torch.matmul``
+    from ``h0`` (zeros when None)."""
     t, nd, b, hdim = zn.shape
-    h = zn.new_zeros(nd, b, hdim)
+    h = zn.new_zeros(nd, b, hdim) if h0 is None else h0
     hs = []
     for step in range(t):
         _, z, n = _gates(zrz[step], zn[step], h, wrz, wh)
@@ -115,11 +117,12 @@ def gru_forward_reference(zrz, zn, wrz, wh):
     return torch.stack(hs) if hs else zn.new_zeros(0, nd, b, hdim)
 
 
-def gru_backward_reference(zrz, zn, wrz, wh, hs, gout):
+def gru_backward_reference(zrz, zn, wrz, wh, hs, gout, h0=None):
     """Plain version of the backward (``_gru_bwd_kernel``): (dzrz, dzn,
     rh) from a reverse loop over T that recomputes r, z and n from
-    zrz[t], zn[t] and hprev; rh is the r o hprev stack."""
-    hprev = rec.shift_prev(hs)
+    zrz[t], zn[t] and hprev (h0 or zeros at t = 0); rh is the r o hprev
+    stack."""
+    hprev = rec.shift_prev(hs, h0)
     dh = hs.new_zeros(hs.shape[1:])
     dzrz, dzn, rh = torch.empty_like(zrz), torch.empty_like(zn), \
         torch.empty_like(hs)
@@ -138,70 +141,76 @@ def gru_backward_reference(zrz, zn, wrz, wh, hs, gout):
     return dzrz, dzn, rh
 
 
-def gru_dwh_reference(hs, rh, dzrz, dzn):
+def gru_dwh_reference(hs, rh, dzrz, dzn, h0=None):
     """Plain version of the weight gradients: dwrz from the h stack read
-    at t - 1 and dzrz, dwh from the r o hprev stack and dzn."""
-    return (torch.einsum("tdbk,tdbj->dkj", rec.shift_prev(hs), dzrz),
+    at t - 1 (h0 or zeros at t = 0) and dzrz, dwh from the r o hprev stack
+    and dzn."""
+    return (torch.einsum("tdbk,tdbj->dkj", rec.shift_prev(hs, h0), dzrz),
             torch.einsum("tdbk,tdbj->dkj", rh, dzn))
 
 
-def gru_forward(zrz, zn, wrz, wh):
+def gru_forward(zrz, zn, wrz, wh, h0=None):
     """The h stack (T, D, B, H) over ``zrz`` (T, D, B, 2H), ``zn``
-    (T, D, B, H), ``wrz`` (D, H, 2H) and ``wh`` (D, H, H), all f32."""
+    (T, D, B, H), ``wrz`` (D, H, 2H) and ``wh`` (D, H, H) from ``h0``
+    (D, B, H) or zeros, all f32."""
     if zn.device.type == "cpu":
-        return gru_forward_reference(zrz, zn, wrz, wh)
+        return gru_forward_reference(zrz, zn, wrz, wh, h0)
     t, nd, b, hdim = _check_inputs(zrz, zn, wrz, wh)
+    rec.check_states(_KERNEL, zn.device, (nd, b, hdim), h0=h0)
     hs = zn.new_empty(t, nd, b, hdim)
     lib = _lib()
     err = lib.bigdl_gru_fwd_f32(zrz.data_ptr(), zn.data_ptr(),
-                                wrz.data_ptr(), wh.data_ptr(), hs.data_ptr(),
-                                t, nd, b, hdim, 0, 0,
+                                wrz.data_ptr(), wh.data_ptr(), rec.ptr(h0),
+                                hs.data_ptr(), t, nd, b, hdim, 0, 0,
                                 *_build.device_stream(zn.device))
     rec.raise_on(lib, err, _KERNEL, "fwd", hdim)
     gru_forward.launches += 1
     return hs
 
 
-def gru_backward(zrz, zn, wrz, wh, hs, gout):
+def gru_backward(zrz, zn, wrz, wh, hs, gout, h0=None):
     """(dzrz (T, D, B, 2H), dzn (T, D, B, H), rh (T, D, B, H)) from the
-    forward's inputs, its ``hs`` and the cotangent ``gout`` of hs; rh is
-    the r o hprev stack the weight gradient of wh reads."""
+    forward's inputs, its ``hs``, its ``h0`` (zeros when None) and the
+    cotangent ``gout`` of hs; rh is the r o hprev stack the weight
+    gradient of wh reads."""
     if zn.device.type == "cpu":
-        return gru_backward_reference(zrz, zn, wrz, wh, hs, gout)
+        return gru_backward_reference(zrz, zn, wrz, wh, hs, gout, h0)
     t, nd, b, hdim = _check_inputs(zrz, zn, wrz, wh)
     for v, name in ((hs, "hs"), (gout, "gout")):
         _check(v, name, zn.device, (t, nd, b, hdim))
+    rec.check_states(_KERNEL, zn.device, (nd, b, hdim), h0=h0)
     dzrz, dzn, rh = torch.empty_like(zrz), torch.empty_like(zn), \
         torch.empty_like(zn)
     lib = _lib()
-    err = lib.bigdl_gru_bwd_f32(*(v.data_ptr() for v in (
-        zrz, zn, wrz, wh, hs, gout, dzrz, dzn, rh)),
+    err = lib.bigdl_gru_bwd_f32(*(rec.ptr(v) for v in (
+        zrz, zn, wrz, wh, hs, h0, gout, dzrz, dzn, rh)),
         t, nd, b, hdim, 0, 0, *_build.device_stream(zn.device))
     rec.raise_on(lib, err, _KERNEL, "bwd", hdim)
     gru_backward.launches += 1
     return dzrz, dzn, rh
 
 
-def gru_dwh(hs, rh, dzrz, dzn):
+def gru_dwh(hs, rh, dzrz, dzn, h0=None):
     """(dwrz (D, H, 2H), dwh (D, H, H)): sums over t and b of hprev^T .
-    dzrz (the h stack ``hs`` read at t - 1, zeros at t = 0) and of rh^T .
-    dzn."""
+    dzrz (the h stack ``hs`` read at t - 1, ``h0`` or zeros at t = 0) and
+    of rh^T . dzn."""
     if hs.device.type == "cpu":
-        return gru_dwh_reference(hs, rh, dzrz, dzn)
+        return gru_dwh_reference(hs, rh, dzrz, dzn, h0)
     rec.check_device(_KERNEL, hs)
     t, nd, b, hdim = hs.shape
     for v, name, width in ((hs, "hs", hdim), (rh, "rh", hdim),
                            (dzrz, "dzrz", 2 * hdim), (dzn, "dzn", hdim)):
         _check(v, name, hs.device, (t, nd, b, width))
+    rec.check_states(_KERNEL, hs.device, (nd, b, hdim), h0=h0)
     s1, rows1 = rec.dwh_slices(t, b, hdim, 2 * hdim, nd)
     s2, rows2 = rec.dwh_slices(t, b, hdim, hdim, nd)
     part = hs.new_empty(max(2 * s1, s2), nd, hdim, hdim)
     dwrz = hs.new_empty(nd, hdim, 2 * hdim)
     dwh = hs.new_empty(nd, hdim, hdim)
     lib = _lib()
-    err = lib.bigdl_gru_dwh_f32(*(v.data_ptr() for v in (
-        hs, rh, dzrz, dzn, part, dwrz, dwh)), t, nd, b, hdim, s1, rows1, s2,
-        rows2, *_build.device_stream(hs.device))
+    err = lib.bigdl_gru_dwh_f32(*(rec.ptr(v) for v in (
+        hs, h0, rh, dzrz, dzn, part, dwrz, dwh)), t, nd, b, hdim, s1, rows1,
+        s2, rows2, *_build.device_stream(hs.device))
     rec.raise_on(lib, err, _KERNEL, "dwh", hdim)
     gru_dwh.launches += 1
     return dwrz, dwh
@@ -231,27 +240,31 @@ def _check_inputs(zrz, zn, wrz, wh):
 
 
 class _GRU(torch.autograd.Function):
-    """The recurrence whose residuals are zrz, zn, wrz, wh and hs (the JAX
-    ``gru_recurrence`` custom VJP)."""
+    """The recurrence whose residuals are zrz, zn, wrz, wh, hs and the
+    constant h0 (the JAX ``gru_recurrence`` custom VJP)."""
 
     @staticmethod
-    def forward(ctx, zrz, zn, wrz, wh):
-        hs = gru_forward(zrz, zn, wrz, wh)
-        ctx.save_for_backward(zrz, zn, wrz, wh, hs)
+    def forward(ctx, zrz, zn, wrz, wh, h0):
+        hs = gru_forward(zrz, zn, wrz, wh, h0)
+        ctx.save_for_backward(zrz, zn, wrz, wh, hs, h0)
         return hs
 
     @staticmethod
     def backward(ctx, gout):
-        zrz, zn, wrz, wh, hs = ctx.saved_tensors
-        dzrz, dzn, rh = gru_backward(zrz, zn, wrz, wh, hs, gout.contiguous())
-        return (dzrz, dzn) + gru_dwh(hs, rh, dzrz, dzn)
+        zrz, zn, wrz, wh, hs, h0 = ctx.saved_tensors
+        dzrz, dzn, rh = gru_backward(zrz, zn, wrz, wh, hs, gout.contiguous(),
+                                     h0)
+        return (dzrz, dzn) + gru_dwh(hs, rh, dzrz, dzn, h0) + (None,)
 
 
-def gru_recurrence(zrz, zn, wrz, wh):
+def gru_recurrence(zrz, zn, wrz, wh, h0=None):
     """The h stack (T, D, B, H) of the GRU recurrence over ``zrz``
     (T, D, B, 2H), ``zn`` (T, D, B, H), ``wrz`` (D, H, 2H) and ``wh``
-    (D, H, H), differentiable in all four."""
+    (D, H, H) from ``h0`` (D, B, H) or zeros, differentiable in all four;
+    ``h0`` is taken as a constant."""
+    if h0 is not None:
+        h0 = h0.detach()
     if torch.is_grad_enabled() and any(
             v.requires_grad for v in (zrz, zn, wrz, wh)):
-        return _GRU.apply(zrz, zn, wrz, wh)
-    return gru_forward(zrz, zn, wrz, wh)
+        return _GRU.apply(zrz, zn, wrz, wh, h0)
+    return gru_forward(zrz, zn, wrz, wh, h0)

@@ -91,7 +91,25 @@ Phases, each failing with a non-zero exit:
 8. the Bi-LSTM classifier's composition with GRU cells trains one epoch
    at full width through the ``gru`` kernels (both directions in one
    call); three steps at batch 16 equal the CPU's;
-9. one JSON line of kernels, then the card line, then the result line.
+9. the rest of the recurrence: its kernels are checked with phase 2 --
+   the LSTM's forward, backward and weight gradient from a given h0, c0
+   and the GRU's three from h0, at the truncated classifiers' chunk
+   (35, 1, 128, 128), their ragged last chunk, both directions at an odd
+   batch and SimpleRNN's chunk, and the rnn's three under each of the
+   twenty element-wise kinds at (500, 1, 128, 128) and SimpleRNN's (4, 1,
+   4, 40), step by step against the plain activation and derivative,
+   each timed beside from zeros and tanh; then (a) the LSTM classifier
+   truncated every 35 steps (the unroll of Zaremba et al. 2014; 15
+   chunks over T 500, the last ragged) trains 8 steps, exactly 15 of
+   each ``bilstm`` kernel a step, validating through ``lstm_scan``; (b)
+   the GRU classifier truncated likewise, 30 of each ``gru`` kernel a
+   step (two directions apart); (c) SimpleRNN's composition with
+   Sigmoid and with ReLU cells at examples/train_rnn.py's defaults, two
+   epochs, the ``rnn`` kernels on every chunk; each held to three steps
+   on the CPU and beside the untruncated run's ms a step and tokens/s,
+   the step route never taken; (d) an RnnCell under SoftMax and an
+   LSTMCell subclass take the step route with no recurrence launch;
+10. one JSON line of kernels, then the card line, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -264,6 +282,23 @@ GRU_CASES = [(13, 1, 5, 100), (9, 1, 4, 5), (7, 2, 37, 33), (1, 2, 3, 5),
              (2, 1, 3, None), (TSEQ, 2, TBATCH, THIDDEN),
              (TSEQ, 1, TBATCH, THIDDEN), (7, 2, 37, 150), (7, 2, 37, 200),
              (7, 2, 37, 301), (7, 2, 37, 400), (5, 2, 37, 700)]
+# truncated BPTT: the 35-step unroll of Zaremba et al., "Recurrent Neural
+# Network Regularization" (2014) on PTB; T 500 = 14 x 35 + 10, so the
+# classifiers' last chunk is ragged
+TBPTT, TTRUNC_STEPS = 35, 8
+# (T, D, B, H) of the kernels from a carried state: the classifiers' chunk
+# and their last, ragged one, both directions at an odd batch and ragged
+# H, and SimpleRNN's chunk
+STATE_CASES = [(TBPTT, 1, TBATCH, THIDDEN), (TSEQ % TBPTT, 1, TBATCH, THIDDEN),
+               (7, 2, 37, 100), (RBPTT, 1, RBATCH, RHIDDEN)]
+# every element-wise kind the rnn kernels apply, with parameters
+ACT_CASES = [("tanh",), ("relu",), ("relu6",), ("tanhshrink",),
+             ("sigmoid",), ("logsigmoid",), ("softplus", 2.0), ("softsign",),
+             ("softshrink", 0.5), ("hardshrink", 0.5),
+             ("hardtanh", -0.5, 0.5), ("threshold", 0.1, -0.2),
+             ("leakyrelu", 0.01), ("elu", 1.0), ("abs",), ("sqrt",),
+             ("square",), ("power", 2.0, 0.5, 0.1), ("exp",), ("log",)]
+ACT_SHAPES = [(TSEQ, 1, TBATCH, THIDDEN), (RBPTT, 1, RBATCH, RHIDDEN)]
 # one query a row at positions spread over serving's context: seeds of
 # 16-256 tokens and 128 generated, in the widest table ContinuousDecoder
 # passes that traffic, the pages its longest request reaches (24)
@@ -1418,6 +1453,304 @@ def phase_rnn_gru_kernels(torch, ops):
             for label in ("rnn", "gru") for name in rows[label]]
 
 
+def state_inputs(torch, g, case):
+    """h0 through tanh and c0 from N(0, 1), (D, B, H)."""
+    t, nd, b, h = case
+    return (torch.randn(nd, b, h, generator=g, device="cuda").tanh(),
+            torch.randn(nd, b, h, generator=g, device="cuda"))
+
+
+def check_bilstm_state(torch, ops, g, case):
+    """The LSTM from a given h0, c0: forward (h, c), backward and weight
+    gradient against the plain versions, and the truncated chunk's
+    autograd path (its last c too) equal to the wrappers bit for bit."""
+    zx, wht, gout = bilstm_inputs(torch, g, *case)
+    h0, c0 = state_inputs(torch, g, case)
+    hs, cs = ops.bilstm_forward(zx, wht, h0=h0, c0=c0)
+    dzx = ops.bilstm_backward(zx, wht, hs, cs, gout, h0, c0)
+    dwh = ops.bilstm_dwh(hs, dzx, h0)
+    zg, wg = zx.clone().requires_grad_(), wht.clone().requires_grad_()
+    y, last_c = ops.bilstm_recurrence(zg, wg, h0, c0, with_last_c=True)
+    y.backward(gout)
+    torch.cuda.synchronize()
+    if not (torch.equal(y, hs) and torch.equal(last_c, cs[-1])
+            and torch.equal(zg.grad, dzx) and torch.equal(wg.grad, dwh)):
+        raise AssertionError(f"bilstm from h0, c0 {case}: the autograd path "
+                             f"differs from the wrappers")
+    x64 = [v.double() for v in (zx, wht, hs, cs, gout, h0, c0)]
+    z64, w64, h64, c64, g64, s64, t64 = x64
+    hs_64, cs_64 = ops.bilstm_forward_reference(z64, w64, h0=s64, c0=t64)
+    hs_p, cs_p = ops.bilstm_forward_reference(zx, wht, h0=h0, c0=c0)
+    name = f"bilstm from h0, c0 {case}"
+    return {"h": held(torch, name + " h", hs, hs_p, hs_64, BILSTM_FWD_TOL),
+            "c": held(torch, name + " c", cs, cs_p, cs_64, BILSTM_FWD_TOL),
+            "dzx": held(torch, name + " dzx", dzx,
+                        ops.bilstm_backward_reference(zx, wht, hs, cs, gout,
+                                                      h0, c0),
+                        ops.bilstm_backward_reference(z64, w64, h64, c64,
+                                                      g64, s64, t64),
+                        BILSTM_BWD_TOL),
+            "dwh": held(torch, name + " dwh", dwh,
+                        ops.bilstm_dwh_reference(hs, dzx, h0),
+                        ops.bilstm_dwh_reference(h64, dzx.double(), s64),
+                        BILSTM_BWD_TOL)}
+
+
+def check_gru_state(torch, ops, g, case):
+    """The GRU from a given h0: forward, backward (dzrz, dzn, rh) and both
+    weight gradients against the plain versions, the autograd path equal
+    to the wrappers bit for bit."""
+    zrz, zn, wrz, wh, gout = gru_inputs(torch, g, *case)
+    h0 = state_inputs(torch, g, case)[0]
+    hs = ops.gru_forward(zrz, zn, wrz, wh, h0)
+    dzrz, dzn, rh = ops.gru_backward(zrz, zn, wrz, wh, hs, gout, h0)
+    dwrz, dwh = ops.gru_dwh(hs, rh, dzrz, dzn, h0)
+    args = [v.clone().requires_grad_() for v in (zrz, zn, wrz, wh)]
+    y = ops.gru_recurrence(*args, h0)
+    y.backward(gout)
+    torch.cuda.synchronize()
+    if not (torch.equal(y, hs) and all(
+            torch.equal(a.grad, b) for a, b in zip(args, (dzrz, dzn, dwrz,
+                                                        dwh)))):
+        raise AssertionError(f"gru from h0 {case}: the autograd path "
+                             f"differs from the wrappers")
+    x64 = [v.double() for v in (zrz, zn, wrz, wh)]
+    h064 = h0.double()
+    bwd_p = ops.gru_backward_reference(zrz, zn, wrz, wh, hs, gout, h0)
+    bwd_64 = ops.gru_backward_reference(*x64, hs.double(), gout.double(),
+                                        h064)
+    dw_p = ops.gru_dwh_reference(hs, rh, dzrz, dzn, h0)
+    dw_64 = ops.gru_dwh_reference(hs.double(), rh.double(), dzrz.double(),
+                                  dzn.double(), h064)
+    name = f"gru from h0 {case}"
+    out = {"h": held(torch, name + " h", hs,
+                     ops.gru_forward_reference(zrz, zn, wrz, wh, h0),
+                     ops.gru_forward_reference(*x64, h064), BILSTM_FWD_TOL)}
+    for q, got, p, w, tol in (("dzrz", dzrz, bwd_p[0], bwd_64[0],
+                               BILSTM_BWD_TOL),
+                              ("dzn", dzn, bwd_p[1], bwd_64[1],
+                               BILSTM_BWD_TOL),
+                              ("rh", rh, bwd_p[2], bwd_64[2],
+                               BILSTM_FWD_TOL),
+                              ("dwrz", dwrz, dw_p[0], dw_64[0],
+                               BILSTM_BWD_TOL),
+                              ("dwh", dwh, dw_p[1], dw_64[1],
+                               BILSTM_BWD_TOL)):
+        out[q] = held(torch, f"{name} {q}", got, p, w, tol)
+    return out
+
+
+def act_inputs(torch, g, case, act):
+    """rnn_inputs from h0 for activation ``act``: zx moved into the domain
+    of sqrt and log (|zx| + 3, h0 |h0| + 1, wht quartered: every
+    pre-activation stays above 1), zx halved and wht quartered for the
+    kinds that grow (square, exp, power), so that 500 steps stay
+    finite."""
+    zx, wht, gout, h0 = rnn_inputs(torch, g, *case, True)
+    if act.kind in ("sqrt", "log"):
+        zx, h0, wht = zx.abs() + 3.0, h0.abs() + 1.0, wht * 0.25
+    elif act.kind in ("square", "exp", "power"):
+        zx, wht = zx * 0.5, wht * 0.25
+    return zx, wht, gout, h0
+
+
+# the points where an activation's value or derivative jumps, by kind
+# (parameters a, b as in ops.Act)
+ACT_KINKS = {"relu": lambda a, b: (0.0,), "relu6": lambda a, b: (0.0, 6.0),
+             "softshrink": lambda a, b: (-a, a),
+             "hardshrink": lambda a, b: (-a, a),
+             "hardtanh": lambda a, b: (a, b), "threshold": lambda a, b: (a,),
+             "leakyrelu": lambda a, b: (0.0,), "elu": lambda a, b: (0.0,),
+             "abs": lambda a, b: (0.0,)}
+
+
+def forced_steps(torch, act, zx, wht, h0, hs, gout, dzx):
+    """The plain step of every t from the card's own previous state, in
+    the dtype of the inputs: (pre, act(pre), (gout_t + dz_{t+1} .
+    wht^T) act'(pre)), pre = zx_t + h_{t-1} . wht."""
+    from bigdl_tpu_torch.ops import _activation
+    from bigdl_tpu_torch.ops._recurrence import shift_prev
+
+    pre = zx + torch.matmul(shift_prev(hs, h0), wht)
+    dh = torch.matmul(torch.cat([dzx[1:], torch.zeros_like(pre[:1])]),
+                      wht.transpose(1, 2))
+    return (pre, _activation.apply(act, pre),
+            (gout + dh) * _activation.derivative(act, pre, hs))
+
+
+def teacher_forced(torch, act, zx, wht, h0, hs, gout, dzx):
+    """Each step of the card's forward and backward from the card's own
+    previous state against the plain step (``forced_steps``, the plain
+    activation and derivative of ``ops._activation``): within the
+    tolerance of the fp32 plain step, or no further from the float64
+    step than BILSTM_VS_64 times the fp32 plain step.  Over 500 steps the
+    free-running fp32 chains of the card and of the plain version part
+    where a pre-activation falls within rounding of a jump of act or act'
+    (HardShrink's and Threshold's values, a clip's or abs's derivative)
+    and stay apart; held step by step they cannot.  Elements whose
+    float64 pre is within 1e-4 of such a point are left out:
+    {quantity: (max |card - plain|, held, card vs float64, plain vs
+    float64, elements left out)}."""
+    args = (zx, wht, h0, hs, gout, dzx)
+    pre, h32, dz32 = forced_steps(torch, act, *args)
+    pre64, h64, dz64 = forced_steps(torch, act, *(v.double() for v in args))
+    keep = torch.ones_like(pre64, dtype=torch.bool)
+    for k in ACT_KINKS.get(act.kind, lambda a, b: ())(act.a, act.b):
+        keep &= (pre64 - k).abs() > 1e-4
+    out = {}
+    for q, got, p32, p64, tol in (("h", hs, h32, h64, BILSTM_FWD_TOL),
+                                  ("dzx", dzx, dz32, dz64, BILSTM_BWD_TOL)):
+        got, p32, p64 = got[keep], p32[keep], p64[keep]
+        e_card = float((got.double() - p64).abs().max())
+        e_plain = float((p32.double() - p64).abs().max())
+        ok = (bool(torch.allclose(got, p32, **tol))
+              or e_card <= BILSTM_VS_64 * e_plain)
+        out[q] = (float((got - p32).abs().max()), ok, e_card, e_plain,
+                  int((~keep).sum()))
+    return out
+
+
+def check_rnn_act(torch, ops, g, case, act):
+    """The rnn kernels under ``act`` from h0: forward and backward (from
+    the pre-activations, recomputed, except tanh's) step by step against
+    the plain activation and derivative (``teacher_forced``), the weight
+    gradient against its plain version on the card's h and dz, the
+    autograd path equal to the wrappers bit for bit."""
+    zx, wht, gout, h0 = act_inputs(torch, g, case, act)
+    hs = ops.rnn_forward(zx, wht, h0, act)
+    dzx = ops.rnn_backward(wht, hs, gout, act, zx, h0)
+    dwh = ops.rnn_dwh(hs, dzx, h0)
+    zg, wg = zx.clone().requires_grad_(), wht.clone().requires_grad_()
+    y = ops.rnn_recurrence(zg, wg, h0, act)
+    y.backward(gout)
+    torch.cuda.synchronize()
+    if not (torch.equal(y, hs) and torch.equal(zg.grad, dzx)
+            and torch.equal(wg.grad, dwh)):
+        raise AssertionError(f"rnn {act.kind} {case}: the autograd path "
+                             f"differs from the wrappers")
+    if not bool(torch.isfinite(hs).all() & torch.isfinite(dzx).all()):
+        raise AssertionError(f"rnn {act.kind} {case}: not finite on these "
+                             f"inputs")
+    name = f"rnn {act.kind} {case}"
+    out = {}
+    for q, (err, ok, e_card, e_plain, left) in teacher_forced(
+            torch, act, zx, wht, h0, hs, gout, dzx).items():
+        if not ok:
+            raise AssertionError(
+                f"{name} {q}: {err:.3e} from the plain step; against "
+                f"float64 the card {e_card:.3e}, the plain step "
+                f"{e_plain:.3e} ({left} elements at a jump left out)")
+        out[q] = {"err": err, "rule": f"step by step, {left} at a jump "
+                  f"left out", "card_vs_64": e_card, "plain_vs_64": e_plain}
+    out["dwh"] = held(torch, name + " dwh", dwh,
+                      ops.rnn_dwh_reference(hs, dzx, h0),
+                      ops.rnn_dwh_reference(hs.double(), dzx.double(),
+                                            h0.double()), BILSTM_BWD_TOL)
+    return out
+
+
+def state_times(torch, ops, flush, g, case):
+    """The LSTM and GRU wrappers at ``case`` from zeros and from a given
+    state: {row name: (from-zeros ms, from-state ms)}."""
+    zx, wht, gout = bilstm_inputs(torch, g, *case)
+    h0, c0 = state_inputs(torch, g, case)
+    hs, cs = ops.bilstm_forward(zx, wht)
+    hs1, cs1 = ops.bilstm_forward(zx, wht, h0=h0, c0=c0)
+    dzx = ops.bilstm_backward(zx, wht, hs, cs, gout)
+    dzx1 = ops.bilstm_backward(zx, wht, hs1, cs1, gout, h0, c0)
+    zrz, zn, wrz, wh, go = gru_inputs(torch, g, *case)
+    hg = ops.gru_forward(zrz, zn, wrz, wh)
+    hg1 = ops.gru_forward(zrz, zn, wrz, wh, h0)
+    bg = ops.gru_backward(zrz, zn, wrz, wh, hg, go)
+    bg1 = ops.gru_backward(zrz, zn, wrz, wh, hg1, go, h0)
+    pairs = {
+        "bilstm_forward": (lambda: ops.bilstm_forward(zx, wht),
+                           lambda: ops.bilstm_forward(zx, wht, h0=h0, c0=c0)),
+        "bilstm_backward": (
+            lambda: ops.bilstm_backward(zx, wht, hs, cs, gout),
+            lambda: ops.bilstm_backward(zx, wht, hs1, cs1, gout, h0, c0)),
+        "bilstm_dwh": (lambda: ops.bilstm_dwh(hs, dzx),
+                       lambda: ops.bilstm_dwh(hs1, dzx1, h0)),
+        "gru_forward": (lambda: ops.gru_forward(zrz, zn, wrz, wh),
+                        lambda: ops.gru_forward(zrz, zn, wrz, wh, h0)),
+        "gru_backward": (
+            lambda: ops.gru_backward(zrz, zn, wrz, wh, hg, go),
+            lambda: ops.gru_backward(zrz, zn, wrz, wh, hg1, go, h0)),
+        "gru_dwh": (lambda: ops.gru_dwh(hg, bg[2], *bg[:2]),
+                    lambda: ops.gru_dwh(hg1, bg1[2], *bg1[:2], h0))}
+    return {name: (time_ms(torch, zero, flush), time_ms(torch, state, flush))
+            for name, (zero, state) in pairs.items()}
+
+
+def act_times(torch, ops, flush, g, case):
+    """rnn_forward and rnn_backward under every kind at ``case`` from
+    zeros: {kind: (forward ms, backward ms)}."""
+    from bigdl_tpu_torch.ops import Act
+
+    out = {}
+    for spec in ACT_CASES:
+        act = Act(*spec)
+        zx, wht, gout, _ = act_inputs(torch, g, case, act)
+        hs = ops.rnn_forward(zx, wht, None, act)
+        out[act.kind] = (
+            time_ms(torch, lambda: ops.rnn_forward(zx, wht, None, act),
+                    flush),
+            time_ms(torch, lambda: ops.rnn_backward(wht, hs, gout, act, zx),
+                    flush))
+    return out
+
+
+def phase_state_kernels(torch, ops, rows):
+    """The recurrence kernels from a carried state and under every
+    activation: the LSTM's backward and weight gradient from h0, c0 (its
+    forward too) and the GRU's three from h0 at STATE_CASES, the rnn's
+    three under each of the twenty kinds at ACT_SHAPES, each against its
+    plain version; times from a state beside from zeros at the
+    classifiers' chunk, and each kind's beside tanh's at (500, 1, 128,
+    128).  Adds them to the kernel ``rows`` (their max_abs_err the larger
+    of the two checks')."""
+    from bigdl_tpu_torch.ops import Act
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    lstm = {c: check_bilstm_state(torch, ops, g, c) for c in STATE_CASES}
+    gru = {c: check_gru_state(torch, ops, g, c) for c in STATE_CASES}
+    acts = {(spec[0],) + c: check_rnn_act(torch, ops, g, c, Act(*spec))
+            for c in ACT_SHAPES for spec in ACT_CASES}
+    print_errs("bilstm from h0, c0", lstm)
+    print_errs("gru from h0", gru)
+    print_errs("rnn act", acts)
+    flush = torch.empty(64 * 2**20, device="cuda")   # 256 MB > 50 MB L2
+    chunk = STATE_CASES[0]
+    st = state_times(torch, ops, flush, g, chunk)
+    for name, (zero, state) in st.items():
+        print(f"{name} {chunk}: from zeros {zero:.5f} ms, from h0"
+              f"{', c0' if name.startswith('bilstm') else ''} {state:.5f} ms")
+    at = act_times(torch, ops, flush, g, ACT_SHAPES[0])
+    for kind, (fwd, bwd) in at.items():
+        print(f"rnn {kind} {ACT_SHAPES[0]}: forward {fwd:.5f} ms "
+              f"(tanh {at['tanh'][0]:.5f}), backward {bwd:.5f} ms (tanh "
+              f"{at['tanh'][1]:.5f})")
+    quantity = {"bilstm_forward": (lstm, ("h", "c")),
+                "bilstm_backward": (lstm, ("dzx",)),
+                "bilstm_dwh": (lstm, ("dwh",)),
+                "gru_forward": (gru, ("h",)),
+                "gru_backward": (gru, ("dzrz", "dzn", "rh")),
+                "gru_dwh": (gru, ("dwrz", "dwh")),
+                "rnn_forward": (acts, ("h",)), "rnn_backward": (acts, ("dzx",)),
+                "rnn_dwh": (acts, ("dwh",))}
+    for row in rows:
+        if row["name"] not in quantity:
+            continue
+        errs, qs = quantity[row["name"]]
+        row["max_abs_err"] = max([row["max_abs_err"]] + [
+            r[q]["err"] for r in errs.values() for q in qs])
+        if row["name"] in st:
+            row["chunk_ms"], row["chunk_state_ms"] = st[row["name"]]
+        if row["name"] in ("rnn_forward", "rnn_backward"):
+            i = 0 if row["name"] == "rnn_forward" else 1
+            row["act_ms"] = {k: v[i] for k, v in at.items()}
+
+
 def paged_int8_case(torch, g, bsz, S, H, hd, ps, P, n_pages, pos,
                     shared=False):
     """``paged_case``'s inputs with the pools written as the decoder
@@ -2198,9 +2531,10 @@ def rnn_data(lines):
 
 
 def rnn_run(torch, device, init_tree, tokens, dictionary, end_trigger,
-            bptt=RBPTT):
+            bptt=RBPTT, build=None):
     """examples/train_rnn.py:76-89 from ``init_tree``: one-hot words of
-    ``seqLength`` 8 in batches of 4, ``SimpleRNN`` with ``bptt``,
+    ``seqLength`` 8 in batches of 4, ``SimpleRNN`` with ``bptt`` (or
+    ``build(vocab, device)``),
     ``TimeDistributedCriterion(ClassNLLCriterion(), size_average=True)``,
     SGD at lr 0.1, one iteration a dispatch.  An optimizer ready to
     run."""
@@ -2218,8 +2552,9 @@ def rnn_run(torch, device, init_tree, tokens, dictionary, end_trigger,
           >> SentenceToLabeledSentence(dictionary)
           >> LabeledSentenceToSample(n_input_dims=vocab, fixed_length=RSEQ)
           >> SampleToBatch(RBATCH))
-    model = SimpleRNN(vocab, RHIDDEN, vocab, bptt_truncate=bptt,
-                      device=device).load_params(init_tree)
+    model = (SimpleRNN(vocab, RHIDDEN, vocab, bptt_truncate=bptt,
+                       device=device) if build is None
+             else build(vocab, device)).load_params(init_tree)
     opt = LocalOptimizer(model, ds, TimeDistributedCriterion(
         ClassNLLCriterion(), size_average=True), device=device)
     opt.set_state(T(learningRate=RLR)).set_end_when(end_trigger)
@@ -2339,15 +2674,17 @@ def phase_simple_rnn(torch, ops, profile: bool):
             "generate": counts_g}
 
 
-def gru_classifier(device, generator=None):
+def gru_classifier(device, generator=None, bptt=0):
     """The Bi-LSTM classifier's composition with GRU cells, from the
-    package's public modules: 280,392 parameters at (20, 200, 128)."""
+    package's public modules: 280,392 parameters at (20, 200, 128), the
+    recurrence truncated every ``bptt`` steps (0: not)."""
     from bigdl_tpu_torch import nn
 
     kw = dict(device=device, generator=generator)
     return nn.Sequential(
         nn.BiRecurrent(nn.GRUCell(TEMBED, THIDDEN, **kw),
-                       nn.GRUCell(TEMBED, THIDDEN, **kw)),
+                       nn.GRUCell(TEMBED, THIDDEN, **kw),
+                       bptt_truncate=bptt),
         nn.Mean(1, n_input_dims=2),
         nn.Linear(2 * THIDDEN, 100, **kw), nn.ReLU(),
         nn.Linear(100, TCLASSES, **kw), nn.LogSoftMax())
@@ -2413,17 +2750,19 @@ def phase_gru(torch, ops, profile: bool):
               f"step {1 - busy_ms / step_ms:.4f} ({busy_ms:.4f} of "
               f"{step_ms:.4f} ms/step busy)")
     held_to_cpu("GRU", diff)
-    return counts
+    return counts, {"step_ms": step_ms,
+                    "tokens_s": steps * TBATCH * TSEQ / loop_s}
 
 
-def lstm_classifier(device, generator=None):
+def lstm_classifier(device, generator=None, bptt=0):
     """The Bi-LSTM classifier's composition with one direction, from the
-    package's public modules: 183,368 parameters at (20, 200, 128)."""
+    package's public modules: 183,368 parameters at (20, 200, 128), the
+    recurrence truncated every ``bptt`` steps (0: not)."""
     from bigdl_tpu_torch import nn
 
     kw = dict(device=device, generator=generator)
     return nn.Sequential(
-        nn.Recurrent().add(nn.LSTMCell(TEMBED, THIDDEN, **kw)),
+        nn.Recurrent(bptt).add(nn.LSTMCell(TEMBED, THIDDEN, **kw)),
         nn.Mean(1, n_input_dims=2),
         nn.Linear(THIDDEN, 100, **kw), nn.ReLU(),
         nn.Linear(100, TCLASSES, **kw), nn.LogSoftMax())
@@ -2489,7 +2828,173 @@ def phase_lstm(torch, ops, profile: bool):
               f"step {1 - busy_ms / step_ms:.4f} ({busy_ms:.4f} of "
               f"{step_ms:.4f} ms/step busy)")
     held_to_cpu("LSTM", diff)
+    return counts, {"step_ms": step_ms,
+                    "tokens_s": steps * TBATCH * TSEQ / loop_s}
+
+
+def truncated_classifier(torch, ops, profile, label, build, per_step,
+                         untruncated):
+    """``build(device, generator, bptt)`` at TBPTT trains TTRUNC_STEPS
+    steps of the Bi-LSTM phase's documents at full width and validates
+    Top1 once: the launch counts a step must be ``per_step`` (each
+    chunk one D = 1 call of each kernel) and fused_sgd one, the step
+    route never taken; ms a step and tokens/s beside the untruncated
+    run's ``untruncated`` figures; three steps at batch 16 against the
+    CPU.  The launch counts."""
+    from bigdl_tpu_torch.nn import recurrent
+    from bigdl_tpu_torch.nn.module import export_params
+    from bigdl_tpu_torch.optim import max_iteration
+    from bigdl_tpu_torch.utils.random import generator
+
+    make = lambda dev: build(dev, None, TBPTT)
+    init = export_params(build("cpu", generator(0), TBPTT))
+    docs = text_docs(TDOCS)
+    split = int(len(docs) * 0.8)
+    train, val = docs[:split], docs[split:]
+    run = lambda device, docs_, batch, end, val_=None: bilstm_run(
+        torch, device, init, docs_, batch, end, val_, build=make)
+    run("cuda", train, TBATCH, max_iteration(2)).optimize()   # warm-up
+    opt = run("cuda", train, TBATCH, max_iteration(TTRUNC_STEPS), val)
+    routes = recurrent.step_route_calls
+    _, counts, wall = run_path(torch, ops, opt.optimize)
+    steps = int(opt.state["neval"]) - 1
+    val_batches = len(opt.validation_log) * (len(val) // TBATCH)
+    chunks = -(-TSEQ // TBPTT)
+    want = {**dict.fromkeys(counts, 0), "fused_sgd": steps,
+            **{k: v * steps for k, v in per_step(chunks).items()}}
+    val_counts = per_step(0, val_batches)
+    for k, v in val_counts.items():
+        want[k] = want.get(k, 0) + v
+    if (steps != TTRUNC_STEPS or val_batches == 0 or counts != want
+            or recurrent.step_route_calls != routes):
+        raise AssertionError(f"truncated {label}: launches {counts} after "
+                             f"{steps} steps and {val_batches} validation "
+                             f"batches, expected {want}; step route "
+                             f"{recurrent.step_route_calls - routes}")
+    losses = [l for _, l in opt.loss_log]
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"truncated {label} losses: {losses}")
+    val_s = opt.metrics.get("validate")[0]
+    loop_s = wall - val_s
+    step_ms = loop_s / steps * 1e3
+    tokens = steps * TBATCH * TSEQ / loop_s
+    print(f"truncated {label}: bptt {TBPTT} over T {TSEQ} ({chunks} chunks, "
+          f"the last of {TSEQ - (chunks - 1) * TBPTT} steps), {steps} steps "
+          f"of {TBATCH} x {TSEQ} x {TEMBED}, {val_batches} validation "
+          f"batches; {step_ms:.4f} ms/step and {tokens:.1f} tokens/s "
+          f"(untruncated, same call: {untruncated['step_ms']:.4f} ms/step, "
+          f"{untruncated['tokens_s']:.1f} tokens/s); launches {counts} "
+          f"({', '.join(f'{k} {v}' for k, v in per_step(chunks).items())} "
+          f"a step); step route 0; losses "
+          f"{' '.join(f'{l:.6f}' for l in losses)}")
+    diff = card_vs_cpu(torch, init, lambda device: run(
+        device, train[:TCHECK_BATCH * TCHECK_STEPS], TCHECK_BATCH,
+        max_iteration(TCHECK_STEPS)))
+    print_vs_cpu(f"truncated {label}", TCHECK_BATCH, diff, PARAM_ATOL)
+    if profile:
+        busy_ms = profile_train(torch, lambda end: run(
+            "cuda", train, TBATCH, end), 5)
+        print(f"profile: device idle share of the unprofiled truncated "
+              f"{label} train step {1 - busy_ms / step_ms:.4f} "
+              f"({busy_ms:.4f} of {step_ms:.4f} ms/step busy)")
+    held_to_cpu(f"truncated {label}", diff)
     return counts
+
+
+def simple_rnn_composition(activation):
+    """SimpleRNN's layers from the public modules, its RnnCell under
+    ``activation`` (a class of nn): ``build(vocab, device, generator)``,
+    SimpleRNN's parameter tree."""
+    from bigdl_tpu_torch import nn
+
+    return lambda vocab, device, generator=None: nn.Sequential(
+        nn.Recurrent(RBPTT).add(nn.RnnCell(vocab, RHIDDEN, activation(),
+                                           device=device,
+                                           generator=generator)),
+        nn.TimeDistributed(nn.Sequential(
+            nn.Linear(RHIDDEN, vocab, device=device, generator=generator),
+            nn.LogSoftMax())))
+
+
+def phase_truncation(torch, ops, profile, figures):
+    """The rest of the recurrence at full width: (a) the LSTM classifier
+    and (b) the GRU classifier truncated every TBPTT steps (15 chunks a
+    sequence, each one kernel call of each kernel a direction), (c)
+    SimpleRNN's composition with Sigmoid and with ReLU cells for the
+    SimpleRNN phase's steps (rnn_* on every chunk), each held to the
+    CPU; (d) an RnnCell under SoftMax and an LSTMCell subclass, a short
+    forward and backward through the step route with no recurrence
+    launch.  ``figures``: the untruncated classifiers' {label: ms a step,
+    tokens/s} from this call.  The launch counts of each path."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.nn import recurrent
+    from bigdl_tpu_torch.nn.module import export_params
+    from bigdl_tpu_torch.optim import max_epoch, max_iteration
+    from bigdl_tpu_torch.utils.random import generator
+
+    out = {"lstm_bptt": truncated_classifier(
+        torch, ops, profile, "LSTM", lstm_classifier,
+        lambda n, val=0: {"bilstm_forward": n, "bilstm_backward": n,
+                          "bilstm_dwh": n, "lstm_scan": val},
+        figures["lstm"])}
+    out["gru_bptt"] = truncated_classifier(
+        torch, ops, profile, "GRU", gru_classifier,
+        lambda n, val=0: {"gru_forward": 2 * n + 2 * val,
+                          "gru_backward": 2 * n, "gru_dwh": 2 * n},
+        figures["gru"])
+
+    tokens, dictionary, vocab = rnn_data(rnn_corpus(RSENTENCES))
+    batches = -(-len(tokens) // RBATCH)
+    for act in (nn.Sigmoid, nn.ReLU):
+        build = simple_rnn_composition(act)
+        init = export_params(build(vocab, "cpu", generator(0)))
+        make = lambda device, end: rnn_run(torch, device, init, tokens,
+                                           dictionary, end, build=build)
+        make("cuda", max_iteration(2)).optimize()   # warm-up
+        opt = make("cuda", max_epoch(REPOCHS))
+        routes = recurrent.step_route_calls
+        _, counts, wall = run_path(torch, ops, opt.optimize)
+        steps = int(opt.state["neval"]) - 1
+        want = {**dict.fromkeys(counts, 0), "fused_sgd": steps,
+                "rnn_forward": 2 * steps, "rnn_backward": 2 * steps,
+                "rnn_dwh": 2 * steps}
+        if (steps != REPOCHS * batches or counts != want
+                or recurrent.step_route_calls != routes):
+            raise AssertionError(f"SimpleRNN {act.__name__}: launches "
+                                 f"{counts} after {steps} steps, expected "
+                                 f"{want}")
+        losses = [l for _, l in opt.loss_log]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"SimpleRNN {act.__name__} losses")
+        print(f"simple_rnn {act.__name__}: {steps} steps of {RBATCH} x "
+              f"{RSEQ} at bptt {RBPTT}, {wall / steps * 1e3:.4f} ms/step, "
+              f"{steps * RBATCH * RSEQ / wall:.1f} words/s; launches "
+              f"{counts} (2 chunks a step); step route 0; mean loss epoch 1 "
+              f"{np.mean(losses[:batches]):.6f}, epoch {REPOCHS} "
+              f"{np.mean(losses[-batches:]):.6f}")
+        diff = card_vs_cpu(torch, init, lambda device: make(
+            device, max_iteration(RCHECK_STEPS)))
+        print_vs_cpu(f"simple_rnn {act.__name__}", RBATCH, diff, PARAM_ATOL)
+        held_to_cpu(f"SimpleRNN {act.__name__}", diff)
+        out[f"simple_rnn_{act.__name__.lower()}"] = counts
+
+    # (d) what no kernel runs: a row-wise activation, a cell subclass
+    x = torch.randn(3, 7, 6, device="cuda", requires_grad=True)
+    for label, cell in (
+            ("RnnCell(6, 5, SoftMax())", nn.RnnCell(6, 5, nn.SoftMax(),
+                                                    device="cuda")),
+            ("LSTMCell subclass", type("Sub", (nn.LSTMCell,), {})(
+                6, 5, device="cuda"))):
+        routes = recurrent.step_route_calls
+        _, counts, _ = run_path(torch, ops, lambda: nn.Recurrent(3).add(
+            cell)(x).sum().backward())
+        taken = recurrent.step_route_calls - routes
+        if taken <= 0 or any(counts.values()):
+            raise AssertionError(f"{label}: step route {taken}, launches "
+                                 f"{counts}")
+        print(f"step route: Recurrent(3).add({label}) forward and backward, "
+              f"step_route_calls +{taken}, no kernel launch")
+    return out
 
 
 def held_to_cpu(label, diff):
@@ -2899,6 +3404,7 @@ def main(argv) -> int:
                    + phase_bilstm_kernels(torch, ops)
                    + [phase_lstm_scan_kernels(torch, ops)]
                    + phase_rnn_gru_kernels(torch, ops))
+    phase_state_kernels(torch, ops, kernel_rows)
     if "--kernels" in argv:
         # the kernel phase alone: to time two trees' kernels in turns
         print(json.dumps({"kernels": kernel_rows}))
@@ -2911,10 +3417,12 @@ def main(argv) -> int:
                                                   fp_rows, profile),
                "lenet": phase_train(torch, ops, profile),
                "inception": phase_inception(torch, ops, profile),
-               "bilstm": phase_bilstm(torch, ops, profile),
-               "lstm": phase_lstm(torch, ops, profile),
-               **phase_simple_rnn(torch, ops, profile),
-               "gru": phase_gru(torch, ops, profile)}
+               "bilstm": phase_bilstm(torch, ops, profile)}
+    by_path["lstm"], lstm_figures = phase_lstm(torch, ops, profile)
+    by_path |= phase_simple_rnn(torch, ops, profile)
+    by_path["gru"], gru_figures = phase_gru(torch, ops, profile)
+    by_path |= phase_truncation(torch, ops, profile, {
+        "lstm": lstm_figures, "gru": gru_figures})
     for row in kernel_rows:
         row["launches_by_path"] = {path: counts.get(row["name"], 0)
                                    for path, counts in by_path.items()}
@@ -2936,13 +3444,17 @@ def main(argv) -> int:
     # the attention rows their split count and their time at serving's
     # own context; the pool rows the sums over an Inception step's pools
     # at their own shapes (kernel, bound and library ms, launches a step);
-    # the stride-1 rows a PyTorch copy or add moving their bytes
+    # the stride-1 rows a PyTorch copy or add moving their bytes; the
+    # bilstm and gru rows their time at the truncated classifiers' chunk
+    # from zeros and from a carried state; the rnn forward and backward
+    # rows their time under each activation kind
     extra = ("layer_library_ms", "layer_port_ms", "same_size_library_ms",
              "two_einsum_ms", "dequant_sdpa_ms", "bilstm_forward_ms",
              "simplernn_ms", "simplernn_bound_ms", "splits", "serving_ms",
              "serving_plain_ms", "serving_library_ms", "serving_bound_ms",
              "inception_ms", "inception_bound_ms", "inception_library_ms",
-             "inception_launches_step", "same_bytes_ms")
+             "inception_launches_step", "same_bytes_ms", "chunk_ms",
+             "chunk_state_ms", "act_ms")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
         for r in kernel_rows]}))

@@ -55,6 +55,7 @@ def main() -> int:
     from bigdl_tpu_torch.ops import _build
     from bigdl_tpu_torch.ops import _recurrence as rec
     from bigdl_tpu_torch.ops import bilstm, gru, rnn
+    from bigdl_tpu_torch.ops._activation import TANH
     from bigdl_tpu_torch.utils.device import pin_fp32
 
     if not torch.cuda.is_available():
@@ -84,13 +85,14 @@ def main() -> int:
         if backward:
             want = ops.rnn_backward_reference(wht, hs, gout)
             launch = lambda c, rows: rnn_lib.bigdl_rnn_bwd_f32(
-                wht.data_ptr(), hs.data_ptr(), gout.data_ptr(),
-                out.data_ptr(), t, nd, b, h, c, rows, *dev)
+                None, wht.data_ptr(), hs.data_ptr(), None, gout.data_ptr(),
+                out.data_ptr(), t, nd, b, h, c, rows, *TANH.entry_args,
+                *dev)
         else:
             want = hs
             launch = lambda c, rows: rnn_lib.bigdl_rnn_fwd_f32(
                 zx.data_ptr(), wht.data_ptr(), None, out.data_ptr(), t, nd,
-                b, h, c, rows, *dev)
+                b, h, c, rows, *TANH.entry_args, *dev)
         name = f"rnn_{'backward' if backward else 'forward'} {(t, nd, b, h)}"
         return (name, rnn.plan(nd, b, h, backward), launch, out, want,
                 bwd if backward else fwd)
@@ -105,7 +107,8 @@ def main() -> int:
             want = ops.bilstm_backward_reference(zx, wht, hs, cs, gout)
             launch = lambda c, rows: lstm_lib.bigdl_lstm_bwd_f32(
                 zx.data_ptr(), wht.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-                gout.data_ptr(), out.data_ptr(), t, nd, b, h, c, rows, *dev)
+                None, None, gout.data_ptr(), out.data_ptr(), t, nd, b, h, c,
+                rows, *dev)
         else:
             out, c_out = torch.empty_like(hs), torch.empty_like(cs)
             want = hs
@@ -131,14 +134,15 @@ def main() -> int:
             want64 = ops.gru_backward_reference(*x64, hs.double(),
                                                 gout.double())
             launch = lambda c, rows: gru_lib.bigdl_gru_bwd_f32(
-                *(v.data_ptr() for v in (zrz, zn, wrz, wh, hs, gout, *outs)),
-                t, nd, b, h, c, rows, *dev)
+                *(v.data_ptr() for v in (zrz, zn, wrz, wh, hs)), None,
+                *(v.data_ptr() for v in (gout, *outs)), t, nd, b, h, c,
+                rows, *dev)
         else:
             outs = [torch.empty_like(hs)]
             want, want64 = [hs], [ops.gru_forward_reference(*x64)]
             launch = lambda c, rows: gru_lib.bigdl_gru_fwd_f32(
                 zrz.data_ptr(), zn.data_ptr(), wrz.data_ptr(), wh.data_ptr(),
-                outs[0].data_ptr(), t, nd, b, h, c, rows, *dev)
+                None, outs[0].data_ptr(), t, nd, b, h, c, rows, *dev)
         name = f"gru_{'backward' if backward else 'forward'} {(t, nd, b, h)}"
         return (name, gru.plan(nd, b, h, backward), launch, outs,
                 list(zip(want, want64)), bwd if backward else fwd)

@@ -276,3 +276,57 @@ def test_weight_gradient_slices(t, b, h, nd, want):
     s, per = dwh_slices(t, b, h, nd)
     assert (s, per) == want
     assert per % 16 == 0 and (s - 1) * per < max(t * b, 1) <= s * per
+
+
+def _lstm_loop64(zx, wht, h0, c0):
+    """The JAX LSTMCell's step (``_gates``: i, f, g, o; c' = sig(f) c +
+    sig(i) tanh(g), h' = sig(o) tanh(c')) over zx (T, D, B, 4H) in float64
+    from h0, c0: the h stack and the last c."""
+    hdim = wht.shape[1]
+    h, c, hs = h0, c0, []
+    for z_t in zx:
+        i, f, g, o = torch.split(z_t + torch.matmul(h, wht), hdim, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        hs.append(h)
+    return torch.stack(hs), c
+
+
+@pytest.mark.parametrize("case", [(7, 2, 3, 5), (1, 1, 4, 5), (9, 1, 4, 6)])
+def test_initial_state_against_a_float64_loop(case):
+    """From h0, c0 != 0 (a truncated run's carried state): the plain
+    forward, backward and weight gradient (hprev and cprev h0 and c0 at
+    t = 0) and the differentiable entry point, its last c too, against a
+    float64 loop of the JAX cell's step and its autograd gradients of
+    sum(hs * g) in zx and wht; h0 and c0 get no gradient."""
+    zx, wht, go = _inputs(*case, seed=7)
+    rs = np.random.RandomState(8)
+    h0, c0 = np.tanh(rs.randn(*case[1:])), rs.randn(*case[1:])
+    z64 = torch.from_numpy(zx).double().requires_grad_()
+    w64 = torch.from_numpy(wht).double().requires_grad_()
+    hs64, c64 = _lstm_loop64(z64, w64, torch.from_numpy(h0),
+                             torch.from_numpy(c0))
+    (hs64 * torch.from_numpy(go).double()).sum().backward()
+    zt, wt, gt = map(torch.from_numpy, (zx, wht, go))
+    h0t, c0t = (torch.from_numpy(v.astype(np.float32)) for v in (h0, c0))
+    hs, cs = ops.bilstm_forward_reference(zt, wt, h0=h0t, c0=c0t)
+    dzx = ops.bilstm_backward_reference(zt, wt, hs, cs, gt, h0t, c0t)
+    np.testing.assert_allclose(hs.numpy(), hs64.detach().numpy(), **FWD)
+    np.testing.assert_allclose(cs[-1].numpy(), c64.detach().numpy(), **FWD)
+    np.testing.assert_allclose(dzx.numpy(), z64.grad.numpy(), **BWD)
+    np.testing.assert_allclose(ops.bilstm_dwh_reference(hs, dzx, h0t)
+                               .numpy(), w64.grad.numpy(), **BWD)
+    zg, wg = zt.clone().requires_grad_(), wt.clone().requires_grad_()
+    h0g, c0g = h0t.clone().requires_grad_(), c0t.clone().requires_grad_()
+    y, last_c = ops.bilstm_recurrence(zg, wg, h0g, c0g, with_last_c=True)
+    (y * gt).sum().backward()
+    assert not last_c.requires_grad
+    np.testing.assert_allclose(y.detach().numpy(), hs64.detach().numpy(),
+                               **FWD)
+    np.testing.assert_allclose(last_c.numpy(), c64.detach().numpy(), **FWD)
+    np.testing.assert_allclose(zg.grad.numpy(), z64.grad.numpy(), **BWD)
+    np.testing.assert_allclose(wg.grad.numpy(), w64.grad.numpy(), **BWD)
+    assert h0g.grad is None and c0g.grad is None
+    with torch.no_grad():
+        y2, c2 = ops.bilstm_recurrence(zt, wt, h0t, c0t, with_last_c=True)
+    assert torch.equal(y2, y.detach()) and torch.equal(c2, last_c)

@@ -267,3 +267,49 @@ def test_hidden_above_the_limit_raises_before_a_launch(which):
         call(gru.MAX_HIDDEN + 1)
     with pytest.raises(ValueError, match="no kernel for device"):
         call(gru.MAX_HIDDEN)
+
+
+def _gru_loop64(zrz, zn, wrz, wh, h0):
+    """The JAX GRUCell's step (r, z = sig(zrz + h wrz), n = tanh(zn + (r o
+    h) wh), h' = (1 - z) n + z h) over T in float64 from h0."""
+    hdim = wh.shape[-1]
+    h, hs = h0, []
+    for a, b in zip(zrz, zn):
+        r, z = torch.split(torch.sigmoid(a + torch.matmul(h, wrz)), hdim,
+                           dim=-1)
+        n = torch.tanh(b + torch.matmul(r * h, wh))
+        h = (1 - z) * n + z * h
+        hs.append(h)
+    return torch.stack(hs)
+
+
+@pytest.mark.parametrize("case", [(5, 2, 3, 6), (1, 1, 2, 4), (9, 1, 4, 5)])
+def test_initial_state_against_a_float64_loop(case):
+    """From h0 != 0 (a truncated run's carried state): the plain forward,
+    backward (hprev and r o hprev from h0 at t = 0) and both weight
+    gradients, and the differentiable entry point, against a float64 loop
+    of the JAX cell's step and its autograd gradients of sum(hs * g) in
+    all four inputs; h0 gets no gradient."""
+    args, go = _inputs(*case, seed=9)
+    h0 = np.tanh(np.random.RandomState(10).randn(*case[1:]))
+    x64 = [torch.from_numpy(a).double().requires_grad_() for a in args]
+    hs64 = _gru_loop64(*x64, torch.from_numpy(h0))
+    (hs64 * torch.from_numpy(go).double()).sum().backward()
+    xt = [torch.from_numpy(a) for a in args]
+    gt, h0t = torch.from_numpy(go), torch.from_numpy(h0.astype(np.float32))
+    hs = ops.gru_forward_reference(*xt, h0t)
+    dzrz, dzn, rh = ops.gru_backward_reference(*xt, hs, gt, h0t)
+    dwrz, dwh = ops.gru_dwh_reference(hs, rh, dzrz, dzn, h0t)
+    np.testing.assert_allclose(hs.numpy(), hs64.detach().numpy(), **FWD)
+    for got, want in zip((dzrz, dzn, dwrz, dwh), x64):
+        np.testing.assert_allclose(got.numpy(), want.grad.numpy(), **BWD)
+    xg = [v.clone().requires_grad_() for v in xt]
+    h0g = h0t.clone().requires_grad_()
+    y = ops.gru_recurrence(*xg, h0g)
+    (y * gt).sum().backward()
+    np.testing.assert_allclose(y.detach().numpy(), hs64.detach().numpy(),
+                               **FWD)
+    for got, want in zip(xg, x64):
+        np.testing.assert_allclose(got.grad.numpy(), want.grad.numpy(),
+                                   **BWD)
+    assert h0g.grad is None

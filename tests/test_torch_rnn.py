@@ -303,3 +303,96 @@ def test_build_key_follows_included_headers(tmp_path, monkeypatch, header,
     path.write_text(path.read_text() + "\n// edited\n")
     after = {n: _build.target(n) for n in _build.SOURCES}
     assert {n for n in _build.SOURCES if before[n] != after[n]} == moved
+
+
+# every kind of ops.Act with parameters, beside an independent float64
+# version of it (PyTorch's own functions), and whether its inputs must be
+# kept in its domain (sqrt, log, a fractional power)
+LIB_ACTS = [
+    (ops.Act("tanh"), torch.tanh, None),
+    (ops.Act("relu"), torch.relu, None),
+    (ops.Act("relu6"), torch.nn.functional.relu6, None),
+    (ops.Act("tanhshrink"), torch.nn.functional.tanhshrink, None),
+    (ops.Act("sigmoid"), torch.sigmoid, None),
+    (ops.Act("logsigmoid"), torch.nn.functional.logsigmoid, None),
+    (ops.Act("softplus", 2.0),
+     lambda x: torch.nn.functional.softplus(x, beta=2.0), None),
+    (ops.Act("softsign"), torch.nn.functional.softsign, None),
+    (ops.Act("softshrink", 0.5),
+     lambda x: torch.nn.functional.softshrink(x, 0.5), None),
+    (ops.Act("hardshrink", 0.5),
+     lambda x: torch.nn.functional.hardshrink(x, 0.5), None),
+    (ops.Act("hardtanh", -0.5, 0.5),
+     lambda x: torch.nn.functional.hardtanh(x, -0.5, 0.5), None),
+    (ops.Act("threshold", 0.1, -0.2),
+     lambda x: torch.nn.functional.threshold(x, 0.1, -0.2), None),
+    (ops.Act("leakyrelu", 0.05),
+     lambda x: torch.nn.functional.leaky_relu(x, 0.05), None),
+    (ops.Act("elu", 0.7), lambda x: torch.nn.functional.elu(x, 0.7), None),
+    (ops.Act("abs"), torch.abs, None),
+    (ops.Act("sqrt"), torch.sqrt, "domain"),
+    (ops.Act("square"), torch.square, "grow"),
+    (ops.Act("power", 1.5, 0.5, 0.2), lambda x: (0.2 + 0.5 * x) ** 1.5,
+     "domain"),
+    (ops.Act("exp"), torch.exp, "grow"),
+    (ops.Act("log"), torch.log, "domain"),
+]
+
+
+@pytest.mark.parametrize("act,lib,domain", LIB_ACTS,
+                         ids=[a[0].kind for a in LIB_ACTS])
+def test_every_activation_against_a_float64_loop(act, lib, domain):
+    """The plain forward, backward (from the pre-activation zx + hprev .
+    wht, hprev h0 at t = 0, except tanh's 1 - h^2) and weight gradient
+    under each activation descriptor, and the differentiable entry, from
+    h0, against a float64 loop of h' = act(zx + h . wht) with PyTorch's
+    own function of each kind and its autograd gradients (random inputs
+    meet no kink).  Sqrt, log and the fractional power take |zx| + 3, an
+    h0 in [1, 2) and wht x 0.1: every pre-activation stays positive;
+    square and exp take zx / 2 and wht x 0.1, so that the nine steps do
+    not overflow."""
+    zx, wht, go = _inputs(9, 2, 3, 6, seed=11)
+    h0 = np.tanh(np.random.RandomState(12).randn(2, 3, 6))
+    if domain == "domain":
+        zx, wht, h0 = np.abs(zx) + 3, wht * 0.1, np.abs(h0) + 1
+    elif domain == "grow":
+        zx, wht = zx / 2, wht * 0.1
+    z64 = torch.from_numpy(zx).double().requires_grad_()
+    w64 = torch.from_numpy(wht).double().requires_grad_()
+    h, hs64 = torch.from_numpy(h0), []
+    for z_t in z64:
+        h = lib(z_t + torch.matmul(h, w64))
+        hs64.append(h)
+    hs64 = torch.stack(hs64)
+    (hs64 * torch.from_numpy(go).double()).sum().backward()
+    assert bool(torch.isfinite(hs64).all())
+    zt, wt, gt = map(torch.from_numpy, (zx, wht, go))
+    h0t = torch.from_numpy(h0.astype(np.float32))
+    hs = ops.rnn_forward_reference(zt, wt, h0t, act)
+    dzx = ops.rnn_backward_reference(wt, hs, gt, act, zt, h0t)
+    np.testing.assert_allclose(hs.numpy(), hs64.detach().numpy(), **FWD)
+    np.testing.assert_allclose(dzx.numpy(), z64.grad.numpy(), **BWD)
+    np.testing.assert_allclose(ops.rnn_dwh_reference(hs, dzx, h0t).numpy(),
+                               w64.grad.numpy(), **BWD)
+    zg, wg = zt.clone().requires_grad_(), wt.clone().requires_grad_()
+    y = ops.rnn_recurrence(zg, wg, h0t, act)
+    (y * gt).sum().backward()
+    np.testing.assert_allclose(y.detach().numpy(), hs64.detach().numpy(),
+                               **FWD)
+    np.testing.assert_allclose(zg.grad.numpy(), z64.grad.numpy(), **BWD)
+    np.testing.assert_allclose(wg.grad.numpy(), w64.grad.numpy(), **BWD)
+
+
+def test_activation_kinds_mirror_the_kernel_source():
+    """ops._activation.KINDS lists csrc/rnn.cu's ActKind codes in order,
+    and the backward reads h for tanh alone."""
+    src = (CSRC / "rnn.cu").read_text()
+    body = src[src.index("enum ActKind {"):]
+    body = body[:body.index("};")]
+    names = [n.strip() for n in body[body.index("{") + 1:].split(",")]
+    assert len(names) == len(ops._activation.KINDS) == 20
+    assert names[0] == "kTanhAct"
+    assert [ops.Act(k).entry_args[0] for k in ops._activation.KINDS] == \
+        list(range(20))
+    assert [k for k in ops._activation.KINDS if ops.Act(k).from_h] == ["tanh"]
+    assert "if (act != kTanhAct) {" in src

@@ -9,7 +9,12 @@
 //                   p' = p - lr * (nesterov ? g~ + mom * v' : v')
 //   momentum == 0:  v untouched, p' = p - lr * g~ (dampening ignored)
 // Nesterov is a template flag; lr, momentum, weight decay and dampening
-// are launch arguments, so a scheduled lr costs nothing.
+// are launch arguments, so a scheduled lr costs nothing.  lr may instead
+// be read from a one-float device tensor (`lr_dev`, non-null): a CUDA
+// graph that captures the launch then takes the lr written there before
+// each replay, where a host argument would stay the value at capture.
+// Both forms use the same fp32 value the same way, so they give the same
+// bits.
 //
 // What bounds it on this card: bytes.  Each parameter reads p, g, v and
 // writes p, v: 20 bytes for about 6 flops, far below the H100's fp32
@@ -55,9 +60,11 @@ __device__ __forceinline__ void update(float& p, float g, float& v, float lr,
 template <bool NESTEROV>
 __global__ void __launch_bounds__(kThreads)
     fused_sgd_kernel(const Leaf* __restrict__ leaves, int n_leaves, int chunk,
-                     float lr, float mom, float wd, float damp,
+                     float lr_arg, const float* __restrict__ lr_dev,
+                     float mom, float wd, float damp,
                      const unsigned char* __restrict__ finite) {
   if (finite != nullptr && *finite == 0) return;
+  const float lr = lr_dev != nullptr ? *lr_dev : lr_arg;
   // the last leaf whose first chunk is <= this block
   const long long c = blockIdx.x;
   int lo = 0, hi = n_leaves - 1;
@@ -107,11 +114,13 @@ extern "C" {
 
 // Launch on `stream` of `device` over `n_chunks` chunks of `chunk`
 // elements (a multiple of 4); `table` is the device copy of n_leaves rows
-// of (p, g, v, n, first chunk, vec) int64.  Returns the cudaError_t of the
-// launch (0 on success).
+// of (p, g, v, n, first chunk, vec) int64; lr is `*lr_dev` where that is
+// non-null, else `lr`.  Returns the cudaError_t of the launch (0 on
+// success).
 int bigdl_fused_sgd_f32(const long long* table, int n_leaves, int n_chunks,
-                        int chunk, float lr, float mom, float wd, float damp,
-                        int nesterov, const unsigned char* finite, int device,
+                        int chunk, float lr, const float* lr_dev, float mom,
+                        float wd, float damp, int nesterov,
+                        const unsigned char* finite, int device,
                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -119,10 +128,10 @@ int bigdl_fused_sgd_f32(const long long* table, int n_leaves, int n_chunks,
   const Leaf* leaves = reinterpret_cast<const Leaf*>(table);
   if (nesterov)
     fused_sgd_kernel<true><<<n_chunks, kThreads, 0, st>>>(
-        leaves, n_leaves, chunk, lr, mom, wd, damp, finite);
+        leaves, n_leaves, chunk, lr, lr_dev, mom, wd, damp, finite);
   else
     fused_sgd_kernel<false><<<n_chunks, kThreads, 0, st>>>(
-        leaves, n_leaves, chunk, lr, mom, wd, damp, finite);
+        leaves, n_leaves, chunk, lr, lr_dev, mom, wd, damp, finite);
   return (int)cudaGetLastError();
 }
 

@@ -11,7 +11,8 @@ training pass starts), so the two packages see the same epoch order.
 ``ds >> transformer`` hands that stream to every random (``stochastic``)
 stage of the transformer that has none of its own, so the crops and
 flips draw from it too, lazily, record by record, as the JAX pipeline
-draws from ``RNG.np_rng()``.
+draws from ``RNG.np_rng()``.  While a prefetch producer runs, it owns
+that stream (``utils.random.RandomGenerator.own_stream``).
 The sharded (distributed) dataset comes with the distributed slice.
 """
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 
 from bigdl_tpu_torch.dataset.transformer import Transformer, stages
+from bigdl_tpu_torch.utils.random import check_stream
 
 
 class AbstractDataSet:
@@ -49,27 +51,37 @@ class LocalDataSet(AbstractDataSet):
 
 class LocalArrayDataSet(LocalDataSet):
     """In-memory records with looped, shuffled iteration
-    (ref DataSet.scala:128)."""
+    (ref DataSet.scala:128).
+
+    The records stay where they are; ``order`` (indices into them) is the
+    shuffled list the JAX dataset keeps by shuffling its records in
+    place: an in-place shuffle of the indices draws what one of the
+    records draws.  So the order is state a caller can save and put
+    back (a checkpoint, or the prefetch undoing the shuffles of batches
+    it never handed out)."""
 
     def __init__(self, data, seed: int = 1):
         self._data = list(data)
+        self.order = np.arange(len(self._data))
         self.rng = np.random.RandomState(seed)
 
     def size(self):
         return len(self._data)
 
     def shuffle(self):
-        self.rng.shuffle(self._data)
+        check_stream(self.rng)
+        self.rng.shuffle(self.order)
         return self
 
     def data(self, train: bool):
         if train:
             def looped():
                 while True:
+                    check_stream(self.rng)
                     for i in self.rng.permutation(len(self._data)):
-                        yield self._data[i]
+                        yield self._data[self.order[i]]
             return looped()
-        return (self._data[i] for i in range(len(self._data)))
+        return (self._data[i] for i in self.order)
 
 
 class TransformedDataSet(AbstractDataSet):

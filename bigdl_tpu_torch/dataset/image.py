@@ -1,8 +1,12 @@
 """Image records and their transformers (counterpart of the parts of
 bigdl_tpu/dataset/image.py that the LeNet and Inception paths use:
 ``LabeledImage``, ``ImgNormalizer``, ``ImgRdmCropper``, ``HFlip``,
-``ImgToBatch``).  numpy only; the JAX package's native host ops are not
-ported yet.
+``ImgToBatch``).  The crops, flips, normalisation and batch copies run
+through the native host ops (``bigdl_tpu_torch.native``, C++ with
+OpenMP on large images); each is an element-wise fp32 copy or ``(x - mean) / std``, so the batches
+have the bits of the numpy expressions they replace.  The
+random offsets and coins are drawn in Python, record by record, in the
+serial order.
 
 Every transformer yields new images and leaves the dataset's records as
 they were (the JAX ones rebind ``img.data`` on the records themselves, so
@@ -17,8 +21,10 @@ from __future__ import annotations
 
 import numpy as np
 
+from bigdl_tpu_torch import native
 from bigdl_tpu_torch.dataset.sample import MiniBatch
 from bigdl_tpu_torch.dataset.transformer import Transformer
+from bigdl_tpu_torch.utils.random import check_stream
 
 
 class LabeledImage:
@@ -49,14 +55,17 @@ class ImgNormalizer(Transformer):
     JAX module rebinds ``img.data`` on the record itself, so every later
     pass over an in-memory dataset normalises its images once more."""
 
+    pure_per_record = True
+
     def __init__(self, mean, std):
         self.mean = np.asarray(mean, np.float32)
         self.std = np.asarray(std, np.float32)
 
     def __call__(self, iterator):
         for img in iterator:
-            yield LabeledImage((img.data - self.mean) / self.std, img.label,
-                               img.order)
+            yield LabeledImage(native.normalize(img.data, self.mean,
+                                                self.std),
+                               img.label, img.order)
 
 
 class ImgRdmCropper(Transformer):
@@ -82,7 +91,7 @@ class ImgRdmCropper(Transformer):
             h, w = d.shape[:2]
             y0 = rng.randint(0, h - self.ch + 1)
             x0 = rng.randint(0, w - self.cw + 1)
-            yield LabeledImage(d[y0:y0 + self.ch, x0:x0 + self.cw],
+            yield LabeledImage(native.crop(d, y0, x0, self.ch, self.cw),
                                img.label, img.order)
 
 
@@ -101,7 +110,8 @@ class HFlip(Transformer):
         rng = _stream(self)
         for img in iterator:
             if rng.uniform() < self.threshold:
-                img = LabeledImage(img.data[:, ::-1], img.label, img.order)
+                img = LabeledImage(native.hflip(img.data), img.label,
+                                   img.order)
             yield img
 
 
@@ -109,26 +119,35 @@ def _stream(stage) -> np.random.RandomState:
     if stage.rng is None:
         raise ValueError(f"{type(stage).__name__} has no random stream: "
                          f"pass rng=, or chain it onto a DataSet.array")
+    check_stream(stage.rng)
     return stage.rng
-
-
-def _img_to_chw(data, to_chw):
-    if data.ndim == 2:
-        return data[None]  # grey -> (1, H, W)
-    return np.ascontiguousarray(data.transpose(2, 0, 1)) if to_chw else data
 
 
 class ImgToBatch(Transformer):
     """LabeledImage -> MiniBatch in NCHW with float labels (ref
-    BGRImgToBatch / GreyImgToBatch); a partial tail batch is kept."""
+    BGRImgToBatch / GreyImgToBatch); a partial tail batch is kept.  Each
+    image is written straight into its row of the batch buffer, in CHW
+    order (a grey image as one channel; ``to_chw=False`` keeps HWC)."""
 
     def __init__(self, batch_size: int, to_chw: bool = True):
         self.batch_size = batch_size
         self.to_chw = to_chw
 
     def _stack(self, imgs):
-        return MiniBatch(np.stack([_img_to_chw(i.data, self.to_chw)
-                                   for i in imgs]),
+        first = imgs[0].data
+        chw = first.ndim == 2 or self.to_chw
+        channels = 1 if first.ndim == 2 else first.shape[2]
+        shape = (channels,) + first.shape[:2] if chw else first.shape
+        data = np.empty((len(imgs),) + shape, np.float32)
+        for row, img in zip(data, imgs):
+            if img.data.shape != first.shape:
+                raise ValueError(f"ImgToBatch: image shapes "
+                                 f"{first.shape} and {img.data.shape}")
+            if chw:
+                native.hwc_to_chw(img.data, out=row)
+            else:
+                row[...] = img.data
+        return MiniBatch(data,
                          np.asarray([i.label for i in imgs], np.float32))
 
     def __call__(self, iterator):

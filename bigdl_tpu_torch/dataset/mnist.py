@@ -13,6 +13,7 @@ import struct
 
 import numpy as np
 
+from bigdl_tpu_torch import native
 from bigdl_tpu_torch.dataset.image import LabeledImage
 
 TRAIN_MEAN = 0.13066047740239506 * 255
@@ -31,7 +32,7 @@ def load_images(path):
         if magic != 2051:
             raise ValueError(f"{path}: bad idx image magic {magic}")
         data = np.frombuffer(f.read(n * rows * cols), np.uint8)
-        return data.reshape(n, rows, cols).astype(np.float32)
+        return native.u8_to_f32(data.reshape(n, rows, cols))
 
 
 def load_labels(path):

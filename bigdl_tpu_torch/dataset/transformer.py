@@ -3,9 +3,12 @@ ref dataset/Transformer.scala:40-241).
 
 A ``Transformer`` maps an iterator of records to an iterator of records,
 composed with ``>>`` (the reference's ``->``).  ``SampleToBatch`` stacks
-Samples into MiniBatches, padding variable-length records when asked.
-The JAX module's buffer ring, global-batch mode and background prefetch
-are not ported.
+Samples into MiniBatches, padding variable-length records when asked;
+``PreFetch`` runs the stages before it on a background thread.  Each
+stage says whether the prefetch pipeline may fan it out to workers
+(``pure_per_record``) or must keep it on the one producer thread that
+owns the random stream (``stochastic``; ``dataset/prefetch.py``).  The
+JAX module's buffer ring and global-batch mode are not ported.
 """
 from __future__ import annotations
 
@@ -16,6 +19,14 @@ from bigdl_tpu_torch.dataset.sample import MiniBatch
 
 class Transformer:
     """Iterator-to-iterator stage; subclasses override ``__call__``."""
+
+    #: one output record per input record, no random draws, no state
+    #: across records: the prefetch pipeline may run it on workers, in
+    #: order
+    pure_per_record = False
+    #: draws from a random stream: it runs on the prefetch producer, the
+    #: stream's owner, so the draws keep the serial order
+    stochastic = False
 
     def __call__(self, iterator):
         raise NotImplementedError
@@ -96,3 +107,59 @@ def _pad_stack(arrays, pad_value, fixed_length=None):
         n = min(a.shape[0], max_len)
         out[i, :n] = a[:n]
     return out
+
+
+class PreFetch(Transformer):
+    """The stages before it run on a background thread, ``depth`` records
+    ahead (the reference's MTLabeledBGRImgToBatch + PreFetch,
+    MTLabeledBGRImgToBatch.scala:47,106); an error there is raised here,
+    at the record it stopped at."""
+
+    def __init__(self, depth: int = 2):
+        self.depth = depth
+
+    def __call__(self, iterator):
+        import queue
+        import threading
+
+        q = queue.Queue(maxsize=self.depth)
+        end = object()
+        stop = threading.Event()
+
+        class _Error:
+            # a private wrapper, so that a record which is an exception
+            # object is never taken for a failure
+            def __init__(self, exc):
+                self.exc = exc
+
+        def put(item):
+            # gives up once the consumer has gone
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                for item in iterator:
+                    if not put(item):
+                        return
+                put(end)
+            except BaseException as e:
+                put(_Error(e))
+
+        threading.Thread(target=worker, daemon=True,
+                         name="bigdl-prefetch").start()
+        try:
+            while True:
+                item = q.get()
+                if item is end:
+                    return
+                if isinstance(item, _Error):
+                    raise item.exc
+                yield item
+        finally:
+            stop.set()

@@ -79,7 +79,9 @@ class TimeDistributedCriterion(Criterion):
     per-step target (N, T, ...) when the target has more than one dim,
     else the same target at every step; the steps' losses summed, then
     divided by T when ``size_average`` (ref
-    TimeDistributedCriterion.scala)."""
+    TimeDistributedCriterion.scala).  The T steps are one batched call of
+    ``critrn`` (``torch.func.vmap`` over the time axis, as the JAX
+    criterion vmaps), not T calls: one launch an operation, whatever T."""
 
     def __init__(self, critrn: Criterion, size_average: bool = False):
         super().__init__(size_average)
@@ -89,8 +91,8 @@ class TimeDistributedCriterion(Criterion):
         t_len = input.shape[1]
         target = torch.as_tensor(target, device=input.device)
         per_step = target.dim() > 1
-        total = torch.stack([
-            self.critrn.apply_loss(input[:, t],
-                                   target[:, t] if per_step else target)
-            for t in range(t_len)]).sum()
+        losses = torch.func.vmap(self.critrn.apply_loss,
+                                 in_dims=(1, 1 if per_step else None))(
+            input, target)
+        total = losses.sum()
         return total / t_len if self.size_average else total

@@ -98,3 +98,51 @@ def export_params(model: Module) -> dict:
         return {k: ({n: v.cpu().numpy().copy() for n, v in sub.items()}
                     if k == "~" else to_np(sub)) for k, sub in tree.items()}
     return to_np(model.params())
+
+
+def param_paths(model: Module) -> list:
+    """The path of every parameter in the nested tree, ``(child, ...,
+    '~', name)``, in ``model.parameters()`` order."""
+    def walk(mod, prefix):
+        out = [prefix + ("~", k) for k in mod._parameters]
+        for name, m in mod._modules.items():
+            out += walk(m, prefix + (name,))
+        return out
+    return walk(model, ())
+
+
+def tree_of(model: Module, leaves) -> dict:
+    """``leaves`` (one per parameter, in ``model.parameters()`` order) in
+    the nested tree layout of :func:`export_params`, every module's
+    subtree present: how a per-parameter optimizer state (the momentum
+    velocity) is stored as the JAX package keeps it, a pytree shaped like
+    the params."""
+    it = iter(leaves)
+
+    def walk(mod):
+        tree = {"~": {k: next(it) for k in mod._parameters}}
+        for name, m in mod._modules.items():
+            tree[name] = walk(m)
+        return tree
+
+    try:
+        tree = walk(model)
+    except StopIteration:
+        raise ValueError("fewer leaves than parameters") from None
+    if next(it, None) is not None:
+        raise ValueError("more leaves than parameters")
+    return tree
+
+
+def leaves_of(model: Module, tree: dict) -> list:
+    """The inverse of :func:`tree_of`: the tree's leaves in
+    ``model.parameters()`` order; every parameter's path must be there."""
+    out = []
+    for path in param_paths(model):
+        node = tree
+        for key in path:
+            if key not in node:
+                raise KeyError(f"no leaf at {'/'.join(path)}")
+            node = node[key]
+        out.append(node)
+    return out

@@ -12,7 +12,13 @@ False flag.  ``fused_sgd.launches`` counts kernel launches only.
 The kernel reads its leaves from a device table of pointers and sizes.
 A table is built, checked and uploaded once for a set of tensors and
 reused while every pointer and size stays the same (a training loop whose
-gradients persist across steps); a leaf that moves costs a rebuild.
+gradients persist across steps); a leaf that moves costs a rebuild.  So a
+step captured in a CUDA graph after one eager step uploads nothing.
+
+``lr`` is a host float, or a one-element float32 tensor on the leaves'
+device that the kernel reads when it runs: the form a captured graph
+needs, since a scheduled lr changes between replays.  Both forms give
+the same bits.
 """
 from __future__ import annotations
 
@@ -41,7 +47,7 @@ def _lib() -> ctypes.CDLL:
         lib = _build.load("fused_sgd")
         lib.bigdl_fused_sgd_f32.argtypes = [
             _VP, _I, _I, _I,            # table n_leaves n_chunks chunk
-            _F, _F, _F, _F, _I,         # lr mom wd damp nesterov
+            _F, _VP, _F, _F, _F, _I,    # lr lr_dev mom wd damp nesterov
             _VP, _I, _VP]               # finite device stream
         lib.bigdl_fused_sgd_f32.restype = _I
         lib.bigdl_cuda_error_string.argtypes = [_I]
@@ -56,7 +62,7 @@ def fused_sgd_reference(params, grads, velocity, lr, momentum=0.0,
     """Plain version: the unfused math of ``SGD.update``
     (bigdl_tpu/optim/optim_method.py:135-147) leaf by leaf, written into
     ``params`` and ``velocity``; with ``momentum == 0`` the velocity is
-    untouched.  ``finite`` (a bool tensor or None) keeps every leaf as it
+    untouched.  ``lr`` is a float or a one-element float32 tensor.  ``finite`` (a bool tensor or None) keeps every leaf as it
     was where it is False."""
     with torch.no_grad():
         for p, g, v in zip(params, grads, velocity):
@@ -81,8 +87,10 @@ def fused_sgd(params, grads, velocity, lr, momentum=0.0, weight_decay=0.0,
               dampening=0.0, nesterov=False, finite=None):
     """One momentum-SGD step over lists of leaves ``params``, ``grads``,
     ``velocity`` (f32, one shape per triple), in place; returns
-    ``(params, velocity)``.  ``finite``: None, or a one-element bool
-    tensor on the leaves' device; where it is False nothing changes."""
+    ``(params, velocity)``.  ``lr``: a float, or a one-element float32
+    tensor on the leaves' device, read when the kernel runs.  ``finite``:
+    None, or a one-element bool tensor on the leaves' device; where it is
+    False nothing changes."""
     dev = params[0].device
     if dev.type == "cpu":
         return fused_sgd_reference(params, grads, velocity, lr, momentum,
@@ -161,12 +169,20 @@ def _launch(params, grads, velocity, lr, momentum, weight_decay, dampening,
         raise ValueError(f"fused_sgd: finite must be one bool on {dev}, "
                          f"got {finite.dtype} {tuple(finite.shape)} on "
                          f"{finite.device}")
+    lr_dev = None
+    if isinstance(lr, torch.Tensor):
+        if (lr.device != dev or lr.dtype != torch.float32
+                or lr.numel() != 1):
+            raise ValueError(f"fused_sgd: a tensor lr must be one float32 "
+                             f"on {dev}, got {lr.dtype} {tuple(lr.shape)} "
+                             f"on {lr.device}")
+        lr_dev, lr = lr.data_ptr(), 0.0
     table, n_leaves, n_chunks = _device_table(params, grads, velocity)
     if n_chunks == 0:
         return
     lib = _lib()
     err = lib.bigdl_fused_sgd_f32(
-        table.data_ptr(), n_leaves, n_chunks, CHUNK, float(lr),
+        table.data_ptr(), n_leaves, n_chunks, CHUNK, float(lr), lr_dev,
         float(momentum), float(weight_decay), float(dampening),
         int(bool(nesterov)),
         None if finite is None else finite.data_ptr(),

@@ -1,5 +1,6 @@
 """Training of the port (counterpart of bigdl_tpu/optim): OptimMethods,
-triggers, validation methods, the host timers and the local optimizer."""
+triggers, validation methods, the host timers, the local optimizer and
+the checkpoint helpers."""
 from bigdl_tpu_torch.optim import trigger as Trigger
 from bigdl_tpu_torch.optim.local_optimizer import (LocalOptimizer,
                                                    NonFiniteGradError,
@@ -9,7 +10,11 @@ from bigdl_tpu_torch.optim.optim_method import (SGD, Default, EpochDecay,
                                                 EpochSchedule, EpochStep,
                                                 LearningRateSchedule,
                                                 OptimMethod, Poly, Step)
-from bigdl_tpu_torch.optim.optimizer import Optimizer
+from bigdl_tpu_torch.optim.optimizer import (Optimizer, list_checkpoints,
+                                             load_latest_checkpoint,
+                                             prune_checkpoints, save_model,
+                                             save_state, snapshot_files,
+                                             snapshot_valid)
 from bigdl_tpu_torch.optim.trigger import (every_epoch, max_epoch,
                                            max_iteration, min_loss,
                                            several_iteration)
@@ -23,6 +28,9 @@ __all__ = [
     "LearningRateSchedule", "LocalOptimizer", "Loss", "LossResult",
     "Metrics", "NonFiniteGradError", "OptimMethod", "Optimizer", "Poly",
     "SGD", "Step", "Top1Accuracy", "Top5Accuracy", "Trigger",
-    "ValidationMethod", "ValidationResult", "every_epoch", "max_epoch",
-    "max_iteration", "min_loss", "several_iteration", "validate",
+    "ValidationMethod", "ValidationResult", "every_epoch",
+    "list_checkpoints", "load_latest_checkpoint", "max_epoch",
+    "max_iteration", "min_loss", "prune_checkpoints", "save_model",
+    "save_state", "several_iteration", "snapshot_files", "snapshot_valid",
+    "validate",
 ]

@@ -1,24 +1,37 @@
 """LocalOptimizer — single-host training (counterpart of
 bigdl_tpu/optim/local_optimizer.py; ref optim/LocalOptimizer.scala:40).
 
-Each iteration fetches a batch on the host, copies it to the device
-(pinned, non-blocking), runs forward, criterion and backward, then the
-OptimMethod's update in place, with the scheduled lr as a host float.
-What the JAX loop keeps, this one keeps:
+Each dispatch takes a batch (or, with ``set_iterations_per_dispatch(n)``,
+n distinct batches), runs forward, criterion and backward, then the
+OptimMethod's update in place.  What the JAX loop keeps, this one keeps:
 
 - epoch and ``neval`` accounting in a state ``Table`` under the
-  reference's keys, and the scheduled lr;
+  reference's keys, and the scheduled lr, read once a dispatch;
+- the background input pipeline (``dataset/prefetch.py``, on with
+  ``BIGDL_PREFETCH=1``): the transformer chain on a producer thread that
+  owns the dataset's random stream, the copy to the card on a side
+  stream; the losses are those of the serial loop, bit for bit;
+- n iterations a dispatch with the JAX chunk semantics: lr, triggers,
+  validation and checkpoints act once a dispatch, and ``state['loss']``
+  is the chunk's last step.  On the card the n steps are one CUDA graph,
+  captured after one eager chunk (the warm-up, on the capture's side
+  stream) and replayed once a dispatch, with lr read from a device
+  scalar; the other hyper-parameters are constants of the capture, which
+  is made again when one of them or a batch shape changes.  On the CPU
+  the chunk is an eager loop of n steps;
 - the non-finite skip: the step's finite flag (loss and every gradient)
   stays on the device, and the update leaves params and velocity as they
   were when it is False;
 - the host-sync window: loss and finite flag are read in one batch at
   the sync cadence, at an epoch rollover, when a trigger fires and at
   the run's end — the loop's only device-to-host reads;
-- validation at its trigger, and the end trigger.
+- validation and checkpoints at their triggers (``model.N`` and
+  ``state.N`` with the state, the optimizer state in the JAX tree layout,
+  ``neval`` and the random payload as of the last consumed batch), and
+  the end trigger.
 
-Not ported yet: checkpoints, taps and summaries, fault drills, the
-background prefetch threads, several iterations per dispatch (only
-``set_iterations_per_dispatch(1)``) and gradient checkpointing.
+Not ported yet: taps and summaries, fault drills and gradient
+checkpointing.
 """
 from __future__ import annotations
 
@@ -28,10 +41,14 @@ import time
 import numpy as np
 import torch
 
+from bigdl_tpu_torch.dataset import prefetch
+from bigdl_tpu_torch.nn.module import leaves_of, tree_of
 from bigdl_tpu_torch.optim import trigger as triggers
 from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.optim_method import SGD, Default, OptimMethod
+from bigdl_tpu_torch.utils import file as File
 from bigdl_tpu_torch.utils.device import pin_fp32, resolve_device
+from bigdl_tpu_torch.utils.random import RNG
 from bigdl_tpu_torch.utils.table import T, Table
 
 logger = logging.getLogger("bigdl_tpu_torch.optim")
@@ -62,8 +79,9 @@ def to_device(a, device: torch.device) -> torch.Tensor:
 
 
 class _PendingStep:
-    """One dispatched but not yet read iteration: its device scalars and
-    the host bookkeeping taken at dispatch."""
+    """One dispatched but not yet read dispatch: its device scalars (one
+    a step: (n,) at n steps a dispatch) and the host bookkeeping taken at
+    dispatch."""
 
     __slots__ = ("neval0", "epoch", "count", "loss", "finite", "lr",
                  "records", "fetch_t", "train_t")
@@ -82,9 +100,10 @@ class _PendingStep:
 
 
 class _HostSyncWindow:
-    """Cadence-gated device-to-host reads of the loop: each step's loss
-    and finite flag wait here and are read in one copy once ``cadence``
-    iterations have begun since the last read (or at a boundary)."""
+    """Cadence-gated device-to-host reads of the loop: each dispatch's
+    losses and finite flags wait here and are read in one copy once
+    ``cadence`` iterations have begun since the last read (or at a
+    boundary)."""
 
     def __init__(self, cadence: int):
         self.cadence = max(1, int(cadence))
@@ -107,16 +126,72 @@ class _HostSyncWindow:
             (self.pending[-1].neval0 - self._last_flush) >= self.cadence
 
     def flush(self):
-        """Read every pending step in one device-to-host copy.  Returns
-        (entries, losses, finites, window wall seconds)."""
+        """Read every pending dispatch in one device-to-host copy.
+        Returns (entries, [losses of each], [finite flags of each],
+        window wall seconds)."""
         entries, self.pending = self.pending, []
+        sizes = [e.loss.numel() for e in entries]
         both = torch.stack([
-            torch.stack([e.loss.float() for e in entries]),
-            torch.stack([e.finite for e in entries]).float()]).cpu()
+            torch.cat([e.loss.reshape(-1).float() for e in entries]),
+            torch.cat([e.finite.reshape(-1) for e in entries]).float()
+        ]).cpu().numpy()
         wall = (time.perf_counter() - self._t0) if self._t0 else 0.0
         self._t0 = None
         self._last_flush = entries[-1].neval0
-        return entries, both[0].numpy(), both[1].numpy() != 0, wall
+        bounds = np.cumsum([0] + sizes)
+        return (entries, [both[0, a:b] for a, b in zip(bounds, bounds[1:])],
+                [both[1, a:b] != 0 for a, b in zip(bounds, bounds[1:])],
+                wall)
+
+
+class _CapturedChunk:
+    """n train steps captured as one CUDA graph.  Its inputs are static
+    (n, B, ...) buffers and a device lr; its outputs static (n,) losses
+    and finite flags, copied out after each replay.  The kernel wrappers
+    count their launches where they make them, in the capture; a replay
+    runs what the capture recorded without calling them."""
+
+    def __init__(self, opt, params, opt_state, x, y, hyper, stream):
+        dev = x.device
+        n = x.shape[0]
+        self.key = _capture_key(params, opt_state, x, y, hyper)
+        self.x = torch.empty_like(x)
+        self.y = torch.empty_like(y)
+        self.lr = torch.zeros((), dtype=torch.float32, device=dev)
+        self.losses = torch.empty(n, dtype=torch.float32, device=dev)
+        self.finites = torch.empty(n, dtype=torch.bool, device=dev)
+        self.graph = torch.cuda.CUDAGraph()
+        # the dropout masks' generator advances at every replay
+        self.graph.register_generator_state(RNG.generator(dev))
+        # thread_local: the prefetch's transfer thread goes on copying
+        # (pinned buffers, events) on its own stream while this thread
+        # captures; only this thread's unsafe calls would break capture
+        with torch.cuda.graph(self.graph, stream=stream,
+                              capture_error_mode="thread_local"):
+            for i in range(n):
+                loss, finite = opt._train_step(params, opt_state, self.x[i],
+                                               self.y[i],
+                                               dict(hyper, lr=self.lr))
+                self.losses[i].copy_(loss)
+                self.finites[i].copy_(finite)
+
+    def run(self, x, y, lr):
+        self.x.copy_(x)
+        self.y.copy_(y)
+        self.lr.fill_(lr)
+        self.graph.replay()
+        return self.losses.clone(), self.finites.clone()
+
+
+def _capture_key(params, opt_state, x, y, hyper):
+    """What a capture is a function of besides its inputs' values: the
+    batch shapes and types, the address of every parameter, gradient and
+    optimizer-state tensor, and the hyper-parameters other than lr."""
+    return (tuple(x.shape), x.dtype, tuple(y.shape), y.dtype,
+            tuple((p.data_ptr(), p.grad.data_ptr()) for p in params),
+            tuple(t.data_ptr() for v in opt_state.values() for t in v),
+            tuple(sorted((k, repr(v)) for k, v in hyper.items()
+                         if k != "lr")))
 
 
 class LocalOptimizer:
@@ -134,15 +209,27 @@ class LocalOptimizer:
         self.validation_trigger = None
         self.validation_dataset = None
         self.validation_methods = None
+        self.checkpoint_path = None
+        self.checkpoint_trigger = None
+        self.iters_per_dispatch = 1
+        # n > 1 steps a dispatch on the card: one captured CUDA graph
+        # (False: the eager loop, a reference to hold the graph to)
+        self._cuda_graph = True
         self.metrics = Metrics()
         # skip a non-finite step (params and velocity keep their values),
         # count it, abort after this many in a row (0: never)
         self.nonfinite_abort = 10
         self._nonfinite_skips = 0
         self._nonfinite_streak = 0
+        self._resume_opt_state = None
         self._window = None
+        self._train_pipeline = None
+        self._chunk = self._side = None
         #: device-to-host reads of the training loop (window flushes)
         self.host_syncs = 0
+        #: graph captures and replays of the n-step dispatch
+        self.captures = 0
+        self.replays = 0
         #: (neval, loss) of every step, as flushed
         self.loss_log: list = []
         #: (neval, epoch, {method: value}) of every validation
@@ -157,6 +244,15 @@ class LocalOptimizer:
         self.optim_method = method
         return self
 
+    def set_optim_state(self, opt_state):
+        """Resume the optimizer's own state (the momentum velocity) from a
+        ``state.N`` snapshot's ``opt_state``, of either package: each
+        entry a tree in the params' layout.  Without it a momentum run
+        resumes from zero velocity and leaves the uninterrupted
+        trajectory."""
+        self._resume_opt_state = opt_state
+        return self
+
     def set_end_when(self, end_when):
         self.end_when = end_when
         return self
@@ -167,15 +263,20 @@ class LocalOptimizer:
         self.validation_methods = methods
         return self
 
+    def set_checkpoint(self, path, trigger):
+        """Write ``model.N`` and ``state.N`` under ``path`` whenever
+        ``trigger`` fires (N the iteration it fired at)."""
+        self.checkpoint_path = str(path)
+        self.checkpoint_trigger = trigger
+        return self
+
     def set_iterations_per_dispatch(self, n: int):
-        """One iteration a dispatch, as the JAX loop's default; several
-        (the JAX ``lax.scan`` of n steps) are not ported yet: a CUDA graph
-        of n steps comes with ROADMAP slice 2b."""
-        if int(n) > 1:
-            raise NotImplementedError(
-                f"set_iterations_per_dispatch({n}): several iterations a "
-                f"dispatch are not ported yet (a CUDA graph of the steps, "
-                f"ROADMAP slice 2b); use 1")
+        """n train steps a dispatch, each on its own batch (the JAX
+        ``lax.scan`` of n steps; one CUDA graph on the card).  lr,
+        triggers, validation and checkpoints act once a dispatch, and
+        ``state['loss']`` is the chunk's last step.  The batches of a
+        chunk must share one shape."""
+        self.iters_per_dispatch = max(1, int(n))
         return self
 
     def set_nonfinite_policy(self, abort_after: int | None = 10):
@@ -203,11 +304,29 @@ class LocalOptimizer:
         return -self.state.get("currentLearningRate",
                                -self.state.get("learningRate", 1e-3))
 
+    # -- optimizer state in the JAX tree layout ----------------------------
+    def _initial_opt_state(self, params):
+        opt_state = self.optim_method.init_state(params)
+        resume = self._resume_opt_state
+        if resume is not None:
+            with torch.no_grad():
+                for key, tree in resume.items():
+                    for t, v in zip(opt_state[key],
+                                    leaves_of(self.model, tree)):
+                        t.copy_(torch.from_numpy(np.array(v)))
+        return opt_state
+
+    def _export_opt_state(self, opt_state):
+        return {key: tree_of(self.model, [t.detach().cpu().numpy()
+                                          for t in leaves])
+                for key, leaves in opt_state.items()}
+
     # -- one step ------------------------------------------------------------
     def _train_step(self, params, opt_state, x, y, hyper):
         # the gradients persist across steps, zeroed in place and
         # accumulated into by autograd, so the SGD kernel's leaf table,
-        # built at the first step, serves every later one
+        # built at the first step, serves every later one (and a captured
+        # graph's)
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -221,6 +340,39 @@ class LocalOptimizer:
                                  finite=finite)
         return loss, finite
 
+    def _eager_chunk(self, params, opt_state, xs, ys, hyper):
+        out = [self._train_step(params, opt_state, x, y, hyper)
+               for x, y in zip(xs, ys)]
+        return (torch.stack([l for l, _ in out]),
+                torch.stack([f for _, f in out]))
+
+    def _run_chunk(self, params, opt_state, xs, ys, lr):
+        """n steps on the (n, B, ...) batches: (n losses, n flags)."""
+        hyper = self._hyper(lr)
+        if self.device.type != "cuda" or not self._cuda_graph:
+            return self._eager_chunk(params, opt_state, xs, ys, hyper)
+        if self._side is None:
+            # the optimizer's first chunk warms up on the capture's stream
+            # (library handles, the SGD leaf table, kernel attributes,
+            # first-call plans): a real chunk of the run, eager
+            self._side = torch.cuda.Stream(self.device)
+            cur = torch.cuda.current_stream(self.device)
+            self._side.wait_stream(cur)
+            with torch.cuda.stream(self._side):
+                out = self._eager_chunk(params, opt_state, xs, ys, hyper)
+            cur.wait_stream(self._side)
+            for t in out:   # read later on this stream: no early reuse
+                t.record_stream(cur)
+            return out
+        chunk = self._chunk
+        if chunk is None or chunk.key != _capture_key(params, opt_state, xs,
+                                                      ys, hyper):
+            chunk = self._chunk = _CapturedChunk(
+                self, params, opt_state, xs, ys, hyper, self._side)
+            self.captures += 1
+        self.replays += 1
+        return chunk.run(xs, ys, lr)
+
     # -- main loop (ref LocalOptimizer.optimize :77) ----------------------
     def optimize(self):
         state = self.state
@@ -229,11 +381,19 @@ class LocalOptimizer:
         pin_fp32(self.device)
         self.model.to(self.device).train()
         params = list(self.model.parameters())
-        opt_state = self.optim_method.init_state(params)
+        opt_state = self._initial_opt_state(params)
+        n = self.iters_per_dispatch
 
         count = 0
         epoch_size = self.dataset.size()
-        data_iter = self.dataset.data(train=True)
+        pipeline = None
+        if prefetch.enabled():
+            pipeline = prefetch.PipelineRunner(
+                self.dataset, train=True, chunk=n, epoch_size=epoch_size,
+                device=self.device)
+        self._train_pipeline = pipeline
+        data_iter = None if pipeline is not None \
+            else self.dataset.data(train=True)
         self._window = _HostSyncWindow(SYNC_CADENCE)
         wall_start = time.perf_counter()
         try:
@@ -242,21 +402,36 @@ class LocalOptimizer:
                 epoch0 = int(state["epoch"])
                 self._window.arm()
                 fetch_start = time.perf_counter()
-                batch = next(data_iter)
-                x = to_device(batch.data, self.device)
-                y = to_device(batch.labels, self.device)
+                if pipeline is not None:
+                    item, _ = pipeline.get()
+                    x, y = (item.device if item.device is not None else
+                            (to_device(item.x, self.device),
+                             to_device(item.y, self.device)))
+                else:
+                    if n <= 1:
+                        batch = next(data_iter)
+                        xh, yh = batch.data, batch.labels
+                    else:
+                        xh, yh = prefetch.stack_chunk(
+                            [next(data_iter) for _ in range(n)])
+                    x = to_device(xh, self.device)
+                    y = to_device(yh, self.device)
                 fetch_time = time.perf_counter() - fetch_start
 
                 train_start = time.perf_counter()
                 lr = self._current_lr()
-                loss, finite = self._train_step(params, opt_state, x, y,
-                                                self._hyper(lr))
+                if n <= 1:
+                    loss, finite = self._train_step(params, opt_state, x, y,
+                                                    self._hyper(lr))
+                else:
+                    loss, finite = self._run_chunk(params, opt_state, x, y,
+                                                   lr)
                 train_time = time.perf_counter() - train_start
 
-                b = x.shape[0]
+                b = x.shape[0] * x.shape[1] if n > 1 else x.shape[0]
                 count += b
-                state["neval"] = neval0 + 1
-                state["evalCounter"] = state.get("evalCounter", 0) + 1
+                state["neval"] = neval0 + n
+                state["evalCounter"] = state.get("evalCounter", 0) + n
                 self.metrics.add("data fetch time", fetch_time)
                 self.metrics.add("train time", train_time)
                 self._window.push(_PendingStep(
@@ -264,18 +439,19 @@ class LocalOptimizer:
                     train_time))
 
                 rolled = count >= epoch_size
-                if rolled:
-                    state["epoch"] = state["epoch"] + 1
-                    count = 0
-                    self.dataset.shuffle()
-                    data_iter = self.dataset.data(train=True)
+                count, data_iter = self._advance_epochs(
+                    state, count, epoch_size, n, data_iter, pipeline)
                 if self._window.due() or rolled:
                     self._flush_window(state, "epoch" if rolled
                                        else "cadence")
-                if (self.validation_trigger is not None
-                        and self.validation_trigger(state)):
+                ne_val = _fired_within(self.validation_trigger, state, n)
+                ne_ck = _fired_within(self.checkpoint_trigger, state, n)
+                if ne_val is not None or ne_ck is not None:
                     self._flush_window(state, "trigger")
+                if ne_val is not None:
                     self._validate(state)
+                if ne_ck is not None:
+                    self._checkpoint(opt_state, state, ne_ck)
             self._flush_window(state, "run-end")
         finally:
             try:
@@ -285,9 +461,36 @@ class LocalOptimizer:
             except Exception as e:
                 logger.warning("pending-step flush during unwind failed: "
                                "%s", e)
+            if pipeline is not None:
+                pipeline.close()
+            self._train_pipeline = None
+            self._chunk = None   # its graph holds this run's velocity
         logger.info("Training finished in %.1fs",
                     time.perf_counter() - wall_start)
         return self.model
+
+    def _advance_epochs(self, state, count, epoch_size, n, data_iter,
+                        pipeline):
+        """The epoch rollover: at one step a dispatch the leftover count
+        resets (it came from the iterator now discarded); a chunk may span
+        epochs of a small dataset, so at n it rolls through.  With the
+        pipeline its producer has already shuffled and rebuilt its
+        iterator at this point of the stream; only the counters move."""
+        if n <= 1:
+            if count >= epoch_size:
+                state["epoch"] = state["epoch"] + 1
+                count = 0
+                if pipeline is None:
+                    self.dataset.shuffle()
+                    data_iter = self.dataset.data(train=True)
+            return count, data_iter
+        while count >= epoch_size:
+            state["epoch"] = state["epoch"] + 1
+            count -= epoch_size
+            if pipeline is None:
+                self.dataset.shuffle()
+                data_iter = self.dataset.data(train=True)
+        return count, data_iter
 
     def _flush_window(self, state, reason: str):
         w = self._window
@@ -298,19 +501,21 @@ class LocalOptimizer:
         rate = sum(e.records for e in entries) / max(wall, 1e-9)
         epoch_size = self.dataset.size()
         abort = None
-        for e, loss, ok in zip(entries, losses, finites):
-            state["loss"] = float(loss)
-            self.loss_log.append((e.neval0, float(loss)))
+        for e, ls, oks in zip(entries, losses, finites):
+            state["loss"] = float(ls[-1])
+            self.loss_log += [(e.neval0 + i, float(v))
+                              for i, v in enumerate(ls)]
             logger.info(
                 "Epoch %d %d/%d loss %.6f lr %.5g throughput %.1f "
                 "records/s (fetch %.4fs dispatch %.4fs, synced %s)",
-                e.epoch, e.count, epoch_size, float(loss), e.lr, rate,
+                e.epoch, e.count, epoch_size, float(ls[-1]), e.lr, rate,
                 e.fetch_t, e.train_t, reason)
-            if abort is None:
-                try:
-                    self._note_finite(bool(ok), state)
-                except NonFiniteGradError as exc:
-                    abort = exc  # log the remaining steps first
+            for ok in oks:
+                if abort is None:
+                    try:
+                        self._note_finite(bool(ok), state)
+                    except NonFiniteGradError as exc:
+                        abort = exc  # log the remaining steps first
         if abort is not None:
             raise abort
 
@@ -335,9 +540,18 @@ class LocalOptimizer:
 
     # -- validation (ref LocalOptimizer.scala:196-242) --------------------
     def _validate(self, state):
-        with self.metrics.timer("validate"):
-            results = validate(self.model, self.validation_dataset,
-                               self.validation_methods, self.device)
+        pipeline = self._train_pipeline
+        if pipeline is not None:
+            # hold the producer before its next draw: validation may read
+            # the records an epoch shuffle reorders
+            pipeline.pause()
+        try:
+            with self.metrics.timer("validate"):
+                results = validate(self.model, self.validation_dataset,
+                                   self.validation_methods, self.device)
+        finally:
+            if pipeline is not None:
+                pipeline.resume()
         values = {}
         for method, result in results:
             logger.info("%s is %s", method, result)
@@ -345,19 +559,65 @@ class LocalOptimizer:
         self.validation_log.append((int(state["neval"]), int(state["epoch"]),
                                     values))
 
+    # -- checkpoints (the JAX _maybe_checkpoint :956-1008) ----------------
+    def _checkpoint(self, opt_state, state, neval):
+        """``model.N`` and ``state.N`` under the checkpoint path: the
+        state, the optimizer state in the params' tree layout, the label
+        and the random payload as of the last CONSUMED batch (with the
+        pipeline, the stream has already drawn for batches only
+        prefetched)."""
+        from bigdl_tpu_torch.optim.optimizer import (keep_count,
+                                                     prune_checkpoints)
+
+        with self.metrics.timer("checkpoint"):
+            pipeline = self._train_pipeline
+            rng = (pipeline.rng_snapshot() if pipeline is not None
+                   else prefetch.host_snapshot(self.dataset))
+            path = self.checkpoint_path
+            File.save_module(self.model, f"{path}/model.{neval}")
+            File.save({"state": state, "opt_state":
+                       self._export_opt_state(opt_state), "neval": neval,
+                       "rng": rng}, f"{path}/state.{neval}")
+            keep = keep_count()
+            if keep:
+                prune_checkpoints(path, keep, just_written=neval)
+
+
+def _fired_within(trig, state, n):
+    """The first neval of this dispatch's (neval - n, neval] at which
+    ``trig`` fires, or None: a periodic trigger is not skipped because
+    neval moves n a dispatch.  Each probe is a copy of the state, and the
+    trigger is probed once an iteration (a stateful one such as
+    ``every_epoch`` too)."""
+    if trig is None:
+        return None
+    neval = state["neval"]
+    for ne in range(neval - n + 1, neval + 1):
+        probe = T()
+        probe.update(state)
+        probe["neval"] = ne
+        if trig(probe):
+            return ne
+    return None
+
 
 def validate(model, dataset, methods, device):
     """One pass over ``dataset`` in evaluation mode, without gradients
     (so a pool writes no argmax); returns ``[(method, merged result)]``
-    (ref Validator.scala:24 / LocalValidator.scala:30)."""
+    (ref Validator.scala:24 / LocalValidator.scala:30).  The batches ride
+    a background prefetch thread with ``BIGDL_PREFETCH=1`` (else the
+    calling thread; a chain that draws random numbers stays there too)."""
     device = torch.device(device)
     was_training = model.training
     model.eval()
     totals = [None] * len(methods)
     count, t0 = 0, time.perf_counter()
+    batches = dataset.data(train=False)
+    if prefetch.enabled() and not prefetch.has_stochastic_stage(dataset):
+        batches = prefetch.background(batches, prefetch.depth())
     try:
         with torch.no_grad():
-            for batch in dataset.data(train=False):
+            for batch in batches:
                 out = model(to_device(batch.data, device))
                 count += int(np.asarray(batch.labels).shape[0])
                 for i, m in enumerate(methods):

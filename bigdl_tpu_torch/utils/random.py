@@ -13,9 +13,20 @@ trajectory per seed, and PyTorch's global generator plays no part.
 ``RNG`` holds one ``torch.Generator`` per device, each seeded from the
 package seed when first asked for, so a run on the card and a run on the
 CPU are each reproducible (their masks differ: the generators do).
+
+A run's host draws (shuffles, crops, flips) come from the stream of its
+``DataSet.array`` (an ``np.random.RandomState``), so a checkpoint's
+random payload, :meth:`RandomGenerator.snapshot`, holds that stream's
+state beside every generator's.  While a prefetch producer draws from a
+dataset's stream it owns it (:meth:`RandomGenerator.own_stream`, the
+counterpart of the JAX ``own_seed_stream``): a draw from any other thread
+raises.
 """
 from __future__ import annotations
 
+import threading
+
+import numpy as np
 import torch
 
 
@@ -52,6 +63,66 @@ class RandomGenerator:
             g = self._gens[dev] = torch.Generator(device=dev).manual_seed(
                 self._seed)
         return g
+
+    # -- checkpoint payload ------------------------------------------------
+    def snapshot(self, stream: np.random.RandomState = None) -> dict:
+        """The package seed and every generator's state, and, when given,
+        the host stream's state (``np_state``, as the JAX payload names
+        the state of its host stream)."""
+        snap = {"seed": self._seed,
+                "generators": {str(dev): g.get_state().numpy().copy()
+                               for dev, g in self._gens.items()}}
+        if stream is not None:
+            snap["np_state"] = stream.get_state()
+        return snap
+
+    def restore(self, snap: dict, stream: np.random.RandomState = None):
+        """The inverse of :meth:`snapshot`.  A payload of the JAX package
+        (no ``generators``) restores the host stream alone: its device
+        keys have no counterpart here."""
+        if "generators" in snap:
+            self.set_seed(snap["seed"])
+            for name, state in snap["generators"].items():
+                self.generator(name).set_state(
+                    torch.from_numpy(np.asarray(state, np.uint8)))
+        if stream is not None and snap.get("np_state") is not None:
+            st = snap["np_state"]
+            stream.set_state((st[0], np.asarray(st[1], np.uint32))
+                             + tuple(st[2:]))
+        return self
+
+    # -- host streams owned by one thread ----------------------------------
+    def own_stream(self, stream: np.random.RandomState):
+        """Make the calling thread the only one that may draw from
+        ``stream`` until :meth:`release_stream`."""
+        with _owners_lock:
+            _owners[id(stream)] = threading.get_ident()
+        return self
+
+    def release_stream(self, stream: np.random.RandomState):
+        with _owners_lock:
+            _owners.pop(id(stream), None)
+        return self
+
+    def stream_owner(self, stream: np.random.RandomState):
+        """The ident of the thread that owns ``stream``, or None."""
+        return _owners.get(id(stream))
+
+
+#: id(stream) -> the ident of the thread that owns it
+_owners: dict = {}
+_owners_lock = threading.Lock()
+
+
+def check_stream(stream: np.random.RandomState):
+    """Raise unless the calling thread may draw from ``stream`` (no thread
+    owns it, or this one does)."""
+    owner = _owners.get(id(stream))
+    if owner is not None and owner != threading.get_ident():
+        raise RuntimeError(
+            f"a draw from a host stream that thread {owner} owns: while a "
+            f"prefetch producer runs, only it draws from its dataset's "
+            f"stream")
 
 
 RNG = RandomGenerator(seed=1)

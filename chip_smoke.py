@@ -6,6 +6,8 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py            # the smoke, a few minutes
     python3 chip_smoke.py --profile  # plus torch.profiler breakdowns
     python3 chip_smoke.py --kernels  # phases 1-2 alone, no result line
+    python3 chip_smoke.py --harness  # fused_sgd's checks and phase 10
+                                     # alone, no result line
 
 Phases, each failing with a non-zero exit:
 
@@ -109,7 +111,26 @@ Phases, each failing with a non-zero exit:
    on the CPU and beside the untruncated run's ms a step and tokens/s,
    the step route never taken; (d) an RnnCell under SoftMax and an
    LSTMCell subclass take the step route with no recurrence launch;
-10. one JSON line of kernels, then the card line, then the result line.
+10. the training harness's host side: LeNet-5 and SimpleRNN (the
+    examples' full width) take 8 steps a dispatch as one CUDA graph,
+    held to the eager 8-step loop on the card (bits under the
+    deterministic algorithms, else rtol 1e-5 / atol 1e-6) and to the CPU,
+    the wrappers counting the capture's launches and the profiler the
+    kernels each run's replays ran (by name: every step through its
+    kernels), ms a step, device ms a step and idle share beside one step
+    a dispatch; a
+    classifier with dropout in the graph ends with its mask generator
+    where the eager loop's ends, and its Top1 rises on a learnable
+    synthetic set; Inception-v1 and the Bi-LSTM at full width take the
+    same steps with the background prefetch on and off, bit-equal
+    losses, the host share, ms a step and idle share of each, then
+    Inception-v1 with the prefetch on at 8 steps a dispatch as one CUDA
+    graph (the replays' kernels counted by the profiler); LeNet-5 with
+    momentum on distinct digits, cropped and flipped at random, resumes on
+    the card from a checkpoint past corrupt snapshots and ends where the
+    uninterrupted run does, and without the random payload does not, the
+    checkpoint's wall cost printed;
+11. one JSON line of kernels, then the card line, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -305,6 +326,35 @@ ACT_SHAPES = [(TSEQ, 1, TBATCH, THIDDEN), (RBPTT, 1, RBATCH, RHIDDEN)]
 SERVE_POS = [[int(p)] for p in np.linspace(15, 256 + N_WORDS - 1, SLOTS)]
 SERVE_PAGES = -(-(256 + N_WORDS) // PAGE)
 # tests/test_pallas_ops.py:37-44
+# the harness (n steps a dispatch, the prefetch, checkpoints): LeNet-5 and
+# SimpleRNN take HSTEPS steps at HDISPATCH a dispatch after HDISPATCH
+# warm-up steps; the learnable set (tests/test_training.py's, widened)
+# trains HLEARN_EPOCHS epochs; Inception-v1 and the Bi-LSTM (HDOCS
+# documents: 4 steps an epoch) take HPREFETCH_STEPS steps with the
+# prefetch on and off; LeNet-5 takes a snapshot every HCKPT_EVERY of
+# HCKPT_STEPS steps
+HDISPATCH, HSTEPS = 8, 64
+HFEATURES, HCLASSES, HLEARN, HLEARN_EPOCHS = 32, 10, 4096, 4
+HPREFETCH_STEPS, HDOCS = 6, 4 * TBATCH
+HCKPT_STEPS, HCKPT_EVERY = 12, 4
+# the graph against the eager loop on the card where bits do not hold
+GRAPH_TOL = dict(rtol=1e-5, atol=1e-6)
+# the device kernel each wrapper of the harness's graph paths launches
+# once a call, as the profiler names it: each form a set of parts its
+# (demangled or mangled) symbol holds
+KERNEL_SYMBOLS = {
+    "fused_sgd": [("fused_sgd_kernel",)],
+    "maxpool2d_forward": [("maxpool2d_fwd_kernel",)],
+    "maxpool2d_backward": [("maxpool2d_bwd_kernel",)],
+    "maxpool2d_s1_forward": [("s1_fwd_staged",), ("s1_fwd_direct",)],
+    "maxpool2d_s1_backward": [("s1_bwd_staged",), ("s1_bwd_direct",)],
+    "lrn_forward": [("lrn_fwd_kernel",)],
+    "lrn_backward": [("lrn_bwd_kernel",)],
+    "rnn_forward": [("cluster_recurrence", "RnnFwd")],
+    "rnn_backward": [("cluster_recurrence", "RnnBwd")],
+    # the weight gradient's sliced products (then their sum, uncounted)
+    "rnn_dwh": [("dwh_kernel",)],
+}
 SGD_HYPERS = [
     {"lr": 0.1}, {"lr": 0.1, "dampening": 0.9},
     {"lr": 0.1, "momentum": 0.9},
@@ -2017,12 +2067,16 @@ def check_sgd(torch, ops, g):
     set, over leaves that no chunk or vector width divides, the gradients
     moved to new memory before the last step (the cached leaf table must
     give way to a new one); then a step with the finite flag False
-    changes nothing."""
+    changes nothing.  The device-lr form (lr read from a one-float
+    tensor, as a captured graph launches it) runs beside the host-lr form
+    on copies of the same leaves and must give the same bits."""
     shapes = [(130, 7), (7,), (4097,), (100,), (3, 5, 5), (10001,)]
     err = 0.0
     for h in SGD_HYPERS:
         p, gr, v = sgd_leaves(torch, g, shapes)
         p2, v2 = [t.clone() for t in p], [t.clone() for t in v]
+        p3, v3 = [t.clone() for t in p], [t.clone() for t in v]
+        lr_dev = torch.tensor(h["lr"], dtype=torch.float32, device="cuda")
         kw = dict(momentum=h.get("momentum", 0.0),
                   weight_decay=h.get("weight_decay", 0.0),
                   dampening=h.get("dampening", 0.0),
@@ -2032,10 +2086,16 @@ def check_sgd(torch, ops, g):
                 gr = [t.clone() for t in gr]
             ops.fused_sgd(p, gr, v, h["lr"], **kw)
             ops.fused_sgd_reference(p2, gr, v2, h["lr"], **kw)
+            ops.fused_sgd(p3, gr, v3, lr_dev, **kw)
         torch.cuda.synchronize()
-        for a, b in zip(p + v, p2 + v2):
+        for a, b, c in zip(p + v, p2 + v2, p3 + v3):
             torch.testing.assert_close(a, b, **SGD_TOL)
-            err = max(err, float((a - b).abs().max()))
+            torch.testing.assert_close(c, b, **SGD_TOL)
+            err = max(err, float((a - b).abs().max()),
+                      float((c - b).abs().max()))
+            if not torch.equal(a, c):
+                raise AssertionError("fused_sgd: the device-lr form's bits "
+                                     "differ from the host-lr form's")
         kept = [t.clone() for t in p + v]
         ops.fused_sgd(p, gr, v, h["lr"], finite=torch.zeros(
             (), dtype=torch.bool, device="cuda"), **kw)
@@ -2063,6 +2123,9 @@ def sgd_times(torch, ops, flush, g, shapes):
                 lambda: ops.fused_sgd_reference(p, gr, v, LR, finite=ok,
                                                 **kw),
                 lib.step)
+    lr_dev = torch.tensor(LR, dtype=torch.float32, device="cuda")
+    row["device_lr_ms"] = time_ms(torch, lambda: ops.fused_sgd(
+        p, gr, v, lr_dev, finite=ok, **kw), flush)
     row["params"] = sum(t.numel() for t in p)
     row.update(byte_bound(20 * row["params"], 0))
     return row
@@ -2099,7 +2162,8 @@ def phase_train_kernels(torch, ops):
     for shapes in (lenet, serving):
         sgd = sgd_times(torch, ops, flush, g, shapes)
         print(f"fused_sgd {sgd['params']} params in {len(shapes)} leaves: "
-              f"kernel_ms={sgd['ms']:.5f} plain_ms={sgd['plain_ms']:.5f} "
+              f"kernel_ms={sgd['ms']:.5f} device_lr_ms="
+              f"{sgd['device_lr_ms']:.5f} plain_ms={sgd['plain_ms']:.5f} "
               f"library_ms={sgd['library_ms']:.5f} "
               f"bound_ms={sgd['bound_ms']:.5f} ({20 * sgd['params']} bytes) "
               f"queued_ms={sgd['queued_ms']:.5f}")
@@ -2112,7 +2176,8 @@ def phase_train_kernels(torch, ops):
           f"{len(NAN_POOL_CASES)} with NaNs, forward and argmax equal, "
           f"backward max_abs_err={bwd_err:.3e}; fused_sgd: "
           f"{len(SGD_HYPERS)} hyper sets x 3 steps, max_abs_err="
-          f"{sgd_err:.3e}, a non-finite step writes nothing")
+          f"{sgd_err:.3e}, the device-lr form bit-equal to the host-lr "
+          f"form, a non-finite step writes nothing")
     common = {"route": "cuda", "ok": True}
     pool_src = {"source": "bigdl_tpu_torch/csrc/maxpool2d.cu"}
     return [
@@ -3373,6 +3438,481 @@ def profile_decode(torch, model, seeds, kv_quant="off"):
     return busy / steps
 
 
+# ---------------------------------------------------------------------------
+# the training harness's host side: n steps a dispatch as one CUDA graph,
+# the background prefetch, checkpoints that resume the same trajectory
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def prefetch_set(on: bool):
+    """``BIGDL_PREFETCH`` on or off for the runs inside."""
+    import os
+
+    old = os.environ.get("BIGDL_PREFETCH")
+    os.environ["BIGDL_PREFETCH"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["BIGDL_PREFETCH"]
+        else:
+            os.environ["BIGDL_PREFETCH"] = old
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """``torch.use_deterministic_algorithms`` for the runs inside (cuDNN's
+    deterministic algorithms), so two runs of one trajectory can be held
+    bit for bit."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _params(torch, model):
+    return torch.cat([p.detach().float().cpu().reshape(-1)
+                      for p in model.parameters()])
+
+
+def held_same(torch, label, a, b, tol):
+    """Two runs of one trajectory on the card: bits where they agree,
+    else within ``tol`` (losses rtol, params atol); the rule held."""
+    la = np.asarray([l for _, l in a.loss_log])
+    lb = np.asarray([l for _, l in b.loss_log])
+    pa, pb = _params(torch, a.model), _params(torch, b.model)
+    if len(la) != len(lb) or len(la) == 0:
+        raise AssertionError(f"{label}: {len(la)} and {len(lb)} losses")
+    if np.array_equal(la, lb) and torch.equal(pa, pb):
+        return "bits"
+    rel = float(np.max(np.abs(la - lb) / np.abs(lb)))
+    p_abs = float((pa - pb).abs().max())
+    print(f"{label}: losses {rel:.3e} relative apart, params {p_abs:.3e}")
+    if rel > tol["rtol"] or p_abs > tol["atol"]:
+        raise AssertionError(f"{label}: the two runs part beyond {tol}")
+    return f"within rtol {tol['rtol']} / atol {tol['atol']}"
+
+
+def held_to_cpu_run(torch, label, card, cpu):
+    """A card run against the same run on the CPU: losses within
+    LOSS_RTOL, final params within PARAM_ATOL."""
+    got = np.asarray([l for _, l in card.loss_log])
+    want = np.asarray([l for _, l in cpu.loss_log])
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    p_abs = float((_params(torch, card.model) - _params(torch, cpu.model))
+                  .abs().max())
+    print(f"{label} vs CPU: {len(got)} losses, largest relative difference "
+          f"{rel:.3e} (limit {LOSS_RTOL}); params {p_abs:.3e} (limit "
+          f"{PARAM_ATOL})")
+    if len(got) != len(want) or rel > LOSS_RTOL or p_abs > PARAM_ATOL:
+        raise AssertionError(f"{label}: the card's run left the CPU's")
+
+
+def dispatch_runs(torch, ops, label, make, steps, per_step):
+    """``make(device, n, graph)`` builds an optimizer; each of: one step a
+    dispatch with the prefetch off and on, n = HDISPATCH as an eager
+    loop, n = HDISPATCH as one CUDA graph (on the card), and n =
+    HDISPATCH on the CPU, takes HDISPATCH
+    warm-up steps, then ``steps`` more in a second ``optimize()`` (each
+    call starts from zero velocity), timed, its launches counted by the
+    wrappers: ``per_step`` a step in the eager runs, and in the graph run
+    ``per_step`` for each of the HDISPATCH steps its one capture
+    recorded.  The graph run is held to the eager loop (bits where the
+    deterministic algorithms give them, else GRAPH_TOL) and to the CPU.
+    Then each card run takes ``steps`` more steps under the profiler: its
+    device ms a step, and its kernels as the card ran them, counted by
+    name (``per_step`` a step in every run, the graph's replays
+    included).  Returns the graph run's wrapper counts, the kernels its
+    profiled replays ran."""
+    from bigdl_tpu_torch.optim import max_iteration
+
+    runs = {}
+    with deterministic(torch):
+        for name, device, n, graph, fetch in (
+                ("n=1 prefetch off", "cuda", 1, True, False),
+                ("n=1", "cuda", 1, True, True),
+                (f"n={HDISPATCH} eager", "cuda", HDISPATCH, False, True),
+                (f"n={HDISPATCH} graph", "cuda", HDISPATCH, True, True),
+                (f"n={HDISPATCH} cpu", "cpu", HDISPATCH, False, True)):
+            with prefetch_set(fetch):
+                opt = make(device, n, graph)
+                opt.set_end_when(max_iteration(HDISPATCH)).optimize()
+                opt.set_end_when(max_iteration(HDISPATCH + steps))
+                if device == "cuda":
+                    _, counts, wall = run_path(torch, ops, opt.optimize)
+                else:
+                    t0 = time.perf_counter()
+                    opt.optimize()
+                    counts, wall = {}, time.perf_counter() - t0
+            runs[name] = (opt, counts, wall, fetch)
+    graph, counts, _, _ = runs[f"n={HDISPATCH} graph"]
+    replays = steps // HDISPATCH
+    for name, (opt, c, _, _) in runs.items():
+        if name.endswith("cpu"):
+            continue
+        per_run = HDISPATCH if opt is graph else steps
+        want = {**dict.fromkeys(c, 0),
+                **{k: v * per_run for k, v in per_step.items()}}
+        if c != want:
+            raise AssertionError(f"{label} {name}: the wrappers counted "
+                                 f"{c}, expected {want}")
+    if graph.replays != replays or graph.captures != 1:
+        raise AssertionError(f"{label} graph: {graph.captures} captures, "
+                             f"{graph.replays} replays (expected 1, "
+                             f"{replays})")
+    rule = held_same(torch, f"{label} graph vs eager",
+                     runs[f"n={HDISPATCH} eager"][0], graph, GRAPH_TOL)
+    held_same(torch, f"{label} prefetch on vs off", runs["n=1"][0],
+              runs["n=1 prefetch off"][0], GRAPH_TOL)
+    held_to_cpu_run(torch, f"{label} graph", graph,
+                    runs[f"n={HDISPATCH} cpu"][0])
+    ran = {}
+    want_ran = {k: v * steps for k, v in per_step.items()}
+    for name, (opt, c, wall, fetch) in runs.items():
+        if name.endswith("cpu"):
+            continue
+        step_ms = wall / steps * 1e3
+        with prefetch_set(fetch):
+            busy, ran[name] = profiled_run(torch, opt, steps)
+        print(f"{label} {name}: {step_ms:.4f} ms/step, device "
+              f"{busy:.4f} ms/step busy, idle share "
+              f"{1 - busy / step_ms:.4f}; launches counted by the "
+              f"wrappers {ops_nonzero(c)}; kernels the card ran under the "
+              f"profiler, {steps} steps {ran[name]}")
+        if ran[name] != want_ran:
+            raise AssertionError(f"{label} {name}: the card ran "
+                                 f"{ran[name]} of the port's kernels in "
+                                 f"{steps} steps, expected {want_ran}")
+    losses = [l for _, l in graph.loss_log]
+    print(f"{label}: n={HDISPATCH} steps a dispatch as one CUDA graph, "
+          f"{replays} replays of one capture; the wrappers counted the "
+          f"capture's launches ({per_step} a step x {HDISPATCH} steps), the "
+          f"profiler counted the replays' kernels ({per_step} a step x "
+          f"{steps} steps); held to the eager n={HDISPATCH} loop by {rule}; "
+          f"losses {losses[0]:.6f} -> {losses[-1]:.6f}")
+    return counts, ran[f"n={HDISPATCH} graph"]
+
+
+def ops_nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def kernel_of(name):
+    """The wrapper whose kernel the profiler's kernel ``name`` is (its
+    demangled or mangled symbol), or None."""
+    for wrapper, forms in KERNEL_SYMBOLS.items():
+        if any(all(part in name for part in form) for form in forms):
+            return wrapper
+    return None
+
+
+def profiled_run(torch, opt, steps):
+    """``steps`` more steps of ``opt`` under torch.profiler: (device busy
+    ms a step: kernels, copies and sets, graph replays' kernels included;
+    {wrapper: runs of its kernel}, the kernels the card ran, counted by
+    name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch.optim import max_iteration
+
+    opt.set_end_when(max_iteration(int(opt.state["neval"]) - 1 + steps))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        opt.optimize()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    ran = {}
+    for e in rows:
+        wrapper = kernel_of(e.key)
+        if wrapper is not None:
+            ran[wrapper] = ran.get(wrapper, 0) + e.count
+    return sum(e.device_time_total for e in rows) / 1e3 / steps, ran
+
+
+def prefetch_graph_run(torch, ops, label, make, per_step):
+    """The prefetch on, HDISPATCH steps a dispatch as one CUDA graph:
+    the loop's own dispatch leaves the host, so the producer's batches
+    overlap the replays.  A warm-up chunk, then two dispatches timed and
+    counted (the wrappers count ``per_step`` a step of the one capture),
+    then two more under the profiler, which counts the kernels the
+    replays ran (``per_step`` a step).  Returns the wrapper counts and
+    the profiler's."""
+    from bigdl_tpu_torch.optim import max_iteration
+    from bigdl_tpu_torch.utils.random import RNG
+
+    steps = 2 * HDISPATCH
+    with prefetch_set(True), deterministic(torch):
+        RNG.set_seed(0)
+        opt = make(max_iteration(HDISPATCH))
+        opt.set_iterations_per_dispatch(HDISPATCH).optimize()
+        opt.set_end_when(max_iteration(HDISPATCH + steps))
+        fetch0, _ = opt.metrics.get("data fetch time")
+        _, counts, wall = run_path(torch, ops, opt.optimize)
+        fetch_s = opt.metrics.get("data fetch time")[0] - fetch0
+        busy, ran = profiled_run(torch, opt, steps)
+    want = {**dict.fromkeys(counts, 0),
+            **{k: v * HDISPATCH for k, v in per_step.items()}}
+    want_ran = {k: v * steps for k, v in per_step.items()}
+    losses = [l for _, l in opt.loss_log]
+    if counts != want or ran != want_ran or opt.replays < 2 \
+            or not np.isfinite(losses).all():
+        raise AssertionError(f"harness {label} graph: the wrappers counted "
+                             f"{counts}, expected {want}; the card ran "
+                             f"{ran}, expected {want_ran}; {opt.replays} "
+                             f"replays; losses {losses}")
+    step_ms = wall / steps * 1e3
+    print(f"harness {label} prefetch on, {HDISPATCH} a dispatch as one CUDA "
+          f"graph: {steps} steps, {step_ms:.4f} ms/step, host (the loop's "
+          f"wait) {fetch_s / wall:.4f} of the loop, device {busy:.4f} "
+          f"ms/step busy, idle share {1 - busy / step_ms:.4f}; the wrappers "
+          f"counted the capture's launches {ops_nonzero(counts)}, the "
+          f"profiler the replays' kernels in {steps} steps {ran}; losses "
+          f"{' '.join(f'{l:.6f}' for l in losses[-steps:])}")
+    return counts, ran
+
+
+def graph_or_eager(opt, n, graph):
+    """``opt`` at n steps a dispatch: one CUDA graph on the card, or with
+    ``graph`` False the eager loop (the reference the graph is held to)."""
+    opt.set_iterations_per_dispatch(n)._cuda_graph = graph
+    return opt
+
+
+def classification_set(n, seed):
+    """tests/test_training.py's linearly separable classes, widened: 32
+    features, 10 classes, labels 1..10."""
+    from bigdl_tpu_torch.dataset import Sample
+
+    rng = np.random.RandomState(seed)
+    w = np.random.RandomState(99).randn(HFEATURES, HCLASSES) * 2
+    xs = rng.randn(n, HFEATURES).astype(np.float32)
+    ys = (xs @ w).argmax(1) + 1.0
+    return [Sample(x, np.asarray([y])) for x, y in zip(xs, ys)]
+
+
+def learnable_run(device, n, graph, val=True):
+    """A Linear-Tanh-Dropout-Linear classifier of the learnable set,
+    batch 128, lr 0.5, momentum 0.9, Top1 every epoch."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import DataSet, SampleToBatch
+    from bigdl_tpu_torch.optim import (LocalOptimizer, Top1Accuracy,
+                                       every_epoch)
+    from bigdl_tpu_torch.utils.random import generator
+    from bigdl_tpu_torch.utils.table import T
+
+    g = generator(0)
+    model = nn.Sequential(nn.Linear(HFEATURES, 64, generator=g), nn.Tanh(),
+                          nn.Dropout(0.3), nn.Linear(64, HCLASSES,
+                                                     generator=g),
+                          nn.LogSoftMax()).to(device)
+    train = DataSet.array(classification_set(HLEARN, 0)) >> SampleToBatch(
+        128)
+    opt = LocalOptimizer(model, train, nn.ClassNLLCriterion(), device=device)
+    opt.set_state(T(learningRate=0.5, momentum=0.9))
+    graph_or_eager(opt, n, graph)
+    if val:
+        held = DataSet.array(classification_set(1024, 1)) >> SampleToBatch(
+            128)
+        opt.set_validation(every_epoch(), held, [Top1Accuracy()])
+    return opt
+
+
+def phase_harness(torch, ops):
+    """The harness's host side on the card: LeNet-5 and SimpleRNN at n =
+    8 a dispatch through one CUDA graph (held to the eager loop and to the
+    CPU, beside one step a dispatch), a classifier with dropout in the
+    graph (masks advanced at each replay, as the eager loop draws them)
+    whose Top1 rises; Inception-v1 and the Bi-LSTM with the prefetch on
+    and off (equal losses, host share, ms a step and idle share), and
+    Inception-v1 with the prefetch feeding an 8-step graph; a checkpoint
+    resumed on the card past corrupt snapshots, which without its random
+    payload leaves the run.  Returns the wrappers' launch counts of each
+    path, and the kernels the graph paths' replays ran under the
+    profiler."""
+    import tempfile
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import (DataSet, HFlip, ImgNormalizer,
+                                         ImgRdmCropper, ImgToBatch,
+                                         LabeledImage, mnist)
+    from bigdl_tpu_torch.models.inception import Inception_v1
+    from bigdl_tpu_torch.models.lenet import LeNet5
+    from bigdl_tpu_torch.models.rnn import SimpleRNN
+    from bigdl_tpu_torch.models.textclassifier import TextClassifierBiLSTM
+    from bigdl_tpu_torch.nn.module import export_params
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.optim import (Optimizer, load_latest_checkpoint,
+                                       max_epoch, max_iteration,
+                                       several_iteration, validate)
+    from bigdl_tpu_torch.utils.random import RNG, generator
+    from bigdl_tpu_torch.utils.table import T
+
+    by_path, ran = {}, {}
+    # (1) n steps a dispatch as one CUDA graph
+    init = export_params(LeNet5(10, device="cpu", generator=generator(0)))
+    by_path["harness_lenet"], ran["harness_lenet"] = dispatch_runs(
+        torch, ops, "harness LeNet5",
+        lambda dev, n, graph: graph_or_eager(lenet_run(
+            torch, dev, init, None, validate=False), n, graph),
+        HSTEPS, {"fused_sgd": 1, "maxpool2d_forward": 2,
+                 "maxpool2d_backward": 2})
+    tokens, dictionary, vocab = rnn_data(rnn_corpus(RSENTENCES))
+    rinit = export_params(SimpleRNN(vocab, RHIDDEN, vocab, RBPTT,
+                                    device="cpu", generator=generator(0)))
+    by_path["harness_simple_rnn"], ran["harness_simple_rnn"] = \
+        dispatch_runs(
+            torch, ops, "harness SimpleRNN",
+            lambda dev, n, graph: graph_or_eager(rnn_run(
+                torch, dev, rinit, tokens, dictionary, None), n, graph),
+            HSTEPS, {"fused_sgd": 1, "rnn_forward": 2, "rnn_backward": 2,
+                     "rnn_dwh": 2})
+    # dropout inside the graph, and a Top1 that rises
+    runs = {}
+    with deterministic(torch):
+        for graph in (False, True):
+            RNG.set_seed(3)
+            opt = learnable_run("cuda", HDISPATCH, graph)
+            (_, before), = validate(opt.model, opt.validation_dataset,
+                                    opt.validation_methods, "cuda")
+            opt.set_end_when(max_epoch(HLEARN_EPOCHS)).optimize()
+            runs[graph] = (opt, RNG.generator("cuda").get_state())
+    (eager, g_eager), (graph, g_graph) = runs[False], runs[True]
+    rule = held_same(torch, "harness dropout graph vs eager", eager, graph,
+                     GRAPH_TOL)
+    top1 = [before.result()[0]] + [v["Top1Accuracy"]
+                                   for _, _, v in graph.validation_log]
+    if not torch.equal(g_eager, g_graph) or graph.replays < 2:
+        raise AssertionError("harness dropout: the graph's replays did not "
+                             "advance the mask generator as the eager loop")
+    if not top1[-1] > top1[0] + 0.3:
+        raise AssertionError(f"harness learnable set: Top1 {top1} did not "
+                             f"rise")
+    print(f"harness dropout + learnable set: {HLEARN} examples of "
+          f"{HFEATURES} features in {HCLASSES} classes, Dropout(0.3), "
+          f"n={HDISPATCH} a dispatch, {graph.replays} replays: the masks "
+          f"advance at each replay (the generator ends where the eager "
+          f"loop's does, the losses held by {rule}); Top1 untrained, then "
+          f"at each epoch's first dispatch "
+          f"{' '.join(f'{v:.4f}' for v in top1)}")
+
+    # (2) the prefetch on and off at full width
+    iinit = export_params(Inception_v1(ICLASSES, device="cpu",
+                                       generator=generator(0)))
+    images = inception_images(IMAGES, ISIZE, 0)
+    docs = text_docs(HDOCS)
+    binit = export_params(TextClassifierBiLSTM(
+        TCLASSES, TEMBED, THIDDEN, device="cpu", generator=generator(0)))
+    for label, make in (
+            ("Inception-v1", lambda end: inception_run(
+                torch, "cuda", iinit, images, IBATCH, end)),
+            ("Bi-LSTM", lambda end: bilstm_run(
+                torch, "cuda", binit, docs, TBATCH, end))):
+        out = {}
+        for on in (True, False):
+            with prefetch_set(on), deterministic(torch):
+                RNG.set_seed(0)
+                opt = make(max_iteration(HPREFETCH_STEPS))
+                _, counts, wall = run_path(torch, ops, opt.optimize)
+                fetch_s, _ = opt.metrics.get("data fetch time")
+                RNG.set_seed(0)
+                busy = profile_train(torch, make, 4)
+            step_ms = wall / HPREFETCH_STEPS * 1e3
+            out[on] = ([l for _, l in opt.loss_log], counts)
+            print(f"harness {label} prefetch {'on' if on else 'off'}: "
+                  f"{HPREFETCH_STEPS} steps, {step_ms:.4f} ms/step, host "
+                  f"(the loop's wait for its batch and the copy) "
+                  f"{fetch_s / wall:.4f} of the loop, device "
+                  f"{busy:.4f} ms/step busy, idle share "
+                  f"{1 - busy / step_ms:.4f}; launches {counts}")
+        if len(out[True][0]) != HPREFETCH_STEPS or not np.array_equal(
+                out[True][0], out[False][0], equal_nan=True):
+            raise AssertionError(f"harness {label}: the losses with the "
+                                 f"prefetch on {out[True][0]} are not those "
+                                 f"with it off {out[False][0]}")
+        print(f"harness {label}: the {HPREFETCH_STEPS} losses with the "
+              f"prefetch on equal those with it off, bit for bit: "
+              f"{' '.join(f'{l:.6f}' for l in out[True][0])}")
+        by_path[f"harness_{label}_prefetch"] = out[True][1]
+    by_path["harness_Inception-v1_graph"], \
+        ran["harness_Inception-v1_graph"] = prefetch_graph_run(
+        torch, ops, "Inception-v1", lambda end: inception_run(
+            torch, "cuda", iinit, images, IBATCH, end),
+        {"fused_sgd": 1, "lrn_forward": 2, "lrn_backward": 2,
+         "maxpool2d_s1_forward": 9, "maxpool2d_s1_backward": 9,
+         "maxpool2d_forward": 4, "maxpool2d_backward": 4})
+
+    # (3) a checkpoint resumed on the card: LeNet-5 with momentum on
+    # distinct digits, cropped and flipped at random and reordered every
+    # epoch, one batch an epoch (so the snapshots land on epoch
+    # boundaries: a resume inside an epoch restarts the pass over the
+    # records); the uninterrupted run with the prefetch on, its producer
+    # drawn ahead of each snapshot, the resumes serial
+    digits = [LabeledImage(np.pad(d.data, 2), d.label)
+              for d in mnist.synthetic(BATCH, 5)]
+    norm = ImgNormalizer(mnist.TRAIN_MEAN, mnist.TRAIN_STD)
+
+    def ckpt_set():
+        return (DataSet.array(digits) >> norm >> ImgRdmCropper(28, 28)
+                >> HFlip() >> ImgToBatch(BATCH))
+
+    def ckpt_run(model, ds):
+        return Optimizer(model, ds, nn.ClassNLLCriterion(),
+                         state=T(learningRate=LR, momentum=MOMENTUM),
+                         end_trigger=max_iteration(HCKPT_STEPS),
+                         device="cuda")
+
+    def resume(tmp, restore_rng):
+        ds = ckpt_set()
+        module, blob, neval = load_latest_checkpoint(
+            tmp, restore_rng=restore_rng, device="cuda", dataset=ds)
+        opt = ckpt_run(module, ds)
+        opt.set_state(blob["state"]).set_optim_state(blob["opt_state"])
+        opt.optimize()
+        return _params(torch, opt.model), neval
+
+    with tempfile.TemporaryDirectory(dir=_build.build_dir()) as tmp, \
+            deterministic(torch):
+        with prefetch_set(True):
+            opt_a = ckpt_run(LeNet5(10, device="cuda").load_params(init),
+                             ckpt_set())
+            opt_a.set_checkpoint(tmp, several_iteration(HCKPT_EVERY))
+            _, counts, _ = run_path(torch, ops, opt_a.optimize)
+        ck_s, ck_n = opt_a.metrics.get("checkpoint")
+        final = _params(torch, opt_a.model)
+        for k in range(2 * HCKPT_EVERY, HCKPT_STEPS + 1, HCKPT_EVERY):
+            with open(f"{tmp}/model.{k}", "wb") as f:
+                f.write(b"rot")
+        resumed, neval = resume(tmp, restore_rng=True)
+        forked, _ = resume(tmp, restore_rng=False)
+    rule = ("bits" if torch.equal(final, resumed) else
+            f"atol {GRAPH_TOL['atol']}")
+    err = float((final - resumed).abs().max())
+    fork = float((final - forked).abs().max())
+    if neval != HCKPT_EVERY or err > GRAPH_TOL["atol"]:
+        raise AssertionError(f"harness checkpoint: resumed from {neval}, "
+                             f"final params {err:.3e} from the "
+                             f"uninterrupted run's")
+    if fork <= GRAPH_TOL["atol"]:
+        raise AssertionError(f"harness checkpoint: the resume without the "
+                             f"random payload ends {fork:.3e} from the "
+                             f"uninterrupted run: the payload is not what "
+                             f"the check holds")
+    print(f"harness checkpoint: LeNet5 with momentum {MOMENTUM}, "
+          f"{len(digits)} distinct digits cropped and flipped at random, "
+          f"{HCKPT_STEPS} steps with the prefetch on, a snapshot every "
+          f"{HCKPT_EVERY} ({ck_n} written, {ck_s / ck_n * 1e3:.3f} ms each "
+          f"of wall, model + state + sidecars); the snapshots after "
+          f"{HCKPT_EVERY} corrupted, load_latest_checkpoint(restore_rng="
+          f"True) resumed from {neval}: the final params equal the "
+          f"uninterrupted run's by {rule} (largest difference {err:.3e}); "
+          f"restore_rng=False ends {fork:.3e} from them")
+    by_path["harness_checkpoint"] = counts
+    return by_path, ran
+
+
 def main(argv) -> int:
     import torch
 
@@ -3397,6 +3937,17 @@ def main(argv) -> int:
         for line in ptxas_lines(info["log"]):
             print(f"  {name}: {line}")
 
+    if "--harness" in argv:
+        # the training kernels' checks and the harness phase alone
+        rows = phase_train_kernels(torch, ops)
+        by_path, ran = phase_harness(torch, ops)
+        print(json.dumps({"harness": {p: ops_nonzero(c)
+                                      for p, c in by_path.items()},
+                          "graph_kernel_runs": ran,
+                          "fused_sgd": {k: rows[0][k] for k in (
+                              "ms", "device_lr_ms", "plain_ms", "bound_ms",
+                              "library_ms")}}))
+        return 0
     kernel_rows = ([phase_kernels(torch, ops),
                     phase_int8_attention_kernels(torch, ops)]
                    + phase_train_kernels(torch, ops)
@@ -3423,12 +3974,18 @@ def main(argv) -> int:
     by_path["gru"], gru_figures = phase_gru(torch, ops, profile)
     by_path |= phase_truncation(torch, ops, profile, {
         "lstm": lstm_figures, "gru": gru_figures})
+    harness, graph_ran = phase_harness(torch, ops)
+    by_path |= harness
     for row in kernel_rows:
         row["launches_by_path"] = {path: counts.get(row["name"], 0)
                                    for path, counts in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']}: no launch on any path")
+        ran = {path: c[row["name"]] for path, c in graph_ran.items()
+               if row["name"] in c}
+        if ran:
+            row["graph_kernel_runs"] = ran
     # queued_ms: calls queued back to back, the device's time where it
     # outlasts the wrapper's host work (no L2 flush)
     keys = ("name", "route", "source", "replaces", "launches",
@@ -3447,14 +4004,17 @@ def main(argv) -> int:
     # the stride-1 rows a PyTorch copy or add moving their bytes; the
     # bilstm and gru rows their time at the truncated classifiers' chunk
     # from zeros and from a carried state; the rnn forward and backward
-    # rows their time under each activation kind
+    # rows their time under each activation kind; the harness's kernels
+    # the runs of their kernel in each CUDA-graph path's profiled replays
+    # (the wrappers count the capture's launches, not the replays')
     extra = ("layer_library_ms", "layer_port_ms", "same_size_library_ms",
              "two_einsum_ms", "dequant_sdpa_ms", "bilstm_forward_ms",
              "simplernn_ms", "simplernn_bound_ms", "splits", "serving_ms",
              "serving_plain_ms", "serving_library_ms", "serving_bound_ms",
              "inception_ms", "inception_bound_ms", "inception_library_ms",
              "inception_launches_step", "same_bytes_ms", "chunk_ms",
-             "chunk_state_ms", "act_ms")
+             "chunk_state_ms", "act_ms", "device_lr_ms",
+             "graph_kernel_runs")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
         for r in kernel_rows]}))

@@ -369,14 +369,70 @@ def test_rnn_and_gru_param_trees_carry_across(cell):
     _assert_trees_close(export_params(pm), jm.params(), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("build,match", [
-    (lambda: LocalOptimizer(nn.Recurrent().add(nn.RnnCell(6, 5)), None,
-                            None, device="cpu")
-     .set_iterations_per_dispatch(2), "several iterations"),
-])
-def test_what_is_not_ported_raises(build, match):
-    with pytest.raises(NotImplementedError, match=match):
-        build()
+@pytest.mark.parametrize("bptt", [2])
+def test_two_iterations_a_dispatch_run_as_one_chunk(bptt):
+    """``set_iterations_per_dispatch(2)`` (before, a NotImplementedError):
+    a Recurrent(RnnCell) tagger through TimeDistributedCriterion takes two
+    steps a dispatch, each on its own batch, with the bits of one step a
+    dispatch under a constant lr."""
+    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToBatch
+    from bigdl_tpu_torch.optim import max_iteration
+    from bigdl_tpu_torch.utils.random import generator
+    from bigdl_tpu_torch.utils.table import T
+
+    rs = np.random.RandomState(3)
+    samples = [Sample(rs.randn(7, 6).astype(np.float32),
+                      (rs.randint(0, 5, 7) + 1).astype(np.float32))
+               for _ in range(12)]
+
+    def run(n):
+        g = generator(5)
+        model = nn.Sequential(
+            nn.Recurrent(bptt).add(nn.RnnCell(6, 5, generator=g)),
+            nn.TimeDistributed(nn.LogSoftMax()))
+        ds = DataSet.array(samples, seed=4) >> SampleToBatch(3)
+        opt = LocalOptimizer(model, ds, nn.TimeDistributedCriterion(
+            nn.ClassNLLCriterion(), size_average=True), device="cpu")
+        opt.set_state(T(learningRate=0.3)).set_end_when(max_iteration(6))
+        opt.set_iterations_per_dispatch(n).optimize()
+        return opt, torch.cat([p.detach().reshape(-1)
+                               for p in model.parameters()])
+
+    (one, p1), (two, p2) = run(1), run(2)
+    assert [ne for ne, _ in two.loss_log] == list(range(1, 7))
+    assert two.loss_log == one.loss_log
+    assert torch.equal(p1, p2)
+    assert two.state["neval"] == 7 and two.state["epoch"] == 2
+
+
+@pytest.mark.parametrize("per_step,weights,size_average", [
+    (True, None, True), (True, None, False), (False, None, True),
+    (True, [0.5, 1.0, 2.0, 1.5], True)])
+def test_time_distributed_criterion_is_one_batched_call(per_step, weights,
+                                                       size_average):
+    """The port's TimeDistributedCriterion calls its criterion once over
+    all T steps (batched), and its loss and input gradient equal the JAX
+    criterion's (which vmaps over T)."""
+    rs = np.random.RandomState(8)
+    x = np.array(jax.nn.log_softmax(rs.randn(3, 6, 4).astype(np.float32)))
+    target = (rs.randint(0, 4, (3, 6) if per_step else (3,)) + 1).astype(
+        np.float32)
+    jc = jnn.TimeDistributedCriterion(jnn.ClassNLLCriterion(weights),
+                                      size_average)
+    inner = nn.ClassNLLCriterion(weights)
+    calls = []
+    apply = inner.apply_loss
+    inner.apply_loss = lambda i, t: calls.append(1) or apply(i, t)
+    pc = nn.TimeDistributedCriterion(inner, size_average)
+    want = jc.forward(jnp.asarray(x), jnp.asarray(target))
+    want_g = jc.backward(jnp.asarray(x), jnp.asarray(target))
+    got = pc.forward(torch.from_numpy(x), torch.from_numpy(target))
+    assert len(calls) == 1
+    got_g = pc.backward(torch.from_numpy(x), torch.from_numpy(target))
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), rtol=1e-5,
+                               atol=1e-6)
 
 
 def test_one_iteration_per_dispatch_is_accepted():

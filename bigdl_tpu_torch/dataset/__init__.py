@@ -1,5 +1,6 @@
 """Host data pipeline of the port (counterpart of bigdl_tpu/dataset):
-records, datasets, transformers, MNIST, text.  numpy only."""
+records, datasets, transformers, MNIST, CIFAR-10, text.  numpy only."""
+from bigdl_tpu_torch.dataset import cifar, mnist
 from bigdl_tpu_torch.dataset.dataset import (DataSet, LocalArrayDataSet,
                                              LocalDataSet,
                                              TransformedDataSet)
@@ -19,5 +20,5 @@ __all__ = [
     "HFlip", "Identity", "ImgNormalizer", "ImgRdmCropper", "ImgToBatch",
     "LabeledImage", "LabeledSentence",
     "LocalArrayDataSet", "LocalDataSet", "MiniBatch", "Sample",
-    "SampleToBatch", "TransformedDataSet", "Transformer",
+    "SampleToBatch", "TransformedDataSet", "Transformer", "cifar", "mnist",
 ]

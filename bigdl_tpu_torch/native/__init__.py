@@ -11,9 +11,10 @@ numpy fallback.
 Each function also has its plain numpy version, with the same bits (the
 tests hold the two bit for bit), taken only with ``native=False``.
 
-Every function takes and returns float32 images, HWC or HW (grey, as
-one channel), and writes into ``out`` when given (a C-contiguous float32
-array of the result's shape, such as one row of a batch buffer).
+Every image function takes and returns float32 images, HWC or HW (grey,
+as one channel), and writes into ``out`` when given (a C-contiguous
+float32 array of the result's shape, such as one row of a batch buffer).
+The decoders (:func:`u8_to_f32`, :func:`cifar_decode`) take bytes.
 """
 from __future__ import annotations
 
@@ -78,9 +79,10 @@ def lib() -> ctypes.CDLL:
             so.hostops_crop.argtypes = [_P, _P] + [_I64] * 7
             so.hostops_hflip.argtypes = [_P, _P, _I64, _I64, _I64]
             so.hostops_hwc_to_chw.argtypes = [_P, _P, _I64, _I64, _I64]
+            so.hostops_cifar_decode.argtypes = [_P, _P, _P, _I64]
             for fn in (so.hostops_normalize, so.hostops_u8_to_f32,
                        so.hostops_crop, so.hostops_hflip,
-                       so.hostops_hwc_to_chw):
+                       so.hostops_hwc_to_chw, so.hostops_cifar_decode):
                 fn.restype = None
             _lib.append(so)
     return _lib[0]
@@ -193,3 +195,25 @@ def u8_to_f32(raw, scale: float = 1.0, shift: float = 0.0,
     res = np.empty(raw.shape, np.float32)
     lib().hostops_u8_to_f32(_fp(raw), _fp(res), raw.size, scale, shift)
     return res
+
+
+CIFAR_RECORD = 3073   # 1 label byte + 3 x 32 x 32 pixel bytes, CHW
+
+
+def cifar_decode(raw, native=True):
+    """n CIFAR-10 binary records -> (labels (n,) float32, 1-based; images
+    (n, 32, 32, 3) float32, HWC)."""
+    raw = np.ascontiguousarray(raw, np.uint8).reshape(-1)
+    if raw.size % CIFAR_RECORD:
+        raise ValueError(f"{raw.size} bytes are not whole CIFAR records of "
+                         f"{CIFAR_RECORD}")
+    n = raw.size // CIFAR_RECORD
+    if not native:
+        rec = raw.reshape(n, CIFAR_RECORD)
+        labels = rec[:, 0].astype(np.float32) + np.float32(1.0)
+        images = rec[:, 1:].reshape(n, 3, 32, 32).transpose(0, 2, 3, 1)
+        return labels, np.ascontiguousarray(images, np.float32)
+    labels = np.empty(n, np.float32)
+    images = np.empty((n, 32, 32, 3), np.float32)
+    lib().hostops_cifar_decode(_fp(raw), _fp(labels), _fp(images), n)
+    return labels, images

@@ -3,7 +3,7 @@
 // (bigdl_tpu_torch/native/__init__.py).
 //
 // The port's own copy of bigdl_tpu/native/hostops.cpp (the functions the
-// image transformers use).  Every function is an element-wise fp32 copy
+// image transformers and the CIFAR-10 reader use).  Every function is an element-wise fp32 copy
 // or (x - mean) / std, so its output has the bits of the numpy expression
 // it replaces; the build passes -ffp-contract=off so that no a * b + c is
 // fused into one rounding.
@@ -99,6 +99,23 @@ void hostops_hwc_to_chw(const float* src, float* dst, int64_t h, int64_t w,
     for (int64_t y = 0; y < h; ++y) {
       for (int64_t x = 0; x < w; ++x) {
         dst[(k * h + y) * w + x] = src[(y * w + x) * c + k];
+      }
+    }
+  });
+}
+
+// CIFAR-10 binary records, n of (1 label byte + 3072 CHW pixel bytes) ->
+// labels f32 (1-based, n) and images f32 HWC (n, 32, 32, 3)
+void hostops_cifar_decode(const uint8_t* in, float* labels, float* images,
+                          int64_t n) {
+  constexpr int64_t kRec = 3073, kPlane = 1024;
+  loop(n, n * (kRec - 1), [&](int64_t i) {
+    const uint8_t* r = in + i * kRec;
+    labels[i] = static_cast<float>(r[0]) + 1.0f;
+    float* img = images + i * 3 * kPlane;
+    for (int64_t p = 0; p < kPlane; ++p) {
+      for (int64_t k = 0; k < 3; ++k) {
+        img[p * 3 + k] = static_cast<float>(r[1 + k * kPlane + p]);
       }
     }
   });

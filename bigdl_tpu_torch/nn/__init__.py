@@ -12,10 +12,12 @@ from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion, Criterion,
                                           CrossEntropyCriterion,
                                           TimeDistributedCriterion)
 from bigdl_tpu_torch.nn.dropout import Dropout
-from bigdl_tpu_torch.nn.init import Default, Xavier
-from bigdl_tpu_torch.nn.linear import Linear
+from bigdl_tpu_torch.nn.init import MSRA, Default, Xavier
+from bigdl_tpu_torch.nn.linear import Linear, MulConstant
 from bigdl_tpu_torch.nn.module import Container, Module, TensorModule
-from bigdl_tpu_torch.nn.normalization import LayerNorm, SpatialCrossMapLRN
+from bigdl_tpu_torch.nn.normalization import (BatchNormalization, LayerNorm,
+                                              SpatialBatchNormalization,
+                                              SpatialCrossMapLRN)
 from bigdl_tpu_torch.nn.pooling import (SpatialAveragePooling,
                                         SpatialMaxPooling)
 from bigdl_tpu_torch.nn.recurrent import (BiRecurrent, Cell, GRUCell,
@@ -26,16 +28,17 @@ from bigdl_tpu_torch.nn.shape_ops import Identity, Reshape, View
 from bigdl_tpu_torch.nn.table_ops import CAddTable
 
 __all__ = [
-    "Abs", "BiRecurrent", "CAddTable", "Cell", "Clamp", "ClassNLLCriterion",
+    "Abs", "BatchNormalization", "BiRecurrent", "CAddTable", "Cell", "Clamp", "ClassNLLCriterion",
     "Concat", "ConcatTable", "Container", "Criterion",
     "CrossEntropyCriterion", "Default", "Dropout", "ELU", "Exp",
     "GRUCell", "GradientReversal", "HardShrink", "HardTanh", "Identity",
     "LSTMCell", "LayerNorm", "LeakyReLU", "Linear", "Log", "LogSigmoid",
-    "LogSoftMax", "Mean", "Module", "MultiHeadSelfAttention", "PReLU",
+    "LogSoftMax", "MSRA", "Mean", "Module", "MulConstant", "MultiHeadSelfAttention", "PReLU",
     "Power", "RReLU", "ReLU", "ReLU6", "Recurrent", "Reshape", "RnnCell",
     "Sequential", "Sigmoid", "SinusoidalPositionalEncoding", "SoftMax",
     "SoftMin", "SoftPlus", "SoftShrink", "SoftSign",
-    "SpatialAveragePooling", "SpatialConvolution", "SpatialCrossMapLRN",
+    "SpatialAveragePooling", "SpatialBatchNormalization",
+    "SpatialConvolution", "SpatialCrossMapLRN",
     "SpatialMaxPooling", "Sqrt", "Square", "Tanh", "TanhShrink",
     "TensorModule", "Threshold", "TimeDistributed",
     "TimeDistributedCriterion", "View", "Xavier",

@@ -22,7 +22,8 @@ class SpatialConvolution(TensorModule):
     (O, I/groups, kh, kw) and ``bias`` (O,).  ``init_method`` Default
     draws both Torch-style from U(-1/sqrt(kw*kh*I), 1/sqrt(kw*kh*I));
     Xavier draws the weight with fan-in (I/groups)*kh*kw and fan-out
-    (O/groups)*kh*kw and zeroes the bias.  Arguments follow the
+    (O/groups)*kh*kw and zeroes the bias; MSRA draws it from N(0,
+    sqrt(2/(kw*kh*O))) and zeroes the bias.  Arguments follow the
     reference constructor."""
 
     def __init__(self, n_input_plane: int, n_output_plane: int,
@@ -50,6 +51,10 @@ class SpatialConvolution(TensorModule):
             weight = init_.xavier(shape, n_input_plane // n_group * area,
                                   n_output_plane // n_group * area,
                                   generator)
+            bias = torch.zeros(n_output_plane)
+        elif init_method == init_.MSRA:
+            weight = init_.msra(shape, kernel_w * kernel_h * n_output_plane,
+                                generator)
             bias = torch.zeros(n_output_plane)
         elif init_method == init_.Default:
             stdv = 1.0 / math.sqrt(kernel_w * kernel_h * n_input_plane)

@@ -1,4 +1,5 @@
-"""Linear layer (counterpart of bigdl_tpu/nn/linear.py ``Linear``)."""
+"""Linear layer and constant scaling (counterpart of bigdl_tpu/nn/linear.py
+``Linear`` and ``MulConstant``)."""
 from __future__ import annotations
 
 import torch
@@ -26,3 +27,17 @@ class Linear(TensorModule):
 
     def extra_repr(self) -> str:
         return f"{self.input_size} -> {self.output_size}"
+
+
+class MulConstant(TensorModule):
+    """x * scalar (ref MulConstant.scala)."""
+
+    def __init__(self, scalar: float):
+        super().__init__()
+        self.scalar = scalar
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.scalar
+
+    def extra_repr(self) -> str:
+        return f"{self.scalar}"

@@ -4,9 +4,12 @@ Every layer is a ``torch.nn.Module``.  On top of PyTorch's own machinery
 the port keeps the JAX package's nested parameter view,
 ``{'~': own params, '<i>': child tree, ...}`` (bigdl_tpu/nn/module.py
 ``Module.params``), so one pytree moves between the two packages
-(:func:`load_jax_params` / :func:`export_params`, for every model), and the
-Torch-style ``evaluate()`` mode switch.  Containers name their children
-``'0'``, ``'1'``, ... exactly as the JAX containers do.
+(:func:`load_jax_params` / :func:`export_params`, for every model), the
+same view of the running state (``Module.state``: the buffers, such as
+batch normalisation's running statistics; :func:`load_jax_state` /
+:func:`export_state`), and the Torch-style ``evaluate()`` mode switch.
+Containers name their children ``'0'``, ``'1'``, ... exactly as the JAX
+containers do.
 """
 from __future__ import annotations
 
@@ -20,6 +23,12 @@ class Module(torch.nn.Module):
     def _add_param(self, name: str, value: torch.Tensor, device=None):
         self.register_parameter(
             name, torch.nn.Parameter(value.to(device)))
+
+    def _add_buffer(self, name: str, value: torch.Tensor, device=None):
+        """Running state under the JAX name (``running_mean``,
+        ``running_var``): in ``state()``, in checkpoints, moved with the
+        module, and never rebound (``load_state`` copies into it)."""
+        self.register_buffer(name, value.to(device))
 
     def params(self) -> dict:
         """Nested view ``{'~': {name: tensor}, '<child>': {...}}``."""
@@ -53,6 +62,51 @@ class Module(torch.nn.Module):
                                f"{type(self).__name__}")
             m.load_params(tree[name])
         return self
+
+    def state(self) -> dict:
+        """Nested view of the buffers, ``{'~': {name: tensor}, '<child>':
+        {...}}``: the JAX ``Module.state`` layout, every module present."""
+        tree = {"~": {k: b.detach() for k, b in self._buffers.items()
+                      if b is not None}}
+        for name, m in self._modules.items():
+            tree[name] = m.state()
+        return tree
+
+    def load_state(self, tree: dict) -> "Module":
+        """Copy a nested state tree (tensors or numpy arrays) into this
+        module's buffers in place (``copy_``: a captured CUDA graph keeps
+        reading the same storage).  Every buffer must be present with its
+        exact shape; a module without buffers needs no entry."""
+        own = tree.get("~", {})
+        with torch.no_grad():
+            for k, b in self._buffers.items():
+                if b is None:
+                    continue
+                if k not in own:
+                    raise KeyError(f"{type(self).__name__}: no value for "
+                                   f"buffer {k!r}")
+                v = own[k]
+                v = (v if isinstance(v, torch.Tensor)
+                     else torch.from_numpy(np.array(v)))
+                if tuple(v.shape) != tuple(b.shape):
+                    raise ValueError(
+                        f"{type(self).__name__}.{k}: shape "
+                        f"{tuple(v.shape)} != {tuple(b.shape)}")
+                b.copy_(v)
+        for name, m in self._modules.items():
+            sub = tree.get(name)
+            if sub is None:
+                if any(b is not None for b in m.buffers()):
+                    raise KeyError(f"no state subtree for child {name!r} "
+                                   f"of {type(self).__name__}")
+                continue
+            m.load_state(sub)
+        return self
+
+    def copy_status(self, src: "Module") -> "Module":
+        """Copy the running state (BN statistics) of ``src``, a module of
+        the same structure (ref AbstractModule.copyStatus)."""
+        return self.load_state(src.state())
 
     def set_name(self, name: str) -> "Module":
         self.name = name
@@ -94,10 +148,24 @@ def load_jax_params(model: Module, tree: dict) -> Module:
 def export_params(model: Module) -> dict:
     """The inverse of :func:`load_jax_params`: the nested tree with numpy
     leaves, as the JAX package's ``load_params`` takes it."""
-    def to_np(tree):
-        return {k: ({n: v.cpu().numpy().copy() for n, v in sub.items()}
-                    if k == "~" else to_np(sub)) for k, sub in tree.items()}
-    return to_np(model.params())
+    return _numpy_tree(model.params())
+
+
+def _numpy_tree(tree: dict) -> dict:
+    return {k: ({n: v.cpu().numpy().copy() for n, v in sub.items()}
+                if k == "~" else _numpy_tree(sub)) for k, sub in tree.items()}
+
+
+def load_jax_state(model: Module, tree: dict) -> Module:
+    """Fill a port model's buffers from the JAX model's ``state()`` pytree
+    in place."""
+    return model.load_state(tree)
+
+
+def export_state(model: Module) -> dict:
+    """The inverse of :func:`load_jax_state`: the nested state tree with
+    numpy leaves, as the JAX package's ``load_state`` takes it."""
+    return _numpy_tree(model.state())
 
 
 def param_paths(model: Module) -> list:

@@ -1,11 +1,93 @@
-"""LayerNorm and cross-channel LRN (counterpart of
-bigdl_tpu/nn/normalization.py ``LayerNorm`` and ``SpatialCrossMapLRN``)."""
+"""Batch normalisation, LayerNorm and cross-channel LRN (counterpart of
+bigdl_tpu/nn/normalization.py ``BatchNormalization``,
+``SpatialBatchNormalization``, ``LayerNorm`` and ``SpatialCrossMapLRN``)."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from bigdl_tpu_torch.nn import init as init_
 from bigdl_tpu_torch.nn.module import TensorModule
 from bigdl_tpu_torch.ops import lrn_channel
+
+
+class BatchNormalization(TensorModule):
+    """Batch norm over (N, D) input, or over dim 1 of (N, D, ...) (ref
+    BatchNormalization.scala:31; bigdl_tpu/nn/normalization.py:40-99).
+
+    Arguments follow the reference: ``(n_output, eps, momentum,
+    affine)``.  Training normalises by the batch statistics (the biased
+    variance) and moves the running ones by ``(1 - m) * running + m *
+    stat``, the variance unbiased by ``n / max(n - 1, 1)``; ``evaluate()``
+    normalises by the running statistics.  One sample without its batch
+    dim (``n_dim - 1`` dims) is a batch of one.  The weight is drawn U(0,
+    1) from ``generator``, the bias is zero.
+
+    The JAX package computes this in plain XLA (no Pallas kernel), and
+    so does the port: ``F.batch_norm``, whose update of ``running_mean``
+    and ``running_var`` is written in place into the registered buffers
+    (a captured CUDA graph replays it).  ``F.batch_norm`` refuses one
+    value a channel in training; there the JAX arithmetic runs as plain
+    operations (variance 0, the unbiasing divisor 1)."""
+
+    n_dim = 2
+
+    def __init__(self, n_output: int, eps: float = 1e-5,
+                 momentum: float = 0.1, affine: bool = True, device=None,
+                 generator=None):
+        super().__init__()
+        self.n_output = n_output
+        self.eps = eps
+        self.momentum = momentum
+        self.affine = affine
+        if affine:
+            self._add_param("weight", init_.uniform((n_output,), 0.0, 1.0,
+                                                    generator), device)
+            self._add_param("bias", torch.zeros(n_output), device)
+        else:
+            self.weight = self.bias = None
+        self._add_buffer("running_mean", torch.zeros(n_output), device)
+        self._add_buffer("running_var", torch.ones(n_output), device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        unbatched = x.dim() == self.n_dim - 1
+        if unbatched:
+            x = x[None]
+        if self.training and x.numel() == self.n_output:
+            y = self._one_per_channel(x)
+        else:
+            y = F.batch_norm(x, self.running_mean, self.running_var,
+                             self.weight, self.bias, self.training,
+                             self.momentum, self.eps)
+        return y[0] if unbatched else y
+
+    def _one_per_channel(self, x):
+        """Training on one value a channel, as the JAX module computes it:
+        the mean is the value, the variance 0, and the running variance
+        decays towards 0."""
+        mean = x.reshape(self.n_output)
+        m = self.momentum
+        with torch.no_grad():
+            self.running_mean.mul_(1 - m).add_(m * mean)
+            self.running_var.mul_(1 - m)
+        shape = [1] * x.dim()
+        shape[1] = self.n_output
+        scale = torch.rsqrt(torch.zeros_like(mean) + self.eps)
+        shift = -mean * scale
+        if self.affine:
+            scale = scale * self.weight
+            shift = shift * self.weight + self.bias
+        return x * scale.reshape(shape) + shift.reshape(shape)
+
+    def extra_repr(self) -> str:
+        return f"{self.n_output}, eps={self.eps}, momentum={self.momentum}"
+
+
+class SpatialBatchNormalization(BatchNormalization):
+    """Batch norm over (N, C, H, W), or one (C, H, W) sample (ref
+    SpatialBatchNormalization.scala)."""
+
+    n_dim = 4
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

@@ -19,9 +19,13 @@ OptimMethod's update in place.  What the JAX loop keeps, this one keeps:
   scalar; the other hyper-parameters are constants of the capture, which
   is made again when one of them or a batch shape changes.  On the CPU
   the chunk is an eager loop of n steps;
+- the module state (batch normalisation's running statistics): the
+  forward updates the buffers in place at every step, a captured graph's
+  replays too, ``validate`` reads them in ``eval()`` mode, and checkpoints
+  carry them in the JAX ``state()`` layout;
 - the non-finite skip: the step's finite flag (loss and every gradient)
-  stays on the device, and the update leaves params and velocity as they
-  were when it is False;
+  stays on the device, and the update leaves params, velocity and the
+  module's buffers as they were when it is False;
 - the host-sync window: loss and finite flag are read in one batch at
   the sync cadence, at an epoch rollover, when a trigger fires and at
   the run's end — the loop's only device-to-host reads;
@@ -76,6 +80,46 @@ def to_device(a, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+class _BufferSnapshot:
+    """The module's buffers as they were before a step, one flat copy a
+    dtype, so that a step whose finite flag is False leaves them as it
+    found them (the JAX step's ``_where_finite`` over its state), on the
+    device and in place.  The flat copies and the views into them are
+    made once, for one set of buffer addresses (``holds``), and refilled
+    at every step: a multi-tensor copy to save; a multi-tensor copy, a
+    ``where`` and a multi-tensor copy back to restore."""
+
+    def __init__(self, model):
+        self.ptrs = self._ptrs(model)
+        groups = {}
+        for b in model.buffers():
+            groups.setdefault(b.dtype, []).append(b)
+        self.groups = []
+        for bufs in groups.values():
+            n = [b.numel() for b in bufs]
+            saved, now = bufs[0].new_empty(sum(n)), bufs[0].new_empty(sum(n))
+            self.groups.append((bufs, saved, now, [
+                [v.view(b.shape) for v, b in zip(flat.split(n), bufs)]
+                for flat in (saved, now)]))
+
+    @staticmethod
+    def _ptrs(model):
+        return tuple(b.data_ptr() for b in model.buffers())
+
+    def holds(self, model) -> bool:
+        return self.ptrs == self._ptrs(model)
+
+    def save(self):
+        for bufs, _, _, (saved, _) in self.groups:
+            torch._foreach_copy_(saved, bufs)
+
+    def restore_unless(self, finite):
+        for bufs, saved, now, (_, now_parts) in self.groups:
+            torch._foreach_copy_(now_parts, bufs)
+            torch.where(finite, now, saved, out=now)
+            torch._foreach_copy_(bufs, now_parts)
 
 
 class _PendingStep:
@@ -154,7 +198,7 @@ class _CapturedChunk:
     def __init__(self, opt, params, opt_state, x, y, hyper, stream):
         dev = x.device
         n = x.shape[0]
-        self.key = _capture_key(params, opt_state, x, y, hyper)
+        self.key = _capture_key(params, opt.model, opt_state, x, y, hyper)
         self.x = torch.empty_like(x)
         self.y = torch.empty_like(y)
         self.lr = torch.zeros((), dtype=torch.float32, device=dev)
@@ -183,12 +227,14 @@ class _CapturedChunk:
         return self.losses.clone(), self.finites.clone()
 
 
-def _capture_key(params, opt_state, x, y, hyper):
+def _capture_key(params, model, opt_state, x, y, hyper):
     """What a capture is a function of besides its inputs' values: the
-    batch shapes and types, the address of every parameter, gradient and
-    optimizer-state tensor, and the hyper-parameters other than lr."""
+    batch shapes and types, the address of every parameter, gradient,
+    module buffer and optimizer-state tensor, and the hyper-parameters
+    other than lr."""
     return (tuple(x.shape), x.dtype, tuple(y.shape), y.dtype,
             tuple((p.data_ptr(), p.grad.data_ptr()) for p in params),
+            tuple(b.data_ptr() for b in model.buffers()),
             tuple(t.data_ptr() for v in opt_state.values() for t in v),
             tuple(sorted((k, repr(v)) for k, v in hyper.items()
                          if k != "lr")))
@@ -222,9 +268,15 @@ class LocalOptimizer:
         self._nonfinite_skips = 0
         self._nonfinite_streak = 0
         self._resume_opt_state = None
+        #: the optimizer's own state of the last run, in place ({'velocity':
+        #: one tensor a parameter}); each ``optimize()`` starts it anew
+        self.opt_state = None
         self._window = None
         self._train_pipeline = None
         self._chunk = self._side = None
+        #: the buffers' pre-step copy (``_BufferSnapshot``), kept while the
+        #: buffers stay where they are
+        self._kept = None
         #: device-to-host reads of the training loop (window flushes)
         self.host_syncs = 0
         #: graph captures and replays of the n-step dispatch
@@ -331,6 +383,10 @@ class LocalOptimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         torch._foreach_zero_([p.grad for p in params])
+        kept = self._kept
+        if kept is None or not kept.holds(self.model):
+            kept = self._kept = _BufferSnapshot(self.model)
+        kept.save()
         loss = self.criterion(self.model(x), y)
         loss.backward()
         grads = [p.grad for p in params]
@@ -338,6 +394,7 @@ class LocalOptimizer:
         finite = _finite_all(loss, grads)
         self.optim_method.update(grads, opt_state, params, hyper,
                                  finite=finite)
+        kept.restore_unless(finite)
         return loss, finite
 
     def _eager_chunk(self, params, opt_state, xs, ys, hyper):
@@ -365,8 +422,8 @@ class LocalOptimizer:
                 t.record_stream(cur)
             return out
         chunk = self._chunk
-        if chunk is None or chunk.key != _capture_key(params, opt_state, xs,
-                                                      ys, hyper):
+        if chunk is None or chunk.key != _capture_key(
+                params, self.model, opt_state, xs, ys, hyper):
             chunk = self._chunk = _CapturedChunk(
                 self, params, opt_state, xs, ys, hyper, self._side)
             self.captures += 1
@@ -381,7 +438,7 @@ class LocalOptimizer:
         pin_fp32(self.device)
         self.model.to(self.device).train()
         params = list(self.model.parameters())
-        opt_state = self._initial_opt_state(params)
+        opt_state = self.opt_state = self._initial_opt_state(params)
         n = self.iters_per_dispatch
 
         count = 0

@@ -24,7 +24,6 @@ import io
 import pickle
 import zlib
 
-import numpy as np
 import torch
 
 from bigdl_tpu_torch.utils import fs
@@ -131,25 +130,6 @@ def load(path):
     return _loads(data)
 
 
-def _state_tree(module) -> dict:
-    tree = {"~": {k: b.detach().cpu().numpy()
-                  for k, b in module._buffers.items() if b is not None}}
-    for name, m in module._modules.items():
-        tree[name] = _state_tree(m)
-    return tree
-
-
-def _load_state_tree(module, tree: dict):
-    with torch.no_grad():
-        for k, v in tree.get("~", {}).items():
-            if module._buffers.get(k) is None:
-                raise KeyError(f"{type(module).__name__}: no buffer {k!r}")
-            module._buffers[k].copy_(torch.from_numpy(np.array(v)))
-    for name, m in module._modules.items():
-        if name in tree:
-            _load_state_tree(m, tree[name])
-
-
 def _pickle_architecture(module) -> bytes:
     """The module pickled with every parameter and buffer on the meta
     device (shapes and types only)."""
@@ -171,15 +151,16 @@ def _pickle_architecture(module) -> bytes:
 
 
 def save_module(module, path, overwrite: bool = True):
-    """The whole module, architecture and weights (ref
-    AbstractModule.save), in the JAX package's v2 layout."""
-    from bigdl_tpu_torch.nn.module import export_params
+    """The whole module, architecture, weights and running state (ref
+    AbstractModule.save), in the JAX package's v2 layout: ``params`` and
+    ``state`` are the JAX ``params()`` and ``state()`` trees."""
+    from bigdl_tpu_torch.nn.module import export_params, export_state
 
     save({"format": FORMAT, "package": PACKAGE,
           "cls": type(module).__name__,
           "architecture": _pickle_architecture(module),
           "params": export_params(module),
-          "state": _state_tree(module)}, path, overwrite=overwrite)
+          "state": export_state(module)}, path, overwrite=overwrite)
 
 
 def load_module(path, device="cuda"):
@@ -199,9 +180,9 @@ def load_module(path, device="cuda"):
 
 
 def load_module_into(module, path, blob=None):
-    """The weights (and buffers) of a module file of either package into
-    ``module``, in place."""
+    """The weights and running state (the buffers, copied in place) of a
+    module file of either package into ``module``."""
     blob = load(path) if blob is None else blob
     module.load_params(blob["params"])
-    _load_state_tree(module, blob.get("state", {}))
+    module.load_state(blob.get("state", {}))
     return module

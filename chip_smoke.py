@@ -8,8 +8,12 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py --kernels  # phases 1-2 alone, no result line
     python3 chip_smoke.py --harness  # fused_sgd's checks and phase 10
                                      # alone, no result line
+    python3 chip_smoke.py --bn       # the pool, LRN and SGD checks and
+                                     # phases 11-14 alone, no result line
 
-Phases, each failing with a non-zero exit:
+Each option runs part of one phase table (``ONLY``); every phase runs
+even where one before it failed, and a failed phase makes the exit
+non-zero with no result line.  Phases:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, and the build of every CUDA kernel from
@@ -130,7 +134,38 @@ Phases, each failing with a non-zero exit:
     the card from a checkpoint past corrupt snapshots and ends where the
     uninterrupted run does, and without the random payload does not, the
     checkpoint's wall cost printed;
-11. one JSON line of kernels, then the card line, then the result line.
+11. VGG on CIFAR-10 (``VggForCifar10``: 14,991,946 parameters, 9,472
+    running-statistic values; examples/train_vgg.py on its synthetic
+    data, batch 128, lr 0.01, momentum 0.9, weight decay 5e-4) trains 20
+    steps through ``Optimizer(...).optimize()`` and validates Top1 once;
+    every step's and validation batch's five pools go through the
+    ``maxpool2d`` kernels and every update through ``fused_sgd``; two
+    steps at batch 16, dropout off, equal the CPU's, losses, parameters
+    and running statistics, the CPU's steps taking the card's ReLU and
+    pool choices and the first batch's gradients held against float64
+    runs that take each fp32 run's own (``Routes``);
+12. ResNet-50 (25,557,032 parameters, 53 BN layers;
+    examples/train_resnet50_imagenet.py --synthetic: batch 256 of 512
+    224x224 images, nesterov SGD, EpochStep(30, 0.1)) trains 10 steps,
+    the stem pool through ``maxpool2d`` and the update through
+    ``fused_sgd``; two steps at batch 8 and lr 0.01 equal the CPU's, held
+    as VGG's are (the gradient probe's zeroed BN weights drawn U(0, 1));
+    the buffer snapshot's time a step;
+13. the harness with module state: ``ResNetCifar(20)`` (batch 128,
+    examples/train_resnet.py's SGD) at 8 steps a dispatch as one CUDA
+    graph bit-equal to the eager loop in parameters, velocities and
+    running statistics, the replays' kernels counted by the profiler;
+    a snapshot mid-run resumes on the card and ends where the
+    uninterrupted run does, bit for bit;
+14. the model zoo: one training forward and backward at full width of
+    ``Inception_v2`` (batch 8), ``Vgg_16`` (4), ``AlexNet`` (8) and
+    ``Autoencoder`` (32) against the CPU, and again with cuDNN off, the
+    pools and LRNs through their kernels; with phases 2 and 3, the
+    kernels at every pool and LRN geometry the BN paths meet (VGG's five
+    2x2 s2 pools at batch 128, ResNet-50's 3x3 s2 p1 stem pool at 256,
+    the zoo's) and ``fused_sgd`` over VGG's and ResNet-50's layouts,
+    held to their plain versions and timed beside ``F.max_pool2d``;
+15. one JSON line of kernels, then the card line, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -177,6 +212,24 @@ INCEPTION_POOLS = [((128, 64, 112, 112), (3, 3), (2, 2), ((0, 1), (0, 1))),
                    ((128, 192, 56, 56), (3, 3), (2, 2), ((0, 1), (0, 1))),
                    ((128, 480, 28, 28), (3, 3), (2, 2), ((0, 1), (0, 1))),
                    ((128, 832, 14, 14), (3, 3), (2, 2), ((0, 1), (0, 1)))]
+# VGG on CIFAR-10's five 2x2 s2 ceil pools at batch 128 (models/vgg.py:
+# 22, 25, 29, 33, 37) and ResNet-50's 3x3 s2 p1 stem pool at batch 256
+# (models/resnet.py:114), one launch each way a step
+VGG_POOLS = [((128, c, hw, hw), (2, 2), (2, 2), ((0, 0), (0, 0)))
+             for c, hw in ((64, 32), (128, 16), (256, 8), (512, 4),
+                           (512, 2))]
+RESNET50_POOL = ((256, 64, 112, 112), (3, 3), (2, 2), ((1, 0), (1, 0)))
+# model_zoo's s2 pools at its batches: Inception_v2's four 3x3 s2 ceil
+# (models/inception.py:139, 142 and 3c's and 4e's branch pools) at batch
+# 8, Vgg_16's five 2x2 s2 at batch 4, AlexNet's three 3x3 s2 at batch 8
+ZOO_POOLS = ([((8, c, hw, hw), (3, 3), (2, 2), ((0, 1), (0, 1)))
+              for c, hw in ((64, 112), (192, 56), (320, 28), (576, 14))]
+             + [((4, c, hw, hw), (2, 2), (2, 2), ((0, 0), (0, 0)))
+                for c, hw in ((64, 224), (128, 112), (256, 56), (512, 28),
+                              (512, 14))]
+             + [((8, c, hw, hw), (3, 3), (2, 2), ((0, 0), (0, 0)))
+                for c, hw in ((96, 55), (256, 27), (256, 13))])
+BN_POOLS = VGG_POOLS + [RESNET50_POOL] + ZOO_POOLS
 # Inception-v1 training slice: examples/train_inception.py --synthetic
 IBATCH, ICLASSES, IMAGES, ISIZE, ICROP = 128, 1000, 4 * 128, 256, 224
 ILR, IWD, ISTEPS, IVAL = 0.0898, 1e-4, 20, 256
@@ -185,23 +238,26 @@ ICHECK_BATCH, ICHECK_STEPS = 16, 3
 # products of pixels of +-128 that mostly cancel: each fp32 run lands
 # ~2e-3 of the leaf's scale from the float64 value (the card 2.53e-3,
 # the CPU 2.17e-3 in the run that set these), so the card is held to
-# twice the CPU's own fp32 error against float64, not to the CPU; three
-# steps at lr 0.0898 carry that into conv1's weights (4.6e-4 apart).
-IGRAD_VS_CPU64, IPARAM_ATOL = 2.0, 1e-3
+# twice the CPU's own fp32 error against float64 (``held_vs_cpu``), not
+# to the CPU; three steps at lr 0.0898 carry that into conv1's weights
+# (4.6e-4 apart).
+IPARAM_ATOL = 1e-3
 IPARAMS = 6998552
 LRN = (5, 1e-4, 0.75, 1.0)            # models/inception.py:37,42
 LRN_FWD_TOL = dict(rtol=1e-5, atol=1e-6)   # tests/test_pallas_ops.py:148
 LRN_BWD_TOL = dict(rtol=1e-4, atol=1e-5)   # tests/test_pallas_ops.py:155
 # (shape, (size, alpha, beta, k)): tests/test_pallas_ops.py:116-121 (an
-# even size, ragged H*W), then Inception-v1's two LRNs at batch 128
+# even size, ragged H*W), then Inception-v1's two LRNs at batch 128, then
+# AlexNet's two (models/alexnet.py:21, 26: the same hyper-parameters) at
+# model_zoo's batch 8
+INCEPTION_LRNS = [((IBATCH, 64, 56, 56), LRN), ((IBATCH, 192, 56, 56), LRN)]
+ALEXNET_LRNS = [((8, 96, 55, 55), LRN), ((8, 256, 27, 27), LRN)]
 LRN_CASES = [
     ((2, 8, 16, 8), (5, 1.0, 0.75, 1.0)),
     ((2, 6, 16, 16), (3, 2e-4, 0.9, 2.0)),
     ((2, 8, 7, 9), (5, 1.0, 0.75, 1.0)),
     ((2, 8, 16, 8), (4, 1.0, 0.75, 1.0)),
-    ((IBATCH, 64, 56, 56), LRN),
-    ((IBATCH, 192, 56, 56), LRN),
-]
+] + INCEPTION_LRNS + ALEXNET_LRNS
 # (shape, window, pads), stride 1: tests/test_pallas_ops.py:80-84, then
 # Inception-v1's 3a, 3b, 4a and 5a pools at batch 128, a plane cut into
 # row bands, a window whose backward bands need more than two blocks an SM
@@ -209,7 +265,10 @@ LRN_CASES = [
 # then 7x7 planes whose groups of 73 start off 16-byte boundaries (NC 150:
 # two misaligned starts, a tail group of 4), a plane too large for a block
 # (360 KB) cut into 8-row bands with W not a multiple of 4, and a 5x5
-# window with pads 2 on 14x14 planes (the runtime-window kernels)
+# window with pads 2 on 14x14 planes (the runtime-window kernels); then
+# Inception_v2's 5b pool (models/inception.py:120, 3x3 s1 p1 ceil) at
+# model_zoo's batch 8
+INCEPTION_V2_S1 = ((8, 1024, 7, 7), (3, 3), ((1, 1), (1, 1)))
 S1_CASES = [
     ((2, 4, 14, 14), (3, 3), ((1, 1), (1, 1))),
     ((1, 2, 8, 8), (3, 3), ((1, 1), (1, 1))),
@@ -224,6 +283,7 @@ S1_CASES = [
     ((3, 50, 7, 7), (3, 3), ((1, 1), (1, 1))),
     ((1, 2, 301, 299), (3, 3), ((1, 1), (1, 1))),
     ((4, 37, 14, 14), (5, 5), ((2, 2), (2, 2))),
+    INCEPTION_V2_S1,
 ]
 NAN_S1_CASES = (0, 2, 7, 10)
 # Inception-v1's nine stride-1 pools at batch 128, by input: 3a, 3b, 4a,
@@ -337,6 +397,36 @@ HDISPATCH, HSTEPS = 8, 64
 HFEATURES, HCLASSES, HLEARN, HLEARN_EPOCHS = 32, 10, 4096, 4
 HPREFETCH_STEPS, HDOCS = 6, 4 * TBATCH
 HCKPT_STEPS, HCKPT_EVERY = 12, 4
+# VGG on CIFAR-10: examples/train_vgg.py on its synthetic data (2,048
+# training and 512 validation images), batch 128, lr 0.01, momentum 0.9,
+# weight decay 5e-4; VSTEPS steps and one validation
+VTRAIN, VVAL, VBATCH, VLR, VWD, VSTEPS = 2048, 512, 128, 0.01, 5e-4, 20
+VPARAMS, VSTATE = 14991946, 9472
+# the card against the CPU: VCHECK_STEPS steps at batch VCHECK_BATCH, dropout
+# 0 (at three steps a rounding's perturbation of the init ends 2.1e-4
+# from the CPU's params on the CPU, past PARAM_ATOL)
+VCHECK_BATCH, VCHECK_STEPS = 16, 2
+# ResNet-50: examples/train_resnet50_imagenet.py --synthetic (2 x 256
+# images of 224x224, batch 256, lr 0.1, weight decay 1e-4, momentum 0.9,
+# dampening 0, nesterov, EpochStep(30, 0.1)); R50_STEPS steps
+R50_BATCH, R50_IMAGES, R50_LR, R50_WD, R50_STEPS = 256, 512, 0.1, 1e-4, 10
+R50_PARAMS = 25557032
+# the card against the CPU: R50_CHECK_STEPS steps at batch R50_CHECK_BATCH
+# and lr R50_CHECK_LR (at lr 0.1 a rounding's perturbation of the init
+# ends 3.0e-3 from the CPU's params after three steps, past IPARAM_ATOL)
+R50_CHECK_BATCH, R50_CHECK_STEPS, R50_CHECK_LR = 8, 2, 0.01
+# the harness with module state: ResNetCifar(20), examples/train_resnet.py
+# (batch 128; 512 synthetic images, 4 steps an epoch)
+BN_DEPTH, BN_BATCH, BN_PARAMS = 20, 128, 269722
+# a gradient leaf this far below the model's largest float64 gradient
+# entry is zero (a bias that batch normalisation cancels)
+NULL_GRAD = 1e-9
+# the running statistics, card against CPU: each buffer within this of
+# its largest entry
+STATE_RTOL = 1e-3
+# batch normalisation's kernels as the profiler names them (cuDNN's
+# bn_fw_* / bn_bw_*, ATen's batch_norm_*)
+BN_KERNEL_PARTS = ("batch_norm", "bn_fw", "bn_bw")
 # the graph against the eager loop on the card where bits do not hold
 GRAPH_TOL = dict(rtol=1e-5, atol=1e-6)
 # the device kernel each wrapper of the harness's graph paths launches
@@ -723,17 +813,14 @@ def print_pool_row(label, case, row):
           f"{row['bytes']} bytes)")
 
 
-def inception_sum(sums, name, row, n):
-    """Adds ``n`` launches of ``row`` to a pass's Inception step totals:
-    kernel, bound and library ms and launches a step."""
-    out = sums.setdefault(name, {"inception_ms": 0.0,
-                                 "inception_bound_ms": 0.0,
-                                 "inception_library_ms": 0.0,
-                                 "inception_launches_step": 0})
-    out["inception_ms"] += n * row["ms"]
-    out["inception_bound_ms"] += n * row["bound_ms"]
-    out["inception_library_ms"] += n * row["library_ms"]
-    out["inception_launches_step"] += n
+def step_sum(sums, name, row, n, model="inception"):
+    """Adds ``n`` launches of ``row`` to a pass's step totals of ``model``
+    (Inception's unless named): kernel, bound and library ms and launches
+    a step."""
+    out = sums.setdefault(name, {})
+    for key in ("ms", "bound_ms", "library_ms"):
+        out[f"{model}_{key}"] = out.get(f"{model}_{key}", 0.0) + n * row[key]
+    out[f"{model}_launches_step"] = out.get(f"{model}_launches_step", 0) + n
 
 
 def pool_times(torch, ops, flush, g, shape, win, st, pads):
@@ -747,8 +834,9 @@ def pool_times(torch, ops, flush, g, shape, win, st, pads):
     y, arg = ops.maxpool2d_forward(x, win, st, pads)
     gy = torch.randn(y.shape, generator=g, device="cuda")
     (plh, phh), (plw, phw) = pads
-    # the library's padding is symmetric: the high pad becomes ceil mode
-    ceil = (phh, phw) != (plh, plw)
+    # the library's padding is symmetric: a high pad past the low one
+    # becomes ceil mode
+    ceil = phh > plh or phw > plw
     lib = dict(kernel_size=win, stride=st, padding=(plh, plw),
                ceil_mode=ceil)
     y_lib, idx = F.max_pool2d(x, return_indices=True, **lib)
@@ -915,7 +1003,8 @@ def pool_s1_times(torch, ops, flush, g, shape, win, pads):
 def phase_conv_kernels(torch, ops):
     """The Inception slice's new kernels against their plain versions,
     with times at Inception-v1's shapes at batch 128: both LRNs, the 3a
-    and 3b pools (3b's input is the largest a stride-1 pool takes)."""
+    and 3b pools (3b's input is the largest a stride-1 pool takes); and
+    at model_zoo's: AlexNet's two LRNs, Inception_v2's 5b pool."""
     g = torch.Generator(device="cuda").manual_seed(2)
     lrn_errs = [check_lrn(torch, ops, g, *case) for case in LRN_CASES]
     s1_errs = []
@@ -926,7 +1015,7 @@ def phase_conv_kernels(torch, ops):
                 for k in NAN_S1_CASES]
     flush = torch.empty(64 * 2**20, device="cuda")   # 256 MB > 50 MB L2
     rows = {}
-    for case in LRN_CASES[-2:]:
+    for case in ALEXNET_LRNS + INCEPTION_LRNS:
         fwd, bwd = lrn_times(torch, ops, flush, g, *case)
         for name, row in (("forward", fwd), ("backward", bwd)):
             print(f"lrn_{name} {case[0]} {case[1:]}: "
@@ -936,7 +1025,7 @@ def phase_conv_kernels(torch, ops):
                   f"library_ms={row['library_ms']:.5f} "
                   f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}, "
                   f"{row['bytes']} bytes)")
-            rows[f"lrn_{name}"] = row   # the last, largest case
+            rows[f"lrn_{name}"] = row   # the last: Inception-v1's 2nd
     # the stride-1 rows at 3b's input, the largest; beside them the step's
     # nine pools (and, at each shape, a copy or add of the same bytes)
     inception = {}
@@ -948,9 +1037,14 @@ def phase_conv_kernels(torch, ops):
             print(f"  the same bytes through "
                   f"{'a copy' if name == 'forward' else 'an add'}: "
                   f"{row['same_bytes_ms']:.5f} ms")
-            inception_sum(inception, name, row, n)
+            step_sum(inception, name, row, n)
             if case[0] == S1_CASES[4][0]:
                 rows[f"maxpool2d_s1_{name}"] = row
+    v2_rows = pool_s1_times(torch, ops, flush, g, *INCEPTION_V2_S1)
+    for name, row in zip(("forward", "backward"), v2_rows):
+        print_pool_row(f"maxpool2d_s1_{name}", (INCEPTION_V2_S1[0],
+                                               INCEPTION_V2_S1[1], None,
+                                               INCEPTION_V2_S1[2]), row)
     for name in ("forward", "backward"):
         rows[f"maxpool2d_s1_{name}"].update(inception[name])
     print(f"lrn: {len(LRN_CASES)} cases, forward max_abs_err="
@@ -2062,15 +2156,17 @@ def sgd_leaves(torch, g, shapes):
             for _ in range(3)]
 
 
-def check_sgd(torch, ops, g):
+def check_sgd(torch, ops, g, shapes=None):
     """Three steps of the kernel and of the plain version on every hyper
-    set, over leaves that no chunk or vector width divides, the gradients
+    set, over leaves that no chunk or vector width divides (or over leaves
+    of ``shapes``: a model's layout), the gradients
     moved to new memory before the last step (the cached leaf table must
     give way to a new one); then a step with the finite flag False
     changes nothing.  The device-lr form (lr read from a one-float
     tensor, as a captured graph launches it) runs beside the host-lr form
     on copies of the same leaves and must give the same bits."""
-    shapes = [(130, 7), (7,), (4097,), (100,), (3, 5, 5), (10001,)]
+    shapes = shapes or [(130, 7), (7,), (4097,), (100,), (3, 5, 5),
+                        (10001,)]
     err = 0.0
     for h in SGD_HYPERS:
         p, gr, v = sgd_leaves(torch, g, shapes)
@@ -2135,31 +2231,45 @@ def phase_train_kernels(torch, ops):
     """The training slice's kernels against their plain versions, with
     times at LeNet's shapes and at larger shapes models of the repo have:
     Inception-v1's first pool at batch 32 (the rows' shape) and its four
-    3x3 s2 pools at batch 128, the serving model's parameters."""
+    3x3 s2 pools at batch 128, the BN paths' pools (VGG's, ResNet-50's,
+    model_zoo's), the serving model's parameters; ``fused_sgd`` also over
+    VGG's and ResNet-50's layouts."""
     from bigdl_tpu_torch.models.lenet import LeNet5
+    from bigdl_tpu_torch.models.resnet import ResNet
     from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.models.vgg import VggForCifar10
 
     g = torch.Generator(device="cuda").manual_seed(1)
     errs = [check_pool(torch, ops, g, *case)
-            for case in POOL_CASES + INCEPTION_POOLS]
+            for case in POOL_CASES + INCEPTION_POOLS + BN_POOLS]
     errs += [check_pool(torch, ops, g, *POOL_CASES[k], nan=True)
              for k in NAN_POOL_CASES]
-    sgd_err = check_sgd(torch, ops, g)
+    # the BN paths' layouts: VGG's 58 leaves, ResNet-50's 161
+    vgg = [tuple(p.shape) for p in VggForCifar10(10, device="meta")
+           .parameters()]
+    r50 = [tuple(p.shape) for p in ResNet(50, ICLASSES, device="meta")
+           .parameters()]
+    sgd_err = max(check_sgd(torch, ops, g, shapes)
+                  for shapes in (None, vgg, r50))
     flush = torch.empty(64 * 2**20, device="cuda")   # 256 MB > 50 MB L2
-    inception = {}
-    for case in POOL_CASES[-3:] + INCEPTION_POOLS:
+    sums = {}
+    for case in POOL_CASES[-3:] + INCEPTION_POOLS + BN_POOLS:
         rows = pool_times(torch, ops, flush, g, *case)
         for name, row in zip(("forward", "backward"), rows):
             print_pool_row(f"maxpool2d_{name}", case, row)
             if case in INCEPTION_POOLS:
-                inception_sum(inception, name, row, 1)
+                step_sum(sums, name, row, 1)
+            if case in VGG_POOLS:
+                step_sum(sums, name, row, 1, "vgg")
+            if case == RESNET50_POOL:
+                step_sum(sums, name, row, 1, "resnet50")
         if case == POOL_CASES[-1]:
             fwd, bwd = rows   # the rows' shape
     lenet = [tuple(p.shape) for p in LeNet5(device="cuda").parameters()]
     serving = [tuple(p.shape) for p in TransformerLM(
         VOCAB, D_MODEL, HEADS, LAYERS, HIDDEN, dropout=0.0,
         device="meta").parameters()]
-    for shapes in (lenet, serving):
+    for shapes in (lenet, vgg, r50, serving):   # the row: serving's
         sgd = sgd_times(torch, ops, flush, g, shapes)
         print(f"fused_sgd {sgd['params']} params in {len(shapes)} leaves: "
               f"kernel_ms={sgd['ms']:.5f} device_lr_ms="
@@ -2168,14 +2278,15 @@ def phase_train_kernels(torch, ops):
               f"bound_ms={sgd['bound_ms']:.5f} ({20 * sgd['params']} bytes) "
               f"queued_ms={sgd['queued_ms']:.5f}")
     for name, row in (("forward", fwd), ("backward", bwd)):
-        row.update(inception[name])
+        row.update(sums[name])
     fwd_err = max(e[0] for e in errs)
     bwd_err = max(e[1] for e in errs)
-    print(f"maxpool2d: {len(POOL_CASES) + len(INCEPTION_POOLS)} geometries "
-          f"with ties and "
+    n_tied = len(POOL_CASES) + len(INCEPTION_POOLS) + len(BN_POOLS)
+    print(f"maxpool2d: {n_tied} geometries with ties and "
           f"{len(NAN_POOL_CASES)} with NaNs, forward and argmax equal, "
           f"backward max_abs_err={bwd_err:.3e}; fused_sgd: "
-          f"{len(SGD_HYPERS)} hyper sets x 3 steps, max_abs_err="
+          f"{len(SGD_HYPERS)} hyper sets x 3 steps over 6 odd leaves, "
+          f"VGG's {len(vgg)} and ResNet-50's {len(r50)}, max_abs_err="
           f"{sgd_err:.3e}, the device-lr form bit-equal to the host-lr "
           f"form, a non-finite step writes nothing")
     common = {"route": "cuda", "ok": True}
@@ -2265,19 +2376,9 @@ def phase_train(torch, ops, profile: bool):
     # the same run on the CPU: plain versions, same params and batches
     cpu = lenet_run(torch, "cpu", init, max_epoch(EPOCHS))
     cpu.optimize()
-    want_l = np.asarray([l for _, l in cpu.loss_log])
-    got_l = np.asarray(losses)
-    rel = float(np.max(np.abs(got_l - want_l) / np.abs(want_l)))
-    p_err = max(float((a.detach().cpu() - b.detach()).abs().max())
-                for a, b in zip(opt.model.parameters(),
-                                cpu.model.parameters()))
-    print(f"train vs CPU: {len(want_l)} flushed losses, largest relative "
-          f"difference {rel:.3e} (limit {LOSS_RTOL}); final params, largest "
-          f"absolute difference {p_err:.3e} (limit {PARAM_ATOL}); Top1 "
-          f"card {[v for _, _, v in opt.validation_log]} CPU "
-          f"{[v for _, _, v in cpu.validation_log]}")
-    if len(want_l) != len(got_l) or rel > LOSS_RTOL or p_err > PARAM_ATOL:
-        raise AssertionError("the card's training left the CPU's")
+    print(f"train vs CPU: Top1 card {[v for _, _, v in opt.validation_log]} "
+          f"CPU {[v for _, _, v in cpu.validation_log]}")
+    held_to_cpu_run(torch, "train", opt, cpu)
     if profile:
         busy_ms = profile_train(torch, lambda end: lenet_run(
             torch, "cuda", init, end, validate=False), 16)
@@ -2319,7 +2420,23 @@ def profile_train(torch, make_opt, n):
     for e in rows[:12] + own:
         print(f"profile:   {e.device_time_total / n:9.2f} us/step "
               f"{e.count / n:5.1f}/step  {e.key[:80]}")
+    bn = [e for e in rows if is_bn_kernel(e.key)]
+    if bn:
+        bn_ms = sum(e.device_time_total for e in bn) / 1e3
+        print(f"profile: batch-norm kernels {bn_ms / n:.4f} ms/step, "
+              f"{sum(e.count for e in bn) / n:.1f} launches/step, "
+              f"{bn_ms / busy:.4f} of device time; by name "
+              + ", ".join(f"{e.key[:60]} {e.device_time_total / n:.2f} "
+                          f"us/step" for e in bn[:6]))
     return busy / n
+
+
+def is_bn_kernel(name):
+    """Whether the profiler's kernel ``name`` is one of batch
+    normalisation's (cuDNN's ``bn_fw_*`` / ``bn_bw_*`` or ATen's
+    ``batch_norm_*``)."""
+    low = name.lower()
+    return any(part in low for part in BN_KERNEL_PARTS)
 
 
 def inception_images(n, size, seed):
@@ -2342,7 +2459,7 @@ def inception_run(torch, device, init_tree, images, batch, end_trigger,
     from bigdl_tpu_torch.dataset import (DataSet, HFlip, ImgNormalizer,
                                          ImgRdmCropper, ImgToBatch)
     from bigdl_tpu_torch.models.inception import Inception_v1
-    from bigdl_tpu_torch.nn import ClassNLLCriterion, Dropout
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
     from bigdl_tpu_torch.optim import (Optimizer, Poly, Top1Accuracy,
                                        Top5Accuracy, several_iteration)
     from bigdl_tpu_torch.utils.table import T
@@ -2352,9 +2469,7 @@ def inception_run(torch, device, init_tree, images, batch, end_trigger,
              >> norm >> ImgToBatch(batch))
     model = Inception_v1(ICLASSES, device=device).load_params(init_tree)
     if dropout is not None:
-        for m in model.modules():
-            if isinstance(m, Dropout):
-                m.set_p(dropout)
+        set_dropout(model, dropout)
     opt = Optimizer(model, train, ClassNLLCriterion(), state=T(
         learningRate=ILR, weightDecay=IWD, momentum=0.9, dampening=0.0,
         learningRateSchedule=Poly(0.5, ISTEPS)), end_trigger=end_trigger,
@@ -2445,11 +2560,7 @@ def phase_inception(torch, ops, profile: bool):
         print(f"profile: device idle share of the unprofiled Inception "
               f"train step {1 - busy_ms / step_ms:.4f} ({busy_ms:.4f} of "
               f"{step_ms:.4f} ms/step busy)")
-    if (abs(diff["loss"][0] - diff["loss"][1]) > LOSS_RTOL * diff["loss"][1]
-            or diff["card_vs_64"] > IGRAD_VS_CPU64 * diff["cpu_vs_64_max"]
-            or diff["loss_rel"] > LOSS_RTOL
-            or diff["param_abs"] > IPARAM_ATOL):
-        raise AssertionError("the card's Inception training left the CPU's")
+    held_vs_cpu("Inception", diff, IPARAM_ATOL)
     return counts
 
 
@@ -2571,7 +2682,7 @@ def phase_bilstm(torch, ops, profile: bool):
         print(f"profile: device idle share of the unprofiled Bi-LSTM train "
               f"step {1 - busy_ms / step_ms:.4f} ({busy_ms:.4f} of "
               f"{step_ms:.4f} ms/step busy)")
-    held_to_cpu("Bi-LSTM", diff)
+    held_vs_cpu("Bi-LSTM", diff)
     return counts
 
 
@@ -2734,7 +2845,7 @@ def phase_simple_rnn(torch, ops, profile: bool):
         print(f"profile: device idle share of the unprofiled SimpleRNN "
               f"train step {1 - busy_ms / step_ms:.4f} ({busy_ms:.4f} of "
               f"{step_ms:.4f} ms/step busy)")
-    held_to_cpu("SimpleRNN", diff)
+    held_vs_cpu("SimpleRNN", diff)
     return {"simple_rnn": counts, f"simple_rnn_bptt{RSEQ}": counts8,
             "generate": counts_g}
 
@@ -2814,7 +2925,7 @@ def phase_gru(torch, ops, profile: bool):
         print(f"profile: device idle share of the unprofiled GRU train "
               f"step {1 - busy_ms / step_ms:.4f} ({busy_ms:.4f} of "
               f"{step_ms:.4f} ms/step busy)")
-    held_to_cpu("GRU", diff)
+    held_vs_cpu("GRU", diff)
     return counts, {"step_ms": step_ms,
                     "tokens_s": steps * TBATCH * TSEQ / loop_s}
 
@@ -2892,7 +3003,7 @@ def phase_lstm(torch, ops, profile: bool):
         print(f"profile: device idle share of the unprofiled LSTM train "
               f"step {1 - busy_ms / step_ms:.4f} ({busy_ms:.4f} of "
               f"{step_ms:.4f} ms/step busy)")
-    held_to_cpu("LSTM", diff)
+    held_vs_cpu("LSTM", diff)
     return counts, {"step_ms": step_ms,
                     "tokens_s": steps * TBATCH * TSEQ / loop_s}
 
@@ -2962,7 +3073,7 @@ def truncated_classifier(torch, ops, profile, label, build, per_step,
         print(f"profile: device idle share of the unprofiled truncated "
               f"{label} train step {1 - busy_ms / step_ms:.4f} "
               f"({busy_ms:.4f} of {step_ms:.4f} ms/step busy)")
-    held_to_cpu(f"truncated {label}", diff)
+    held_vs_cpu(f"truncated {label}", diff)
     return counts
 
 
@@ -3040,7 +3151,7 @@ def phase_truncation(torch, ops, profile, figures):
         diff = card_vs_cpu(torch, init, lambda device: make(
             device, max_iteration(RCHECK_STEPS)))
         print_vs_cpu(f"simple_rnn {act.__name__}", RBATCH, diff, PARAM_ATOL)
-        held_to_cpu(f"SimpleRNN {act.__name__}", diff)
+        held_vs_cpu(f"SimpleRNN {act.__name__}", diff)
         out[f"simple_rnn_{act.__name__.lower()}"] = counts
 
     # (d) what no kernel runs: a row-wise activation, a cell subclass
@@ -3062,17 +3173,35 @@ def phase_truncation(torch, ops, profile, figures):
     return out
 
 
-def held_to_cpu(label, diff):
-    """A recurrence path's card-vs-CPU gate: the first batch's loss and
-    the steps' losses within LOSS_RTOL, the final params within
-    PARAM_ATOL, the gradients within the backward tolerance or no further
-    from float64 than BILSTM_VS_64 times the CPU's own fp32 error."""
-    grads_ok = (diff["grad_rel"] <= BILSTM_BWD_TOL["rtol"]
-                or diff["card_vs_64"] <= BILSTM_VS_64 * diff["cpu_vs_64_max"])
-    if (abs(diff["loss"][0] - diff["loss"][1]) > LOSS_RTOL * diff["loss"][1]
-            or not grads_ok or diff["loss_rel"] > LOSS_RTOL
-            or diff["param_abs"] > PARAM_ATOL):
-        raise AssertionError(f"the card's {label} training left the CPU's")
+def held_vs_cpu(label, diff, param_limit=PARAM_ATOL, scope="leaf"):
+    """Every path's card-vs-CPU gate over ``card_vs_cpu``'s differences:
+    the first batch's loss (and its outputs, where given) and the steps'
+    losses within LOSS_RTOL (RTOL) of the CPU's; the gradients within the
+    backward tolerance of the CPU's or of float64, or no further from
+    float64 than BILSTM_VS_64 times the CPU's own fp32 run, each leaf over
+    its largest entry (``scope`` "leaf") or over the whole model
+    ("model", ``norm_rel``); the final parameters within
+    ``param_limit``; each running statistic within STATE_RTOL of its
+    buffer's largest entry."""
+    if scope == "leaf":
+        vs_cpu, vs_64, cpu_64 = (diff["grad_rel"], diff["card_vs_64"],
+                                 diff["cpu_vs_64_max"])
+    else:
+        vs_cpu, vs_64, cpu_64 = (diff["grad_norm_rel"], diff["card_norm_64"],
+                                 diff["cpu_norm_64"])
+    rtol = BILSTM_BWD_TOL["rtol"]
+    grads_ok = vs_cpu <= rtol or vs_64 <= max(rtol, BILSTM_VS_64 * cpu_64)
+    card, cpu = diff["loss"]
+    failed = [part for part, bad in (
+        ("first loss", abs(card - cpu) > LOSS_RTOL * abs(cpu)),
+        ("gradients", not grads_ok),
+        ("outputs", diff.get("out_rel", 0.0) > RTOL),
+        ("losses", diff["loss_rel"] > LOSS_RTOL),
+        ("params", diff["param_abs"] > param_limit),
+        ("running statistics", diff["state_rel"] > STATE_RTOL)) if bad]
+    if failed:
+        raise AssertionError(f"the card's {label} training left the CPU's: "
+                             f"{', '.join(failed)}")
 
 
 def print_vs_cpu(label, batch, diff, param_limit):
@@ -3087,54 +3216,259 @@ def print_vs_cpu(label, batch, diff, param_limit):
           f"largest relative difference {diff['loss_rel']:.3e} (limit "
           f"{LOSS_RTOL}); final params, largest absolute difference "
           f"{diff['param_abs']:.3e} ({diff['param_leaf']}, whose largest "
-          f"update is {diff['param_step']:.3e}; limit {param_limit}); CPU "
-          f"{diff['cpu_s']:.2f} s")
+          f"update is {diff['param_step']:.3e}; limit {param_limit}); "
+          + (f"running statistics ({diff['n_state']} values), largest "
+             f"|card - CPU| / max|CPU| of a buffer {diff['state_rel']:.3e} "
+             f"({diff['state_leaf']}; limit {STATE_RTOL}); "
+             if diff["n_state"] else "")
+          + f"the whole gradient: card - CPU {diff['grad_norm_rel']:.3e}, "
+          + "from float64"
+          + (" (each under its own routing)" if "flips" in diff else "")
+          + f" card {diff['card_norm_64']:.3e} CPU "
+          f"{diff['cpu_norm_64']:.3e}; "
+          + (f"float64 without the fp32 runs' routing: card "
+             f"{diff['card_norm_64_free']:.3e} CPU "
+             f"{diff['cpu_norm_64_free']:.3e} ({diff['flips']}); the "
+             f"CPU's steps took the card's routing ({diff['steps_differ'][0]} "
+             f"of its own {diff['steps_differ'][1]} choices differed); "
+             if "flips" in diff else "")
+          + (f"{diff['n_null']} gradient leaves zero in float64 (biases "
+             f"under BN) taken over the largest gradient entry; "
+             if diff["n_null"] else "")
+          + f"CPU {diff['cpu_s']:.2f} s")
 
 
-def card_vs_cpu(torch, init, make_run):
+def leaf_rel(a, b, scale=None):
+    """The largest |a - b| of a leaf over b's largest entry (or over
+    ``scale``)."""
+    return float((a.double() - b).abs().max()
+                 / (b.abs().max().clamp_min(1e-30) if scale is None
+                    else scale))
+
+
+def norm_rel(card, cpu, card_64, cpu_64):
+    """Whole-model relative errors of gradient lists, ||a - b|| / ||b||
+    over every leaf at once: the card against the CPU, and each against
+    its float64 reference.  Under batch normalisation many leaves are
+    sums that mostly cancel (a BN bias), and a leaf's error over its own
+    largest entry then measures the cancellation, not the arithmetic."""
+    return {"grad_norm_rel": model_rel(card, cpu),
+            "card_norm_64": model_rel(card, card_64),
+            "cpu_norm_64": model_rel(cpu, cpu_64)}
+
+
+def model_rel(a, b):
+    """||a - b|| / ||b|| over every leaf of two tensor lists at once."""
+    num = sum(float((u.double() - v.double()).pow(2).sum())
+              for u, v in zip(a, b))
+    den = sum(float(v.double().pow(2).sum()) for v in b)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def null_scales(grads_64):
+    """For each float64 gradient leaf, None, or the model's largest
+    gradient entry where the leaf is zero in float64 (a bias under batch
+    normalisation, which the batch mean cancels): such a leaf holds only
+    rounding noise, so its errors are taken over that scale."""
+    gmax = max(float(g.abs().max()) for g in grads_64)
+    return [gmax if float(g.abs().max()) <= NULL_GRAD * gmax else None
+            for g in grads_64]
+
+
+class Routes:
+    """Forward hooks on a model's ReLUs and max pools, and on its LRNs for
+    their geometry.  Recording (``replay`` None), each call leaves, in
+    call order, its routing: a ReLU's mask x > 0, a max pool's first-max
+    input index for every output (the plain version's rule, which the
+    kernels keep); and each pool's and LRN's geometry (``pools``, ``s1``,
+    ``lrn``), alone with ``geometry_only``.  Replaying another record on
+    a float64 copy of the model (or on the CPU's fp32 run), each ReLU
+    gives its input times the recorded mask and each max pool its input
+    gathered at the recorded indices: the gradient then flows where the
+    recording run's did, and the two differ by their arithmetic alone,
+    not by which of two values a rounding apart won; ``differ`` counts
+    the replayed choices the run would have made otherwise, of
+    ``choices``."""
+
+    def __init__(self, torch, model, replay=None, geometry_only=False):
+        from bigdl_tpu_torch import ops
+        from bigdl_tpu_torch.nn import (ReLU, SpatialCrossMapLRN,
+                                        SpatialMaxPooling)
+
+        self.torch, self.ops, self.geometry_only = torch, ops, geometry_only
+        self.route, self.pools, self.s1, self.lrn = [], set(), set(), set()
+        self.replay = None if replay is None else iter(replay.route)
+        self.differ = self.choices = 0
+        hook = {ReLU: self._relu, SpatialMaxPooling: self._pool,
+                SpatialCrossMapLRN: self._lrn}
+        self.handles = [m.register_forward_hook(hook[type(m)])
+                        for m in model.modules() if type(m) in hook]
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, kind, *_):
+        for h in self.handles:
+            h.remove()
+        if (kind is None and self.replay is not None
+                and next(self.replay, None) is not None):
+            raise AssertionError("the replay routed fewer calls than its "
+                                 "record")
+
+    def _relu(self, m, args, out):
+        x = args[0]
+        if self.replay is not None:
+            mask = next(self.replay).to(x.device)
+            self._count(x > 0, mask)
+            return x * mask.to(x.dtype)
+        if not self.geometry_only:
+            self.route.append((x > 0).cpu())
+        return None
+
+    def _count(self, own, replayed):
+        self.differ += int((own != replayed).sum())
+        self.choices += replayed.numel()
+
+    def _pool(self, m, args, out):
+        from bigdl_tpu_torch.nn.pooling import _pads
+
+        torch = self.torch
+        x = args[0] if args[0].dim() == 4 else args[0][None]
+        win, st = (m.kh, m.kw), (m.dh, m.dw)
+        pads = _pads(m, x.shape[2:])
+        if self.replay is not None:
+            idx = next(self.replay).to(x.device)
+            self._count(self._first_max(x, win, st, pads), idx)
+            y = x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+            return y if args[0].dim() == 4 else y[0]
+        if st == (1, 1):
+            self.s1.add((tuple(x.shape), win, pads))
+        else:
+            self.pools.add((tuple(x.shape), win, st, pads))
+        if not self.geometry_only:
+            self.route.append(self._first_max(x, win, st, pads).cpu())
+        return None
+
+    def _first_max(self, x, win, st, pads):
+        """Each output's first-max input index into an (H * W) plane."""
+        torch = self.torch
+        with torch.no_grad():
+            _, arg = self.ops.maxpool2d_forward_reference(x, win, st, pads)
+            arg = arg.long()
+            oh, ow = arg.shape[2:]
+            rows = (torch.arange(oh, device=x.device)[:, None] * st[0]
+                    - pads[0][0] + arg // win[1])
+            cols = (torch.arange(ow, device=x.device) * st[1] - pads[1][0]
+                    + arg % win[1])
+            return rows * x.shape[3] + cols
+
+    def _lrn(self, m, args, out):
+        x = args[0] if args[0].dim() == 4 else args[0][None]
+        self.lrn.add((tuple(x.shape), (m.size, m.alpha, m.beta, m.k)))
+        return None
+
+    def flips(self, other):
+        """How many ReLU masks and pool indices differ from ``other``'s."""
+        n = sum(int((a != b).sum()) for a, b in zip(self.route, other.route))
+        return (f"{n} of {sum(a.numel() for a in self.route)} routing "
+                f"choices differ from the CPU's")
+
+    def route_equal(self, other):
+        return len(self.route) == len(other.route) and all(
+            self.torch.equal(a, b) for a, b in zip(self.route, other.route))
+
+
+def held_standalone(label, seen):
+    """Every pool and LRN geometry that ``seen`` (a recording ``Routes``)
+    met is one the kernel phases hold against the plain version."""
+    missing = ((seen.pools - {tuple(c) for c in POOL_CASES + INCEPTION_POOLS
+                              + BN_POOLS})
+               | (seen.s1 - {tuple(c) for c in S1_CASES})
+               | (seen.lrn - {tuple(c) for c in LRN_CASES}))
+    if missing:
+        raise AssertionError(f"{label}: kernel geometries no standalone "
+                             f"check holds: {sorted(missing)}")
+
+
+def card_vs_cpu(torch, init, make_run, make_probe=None, routed=False):
     """The card against the CPU (plain versions) from the same parameters
     ``init`` on the same batches: the first batch's loss (under the run's
-    criterion) and gradients, then the optimizer's steps' losses and final
-    parameters.
+    criterion) and gradients, then the optimizer's steps' losses, final
+    parameters and running statistics.
     ``make_run(device)`` builds the optimizer of a few steps on
-    ``device`` (Inception: dropout off, since the two draw different
-    masks)."""
+    ``device`` (dropout off, since the two draw different masks).
+    ``make_probe(device)``, when given, builds the run whose first batch
+    the gradients are taken on (and in float64), apart from the run that
+    takes the steps.  Each fp32 run's gradients are held against float64
+    on the CPU.  With ``routed`` (``Routes``), each against a float64
+    run that takes that fp32 run's own routing, the free float64 run's
+    distances kept beside them (``*_free``); and the CPU's steps take
+    the card's steps' routing, so that the two trajectories part by
+    their arithmetic, not by a near-tie that one rounding flips
+    (``steps_differ``: the CPU's own choices that differed)."""
+    from bigdl_tpu_torch.nn.module import export_state
     from bigdl_tpu_torch.optim.local_optimizer import to_device
 
     names = [".".join(k) for k in _paths(init)]
-    out = {}
+    make_probe = make_probe or make_run
+    out, routes = {}, {}
     for device in ("cuda", "cpu"):
-        run = make_run(device)
-        batch = next(run.dataset.data(train=True))
+        probe = make_probe(device)
+        batch = next(probe.dataset.data(train=True))
         dev = torch.device(device)
-        run.model.train()
-        loss = run.criterion(run.model(to_device(batch.data, dev)),
-                             to_device(batch.labels, dev))
+        probe.model.train()
+        # the probe's forward moves the running statistics: put them back
+        state0 = export_state(probe.model)
+        with (Routes(torch, probe.model) if routed
+              else contextlib.nullcontext()) as routes[device]:
+            loss = probe.criterion(probe.model(to_device(batch.data, dev)),
+                                   to_device(batch.labels, dev))
         loss.backward()
-        grads = [p.grad.detach().cpu() for p in run.model.parameters()]
-        run.model.zero_grad(set_to_none=True)
+        grads = [p.grad.detach().cpu() for p in probe.model.parameters()]
+        probe.model.zero_grad(set_to_none=True)
+        probe.model.load_state(state0)
+        run = probe if make_probe is make_run else make_run(device)
         t1 = time.perf_counter()
-        run.optimize()
+        with (Routes(torch, run.model, replay=routes.get("steps"))
+              if routed else contextlib.nullcontext()) as steps:
+            run.optimize()
+        routes.setdefault("steps", steps)
         out[device] = (float(loss.detach()), grads, run,
                        time.perf_counter() - t1)
     (loss_g, grad_g, card, _), (loss_c, grad_c, cpu, cpu_s) = (
         out["cuda"], out["cpu"])
-    # the same first batch on the CPU in float64: how far each fp32 run's
-    # gradients lie from it, leaf by leaf, over the leaf's largest entry
-    ref = make_run("cpu")
-    batch = next(ref.dataset.data(train=True))
-    ref.model.double().train()
-    ref.criterion(ref.model(torch.from_numpy(batch.data).double()),
-                  torch.from_numpy(batch.labels)).backward()
-    grad_64 = [p.grad for p in ref.model.parameters()]
 
-    def rel(a, b):
-        return float((a.double() - b).abs().max()
-                     / b.abs().max().clamp_min(1e-30))
+    def grads_64(route=None):
+        """The same first batch on the CPU in float64, routed as
+        ``route`` was when given."""
+        ref = make_probe("cpu")
+        batch = next(ref.dataset.data(train=True))
+        ref.model.double().train()
+        with (Routes(torch, ref.model, replay=route) if route
+              else contextlib.nullcontext()):
+            loss = ref.criterion(
+                ref.model(torch.from_numpy(batch.data).double()),
+                torch.from_numpy(batch.labels))
+        loss.backward()
+        return [p.grad for p in ref.model.parameters()]
 
-    g_rel = [rel(a, b.double()) for a, b in zip(grad_g, grad_c)]
-    e_card = [rel(a, b) for a, b in zip(grad_g, grad_64)]
-    e_cpu = [rel(a, b) for a, b in zip(grad_c, grad_64)]
+    grad_64 = grads_64()
+    card_64, cpu_64 = ((grads_64(routes["cuda"]), grads_64(routes["cpu"]))
+                       if routed else (grad_64, grad_64))
+    # each leaf over its largest entry (a leaf zero in float64 over the
+    # model's largest gradient entry)
+    rel = leaf_rel
+    scale = null_scales(grad_64)
+    g_rel = [rel(a, b.double(), s)
+             for a, b, s in zip(grad_g, grad_c, scale)]
+    norm = norm_rel(grad_g, grad_c, card_64, cpu_64)
+    if routed:
+        norm |= {"card_norm_64_free": model_rel(grad_g, grad_64),
+                 "cpu_norm_64_free": model_rel(grad_c, grad_64),
+                 "flips": routes["cuda"].flips(routes["cpu"]),
+                 "steps_differ": (steps.differ, steps.choices)}
+    e_card = [rel(a, b, s) for a, b, s in zip(grad_g, card_64, scale)]
+    e_cpu = [rel(a, b, s) for a, b, s in zip(grad_c, cpu_64, scale)]
     init_leaves = [torch.from_numpy(v) for v in _leaves(init)]
     p_abs, p_step = [], []
     for a, b, p0 in zip(card.model.parameters(), cpu.model.parameters(),
@@ -3145,7 +3479,16 @@ def card_vs_cpu(torch, init, make_run):
     want_l = np.asarray([l for _, l in cpu.loss_log])
     gi, pi = int(np.argmax(g_rel)), int(np.argmax(p_abs))
     ei = int(np.argmax(e_card))
+    # the running statistics, each buffer over its largest entry
+    s_names = [n for n, _ in cpu.model.named_buffers()]
+    s_rel = [rel(a.detach().cpu(), b.double())
+             for a, b in zip(card.model.buffers(), cpu.model.buffers())]
+    si = int(np.argmax(s_rel)) if s_rel else None
     return {"loss": (float(loss_g), float(loss_c)),
+            "state_rel": s_rel[si] if s_rel else 0.0,
+            "state_leaf": s_names[si] if s_rel else None,
+            "n_state": sum(b.numel() for b in cpu.model.buffers()),
+            "n_null": sum(s is not None for s in scale),
             "grad_rel": g_rel[gi], "grad_leaf": names[gi],
             "card_vs_64": e_card[ei], "cpu_vs_64": e_cpu[ei],
             "leaf_64": names[ei], "cpu_vs_64_max": max(e_cpu),
@@ -3154,7 +3497,7 @@ def card_vs_cpu(torch, init, make_run):
                                      / np.abs(want_l))),
             "param_abs": p_abs[pi], "param_leaf": names[pi],
             "param_step": p_step[pi],
-            "cpu_s": cpu_s}
+            "cpu_s": cpu_s, **norm}
 
 
 def _leaves(tree):
@@ -3913,7 +4256,717 @@ def phase_harness(torch, ops):
     return by_path, ran
 
 
+def with_init(model, init, dropout=None):
+    """``model`` with the parameters and running state of ``init`` (``{
+    'params': tree, 'state': tree}``), each ``Dropout``'s p set to
+    ``dropout`` when given."""
+    model.load_params(init["params"]).load_state(init["state"])
+    return model if dropout is None else set_dropout(model, dropout)
+
+
+def set_dropout(model, p):
+    from bigdl_tpu_torch.nn import Dropout
+
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.set_p(p)
+    return model
+
+
+def init_of(model):
+    from bigdl_tpu_torch.nn.module import export_params, export_state
+
+    return {"params": export_params(model), "state": export_state(model)}
+
+
+def ungated(init, seed=0):
+    """``init`` with every all-zero BN weight drawn U(0, 1): with ResNet's
+    zeroed final BN weights the first batch's branch gradients are
+    exactly zero, and a gradient check would hold nothing there."""
+    rs = np.random.RandomState(seed)
+
+    def fill(tree):
+        out = {}
+        for k, sub in tree.items():
+            if k != "~":
+                out[k] = fill(sub)
+                continue
+            out[k] = {n: (rs.uniform(0, 1, v.shape).astype(np.float32)
+                          if n == "weight" and v.ndim == 1 and not v.any()
+                          else v) for n, v in sub.items()}
+        return out
+    return {"params": fill(init["params"]), "state": init["state"]}
+
+
+def state_moved(torch, model, init):
+    """The largest change of a running statistic from ``init``'s."""
+    from bigdl_tpu_torch.nn.module import export_state
+
+    return max(float(np.abs(a - b).max()) for a, b in zip(
+        _leaves(export_state(model)), _leaves(init["state"])))
+
+
+def vgg_run(torch, device, init, images, batch, end_trigger,
+            val_images=None, dropout=None):
+    """examples/train_vgg.py:51-74 from ``init``: the images normalised,
+    padded by 4 and cropped back to 32 at random, flipped; SGD with lr
+    0.01, momentum 0.9 and weight decay 5e-4; Top1 after VSTEPS
+    iterations when ``val_images`` are given.  An optimizer ready to
+    run."""
+    from bigdl_tpu_torch.dataset import (DataSet, HFlip, ImgNormalizer,
+                                         ImgRdmCropper, ImgToBatch, cifar)
+    from bigdl_tpu_torch.models.vgg import VggForCifar10
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import (Optimizer, Top1Accuracy,
+                                       several_iteration)
+    from bigdl_tpu_torch.utils.table import T
+
+    norm = ImgNormalizer(cifar.TRAIN_MEAN, cifar.TRAIN_STD)
+    train = (DataSet.array(images) >> norm >> ImgRdmCropper(32, 32, padding=4)
+             >> HFlip() >> ImgToBatch(batch))
+    model = with_init(VggForCifar10(10, device=device), init, dropout)
+    opt = Optimizer(model, train, ClassNLLCriterion(), state=T(
+        learningRate=VLR, momentum=0.9, weightDecay=VWD),
+        end_trigger=end_trigger, device=device)
+    if val_images is not None:
+        val = DataSet.array(val_images) >> norm >> ImgToBatch(batch)
+        opt.set_validation(several_iteration(VSTEPS), val, [Top1Accuracy()])
+    return opt
+
+
+def train_line(torch, label, opt, wall, batch, n_params, counts):
+    """The path's line: ms a step and images/s without validation, the
+    host share, memory, launches, losses; returns ms a step."""
+    steps = int(opt.state["neval"]) - 1
+    val = opt.metrics.get("validate")
+    val_s = val[0] if val else 0.0
+    step_ms = (wall - val_s) / steps * 1e3
+    fetch_s, fetches = opt.metrics.get("data fetch time")
+    losses = [l for _, l in opt.loss_log]
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"{label} losses: {losses}")
+    top1 = " ".join(f"Top1 {v['Top1Accuracy']:.4f}"
+                    for _, _, v in opt.validation_log)
+    print(f"{label}: {n_params} params, {steps} steps of {batch}; wall "
+          f"{wall:.4f} s, {step_ms:.4f} ms/step and "
+          f"{steps * batch / (wall - val_s):.1f} images/s (validation "
+          f"{val_s:.4f} s excluded); host: dataset iterator and H2D copy "
+          f"{fetch_s / fetches * 1e3:.4f} ms/batch ({fetch_s / (wall - val_s):.4f} "
+          f"of the loop); max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B; launches "
+          f"{ops_nonzero(counts)}; losses {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f} {top1}")
+    return step_ms
+
+
+def timed_path(torch, ops, opt):
+    """``opt.optimize()`` from zero counts and peak memory: (counts, wall
+    seconds)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, counts, wall = run_path(torch, ops, opt.optimize)
+    return counts, wall
+
+
+def phase_vgg(torch, ops, profile: bool):
+    """VGG on CIFAR-10 (``VggForCifar10``, 14,991,946 parameters, 9,472
+    running-statistic values) trains VSTEPS steps at full width through
+    ``Optimizer(...).optimize()`` as examples/train_vgg.py sets it up and
+    validates Top1 once; every step and validation batch takes its five
+    pools through ``maxpool2d``, every update ``fused_sgd``; two steps
+    at batch 16, dropout off, equal the CPU's, the running statistics
+    included."""
+    from bigdl_tpu_torch.dataset import cifar
+    from bigdl_tpu_torch.models.vgg import VggForCifar10
+    from bigdl_tpu_torch.optim import max_iteration
+    from bigdl_tpu_torch.utils.random import RNG, generator
+
+    init = init_of(VggForCifar10(10, device="cpu", generator=generator(0)))
+    n_params = sum(v.size for v in _leaves(init["params"]))
+    n_state = sum(v.size for v in _leaves(init["state"]))
+    if (n_params, n_state) != (VPARAMS, VSTATE):
+        raise AssertionError(f"VggForCifar10 has {n_params} parameters and "
+                             f"{n_state} state values")
+    images, val = cifar.synthetic(VTRAIN), cifar.synthetic(VVAL, seed=1)
+    RNG.set_seed(0)   # the dropout masks
+    # warm-up: cuDNN's algorithm choice, allocator, kernel library loads;
+    # its pools' geometries are ones the kernel phase holds
+    warm = vgg_run(torch, "cuda", init, images, VBATCH, max_iteration(2))
+    with Routes(torch, warm.model, geometry_only=True) as seen:
+        warm.optimize()
+    held_standalone("vgg", seen)
+    opt = vgg_run(torch, "cuda", init, images, VBATCH, max_iteration(VSTEPS),
+                  val)
+    counts, wall = timed_path(torch, ops, opt)
+    steps = int(opt.state["neval"]) - 1
+    val_batches = len(opt.validation_log) * -(-VVAL // VBATCH)
+    want = {**dict.fromkeys(counts, 0), "fused_sgd": steps,
+            "maxpool2d_forward": 5 * steps + 5 * val_batches,
+            "maxpool2d_backward": 5 * steps}
+    if steps != VSTEPS or val_batches != 4 or counts != want:
+        raise AssertionError(f"VGG launches {counts} after {steps} steps "
+                             f"and {val_batches} validation batches, "
+                             f"expected {want}")
+    moved = state_moved(torch, opt.model, init)
+    step_ms = train_line(torch, f"vgg: VggForCifar10, {n_state} running-"
+                         f"statistic values (moved up to {moved:.4f}), "
+                         f"{val_batches} validation batches", opt, wall,
+                         VBATCH, n_params, counts)
+    if not moved > 0:
+        raise AssertionError("VGG: the running statistics did not move")
+    check = cifar.synthetic(VCHECK_BATCH * VCHECK_STEPS, seed=2)
+    diff = card_vs_cpu(torch, init["params"], lambda device: vgg_run(
+        torch, device, init, check, VCHECK_BATCH,
+        max_iteration(VCHECK_STEPS), dropout=0.0), routed=True)
+    print_vs_cpu("vgg", VCHECK_BATCH, diff, PARAM_ATOL)
+    if profile:
+        busy = profile_train(torch, lambda end: vgg_run(
+            torch, "cuda", init, images, VBATCH, end), 8)
+        print(f"profile: device idle share of the unprofiled VGG train "
+              f"step {1 - busy / step_ms:.4f} ({busy:.4f} of {step_ms:.4f} "
+              f"ms/step busy)")
+    held_vs_cpu("vgg", diff, PARAM_ATOL, scope="model")
+    return counts
+
+
+def snapshot_line(torch, model, step_ms):
+    """The time of one step's buffer snapshot (``LocalOptimizer`` saves
+    the running statistics before a step and puts them back after a
+    non-finite one): a save and a restore, on ``model``'s buffers, one
+    at a time and queued back to back (the device's time where it
+    outlasts the host's launches)."""
+    from bigdl_tpu_torch.optim.local_optimizer import _BufferSnapshot
+
+    kept = _BufferSnapshot(model)
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    flush = torch.empty(64 * 2**20, device="cuda")   # 256 MB > 50 MB L2
+    def step():
+        kept.save()
+        kept.restore_unless(finite)
+
+    ms, queued = time_ms(torch, step, flush), time_queued_ms(torch, step)
+    bufs = list(model.buffers())
+    print(f"buffer snapshot: {len(bufs)} buffers, "
+          f"{sum(b.numel() for b in bufs)} values, save and restore "
+          f"{ms:.5f} ms a step, L2 flushed ({ms / step_ms:.5f} of the "
+          f"step; the host's launches included), {queued:.5f} ms queued "
+          f"back to back")
+
+
+def resnet50_images(n, seed):
+    """examples/train_resnet50_imagenet.py:55-58 (``--synthetic``): ``n``
+    RGB images of 224 x 224, uniform [0, 255), labels 1..1000."""
+    from bigdl_tpu_torch.dataset import LabeledImage
+
+    rng = np.random.RandomState(seed)
+    return [LabeledImage(rng.uniform(0, 255, (224, 224, 3)),
+                         rng.randint(1, ICLASSES + 1)) for _ in range(n)]
+
+
+def resnet50_run(torch, device, init, images, batch, end_trigger,
+                 lr=R50_LR):
+    """examples/train_resnet50_imagenet.py:57-84 (``--synthetic``) from
+    ``init``: flips and the mean/std normalisation over ``images``
+    (``DataSet.array`` without ``distributed=``), SGD with lr 0.1, weight
+    decay 1e-4, momentum 0.9, dampening 0, nesterov and EpochStep(30,
+    0.1) (``lr`` in place of 0.1 when given).  An optimizer ready to
+    run."""
+    from bigdl_tpu_torch.dataset import (DataSet, HFlip, ImgNormalizer,
+                                         ImgToBatch)
+    from bigdl_tpu_torch.models.resnet import ResNet
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import EpochStep, Optimizer
+    from bigdl_tpu_torch.utils.table import T
+
+    train = (DataSet.array(images) >> HFlip()
+             >> ImgNormalizer((123.0, 117.0, 104.0), (58.4, 57.1, 57.4))
+             >> ImgToBatch(batch))
+    model = with_init(ResNet(50, ICLASSES, device=device), init)
+    return Optimizer(model, train, ClassNLLCriterion(), state=T(
+        learningRate=lr, weightDecay=R50_WD, momentum=0.9,
+        dampening=0.0, nesterov=True,
+        learningRateSchedule=EpochStep(30, 0.1)),
+        end_trigger=end_trigger, device=device)
+
+
+def phase_resnet50(torch, ops, profile: bool):
+    """ResNet-50 (25,557,032 parameters, 53 BN layers) trains R50_STEPS
+    steps at full width, batch 256, through ``Optimizer(...).optimize()``
+    as examples/train_resnet50_imagenet.py --synthetic sets it up; every
+    step takes its stem pool through ``maxpool2d`` and its update through
+    ``fused_sgd``; R50_CHECK_STEPS steps at batch 8 and lr 0.01 equal the
+    CPU's, the running statistics included (the first batch's gradients
+    from an init that draws the zeroed BN weights U(0, 1)); the buffer
+    snapshot's time a step."""
+    from bigdl_tpu_torch.models.resnet import ResNet
+    from bigdl_tpu_torch.nn import SpatialBatchNormalization
+    from bigdl_tpu_torch.optim import max_iteration
+    from bigdl_tpu_torch.utils.random import generator
+
+    model = ResNet(50, ICLASSES, device="cpu", generator=generator(0))
+    init = init_of(model)
+    n_params = sum(v.size for v in _leaves(init["params"]))
+    n_bn = sum(isinstance(m, SpatialBatchNormalization)
+               for m in model.modules())
+    zeroed = sum(1 for m in model.modules()
+                 if isinstance(m, SpatialBatchNormalization)
+                 and not bool(m.weight.any()))
+    if (n_params, n_bn, zeroed) != (R50_PARAMS, 53, 16):
+        raise AssertionError(f"ResNet-50: {n_params} parameters, {n_bn} BN "
+                             f"layers, {zeroed} zeroed")
+    t0 = time.perf_counter()
+    images = resnet50_images(R50_IMAGES, 0)
+    make_s = time.perf_counter() - t0
+    # warm-up: cuDNN's algorithm choice, allocator, kernel library loads;
+    # its pools' geometries are ones the kernel phase holds
+    warm = resnet50_run(torch, "cuda", init, images, R50_BATCH,
+                        max_iteration(2))
+    with Routes(torch, warm.model, geometry_only=True) as seen:
+        warm.optimize()
+    held_standalone("resnet50", seen)
+    del warm
+    opt = resnet50_run(torch, "cuda", init, images, R50_BATCH,
+                       max_iteration(R50_STEPS))
+    counts, wall = timed_path(torch, ops, opt)
+    steps = int(opt.state["neval"]) - 1
+    want = {**dict.fromkeys(counts, 0), "fused_sgd": steps,
+            "maxpool2d_forward": steps, "maxpool2d_backward": steps}
+    if steps != R50_STEPS or counts != want:
+        raise AssertionError(f"ResNet-50 launches {counts} after {steps} "
+                             f"steps, expected {want}")
+    moved = state_moved(torch, opt.model, init)
+    step_ms = train_line(torch, f"resnet50: ResNet(50), {n_bn} BN layers "
+                         f"({zeroed} final weights zeroed; running "
+                         f"statistics moved up to {moved:.4f}), "
+                         f"{R50_IMAGES} synthetic images made in "
+                         f"{make_s:.2f} s", opt, wall, R50_BATCH, n_params,
+                         counts)
+    snapshot_line(torch, opt.model, step_ms)
+    # the steps from the model's own init; the first batch's gradients
+    # from it with the zeroed BN weights drawn U(0, 1) (at lr 0.1 and
+    # batch 8, steps from that init diverge: a rounding's perturbation
+    # of it ends 0.48 apart after two steps on the CPU)
+    check_init = ungated(init)
+    check = resnet50_images(R50_CHECK_BATCH * R50_CHECK_STEPS, 2)
+    diff = card_vs_cpu(
+        torch, init["params"], lambda device: resnet50_run(
+            torch, device, init, check, R50_CHECK_BATCH,
+            max_iteration(R50_CHECK_STEPS), R50_CHECK_LR),
+        make_probe=lambda device: resnet50_run(
+            torch, device, check_init, check, R50_CHECK_BATCH,
+            max_iteration(R50_CHECK_STEPS)), routed=True)
+    print_vs_cpu("resnet50", R50_CHECK_BATCH, diff, IPARAM_ATOL)
+    if profile:
+        busy = profile_train(torch, lambda end: resnet50_run(
+            torch, "cuda", init, images, R50_BATCH, end), 4)
+        print(f"profile: device idle share of the unprofiled ResNet-50 "
+              f"train step {1 - busy / step_ms:.4f} ({busy:.4f} of "
+              f"{step_ms:.4f} ms/step busy)")
+    held_vs_cpu("resnet50", diff, IPARAM_ATOL, scope="model")
+    return counts
+
+
+def bn_set(images, batch):
+    """examples/train_resnet.py's chain: normalised, padded by 4 and
+    cropped back to 32 at random, flipped, batched."""
+    from bigdl_tpu_torch.dataset import (DataSet, HFlip, ImgNormalizer,
+                                         ImgRdmCropper, ImgToBatch, cifar)
+
+    return (DataSet.array(images)
+            >> ImgNormalizer(cifar.TRAIN_MEAN, cifar.TRAIN_STD)
+            >> ImgRdmCropper(32, 32, padding=4) >> HFlip()
+            >> ImgToBatch(batch))
+
+
+def bn_run(torch, device, init, train, n=1, graph=True, end=None,
+           model=None):
+    """examples/train_resnet.py on the dataset ``train`` from ``init``:
+    ``ResNetCifar(20)``, SGD with lr 0.1, momentum 0.9, weight decay 1e-4,
+    dampening 0, nesterov and EpochStep(81, 0.1); n steps a dispatch (one
+    CUDA graph on the card unless ``graph`` is False); ``model`` (a
+    resumed one) instead of a new model from ``init``."""
+    from bigdl_tpu_torch.models.resnet import ResNetCifar
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import EpochStep, Optimizer
+    from bigdl_tpu_torch.utils.table import T
+
+    if model is None:
+        model = with_init(ResNetCifar(BN_DEPTH, 10, device=device), init)
+    opt = Optimizer(model, train, ClassNLLCriterion(), state=T(
+        learningRate=0.1, momentum=0.9, weightDecay=1e-4, dampening=0.0,
+        nesterov=True, learningRateSchedule=EpochStep(81, 0.1)),
+        end_trigger=end, device=device)
+    return graph_or_eager(opt, n, graph)
+
+
+def _run_state(torch, opt):
+    """Params, velocities and running statistics of a run, flat on the
+    host."""
+    vel = opt.opt_state["velocity"]
+    return [torch.cat([t.detach().float().cpu().reshape(-1) for t in ts])
+            for ts in (list(opt.model.parameters()), vel,
+                       list(opt.model.buffers()))]
+
+
+def phase_bn_harness(torch, ops):
+    """The harness with module state, ``ResNetCifar(20)`` at full width
+    (batch 128, examples/train_resnet.py's SGD): HSTEPS steps at
+    HDISPATCH a dispatch as one CUDA graph against the eager loop under
+    the deterministic algorithms, parameters, velocities and running
+    statistics bit-equal, the replays' kernels counted by the profiler,
+    beside one step a dispatch; a snapshot mid-run (every HCKPT_EVERY of
+    HCKPT_STEPS steps, one batch an epoch) resumes on the card and ends
+    where the uninterrupted run does, running statistics included.
+    Returns the wrappers' counts of each path and the kernels the graph's
+    replays ran."""
+    import tempfile
+
+    from bigdl_tpu_torch.dataset import cifar
+    from bigdl_tpu_torch.models.resnet import ResNetCifar
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.optim import (load_latest_checkpoint, max_iteration,
+                                       several_iteration)
+    from bigdl_tpu_torch.utils.random import generator
+
+    init = init_of(ResNetCifar(BN_DEPTH, 10, device="cpu",
+                               generator=generator(0)))
+    n_params = sum(v.size for v in _leaves(init["params"]))
+    if n_params != BN_PARAMS:
+        raise AssertionError(f"ResNetCifar(20) has {n_params} parameters")
+    images = cifar.synthetic(4 * BN_BATCH, seed=3)
+    runs = {}
+    with deterministic(torch):
+        for name, n, graph in (("n1", 1, True), ("eager", HDISPATCH, False),
+                               ("graph", HDISPATCH, True)):
+            opt = bn_run(torch, "cuda", init, bn_set(images, BN_BATCH), n,
+                         graph)
+            opt.set_end_when(max_iteration(HDISPATCH)).optimize()
+            opt.set_end_when(max_iteration(HDISPATCH + HSTEPS))
+            _, counts, wall = run_path(torch, ops, opt.optimize)
+            runs[name] = (opt, counts, wall)
+        eager, _, _ = runs["eager"]
+        graph, _, _ = runs["graph"]
+        same = [torch.equal(a, b) for a, b in zip(_run_state(torch, eager),
+                                                  _run_state(torch, graph))]
+        la = [l for _, l in eager.loss_log]
+        lb = [l for _, l in graph.loss_log]
+        if not all(same) or la != lb:
+            raise AssertionError(f"bn_harness: the graph is not bit-equal "
+                                 f"to the eager loop (params, velocities, "
+                                 f"running statistics: {same}; losses "
+                                 f"{la == lb})")
+        if (graph.captures, graph.replays) != (1, HSTEPS // HDISPATCH):
+            raise AssertionError(f"bn_harness: {graph.captures} captures, "
+                                 f"{graph.replays} replays")
+        ran = {}
+        for name, (opt, counts, wall) in runs.items():
+            per_run = HDISPATCH if opt is graph else HSTEPS
+            if counts != {**dict.fromkeys(counts, 0), "fused_sgd": per_run}:
+                raise AssertionError(f"bn_harness {name}: the wrappers "
+                                     f"counted {counts}")
+            busy, ran[name] = profiled_run(torch, opt, 2 * HDISPATCH)
+            step_ms = wall / HSTEPS * 1e3
+            print(f"bn_harness {name} (n={opt.iters_per_dispatch}): "
+                  f"{step_ms:.4f} ms/step, "
+                  f"{HSTEPS * BN_BATCH / wall:.1f} images/s, device "
+                  f"{busy:.4f} ms/step busy, idle share "
+                  f"{1 - busy / step_ms:.4f}; the wrappers counted "
+                  f"{ops_nonzero(counts)}; the profiler, "
+                  f"{2 * HDISPATCH} steps: {ran[name]}")
+            if ran[name] != {"fused_sgd": 2 * HDISPATCH}:
+                raise AssertionError(f"bn_harness {name}: the card ran "
+                                     f"{ran[name]}")
+    moved = state_moved(torch, graph.model, init)
+    print(f"bn_harness: ResNetCifar({BN_DEPTH}) {n_params} params, "
+          f"{sum(v.size for v in _leaves(init['state']))} running-statistic "
+          f"values (moved up to {moved:.4f}); {HSTEPS} steps at "
+          f"{HDISPATCH} a dispatch as one CUDA graph ({graph.replays} "
+          f"replays of one capture) bit-equal to the eager loop in params, "
+          f"velocities, running statistics and losses "
+          f"{lb[0]:.6f} -> {lb[-1]:.6f}")
+
+    # a snapshot mid-run: one batch an epoch, so each lands on a boundary
+    one = cifar.synthetic(BN_BATCH, seed=5)
+    with tempfile.TemporaryDirectory(dir=_build.build_dir()) as tmp, \
+            deterministic(torch):
+        opt_a = bn_run(torch, "cuda", init, bn_set(one, BN_BATCH),
+                       end=max_iteration(HCKPT_STEPS))
+        opt_a.set_checkpoint(tmp, several_iteration(HCKPT_EVERY))
+        _, ck_counts, _ = run_path(torch, ops, opt_a.optimize)
+        want = _run_state(torch, opt_a)
+        for k in range(2 * HCKPT_EVERY, HCKPT_STEPS + 1, HCKPT_EVERY):
+            with open(f"{tmp}/model.{k}", "wb") as f:
+                f.write(b"rot")
+        ds = bn_set(one, BN_BATCH)
+        module, blob, neval = load_latest_checkpoint(
+            tmp, restore_rng=True, device="cuda", dataset=ds)
+        resumed_state = state_moved(torch, module, init)
+        opt_b = bn_run(torch, "cuda", init, ds,
+                       end=max_iteration(HCKPT_STEPS), model=module)
+        opt_b.set_state(blob["state"]).set_optim_state(blob["opt_state"])
+        opt_b.optimize()
+        got = _run_state(torch, opt_b)
+    same = [torch.equal(a, b) for a, b in zip(got, want)]
+    if neval != HCKPT_EVERY or not all(same):
+        raise AssertionError(f"bn_harness checkpoint: resumed from {neval}; "
+                             f"params, velocities, running statistics "
+                             f"bit-equal to the uninterrupted run's: {same}")
+    print(f"bn_harness checkpoint: {HCKPT_STEPS} steps on one batch an "
+          f"epoch, a snapshot every {HCKPT_EVERY}, the later ones "
+          f"corrupted; resumed from {neval} (its running statistics "
+          f"{resumed_state:.4f} from the init's): final params, velocities "
+          f"and running statistics bit-equal to the uninterrupted run's")
+    by_path = {f"bn_harness_{k}": c for k, (_, c, _) in runs.items()}
+    by_path["bn_harness_checkpoint"] = ck_counts
+    return by_path, {"bn_harness_graph": ran["graph"]}
+
+
+def zoo_criterion(torch, out, x, y, mse):
+    """NLL of the log-probs, or the reconstruction's mean squared
+    error."""
+    return (((out - x.reshape(out.shape)) ** 2).mean() if mse
+            else torch.nn.functional.nll_loss(out, y))
+
+
+def zoo_forward_backward(torch, model, x, y, mse, replay=None):
+    """One training forward and backward from zero gradients: (log-probs
+    or reconstruction, loss, parameter gradients, running statistics), on
+    the host in float64, and the forward's ``Routes`` (recorded, or
+    ``replay``'s replayed)."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    with Routes(torch, model, replay=replay) as seen:
+        out = model(x)
+    loss = zoo_criterion(torch, out, x, y, mse)
+    loss.backward()
+    return ([out.detach().cpu().double()], float(loss.detach()),
+            [p.grad.detach().cpu().double() for p in model.parameters()],
+            [b.detach().cpu().double() for b in model.buffers()]), seen
+
+
+def zoo_ms(torch, model, x, y, mse, reps=5):
+    """Median ms of one training forward and backward on the card (CUDA
+    events; the gradients accumulate, which costs what zeroing would)."""
+    times = []
+    for r in range(reps + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        zoo_criterion(torch, model(x), x, y, mse).backward()
+        end.record()
+        end.synchronize()
+        if r:
+            times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_model_zoo(torch, ops):
+    """One training forward and backward of each model at full width and
+    a small batch (Inception_v2, Vgg_16, AlexNet, Autoencoder), from one
+    random init, against the CPU (``held_vs_cpu`` over the whole model):
+    log-probs, loss, running statistics, and gradients against float64
+    runs that take each fp32 run's routing (``Routes``); the same on the
+    card with cuDNN off (PyTorch's own convolutions), which parts the
+    port's kernels from cuDNN's algorithms.  Every pool and LRN geometry
+    met is one the kernel phases hold, and the launch counts show each
+    went through its kernel.  Then the step's time on the card."""
+    import copy
+
+    from bigdl_tpu_torch.models import (AlexNet, Autoencoder, Inception_v2,
+                                        Vgg_16)
+    from bigdl_tpu_torch.utils.random import generator
+
+    by_path = {}
+    for name, build, batch, shape, n_params, per_call in (
+            ("Inception_v2", Inception_v2, 8, (3, 224, 224), 11204936,
+             {"maxpool2d_forward": 4, "maxpool2d_backward": 4,
+              "maxpool2d_s1_forward": 1, "maxpool2d_s1_backward": 1}),
+            ("Vgg_16", Vgg_16, 4, (3, 224, 224), 138357544,
+             {"maxpool2d_forward": 5, "maxpool2d_backward": 5}),
+            ("AlexNet", AlexNet, 8, (3, 227, 227), 60965224,
+             {"lrn_forward": 2, "lrn_backward": 2, "maxpool2d_forward": 3,
+              "maxpool2d_backward": 3}),
+            ("Autoencoder", lambda c, **kw: Autoencoder(32, **kw), 32,
+             (28, 28), 50992, {})):
+        cpu_model = build(1000, device="cpu", generator=generator(0))
+        got = sum(p.numel() for p in cpu_model.parameters())
+        if got != n_params:
+            raise AssertionError(f"{name}: {got} parameters")
+        set_dropout(cpu_model, 0.0)
+        rs = np.random.RandomState(1)
+        mse = name == "Autoencoder"
+        x = (rs.uniform(0, 1, (batch,) + shape) if mse
+             else rs.randn(batch, *shape)).astype(np.float32)
+        y = torch.from_numpy(rs.randint(0, 1000, batch))
+        card = copy.deepcopy(cpu_model).cuda()
+        xt = torch.from_numpy(x)
+        torch.cuda.synchronize()
+        (res_g, seen), counts, _ = run_path(
+            torch, ops, lambda: zoo_forward_backward(
+                torch, card, xt.cuda(), y.cuda(), mse))
+        want = {**dict.fromkeys(counts, 0), **per_call}
+        if counts != want:
+            raise AssertionError(f"model_zoo {name}: launches {counts}, "
+                                 f"expected {want}")
+        held_standalone(f"model_zoo {name}", seen)
+        with torch.backends.cudnn.flags(
+                enabled=False, allow_tf32=False,
+                benchmark=torch.backends.cudnn.benchmark,
+                deterministic=torch.backends.cudnn.deterministic):
+            res_n, seen_n = zoo_forward_backward(torch, card, xt.cuda(),
+                                                 y.cuda(), mse)
+        res_c, seen_c = zoo_forward_backward(torch, cpu_model, xt, y, mse)
+
+        def grads_64(route=None):
+            wide = copy.deepcopy(cpu_model).double()
+            return zoo_forward_backward(torch, wide, xt.double(), y, mse,
+                                        route)[0][2]
+
+        g64_g, g64_c = grads_64(seen), grads_64(seen_c)
+        g64_n = g64_g if seen_n.route_equal(seen) else grads_64(seen_n)
+        g64 = grads_64()
+        states = list(zip(res_g[3], res_c[3]))
+        diff = {"loss": (res_g[1], res_c[1]), "loss_rel": 0.0,
+                "param_abs": 0.0,
+                "out_rel": leaf_rel(res_g[0][0], res_c[0][0]),
+                "state_rel": max([leaf_rel(a, b) for a, b in states],
+                                 default=0.0),
+                **norm_rel(res_g[2], res_c[2], g64_g, g64_c)}
+        plain = {**diff, "loss": (res_n[1], res_c[1]),
+                 "out_rel": leaf_rel(res_n[0][0], res_c[0][0]),
+                 **norm_rel(res_n[2], res_c[2], g64_n, g64_c)}
+        t = zoo_ms(torch, card, xt.cuda(), y.cuda(), mse)
+        print(f"model_zoo {name}: {n_params} params, batch {batch} of "
+              f"{shape}, one forward and backward {t:.4f} ms; loss card "
+              f"{res_g[1]:.8f} CPU {res_c[1]:.8f}; log-probs |card - CPU| "
+              f"over max|CPU| {diff['out_rel']:.3e}; running statistics "
+              f"{diff['state_rel']:.3e} (largest of a buffer); gradients "
+              f"over the whole model: card - CPU "
+              f"{diff['grad_norm_rel']:.3e}, from float64 under its own "
+              f"routing card {diff['card_norm_64']:.3e} CPU "
+              f"{diff['cpu_norm_64']:.3e}, card without cuDNN "
+              f"{plain['card_norm_64']:.3e} (- CPU "
+              f"{plain['grad_norm_rel']:.3e}); from float64 without the "
+              f"routing card {model_rel(res_g[2], g64):.3e} CPU "
+              f"{model_rel(res_c[2], g64):.3e} ({seen.flips(seen_c)}); "
+              f"launches {ops_nonzero(counts)}")
+        held_vs_cpu(f"model_zoo {name}", diff, scope="model")
+        held_vs_cpu(f"model_zoo {name} without cuDNN", plain, scope="model")
+        by_path[f"model_zoo_{name}"] = counts
+        del card
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def phase_table(torch, ops, profile, rows):
+    """Every phase in run order: (name, kind, run).  A "kernels" phase's
+    ``run()`` returns its rows of the kernels line (the state phase adds
+    to the ``rows`` before it); a "path" phase's returns the launch
+    counts of each path it drove, read right after that path ran from
+    zero, and the kernel runs the profiler counted in each CUDA-graph
+    path's replays."""
+    carry = {}
+
+    def slice_():
+        counts, *carry["serving"] = phase_slice(torch, ops, profile)
+        return {"serving": counts}, {}
+
+    def with_figures(name, phase):
+        def run():
+            counts, carry[name] = phase(torch, ops, profile)
+            return {name: counts}, {}
+        return run
+
+    def counts_of(name, phase):
+        return lambda: ({name: phase(torch, ops, profile)}, {})
+
+    return [
+        ("kernels", "kernels", lambda: [
+            phase_kernels(torch, ops),
+            phase_int8_attention_kernels(torch, ops)]),
+        ("train_kernels", "kernels", lambda: phase_train_kernels(torch, ops)),
+        ("conv_kernels", "kernels", lambda: phase_conv_kernels(torch, ops)),
+        ("bilstm_kernels", "kernels",
+         lambda: phase_bilstm_kernels(torch, ops)),
+        ("lstm_scan_kernels", "kernels",
+         lambda: [phase_lstm_scan_kernels(torch, ops)]),
+        ("rnn_gru_kernels", "kernels",
+         lambda: phase_rnn_gru_kernels(torch, ops)),
+        ("state_kernels", "kernels",
+         lambda: phase_state_kernels(torch, ops, rows) or []),
+        ("serving", "path", slice_),
+        ("serving_int8", "path", lambda: ({
+            "serving_int8": phase_serving_int8(
+                torch, ops, *carry["serving"], profile)}, {})),
+        ("lenet", "path", counts_of("lenet", phase_train)),
+        ("inception", "path", counts_of("inception", phase_inception)),
+        ("bilstm", "path", counts_of("bilstm", phase_bilstm)),
+        ("lstm", "path", with_figures("lstm", phase_lstm)),
+        ("simple_rnn", "path",
+         lambda: (phase_simple_rnn(torch, ops, profile), {})),
+        ("gru", "path", with_figures("gru", phase_gru)),
+        ("truncation", "path", lambda: (phase_truncation(
+            torch, ops, profile, {"lstm": carry["lstm"],
+                                  "gru": carry["gru"]}), {})),
+        ("harness", "path", lambda: phase_harness(torch, ops)),
+        ("vgg", "path", counts_of("vgg", phase_vgg)),
+        ("resnet50", "path", counts_of("resnet50", phase_resnet50)),
+        ("bn_harness", "path", lambda: phase_bn_harness(torch, ops)),
+        ("model_zoo", "path", lambda: (phase_model_zoo(torch, ops), {})),
+    ]
+
+
+# the phases each option runs alone (no option: every phase); a run of
+# some phases prints what they found and never the closing result line
+ONLY = {
+    # the kernel phases: to time two trees' kernels in turns
+    "--kernels": ("kernels", "train_kernels", "conv_kernels",
+                  "bilstm_kernels", "lstm_scan_kernels", "rnn_gru_kernels",
+                  "state_kernels"),
+    # the training kernels' checks and the harness
+    "--harness": ("train_kernels", "harness"),
+    # the batch-normalisation slice: its kernel checks and four paths
+    "--bn": ("train_kernels", "conv_kernels", "vgg", "resnet50",
+             "bn_harness", "model_zoo"),
+}
+# the kernels line: each row's keys (queued_ms: calls queued back to back,
+# the device's time where it outlasts the wrapper's host work, no L2
+# flush), then the keys some rows add: the recurrence rows also carry the
+# whole layer's times: cuDNN's nn.LSTM and nn.RNN beside the port's layer
+# (the same function), and nn.GRU beside the port's as a same-size
+# reference (another function); the GRU weight gradient's two einsums;
+# lstm_scan's row bilstm_forward's primal forward at D = 1 on its inputs;
+# the int8 attention row the two-call reference (dequantize, then SDPA);
+# the rnn forward and backward rows also their time at SimpleRNN's chunk;
+# the attention rows their split count and their time at serving's own
+# context; the pool rows the sums over an Inception step's pools at their
+# own shapes (kernel, bound and library ms, launches a step); the s2 pool
+# rows also over a VGG step's five pools and ResNet-50's stem pool; the
+# stride-1 rows a PyTorch copy or add moving their bytes; the bilstm and
+# gru rows their time at the truncated classifiers' chunk from zeros and
+# from a carried state; the rnn forward and backward rows their time
+# under each activation kind; the harness's kernels the runs of their
+# kernel in each CUDA-graph path's profiled replays (the wrappers count
+# the capture's launches, not the replays')
+ROW_KEYS = ("name", "route", "source", "replaces", "launches",
+            "launches_by_path", "max_abs_err", "ms", "queued_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "ok")
+ROW_EXTRA = ("layer_library_ms", "layer_port_ms", "same_size_library_ms",
+             "two_einsum_ms", "dequant_sdpa_ms", "bilstm_forward_ms",
+             "simplernn_ms", "simplernn_bound_ms", "splits", "serving_ms",
+             "serving_plain_ms", "serving_library_ms", "serving_bound_ms",
+             "inception_ms", "inception_bound_ms", "inception_library_ms",
+             "inception_launches_step", "vgg_ms", "vgg_bound_ms",
+             "vgg_library_ms", "vgg_launches_step", "resnet50_ms",
+             "resnet50_bound_ms", "resnet50_library_ms",
+             "resnet50_launches_step", "same_bytes_ms", "chunk_ms",
+             "chunk_state_ms", "act_ms", "device_lr_ms",
+             "graph_kernel_runs")
+
+
 def main(argv) -> int:
+    import traceback
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3937,87 +4990,44 @@ def main(argv) -> int:
         for line in ptxas_lines(info["log"]):
             print(f"  {name}: {line}")
 
-    if "--harness" in argv:
-        # the training kernels' checks and the harness phase alone
-        rows = phase_train_kernels(torch, ops)
-        by_path, ran = phase_harness(torch, ops)
-        print(json.dumps({"harness": {p: ops_nonzero(c)
-                                      for p, c in by_path.items()},
-                          "graph_kernel_runs": ran,
-                          "fused_sgd": {k: rows[0][k] for k in (
-                              "ms", "device_lr_ms", "plain_ms", "bound_ms",
-                              "library_ms")}}))
-        return 0
-    kernel_rows = ([phase_kernels(torch, ops),
-                    phase_int8_attention_kernels(torch, ops)]
-                   + phase_train_kernels(torch, ops)
-                   + phase_conv_kernels(torch, ops)
-                   + phase_bilstm_kernels(torch, ops)
-                   + [phase_lstm_scan_kernels(torch, ops)]
-                   + phase_rnn_gru_kernels(torch, ops))
-    phase_state_kernels(torch, ops, kernel_rows)
-    if "--kernels" in argv:
-        # the kernel phase alone: to time two trees' kernels in turns
-        print(json.dumps({"kernels": kernel_rows}))
-        return 0
-    # each path's counts are read right after it ran, from zero
-    profile = "--profile" in argv
-    serving, model, seeds, fp_rows = phase_slice(torch, ops, profile)
-    by_path = {"serving": serving,
-               "serving_int8": phase_serving_int8(torch, ops, model, seeds,
-                                                  fp_rows, profile),
-               "lenet": phase_train(torch, ops, profile),
-               "inception": phase_inception(torch, ops, profile),
-               "bilstm": phase_bilstm(torch, ops, profile)}
-    by_path["lstm"], lstm_figures = phase_lstm(torch, ops, profile)
-    by_path |= phase_simple_rnn(torch, ops, profile)
-    by_path["gru"], gru_figures = phase_gru(torch, ops, profile)
-    by_path |= phase_truncation(torch, ops, profile, {
-        "lstm": lstm_figures, "gru": gru_figures})
-    harness, graph_ran = phase_harness(torch, ops)
-    by_path |= harness
-    for row in kernel_rows:
+    only = next((ONLY[a] for a in argv if a in ONLY), None)
+    rows, by_path, graph_ran, failed = [], {}, {}, []
+    for name, kind, run in phase_table(torch, ops, "--profile" in argv,
+                                       rows):
+        if only is not None and name not in only:
+            continue
+        try:
+            out = run()
+        except Exception:
+            traceback.print_exc()
+            failed.append(name)
+            continue
+        if kind == "kernels":
+            rows += out
+        else:
+            by_path |= out[0]
+            graph_ran |= out[1]
+    for row in rows:
         row["launches_by_path"] = {path: counts.get(row["name"], 0)
                                    for path, counts in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
-        if row["launches"] == 0:
-            raise AssertionError(f"{row['name']}: no launch on any path")
         ran = {path: c[row["name"]] for path, c in graph_ran.items()
                if row["name"] in c}
         if ran:
             row["graph_kernel_runs"] = ran
-    # queued_ms: calls queued back to back, the device's time where it
-    # outlasts the wrapper's host work (no L2 flush)
-    keys = ("name", "route", "source", "replaces", "launches",
-            "launches_by_path", "max_abs_err", "ms", "queued_ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "ok")
-    # the recurrence rows also carry the whole layer's times: cuDNN's
-    # nn.LSTM and nn.RNN beside the port's layer (the same function), and
-    # nn.GRU beside the port's as a same-size reference (another
-    # function); the GRU weight gradient's two einsums; lstm_scan's row
-    # bilstm_forward's primal forward at D = 1 on its inputs; the int8
-    # attention row the two-call reference (dequantize, then SDPA); the
-    # rnn forward and backward rows also their time at SimpleRNN's chunk;
-    # the attention rows their split count and their time at serving's
-    # own context; the pool rows the sums over an Inception step's pools
-    # at their own shapes (kernel, bound and library ms, launches a step);
-    # the stride-1 rows a PyTorch copy or add moving their bytes; the
-    # bilstm and gru rows their time at the truncated classifiers' chunk
-    # from zeros and from a carried state; the rnn forward and backward
-    # rows their time under each activation kind; the harness's kernels
-    # the runs of their kernel in each CUDA-graph path's profiled replays
-    # (the wrappers count the capture's launches, not the replays')
-    extra = ("layer_library_ms", "layer_port_ms", "same_size_library_ms",
-             "two_einsum_ms", "dequant_sdpa_ms", "bilstm_forward_ms",
-             "simplernn_ms", "simplernn_bound_ms", "splits", "serving_ms",
-             "serving_plain_ms", "serving_library_ms", "serving_bound_ms",
-             "inception_ms", "inception_bound_ms", "inception_library_ms",
-             "inception_launches_step", "same_bytes_ms", "chunk_ms",
-             "chunk_state_ms", "act_ms", "device_lr_ms",
-             "graph_kernel_runs")
-    print(json.dumps({"kernels": [
-        {k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
-        for r in kernel_rows]}))
+    kernels = [{k: r[k] for k in ROW_KEYS}
+               | {k: r[k] for k in ROW_EXTRA if k in r} for r in rows]
+    if only is not None or failed:
+        print(json.dumps({"kernels": kernels,
+                          "paths": {p: ops_nonzero(c)
+                                    for p, c in by_path.items()},
+                          "graph_kernel_runs": graph_ran,
+                          "failed": failed}))
+        return 1 if failed else 0
+    for row in rows:
+        if row["launches"] == 0:
+            raise AssertionError(f"{row['name']}: no launch on any path")
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

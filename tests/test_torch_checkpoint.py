@@ -350,3 +350,127 @@ def test_a_port_checkpoint_resumes_in_the_jax_package(tmp_path,
     assert got.state["epoch"] == want.state["epoch"]
     np.testing.assert_allclose(got.state["loss"], want.state["loss"], **TOL)
     _assert_trees_close(got.model.params(), export_params(want.model))
+
+
+# ---------------------------------------------------------------------------
+# across packages with module state: ResNetCifar(8)'s running statistics
+# ---------------------------------------------------------------------------
+
+def _cifar_set(pkg, seed=5):
+    from bigdl_tpu.dataset import cifar as jax_cifar
+    from bigdl_tpu_torch.dataset import cifar
+
+    norm = (cifar.TRAIN_MEAN, cifar.TRAIN_STD)
+    if pkg == "jax":
+        return (JaxDataSet.array(jax_cifar.synthetic(16, 0))
+                >> JaxNormalizer(*norm) >> JaxToBatch(4))
+    return (DataSet.array(cifar.synthetic(16, 0), seed=seed)
+            >> ImgNormalizer(*norm) >> ImgToBatch(4))
+
+
+BN_STATE = dict(learningRate=0.05, momentum=0.9, dampening=0.0,
+                nesterov=True)
+
+
+def _jax_resnet(seed=1):
+    from bigdl_tpu.models.resnet import ResNetCifar as JaxResNetCifar
+
+    set_seed(seed)
+    return JaxResNetCifar(8, 10)
+
+
+def _bn_continue(pkg, model, blob, neval):
+    """Either package's ResNetCifar(8) continued K steps from a
+    snapshot's state, optimizer state and random payload."""
+    if pkg == "jax":
+        JaxRNG.restore(dict(JaxRNG.snapshot(),
+                            np_state=blob["rng"]["np_state"]))
+        opt = JaxLocalOptimizer(model, _cifar_set("jax"),
+                                jnn.ClassNLLCriterion())
+        opt.set_state(JaxT(**BN_STATE))
+        end = jax_max_iteration(neval + K - 1)
+    else:
+        ds = _cifar_set("torch")
+        RNG.restore(blob["rng"], ds.rng)
+        opt = LocalOptimizer(model, ds, nn.ClassNLLCriterion(), device="cpu")
+        opt.set_state(T(**BN_STATE))
+        end = max_iteration(neval + K - 1)
+    opt.set_state(blob["state"]).set_optim_state(blob["opt_state"])
+    opt.set_end_when(end)
+    opt.optimize()
+    return opt
+
+
+def _state_of(model):
+    from bigdl_tpu_torch.nn.module import export_state
+
+    if isinstance(model, torch.nn.Module):
+        return export_state(model)
+    return jax.tree_util.tree_map(np.asarray, model.state())
+
+
+def test_a_jax_bn_checkpoint_resumes_in_the_port(tmp_path):
+    """A JAX ResNetCifar(8) snapshot (params, running statistics,
+    velocity) resumed by the port: equal statistics at the resume, and
+    the next K losses, params and statistics of the JAX package's own
+    resume."""
+    from bigdl_tpu_torch.models.resnet import ResNetCifar
+
+    jmodel = _jax_resnet()
+    jopt = JaxLocalOptimizer(jmodel, _cifar_set("jax"),
+                             jnn.ClassNLLCriterion())
+    jopt.set_state(JaxT(**BN_STATE))
+    jopt.set_checkpoint(str(tmp_path), jax_several_iteration(4))
+    jopt.set_end_when(jax_max_iteration(4))
+    set_seed(5)
+    jopt.optimize()
+    set_seed(77)
+    jmod, jblob, neval = jax_load_latest(str(tmp_path), restore_rng=True)
+    assert neval == 4
+    saved = _state_of(jmod)
+    want = _bn_continue("jax", jmod, jblob, neval)
+    port = File.load_module_into(ResNetCifar(8, 10, device="cpu"),
+                                 str(tmp_path / "model.4"))
+    at_resume = _state_of(port)
+    for a, b in zip(jax.tree_util.tree_leaves(at_resume),
+                    jax.tree_util.tree_leaves(saved)):
+        np.testing.assert_array_equal(a, b)
+    assert max(float(np.abs(v - 1).max()) for v in jax.tree_util.tree_leaves(
+        at_resume) if v.ndim == 1) > 0.01   # statistics moved off (0, 1)
+    got = _bn_continue("torch", port, File.load(str(tmp_path / "state.4")),
+                       neval)
+    assert got.state["neval"] == want.state["neval"] == neval + K
+    np.testing.assert_allclose(got.state["loss"], want.state["loss"], **TOL)
+    _assert_trees_close(export_params(got.model), want.model.params())
+    _assert_trees_close(_state_of(got.model), _state_of(want.model))
+
+
+def test_a_port_bn_checkpoint_resumes_in_the_jax_package(tmp_path):
+    from bigdl_tpu.models.resnet import ResNetCifar as JaxResNetCifar
+    from bigdl_tpu_torch.models.resnet import ResNetCifar
+
+    init = jax.tree_util.tree_map(np.asarray, _jax_resnet().params())
+    popt = LocalOptimizer(load_jax_params(ResNetCifar(8, 10, device="cpu"),
+                                          init),
+                          _cifar_set("torch"), nn.ClassNLLCriterion(),
+                          device="cpu")
+    popt.set_state(T(**BN_STATE))
+    popt.set_checkpoint(str(tmp_path), several_iteration(4))
+    popt.set_end_when(max_iteration(4)).optimize()
+    ds = _cifar_set("torch")
+    module, blob, neval = load_latest_checkpoint(str(tmp_path), device="cpu",
+                                                 dataset=ds)
+    assert neval == 4
+    saved = _state_of(module)
+    want = _bn_continue("torch", module, blob, neval)
+    jmodel = JaxFile.load_module_into(JaxResNetCifar(8, 10),
+                                      str(tmp_path / "model.4"))
+    for a, b in zip(jax.tree_util.tree_leaves(_state_of(jmodel)),
+                    jax.tree_util.tree_leaves(saved)):
+        np.testing.assert_array_equal(a, b)
+    got = _bn_continue("jax", jmodel, JaxFile.load(str(tmp_path / "state.4")),
+                       neval)
+    assert got.state["neval"] == want.state["neval"] == neval + K
+    np.testing.assert_allclose(got.state["loss"], want.state["loss"], **TOL)
+    _assert_trees_close(got.model.params(), export_params(want.model))
+    _assert_trees_close(_state_of(got.model), _state_of(want.model))

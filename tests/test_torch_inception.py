@@ -284,7 +284,7 @@ def test_xavier_init_and_relu_in_place_flag():
                                   generator=generator(0))
     assert torch.equal(again.weight.detach(), w)
     with pytest.raises(ValueError, match="no init method"):
-        nn.SpatialConvolution(1, 1, 1, 1, init_method="msra")
+        nn.SpatialConvolution(1, 1, 1, 1, init_method="bilinearfiller")
     x = np.random.RandomState(11).randn(3, 5).astype(np.float32)
     relu = nn.ReLU(True)
     assert relu.inplace

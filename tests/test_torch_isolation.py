@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``bigdl_tpu_torch`` and none of
 ``chip_smoke.py``, ``recurrence_ab.py``, ``recurrence_plans.py``,
-``pool_s1_split.py`` and ``inception_host_probe.py`` imports JAX or the JAX package (the machine with the card has no JAX).
+``pool_s1_split.py``, ``inception_host_probe.py`` and ``model_flops.py``
+imports JAX or the JAX package (the machine with the card has no JAX).
 Top-level names are matched exactly, since ``bigdl_tpu_torch`` starts
 with ``bigdl_tpu``."""
 import ast
@@ -48,7 +49,7 @@ def test_no_source_names_jax_or_the_jax_package():
     files = sorted((ROOT / "bigdl_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "recurrence_ab.py",
               ROOT / "recurrence_plans.py", ROOT / "pool_s1_split.py",
-              ROOT / "inception_host_probe.py"]
+              ROOT / "inception_host_probe.py", ROOT / "model_flops.py"]
     assert len(files) > 20
     hits = [f"{p.relative_to(ROOT)}:{line} imports {root}"
             for p in files for root, line in _imported_roots(p)
@@ -118,3 +119,16 @@ def test_walk_covers_the_int8_kv_and_lstm_scan_slice():
     assert {f"bigdl_tpu_torch.{n}" for n in (
         "quant", "quant.kv", "ops.lstm_scan", "ops.paged_attention",
         "utils.random", "nn.dropout")} <= names
+
+
+def test_walk_covers_the_batch_norm_and_model_zoo_slice():
+    """The import probe reaches the batch-normalisation slice's modules:
+    the model zoo and the CIFAR-10 reader."""
+    import pkgutil
+
+    import bigdl_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(bigdl_tpu_torch.__path__,
+                                                   "bigdl_tpu_torch.")}
+    assert {f"bigdl_tpu_torch.{n}" for n in (
+        "models.vgg", "models.resnet", "models.alexnet",
+        "models.autoencoder", "dataset.cifar", "native")} <= names

@@ -81,6 +81,9 @@ PLANS = {
         (("bands", 1, 8, 320, 76, 55120), ("bands", 1, 8, 512, 76, 91632)),
     ((4, 37, 14, 14), (5, 5), ((2, 2), (2, 2))):
         (("planes", 18, 14, 512, 9, 70640), ("planes", 18, 14, 512, 9, 102432)),
+    ((8, 1024, 7, 7), (3, 3), ((1, 1), (1, 1))):
+        (("planes", 73, 7, 512, 113, 71600),
+         ("planes", 73, 7, 512, 113, 103824)),
 }
 
 

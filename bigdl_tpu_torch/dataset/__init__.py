@@ -9,14 +9,15 @@ from bigdl_tpu_torch.dataset.image import (HFlip, ImgNormalizer,
                                            LabeledImage)
 from bigdl_tpu_torch.dataset.sample import LabeledSentence, MiniBatch, Sample
 from bigdl_tpu_torch.dataset.transformer import (ChainedTransformer,
-                                                 Identity, SampleToBatch,
-                                                 Transformer)
+                                                 FuncTransformer, Identity,
+                                                 SampleToBatch, Transformer)
 
 GreyImgNormalizer = ImgNormalizer
 GreyImgToBatch = ImgToBatch
 
 __all__ = [
-    "ChainedTransformer", "DataSet", "GreyImgNormalizer", "GreyImgToBatch",
+    "ChainedTransformer", "DataSet", "FuncTransformer", "GreyImgNormalizer",
+    "GreyImgToBatch",
     "HFlip", "Identity", "ImgNormalizer", "ImgRdmCropper", "ImgToBatch",
     "LabeledImage", "LabeledSentence",
     "LocalArrayDataSet", "LocalDataSet", "MiniBatch", "Sample",

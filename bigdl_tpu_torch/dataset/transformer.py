@@ -60,6 +60,24 @@ class Identity(Transformer):
         return iterator
 
 
+class FuncTransformer(Transformer):
+    """A per-record function as a stage: ``fn`` applied to each record
+    (ref dataset/Transformer.scala; the JAX package's ``FuncTransformer``).
+
+    It is not a pure per-record stage to the background prefetch
+    (``dataset/prefetch.py``), which cannot see whether ``fn`` draws
+    random numbers or keeps state across records: it runs on the one
+    producer thread, in order, after the stages before it, exactly as
+    the serial chain runs it, and no stage before it fans out to the
+    workers past it."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, iterator):
+        return (self.fn(x) for x in iterator)
+
+
 class SampleToBatch(Transformer):
     """Sample -> MiniBatch (ref Transformer.scala:99-241).
 

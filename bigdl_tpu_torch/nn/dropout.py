@@ -1,4 +1,5 @@
-"""Dropout (counterpart of bigdl_tpu/nn/dropout.py ``Dropout``)."""
+"""Regularisation layers (counterpart of bigdl_tpu/nn/dropout.py):
+Dropout and L1Penalty."""
 from __future__ import annotations
 
 import torch
@@ -28,3 +29,34 @@ class Dropout(TensorModule):
         mask = torch.empty_like(x).bernoulli_(
             keep, generator=RNG.generator(x.device))
         return x * (mask.div_(keep) if keep > 0 else mask)
+
+
+class _L1Penalty(torch.autograd.Function):
+    """The identity forward; the backward adds m * sign(x)."""
+
+    @staticmethod
+    def forward(ctx, x, m):
+        ctx.save_for_backward(x)
+        ctx.m = m
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g + ctx.m * torch.sign(x), None
+
+
+class L1Penalty(TensorModule):
+    """The identity, whose backward adds the L1 subgradient m * sign(x),
+    m = ``l1weight``, over ``x.numel()`` with ``size_average`` (ref
+    L1Penalty.scala; the JAX module's custom VJP)."""
+
+    def __init__(self, l1weight: float, size_average: bool = False,
+                 provide_output: bool = True):
+        super().__init__()
+        self.l1weight = l1weight
+        self.size_average = size_average
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        m = self.l1weight / x.numel() if self.size_average else self.l1weight
+        return _L1Penalty.apply(x, m)

@@ -1,12 +1,24 @@
-"""Linear layer and constant scaling (counterpart of bigdl_tpu/nn/linear.py
-``Linear`` and ``MulConstant``)."""
+"""Linear-algebra layers (counterpart of bigdl_tpu/nn/linear.py):
+Linear, Bilinear, CMul, CAdd, Mul, Add, MulConstant, AddConstant, MM,
+MV, Cosine, Euclidean and LookupTable.
+
+The parameterised layers draw their initial values on the CPU from
+``generator`` (``nn.init``) and keep them on ``device``, which the
+layers new to the port resolve as the models do (``"cuda"`` unless the
+caller asks for the CPU; no card is an error).  Parameters carry the
+JAX names, so ``load_jax_params`` fills any of them.
+"""
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn import init as init_
-from bigdl_tpu_torch.nn.module import TensorModule
+from bigdl_tpu_torch.nn.module import Module, TensorModule
+from bigdl_tpu_torch.utils.device import resolve_device
+from bigdl_tpu_torch.utils.table import as_table
 
 
 class Linear(TensorModule):
@@ -29,10 +41,101 @@ class Linear(TensorModule):
         return f"{self.input_size} -> {self.output_size}"
 
 
-class MulConstant(TensorModule):
-    """x * scalar (ref MulConstant.scala)."""
+class Bilinear(TensorModule):
+    """y_k = x1^T W_k x2 + b_k over Table(x1 (n, i1), x2 (n, i2)), with
+    ``weight`` (out, i1, i2) and ``bias`` (out,), both drawn U(-1/sqrt(i1),
+    1/sqrt(i1)) (ref Bilinear.scala)."""
 
-    def __init__(self, scalar: float):
+    def __init__(self, input_size1: int, input_size2: int, output_size: int,
+                 bias_res: bool = True, device="cuda", generator=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.input_size1 = input_size1
+        self.input_size2 = input_size2
+        self.output_size = output_size
+        self.bias_res = bias_res
+        stdv = 1.0 / math.sqrt(input_size1)
+        self._add_param("weight", init_.uniform(
+            (output_size, input_size1, input_size2), -stdv, stdv, generator),
+            dev)
+        if bias_res:
+            self._add_param("bias", init_.uniform(
+                (output_size,), -stdv, stdv, generator), dev)
+
+    def forward(self, x):
+        x = as_table(x)
+        y = torch.einsum("ni,oij,nj->no", x[1], self.weight, x[2])
+        return y + self.bias if self.bias_res else y
+
+
+class CMul(TensorModule):
+    """A learnt scale of shape ``size``, broadcast over the input (ref
+    CMul.scala); drawn U(-1/sqrt(n), 1/sqrt(n)), n its element count."""
+
+    def __init__(self, size, device="cuda", generator=None):
+        super().__init__()
+        self.size = tuple(size)
+        stdv = 1.0 / math.sqrt(math.prod(self.size))
+        self._add_param("weight", init_.uniform(self.size, -stdv, stdv,
+                                                generator),
+                        resolve_device(device))
+
+    def forward(self, x):
+        return x * self.weight
+
+
+class CAdd(TensorModule):
+    """A learnt bias of shape ``size``, broadcast over the input (ref
+    CAdd.scala)."""
+
+    def __init__(self, size, device="cuda", generator=None):
+        super().__init__()
+        self.size = tuple(size)
+        stdv = 1.0 / math.sqrt(math.prod(self.size))
+        self._add_param("bias", init_.uniform(self.size, -stdv, stdv,
+                                              generator),
+                        resolve_device(device))
+
+    def forward(self, x):
+        return x + self.bias
+
+
+class Mul(TensorModule):
+    """One learnt scalar gain, ``weight`` (1,) drawn U(-1, 1) (ref
+    Mul.scala)."""
+
+    def __init__(self, device="cuda", generator=None):
+        super().__init__()
+        self._add_param("weight", init_.uniform((1,), -1.0, 1.0, generator),
+                        resolve_device(device))
+
+    def forward(self, x):
+        return x * self.weight[0]
+
+
+class Add(TensorModule):
+    """A learnt bias of ``input_size`` (one shared value with ``scalar``)
+    (ref Add.scala)."""
+
+    def __init__(self, input_size: int, scalar: bool = False, device="cuda",
+                 generator=None):
+        super().__init__()
+        self.input_size = 1 if scalar else input_size
+        self.scalar = scalar
+        stdv = 1.0 / math.sqrt(self.input_size)
+        self._add_param("bias", init_.uniform((self.input_size,), -stdv,
+                                              stdv, generator),
+                        resolve_device(device))
+
+    def forward(self, x):
+        return x + (self.bias[0] if self.scalar else self.bias)
+
+
+class MulConstant(TensorModule):
+    """x * scalar (ref MulConstant.scala); ``inplace`` computes the
+    same."""
+
+    def __init__(self, scalar: float, inplace: bool = False):
         super().__init__()
         self.scalar = scalar
 
@@ -41,3 +144,127 @@ class MulConstant(TensorModule):
 
     def extra_repr(self) -> str:
         return f"{self.scalar}"
+
+
+class AddConstant(TensorModule):
+    """x + constant (ref AddConstant.scala); ``inplace`` computes the
+    same."""
+
+    def __init__(self, constant_scalar: float, inplace: bool = False):
+        super().__init__()
+        self.constant_scalar = constant_scalar
+
+    def forward(self, x):
+        return x + self.constant_scalar
+
+
+class MM(Module):
+    """Matrix product of Table(a, b), batched over leading dims, either
+    operand transposed first (ref MM.scala)."""
+
+    def __init__(self, trans_a: bool = False, trans_b: bool = False):
+        super().__init__()
+        self.trans_a = trans_a
+        self.trans_b = trans_b
+
+    def forward(self, x):
+        x = as_table(x)
+        a, b = x[1], x[2]
+        if self.trans_a:
+            a = a.transpose(-1, -2)
+        if self.trans_b:
+            b = b.transpose(-1, -2)
+        return torch.matmul(a, b)
+
+
+class MV(Module):
+    """Matrix-vector product of Table(mat, vec), batched (ref MV.scala)."""
+
+    def __init__(self, trans: bool = False):
+        super().__init__()
+        self.trans = trans
+
+    def forward(self, x):
+        x = as_table(x)
+        m = x[1].transpose(-1, -2) if self.trans else x[1]
+        return torch.einsum("...ij,...j->...i", m, x[2])
+
+
+class Cosine(TensorModule):
+    """Cosine similarity to each of ``output_size`` learnt prototypes,
+    ``weight`` (out, in); each norm has 1e-12 added (ref Cosine.scala)."""
+
+    def __init__(self, input_size: int, output_size: int, device="cuda",
+                 generator=None):
+        super().__init__()
+        self.input_size = input_size
+        self.output_size = output_size
+        stdv = 1.0 / math.sqrt(input_size)
+        self._add_param("weight", init_.uniform(
+            (output_size, input_size), -stdv, stdv, generator),
+            resolve_device(device))
+
+    def forward(self, x):
+        w = self.weight
+        xn = x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-12)
+        wn = w / (torch.linalg.vector_norm(w, dim=-1, keepdim=True) + 1e-12)
+        return torch.matmul(xn, wn.T)
+
+
+class Euclidean(TensorModule):
+    """Euclidean distance to each learnt prototype, ``weight`` (in, out)
+    (ref Euclidean.scala); ``fast_backward`` is accepted for the
+    reference's signature (autograd computes the backward)."""
+
+    def __init__(self, input_size: int, output_size: int,
+                 fast_backward: bool = True, device="cuda", generator=None):
+        super().__init__()
+        self.input_size = input_size
+        self.output_size = output_size
+        stdv = 1.0 / math.sqrt(input_size)
+        self._add_param("weight", init_.uniform(
+            (input_size, output_size), -stdv, stdv, generator),
+            resolve_device(device))
+
+    def forward(self, x):
+        diff = x[..., :, None] - self.weight
+        return torch.linalg.vector_norm(diff, dim=-2)
+
+
+class LookupTable(TensorModule):
+    """Embedding lookup of 1-based indices, ``weight`` (n_index, n_output)
+    drawn N(0, 1) (ref LookupTable.scala:273).
+
+    With ``max_norm`` every forward rescales the whole table by min(1,
+    max_norm / (||row||_p + 1e-7)) before the lookup, differentiably, as
+    the JAX module does; Torch renormalises the looked-up rows in place
+    instead (a documented difference of the JAX package, kept).
+    ``padding_value`` and ``should_scale_grad_by_freq`` are accepted for
+    the reference's signature and, as in the JAX module, change
+    nothing."""
+
+    def __init__(self, n_index: int, n_output: int, padding_value: float = 0,
+                 max_norm: float = None, norm_type: float = 2.0,
+                 should_scale_grad_by_freq: bool = False, device="cuda",
+                 generator=None):
+        super().__init__()
+        self.n_index = n_index
+        self.n_output = n_output
+        self.padding_value = padding_value
+        self.max_norm = max_norm
+        self.norm_type = norm_type
+        self._add_param("weight", init_.normal((n_index, n_output), 0.0, 1.0,
+                                               generator),
+                        resolve_device(device))
+
+    def forward(self, x):
+        w = self.weight
+        if self.max_norm is not None:
+            norms = torch.linalg.vector_norm(w, ord=self.norm_type, dim=1,
+                                             keepdim=True)
+            w = w * torch.clamp_max(self.max_norm / (norms + 1e-7), 1.0)
+        idx = torch.as_tensor(x, device=w.device).long() - 1
+        return w[idx]
+
+    def extra_repr(self) -> str:
+        return f"{self.n_index} -> {self.n_output}"

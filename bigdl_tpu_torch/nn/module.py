@@ -139,6 +139,19 @@ class Container(Module):
         return list(self._modules.values())[index - 1]
 
 
+def device_constant(owner, key: str, value: torch.Tensor, device):
+    """``value``, a constant made on the CPU (a mask, a filter, a lookup
+    table that is no parameter and no state), on ``device``: copied there
+    once and kept on ``owner``, so a step (or a captured CUDA graph) reads
+    it without a host-to-device copy."""
+    cache = owner.__dict__.setdefault("_device_constants", {})
+    dev = torch.device(device)
+    t = cache.get((key, dev))
+    if t is None:
+        t = cache[(key, dev)] = value.to(dev)
+    return t
+
+
 def load_jax_params(model: Module, tree: dict) -> Module:
     """Fill a port model from the JAX model's ``params()`` pytree (numpy
     leaves, same ``{'~', '<i>'}`` paths) in place."""

@@ -1,13 +1,16 @@
-"""Batch normalisation, LayerNorm and cross-channel LRN (counterpart of
-bigdl_tpu/nn/normalization.py ``BatchNormalization``,
-``SpatialBatchNormalization``, ``LayerNorm`` and ``SpatialCrossMapLRN``)."""
+"""Normalisation layers (counterpart of bigdl_tpu/nn/normalization.py):
+``BatchNormalization``, ``SpatialBatchNormalization``, ``LayerNorm``,
+the cross-channel LRN ``SpatialCrossMapLRN``, and the local
+normalisations ``SpatialSubtractiveNormalization``,
+``SpatialDivisiveNormalization`` and ``SpatialContrastiveNormalization``."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn import init as init_
-from bigdl_tpu_torch.nn.module import TensorModule
+from bigdl_tpu_torch.nn.module import TensorModule, device_constant
 from bigdl_tpu_torch.ops import lrn_channel
 
 
@@ -140,3 +143,90 @@ class SpatialCrossMapLRN(TensorModule):
 
     def extra_repr(self) -> str:
         return f"{self.size}, {self.alpha}, {self.beta}, {self.k}"
+
+
+def _gaussian_kernel(kernel_size: int) -> np.ndarray:
+    """A normalised 2-D gaussian of sigma 0.25 * size, like Torch's
+    ``image.gaussian`` (the JAX package's ``_gaussian_kernel``)."""
+    sigma = 0.25 * kernel_size
+    xs = np.arange(kernel_size, dtype=np.float64)
+    c = (kernel_size - 1) / 2.0
+    g = np.exp(-((xs - c) ** 2) / (2 * sigma ** 2))
+    k2 = np.outer(g, g)
+    return (k2 / k2.sum()).astype(np.float32)
+
+
+class SpatialSubtractiveNormalization(TensorModule):
+    """Subtract a kernel-weighted local mean (ref
+    SpatialSubtractiveNormalization.scala): the kernel (a 9x9 gaussian by
+    default; a 1-D kernel is its outer product) is normalised to sum 1
+    over the ``n_input_plane`` planes; the mean is the zero-padded
+    correlation of the input with it across all channels, one map shared
+    by them, divided by the ``coef`` map, the same correlation of ones
+    (the kernel's mass inside the image at each pixel)."""
+
+    def __init__(self, n_input_plane: int = 1, kernel=None):
+        super().__init__()
+        self.n_input_plane = n_input_plane
+        kernel = _gaussian_kernel(9) if kernel is None else np.asarray(
+            kernel, np.float32)
+        if kernel.ndim == 1:
+            kernel = np.outer(kernel, kernel)
+        self.kernel = torch.from_numpy(
+            (kernel / (kernel.sum() * n_input_plane)).astype(np.float32))
+        self.kh, self.kw = self.kernel.shape
+
+    def _conv_sum(self, x):
+        """(N, 1, H, W): the normalised kernel correlated with every
+        channel of the zero-padded input, summed over the channels."""
+        k = device_constant(self, "kernel", self.kernel, x.device)
+        ph, pw = (self.kh - 1) // 2, (self.kw - 1) // 2
+        x = F.pad(x, (pw, self.kw - 1 - pw, ph, self.kh - 1 - ph))
+        return F.conv2d(x, k.expand(1, x.shape[1], self.kh, self.kw))
+
+    def _coef(self, x):
+        return self._conv_sum(torch.ones((1,) + tuple(x.shape[1:]),
+                                         dtype=x.dtype, device=x.device))
+
+    def _subtract(self, x):
+        return x - self._conv_sum(x) / self._coef(x)
+
+    def forward(self, x):
+        was3d = x.dim() == 3
+        y = self._subtract(x[None] if was3d else x)
+        return y[0] if was3d else y
+
+
+class SpatialDivisiveNormalization(SpatialSubtractiveNormalization):
+    """Divide by the local standard deviation (ref
+    SpatialDivisiveNormalization.scala:114-136): sqrt of the kernel's
+    correlation with x^2, divided by ``coef`` after the sqrt, and where
+    that is not above ``threshold`` replaced by ``thresval``."""
+
+    def __init__(self, n_input_plane: int = 1, kernel=None,
+                 threshold: float = 1e-4, thresval: float = 1e-4):
+        super().__init__(n_input_plane, kernel)
+        self.threshold = threshold
+        self.thresval = thresval
+
+    def _divide(self, x):
+        s = self._conv_sum(x * x)
+        local_std = torch.sqrt(torch.maximum(s, torch.zeros_like(s)))
+        adjusted = local_std / self._coef(x)
+        return x / torch.where(adjusted > self.threshold, adjusted,
+                               self.thresval)
+
+    def forward(self, x):
+        was3d = x.dim() == 3
+        y = self._divide(x[None] if was3d else x)
+        return y[0] if was3d else y
+
+
+class SpatialContrastiveNormalization(SpatialDivisiveNormalization):
+    """Subtractive, then divisive normalisation with the same kernel (ref
+    SpatialContrastiveNormalization.scala)."""
+
+    def forward(self, x):
+        was3d = x.dim() == 3
+        y = self._divide(self._subtract(x[None] if was3d else x))
+        return y[0] if was3d else y

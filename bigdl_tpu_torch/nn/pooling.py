@@ -1,6 +1,7 @@
-"""Max and average pooling (counterpart of bigdl_tpu/nn/pooling.py
-``SpatialMaxPooling`` and ``SpatialAveragePooling``; ref
-SpatialMaxPooling.scala:279, SpatialAveragePooling.scala:458).
+"""Max, average and region-of-interest pooling (counterpart of
+bigdl_tpu/nn/pooling.py ``SpatialMaxPooling``, ``SpatialAveragePooling``
+and ``RoiPooling``; ref SpatialMaxPooling.scala:279,
+SpatialAveragePooling.scala:458, RoiPooling.scala:363).
 
 Every max pool goes through a kernel: a stride-1 pool through
 ``ops.maxpool2d_s1`` (the backward recomputes the first max from x, which
@@ -20,8 +21,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from bigdl_tpu_torch.nn.module import TensorModule
+from bigdl_tpu_torch.nn.module import Module, TensorModule
 from bigdl_tpu_torch.ops import maxpool2d, maxpool2d_s1
+from bigdl_tpu_torch.utils.table import as_table
 
 
 def _pool_out_size(in_size, k, stride, pad, ceil_mode):
@@ -127,3 +129,87 @@ class SpatialAveragePooling(TensorModule):
 
     def extra_repr(self) -> str:
         return f"{self.kw}x{self.kh}, {self.dw},{self.dh}"
+
+
+class RoiPooling(Module):
+    """Region-of-interest max pooling (ref RoiPooling.scala:363).
+
+    Input: Table(features (N, C, H, W), rois (R, 5)), each roi row
+    [batch index (0-based, as the reference's), x1, y1, x2, y2] in image
+    coordinates, scaled by ``spatial_scale`` and rounded half up
+    (``floor(v + 0.5)``, the reference's ``Math.round``).  Output: (R, C,
+    pooled_h, pooled_w), a bin that holds no pixel 0.  The bins' bounds
+    are the JAX module's, in float32.
+
+    The JAX module takes each bin's maximum over the whole feature map
+    under a (R, PH, PW, C, H, W) mask, which at Fast R-CNN's size (128
+    rois, 7x7 bins, 512 x 38 x 50) would be about 24 GB.  A rectangle's
+    maximum is the maximum over its rows of each row's maximum over its
+    columns, so the port takes the two in turn: for each column bin the
+    maximum of every row over its columns (R, C, H) under a (R, 1, 1, W)
+    mask, then for each row bin the maximum of those over its rows.  The
+    forward is the same function; the gradient of a tie is split evenly
+    at each stage (``amax``), so where the tied entries of a bin lie in
+    rows holding different numbers of them, the split differs from the
+    JAX module's one even split over the bin."""
+
+    def __init__(self, pooled_w: int, pooled_h: int, spatial_scale: float):
+        super().__init__()
+        self.pooled_w = pooled_w
+        self.pooled_h = pooled_h
+        self.spatial_scale = spatial_scale
+
+    def _bins(self, rois, h, w):
+        """The bins' [start, end) rows (R, PH) and columns (R, PW)."""
+        f32 = torch.float32
+        r = rois.to(f32)
+        x1, y1, x2, y2 = (torch.floor(r[:, i] * self.spatial_scale + 0.5)
+                          for i in (1, 2, 3, 4))
+        # divided by a tensor: on the card a division by a host scalar is
+        # a product with its reciprocal, which can put a bin's bound one
+        # pixel off the correctly rounded quotient
+        def divisor(v):
+            return torch.full((), float(v), dtype=f32, device=rois.device)
+
+        bin_w = torch.clamp_min(x2 - x1 + 1.0, 1.0) / divisor(self.pooled_w)
+        bin_h = torch.clamp_min(y2 - y1 + 1.0, 1.0) / divisor(self.pooled_h)
+        ph = torch.arange(self.pooled_h, dtype=f32, device=rois.device)
+        pw = torch.arange(self.pooled_w, dtype=f32, device=rois.device)
+
+        def bounds(p, size, start):
+            lo = torch.floor(p[None] * size[:, None] + start[:, None])
+            hi = torch.ceil((p[None] + 1) * size[:, None] + start[:, None])
+            return lo, hi
+
+        hs, he = bounds(ph, bin_h, y1)
+        ws, we = bounds(pw, bin_w, x1)
+        return (hs.clamp(0, h), he.clamp(0, h), ws.clamp(0, w),
+                we.clamp(0, w))
+
+    def forward(self, x):
+        x = as_table(x)
+        data, rois = x[1], torch.as_tensor(x[2], device=x[1].device)
+        h, w = data.shape[2], data.shape[3]
+        hs, he, ws, we = self._bins(rois, h, w)
+        feats = data[rois[:, 0].long()]                    # (R, C, H, W)
+        ys = torch.arange(h, dtype=torch.float32, device=data.device)
+        xs = torch.arange(w, dtype=torch.float32, device=data.device)
+        neg = torch.tensor(float("-inf"), dtype=data.dtype,
+                           device=data.device)
+        cols = []
+        for j in range(self.pooled_w):
+            inside = (xs >= ws[:, j, None]) & (xs < we[:, j, None])  # (R, W)
+            cols.append(torch.amax(torch.where(
+                inside[:, None, None, :], feats, neg), dim=3))
+        cols = torch.stack(cols, dim=3)                    # (R, C, H, PW)
+        rows = []
+        for i in range(self.pooled_h):
+            inside = (ys >= hs[:, i, None]) & (ys < he[:, i, None])  # (R, H)
+            rows.append(torch.amax(torch.where(
+                inside[:, None, :, None], cols, neg), dim=2))
+        out = torch.stack(rows, dim=2)                     # (R, C, PH, PW)
+        return torch.where(torch.isfinite(out), out, 0.0)
+
+    def extra_repr(self) -> str:
+        return (f"{self.pooled_w}x{self.pooled_h}, "
+                f"scale {self.spatial_scale}")

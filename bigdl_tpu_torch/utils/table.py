@@ -116,6 +116,16 @@ class Table:
         return f"Table({{{inner}}})"
 
 
+def as_table(x) -> Table:
+    """An activity as a Table: a Table as it is, a list or tuple as the
+    Table of its elements (its first element is element 1)."""
+    if isinstance(x, Table):
+        return x
+    if isinstance(x, (list, tuple)):
+        return Table(*x)
+    raise TypeError(f"expected a Table (or a list), got {type(x).__name__}")
+
+
 def T(*args, **kwargs):
     """Builder matching the reference's ``T(...)`` (Table.scala companion)."""
     return Table(*args, **kwargs)

@@ -10,6 +10,8 @@ Run from the repository root on a machine with an NVIDIA H100:
                                      # alone, no result line
     python3 chip_smoke.py --bn       # the pool, LRN and SGD checks and
                                      # phases 11-14 alone, no result line
+    python3 chip_smoke.py --inventory  # fused_sgd's checks and phase 15
+                                       # alone, no result line
 
 Each option runs part of one phase table (``ONLY``); every phase runs
 even where one before it failed, and a failed phase makes the exit
@@ -165,7 +167,23 @@ non-zero with no result line.  Phases:
     2x2 s2 pools at batch 128, ResNet-50's 3x3 s2 p1 stem pool at 256,
     the zoo's) and ``fused_sgd`` over VGG's and ResNet-50's layouts,
     held to their plain versions and timed beside ``F.max_pool2d``;
-15. one JSON line of kernels, then the card line, then the result line.
+15. the inventory: (a) examples/train_autoencoder.py at its width
+    (``Autoencoder(32)``, ``MSECriterion``, records that
+    ``FuncTransformer`` makes of 2,048 synthetic digits, batch 150, lr
+    0.01, momentum 0.9) trains two epochs through ``LocalOptimizer``,
+    one ``fused_sgd`` launch a step and the loss over the training set
+    falling, then a warm epoch timed and profiled (ms a step, idle
+    share); three steps equal the CPU's; 8 steps a dispatch as one CUDA
+    graph equal the eager loop and the CPU (``dispatch_runs``, the
+    replays' kernels counted by the profiler); (b) one forward and
+    backward of every class this slice adds (containers, criteria,
+    linear-algebra layers, table, shape and reduction ops, L1Penalty,
+    the convolution family with DCGAN's, a DeepLab-v2 ASPP branch's and
+    a connection table's shapes, the local normalisations, RoiPooling at
+    Fast R-CNN's VGG-16 conv5_3) against the same module on the CPU,
+    each class's largest error and the card's peak memory on a line,
+    and NMS over 6,000 proposals; none launches a kernel of the port;
+16. one JSON line of kernels, then the card line, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -418,6 +436,18 @@ R50_CHECK_BATCH, R50_CHECK_STEPS, R50_CHECK_LR = 8, 2, 0.01
 # the harness with module state: ResNetCifar(20), examples/train_resnet.py
 # (batch 128; 512 synthetic images, 4 steps an epoch)
 BN_DEPTH, BN_BATCH, BN_PARAMS = 20, 128, 269722
+# the inventory: examples/train_autoencoder.py at its width (mnist
+# .synthetic(2048), batch 150, learningRate 0.01, momentum 0.9), two
+# epochs (the example's ten cut to two); three steps against the CPU
+AE_IMAGES, AE_BATCH, AE_CLASSES, AE_EPOCHS = 2048, 150, 32, 2
+AE_LR, AE_MOMENTUM, AE_CHECK_STEPS = 0.01, 0.9, 3
+# each class this slice adds, card against CPU: where no sum's order
+# differs (element-wise, gathers, copies, maxima), else RTOL / ATOL
+EXACT_TOL = dict(rtol=1e-6, atol=1e-6)
+SUM_TOL = dict(rtol=RTOL, atol=ATOL)
+# the inventory's widths: the table, shape and reduction ops at (INV_B,
+# INV_T, INV_D), the criteria at batch INV_B over INV_CLASSES classes
+INV_B, INV_T, INV_D, INV_CLASSES = 128, 500, 256, 1000
 # a gradient leaf this far below the model's largest float64 gradient
 # entry is zero (a bias that batch normalisation cancels)
 NULL_GRAD = 1e-9
@@ -4858,6 +4888,456 @@ def phase_model_zoo(torch, ops):
     return by_path
 
 
+def autoencoder_run(torch, device, init, end_trigger, drop_last=False):
+    """examples/train_autoencoder.py from ``init``: ``Autoencoder(32)``
+    and ``MSECriterion`` through ``LocalOptimizer`` on records that
+    ``FuncTransformer`` makes of mnist.synthetic(2048) (pixels / 255,
+    flattened to 784, as the feature and the label); an optimizer ready
+    to run.  ``drop_last`` drops each epoch's last partial batch (a
+    chunk of n steps a dispatch stacks uniform batches)."""
+    from bigdl_tpu_torch.models.autoencoder import Autoencoder
+    from bigdl_tpu_torch.nn import MSECriterion
+    from bigdl_tpu_torch.optim import LocalOptimizer
+    from bigdl_tpu_torch.utils.table import T
+
+    model = Autoencoder(AE_CLASSES, device=device).load_params(init)
+    opt = LocalOptimizer(model, autoencoder_set(AE_BATCH, drop_last),
+                         MSECriterion(), device=device)
+    opt.set_state(T(learningRate=AE_LR, momentum=AE_MOMENTUM))
+    if end_trigger is not None:
+        opt.set_end_when(end_trigger)
+    return opt
+
+
+def autoencoder_set(batch, drop_last=False):
+    from bigdl_tpu_torch.dataset import (DataSet, FuncTransformer, Sample,
+                                         SampleToBatch, mnist)
+
+    def to_sample(img):
+        flat = (img.data / 255.0).astype(np.float32).reshape(-1)
+        return Sample(flat, flat)
+
+    return (DataSet.array(mnist.synthetic(AE_IMAGES))
+            >> FuncTransformer(to_sample)
+            >> SampleToBatch(batch, drop_last=drop_last))
+
+
+def set_mse(torch, model):
+    """The model's mean squared error over all AE_IMAGES training
+    records, in evaluation mode."""
+    dev = next(model.parameters()).device
+    total, count = 0.0, 0
+    with torch.no_grad():
+        for b in autoencoder_set(512).data(train=False):
+            x = torch.from_numpy(b.data).to(dev)
+            total += float(((model(x) - x) ** 2).double().sum())
+            count += x.numel()
+    return total / count
+
+
+def phase_autoencoder(torch, ops):
+    """(a) of the inventory phase: the example on the card.  Returns the
+    launch counts of its paths and the kernels the graph's replays ran."""
+    from bigdl_tpu_torch.models.autoencoder import Autoencoder
+    from bigdl_tpu_torch.nn.module import export_params
+    from bigdl_tpu_torch.optim import max_epoch, max_iteration
+    from bigdl_tpu_torch.utils.random import generator
+
+    init = export_params(Autoencoder(AE_CLASSES, device="cpu",
+                                     generator=generator(0)))
+    by_path = {}
+    opt = autoencoder_run(torch, "cuda", init, max_epoch(AE_EPOCHS))
+    before = set_mse(torch, opt.model)
+    _, counts, wall = run_path(torch, ops, opt.optimize)
+    after = set_mse(torch, opt.model)
+    per_epoch = -(-AE_IMAGES // AE_BATCH)
+    steps = len(opt.loss_log)
+    if steps != AE_EPOCHS * per_epoch:
+        raise AssertionError(f"inventory Autoencoder: {steps} steps")
+    want = {**dict.fromkeys(counts, 0), "fused_sgd": steps}
+    if counts != want:
+        raise AssertionError(f"inventory Autoencoder: launches {counts}, "
+                             f"expected {want}")
+    if not after < before:
+        raise AssertionError(f"inventory Autoencoder: the training set's "
+                             f"loss went {before} -> {after}")
+    by_path["inventory_autoencoder"] = counts
+    # one more epoch, warm: ms a step, then the same under the profiler
+    opt.set_end_when(max_epoch(AE_EPOCHS + 1))
+    _, warm_counts, warm_wall = run_path(torch, ops, opt.optimize)
+    warm_ms = warm_wall / per_epoch * 1e3
+    busy, ran = profiled_run(torch, opt, per_epoch)
+    losses = [l for _, l in opt.loss_log]
+    print(f"inventory Autoencoder: {AE_EPOCHS} epochs of {AE_IMAGES} "
+          f"records at batch {AE_BATCH} ({steps} steps, "
+          f"{sum(p.numel() for p in opt.model.parameters())} params), "
+          f"{wall / steps * 1e3:.4f} ms/step cold; one more epoch warm "
+          f"{warm_ms:.4f} ms/step, device {busy:.4f} ms/step busy, idle "
+          f"share {1 - busy / warm_ms:.4f}; launches {ops_nonzero(counts)} "
+          f"(warm epoch {ops_nonzero(warm_counts)}, the profiler's "
+          f"kernels {ran}); loss over the training set {before:.8f} -> "
+          f"{after:.8f}; step losses {losses[0]:.6f} -> {losses[-1]:.6f}")
+    card = autoencoder_run(torch, "cuda", init,
+                           max_iteration(AE_CHECK_STEPS))
+    card.optimize()
+    cpu = autoencoder_run(torch, "cpu", init, max_iteration(AE_CHECK_STEPS))
+    cpu.optimize()
+    held_to_cpu_run(torch, f"inventory Autoencoder {AE_CHECK_STEPS} steps",
+                    card, cpu)
+    graph_counts, graph_ran = dispatch_runs(
+        torch, ops, "inventory Autoencoder",
+        lambda dev, n, graph: graph_or_eager(autoencoder_run(
+            torch, dev, init, None, drop_last=True), n, graph),
+        HSTEPS, {"fused_sgd": 1})
+    by_path["inventory_autoencoder_graph"] = graph_counts
+    return by_path, {"inventory_autoencoder_graph": graph_ran}
+
+
+def _input_leaves(x):
+    return [v for e in x for v in _input_leaves(e)] if isinstance(x, list) else [x]
+
+
+def _input_tables(x, it, table):
+    if isinstance(x, list):
+        return table(*[_input_tables(e, it, table) for e in x])
+    return next(it)
+
+
+def _output_leaves(y, table):
+    return ([v for e in y for v in _output_leaves(e, table)]
+            if isinstance(y, table) else [y])
+
+
+def inventory_run(torch, module, x, device, g_seed=7):
+    """One forward and backward of ``module`` on ``x`` (numpy leaves;
+    lists are Tables) on ``device``: the outputs, the floating inputs'
+    gradients and the parameters' gradients, on the host.  The backward
+    takes sum(y * g) over the floating outputs, g seeded."""
+    from bigdl_tpu_torch.utils.table import Table
+
+    leaves = [torch.from_numpy(np.array(a)).to(device) for a in _input_leaves(x)]
+    diff = [t.requires_grad_() for t in leaves if t.is_floating_point()]
+    module.zero_grad(set_to_none=True)
+    out = _output_leaves(module(_input_tables(x, iter(leaves), Table)), Table)
+    rs = np.random.RandomState(g_seed)
+    loss = None
+    for o in out:
+        if o.is_floating_point() and o.requires_grad:
+            g = torch.from_numpy(np.asarray(rs.randn(*o.shape), np.float32))
+            term = (o * g.to(device)).sum()
+            loss = term if loss is None else loss + term
+    if loss is not None:
+        loss.backward()
+    params = [p for p in module.parameters()]
+    return ([o.detach().cpu() for o in out],
+            [t.grad.cpu() if t.grad is not None else torch.zeros(t.shape)
+             for t in diff],
+            [p.grad.cpu() if p.grad is not None else torch.zeros(p.shape)
+             for p in params])
+
+
+def inventory_held(torch, name, card, cpu, tol):
+    """Card against CPU, tensor by tensor: within ``tol`` element-wise;
+    where a sum's order differs (``tol`` SUM_TOL) a tensor may instead be
+    held as held_vs_cpu holds a leaf, its largest difference over its
+    largest entry within RTOL.  Returns (largest |card - CPU| of the
+    outputs, of the input gradients, of the parameter gradients, the rule
+    that held)."""
+    errs, rule = [], "element-wise"
+    for part, (a_list, b_list) in zip(("out", "dx", "params"),
+                                      zip(card, cpu)):
+        worst = 0.0
+        for a, b in zip(a_list, b_list):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(f"inventory {name} {part}: {a.shape} "
+                                     f"{a.dtype} on the card, {b.shape} "
+                                     f"{b.dtype} on the CPU")
+            if not a.is_floating_point():
+                if not torch.equal(a, b):
+                    raise AssertionError(f"inventory {name} {part}: the "
+                                         f"card's differs")
+                continue
+            if a.numel() == 0:
+                continue
+            d = (a.double() - b.double()).abs()
+            worst = max(worst, float(d.max()))
+            if torch.allclose(a, b, **tol):
+                continue
+            if tol is SUM_TOL and leaf_rel(a, b.double()) <= RTOL:
+                rule = "over the largest entry"
+                continue
+            raise AssertionError(f"inventory {name} {part}: |card - CPU| "
+                                 f"{float(d.max()):.3e} beyond {tol}")
+        errs.append(worst)
+    return (*errs, rule)
+
+
+def inventory_cases(torch):
+    """(name, module on the CPU, input, tolerance): one forward and
+    backward of each class this slice adds, at a width a real network
+    uses."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.utils.random import generator
+
+    g = generator(0)
+    rs = np.random.RandomState(0)
+    B, T_, D, C = INV_B, INV_T, INV_D, INV_CLASSES
+
+    def randn(*shape):
+        return rs.randn(*shape).astype(np.float32)
+
+    def probs(*shape):
+        return rs.uniform(0.05, 0.95, shape).astype(np.float32)
+
+    def sign(*shape):
+        return np.where(rs.rand(*shape) > 0.5, 1.0, -1.0).astype(np.float32)
+
+    def classes(*shape):
+        return rs.randint(1, C + 1, shape).astype(np.int64)
+
+    def log_softmax(x):
+        return np.asarray(torch.log_softmax(torch.from_numpy(x), -1))
+
+    def crit(c):
+        return nn.CriterionTable(c)
+
+    cpu = dict(device="cpu", generator=g)
+    x3, y3 = randn(B, T_, D), randn(B, T_, D)
+    labels = np.zeros((B, C), np.int64)     # 1 to 5 labels a row
+    for r in range(B):
+        k = rs.randint(1, 6)
+        labels[r, :k] = rs.choice(C, k, replace=False) + 1
+    w_c = rs.uniform(0.5, 2.0, C).astype(np.float32)
+    rois = np.stack([np.zeros(128), *(
+        rs.uniform(0, 800, 128), rs.uniform(0, 600, 128))], 1)
+    rois = np.concatenate([rois, rois[:, 1:] + rs.uniform(
+        16, 400, (128, 2))], 1).astype(np.float32)
+    rois[:, 3:] = np.minimum(rois[:, 3:], [799, 599])
+    m = nn
+    E, S = EXACT_TOL, SUM_TOL
+    cases = [
+        # containers
+        ("ParallelTable", m.ParallelTable(m.Linear(D, 128, **cpu),
+                                          m.Tanh()), [x3, y3],
+         S),
+        ("MapTable", m.MapTable(m.Linear(D, D, **cpu)),
+         [x3, y3], S),
+        ("Bottle", m.Bottle(m.Linear(D, 128, **cpu), 2, 2), x3, S),
+        ("ConcatTable", m.Sequential(m.ConcatTable(m.Identity(),
+                                                   m.Linear(D, D, **cpu)),
+                                     m.CAddTable()), x3, S),
+        # criteria at batch B over C classes
+        ("MSECriterion", crit(m.MSECriterion()), [randn(B, C), randn(B, C)],
+         S),
+        ("AbsCriterion", crit(m.AbsCriterion()), [randn(B, C), randn(B, C)],
+         S),
+        ("BCECriterion", crit(m.BCECriterion(w_c)),
+         [probs(B, C), (rs.rand(B, C) > 0.5).astype(np.float32)], S),
+        ("DistKLDivCriterion", crit(m.DistKLDivCriterion()),
+         [log_softmax(randn(B, C)), probs(B, C)], S),
+        ("ClassSimplexCriterion", crit(m.ClassSimplexCriterion(C)),
+         [randn(B, C), classes(B)], S),
+        ("CosineEmbeddingCriterion", crit(m.CosineEmbeddingCriterion(0.0)),
+         [[randn(B, C), randn(B, C)], sign(B)], S),
+        ("HingeEmbeddingCriterion", crit(m.HingeEmbeddingCriterion(1.0)),
+         [randn(B, C), sign(B, C)], S),
+        ("L1HingeEmbeddingCriterion",
+         crit(m.L1HingeEmbeddingCriterion(1130.0)),
+         [[randn(B, C), randn(B, C)], sign(B)], S),
+        ("MarginCriterion", crit(m.MarginCriterion()),
+         [randn(B, C), sign(B, C)], S),
+        ("MarginRankingCriterion", crit(m.MarginRankingCriterion(0.5)),
+         [[randn(B), randn(B)], sign(B)], S),
+        ("MultiCriterion", crit(m.MultiCriterion().add(
+            m.MSECriterion(), 0.3).add(m.SmoothL1Criterion(), 0.7)),
+         [randn(B, C), randn(B, C)], S),
+        ("ParallelCriterion", crit(m.ParallelCriterion().add(
+            m.MSECriterion(), 0.5).add(m.ClassNLLCriterion(), 1.0)),
+         [[randn(B, C), log_softmax(randn(B, C))],
+          [randn(B, C), classes(B)]], S),
+        ("MultiLabelMarginCriterion", crit(m.MultiLabelMarginCriterion()),
+         [randn(B, C), labels], S),
+        ("MultiLabelSoftMarginCriterion",
+         crit(m.MultiLabelSoftMarginCriterion(w_c)),
+         [randn(B, C) * 3, (rs.rand(B, C) > 0.5).astype(np.float32)], S),
+        ("MultiMarginCriterion", crit(m.MultiMarginCriterion(2, w_c)),
+         [randn(B, C), classes(B)], S),
+        ("SmoothL1Criterion", crit(m.SmoothL1Criterion()),
+         [randn(B, C) * 2, randn(B, C)], S),
+        ("SmoothL1CriterionWithWeights",
+         crit(m.SmoothL1CriterionWithWeights(3.0)),
+         [randn(B, C), [randn(B, C), probs(B, C), probs(B, C)]], S),
+        ("SoftMarginCriterion", crit(m.SoftMarginCriterion()),
+         [randn(B, C) * 3, sign(B, C)], S),
+        ("SoftmaxWithCriterion", crit(m.SoftmaxWithCriterion(C + 255)),
+         [randn(B, C), np.where(rs.rand(B) > 0.9, C + 255, classes(B))], S),
+        ("L1Cost", crit(m.L1Cost()), [randn(B, C), randn(B, C)], S),
+        # linear.py
+        ("Bilinear", m.Bilinear(D, D, 128, **cpu), [randn(B, D),
+                                                    randn(B, D)], S),
+        ("CMul", m.CMul((1, 1, D), **cpu), x3, S),
+        ("CAdd", m.CAdd((1, 1, D), **cpu), x3, S),
+        ("Mul", m.Mul(**cpu), x3, S),
+        ("Add", m.Add(D, **cpu), x3, S),
+        ("AddConstant", m.AddConstant(0.5), x3, E),
+        ("MM", m.MM(False, True), [x3, y3], S),
+        ("MV", m.MV(), [x3, randn(B, D)], S),
+        ("Cosine", m.Cosine(D, C, **cpu), randn(B, D), S),
+        ("Euclidean", m.Euclidean(D, 100, **cpu), randn(B, D), S),
+        ("LookupTable", m.LookupTable(20000, 200, **cpu),
+         rs.randint(1, 20001, (B, T_)), S),
+        ("LookupTable max_norm", m.LookupTable(20000, 200, max_norm=1.0,
+                                               **cpu),
+         rs.randint(1, 20001, (B, T_)), S),
+        # table_ops.py at (B, T, D)
+        ("CSubTable", m.CSubTable(), [x3, y3], E),
+        ("CMulTable", m.CMulTable(), [x3, y3], E),
+        ("CDivTable", m.CDivTable(), [x3, np.abs(y3) + 0.5], E),
+        ("CMaxTable", m.CMaxTable(), [x3, y3], E),
+        ("CMinTable", m.CMinTable(), [x3, y3], E),
+        ("JoinTable", m.JoinTable(1, 2), [x3, randn(B, 12, D)], E),
+        ("SelectTable", m.SelectTable(-1), [x3, y3], E),
+        ("NarrowTable", m.NarrowTable(2, 2),
+         [randn(B, 7), x3, y3], E),
+        ("FlattenTable", m.FlattenTable(), [x3, [randn(B, 7),
+                                                 [y3]]], E),
+        ("MixtureTable", m.MixtureTable(),
+         [probs(B, 4), [x3, y3, x3[:, ::-1].copy(), y3[:, ::-1].copy()]],
+         S),
+        ("DotProduct", m.DotProduct(), [x3, y3], S),
+        ("PairwiseDistance", m.PairwiseDistance(), [x3, y3], S),
+        ("CosineDistance", m.CosineDistance(), [x3, y3], S),
+        ("CriterionTable", crit(m.MSECriterion()), [x3, y3], S),
+        # shape_ops.py
+        ("InferReshape", m.InferReshape((0, -1, D // 2)), x3, E),
+        ("Transpose", m.Transpose([(2, 3), (1, 2)]), x3, E),
+        ("Replicate", m.Replicate(3, 2), x3, S),
+        ("Squeeze", m.Squeeze(4), x3[..., None], E),
+        ("Unsqueeze", m.Unsqueeze(2), x3, E),
+        ("Padding", m.Padding(2, -3, 2, 0.5), x3, E),
+        ("SpatialZeroPadding", m.SpatialZeroPadding(2, -1, 1, -2),
+         x3.reshape(B, T_, 16, D // 16), E),
+        ("Contiguous", m.Sequential(m.Transpose([(2, 3)]), m.Contiguous()),
+         x3, E),
+        ("Copy", m.Copy(), x3, E),
+        ("Echo", m.Echo(), x3, E),
+        # reductions.py
+        ("Sum", m.Sum(2), x3, S),
+        ("Max", m.Max(3), x3, E),
+        ("Min", m.Min(2), x3, E),
+        ("Index", m.Index(2), [x3, rs.randint(1, T_ + 1, 64)], S),
+        ("Select", m.Select(2, -7), x3, E),
+        ("Narrow", m.Narrow(3, 10, -20), x3, E),
+        ("MaskedSelect", m.MaskedSelect(),
+         [x3, (rs.rand(B, T_, D) > 0.5).astype(np.uint8)], E),
+        # dropout.py
+        ("L1Penalty", m.L1Penalty(0.01, True), x3, E),
+        # conv.py: DCGAN's generator layer, FCN's bilinear upsampling,
+        # a DeepLab-v2 ASPP branch, LeNet-5's C3 table, a ResNet 3x3
+        ("SpatialFullConvolution", m.SpatialFullConvolution(
+            512, 256, 4, 4, 2, 2, 1, 1, **cpu), randn(64, 512, 8, 8), S),
+        ("SpatialFullConvolution adj groups", m.SpatialFullConvolution(
+            16, 8, 3, 3, 2, 2, 1, 1, 1, 1, 2, **cpu), randn(8, 16, 9, 9),
+         S),
+        ("SpatialFullConvolution BilinearFiller", m.SpatialFullConvolution(
+            21, 21, 4, 4, 2, 2, 1, 1, n_group=21,
+            init_method=m.BilinearFiller, **cpu), randn(4, 21, 16, 16), S),
+        ("SpatialDilatedConvolution", m.SpatialDilatedConvolution(
+            512, 512, 3, 3, 1, 1, 12, 12, 12, 12, **cpu),
+         randn(4, 512, 33, 33), S),
+        ("SpatialConvolutionMap", m.SpatialConvolutionMap(
+            m.SpatialConvolutionMap.random(6, 16, 3, rs), 5, 5, **cpu),
+         randn(B, 6, 14, 14), S),
+        ("SpatialShareConvolution", m.SpatialShareConvolution(
+            64, 64, 3, 3, 1, 1, 1, 1, **cpu), randn(32, 64, 56, 56), S),
+        # normalization.py (Torch's local normalisation of 3-channel
+        # 32x32 images, a 9x9 gaussian)
+        ("SpatialSubtractiveNormalization",
+         m.SpatialSubtractiveNormalization(3), randn(B, 3, 32, 32), S),
+        ("SpatialDivisiveNormalization",
+         m.SpatialDivisiveNormalization(3), randn(B, 3, 32, 32), S),
+        ("SpatialContrastiveNormalization",
+         m.SpatialContrastiveNormalization(3), randn(B, 3, 32, 32), S),
+        # pooling.py: Fast R-CNN's VGG-16 conv5_3 (a 600x800 image)
+        ("RoiPooling", m.RoiPooling(7, 7, 1.0 / 16),
+         [randn(1, 512, 38, 50), rois], S),
+    ]
+    return cases
+
+
+def phase_inventory_classes(torch, ops):
+    """(b) of the inventory phase: one forward and backward of every class
+    this slice adds on the card against the same module on the CPU from
+    the same parameters; the NMS functions on 6,000 proposals.  None of
+    them launches a kernel of the port."""
+    import copy
+
+    from bigdl_tpu_torch import nn
+
+    def run():
+        done = []
+        for name, module, x, tol in inventory_cases(torch):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            card = inventory_run(torch, copy.deepcopy(module).cuda(), x,
+                                 "cuda")
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            t0 = time.perf_counter()
+            cpu = inventory_run(torch, module, x, "cpu")
+            cpu_s = time.perf_counter() - t0
+            e_out, e_dx, e_p, rule = inventory_held(torch, name, card, cpu,
+                                                    tol)
+            tol_name = "exact" if tol is EXACT_TOL else "sum"
+            print(f"inventory {name}: max |card - CPU| out {e_out:.3e} dx "
+                  f"{e_dx:.3e} params {e_p:.3e} (tolerance {tol_name} "
+                  f"{tol}, held {rule}); card peak {peak / 2**20:.1f} MiB; "
+                  f"CPU {cpu_s:.2f} s")
+            done.append(type(module).__name__ if not isinstance(
+                module, nn.CriterionTable) else type(
+                    module.criterion).__name__)
+            del card, cpu
+        rs = np.random.RandomState(1)
+        n = 6000
+        xy = rs.uniform(0, 800, (n, 2))
+        boxes = np.concatenate([xy, xy + rs.uniform(16, 300, (n, 2))],
+                               1).astype(np.float32)
+        scores = rs.rand(n).astype(np.float32)
+        bc, sc = torch.from_numpy(boxes), torch.from_numpy(scores)
+        t0 = time.perf_counter()
+        keep_card = nn.nms_mask(bc.cuda(), sc.cuda(), 0.7)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        keep_cpu = nn.nms_mask(bc, sc, 0.7)
+        idx_card = nn.nms_indices(bc.cuda(), sc.cuda(), 0.7).cpu()
+        idx_cpu = nn.Nms(0.7)(bc, sc)
+        if not (torch.equal(keep_card.cpu(), keep_cpu)
+                and torch.equal(idx_card, idx_cpu)):
+            raise AssertionError("inventory nms: the card's keep set "
+                                 "differs from the CPU's")
+        print(f"inventory nms_mask / nms_indices / Nms: {n} proposals at "
+              f"IoU 0.7, {int(keep_cpu.sum())} kept, the same on the card "
+              f"({card_ms:.2f} ms wall) and the CPU")
+        done += ["Nms"]
+        return done
+
+    done, counts, _ = run_path(torch, ops, run)
+    if ops_nonzero(counts):
+        raise AssertionError(f"inventory classes: launches {counts}")
+    return done
+
+
+def phase_inventory(torch, ops):
+    """The inventory: (a) examples/train_autoencoder.py on the card, (b)
+    every class this slice adds against the CPU."""
+    by_path, graph_ran = phase_autoencoder(torch, ops)
+    done = phase_inventory_classes(torch, ops)
+    print(f"inventory: {len(set(done))} classes ({len(done)} cases) held "
+          f"card against CPU")
+    return by_path, graph_ran
+
+
 def phase_table(torch, ops, profile, rows):
     """Every phase in run order: (name, kind, run).  A "kernels" phase's
     ``run()`` returns its rows of the kernels line (the state phase adds
@@ -4913,6 +5393,7 @@ def phase_table(torch, ops, profile, rows):
         ("resnet50", "path", counts_of("resnet50", phase_resnet50)),
         ("bn_harness", "path", lambda: phase_bn_harness(torch, ops)),
         ("model_zoo", "path", lambda: (phase_model_zoo(torch, ops), {})),
+        ("inventory", "path", lambda: phase_inventory(torch, ops)),
     ]
 
 
@@ -4928,6 +5409,8 @@ ONLY = {
     # the batch-normalisation slice: its kernel checks and four paths
     "--bn": ("train_kernels", "conv_kernels", "vgg", "resnet50",
              "bn_harness", "model_zoo"),
+    # the inventory slice: fused_sgd's checks and the inventory phase
+    "--inventory": ("train_kernels", "inventory"),
 }
 # the kernels line: each row's keys (queued_ms: calls queued back to back,
 # the device's time where it outlasts the wrapper's host work, no L2
@@ -4996,12 +5479,16 @@ def main(argv) -> int:
                                        rows):
         if only is not None and name not in only:
             continue
+        t_phase = time.perf_counter()
         try:
             out = run()
         except Exception:
             traceback.print_exc()
             failed.append(name)
             continue
+        finally:
+            print(f"phase {name}: {time.perf_counter() - t_phase:.1f} s "
+                  f"(wall)")
         if kind == "kernels":
             rows += out
         else:

@@ -1,9 +1,11 @@
 """Host data pipeline of the port (counterpart of bigdl_tpu/dataset):
 records, datasets, transformers, MNIST, CIFAR-10, text.  numpy only."""
 from bigdl_tpu_torch.dataset import cifar, mnist
-from bigdl_tpu_torch.dataset.dataset import (DataSet, LocalArrayDataSet,
-                                             LocalDataSet,
-                                             TransformedDataSet)
+from bigdl_tpu_torch.dataset.dataset import (DataSet, DistributedDataSet,
+                                             LocalArrayDataSet,
+                                             LocalDataSet, ShardedDataSet,
+                                             TransformedDataSet,
+                                             get_batch_size)
 from bigdl_tpu_torch.dataset.image import (HFlip, ImgNormalizer,
                                            ImgRdmCropper, ImgToBatch,
                                            LabeledImage)
@@ -16,10 +18,12 @@ GreyImgNormalizer = ImgNormalizer
 GreyImgToBatch = ImgToBatch
 
 __all__ = [
-    "ChainedTransformer", "DataSet", "FuncTransformer", "GreyImgNormalizer",
+    "ChainedTransformer", "DataSet", "DistributedDataSet", "FuncTransformer",
+    "GreyImgNormalizer",
     "GreyImgToBatch",
     "HFlip", "Identity", "ImgNormalizer", "ImgRdmCropper", "ImgToBatch",
     "LabeledImage", "LabeledSentence",
     "LocalArrayDataSet", "LocalDataSet", "MiniBatch", "Sample",
-    "SampleToBatch", "TransformedDataSet", "Transformer", "cifar", "mnist",
+    "SampleToBatch", "ShardedDataSet", "TransformedDataSet", "Transformer",
+    "cifar", "get_batch_size", "mnist",
 ]

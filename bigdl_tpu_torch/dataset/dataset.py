@@ -8,12 +8,17 @@ the same draws, in the same order, as the JAX package's main-thread
 ``RNG.np_rng()`` after ``set_seed(seed)`` (an in-place ``shuffle`` of
 the records at each epoch rollover, then one ``permutation`` as each
 training pass starts), so the two packages see the same epoch order.
+``DataSet.array(records, seed, distributed=True)`` is the sharded
+dataset of a data-parallel run (``ShardedDataSet``): each rank holds the
+strided shard ``records[r::N]`` and shuffles it from its own stream,
+seeded alike on every rank.
 ``ds >> transformer`` hands that stream to every random (``stochastic``)
 stage of the transformer that has none of its own, so the crops and
 flips draw from it too, lazily, record by record, as the JAX pipeline
 draws from ``RNG.np_rng()``.  While a prefetch producer runs, it owns
 that stream (``utils.random.RandomGenerator.own_stream``).
-The sharded (distributed) dataset comes with the distributed slice.
+``reshard`` (re-partitioning after a rank is lost) waits for the elastic
+slice.
 """
 from __future__ import annotations
 
@@ -21,6 +26,17 @@ import numpy as np
 
 from bigdl_tpu_torch.dataset.transformer import Transformer, stages
 from bigdl_tpu_torch.utils.random import check_stream
+
+
+def get_batch_size(total_batch: int, node_number: int) -> int:
+    """The global batch over the nodes, which must divide it (ref
+    dataset/Utils.scala:26-48)."""
+    if total_batch % node_number != 0:
+        raise ValueError(
+            f"total batch size {total_batch} cannot be divided by node "
+            f"number {node_number}; adjust the batch size (ref "
+            f"dataset/Utils.scala:26)")
+    return total_batch // node_number
 
 
 class AbstractDataSet:
@@ -105,11 +121,87 @@ class TransformedDataSet(AbstractDataSet):
         return self.transformer(self.base.data(train))
 
 
+def _world_position():
+    """(rank, world size): the process group's, else torchrun's
+    variables, else (0, 1)."""
+    import os
+
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        return int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    return 0, 1
+
+
+class ShardedDataSet(AbstractDataSet):
+    """This rank's shard of a global dataset (the DistributedDataSet role,
+    ref DataSet.scala:164 + CachedDistriDataSet:203; bigdl_tpu/dataset/
+    dataset.py:102-172).
+
+    The rank holds the strided shard ``data[shard_index::n_shards]`` (by
+    default its rank of the world) and iterates it shuffled, as a
+    ``LocalArrayDataSet`` over the shard: its stream is
+    ``RandomState(seed)``, the same seed on every rank, as every JAX
+    process is seeded by ``set_seed``.  ``size()`` is the global record
+    count, what an epoch counts; ``shard_size()`` this rank's."""
+
+    def __init__(self, data, n_shards: int = None, shard_index: int = None,
+                 seed: int = 1):
+        rank, world = _world_position()
+        self.n_shards = world if n_shards is None else int(n_shards)
+        self.shard_index = rank if shard_index is None else int(shard_index)
+        if not 0 <= self.shard_index < self.n_shards:
+            raise ValueError(f"shard {self.shard_index} of {self.n_shards}")
+        data = list(data)
+        self._global_size = len(data)
+        self._local = LocalArrayDataSet(
+            data[self.shard_index::self.n_shards], seed)
+        self.rng = self._local.rng
+
+    @property
+    def order(self):
+        """The shuffled order of the shard's records (checkpoints carry
+        it, as ``LocalArrayDataSet.order``)."""
+        return self._local.order
+
+    def size(self):
+        return self._global_size
+
+    def shard_size(self):
+        return self._local.size()
+
+    def shuffle(self):
+        self._local.shuffle()
+        return self
+
+    def data(self, train: bool):
+        return self._local.data(train)
+
+
+#: the reference's name for the concept (DistributedDataSet)
+DistributedDataSet = ShardedDataSet
+
+
+def is_distributed_dataset(ds) -> bool:
+    """Whether ``ds``, or the root of its transformer chain, is a rank's
+    shard: the one predicate the ``Optimizer`` factory routes on and the
+    ``DistriOptimizer`` reads its global batch from
+    (bigdl_tpu/optim/optimizer.py:16-29)."""
+    while isinstance(ds, TransformedDataSet):
+        ds = ds.base
+    return isinstance(ds, ShardedDataSet)
+
+
 class DataSet:
     """Factory namespace (ref object DataSet, DataSet.scala:271)."""
 
     @staticmethod
-    def array(data, seed: int = 1):
+    def array(data, seed: int = 1, distributed: bool = False):
         """(ref DataSet.array :271-294); ``seed`` seeds the shuffles (the
-        JAX package's process-wide default seed is 1)."""
+        JAX package's process-wide default seed is 1); ``distributed``
+        gives this rank's ``ShardedDataSet``."""
+        if distributed:
+            return ShardedDataSet(data, seed=seed)
         return LocalArrayDataSet(data, seed)

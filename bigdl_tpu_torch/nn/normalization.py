@@ -12,6 +12,8 @@ import torch.nn.functional as F
 from bigdl_tpu_torch.nn import init as init_
 from bigdl_tpu_torch.nn.module import TensorModule, device_constant
 from bigdl_tpu_torch.ops import lrn_channel
+from bigdl_tpu_torch.parallel.collectives import (all_gather, all_reduce,
+                                                  axis_size)
 
 
 class BatchNormalization(TensorModule):
@@ -31,7 +33,14 @@ class BatchNormalization(TensorModule):
     and ``running_var`` is written in place into the registered buffers
     (a captured CUDA graph replays it).  ``F.batch_norm`` refuses one
     value a channel in training; there the JAX arithmetic runs as plain
-    operations (variance 0, the unbiasing divisor 1)."""
+    operations (variance 0, the unbiasing divisor 1).
+
+    In a data-parallel run whose step takes the statistics of the global
+    batch (the ``DistriOptimizer``'s plain path, as the JAX step under
+    ``jit`` takes them), ``process_group`` is the group of the ranks
+    that share the batch: training then normalises by the global batch's
+    statistics (:class:`_SyncBatchNorm`); it is None otherwise, and never
+    pickled."""
 
     n_dim = 2
 
@@ -51,12 +60,23 @@ class BatchNormalization(TensorModule):
             self.weight = self.bias = None
         self._add_buffer("running_mean", torch.zeros(n_output), device)
         self._add_buffer("running_var", torch.ones(n_output), device)
+        self.process_group = None
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state["process_group"] = None
+        return state
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         unbatched = x.dim() == self.n_dim - 1
         if unbatched:
             x = x[None]
-        if self.training and x.numel() == self.n_output:
+        if self.training and self.process_group is not None:
+            y = _SyncBatchNorm.apply(x, self.weight, self.bias,
+                                     self.running_mean, self.running_var,
+                                     self.eps, self.momentum,
+                                     self.process_group)
+        elif self.training and x.numel() == self.n_output:
             y = self._one_per_channel(x)
         else:
             y = F.batch_norm(x, self.running_mean, self.running_var,
@@ -84,6 +104,74 @@ class BatchNormalization(TensorModule):
 
     def extra_repr(self) -> str:
         return f"{self.n_output}, eps={self.eps}, momentum={self.momentum}"
+
+
+def _stat_axes(x):
+    return [0] + list(range(2, x.dim()))
+
+
+def _per_channel(v, x):
+    return v.reshape([1, -1] + [1] * (x.dim() - 2))
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Batch normalisation over the global batch of a process group, with
+    the JAX module's arithmetic (bigdl_tpu/nn/normalization.py:77-97).
+
+    Forward: each rank's count, per-channel mean and sum of squared
+    deviations cross in one all-gather (float64) and merge exactly (Chan
+    et al.'s pairwise update); the biased variance normalises,
+    ``y = x·scale + shift``, and the running variance moves by the
+    variance unbiased with the global count.  Backward: the per-channel
+    sums of dy and dy·x̂ cross in one all-reduce; dx takes the global
+    sums, dγ and dβ stay this rank's (the data-parallel all-reduce of the
+    gradients sums them)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, eps,
+                momentum, group):
+        axes = _stat_axes(x)
+        c = x.shape[1]
+        n_r = x.numel() // c
+        m_r = x.mean(axes)
+        d = x - _per_channel(m_r, x)
+        local = torch.cat([x.new_tensor([float(n_r)]), m_r,
+                           (d * d).sum(axes)]).double()
+        g = all_gather(local, group).view(axis_size(group), 2 * c + 1)
+        counts, means, m2s = g[:, :1], g[:, 1:1 + c], g[:, 1 + c:]
+        n = counts.sum()
+        mean64 = (counts * means).sum(0) / n
+        var64 = (m2s.sum(0) + (counts * (means - mean64) ** 2).sum(0)) / n
+        mean, var = mean64.float(), var64.float()
+        n = float(n)
+        with torch.no_grad():
+            unbiased = var * (n / max(n - 1.0, 1.0))
+            running_mean.mul_(1 - momentum).add_(momentum * mean)
+            running_var.mul_(1 - momentum).add_(momentum * unbiased)
+        inv = torch.rsqrt(var + eps)
+        scale, shift = inv, -mean * inv
+        if weight is not None:
+            scale = scale * weight
+            shift = shift * weight + bias
+        ctx.save_for_backward(x, mean, inv, weight)
+        ctx.n, ctx.group = n, group
+        return x * _per_channel(scale, x) + _per_channel(shift, x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, mean, inv, weight = ctx.saved_tensors
+        axes = _stat_axes(x)
+        xhat = (x - _per_channel(mean, x)) * _per_channel(inv, x)
+        sdy = dy.sum(axes)
+        sdyx = (dy * xhat).sum(axes)
+        both = all_reduce(torch.cat([sdy, sdyx]), ctx.group)
+        g_sdy, g_sdyx = both.split(x.shape[1])
+        k = inv if weight is None else inv * weight
+        dx = _per_channel(k, x) * (dy - _per_channel(g_sdy / ctx.n, x)
+                                   - xhat * _per_channel(g_sdyx / ctx.n, x))
+        if weight is None:
+            return dx, None, None, None, None, None, None, None
+        return dx, sdyx, sdy, None, None, None, None, None
 
 
 class SpatialBatchNormalization(BatchNormalization):

@@ -1,0 +1,523 @@
+"""DistriOptimizer — synchronous data-parallel SGD over ``torch.distributed``
+(counterpart of bigdl_tpu/optim/distri_optimizer.py; ref
+optim/DistriOptimizer.scala, call stack SURVEY.md §3.1).
+
+One process a rank and one card a process, PyTorch's idiom: each device
+of the JAX package's mesh is one rank here, NCCL on the card, gloo on the
+CPU (``utils/engine.py``).  The reference's pieces map so:
+
+- a model replica a node (initThreadModels :344-410) -> the model on
+  every rank, rank 0's parameters and buffers broadcast when training
+  starts (``parallel/broadcast.py``);
+- ``getParameters``' compaction -> the parameters and their gradients
+  are views into two flat fp32 buffers (``parallel/sharding.py``'s
+  ``FlatPartition``, built before the first step);
+- AllReduceParameter -> one ``all_reduce`` of the flat gradient buffer,
+  the step's loss riding in its last element (plain DP), or, with
+  ``zero1=True``, the owner-partition update: a ``reduce_scatter`` of the
+  padded flat gradient, ``fused_sgd`` on this rank's slice alone with a
+  velocity of L/N elements, and an ``all_gather`` of the updated slices
+  into the flat parameters (DistriOptimizer.scala:232);
+- FP16CompressedTensor -> ``gradient_compression="bf16"``: the local
+  gradient cast to bf16, summed over the wire in bf16 (a reduce-scatter
+  and an all-gather, or with ``zero1`` the reduce-scatter alone), the
+  mean taken, cast back before the f32 update;
+- straggler dropping (DistriOptimizer.scala:154-172, :245-278) -> a rank
+  whose time exceeded the threshold on the previous iteration is masked
+  out of this one's mean, ``sum(w·g) / sum(w)`` (``optim/straggler.py``;
+  every rank holds the same policy state from the gathered times).
+
+The global batch.  With a replicated dataset (``DataSet.array(x)``)
+every rank draws the same stream and each batch of B is the global batch,
+rank r taking rows ``[r·B/N, (r+1)·B/N)``; with a sharded one
+(``distributed=True``) each rank's batch of B is its own and the global
+batch is B·N.  The plain path differentiates the global batch's loss,
+as the JAX step under ``jit`` does: each rank scales its loss before the
+backward by its share (1/N for a criterion that averages over samples, 1
+for one that sums, this rank's part of the normaliser for the weighted
+``ClassNLLCriterion``; ``global_batch_rule``), the gradient all-reduce
+sums, and batch normalisation takes the global batch's statistics (each
+``BatchNormalization`` gets the group: ``nn/normalization.py``).  The
+compressed and masked paths (the JAX ``shard_map`` builder) take the mean
+of the ranks' local losses, per-shard statistics, and average the
+running statistics after the step.  With one rank the plain and
+``zero1`` paths give ``LocalOptimizer``'s trajectory bit for bit.
+
+The update is skipped on every rank when any rank saw a non-finite loss
+or gradient: on the plain path the flag is read after the all-reduce, so
+it agrees; elsewhere each rank's count of non-finite values is summed
+with the loss.  Dropout draws from each rank's stream, the rank folded
+into the seed (``RNG.fold_rank``).  ``set_iterations_per_dispatch(n)``
+runs the n steps as an eager loop on every device (no CUDA graph).
+Validation shares the batches out over the ranks and sums their results;
+checkpoints are ``LocalOptimizer``'s files, written by rank 0 after the
+``zero1`` velocity slices are gathered, while the others wait.
+
+Not ported yet, each refused where it is asked for: tensor, pipeline,
+expert and sequence parallelism (a later slice), elastic recovery
+(``BIGDL_ELASTIC=1``; the resilience slice, with the sharded
+asynchronous checkpoints), and the background prefetch under this
+optimizer.
+"""
+from __future__ import annotations
+
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from bigdl_tpu_torch.dataset import prefetch
+from bigdl_tpu_torch.dataset.dataset import (get_batch_size,
+                                             is_distributed_dataset)
+from bigdl_tpu_torch.nn import criterion as C
+from bigdl_tpu_torch.nn.module import leaves_of, tree_of
+from bigdl_tpu_torch.nn.normalization import BatchNormalization
+from bigdl_tpu_torch.optim.local_optimizer import LocalOptimizer, validate
+from bigdl_tpu_torch.optim.straggler import StragglerPolicy
+from bigdl_tpu_torch.parallel import collectives as coll
+from bigdl_tpu_torch.parallel.broadcast import model_broadcast
+from bigdl_tpu_torch.parallel.mesh import LATER, data_parallel_mesh
+from bigdl_tpu_torch.parallel.sharding import FlatPartition, leaf_align
+from bigdl_tpu_torch.utils.engine import Engine, backend_for
+from bigdl_tpu_torch.utils.random import RNG
+
+logger = logging.getLogger("bigdl_tpu_torch.optim")
+
+
+def global_batch_rule(criterion) -> str:
+    """How the ranks' losses make the global batch's loss: ``"mean"``
+    (the criterion averages over samples or elements, which the equal
+    shards split evenly), ``"sum"``, or ``"weighted"`` (a weighted
+    ``ClassNLLCriterion`` / ``CrossEntropyCriterion`` averaging: the
+    global loss is the sum of the numerators over the sum of the weights
+    of the targets).  A criterion whose normaliser depends on the whole
+    batch in another way raises."""
+    if isinstance(criterion, C.CrossEntropyCriterion):
+        return global_batch_rule(criterion.nll)
+    if isinstance(criterion, C.ClassNLLCriterion):
+        if criterion.weights is not None and criterion.size_average:
+            return "weighted"
+        return "mean" if criterion.size_average else "sum"
+    if isinstance(criterion, C.SoftmaxWithCriterion):
+        if criterion.normalize_mode == "valid" and \
+                criterion.ignore_label is not None:
+            raise NotImplementedError(
+                "SoftmaxWithCriterion with an ignore label normalises by "
+                "the positions kept across the whole batch: no "
+                "data-parallel rule for it yet")
+        return ("mean" if criterion.normalize_mode in
+                ("valid", "batch_size", "full") else "sum")
+    if isinstance(criterion, C.SmoothL1CriterionWithWeights):
+        return "sum" if criterion.num > 0 else "mean"
+    if isinstance(criterion, C.L1Cost):
+        return "sum"
+    if isinstance(criterion, C.TimeDistributedCriterion):
+        return global_batch_rule(criterion.critrn)
+    if isinstance(criterion, (C.MultiCriterion, C.ParallelCriterion)):
+        rules = {global_batch_rule(c) for c in criterion.criterions}
+        if len(rules) != 1 or "weighted" in rules:
+            raise NotImplementedError(
+                f"{type(criterion).__name__} of criteria whose global "
+                f"batches combine differently ({sorted(rules)})")
+        return rules.pop()
+    if not isinstance(criterion, C.Criterion):
+        raise NotImplementedError(
+            f"{type(criterion).__name__} is not a Criterion: its "
+            f"global-batch rule is unknown")
+    return "mean" if criterion.size_average else "sum"
+
+
+def _class_weights(criterion):
+    if isinstance(criterion, C.CrossEntropyCriterion):
+        return criterion.nll.weights
+    return criterion.weights
+
+
+class DistriOptimizer(LocalOptimizer):
+    """Trains ``model`` on every rank of ``mesh`` (by default all ranks
+    of the default group, formed from torchrun's variables or as a world
+    of one when there is none) on this rank's device: ``cuda:{LOCAL_RANK}``
+    unless the caller asks for the CPU."""
+
+    def __init__(self, model, dataset, criterion, mesh=None,
+                 drop_percentage: float = 0.0, tensor_parallel: bool = False,
+                 zero1: bool = False, gradient_compression: str = None,
+                 pipeline_stages: int = None,
+                 pipeline_schedule: str = "1f1b",
+                 pipeline_microbatches: int = None,
+                 expert_parallel: bool = False,
+                 sequence_parallel: bool = False, device="cuda"):
+        if gradient_compression not in (None, "bf16"):
+            raise ValueError("gradient_compression must be None or 'bf16'")
+        later = [name for name, on in (
+            ("tensor_parallel", tensor_parallel),
+            ("pipeline_stages", pipeline_stages is not None),
+            ("pipeline_schedule", pipeline_schedule != "1f1b"),
+            ("pipeline_microbatches", pipeline_microbatches is not None),
+            ("expert_parallel", expert_parallel),
+            ("sequence_parallel", sequence_parallel)) if on]
+        if later:
+            raise NotImplementedError(f"{', '.join(later)}: {LATER}")
+        if os.environ.get("BIGDL_ELASTIC") == "1":
+            raise NotImplementedError(
+                "BIGDL_ELASTIC=1: elastic recovery (re-forming the world "
+                "after a rank is lost) comes with the resilience slice of "
+                "the port (ROADMAP queue 1, item 5)")
+        super().__init__(model, dataset, criterion, device=device)
+        self.mesh = (mesh if mesh is not None
+                     else data_parallel_mesh(self.device))
+        have = dist.get_backend(self.mesh.group)
+        if have != backend_for(self.device):
+            raise ValueError(f"the mesh's group runs {have!r}, device "
+                             f"{self.device} needs "
+                             f"{backend_for(self.device)!r}")
+        self.device = Engine.device(self.device)
+        self.zero1 = bool(zero1)
+        self.gradient_compression = gradient_compression
+        # n steps a dispatch: the eager loop (no graph of collectives)
+        self._cuda_graph = False
+        self._straggler = None
+        if drop_percentage:
+            # drop and cap at the same fraction (the reference arms both
+            # through setDropMoudleProperty, Optimizer.scala:116-124)
+            self.set_drop_module_property(drop_percentage, drop_percentage)
+        #: the flat layout and buffers, built at the first ``optimize``
+        self._part = None
+        self._flat_key = None
+        for name in ("computing time average", "aggregate gradient time"):
+            self.metrics.declare(name)
+
+    def set_drop_module_property(self, drop_percentage: float,
+                                 max_drop_percentage: float,
+                                 batch_size: int = 100,
+                                 warmup_iteration: int = 200,
+                                 time_source=None):
+        """Arm straggler dropping (ref Optimizer.setDropMoudleProperty,
+        Optimizer.scala:116-124): each rank is one task; ranks whose time
+        exceeded the threshold on the previous iteration are masked out
+        of this one's mean.  ``time_source(local_wall) -> (n_tasks,)
+        seconds`` replaces the measured times (tests inject schedules);
+        every rank's view is gathered and the slowest reading kept."""
+        if not drop_percentage:
+            self._straggler = None
+            return self
+        self._straggler = StragglerPolicy(
+            n_tasks=self.mesh.size, drop_percentage=drop_percentage,
+            max_drop_percentage=max_drop_percentage,
+            compute_threshold_batch_size=batch_size,
+            warmup_iteration=warmup_iteration, time_source=time_source)
+        return self
+
+    @property
+    def _shard_local(self) -> bool:
+        """The JAX ``shard_map`` builder's semantics: local losses and
+        per-shard statistics (compression or straggler masks)."""
+        return bool(self.gradient_compression) or \
+            self._straggler is not None
+
+    # -- the run ------------------------------------------------------------
+    def optimize(self):
+        if prefetch.enabled():
+            raise NotImplementedError(
+                "the background prefetch (BIGDL_PREFETCH) is not ported for "
+                "the DistriOptimizer yet")
+        if self._straggler is not None and self.iters_per_dispatch > 1:
+            raise ValueError(
+                "straggler drop recomputes the mask every iteration (ref "
+                "DistriOptimizer.scala:154: the timeout applies per "
+                "invokeAndWait2 round); it does not combine with "
+                "set_iterations_per_dispatch > 1")
+        if self.zero1 and self.state.get("learningRates") is not None:
+            raise ValueError(
+                "state['learningRates'] (per-param lr scales) is not "
+                "supported with zero1: the owner-partition update runs on "
+                "a flat slice, not the param tree")
+        self._rank, self._world = self.mesh.rank(), self.mesh.size
+        self._sharded = is_distributed_dataset(self.dataset)
+        self._rule = (None if self._shard_local
+                      else global_batch_rule(self.criterion))
+        self._w, self._msum, self._mask = 1.0, float(self._world), None
+        RNG.fold_rank(self._rank)
+        self.model.to(self.device).train()
+        self._flatten()
+        model_broadcast(self.model, self.mesh)
+        sync = (None if self._shard_local or self._world == 1
+                else self.mesh.group)
+        bns = [m for m in self.model.modules()
+               if isinstance(m, BatchNormalization)]
+        for m in bns:
+            m.process_group = sync
+        try:
+            model = super().optimize()
+        finally:
+            for m in bns:
+                m.process_group = None
+        self.metrics.collect_per_node(self.mesh)
+        return model
+
+    def _flatten(self):
+        """Make every parameter a view into one flat fp32 buffer and its
+        gradient a view into another (one more element: the loss slot),
+        the ``FlatPartition`` over the world; kept while the
+        parameters stay where they are."""
+        params = list(self.model.parameters())
+        key = (self._world, tuple(p.data_ptr() for p in params),
+               tuple(-1 if p.grad is None else p.grad.data_ptr()
+                     for p in params))
+        if key == self._flat_key:
+            return
+        for p in params:
+            if p.dtype != torch.float32:
+                raise TypeError(f"DistriOptimizer: float32 parameters only, "
+                                f"got {p.dtype}")
+        part = FlatPartition([p.shape for p in params], self._world,
+                               leaf_align(self.device))
+        dev = self.device
+        pflat = torch.zeros(part.length, device=dev)
+        gbuf = torch.zeros(part.length + 1, device=dev)
+        with torch.no_grad():
+            for p, v, g in zip(params, part.views(pflat), part.views(gbuf)):
+                v.copy_(p)
+                p.data = v
+                p.grad = g
+        self._part, self._pflat, self._gbuf = part, pflat, gbuf
+        own = part.owned(self._rank)
+        self._psl = pflat[own]
+        self._gsl = torch.empty(part.slice_len, device=dev)
+        if self.gradient_compression:
+            self._wire = torch.empty(part.length, dtype=torch.bfloat16,
+                                     device=dev)
+            self._wsl = torch.empty(part.slice_len, dtype=torch.bfloat16,
+                                    device=dev)
+        self._grads_held = False
+        self._flat_key = (self._world, tuple(p.data_ptr() for p in params),
+                          tuple(p.grad.data_ptr() for p in params))
+
+    # -- the loop's hooks -------------------------------------------------
+    def _local_batch(self, xh, yh, chunked: bool):
+        if self._sharded:
+            return xh, yh
+        rows = len(yh[0]) if chunked else len(yh)
+        b = get_batch_size(rows, self._world)
+        own = slice(self._rank * b, (self._rank + 1) * b)
+        if chunked:
+            return xh[:, own], yh[:, own]
+        return xh[own], yh[own]
+
+    def _admit(self) -> bool:
+        pol = self._straggler
+        if pol is None:
+            return True
+        mask = pol.mask()
+        if not pol.accepts(mask):
+            # rejected: batch consumed, no update, no neval advance (ref
+            # DistriOptimizer.scala:224 guard)
+            pol.reject(mask)
+            return False
+        self._mask = mask
+        self._w, self._msum = float(mask[self._rank]), float(mask.sum())
+        return True
+
+    def _after_step(self, fetch_time: float, train_start: float):
+        pol = self._straggler
+        if pol is not None:
+            if self.device.type == "cuda":
+                # the task's clock must see the step's device time
+                torch.cuda.synchronize(self.device)
+            pol.record(self._task_times(
+                fetch_time, time.perf_counter() - train_start), self._mask)
+            dropped = int(len(self._mask) - self._mask.sum())
+            if dropped:
+                logger.debug("Dropped modules: %d", dropped)
+        self.metrics.add("computing time average",
+                         time.perf_counter() - train_start, distributed=True)
+
+    def _task_times(self, fetch_wall: float, step_wall: float):
+        """Each task's (rank's) seconds this iteration, the same on every
+        rank.  With a ``time_source`` every rank's view is gathered and
+        the slowest reading of each task kept; else each rank's fetch
+        wall: the collective ends every rank's step at one instant, so a
+        rank whose host fell behind shows it in its fetch (the JAX
+        multi-process rule)."""
+        pol = self._straggler
+        mine = (pol.task_times(fetch_wall + step_wall)
+                if pol.time_source is not None
+                else np.asarray([fetch_wall], np.float64))
+        part = torch.as_tensor(mine, dtype=torch.float64, device=self.device)
+        every = coll.all_gather(part, self.mesh).cpu().numpy()
+        if pol.time_source is not None:
+            return every.reshape(self._world, -1).max(axis=0)
+        return every
+
+    def _records(self, rows: int) -> int:
+        # rows is this rank's share; only the tasks that finished count
+        # (ref recordsNum += finishedThreads.size * stackSize, :236)
+        return int(rows * self._msum)
+
+    def _sync_cadence(self) -> int:
+        # straggler drop re-times and accepts or rejects every iteration
+        return 1 if self._straggler is not None else super()._sync_cadence()
+
+    # -- the step's hooks ---------------------------------------------------
+    def _zero_grads(self, params):
+        self._gbuf.zero_()
+
+    def _backward(self, loss, y):
+        s = self._w if self._shard_local else self._rule_scale(y)
+        self._scale = s
+        (loss if _is_one(s) else loss * s).backward()
+
+    def _rule_scale(self, y):
+        """This rank's share of the global loss (``global_batch_rule``)."""
+        if self._rule == "sum":
+            return 1.0
+        if self._rule == "mean":
+            return 1.0 / self._world
+        w = _class_weights(self.criterion).to(y.device)
+        den = w[y.reshape(-1).long() - 1].sum()
+        return den / coll.all_reduce(den.clone(), self.mesh)
+
+    def _reduce(self, loss, grads):
+        if not self._grads_held:
+            base = self._gbuf.untyped_storage().data_ptr()
+            if any(g.untyped_storage().data_ptr() != base for g in grads):
+                raise RuntimeError("a gradient left the flat buffer")
+            self._grads_held = True
+        s, n = self._scale, self._part.length
+        scaled = loss if _is_one(s) else loss * s
+        with self.metrics.timer("aggregate gradient time",
+                                distributed=True):
+            plain = not (self._shard_local or self.zero1)
+            if plain:
+                # one collective: the gradients and, in the last element,
+                # the loss; the finite flag follows the sum, so it agrees
+                self._gbuf[n:].copy_(scaled.reshape(1))
+            held = self.gradient_collectives()
+            if plain:
+                return self._gbuf[n].clone(), torch.isfinite(self._gbuf).all()
+            meta = torch.stack([scaled.float(),
+                                (~torch.isfinite(held).all()).float()])
+            coll.all_reduce(meta, self.mesh)
+        loss = meta[0] / self._msum if self._shard_local else meta[0]
+        return loss, (meta[1] == 0) & torch.isfinite(loss)
+
+    def gradient_collectives(self):
+        """The step's gradient collectives over the flat gradient buffer,
+        as the mode sets them; returns what this rank holds of the
+        result (its slice under ``zero1``).  The step runs them through
+        here, and a benchmark may time them alone after ``optimize()``
+        (they overwrite the buffer)."""
+        msum = self._msum
+        if not (self._shard_local or self.zero1):
+            return coll.all_reduce(self._gbuf, self.mesh)
+        g = self._gbuf[:self._part.length]
+        if self.gradient_compression:
+            self._wire.copy_(g)
+            coll.reduce_scatter(self._wire, self.mesh, out=self._wsl)
+            if self.zero1:
+                # the f32 division after the cast, as the JAX owner update
+                return self._gsl.copy_(self._wsl).div_(msum)
+            coll.all_gather(self._wsl, self.mesh, out=self._wire)
+            # lax.pmean's arithmetic: the mean in the wire's dtype
+            return g.copy_(self._wire.div_(msum))
+        if self.zero1:
+            coll.reduce_scatter(g, self.mesh, out=self._gsl)
+            if self._shard_local:
+                self._gsl.div_(msum)
+            return self._gsl
+        coll.all_reduce(g, self.mesh)
+        return g.div_(msum)
+
+    @property
+    def wire_bytes(self) -> int:
+        """Bytes of gradient this rank puts on the wire a step (the
+        padded flat length at the wire's dtype)."""
+        return self._part.length * (2 if self.gradient_compression else 4)
+
+    def _update(self, grads, opt_state, params, hyper, finite):
+        if not self.zero1:
+            return super()._update(grads, opt_state, params, hyper, finite)
+        # the owner update on this rank's slice, then every slice back
+        self.optim_method.update([self._gsl], opt_state, [self._psl], hyper,
+                                 finite=finite)
+        coll.all_gather(self._psl, self.mesh, out=self._pflat)
+
+    def _merge_state(self):
+        """Per-shard statistics: the running statistics' (masked) mean
+        across the ranks (the JAX ``state_merge``)."""
+        if not self._shard_local:
+            return
+        bufs = [b for b in self.model.buffers() if b.is_floating_point()]
+        if not bufs:
+            return
+        flat = torch.cat([b.reshape(-1) for b in bufs])
+        if not _is_one(self._w):
+            flat.mul_(self._w)
+        coll.all_reduce(flat, self.mesh).div_(self._msum)
+        parts = flat.split([b.numel() for b in bufs])
+        torch._foreach_copy_(bufs, [p.view(b.shape)
+                                    for p, b in zip(parts, bufs)])
+
+    # -- optimizer state ----------------------------------------------------
+    def _initial_opt_state(self, params):
+        if not self.zero1:
+            return super()._initial_opt_state(params)
+        opt_state = self.optim_method.init_state([self._psl])
+        resume = self._resume_opt_state
+        if resume is not None:
+            own = self._part.owned(self._rank)
+            for key, tree in resume.items():
+                full = np.zeros(self._part.length, np.float32)
+                for v, leaf in zip(self._part.views(full),
+                                   leaves_of(self.model, tree)):
+                    v[...] = np.asarray(leaf, np.float32).reshape(v.shape)
+                with torch.no_grad():
+                    opt_state[key][0].copy_(torch.from_numpy(full[own]))
+        return opt_state
+
+    def _export_opt_state(self, opt_state):
+        """The optimizer state in the params' tree layout; under ``zero1``
+        the slices are gathered first (a collective)."""
+        if not self.zero1:
+            return super()._export_opt_state(opt_state)
+        out = {}
+        for key, (piece,) in opt_state.items():
+            full = coll.all_gather(piece, self.mesh).cpu().numpy()
+            out[key] = tree_of(self.model, [v.copy() for v in
+                                            self._part.views(full)])
+        return out
+
+    # -- validation and checkpoints -------------------------------------
+    def _validation_results(self):
+        """Each rank validates every N-th batch; the ranks' results are
+        summed in rank order (the reference's ``ValidationResult +``)."""
+        mine = validate(self.model, self.validation_dataset,
+                        self.validation_methods, self.device,
+                        shard=(self._rank, self._world))
+        every = [None] * self._world
+        dist.all_gather_object(every, [r for _, r in mine],
+                               group=self.mesh.group)
+        merged = []
+        for i, (method, _) in enumerate(mine):
+            total = None
+            for results in every:
+                r = results[i]
+                if r is not None:
+                    total = r if total is None else total + r
+            merged.append((method, total))
+        return merged
+
+    def _checkpoint(self, opt_state, state, neval):
+        """Rank 0 writes ``LocalOptimizer``'s files; the others wait."""
+        with self.metrics.timer("checkpoint"):
+            tree = self._export_opt_state(opt_state)
+            if self._rank == 0:
+                self._save_checkpoint(tree, state, neval)
+            dist.barrier(group=self.mesh.group)
+
+
+def _is_one(s) -> bool:
+    return isinstance(s, float) and s == 1.0

@@ -375,6 +375,22 @@ class LocalOptimizer:
 
     # -- one step ------------------------------------------------------------
     def _train_step(self, params, opt_state, x, y, hyper):
+        self._zero_grads(params)
+        kept = self._kept
+        if kept is None or not kept.holds(self.model):
+            kept = self._kept = _BufferSnapshot(self.model)
+        kept.save()
+        loss = self.criterion(self.model(x), y)
+        self._backward(loss, y)
+        grads = [p.grad for p in params]
+        loss, finite = self._reduce(loss.detach(), grads)
+        self._update(grads, opt_state, params, hyper, finite)
+        self._merge_state()
+        kept.restore_unless(finite)
+        return loss, finite
+
+    # -- the step's hooks: a data-parallel step overrides them -------------
+    def _zero_grads(self, params):
         # the gradients persist across steps, zeroed in place and
         # accumulated into by autograd, so the SGD kernel's leaf table,
         # built at the first step, serves every later one (and a captured
@@ -383,19 +399,21 @@ class LocalOptimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         torch._foreach_zero_([p.grad for p in params])
-        kept = self._kept
-        if kept is None or not kept.holds(self.model):
-            kept = self._kept = _BufferSnapshot(self.model)
-        kept.save()
-        loss = self.criterion(self.model(x), y)
+
+    def _backward(self, loss, y):
         loss.backward()
-        grads = [p.grad for p in params]
-        loss = loss.detach()
-        finite = _finite_all(loss, grads)
+
+    def _reduce(self, loss, grads):
+        """The gradient transform after the backward: (the step's loss,
+        its finite flag)."""
+        return loss, _finite_all(loss, grads)
+
+    def _update(self, grads, opt_state, params, hyper, finite):
         self.optim_method.update(grads, opt_state, params, hyper,
                                  finite=finite)
-        kept.restore_unless(finite)
-        return loss, finite
+
+    def _merge_state(self):
+        """The module state's merge after the update (none here)."""
 
     def _eager_chunk(self, params, opt_state, xs, ys, hyper):
         out = [self._train_step(params, opt_state, x, y, hyper)
@@ -451,7 +469,7 @@ class LocalOptimizer:
         self._train_pipeline = pipeline
         data_iter = None if pipeline is not None \
             else self.dataset.data(train=True)
-        self._window = _HostSyncWindow(SYNC_CADENCE)
+        self._window = _HostSyncWindow(self._sync_cadence())
         wall_start = time.perf_counter()
         try:
             while not self.end_when(state):
@@ -471,9 +489,12 @@ class LocalOptimizer:
                     else:
                         xh, yh = prefetch.stack_chunk(
                             [next(data_iter) for _ in range(n)])
+                    xh, yh = self._local_batch(xh, yh, n > 1)
                     x = to_device(xh, self.device)
                     y = to_device(yh, self.device)
                 fetch_time = time.perf_counter() - fetch_start
+                if not self._admit():
+                    continue   # the batch is consumed, neval stays
 
                 train_start = time.perf_counter()
                 lr = self._current_lr()
@@ -483,9 +504,11 @@ class LocalOptimizer:
                 else:
                     loss, finite = self._run_chunk(params, opt_state, x, y,
                                                    lr)
+                self._after_step(fetch_time, train_start)
                 train_time = time.perf_counter() - train_start
 
-                b = x.shape[0] * x.shape[1] if n > 1 else x.shape[0]
+                b = self._records(x.shape[0] * x.shape[1] if n > 1
+                                  else x.shape[0])
                 count += b
                 state["neval"] = neval0 + n
                 state["evalCounter"] = state.get("evalCounter", 0) + n
@@ -525,6 +548,25 @@ class LocalOptimizer:
         logger.info("Training finished in %.1fs",
                     time.perf_counter() - wall_start)
         return self.model
+
+    # -- the loop's hooks: a data-parallel loop overrides them -------------
+    def _local_batch(self, xh, yh, chunked: bool):
+        """This process's rows of a host batch (all of them here)."""
+        return xh, yh
+
+    def _admit(self) -> bool:
+        """Whether this iteration's update runs (always here)."""
+        return True
+
+    def _after_step(self, fetch_time: float, train_start: float):
+        """After the step's dispatch (nothing here)."""
+
+    def _records(self, rows: int) -> int:
+        """The records an iteration of ``rows`` local rows counts."""
+        return rows
+
+    def _sync_cadence(self) -> int:
+        return SYNC_CADENCE
 
     def _advance_epochs(self, state, count, epoch_size, n, data_iter,
                         pipeline):
@@ -604,8 +646,7 @@ class LocalOptimizer:
             pipeline.pause()
         try:
             with self.metrics.timer("validate"):
-                results = validate(self.model, self.validation_dataset,
-                                   self.validation_methods, self.device)
+                results = self._validation_results()
         finally:
             if pipeline is not None:
                 pipeline.resume()
@@ -616,28 +657,35 @@ class LocalOptimizer:
         self.validation_log.append((int(state["neval"]), int(state["epoch"]),
                                     values))
 
+    def _validation_results(self):
+        return validate(self.model, self.validation_dataset,
+                        self.validation_methods, self.device)
+
     # -- checkpoints (the JAX _maybe_checkpoint :956-1008) ----------------
     def _checkpoint(self, opt_state, state, neval):
+        with self.metrics.timer("checkpoint"):
+            self._save_checkpoint(self._export_opt_state(opt_state), state,
+                                  neval)
+
+    def _save_checkpoint(self, opt_tree, state, neval):
         """``model.N`` and ``state.N`` under the checkpoint path: the
-        state, the optimizer state in the params' tree layout, the label
-        and the random payload as of the last CONSUMED batch (with the
-        pipeline, the stream has already drawn for batches only
-        prefetched)."""
+        state, the optimizer state in the params' tree layout
+        (``opt_tree``), the label and the random payload as of the last
+        CONSUMED batch (with the pipeline, the stream has already drawn
+        for batches only prefetched)."""
         from bigdl_tpu_torch.optim.optimizer import (keep_count,
                                                      prune_checkpoints)
 
-        with self.metrics.timer("checkpoint"):
-            pipeline = self._train_pipeline
-            rng = (pipeline.rng_snapshot() if pipeline is not None
-                   else prefetch.host_snapshot(self.dataset))
-            path = self.checkpoint_path
-            File.save_module(self.model, f"{path}/model.{neval}")
-            File.save({"state": state, "opt_state":
-                       self._export_opt_state(opt_state), "neval": neval,
-                       "rng": rng}, f"{path}/state.{neval}")
-            keep = keep_count()
-            if keep:
-                prune_checkpoints(path, keep, just_written=neval)
+        pipeline = self._train_pipeline
+        rng = (pipeline.rng_snapshot() if pipeline is not None
+               else prefetch.host_snapshot(self.dataset))
+        path = self.checkpoint_path
+        File.save_module(self.model, f"{path}/model.{neval}")
+        File.save({"state": state, "opt_state": opt_tree,
+                   "neval": neval, "rng": rng}, f"{path}/state.{neval}")
+        keep = keep_count()
+        if keep:
+            prune_checkpoints(path, keep, just_written=neval)
 
 
 def _fired_within(trig, state, n):
@@ -658,12 +706,15 @@ def _fired_within(trig, state, n):
     return None
 
 
-def validate(model, dataset, methods, device):
+def validate(model, dataset, methods, device, shard=None):
     """One pass over ``dataset`` in evaluation mode, without gradients
     (so a pool writes no argmax); returns ``[(method, merged result)]``
-    (ref Validator.scala:24 / LocalValidator.scala:30).  The batches ride
-    a background prefetch thread with ``BIGDL_PREFETCH=1`` (else the
-    calling thread; a chain that draws random numbers stays there too)."""
+    (ref Validator.scala:24 / LocalValidator.scala:30); a method's
+    result is None where no batch was evaluated.  ``shard=(r, n)``
+    evaluates the batches i with i % n == r only (rank r's share of a
+    data-parallel validation).  The batches ride a background prefetch
+    thread with ``BIGDL_PREFETCH=1`` (else the calling thread; a chain
+    that draws random numbers stays there too)."""
     device = torch.device(device)
     was_training = model.training
     model.eval()
@@ -672,9 +723,12 @@ def validate(model, dataset, methods, device):
     batches = dataset.data(train=False)
     if prefetch.enabled() and not prefetch.has_stochastic_stage(dataset):
         batches = prefetch.background(batches, prefetch.depth())
+    rank, n_shards = shard if shard is not None else (0, 1)
     try:
         with torch.no_grad():
-            for batch in batches:
+            for i, batch in enumerate(batches):
+                if i % n_shards != rank:
+                    continue
                 out = model(to_device(batch.data, device))
                 count += int(np.asarray(batch.labels).shape[0])
                 for i, m in enumerate(methods):

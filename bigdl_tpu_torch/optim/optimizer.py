@@ -1,13 +1,18 @@
 """Optimizer factory (counterpart of bigdl_tpu/optim/optimizer.py; ref
-optim/Optimizer.scala:30,151-186) and the checkpoint helpers.  The port
-has local datasets only, so every dataset gets a ``LocalOptimizer``; the
-distributed optimizer comes with a later slice."""
+optim/Optimizer.scala:30,151-186) and the checkpoint helpers.  The
+factory picks the optimizer from the dataset, as the reference dispatches
+on LocalDataSet against DistributedDataSet: a sharded dataset
+(``DataSet.array(x, distributed=True)``, or ``training_rdd=``) trains
+with a ``DistriOptimizer`` over the ranks, anything else with a
+``LocalOptimizer``."""
 from __future__ import annotations
 
 import logging
 import os
 
 from bigdl_tpu_torch.dataset import prefetch
+from bigdl_tpu_torch.dataset.dataset import is_distributed_dataset
+from bigdl_tpu_torch.optim.distri_optimizer import DistriOptimizer
 from bigdl_tpu_torch.optim.local_optimizer import LocalOptimizer
 from bigdl_tpu_torch.utils import file as File
 from bigdl_tpu_torch.utils import fs
@@ -16,12 +21,32 @@ from bigdl_tpu_torch.utils.random import RNG
 logger = logging.getLogger("bigdl_tpu_torch.optim")
 
 
-def Optimizer(model, dataset, criterion, *, optim_method=None, state=None,
-              end_trigger=None, device="cuda"):
-    """(ref Optimizer.apply :151-186) — a ``LocalOptimizer`` on
-    ``device`` (the card unless the caller asks for the CPU), with the
-    optional method, state Table and end trigger already set."""
-    opt = LocalOptimizer(model, dataset, criterion, device=device)
+def Optimizer(model, dataset=None, criterion=None, *, training_rdd=None,
+              optim_method=None, state=None, end_trigger=None,
+              batch_size=None, device="cuda", **kwargs):
+    """(ref Optimizer.apply :151-186) — a ``DistriOptimizer`` for a
+    sharded dataset (``kwargs`` go to it: ``mesh``, ``zero1``,
+    ``gradient_compression``, ``drop_percentage``), else a
+    ``LocalOptimizer``, on ``device`` (the card unless the caller asks
+    for the CPU), with the optional method, state Table and end trigger
+    already set.  The reference's Python-API keywords too:
+    ``Optimizer(model=..., training_rdd=samples, criterion=...,
+    batch_size=b)`` shards the samples and batches them."""
+    if training_rdd is not None:
+        from bigdl_tpu_torch.dataset.dataset import DataSet
+        from bigdl_tpu_torch.dataset.transformer import SampleToBatch
+        if batch_size is None:
+            raise ValueError("batch_size is required with training_rdd")
+        dataset = (DataSet.array(list(training_rdd), distributed=True)
+                   >> SampleToBatch(batch_size, drop_last=True))
+    if is_distributed_dataset(dataset):
+        opt = DistriOptimizer(model, dataset, criterion, device=device,
+                              **kwargs)
+    elif kwargs:
+        raise TypeError(f"Optimizer: {sorted(kwargs)} apply to a sharded "
+                        f"dataset only")
+    else:
+        opt = LocalOptimizer(model, dataset, criterion, device=device)
     if optim_method is not None:
         opt.set_optim_method(optim_method)
     if state is not None:

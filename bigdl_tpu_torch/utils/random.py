@@ -13,6 +13,10 @@ trajectory per seed, and PyTorch's global generator plays no part.
 ``RNG`` holds one ``torch.Generator`` per device, each seeded from the
 package seed when first asked for, so a run on the card and a run on the
 CPU are each reproducible (their masks differ: the generators do).
+In a data-parallel run each rank folds its index into the seed
+(:meth:`RandomGenerator.fold_rank`, the JAX step's ``fold_in(key,
+axis_index)``), so two ranks never drop the same units; rank 0 keeps
+the package seed itself.
 
 A run's host draws (shuffles, crops, flips) come from the stream of its
 ``DataSet.array`` (an ``np.random.RandomState``), so a checkpoint's
@@ -41,16 +45,35 @@ class RandomGenerator:
     """The package seed stream; ``RNG`` below is the process-wide one."""
 
     def __init__(self, seed: int = 1):
+        self._rank = 0
         self.set_seed(seed)
 
     def set_seed(self, seed: int) -> "RandomGenerator":
-        """Restart every device's stream from ``seed``."""
+        """Restart every device's stream from ``seed`` (folded with the
+        rank, :meth:`fold_rank`)."""
         self._seed = int(seed)
         self._gens: dict = {}
         return self
 
     def get_seed(self) -> int:
         return self._seed
+
+    def fold_rank(self, rank: int) -> "RandomGenerator":
+        """Draw as rank ``rank`` of a data-parallel run: the generators
+        restart from the seed folded with the rank (rank 0's are the
+        package seed's, and stay as they are)."""
+        rank = int(rank)
+        if rank != self._rank:
+            self._rank = rank
+            self._gens = {}
+        return self
+
+    def _stream_seed(self) -> int:
+        if self._rank == 0:
+            return self._seed
+        # an odd multiplier is a bijection modulo 2**63: distinct ranks,
+        # distinct seeds
+        return (self._seed ^ (self._rank * 0x9E3779B97F4A7C15)) % 2**63
 
     def generator(self, device) -> torch.Generator:
         """The stream's generator on ``device``, created at the package
@@ -61,7 +84,7 @@ class RandomGenerator:
         g = self._gens.get(dev)
         if g is None:
             g = self._gens[dev] = torch.Generator(device=dev).manual_seed(
-                self._seed)
+                self._stream_seed())
         return g
 
     # -- checkpoint payload ------------------------------------------------

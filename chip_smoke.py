@@ -12,6 +12,8 @@ Run from the repository root on a machine with an NVIDIA H100:
                                      # phases 11-14 alone, no result line
     python3 chip_smoke.py --inventory  # fused_sgd's checks and phase 15
                                        # alone, no result line
+    python3 chip_smoke.py --distri   # fused_sgd's checks and phase 16
+                                     # alone, no result line
 
 Each option runs part of one phase table (``ONLY``); every phase runs
 even where one before it failed, and a failed phase makes the exit
@@ -183,7 +185,22 @@ non-zero with no result line.  Phases:
     Fast R-CNN's VGG-16 conv5_3) against the same module on the CPU,
     each class's largest error and the card's peak memory on a line,
     and NMS over 6,000 proposals; none launches a kernel of the port;
-16. one JSON line of kernels, then the card line, then the result line.
+16. the data-parallel slice: Inception-v1 as examples/train_inception.py
+    --synthetic builds it, ``Optimizer(...)`` on its sharded dataset
+    giving a ``DistriOptimizer`` over ``torch.cuda.device_count()`` NCCL
+    ranks (one a card: in this process with one card, spawned ranks with
+    more), 20 steps each plain, ``zero1`` and bf16 at batch 128 a rank,
+    every step through the pool, LRN and SGD kernels; with one card,
+    plain and ``zero1`` equal LocalOptimizer bit for bit (deterministic
+    algorithms, dropout 0), bf16's reduced gradient is LocalOptimizer's
+    rounded to bf16 bit for bit and three steps stay within 2e-2 /
+    2e-3 of it; with more cards, the plain run's three steps equal
+    LocalOptimizer's on the same global batches; ms a step beside
+    LocalOptimizer's, the NCCL kernels' device time a step, the idle
+    share and the peak memory of each mode; then LeNet-5 as
+    examples/train_lenet.py --distributed, two epochs, equal to the
+    LocalOptimizer run;
+17. one JSON line of kernels, then the card line, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -2334,9 +2351,11 @@ def phase_train_kernels(torch, ops):
     ]
 
 
-def lenet_run(torch, device, init_tree, end_trigger, validate=True):
+def lenet_run(torch, device, init_tree, end_trigger, validate=True,
+              distributed=False):
     """``examples/train_lenet.py`` on synthetic MNIST, from ``init_tree``:
-    an optimizer ready to run."""
+    an optimizer ready to run (``--distributed``: the training set
+    sharded over the ranks, a ``DistriOptimizer``)."""
     from bigdl_tpu_torch.dataset import (DataSet, ImgNormalizer, ImgToBatch,
                                          mnist)
     from bigdl_tpu_torch.models.lenet import LeNet5
@@ -2345,7 +2364,8 @@ def lenet_run(torch, device, init_tree, end_trigger, validate=True):
     from bigdl_tpu_torch.utils.table import T
 
     norm = ImgNormalizer(mnist.TRAIN_MEAN, mnist.TRAIN_STD)
-    train = DataSet.array(mnist.synthetic(N_TRAIN)) >> norm >> ImgToBatch(
+    train = DataSet.array(mnist.synthetic(N_TRAIN),
+                          distributed=distributed) >> norm >> ImgToBatch(
         BATCH)
     model = LeNet5(10, device=device).load_params(init_tree)
     # the optimizer's own default method, SGD
@@ -2480,12 +2500,15 @@ def inception_images(n, size, seed):
 
 
 def inception_run(torch, device, init_tree, images, batch, end_trigger,
-                  val_images=None, dropout=None):
+                  val_images=None, dropout=None, distributed=False,
+                  **distri):
     """examples/train_inception.py:59-82 from ``init_tree``: random
     224 crops, flips and the mean subtraction over ``images``, the SGD
     state with Poly(0.5, ISTEPS); validation (Top1, Top5) after ISTEPS
     iterations when ``val_images`` are given.  An optimizer ready to
-    run."""
+    run: with ``distributed``, the example's own ``DataSet.array(data,
+    distributed=True)``, so a ``DistriOptimizer`` (``distri``: its
+    arguments)."""
     from bigdl_tpu_torch.dataset import (DataSet, HFlip, ImgNormalizer,
                                          ImgRdmCropper, ImgToBatch)
     from bigdl_tpu_torch.models.inception import Inception_v1
@@ -2495,15 +2518,16 @@ def inception_run(torch, device, init_tree, images, batch, end_trigger,
     from bigdl_tpu_torch.utils.table import T
 
     norm = ImgNormalizer((123.0, 117.0, 104.0), (1.0, 1.0, 1.0))
-    train = (DataSet.array(images) >> ImgRdmCropper(ICROP, ICROP) >> HFlip()
-             >> norm >> ImgToBatch(batch))
+    train = (DataSet.array(images, distributed=distributed)
+             >> ImgRdmCropper(ICROP, ICROP) >> HFlip() >> norm
+             >> ImgToBatch(batch))
     model = Inception_v1(ICLASSES, device=device).load_params(init_tree)
     if dropout is not None:
         set_dropout(model, dropout)
     opt = Optimizer(model, train, ClassNLLCriterion(), state=T(
         learningRate=ILR, weightDecay=IWD, momentum=0.9, dampening=0.0,
         learningRateSchedule=Poly(0.5, ISTEPS)), end_trigger=end_trigger,
-        device=device)
+        device=device, **distri)
     if val_images is not None:
         val = DataSet.array(val_images) >> norm >> ImgToBatch(batch)
         opt.set_validation(several_iteration(ISTEPS), val,
@@ -5338,6 +5362,422 @@ def phase_inventory(torch, ops):
     return by_path, graph_ran
 
 
+# the data-parallel slice: examples/train_inception.py --synthetic through
+# Optimizer(...) on a sharded dataset, a DistriOptimizer over one NCCL rank
+# a card: DSTEPS steps a mode at batch IBATCH a rank, the collectives'
+# device time profiled over DPROFILE_STEPS steps after two warm ones; at
+# two or more cards the plain run also takes ICHECK_STEPS steps beside
+# LocalOptimizer at the global batch
+DSTEPS, DPROFILE_STEPS = 20, 5
+DMODES = {"plain": {}, "zero1": {"zero1": True},
+          "bf16": {"gradient_compression": "bf16"}}
+# bf16 against LocalOptimizer: the JAX test's bound
+# (tests/test_distributed.py:186-188)
+BF16_TOL = dict(rtol=2e-2, atol=2e-3)
+
+
+def is_nccl_kernel(name):
+    return "nccl" in name.lower()
+
+
+def inception_step_counts(steps):
+    """The kernels an Inception-v1 training step launches, ``steps``
+    times (no validation)."""
+    return {"fused_sgd": steps, "lrn_forward": 2 * steps,
+            "lrn_backward": 2 * steps, "maxpool2d_s1_forward": 9 * steps,
+            "maxpool2d_s1_backward": 9 * steps,
+            "maxpool2d_forward": 4 * steps, "maxpool2d_backward": 4 * steps}
+
+
+def distri_inputs():
+    """Inception-v1's initial parameters (seed 0) and the example's
+    synthetic images."""
+    from bigdl_tpu_torch.models.inception import Inception_v1
+    from bigdl_tpu_torch.nn.module import export_params
+    from bigdl_tpu_torch.utils.random import generator
+
+    return (export_params(Inception_v1(ICLASSES, device="cpu",
+                                       generator=generator(0))),
+            inception_images(IMAGES, ISIZE, 0))
+
+
+def distri_inception(torch, mode, steps, profile_n=0, batch=IBATCH,
+                     inputs=None, grads=False):
+    """This rank's Inception-v1 run through ``Optimizer(...)`` on the
+    example's sharded dataset (dropout 0), from ``inputs``
+    (``distri_inputs``): its losses, parameters, launch counts, ms a
+    step, peak memory, with ``grads`` the last step's gradients as the
+    update read them, and with ``profile_n`` the device time of the NCCL
+    kernels and of every kernel over ``profile_n`` steps after two warm
+    ones, beside that window's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.optim import DistriOptimizer, max_iteration
+    from bigdl_tpu_torch.utils.random import RNG
+
+    init, images = inputs if inputs is not None else distri_inputs()
+    kw = {} if mode == "local" else dict(distributed=True, **DMODES[mode])
+
+    def make(end):
+        RNG.set_seed(0)
+        return inception_run(torch, "cuda", init, images, batch, end,
+                             dropout=0.0, **kw)
+
+    opt = make(max_iteration(steps))
+    if mode != "local" and not isinstance(opt, DistriOptimizer):
+        raise AssertionError(f"Optimizer gave {type(opt).__name__} for the "
+                             f"sharded dataset")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    opt.optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"type": type(opt).__name__, "counts": ops.launch_counts(),
+           "losses": [l for _, l in opt.loss_log],
+           "params": _params(torch, opt.model),
+           "step_ms": wall / steps * 1e3,
+           "mem": torch.cuda.max_memory_allocated(),
+           "world": getattr(getattr(opt, "mesh", None), "size", 1)}
+    if grads:
+        out["grads"] = torch.cat([p.grad.detach().reshape(-1).cpu()
+                                  for p in opt.model.parameters()])
+    fetch_s, fetches = opt.metrics.get("data fetch time")
+    out["fetch_ms"] = fetch_s / max(fetches, 1) * 1e3
+    if mode != "local" and profile_n:
+        out["aligned_ms"], out["wire_bytes"] = aligned_collectives_ms(
+            torch, opt)
+    agg_s, aggs = opt.metrics.get("aggregate gradient time")
+    out["aggregate_ms"] = agg_s / max(aggs, 1) * 1e3
+    if profile_n:
+        prof_opt = make(max_iteration(2))
+        prof_opt.optimize()
+        prof_opt.set_end_when(max_iteration(2 + profile_n))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            prof_opt.optimize()
+            torch.cuda.synchronize()
+            window = time.perf_counter() - t0
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        # busy and wall over one window: the profiled call's profile_n
+        # steps and its set-up, the profiler on
+        out["busy_ms"] = sum(e.device_time_total for e in rows) / 1e3 \
+            / profile_n
+        out["window_ms"] = window / profile_n * 1e3
+        nccl = [(e.key, e.device_time_total / 1e3 / profile_n,
+                 e.count / profile_n) for e in rows if is_nccl_kernel(e.key)]
+        # NCCL's kernels, and the ``nccl:<op>`` spans the profiler lays
+        # on the device timeline over each collective (the only rows of
+        # a one-rank collective that copies without an NCCL kernel)
+        out["nccl"] = [r for r in nccl if not r[0].startswith("nccl:")]
+        out["nccl_ops"] = [r for r in nccl if r[0].startswith("nccl:")]
+    return out
+
+
+def aligned_collectives_ms(torch, opt, reps=10):
+    """The gradient collectives of ``opt``'s step alone
+    (``DistriOptimizer.gradient_collectives``, the mode's wire), the
+    ranks aligned by a barrier and a synchronise before each call:
+    (median device ms a call by CUDA events, bytes the rank's gradient
+    puts on the wire).  Run after training: it overwrites the flat
+    gradient buffers."""
+    import torch.distributed as dist
+
+    opt.gradient_collectives()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        dist.barrier(group=opt.mesh.group)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        opt.gradient_collectives()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), opt.wire_bytes
+
+
+def distri_child(mode, steps, profile_n, batch):
+    """One NCCL rank of a multi-card run (``parallel.launch``)."""
+    import torch
+
+    from bigdl_tpu_torch.utils.device import pin_fp32
+
+    pin_fp32(torch.device("cuda"))
+    out = distri_inception(torch, mode, steps, profile_n, batch)
+    if torch.distributed.get_rank() != 0:
+        out.pop("params")
+    return out
+
+
+class _FixedBatches:
+    """Given host batches in order (LocalOptimizer's reference for a
+    multi-card run: each step's global batch of the ranks' shards)."""
+
+    def __init__(self, batches, size):
+        self._batches, self._size = batches, size
+
+    def size(self):
+        return self._size
+
+    def shuffle(self):
+        return self
+
+    def data(self, train):
+        return iter(self._batches)
+
+
+def distri_local_reference(torch, g, steps):
+    """LocalOptimizer on the global batches of a ``g``-rank run: each
+    step the ranks' local batches of IBATCH, stacked in rank order, each
+    drawn as that rank's ShardedDataSet draws it."""
+    from bigdl_tpu_torch.dataset import (HFlip, ImgNormalizer, ImgRdmCropper,
+                                         ImgToBatch, ShardedDataSet)
+    from bigdl_tpu_torch.dataset.sample import MiniBatch
+    from bigdl_tpu_torch.models.inception import Inception_v1
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.nn.module import export_params
+    from bigdl_tpu_torch.optim import LocalOptimizer, Poly, max_iteration
+    from bigdl_tpu_torch.utils.random import RNG, generator
+    from bigdl_tpu_torch.utils.table import T
+
+    init = export_params(Inception_v1(ICLASSES, device="cpu",
+                                      generator=generator(0)))
+    images = inception_images(IMAGES, ISIZE, 0)
+    norm = ImgNormalizer((123.0, 117.0, 104.0), (1.0, 1.0, 1.0))
+    its = [iter((ShardedDataSet(images, g, r) >> ImgRdmCropper(ICROP, ICROP)
+                 >> HFlip() >> norm >> ImgToBatch(IBATCH)).data(train=True))
+           for r in range(g)]
+    batches = []
+    for _ in range(steps):
+        parts = [next(it) for it in its]
+        batches.append(MiniBatch(np.concatenate([p.data for p in parts]),
+                                 np.concatenate([p.labels for p in parts])))
+    RNG.set_seed(0)
+    model = set_dropout(Inception_v1(ICLASSES, device="cuda")
+                        .load_params(init), 0.0)
+    opt = LocalOptimizer(model, _FixedBatches(batches, IMAGES),
+                         ClassNLLCriterion(), device="cuda")
+    opt.set_state(T(learningRate=ILR, weightDecay=IWD, momentum=0.9,
+                    dampening=0.0, learningRateSchedule=Poly(0.5, ISTEPS)))
+    opt.set_end_when(max_iteration(steps)).optimize()
+    return [l for _, l in opt.loss_log], _params(torch, model)
+
+
+def held_bits(torch, label, got, want, tol=None):
+    """A data-parallel run against LocalOptimizer's: bits, or with
+    ``tol`` within it (losses rtol, params rtol / atol)."""
+    lg, lw = np.asarray(got["losses"]), np.asarray(want["losses"])
+    if len(lg) != len(lw) or len(lg) == 0:
+        raise AssertionError(f"{label}: {len(lg)} and {len(lw)} losses")
+    if tol is None:
+        if not (np.array_equal(lg, lw)
+                and torch.equal(got["params"], want["params"])):
+            rel = float(np.max(np.abs(lg - lw) / np.abs(lw)))
+            p_abs = float((got["params"] - want["params"]).abs().max())
+            raise AssertionError(f"{label}: not LocalOptimizer's bits "
+                                 f"(losses {rel:.3e} relative apart, params "
+                                 f"{p_abs:.3e})")
+        return "bit for bit"
+    rel = float(np.max(np.abs(lg - lw) / np.abs(lw)))
+    diff = (got["params"].double() - want["params"].double()).abs()
+    over = diff - tol["rtol"] * want["params"].double().abs()
+    worst = float(over.max())
+    if rel > tol["rtol"] or worst > tol["atol"]:
+        raise AssertionError(f"{label}: losses {rel:.3e} relative apart, "
+                             f"params {float(diff.max()):.3e} (past rtol "
+                             f"{tol['rtol']} by {worst:.3e}, atol "
+                             f"{tol['atol']})")
+    return (f"within rtol {tol['rtol']} / atol {tol['atol']} (losses "
+            f"{rel:.3e} relative apart, params {float(diff.max()):.3e})")
+
+
+def phase_distri(torch, ops, profile: bool):
+    """The data-parallel slice: Inception-v1 as examples/train_inception.py
+    --synthetic builds it, through ``Optimizer(...)`` on the sharded
+    dataset, a ``DistriOptimizer`` over one NCCL rank a card, DSTEPS steps
+    each plain, ``zero1`` and bf16; with one card, plain and ``zero1``
+    equal LocalOptimizer bit for bit (deterministic algorithms, dropout
+    0) and bf16 is within the JAX test's bound; with more, the plain run
+    equals LocalOptimizer at the global batch; the collectives' device ms
+    a step under the profiler; then LeNet-5 as examples/train_lenet.py
+    --distributed, two epochs, Top1 rising."""
+    from bigdl_tpu_torch.models.lenet import LeNet5
+    from bigdl_tpu_torch.nn.module import export_params
+    from bigdl_tpu_torch.optim import DistriOptimizer, max_epoch
+    from bigdl_tpu_torch.parallel.launch import launch
+    from bigdl_tpu_torch.utils.engine import Engine
+    from bigdl_tpu_torch.utils.random import generator
+
+    smi = smi_line()
+    g = torch.cuda.device_count()
+    print(f"distri: world {g} ({g} NCCL rank(s), one a card); a multi-rank "
+          f"run on the card: {'yes' if g > 1 else 'no'}; [{smi}]")
+    runs, by_path = {}, {}
+    want = {**dict.fromkeys(ops.launch_counts(), 0),
+            **inception_step_counts(DSTEPS)}
+    try:
+        if g == 1:
+            inputs = distri_inputs()
+            with deterministic(torch):
+                # warm-up: cuDNN's choices, the NCCL communicator
+                for mode in ("local", "plain"):
+                    distri_inception(torch, mode, 2, inputs=inputs)
+                for mode in ("local", "plain", "zero1", "bf16"):
+                    runs[mode] = distri_inception(
+                        torch, mode, DSTEPS, DPROFILE_STEPS
+                        if mode != "local" else 0, inputs=inputs)
+                # the bf16 wire against LocalOptimizer: one step's reduced
+                # gradient, and ICHECK_STEPS steps (the JAX test's horizon
+                # is 4); over DSTEPS the trajectory at lr 0.0898 amplifies
+                # the rounding (printed below, not held)
+                one = {m: distri_inception(torch, m, 1, inputs=inputs,
+                                           grads=True)
+                       for m in ("local", "bf16")}
+                short = {m: distri_inception(torch, m, ICHECK_STEPS,
+                                             inputs=inputs)
+                         for m in ("local", "bf16")}
+            wire = one["local"]["grads"].bfloat16().float()
+            if not torch.equal(one["bf16"]["grads"], wire):
+                bad = int((one["bf16"]["grads"] != wire).sum())
+                raise AssertionError(f"distri bf16: the reduced gradient is "
+                                     f"not LocalOptimizer's rounded to bf16 "
+                                     f"({bad} of {wire.numel()} differ)")
+            held = held_bits(torch, f"distri bf16, {ICHECK_STEPS} steps",
+                             short["bf16"], short["local"], BF16_TOL)
+            print(f"distri bf16: one step's reduced gradient is "
+                  f"LocalOptimizer's rounded to bf16, bit for bit "
+                  f"({wire.numel()} values); {ICHECK_STEPS} steps against "
+                  f"LocalOptimizer {held}; [{smi}]")
+        else:
+            for mode in ("plain", "zero1", "bf16"):
+                runs[mode] = launch(distri_child, g, "nccl", args=(
+                    mode, DSTEPS, DPROFILE_STEPS, IBATCH))[0]
+            runs["local"] = distri_inception(torch, "local", DSTEPS,
+                                             batch=IBATCH * g)
+        local = runs["local"]
+        print(f"distri: LocalOptimizer Inception-v1, batch {IBATCH * g}, "
+              f"{DSTEPS} steps: {local['step_ms']:.4f} ms/step, "
+              f"max_memory_allocated {local['mem']} B; losses "
+              f"{local['losses'][0]:.6f} -> {local['losses'][-1]:.6f}; "
+              f"[{smi}]")
+        for mode in DMODES:
+            run = runs[mode]
+            if run["type"] != "DistriOptimizer" or run["world"] != g:
+                raise AssertionError(f"distri {mode}: {run['type']} over "
+                                     f"{run['world']} ranks")
+            if run["counts"] != want:
+                raise AssertionError(f"distri {mode}: launches "
+                                     f"{ops_nonzero(run['counts'])}, "
+                                     f"expected {ops_nonzero(want)}")
+            by_path[f"distri_inception_{mode}"] = run["counts"]
+            if g == 1 and mode != "bf16":
+                held = held_bits(torch, f"distri {mode}", run, local)
+            elif g == 1:
+                lw = np.asarray(local["losses"])
+                rel = float(np.max(np.abs(np.asarray(run["losses"]) - lw)
+                                   / np.abs(lw)))
+                p_abs = float((run["params"] - local["params"]).abs().max())
+                held = (f"over {ICHECK_STEPS} steps (above); after "
+                        f"{DSTEPS}, losses {rel:.3e} relative apart, params "
+                        f"{p_abs:.3e} (not held)")
+            else:
+                held = "held below" if mode == "plain" else "not held"
+            nccl = ", ".join(f"{name[:70]} {ms:.4f} ms ({n:.1f}/step)"
+                             for name, ms, n in run["nccl"]) or \
+                "no NCCL kernel ran"
+            spans = ", ".join(f"{name} {ms:.4f} ms ({n:.1f}/step)"
+                              for name, ms, n in run["nccl_ops"]) or "none"
+            idle = 1 - run["busy_ms"] / run["window_ms"]
+            print(f"distri {mode}: DistriOptimizer Inception-v1, world {g}, "
+                  f"batch {IBATCH} a rank, {DSTEPS} steps: "
+                  f"{run['step_ms']:.4f} ms/step (LocalOptimizer "
+                  f"{local['step_ms']:.4f}), {IBATCH * g / run['step_ms'] * 1e3:.1f}"
+                  f" images/s, host fetch {run['fetch_ms']:.4f} ms/step, "
+                  f"collective enqueue {run['aggregate_ms']:.4f} ms/step, "
+                  f"max_memory_allocated {run['mem']} B (LocalOptimizer "
+                  f"{local['mem']}); the step's collectives alone, the "
+                  f"ranks aligned: {run['aligned_ms']:.4f} ms a step "
+                  f"({run['wire_bytes']} B of gradient on the wire, "
+                  f"{run['wire_bytes'] / run['aligned_ms'] / 1e6:.2f} GB/s);"
+                  f" NCCL kernels' device time a step: "
+                  f"{sum(ms for _, ms, _ in run['nccl']):.4f} ms ({nccl}; "
+                  f"the collectives' spans on the device timeline: "
+                  f"{spans}); "
+                  f"profiled over {DPROFILE_STEPS} steps: wall "
+                  f"{run['window_ms']:.4f} ms/step, device busy "
+                  f"{run['busy_ms']:.4f} ms/step, idle share "
+                  f"{idle:.4f}; launches {ops_nonzero(run['counts'])}; "
+                  f"losses {run['losses'][0]:.6f} -> "
+                  f"{run['losses'][-1]:.6f}; held against LocalOptimizer "
+                  f"{held}; [{smi}]")
+        if g > 1:
+            check = launch(distri_child, g, "nccl", args=(
+                "plain", ICHECK_STEPS, 0, IBATCH))[0]
+            losses, params = distri_local_reference(torch, g, ICHECK_STEPS)
+            held = held_bits(torch, "distri plain vs LocalOptimizer", check,
+                             {"losses": losses, "params": params},
+                             dict(rtol=LOSS_RTOL, atol=IPARAM_ATOL))
+            print(f"distri plain, world {g}: {ICHECK_STEPS} steps against "
+                  f"LocalOptimizer at batch {IBATCH * g} on the same global "
+                  f"batches: {held}; [{smi}]")
+
+        # LeNet-5 as examples/train_lenet.py --distributed, held to the
+        # LocalOptimizer run of the same records (in this process: a
+        # world of one)
+        init = export_params(LeNet5(10, device="cuda",
+                                    generator=generator(0)))
+        with deterministic(torch):
+            local = lenet_run(torch, "cuda", init, max_epoch(EPOCHS))
+            local.optimize()
+            opt = lenet_run(torch, "cuda", init, max_epoch(EPOCHS),
+                            distributed=True)
+            if not isinstance(opt, DistriOptimizer):
+                raise AssertionError(f"LeNet-5: Optimizer gave "
+                                     f"{type(opt).__name__}")
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            opt.optimize()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        held = held_same(torch, "distri LeNet-5 vs LocalOptimizer", opt,
+                         local, dict(rtol=RTOL, atol=ATOL))
+        steps = int(opt.state["neval"]) - 1
+        w = opt.mesh.size   # this process's world: one rank
+        # each rank validates every w-th batch of a validation
+        val_batches = len(opt.validation_log) * -(-(-(-N_VAL // BATCH))
+                                                   // w)
+        lenet_want = {**dict.fromkeys(counts, 0), "fused_sgd": steps,
+                      "maxpool2d_backward": 2 * steps,
+                      "maxpool2d_forward": 2 * steps + 2 * val_batches}
+        top1 = [v["Top1Accuracy"] for _, _, v in opt.validation_log]
+        if steps != EPOCHS * N_TRAIN // (BATCH * w) or counts != lenet_want:
+            raise AssertionError(f"distri LeNet-5: launches {counts} after "
+                                 f"{steps} steps, expected {lenet_want}")
+        if not top1[-1] > top1[0]:
+            raise AssertionError(f"distri LeNet-5: Top1 {top1} did not rise")
+        by_path["distri_lenet"] = counts
+        print(f"distri LeNet-5: examples/train_lenet.py --distributed, world "
+              f"{w}, {steps} steps of {BATCH} a rank over {EPOCHS} epochs, "
+              f"{len(top1)} validations: wall {wall:.4f} s; launches "
+              f"{ops_nonzero(counts)}; Top1 {top1[0]:.4f} -> {top1[-1]:.4f} "
+              f"(uniform-noise digits, random labels: chance is 0.1); held "
+              f"against LocalOptimizer on the same records by {held}; "
+              f"[{smi}]")
+    finally:
+        Engine.reset()
+    return by_path, {}
+
+
 def phase_table(torch, ops, profile, rows):
     """Every phase in run order: (name, kind, run).  A "kernels" phase's
     ``run()`` returns its rows of the kernels line (the state phase adds
@@ -5394,6 +5834,7 @@ def phase_table(torch, ops, profile, rows):
         ("bn_harness", "path", lambda: phase_bn_harness(torch, ops)),
         ("model_zoo", "path", lambda: (phase_model_zoo(torch, ops), {})),
         ("inventory", "path", lambda: phase_inventory(torch, ops)),
+        ("distri", "path", lambda: phase_distri(torch, ops, profile)),
     ]
 
 
@@ -5411,6 +5852,8 @@ ONLY = {
              "bn_harness", "model_zoo"),
     # the inventory slice: fused_sgd's checks and the inventory phase
     "--inventory": ("train_kernels", "inventory"),
+    # the data-parallel slice: fused_sgd's checks and the distri phase
+    "--distri": ("train_kernels", "distri"),
 }
 # the kernels line: each row's keys (queued_ms: calls queued back to back,
 # the device's time where it outlasts the wrapper's host work, no L2

@@ -1,0 +1,304 @@
+"""What each rank of the port's data-parallel tests runs: build a small
+model from a JAX parameter tree, train it through the port's
+``DistriOptimizer`` (or ``LocalOptimizer``, or the ``Optimizer``
+factory) on the CPU under gloo, and return the trajectory as numpy.
+
+The ranks are processes started by ``bigdl_tpu_torch.parallel.launch``;
+this module imports the port alone (no JAX), so they do too.  Every
+function here is at module level: a spawned rank finds it by its import
+path."""
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from bigdl_tpu_torch import nn
+from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToBatch
+from bigdl_tpu_torch.nn.module import export_params, export_state
+from bigdl_tpu_torch.nn.module import load_jax_params, load_jax_state
+from bigdl_tpu_torch.optim import (DistriOptimizer, LocalOptimizer,
+                                   Optimizer, max_iteration)
+from bigdl_tpu_torch.utils.engine import Engine
+from bigdl_tpu_torch.utils.table import T
+
+
+def build(name: str):
+    """The tests' models (the JAX tests' shapes)."""
+    if name == "mlp":
+        return nn.Sequential(nn.Linear(8, 16), nn.ReLU(), nn.Linear(16, 4),
+                             nn.LogSoftMax())
+    if name == "mlp17":   # 225 parameters: divides by neither 4 nor 8
+        return nn.Sequential(nn.Linear(8, 17), nn.ReLU(), nn.Linear(17, 4),
+                             nn.LogSoftMax())
+    if name == "bn":
+        return nn.Sequential(nn.Linear(8, 16),
+                             nn.BatchNormalization(16, device="cpu"),
+                             nn.ReLU(), nn.Linear(16, 4), nn.LogSoftMax())
+    if name == "tanh":
+        return nn.Sequential(nn.Linear(6, 8), nn.Tanh(), nn.Linear(8, 3),
+                             nn.LogSoftMax())
+    if name == "lenet":
+        from bigdl_tpu_torch.models.lenet import LeNet5
+        return LeNet5(10, device="cpu")
+    raise ValueError(name)
+
+
+def criterion(spec):
+    kind = spec.get("criterion", "nll")
+    if kind == "nll":
+        return nn.ClassNLLCriterion()
+    if kind == "nll_sum":
+        return nn.ClassNLLCriterion(size_average=False)
+    if kind == "nll_weighted":
+        return nn.ClassNLLCriterion(weights=spec["class_weights"])
+    raise ValueError(kind)
+
+
+class Schedule:
+    """A per-task time schedule for straggler tests (``time_source``):
+    ``slow`` tasks read ``value`` seconds at the iterations listed in
+    ``calls`` (1-based; None: every iteration), the others 1 second."""
+
+    def __init__(self, n_tasks, slow=(), value=9.0, calls=None,
+                 every=None):
+        self.n_tasks, self.slow, self.value = n_tasks, list(slow), value
+        self.calls = None if calls is None else set(calls)
+        self.every = every
+        self.n = 0
+
+    def __call__(self, wall):
+        self.n += 1
+        if self.every is not None and self.n in self.calls:
+            return np.full(self.n_tasks, self.every)
+        t = np.ones(self.n_tasks)
+        if self.calls is None or self.n in self.calls:
+            t[self.slow] = self.value
+        return t
+
+
+class _Count(logging.Handler):
+    """Counts the log records that carry ``word``."""
+
+    def __init__(self, word):
+        super().__init__(logging.WARNING)
+        self.word, self.n = word, 0
+
+    def emit(self, record):
+        self.n += self.word in record.getMessage()
+
+
+def dataset(spec):
+    """The records of ``spec`` (``xs`` / ``ys``, or ``mnist``: (n,
+    seed) synthetic digits, normalised) in batches of ``batch``."""
+    seed, distributed = spec.get("seed", 1), spec.get("distributed", False)
+    if spec.get("mnist") is not None:
+        from bigdl_tpu_torch.dataset import (ImgNormalizer, ImgToBatch,
+                                             mnist)
+        return (DataSet.array(mnist.synthetic(*spec["mnist"]), seed=seed,
+                              distributed=distributed)
+                >> ImgNormalizer(mnist.TRAIN_MEAN, mnist.TRAIN_STD)
+                >> ImgToBatch(spec["batch"]))
+    return (DataSet.array(samples_of(spec["xs"], spec["ys"]), seed=seed,
+                          distributed=distributed)
+            >> SampleToBatch(spec["batch"]))
+
+
+def samples_of(xs, ys):
+    return [Sample(x, np.asarray([y])) for x, y in zip(xs, ys)]
+
+
+def run(spec: dict) -> dict:
+    """Train as ``spec`` says on this rank; the trajectory as numpy.
+
+    ``spec``: ``model`` (a name of :func:`build`), ``init`` (the JAX
+    parameter tree) and optionally ``init_state``, ``xs`` / ``ys`` (the
+    records), ``batch``, ``seed`` (the dataset's stream), ``distributed``
+    (a sharded dataset), ``optimizer`` ("distri", "local" or "factory"),
+    ``kw`` (the DistriOptimizer's arguments), ``state`` (the Table),
+    ``mnist`` (synthetic digits in place of the records), ``resume`` (a
+    checkpoint directory to start from, the random payload restored),
+    ``iters``, ``n_disp``, ``drop`` (straggler arguments with a
+    ``Schedule``), ``poison`` ({rank: step}: that rank's input is NaN at
+    that step), ``checkpoint`` ((path, every n)), ``opt_state`` (a tree
+    to resume from), ``validate`` ((xs, ys, batch)).
+    """
+    model = build(spec["model"])
+    load_jax_params(model, spec["init"])
+    if spec.get("init_state") is not None:
+        load_jax_state(model, spec["init_state"])
+    ds = dataset(spec)
+    blob = None
+    if spec.get("resume") is not None:
+        from bigdl_tpu_torch.optim import load_latest_checkpoint
+        model, blob, _ = load_latest_checkpoint(
+            spec["resume"], restore_rng=True, device="cpu", dataset=ds)
+    kind = spec.get("optimizer", "distri")
+    kw = spec.get("kw", {})
+    crit = criterion(spec)
+    if kind == "local":
+        opt = LocalOptimizer(model, ds, crit, device="cpu")
+    elif kind == "factory":
+        opt = Optimizer(model, ds, crit, device="cpu", **kw)
+    else:
+        opt = DistriOptimizer(model, ds, crit, device="cpu", **kw)
+    if blob is not None:
+        opt.set_state(blob["state"]).set_optim_state(blob["opt_state"])
+    else:
+        opt.set_state(T(**spec.get("state", {"learningRate": 0.1})))
+    opt.set_end_when(max_iteration(spec["iters"]))
+    if spec.get("n_disp"):
+        opt.set_iterations_per_dispatch(spec["n_disp"])
+    if spec.get("drop") is not None:
+        opt.set_drop_module_property(**spec["drop"])
+    if spec.get("opt_state") is not None:
+        opt.set_optim_state(spec["opt_state"])
+    if spec.get("checkpoint") is not None:
+        from bigdl_tpu_torch.optim import several_iteration
+        path, every = spec["checkpoint"]
+        opt.set_checkpoint(path, several_iteration(every))
+    if spec.get("validate") is not None:
+        from bigdl_tpu_torch.optim import Top1Accuracy, every_epoch
+        vx, vy, vb = spec["validate"]
+        val = DataSet.array(samples_of(vx, vy)) >> SampleToBatch(vb)
+        opt.set_validation(every_epoch(), val, [Top1Accuracy()])
+    poison = spec.get("poison", {}).get(Engine.process_index())
+    if poison is not None:
+        step = opt._train_step
+
+        def poisoned(params, opt_state, x, y, hyper):
+            if int(opt.state["neval"]) == poison:
+                x = torch.full_like(x, float("nan"))
+            return step(params, opt_state, x, y, hyper)
+        opt._train_step = poisoned
+    rejected = _Count("REJECTED")
+    logging.getLogger("bigdl_tpu_torch.optim").addHandler(rejected)
+    try:
+        opt.optimize()
+    finally:
+        logging.getLogger("bigdl_tpu_torch.optim").removeHandler(rejected)
+    out = {"type": type(opt).__name__,
+           "rejected": rejected.n,
+           "params": export_params(model),
+           "state": export_state(model),
+           "loss": [l for _, l in opt.loss_log],
+           "neval": int(opt.state["neval"]),
+           "epoch": int(opt.state["epoch"]),
+           "skips": int(opt.state.get("nonFiniteSkips", 0)),
+           "opt_state": opt._export_opt_state(opt.opt_state),
+           "validation": [v for _, _, v in opt.validation_log],
+           "world": Engine.device_count(),
+           "rank": Engine.process_index()}
+    if isinstance(opt, DistriOptimizer):
+        out["flat_length"] = opt._part.length
+        out["wire_bytes"] = opt.wire_bytes
+        out["velocity_numel"] = sum(v.numel()
+                                    for v in opt.opt_state["velocity"])
+        out["per_node"] = opt.metrics.per_node("computing time average",
+                                               opt.mesh)
+        if opt._straggler is not None:
+            out["straggler"] = (opt._straggler.iteration,
+                                opt._straggler.threshold)
+    if spec.get("predict") is not None:
+        model.evaluate()
+        with torch.no_grad():
+            out["predict"] = model(torch.from_numpy(
+                np.asarray(spec["predict"], np.float32))).numpy()
+    return out
+
+
+def runs(specs: list) -> list:
+    """Several runs in one process group, one after another."""
+    out = []
+    for spec in specs:
+        out.append(run(spec))
+        dist.barrier()
+    return out
+
+
+def sync_bn_case(params, x, g):
+    """Rank r's half of the batch ``x`` through a batch norm that takes
+    the global batch's statistics; ``g`` the output's cotangent."""
+    r, n = Engine.process_index(), Engine.device_count()
+    rows = slice(r * len(x) // n, (r + 1) * len(x) // n)
+    bn = nn.SpatialBatchNormalization(x.shape[1], device="cpu")
+    load_jax_params(bn, params)
+    bn.process_group = dist.group.WORLD
+    xt = torch.from_numpy(x[rows]).requires_grad_()
+    y = bn(xt)
+    (y * torch.from_numpy(g[rows])).sum().backward()
+    return {"y": y.detach().numpy(), "dx": xt.grad.numpy(),
+            "dw": bn.weight.grad.numpy(), "db": bn.bias.grad.numpy(),
+            "state": export_state(bn)}
+
+
+def collectives_case() -> dict:
+    """The collectives, the mesh, the broadcasts and the per-rank metrics
+    on this rank; what each gave, as numpy."""
+    from bigdl_tpu_torch.models.lenet import LeNet5
+    from bigdl_tpu_torch.optim.metrics import Metrics
+    from bigdl_tpu_torch.parallel import collectives as coll
+    from bigdl_tpu_torch.parallel.broadcast import (broadcast_from_host0,
+                                                    model_broadcast)
+    from bigdl_tpu_torch.parallel.mesh import (data_parallel_mesh,
+                                               hybrid_mesh, make_mesh)
+    from bigdl_tpu_torch.utils.random import generator
+
+    r, n = Engine.process_index(), Engine.device_count()
+    out = {"rank": r, "axis_index": coll.axis_index(),
+           "axis_size": coll.axis_size()}
+    mesh = data_parallel_mesh("cpu")
+    out["mesh"] = (mesh.shape, mesh.axis_names, mesh.rank(),
+                   make_mesh({"data": n}, "cpu").size,
+                   coll.axis_index(mesh), coll.axis_size(mesh))
+    refused = []
+    for call in (lambda: make_mesh({"data": n + 1}, "cpu"),
+                 lambda: make_mesh({"data": n, "model": 2}, "cpu"),
+                 lambda: hybrid_mesh(n, 1, "cpu"),
+                 lambda: coll.reduce_scatter(torch.zeros(n + 1), mesh)):
+        try:
+            call()
+            refused.append(None)
+        except (ValueError, NotImplementedError) as e:
+            refused.append(type(e).__name__)
+    out["refused"] = refused
+    # reduce-scatter + all-gather == all-reduce (AllReduceParameter)
+    v = torch.from_numpy(np.random.RandomState(r).randn(3 * n)
+                         .astype(np.float32))
+    part = coll.reduce_scatter(v, mesh)
+    out["rs"] = part.numpy()
+    out["rs_ag"] = coll.all_gather(part, mesh).numpy()
+    out["ar"] = coll.all_reduce(v.clone(), mesh).numpy()
+    out["mean"] = coll.all_reduce_mean(v.clone(), mesh).numpy()
+    # the all-gather in place: this rank's slice of the output as input
+    flat = torch.full((2 * n,), -1.0)
+    flat[2 * r:2 * r + 2] = torch.tensor([10.0 * r, 10.0 * r + 1])
+    coll.all_gather(flat[2 * r:2 * r + 2], mesh, out=flat)
+    out["inplace"] = flat.numpy()
+    out["bf16_sum"] = coll.all_reduce(
+        torch.full((4,), 1.0 + r, dtype=torch.bfloat16), mesh).float().numpy()
+    # rank 0's values everywhere: tensors of two dtypes, then a model
+    ts = [torch.full((3,), float(r)), torch.arange(4) * (r + 1),
+          torch.full((2, 2), 0.5 * r)]
+    broadcast_from_host0(ts, mesh)
+    out["broadcast"] = [t.numpy() for t in ts]
+    model = LeNet5(10, device="cpu", generator=generator(r))
+    out["model"] = export_params(model_broadcast(model, mesh))
+    metrics = Metrics()
+    metrics.add("computing time average", 1.0 + r, distributed=True)
+    metrics.add("computing time average", 3.0 + r, distributed=True)
+    metrics.add("local", 5.0)
+    out["per_node_live"] = metrics.per_node("computing time average", mesh)
+    metrics.collect_per_node(mesh)
+    out["per_node"] = metrics.per_node("computing time average", mesh)
+    out["summary"] = metrics.summary(per_node=True, group=mesh)
+    return out
+
+
+def fail_on(rank: int):
+    """Raise on rank ``rank`` (the launcher re-raises it in the parent)."""
+    if Engine.process_index() == rank:
+        raise ValueError(f"raised by rank {rank}")
+    return Engine.process_index()

@@ -132,3 +132,17 @@ def test_walk_covers_the_batch_norm_and_model_zoo_slice():
     assert {f"bigdl_tpu_torch.{n}" for n in (
         "models.vgg", "models.resnet", "models.alexnet",
         "models.autoencoder", "dataset.cifar", "native")} <= names
+
+
+def test_walk_covers_the_distributed_slice():
+    """The import probe reaches the data-parallel slice's modules."""
+    import pkgutil
+
+    import bigdl_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(bigdl_tpu_torch.__path__,
+                                                   "bigdl_tpu_torch.")}
+    assert {f"bigdl_tpu_torch.{n}" for n in (
+        "utils.engine", "parallel.mesh", "parallel.collectives",
+        "parallel.broadcast", "parallel.sharding", "parallel.launch",
+        "optim.distri_optimizer", "optim.straggler",
+        "optim.metrics")} <= names

@@ -246,16 +246,44 @@ def _lm_forward_one(tok, i, caches, handles, pe, pages, valid=None):
     return logp[:, 0], caches
 
 
+def _copy_pages(caches, src, dst):
+    """Every pool array's pages ``src`` copied onto pages ``dst`` (both
+    int64 index tensors), all layers at once."""
+    for c in caches:
+        c[:, dst] = c[:, src]
+
+
 @torch.no_grad()
-def lm_decode(model, seed_ids, n_words, device="cuda"):
-    """Greedy KV-cached decoding for a ``TransformerLM`` model.
+def lm_decode(model, seed_ids, n_words, greedy: bool = True, key=None,
+              temperature: float = 1.0, top_k: int = 0, top_p: float = 0.0,
+              device="cuda"):
+    """KV-cached decoding for a ``TransformerLM`` model.
 
     ``seed_ids`` is a flat id list (returns the extended list) or a
     rectangular batch of seed rows (returns the extended rows).  The
     cache is the paged pool of the serving decoder: ``DEFAULT_PAGE_SIZE``
     pages, ``ceil((n_seed + n_words - 1) / DEFAULT_PAGE_SIZE)`` of them
     per row, so every step runs the paged attention at the decoder's
-    shapes.  Sampling comes with the sampled-decode slice."""
+    shapes.
+
+    ``greedy=True`` takes the argmax; otherwise every token is drawn
+    through ``serve.sampling.sample_tokens`` (the served decoder's
+    sampler) from the log-probs scaled by ``temperature`` and truncated
+    by ``top_k`` / ``top_p``.  ``key`` is an int seed where the JAX
+    package takes a PRNG key: row ``b`` draws the stream a served request
+    with ``SamplingParams(seed=key + b)`` and the same filters draws (the
+    generated index and ``TAG_MAIN`` folded into its key), so one key
+    gives one row, and the offline and served paths agree."""
+    # the serve package imports this module: a top-level import would
+    # be circular
+    from bigdl_tpu_torch.serve import sampling as smp
+
+    if not greedy and key is None:
+        raise ValueError("sampling (greedy=False) needs a key (an int seed)")
+    if temperature <= 0:
+        raise ValueError("temperature must be > 0")
+    if not 0.0 <= top_p <= 1.0:
+        raise ValueError("top_p must be in [0, 1] (0 or 1 = off)")
     dev = resolve_device(device)
     pin_fp32(dev)
     seed_np = np.atleast_2d(np.asarray(seed_ids, np.int64))
@@ -273,15 +301,92 @@ def lm_decode(model, seed_ids, n_words, device="cuda"):
     caches = new_pools(handles, bsz * per_row, ps, dev)
     pages = (torch.arange(bsz * per_row, dtype=torch.int32,
                           device=dev).reshape(bsz, per_row), ps)
+    if not greedy:
+        keys = torch.tensor([smp.key_words(int(key) + b) for b in
+                             range(bsz)], dtype=torch.int64, device=dev)
     preds, nxt = [], None
     for t in range(n_pos):
         tok = seed[:, t] if t < n_seed else nxt
         logp, caches = _lm_forward_one(
             tok, torch.full((bsz,), t, dtype=torch.int64, device=dev),
             caches, handles, pe, pages)
-        nxt = logp.argmax(dim=-1)
+        if greedy or t < n_seed - 1:
+            nxt = logp.argmax(dim=-1)
+        else:
+            sub = smp.fold_in_rows(
+                keys, smp.DRAW_TAGS * (t - (n_seed - 1)) + smp.TAG_MAIN)
+            nxt = smp.sample_tokens(logp, sub, temperature, top_k, top_p)
         preds.append(nxt)
     gen = torch.stack(preds[n_seed - 1:], dim=1).cpu().numpy()
     rows = [[int(t) for t in seed_np[b]] + [int(t) for t in gen[b]]
             for b in range(bsz)]
     return rows[0] if flat else rows
+
+
+@torch.no_grad()
+def lm_beam_search(model, seed_ids, n_words, beam_size: int = 4,
+                   return_all: bool = False, device="cuda"):
+    """Beam-search decoding over ``lm_decode``'s paged KV cache.
+
+    The seed is consumed at batch 1 (beams share the prefix), then its
+    pages are copied to every beam's pages; each step scores the
+    ``beam_size * vocab`` continuations, keeps the joint top ``beam_size``
+    and reorders the cache by parent (a page copy of every layer's pools,
+    the pages up to the step's position).  Beams have equal length, so
+    the winner is the highest total log-probability; ``return_all=True``
+    also returns every beam's row and score, best first."""
+    if beam_size < 1:
+        raise ValueError("beam_size must be >= 1")
+    seed_np = np.asarray(seed_ids, np.int64)
+    if seed_np.ndim != 1 or seed_np.size == 0:
+        raise ValueError("lm_beam_search takes one flat non-empty seed "
+                         "id list")
+    dev = resolve_device(device)
+    pin_fp32(dev)
+    handles = _handles_to(_lm_handles(model), dev)
+    K, V = int(beam_size), handles.vocab
+    n_seed = int(seed_np.size)
+    n_pos = n_seed + int(n_words) - 1
+    pe = handles.mods[1].table(n_pos).to(dev)
+    seed = torch.from_numpy(seed_np).to(dev)
+    ps = DEFAULT_PAGE_SIZE
+    per_row = -(-n_pos // ps)
+    caches = new_pools(handles, K * per_row, ps, dev)
+    ptab = torch.arange(K * per_row, dtype=torch.int32,
+                        device=dev).reshape(K, per_row)
+
+    def at(i, n):
+        return torch.full((n,), i, dtype=torch.int64, device=dev)
+
+    # the seed at batch 1, in beam 0's pages; then those pages tiled
+    for i in range(n_seed - 1):
+        _, caches = _lm_forward_one(seed[i:i + 1], at(i, 1), caches,
+                                    handles, pe, (ptab[:1], ps))
+    written = -(-(n_seed - 1) // ps)
+    if written and K > 1:
+        _copy_pages(caches, ptab[0, :written].long().repeat(K - 1),
+                    ptab[1:, :written].reshape(-1).long())
+
+    # only beam 0 is live at the first expansion, else the top-k would
+    # pick the same token K times from identical beams
+    scores = torch.full((K,), float("-inf"), device=dev)
+    scores[0] = 0.0
+    gen = torch.zeros((K, int(n_words)), dtype=torch.int64, device=dev)
+    tok = seed[-1].repeat(K)
+    for i in range(n_seed - 1, n_pos):
+        logp, caches = _lm_forward_one(tok, at(i, K), caches, handles, pe,
+                                       (ptab, ps))
+        scores, flat = torch.topk((scores[:, None] + logp).reshape(-1), K)
+        beam_idx, tok = flat // V, flat % V
+        n = i // ps + 1                   # the pages written so far
+        _copy_pages(caches, ptab[beam_idx, :n].reshape(-1).long(),
+                    ptab[:, :n].reshape(-1).long())
+        gen = gen[beam_idx]
+        gen[:, i - (n_seed - 1)] = tok
+    scores, gen = scores.cpu().numpy(), gen.cpu().numpy()
+    order = np.argsort(-scores, kind="stable")
+    rows = [[int(t) for t in seed_np] + [int(t) for t in gen[b]]
+            for b in order]
+    if return_all:
+        return rows, [float(scores[b]) for b in order]
+    return rows[0]

@@ -46,11 +46,13 @@ class MultiHeadSelfAttention(TensorModule):
 
 
 class SinusoidalPositionalEncoding(TensorModule):
-    """x + PE[:T] with the standard sin/cos table (parameter-free)."""
+    """x + PE[:T] with the standard sin/cos table (parameter-free), its
+    wavelengths a geometric series up to ``base``."""
 
-    def __init__(self, d_model: int):
+    def __init__(self, d_model: int, base: float = 10000.0):
         super().__init__()
         self.d_model = d_model
+        self.base = base
 
     def table(self, t: int) -> torch.Tensor:
         """The (t, d_model) fp32 table on the CPU, computed in float64
@@ -58,7 +60,7 @@ class SinusoidalPositionalEncoding(TensorModule):
         bit-identical positions."""
         d = self.d_model
         ang = np.arange(t)[:, None] * np.exp(
-            np.arange(0, d, 2) * (-np.log(10000.0) / d))
+            np.arange(0, d, 2) * (-np.log(self.base) / d))
         pe = np.zeros((t, d), np.float32)
         pe[:, 0::2] = np.sin(ang)
         pe[:, 1::2] = np.cos(ang[:, :d // 2])

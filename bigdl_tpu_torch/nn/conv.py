@@ -29,14 +29,15 @@ class SpatialConvolution(TensorModule):
     Xavier draws the weight with fan-in (I/groups)*kh*kw and fan-out
     (O/groups)*kh*kw and zeroes the bias; MSRA draws it from N(0,
     sqrt(2/(kw*kh*O))) and zeroes the bias.  Arguments follow the
-    reference constructor."""
+    reference constructor, in the JAX module's order; ``propagate_back``
+    is accepted for its signature and, as there, changes nothing."""
 
     def __init__(self, n_input_plane: int, n_output_plane: int,
                  kernel_w: int, kernel_h: int, stride_w: int = 1,
                  stride_h: int = 1, pad_w: int = 0, pad_h: int = 0,
-                 n_group: int = 1, with_bias: bool = True,
-                 init_method: str = init_.Default, device=None,
-                 generator=None):
+                 n_group: int = 1, propagate_back: bool = True,
+                 init_method: str = init_.Default, with_bias: bool = True,
+                 device=None, generator=None):
         super().__init__()
         if n_input_plane % n_group or n_output_plane % n_group:
             raise ValueError(f"SpatialConvolution: {n_input_plane} -> "
@@ -48,6 +49,7 @@ class SpatialConvolution(TensorModule):
         self.stride_w, self.stride_h = stride_w, stride_h
         self.pad_w, self.pad_h = pad_w, pad_h
         self.n_group = n_group
+        self.propagate_back = propagate_back
         self.init_method = init_method
         shape = (n_output_plane, n_input_plane // n_group, kernel_h,
                  kernel_w)

@@ -12,11 +12,15 @@ class Dropout(TensorModule):
     """Inverted dropout with keep-scale 1/(1-p) in training; the identity
     in ``evaluate()`` mode.  The mask is drawn from the package stream
     (``utils.random.RNG`` on the input's device), never from PyTorch's
-    global generator: one ``RNG.set_seed`` gives one run."""
+    global generator: one ``RNG.set_seed`` gives one run.  ``scale=False``
+    leaves the kept units unscaled; ``inplace`` is accepted for the
+    reference's signature and, as in the JAX module, changes nothing."""
 
-    def __init__(self, init_p: float = 0.5):
+    def __init__(self, init_p: float = 0.5, inplace: bool = False,
+                 scale: bool = True):
         super().__init__()
         self.p = init_p
+        self.scale = scale
 
     def set_p(self, p: float) -> "Dropout":
         self.p = p
@@ -28,7 +32,7 @@ class Dropout(TensorModule):
         keep = 1.0 - self.p
         mask = torch.empty_like(x).bernoulli_(
             keep, generator=RNG.generator(x.device))
-        return x * (mask.div_(keep) if keep > 0 else mask)
+        return x * (mask.div_(keep) if self.scale and keep > 0 else mask)
 
 
 class _L1Penalty(torch.autograd.Function):

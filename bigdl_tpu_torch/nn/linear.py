@@ -22,17 +22,32 @@ from bigdl_tpu_torch.utils.table import as_table
 
 
 class Linear(TensorModule):
-    """y = x W^T + b with ``weight`` (out, in), ``bias`` (out,)."""
+    """y = x W^T + b with ``weight`` (out, in), ``bias`` (out,).
+    ``with_bias=False`` leaves the bias out; ``init_method`` Default draws
+    both U(-1/sqrt(in), 1/sqrt(in)), Xavier draws the weight with fan-in
+    ``in`` and fan-out ``out`` and zeroes the bias (bigdl_tpu/nn/linear.py
+    ``Linear.reset``)."""
 
-    def __init__(self, input_size: int, output_size: int, device=None,
-                 generator=None):
+    def __init__(self, input_size: int, output_size: int,
+                 with_bias: bool = True, init_method: str = init_.Default,
+                 device=None, generator=None):
         super().__init__()
         self.input_size = input_size
         self.output_size = output_size
-        self._add_param("weight", init_.default_linear(
-            (output_size, input_size), input_size, generator), device)
-        self._add_param("bias", init_.default_linear(
-            (output_size,), input_size, generator), device)
+        self.with_bias = with_bias
+        self.init_method = init_method
+        shape = (output_size, input_size)
+        if init_method == init_.Xavier:
+            w = init_.xavier(shape, input_size, output_size, generator)
+            b = torch.zeros(output_size)
+        else:
+            w = init_.default_linear(shape, input_size, generator)
+            b = init_.default_linear((output_size,), input_size, generator)
+        self._add_param("weight", w, device)
+        if with_bias:
+            self._add_param("bias", b, device)
+        else:
+            self.bias = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight, self.bias)

@@ -192,18 +192,23 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 class LayerNorm(TensorModule):
-    """Layer normalisation over the trailing feature dim, stats in fp32."""
+    """Layer normalisation over the trailing feature dim, stats in fp32;
+    ``affine=False`` has no parameters and gives the plain (x - mean) *
+    rsqrt(var + eps)."""
 
-    def __init__(self, d_model: int, eps: float = 1e-5, device=None):
+    def __init__(self, d_model: int, eps: float = 1e-5, affine: bool = True,
+                 device=None):
         super().__init__()
         self.d_model = d_model
         self.eps = eps
-        self._add_param("weight", torch.ones(d_model), device)
-        self._add_param("bias", torch.zeros(d_model), device)
+        self.affine = affine
+        if affine:
+            self._add_param("weight", torch.ones(d_model), device)
+            self._add_param("bias", torch.zeros(d_model), device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = layer_norm(x.float(), self.weight, self.bias, self.eps)
-        return y.to(x.dtype)
+        w, b = (self.weight, self.bias) if self.affine else (1.0, 0.0)
+        return layer_norm(x.float(), w, b, self.eps).to(x.dtype)
 
 
 class SpatialCrossMapLRN(TensorModule):

@@ -113,7 +113,7 @@ class Replicate(TensorModule):
     Replicate.scala); ``n_dim`` is accepted for the reference's signature,
     and as in the JAX module changes nothing."""
 
-    def __init__(self, n_features: int, dim: int = 1, n_dim: int = None):
+    def __init__(self, n_features: int, dim: int = 1, n_dim: int = math.inf):
         super().__init__()
         self.n_features = n_features
         self.dim = dim

@@ -1,104 +1,170 @@
-"""Continuous-batching greedy decode over a paged KV pool (counterpart of
-bigdl_tpu/serve/decode.py, restricted to this slice).
+"""Continuous-batching decode over a paged KV pool (counterpart of
+bigdl_tpu/serve/decode.py).
 
 The rows of a fixed-width device batch are **slots**: each consumes its
 own seed and generates its own continuation at its own position.
 Requests are admitted into free slots and retired at step boundaries
-only; the host reads the device every ``sync_interval`` steps at most —
-once per boundary that retires a request, to fetch the generated-token
-slab.  Positions, previous tokens and generated tokens stay on the
-device between boundaries and feed back there.
+only; positions, previous tokens and generated tokens stay on the device
+between boundaries and feed back there.  The host reads the device every
+``sync_interval`` steps at most: once per boundary that retires a
+request or streams tokens (the generated-token slab), and, under
+speculative decode or a stop list, the (B,) positions once a boundary.
 
 KV storage is a block-paged pool (``models.transformer.new_pools``): a
 request holds only the ``ceil(steps / page_size)`` pages its own length
 needs, and a per-slot slot->page table on the device maps its positions
 to pool pages.  Attention over the pool is ``ops.paged_attention``, the
-hand-written CUDA kernel on the card.
+hand-written CUDA kernel on the card, at S = 1 for a decode step and at
+S = k+1 for a speculative verify window.  On top of the pool:
 
-``kv_quant="int8"`` (default from ``BIGDL_SERVE_KV_QUANT``) stores the
-pool's K and V in int8 with per-page-row, per-head scales
-(``quant/kv.py``), about a quarter of the fp32 pool's bytes; the page
-walk is then the kernel's int8 variant, ``ops.paged_attention_int8``.
+- **int8 KV** (``kv_quant="int8"``, default from
+  ``BIGDL_SERVE_KV_QUANT``): int8 pools with per-page-row, per-head
+  scales (``quant/kv.py``); the page walk is the kernel's int8 variant.
+- **The prefix cache** (``serve/prefix.py``, env
+  ``BIGDL_SERVE_PREFIX_CACHE``, on by default): a retiring request
+  donates the full pages inside its seed to a token-hash chain cache; a
+  new request whose seed matches maps those pages read-only into its
+  table and starts at the divergence point.
+- **Self-speculative decode** (``spec_k`` > 0, env
+  ``BIGDL_SERVE_SPEC_K``): the model drafts ``k`` tokens a step with its
+  own first ``draft_layers`` blocks, then one verify window of ``k+1``
+  positions through the full model accepts the longest prefix whose
+  drafts equal the verify argmax (sampled rows: the lossless
+  accept/reject rule), so greedy rows commit exactly the
+  non-speculative stream.
+- **Sampled decode and stop sequences** (``serve/sampling.py``): each
+  slot's temperature, top-k, top-p and key ride the step as tensors, so
+  a batch mixing greedy and sampled requests is one step; greedy rows
+  take the unchanged argmax and stay byte-identical to a greedy-only
+  run.  Draws are keyed by the request's seed and generated index,
+  never by slot or companions (under speculative decode the committed
+  draws also follow where the windows fall, which a prefix hit's start
+  moves; their distribution does not).  A stop sequence matched on the
+  device
+  freezes its row, which retires at the next boundary with its row cut
+  just past the match.
+- **Streaming** (``serve/streaming.py``): :meth:`ContinuousDecoder.submit`
+  returns a :class:`~bigdl_tpu_torch.serve.streaming.StreamFuture`;
+  ``on_tokens(cb)`` turns on delivery of the new tokens at each boundary
+  from the boundary's one slab read, the callbacks on a delivery thread.
 
-Not in this slice (each is listed in ROADMAP.md): the prefix cache,
-speculative decode, tensor parallelism, the host KV tier, streaming
-delivery, sampled decode, stop sequences, the flight recorder and the
-metrics registry.
+Not ported yet (ROADMAP.md queue 1, item 7): tensor parallelism, the
+host KV tier and prefill page adoption (``adopt_pages``), the flight
+recorder, the metrics registry and its TTFT / ITL histograms (the
+decoder keeps their counts in :meth:`ContinuousDecoder.stats`).
 """
 from __future__ import annotations
 
+import os
+import time
+import weakref
 from collections import deque
-from concurrent.futures import Future
 
 import numpy as np
 import torch
 
 from bigdl_tpu_torch.models.transformer import (DEFAULT_PAGE_SIZE,
                                                 _handles_to, _lm_forward_one,
+                                                _lm_forward_window,
                                                 _lm_handles, new_pools)
 from bigdl_tpu_torch.quant import kv_mode_default, normalize_mode
 from bigdl_tpu_torch.quant import kv as kvq
+from bigdl_tpu_torch.serve import sampling as smp
 from bigdl_tpu_torch.serve.paging import PagePool, RequestTooLongError
+from bigdl_tpu_torch.serve.prefix import PrefixCache
+from bigdl_tpu_torch.serve.streaming import StreamFuture, TokenDelivery
 from bigdl_tpu_torch.utils.device import pin_fp32, resolve_device
 
 DEFAULT_SYNC = 8
+ENV_PREFIX = "BIGDL_SERVE_PREFIX_CACHE"
+ENV_SPEC_K = "BIGDL_SERVE_SPEC_K"
+ENV_STOP_SEQS = "BIGDL_SERVE_MAX_STOP_SEQS"
+DEFAULT_STOP_SEQS = 2
+ENV_STOP_LEN = "BIGDL_SERVE_MAX_STOP_LEN"
+DEFAULT_STOP_LEN = 8
+
+
+def _env_int(name, default):
+    try:
+        return int(os.environ.get(name, default))
+    except ValueError:
+        return default
 
 
 def _pages_needed(steps: int, page_size: int) -> int:
     """Pages a request's full lifetime reserves: ``ceil(steps /
     page_size)``.  The one spot for the reservation math, shared by
-    ``submit``'s too-long check and admission."""
+    ``submit``'s too-long check and admission.  Speculative decode adds
+    no page: window positions past a slot's capacity are gated to the
+    scratch page."""
     return -(-steps // page_size)
 
 
-def _temperature(sampling) -> float:
-    if sampling is None:
-        return 0.0
-    if isinstance(sampling, dict):
-        return float(sampling.get("temperature", 0.0) or 0.0)
-    return float(getattr(sampling, "temperature", 0.0) or 0.0)
+def _close_delivery(box):
+    """``weakref.finalize`` target: stop the delivery thread of a decoder
+    nobody closed."""
+    for d in box:
+        d.close(timeout=2.0)
 
 
 class _DecodeReq:
-    __slots__ = ("seed", "n_words", "future", "slot", "steps_needed",
-                 "steps_run", "start_pos", "pages")
+    __slots__ = ("seed", "n_words", "params", "future", "slot",
+                 "steps_needed", "start_pos", "pos", "pages", "t_submit",
+                 "first_ts", "streamed")
 
-    def __init__(self, seed, n_words):
+    def __init__(self, seed, n_words, params):
         self.seed = [int(t) for t in seed]
         self.n_words = int(n_words)
-        self.future = Future()
+        self.params = params
+        self.future = StreamFuture()
         self.slot = None
         # positions fed through = n_seed + n_words - 1 (lm_decode's n_pos)
         self.steps_needed = len(self.seed) + self.n_words - 1
-        self.steps_run = 0
-        self.start_pos = 0
+        self.start_pos = 0       # > 0 on a prefix-cache hit
+        self.pos = 0             # the position at the boundary's start
         self.pages = []          # pool page ids, logical order
+        self.t_submit = time.perf_counter()
+        self.first_ts = None     # first-token boundary
+        self.streamed = 0        # generated tokens delivered so far
 
 
 class ContinuousDecoder:
-    """Continuous-batching greedy decoder for one ``TransformerLM``.
+    """Continuous-batching decoder for one ``TransformerLM``.
 
     ``max_slots`` is the device batch width B; ``n_pos`` the per-request
-    position capacity — a request needs ``len(seed) + n_words - 1 <=
+    position capacity -- a request needs ``len(seed) + n_words - 1 <=
     n_pos``, and one that does not fit fails ITS OWN future with
     :class:`RequestTooLongError`.  The pool holds ``n_pages`` pages of
     ``page_size`` tokens (default: ``ceil(n_pos / page_size) *
-    max_slots``).  :meth:`submit` queues a request and returns a future
-    of the full token row (seed included, ``lm_decode``'s output);
-    :meth:`run` drives the slots until every request has resolved.
+    max_slots``).  :meth:`submit` queues a request and returns a
+    :class:`~bigdl_tpu_torch.serve.streaming.StreamFuture` of the full
+    token row (seed included, ``lm_decode``'s output for a greedy
+    request); :meth:`run` drives the slots until every request has
+    resolved.
 
-    ``kv_quant`` is ``"off"`` (fp32 pools) or ``"int8"``; ``None`` reads
-    ``BIGDL_SERVE_KV_QUANT`` (default off), and an unknown mode raises
-    ``ValueError`` naming it.
+    ``prefix_cache`` (None: ``BIGDL_SERVE_PREFIX_CACHE``, default on)
+    reuses donated seed pages; ``spec_k`` (None: ``BIGDL_SERVE_SPEC_K``,
+    default 0) > 0 drafts that many tokens a step with the first
+    ``draft_layers`` blocks (default ``max(1, L // 2)``);
+    ``max_stop_seqs`` / ``max_stop_len`` (defaults 2 / 8, env
+    ``BIGDL_SERVE_MAX_STOP_SEQS`` / ``BIGDL_SERVE_MAX_STOP_LEN``) size
+    each slot's packed stop buffer.  ``kv_quant`` is ``"off"`` (fp32
+    pools) or ``"int8"``; ``None`` reads ``BIGDL_SERVE_KV_QUANT`` (default
+    off), and an unknown mode raises ``ValueError`` naming it.
 
     ``device`` defaults to ``"cuda"`` and raises when there is no card;
     the weights are used on that device (moved there once if the model
-    lives elsewhere)."""
+    lives elsewhere).  :meth:`close` stops the delivery thread and
+    releases the prefix cache's pages."""
 
     def __init__(self, model, max_slots: int = 4, n_pos: int = 64,
                  sync_interval: int | None = None,
                  page_size: int | None = None, n_pages: int | None = None,
-                 kv_quant: str | None = None, device="cuda"):
+                 prefix_cache: bool | None = None,
+                 spec_k: int | None = None, draft_layers: int | None = None,
+                 kv_quant: str | None = None,
+                 max_stop_seqs: int | None = None,
+                 max_stop_len: int | None = None, device="cuda"):
         self.kv_quant = (kv_mode_default() if kv_quant is None else
                          normalize_mode(kv_quant, kvq.ON_MODES, "kv_quant"))
         self.device = dev = resolve_device(device)
@@ -112,76 +178,301 @@ class ContinuousDecoder:
         self.pages_per_slot = -(-self.n_pos // ps)
         if n_pages is None:
             n_pages = self.pages_per_slot * B
+        self.spec_k = max(0, _env_int(ENV_SPEC_K, 0) if spec_k is None
+                          else int(spec_k))
+        self.max_stop_seqs = max(1, _env_int(ENV_STOP_SEQS,
+                                             DEFAULT_STOP_SEQS)
+                                 if max_stop_seqs is None
+                                 else int(max_stop_seqs))
+        self.max_stop_len = max(1, _env_int(ENV_STOP_LEN, DEFAULT_STOP_LEN)
+                                if max_stop_len is None
+                                else int(max_stop_len))
+        use_prefix = (bool(_env_int(ENV_PREFIX, 1)) if prefix_cache is None
+                      else bool(prefix_cache))
         self._pool = PagePool(int(n_pages), ps)
+        self._prefix = PrefixCache(self._pool) if use_prefix else None
         self._n_view = n_view = self.pages_per_slot * ps
-        self._handles = _handles_to(_lm_handles(model), dev)
-        self._pe = self._handles.mods[1].table(n_view).to(dev)
-        self._caches = new_pools(self._handles, self._pool.n_pages, ps, dev,
+        self._handles = h = _handles_to(_lm_handles(model), dev)
+        L = h.n_layers
+        self.draft_layers = Ld = (max(1, L // 2) if draft_layers is None
+                                  else min(L, max(1, int(draft_layers))))
+        self._draft = h._replace(blocks=h.blocks[:Ld],
+                                 block_eps=h.block_eps[:Ld], n_layers=Ld)
+        self._pe = h.mods[1].table(n_view).to(dev)
+        self._caches = new_pools(h, self._pool.n_pages, ps, dev,
                                  self.kv_quant)
         self.kv_bytes_per_token = kvq.bytes_per_token(
-            self._handles.n_layers, self._handles.n_heads, self._handles.hd,
-            self.kv_quant)
+            L, h.n_heads, h.hd, self.kv_quant)
 
         def z(*shape, dtype=torch.int32):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
+        NS, LS = self.max_stop_seqs, self.max_stop_len
         self._rows = torch.arange(B, device=dev)
         self._pos = z(B)
         self._prev = z(B)
         self._active = z(B, dtype=torch.bool)
+        self._finished = z(B, dtype=torch.bool)
         self._seeds = z(B, n_view)
         self._seed_len = z(B)
-        self._gen = z(B, n_view)
+        # column n_view takes the writes of rows that commit nothing
+        self._gen = z(B, n_view + 1)
         self._ptab = z(B, self.pages_per_slot)
         self._ptab_live = self._ptab     # the columns a cycle reads
         # a never-admitted slot clips to position -1 (it wraps in every
         # index and is never live); admission sets the real capacity
         self._cap = z(B)
+        # per-slot sampling state (zeros: greedy, no stop sequence)
+        self._temp = z(B, dtype=torch.float32)
+        self._topk = z(B, dtype=torch.int64)
+        self._topp = z(B, dtype=torch.float32)
+        self._keys = z(B, 2, dtype=torch.int64)
+        self._stop_buf = z(B, NS, LS)
+        self._stop_len = z(B, NS)
+        # the live requests' lanes, set at each boundary from the host's
+        # own view of them (no device read): which of the sampled lane,
+        # top-k, top-p and the stop match the cycle computes
+        self._lanes = (False, False, False, False)
+        if self.spec_k:
+            self._acc_hist = z(self.spec_k + 1, dtype=torch.int64)
+            self.accept_counts = np.zeros(self.spec_k + 1, np.int64)
 
         self._pending: "deque[_DecodeReq]" = deque()
         self._slots: list = [None] * B
+        self._delivery = None
+        self._delivery_box: list = []
+        self._finalize = weakref.finalize(self, _close_delivery,
+                                          self._delivery_box)
         self.steps = 0
         self.host_syncs = 0
         self.admitted = 0
         self.retired = 0
         self.live_hwm = 0
+        self.spec_windows = 0
+        self.spec_accepted = 0
+        self.sampled = 0           # admitted requests with temperature > 0
+        self.stop_retired = 0      # requests retired on a stop match
+        self.steps_saved = 0       # step-slots reclaimed by those
+        self.streams = 0           # requests that streamed >= 1 token
+        self.stream_tokens = 0
+        self.stream_boundaries = 0
+        self._ttft_sum = 0.0
 
     # -- the device step ------------------------------------------------------
+    def _filters(self):
+        """(temperature, top-k, top-p) of the sampled lane: the per-slot
+        tensors, a filter no live request uses passed as its off value."""
+        _, topk, topp, _ = self._lanes
+        return (self._temp, self._topk if topk else 0,
+                self._topp if topp else 0.0)
+
+    def _next_token(self, logp, pos):
+        """The committed token at write position ``pos``: greedy rows take
+        the unchanged argmax (the byte-identity lane), sampled rows draw
+        from their filtered distribution under their request's key at
+        this generated index."""
+        greedy = logp.argmax(dim=-1).to(torch.int32)
+        if not self._lanes[0]:
+            return greedy
+        gidx = (pos - (self._seed_len - 1)).clamp(min=0).long()
+        sub = smp.fold_in_rows(self._keys,
+                               smp.DRAW_TAGS * gidx + smp.TAG_MAIN)
+        samp = smp.sample_tokens(logp, sub, *self._filters())
+        return torch.where(self._temp > 0, samp.to(torch.int32), greedy)
+
+    def _stop_hit(self, ends):
+        """Does a stop sequence of the slot end exactly at write position
+        ``ends[b, s]``?  ``ends`` (B, S) -> (B, S) bool.  The match looks
+        backward only and must lie wholly in the output (write positions
+        >= seed_len - 1: a seed never matches); right-aligned buffers make
+        it one fixed-shape comparison whatever each sequence's length."""
+        LS, n_view = self.max_stop_len, self._n_view
+        idx = (ends[:, :, None] - (LS - 1)
+               + torch.arange(LS, device=ends.device))          # (B,S,LS)
+        tok = self._gen[self._rows[:, None, None], idx.clamp(0, n_view - 1)]
+        out_ok = idx >= (self._seed_len - 1)[:, None, None]
+        eq = ((tok[:, :, None, :] == self._stop_buf[:, None, :, :])
+              & out_ok[:, :, None, :])                       # (B,S,NS,LS)
+        need = (torch.arange(LS, device=ends.device)
+                >= (LS - self._stop_len)[:, None, :, None])
+        hit = torch.where(need, eq, True).all(dim=-1)           # (B,S,NS)
+        return ((self._stop_len > 0)[:, None, :] & hit).any(dim=-1)
+
     @torch.no_grad()
     def _run_step(self):
         """One position for every slot (decode.py ``paged_step_body``):
         parked and finished slots neither advance nor write, and their
         attention reads no page."""
-        rows = self._rows
-        live = self._active & (self._pos < self._cap)
-        wp = torch.minimum(self._pos.clamp(min=0), self._cap - 1)
-        tok = torch.where(self._pos < self._seed_len,
-                          self._seeds[rows, wp], self._prev)
+        rows, pos = self._rows, self._pos
+        live = self._active & ~self._finished & (pos < self._cap)
+        wp = torch.minimum(pos.clamp(min=0), self._cap - 1)
+        tok = torch.where(pos < self._seed_len, self._seeds[rows, wp],
+                          self._prev)
         logp, self._caches = _lm_forward_one(
             tok, wp, self._caches, self._handles, self._pe,
             (self._ptab_live, self.page_size), valid=live)
-        nxt = logp.argmax(dim=-1).to(torch.int32)
-        # rows are distinct, so a masked read-modify-write is exact here
-        self._gen[rows, wp] = torch.where(live, nxt, self._gen[rows, wp])
+        nxt = self._next_token(logp, pos)
+        self._gen[rows, torch.where(live, wp, self._n_view)] = nxt
         self._prev = torch.where(live, nxt, self._prev)
-        self._pos = torch.where(live, self._pos + 1, self._pos)
+        self._pos = torch.where(live, pos + 1, pos)
+        if self._lanes[3]:
+            hit = self._stop_hit(wp[:, None])[:, 0]
+            self._finished = self._finished | (live & hit)
 
+    @torch.no_grad()
+    def _run_spec_step(self):
+        """One speculative step (decode.py ``spec_step_body``): ``k``
+        draft steps through the first ``draft_layers`` blocks, one verify
+        window of ``k+1`` positions through the full model (its attention
+        ``paged_attention`` at S = k+1; it rewrites the draft's K/V at
+        every position it covers before any query reads them), then the
+        greedy or lossless sampled acceptance."""
+        k, B, ps, n_view = self.spec_k, self.B, self.page_size, self._n_view
+        rows, pos, cap = self._rows, self._pos, self._cap
+        seed_len, keys, temp = self._seed_len, self._keys, self._temp
+        sampled_lane = self._lanes[0]
+        pages = (self._ptab_live, ps)
+        live = self._active & ~self._finished & (pos < cap)
+        sampled = temp > 0 if sampled_lane else None
+
+        def clip(p):
+            # into the slot's pages: a position past them is gated to the
+            # scratch page, and the clip keeps its table index in range
+            c = cap if p.dim() == 1 else cap[:, None]
+            return torch.minimum(p, c - 1).clamp(min=0)
+
+        # -- k drafts with the shallow pass; seed positions stay forced;
+        # sampled rows DRAW their draft from the filtered shallow
+        # distribution, which is the q of the acceptance below
+        t0 = torch.where(pos < seed_len, self._seeds[rows, clip(pos)],
+                         self._prev)
+        toks, qs, d_tok, d_pos = [t0], [], t0, pos
+        for _ in range(k):
+            dlogp, self._caches = _lm_forward_one(
+                d_tok, clip(d_pos), self._caches, self._draft, self._pe,
+                pages, valid=live & (d_pos < cap))
+            d_draft = dlogp.argmax(dim=-1).to(torch.int32)
+            if sampled_lane:
+                lq = smp.filter_logits(dlogp, *self._filters())
+                gq = (d_pos - (seed_len - 1)).clamp(min=0).long()
+                d_smp = smp.categorical(smp.fold_in_rows(
+                    keys, smp.DRAW_TAGS * gq + smp.TAG_DRAFT), lq)
+                qs.append(torch.softmax(lq, dim=-1))
+                d_draft = torch.where(sampled, d_smp.to(torch.int32),
+                                      d_draft)
+            d_pos = d_pos + 1
+            d_tok = torch.where(d_pos < seed_len,
+                                self._seeds[rows, d_pos.clamp(max=n_view - 1)],
+                                d_draft)
+            toks.append(d_tok)
+        W = torch.stack(toks, dim=1)                           # (B, k+1)
+        span = torch.arange(k + 1, device=pos.device)
+        p_idx = pos[:, None] + span
+        valid = live[:, None] & (p_idx < cap[:, None])
+        wp = clip(p_idx)
+        # -- one verify window through the full model
+        logp, self._caches = _lm_forward_window(
+            W, wp, self._caches, self._handles, self._pe, pages,
+            valid=valid)
+        g = logp.argmax(dim=-1).to(torch.int32)               # (B, k+1)
+        # greedy lane: draft j+1 survives iff it equals the verify argmax
+        # at j (seed-forced positions always survive), so the committed
+        # stream is exactly the non-speculative greedy stream
+        forced = p_idx[:, 1:] < seed_len[:, None]
+        match = valid[:, 1:] & (forced | (W[:, 1:] == g[:, :k]))
+        if sampled_lane:
+            # the Leviathan accept u * q(x) < p(x), p filtered with the
+            # same per-row parameters as the draft's q
+            tf, kf, pf = self._filters()
+            pp = torch.softmax(smp.filter_logits(
+                logp, tf, kf, pf), dim=-1)                 # (B, k+1, V)
+            qs = torch.stack(qs, dim=1)                       # (B, k, V)
+            ga = (p_idx[:, :k] - (seed_len - 1)[:, None]).clamp(min=0)
+            u = smp.uniform_rows(smp.fold_in_rows(
+                keys[:, None, :].expand(B, k, 2),
+                smp.DRAW_TAGS * ga.long() + smp.TAG_ACCEPT))
+            x = W[:, 1:, None].long()
+            p_x = pp[:, :k].gather(-1, x)[..., 0]
+            q_x = qs.gather(-1, x)[..., 0]
+            match_s = valid[:, 1:] & (forced | (u * q_x < p_x))
+            match = torch.where(sampled[:, None], match_s, match)
+        acc = torch.cumprod(match.to(torch.int64), dim=1).sum(dim=1)
+        consumed = torch.where(live, torch.minimum(acc + 1, cap - pos), 0)
+        commit = span[None, :] < consumed[:, None]
+        C = g
+        if sampled_lane:
+            # sampled rows commit their accepted drafts, the slot at
+            # ``acc`` replaced by the residual draw (a rejection) or, at
+            # slot k with q = 0, a fresh draw from p (the bonus token)
+            ai = acc.clamp(0, k)
+            qa = torch.cat([qs, torch.zeros_like(qs[:, :1])], dim=1)[rows, ai]
+            pa = pp[rows, ai]
+            gfix = (pos + acc - (seed_len - 1)).clamp(min=0)
+            c = smp.categorical(smp.fold_in_rows(
+                keys, smp.DRAW_TAGS * gfix + smp.TAG_FIX),
+                torch.log(smp.spec_residual(pa, qa))).to(torch.int32)
+            Sx = torch.cat([W[:, 1:], torch.zeros_like(W[:, :1])], dim=1)
+            Sx = torch.where(span[None, :] == acc[:, None], c[:, None], Sx)
+            C = torch.where(sampled[:, None], Sx, g)
+        self._gen[rows[:, None], torch.where(commit, wp, n_view)] = C
+        if self._lanes[3]:
+            # the first committed slot that ends a stop sequence cuts the
+            # run there and freezes the row for boundary retirement
+            hit = self._stop_hit(wp) & commit
+            any_hit = hit.any(dim=1)
+            first = hit.to(torch.int32).argmax(dim=1)
+            consumed = torch.where(any_hit,
+                                   torch.minimum(consumed, first + 1),
+                                   consumed)
+            self._finished = self._finished | (any_hit & live)
+        self._prev = torch.where(
+            consumed > 0, C[rows, (consumed - 1).clamp(0, k)], self._prev)
+        # the acceptance histogram covers pure decode windows only:
+        # seed-forced windows accept by construction
+        rec = live & (p_idx[:, 1] >= seed_len)
+        self._pos = (pos + consumed).to(torch.int32)
+        self._acc_hist += torch.where(
+            rec[:, None],
+            torch.nn.functional.one_hot(acc, k + 1), 0).sum(dim=0)
+
+    # -- admission and retirement ----------------------------------------
     def _apply_admit(self, slot: int, req: _DecodeReq):
         """Load one request's state into ``slot`` (decode.py ``admit``):
-        one host->device copy of a packed row, then device-side writes."""
+        one host->device copy of a packed int32 row (the float parameters
+        as their bits), then device-side writes."""
         P, n_view = self.pages_per_slot, self._n_view
-        pack = np.zeros(3 + P + n_view, np.int32)
-        pack[:3] = (req.start_pos, len(req.seed),
-                    len(req.pages) * self.page_size)
-        pack[3:3 + len(req.pages)] = req.pages
-        pack[3 + P:3 + P + len(req.seed)] = req.seed
+        NS, LS = self.max_stop_seqs, self.max_stop_len
+        p = req.params
+        head = 8
+        o_sl, o_sb = head, head + NS
+        o_pt = o_sb + NS * LS
+        o_sd = o_pt + P
+        pack = np.zeros(o_sd + n_view, np.int32)
+        pack[:4] = (req.start_pos, len(req.seed),
+                    len(req.pages) * self.page_size, p.top_k)
+        pack[4:6] = np.asarray(smp.key_words(p.seed), np.uint32).view(
+            np.int32)
+        pack[6:8] = np.asarray([p.temperature, p.top_p], np.float32).view(
+            np.int32)
+        for j, seq in enumerate(p.stop):
+            pack[o_sl + j] = len(seq)
+            pack[o_sb + j * LS + LS - len(seq):o_sb + (j + 1) * LS] = seq
+        pack[o_pt:o_pt + len(req.pages)] = req.pages
+        pack[o_sd:o_sd + len(req.seed)] = req.seed
         row = torch.from_numpy(pack).to(self.device)
         self._pos[slot] = row[0]
         self._seed_len[slot] = row[1]
         self._cap[slot] = row[2]
-        self._ptab[slot] = row[3:3 + P]
-        self._seeds[slot] = row[3 + P:]
+        self._topk[slot] = row[3]
+        self._keys[slot] = row[4:6].long() & 0xFFFFFFFF
+        self._temp[slot] = row[6:7].view(torch.float32)[0]
+        self._topp[slot] = row[7:8].view(torch.float32)[0]
+        self._stop_len[slot] = row[o_sl:o_sb]
+        self._stop_buf[slot] = row[o_sb:o_pt].reshape(NS, LS)
+        self._ptab[slot] = row[o_pt:o_sd]
+        self._seeds[slot] = row[o_sd:]
         self._active[slot] = True
+        self._finished[slot] = False
         self._gen[slot] = 0
 
     def _apply_retire(self, slot: int):
@@ -195,23 +486,41 @@ class ContinuousDecoder:
         self._active[slot] = False
 
     # -- submit -------------------------------------------------------------
-    def submit(self, seed_ids, n_words: int, sampling=None) -> Future:
+    def submit(self, seed_ids, n_words: int, sampling=None) -> StreamFuture:
         """Queue one request; the future resolves to the full token row
-        (seed + ``n_words`` generated ids), ``lm_decode``'s greedy output
-        for the same seed.  A request that can never fit fails only its
-        own future with :class:`RequestTooLongError`.  ``sampling`` with
-        ``temperature > 0`` raises: sampled decode comes with the
-        sampled-decode slice."""
-        if _temperature(sampling) > 0:
-            raise NotImplementedError(
-                "sampled decode (temperature > 0) comes with the "
-                "sampled-decode slice of the port; this decoder is greedy")
+        (seed + up to ``n_words`` generated ids), ``lm_decode``'s greedy
+        output for the same seed by default.
+
+        ``sampling`` (a :class:`~bigdl_tpu_torch.serve.sampling.SamplingParams`,
+        its ``to_dict`` form or None for greedy) selects the sampled lane:
+        temperature / top-k / top-p draws keyed by the request's (resolved)
+        seed, stop token sequences that retire the request at the boundary
+        after a match (the row then ends just past the matched sequence),
+        and ``max_tokens`` capping ``n_words``.  A stop list past this
+        decoder's packed capacity (``max_stop_seqs`` x ``max_stop_len``)
+        fails its own future with ``ValueError``; a request that can never
+        fit fails its own with :class:`RequestTooLongError`.
+
+        The future streams too: ``on_tokens(cb)`` (or ``request_stream``)
+        turns on delivery of the generated tokens at each boundary, equal
+        to the resolved row's tail."""
         seed = np.asarray(seed_ids, np.int64)
         if seed.ndim != 1 or seed.size == 0:
             raise ValueError("seed_ids must be one flat non-empty id row")
         if n_words < 1:
             raise ValueError("n_words must be >= 1")
-        req = _DecodeReq(seed.tolist(), n_words)
+        params = smp.SamplingParams.of(sampling).resolved()
+        if params.max_tokens is not None:
+            n_words = min(int(n_words), params.max_tokens)
+        req = _DecodeReq(seed.tolist(), n_words, params)
+        if (len(params.stop) > self.max_stop_seqs
+                or any(len(s) > self.max_stop_len for s in params.stop)):
+            req.future.set_exception(ValueError(
+                f"stop list exceeds this decoder's packed capacity "
+                f"({self.max_stop_seqs} sequences x {self.max_stop_len} "
+                f"tokens); raise max_stop_seqs/max_stop_len at "
+                f"construction"))
+            return req.future
         if (req.steps_needed > self.n_pos
                 or _pages_needed(req.steps_needed, self.page_size)
                 > self._pool.n_pages):
@@ -226,31 +535,73 @@ class ContinuousDecoder:
         return req.future
 
     # -- drive --------------------------------------------------------------
+    def _alloc_pages(self, n):
+        """``n`` fresh pool pages, evicting cache-only prefix pages on
+        demand (one LRU scan); None when the pool cannot give them yet."""
+        short = n - self._pool.free_count
+        if short > 0 and (self._prefix is None
+                          or self._prefix.evict(short) < short):
+            return None
+        return [self._pool.alloc_one() for _ in range(n)]
+
+    def _try_admit(self, req) -> bool:
+        """Pages for ``req``: its prefix-cache match mapped read-only, the
+        rest fresh; it starts at the first position it does not share."""
+        shared = (self._prefix.match(req.seed) if self._prefix is not None
+                  else [])
+        fresh = self._alloc_pages(
+            _pages_needed(req.steps_needed, self.page_size) - len(shared))
+        if fresh is None:
+            for pid in shared:
+                self._pool.release(pid)
+            return False
+        req.pages = shared + fresh
+        req.start_pos = req.pos = len(shared) * self.page_size
+        if self._prefix is not None:
+            self._prefix.note_request(len(shared))
+        return True
+
     def _admit_waiting(self):
         for slot in range(self.B):
             if self._slots[slot] is not None or not self._pending:
                 continue
             req = self._pending[0]
-            need = _pages_needed(req.steps_needed, self.page_size)
-            if need > self._pool.free_count:
+            if not self._try_admit(req):
                 break   # head-of-line: wait for retirements to free pages
             self._pending.popleft()
-            req.pages = [self._pool.alloc_one() for _ in range(need)]
             req.slot = slot
             self._apply_admit(slot, req)
             self._slots[slot] = req
             self.admitted += 1
+            if not req.params.greedy:
+                self.sampled += 1
 
     def _retire_req(self, req: _DecodeReq):
+        """Free the slot; donate the full pages inside the seed to the
+        prefix cache (their K/V is a pure function of the seed prefix;
+        shared pages just drop this slot's reference) and release the
+        rest."""
         self._apply_retire(req.slot)
-        for pid in req.pages:
+        donate = 0
+        if self._prefix is not None:
+            donate = min(len(req.seed) // self.page_size, len(req.pages))
+            self._prefix.insert(req.seed, req.pages[:donate])
+        for pid in req.pages[donate:]:
             self._pool.release(pid)
         self._slots[req.slot] = None
         self.retired += 1
 
+    def _set_lanes(self, live):
+        sampled = [r.params for r in live if not r.params.greedy]
+        self._lanes = (bool(sampled),
+                       any(p.top_k for p in sampled),
+                       any(0 < p.top_p < 1 for p in sampled),
+                       any(r.params.stop for r in live))
+
     def step_boundary(self) -> int:
         """One admit -> ``sync_interval`` steps -> retire cycle.  Returns
         the number of slots served (0: nothing admissible)."""
+        spec = self.spec_k > 0
         self._admit_waiting()
         live = [r for r in self._slots if r is not None]
         if not live:
@@ -263,65 +614,192 @@ class ContinuousDecoder:
                 self._pending.clear()
             return 0
         self.live_hwm = max(self.live_hwm, len(live))
-        # the cycle's steps read no page past their rows' positions: the
-        # table it passes is as wide as those pages, so the attention's
-        # split walk follows the contexts served, not the n_pos reservation
-        width = max(_pages_needed(min(r.start_pos + r.steps_run
-                                      + self.sync_interval, r.steps_needed),
+        self._set_lanes(live)
+        has_stop = self._lanes[3]
+        # the cycle's steps read no page past their rows' reach: a row
+        # advances at most k+1 positions a step, so the table passed is as
+        # wide as those pages (its shared head pages among them), and the
+        # attention's split walk follows the contexts served, not the
+        # n_pos reservation
+        reach = (self.spec_k + 1) * self.sync_interval
+        width = max(_pages_needed(min(r.pos + reach,
+                                      len(r.pages) * self.page_size),
                                   self.page_size) for r in live)
         self._ptab_live = self._ptab[:, :width].contiguous()
+        step = self._run_spec_step if spec else self._run_step
         for _ in range(self.sync_interval):
-            self._run_step()
+            step()
         self.steps += self.sync_interval
-        for r in live:
-            r.steps_run += self.sync_interval
-        done = [r for r in live
-                if r.start_pos + r.steps_run >= r.steps_needed]
-        if done:
-            gen_host = self._gen.cpu().numpy()   # the boundary host sync
+        pos_host = fin_host = None
+        if spec or has_stop:
+            # positions (and stop flags, and the acceptance counts) in one
+            # read: completion is data-dependent here
+            parts = [self._pos.long(), self._finished.long()]
+            if spec:
+                parts.append(self._acc_hist)
+            got = torch.cat(parts).cpu().numpy()
             self.host_syncs += 1
-            for r in done:
-                s = len(r.seed)
-                row = r.seed + [int(t) for t in
-                                gen_host[r.slot, s - 1:s - 1 + r.n_words]]
-                # retire before resolving: a client woken by the future
-                # must see the slot free
-                self._retire_req(r)
+            pos_host, fin_host = got[:self.B], got[self.B:2 * self.B]
+            if spec:
+                self._drain_accept_hist(got[2 * self.B:])
+            for r in live:
+                r.pos = int(pos_host[r.slot])
+        else:
+            # no read: each row advanced one position a step, to its cap
+            for r in live:
+                r.pos = min(r.pos + self.sync_interval,
+                            len(r.pages) * self.page_size)
+        done = [r for r in live if r.pos >= r.steps_needed
+                or (fin_host is not None and bool(fin_host[r.slot]))]
+        # one slab read a boundary, shared by streaming and retirement
+        streaming = [r for r in live if r.future.streaming]
+        gen_host = None
+        if done or streaming:
+            gen_host = self._gen.cpu().numpy()
+            if pos_host is None:
+                self.host_syncs += 1
+        ts = time.perf_counter()
+        delivered = False
+        for r in streaming:
+            delivered |= self._feed_stream(r, gen_host, r.pos, ts)
+        for r in done:
+            s = len(r.seed)
+            # a stop-retired row froze early: it ends just past the match
+            # (a normal row's overshoot is cut back to n_words)
+            n_gen = max(1, min(r.n_words, r.pos - (s - 1)))
+            row = r.seed + [int(t) for t in
+                            gen_host[r.slot, s - 1:s - 1 + n_gen]]
+            if n_gen < r.n_words:
+                self.stop_retired += 1
+                self.steps_saved += r.steps_needed - r.pos
+            # retire before resolving: a client woken by the future must
+            # see the slot free
+            self._retire_req(r)
+            if r.future.streaming:
+                # the catch-up to the row's final length, then the
+                # resolution, both through the delivery FIFO: the last
+                # chunk lands before result() returns
+                delivered |= self._feed_stream(
+                    r, gen_host, min(r.pos, r.steps_needed), ts)
+                self._ensure_delivery().resolve(r.future, row)
+            else:
                 r.future.set_result(row)
+        if delivered:
+            self.stream_boundaries += 1
         return len(live)
 
+    def _drain_accept_hist(self, counts):
+        """Fold the device-accumulated acceptance counts, read with the
+        boundary's positions, into the host histogram."""
+        delta = counts - self.accept_counts
+        self.accept_counts = counts.astype(np.int64)
+        self.spec_windows += int(delta.sum())
+        self.spec_accepted += int((delta * np.arange(len(delta))).sum())
+
+    # -- streaming delivery -------------------------------------------------
+    def _ensure_delivery(self) -> TokenDelivery:
+        if self._delivery is None:
+            self._delivery = TokenDelivery()
+            self._delivery_box.append(self._delivery)
+        return self._delivery
+
+    def _feed_stream(self, req, gen_host, consumed: int, ts: float) -> bool:
+        """Deliver the tokens this boundary made visible for one streaming
+        request, from the boundary's slab read; the consumer callbacks
+        run on the delivery thread.  Returns whether anything new was
+        delivered."""
+        s = len(req.seed)
+        avail = min(int(consumed), req.steps_needed) - (s - 1)
+        if avail <= req.streamed:
+            return False
+        toks = [int(t) for t in
+                gen_host[req.slot, s - 1 + req.streamed:s - 1 + avail]]
+        start, req.streamed = req.streamed, avail
+        if req.first_ts is None:
+            req.first_ts = ts
+            self.streams += 1
+            self._ttft_sum += ts - req.t_submit
+        self.stream_tokens += len(toks)
+        self._ensure_delivery().enqueue(req.future, toks, start, ts)
+        return True
+
     def run(self) -> "ContinuousDecoder":
-        """Drive the decoder until every submitted request has resolved."""
+        """Drive the decoder until every submitted request has retired (a
+        streaming request's future resolves on the delivery thread right
+        after its last chunk)."""
         while self._pending or any(r is not None for r in self._slots):
             if self.step_boundary() == 0:
                 break
         return self
 
+    def close(self):
+        """Stop the delivery thread (after everything queued on it) and
+        release the prefix cache's pages.  Idempotent."""
+        if self._delivery is not None:
+            self._delivery.close()
+            self._delivery_box.clear()
+            self._delivery = None
+        if self._prefix is not None:
+            self._prefix.drop_all()
+
     def stats(self) -> dict:
-        return {"steps": self.steps, "host_syncs": self.host_syncs,
-                "admitted": self.admitted, "retired": self.retired,
-                "slots": self.B, "live_hwm": self.live_hwm,
-                "n_pos": self.n_pos, "sync_interval": self.sync_interval,
-                "kv_quant": self.kv_quant,
-                "kv_bytes_per_token": self.kv_bytes_per_token,
-                "pool": self._pool.stats()}
+        out = {"steps": self.steps, "host_syncs": self.host_syncs,
+               "admitted": self.admitted, "retired": self.retired,
+               "slots": self.B, "live_hwm": self.live_hwm,
+               "n_pos": self.n_pos, "sync_interval": self.sync_interval,
+               "kv_quant": self.kv_quant,
+               "kv_bytes_per_token": self.kv_bytes_per_token,
+               "sampled": self.sampled, "stop_retired": self.stop_retired,
+               "steps_saved": self.steps_saved,
+               "pool": self._pool.stats()}
+        if self._prefix is not None:
+            out["prefix"] = self._prefix.stats()
+        if self.streams:
+            out["stream"] = {
+                "streams": self.streams, "tokens": self.stream_tokens,
+                "boundaries": self.stream_boundaries,
+                "ttft_mean_ms": self._ttft_sum / self.streams * 1e3}
+        if self.spec_k:
+            total = int(self.accept_counts.sum())
+            out.update(
+                spec_k=self.spec_k, draft_layers=self.draft_layers,
+                spec_windows=self.spec_windows,
+                spec_accepted=self.spec_accepted,
+                accept_hist=[int(c) for c in self.accept_counts],
+                accept_p50=(int(np.searchsorted(
+                    np.cumsum(self.accept_counts), (total + 1) // 2))
+                    if total else None),
+                accept_mean=self.spec_accepted / max(1, self.spec_windows))
+        return out
 
 
 def continuous_decode(model, seed_rows, n_words, max_slots: int = 4,
                       n_pos: int | None = None,
                       sync_interval: int | None = None, device="cuda",
-                      **decoder_kwargs):
+                      sampling=None, **decoder_kwargs):
     """One-shot: decode every seed row with a shared decoder.  ``n_pos``
-    defaults to the largest request's need; other keyword arguments
-    (``page_size``, ``n_pages``, ``kv_quant``) pass through to
-    :class:`ContinuousDecoder`.  Returns the extended rows in submission
-    order (``lm_decode`` greedy semantics per row)."""
+    defaults to the largest request's need; ``sampling`` is None (greedy),
+    one ``SamplingParams`` (or its dict) for every row, or a list of one
+    per row; other keyword arguments (``page_size``, ``n_pages``,
+    ``prefix_cache``, ``spec_k``, ``draft_layers``, ``kv_quant``, ...)
+    pass through to :class:`ContinuousDecoder`.  Returns the extended rows
+    in submission order (``lm_decode`` greedy semantics per greedy
+    row)."""
     reqs = [np.asarray(s, np.int64) for s in seed_rows]
+    per_row = (list(sampling) if isinstance(sampling, (list, tuple))
+               else [sampling] * len(reqs))
+    if len(per_row) != len(reqs):
+        raise ValueError(f"sampling has {len(per_row)} entries for "
+                         f"{len(reqs)} seed rows")
     if n_pos is None:
         n_pos = max(int(s.size) + int(n_words) - 1 for s in reqs)
     dec = ContinuousDecoder(model, max_slots=max_slots, n_pos=n_pos,
                             sync_interval=sync_interval, device=device,
                             **decoder_kwargs)
-    futs = [dec.submit(s, n_words) for s in reqs]
-    dec.run()
-    return [f.result() for f in futs]
+    try:
+        futs = [dec.submit(s, n_words, sampling=sp)
+                for s, sp in zip(reqs, per_row)]
+        dec.run()
+        return [f.result() for f in futs]
+    finally:
+        dec.close()

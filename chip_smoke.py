@@ -14,6 +14,9 @@ Run from the repository root on a machine with an NVIDIA H100:
                                        # alone, no result line
     python3 chip_smoke.py --distri   # fused_sgd's checks and phase 16
                                      # alone, no result line
+    python3 chip_smoke.py --serve    # the attention kernels (the verify
+                                     # window among them) and phase 3
+                                     # alone, no result line
 
 Each option runs part of one phase table (``ONLY``); every phase runs
 even where one before it failed, and a failed phase makes the exit
@@ -55,7 +58,24 @@ non-zero with no result line.  Phases:
    ``kv_quant="int8"``: every attention launch is the int8 kernel's,
    every token is held by teacher forcing against the plain int8 window
    forward, and the pools' bytes and the share of tokens equal to the
-   fp32 stream are printed;
+   fp32 stream are printed; then serving's request features on the same
+   model, each path read from zeroed launch counts: (a, with phase 2)
+   both page walks on the speculative verify window (S = 5 at the 64-page
+   tables, a head page every row shares) against their plain versions,
+   timed beside SDPA (or dequantize + SDPA) and the bound; (b) two waves
+   of 16 requests sharing a 256-token system prompt through the prefix
+   cache, the second all hits in fewer steps, every token teacher-forced;
+   (c) speculative decode (k = 4 drafts from 3 blocks), fp32 and int8,
+   ``paged_attention`` launched steps x (4 x 3 + 6) times, beside the
+   plain greedy decoder; (d) a mixed batch of greedy, sampled
+   (temperature 0.8, top-k 50, top-p 0.9) and stop-sequence requests: the
+   greedy rows equal a greedy-only run's, a sampled request replays in
+   another slot, a stop request ends just past its match; 20,000 draws
+   of ``sample_tokens`` from one filtered row against its probabilities
+   (chi-squared); (e) the 16 requests streamed, the chunks equal to the
+   rows, time to first token and inter-token latency printed beside the
+   card's name and power limit; (f) sampled ``lm_decode`` twice under one
+   key, ``lm_beam_search(beam_size=1)`` equal to greedy ``lm_decode``;
 4. training: ``LeNet5`` (seed 0) trains two epochs of synthetic MNIST
    through ``Optimizer(...).optimize()`` with its default ``SGD``,
    validating Top1 every epoch; the launch counts show every step went
@@ -221,6 +241,11 @@ FP32_FLOPS = 67e12                # H100 SXM data sheet, non-tensor fp32
 VOCAB, D_MODEL, HEADS, LAYERS, HIDDEN = 4000, 1024, 4, 6, 4096
 SLOTS, N_POS, PAGE = 8, 1024, 16
 N_REQ, N_WORDS = 16, 128
+# serving's request features: a SYSTEM-token shared prompt (16 pages),
+# speculative decode at SPEC_K drafts from DRAFT_LAYERS of the 6 blocks,
+# the sampled requests' filters, CHI_DRAWS draws for the sampler's check
+SYSTEM, SPEC_K, DRAFT_LAYERS, CHI_DRAWS = 256, 4, 3, 20000
+SAMPLED = {"temperature": 0.8, "top_k": 50, "top_p": 0.9}
 # training slice: examples/train_lenet.py on synthetic MNIST
 N_TRAIN, N_VAL, BATCH, EPOCHS, LR, MOMENTUM = 2048, 512, 128, 2, 0.05, 0.9
 LOSS_RTOL, PARAM_ATOL = 1e-3, 1e-4   # card vs CPU: cuDNN conv sums differ
@@ -698,10 +723,18 @@ def sdpa_view(torch, args):
             vview.contiguous(), mask)
 
 
-def live_key_rows(pos, n_view):
-    """Key rows a call needs: per batch row, those up to its largest query
-    position (none for a row whose positions are all < 0), summed."""
-    return int((pos.max(dim=1).values + 1).clamp(0, n_view).sum())
+def unique_key_rows(ptab, pos, ps):
+    """K/V rows a call must read at least once: each physical page's rows up
+    to the last one any batch row's queries reach (none for a row whose
+    positions are all < 0; a head page the rows share counts once)."""
+    reach = {}
+    pt = ptab.cpu().numpy()
+    last = pos.max(dim=1).values.cpu().numpy()
+    for b in range(pt.shape[0]):
+        n = min(int(last[b]) + 1, pt.shape[1] * ps)
+        for j in range(-(-n // ps) if n > 0 else 0):
+            reach[pt[b, j]] = max(reach.get(pt[b, j], 0), min(ps, n - j * ps))
+    return sum(reach.values())
 
 
 def paged_bound(args):
@@ -711,9 +744,8 @@ def paged_bound(args):
     position are not needed and not counted."""
     q, kpool, _, ptab, pos = args
     bsz, S, H, hd = q.shape
-    ps, P = kpool.shape[1], ptab.shape[1]
     live_keys = pos.clamp(min=-1).cpu().numpy() + 1          # (B, S)
-    kv = 2 * live_key_rows(pos, P * ps) * H * hd * 4
+    kv = 2 * unique_key_rows(ptab, pos, kpool.shape[1]) * H * hd * 4
     io = 2 * q.numel() * 4 + pos.numel() * 4 + ptab.numel() * 4
     flops = 4 * hd * H * int(live_keys.sum())
     t_bytes = (kv + io) / HBM_BYTES_PER_S * 1e3
@@ -1975,8 +2007,7 @@ def paged_int8_bound(args):
     and PV flops."""
     q, kpool, _, ptab, pos, _, _ = args
     _, _, H, hd = q.shape
-    ps, P = kpool.shape[1], ptab.shape[1]
-    kv = 2 * live_key_rows(pos, P * ps) * H * (hd + 4)
+    kv = 2 * unique_key_rows(ptab, pos, kpool.shape[1]) * H * (hd + 4)
     io = 2 * q.numel() * 4 + pos.numel() * 4 + ptab.numel() * 4
     flops = 4 * hd * H * int((pos.clamp(min=-1) + 1).sum())
     return byte_bound(kv + io, flops)
@@ -3666,8 +3697,8 @@ def phase_slice(torch, ops, profile: bool):
           f"tokens/s, {wall / st['steps'] * 1e3:.4f} ms/step, "
           f"max_memory_allocated {torch.cuda.max_memory_allocated()} B, "
           f"paged_attention launches {counts['paged_attention']}")
-    if st["pool"]["in_use"] != 0:
-        raise AssertionError(f"pages leaked: {st['pool']}")
+    if st["pool"]["in_use"] != st["prefix"]["entries"]:
+        raise AssertionError(f"pages leaked past the prefix cache: {st}")
 
     # teacher forcing: each generated token's log-prob under the plain
     # full-sequence forward is within 1e-3 of that position's maximum
@@ -3755,7 +3786,8 @@ def phase_serving_int8(torch, ops, model, seeds, fp_rows, profile: bool):
         raise AssertionError(f"int8 serving launches {counts}, expected "
                              f"paged_attention_int8 {LAYERS} x {dec.steps} "
                              f"steps and no other kernel")
-    if st["pool"]["in_use"] != 0 or st["kv_quant"] != "int8":
+    if (st["pool"]["in_use"] != st["prefix"]["entries"]
+            or st["kv_quant"] != "int8"):
         raise AssertionError(f"int8 serving: {st}")
     tokens = (st["pool"]["pages"] + 1) * PAGE     # the scratch page too
     pool_int8 = sum(c.numel() * c.element_size() for c in dec._caches)
@@ -3833,6 +3865,392 @@ def profile_decode(torch, model, seeds, kv_quant="off"):
               f"{e.count / steps:5.1f}/step  {e.key[:80]}")
     dec.run()
     return busy / steps
+
+
+# ---------------------------------------------------------------------------
+# serving's request features: the verify window at S = k+1, the prefix
+# cache, speculative decode, sampled / stop-sequence requests, streaming,
+# sampled lm_decode and beam search
+# ---------------------------------------------------------------------------
+
+def phase_verify_kernels(torch, ops, rows):
+    """Both page walks on the speculative verify window: S = SPEC_K + 1
+    queries a row at the decode width's 64-page tables, every row's head
+    page the same physical page (a prefix hit's shared page), each window
+    at its row's own positions (row 0's in its first page).  Each against
+    its plain version and split at the plan's count, 1, 3 and 64 against
+    the split-and-merge version; timed beside the plain version, SDPA over
+    the gathered view (fp32) or dequantize + SDPA (int8) and the bound.
+    Adds the figures to the two attention rows."""
+    import torch.nn.functional as F
+
+    from bigdl_tpu_torch.quant.kv import dequantize_view
+
+    g = torch.Generator(device="cuda").manual_seed(16)
+    hd, S = D_MODEL // HEADS, SPEC_K + 1
+    pos = window_pos(SLOTS, S, N_POS)
+    fp = paged_case(torch, g, SLOTS, S, HEADS, hd, PAGE, N_POS // PAGE, 512,
+                    pos, shared=True)
+    q8 = paged_int8_case(torch, g, SLOTS, S, HEADS, hd, PAGE,
+                         N_POS // PAGE, 512, pos, shared=True)
+    errs = {"fp32": check_paged(torch, ops, fp),
+            "int8": check_paged_int8(torch, ops, q8)}
+    for label, args in (("fp32", fp), ("int8", q8)):
+        split_errs, plan, _ = check_splits(torch, ops, args,
+                                           (None, 1, 3, N_POS // PAGE))
+        errs |= {f"{label} splits={n}": e for n, e in split_errs.items()}
+    flush = torch.empty(64 * 2**20, device="cuda")   # 256 MB > 50 MB L2
+    view = sdpa_view(torch, fp)
+    q, k, v, ptab, p, ks, vs = q8
+    n_view, idx = ptab.shape[1] * PAGE, ptab.long()
+
+    def dequant_sdpa():
+        kv = [dequantize_view(t[idx], s[idx]).reshape(SLOTS, n_view, HEADS,
+                                                      hd).transpose(1, 2)
+              for t, s in ((k, ks), (v, vs))]
+        return F.scaled_dot_product_attention(q.transpose(1, 2), *kv,
+                                              attn_mask=view[3])
+
+    fig = {
+        "paged_attention": {
+            "verify_ms": time_ms(torch, lambda: ops.paged_attention(*fp),
+                                 flush),
+            "verify_plain_ms": time_ms(
+                torch, lambda: ops.paged_attention_reference(*fp), flush),
+            "verify_library_ms": time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    *view[:3], attn_mask=view[3]), flush),
+            "verify_bound_ms": paged_bound(fp)[0]},
+        "paged_attention_int8": {
+            "verify_ms": time_ms(
+                torch, lambda: ops.paged_attention_int8(*q8), flush),
+            "verify_plain_ms": time_ms(
+                torch, lambda: ops.paged_attention_int8_reference(*q8),
+                flush),
+            "verify_dequant_sdpa_ms": time_ms(torch, dequant_sdpa, flush),
+            "verify_bound_ms": paged_int8_bound(q8)["bound_ms"]}}
+    print(f"verify window (B={SLOTS} S={S} H={HEADS} hd={hd} ps={PAGE} "
+          f"P={N_POS // PAGE}, shared head page, plan {plan} splits): " +
+          "; ".join(f"{n} max_abs_err={e:.3e}" for n, e in errs.items()))
+    nbytes = {"paged_attention": paged_bound(fp)[2],
+              "paged_attention_int8": paged_int8_bound(q8)["bytes"]}
+    for name, f in fig.items():
+        print(f"{name} verify window: " + " ".join(
+            f"{key[len('verify_'):]}={val:.5f}" for key, val in f.items())
+            + f" ({nbytes[name]} bytes)")
+    for row in rows:
+        if row["name"] in fig:
+            row |= fig[row["name"]]
+            label = "fp32" if row["name"] == "paged_attention" else "int8"
+            row["max_abs_err"] = max([row["max_abs_err"]] + [
+                e for n, e in errs.items() if n.startswith(label)])
+
+
+def chi2_limit(df):
+    """The 0.999 quantile of chi-squared(df), Wilson-Hilferty."""
+    return df * (1 - 2 / (9 * df) + 3.0902 * np.sqrt(2 / (9 * df))) ** 3
+
+
+def serve_run(torch, ops, dec, reqs):
+    """Submit ``reqs`` ((seed, sampling) pairs, N_WORDS each) and run the
+    decoder from zeroed launch counts; (rows, counts, wall s, futures)."""
+    futs = [dec.submit(s, N_WORDS, sampling=sp) for s, sp in reqs]
+    _, counts, wall = run_path(torch, ops, dec.run)
+    return [f.result(timeout=300) for f in futs], counts, wall, futs
+
+
+def only_kernel(counts, name, n, label):
+    if counts != {**dict.fromkeys(counts, 0), name: n}:
+        raise AssertionError(f"{label} launches {counts}, expected {name} "
+                             f"{n} and no other kernel")
+
+
+def forced_worst(torch, ops, model, rows, seeds, int8=False):
+    """The largest teacher-forcing gap over ``rows`` (their generated
+    tokens only), under the plain fp32 or int8 forward."""
+    from bigdl_tpu_torch.models.transformer import _lm_handles
+
+    handles = _lm_handles(model) if int8 else None
+    worst = 0.0
+    for seed, row in zip(seeds, rows):
+        if row[:len(seed)] != seed or len(row) <= len(seed):
+            raise AssertionError("returned row has the wrong shape")
+        gaps = (int8_forced_gaps(torch, ops, handles, row, len(seed)) if int8
+                else forced_gaps(torch, model, row, len(seed)))
+        worst = max(worst, float(gaps.max()))
+    if worst > 1e-3:
+        raise AssertionError(f"teacher forcing: a generated token sits "
+                             f"{worst:.3e} below the position's maximum")
+    return worst
+
+
+def first_run(row, n_seed, start, n):
+    """Generated tokens ``start .. start + n - 1`` of ``row`` as a stop
+    sequence, and the row's length cut just past its first occurrence in
+    the generated part (a stop sequence matches output only)."""
+    gen = row[n_seed:]
+    stop = gen[start:start + n]
+    return stop, n_seed + next(j + n for j in range(len(gen) - n + 1)
+                               if gen[j:j + n] == stop)
+
+
+def serve_prefix(torch, ops, model, counts):
+    """(b) two waves of N_REQ requests sharing a SYSTEM-token prompt, each
+    with its own 16-64-token tail; the second hits the cache."""
+    from bigdl_tpu_torch.serve import ContinuousDecoder
+
+    rs = np.random.RandomState(16)
+    system = rs.randint(0, VOCAB, size=SYSTEM).tolist()
+    seeds = [system + rs.randint(0, VOCAB, size=int(rs.randint(16, 65)))
+             .tolist() for _ in range(N_REQ)]
+    dec = ContinuousDecoder(model, max_slots=SLOTS, n_pos=N_POS,
+                            page_size=PAGE, prefix_cache=True, device="cuda")
+    waves = []
+    for w in (1, 2):
+        steps0, pre0 = dec.steps, dec.stats()["prefix"]
+        rows, c, wall, _ = serve_run(torch, ops, dec,
+                                     [(s, None) for s in seeds])
+        steps = dec.steps - steps0
+        pre = dec.stats()["prefix"]
+        only_kernel(c, "paged_attention", LAYERS * steps, f"prefix wave {w}")
+        counts[f"serve_prefix_wave{w}"] = c
+        worst = forced_worst(torch, ops, model, rows, seeds)
+        hits = pre["hits"] - pre0["hits"]
+        reused = pre["pages_reused"] - pre0["pages_reused"]
+        waves.append((rows, steps))
+        print(f"prefix wave {w}: {N_REQ} requests, {SYSTEM}-token system "
+              f"prompt + 16..64-token tails, n_words={N_WORDS}: {steps} "
+              f"steps, {hits} hits, {reused} pages reused, wall "
+              f"{wall:.4f} s, {N_REQ * N_WORDS / wall:.1f} generated "
+              f"tokens/s, {wall / steps * 1e3:.4f} ms/step, teacher "
+              f"forcing largest gap {worst:.3e} (limit 1e-3)")
+        if w == 2 and not (hits == N_REQ and steps < waves[0][1]):
+            raise AssertionError(f"prefix wave 2: {hits} hits and {steps} "
+                                 f"steps against wave 1's {waves[0][1]}")
+    same = sum(a == b for a, b in zip(*(r for r, _ in waves)))
+    st = dec.stats()
+    if st["pool"]["in_use"] != st["prefix"]["entries"]:
+        raise AssertionError(f"prefix: pages held past the cache: {st}")
+    dec.close()
+    print(f"prefix: {same} of {N_REQ} hit rows equal their cold rows "
+          f"exactly; cache {st['prefix']}")
+
+
+def serve_spec(torch, ops, model, seeds, counts):
+    """(c) speculative decode, fp32 and int8 pools, beside the plain
+    greedy decoder on the same seeds."""
+    from bigdl_tpu_torch.serve import ContinuousDecoder
+
+    kw = dict(max_slots=SLOTS, n_pos=N_POS, page_size=PAGE,
+              prefix_cache=False, device="cuda")
+    base = ContinuousDecoder(model, **kw)
+    greedy, c, wall, _ = serve_run(torch, ops, base,
+                                   [(s, None) for s in seeds])
+    only_kernel(c, "paged_attention", LAYERS * base.steps, "greedy")
+    counts["serve_greedy"] = c
+    print(f"spec baseline, plain greedy: {base.steps} steps, wall "
+          f"{wall:.4f} s, {N_REQ * N_WORDS / wall:.1f} generated tokens/s, "
+          f"{wall / base.steps * 1e3:.4f} ms/step")
+    for kv in ("off", "int8"):
+        dec = ContinuousDecoder(model, spec_k=SPEC_K,
+                                draft_layers=DRAFT_LAYERS, kv_quant=kv, **kw)
+        rows, c, w, _ = serve_run(torch, ops, dec, [(s, None) for s in seeds])
+        name = "paged_attention" + ("_int8" if kv == "int8" else "")
+        only_kernel(c, name, dec.steps * (SPEC_K * DRAFT_LAYERS + LAYERS),
+                    f"spec {kv}")
+        counts["serve_spec" + ("_int8" if kv == "int8" else "")] = c
+        worst = forced_worst(torch, ops, model, rows, seeds, kv == "int8")
+        st = dec.stats()
+        same = sum(a == b for a, b in zip(rows, greedy))
+        print(f"spec k={SPEC_K} draft_layers={DRAFT_LAYERS} kv {kv}: "
+              f"{dec.steps} steps ({base.steps} greedy), {st['host_syncs']}"
+              f" host syncs, wall {w:.4f} s, {N_REQ * N_WORDS / w:.1f} "
+              f"generated tokens/s ({N_REQ * N_WORDS / wall:.1f} greedy), "
+              f"{w / dec.steps * 1e3:.4f} ms/step ({wall / base.steps * 1e3:.4f}"
+              f" greedy), acceptance histogram {st['accept_hist']} over "
+              f"{st['spec_windows']} decode windows (mean "
+              f"{st['accept_mean']:.4f}), {name} launches {c[name]} = "
+              f"{dec.steps} x ({SPEC_K} x {DRAFT_LAYERS} + {LAYERS}), "
+              f"teacher forcing largest gap {worst:.3e} (limit 1e-3), "
+              f"{same} of {N_REQ} rows equal to greedy's")
+
+
+def serve_mixed(torch, ops, model, seeds, counts):
+    """(d) greedy, sampled and stop-sequence requests in one batch: the
+    greedy rows are the greedy-only run's, a sampled request replays in
+    another slot beside other companions, a stop request ends just past
+    its match; then 20,000 draws of ``sample_tokens`` from one filtered
+    row against its probabilities."""
+    import torch.nn.functional as F
+
+    from bigdl_tpu_torch.serve import ContinuousDecoder
+    from bigdl_tpu_torch.serve import sampling as smp
+
+    kw = dict(max_slots=SLOTS, n_pos=N_POS, page_size=PAGE,
+              prefix_cache=False, device="cuda")
+    # the longest seed is a greedy row, so the table width a cycle passes
+    # (the longest live reach) is the same in every run below
+    order = sorted(range(N_REQ), key=lambda i: -len(seeds[i]))[:SLOTS]
+    greedy_ix, sampled_ix, stop_ix = order[:3], order[3:6], order[6:8]
+    sp = [dict(SAMPLED, seed=100 + i) for i in range(3)]
+    plain = ContinuousDecoder(model, **kw)
+    ref, _, _, _ = serve_run(torch, ops, plain,
+                             [(seeds[i], None) for i in order])
+    stops = [first_run(ref[6 + j], len(seeds[i]), 20 + 5 * j, 3)
+             for j, i in enumerate(stop_ix)]
+    reqs = ([(seeds[i], None) for i in greedy_ix]
+            + [(seeds[i], p) for i, p in zip(sampled_ix, sp)]
+            + [(seeds[i], {"stop": [st]})
+               for i, (st, _) in zip(stop_ix, stops)])
+    dec = ContinuousDecoder(model, **kw)
+    rows, c, wall, _ = serve_run(torch, ops, dec, reqs)
+    only_kernel(c, "paged_attention", LAYERS * dec.steps, "mixed")
+    counts["serve_mixed"] = c
+    if rows[:3] != ref[:3]:
+        raise AssertionError("mixed batch: a greedy row differs from the "
+                             "greedy-only run's")
+    for k, (i, (st, end)) in enumerate(zip(stop_ix, stops)):
+        if rows[6 + k] != ref[6 + k][:end]:
+            raise AssertionError(f"stop request {k} did not end just past "
+                                 f"its match at {end}")
+    st = dec.stats()
+    if st["stop_retired"] != 2 or st["sampled"] != 3:
+        raise AssertionError(f"mixed batch stats {st}")
+    # the first sampled request again, in slot 2, beside other companions
+    # (the longest greedy request kept, so the same table widths)
+    again = ContinuousDecoder(model, **kw)
+    alone, _, _, _ = serve_run(torch, ops, again, [
+        (seeds[greedy_ix[0]], None), (seeds[stop_ix[0]], None),
+        (seeds[sampled_ix[0]], sp[0])])
+    if alone[2] != rows[3]:
+        raise AssertionError("a sampled request drew another row in "
+                             "another slot beside other companions")
+    worst = forced_worst(torch, ops, model, rows[:3], [r[0] for r in reqs])
+    print(f"mixed batch: 3 greedy, 3 sampled {SAMPLED}, 2 stop requests, "
+          f"{dec.steps} steps, wall {wall:.4f} s: greedy rows equal the "
+          f"greedy-only run's, the sampled row replays in slot 2, stop rows "
+          f"end at {[e - len(seeds[i]) for i, (_, e) in zip(stop_ix, stops)]}"
+          f" generated tokens (steps saved {st['steps_saved']}), greedy "
+          f"teacher forcing {worst:.3e}")
+    # the sampler alone: one filtered row of the model's log-probs
+    with torch.no_grad():
+        ids = torch.tensor([seeds[0]], device="cuda")
+        lp = model(F.one_hot(ids, VOCAB).float())[0, -1]
+    filt = (SAMPLED["temperature"], SAMPLED["top_k"], SAMPLED["top_p"])
+    rows_lp = lp.expand(2000, VOCAB)
+    # the probabilities of the filter as the sampler computes it (the
+    # same shape: the top-p prefix sum rounds as in the draws)
+    probs = torch.softmax(smp.filter_logits(rows_lp, *filt)[0],
+                          dim=-1).double()
+    drawn = torch.zeros(VOCAB, dtype=torch.int64, device="cuda")
+    base = smp.key_data(31, "cuda")
+    for lo in range(0, CHI_DRAWS, 2000):
+        keys = smp.fold_in_rows(base.expand(2000, 2),
+                                torch.arange(lo, lo + 2000, device="cuda"))
+        drawn += torch.bincount(smp.sample_tokens(rows_lp, keys, *filt),
+                                minlength=VOCAB)
+    counts_np, p = drawn.cpu().numpy(), probs.cpu().numpy()
+    if counts_np[p == 0].sum():
+        raise AssertionError("sample_tokens drew a filtered-out token")
+    big = p > 0.001
+    exp = CHI_DRAWS * np.append(p[big], p[~big].sum())
+    obs = np.append(counts_np[big], counts_np[~big].sum())
+    keep = exp > 0
+    stat = float(((obs[keep] - exp[keep]) ** 2 / exp[keep]).sum())
+    limit = chi2_limit(int(big.sum()))
+    if stat > limit:
+        raise AssertionError(f"sample_tokens chi2 {stat:.2f} > {limit:.2f}")
+    print(f"sample_tokens: {CHI_DRAWS} draws of one filtered row ({filt}, "
+          f"{int((p > 0).sum())} tokens kept, {int(big.sum())} with p > "
+          f"0.001): chi2 {stat:.2f} (0.999 quantile {limit:.2f})")
+
+
+def serve_stream(torch, ops, model, seeds, fp_rows, counts, smi):
+    """(e) the 16-request wave streamed: the chunks equal each row's tail;
+    time to first token and inter-token latency as the client's callbacks
+    see them."""
+    from bigdl_tpu_torch.serve import ContinuousDecoder
+
+    dec = ContinuousDecoder(model, max_slots=SLOTS, n_pos=N_POS,
+                            page_size=PAGE, device="cuda")
+    seen = [[] for _ in seeds]
+    futs = []
+    for i, s in enumerate(seeds):
+        f = dec.submit(s, N_WORDS)
+        f.on_tokens(lambda toks, i=i: seen[i].append(
+            (time.perf_counter(), list(toks))))
+        futs.append(f)
+    _, c, wall = run_path(torch, ops, dec.run)
+    rows = [f.result(timeout=300) for f in futs]
+    only_kernel(c, "paged_attention", LAYERS * dec.steps, "streaming")
+    counts["serve_stream"] = c
+    ttft, itl = [], []
+    for f, chunks, s, row in zip(futs, seen, seeds, rows):
+        if [t for _, ch in chunks for t in ch] != row[len(s):]:
+            raise AssertionError("streamed chunks differ from the row")
+        ttft.append(chunks[0][0] - f.t_create)
+        for (t0, _), (t1, ch) in zip(chunks, chunks[1:]):
+            itl += [(t1 - t0) / len(ch)] * len(ch)
+    same = sum(a == b for a, b in zip(rows, fp_rows))
+    st = dec.stats()
+    dec.close()
+    print(f"{smi} streaming: {N_REQ} requests, {st['stream']['boundaries']}"
+          f" boundaries, {st['host_syncs']} host syncs, wall {wall:.4f} s; "
+          f"time to first token p50 {np.percentile(ttft, 50) * 1e3:.4f} ms "
+          f"p99 {np.percentile(ttft, 99) * 1e3:.4f} ms; inter-token latency "
+          f"p50 {np.percentile(itl, 50) * 1e3:.4f} ms p99 "
+          f"{np.percentile(itl, 99) * 1e3:.4f} ms; chunks equal every row's "
+          f"tail; {same} of {N_REQ} rows equal the unstreamed run's")
+
+
+def serve_offline(torch, ops, model, seeds, counts):
+    """(f) sampled ``lm_decode`` twice under one key, and
+    ``lm_beam_search(beam_size=1)`` against greedy ``lm_decode``."""
+    from bigdl_tpu_torch.models.transformer import lm_beam_search, lm_decode
+
+    seed, n = seeds[0][:64], 32
+    kw = dict(greedy=False, key=7, temperature=SAMPLED["temperature"],
+              top_k=SAMPLED["top_k"], top_p=SAMPLED["top_p"], device="cuda")
+    (a, b), c, wall = run_path(torch, ops, lambda: (
+        lm_decode(model, seed, n, **kw), lm_decode(model, seed, n, **kw)))
+    only_kernel(c, "paged_attention", 2 * LAYERS * (len(seed) + n - 1),
+                "sampled lm_decode")
+    counts["lm_decode_sampled"] = c
+    if a != b or len(a) != len(seed) + n:
+        raise AssertionError("sampled lm_decode is not deterministic under "
+                             "one key")
+    (beam, greedy), c, _ = run_path(torch, ops, lambda: (
+        lm_beam_search(model, seed, n, beam_size=1, device="cuda"),
+        lm_decode(model, seed, n, device="cuda")))
+    only_kernel(c, "paged_attention", 2 * LAYERS * (len(seed) + n - 1),
+                "beam search")
+    counts["beam_search"] = c
+    if beam != greedy:
+        raise AssertionError("lm_beam_search(beam_size=1) differs from "
+                             "greedy lm_decode")
+    rows, scores = lm_beam_search(model, seed, n, beam_size=4,
+                                  return_all=True, device="cuda")
+    if scores != sorted(scores, reverse=True) or len(set(map(tuple, rows))) \
+            != 4:
+        raise AssertionError("beam search rows not distinct or unsorted")
+    print(f"lm_decode sampled (key 7, {n} words after {len(seed)}): the same "
+          f"row twice, {wall:.4f} s for both; lm_beam_search beam 1 equals "
+          f"greedy lm_decode; beam 4 scores {[round(s, 4) for s in scores]}")
+
+
+def phase_serve_features(torch, ops, model, seeds, fp_rows):
+    """Serving's request features at full width on the card, each path
+    read from zeroed launch counts: (b) the prefix cache, (c) speculative
+    decode (fp32 and int8), (d) a mixed batch and the sampler, (e)
+    streaming, (f) sampled ``lm_decode`` and beam search."""
+    counts = {}
+    smi = smi_line()
+    serve_prefix(torch, ops, model, counts)
+    serve_spec(torch, ops, model, seeds, counts)
+    serve_mixed(torch, ops, model, seeds, counts)
+    serve_stream(torch, ops, model, seeds, fp_rows, counts, smi)
+    serve_offline(torch, ops, model, seeds, counts)
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -5814,10 +6232,14 @@ def phase_table(torch, ops, profile, rows):
          lambda: phase_rnn_gru_kernels(torch, ops)),
         ("state_kernels", "kernels",
          lambda: phase_state_kernels(torch, ops, rows) or []),
+        ("verify_kernels", "kernels",
+         lambda: phase_verify_kernels(torch, ops, rows) or []),
         ("serving", "path", slice_),
         ("serving_int8", "path", lambda: ({
             "serving_int8": phase_serving_int8(
                 torch, ops, *carry["serving"], profile)}, {})),
+        ("serve_features", "path", lambda: (phase_serve_features(
+            torch, ops, *carry["serving"]), {})),
         ("lenet", "path", counts_of("lenet", phase_train)),
         ("inception", "path", counts_of("inception", phase_inception)),
         ("bilstm", "path", counts_of("bilstm", phase_bilstm)),
@@ -5844,7 +6266,11 @@ ONLY = {
     # the kernel phases: to time two trees' kernels in turns
     "--kernels": ("kernels", "train_kernels", "conv_kernels",
                   "bilstm_kernels", "lstm_scan_kernels", "rnn_gru_kernels",
-                  "state_kernels"),
+                  "state_kernels", "verify_kernels"),
+    # serving: the attention kernels (the verify window among them), the
+    # greedy fp32 and int8 paths and the request features
+    "--serve": ("kernels", "verify_kernels", "serving", "serving_int8",
+                "serve_features"),
     # the training kernels' checks and the harness
     "--harness": ("train_kernels", "harness"),
     # the batch-normalisation slice: its kernel checks and four paths
@@ -5864,8 +6290,9 @@ ONLY = {
 # lstm_scan's row bilstm_forward's primal forward at D = 1 on its inputs;
 # the int8 attention row the two-call reference (dequantize, then SDPA);
 # the rnn forward and backward rows also their time at SimpleRNN's chunk;
-# the attention rows their split count and their time at serving's own
-# context; the pool rows the sums over an Inception step's pools at their
+# the attention rows their split count, their time at serving's own
+# context and on the speculative verify window (verify_*: S = 5, shared
+# head pages; SDPA for fp32, dequantize + SDPA for int8); the pool rows the sums over an Inception step's pools at their
 # own shapes (kernel, bound and library ms, launches a step); the s2 pool
 # rows also over a VGG step's five pools and ResNet-50's stem pool; the
 # stride-1 rows a PyTorch copy or add moving their bytes; the bilstm and
@@ -5887,7 +6314,9 @@ ROW_EXTRA = ("layer_library_ms", "layer_port_ms", "same_size_library_ms",
              "resnet50_bound_ms", "resnet50_library_ms",
              "resnet50_launches_step", "same_bytes_ms", "chunk_ms",
              "chunk_state_ms", "act_ms", "device_lr_ms",
-             "graph_kernel_runs")
+             "graph_kernel_runs", "verify_ms", "verify_plain_ms",
+             "verify_library_ms", "verify_dequant_sdpa_ms",
+             "verify_bound_ms")
 
 
 def main(argv) -> int:

@@ -72,12 +72,16 @@ def test_pool_drains_after_run(port):
     dec.run()
     assert all(f.done() for f in futs)
     st = dec.stats()
-    assert st["pool"]["in_use"] == 0
-    assert st["pool"]["free"] == 5
+    # every page is free or held by the prefix cache alone (the seed page
+    # [7, 8, 9, 10] donated), and closing the decoder releases those
+    assert st["pool"]["in_use"] == st["prefix"]["entries"] == 1
     assert st["admitted"] == st["retired"] == len(SEEDS)
     # the small pool forced head-of-line waits but never over-allocated
     assert 0 < st["pool"]["in_use_hwm"] <= 5
     assert _pages_needed(9, 4) == 3 and _pages_needed(8, 4) == 2
+    dec.close()
+    assert dec.stats()["pool"]["in_use"] == 0
+    assert dec.stats()["pool"]["free"] == 5
 
 
 def test_host_syncs_only_at_retiring_boundaries(port):
@@ -91,11 +95,21 @@ def test_host_syncs_only_at_retiring_boundaries(port):
     assert 1 <= st["host_syncs"] <= st["steps"] // 3
 
 
-def test_sampling_raises(port):
+def test_sampling_raises(port, serial):
+    """``sampling=`` is validated at submit (a negative temperature or a
+    wrong type raises there); a sampled request is served beside a greedy
+    one, which stays ``lm_decode``'s row."""
     dec = ContinuousDecoder(port, max_slots=2, n_pos=9, device="cpu")
-    with pytest.raises(NotImplementedError, match="sampled-decode slice"):
-        dec.submit([1, 2], 3, sampling={"temperature": 0.7})
-    dec.submit([1, 2], 3, sampling={"temperature": 0.0})   # greedy is fine
+    with pytest.raises(ValueError, match="temperature"):
+        dec.submit([1, 2], 3, sampling={"temperature": -0.7})
+    with pytest.raises(TypeError, match="sampling must be"):
+        dec.submit([1, 2], 3, sampling=0.7)
+    hot = dec.submit([1, 2], 3, sampling={"temperature": 0.7, "seed": 3})
+    cold = dec.submit(SEEDS[0], 5, sampling={"temperature": 0.0})
+    dec.run()
+    assert len(hot.result()) == 5 and hot.result()[:2] == [1, 2]
+    assert cold.result() == serial[0]
+    assert dec.stats()["sampled"] == 1
 
 
 def test_no_device_means_the_card(port, monkeypatch):

@@ -260,13 +260,14 @@ def test_nonfinite_streak_aborts():
 @pytest.mark.parametrize("args,shape", [
     ((3, 4, 3, 3), (2, 3, 9, 9)),
     ((4, 6, 3, 2, 2, 1, 1, 0, 2), (2, 4, 9, 8)),   # stride, pad, groups
-    ((3, 2, 1, 1, 1, 1, 0, 0, 1, False), (3, 7, 7)),  # no bias, one CHW
+    # no bias, one CHW (propagate_back, init_method, with_bias: the JAX
+    # module's order)
+    ((3, 2, 1, 1, 1, 1, 0, 0, 1, True, "default", False), (3, 7, 7)),
 ])
 def test_convolution_matches_jax(args, shape):
     """``SpatialConvolution`` (reference argument order) output and
     gradients against the JAX layer, TF32 off."""
-    jm = jnn.SpatialConvolution(*args[:9], with_bias=(
-        args[9] if len(args) > 9 else True))
+    jm = jnn.SpatialConvolution(*args)
     pm = nn.SpatialConvolution(*args)
     load_jax_params(pm, jax.tree_util.tree_map(np.asarray, jm.params()))
     rs = np.random.RandomState(4)

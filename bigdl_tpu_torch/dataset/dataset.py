@@ -156,9 +156,26 @@ class ShardedDataSet(AbstractDataSet):
             raise ValueError(f"shard {self.shard_index} of {self.n_shards}")
         data = list(data)
         self._global_size = len(data)
+        self._all, self._seed = data, seed
         self._local = LocalArrayDataSet(
             data[self.shard_index::self.n_shards], seed)
         self.rng = self._local.rng
+
+    def shard_by(self, n_shards: int, shard_index: int):
+        """Hold shard ``shard_index`` of ``n_shards`` instead, its stream
+        restarted from the seed: a fresh ``ShardedDataSet`` of that shard,
+        its stream the same object (the chain's random stages keep
+        drawing from it).  A sequence- or expert-parallel run shards by
+        the ``data`` coordinate, so that the ranks of one data slice hold
+        the same records."""
+        if not 0 <= shard_index < n_shards:
+            raise ValueError(f"shard {shard_index} of {n_shards}")
+        self.n_shards, self.shard_index = int(n_shards), int(shard_index)
+        local = LocalArrayDataSet(self._all[shard_index::n_shards])
+        self.rng.seed(self._seed)
+        local.rng = self.rng
+        self._local = local
+        return self
 
     @property
     def order(self):

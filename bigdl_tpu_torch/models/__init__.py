@@ -10,12 +10,14 @@ from bigdl_tpu_torch.models.resnet import ResNet, ResNetCifar
 from bigdl_tpu_torch.models.rnn import BiLSTMClassifier, SimpleRNN, generate
 from bigdl_tpu_torch.models.textclassifier import (TextClassifierBiLSTM,
                                                    TextClassifierConv)
-from bigdl_tpu_torch.models.transformer import TransformerLM
+from bigdl_tpu_torch.models.transformer import (TransformerClassifier,
+                                                TransformerLM)
 from bigdl_tpu_torch.models.vgg import Vgg_16, Vgg_19, VggForCifar10
 
 __all__ = ["AlexNet", "AlexNet_OWT", "Autoencoder", "BiLSTMClassifier",
            "Inception_v1", "Inception_v1_NoAuxClassifier", "Inception_v2",
            "LeNet5", "ResNet", "ResNetCifar", "SimpleRNN",
-           "TextClassifierBiLSTM", "TextClassifierConv", "TransformerLM",
+           "TextClassifierBiLSTM", "TextClassifierConv",
+           "TransformerClassifier", "TransformerLM",
            "Vgg_16", "Vgg_19", "VggForCifar10", "generate",
            "inception_module", "inception_v2_module"]

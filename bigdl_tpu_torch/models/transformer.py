@@ -1,7 +1,9 @@
-"""Causal Transformer LM and its paged decode step (counterpart of
+"""The attention family: the encoder classifier, the causal Transformer
+LM and its paged decode step (counterpart of
 bigdl_tpu/models/transformer.py).
 
-Structure per block (pre-LN): x + Attn(LN(x)); x + FFN(LN(x)), with the
+Structure per block (pre-LN): x + Attn(LN(x)); x + FFN(LN(x)), the FFN
+two Linears or an ``nn.MoE`` (``moe_experts``), with the
 residuals spelled ConcatTable(Identity, branch) + CAddTable exactly as in
 the JAX package, so the nested parameter trees of the two packages line
 up path for path (``load_jax_params`` / ``export_params``, shared by
@@ -35,11 +37,26 @@ def _residual(branch: nn.Module) -> nn.Module:
                          nn.CAddTable())
 
 
+def _ffn(d_model: int, hidden: int, dropout: float, moe_experts: int,
+         **kw) -> nn.Module:
+    if moe_experts > 0:
+        return nn.Sequential(nn.MoE(d_model, hidden, moe_experts, **kw),
+                             nn.Dropout(dropout))
+    return nn.Sequential(
+        nn.TimeDistributed(nn.Linear(d_model, hidden, **kw)),
+        nn.ReLU(),
+        nn.Dropout(dropout),
+        nn.TimeDistributed(nn.Linear(hidden, d_model, **kw)),
+    )
+
+
 def encoder_block(d_model: int, n_heads: int, hidden: int,
-                  dropout: float = 0.1, causal: bool = False, device="cuda",
+                  dropout: float = 0.1, causal: bool = False,
+                  moe_experts: int = 0, device="cuda",
                   generator=None) -> nn.Module:
-    """One pre-LN block (the JAX ``encoder_block`` without the MoE FFN),
-    on ``device``: the card unless the caller asks for the CPU."""
+    """One pre-LN block, its FFN an ``nn.MoE`` of ``moe_experts`` experts
+    when that is positive (the JAX ``encoder_block``), on ``device``: the
+    card unless the caller asks for the CPU."""
     device = resolve_device(device)
     kw = dict(device=device, generator=generator)
     return nn.Sequential(
@@ -50,12 +67,7 @@ def encoder_block(d_model: int, n_heads: int, hidden: int,
         )),
         _residual(nn.Sequential(
             nn.LayerNorm(d_model, device=device),
-            nn.Sequential(
-                nn.TimeDistributed(nn.Linear(d_model, hidden, **kw)),
-                nn.ReLU(),
-                nn.Dropout(dropout),
-                nn.TimeDistributed(nn.Linear(hidden, d_model, **kw)),
-            ),
+            _ffn(d_model, hidden, dropout, moe_experts, **kw),
         )),
     )
 
@@ -78,6 +90,31 @@ def TransformerLM(vocab_size: int, d_model: int = 128, n_heads: int = 4,
     m.add(nn.LayerNorm(d_model, device=device))
     m.add(nn.TimeDistributed(nn.Sequential(
         nn.Linear(d_model, vocab_size, **kw), nn.LogSoftMax())))
+    return m
+
+
+def TransformerClassifier(class_num: int, d_model: int = 128,
+                          n_heads: int = 4, n_layers: int = 2,
+                          hidden: int = 256, dropout: float = 0.1,
+                          causal: bool = False, moe_experts: int = 0,
+                          device="cuda", generator=None):
+    """(B, T, d_model) embeddings -> class log-probs (the JAX
+    ``TransformerClassifier``, bigdl_tpu/models/transformer.py:594-613):
+    ``n_layers`` encoder blocks (causal attention with ``causal``, MoE
+    FFNs of ``moe_experts`` experts when positive), then LayerNorm, the
+    mean over time, Linear and LogSoftMax.  Weights are drawn on the CPU
+    from ``generator`` and placed on ``device``: the card unless the
+    caller asks for the CPU."""
+    device = resolve_device(device)
+    kw = dict(device=device, generator=generator)
+    m = nn.Sequential()
+    for _ in range(n_layers):
+        m.add(encoder_block(d_model, n_heads, hidden, dropout,
+                            causal=causal, moe_experts=moe_experts, **kw))
+    m.add(nn.LayerNorm(d_model, device=device))
+    m.add(nn.Mean(1, n_input_dims=2))
+    m.add(nn.Linear(d_model, class_num, **kw))
+    m.add(nn.LogSoftMax())
     return m
 
 

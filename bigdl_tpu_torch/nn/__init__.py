@@ -1,6 +1,5 @@
 """Torch-style layers and criterions of the port (counterpart of
-bigdl_tpu/nn): every name the JAX package exports, but ``MoE`` and the
-JAX ``Context``."""
+bigdl_tpu/nn): every name the JAX package exports, but the JAX ``Context``."""
 from bigdl_tpu_torch.nn import init
 from bigdl_tpu_torch.nn.activations import (
     ELU, Abs, Clamp, Exp, GradientReversal, HardShrink, HardTanh, LeakyReLU,
@@ -33,6 +32,7 @@ from bigdl_tpu_torch.nn.linear import (CMul, MM, MV, Add, AddConstant,
                                        Bilinear, CAdd, Cosine, Euclidean,
                                        Linear, LookupTable, Mul, MulConstant)
 from bigdl_tpu_torch.nn.module import Container, Module, TensorModule
+from bigdl_tpu_torch.nn.moe import MoE
 from bigdl_tpu_torch.nn.nms import Nms, nms_indices, nms_mask
 from bigdl_tpu_torch.nn.normalization import (
     BatchNormalization, LayerNorm, SpatialBatchNormalization,
@@ -74,7 +74,7 @@ __all__ = [
     "LSTMCell", "LayerNorm", "LeakyReLU", "Linear", "Log", "LogSigmoid",
     "LogSoftMax", "LookupTable", "MM", "MSECriterion", "MSRA", "MV",
     "MapTable", "MarginCriterion", "MarginRankingCriterion", "MaskedSelect",
-    "Max", "Mean", "Min", "MixtureTable", "Module", "Mul", "MulConstant",
+    "Max", "Mean", "Min", "MixtureTable", "MoE", "Module", "Mul", "MulConstant",
     "MultiCriterion", "MultiHeadSelfAttention", "MultiLabelMarginCriterion",
     "MultiLabelSoftMarginCriterion", "MultiMarginCriterion", "Narrow",
     "NarrowTable", "Nms", "PReLU", "Padding", "PairwiseDistance",

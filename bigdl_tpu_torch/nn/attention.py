@@ -1,5 +1,15 @@
 """Multi-head self-attention and the sinusoidal position table
-(counterpart of bigdl_tpu/nn/attention.py)."""
+(counterpart of bigdl_tpu/nn/attention.py).
+
+Both layers have a sequence-parallel form.  The JAX layer learns of the
+trainer's mesh through ``Context.seq_mesh``; here
+``DistriOptimizer(sequence_parallel=True)`` sets each layer's
+``seq_axis`` (the mesh's ``seq`` ``Axis``) for the run and clears it
+after.  With it set, each rank holds block ``index`` of the time
+dimension: the attention runs the ring (``parallel/ring_attention.py``)
+and the position table adds the block's global rows.  On an axis of one
+rank both take their plain path.
+"""
 from __future__ import annotations
 
 import numpy as np
@@ -7,7 +17,8 @@ import torch
 
 from bigdl_tpu_torch.nn import init as init_
 from bigdl_tpu_torch.nn.module import TensorModule
-from bigdl_tpu_torch.parallel.ring_attention import full_attention
+from bigdl_tpu_torch.parallel.ring_attention import (full_attention,
+                                                     ring_attention)
 
 
 class MultiHeadSelfAttention(TensorModule):
@@ -28,6 +39,7 @@ class MultiHeadSelfAttention(TensorModule):
                 (d_model, d_model), d_model, generator), device)
             self._add_param(name.replace("w", "b"), torch.zeros(d_model),
                             device)
+        self.seq_axis = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, d = x.shape
@@ -36,8 +48,13 @@ class MultiHeadSelfAttention(TensorModule):
         def proj(w, bias):
             return (x @ w + bias).reshape(b, t, h, d // h)
 
-        o = full_attention(proj(self.wq, self.bq), proj(self.wk, self.bk),
-                           proj(self.wv, self.bv), causal=self.causal)
+        q, k, v = (proj(self.wq, self.bq), proj(self.wk, self.bk),
+                   proj(self.wv, self.bv))
+        ring = self.seq_axis
+        if ring is not None and ring.size > 1:
+            o = ring_attention(q, k, v, ring, causal=self.causal)
+        else:
+            o = full_attention(q, k, v, causal=self.causal)
         return o.reshape(b, t, d) @ self.wo + self.bo
 
     def extra_repr(self) -> str:
@@ -53,6 +70,7 @@ class SinusoidalPositionalEncoding(TensorModule):
         super().__init__()
         self.d_model = d_model
         self.base = base
+        self.seq_axis = None
 
     def table(self, t: int) -> torch.Tensor:
         """The (t, d_model) fp32 table on the CPU, computed in float64
@@ -70,4 +88,10 @@ class SinusoidalPositionalEncoding(TensorModule):
         t, d = x.shape[1], x.shape[2]
         if d != self.d_model:
             raise ValueError(f"input dim {d} != d_model {self.d_model}")
-        return x + self.table(t).to(device=x.device, dtype=x.dtype)
+        ring = self.seq_axis
+        if ring is None or ring.size == 1:
+            pe = self.table(t)
+        else:
+            # this rank's block of the time dimension: its global rows
+            pe = self.table(t * ring.size)[ring.index * t:(ring.index + 1) * t]
+        return x + pe.to(device=x.device, dtype=x.dtype)

@@ -6,13 +6,20 @@ from __future__ import annotations
 import torch
 
 from bigdl_tpu_torch.nn.module import Module, TensorModule
+from bigdl_tpu_torch.parallel.collectives import psum
 from bigdl_tpu_torch.utils.table import as_table
 
 
 class Mean(TensorModule):
     """Mean over 1-based ``dimension``; ``n_input_dims`` shifts it by one
     for batched input (more dims than that); ``squeeze`` drops the reduced
-    dim."""
+    dim.
+
+    Under ``DistriOptimizer(sequence_parallel=True)`` the optimizer sets
+    ``seq_axis``: a mean over the time dimension (dim 1 of a batch, which
+    each rank holds a block of) is then the sum of the blocks over the
+    axis (``psum``: every rank's copy feeds its loss, so the backward
+    sums too) over the global length."""
 
     def __init__(self, dimension: int = 1, n_input_dims: int = -1,
                  squeeze: bool = True):
@@ -20,6 +27,10 @@ class Mean(TensorModule):
         self.dimension = dimension
         self.n_input_dims = n_input_dims
         self.squeeze = squeeze
+        self.seq_axis = None
+        #: set when the last forward reduced the time dimension over the
+        #: axis (the loss after it is the same on every rank of the axis)
+        self.reduced_time = False
 
     def _axis(self, x: torch.Tensor) -> int:
         d = self.dimension - 1
@@ -28,7 +39,12 @@ class Mean(TensorModule):
         return d
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x.mean(dim=self._axis(x), keepdim=not self.squeeze)
+        axis, ring = self._axis(x), self.seq_axis
+        if ring is None or ring.size == 1 or axis != 1:
+            return x.mean(dim=axis, keepdim=not self.squeeze)
+        self.reduced_time = True
+        total = psum(x.sum(dim=1, keepdim=not self.squeeze), ring)
+        return total / (x.shape[1] * ring.size)
 
 
 class Sum(TensorModule):

@@ -53,11 +53,39 @@ Validation shares the batches out over the ranks and sums their results;
 checkpoints are ``LocalOptimizer``'s files, written by rank 0 after the
 ``zero1`` velocity slices are gathered, while the others wait.
 
-Not ported yet, each refused where it is asked for: tensor, pipeline,
-expert and sequence parallelism (a later slice), elastic recovery
-(``BIGDL_ELASTIC=1``; the resilience slice, with the sharded
-asynchronous checkpoints), and the background prefetch under this
-optimizer.
+Sequence parallelism (``sequence_parallel=True``, a ``{"data": d,
+"seq": s}`` mesh): the ranks of one data slice take the same records and
+each its block of the time dimension (x's dim 1, and the targets' where
+they have one per step).  The layers that mix over time learn of the
+``seq`` axis from their ``seq_axis`` for the run: the attention runs the
+ring, the position table adds the block's global rows, a mean over time
+sums over the axis; any other module that is not known to act on each
+step alone raises.  Each rank's loss is scaled by its share of the
+global one (its batch share times its time share: 1/s where the loss
+averages over time or sits after a mean over it), and the gradients are
+summed over the whole world.
+
+Expert parallelism (``expert_parallel=True``, ``{"data": d, "expert":
+e}``): the ranks of one data slice take the same records, as the JAX
+batch ``P("data")`` is replicated over the expert axis, and each runs
+its E/e experts of every ``nn.MoE`` (``moe_apply``'s form).  The
+expert-stacked leaves (``w1 b1 w2 b2``, not ``router``) are updated by
+their owner alone, on its rows; every gradient is reduced over ``data``
+only (the expert ranks of a slice hold the same tokens, so a sum over
+them would count each token e times).  The rows a rank does not own are
+brought up to date from their owners when a validation, a checkpoint or
+the run's end reads them.
+
+``nn.MoE`` gates the global batch on the plain path and under
+``expert_parallel`` (capacity from the global token count, places
+offset by the ranks before: ``MoE.gate_axis``), as the JAX step under
+``jit`` does; the compressed and masked paths gate each rank's tokens,
+as the JAX ``shard_map`` builder does.
+
+Not ported yet, each refused where it is asked for: tensor and pipeline
+parallelism (the next slice), elastic recovery (``BIGDL_ELASTIC=1``; the
+resilience slice, with the sharded asynchronous checkpoints), and the
+background prefetch under this optimizer.
 """
 from __future__ import annotations
 
@@ -72,9 +100,21 @@ import torch.distributed as dist
 from bigdl_tpu_torch.dataset import prefetch
 from bigdl_tpu_torch.dataset.dataset import (get_batch_size,
                                              is_distributed_dataset)
+from bigdl_tpu_torch.nn import activations as A
 from bigdl_tpu_torch.nn import criterion as C
+from bigdl_tpu_torch.nn.attention import (MultiHeadSelfAttention,
+                                          SinusoidalPositionalEncoding)
+from bigdl_tpu_torch.nn.containers import ConcatTable, Sequential
+from bigdl_tpu_torch.nn.dropout import Dropout
+from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.module import leaves_of, tree_of
-from bigdl_tpu_torch.nn.normalization import BatchNormalization
+from bigdl_tpu_torch.nn.moe import EXPERT_STACKED, MoE
+from bigdl_tpu_torch.nn.normalization import BatchNormalization, LayerNorm
+from bigdl_tpu_torch.nn.recurrent import TimeDistributed
+from bigdl_tpu_torch.nn.reductions import Mean
+from bigdl_tpu_torch.nn.shape_ops import Identity
+from bigdl_tpu_torch.nn.table_ops import (CAddTable, CDivTable, CMaxTable,
+                                          CMinTable, CMulTable, CSubTable)
 from bigdl_tpu_torch.optim.local_optimizer import LocalOptimizer, validate
 from bigdl_tpu_torch.optim.straggler import StragglerPolicy
 from bigdl_tpu_torch.parallel import collectives as coll
@@ -93,8 +133,11 @@ def global_batch_rule(criterion) -> str:
     shards split evenly), ``"sum"``, or ``"weighted"`` (a weighted
     ``ClassNLLCriterion`` / ``CrossEntropyCriterion`` averaging: the
     global loss is the sum of the numerators over the sum of the weights
-    of the targets).  A criterion whose normaliser depends on the whole
-    batch in another way raises."""
+    of the targets), or ``"kept"`` (a ``SoftmaxWithCriterion`` with an
+    ignore label, normalised by the positions kept: the global loss is
+    the sum of the numerators over the positions kept in the whole batch,
+    at least 1).  A criterion whose normaliser depends on the whole batch
+    in another way raises."""
     if isinstance(criterion, C.CrossEntropyCriterion):
         return global_batch_rule(criterion.nll)
     if isinstance(criterion, C.ClassNLLCriterion):
@@ -104,10 +147,7 @@ def global_batch_rule(criterion) -> str:
     if isinstance(criterion, C.SoftmaxWithCriterion):
         if criterion.normalize_mode == "valid" and \
                 criterion.ignore_label is not None:
-            raise NotImplementedError(
-                "SoftmaxWithCriterion with an ignore label normalises by "
-                "the positions kept across the whole batch: no "
-                "data-parallel rule for it yet")
+            return "kept"
         return ("mean" if criterion.normalize_mode in
                 ("valid", "batch_size", "full") else "sum")
     if isinstance(criterion, C.SmoothL1CriterionWithWeights):
@@ -118,7 +158,7 @@ def global_batch_rule(criterion) -> str:
         return global_batch_rule(criterion.critrn)
     if isinstance(criterion, (C.MultiCriterion, C.ParallelCriterion)):
         rules = {global_batch_rule(c) for c in criterion.criterions}
-        if len(rules) != 1 or "weighted" in rules:
+        if len(rules) != 1 or rules & {"weighted", "kept"}:
             raise NotImplementedError(
                 f"{type(criterion).__name__} of criteria whose global "
                 f"batches combine differently ({sorted(rules)})")
@@ -130,10 +170,31 @@ def global_batch_rule(criterion) -> str:
     return "mean" if criterion.size_average else "sum"
 
 
-def _class_weights(criterion):
-    if isinstance(criterion, C.CrossEntropyCriterion):
-        return criterion.nll.weights
-    return criterion.weights
+def _local_normaliser(criterion, y):
+    """(this rank's divisor of its loss, what sums over the ranks to the
+    global divisor) for the ``"weighted"`` and ``"kept"`` rules."""
+    if isinstance(criterion, C.SoftmaxWithCriterion):
+        kept = (y != criterion.ignore_label).sum().float()
+        return torch.clamp_min(kept, 1.0), kept
+    weights = (criterion.nll.weights
+               if isinstance(criterion, C.CrossEntropyCriterion)
+               else criterion.weights).to(y.device)
+    den = weights[y.reshape(-1).long() - 1].sum()
+    return den, den
+
+
+#: modules that act on each time step alone: under ``sequence_parallel``
+#: they compute on a rank's block of the time dimension as on the whole
+#: sequence (element-wise activations, the last dimension's Linear and
+#: LayerNorm, containers and element-wise table ops)
+TIME_LOCAL = (Sequential, ConcatTable, Identity, Dropout, Linear, LayerNorm,
+              TimeDistributed, CAddTable, CSubTable, CMulTable, CDivTable,
+              CMaxTable, CMinTable) + tuple(
+    c for c in vars(A).values()
+    if isinstance(c, type) and issubclass(c, torch.nn.Module)
+    and c.__module__ == A.__name__ and c is not A.PReLU)
+#: modules with a sequence-parallel form (``seq_axis``)
+SEQ_AWARE = (MultiHeadSelfAttention, SinusoidalPositionalEncoding, Mean)
 
 
 class DistriOptimizer(LocalOptimizer):
@@ -156,11 +217,38 @@ class DistriOptimizer(LocalOptimizer):
             ("tensor_parallel", tensor_parallel),
             ("pipeline_stages", pipeline_stages is not None),
             ("pipeline_schedule", pipeline_schedule != "1f1b"),
-            ("pipeline_microbatches", pipeline_microbatches is not None),
-            ("expert_parallel", expert_parallel),
-            ("sequence_parallel", sequence_parallel)) if on]
+            ("pipeline_microbatches", pipeline_microbatches is not None))
+            if on]
         if later:
             raise NotImplementedError(f"{', '.join(later)}: {LATER}")
+        # the JAX constructor's validations, word for word (bigdl_tpu/optim/
+        # distri_optimizer.py:169-190)
+        if expert_parallel:
+            if zero1 or gradient_compression or sequence_parallel:
+                raise ValueError(
+                    "expert_parallel composes with data parallelism only "
+                    "(mesh {'data': d, 'expert': e}); tensor_parallel/"
+                    "zero1/gradient_compression/sequence_parallel assume "
+                    "replicated or data-sharded params, not expert-"
+                    "sharded ones")
+            if mesh is None or "expert" not in mesh.axis_names:
+                raise ValueError(
+                    "expert_parallel needs a mesh with an 'expert' axis")
+        elif sequence_parallel:
+            if zero1 or gradient_compression:
+                raise ValueError(
+                    "sequence_parallel composes with data parallelism "
+                    "only (mesh {'data': d, 'seq': s})")
+            if mesh is None or "seq" not in mesh.axis_names \
+                    or "data" not in mesh.axis_names:
+                raise ValueError(
+                    "sequence_parallel needs a mesh with 'data' and "
+                    "'seq' axes (pure SP: use {'data': 1, 'seq': s})")
+        elif mesh is not None and set(mesh.axis_names) - {"data"}:
+            raise ValueError(
+                f"a mesh with axes {mesh.axis_names} needs "
+                f"sequence_parallel=True (a 'seq' axis) or "
+                f"expert_parallel=True (an 'expert' axis)")
         if os.environ.get("BIGDL_ELASTIC") == "1":
             raise NotImplementedError(
                 "BIGDL_ELASTIC=1: elastic recovery (re-forming the world "
@@ -177,6 +265,8 @@ class DistriOptimizer(LocalOptimizer):
         self.device = Engine.device(self.device)
         self.zero1 = bool(zero1)
         self.gradient_compression = gradient_compression
+        self.expert_parallel = bool(expert_parallel)
+        self.sequence_parallel = bool(sequence_parallel)
         # n steps a dispatch: the eager loop (no graph of collectives)
         self._cuda_graph = False
         self._straggler = None
@@ -187,6 +277,10 @@ class DistriOptimizer(LocalOptimizer):
         #: the flat layout and buffers, built at the first ``optimize``
         self._part = None
         self._flat_key = None
+        #: each parameter's rows this rank owns under ``expert_parallel``
+        #: (None: the whole leaf), and the views the update runs on
+        self._own_rows = []
+        self._upd_params = self._upd_grads = None
         for name in ("computing time average", "aggregate gradient time"):
             self.metrics.declare(name)
 
@@ -204,6 +298,11 @@ class DistriOptimizer(LocalOptimizer):
         if not drop_percentage:
             self._straggler = None
             return self
+        if self.expert_parallel or self.sequence_parallel:
+            raise ValueError(
+                "straggler drop masks per-DATA-replica gradients; it "
+                "composes with DP, zero1 and gradient_compression only "
+                "(the reference's tasks are data-parallel model clones)")
         self._straggler = StragglerPolicy(
             n_tasks=self.mesh.size, drop_percentage=drop_percentage,
             max_drop_percentage=max_drop_percentage,
@@ -236,27 +335,114 @@ class DistriOptimizer(LocalOptimizer):
                 "supported with zero1: the owner-partition update runs on "
                 "a flat slice, not the param tree")
         self._rank, self._world = self.mesh.rank(), self.mesh.size
+        data = self.mesh.axis("data")
+        self._n_data = data.size
+        # the gradients' reduction: over the data axis under expert
+        # parallelism (its expert ranks hold the same tokens), else over
+        # every rank
+        self._grad_group = data if self.expert_parallel else self.mesh
         self._sharded = is_distributed_dataset(self.dataset)
+        if self._sharded and data.size != self._world:
+            # the ranks of one data slice take the same records
+            root = self.dataset
+            while not hasattr(root, "shard_by"):
+                root = root.base
+            if (root.n_shards, root.shard_index) != (data.size, data.index):
+                root.shard_by(data.size, data.index)
         self._rule = (None if self._shard_local
                       else global_batch_rule(self.criterion))
-        self._w, self._msum, self._mask = 1.0, float(self._world), None
-        RNG.fold_rank(self._rank)
+        if self.sequence_parallel and self._rule not in ("mean", "sum"):
+            raise NotImplementedError(
+                f"sequence_parallel with a criterion whose global batch "
+                f"rule is {self._rule!r}: its normaliser over the blocks "
+                f"of the time dimension is not ported")
+        self._w, self._msum, self._mask = 1.0, float(self._n_data), None
+        # dropout: distinct masks on ranks holding distinct tokens; the
+        # expert ranks of a data slice compute one replica, so one mask
+        RNG.fold_rank(data.index if self.expert_parallel else self._rank)
         self.model.to(self.device).train()
         self._flatten()
         model_broadcast(self.model, self.mesh)
-        sync = (None if self._shard_local or self._world == 1
-                else self.mesh.group)
+        sync = (None if self._shard_local or self._n_data == 1
+                else self._grad_group.group)
         bns = [m for m in self.model.modules()
                if isinstance(m, BatchNormalization)]
         for m in bns:
             m.process_group = sync
         try:
+            self._bind(True)
             model = super().optimize()
         finally:
+            self._bind(False)
             for m in bns:
                 m.process_group = None
+        self._sync_experts()
         self.metrics.collect_per_node(self.mesh)
         return model
+
+    def _bind(self, on: bool):
+        """Tell the layers of the model where the rest of their batch,
+        sequence and experts are for the run (``on``), or that they hold
+        it all (off: validation, and after the run)."""
+        seq = self.mesh.axis("seq") if self.sequence_parallel else None
+        experts = (self.mesh.axis("expert") if self.expert_parallel
+                   else None)
+        gate = (None if self._shard_local or self._n_data == 1
+                else self.mesh.axis("data"))
+        self._means = []
+
+        def walk(mod):
+            if isinstance(mod, MoE):
+                if seq is not None and on:
+                    raise NotImplementedError(
+                        "MoE under sequence_parallel: the global batch's "
+                        "gating over blocks of the time dimension is not "
+                        "ported")
+                mod.gate_axis = gate if on else None
+                mod.expert_axis = experts if on else None
+            elif isinstance(mod, SEQ_AWARE):
+                mod.seq_axis = seq if on else None
+                if isinstance(mod, Mean):
+                    mod.reduced_time = False
+                    self._means.append(mod)
+            elif seq is not None and on and not isinstance(mod, TIME_LOCAL):
+                raise NotImplementedError(
+                    f"{type(mod).__name__} under sequence_parallel: each "
+                    f"rank holds a block of the time dimension, and "
+                    f"{type(mod).__name__} is not known to act on each time "
+                    f"step alone (it would compute on the block as if it "
+                    f"were the whole sequence)")
+            if isinstance(mod, TimeDistributed):
+                return   # its module sees one step at a time
+            for ch in mod.children():
+                walk(ch)
+
+        walk(self.model)
+
+    def _sync_experts(self):
+        """Every rank's rows of every expert-stacked leaf from their owner
+        (the rows a rank does not own are stale while it trains)."""
+        if not self.expert_parallel or self.mesh.axis("expert").size == 1:
+            return
+        axis = self.mesh.axis("expert")
+        with torch.no_grad():
+            for p, own in zip(self.model.parameters(), self._own_rows):
+                if own is not None:
+                    coll.all_gather(p[own].reshape(-1), axis,
+                                    out=p.view(-1))
+
+    def expert_param_specs(self) -> dict:
+        """The params' tree with ``"expert"`` at each leaf the expert axis
+        splits (an ``nn.MoE``'s expert-stacked leaves) and None at every
+        other (the JAX ``_expert_param_specs``)."""
+        def walk(mod):
+            tree = {"~": {k: ("expert" if isinstance(mod, MoE)
+                              and k in EXPERT_STACKED else None)
+                          for k in mod._parameters}}
+            for name, ch in mod._modules.items():
+                tree[name] = walk(ch)
+            return tree
+        return walk(self.model)
 
     def _flatten(self):
         """Make every parameter a view into one flat fp32 buffer and its
@@ -295,17 +481,50 @@ class DistriOptimizer(LocalOptimizer):
         self._grads_held = False
         self._flat_key = (self._world, tuple(p.data_ptr() for p in params),
                           tuple(p.grad.data_ptr() for p in params))
+        # the owner update: an expert-stacked leaf's owned rows alone
+        rows = {}
+        if self.expert_parallel:
+            axis = self.mesh.axis("expert")
+            for m in self.model.modules():
+                if isinstance(m, MoE):
+                    rows |= {id(getattr(m, k)): m.owned(axis)
+                             for k in EXPERT_STACKED}
+        self._own_rows = [rows.get(id(p)) for p in params]
+        self._upd_params = [p if r is None else p.data[r]
+                            for p, r in zip(params, self._own_rows)]
+        self._upd_grads = [p.grad if r is None else p.grad[r]
+                           for p, r in zip(params, self._own_rows)]
 
     # -- the loop's hooks -------------------------------------------------
     def _local_batch(self, xh, yh, chunked: bool):
-        if self._sharded:
+        """This rank's rows of the host batch: its data slice's share
+        (the whole batch of a sharded dataset), and under
+        ``sequence_parallel`` its block of the time dimension, of the
+        targets too where they hold one per step."""
+        if not self._sharded:
+            data = self.mesh.axis("data")
+            rows = len(yh[0]) if chunked else len(yh)
+            b = get_batch_size(rows, data.size)
+            own = slice(data.index * b, (data.index + 1) * b)
+            xh, yh = (xh[:, own], yh[:, own]) if chunked else (xh[own],
+                                                               yh[own])
+        if not self.sequence_parallel:
             return xh, yh
-        rows = len(yh[0]) if chunked else len(yh)
-        b = get_batch_size(rows, self._world)
-        own = slice(self._rank * b, (self._rank + 1) * b)
-        if chunked:
-            return xh[:, own], yh[:, own]
-        return xh[own], yh[own]
+        seq = self.mesh.axis("seq")
+        t_dim = 2 if chunked else 1
+        xa = np.asarray(xh)
+        if xa.ndim <= t_dim or xa.shape[t_dim] % seq.size:
+            raise ValueError(
+                f"sequence_parallel needs input dim {t_dim} (time) "
+                f"divisible by the seq axis ({seq.size}); got shape "
+                f"{xa.shape}")
+        t = xa.shape[t_dim] // seq.size
+        block = (slice(None),) * t_dim + (slice(seq.index * t,
+                                                (seq.index + 1) * t),)
+        ya = np.asarray(yh)
+        if ya.ndim > t_dim and ya.shape[t_dim] == xa.shape[t_dim]:
+            yh = ya[block]
+        return xa[block], yh
 
     def _admit(self) -> bool:
         pol = self._straggler
@@ -353,8 +572,9 @@ class DistriOptimizer(LocalOptimizer):
         return every
 
     def _records(self, rows: int) -> int:
-        # rows is this rank's share; only the tasks that finished count
-        # (ref recordsNum += finishedThreads.size * stackSize, :236)
+        # rows is this rank's share, the same on every rank of a data
+        # slice; only the tasks that finished count (ref recordsNum +=
+        # finishedThreads.size * stackSize, :236)
         return int(rows * self._msum)
 
     def _sync_cadence(self) -> int:
@@ -371,14 +591,36 @@ class DistriOptimizer(LocalOptimizer):
         (loss if _is_one(s) else loss * s).backward()
 
     def _rule_scale(self, y):
-        """This rank's share of the global loss (``global_batch_rule``)."""
-        if self._rule == "sum":
+        """This rank's share of the global loss (``global_batch_rule``):
+        its batch share, times its time share under
+        ``sequence_parallel``."""
+        if self._rule in ("mean", "sum"):
+            share = 1.0 / self._n_data if self._rule == "mean" else 1.0
+            return share * self._time_share()
+        local, total = _local_normaliser(self.criterion, y)
+        total = coll.all_reduce(total.clone(), self._grad_group)
+        if self._rule == "kept":
+            total = torch.clamp_min(total, 1.0)
+        return local / total
+
+    def _time_share(self) -> float:
+        """Under ``sequence_parallel``, 1/s where the loss is the same on
+        every rank of the ``seq`` axis (it follows a mean over time) or
+        averages over time, else 1 (it sums the blocks' steps); 1 without
+        sequence parallelism."""
+        if not self.sequence_parallel:
             return 1.0
-        if self._rule == "mean":
-            return 1.0 / self._world
-        w = _class_weights(self.criterion).to(y.device)
-        den = w[y.reshape(-1).long() - 1].sum()
-        return den / coll.all_reduce(den.clone(), self.mesh)
+        reduced = any(m.reduced_time for m in self._means)
+        for m in self._means:
+            m.reduced_time = False
+        crit = self.criterion
+        if reduced:
+            averaged = True
+        elif isinstance(crit, C.TimeDistributedCriterion):
+            averaged = crit.size_average
+        else:
+            averaged = self._rule == "mean"
+        return 1.0 / self.mesh.axis("seq").size if averaged else 1.0
 
     def _reduce(self, loss, grads):
         if not self._grads_held:
@@ -397,7 +639,16 @@ class DistriOptimizer(LocalOptimizer):
                 self._gbuf[n:].copy_(scaled.reshape(1))
             held = self.gradient_collectives()
             if plain:
-                return self._gbuf[n].clone(), torch.isfinite(self._gbuf).all()
+                finite = torch.isfinite(self._gbuf).all()
+                if self.expert_parallel and \
+                        self.mesh.axis("expert").size > 1:
+                    # each expert rank reduced other experts' rows: the
+                    # skip must agree over the axis
+                    flag = finite.float().reshape(1)
+                    coll.all_reduce(flag, self.mesh.axis("expert"),
+                                    op=dist.ReduceOp.MIN)
+                    finite = flag[0] > 0
+                return self._gbuf[n].clone(), finite
             meta = torch.stack([scaled.float(),
                                 (~torch.isfinite(held).all()).float()])
             coll.all_reduce(meta, self.mesh)
@@ -412,7 +663,7 @@ class DistriOptimizer(LocalOptimizer):
         (they overwrite the buffer)."""
         msum = self._msum
         if not (self._shard_local or self.zero1):
-            return coll.all_reduce(self._gbuf, self.mesh)
+            return coll.all_reduce(self._gbuf, self._grad_group)
         g = self._gbuf[:self._part.length]
         if self.gradient_compression:
             self._wire.copy_(g)
@@ -438,6 +689,10 @@ class DistriOptimizer(LocalOptimizer):
         return self._part.length * (2 if self.gradient_compression else 4)
 
     def _update(self, grads, opt_state, params, hyper, finite):
+        if self.expert_parallel:
+            # the owner update: an expert-stacked leaf's own rows alone
+            return super()._update(self._upd_grads, opt_state,
+                                   self._upd_params, hyper, finite)
         if not self.zero1:
             return super()._update(grads, opt_state, params, hyper, finite)
         # the owner update on this rank's slice, then every slice back
@@ -463,6 +718,17 @@ class DistriOptimizer(LocalOptimizer):
 
     # -- optimizer state ----------------------------------------------------
     def _initial_opt_state(self, params):
+        if self.expert_parallel:
+            opt_state = self.optim_method.init_state(self._upd_params)
+            resume = self._resume_opt_state
+            with torch.no_grad():
+                for key, tree in (resume or {}).items():
+                    for t, v, own in zip(opt_state[key],
+                                         leaves_of(self.model, tree),
+                                         self._own_rows):
+                        v = torch.from_numpy(np.array(v, np.float32))
+                        t.copy_(v if own is None else v[own])
+            return opt_state
         if not self.zero1:
             return super()._initial_opt_state(params)
         opt_state = self.optim_method.init_state([self._psl])
@@ -480,7 +746,20 @@ class DistriOptimizer(LocalOptimizer):
 
     def _export_opt_state(self, opt_state):
         """The optimizer state in the params' tree layout; under ``zero1``
-        the slices are gathered first (a collective)."""
+        the slices are gathered first, and under ``expert_parallel`` the
+        expert-stacked leaves' rows (collectives)."""
+        if self.expert_parallel:
+            axis = self.mesh.axis("expert")
+            out = {}
+            for key, leaves in opt_state.items():
+                full = []
+                for t, own in zip(leaves, self._own_rows):
+                    if own is not None and axis.size > 1:
+                        t = coll.all_gather(t.reshape(-1), axis).view(
+                            (-1,) + tuple(t.shape[1:]))
+                    full.append(t.detach().cpu().numpy())
+                out[key] = tree_of(self.model, full)
+            return out
         if not self.zero1:
             return super()._export_opt_state(opt_state)
         out = {}
@@ -493,10 +772,15 @@ class DistriOptimizer(LocalOptimizer):
     # -- validation and checkpoints -------------------------------------
     def _validation_results(self):
         """Each rank validates every N-th batch; the ranks' results are
-        summed in rank order (the reference's ``ValidationResult +``)."""
+        summed in rank order (the reference's ``ValidationResult +``).
+        Each batch whole on one rank: the layers take their plain paths
+        (every expert's rows brought up to date first)."""
+        self._sync_experts()
+        self._bind(False)
         mine = validate(self.model, self.validation_dataset,
                         self.validation_methods, self.device,
                         shard=(self._rank, self._world))
+        self._bind(True)
         every = [None] * self._world
         dist.all_gather_object(every, [r for _, r in mine],
                                group=self.mesh.group)
@@ -513,6 +797,7 @@ class DistriOptimizer(LocalOptimizer):
     def _checkpoint(self, opt_state, state, neval):
         """Rank 0 writes ``LocalOptimizer``'s files; the others wait."""
         with self.metrics.timer("checkpoint"):
+            self._sync_experts()
             tree = self._export_opt_state(opt_state)
             if self._rank == 0:
                 self._save_checkpoint(tree, state, neval)

@@ -1,13 +1,16 @@
-"""Collectives over the ``data`` axis (counterpart of
+"""Collectives over a mesh axis (counterpart of
 bigdl_tpu/parallel/collectives.py :15-74).
 
 The reference builds its all-reduce by hand on Spark's block manager
 (parameters/AllReduceParameter.scala): ``putGradients`` +
 ``aggregrateGradientPartition`` is a reduce-scatter, ``sendWeightPartition``
 + ``getWeights`` an all-gather.  Here each is one ``torch.distributed``
-call over a process group (a ``Mesh``'s, or the default group): NCCL on
-the card, gloo on the CPU.  ``ppermute``, ``ring_shift`` and
-``all_to_all`` come with ring attention and mixture-of-experts.
+call over a process group (a ``Mesh``'s or an ``Axis``'s, or the
+default group): NCCL on the card, gloo on the CPU.  Ring attention and
+mixture-of-experts add ``ppermute``, ``ring_shift``, ``RingSend`` (one
+hop of a ring, in flight while the caller computes) and a
+differentiable ``all_to_all``, and the sums and gathers whose backward
+a sharded layer needs (``psum``, ``sum_grad``, ``all_gather_own_grad``).
 
 The flat forms take ``reduce_scatter_tensor`` and
 ``all_gather_into_tensor``, the names every torch since 2.0 has.
@@ -81,3 +84,184 @@ def broadcast(x: torch.Tensor, src: int = 0, group=None):
     """Rank ``src``'s ``x`` on every rank, in place."""
     dist.broadcast(x, src, group=_group(group))
     return x
+
+
+# -- point to point and all-to-all (ring attention, mixture of experts) -----
+
+def _members(group):
+    """(this rank's index on the axis, its size, the members' global
+    ranks by index) of an ``Axis``, a ``Mesh`` or a process group."""
+    ranks = getattr(group, "ranks", None)
+    if ranks is not None:
+        return group.index, len(ranks), ranks
+    g = _group(group)
+    n = dist.get_world_size(g)
+    if g is None or g is dist.group.WORLD:
+        return dist.get_rank(), n, tuple(range(n))
+    return (dist.get_rank(g), n,
+            tuple(dist.get_global_rank(g, i) for i in range(n)))
+
+
+def ppermute(x: torch.Tensor, group, perm):
+    """``lax.ppermute``: ``perm`` lists (source, destination) pairs of
+    indices on the axis; each rank sends ``x`` to its destination and
+    returns what its source sent (zeros where no pair names it as a
+    destination).  One ``batch_isend_irecv``; no gradient."""
+    idx, n, ranks = _members(group)
+    dst = [d % n for s, d in perm if s % n == idx]
+    src = [s % n for s, d in perm if d % n == idx]
+    if len(dst) > 1 or len(src) > 1:
+        raise ValueError(f"ppermute: rank {idx} appears twice in {perm}")
+    x = x.contiguous()
+    out = torch.zeros_like(x)
+    if dst and src and dst[0] == idx and src[0] == idx:
+        return out.copy_(x)
+    p2p = []
+    if dst:
+        p2p.append(dist.P2POp(dist.isend, x, ranks[dst[0]]))
+    if src:
+        p2p.append(dist.P2POp(dist.irecv, out, ranks[src[0]]))
+    if p2p:
+        for work in dist.batch_isend_irecv(p2p):
+            work.wait()
+    return out
+
+
+def ring_shift(x: torch.Tensor, group, shift: int = 1):
+    """Shift values around the axis ring by ``shift`` positions: rank i's
+    ``x`` lands on rank i + shift."""
+    _, n, _ = _members(group)
+    return ppermute(x, group, [(i, (i + shift) % n) for i in range(n)])
+
+
+class RingSend:
+    """One hop of a ring in flight: every rank sends a tensor to the next
+    rank and receives the previous rank's into a new buffer.  Started on
+    construction, so that the caller computes while it moves;
+    :meth:`wait` returns the received tensor.  Two hops in flight at once
+    take different ``tag``s."""
+
+    def __init__(self, x: torch.Tensor, group, tag: int = 0):
+        idx, n, ranks = _members(group)
+        self.out = torch.empty_like(x)
+        self.works = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, x, ranks[(idx + 1) % n], tag=tag),
+            dist.P2POp(dist.irecv, self.out, ranks[(idx - 1) % n],
+                       tag=tag)])
+        self._x = x   # kept alive until the send completes
+
+    def wait(self) -> torch.Tensor:
+        for work in self.works:
+            work.wait()
+        self._x = None
+        return self.out
+
+
+def _all_to_all(x, group, split_axis, concat_axis, tiled):
+    _, n, _ = _members(group)
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: dim {split_axis} of {tuple(x.shape)} "
+                         f"does not divide by {n}")
+    if not tiled and x.shape[split_axis] != n:
+        raise ValueError(f"all_to_all(tiled=False): dim {split_axis} must "
+                         f"be the axis size {n}, got {tuple(x.shape)}")
+    # chunk j (along split_axis) goes to rank j: move that axis first
+    send = x.movedim(split_axis, 0).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=_group(group))
+    if not tiled:
+        # received chunk s (from rank s) at index s of a new leading axis,
+        # which replaces split_axis and moves to concat_axis
+        return recv.movedim(0, split_axis).movedim(split_axis, concat_axis)
+    parts = recv.reshape(n, send.shape[0] // n, *send.shape[1:])
+    parts = parts.movedim(1, split_axis + 1)
+    return torch.cat(list(parts), dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis, tiled):
+        ctx.args = (group, split_axis, concat_axis, tiled)
+        return _all_to_all(x, group, split_axis, concat_axis, tiled)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_axis, concat_axis, tiled = ctx.args
+        # the transpose moves every chunk back to where it came from
+        return (_all_to_all(g.contiguous(), group, concat_axis, split_axis,
+                            tiled), None, None, None, None)
+
+
+def all_to_all(x: torch.Tensor, group, split_axis: int, concat_axis: int,
+               tiled: bool = True):
+    """``lax.all_to_all``: ``x`` split along ``split_axis`` into one chunk
+    a rank, chunk j sent to rank j, the received chunks concatenated
+    along ``concat_axis`` in rank order (``tiled``), or, with
+    ``tiled=False`` (``split_axis`` of the axis size), stacked at
+    ``concat_axis``.  Differentiable: the backward is the all-to-all that
+    returns each chunk's gradient to its sender."""
+    return _AllToAll.apply(x, group, split_axis, concat_axis, tiled)
+
+
+# -- differentiable sums and gathers -------------------------------------
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the axis on every rank, differentiable: each rank's
+    copy of the sum feeds its own loss, so the backward sums the ranks'
+    gradients too (``lax.psum``'s transpose)."""
+    return _Psum.apply(x, group)
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+def sum_grad(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` unchanged; its gradient summed over the axis.  Where the
+    ranks of an axis hold one value and each computes a different part of
+    what depends on it (each its own experts), the value's gradient is
+    the sum of the parts."""
+    return _SumGrad.apply(x, group)
+
+
+class _GatherOwn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        idx, n, _ = _members(group)
+        ctx.part = (idx, x.shape[0])
+        x = x.contiguous()
+        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=_group(group))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, rows = ctx.part
+        return g[idx * rows:(idx + 1) * rows], None
+
+
+def all_gather_own_grad(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along dim 0 in rank order; the
+    backward hands each rank its own rows of its own gradient.  That is
+    the gradient where every rank of the axis holds the same loss (the
+    same tokens): the other ranks' rows are theirs to differentiate, and
+    a sum over the axis would count the loss once a rank."""
+    return _GatherOwn.apply(x, group)

@@ -2,58 +2,132 @@
 :19-45).
 
 The JAX mesh names axes over the devices of one SPMD program; here each
-device is one rank, and the ``data`` axis is a ``torch.distributed``
-process group: one replica of the model a rank, the batch split over
-the ranks.  The ``model``, ``seq``, ``pipe`` and ``expert`` axes (tensor,
-sequence, pipeline and expert parallelism) come with a later slice
-(ROADMAP queue 1, item 6) and raise.
+device is one rank, and each axis is a ``torch.distributed`` process
+group.  The axes:
+
+- ``data``: one replica of the model a data slice, the batch split over
+  the slices;
+- ``seq``: the time dimension split over the ranks of a data slice
+  (sequence parallelism: ring attention, ``nn/attention.py``);
+- ``expert``: the experts of every ``nn.MoE`` split over the ranks of a
+  data slice (expert parallelism, ``parallel/moe.py``).
+
+A rank's coordinates follow the JAX mesh's device order, row-major over
+the dict's axes (``devices.reshape(sizes)``): in ``{"data": d, "seq":
+s}`` rank r sits at data r // s and seq r % s.  The ``model`` and
+``pipe`` axes (tensor and pipeline parallelism) come with the next slice
+and raise.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch.distributed as dist
 
 from bigdl_tpu_torch.utils.engine import Engine
 
-LATER_AXES = ("model", "seq", "pipe", "expert")
-LATER = ("tensor, sequence, pipeline and expert parallelism come with a "
-         "later slice of the port (ROADMAP queue 1, item 6)")
+AXES = ("data", "seq", "expert")
+LATER_AXES = ("model", "pipe")
+LATER = ("tensor and pipeline parallelism come with a later slice of the "
+         "port (ROADMAP queue 1, item 6: the next slice)")
+
+
+class Axis:
+    """This rank's line along one axis of a mesh: the process group of the
+    ranks that differ from it only there, its ``size``, this rank's
+    ``index`` on it and the members' global ranks (``ranks``, by index)."""
+
+    def __init__(self, name: str, group, ranks, index: int):
+        self.name = name
+        self.group = group
+        self.ranks = tuple(int(r) for r in ranks)
+        self.size = len(self.ranks)
+        self.index = int(index)
+
+    def __repr__(self):
+        return f"Axis({self.name!r}, {self.index} of {self.size})"
 
 
 class Mesh:
-    """A ``data`` axis over a process group: ``shape``, ``axis_names``,
-    the group and this process's index on the axis."""
+    """Named axes over the ranks of a process group (``group``: all of
+    them, the world for a mesh of the whole world).  ``shape`` maps each
+    axis to its size, ``size`` is their product; :meth:`axis` gives this
+    rank's :class:`Axis` along one of them."""
 
-    def __init__(self, group, size: int):
+    def __init__(self, group, shape: dict, axes: dict):
         self.group = group
-        self.axis_names = ("data",)
-        self.shape = {"data": int(size)}
-        self.size = int(size)
+        self.axis_names = tuple(shape)
+        self.shape = {k: int(v) for k, v in shape.items()}
+        self.size = int(np.prod(list(self.shape.values()), dtype=np.int64))
+        self._axes = axes
 
     def rank(self) -> int:
         return dist.get_rank(self.group)
+
+    def axis(self, name: str) -> Axis:
+        if name not in self._axes:
+            raise ValueError(f"mesh {self.shape} has no {name!r} axis")
+        return self._axes[name]
+
+    def coords(self) -> dict:
+        """This rank's index on every axis."""
+        return {k: a.index for k, a in self._axes.items()}
 
     def __repr__(self):
         return f"Mesh({self.shape})"
 
 
 def make_mesh(axis_sizes: dict, device="cuda") -> Mesh:
-    """A mesh from ``{"data": n}``; ``-1`` takes the world size.  The
-    world (the default group, formed by ``Engine.ensure_group`` for
-    ``device`` when there is none) must hold exactly ``n`` ranks."""
+    """A mesh from ``{axis: size}`` over the ``data``, ``seq`` and
+    ``expert`` axes; one size may be ``-1`` (the world over the others').
+    The world (the default group, formed by ``Engine.ensure_group`` for
+    ``device`` when there is none) must hold exactly the product.  Every
+    rank calls this together: each axis line is a new process group
+    (``dist.new_group`` is a collective over the world)."""
     later = [a for a in axis_sizes if a in LATER_AXES]
     if later:
         raise NotImplementedError(f"mesh axes {later}: {LATER}")
-    if set(axis_sizes) != {"data"}:
-        raise ValueError(f"a mesh of the port has one 'data' axis, got "
+    unknown = [a for a in axis_sizes if a not in AXES]
+    if unknown or "data" not in axis_sizes:
+        raise ValueError(f"a mesh of the port has a 'data' axis and "
+                         f"optionally 'seq' or 'expert', got "
+                         f"{list(axis_sizes)}")
+    if len(axis_sizes) > 2:
+        raise ValueError(f"one of 'seq' and 'expert' at a time, got "
                          f"{list(axis_sizes)}")
     group = Engine.ensure_group(device)
     world = dist.get_world_size(group)
-    n = axis_sizes["data"]
-    n = world if n == -1 else int(n)
-    if n != world:
-        raise ValueError(f"mesh {{'data': {n}}} needs {n} ranks, the "
-                         f"world has {world}")
-    return Mesh(group, n)
+    names = list(axis_sizes)
+    sizes = [int(s) for s in axis_sizes.values()]
+    if sizes.count(-1) > 1:
+        raise ValueError(f"mesh {axis_sizes}: one size may be -1")
+    if -1 in sizes:
+        known = int(np.prod([s for s in sizes if s != -1]))
+        if known < 1 or world % known:
+            raise ValueError(f"mesh {axis_sizes}: {world} ranks do not "
+                             f"divide by {known}")
+        sizes[sizes.index(-1)] = world // known
+    total = int(np.prod(sizes))
+    if min(sizes) < 1 or total != world:
+        raise ValueError(f"mesh {dict(zip(names, sizes))} needs {total} "
+                         f"ranks, the world has {world}")
+    rank = dist.get_rank(group)
+    grid = np.arange(world).reshape(sizes)
+    coords = np.unravel_index(rank, sizes)
+    axes = {}
+    for i, name in enumerate(names):
+        if sizes[i] == world:
+            # the whole world lies on this axis: its group is the world's
+            axes[name] = Axis(name, group, range(world), coords[i])
+            continue
+        mine = None
+        # every line of the axis, in one order on every rank
+        moved = np.moveaxis(grid, i, -1).reshape(-1, sizes[i])
+        for line in moved:
+            g = dist.new_group([int(r) for r in line])
+            if rank in line:
+                mine = (g, line)
+        axes[name] = Axis(name, mine[0], mine[1], coords[i])
+    return Mesh(group, dict(zip(names, sizes)), axes)
 
 
 def data_parallel_mesh(device="cuda") -> Mesh:

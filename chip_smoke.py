@@ -17,6 +17,9 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py --serve    # the attention kernels (the verify
                                      # window among them) and phase 3
                                      # alone, no result line
+    python3 chip_smoke.py --attention  # the attention and SGD kernels'
+                                       # checks and phase 17 alone, no
+                                       # result line
 
 Each option runs part of one phase table (``ONLY``); every phase runs
 even where one before it failed, and a failed phase makes the exit
@@ -220,7 +223,24 @@ non-zero with no result line.  Phases:
     share and the peak memory of each mode; then LeNet-5 as
     examples/train_lenet.py --distributed, two epochs, equal to the
     LocalOptimizer run;
-17. one JSON line of kernels, then the card line, then the result line.
+17. the attention family's training: the ring attention's per-hop step
+    in one process over 4 blocks of (16, 512, 4, 256), causal and not,
+    against full attention and autograd; the flagship classifier
+    (examples/train_transformer.py at bench.py's width:
+    ``TransformerClassifier(20, 1024, 4 heads, 6 layers, hidden 4096)``,
+    75,599,892 parameters, batch 16 x T 512 of synthetic embedded
+    documents, SGD lr 0.01, Top1 every epoch) 20 steps through
+    ``Optimizer(...).optimize()``, every update through ``fused_sgd``,
+    its ms a step, tokens/s, device time and idle share, peak memory and
+    bound printed; the MoE classifier (8 experts, 428,185,620
+    parameters) 6 steps, its dropped share printed; the LM at the serving
+    width (batch 16 x T 128 on the built-in corpus) 8 steps through
+    ``LocalOptimizer``, then ``lm_decode`` from its weights through
+    ``paged_attention``; each path held to the CPU at depth 1; the
+    sequence- and expert-parallel ``DistriOptimizer`` at a world of one
+    bit-equal to LocalOptimizer; with four cards, both across them
+    against LocalOptimizer (``--attention-cards`` runs that alone);
+18. one JSON line of kernels, then the card line, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -3361,12 +3381,14 @@ def null_scales(grads_64):
 
 
 class Routes:
-    """Forward hooks on a model's ReLUs and max pools, and on its LRNs for
-    their geometry.  Recording (``replay`` None), each call leaves, in
-    call order, its routing: a ReLU's mask x > 0, a max pool's first-max
-    input index for every output (the plain version's rule, which the
-    kernels keep); and each pool's and LRN's geometry (``pools``, ``s1``,
-    ``lrn``), alone with ``geometry_only``.  Replaying another record on
+    """Forward hooks on a model's ReLUs, max pools and MoE layers, and on
+    its LRNs for their geometry.  Recording (``replay`` None), each call
+    leaves, in call order, its routing: a ReLU's mask x > 0, a max pool's
+    first-max input index for every output (the plain version's rule,
+    which the kernels keep), an MoE's expert and kept flag a token and
+    its experts' ReLU masks; and
+    each pool's and LRN's geometry (``pools``, ``s1``, ``lrn``), alone
+    with ``geometry_only``.  Replaying another record on
     a float64 copy of the model (or on the CPU's fp32 run), each ReLU
     gives its input times the recorded mask and each max pool its input
     gathered at the recorded indices: the gradient then flows where the
@@ -3377,7 +3399,7 @@ class Routes:
 
     def __init__(self, torch, model, replay=None, geometry_only=False):
         from bigdl_tpu_torch import ops
-        from bigdl_tpu_torch.nn import (ReLU, SpatialCrossMapLRN,
+        from bigdl_tpu_torch.nn import (MoE, ReLU, SpatialCrossMapLRN,
                                         SpatialMaxPooling)
 
         self.torch, self.ops, self.geometry_only = torch, ops, geometry_only
@@ -3385,7 +3407,7 @@ class Routes:
         self.replay = None if replay is None else iter(replay.route)
         self.differ = self.choices = 0
         hook = {ReLU: self._relu, SpatialMaxPooling: self._pool,
-                SpatialCrossMapLRN: self._lrn}
+                SpatialCrossMapLRN: self._lrn, MoE: self._moe}
         self.handles = [m.register_forward_hook(hook[type(m)])
                         for m in model.modules() if type(m) in hook]
 
@@ -3446,6 +3468,44 @@ class Routes:
             cols = (torch.arange(ow, device=x.device) * st[1] - pads[1][0]
                     + arg % win[1])
             return rows * x.shape[3] + cols
+
+    def _moe(self, m, args, out):
+        """An MoE's routing: each token's expert and whether it was kept,
+        then each expert's ReLU mask over its places.  Replayed, the
+        layer's output is recomputed with the recorded routing and masks
+        (the gates, places and products in this run's arithmetic)."""
+        import torch.nn.functional as F
+
+        from bigdl_tpu_torch.parallel import moe as pmoe
+
+        torch = self.torch
+        x = args[0]
+        xt = x.reshape(-1, x.shape[-1])
+        cap = pmoe.expert_capacity(xt.shape[0], m.n_experts,
+                                   m.capacity_factor)
+        with torch.no_grad():
+            own = pmoe.top1_route(xt @ m.router, m.n_experts, cap)
+            xe, _ = pmoe.dispatch(xt, own, m.n_experts, cap)
+            own_mask = torch.bmm(xe, m.w1) + m.b1[:, None] > 0
+        choice = torch.stack([own.expert, own.keep.long()])
+        if self.replay is None:
+            if not self.geometry_only:
+                self.route += [choice.cpu(), own_mask.cpu()]
+            return None
+        rec, mask = (next(self.replay).to(x.device),
+                     next(self.replay).to(x.device))
+        self._count(choice, rec)
+        expert, keep = rec[0], rec[1].bool()
+        gates = torch.softmax(xt @ m.router, dim=-1)
+        onehot = F.one_hot(expert, m.n_experts)
+        local = (onehot.cumsum(0) * onehot).sum(1) - 1
+        route = pmoe.Route(expert, local, local, keep,
+                           gates.gather(1, expert[:, None])[:, 0])
+        xe, flat = pmoe.dispatch(xt, route, m.n_experts, cap)
+        pre = torch.bmm(xe, m.w1) + m.b1[:, None]
+        self._count(pre > 0, mask)
+        ye = torch.bmm(pre * mask.to(pre.dtype), m.w2) + m.b2[:, None]
+        return pmoe.combine(ye, flat, route).reshape(x.shape)
 
     def _lrn(self, m, args, out):
         x = args[0] if args[0].dim() == 4 else args[0][None]
@@ -6196,6 +6256,545 @@ def phase_distri(torch, ops, profile: bool):
     return by_path, {}
 
 
+# -- the attention family's training -------------------------------------
+
+# examples/train_transformer.py at bench.py's width (bench.py:338-353):
+# TransformerClassifier(20 classes, d_model 1024, 4 heads, 6 layers,
+# hidden 4096) at batch 16 x T 512 of synthetic embedded documents, SGD
+# lr 0.01, Top1 every epoch; A_DOCS documents (the example's 2,048 take
+# 4.3 GB), 0.8 of them for training: A_STEPS steps, one epoch
+A_CLASSES, A_T, A_BATCH, A_LR = 20, 512, 16, 0.01
+A_DOCS, A_STEPS, A_PROFILE = 400, 20, 3
+A_PARAMS, A_MOE_PARAMS, A_EXPERTS, A_MOE_STEPS = 75599892, 428185620, 8, 6
+# the operations of one step as the JAX round's record counts them
+# (BENCH_r05.json, "Transformer-enc bs16 T512 d1024")
+A_JAX_OPS = 4033624145920
+# each path against the CPU at depth A_CHECK_LAYERS, batch A_CHECK_BATCH,
+# A_CHECK_STEPS steps, dropout 0 (the full depth takes minutes there)
+A_CHECK_LAYERS, A_CHECK_BATCH, A_CHECK_STEPS = 1, 4, 2
+# the world-of-one sequence- and expert-parallel runs against
+# LocalOptimizer: A_ONE_STEPS steps at depth A_ONE_LAYERS
+A_ONE_LAYERS, A_ONE_STEPS = 2, 3
+# TransformerLM at the serving model's width, batch L_BATCH x T L_T on the
+# built-in corpus, L_STEPS steps through LocalOptimizer, then lm_decode
+L_BATCH, L_T, L_STEPS, L_LR, L_WORDS = 16, 128, 8, 0.1, 32
+# examples/train_rnn.py's built-in corpus (examples/train_transformer_lm.py
+# trains on it when no file is given)
+L_CORPUS = """the quick brown fox jumps over the lazy dog
+a stitch in time saves nine
+all that glitters is not gold
+actions speak louder than words
+practice makes perfect every single day
+the early bird catches the worm
+better late than never they say
+birds of a feather flock together"""
+# the ring's per-hop step in one process over RING_BLOCKS blocks at the
+# flagship's attention shape (B, T, H, hd)
+RING_SHAPE, RING_BLOCKS = (A_BATCH, A_T, HEADS, D_MODEL // HEADS), 4
+RING_TOL = dict(rtol=1e-4, atol=1e-5)       # tests/test_attention_sp.py:39
+RING_GRAD_TOL = dict(rtol=1e-3, atol=1e-3)  # tests/test_attention_sp.py:52
+
+
+def classifier_ops(batch, t, d, heads, layers, hidden, classes, experts=0,
+                   capacity=0):
+    """The multiply-adds x 2 of one training step's matrix products
+    (forward, and the backward's two products each), from the shapes:
+    the projections, the FFN (or each expert's at its capacity), the
+    attention's two (T, T) products, the head."""
+    n = batch * t
+    ffn = (2 * 2 * experts * capacity * d * hidden if experts
+           else 2 * 2 * n * d * hidden)
+    attn = 2 * 2 * batch * t * t * d
+    layer = 4 * 2 * n * d * d + ffn + attn
+    return 3 * (layers * layer + 2 * batch * d * classes)
+
+
+def attention_docs(n, seed=0):
+    """examples/train_transformer.py:74-82's synthetic embedded documents:
+    (T, d) noise at 0.5 about one of 20 class means; the records, the
+    first 0.8 for training."""
+    rs = np.random.default_rng(seed)
+    means = rs.standard_normal((A_CLASSES, D_MODEL), dtype=np.float32)
+    docs = rs.standard_normal((n, A_T, D_MODEL), dtype=np.float32)
+    docs *= 0.5
+    docs += means[np.arange(n) % A_CLASSES][:, None]
+    from bigdl_tpu_torch.dataset import Sample
+
+    samples = [Sample(docs[i], np.asarray([float(i % A_CLASSES + 1)],
+                                          np.float32)) for i in range(n)]
+    split = int(n * 0.8)
+    return samples[:split], samples[split:]
+
+
+def classifier_model(device, layers=None, experts=0, generator=None):
+    from bigdl_tpu_torch.models.transformer import TransformerClassifier
+
+    return TransformerClassifier(A_CLASSES, d_model=D_MODEL, n_heads=HEADS,
+                                 n_layers=layers or LAYERS, hidden=HIDDEN,
+                                 moe_experts=experts, device=device,
+                                 generator=generator)
+
+
+def classifier_run(torch, device, init, train, batch, end_trigger,
+                   layers=None, experts=0, val=None, dropout=None,
+                   distri=None):
+    """examples/train_transformer.py's optimizer from ``init``: SGD at
+    lr 0.01, Top1 every epoch on ``val``; ``distri``, the keyword
+    arguments of a ``DistriOptimizer`` (a mesh and its mode) in place
+    of ``Optimizer(...)``'s ``LocalOptimizer``."""
+    from bigdl_tpu_torch.dataset import DataSet, SampleToBatch
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import (DistriOptimizer, Optimizer,
+                                       Top1Accuracy, every_epoch)
+    from bigdl_tpu_torch.utils.table import T
+
+    model = with_init(classifier_model(device, layers, experts), init,
+                      dropout)
+    ds = DataSet.array(train) >> SampleToBatch(batch, drop_last=True)
+    if distri is None:
+        opt = Optimizer(model, ds, ClassNLLCriterion(),
+                        state=T(learningRate=A_LR), end_trigger=end_trigger,
+                        device=device)
+    else:
+        opt = DistriOptimizer(model, ds, ClassNLLCriterion(), device=device,
+                              **distri)
+        opt.set_state(T(learningRate=A_LR)).set_end_when(end_trigger)
+    if val is not None:
+        opt.set_validation(every_epoch(), DataSet.array(val)
+                           >> SampleToBatch(batch, drop_last=True),
+                           [Top1Accuracy()])
+    return opt
+
+
+def dropped_share(model):
+    """Tokens the MoE layers dropped in the last forward, over the tokens
+    they routed."""
+    from bigdl_tpu_torch.nn import MoE
+
+    moes = [m for m in model.modules() if isinstance(m, MoE)]
+    return (sum(int(m.dropped) for m in moes)
+            / max(sum(m.tokens for m in moes), 1))
+
+
+def attention_path(torch, ops, label, make, n_params, ops_step, smi,
+                   profile_n=A_PROFILE):
+    """One training path at full width: a 2-step warm-up, the timed run
+    from zero counts, its line (ms a step, tokens/s, peak memory,
+    launches), the device time a step and idle share over ``profile_n``
+    profiled steps, and the step's bound.  Returns (counts, optimizer,
+    ms a step)."""
+    from bigdl_tpu_torch.optim import max_iteration
+
+    make(max_iteration(2)).optimize()
+    opt = make(None)
+    counts, wall = timed_path(torch, ops, opt)
+    peak = torch.cuda.max_memory_allocated()
+    steps = int(opt.state["neval"]) - 1
+    want = {**dict.fromkeys(counts, 0), "fused_sgd": steps}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {ops_nonzero(counts)} "
+                             f"after {steps} steps, expected "
+                             f"{ops_nonzero(want)}")
+    step_ms = train_line(torch, label, opt, wall, A_BATCH, n_params, counts)
+    tokens = A_BATCH * A_T / step_ms * 1e3
+    busy = profile_train(torch, make, profile_n)
+    bound = ops_step / FP32_FLOPS * 1e3
+    print(f"{label}: {step_ms:.4f} ms/step, {tokens:.1f} tokens/s; device "
+          f"busy {busy:.4f} ms/step, idle share {1 - busy / step_ms:.4f}; "
+          f"max_memory_allocated {peak} B; "
+          f"fused_sgd launches {counts['fused_sgd']}; the step's matrix "
+          f"products {ops_step} operations (from the shapes) over fp32's "
+          f"{FP32_FLOPS / 1e12:.0f} TFLOP/s: bound {bound:.4f} ms "
+          f"({step_ms / bound:.3f}x); [{smi}]")
+    return counts, opt, step_ms
+
+
+def ring_one_card(torch, smi):
+    """The ring's per-hop step over RING_BLOCKS blocks in one process, the
+    rotation by indexing, at the flagship's attention shape, causal and
+    not: forward, dq, dk and dv against ``full_attention`` and
+    autograd, each timed (forward and backward)."""
+    from bigdl_tpu_torch.parallel.ring_attention import (
+        full_attention, ring_attention_blocks)
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(RING_SHAPE, device="cuda", generator=g)
+                   for _ in range(4))
+    for causal in (False, True):
+        outs = {}
+        for name, fn in (("ring", lambda *a: ring_attention_blocks(
+                *a, RING_BLOCKS, causal)),
+                ("full", lambda *a: full_attention(*a, causal=causal))):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+            def step():
+                out = fn(*leaves)
+                return (out,) + torch.autograd.grad(out, leaves, do)
+
+            outs[name] = step()
+            outs[name + "_ms"] = time_queued_ms(torch, step, reps=5)
+        errs = []
+        for i, (part, tol) in enumerate((("out", RING_TOL),
+                                         ("dq", RING_GRAD_TOL),
+                                         ("dk", RING_GRAD_TOL),
+                                         ("dv", RING_GRAD_TOL))):
+            a, b = outs["ring"][i].detach(), outs["full"][i].detach()
+            err = float((a - b).abs().max())
+            errs.append(f"{part} {err:.3e}")
+            if not torch.allclose(a, b, **tol):
+                raise AssertionError(f"ring on one card (causal {causal}): "
+                                     f"{part} parts from full attention by "
+                                     f"{err:.3e} (tolerance {tol})")
+        print(f"ring: {RING_BLOCKS} blocks of {RING_SHAPE} (B, T, H, hd), "
+              f"causal {causal}, held against full attention and autograd: "
+              f"largest |ring - full| {', '.join(errs)}; forward and "
+              f"backward {outs['ring_ms']:.4f} ms (full attention "
+              f"{outs['full_ms']:.4f} ms); [{smi}]")
+
+
+def lm_corpus(vocab, n, seed=0):
+    """The built-in corpus as one stream of its words, cut into ``n``
+    windows of L_T + 1 words at random offsets (each window one
+    sentence of examples/train_transformer_lm.py's pipeline); the
+    dictionary over the corpus, the model's vocabulary ``vocab`` wide."""
+    from bigdl_tpu_torch.dataset.text import Dictionary, WordTokenizer
+
+    lines = L_CORPUS.split("\n")
+    words = [w for line in WordTokenizer()(iter(lines)) for w in line]
+    dictionary = Dictionary([words], vocab_size=vocab)
+    stream = words * (-(-(L_T + 1) * 2 // len(words)) + 1)
+    rs = np.random.RandomState(seed)
+    starts = rs.randint(0, len(stream) - L_T - 1, n)
+    return [stream[s:s + L_T + 1] for s in starts], dictionary
+
+
+def lm_run(torch, device, init, windows, dictionary, batch, end_trigger,
+           layers=None, dropout=None):
+    """examples/train_transformer_lm.py's optimizer from ``init``:
+    one-hot (T, VOCAB) inputs, TimeDistributedCriterion(ClassNLL,
+    size_average=True), SGD at L_LR, through LocalOptimizer."""
+    from bigdl_tpu_torch.dataset import DataSet, SampleToBatch
+    from bigdl_tpu_torch.dataset.text import (LabeledSentenceToSample,
+                                              SentenceToLabeledSentence)
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.nn import (ClassNLLCriterion,
+                                    TimeDistributedCriterion)
+    from bigdl_tpu_torch.optim import LocalOptimizer
+    from bigdl_tpu_torch.utils.table import T
+
+    model = with_init(TransformerLM(VOCAB, D_MODEL, HEADS, layers or LAYERS,
+                                    HIDDEN, device=device), init, dropout)
+    ds = (DataSet.array(windows) >> SentenceToLabeledSentence(dictionary)
+          >> LabeledSentenceToSample(n_input_dims=VOCAB, fixed_length=L_T)
+          >> SampleToBatch(batch))
+    opt = LocalOptimizer(model, ds, TimeDistributedCriterion(
+        ClassNLLCriterion(), size_average=True), device=device)
+    opt.set_state(T(learningRate=L_LR)).set_end_when(end_trigger)
+    return opt
+
+
+def attention_one_rank(torch, ops, init, train, experts, mode):
+    """A world of one: ``DistriOptimizer`` with ``mode`` (sequence or
+    expert parallel) against LocalOptimizer on the same records,
+    A_ONE_STEPS steps at depth A_ONE_LAYERS, dropout 0, deterministic
+    algorithms; (its launch counts, the held line)."""
+    from bigdl_tpu_torch.optim import max_iteration
+    from bigdl_tpu_torch.parallel.mesh import make_mesh
+
+    axis = "seq" if mode == "sequence_parallel" else "expert"
+    runs = {}
+    with deterministic(torch):
+        for kind in ("local", "distri", "local", "distri"):
+            distri = (None if kind == "local" else
+                      {"mesh": make_mesh({"data": 1, axis: 1}, "cuda"),
+                       mode: True})
+            opt = classifier_run(torch, "cuda", init, train, A_BATCH,
+                                 max_iteration(A_ONE_STEPS),
+                                 layers=A_ONE_LAYERS, experts=experts,
+                                 dropout=0.0, distri=distri)
+            _, counts, _ = run_path(torch, ops, opt.optimize)
+            runs[kind] = {"losses": [l for _, l in opt.loss_log],
+                          "params": _params(torch, opt.model),
+                          "counts": counts, "type": type(opt).__name__}
+    got = runs["distri"]
+    if got["type"] != "DistriOptimizer" or \
+            got["counts"]["fused_sgd"] != A_ONE_STEPS:
+        raise AssertionError(f"{mode}: {got['type']} launched "
+                             f"{ops_nonzero(got['counts'])}")
+    return got["counts"], held_bits(torch, mode, got, runs["local"])
+
+
+def warm_then_timed(torch, ops, opt, steps):
+    """Two warm-up steps of ``opt`` (communicators, cuBLAS plans, the
+    flat buffers and the SGD kernel's leaf table), then ``steps`` more
+    from zero counts: (counts, ms a step)."""
+    from bigdl_tpu_torch.optim import max_iteration
+
+    opt.set_end_when(max_iteration(2))
+    opt.optimize()
+    opt.set_end_when(max_iteration(2 + steps))
+    _, counts, wall = run_path(torch, ops, opt.optimize)
+    return counts, wall / steps * 1e3
+
+
+def attention_child(mode, steps):
+    """One rank of a multi-card run: the classifier (``{"data": 2,
+    "seq": 2}``) or the MoE classifier (``{"data": 2, "expert": 2}``) at
+    full width, depth A_ONE_LAYERS, dropout 0, two warm-up steps and
+    ``steps`` timed ones on the global batch of A_BATCH; its losses,
+    parameters, launches and ms a step."""
+    import torch
+
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.optim import max_iteration
+    from bigdl_tpu_torch.parallel.mesh import make_mesh
+    from bigdl_tpu_torch.utils.random import generator
+
+    experts = A_EXPERTS if mode == "expert_parallel" else 0
+    axis = "seq" if mode == "sequence_parallel" else "expert"
+    init = init_of(classifier_model("cpu", A_ONE_LAYERS, experts,
+                                    generator(3)))
+    train, _ = attention_docs(A_BATCH * (steps + 2) * 5 // 4, seed=1)
+    opt = classifier_run(
+        torch, "cuda", init, train, A_BATCH, max_iteration(2),
+        layers=A_ONE_LAYERS, experts=experts, dropout=0.0,
+        distri={"mesh": make_mesh({"data": 2, axis: 2}, "cuda"), mode: True})
+    counts, step_ms = warm_then_timed(torch, ops, opt, steps)
+    return {"losses": [l for _, l in opt.loss_log],
+            "params": _params(torch, opt.model), "counts": counts,
+            "step_ms": step_ms, "mem": torch.cuda.max_memory_allocated(),
+            "coords": opt.mesh.coords()}
+
+
+def attention_cards(torch, ops, smi):
+    """Four cards: the classifier at {"data": 2, "seq": 2} and the MoE
+    classifier at {"data": 2, "expert": 2} through NCCL ranks, each
+    held to LocalOptimizer on this card over the same global batches;
+    {path: counts}."""
+    from bigdl_tpu_torch.optim import max_iteration
+    from bigdl_tpu_torch.parallel.launch import launch
+    from bigdl_tpu_torch.utils.random import generator
+
+    by_path = {}
+    for mode in ("sequence_parallel", "expert_parallel"):
+        experts = A_EXPERTS if mode == "expert_parallel" else 0
+        ranks = launch(attention_child, 4, "nccl", args=(mode, A_ONE_STEPS))
+        init = init_of(classifier_model("cpu", A_ONE_LAYERS, experts,
+                                        generator(3)))
+        train, _ = attention_docs(A_BATCH * (A_ONE_STEPS + 2) * 5 // 4,
+                                  seed=1)
+        local = classifier_run(torch, "cuda", init, train, A_BATCH,
+                               max_iteration(2), layers=A_ONE_LAYERS,
+                               experts=experts, dropout=0.0)
+        _, local_ms = warm_then_timed(torch, ops, local, A_ONE_STEPS)
+        want = {"losses": [l for _, l in local.loss_log],
+                "params": _params(torch, local.model)}
+        for r, run in enumerate(ranks):
+            if run["counts"]["fused_sgd"] != A_ONE_STEPS:
+                raise AssertionError(f"{mode}, rank {r}: launches "
+                                     f"{ops_nonzero(run['counts'])}")
+            held = held_bits(torch, f"{mode} on 4 cards, rank {r}", run, want,
+                             dict(rtol=LOSS_RTOL, atol=PARAM_ATOL))
+        by_path[f"attention_4card_{mode}"] = ranks[0]["counts"]
+        print(f"attention {mode}, 4 cards ({ranks[0]['coords']} ...): "
+              f"depth {A_ONE_LAYERS} at full width, global batch {A_BATCH} "
+              f"x T {A_T}, 2 warm-up steps, then {A_ONE_STEPS}: "
+              f"{ranks[0]['step_ms']:.4f} ms/step (LocalOptimizer on one "
+              f"card {local_ms:.4f}), max_memory_allocated "
+              f"{ranks[0]['mem']} B a rank; held against LocalOptimizer "
+              f"over all {2 + A_ONE_STEPS} steps {held}; launches "
+              f"{ops_nonzero(ranks[0]['counts'])}; [{smi}]")
+    return by_path
+
+
+def phase_attention(torch, ops, profile: bool):
+    """The attention family's training: the ring's step on one card; the
+    flagship classifier at bench.py's width through
+    ``Optimizer(...).optimize()`` (every step through ``fused_sgd``),
+    three steps at depth 1 against the CPU; the MoE classifier likewise,
+    its dropped share printed; the LM at the serving width through
+    LocalOptimizer, held to the CPU, then ``lm_decode`` from its weights
+    through ``paged_attention``; the sequence- and expert-parallel
+    ``DistriOptimizer`` at a world of one against LocalOptimizer bit for
+    bit (``phase_attention_cards`` takes them across four cards)."""
+    from bigdl_tpu_torch.models.transformer import lm_decode
+    from bigdl_tpu_torch.optim import max_iteration
+    from bigdl_tpu_torch.utils.engine import Engine
+    from bigdl_tpu_torch.utils.random import RNG, generator
+
+    smi = smi_line()
+    by_path = {}
+    ring_one_card(torch, smi)
+
+    # the flagship classifier
+    init = init_of(classifier_model("cpu", generator=generator(0)))
+    n_params = sum(v.size for v in _leaves(init["params"]))
+    if n_params != A_PARAMS:
+        raise AssertionError(f"TransformerClassifier has {n_params} "
+                             f"parameters, bench.py's has {A_PARAMS}")
+    train, val = attention_docs(A_DOCS)
+    RNG.set_seed(0)   # the dropout masks
+    ops_step = classifier_ops(A_BATCH, A_T, D_MODEL, HEADS, LAYERS, HIDDEN,
+                              A_CLASSES)
+    print(f"attention classifier: {len(train)} training and {len(val)} "
+          f"validation documents of ({A_T}, {D_MODEL}) (the example "
+          f"builds 2048); the step's matrix products {ops_step} "
+          f"operations from the shapes, the JAX record's count "
+          f"{A_JAX_OPS} ({A_JAX_OPS / FP32_FLOPS * 1e3:.4f} ms at fp32's "
+          f"peak)")
+    counts, opt, _ = attention_path(
+        torch, ops, "attention classifier: TransformerClassifier at "
+        "bench.py's width", lambda end: classifier_run(
+            torch, "cuda", init, train, A_BATCH,
+            end or max_iteration(A_STEPS), val=None if end else val),
+        n_params, ops_step, smi)
+    by_path["attention_classifier"] = counts
+    del opt
+    check = init_of(classifier_model("cpu", A_CHECK_LAYERS,
+                                     generator=generator(1)))
+    diff = card_vs_cpu(torch, check["params"], lambda device: classifier_run(
+        torch, device, check, train[:A_CHECK_BATCH * A_CHECK_STEPS],
+        A_CHECK_BATCH, max_iteration(A_CHECK_STEPS),
+        layers=A_CHECK_LAYERS, dropout=0.0), routed=True)
+    print_vs_cpu(f"attention classifier (depth {A_CHECK_LAYERS} of "
+                 f"{LAYERS}, full width)", A_CHECK_BATCH, diff, PARAM_ATOL)
+    held_vs_cpu("attention classifier", diff, PARAM_ATOL)
+
+    # the MoE classifier
+    init = init_of(classifier_model("cpu", experts=A_EXPERTS,
+                                    generator=generator(2)))
+    n_params = sum(v.size for v in _leaves(init["params"]))
+    if n_params != A_MOE_PARAMS:
+        raise AssertionError(f"the MoE classifier has {n_params} parameters")
+    cap = int(1.25 * A_BATCH * A_T / A_EXPERTS)
+    counts, opt, _ = attention_path(
+        torch, ops, f"attention MoE classifier: {A_EXPERTS} experts, "
+        f"dispatch ({A_BATCH * A_T}, {A_EXPERTS}, {cap}) a layer",
+        lambda end: classifier_run(torch, "cuda", init, train, A_BATCH,
+                                   end or max_iteration(A_MOE_STEPS),
+                                   experts=A_EXPERTS),
+        n_params, classifier_ops(A_BATCH, A_T, D_MODEL, HEADS, LAYERS,
+                                 HIDDEN, A_CLASSES, A_EXPERTS, cap), smi,
+        profile_n=2)
+    print(f"attention MoE classifier: dropped share of the last step "
+          f"{dropped_share(opt.model):.4f} (capacity {cap} a layer and "
+          f"expert)")
+    by_path["attention_moe"] = counts
+    del opt
+    check = init_of(classifier_model("cpu", A_CHECK_LAYERS, A_EXPERTS,
+                                     generator(3)))
+    # routed: a gate a rounding apart from the next sends a token to
+    # another expert (or over the capacity) on one side only, and an
+    # expert's pre-activation a rounding from 0 flips its ReLU
+    diff = card_vs_cpu(torch, check["params"], lambda device: classifier_run(
+        torch, device, check, train[:A_CHECK_BATCH * A_CHECK_STEPS],
+        A_CHECK_BATCH, max_iteration(A_CHECK_STEPS), layers=A_CHECK_LAYERS,
+        experts=A_EXPERTS, dropout=0.0), routed=True)
+    print_vs_cpu(f"attention MoE classifier (depth {A_CHECK_LAYERS}, full "
+                 f"width)", A_CHECK_BATCH, diff, PARAM_ATOL)
+    held_vs_cpu("attention MoE classifier", diff, PARAM_ATOL)
+
+    # the LM, then lm_decode from its trained weights
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+
+    windows, dictionary = lm_corpus(VOCAB, L_BATCH * L_STEPS)
+    init = init_of(TransformerLM(VOCAB, D_MODEL, HEADS, LAYERS, HIDDEN,
+                                 device="cpu", generator=generator(4)))
+    lm_ops = 3 * (LAYERS * (4 * 2 * L_BATCH * L_T * D_MODEL ** 2
+                            + 2 * 2 * L_BATCH * L_T * D_MODEL * HIDDEN
+                            + 2 * 2 * L_BATCH * L_T * L_T * D_MODEL)
+                  + 2 * 2 * L_BATCH * L_T * D_MODEL * VOCAB)
+    lm_run(torch, "cuda", init, windows, dictionary, L_BATCH,
+           max_iteration(2)).optimize()
+    opt = lm_run(torch, "cuda", init, windows, dictionary, L_BATCH,
+                 max_iteration(L_STEPS))
+    counts, wall = timed_path(torch, ops, opt)
+    want = {**dict.fromkeys(counts, 0), "fused_sgd": L_STEPS}
+    if counts != want:
+        raise AssertionError(f"the LM launched {ops_nonzero(counts)}")
+    by_path["attention_lm"] = counts
+    peak = torch.cuda.max_memory_allocated()
+    losses = [l for _, l in opt.loss_log]
+    step_ms = wall / L_STEPS * 1e3
+    fetch_s, fetches = opt.metrics.get("data fetch time")
+    busy = profile_train(torch, lambda end: lm_run(
+        torch, "cuda", init, windows, dictionary, L_BATCH, end), A_PROFILE)
+    print(f"attention LM: TransformerLM({VOCAB}, {D_MODEL}, {HEADS} heads, "
+          f"{LAYERS} layers, hidden {HIDDEN}) on the built-in corpus "
+          f"({dictionary.vocab_size()} words in {len(windows)} windows of "
+          f"{L_T + 1}), batch {L_BATCH} x T {L_T}, {L_STEPS} steps: "
+          f"{step_ms:.4f} ms/step, {L_BATCH * L_T / step_ms * 1e3:.1f} "
+          f"tokens/s; host: the one-hot batch and its H2D copy "
+          f"{fetch_s / fetches * 1e3:.4f} ms/batch; device busy "
+          f"{busy:.4f} ms/step, idle share {1 - busy / step_ms:.4f}; "
+          f"max_memory_allocated {peak} B, launches {ops_nonzero(counts)}, "
+          f"losses {losses[0]:.6f} -> {losses[-1]:.6f}; bound "
+          f"{lm_ops / FP32_FLOPS * 1e3:.4f} ms ({lm_ops} operations); "
+          f"[{smi}]")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the LM's loss did not fall: {losses}")
+    seed = [dictionary.index(w) for w in L_CORPUS.split("\n")[0].split()]
+    opt.model.evaluate()
+    ops.reset_launch_counts()
+    row = lm_decode(opt.model, seed, L_WORDS, device="cuda")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    n_pos = len(seed) + L_WORDS - 1
+    if counts["paged_attention"] != LAYERS * n_pos:
+        raise AssertionError(f"lm_decode launched {ops_nonzero(counts)}")
+    gaps = forced_gaps(torch, opt.model, row, len(seed))
+    if float(gaps.max()) > 1e-3:
+        raise AssertionError(f"lm_decode's tokens sit {float(gaps.max()):.3e}"
+                             f" below the full forward's maximum")
+    by_path["attention_lm_decode"] = counts
+    print(f"attention LM: lm_decode from the trained weights, {L_WORDS} "
+          f"words after '{L_CORPUS.split(chr(10))[0]}': "
+          f"{' '.join(dictionary.word(i) for i in row[len(seed):])!r}; "
+          f"paged_attention launches {counts['paged_attention']}; every "
+          f"token the full forward's argmax (largest gap "
+          f"{float(gaps.max()):.3e})")
+    del opt
+    check = init_of(TransformerLM(VOCAB, D_MODEL, HEADS, A_CHECK_LAYERS,
+                                  HIDDEN, device="cpu",
+                                  generator=generator(5)))
+    diff = card_vs_cpu(torch, check["params"], lambda device: lm_run(
+        torch, device, check, windows[:A_CHECK_BATCH * A_CHECK_STEPS],
+        dictionary, A_CHECK_BATCH, max_iteration(A_CHECK_STEPS),
+        layers=A_CHECK_LAYERS, dropout=0.0), routed=True)
+    print_vs_cpu(f"attention LM (depth {A_CHECK_LAYERS}, full width)",
+                 A_CHECK_BATCH, diff, PARAM_ATOL)
+    held_vs_cpu("attention LM", diff, PARAM_ATOL)
+
+    # sequence and expert parallelism: a world of one on this card, then
+    # four cards where the machine has them
+    try:
+        for mode, experts in (("sequence_parallel", 0),
+                              ("expert_parallel", A_EXPERTS)):
+            init = init_of(classifier_model("cpu", A_ONE_LAYERS, experts,
+                                            generator(3)))
+            counts, held = attention_one_rank(torch, ops, init, train,
+                                              experts, mode)
+            by_path[f"attention_one_rank_{mode}"] = counts
+            print(f"attention {mode}: DistriOptimizer at a world of one, "
+                  f"depth {A_ONE_LAYERS} at full width, {A_ONE_STEPS} steps "
+                  f"against LocalOptimizer: {held}; [{smi}]")
+    finally:
+        Engine.reset()
+    return by_path, {}
+
+
+def phase_attention_cards(torch, ops):
+    """Sequence and expert parallelism across four cards (``attention_
+    cards``), where the machine has them."""
+    smi = smi_line()
+    if torch.cuda.device_count() < 4:
+        print(f"attention cards: {torch.cuda.device_count()} card(s): the "
+              f"four-card sequence- and expert-parallel runs need four; "
+              f"[{smi}]")
+        return {}, {}
+    return attention_cards(torch, ops, smi), {}
+
+
 def phase_table(torch, ops, profile, rows):
     """Every phase in run order: (name, kind, run).  A "kernels" phase's
     ``run()`` returns its rows of the kernels line (the state phase adds
@@ -6257,6 +6856,9 @@ def phase_table(torch, ops, profile, rows):
         ("model_zoo", "path", lambda: (phase_model_zoo(torch, ops), {})),
         ("inventory", "path", lambda: phase_inventory(torch, ops)),
         ("distri", "path", lambda: phase_distri(torch, ops, profile)),
+        ("attention", "path", lambda: phase_attention(torch, ops, profile)),
+        ("attention_cards", "path",
+         lambda: phase_attention_cards(torch, ops)),
     ]
 
 
@@ -6280,6 +6882,12 @@ ONLY = {
     "--inventory": ("train_kernels", "inventory"),
     # the data-parallel slice: fused_sgd's checks and the distri phase
     "--distri": ("train_kernels", "distri"),
+    # the attention family's training: the SGD and attention kernels'
+    # checks and the attention phase
+    "--attention": ("kernels", "train_kernels", "attention",
+                    "attention_cards"),
+    # sequence and expert parallelism across four cards alone
+    "--attention-cards": ("attention_cards",),
 }
 # the kernels line: each row's keys (queued_ms: calls queued back to back,
 # the device's time where it outlasts the wrapper's host work, no L2

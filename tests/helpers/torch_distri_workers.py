@@ -25,8 +25,32 @@ from bigdl_tpu_torch.utils.engine import Engine
 from bigdl_tpu_torch.utils.table import T
 
 
-def build(name: str):
-    """The tests' models (the JAX tests' shapes)."""
+def build(name: str, arch: dict = None):
+    """The tests' models (the JAX tests' shapes); ``arch`` the keyword
+    arguments of the attention family's builders."""
+    arch = arch or {}
+    if name == "classifier":
+        from bigdl_tpu_torch.models.transformer import TransformerClassifier
+        return TransformerClassifier(device="cpu", **arch)
+    if name == "lm":
+        from bigdl_tpu_torch.models.transformer import TransformerLM
+        return TransformerLM(device="cpu", **arch)
+    if name == "attn":   # tests/test_attention_sp.py:_attn_model
+        return nn.Sequential(
+            nn.MultiHeadSelfAttention(16, 4, device="cpu"),
+            nn.Mean(1, n_input_dims=2), nn.Linear(16, 4), nn.LogSoftMax())
+    if name == "moe":    # tests/test_moe_layer.py:_moe_model
+        return nn.Sequential(
+            nn.Linear(10, 12), nn.ReLU(),
+            nn.MoE(12, 24, 4, capacity_factor=arch.get("capacity_factor",
+                                                       2.0), device="cpu"),
+            nn.Linear(12, 4), nn.LogSoftMax())
+    if name == "softmax":   # per-position classes over (N, C, W)
+        return nn.Sequential(nn.Linear(8, 12), nn.Reshape([4, 3]))
+    if name == "rnn":   # a time-mixing layer
+        return nn.Sequential(nn.Recurrent().add(nn.RnnCell(16, 8, nn.Tanh())),
+                             nn.Mean(1, n_input_dims=2), nn.Linear(8, 4),
+                             nn.LogSoftMax())
     if name == "mlp":
         return nn.Sequential(nn.Linear(8, 16), nn.ReLU(), nn.Linear(16, 4),
                              nn.LogSoftMax())
@@ -54,6 +78,13 @@ def criterion(spec):
         return nn.ClassNLLCriterion(size_average=False)
     if kind == "nll_weighted":
         return nn.ClassNLLCriterion(weights=spec["class_weights"])
+    if kind == "tdc":
+        return nn.TimeDistributedCriterion(nn.ClassNLLCriterion(),
+                                           size_average=True)
+    if kind == "tdc_sum":
+        return nn.TimeDistributedCriterion(nn.ClassNLLCriterion())
+    if kind == "softmax_ignore":
+        return nn.SoftmaxWithCriterion(ignore_label=spec["ignore_label"])
     raise ValueError(kind)
 
 
@@ -107,7 +138,10 @@ def dataset(spec):
 
 
 def samples_of(xs, ys):
-    return [Sample(x, np.asarray([y])) for x, y in zip(xs, ys)]
+    """Records of features ``xs`` and labels ``ys``: a scalar label a
+    one-element array, a label array (one a time step) as it is."""
+    return [Sample(x, np.asarray(y) if np.ndim(y) else np.asarray([y]))
+            for x, y in zip(xs, ys)]
 
 
 def run(spec: dict) -> dict:
@@ -125,7 +159,7 @@ def run(spec: dict) -> dict:
     that step), ``checkpoint`` ((path, every n)), ``opt_state`` (a tree
     to resume from), ``validate`` ((xs, ys, batch)).
     """
-    model = build(spec["model"])
+    model = build(spec["model"], spec.get("arch"))
     load_jax_params(model, spec["init"])
     if spec.get("init_state") is not None:
         load_jax_state(model, spec["init_state"])
@@ -143,6 +177,9 @@ def run(spec: dict) -> dict:
     elif kind == "factory":
         opt = Optimizer(model, ds, crit, device="cpu", **kw)
     else:
+        if spec.get("mesh") is not None:
+            from bigdl_tpu_torch.parallel.mesh import make_mesh
+            kw = dict(kw, mesh=make_mesh(spec["mesh"], "cpu"))
         opt = DistriOptimizer(model, ds, crit, device="cpu", **kw)
     if blob is not None:
         opt.set_state(blob["state"]).set_optim_state(blob["opt_state"])
@@ -192,6 +229,8 @@ def run(spec: dict) -> dict:
            "world": Engine.device_count(),
            "rank": Engine.process_index()}
     if isinstance(opt, DistriOptimizer):
+        out["coords"] = opt.mesh.coords()
+        out["specs"] = opt.expert_param_specs()
         out["flat_length"] = opt._part.length
         out["wire_bytes"] = opt.wire_bytes
         out["velocity_numel"] = sum(v.numel()
@@ -302,3 +341,95 @@ def fail_on(rank: int):
     if Engine.process_index() == rank:
         raise ValueError(f"raised by rank {rank}")
     return Engine.process_index()
+
+
+# -- the attention family's collectives ---------------------------------
+
+def mesh_case(shapes):
+    """Each mesh of ``shapes`` on this rank: its shape, this rank's
+    coordinates and each axis's members."""
+    from bigdl_tpu_torch.parallel.mesh import make_mesh
+    out = []
+    for shape in shapes:
+        mesh = make_mesh(shape, "cpu")
+        out.append((mesh.shape, mesh.coords(),
+                    {k: mesh.axis(k).ranks for k in mesh.axis_names}))
+    return out
+
+
+def ring_case(q, k, v, g, causal):
+    """This rank's block of the (B, T, H, hd) q, k, v through
+    ``ring_attention`` over a ``{"data": 1, "seq": world}`` mesh, the
+    output's cotangent ``g``: (out, dq, dk, dv) of the block."""
+    from bigdl_tpu_torch.parallel.mesh import make_mesh
+    from bigdl_tpu_torch.parallel.ring_attention import ring_attention
+
+    seq = make_mesh({"data": 1, "seq": -1}, "cpu").axis("seq")
+    t = q.shape[1] // seq.size
+    own = slice(seq.index * t, (seq.index + 1) * t)
+    qt, kt, vt = (torch.from_numpy(a[:, own].copy()).requires_grad_()
+                  for a in (q, k, v))
+    out = ring_attention(qt, kt, vt, seq, causal=causal)
+    dq, dk, dv = torch.autograd.grad(out, (qt, kt, vt),
+                                     torch.from_numpy(g[:, own].copy()))
+    return [a.detach().numpy() for a in (out, dq, dk, dv)]
+
+
+def collectives_p2p_case(x):
+    """ppermute, ring_shift, all_to_all (tiled and not) of rank r's
+    ``x + r`` over the world, and the all-to-all's gradient."""
+    from bigdl_tpu_torch.parallel import collectives as coll
+
+    r, n = Engine.process_index(), Engine.device_count()
+    mine = torch.from_numpy(x + r)
+    out = {"ppermute": coll.ppermute(mine, None, [(0, n - 1)]).numpy(),
+           "shift": coll.ring_shift(mine, None, 1).numpy(),
+           "shift2": coll.ring_shift(mine, None, -1).numpy()}
+    t = mine.clone().requires_grad_()
+    y = coll.all_to_all(t, None, 0, 1, tiled=True)
+    (y * torch.arange(y.numel(), dtype=y.dtype).view(y.shape)).sum() \
+        .backward()
+    out["a2a"], out["a2a_grad"] = y.detach().numpy(), t.grad.numpy()
+    stacked = torch.from_numpy(np.stack([x + r] * n))
+    out["a2a_untiled"] = coll.all_to_all(stacked, None, 0, 0,
+                                         tiled=False).numpy()
+    return out
+
+
+def moe_apply_case(params, x, g, sharded):
+    """This rank's expert shard of ``params`` (router, w1, b1, w2, b2)
+    through ``moe_apply`` (``x`` (T, D) on every rank) or, with
+    ``sharded``, ``moe_apply_sharded_tokens`` on this rank's own rows of
+    ``x``; the output, and the gradients under cotangent ``g``."""
+    from bigdl_tpu_torch.parallel.moe import (moe_apply,
+                                              moe_apply_sharded_tokens)
+
+    r, n = Engine.process_index(), Engine.device_count()
+    e = params["w1"].shape[0] // n
+    own = slice(r * e, (r + 1) * e)
+    ts = {k: torch.from_numpy(np.array(v if k == "router" else v[own]))
+          .requires_grad_() for k, v in params.items()}
+    if sharded:
+        rows = slice(r * len(x) // n, (r + 1) * len(x) // n)
+        xt = torch.from_numpy(x[rows].copy()).requires_grad_()
+        gt = torch.from_numpy(g[rows].copy())
+        fn = moe_apply_sharded_tokens
+    else:
+        xt = torch.from_numpy(x.copy()).requires_grad_()
+        gt = torch.from_numpy(g.copy())
+        fn = moe_apply
+    y = fn(ts["router"], ts["w1"], ts["b1"], ts["w2"], ts["b2"], xt,
+           dist.group.WORLD, capacity_factor=1.0)
+    (y * gt).sum().backward()
+    return {"y": y.detach().numpy(), "dx": xt.grad.numpy(),
+            **{k: t.grad.numpy() for k, t in ts.items()}}
+
+
+def refusal_case(spec):
+    """``run(spec)`` on this rank; the (type, text) of what it raised, or
+    None when it trained."""
+    try:
+        run(spec)
+    except Exception as e:   # the refusal under test, returned
+        return type(e).__name__, str(e)
+    return None

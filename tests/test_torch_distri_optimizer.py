@@ -381,8 +381,11 @@ def test_global_batch_rules():
     assert global_batch_rule(nn.MSECriterion()) == "mean"
     assert global_batch_rule(nn.TimeDistributedCriterion(
         nn.ClassNLLCriterion(size_average=False))) == "sum"
-    with pytest.raises(NotImplementedError):
-        global_batch_rule(nn.SoftmaxWithCriterion(ignore_label=255))
+    # the positions kept over the whole batch (an all-reduced count)
+    assert global_batch_rule(nn.SoftmaxWithCriterion(ignore_label=255)) \
+        == "kept"
+    assert global_batch_rule(nn.SoftmaxWithCriterion(
+        ignore_label=255, normalize_mode="batch_size")) == "mean"
     with pytest.raises(NotImplementedError):
         global_batch_rule(nn.MultiCriterion().add(nn.MSECriterion()).add(
             nn.AbsCriterion(size_average=False)))

@@ -9,6 +9,12 @@ after.  With it set, each rank holds block ``index`` of the time
 dimension: the attention runs the ring (``parallel/ring_attention.py``)
 and the position table adds the block's global rows.  On an axis of one
 rank both take their plain path.
+
+The attention also has a tensor-parallel form: with ``model_axis`` set
+(by ``DistriOptimizer(tensor_parallel=True)``) this rank holds its rows
+of ``wq/wk/wv/wo``, stored (in, out), so its part of each product's
+input: each projection is this rank's columns of the input times its
+rows, summed over the axis (row-parallel), the bias added after.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import torch
 
 from bigdl_tpu_torch.nn import init as init_
 from bigdl_tpu_torch.nn.module import TensorModule
+from bigdl_tpu_torch.parallel import collectives as coll
 from bigdl_tpu_torch.parallel.ring_attention import (full_attention,
                                                      ring_attention)
 
@@ -40,13 +47,22 @@ class MultiHeadSelfAttention(TensorModule):
             self._add_param(name.replace("w", "b"), torch.zeros(d_model),
                             device)
         self.seq_axis = None
+        self.model_axis = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, d = x.shape
         h = self.n_heads
+        axis = self.model_axis
+        if axis is not None and axis.size == 1:
+            axis = None
+
+        def product(a, w):
+            if axis is None:
+                return a @ w
+            return coll.sum_forward(coll.split_dim(a, axis, -1) @ w, axis)
 
         def proj(w, bias):
-            return (x @ w + bias).reshape(b, t, h, d // h)
+            return (product(x, w) + bias).reshape(b, t, h, d // h)
 
         q, k, v = (proj(self.wq, self.bq), proj(self.wk, self.bk),
                    proj(self.wv, self.bv))
@@ -55,7 +71,7 @@ class MultiHeadSelfAttention(TensorModule):
             o = ring_attention(q, k, v, ring, causal=self.causal)
         else:
             o = full_attention(q, k, v, causal=self.causal)
-        return o.reshape(b, t, d) @ self.wo + self.bo
+        return product(o.reshape(b, t, d), self.wo) + self.bo
 
     def extra_repr(self) -> str:
         return (f"{self.d_model}, heads={self.n_heads}"

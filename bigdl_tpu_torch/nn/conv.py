@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn import init as init_
 from bigdl_tpu_torch.nn.module import TensorModule, device_constant
+from bigdl_tpu_torch.parallel import collectives as coll
 from bigdl_tpu_torch.utils.device import resolve_device
 
 
@@ -30,7 +31,12 @@ class SpatialConvolution(TensorModule):
     (O/groups)*kh*kw and zeroes the bias; MSRA draws it from N(0,
     sqrt(2/(kw*kh*O))) and zeroes the bias.  Arguments follow the
     reference constructor, in the JAX module's order; ``propagate_back``
-    is accepted for its signature and, as there, changes nothing."""
+    is accepted for its signature and, as there, changes nothing.
+
+    Under tensor parallelism ``model_axis`` (set by the
+    ``DistriOptimizer`` for the run, on an ungrouped convolution) says
+    that this rank holds its output planes of the weight: the layer
+    computes those planes and gathers them, as ``Linear`` does."""
 
     def __init__(self, n_input_plane: int, n_output_plane: int,
                  kernel_w: int, kernel_h: int, stride_w: int = 1,
@@ -76,12 +82,24 @@ class SpatialConvolution(TensorModule):
             self._add_param("bias", bias, device)
         else:
             self.bias = None
+        self.model_axis = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         was3d = x.dim() == 3
-        y = F.conv2d(x[None] if was3d else x, self.weight, self.bias,
-                     stride=(self.stride_h, self.stride_w),
-                     padding=(self.pad_h, self.pad_w), groups=self.n_group)
+        x = x[None] if was3d else x
+        axis = self.model_axis
+        if axis is None or axis.size == 1:
+            y = F.conv2d(x, self.weight, self.bias,
+                         stride=(self.stride_h, self.stride_w),
+                         padding=(self.pad_h, self.pad_w),
+                         groups=self.n_group)
+        else:
+            y = coll.gather_dim(F.conv2d(
+                coll.sum_grad(x, axis), self.weight,
+                stride=(self.stride_h, self.stride_w),
+                padding=(self.pad_h, self.pad_w)), axis, 1)
+            if self.bias is not None:
+                y = y + self.bias.view(1, -1, 1, 1)
         return y[0] if was3d else y
 
     def extra_repr(self) -> str:

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn import init as init_
 from bigdl_tpu_torch.nn.module import Module, TensorModule
+from bigdl_tpu_torch.parallel import collectives as coll
 from bigdl_tpu_torch.utils.device import resolve_device
 from bigdl_tpu_torch.utils.table import as_table
 
@@ -26,7 +27,13 @@ class Linear(TensorModule):
     ``with_bias=False`` leaves the bias out; ``init_method`` Default draws
     both U(-1/sqrt(in), 1/sqrt(in)), Xavier draws the weight with fan-in
     ``in`` and fan-out ``out`` and zeroes the bias (bigdl_tpu/nn/linear.py
-    ``Linear.reset``)."""
+    ``Linear.reset``).
+
+    Under tensor parallelism ``model_axis`` (the mesh's ``model`` Axis,
+    set by the ``DistriOptimizer`` for the run) says that this rank holds
+    its rows of the weight: the layer computes its columns of the output
+    and gathers them (column-parallel), the bias added after the gather
+    and the input's gradient summed over the axis."""
 
     def __init__(self, input_size: int, output_size: int,
                  with_bias: bool = True, init_method: str = init_.Default,
@@ -48,9 +55,15 @@ class Linear(TensorModule):
             self._add_param("bias", b, device)
         else:
             self.bias = None
+        self.model_axis = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        axis = self.model_axis
+        if axis is None or axis.size == 1:
+            return F.linear(x, self.weight, self.bias)
+        y = coll.gather_dim(F.linear(coll.sum_grad(x, axis), self.weight),
+                            axis, -1)
+        return y if self.bias is None else y + self.bias
 
     def extra_repr(self) -> str:
         return f"{self.input_size} -> {self.output_size}"

@@ -34,8 +34,13 @@ OptimMethod's update in place.  What the JAX loop keeps, this one keeps:
   ``neval`` and the random payload as of the last consumed batch), and
   the end trigger.
 
-Not ported yet: taps and summaries, fault drills and gradient
-checkpointing.
+- gradient checkpointing (``set_gradient_checkpointing``): the model's
+  forward runs under ``torch.utils.checkpoint`` and again in the
+  backward, its dropout masks and running statistics as the first run
+  left them (the JAX step's ``jax.checkpoint``); such a run takes the
+  eager n-step loop.
+
+Not ported yet: taps and summaries, and fault drills.
 """
 from __future__ import annotations
 
@@ -120,6 +125,36 @@ class _BufferSnapshot:
             torch._foreach_copy_(now_parts, bufs)
             torch.where(finite, now, saved, out=now)
             torch._foreach_copy_(bufs, now_parts)
+
+
+def remat(fn, x, buffers):
+    """``fn(x)`` under ``torch.utils.checkpoint``: the backward runs the
+    forward again instead of keeping its activations.  The second run
+    draws the first run's dropout masks (the package generator on
+    ``x``'s device set back to where it stood, then forward again) and
+    leaves ``buffers`` (running statistics) as the first run left
+    them."""
+    from torch.utils.checkpoint import checkpoint
+
+    gen = RNG.generator(x.device)
+    start = gen.get_state()
+    buffers = list(buffers)
+    calls = [0]
+
+    def run(xx):
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn(xx)
+        now, kept = gen.get_state(), [b.clone() for b in buffers]
+        gen.set_state(start)
+        try:
+            return fn(xx)
+        finally:
+            gen.set_state(now)
+            if kept:
+                torch._foreach_copy_(buffers, kept)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
 class _PendingStep:
@@ -258,6 +293,9 @@ class LocalOptimizer:
         self.checkpoint_path = None
         self.checkpoint_trigger = None
         self.iters_per_dispatch = 1
+        #: the forward under torch.utils.checkpoint
+        #: (``set_gradient_checkpointing``)
+        self.remat = False
         # n > 1 steps a dispatch on the card: one captured CUDA graph
         # (False: the eager loop, a reference to hold the graph to)
         self._cuda_graph = True
@@ -331,6 +369,15 @@ class LocalOptimizer:
         self.iters_per_dispatch = max(1, int(n))
         return self
 
+    def set_gradient_checkpointing(self, enabled: bool = True):
+        """Run the forward again inside the backward (``torch.utils
+        .checkpoint``) instead of keeping its activations: FLOPs for
+        memory (the JAX ``jax.checkpoint``; the reference's shared-buffer
+        tricks, SpatialShareConvolution and ResNet.shareGradInput, did the
+        same job).  A pipeline's GPipe schedule checkpoints each stage."""
+        self.remat = bool(enabled)
+        return self
+
     def set_nonfinite_policy(self, abort_after: int | None = 10):
         """Abort (NonFiniteGradError) after ``abort_after`` consecutive
         skipped steps; 0/None keeps skipping."""
@@ -380,7 +427,9 @@ class LocalOptimizer:
         if kept is None or not kept.holds(self.model):
             kept = self._kept = _BufferSnapshot(self.model)
         kept.save()
-        loss = self.criterion(self.model(x), y)
+        out = (remat(self.model, x, self.model.buffers()) if self.remat
+               else self.model(x))
+        loss = self.criterion(out, y)
         self._backward(loss, y)
         grads = [p.grad for p in params]
         loss, finite = self._reduce(loss.detach(), grads)
@@ -424,7 +473,8 @@ class LocalOptimizer:
     def _run_chunk(self, params, opt_state, xs, ys, lr):
         """n steps on the (n, B, ...) batches: (n losses, n flags)."""
         hyper = self._hyper(lr)
-        if self.device.type != "cuda" or not self._cuda_graph:
+        if self.device.type != "cuda" or not self._cuda_graph or self.remat:
+            # the checkpoint's generator states are host reads: no capture
             return self._eager_chunk(params, opt_state, xs, ys, hyper)
         if self._side is None:
             # the optimizer's first chunk warms up on the capture's stream

@@ -11,6 +11,10 @@ mixture-of-experts add ``ppermute``, ``ring_shift``, ``RingSend`` (one
 hop of a ring, in flight while the caller computes) and a
 differentiable ``all_to_all``, and the sums and gathers whose backward
 a sharded layer needs (``psum``, ``sum_grad``, ``all_gather_own_grad``).
+Tensor parallelism adds ``gather_dim`` / ``split_dim`` (a gather or an
+own slice along any dim, the other as its backward) and ``sum_forward``
+(a sum whose backward is the identity); pipeline parallelism the
+stage-to-stage ``exchange`` (one ``batch_isend_irecv`` a tick).
 
 The flat forms take ``reduce_scatter_tensor`` and
 ``all_gather_into_tensor``, the names every torch since 2.0 has.
@@ -265,3 +269,99 @@ def all_gather_own_grad(x: torch.Tensor, group) -> torch.Tensor:
     same tokens): the other ranks' rows are theirs to differentiate, and
     a sum over the axis would count the loss once a rank."""
     return _GatherOwn.apply(x, group)
+
+
+# -- tensor parallelism over the ``model`` axis ---------------------------
+#
+# The ranks of one model line compute the same loss from the same
+# activations, each holding its slice of the sharded weights.  A value
+# every rank holds whole has the same gradient on every rank; a slice
+# has its own rows' gradient; a partial result's gradient is the whole
+# value's.  ``sum_grad`` (identity forward, sum backward) enters a
+# column-parallel product, whose input every slice of the output reads.
+
+def _gather_along(x, group, dim):
+    _, n, _ = _members(group)
+    part = x.movedim(dim, 0).contiguous()
+    out = part.new_empty((n * part.shape[0],) + tuple(part.shape[1:]))
+    dist.all_gather_into_tensor(out, part, group=_group(group))
+    return out.movedim(0, dim)
+
+
+def _own_part(x, group, dim):
+    idx, n, _ = _members(group)
+    k = x.shape[dim] // n
+    return x.narrow(dim, idx * k, k)
+
+
+class _GatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.args = (group, dim)
+        return _gather_along(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.args
+        return _own_part(g, group, dim).contiguous(), None, None
+
+
+def gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order; the
+    backward hands each rank its own part of the gradient (the output of
+    a column-parallel product: each rank computed its columns)."""
+    return _GatherDim.apply(x, group, dim % x.dim())
+
+
+class _SplitDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.args = (group, dim)
+        return _own_part(x, group, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.args
+        return _gather_along(g.contiguous(), group, dim), None, None
+
+
+def split_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's part of ``x`` along ``dim`` (dim / n columns, in rank
+    order); the backward gathers every rank's part of the gradient (the
+    input of a row-parallel product: each part feeds one rank's rows)."""
+    return _SplitDim.apply(x, group, dim % x.dim())
+
+
+class _SumForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_forward(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of the ranks' partial ``x`` on every rank; the backward is
+    the identity (the output of a row-parallel product: the sum is one
+    value the one loss reads)."""
+    return _SumForward.apply(x, group)
+
+
+# -- pipeline parallelism: one exchange a tick ----------------------------
+
+def exchange(sends, recvs, group=None):
+    """Post the sends ``[(tensor, peer)]`` and receives ``[(buffer,
+    peer)]`` (peers by their index on ``group``, an ``Axis``, or global
+    ranks when it is None) in one ``batch_isend_irecv`` and wait for all
+    of them: the NCCL sends block until received, so two stages that
+    each sent first would wait on each other."""
+    ranks = None if group is None else _members(group)[2]
+    ops = [dist.P2POp(dist.isend, t.contiguous(),
+                      p if ranks is None else ranks[p]) for t, p in sends]
+    ops += [dist.P2POp(dist.irecv, b, p if ranks is None else ranks[p])
+            for b, p in recvs]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()

@@ -10,13 +10,17 @@ group.  The axes:
 - ``seq``: the time dimension split over the ranks of a data slice
   (sequence parallelism: ring attention, ``nn/attention.py``);
 - ``expert``: the experts of every ``nn.MoE`` split over the ranks of a
-  data slice (expert parallelism, ``parallel/moe.py``).
+  data slice (expert parallelism, ``parallel/moe.py``);
+- ``model``: the leaves that ``sharding.shard_params_rule`` shards split
+  on dim 0 over the ranks of a data slice (tensor parallelism);
+- ``pipe``: the stages of a ``Sequential`` model, one a rank
+  (pipeline parallelism, ``parallel/pipeline.py``).
 
-A rank's coordinates follow the JAX mesh's device order, row-major over
-the dict's axes (``devices.reshape(sizes)``): in ``{"data": d, "seq":
-s}`` rank r sits at data r // s and seq r % s.  The ``model`` and
-``pipe`` axes (tensor and pipeline parallelism) come with the next slice
-and raise.
+A mesh is ``{"data"}`` alone or with one of ``seq``, ``expert`` and
+``model``, or ``{"pipe"}`` with an optional ``data`` axis.  A rank's
+coordinates follow the JAX mesh's device order, row-major over the
+dict's axes (``devices.reshape(sizes)``): in ``{"data": d, "seq": s}``
+rank r sits at data r // s and seq r % s.
 """
 from __future__ import annotations
 
@@ -25,10 +29,10 @@ import torch.distributed as dist
 
 from bigdl_tpu_torch.utils.engine import Engine
 
-AXES = ("data", "seq", "expert")
-LATER_AXES = ("model", "pipe")
-LATER = ("tensor and pipeline parallelism come with a later slice of the "
-         "port (ROADMAP queue 1, item 6: the next slice)")
+AXES = ("data", "seq", "expert", "model", "pipe")
+#: the axis sets a mesh of the port may have
+MESHES = ({"data"}, {"data", "seq"}, {"data", "expert"}, {"data", "model"},
+          {"pipe"}, {"data", "pipe"})
 
 
 class Axis:
@@ -77,22 +81,16 @@ class Mesh:
 
 
 def make_mesh(axis_sizes: dict, device="cuda") -> Mesh:
-    """A mesh from ``{axis: size}`` over the ``data``, ``seq`` and
-    ``expert`` axes; one size may be ``-1`` (the world over the others').
+    """A mesh from ``{axis: size}`` over one of the axis sets of
+    ``MESHES``; one size may be ``-1`` (the world over the others').
     The world (the default group, formed by ``Engine.ensure_group`` for
     ``device`` when there is none) must hold exactly the product.  Every
     rank calls this together: each axis line is a new process group
     (``dist.new_group`` is a collective over the world)."""
-    later = [a for a in axis_sizes if a in LATER_AXES]
-    if later:
-        raise NotImplementedError(f"mesh axes {later}: {LATER}")
-    unknown = [a for a in axis_sizes if a not in AXES]
-    if unknown or "data" not in axis_sizes:
-        raise ValueError(f"a mesh of the port has a 'data' axis and "
-                         f"optionally 'seq' or 'expert', got "
-                         f"{list(axis_sizes)}")
-    if len(axis_sizes) > 2:
-        raise ValueError(f"one of 'seq' and 'expert' at a time, got "
+    if set(axis_sizes) not in MESHES:
+        raise ValueError(f"a mesh of the port has a 'data' axis alone or "
+                         f"with one of 'seq', 'expert' and 'model', or a "
+                         f"'pipe' axis with an optional 'data' axis; got "
                          f"{list(axis_sizes)}")
     group = Engine.ensure_group(device)
     world = dist.get_world_size(group)
@@ -136,6 +134,6 @@ def data_parallel_mesh(device="cuda") -> Mesh:
     return make_mesh({"data": -1}, device)
 
 
-def hybrid_mesh(dp: int = -1, mp: int = 1, device="cuda"):
-    """(data, model) meshes need tensor parallelism: not ported yet."""
-    raise NotImplementedError(f"hybrid_mesh: {LATER}")
+def hybrid_mesh(dp: int = -1, mp: int = 1, device="cuda") -> Mesh:
+    """The (data, model) mesh of DP x TP hybrid sharding."""
+    return make_mesh({"data": dp, "model": mp}, device)

@@ -1,5 +1,6 @@
-"""The flat partition of the parameters (counterpart of
-bigdl_tpu/parallel/sharding.py ``zero1_rule`` :50-62; ref
+"""The flat partition of the parameters and the tensor-parallel rules
+(counterpart of bigdl_tpu/parallel/sharding.py ``shard_params_rule``
+:34-47, ``zero1_rule`` :50-62 and ``zero1_tp_rule`` :64-83; ref
 parameters/AllReduceParameter.scala:100-117).
 
 The reference compacts every weight into one flat vector
@@ -20,12 +21,68 @@ alignment), because cuDNN and cuBLAS choose their algorithms by a
 pointer's alignment (PyTorch keys its cuDNN plans on it) and
 ``fused_sgd`` vectorises 16-byte-aligned leaves; a view into the flat
 buffer then computes what a tensor of its own computes, bit for bit.
-``shard_params_rule`` and ``zero1_tp_rule`` come with tensor
-parallelism.
+
+The rules give, leaf by leaf, the decision the JAX rule's
+``PartitionSpec`` gives, as its tuple of axis names: ``("model",)``
+(dim 0 split over the ``model`` axis), ``("model", "data")`` (and dim 1
+over ``data``), ``("data",)`` (dim 0 over ``data``) or ``()``
+(replicated).  Under tensor parallelism each rank holds rows ``[i·n/mp,
+(i+1)·n/mp)`` of a leaf the first rule shards (``model_slice``).
 """
 from __future__ import annotations
 
 import math
+
+def _sizes(mesh) -> dict:
+    """Axis sizes of a ``Mesh`` or of a plain ``{axis: size}`` dict."""
+    return dict(getattr(mesh, "shape", mesh))
+
+
+def shard_params_rule(mesh, model_axis: str = "model"):
+    """``rule(leaf) -> spec``: a leaf of two or more dims whose dim 0
+    divides by the model axis splits dim 0 over it; any other leaf, and
+    every leaf where the mesh has no model axis or one of size 1, is
+    replicated.  ``leaf`` is a tensor, an array or a shape."""
+    size = _sizes(mesh).get(model_axis, 1)
+    if size == 1:
+        return lambda x: ()
+
+    def rule(x):
+        shape = tuple(getattr(x, "shape", x))
+        if len(shape) >= 2 and shape[0] % size == 0:
+            return (model_axis,)
+        return ()
+
+    return rule
+
+
+def zero1_tp_rule(mesh, data_axis: str = "data", model_axis: str = "model"):
+    """ZeRO-1 composed with tensor parallelism: an optimizer-state leaf
+    keeps its parameter's layout under :func:`shard_params_rule` and is
+    split over ``data`` besides where divisible, on dim 1 for a leaf split
+    over ``model`` and on dim 0 otherwise."""
+    tp = shard_params_rule(mesh, model_axis)
+    dsize = _sizes(mesh)[data_axis]
+
+    def rule(x):
+        shape = tuple(getattr(x, "shape", x))
+        s = tp(shape)
+        if s and s[0] == model_axis:
+            if len(shape) >= 2 and shape[1] % dsize == 0:
+                return (model_axis, data_axis)
+            return s
+        if len(shape) >= 1 and shape[0] % dsize == 0:
+            return (data_axis,)
+        return s
+
+    return rule
+
+
+def model_slice(rows: int, index: int, size: int) -> slice:
+    """Rank ``index``'s rows of a dim 0 of ``rows`` split over ``size``."""
+    n = rows // size
+    return slice(index * n, (index + 1) * n)
+
 
 #: the first element of each leaf is a multiple of this, by device kind
 LEAF_ALIGN = {"cuda": 128}

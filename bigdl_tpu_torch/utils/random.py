@@ -75,6 +75,20 @@ class RandomGenerator:
         # distinct seeds
         return (self._seed ^ (self._rank * 0x9E3779B97F4A7C15)) % 2**63
 
+    def derived_seed(self, *keys) -> int:
+        """A seed of its own for each tuple of non-negative ``keys``,
+        derived from the stream's (the JAX ``fold_in`` chain, here a
+        splitmix64 step a key): a pipeline stage seeds its dropout from
+        (step, microbatch, stage), so a schedule that runs a stage twice,
+        or in another order, draws the same masks."""
+        h = self._stream_seed()
+        for k in keys:
+            h = (h ^ (int(k) + 0x9E3779B97F4A7C15)) & (2**64 - 1)
+            h = ((h ^ (h >> 30)) * 0xBF58476D1CE4E5B9) & (2**64 - 1)
+            h = ((h ^ (h >> 27)) * 0x94D049BB133111EB) & (2**64 - 1)
+            h ^= h >> 31
+        return h % 2**63
+
     def generator(self, device) -> torch.Generator:
         """The stream's generator on ``device``, created at the package
         seed on first use."""

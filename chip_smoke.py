@@ -20,6 +20,12 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py --attention  # the attention and SGD kernels'
                                        # checks and phase 17 alone, no
                                        # result line
+    python3 chip_smoke.py --parallel   # the SGD, pool and LRN checks
+                                       # and phases 18-19, no result line
+    python3 chip_smoke.py --parallel-cards  # phase 19 alone (four cards)
+    python3 chip_smoke.py --parallel-vs-cpu  # VGG's pipeline against the
+                                             # CPU at microbatches of 2
+                                             # and 4, a reading
 
 Each option runs part of one phase table (``ONLY``); every phase runs
 even where one before it failed, and a failed phase makes the exit
@@ -240,7 +246,29 @@ non-zero with no result line.  Phases:
     sequence- and expert-parallel ``DistriOptimizer`` at a world of one
     bit-equal to LocalOptimizer; with four cards, both across them
     against LocalOptimizer (``--attention-cards`` runs that alone);
-18. one JSON line of kernels, then the card line, then the result line.
+18. tensor and pipeline parallelism on one card, a world of one: VGG on
+    CIFAR-10 at full width (vgg_run's data and SGD, batch 128 as 8
+    microbatches of 16) through ``DistriOptimizer(pipeline_stages=1)``
+    under 1F1B and GPipe, 20 steps each (``fused_sgd`` 20,
+    ``maxpool2d_forward`` = ``maxpool2d_backward`` = 800), ms a step,
+    images/s, device busy, idle share and peak memory; three steps of
+    each, and of GPipe under gradient checkpointing (twice the
+    forward's launches), held to the serial program (the stage run
+    microbatch by microbatch on the card, backpropagated in the
+    schedule's order) with one validation; three steps at batch 16 as 4
+    microbatches held to the CPU; the flagship classifier through
+    ``tensor_parallel=True`` on ``{"data": 1, "model": 1}`` at depth 2
+    bit-equal to LocalOptimizer;
+19. with four cards (``--parallel-cards``): VGG in four stages under
+    1F1B and GPipe and at ``{"data": 2, "pipe": 2}``, each held to the
+    serial program on this card; __graft_entry__.py's deterministic MLP,
+    hybrid dp x pp equal to plain DP; the classifier at ``{"data": 2,
+    "model": 2}`` with and without ``zero1`` and as plain DP at
+    ``{"data": 4}``, each held to LocalOptimizer on this card; ms a step
+    beside one card's, the schedule's bubble (idle ticks over ticks),
+    each rank's peak memory, the NCCL kernels' device time by name and
+    the leaves that ran gathered; with fewer cards a line says so;
+20. one JSON line of kernels, then the card line, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -252,6 +280,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -310,6 +339,13 @@ ZOO_POOLS = ([((8, c, hw, hw), (3, 3), (2, 2), ((0, 1), (0, 1)))
              + [((8, c, hw, hw), (3, 3), (2, 2), ((0, 0), (0, 0)))
                 for c, hw in ((96, 55), (256, 27), (256, 13))])
 BN_POOLS = VGG_POOLS + [RESNET50_POOL] + ZOO_POOLS
+# VGG in pipeline stages: the batch of 128 as PMICRO microbatches of 16,
+# each through the five pools (PIPE_POOLS, timed), and each replica's 8
+# rows of a microbatch on {"data": 2, "pipe": 2} (PIPE_DP_POOLS)
+PMICRO = 8
+PIPE_POOLS, PIPE_DP_POOLS = ([((128 // PMICRO // d, c, hw, hw), w, st, pads)
+                              for (_, c, hw, _), w, st, pads in VGG_POOLS]
+                             for d in (1, 2))
 # Inception-v1 training slice: examples/train_inception.py --synthetic
 IBATCH, ICLASSES, IMAGES, ISIZE, ICROP = 128, 1000, 4 * 128, 256, 224
 ILR, IWD, ISTEPS, IVAL = 0.0898, 1e-4, 20, 256
@@ -2339,7 +2375,8 @@ def phase_train_kernels(torch, ops):
 
     g = torch.Generator(device="cuda").manual_seed(1)
     errs = [check_pool(torch, ops, g, *case)
-            for case in POOL_CASES + INCEPTION_POOLS + BN_POOLS]
+            for case in POOL_CASES + INCEPTION_POOLS + BN_POOLS
+            + PIPE_POOLS + PIPE_DP_POOLS]
     errs += [check_pool(torch, ops, g, *POOL_CASES[k], nan=True)
              for k in NAN_POOL_CASES]
     # the BN paths' layouts: VGG's 58 leaves, ResNet-50's 161
@@ -2351,7 +2388,7 @@ def phase_train_kernels(torch, ops):
                   for shapes in (None, vgg, r50))
     flush = torch.empty(64 * 2**20, device="cuda")   # 256 MB > 50 MB L2
     sums = {}
-    for case in POOL_CASES[-3:] + INCEPTION_POOLS + BN_POOLS:
+    for case in POOL_CASES[-3:] + INCEPTION_POOLS + BN_POOLS + PIPE_POOLS:
         rows = pool_times(torch, ops, flush, g, *case)
         for name, row in zip(("forward", "backward"), rows):
             print_pool_row(f"maxpool2d_{name}", case, row)
@@ -2361,6 +2398,8 @@ def phase_train_kernels(torch, ops):
                 step_sum(sums, name, row, 1, "vgg")
             if case == RESNET50_POOL:
                 step_sum(sums, name, row, 1, "resnet50")
+            if case in PIPE_POOLS:
+                step_sum(sums, name, row, PMICRO, "vgg_pipe")
         if case == POOL_CASES[-1]:
             fwd, bwd = rows   # the rows' shape
     lenet = [tuple(p.shape) for p in LeNet5(device="cuda").parameters()]
@@ -2379,7 +2418,8 @@ def phase_train_kernels(torch, ops):
         row.update(sums[name])
     fwd_err = max(e[0] for e in errs)
     bwd_err = max(e[1] for e in errs)
-    n_tied = len(POOL_CASES) + len(INCEPTION_POOLS) + len(BN_POOLS)
+    n_tied = (len(POOL_CASES) + len(INCEPTION_POOLS) + len(BN_POOLS)
+              + len(PIPE_POOLS) + len(PIPE_DP_POOLS))
     print(f"maxpool2d: {n_tied} geometries with ties and "
           f"{len(NAN_POOL_CASES)} with NaNs, forward and argmax equal, "
           f"backward max_abs_err={bwd_err:.3e}; fused_sgd: "
@@ -3288,6 +3328,14 @@ def held_vs_cpu(label, diff, param_limit=PARAM_ATOL, scope="leaf"):
     ("model", ``norm_rel``); the final parameters within
     ``param_limit``; each running statistic within STATE_RTOL of its
     buffer's largest entry."""
+    failed = vs_cpu_failures(diff, param_limit, scope)
+    if failed:
+        raise AssertionError(f"the card's {label} training left the CPU's: "
+                             f"{', '.join(failed)}")
+
+
+def vs_cpu_failures(diff, param_limit=PARAM_ATOL, scope="leaf"):
+    """The parts of ``held_vs_cpu``'s gate that ``diff`` fails."""
     if scope == "leaf":
         vs_cpu, vs_64, cpu_64 = (diff["grad_rel"], diff["card_vs_64"],
                                  diff["cpu_vs_64_max"])
@@ -3297,16 +3345,13 @@ def held_vs_cpu(label, diff, param_limit=PARAM_ATOL, scope="leaf"):
     rtol = BILSTM_BWD_TOL["rtol"]
     grads_ok = vs_cpu <= rtol or vs_64 <= max(rtol, BILSTM_VS_64 * cpu_64)
     card, cpu = diff["loss"]
-    failed = [part for part, bad in (
+    return [part for part, bad in (
         ("first loss", abs(card - cpu) > LOSS_RTOL * abs(cpu)),
         ("gradients", not grads_ok),
         ("outputs", diff.get("out_rel", 0.0) > RTOL),
         ("losses", diff["loss_rel"] > LOSS_RTOL),
         ("params", diff["param_abs"] > param_limit),
         ("running statistics", diff["state_rel"] > STATE_RTOL)) if bad]
-    if failed:
-        raise AssertionError(f"the card's {label} training left the CPU's: "
-                             f"{', '.join(failed)}")
 
 
 def print_vs_cpu(label, batch, diff, param_limit):
@@ -3527,7 +3572,8 @@ def held_standalone(label, seen):
     """Every pool and LRN geometry that ``seen`` (a recording ``Routes``)
     met is one the kernel phases hold against the plain version."""
     missing = ((seen.pools - {tuple(c) for c in POOL_CASES + INCEPTION_POOLS
-                              + BN_POOLS})
+                              + BN_POOLS + PIPE_POOLS
+                              + PIPE_DP_POOLS})
                | (seen.s1 - {tuple(c) for c in S1_CASES})
                | (seen.lrn - {tuple(c) for c in LRN_CASES}))
     if missing:
@@ -6493,15 +6539,20 @@ def lm_run(torch, device, init, windows, dictionary, batch, end_trigger,
     return opt
 
 
+#: the mesh axis of each DistriOptimizer mode
+MODE_AXES = {"sequence_parallel": "seq", "expert_parallel": "expert",
+             "tensor_parallel": "model"}
+
+
 def attention_one_rank(torch, ops, init, train, experts, mode):
-    """A world of one: ``DistriOptimizer`` with ``mode`` (sequence or
-    expert parallel) against LocalOptimizer on the same records,
+    """A world of one: ``DistriOptimizer`` with ``mode`` (sequence, expert
+    or tensor parallel) against LocalOptimizer on the same records,
     A_ONE_STEPS steps at depth A_ONE_LAYERS, dropout 0, deterministic
     algorithms; (its launch counts, the held line)."""
     from bigdl_tpu_torch.optim import max_iteration
     from bigdl_tpu_torch.parallel.mesh import make_mesh
 
-    axis = "seq" if mode == "sequence_parallel" else "expert"
+    axis = MODE_AXES[mode]
     runs = {}
     with deterministic(torch):
         for kind in ("local", "distri", "local", "distri"):
@@ -6795,6 +6846,733 @@ def phase_attention_cards(torch, ops):
     return attention_cards(torch, ops, smi), {}
 
 
+# -- tensor and pipeline parallelism ---------------------------------------
+
+# VGG on CIFAR-10 in pipeline stages as examples/train_vgg.py --pipeline
+# trains it: vgg_run's data and SGD (batch VBATCH), PMICRO microbatches,
+# PSTEPS timed steps of each schedule after PWARM; PHELD_STEPS steps held
+# to the serial program (deterministic algorithms, dropout 0),
+# PCHECK_STEPS at batch VCHECK_BATCH as PCHECK_MICRO microbatches to the
+# CPU; one validation of the VVAL images after the held steps.  The CPU
+# check runs at microbatches of 4: over microbatches of 2 (BN over two
+# images) one fp32 rounding of the parameters carries the CPU against
+# itself past the params limit within two steps (``--parallel-vs-cpu``)
+PSTEPS, PWARM, PSHORT, PHELD_STEPS, PPROFILE = 20, 2, 4, 3, 8
+# the steady state's short and long calls, this many pairs (the median)
+STEADY_PAIRS = 3
+PCHECK_STEPS, PCHECK_MICRO = 3, 4
+# a schedule against the serial program in its order: bits, or within
+# this.  The data replicas of a hybrid mesh sum their parts of a
+# microbatch's gradient in another order than the serial program, and
+# VGG's BN, ReLU and pool ties carry a rounding through three steps
+# (GPipe held to the serial program in 1F1B's order parts past
+# PIPE_TOL): four cards are held as the smoke holds them to
+# LocalOptimizer, bits or LOSS_RTOL / PARAM_ATOL
+PIPE_TOL = dict(rtol=1e-6, atol=1e-6)
+# the classifier's steady state across cards: A_SHORT, then A_LONG steps
+A_SHORT, A_LONG = 2, 8
+# the deterministic MLP gate of __graft_entry__.py:290-330 on 4 ranks
+GATE_TOL = dict(rtol=1e-4, atol=1e-6)
+
+
+def world_for(torch, device):
+    """A world of one on ``device``'s backend: a world of the other
+    backend left by an earlier run is taken down first."""
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch.utils.engine import Engine, backend_for
+
+    if dist.is_initialized() and dist.get_world_size() == 1 and \
+            dist.get_backend() != backend_for(device):
+        Engine.reset()
+
+
+def pipe_vgg_run(torch, device, init, images, batch, end_trigger, stages,
+                 schedule, axes=None, dropout=None, remat=False,
+                 val_images=None, micro=PMICRO):
+    """vgg_run's data, model and SGD through ``DistriOptimizer(
+    pipeline_stages=stages, pipeline_schedule=schedule,
+    pipeline_microbatches=micro)`` on the mesh ``axes`` (``{"pipe":
+    stages}`` when None); GPipe checkpoints each stage with ``remat``;
+    Top1 after PHELD_STEPS iterations on ``val_images``."""
+    from bigdl_tpu_torch.dataset import (DataSet, HFlip, ImgNormalizer,
+                                         ImgRdmCropper, ImgToBatch, cifar)
+    from bigdl_tpu_torch.models.vgg import VggForCifar10
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import (DistriOptimizer, Top1Accuracy,
+                                       several_iteration)
+    from bigdl_tpu_torch.parallel import make_mesh
+    from bigdl_tpu_torch.utils.table import T
+
+    world_for(torch, device)
+    norm = ImgNormalizer(cifar.TRAIN_MEAN, cifar.TRAIN_STD)
+    train = (DataSet.array(images) >> norm >> ImgRdmCropper(32, 32, padding=4)
+             >> HFlip() >> ImgToBatch(batch))
+    model = with_init(VggForCifar10(10, device=device), init, dropout)
+    opt = DistriOptimizer(
+        model, train, ClassNLLCriterion(), device=device,
+        mesh=make_mesh(axes or {"pipe": stages}, device),
+        pipeline_stages=stages, pipeline_schedule=schedule,
+        pipeline_microbatches=micro)
+    opt.set_state(T(learningRate=VLR, momentum=0.9, weightDecay=VWD))
+    opt.set_end_when(end_trigger).set_gradient_checkpointing(remat)
+    if val_images is not None:
+        opt.set_validation(several_iteration(PHELD_STEPS + 1),
+                           DataSet.array(val_images) >> norm
+                           >> ImgToBatch(batch), [Top1Accuracy()])
+    return opt
+
+
+def vgg_serial(torch, init, images, micro, val_images=None, order="1f1b"):
+    """The pipeline's serial program on this card: vgg_run's
+    LocalOptimizer on the same batches, dropout 0, each step the whole
+    model run microbatch by microbatch through the pipeline's stage
+    function (its seeds), each microbatch's loss / ``micro``
+    backpropagated in the schedule's ``order`` (1F1B: as it is computed;
+    GPipe: after every forward, the last microbatch's first), one
+    ``fused_sgd`` update; PHELD_STEPS steps, Top1 after them on
+    ``val_images``.  Returns the optimizer after its run."""
+    from bigdl_tpu_torch.optim import max_iteration, several_iteration
+    from bigdl_tpu_torch.parallel.pipeline import stage_function
+
+    world_for(torch, "cuda")
+    opt = vgg_run(torch, "cuda", init, images, VBATCH,
+                  max_iteration(PHELD_STEPS), val_images, dropout=0.0)
+    opt.validation_trigger = several_iteration(PHELD_STEPS + 1)
+    mods = list(opt.model._modules.values())
+
+    def step(params, opt_state, x, y, hyper):
+        opt._zero_grads(params)
+        run = stage_function(mods, 0, int(opt.state["neval"]), x.device)
+        mb = x.shape[0] // micro
+        loss = torch.zeros((), device=x.device)
+        held = []
+        for m in range(micro):
+            rows = slice(m * mb, (m + 1) * mb)
+            lm = opt.criterion(run(x[rows], m), y[rows]) * (1.0 / micro)
+            if order == "1f1b":
+                lm.backward()
+            else:
+                held.append(lm)
+            loss = loss + lm.detach().float()
+        for lm in reversed(held):
+            lm.backward()
+        finite = torch.isfinite(loss)
+        opt._update([p.grad for p in params], opt_state, params, hyper,
+                    finite)
+        return loss, finite
+
+    opt._train_step = step
+    opt.optimize()
+    return opt
+
+
+def run_of(torch, opt):
+    """An optimizer's trajectory for ``held_bits``: losses, parameters,
+    Top1 of its validations."""
+    return {"losses": [l for _, l in opt.loss_log],
+            "params": _params(torch, opt.model),
+            "top1": [v["Top1Accuracy"] for _, _, v in opt.validation_log]}
+
+
+def held_pipe(torch, label, got, want, tol=PIPE_TOL):
+    """A pipeline run against the serial program: bits and the same Top1,
+    or within ``tol``."""
+    held = _bits_or(torch, label, got, want, tol)
+    if held == "bits" and got["top1"] != want["top1"]:
+        raise AssertionError(f"{label}: Top1 {got['top1']} against the "
+                             f"serial program's {want['top1']}")
+    return held
+
+
+def _bits_or(torch, label, got, want, tol):
+    lg, lw = np.asarray(got["losses"]), np.asarray(want["losses"])
+    if len(lg) != len(lw) or len(lg) == 0:
+        raise AssertionError(f"{label}: {len(lg)} and {len(lw)} losses")
+    if np.array_equal(lg, lw) and torch.equal(got["params"], want["params"]):
+        return "bits"
+    rel = float(np.max(np.abs(lg - lw) / np.abs(lw)))
+    p_abs = float((got["params"] - want["params"]).abs().max())
+    if rel > tol["rtol"] or p_abs > tol["atol"]:
+        raise AssertionError(f"{label}: losses {rel:.3e} relative, params "
+                             f"{p_abs:.3e} apart, beyond {tol}")
+    return (f"within rtol {tol['rtol']} / atol {tol['atol']} (losses "
+            f"{rel:.3e}, params {p_abs:.3e})")
+
+
+def pipe_counts(steps, fwd_runs=1):
+    """The launches of ``steps`` pipeline steps of VGG (no validation):
+    one ``fused_sgd`` a step, each microbatch's five pools forward
+    (``fwd_runs`` times under checkpointing) and backward."""
+    return {"fused_sgd": steps,
+            "maxpool2d_forward": 5 * PMICRO * steps * fwd_runs,
+            "maxpool2d_backward": 5 * PMICRO * steps}
+
+
+def only_counts(label, counts, want):
+    want = {**dict.fromkeys(counts, 0), **want}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {ops_nonzero(counts)}, "
+                             f"expected {ops_nonzero(want)}")
+
+
+def steady_ms(torch, ops, opt, short, long):
+    """``opt``'s ms a step in its steady state, after a warm-up call:
+    STEADY_PAIRS times a call of ``short`` more steps, then one of ``long``,
+    each from zero counts; the difference of a pair's walls over ``long -
+    short`` steps leaves out what a call spends before its first step
+    and after its last (a pipeline's stages moved and gathered, the
+    tensor-parallel rows sliced and gathered, the model broadcast), and
+    the median over the pairs the host's noise in one pair.  Returns (the
+    last long call's counts, ms a step, ms of a call's own set-up: the
+    medians)."""
+    from bigdl_tpu_torch.optim import max_iteration
+
+    done = int(opt.state["neval"]) - 1
+    steps, setups = [], []
+    for _ in range(STEADY_PAIRS):
+        walls = []
+        for n in (short, long):
+            done += n
+            opt.set_end_when(max_iteration(done))
+            _, counts, wall = run_path(torch, ops, opt.optimize)
+            walls.append(wall)
+        step = (walls[1] - walls[0]) / (long - short)
+        steps.append(step * 1e3)
+        setups.append((walls[0] - short * step) * 1e3)
+    return counts, statistics.median(steps), statistics.median(setups)
+
+
+def nccl_window(torch, opt, n):
+    """``n`` more steps of ``opt`` under the profiler: (device busy ms a
+    step, wall ms a step, [(NCCL kernel, device ms a step, launches a
+    step)]).  Busy counts the kernels other than NCCL's: those run on
+    streams of their own beside the compute, a SendRecv waiting for its
+    peer the whole while, so their sum with the compute's can outlast
+    the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch.optim import max_iteration
+
+    opt.set_end_when(max_iteration(int(opt.state["neval"]) - 1 + n))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        opt.optimize()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in rows
+               if not is_nccl_kernel(e.key)) / 1e3 / n
+    nccl = [(e.key[:60], e.device_time_total / 1e3 / n, e.count / n)
+            for e in rows if is_nccl_kernel(e.key)
+            and not e.key.startswith("nccl:")]
+    return busy, wall / n * 1e3, sorted(nccl, key=lambda r: -r[1])
+
+
+def parallel_vgg_one(torch, ops, init, images, val, smi):
+    """VGG at full width through ``pipeline_stages=1`` on this card: each
+    schedule PSTEPS timed steps (launch counts, ms a step, images/s,
+    device busy and idle share, peak memory) and PHELD_STEPS steps held
+    to the serial program with one validation, each pool geometry they
+    met one the kernel phase holds; GPipe under checkpointing against
+    GPipe; {path: counts}."""
+    from bigdl_tpu_torch.optim import max_iteration
+
+    by_path = {}
+    with deterministic(torch):
+        serial = {order: run_of(torch, vgg_serial(torch, init, images,
+                                                  PMICRO, val, order))
+                  for order in ("1f1b", "gpipe")}
+        for schedule, remat in (("1f1b", False), ("gpipe", False),
+                                ("gpipe", True)):
+            label = f"parallel vgg {schedule}" + (" remat" if remat else "")
+            opt = pipe_vgg_run(torch, "cuda", init, images, VBATCH,
+                               max_iteration(PHELD_STEPS), 1, schedule,
+                               dropout=0.0, remat=remat, val_images=val)
+            with Routes(torch, opt.model, geometry_only=True) as seen:
+                _, counts, _ = run_path(torch, ops, opt.optimize)
+            held_standalone(label, seen)
+            want = pipe_counts(PHELD_STEPS, 2 if remat else 1)
+            want["maxpool2d_forward"] += 5 * -(-VVAL // VBATCH)
+            only_counts(label, counts, want)
+            held = held_pipe(torch, label, run_of(torch, opt),
+                             serial[schedule], PIPE_TOL)
+            print(f"{label}: {PHELD_STEPS} steps of {VBATCH} as {PMICRO} "
+                  f"microbatches at one stage against the serial program "
+                  f"(the stage run microbatch by microbatch, backpropagated "
+                  f"in {schedule}'s order): {held}; Top1 "
+                  f"{serial[schedule]['top1']}; launches "
+                  f"{ops_nonzero(counts)}")
+            if remat:
+                by_path["parallel_vgg_gpipe_remat"] = counts
+    for schedule in ("1f1b", "gpipe"):
+        label = f"parallel vgg {schedule}"
+        counts, step_ms, setup_ms, peak, opt = pipe_vgg_timed(
+            torch, ops, init, images, 1, schedule)
+        only_counts(label, counts, pipe_counts(PSTEPS))
+        busy, window, _ = nccl_window(torch, opt, PPROFILE)
+        losses = [l for _, l in opt.loss_log]
+        print(f"{label}: VggForCifar10 in 1 stage, {PMICRO} microbatches "
+              f"of {VBATCH // PMICRO}: {step_ms:.4f} ms/step in the steady "
+              f"state (the median of {STEADY_PAIRS} pairs of calls of "
+              f"{PSHORT} and {PSTEPS} steps; a call's own set-up "
+              f"{setup_ms:.4f} ms), {VBATCH / step_ms * 1e3:.1f} "
+              f"images/s; device busy {busy:.4f} ms/step over a profiled "
+              f"call of {PPROFILE} steps, {window:.4f} ms/step of its wall "
+              f"(its set-up inside), idle share {1 - busy / window:.4f}; "
+              f"max_memory_allocated {peak} B; peak microbatches in flight "
+              f"{opt.pipe_result.peak_in_flight}; launches "
+              f"{ops_nonzero(counts)}; losses {losses[0]:.6f} -> "
+              f"{losses[-1]:.6f}; [{smi}]")
+        by_path[f"parallel_vgg_{schedule}"] = counts
+    return by_path
+
+
+def pipe_vgg_timed(torch, ops, init, images, stages, schedule, axes=None):
+    """VGG in ``stages`` pipeline stages: PWARM warm-up steps, then the
+    steady state's ms a step over PSTEPS (``steady_ms``); (the PSTEPS
+    call's counts, ms a step, a call's set-up ms, peak memory over that
+    call, the optimizer)."""
+    from bigdl_tpu_torch.optim import max_iteration
+
+    opt = pipe_vgg_run(torch, "cuda", init, images, VBATCH,
+                       max_iteration(PWARM), stages, schedule, axes)
+    opt.optimize()
+    torch.cuda.reset_peak_memory_stats()
+    counts, step_ms, setup_ms = steady_ms(torch, ops, opt, PSHORT, PSTEPS)
+    return counts, step_ms, setup_ms, torch.cuda.max_memory_allocated(), opt
+
+
+def phase_parallel(torch, ops, profile: bool):
+    """Tensor and pipeline parallelism on one card, a world of one: VGG
+    at full width through ``pipeline_stages=1`` under 1F1B and GPipe
+    (``parallel_vgg_one``), three steps at batch 16 held to the CPU; the
+    flagship classifier through ``tensor_parallel=True`` on ``{"data":
+    1, "model": 1}`` bit-equal to LocalOptimizer."""
+    from bigdl_tpu_torch.dataset import cifar
+    from bigdl_tpu_torch.models.vgg import VggForCifar10
+    from bigdl_tpu_torch.utils.engine import Engine
+    from bigdl_tpu_torch.utils.random import RNG, generator
+
+    smi = smi_line()
+    try:
+        init = init_of(VggForCifar10(10, device="cpu",
+                                     generator=generator(0)))
+        images, val = cifar.synthetic(VTRAIN), cifar.synthetic(VVAL, seed=1)
+        RNG.set_seed(0)   # the dropout masks
+        by_path = parallel_vgg_one(torch, ops, init, images, val, smi)
+        diff = pipe_vs_cpu(torch, init, PCHECK_STEPS, PCHECK_MICRO)
+        held_vs_cpu("parallel vgg", diff, PARAM_ATOL, scope="model")
+        world_for(torch, "cuda")
+        train, _ = attention_docs(A_DOCS)
+        init = init_of(classifier_model("cpu", A_ONE_LAYERS,
+                                        generator=generator(3)))
+        counts, held = attention_one_rank(torch, ops, init, train, 0,
+                                          "tensor_parallel")
+        by_path["parallel_tensor_one_rank"] = counts
+        print(f"parallel tensor_parallel: DistriOptimizer on {{'data': 1, "
+              f"'model': 1}}, the classifier at depth {A_ONE_LAYERS} of "
+              f"{LAYERS} at full width (d_model {D_MODEL}, {HEADS} heads, "
+              f"hidden {HIDDEN}; batch {A_BATCH} x T {A_T}), "
+              f"{A_ONE_STEPS} steps against LocalOptimizer: {held}; "
+              f"launches {ops_nonzero(counts)}; [{smi}]")
+    finally:
+        Engine.reset()
+    return by_path, {}
+
+
+def pipe_vs_cpu(torch, init, steps, micro):
+    """VGG through ``pipeline_stages=1`` under 1F1B, ``steps`` steps at
+    batch VCHECK_BATCH as ``micro`` microbatches, dropout 0, on the card
+    against the CPU (``card_vs_cpu``, routed); printed, and returned."""
+    from bigdl_tpu_torch.dataset import cifar
+    from bigdl_tpu_torch.optim import max_iteration
+
+    check = cifar.synthetic(VCHECK_BATCH * steps, seed=2)
+    diff = card_vs_cpu(torch, init["params"], lambda device: pipe_vgg_run(
+        torch, device, init, check, VCHECK_BATCH, max_iteration(steps), 1,
+        "1f1b", dropout=0.0, micro=micro), routed=True)
+    print_vs_cpu(f"parallel vgg 1f1b, {steps} steps as {micro} microbatches "
+                 f"of {VCHECK_BATCH // micro}", VCHECK_BATCH, diff,
+                 PARAM_ATOL)
+    return diff
+
+
+def perturbed(init, seed=0):
+    """``init`` with every parameter moved by one fp32 rounding (a
+    relative 2^-24 of either sign)."""
+    rs = np.random.RandomState(seed)
+
+    def move(tree):
+        return {k: ({n: (v * (1 + rs.choice([-1.0, 1.0], v.shape)
+                               * 2.0 ** -24)).astype(v.dtype)
+                     for n, v in sub.items()} if k == "~" else move(sub))
+                for k, sub in tree.items()}
+    return {"params": move(init["params"]), "state": init["state"]}
+
+
+def cpu_spread(torch, init, steps, micro):
+    """Two CPU runs of ``pipe_vs_cpu``'s configuration, from ``init`` and
+    from ``init`` moved by one rounding (``perturbed``): how far one
+    rounding carries in fp32 alone, with no card in it.  (losses'
+    largest relative difference, parameters' largest absolute
+    difference, running statistics' largest over their buffer's largest
+    entry)."""
+    from bigdl_tpu_torch.dataset import cifar
+    from bigdl_tpu_torch.optim import max_iteration
+
+    check = cifar.synthetic(VCHECK_BATCH * steps, seed=2)
+    runs = []
+    for start in (init, perturbed(init)):
+        opt = pipe_vgg_run(torch, "cpu", start, check, VCHECK_BATCH,
+                           max_iteration(steps), 1, "1f1b", dropout=0.0,
+                           micro=micro)
+        opt.optimize()
+        runs.append((np.asarray([l for _, l in opt.loss_log]),
+                     _params(torch, opt.model),
+                     [b.detach().double() for b in opt.model.buffers()
+                      if b.is_floating_point()]))
+    (la, pa, sa), (lb, pb, sb) = runs
+    return (float(np.max(np.abs(la - lb) / np.abs(lb))),
+            float((pa - pb).abs().max()),
+            max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                for a, b in zip(sa, sb)))
+
+
+def phase_parallel_vs_cpu(torch, ops, profile: bool):
+    """A reading, not a gate: VGG's pipeline on the card against the CPU
+    at batch VCHECK_BATCH over 2 and 3 steps, as 8 microbatches of 2 and
+    as 4 of 4, each with the parts of ``held_vs_cpu``'s gate it fails,
+    and beside it the CPU against itself from parameters one rounding
+    apart (``cpu_spread``).  The phase's own check, PCHECK_STEPS at
+    PCHECK_MICRO, runs in ``phase_parallel``."""
+    from bigdl_tpu_torch.models.vgg import VggForCifar10
+    from bigdl_tpu_torch.utils.engine import Engine
+    from bigdl_tpu_torch.utils.random import RNG, generator
+
+    smi = smi_line()
+    try:
+        init = init_of(VggForCifar10(10, device="cpu",
+                                     generator=generator(0)))
+        for micro in (8, 4):
+            for steps in (2, 3):
+                RNG.set_seed(0)
+                diff = pipe_vs_cpu(torch, init, steps, micro)
+                failed = vs_cpu_failures(diff, PARAM_ATOL, scope="model")
+                limit = max(BILSTM_BWD_TOL["rtol"],
+                            BILSTM_VS_64 * diff["cpu_norm_64"])
+                print(f"parallel_vs_cpu {steps} steps as {micro} "
+                      f"microbatches of {VCHECK_BATCH // micro}: "
+                      f"held_vs_cpu's gate (scope model) "
+                      f"{'fails ' + ', '.join(failed) if failed else 'holds'}"
+                      f"; whole gradient from float64 card "
+                      f"{diff['card_norm_64']:.4e} CPU "
+                      f"{diff['cpu_norm_64']:.4e} (limit {limit:.4e}), "
+                      f"card - CPU {diff['grad_norm_rel']:.4e}; losses "
+                      f"{diff['loss_rel']:.4e} (limit {LOSS_RTOL}); params "
+                      f"{diff['param_abs']:.4e} (limit {PARAM_ATOL}); "
+                      f"running statistics {diff['state_rel']:.4e} "
+                      f"({diff['state_leaf']}; limit {STATE_RTOL}); [{smi}]")
+                spread = cpu_spread(torch, init, steps, micro)
+                print(f"parallel_vs_cpu {steps} steps as {micro} "
+                      f"microbatches of {VCHECK_BATCH // micro}, the CPU "
+                      f"against itself from parameters one rounding apart: "
+                      f"losses {spread[0]:.4e}, params {spread[1]:.4e}, "
+                      f"running statistics {spread[2]:.4e}")
+    finally:
+        Engine.reset()
+    return {}, {}
+
+
+def parallel_child(jobs):
+    """One NCCL rank of the four-card run: each job of ``jobs`` in turn
+    (``parallel_job``); rank 0's results in full, the others' without
+    the parameters."""
+    import torch
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch.utils.device import pin_fp32
+
+    pin_fp32(torch.device("cuda"))
+    out = []
+    for job in jobs:
+        res = parallel_job(torch, *job)
+        if dist.get_rank() != 0:
+            res.pop("params", None)
+        out.append(res)
+        dist.barrier()
+    return out
+
+
+def parallel_job(torch, kind, arg):
+    """One run of the four-card phase on this rank: ``("vgg", (schedule,
+    axes))`` VGG in pipeline stages, PHELD_STEPS held steps with a
+    validation, then PWARM + PSTEPS timed and PPROFILE under the
+    profiler; ``("classifier", mode kwargs)`` the classifier at depth
+    A_ONE_LAYERS (dropout 0) over 2 + A_ONE_STEPS steps, then PPROFILE
+    under the profiler; ``("gate", None)`` __graft_entry__.py's
+    deterministic MLP, plain DP and hybrid dp x pp."""
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.dataset import cifar
+    from bigdl_tpu_torch.models.vgg import VggForCifar10
+    from bigdl_tpu_torch.optim import max_iteration
+    from bigdl_tpu_torch.parallel import make_mesh
+    from bigdl_tpu_torch.utils.random import RNG, generator
+
+    torch.cuda.reset_peak_memory_stats()
+    if kind == "gate":
+        return mlp_gate(torch)
+    if kind == "classifier":
+        init = init_of(classifier_model("cpu", A_ONE_LAYERS,
+                                        generator=generator(3)))
+        train, _ = attention_docs(A_BATCH * (A_ONE_STEPS + 2) * 5 // 4,
+                                  seed=1)
+        axes = {"data": 4} if not arg else {"data": 2, "model": 2}
+        opt = classifier_run(torch, "cuda", init, train, A_BATCH,
+                             max_iteration(2), layers=A_ONE_LAYERS,
+                             dropout=0.0, distri={
+                                 "mesh": make_mesh(axes, "cuda"), **arg})
+        counts, _ = warm_then_timed(torch, ops, opt, A_ONE_STEPS)
+        out = {"losses": [l for _, l in opt.loss_log],
+               "params": _params(torch, opt.model), "counts": counts,
+               "coords": opt.mesh.coords(),
+               "gathered": dict(opt.tp_gathered_leaves)}
+        torch.cuda.reset_peak_memory_stats()
+        _, out["step_ms"], out["setup_ms"] = steady_ms(torch, ops, opt,
+                                                       A_SHORT, A_LONG)
+        out["mem"] = torch.cuda.max_memory_allocated()
+    else:
+        schedule, axes = arg
+        stages = axes["pipe"]
+        init = init_of(VggForCifar10(10, device="cpu",
+                                     generator=generator(0)))
+        images, val = cifar.synthetic(VTRAIN), cifar.synthetic(VVAL, seed=1)
+        RNG.set_seed(0)
+        with deterministic(torch):
+            opt = pipe_vgg_run(torch, "cuda", init, images, VBATCH,
+                               max_iteration(PHELD_STEPS), stages, schedule,
+                               axes, dropout=0.0, val_images=val)
+            with Routes(torch, opt.model, geometry_only=True) as seen:
+                opt.optimize()
+        out = run_of(torch, opt)
+        out["ranges"] = opt._pipe.plan.ranges
+        out["pools"] = sorted(seen.pools)
+        counts, step_ms, setup_ms, mem, opt = pipe_vgg_timed(
+            torch, ops, init, images, stages, schedule, axes)
+        out.update(counts=counts, step_ms=step_ms, setup_ms=setup_ms,
+                   mem=mem, coords=opt.mesh.coords(),
+                   bubble=opt.pipe_result.bubble,
+                   peak=opt.pipe_result.peak_in_flight,
+                   gathered=dict(opt.tp_gathered_leaves))
+    out["busy_ms"], out["window_ms"], out["nccl"] = nccl_window(
+        torch, opt, PPROFILE)
+    return out
+
+
+def mlp_gate(torch):
+    """__graft_entry__.py:290-330 on four ranks: Linear(6, 8), ReLU,
+    Linear(8, 3), LogSoftMax from one seed, 32 records in batches of 16,
+    momentum SGD at lr 0.05, two steps as plain DP on {"data": 4} and as
+    hybrid dp x pp on {"data": 2, "pipe": 2} (the default 4 microbatches
+    of 4, each split over the data axis)."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToBatch
+    from bigdl_tpu_torch.optim import DistriOptimizer, max_iteration
+    from bigdl_tpu_torch.parallel import make_mesh
+    from bigdl_tpu_torch.utils.random import generator
+    from bigdl_tpu_torch.utils.table import T
+
+    rs = np.random.RandomState(7)
+    samples = [Sample(rs.randn(6).astype(np.float32),
+                      np.asarray([float(i % 3 + 1)], np.float32))
+               for i in range(32)]
+    losses = {}
+    for name, axes, kw in (("dp", {"data": 4}, {}),
+                           ("dp_pp", {"data": 2, "pipe": 2},
+                            {"pipeline_stages": 2})):
+        g = generator(31)
+        model = nn.Sequential(
+            nn.Linear(6, 8, device="cuda", generator=g), nn.ReLU(True),
+            nn.Linear(8, 3, device="cuda", generator=g), nn.LogSoftMax())
+        opt = DistriOptimizer(model, DataSet.array(samples)
+                              >> SampleToBatch(16), nn.ClassNLLCriterion(),
+                              mesh=make_mesh(axes, "cuda"), device="cuda",
+                              **kw)
+        opt.set_state(T(learningRate=0.05, momentum=0.9))
+        opt.set_end_when(max_iteration(2)).optimize()
+        losses[name] = [l for _, l in opt.loss_log]
+    return {"losses": losses}
+
+
+def idle_of(results):
+    """Each rank's idle share over its profiled window."""
+    return [round(1 - x["busy_ms"] / x["window_ms"], 4) for x in results]
+
+
+def parallel_cards(torch, ops, smi):
+    """Four cards: VGG in four pipeline stages under 1F1B and GPipe and at
+    {"data": 2, "pipe": 2}, each held to the serial program on this card;
+    the MLP gate; the classifier at {"data": 2, "model": 2} with and
+    without zero1 and as plain DP at {"data": 4}, each held to
+    LocalOptimizer on this card; {path: counts}."""
+    from bigdl_tpu_torch.dataset import cifar
+    from bigdl_tpu_torch.models.vgg import VggForCifar10
+    from bigdl_tpu_torch.optim import max_iteration
+    from bigdl_tpu_torch.parallel.launch import launch
+    from bigdl_tpu_torch.utils.random import RNG, generator
+
+    jobs = [("vgg", ("1f1b", {"pipe": 4})), ("vgg", ("gpipe", {"pipe": 4})),
+            ("vgg", ("1f1b", {"data": 2, "pipe": 2})), ("gate", None),
+            ("classifier", {"tensor_parallel": True}),
+            ("classifier", {"tensor_parallel": True, "zero1": True}),
+            ("classifier", {})]
+    ranks = launch(parallel_child, 4, "nccl", args=(jobs,))
+    by_path = {}
+    # this card's references
+    init = init_of(VggForCifar10(10, device="cpu", generator=generator(0)))
+    images, val = cifar.synthetic(VTRAIN), cifar.synthetic(VVAL, seed=1)
+    RNG.set_seed(0)
+    with deterministic(torch):
+        serial = {(m, order): run_of(torch, vgg_serial(
+            torch, init, images, m, val, order))
+            for m, order in ((PMICRO, "1f1b"), (PMICRO, "gpipe"),
+                             (2 * PMICRO, "1f1b"))}
+    one = {}
+    for schedule in ("1f1b", "gpipe"):
+        _, step_ms, _, mem, _ = pipe_vgg_timed(torch, ops, init, images, 1,
+                                               schedule)
+        one[schedule] = (step_ms, mem)
+    for (_, (schedule, axes)), results in zip(jobs[:3], zip(*ranks)):
+        steps = PSTEPS
+        label = f"parallel_cards vgg {schedule} {axes}"
+        r0 = results[0]
+        # hybrid: each replica's half of each microbatch is a microbatch
+        # of the serial program (its running statistics the replicas'
+        # mean: Top1 is not the serial program's)
+        want = serial[(PMICRO * axes.get("data", 1), schedule)]
+        held = held_pipe(torch, label, r0, want,
+                         dict(rtol=LOSS_RTOL, atol=PARAM_ATOL))
+        # every rank's pool geometries, each one the kernel phase holds
+        geoms = {p for res in results for p in res["pools"]}
+        held_standalone(label, types.SimpleNamespace(pools=geoms, s1=set(),
+                                                     lrn=set()))
+        for r, res in enumerate(results):
+            if res["counts"]["fused_sgd"] != steps:
+                raise AssertionError(f"{label}, rank {r}: launches "
+                                     f"{ops_nonzero(res['counts'])}")
+        pools = sum(res["counts"]["maxpool2d_backward"] for res in results)
+        if pools != 5 * PMICRO * steps * axes.get("data", 1) or sum(
+                res["counts"]["maxpool2d_forward"] for res in results) != pools:
+            raise AssertionError(f"{label}: pool launches over the ranks "
+                                 f"{[ops_nonzero(x['counts']) for x in results]}")
+        ms1, mem1 = one[schedule]
+        print(f"{label}: stages {r0['ranges']}; {PHELD_STEPS} steps "
+              f"against the serial program on one card: {held}; Top1 "
+              f"{r0['top1']}; steady state (the median of {STEADY_PAIRS} "
+              f"pairs of calls of {PSHORT} and {steps} steps): "
+              f"{r0['step_ms']:.4f} ms/step by rank "
+              f"{[round(x['step_ms'], 4) for x in results]} (a call's set-up "
+              f"{r0['setup_ms']:.4f} ms; "
+              f"{VBATCH / r0['step_ms'] * 1e3:.1f} images/s; one card, "
+              f"one stage: {ms1:.4f} ms/step, max_memory_allocated "
+              f"{mem1} B); bubble of the schedule {r0['bubble']:.4f} (idle "
+              f"ticks over ticks), peak microbatches in flight by rank "
+              f"{[x['peak'] for x in results]}; max_memory_allocated by "
+              f"rank {[x['mem'] for x in results]} B; device busy by rank "
+              f"{[round(x['busy_ms'], 4) for x in results]} ms/step (NCCL's "
+              f"kernels apart) over a profiled call of {PPROFILE} steps, of "
+              f"its wall (its "
+              f"set-up inside) {[round(x['window_ms'], 4) for x in results]}"
+              f" ms/step: idle share by rank {idle_of(results)}; NCCL "
+              f"kernels of rank 0 "
+              f"{[(k, round(ms, 4), n) for k, ms, n in r0['nccl']]}; "
+              f"launches by rank {[ops_nonzero(x['counts']) for x in results]}"
+              f"; {len(geoms)} pool geometries, each held standalone; "
+              f"tp_gathered_leaves "
+              f"{r0['gathered']}; [{smi}]")
+        by_path[f"parallel_cards_vgg_{schedule}_{len(axes)}"] = r0["counts"]
+    for r, res in enumerate(ranks):
+        dp, pp = (np.asarray(res[3]["losses"][k]) for k in ("dp", "dp_pp"))
+        if not np.allclose(pp, dp, **GATE_TOL):
+            raise AssertionError(f"gate, rank {r}: hybrid dp x pp losses {pp}"
+                                 f" against plain DP's {dp}")
+    print(f"parallel_cards gate: __graft_entry__.py's deterministic MLP, "
+          f"hybrid dp x pp on {{'data': 2, 'pipe': 2}} losses "
+          f"{ranks[0][3]['losses']['dp_pp']} against plain DP's "
+          f"{ranks[0][3]['losses']['dp']} (rtol {GATE_TOL['rtol']}, atol "
+          f"{GATE_TOL['atol']}); [{smi}]")
+    # the classifier against LocalOptimizer on this card
+    init = init_of(classifier_model("cpu", A_ONE_LAYERS,
+                                    generator=generator(3)))
+    train, _ = attention_docs(A_BATCH * (A_ONE_STEPS + 2) * 5 // 4, seed=1)
+    local = classifier_run(torch, "cuda", init, train, A_BATCH,
+                           max_iteration(2), layers=A_ONE_LAYERS,
+                           dropout=0.0)
+    warm_then_timed(torch, ops, local, A_ONE_STEPS)
+    want = {"losses": [l for _, l in local.loss_log],
+            "params": _params(torch, local.model)}
+    torch.cuda.reset_peak_memory_stats()
+    _, local_ms, _ = steady_ms(torch, ops, local, A_SHORT, A_LONG)
+    local_mem = torch.cuda.max_memory_allocated()
+    dp_mem = [res[6]["mem"] for res in ranks]
+    for i, name in ((4, "tensor_parallel"), (5, "tensor_parallel zero1"),
+                    (6, "data parallel")):
+        results = [res[i] for res in ranks]
+        for r, res in enumerate(results):
+            if res["counts"]["fused_sgd"] != A_ONE_STEPS:
+                raise AssertionError(f"{name}, rank {r}: launches "
+                                     f"{ops_nonzero(res['counts'])}")
+        held = held_bits(torch, f"classifier {name} on 4 cards",
+                         results[0], want,
+                         dict(rtol=LOSS_RTOL, atol=PARAM_ATOL))
+        r0 = results[0]
+        print(f"parallel_cards classifier {name} (rank 0 at "
+              f"{r0['coords']}): depth "
+              f"{A_ONE_LAYERS} at full width, global batch {A_BATCH} x T "
+              f"{A_T}: held against LocalOptimizer over {2 + A_ONE_STEPS} "
+              f"steps {held}; steady state (the median of {STEADY_PAIRS} "
+              f"pairs of calls of {A_SHORT} and {A_LONG} steps) "
+              f"{r0['step_ms']:.4f} ms/step by rank "
+              f"{[round(x['step_ms'], 4) for x in results]} (a call's set-up "
+              f"{r0['setup_ms']:.4f} ms; LocalOptimizer on one card "
+              f"{local_ms:.4f}, max_memory_allocated {local_mem} B); "
+              f"max_memory_allocated by rank over those steps "
+              f"{[x['mem'] for x in results]} B (plain DP's {dp_mem}); "
+              f"device busy by rank "
+              f"{[round(x['busy_ms'], 4) for x in results]} ms/step (NCCL's "
+              f"kernels apart) over a profiled call of {PPROFILE} steps, "
+              f"of its wall "
+              f"{[round(x['window_ms'], 4) for x in results]} ms/step: "
+              f"idle share by rank {idle_of(results)}; NCCL "
+              f"kernels of rank 0 "
+              f"{[(k, round(ms, 4), n) for k, ms, n in r0['nccl']]}; "
+              f"tp_gathered_leaves {r0['gathered']}; launches "
+              f"{ops_nonzero(r0['counts'])}; [{smi}]")
+        by_path[f"parallel_cards_classifier_{name.replace(' ', '_')}"] = \
+            r0["counts"]
+    return by_path
+
+
+def phase_parallel_cards(torch, ops):
+    """Tensor and pipeline parallelism across four cards
+    (``parallel_cards``), where the machine has them."""
+    smi = smi_line()
+    if torch.cuda.device_count() < 4:
+        print(f"parallel cards: {torch.cuda.device_count()} card(s): the "
+              f"four-card tensor- and pipeline-parallel runs need four; "
+              f"[{smi}]")
+        return {}, {}
+    from bigdl_tpu_torch.utils.engine import Engine
+
+    try:
+        return parallel_cards(torch, ops, smi), {}
+    finally:
+        Engine.reset()
+
+
 def phase_table(torch, ops, profile, rows):
     """Every phase in run order: (name, kind, run).  A "kernels" phase's
     ``run()`` returns its rows of the kernels line (the state phase adds
@@ -6859,7 +7637,17 @@ def phase_table(torch, ops, profile, rows):
         ("attention", "path", lambda: phase_attention(torch, ops, profile)),
         ("attention_cards", "path",
          lambda: phase_attention_cards(torch, ops)),
+        ("parallel", "path", lambda: phase_parallel(torch, ops, profile)),
+        ("parallel_cards", "path",
+         lambda: phase_parallel_cards(torch, ops)),
+        ("parallel_vs_cpu", "path",
+         lambda: phase_parallel_vs_cpu(torch, ops, profile)),
     ]
+
+
+# phases that run only where an option names them: readings, not checks
+# of the main path
+ASKED_ONLY = ("parallel_vs_cpu",)
 
 
 # the phases each option runs alone (no option: every phase); a run of
@@ -6888,6 +7676,14 @@ ONLY = {
                     "attention_cards"),
     # sequence and expert parallelism across four cards alone
     "--attention-cards": ("attention_cards",),
+    # tensor and pipeline parallelism: the SGD and pool kernels' checks,
+    # the one-card phase and the four-card one
+    "--parallel": ("train_kernels", "conv_kernels", "parallel",
+                   "parallel_cards"),
+    # tensor and pipeline parallelism across four cards alone
+    "--parallel-cards": ("parallel_cards",),
+    # VGG's pipeline against the CPU at two microbatch sizes, a reading
+    "--parallel-vs-cpu": ("parallel_vs_cpu",),
 }
 # the kernels line: each row's keys (queued_ms: calls queued back to back,
 # the device's time where it outlasts the wrapper's host work, no L2
@@ -6920,7 +7716,9 @@ ROW_EXTRA = ("layer_library_ms", "layer_port_ms", "same_size_library_ms",
              "inception_launches_step", "vgg_ms", "vgg_bound_ms",
              "vgg_library_ms", "vgg_launches_step", "resnet50_ms",
              "resnet50_bound_ms", "resnet50_library_ms",
-             "resnet50_launches_step", "same_bytes_ms", "chunk_ms",
+             "resnet50_launches_step", "vgg_pipe_ms", "vgg_pipe_bound_ms",
+             "vgg_pipe_library_ms", "vgg_pipe_launches_step",
+             "same_bytes_ms", "chunk_ms",
              "chunk_state_ms", "act_ms", "device_lr_ms",
              "graph_kernel_runs", "verify_ms", "verify_plain_ms",
              "verify_library_ms", "verify_dequant_sdpa_ms",
@@ -6957,7 +7755,8 @@ def main(argv) -> int:
     rows, by_path, graph_ran, failed = [], {}, {}, []
     for name, kind, run in phase_table(torch, ops, "--profile" in argv,
                                        rows):
-        if only is not None and name not in only:
+        if (only is None and name in ASKED_ONLY) or (
+                only is not None and name not in only):
             continue
         t_phase = time.perf_counter()
         try:

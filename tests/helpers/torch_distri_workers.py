@@ -67,6 +67,26 @@ def build(name: str, arch: dict = None):
     if name == "lenet":
         from bigdl_tpu_torch.models.lenet import LeNet5
         return LeNet5(10, device="cpu")
+    if name == "mlp_pp":   # tests/test_pipeline_optimizer.py:_mlp
+        return nn.Sequential(nn.Linear(12, 32), nn.ReLU(True),
+                             nn.Linear(32, 32), nn.Tanh(),
+                             nn.Linear(32, 16), nn.ReLU(True),
+                             nn.Linear(16, 5), nn.LogSoftMax())
+    if name == "bn_conv":   # tests/test_pipeline_optimizer.py:_bn_conv_net
+        return nn.Sequential(
+            nn.SpatialConvolution(3, 8, 3, 3, 1, 1, 1, 1),
+            nn.SpatialBatchNormalization(8, device="cpu"), nn.ReLU(True),
+            nn.Dropout(arch.get("p1", 0.3)),
+            nn.SpatialConvolution(8, 8, 3, 3, 1, 1, 1, 1),
+            nn.SpatialMaxPooling(2, 2, 2, 2), nn.Reshape([8 * 4 * 4]),
+            nn.Linear(8 * 4 * 4, 16), nn.BatchNormalization(16, device="cpu"),
+            nn.Dropout(arch.get("p2", 0.5)), nn.Linear(16, 5),
+            nn.LogSoftMax())
+    if name == "lstm":   # a module with no tensor-parallel form
+        return nn.Sequential(nn.Recurrent().add(nn.LSTMCell(16, 8,
+                                                            device="cpu")),
+                             nn.Mean(1, n_input_dims=2), nn.Linear(8, 4),
+                             nn.LogSoftMax())
     raise ValueError(name)
 
 
@@ -192,15 +212,22 @@ def run(spec: dict) -> dict:
         opt.set_drop_module_property(**spec["drop"])
     if spec.get("opt_state") is not None:
         opt.set_optim_state(spec["opt_state"])
+    if spec.get("remat"):
+        opt.set_gradient_checkpointing(True)
     if spec.get("checkpoint") is not None:
         from bigdl_tpu_torch.optim import several_iteration
         path, every = spec["checkpoint"]
         opt.set_checkpoint(path, several_iteration(every))
     if spec.get("validate") is not None:
-        from bigdl_tpu_torch.optim import Top1Accuracy, every_epoch
-        vx, vy, vb = spec["validate"]
+        from bigdl_tpu_torch.optim import (Loss, Top1Accuracy, every_epoch,
+                                           several_iteration)
+        vx, vy, vb = spec["validate"][:3]
         val = DataSet.array(samples_of(vx, vy)) >> SampleToBatch(vb)
-        opt.set_validation(every_epoch(), val, [Top1Accuracy()])
+        if len(spec["validate"]) > 3:   # every n iterations, two methods
+            opt.set_validation(several_iteration(spec["validate"][3]), val,
+                               [Top1Accuracy(), Loss(nn.ClassNLLCriterion())])
+        else:
+            opt.set_validation(every_epoch(), val, [Top1Accuracy()])
     poison = spec.get("poison", {}).get(Engine.process_index())
     if poison is not None:
         step = opt._train_step
@@ -231,8 +258,14 @@ def run(spec: dict) -> dict:
     if isinstance(opt, DistriOptimizer):
         out["coords"] = opt.mesh.coords()
         out["specs"] = opt.expert_param_specs()
-        out["flat_length"] = opt._part.length
-        out["wire_bytes"] = opt.wire_bytes
+        if opt._part is not None:
+            out["flat_length"] = opt._part.length
+            out["wire_bytes"] = opt.wire_bytes
+        out["tp_gathered"] = dict(opt.tp_gathered_leaves)
+        if opt.pipe_result is not None:
+            out["peak_in_flight"] = opt.pipe_result.peak_in_flight
+            out["bubble"] = opt.pipe_result.bubble
+            out["ranges"] = opt._pipe.plan.ranges
         out["velocity_numel"] = sum(v.numel()
                                     for v in opt.opt_state["velocity"])
         out["per_node"] = opt.metrics.per_node("computing time average",
@@ -253,6 +286,16 @@ def runs(specs: list) -> list:
     out = []
     for spec in specs:
         out.append(run(spec))
+        dist.barrier()
+    return out
+
+
+def calls(jobs: list) -> list:
+    """Several case functions in one process group, one after another:
+    ``jobs`` a list of (function, arguments); their results."""
+    out = []
+    for fn, args in jobs:
+        out.append(fn(*args))
         dist.barrier()
     return out
 
@@ -296,6 +339,7 @@ def collectives_case() -> dict:
     for call in (lambda: make_mesh({"data": n + 1}, "cpu"),
                  lambda: make_mesh({"data": n, "model": 2}, "cpu"),
                  lambda: hybrid_mesh(n, 1, "cpu"),
+                 lambda: make_mesh({"seq": n}, "cpu"),
                  lambda: coll.reduce_scatter(torch.zeros(n + 1), mesh)):
         try:
             call()
@@ -433,3 +477,139 @@ def refusal_case(spec):
     except Exception as e:   # the refusal under test, returned
         return type(e).__name__, str(e)
     return None
+
+
+# -- tensor and pipeline parallelism ------------------------------------
+
+def jax_order(module, kind="params") -> list:
+    """``module``'s parameters (or, ``kind="state"``, its buffers) in the
+    JAX package's ravel order (a tree's dict keys sorted)."""
+    from bigdl_tpu_torch.parallel.pipeline_model import jax_leaves
+    if kind == "params":
+        return jax_leaves(module)
+    out = []
+    for key in sorted(["~"] + list(module._modules)):
+        if key == "~":
+            out += [module._buffers[k] for k in sorted(module._buffers)
+                    if module._buffers[k] is not None]
+        else:
+            out += jax_order(module._modules[key], kind)
+    return out
+
+
+def _flat(tensors):
+    return (torch.cat([t.detach().reshape(-1) for t in tensors]).numpy()
+            if tensors else np.zeros(0, np.float32))
+
+
+def pipe_fn_case(stages, x, t):
+    """The pipeline functions on a ``{"pipe": world}`` mesh, this rank
+    stage ``tanh(x @ w + b)`` of ``stages[rank]``: GPipe's forward
+    (``pipeline_apply``); GPipe with the loss ``M * sum(y**2)`` a
+    microbatch (the JAX test's ``sum(outputs**2)``); 1F1B and GPipe with
+    the mean squared error against ``t``.  Each run's loss, this stage's
+    gradients, peak microbatches in flight and the bubble."""
+    from bigdl_tpu_torch.parallel.mesh import make_mesh
+    from bigdl_tpu_torch.parallel.pipeline import (pipeline_apply,
+                                                   pipeline_train_1f1b)
+
+    axis = make_mesh({"pipe": -1}, "cpu").axis("pipe")
+    r, n_micro = axis.index, len(x)
+    w = torch.from_numpy(np.array(stages[r]["w"])).requires_grad_()
+    b = torch.from_numpy(np.array(stages[r]["b"])).requires_grad_()
+
+    def stage(h, m):
+        return torch.tanh(h @ w + b)
+
+    xs = [torch.from_numpy(np.array(v)) for v in x]
+    ts = [torch.from_numpy(np.array(v)) for v in t]
+    shapes = [tuple(xs[0].shape)] * axis.size
+    out = {"rank": r}
+    with torch.no_grad():
+        res = pipeline_apply(stage, xs, axis, shapes)
+    out["forward"] = (None if res.outputs is None
+                      else np.stack([o.numpy() for o in res.outputs]))
+
+    def grads():
+        g = [w.grad.numpy().copy(), b.grad.numpy().copy()]
+        w.grad, b.grad = None, None
+        return g
+
+    res = pipeline_apply(stage, xs, axis, shapes,
+                         loss_fn=lambda y, _: n_micro * (y ** 2).sum(),
+                         t_micro=ts)
+    out["sq"] = (float(res.loss), grads(), res.peak_in_flight)
+
+    def mse(y, tt):
+        return ((y - tt) ** 2).mean()
+
+    res = pipeline_train_1f1b(stage, mse, xs, ts, axis, shapes)
+    out["1f1b"] = (float(res.loss), grads(), res.peak_in_flight, res.bubble)
+    res = pipeline_apply(stage, xs, axis, shapes, loss_fn=mse, t_micro=ts)
+    out["gpipe"] = (float(res.loss), grads(), res.peak_in_flight, res.bubble)
+    res = pipeline_apply(stage, xs, axis, shapes, loss_fn=mse, t_micro=ts,
+                         remat=True)
+    out["gpipe_remat"] = (float(res.loss), grads(), res.peak_in_flight)
+    return out
+
+
+def bn_oracle_case(init, init_state, x, y, n_micro, mb, arch, step=1):
+    """The BN and dropout conv net's plan on a ``{"pipe": world}`` mesh:
+    one 1F1B step of this rank's stage (the optimizer's seeded stage
+    function), and the same stages run one after another on this rank
+    over the whole model (the serial program: each microbatch through
+    stage 0, 1, ..., the same seeds, the running statistics moved per
+    microbatch); the loss, this stage's gradients and running statistics
+    (JAX order) of each, and the stage ranges."""
+    from bigdl_tpu_torch.parallel.mesh import make_mesh
+    from bigdl_tpu_torch.parallel.pipeline import (run_schedule,
+                                                   stage_function)
+    from bigdl_tpu_torch.parallel.pipeline_model import partition_sequential
+
+    axis = make_mesh({"pipe": -1}, "cpu").axis("pipe")
+    crit = nn.ClassNLLCriterion()
+    xs = [torch.from_numpy(np.array(x[m * mb:(m + 1) * mb]))
+          for m in range(n_micro)]
+    ts = [torch.from_numpy(np.array(y[m * mb:(m + 1) * mb]))
+          for m in range(n_micro)]
+
+    def fresh():
+        model = build("bn_conv", arch)
+        load_jax_params(model, init)
+        load_jax_state(model, init_state)
+        return model.train()
+
+    model = fresh()
+    plan = partition_sequential(model, axis.size, (mb,) + xs[0].shape[1:])
+    s = axis.index
+    mods = plan.stage_modules(s)
+    res = run_schedule("1f1b", stage_function(mods, s, step, "cpu"), axis,
+                       xs, [plan.boundary(i, mb) for i in
+                            range(plan.n_stages)],
+                       plan.dtypes, loss_fn=crit, t_micro=ts)
+
+    def stage_of(mdl):
+        ms = partition_sequential(mdl, axis.size, (mb,) + xs[0].shape[1:]) \
+            .stage_modules(s)
+        return (_flat([p.grad if p.grad is not None else torch.zeros_like(p)
+                       for m in ms for p in jax_order(m)]),
+                _flat([b for m in ms for b in jax_order(m, "state")]))
+
+    out = {"ranges": plan.ranges, "loss": float(res.loss),
+           "peak": res.peak_in_flight}
+    out["grads"], out["state"] = stage_of(model)
+    serial = fresh()
+    serial_plan = partition_sequential(serial, axis.size,
+                                       (mb,) + xs[0].shape[1:])
+    fns = [stage_function(serial_plan.stage_modules(i), i, step, "cpu")
+           for i in range(axis.size)]
+    total = 0.0
+    for m in range(n_micro):
+        h = xs[m]
+        for fn in fns:
+            h = fn(h, m)
+        total = total + crit(h, ts[m]) / n_micro
+    total.backward()
+    out["serial_loss"] = float(total)
+    out["serial_grads"], out["serial_state"] = stage_of(serial)
+    return out

@@ -25,7 +25,7 @@ from bigdl_tpu_torch.dataset import DataSet, ShardedDataSet, get_batch_size
 from bigdl_tpu_torch.models.lenet import LeNet5
 from bigdl_tpu_torch.nn.module import export_params
 from bigdl_tpu_torch.parallel.launch import launch
-from bigdl_tpu_torch.parallel.mesh import hybrid_mesh, make_mesh
+from bigdl_tpu_torch.parallel.mesh import make_mesh
 from bigdl_tpu_torch.parallel.sharding import FlatPartition
 from bigdl_tpu_torch.utils.engine import Engine
 from bigdl_tpu_torch.utils.random import generator
@@ -48,17 +48,22 @@ def test_mesh_construction(world):
     n, ranks = world
     for r, out in enumerate(ranks):
         assert out["mesh"] == ({"data": n}, ("data",), r, n, r, n)
-        # a size that is not the world's, another axis, a hybrid mesh and
-        # a reduce-scatter of a length the world does not divide: refused
-        assert out["refused"] == ["ValueError", "NotImplementedError",
-                                  "NotImplementedError", "ValueError"]
+        # a size that is not the world's, a model axis the world cannot
+        # hold, an axis set of no mesh and a reduce-scatter of a length
+        # the world does not divide: refused; the hybrid mesh of the
+        # world's data ranks and one model rank forms
+        assert out["refused"] == ["ValueError", "ValueError", None,
+                                  "ValueError", "ValueError"]
 
 
 def test_mesh_axes_of_a_later_slice_raise_without_a_group():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        make_mesh({"data": 2, "model": 2}, "cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        hybrid_mesh(2, 2, "cpu")
+    """The model and pipe axes form meshes now (the tensor- and
+    pipeline-parallel files build them across ranks); an axis set that
+    makes no mesh of the port is refused before any process group."""
+    for axes in ({"model": 2}, {"pipe": 2, "model": 2},
+                 {"data": 1, "pipe": 1, "seq": 1}, {"model": 2, "expert": 2}):
+        with pytest.raises(ValueError, match="a mesh of the port has"):
+            make_mesh(axes, "cpu")
 
 
 def test_axis_index_and_size(world):

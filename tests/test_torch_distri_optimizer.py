@@ -424,9 +424,13 @@ def test_gradient_compression_rejects_bad_mode():
     with pytest.raises(ValueError):
         DistriOptimizer(W.build("mlp"), ds, nn.ClassNLLCriterion(),
                         gradient_compression="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # the JAX words: no single flat wire under tensor parallelism
+    with pytest.raises(ValueError, match="gradient_compression composes "
+                                         "with DP and zero1, not "
+                                         "tensor_parallel"):
         DistriOptimizer(W.build("mlp"), ds, nn.ClassNLLCriterion(),
-                        tensor_parallel=True, device="cpu")
+                        tensor_parallel=True, gradient_compression="bf16",
+                        device="cpu")
 
 
 def test_elastic_recovery_is_refused(monkeypatch):

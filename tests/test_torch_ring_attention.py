@@ -177,10 +177,14 @@ def test_mesh_coordinates_follow_the_jax_device_order(meshes):
 
 
 def test_later_axes_and_bad_meshes_raise():
+    """The pipe axis goes with the data axis alone; seq and expert do not
+    go together; seq needs the data axis."""
     from bigdl_tpu_torch.parallel.mesh import make_mesh
-    with pytest.raises(NotImplementedError, match="later slice"):
-        make_mesh({"data": 1, "pipe": 2}, "cpu")
-    with pytest.raises(ValueError, match="one of 'seq' and 'expert'"):
+    with pytest.raises(ValueError, match="'pipe' axis with an optional "
+                                         "'data' axis"):
+        make_mesh({"data": 1, "pipe": 2, "seq": 1}, "cpu")
+    with pytest.raises(ValueError, match="one of 'seq', 'expert' and "
+                                         "'model'"):
         make_mesh({"data": 1, "seq": 1, "expert": 1}, "cpu")
     with pytest.raises(ValueError, match="'data' axis"):
         make_mesh({"seq": 1}, "cpu")

@@ -234,7 +234,9 @@ def test_validations_are_the_jax_words():
         DistriOptimizer(W.build("attn"), _ds(), nn.ClassNLLCriterion(),
                         sequence_parallel=True,
                         gradient_compression="bf16", device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="composes with data parallelism "
+                                         r"only \(mesh \{'data': d, "
+                                         r"'seq': s\}\)"):
         DistriOptimizer(W.build("attn"), _ds(), nn.ClassNLLCriterion(),
                         sequence_parallel=True, tensor_parallel=True,
                         device="cpu")

@@ -297,12 +297,13 @@ def test_all_ones_mask_leaves_the_bf16_wire_exact(ranks, masked, unmasked):
 
 def test_invalid_combinations_raise():
     """Masks are recomputed every iteration: n steps a dispatch is
-    refused when the run starts (on its rank, raised here); pipelines
-    are a later slice."""
+    refused when the run starts (on its rank, raised here); with pipeline
+    stages the JAX words refuse it (the tasks are data replicas)."""
     from bigdl_tpu_torch.optim import DistriOptimizer
     spec = dict(_spec("ones"), n_disp=4)
     with pytest.raises(ValueError, match="iterations_per_dispatch"):
         launch(W.run, 1, "gloo", args=(spec,))
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="straggler drop masks "
+                                         "per-DATA-replica gradients"):
         DistriOptimizer(W.build("mlp"), None, None, pipeline_stages=4,
-                        device="cpu")
+                        drop_percentage=0.1, device="cpu")

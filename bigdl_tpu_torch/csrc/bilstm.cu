@@ -59,9 +59,24 @@
 // shared memory, in the forward and the backward, is taken, and the
 // wrapper refuses a larger H.
 //
-// What it does not do yet: the product is fp32 FMAs on the CUDA cores
-// from shared memory; the serial chain of T steps, each with one cluster
-// barrier, sets the time, not the product's operations.
+// The bf16 forms (the recurrence under a reduced dtype policy; the JAX
+// kernels on bf16 wht, pallas_kernels.py:549-578): wht bf16, held as bf16
+// in shared memory (half the f32 slice, so the plan is its own,
+// `bigdl_lstm_plan_bf16`; the largest H is the f32 forms', whose plan
+// reads the weight through L2), zx bf16 (BiRecurrent's projection) or
+// f32 (Recurrent's).  z = f32(zx) + bf16(h) . wht and, backward, dh =
+// bf16(dz) . wht^T: the state is rounded to bf16 only where it meets the
+// weight, the products summed in f32 (recurrence_cluster.cuh
+// `at_product`); the gates, c, the exchanged h and dz, and the hs, cs
+// and dzx stacks stay f32.  The gates pre-pass reads the bf16 weight and
+// rounds hprev the same way.  dwht is the f32 product of the f32 h stack
+// and dzx (the JAX kernel's f32 dwh scratch); the wrapper casts dzx and
+// dwht to zx's and wht's dtypes, as the JAX VJP does (:699).
+//
+// What it does not do yet: the product is FMAs on the CUDA cores from
+// shared memory (bf16 weights widened to f32); the serial chain of T
+// steps, each with one cluster barrier, sets the time, not the product's
+// operations.
 
 #include "recurrence_cluster.cuh"
 #include "recurrence_dwh.cuh"
@@ -82,6 +97,15 @@ struct LstmFwd {
     c = f * c + i * g;
     y[0] = o * tanhf(c);
   }
+};
+// the bf16 forms: the same cell on a bf16 wht (WT) and a bf16 or f32 zx
+// (XT)
+struct LstmFwdBf16 : LstmFwd {
+  using WT = __nv_bfloat16;
+  using XT = __nv_bfloat16;
+};
+struct LstmFwdBf16W : LstmFwd {
+  using WT = __nv_bfloat16;
 };
 
 // dz of the four gates in reverse time, c the carried dc; x = (i, f, g,
@@ -106,13 +130,19 @@ struct LstmBwd {
     c = dc_tot * f;
   }
 };
+// the bf16 form: the same cell on a bf16 wht; its inputs stay f32
+struct LstmBwdBf16 : LstmBwd {
+  using WT = __nv_bfloat16;
+};
 
 // The backward's gates, all steps at once: gates[t,d,b,:] =
 // act(zx[t,d,b,:] + hprev[t,d,b,:] . wht[d]), sigmoid on i, f, o and tanh
 // on g, hprev h0 (or zeros when null) at t = 0.  Rows m = t * B + b of
-// direction blockIdx.z; a tiled product over k < H.
+// direction blockIdx.z; a tiled product over k < H.  zx of XT, wht of WT
+// (a bf16 wht: hprev rounded to bf16 at the product, as the forward).
+template <class XT, class WT>
 __global__ void __launch_bounds__(kGemmThreads)
-    gates_kernel(const float* __restrict__ zx, const float* __restrict__ wht,
+    gates_kernel(const XT* __restrict__ zx, const WT* __restrict__ wht,
                  const float* __restrict__ hs, const float* __restrict__ h0,
                  float* __restrict__ gates, Dims dm) {
   __shared__ __align__(16) float As[kBK][kBM + kPad];
@@ -122,7 +152,7 @@ __global__ void __launch_bounds__(kGemmThreads)
   const long long m0 = (long long)blockIdx.x * kBM;
   const int n0 = blockIdx.y * kBN;
   const int ty = tid / 16, tx = tid % 16;
-  const float* W = wht + (size_t)d * H * H4;
+  const WT* W = wht + (size_t)d * H * H4;
   const Stack hprev{hs, h0, true};
   // loaders: A rows (m, 4 consecutive k), B rows (k, 4 consecutive n)
   const int am = tid / 4, ak = (tid % 4) * 4;
@@ -134,9 +164,11 @@ __global__ void __launch_bounds__(kGemmThreads)
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int k = k0 + ak + q;
-      As[ak + q][am] = (arow != nullptr && k < H) ? arow[k] : 0.0f;
+      As[ak + q][am] =
+          (arow != nullptr && k < H) ? at_product<WT>(arow[k]) : 0.0f;
       const int n = n0 + bn + q, kb = k0 + bk;
-      Bs[bk][bn + q] = (kb < H && n < H4) ? W[(size_t)kb * H4 + n] : 0.0f;
+      Bs[bk][bn + q] =
+          (kb < H && n < H4) ? widen(W[(size_t)kb * H4 + n]) : 0.0f;
     }
     __syncthreads();
     tile_fma(As, Bs, acc, ty, tx);
@@ -152,11 +184,59 @@ __global__ void __launch_bounds__(kGemmThreads)
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx * 4 + j;
       if (n >= H4) continue;
-      const float v = zx[row * H4 + n] + acc[i][j];
+      const float v = widen(zx[row * H4 + n]) + acc[i][j];
       gates[row * H4 + n] = (n / H == 2) ? tanhf(v) : sigm(v);
     }
   }
 }
+
+template <class XT, class WT>
+void launch_gates(const XT* zx, const WT* wht, const float* hs,
+                  const float* h0, float* gates, const Dims& dm,
+                  cudaStream_t st) {
+  const long long M = (long long)dm.T * dm.B;
+  const dim3 grid((unsigned)((M + kBM - 1) / kBM), (4 * dm.H + kBN - 1) / kBN,
+                  dm.D);
+  gates_kernel<XT, WT><<<grid, kGemmThreads, 0, st>>>(zx, wht, hs, h0, gates,
+                                                      dm);
+}
+
+// The bf16 forms' entries: the forward of cell `Fwd` over zx of XT and
+// wht of WT, as bigdl_lstm_fwd_f32 ...
+template <class Fwd, class XT, class WT>
+int lstm_fwd(const XT* zx, const WT* wht, const float* h0, const float* c0,
+             float* hs, float* cs, int T, int D, int B, int H, int C, int R,
+             int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Dims dm{T, D, B, H};
+  if (empty(dm)) return 0;
+  const Args a{{zx}, wht, h0, c0, hs, cs, dm};
+  return (int)launch_planned<Fwd>(a, plan_of<Fwd>(D, B, H, C, R),
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// ... and the backward of cell `Bwd`, as bigdl_lstm_bwd_f32: the gates of
+// every step into dzx (f32), then the serial loop over them.
+template <class Bwd, class XT, class WT>
+int lstm_bwd(const XT* zx, const WT* wht, const float* hs, const float* cs,
+             const float* h0, const float* c0, const float* gout, float* dzx,
+             int T, int D, int B, int H, int C, int R, int device,
+             void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Dims dm{T, D, B, H};
+  if (empty(dm)) return 0;
+  const Plan p = plan_of<Bwd>(D, B, H, C, R);
+  if (p.C == 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  launch_gates(zx, wht, hs, h0, dzx, dm, st);
+  const Args a{{dzx, cs, gout}, wht, nullptr, nullptr, dzx, nullptr, dm,
+               nullptr, nullptr, c0};
+  return (int)launch_planned<Bwd>(a, p, st);
+}
+
+using bf16 = __nv_bfloat16;
 
 }  // namespace
 
@@ -165,7 +245,9 @@ extern "C" {
 // Forward over zx (T, D, B, 4H) and wht (D, H, 4H) from h0, c0 (D, B, H),
 // or zeros where null: hs (T, D, B, H) and, unless `cs` is null, cs.
 // Under the plan of the shape (C = R = 0) or at (C, R).  One launch.
-// Returns the cudaError_t of the launch.
+// Returns the cudaError_t of the launch.  The _bf16 form takes zx and
+// wht in bf16, the _bf16w form zx in f32 and wht in bf16; h0, c0, hs and
+// cs are f32 in every form.
 int bigdl_lstm_fwd_f32(const float* zx, const float* wht, const float* h0,
                        const float* c0, float* hs, float* cs, int T, int D,
                        int B, int H, int C, int R, int device, void* stream) {
@@ -178,11 +260,26 @@ int bigdl_lstm_fwd_f32(const float* zx, const float* wht, const float* h0,
                                       static_cast<cudaStream_t>(stream));
 }
 
-// Backward: dzx (T, D, B, 4H) from the forward's zx, wht, hs and cs, its
-// initial state h0, c0 (D, B, H) (zeros where null) and the cotangent
+int bigdl_lstm_fwd_bf16(const bf16* zx, const bf16* wht, const float* h0,
+                        const float* c0, float* hs, float* cs, int T, int D,
+                        int B, int H, int C, int R, int device, void* stream) {
+  return lstm_fwd<LstmFwdBf16>(zx, wht, h0, c0, hs, cs, T, D, B, H, C, R,
+                               device, stream);
+}
+
+int bigdl_lstm_fwd_bf16w(const float* zx, const bf16* wht, const float* h0,
+                         const float* c0, float* hs, float* cs, int T, int D,
+                         int B, int H, int C, int R, int device,
+                         void* stream) {
+  return lstm_fwd<LstmFwdBf16W>(zx, wht, h0, c0, hs, cs, T, D, B, H, C, R,
+                                device, stream);
+}
+
+// Backward: dzx (T, D, B, 4H) f32 from the forward's zx, wht, hs and cs,
+// its initial state h0, c0 (D, B, H) (zeros where null) and the cotangent
 // gout (T, D, B, H), under the plan of the shape (C = R = 0) or at (C,
 // R).  Two launches on the stream: the gates of every step (into dzx),
-// then the serial loop.
+// then the serial loop.  The forms as the forward's.
 int bigdl_lstm_bwd_f32(const float* zx, const float* wht, const float* hs,
                        const float* cs, const float* h0, const float* c0,
                        const float* gout, float* dzx, int T, int D, int B,
@@ -194,19 +291,40 @@ int bigdl_lstm_bwd_f32(const float* zx, const float* wht, const float* hs,
   const Plan p = plan_of<LstmBwd>(D, B, H, C, R);
   if (p.C == 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long M = (long long)T * B;
-  const dim3 ggrid((unsigned)((M + kBM - 1) / kBM), (4 * H + kBN - 1) / kBN,
-                   D);
-  gates_kernel<<<ggrid, kGemmThreads, 0, st>>>(zx, wht, hs, h0, dzx, dm);
+  launch_gates(zx, wht, hs, h0, dzx, dm, st);
   const Args a{{dzx, cs, gout}, wht, nullptr, nullptr, dzx, nullptr, dm,
                nullptr, nullptr, c0};
   return (int)launch_planned<LstmBwd>(a, p, st);
+}
+
+int bigdl_lstm_bwd_bf16(const bf16* zx, const bf16* wht, const float* hs,
+                        const float* cs, const float* h0, const float* c0,
+                        const float* gout, float* dzx, int T, int D, int B,
+                        int H, int C, int R, int device, void* stream) {
+  return lstm_bwd<LstmBwdBf16>(zx, wht, hs, cs, h0, c0, gout, dzx, T, D, B,
+                               H, C, R, device, stream);
+}
+
+int bigdl_lstm_bwd_bf16w(const float* zx, const bf16* wht, const float* hs,
+                         const float* cs, const float* h0, const float* c0,
+                         const float* gout, float* dzx, int T, int D, int B,
+                         int H, int C, int R, int device, void* stream) {
+  return lstm_bwd<LstmBwdBf16>(zx, wht, hs, cs, h0, c0, gout, dzx, T, D, B,
+                               H, C, R, device, stream);
 }
 
 // The plan of the forward (bwd = 0) or backward (1) at (D, B, H) into
 // out[8]: C, R, RT, KP, S, staged, depth, bytes (C = 0: none fits).
 void bigdl_lstm_plan(int bwd, int D, int B, int H, int* out) {
   plan_out(bwd ? plan_of<LstmBwd>(D, B, H) : plan_of<LstmFwd>(D, B, H), out);
+}
+
+// The plan of the bf16-weight forms (either zx dtype: the ring holds a
+// stage's inputs in the same floats).
+void bigdl_lstm_plan_bf16(int bwd, int D, int B, int H, int* out) {
+  plan_out(bwd ? plan_of<LstmBwdBf16>(D, B, H)
+               : plan_of<LstmFwdBf16>(D, B, H),
+           out);
 }
 
 // dwht (D, H, 4H) = sum over t, b of hprev^T . dzx (recurrence_dwh.cuh),

@@ -1,5 +1,5 @@
-// Cross-channel local response normalisation (LRN), fp32, for Hopper
-// (sm_90a).
+// Cross-channel local response normalisation (LRN), fp32 and bf16, for
+// Hopper (sm_90a).
 //
 // Replaces bigdl_tpu/ops/pallas_kernels.py `_lrn_fwd_kernel`,
 // `_lrn_fwd_res_kernel` and `_lrn_bwd_kernel` (the trio behind
@@ -35,7 +35,13 @@
 // enough blocks to fill the card evenly (Inception's 128 x 56 x 56
 // columns alone make 1.5 waves).  The TPU kernel's (C, 3200-lane) VMEM
 // blocks exist for its lanes and are not carried over.
+//
+// The bf16 forms (the LRN under a reduced dtype policy; the JAX kernels
+// on bf16 I/O, pallas_kernels.py:377-405): x, y, g and dx bf16, widened
+// where read and rounded once where stored, every step between in f32 as
+// above; z stays f32, as the JAX kernel's residual does.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -75,15 +81,26 @@ __device__ __forceinline__ bool column(const LrnArgs& a, long long* base,
   return p < a.HW;
 }
 
-__device__ __forceinline__ float ld(const float* __restrict__ t,
-                                    long long base, int ch, const LrnArgs& a) {
-  return (ch >= 0 && ch < a.C) ? t[base + (long long)ch * a.HW] : 0.0f;
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <class T>
+__device__ __forceinline__ float ld(const T* __restrict__ t, long long base,
+                                    int ch, const LrnArgs& a) {
+  return (ch >= 0 && ch < a.C) ? widen(t[base + (long long)ch * a.HW]) : 0.0f;
 }
 
 // SIZE > 0: the register window of SIZE taps; SIZE == 0: any a.size.
-template <int SIZE, bool WITH_Z>
+// T: the element type of x and y.
+template <class T, int SIZE, bool WITH_Z>
 __global__ void __launch_bounds__(kThreads)
-    lrn_fwd_kernel(const float* __restrict__ x, float* __restrict__ y,
+    lrn_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
                    float* __restrict__ z, LrnArgs a) {
   long long base;
   int c0, c1;
@@ -126,15 +143,16 @@ __global__ void __launch_bounds__(kThreads)
     }
     const float zz = __fadd_rn(a.k, __fmul_rn(a.scale, acc));
     const long long o = base + (long long)c * a.HW;
-    y[o] = __fdiv_rn(xc, lrn_pow(zz, a.beta, a.sqrt_pow));
+    put(y + o, __fdiv_rn(xc, lrn_pow(zz, a.beta, a.sqrt_pow)));
     if (WITH_Z) z[o] = zz;
   }
 }
 
 // the backward's per-channel terms: u = g x / (z^b z) and g / z^b
-__device__ __forceinline__ void bwd_terms(const float* __restrict__ x,
+template <class T>
+__device__ __forceinline__ void bwd_terms(const T* __restrict__ x,
                                           const float* __restrict__ z,
-                                          const float* __restrict__ g,
+                                          const T* __restrict__ g,
                                           long long base, int ch,
                                           const LrnArgs& a, float* u,
                                           float* gz, float* xv) {
@@ -145,18 +163,17 @@ __device__ __forceinline__ void bwd_terms(const float* __restrict__ x,
     return;
   }
   const long long o = base + (long long)ch * a.HW;
-  const float xx = x[o], zz = z[o], gg = g[o];
+  const float xx = widen(x[o]), zz = z[o], gg = widen(g[o]);
   const float zp = lrn_pow(zz, a.beta, a.sqrt_pow);
   *u = __fdiv_rn(__fmul_rn(gg, xx), __fmul_rn(zp, zz));
   *gz = __fdiv_rn(gg, zp);
   *xv = xx;
 }
 
-template <int SIZE>
+template <class T, int SIZE>
 __global__ void __launch_bounds__(kThreads)
-    lrn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ z,
-                   const float* __restrict__ g, float* __restrict__ dx,
-                   LrnArgs a) {
+    lrn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ z,
+                   const T* __restrict__ g, T* __restrict__ dx, LrnArgs a) {
   long long base;
   int c0, c1;
   if (!column(a, &base, &c0, &c1)) return;
@@ -197,8 +214,8 @@ __global__ void __launch_bounds__(kThreads)
       }
       bwd_terms(x, z, g, base, c, a, &u, &gc, &xc);
     }
-    dx[base + (long long)c * a.HW] =
-        __fsub_rn(gc, __fmul_rn(__fmul_rn(a.c2, xc), S));
+    put(dx + base + (long long)c * a.HW,
+        __fsub_rn(gc, __fmul_rn(__fmul_rn(a.c2, xc), S)));
   }
 }
 
@@ -219,15 +236,9 @@ LrnArgs make_args(int C, int HW, int size, double alpha, double beta,
   return a;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Forward over x (N, C, H*W); `z` null takes the primal variant that
-// writes no residual.  Returns the cudaError_t of the launch.
-int bigdl_lrn_fwd_f32(const float* x, float* y, float* z, long long N, int C,
-                      int HW, int size, double alpha, double beta, double k,
-                      int device, void* stream) {
+template <class T>
+int lrn_fwd(const T* x, T* y, float* z, long long N, int C, int HW, int size,
+            double alpha, double beta, double k, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (N == 0 || C == 0 || HW == 0) return 0;
@@ -238,23 +249,22 @@ int bigdl_lrn_fwd_f32(const float* x, float* y, float* z, long long N, int C,
   const dim3 grid((unsigned)blocks);
   if (size == 5) {
     if (z != nullptr)
-      lrn_fwd_kernel<5, true><<<grid, kThreads, 0, st>>>(x, y, z, a);
+      lrn_fwd_kernel<T, 5, true><<<grid, kThreads, 0, st>>>(x, y, z, a);
     else
-      lrn_fwd_kernel<5, false><<<grid, kThreads, 0, st>>>(x, y, nullptr, a);
+      lrn_fwd_kernel<T, 5, false><<<grid, kThreads, 0, st>>>(x, y, nullptr, a);
   } else {
     if (z != nullptr)
-      lrn_fwd_kernel<0, true><<<grid, kThreads, 0, st>>>(x, y, z, a);
+      lrn_fwd_kernel<T, 0, true><<<grid, kThreads, 0, st>>>(x, y, z, a);
     else
-      lrn_fwd_kernel<0, false><<<grid, kThreads, 0, st>>>(x, y, nullptr, a);
+      lrn_fwd_kernel<T, 0, false><<<grid, kThreads, 0, st>>>(x, y, nullptr, a);
   }
   return (int)cudaGetLastError();
 }
 
-// Backward: dx (N, C, H*W) from x, the stored z and the cotangent g.
-int bigdl_lrn_bwd_f32(const float* x, const float* z, const float* g,
-                      float* dx, long long N, int C, int HW, int size,
-                      double alpha, double beta, double k, int device,
-                      void* stream) {
+template <class T>
+int lrn_bwd(const T* x, const float* z, const T* g, T* dx, long long N, int C,
+            int HW, int size, double alpha, double beta, double k, int device,
+            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (N == 0 || C == 0 || HW == 0) return 0;
@@ -264,10 +274,46 @@ int bigdl_lrn_bwd_f32(const float* x, const float* z, const float* g,
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)blocks);
   if (size == 5)
-    lrn_bwd_kernel<5><<<grid, kThreads, 0, st>>>(x, z, g, dx, a);
+    lrn_bwd_kernel<T, 5><<<grid, kThreads, 0, st>>>(x, z, g, dx, a);
   else
-    lrn_bwd_kernel<0><<<grid, kThreads, 0, st>>>(x, z, g, dx, a);
+    lrn_bwd_kernel<T, 0><<<grid, kThreads, 0, st>>>(x, z, g, dx, a);
   return (int)cudaGetLastError();
+}
+
+using bf16 = __nv_bfloat16;
+
+}  // namespace
+
+extern "C" {
+
+// Forward over x (N, C, H*W); `z` null takes the primal variant that
+// writes no residual.  Returns the cudaError_t of the launch.  The _bf16
+// form takes x and y in bf16, z in f32.
+int bigdl_lrn_fwd_f32(const float* x, float* y, float* z, long long N, int C,
+                      int HW, int size, double alpha, double beta, double k,
+                      int device, void* stream) {
+  return lrn_fwd(x, y, z, N, C, HW, size, alpha, beta, k, device, stream);
+}
+
+int bigdl_lrn_fwd_bf16(const bf16* x, bf16* y, float* z, long long N, int C,
+                       int HW, int size, double alpha, double beta, double k,
+                       int device, void* stream) {
+  return lrn_fwd(x, y, z, N, C, HW, size, alpha, beta, k, device, stream);
+}
+
+// Backward: dx (N, C, H*W) from x, the stored z and the cotangent g.  The
+// _bf16 form takes x, g and dx in bf16, z in f32.
+int bigdl_lrn_bwd_f32(const float* x, const float* z, const float* g,
+                      float* dx, long long N, int C, int HW, int size,
+                      double alpha, double beta, double k, int device,
+                      void* stream) {
+  return lrn_bwd(x, z, g, dx, N, C, HW, size, alpha, beta, k, device, stream);
+}
+
+int bigdl_lrn_bwd_bf16(const bf16* x, const float* z, const bf16* g, bf16* dx,
+                       long long N, int C, int HW, int size, double alpha,
+                       double beta, double k, int device, void* stream) {
+  return lrn_bwd(x, z, g, dx, N, C, HW, size, alpha, beta, k, device, stream);
 }
 
 const char* bigdl_cuda_error_string(int err) {

@@ -1,4 +1,5 @@
-// NCHW max pooling, forward and backward, fp32, for Hopper (sm_90a).
+// NCHW max pooling, forward and backward, fp32 and bf16, for Hopper
+// (sm_90a).
 //
 // Replaces bigdl_tpu/ops/pallas_kernels.py `_mosaic_mp_fwd_kernel`,
 // `_mosaic_mp_fwd_kernel_primal` and `_mosaic_mp_bwd_kernel` (the Mosaic
@@ -39,7 +40,19 @@
 // The TPU kernel's phase-folded NHWC frame and row blocking exist for
 // its lanes and VMEM and are not carried over: NCHW stays as it is, with
 // no transpose or padding pass.
+//
+// The bf16 forms (the pool under a reduced dtype policy; the JAX kernels
+// on bf16 I/O): x, y, g and dx bf16, the argmax int32.  The forward is
+// the same kernel on bf16 loads, compared in f32 (exact for bf16 values,
+// so the max and its first-max argmax are the f32 kernel's on the same
+// values).  The backward is one thread a dx element gathering over its
+// covering outputs through L1, in (oh, ow) order, the sum of overlapping
+// windows' g taken in f32 and rounded to bf16 once, as the JAX kernel
+// does (pallas_kernels.py:1118-1142): a simple form, the staged tiles of
+// the f32 backward not carried over (at 2 bytes an element its reads of g
+// and argmax are 6 bytes an output against dx's 2 an input).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -50,9 +63,24 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <bool WITH_ARGMAX>
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <class T>
+__device__ __forceinline__ T narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+template <class T, bool WITH_ARGMAX>
 __global__ void __launch_bounds__(kThreads)
-    maxpool2d_fwd_kernel(const float* __restrict__ x, float* __restrict__ y,
+    maxpool2d_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
                          int* __restrict__ argmax, long long total, int H,
                          int W, int OH, int OW, int kh, int kw, int sh, int sw,
                          int plh, int plw) {
@@ -62,7 +90,7 @@ __global__ void __launch_bounds__(kThreads)
   const long long t = o / OW;
   const int oh = (int)(t % OH);
   const long long nc = t / OH;
-  const float* xp = x + nc * H * W;
+  const T* xp = x + nc * H * W;
   const int h0 = oh * sh - plh, w0 = ow * sw - plw;
   float best = -CUDART_INF_F;
   int arg = 0;
@@ -71,15 +99,15 @@ __global__ void __launch_bounds__(kThreads)
     const bool row_in = ih >= 0 && ih < H;
     for (int j = 0; j < kw; ++j) {
       const int iw = w0 + j;
-      const float v =
-          (row_in && iw >= 0 && iw < W) ? xp[ih * W + iw] : -CUDART_INF_F;
+      const float v = (row_in && iw >= 0 && iw < W) ? widen(xp[ih * W + iw])
+                                                    : -CUDART_INF_F;
       if ((i == 0 && j == 0) || v > best) {  // strict >: first max wins
         best = v;
         arg = i * kw + j;
       }
     }
   }
-  y[o] = best;
+  y[o] = narrow<T>(best);
   if (WITH_ARGMAX) argmax[o] = arg;
 }
 
@@ -287,6 +315,53 @@ unsigned grid_for(long long total) {
   return (unsigned)((total + kThreads - 1) / kThreads);
 }
 
+// The bf16 backward: dx[e] of one (n, c, ih, iw) a thread, the g of its
+// covering outputs whose argmax names it summed in f32 in (oh, ow) order.
+__global__ void __launch_bounds__(kThreads)
+    maxpool2d_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ g,
+                              const int* __restrict__ argmax,
+                              __nv_bfloat16* __restrict__ dx, Geom gm,
+                              long long total) {
+  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= total) return;
+  const int iw = (int)(e % gm.W);
+  const long long t = e / gm.W;
+  const int ih = (int)(t % gm.H);
+  const long long nc = t / gm.H;
+  const int ph = ih + gm.plh, pw = iw + gm.plw;
+  const int2 rb = cover(ph, gm.kh, gm.sh, gm.OH);
+  const int2 cb = cover(pw, gm.kw, gm.sw, gm.OW);
+  const size_t base = (size_t)nc * gm.OH * gm.OW;
+  float acc = 0.0f;
+  for (int oh = rb.x; oh <= rb.y; ++oh) {
+    const int i = ph - oh * gm.sh;
+    const size_t o = base + (size_t)oh * gm.OW;
+    for (int ow = cb.x; ow <= cb.y; ++ow)
+      if (argmax[o + ow] == i * gm.kw + (pw - ow * gm.sw))
+        acc += __bfloat162float(g[o + ow]);
+  }
+  dx[e] = __float2bfloat16_rn(acc);
+}
+
+template <class T>
+int launch_fwd(const T* x, T* y, int* argmax, long long NC, int H, int W,
+               int OH, int OW, int kh, int kw, int sh, int sw, int plh,
+               int plw, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long total = NC * OH * OW;
+  if (argmax != nullptr)
+    maxpool2d_fwd_kernel<T, true><<<grid_for(total), kThreads, 0, st>>>(
+        x, y, argmax, total, H, W, OH, OW, kh, kw, sh, sw, plh, plw);
+  else
+    maxpool2d_fwd_kernel<T, false><<<grid_for(total), kThreads, 0, st>>>(
+        x, y, nullptr, total, H, W, OH, OW, kh, kw, sh, sw, plh, plw);
+  return (int)cudaGetLastError();
+}
+
+using bf16 = __nv_bfloat16;
+
 }  // namespace
 
 extern "C" {
@@ -297,16 +372,34 @@ int bigdl_maxpool2d_fwd_f32(const float* x, float* y, int* argmax, long long NC,
                             int H, int W, int OH, int OW, int kh, int kw, int sh,
                             int sw, int plh, int plw, int device,
                             void* stream) {
+  return launch_fwd(x, y, argmax, NC, H, W, OH, OW, kh, kw, sh, sw, plh, plw,
+                    device, stream);
+}
+
+// The bf16 form of the forward: x and y bf16.
+int bigdl_maxpool2d_fwd_bf16(const bf16* x, bf16* y, int* argmax,
+                             long long NC, int H, int W, int OH, int OW,
+                             int kh, int kw, int sh, int sw, int plh, int plw,
+                             int device, void* stream) {
+  return launch_fwd(x, y, argmax, NC, H, W, OH, OW, kh, kw, sh, sw, plh, plw,
+                    device, stream);
+}
+
+// The bf16 form of the backward: g and dx bf16, one launch of one thread
+// a dx element.
+int bigdl_maxpool2d_bwd_bf16(const bf16* g, const int* argmax, bf16* dx,
+                             long long NC, int H, int W, int OH, int OW,
+                             int kh, int kw, int sh, int sw, int plh, int plw,
+                             int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long total = NC * OH * OW;
-  if (argmax != nullptr)
-    maxpool2d_fwd_kernel<true><<<grid_for(total), kThreads, 0, st>>>(
-        x, y, argmax, total, H, W, OH, OW, kh, kw, sh, sw, plh, plw);
-  else
-    maxpool2d_fwd_kernel<false><<<grid_for(total), kThreads, 0, st>>>(
-        x, y, nullptr, total, H, W, OH, OW, kh, kw, sh, sw, plh, plw);
+  const long long total = NC * H * W;
+  if (total == 0) return 0;
+  if ((long long)OH * OW > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const Geom gm{H, W, OH, OW, kh, kw, sh, sw, plh, plw};
+  maxpool2d_bwd_bf16_kernel<<<grid_for(total), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      g, argmax, dx, gm, total);
   return (int)cudaGetLastError();
 }
 

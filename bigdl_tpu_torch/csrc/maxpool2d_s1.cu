@@ -1,5 +1,5 @@
-// Stride-1 NCHW max pooling, forward and backward, fp32, for Hopper
-// (sm_90a).
+// Stride-1 NCHW max pooling, forward and backward, fp32 and bf16, for
+// Hopper (sm_90a).
 //
 // Replaces bigdl_tpu/ops/pallas_kernels.py `_maxpool_fwd_kernel` (:197)
 // and `_maxpool_bwd_kernel` (:214), the pair behind `maxpool2d` (:311).
@@ -75,7 +75,17 @@
 //   window so tall that no band of one row fits takes the unstaged
 //   kernels, which read x from device memory tap by tap.  Nothing raises
 //   for a shape.
+//
+// The bf16 forms (the pool under a reduced dtype policy; the JAX kernels
+// on bf16 I/O, pallas_kernels.py:196-246): x, y, g and dx bf16, compared
+// and summed in f32, the sums of a dx rounded to bf16 once.  They are the
+// unstaged kernels at every shape: the bulk-copy ring stages whole
+// 16-byte granules of a group's f32 runs, and bf16 runs (a 7x7 plane is
+// 98 bytes) would need a plan of their own, which is later work.  The
+// backward recomputes each covering output's first max from x through
+// L1, kh*kw taps for each of an element's kh*kw outputs.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -580,6 +590,23 @@ __device__ __forceinline__ float x_at(const float* __restrict__ xp, int H,
                                                   : -CUDART_INF_F;
 }
 
+__device__ __forceinline__ float x_at(const __nv_bfloat16* __restrict__ xp,
+                                      int H, int W, int ih, int iw) {
+  return (ih >= 0 && ih < H && iw >= 0 && iw < W)
+             ? __bfloat162float(xp[(long long)ih * W + iw])
+             : -CUDART_INF_F;
+}
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 // The first maximum of the window whose top-left tap `at(0, 0)` names:
 // strict >, so the first max wins a tie and a NaN counts only at tap 0.
 template <class At>
@@ -599,33 +626,36 @@ __device__ __forceinline__ int first_max(At at, int kh, int kw,
   return arg;
 }
 
-// Unstaged forms, for windows no band of shared memory can hold.
+// Unstaged forms, for windows no band of shared memory can hold, and the
+// bf16 forms at every shape (T: the element type of x, y, g and dx).
+template <class T>
 __global__ void __launch_bounds__(256)
-    s1_fwd_direct(const float* __restrict__ x, float* __restrict__ y, Geom g) {
+    s1_fwd_direct(const T* __restrict__ x, T* __restrict__ y, Geom g) {
   const long long total = g.NC * g.OH * g.OW;
   for (long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        o < total; o += (long long)gridDim.x * blockDim.x) {
     const int ow = (int)(o % g.OW), oh = (int)(o / g.OW % g.OH);
-    const float* xp = x + o / ((long long)g.OH * g.OW) * g.H * g.W;
+    const T* xp = x + o / ((long long)g.OH * g.OW) * g.H * g.W;
     float best;
     first_max(
         [&](int i, int j) {
           return x_at(xp, g.H, g.W, oh - g.plh + i, ow - g.plw + j);
         },
         g.kh, g.kw, &best);
-    y[o] = best;
+    put(y + o, best);
   }
 }
 
+template <class T>
 __global__ void __launch_bounds__(256)
-    s1_bwd_direct(const float* __restrict__ x, const float* __restrict__ gy,
-                  float* __restrict__ dx, Geom g) {
+    s1_bwd_direct(const T* __restrict__ x, const T* __restrict__ gy,
+                  T* __restrict__ dx, Geom g) {
   const long long total = g.NC * g.H * g.W;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        e < total; e += (long long)gridDim.x * blockDim.x) {
     const int iw = (int)(e % g.W), ih = (int)(e / g.W % g.H);
     const long long nc = e / ((long long)g.H * g.W);
-    const float* xp = x + nc * g.H * g.W;
+    const T* xp = x + nc * g.H * g.W;
     float acc = 0.0f;
     for (int i = 0; i < g.kh; ++i)
       for (int j = 0; j < g.kw; ++j) {
@@ -637,9 +667,10 @@ __global__ void __launch_bounds__(256)
               return x_at(xp, g.H, g.W, oh - g.plh + ti, ow - g.plw + tj);
             },
             g.kh, g.kw, &best);
-        if (tap == i * g.kw + j) acc += gy[(nc * g.OH + oh) * g.OW + ow];
+        if (tap == i * g.kw + j)
+          acc += widen(gy[(nc * g.OH + oh) * g.OW + ow]);
       }
-    dx[e] = acc;
+    put(dx + e, acc);
   }
 }
 
@@ -810,7 +841,8 @@ int bigdl_maxpool2d_s1_fwd_f32(const float* x, float* y, long long NC, int H,
   const Geom g = make_geom(p, NC, H, W, OH, OW, kh, kw, plh, plw);
   if (p.path == kDirect) {
     const long long total = NC * OH * OW;
-    s1_fwd_direct<<<grid_cap((total + 255) / 256), 256, 0, st>>>(x, y, g);
+    s1_fwd_direct<float><<<grid_cap((total + 255) / 256), 256, 0, st>>>(x, y,
+                                                                       g);
   } else {
     auto kernel = (kh == 3 && kw == 3) ? s1_fwd_staged<3, 3>
                                        : s1_fwd_staged<0, 0>;
@@ -835,8 +867,8 @@ int bigdl_maxpool2d_s1_bwd_f32(const float* x, const float* gy, float* dx,
   const Geom g = make_geom(p, NC, H, W, OH, OW, kh, kw, plh, plw);
   if (p.path == kDirect) {
     const long long total = NC * H * W;
-    s1_bwd_direct<<<grid_cap((total + 255) / 256), 256, 0, st>>>(x, gy, dx,
-                                                                 g);
+    s1_bwd_direct<float><<<grid_cap((total + 255) / 256), 256, 0, st>>>(
+        x, gy, dx, g);
   } else {
     auto kernel = (kh == 3 && kw == 3) ? s1_bwd_staged<3, 3, uint8_t>
                   : tap_bytes(kh, kw) == 1 ? s1_bwd_staged<0, 0, uint8_t>
@@ -846,6 +878,39 @@ int bigdl_maxpool2d_s1_bwd_f32(const float* x, const float* gy, float* dx,
     if (err != cudaSuccess) return (int)err;
     kernel<<<grid, p.threads, p.smem, st>>>(x, gy, dx, g);
   }
+  return (int)cudaGetLastError();
+}
+
+// The bf16 forms: x, y (forward), g and dx (backward) bf16, the unstaged
+// kernels at every shape.
+int bigdl_maxpool2d_s1_fwd_bf16(const __nv_bfloat16* x, __nv_bfloat16* y,
+                                long long NC, int H, int W, int OH, int OW,
+                                int kh, int kw, int plh, int plw, int device,
+                                void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (NC == 0 || OH == 0 || OW == 0) return 0;
+  const Geom g = make_geom(Plan{}, NC, H, W, OH, OW, kh, kw, plh, plw);
+  const long long total = NC * OH * OW;
+  s1_fwd_direct<__nv_bfloat16>
+      <<<grid_cap((total + 255) / 256), 256, 0,
+         static_cast<cudaStream_t>(stream)>>>(x, y, g);
+  return (int)cudaGetLastError();
+}
+
+int bigdl_maxpool2d_s1_bwd_bf16(const __nv_bfloat16* x,
+                                const __nv_bfloat16* gy, __nv_bfloat16* dx,
+                                long long NC, int H, int W, int OH, int OW,
+                                int kh, int kw, int plh, int plw, int device,
+                                void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (NC == 0 || H == 0 || W == 0) return 0;
+  const Geom g = make_geom(Plan{}, NC, H, W, OH, OW, kh, kw, plh, plw);
+  const long long total = NC * H * W;
+  s1_bwd_direct<__nv_bfloat16>
+      <<<grid_cap((total + 255) / 256), 256, 0,
+         static_cast<cudaStream_t>(stream)>>>(x, gy, dx, g);
   return (int)cudaGetLastError();
 }
 

@@ -54,8 +54,19 @@
 // function of (cell, D, B, H) alone (`make_plan`), mirrored by
 // ops/_recurrence.py `cluster_plan`; a launch that is refused returns its
 // cudaError_t, and nothing retries with another plan.
+//
+// A cell may name the element type of its weight (`WT`) and of its
+// input stack 0 (`XT`), float where it names none.  A bf16 weight (the
+// bf16 form of the LSTM cells) is held as bf16 in shared memory (half
+// the f32 slice, so the plan and the largest H differ from f32's), and
+// each product rounds the state value to bf16 where it meets the weight,
+// summing the exact products in f32: the value exchanged, stored and
+// used by the update stays f32, as in the JAX kernels (`h.astype(
+// wht.dtype)` at the dot only).  A bf16 input stack is prefetched as
+// bf16 into the upper part of a ring stage and widened where it is read.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -106,16 +117,17 @@ struct In {
 // phase's V values a unit, and its update(x, z, loc, y) may read and
 // write the unit's L local values.
 struct Args {
-  const float* in[4];   // the cell's input stacks
-  const float* w;       // (D, H, G*V*H): wht, read transposed (kWeightT);
-                        // a two-phase cell's phase 0 weight
+  const void* in[4];    // the cell's input stacks (stack 0 of XT, the
+                        // others float)
+  const void* w;        // (D, H, G*V*H) of WT: wht, read transposed
+                        // (kWeightT); a two-phase cell's phase 0 weight
   const float* h0;      // (D, B, H) initial state (V = 1), null for zeros
   const float* c0;      // (D, B, H) initial cell state, null for zeros
   float* out;           // (T, D, B, V*H): the state, value v at v*H + u
                         // (a two-phase cell: phase 1's)
   float* cout;          // (T, D, B, H) the cell state (kHasC), or null
   Dims dm;
-  const float* w1;      // a two-phase cell's phase 1 weight
+  const void* w1;       // a two-phase cell's phase 1 weight (WT)
   float* mid;           // (T, D, B, V*H) its phase 0 state, or null
   const float* prev0;   // (D, B, width*H): what an input reads at a step
                         // before 0 (a carried c0 or h0), null for zeros
@@ -135,6 +147,24 @@ __host__ __device__ constexpr bool reads_prev() {
     if (Cell::input(q).shift < 0) return true;
   return false;
 }
+
+// The element types of a cell's weight and of its input stack 0.
+template <class Cell, class = void>
+struct WeightOf {
+  using type = float;
+};
+template <class Cell>
+struct WeightOf<Cell, std::void_t<typename Cell::WT>> {
+  using type = typename Cell::WT;
+};
+template <class Cell, class = void>
+struct Stack0Of {
+  using type = float;
+};
+template <class Cell>
+struct Stack0Of<Cell, std::void_t<typename Cell::XT>> {
+  using type = typename Cell::XT;
+};
 
 template <class Cell, class = void>
 struct TakesAct : std::false_type {};
@@ -206,15 +236,23 @@ __host__ __device__ constexpr int max_gv() {
                                              : weights1<Cell>();
 }
 
+// A weight slice of H rows of `ws` elements of WT, in floats, rounded
+// up to whole 16-byte granules.
+template <class WT>
+__host__ __device__ inline long long slice_floats(int H, int ws) {
+  return ((long long)H * ws * (long long)sizeof(WT) + 15) / 16 * 4;
+}
+
 // Shared memory of a block of `Cell`, in floats, at `depth` ring
 // stages: the states (one phase: two buffers), the local values, the
 // weight slices when staged, the ring.
 template <class Cell>
 inline long long smem_floats(int H, int R, int C, bool staged, int depth) {
   using Ps = Phases<Cell>;
+  using WT = typename WeightOf<Cell>::type;
   const long long S = (H + C - 1) / C;
   const auto slice = [&](int gv) {
-    return ((long long)H * w_stride((int)S, gv) + 3) / 4 * 4;
+    return slice_floats<WT>(H, w_stride((int)S, gv));
   };
   return round4(Ps::P0::V * H * R) + round4(Ps::P1::V * H * R) +
          round4((int)(Ps::L * R * S)) +
@@ -300,6 +338,13 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                "l"(src));
 }
 
+__device__ __forceinline__ void cp_async8(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src));
+}
+
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
@@ -376,7 +421,8 @@ __device__ __forceinline__ void load_rt(const float* a, float (&v)[RT]) {
 }
 
 // The N weights w[n] = wp[n * gs] of a unit at one reduction index (n =
-// g * V + v), from shared memory (STAGED, gs = 1) or through L2.
+// g * V + v), from shared memory (STAGED, gs = 1) or through L2, widened
+// to float.
 template <int N, bool STAGED>
 __device__ __forceinline__ void load_w(const float* wp, int gs,
                                        float (&w)[N]) {
@@ -389,15 +435,48 @@ __device__ __forceinline__ void load_w(const float* wp, int gs,
   }
 }
 
+template <int N, bool STAGED>
+__device__ __forceinline__ void load_w(const __nv_bfloat16* wp, int gs,
+                                       float (&w)[N]) {
+  if constexpr (STAGED && N == 4) {
+    // four bf16 in one 8-byte load (the slice's rows are 8-byte aligned)
+    const uint2 u = *reinterpret_cast<const uint2*>(wp);
+    const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+    w[0] = __low2float(lo); w[1] = __high2float(lo);
+    w[2] = __low2float(hi); w[3] = __high2float(hi);
+  } else {
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+      w[n] = __bfloat162float(STAGED ? wp[n] : __ldg(wp + n * gs));
+  }
+}
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// A state value as a product with a WT weight takes it: rounded to bf16
+// against a bf16 weight (exact products, summed in f32), as it is else.
+template <class WT>
+__device__ __forceinline__ float at_product(float v) {
+  if constexpr (std::is_same_v<WT, __nv_bfloat16>) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  } else {
+    return v;
+  }
+}
+
 // acc[r][g] += sum over this lane's nm units and their V values of
 // h[v][r] * w[g * V + v], the unit i's state rows at hp + i * hstep (value
 // v at + v * vstep) and its weights at wp + i * wstep (stride gs between
 // them): runs of kChunk units summed from zero, runs of kChunk runs from
 // zero, then their total.  Units are loaded U at a time before their
 // multiply-adds, which keep the order of i, then v.
-template <int G, int V, int RT, bool STAGED>
+template <int G, int V, int RT, bool STAGED, class WT>
 __device__ __forceinline__ void lane_dot(const float* hp, int hstep,
-                                         int vstep, const float* wp,
+                                         int vstep, const WT* wp,
                                          int wstep, int gs, int nm,
                                          float (&acc)[RT][G]) {
   constexpr int N = G * V, L = N + V * RT;   // values loaded a unit
@@ -415,8 +494,12 @@ __device__ __forceinline__ void lane_dot(const float* hp, int hstep,
         for (int q = 0; q < U; ++q) {
           load_w<N, STAGED>(wp + q * wstep, gs, w[q]);
 #pragma unroll
-          for (int v = 0; v < V; ++v)
+          for (int v = 0; v < V; ++v) {
             load_rt<RT>(hp + q * hstep + v * vstep, h[q][v]);
+#pragma unroll
+            for (int r = 0; r < RT; ++r)
+              h[q][v][r] = at_product<WT>(h[q][v][r]);
+          }
         }
 #pragma unroll
         for (int q = 0; q < U; ++q)
@@ -434,7 +517,11 @@ __device__ __forceinline__ void lane_dot(const float* hp, int hstep,
         float w[N], h[V][RT];
         load_w<N, STAGED>(wp, gs, w);
 #pragma unroll
-        for (int v = 0; v < V; ++v) load_rt<RT>(hp + v * vstep, h[v]);
+        for (int v = 0; v < V; ++v) {
+          load_rt<RT>(hp + v * vstep, h[v]);
+#pragma unroll
+          for (int r = 0; r < RT; ++r) h[v][r] = at_product<WT>(h[v][r]);
+        }
 #pragma unroll
         for (int v = 0; v < V; ++v)
 #pragma unroll
@@ -478,7 +565,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   using Ps = Phases<Cell>;
   using P0 = typename Ps::P0;
   using P1 = typename Ps::P1;
+  using WT = typename WeightOf<Cell>::type;
+  using XT = typename Stack0Of<Cell>::type;
   constexpr int NP = Ps::n, E = Cell::E, L = Ps::L;
+  // a bf16 stack 0 feeds every input (the LSTM forward's zx)
+  constexpr bool kX16 = std::is_same_v<XT, __nv_bfloat16>;
+  static_assert(!kX16 || (!reads_prev<Cell>() && E >= 2),
+                "a bf16 input stack is read at its own step only, and its "
+                "E x R x S bf16 fit a stage beside input 0's floats");
   static_assert((P0::V == 1 || P1::kWeightT) && (P1::V == 1 || P0::kWeightT),
                 "a product over V > 1 values a unit reads the weight's rows");
   extern __shared__ float4 smem4[];
@@ -500,13 +594,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* s1 = smem;
   float* s0 = s1 + round4(P1::V * H * R);
   float* loc_s = s0 + round4(P0::V * H * R);                // [L][R][S]
-  float* w0_s = loc_s + round4(L * R * S);                  // [H][ws0]
-  float* w1_s = w0_s + (STAGED ? round4(H * ws0) : 0);      // [H][ws1]
-  float* ring = w1_s + (STAGED && NP == 2 ? round4(H * ws1) : 0);
-  const int stage = round4(E * R * S);                      // [P][E][R][S]
-  const float* W0 = a.w + (size_t)d * H * weights0<Cell>() * H;
-  const float* W1 =
-      NP == 2 ? a.w1 + (size_t)d * H * weights1<Cell>() * H : W0;
+  float* w0_f = loc_s + round4(L * R * S);
+  float* w1_f = w0_f + (STAGED ? slice_floats<WT>(H, ws0) : 0);
+  WT* w0_s = reinterpret_cast<WT*>(w0_f);                   // [H][ws0]
+  WT* w1_s = reinterpret_cast<WT*>(w1_f);                   // [H][ws1]
+  float* ring = w1_f + (STAGED && NP == 2 ? slice_floats<WT>(H, ws1) : 0);
+  // [P][E][R][S] floats; a bf16 stack's [E][R][S] bf16 from float R * S
+  // of its stage, clear of input 0's slots, where the update stores c
+  const int stage = round4(E * R * S);
+  const WT* W0 =
+      static_cast<const WT*>(a.w) + (size_t)d * H * weights0<Cell>() * H;
+  const WT* W1 =
+      NP == 2 ? static_cast<const WT*>(a.w1) +
+                    (size_t)d * H * weights1<Cell>() * H
+              : W0;
 
   // h0 (or zeros), the local values from c0 or h0 (or zeros) and the
   // weight slices join step 0's copy group
@@ -529,7 +630,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
   // phase `ph`'s weight slice, reading the values of phase `pr`'s state
-  const auto stage_w = [&](auto ph, auto pr, const float* W, float* w_s,
+  // (a bf16 weight copied element by element: cp.async moves 4 bytes at
+  // least, and the slice gathers scattered elements)
+  const auto stage_w = [&](auto ph, auto pr, const WT* W, WT* w_s,
                            int ws) {
     using Ph = typename decltype(ph)::type;
     constexpr int G = Ph::G, V = decltype(pr)::type::V, N = G * V;
@@ -538,13 +641,18 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int j = jn / N, n = jn - j * N;
       const int g = n / V, v = n - g * V;
       const int u = u0 + j;
-      float* dst = w_s + (size_t)m * ws + jn;
-      if (j < sb) {
-        cp_async4(dst, Ph::kWeightT
-                           ? W + (size_t)(g * H + u) * (V * H) + v * H + m
-                           : W + (size_t)m * G * H + g * H + u);
+      WT* dst = w_s + (size_t)m * ws + jn;
+      const WT* src = Ph::kWeightT
+                          ? W + (size_t)(g * H + u) * (V * H) + v * H + m
+                          : W + (size_t)m * G * H + g * H + u;
+      if constexpr (std::is_same_v<WT, float>) {
+        if (j < sb) {
+          cp_async4(dst, src);
+        } else {
+          *dst = 0.0f;
+        }
       } else {
-        *dst = 0.0f;
+        *dst = j < sb ? *src : __float2bfloat16_rn(0.0f);
       }
     }
   };
@@ -570,8 +678,32 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int q = qr / rows, r = qr - q * rows;
         const In in = Cell::input(q);
         int ti = t + in.shift;
+        if constexpr (kX16) {
+          // four bf16 (8 bytes) a copy where aligned, else one at a time
+          __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(stg + R * S) +
+                               ((size_t)q * R + r) * S + (vec ? 4 * i : i);
+          if (ti < 0 || ti >= dm.T) {
+            if (vec) {
+              *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
+            } else {
+              *dst = __float2bfloat16_rn(0.0f);
+            }
+            continue;
+          }
+          const __nv_bfloat16* src =
+              static_cast<const __nv_bfloat16*>(a.in[in.a]) +
+              (((size_t)ti * dm.D + d) * dm.B + b0 + r) *
+                  ((size_t)in.width * H) +
+              (size_t)in.v * H + u0 + (vec ? 4 * i : i);
+          if (vec) {
+            cp_async8(dst, src);
+          } else {
+            *dst = *src;
+          }
+          continue;
+        }
         float* dst = stg + ((size_t)q * R + r) * S + (vec ? 4 * i : i);
-        const float* stack = a.in[in.a];
+        const float* stack = static_cast<const float*>(a.in[in.a]);
         if (kReadsPrev && ti < 0 && a.prev0 != nullptr) {
           stack = a.prev0;   // one (D, B, width * H) step
           ti = 0;
@@ -617,10 +749,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   // the butterflies and the owners' updates into `nxt`, inputs from stage
   // `st`
   const auto run = [&](auto ph, auto pr, const float* cur, float* nxt,
-                       const float* W, const float* w_s, int ws, float* st) {
+                       const WT* W, const WT* w_s, int ws, float* st) {
     using Ph = typename decltype(ph)::type;
     constexpr int G = Ph::G, VI = decltype(pr)::type::V, V = Ph::V;
     constexpr int N = G * VI;
+    const __nv_bfloat16* st16 =
+        reinterpret_cast<const __nv_bfloat16*>(st + R * S);
     // a lane's weight steps: between its units, and between its weights
     const int wstep = STAGED ? KP * ws : (Ph::kWeightT ? KP : KP * G * H);
     const int gs = STAGED ? 1 : H;
@@ -630,13 +764,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       float acc[RT][G] = {};
       if (live && kp < H) {
         const int u = u0 + j;
-        const float* wp =
+        const WT* wp =
             STAGED ? w_s + kp * ws + j * N
                    : (Ph::kWeightT ? W + (size_t)u * (VI * H) + kp
                                    : W + (size_t)kp * G * H + u);
-        lane_dot<G, VI, RT, STAGED>(cur + kp * VI * R + rt0, KP * VI * R, R,
-                                    wp, wstep, gs, (H - kp + KP - 1) / KP,
-                                    acc);
+        lane_dot<G, VI, RT, STAGED, WT>(cur + kp * VI * R + rt0, KP * VI * R,
+                                        R, wp, wstep, gs,
+                                        (H - kp + KP - 1) / KP, acc);
       }
       for (int o = KP / 2; o >= 1; o >>= 1)
 #pragma unroll
@@ -653,7 +787,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           if (r < rows) {
             float x[E];
 #pragma unroll
-            for (int q = 0; q < E; ++q) x[q] = st[((size_t)q * R + r) * S + j];
+            for (int q = 0; q < E; ++q)
+              x[q] = kX16 ? __bfloat162float(st16[((size_t)q * R + r) * S + j])
+                          : st[((size_t)q * R + r) * S + j];
             float lv[L > 0 ? L : 1] = {};
 #pragma unroll
             for (int l = 0; l < L; ++l) lv[l] = loc_s[(l * R + r) * S + j];

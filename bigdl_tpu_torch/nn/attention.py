@@ -15,6 +15,12 @@ The attention also has a tensor-parallel form: with ``model_axis`` set
 of ``wq/wk/wv/wo``, stored (in, out), so its part of each product's
 input: each projection is this rank's columns of the input times its
 rows, summed over the axis (row-parallel), the bias added after.
+
+Under a reduced dtype policy (bigdl_tpu/nn/attention.py:60-91) the
+projections take their operands in the compute dtype and stay in it,
+their biases too, through the attention core, whose scores and softmax
+statistics are f32 (``full_attention``, the ring); the output projection
+comes back in the output dtype before its bias.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from bigdl_tpu_torch.nn.module import TensorModule
 from bigdl_tpu_torch.parallel import collectives as coll
 from bigdl_tpu_torch.parallel.ring_attention import (full_attention,
                                                      ring_attention)
+from bigdl_tpu_torch.tensor import policy
 
 
 class MultiHeadSelfAttention(TensorModule):
@@ -55,14 +62,18 @@ class MultiHeadSelfAttention(TensorModule):
         axis = self.model_axis
         if axis is not None and axis.size == 1:
             axis = None
+        p = policy()
 
         def product(a, w):
+            if p.reduced:
+                a, w = p.cast_compute(a), p.cast_compute(w)
             if axis is None:
                 return a @ w
             return coll.sum_forward(coll.split_dim(a, axis, -1) @ w, axis)
 
         def proj(w, bias):
-            return (product(x, w) + bias).reshape(b, t, h, d // h)
+            y = product(x, w)
+            return (y + bias.to(y.dtype)).reshape(b, t, h, d // h)
 
         q, k, v = (proj(self.wq, self.bq), proj(self.wk, self.bk),
                    proj(self.wv, self.bv))
@@ -71,7 +82,8 @@ class MultiHeadSelfAttention(TensorModule):
             o = ring_attention(q, k, v, ring, causal=self.causal)
         else:
             o = full_attention(q, k, v, causal=self.causal)
-        return product(o.reshape(b, t, d), self.wo) + self.bo
+        y = product(o.reshape(b, t, d), self.wo)
+        return (y.to(p.output_dtype) if p.reduced else y) + self.bo
 
     def extra_repr(self) -> str:
         return (f"{self.d_model}, heads={self.n_heads}"

@@ -4,8 +4,8 @@ SpatialFullConvolution and SpatialConvolutionMap (ref
 SpatialConvolution.scala:31 and its siblings).
 
 The JAX package convolves outside any Pallas kernel (XLA), so the port
-calls ``F.conv2d`` and ``F.conv_transpose2d``; TF32 stays off on the
-card (``utils.device.pin_fp32``).  The TPU-only forms of the JAX module
+calls ``F.conv2d`` and ``F.conv_transpose2d``, under the dtype policy
+(``_conv``); TF32 stays off on the card (``utils.device.pin_fp32``).  The TPU-only forms of the JAX module
 (the 1x1-as-dot and space-to-depth stem rewrites) are not ported: they
 are the same math.
 """
@@ -20,7 +20,24 @@ import torch.nn.functional as F
 from bigdl_tpu_torch.nn import init as init_
 from bigdl_tpu_torch.nn.module import TensorModule, device_constant
 from bigdl_tpu_torch.parallel import collectives as coll
+from bigdl_tpu_torch.tensor import policy
 from bigdl_tpu_torch.utils.device import resolve_device
+
+
+def _conv(fn, x, weight, bias=None, **kw):
+    """``fn`` (``F.conv2d`` or ``F.conv_transpose2d``) under the dtype
+    policy (bigdl_tpu/nn/conv.py ``_conv``): under a reduced policy both
+    operands in the compute dtype, the result in the output dtype, then
+    the bias added (an f32 bias promotes a bf16 result to f32, as in the
+    JAX package).  No f32 accumulation type is asked for, as there:
+    cuDNN accumulates a bf16 convolution in f32 and returns bf16, the
+    same function.  Under FP32 the plain call."""
+    p = policy()
+    if not p.reduced:
+        return fn(x, weight, bias, **kw)
+    y = fn(p.cast_compute(x), p.cast_compute(weight), **kw).to(
+        p.output_dtype)
+    return y if bias is None else y + bias.view(1, -1, 1, 1)
 
 
 class SpatialConvolution(TensorModule):
@@ -89,13 +106,12 @@ class SpatialConvolution(TensorModule):
         x = x[None] if was3d else x
         axis = self.model_axis
         if axis is None or axis.size == 1:
-            y = F.conv2d(x, self.weight, self.bias,
-                         stride=(self.stride_h, self.stride_w),
-                         padding=(self.pad_h, self.pad_w),
-                         groups=self.n_group)
+            y = _conv(F.conv2d, x, self.weight, self.bias,
+                      stride=(self.stride_h, self.stride_w),
+                      padding=(self.pad_h, self.pad_w), groups=self.n_group)
         else:
-            y = coll.gather_dim(F.conv2d(
-                coll.sum_grad(x, axis), self.weight,
+            y = coll.gather_dim(_conv(
+                F.conv2d, coll.sum_grad(x, axis), self.weight,
                 stride=(self.stride_h, self.stride_w),
                 padding=(self.pad_h, self.pad_w)), axis, 1)
             if self.bias is not None:
@@ -153,9 +169,9 @@ class SpatialDilatedConvolution(TensorModule):
 
     def forward(self, x):
         x, was3d = _batched(x)
-        y = F.conv2d(x, self.weight, self.bias, stride=(self.dh, self.dw),
-                     padding=(self.pad_h, self.pad_w),
-                     dilation=(self.dilation_h, self.dilation_w))
+        y = _conv(F.conv2d, x, self.weight, self.bias,
+                  stride=(self.dh, self.dw), padding=(self.pad_h, self.pad_w),
+                  dilation=(self.dilation_h, self.dilation_w))
         return y[0] if was3d else y
 
 
@@ -207,11 +223,10 @@ class SpatialFullConvolution(TensorModule):
 
     def forward(self, x):
         x, was3d = _batched(x)
-        y = F.conv_transpose2d(x, self.weight, self.bias,
-                               stride=(self.dh, self.dw),
-                               padding=(self.pad_h, self.pad_w),
-                               output_padding=(self.adj_h, self.adj_w),
-                               groups=self.n_group)
+        y = _conv(F.conv_transpose2d, x, self.weight, self.bias,
+                  stride=(self.dh, self.dw), padding=(self.pad_h, self.pad_w),
+                  output_padding=(self.adj_h, self.adj_w),
+                  groups=self.n_group)
         return y[0] if was3d else y
 
 
@@ -273,6 +288,6 @@ class SpatialConvolutionMap(TensorModule):
         x, was3d = _batched(x)
         w = self.weight * device_constant(self, "mask", self.mask,
                                           self.weight.device)
-        y = F.conv2d(x, w, self.bias, stride=(self.dh, self.dw),
-                     padding=(self.pad_h, self.pad_w))
+        y = _conv(F.conv2d, x, w, self.bias, stride=(self.dh, self.dw),
+                  padding=(self.pad_h, self.pad_w))
         return y[0] if was3d else y

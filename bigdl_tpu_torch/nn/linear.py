@@ -18,8 +18,34 @@ import torch.nn.functional as F
 from bigdl_tpu_torch.nn import init as init_
 from bigdl_tpu_torch.nn.module import Module, TensorModule
 from bigdl_tpu_torch.parallel import collectives as coll
+from bigdl_tpu_torch.tensor import policy
 from bigdl_tpu_torch.utils.device import resolve_device
 from bigdl_tpu_torch.utils.table import as_table
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The one matrix-product chokepoint (bigdl_tpu/nn/linear.py ``_dot``):
+    under a reduced dtype policy both operands in its compute dtype (the
+    product accumulates in f32) and the result in its output dtype; under
+    FP32 the plain product."""
+    p = policy()
+    if not p.reduced:
+        return torch.matmul(a, b)
+    return torch.matmul(p.cast_compute(a), p.cast_compute(b)).to(
+        p.output_dtype)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: torch.Tensor = None) -> torch.Tensor:
+    """x W^T + b through ``_dot``'s casts, the bias added to the result in
+    the output dtype (an f32 bias promotes a bf16 result to f32, as in
+    the JAX package)."""
+    p = policy()
+    if not p.reduced:
+        return F.linear(x, weight, bias)
+    y = F.linear(p.cast_compute(x), p.cast_compute(weight)).to(
+        p.output_dtype)
+    return y if bias is None else y + bias
 
 
 class Linear(TensorModule):
@@ -60,8 +86,8 @@ class Linear(TensorModule):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         axis = self.model_axis
         if axis is None or axis.size == 1:
-            return F.linear(x, self.weight, self.bias)
-        y = coll.gather_dim(F.linear(coll.sum_grad(x, axis), self.weight),
+            return linear(x, self.weight, self.bias)
+        y = coll.gather_dim(linear(coll.sum_grad(x, axis), self.weight),
                             axis, -1)
         return y if self.bias is None else y + self.bias
 
@@ -202,7 +228,7 @@ class MM(Module):
             a = a.transpose(-1, -2)
         if self.trans_b:
             b = b.transpose(-1, -2)
-        return torch.matmul(a, b)
+        return _dot(a, b)
 
 
 class MV(Module):
@@ -236,7 +262,7 @@ class Cosine(TensorModule):
         w = self.weight
         xn = x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-12)
         wn = w / (torch.linalg.vector_norm(w, dim=-1, keepdim=True) + 1e-12)
-        return torch.matmul(xn, wn.T)
+        return _dot(xn, wn.T)
 
 
 class Euclidean(TensorModule):

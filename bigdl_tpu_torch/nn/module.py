@@ -16,13 +16,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from bigdl_tpu_torch.tensor import default_dtype
+
 
 class Module(torch.nn.Module):
     """Base for every layer of the port."""
 
     def _add_param(self, name: str, value: torch.Tensor, device=None):
-        self.register_parameter(
-            name, torch.nn.Parameter(value.to(device)))
+        """A parameter in ``tensor.default_dtype()`` (f32 unless set
+        otherwise), as the JAX ``Module._add_param`` registers it."""
+        self.register_parameter(name, torch.nn.Parameter(
+            value.to(device=device, dtype=default_dtype())))
 
     def _add_buffer(self, name: str, value: torch.Tensor, device=None):
         """Running state under the JAX name (``running_mean``,

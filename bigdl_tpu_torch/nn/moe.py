@@ -72,7 +72,8 @@ class MoE(TensorModule):
         gate = self.gate_axis
         ranks = 1 if gate is None else gate.size
         cap = pmoe.expert_capacity(n_tok * ranks, e, self.capacity_factor)
-        route = pmoe.top1_route(xt @ self.router, e, cap, gate)
+        route = pmoe.top1_route(pmoe.router_logits(xt, self.router), e, cap,
+                                gate)
         ep = self.expert_axis
         if ep is None or ep.size == 1:
             xe, flat = pmoe.dispatch(xt, route, e, cap)

@@ -14,6 +14,24 @@ from bigdl_tpu_torch.nn.module import TensorModule, device_constant
 from bigdl_tpu_torch.ops import lrn_channel
 from bigdl_tpu_torch.parallel.collectives import (all_gather, all_reduce,
                                                   axis_size)
+from bigdl_tpu_torch.tensor import policy
+
+
+def _apply_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype a normalisation's apply runs in: the policy's compute
+    dtype for an f32 input under a reduced policy, else the input's own
+    (bigdl_tpu/nn/normalization.py ``_apply_in_compute_dtype``)."""
+    p = policy()
+    if p.compute_dtype != torch.float32 and x.dtype == torch.float32:
+        return p.compute_dtype
+    return x.dtype
+
+
+def _scaled(x, scale, shift):
+    """x * scale + shift in the apply dtype (``scale`` and ``shift`` f32,
+    broadcast), the result in x's dtype: the JAX apply chain."""
+    dt = _apply_dtype(x)
+    return (x.to(dt) * scale.to(dt) + shift.to(dt)).to(x.dtype)
 
 
 class BatchNormalization(TensorModule):
@@ -40,7 +58,15 @@ class BatchNormalization(TensorModule):
     ``jit`` takes them), ``process_group`` is the group of the ranks
     that share the batch: training then normalises by the global batch's
     statistics (:class:`_SyncBatchNorm`); it is None otherwise, and never
-    pickled."""
+    pickled.
+
+    Under a reduced dtype policy (a bf16 compute dtype) the module runs
+    the JAX arithmetic by hand: the batch statistics and the running
+    averages in f32 from the input as it came (an f32 input's statistics
+    are those of FP32, never of its bf16 rounding, which cuDNN's bf16
+    ``F.batch_norm`` would take them from), then ``x * scale + shift`` in
+    the compute dtype, cast back to the input's dtype; the synchronised
+    form too (its backward, by hand, in f32)."""
 
     n_dim = 2
 
@@ -76,31 +102,42 @@ class BatchNormalization(TensorModule):
                                      self.running_mean, self.running_var,
                                      self.eps, self.momentum,
                                      self.process_group)
-        elif self.training and x.numel() == self.n_output:
-            y = self._one_per_channel(x)
+        elif (self.training and x.numel() == self.n_output
+              or policy().compute_dtype != torch.float32):
+            y = self._by_hand(x)
         else:
             y = F.batch_norm(x, self.running_mean, self.running_var,
                              self.weight, self.bias, self.training,
                              self.momentum, self.eps)
         return y[0] if unbatched else y
 
-    def _one_per_channel(self, x):
-        """Training on one value a channel, as the JAX module computes it:
-        the mean is the value, the variance 0, and the running variance
-        decays towards 0."""
-        mean = x.reshape(self.n_output)
-        m = self.momentum
-        with torch.no_grad():
-            self.running_mean.mul_(1 - m).add_(m * mean)
-            self.running_var.mul_(1 - m)
-        shape = [1] * x.dim()
-        shape[1] = self.n_output
-        scale = torch.rsqrt(torch.zeros_like(mean) + self.eps)
+    def _by_hand(self, x):
+        """The JAX module's arithmetic as plain operations: the batch's
+        mean and biased variance in f32 (one value a channel: the value
+        and 0) moving the running ones, the variance unbiased by n /
+        max(n - 1, 1), or the running statistics in evaluation; then the
+        apply in ``_apply_dtype``."""
+        if self.training:
+            x32 = x.float() if x.dtype != torch.float32 else x
+            axes = _stat_axes(x)
+            mean = x32.mean(axes)
+            var = x32.var(axes, unbiased=False)
+            n = x.numel() / self.n_output
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.mul_(1 - m).add_(m * mean)
+                self.running_var.mul_(1 - m).add_(
+                    m * var * (n / max(n - 1, 1.0)))
+        else:
+            mean, var = self.running_mean, self.running_var
+        scale = torch.rsqrt(var + self.eps)
         shift = -mean * scale
         if self.affine:
             scale = scale * self.weight
             shift = shift * self.weight + self.bias
-        return x * scale.reshape(shape) + shift.reshape(shape)
+        shape = [1] * x.dim()
+        shape[1] = self.n_output
+        return _scaled(x, scale.reshape(shape), shift.reshape(shape))
 
     def extra_repr(self) -> str:
         return f"{self.n_output}, eps={self.eps}, momentum={self.momentum}"
@@ -155,7 +192,7 @@ class _SyncBatchNorm(torch.autograd.Function):
             shift = shift * weight + bias
         ctx.save_for_backward(x, mean, inv, weight)
         ctx.n, ctx.group = n, group
-        return x * _per_channel(scale, x) + _per_channel(shift, x)
+        return _scaled(x, _per_channel(scale, x), _per_channel(shift, x))
 
     @staticmethod
     def backward(ctx, dy):
@@ -207,6 +244,18 @@ class LayerNorm(TensorModule):
             self._add_param("bias", torch.zeros(d_model), device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if policy().compute_dtype != torch.float32:
+            # the JAX arithmetic: f32 statistics, the scale and shift
+            # applied in the compute dtype
+            x32 = x.float()
+            mean = x32.mean(dim=-1, keepdim=True)
+            scale = torch.rsqrt(x32.var(dim=-1, unbiased=False,
+                                        keepdim=True) + self.eps)
+            shift = -mean * scale
+            if self.affine:
+                scale = scale * self.weight
+                shift = shift * self.weight + self.bias
+            return _scaled(x, scale, shift)
         w, b = (self.weight, self.bias) if self.affine else (1.0, 0.0)
         return layer_norm(x.float(), w, b, self.eps).to(x.dtype)
 
@@ -217,8 +266,10 @@ class SpatialCrossMapLRN(TensorModule):
     y = x / (k + alpha/size * sum_{window} x^2) ** beta, the window of
     ``size`` channels padded ((size-1)//2, size-1-lo).  Every NCHW input
     (or one CHW sample) goes through ``ops.lrn_channel``: the hand-written
-    kernel pair on the card, the plain version on the CPU.  The JAX
-    module's route flags and its compute-dtype cast are not ported."""
+    kernel pair on the card, the plain version on the CPU.  Under a
+    reduced dtype policy an f32 input runs in the compute dtype (the
+    kernels' bf16 forms) and comes back f32, as the JAX module's chain
+    does; its route flags are not ported."""
 
     def __init__(self, size: int = 5, alpha: float = 1.0, beta: float = 0.75,
                  k: float = 1.0):
@@ -230,8 +281,9 @@ class SpatialCrossMapLRN(TensorModule):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         was3d = x.dim() == 3
-        y = lrn_channel((x[None] if was3d else x).contiguous(), self.size,
-                        self.alpha, self.beta, self.k)
+        dt = _apply_dtype(x)
+        y = lrn_channel((x[None] if was3d else x).to(dt).contiguous(),
+                        self.size, self.alpha, self.beta, self.k).to(x.dtype)
         return y[0] if was3d else y
 
     def extra_repr(self) -> str:

@@ -10,9 +10,14 @@ the next layer keeps anyway: no argmax is stored), every other through
 the first-max tie rule of the JAX package's Mosaic route and its NaN rule
 (a NaN counts only at a window's first tap), so the module's answer does
 not depend on which kernel runs.  None of the JAX module's TPU route
-flags is ported.  Ceil-mode output sizing follows Torch: the last window
-may start in the padding but must begin inside the input plus its left
-pad.
+flags is ported.  Under a reduced dtype policy an f32 input is pooled in
+the compute dtype (the kernels' bf16 forms) and the result cast back, as
+the JAX ``_max_pool2d`` does: the max of bf16 values is the bf16 of the
+f32 max, so only the argmax of a rounding tie can differ; a bf16 input
+is pooled as it is, and an input of any other dtype is never cast.
+
+Ceil-mode output sizing follows Torch: the last window may start in the
+padding but must begin inside the input plus its left pad.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn.module import Module, TensorModule
 from bigdl_tpu_torch.ops import maxpool2d, maxpool2d_s1
+from bigdl_tpu_torch.tensor import policy
 from bigdl_tpu_torch.utils.table import as_table
 
 
@@ -63,11 +69,14 @@ class SpatialMaxPooling(TensorModule):
         if was3d:
             x = x[None]
         pads = _pads(self, x.shape[2:])
-        x = x.contiguous()
+        p = policy()
+        cast = x.dtype == torch.float32 and p.compute_dtype != torch.float32
+        xin = (x.to(p.compute_dtype) if cast else x).contiguous()
         if (self.dh, self.dw) == (1, 1):
-            y = maxpool2d_s1(x, (self.kh, self.kw), pads)
+            y = maxpool2d_s1(xin, (self.kh, self.kw), pads)
         else:
-            y = maxpool2d(x, (self.kh, self.kw), (self.dh, self.dw), pads)
+            y = maxpool2d(xin, (self.kh, self.kw), (self.dh, self.dw), pads)
+        y = y.to(x.dtype) if cast else y
         return y[0] if was3d else y
 
     def extra_repr(self) -> str:

@@ -39,6 +39,22 @@ boundaries exactly as the JAX scan: the counterpart of the JAX
 ``lax.scan`` route, which has no kernel either.  ``step_route_calls``
 counts the forwards that took it.
 
+The dtype policy (bigdl_tpu/nn/recurrent.py).  The kernels compute their
+gates and carries in f32, so a recurrence takes the kernel route only
+where the policy's output dtype is f32 (``kernel_gate``, the JAX
+``_pallas_gate``): under ``BF16_ACT`` every cell takes the step route,
+whose gates round through bf16, and a ``BiRecurrent`` of two LSTMs its
+fused step loop.  That is the JAX package's own route decision, not a
+fall back.  Under ``BF16_COMPUTE`` the LSTM's input projection is a bf16
+product summed in f32 plus the bias and its recurrent weight bf16 (the
+kernels' bf16-weight form); a ``BiRecurrent`` of LSTMs holds its
+projection and its output stack in bf16 (the recurrence's carries stay
+f32); the GRU computes in f32 under every policy, as the JAX cell does;
+and ``Recurrent(RnnCell)`` on the kernel route raises
+``NotImplementedError``: the JAX package feeds its kernel a bf16 weight,
+whose form the port has yet to write (ROADMAP queue 2).  The cells'
+steps take the JAX ``_step`` casts.
+
 A cell's step protocol is the JAX ``Cell``'s: ``init_hidden(batch)`` (a
 tuple (h, c) for the LSTM), ``step(x_t, hidden) -> (out, hidden)`` in
 plain PyTorch, and ``cell.forward([x, h])`` (or ``Table(x, h)``) -> out,
@@ -55,10 +71,36 @@ from bigdl_tpu_torch.nn import init as init_
 from bigdl_tpu_torch.nn.module import Container, Module
 from bigdl_tpu_torch.ops import (bilstm_recurrence, gru_recurrence,
                                  lstm_scan, rnn_recurrence)
+from bigdl_tpu_torch.tensor import policy
 from bigdl_tpu_torch.utils.table import Table
 
 #: forwards of a ``Recurrent`` that took the step route
 step_route_calls = 0
+
+
+def kernel_gate() -> bool:
+    """Whether the recurrence kernels may run under the current policy:
+    only where its output dtype is f32 (bigdl_tpu/nn/recurrent.py
+    ``_pallas_gate``)."""
+    return policy().output_dtype == torch.float32
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a · b under the policy with an f32 result: under a reduced policy
+    the compute-dtype operands' exact products summed in f32 (the JAX
+    ``preferred_element_type=float32``), else the plain product."""
+    p = policy()
+    if not p.reduced:
+        return torch.matmul(a, b)
+    return torch.matmul(p.cast_compute(a).float(),
+                        p.cast_compute(b).float())
+
+
+def _recurrent_weight(w: torch.Tensor) -> torch.Tensor:
+    """A recurrent weight as the kernels take it: in the compute dtype
+    under a reduced policy."""
+    p = policy()
+    return p.cast_compute(w) if p.reduced else w
 
 #: the activation classes whose ``act()`` the RNN kernel applies (exact
 #: types: a subclass's own forward would be bypassed)
@@ -120,8 +162,9 @@ class LSTMCell(Cell):
 
     def step(self, x, hidden):
         h, c = hidden
-        z = torch.matmul(torch.cat([x, h], dim=-1), self.w.t()) + self.bias
-        return self._gates(z, c)
+        z = _mm_f32(torch.cat([x, h], dim=-1), self.w.t()) + self.bias
+        p = policy()
+        return self._gates(z.to(p.output_dtype) if p.reduced else z, c)
 
     @staticmethod
     def _gates(z, c):
@@ -151,9 +194,10 @@ class RnnCell(Cell):
                        ("bias_h", (h,))), device, generator)
 
     def step(self, x, h):
-        pre = (torch.matmul(x, self.i2h.t()) + self.bias_i
-               + torch.matmul(h, self.h2h.t()) + self.bias_h)
-        h_new = self.activation(pre)
+        pre = (_mm_f32(x, self.i2h.t()) + self.bias_i
+               + _mm_f32(h, self.h2h.t()) + self.bias_h)
+        p = policy()
+        h_new = self.activation(pre.to(p.output_dtype) if p.reduced else pre)
         return h_new, h_new
 
 
@@ -189,10 +233,11 @@ def _recurrent_t(w, d):
 
 
 def _lstm_inputs(cell: LSTMCell, xs):
-    """((zx (T, N, 4H),), (wht (H, 4H),)) of one direction."""
+    """((zx (T, N, 4H),), (wht (H, 4H),)) of one direction: zx f32, wht
+    in the compute dtype."""
     d = cell.input_size
-    return ((torch.matmul(xs, cell.w[:, :d].t()) + cell.bias,),
-            (_recurrent_t(cell.w, d),))
+    return ((_mm_f32(xs, cell.w[:, :d].t()) + cell.bias,),
+            (_recurrent_weight(_recurrent_t(cell.w, d)),))
 
 
 def _gru_inputs(cell: GRUCell, xs):
@@ -325,9 +370,16 @@ class Recurrent(Container):
         # would be bypassed by a kernel
         kind = type(cell)
         act = kernel_act(cell.activation) if kind is RnnCell else None
-        if kind in (LSTMCell, GRUCell):
+        if not kernel_gate():
+            outs = _steps(cell, xs, k)
+        elif kind in (LSTMCell, GRUCell):
             outs = _one_direction(cell, xs, k)
         elif act is not None:
+            if policy().reduced:
+                raise NotImplementedError(
+                    "Recurrent(RnnCell) under a reduced dtype policy: the "
+                    "rnn kernel's bf16-weight form is not written yet "
+                    "(ROADMAP queue 2)")
             outs = _rnn(cell, xs, k, act)
         else:
             outs = _steps(cell, xs, k)
@@ -370,7 +422,7 @@ class BiRecurrent(Container):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         kind = next((k for k in (LSTMCell, GRUCell)
                      if self._cells_eligible(k)), None)
-        if kind is None:
+        if kind is None or (kind is GRUCell and not kernel_gate()):
             return self._merge(self.get(1)(x), self.get(2)(x))
         # both directions in one kernel call, the backward one over the
         # flipped sequence: projections (T, 2, N, J), weights (2, H, J)
@@ -378,10 +430,45 @@ class BiRecurrent(Container):
         xs = x.transpose(0, 1)                          # (T, N, D)
         (zf, wf) = inputs(self.get(1).cell, xs)
         (zb, wb) = inputs(self.get(2).cell, xs.flip(0))
-        outs = run(*[torch.stack(p, dim=1) for p in zip(zf, zb)],
-                   *[torch.stack(p) for p in zip(wf, wb)])  # (T, 2, N, H)
-        return self._merge(outs[:, 0].transpose(0, 1),
-                           outs[:, 1].flip(0).transpose(0, 1))
+        zs = [torch.stack(p, dim=1) for p in zip(zf, zb)]
+        ws = [torch.stack(p) for p in zip(wf, wb)]
+        if kind is GRUCell:
+            outs = run(*zs, *ws)                        # (T, 2, N, H)
+            return self._merge(outs[:, 0].transpose(0, 1),
+                               outs[:, 1].flip(0).transpose(0, 1))
+        # the LSTMs (bigdl_tpu/nn/recurrent.py ``_apply_fused_lstm``):
+        # under a reduced policy the projection and the output stack are
+        # held in the compute dtype, the result in the output dtype; the
+        # recurrence's carries stay f32.  Where the kernels may not run,
+        # the same recurrence as a step loop.
+        p = policy()
+        zx = zs[0].to(p.compute_dtype) if p.reduced else zs[0]
+        outs = (run(zx, *ws) if kernel_gate()
+                else _fused_lstm_steps(zx, *ws))
+        if p.reduced:
+            outs = outs.to(p.compute_dtype)
+        y = self._merge(outs[:, 0].transpose(0, 1),
+                        outs[:, 1].flip(0).transpose(0, 1))
+        return y.to(p.output_dtype) if p.reduced else y
+
+
+def _fused_lstm_steps(zx, wh):
+    """The h stack (T, 2, N, H) of both LSTM directions as a step loop
+    over the projection ``zx`` (T, 2, N, 4H) and ``wh`` (2, H, 4H) where
+    the kernels may not run (a policy whose output dtype is not f32): the
+    JAX fused scan's body, z = f32(zx) + h . wh (a compute-dtype product
+    summed in f32) in the output dtype, the carries h and c f32."""
+    global step_route_calls
+    step_route_calls += 1
+    out_dtype = policy().output_dtype
+    n, hdim = zx.shape[2], wh.shape[1]
+    h = c = zx.new_zeros((2, n, hdim), dtype=torch.float32)
+    outs = []
+    for zx_t in zx:
+        z = zx_t.float() + _mm_f32(h, wh)
+        h, (_, c) = LSTMCell._gates(z.to(out_dtype), c)
+        outs.append(h)
+    return torch.stack(outs)
 
 
 class TimeDistributed(Container):

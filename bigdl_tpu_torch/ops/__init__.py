@@ -2,7 +2,10 @@
 bigdl_tpu/ops/pallas_kernels.py), each beside its plain PyTorch version.
 
 ``KERNELS`` lists every kernel wrapper; each carries a ``launches`` count
-that only a real kernel launch increments.  ``Act`` describes the
+that only a real kernel launch increments.  A wrapper whose kernel has a
+bf16 form (the pools, the LRN, the LSTM recurrence and ``lstm_scan``)
+counts that form's launches apart, in ``launches_bf16``:
+``launch_counts()`` reports them as ``<name>_bf16``.  ``Act`` describes the
 element-wise activation the RNN kernels apply.
 """
 from bigdl_tpu_torch.ops._activation import Act
@@ -46,10 +49,15 @@ KERNELS = (paged_attention, paged_attention_int8, fused_sgd,
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+        if hasattr(k, "launches_bf16"):
+            k.launches_bf16 = 0
 
 
 def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
+    counts = {k.__name__: k.launches for k in KERNELS}
+    counts |= {f"{k.__name__}_bf16": k.launches_bf16 for k in KERNELS
+               if hasattr(k, "launches_bf16")}
+    return counts
 
 
 __all__ = ["Act", "KERNELS", "bilstm_backward", "bilstm_backward_reference",

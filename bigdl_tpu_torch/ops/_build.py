@@ -123,3 +123,25 @@ def device_stream(dev: torch.device) -> tuple:
     kernel's C entry point takes them."""
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     return index, torch.cuda.current_stream(dev).cuda_stream
+
+
+#: the forms of a kernel that has an f32 and a bf16 one, by dtype
+FORMS = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def form_entry(kernel: str, which: str, dtype: torch.dtype) -> str:
+    """The C entry ``bigdl_<kernel>_<which>_<form>`` of the form for
+    ``dtype``; a ``TypeError`` where the kernel has none."""
+    if dtype not in FORMS:
+        raise TypeError(f"{kernel}: no kernel for {dtype}; the kernels "
+                        f"take {', '.join(map(str, FORMS))}")
+    return f"bigdl_{kernel}_{which}_{FORMS[dtype]}"
+
+
+def count_launch(wrapper, dtype: torch.dtype) -> None:
+    """One more launch of ``wrapper``'s kernel: its bf16 form's count
+    (``launches_bf16``) for a bf16 launch, else ``launches``."""
+    if dtype == torch.bfloat16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1

@@ -10,7 +10,9 @@ larger H before any launch.  A cell is described by (G, E, L) -- its
 gate columns, its inputs a unit and a step, its local values a unit
 (an LSTM's c: ``True``) -- and V, the values a unit holds in the
 exchanged state (the LSTM backward's 4); a two-phase cell (the GRU's)
-adds its second phase's (G, V) as ``phase1``.
+adds its second phase's (G, V) as ``phase1``, and a cell whose weight is
+held in bf16 (the LSTM's bf16 forms) its weight's bytes an element as
+``wbytes`` (2: half the f32 slice).
 """
 from __future__ import annotations
 
@@ -69,21 +71,28 @@ def _weights(g, v, phase1):
     return g * v1, g1 * v
 
 
+def _slice_floats(hdim, ws, wbytes):
+    """recurrence_cluster.cuh ``slice_floats``: H rows of ``ws`` weights of
+    ``wbytes`` bytes, in floats, in whole 16-byte granules."""
+    return -(-hdim * ws * wbytes // 16) * 4
+
+
 def cluster_smem_floats(g, e, n_loc, hdim, rows, c, staged, depth, v=1,
-                        phase1=None):
+                        phase1=None, wbytes=4):
     """recurrence_cluster.cuh ``smem_floats``: the states (one phase: two
-    buffers), the ``n_loc`` local values a unit, the weight slices when
-    staged and ``depth`` ring stages, in floats."""
+    buffers), the ``n_loc`` local values a unit, the weight slices (of
+    ``wbytes``-byte elements) when staged and ``depth`` ring stages, in
+    floats."""
     s = -(-hdim // c)
     v1 = v if phase1 is None else phase1[1]
     return (_round4(v * hdim * rows) + _round4(v1 * hdim * rows)
             + _round4(n_loc * rows * s)
-            + (sum(_round4(hdim * (s * n + 4))
+            + (sum(_slice_floats(hdim, s * n + 4, wbytes)
                    for n in _weights(g, v, phase1)) if staged else 0)
             + depth * _round4(e * rows * s))
 
 
-def cluster_plan_at(g, e, n_loc, hdim, rows, c, v=1, phase1=None):
+def cluster_plan_at(g, e, n_loc, hdim, rows, c, v=1, phase1=None, wbytes=4):
     """recurrence_cluster.cuh ``plan_at``: the plan of (C, R) as a dict of
     PLAN_FIELDS, C = 0 when it does not fit; the weight slices staged in
     shared memory when they fit beside the shallowest ring."""
@@ -95,11 +104,11 @@ def cluster_plan_at(g, e, n_loc, hdim, rows, c, v=1, phase1=None):
         return p
     stage = _round4(e * rows * s)
     fixed = cluster_smem_floats(g, e, n_loc, hdim, rows, c, True, 0, v,
-                                phase1)
+                                phase1, wbytes)
     p["staged"] = int(fixed + MIN_DEPTH * stage <= cap)
     if not p["staged"]:
         fixed = cluster_smem_floats(g, e, n_loc, hdim, rows, c, False, 0, v,
-                                    phase1)
+                                    phase1, wbytes)
     if fixed + MIN_DEPTH * stage > cap:
         return p
     p["depth"] = min((cap - fixed) // stage, MAX_DEPTH)
@@ -118,7 +127,7 @@ def fill_rows(nd, b, c):
                 CLUSTER_ROWS[-1])
 
 
-def cluster_plan(g, e, n_loc, nd, b, hdim, v=1, phase1=None):
+def cluster_plan(g, e, n_loc, nd, b, hdim, v=1, phase1=None, wbytes=4):
     """recurrence_cluster.cuh ``make_plan``: the smallest cluster whose
     blocks hold their weight slice in shared memory, with the rows that
     fill the SMs; else 16 blocks reading their slices through L2 with as
@@ -126,12 +135,12 @@ def cluster_plan(g, e, n_loc, nd, b, hdim, v=1, phase1=None):
     the shape alone."""
     for c in CLUSTER_SIZES:
         p = cluster_plan_at(g, e, n_loc, hdim, fill_rows(nd, b, c), c, v,
-                            phase1)
+                            phase1, wbytes)
         if p["C"] and p["staged"]:
             return p
     rows = fill_rows(nd, b, 16)
     while rows >= 1:
-        p = cluster_plan_at(g, e, n_loc, hdim, rows, 16, v, phase1)
+        p = cluster_plan_at(g, e, n_loc, hdim, rows, 16, v, phase1, wbytes)
         if p["C"]:
             return p
         rows //= 2
@@ -177,11 +186,11 @@ def load(name, setup):
     return lib
 
 
-def check(kernel, v, name, device, shape):
+def check(kernel, v, name, device, shape, dtype=torch.float32):
     if v.device != device:
         raise ValueError(f"{kernel}: {name} on {v.device}, expected {device}")
-    if v.dtype != torch.float32:
-        raise TypeError(f"{kernel}: {name} must be float32, got {v.dtype}")
+    if v.dtype != dtype:
+        raise TypeError(f"{kernel}: {name} must be {dtype}, got {v.dtype}")
     if tuple(v.shape) != tuple(shape) or not v.is_contiguous():
         raise ValueError(f"{kernel}: {name} must be a contiguous "
                          f"{tuple(shape)} tensor, got {tuple(v.shape)}")

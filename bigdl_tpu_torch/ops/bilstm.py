@@ -26,6 +26,21 @@ forward is the one ``ops.lstm_scan`` launches.  The kernels run H <=
 clusters of one batch row fit shared memory, and a larger H raises
 ``NotImplementedError`` before any launch (the plain versions on the CPU
 have no such limit).
+
+The bf16 forms (``FORMS``; the recurrence under a reduced dtype policy):
+wht bf16 and zx bf16 (``BiRecurrent``'s projection) or f32
+(``Recurrent``'s).  The state is rounded to bf16 only where it meets the
+weight (z = f32(zx) + bf16(h) . wht, dh = bf16(dz) . wht^T, each sum of
+exact products taken in f32), as the JAX kernels compute it
+(pallas_kernels.py:549-578); h0, c0, the gates, the carries and the hs
+and cs stacks stay f32.  The backward's dzx and the weight gradient are
+f32 (``bilstm_backward``, ``bilstm_dwh``); the autograd function casts
+them to zx's and wht's dtypes, as the JAX VJP does (:699).  A bf16
+weight's slice takes half the f32 bytes of shared memory, so its plans
+are their own (``plan(..., dtype=torch.bfloat16)``); ``MAX_HIDDEN`` holds
+for both, since the largest H reads its weight through L2 either way.
+``launches`` counts the f32 form's launches, ``launches_bf16`` the bf16
+forms' (``bilstm_dwh`` has only its f32 form).
 """
 from __future__ import annotations
 
@@ -41,54 +56,78 @@ _KERNEL = "bilstm"
 FWD_CELL, BWD_CELL, BWD_VALUES = (4, 4, True), (1, 7, True), 4
 
 
+#: the kernels' forms by the dtypes of (zx, wht)
+FORMS = {(torch.float32, torch.float32): "f32",
+         (torch.bfloat16, torch.bfloat16): "bf16",
+         (torch.float32, torch.bfloat16): "bf16w"}
+_WBYTES = {torch.float32: 4, torch.bfloat16: 2}
+
+
+def entry(which: str, zx_dtype: torch.dtype, wht_dtype: torch.dtype) -> str:
+    """The C entry of the ``which`` ("fwd" or "bwd") kernel's form for zx
+    and wht of these dtypes; a ``TypeError`` where the kernel has none."""
+    form = FORMS.get((zx_dtype, wht_dtype))
+    if form is None:
+        raise TypeError(f"bilstm: no kernel for zx {zx_dtype} and wht "
+                        f"{wht_dtype}; the kernels take (zx, wht) in "
+                        f"{', '.join(map(str, FORMS))}")
+    return f"bigdl_lstm_{which}_{form}"
+
+
 def _cell(backward):
     return (BWD_CELL, BWD_VALUES) if backward else (FWD_CELL, 1)
 
 
-def plan(nd, b, hdim, backward=False):
-    """The forward's (or backward's) cluster plan at (D, B, H), as
-    csrc/bilstm.cu's ``plan_of`` computes it: a dict of
+def plan(nd, b, hdim, backward=False, dtype=torch.float32):
+    """The forward's (or backward's) cluster plan at (D, B, H) for a wht
+    of ``dtype``, as csrc/bilstm.cu's ``plan_of`` computes it: a dict of
     ``_recurrence.PLAN_FIELDS``."""
     cell, v = _cell(backward)
-    return rec.cluster_plan(*cell, nd, b, hdim, v=v)
+    return rec.cluster_plan(*cell, nd, b, hdim, v=v, wbytes=_WBYTES[dtype])
 
 
 def smem_bytes(hdim, rows=1):
     """(forward, backward) shared memory of a block of ``rows`` batch rows
     in a 16-block cluster at H = ``hdim``, with wht read through L2 and
-    the shallowest ring: the least any plan at ``rows`` needs."""
+    the shallowest ring: the least any plan at ``rows`` needs, in either
+    form (no weight is held in shared memory)."""
     return tuple(4 * rec.cluster_smem_floats(*cell, hdim, rows,
                                              rec.CLUSTER_SIZES[-1], False,
                                              rec.MIN_DEPTH, v)
                  for cell, v in map(_cell, (False, True)))
 
 
-#: the largest H the kernels take (16-block clusters of one batch row)
+#: the largest H the kernels take (16-block clusters of one batch row), in
+#: every form
 MAX_HIDDEN = rec.max_hidden(smem_bytes)
 
 
 def _setup(lib):
     # T D B H, then C R (0 0: the plan of the shape), device, stream
-    lib.bigdl_lstm_fwd_f32.argtypes = [rec.VP] * 6 + rec.PLANNED_DIMS
-    lib.bigdl_lstm_fwd_f32.restype = rec.I
-    lib.bigdl_lstm_bwd_f32.argtypes = [rec.VP] * 8 + rec.PLANNED_DIMS
-    lib.bigdl_lstm_bwd_f32.restype = rec.I
+    for zx_dt, wht_dt in FORMS:
+        fwd = getattr(lib, entry("fwd", zx_dt, wht_dt))
+        bwd = getattr(lib, entry("bwd", zx_dt, wht_dt))
+        fwd.argtypes = [rec.VP] * 6 + rec.PLANNED_DIMS
+        bwd.argtypes = [rec.VP] * 8 + rec.PLANNED_DIMS
+        fwd.restype = bwd.restype = rec.I
     lib.bigdl_lstm_dwh_f32.argtypes = ([rec.VP] * 5 + [rec.I] * 5
                                        + [rec.LL] + rec.DIMS[4:])
     lib.bigdl_lstm_dwh_f32.restype = rec.I
-    lib.bigdl_lstm_plan.argtypes = [rec.I] * 4 + [rec.VP]
-    lib.bigdl_lstm_plan.restype = None
+    for fn in (lib.bigdl_lstm_plan, lib.bigdl_lstm_plan_bf16):
+        fn.argtypes = [rec.I] * 4 + [rec.VP]
+        fn.restype = None
 
 
 def _lib():
     return rec.load(_KERNEL, _setup)
 
 
-def kernel_plan(nd, b, hdim, backward=False):
-    """The plan csrc/bilstm.cu itself computes (the library built and
-    loaded), to hold :func:`plan` to it on the card."""
-    return rec.kernel_plan(_lib().bigdl_lstm_plan, int(backward), nd, b,
-                           hdim)
+def kernel_plan(nd, b, hdim, backward=False, dtype=torch.float32):
+    """The plan csrc/bilstm.cu itself computes for a wht of ``dtype`` (the
+    library built and loaded), to hold :func:`plan` to it on the card."""
+    lib = _lib()
+    fn = lib.bigdl_lstm_plan if _WBYTES[dtype] == 4 else lib.bigdl_lstm_plan_bf16
+    return rec.kernel_plan(fn, int(backward), nd, b, hdim)
 
 
 def _gates(z, hdim):
@@ -98,38 +137,52 @@ def _gates(z, hdim):
             torch.sigmoid(z[..., 3 * hdim:]))
 
 
+def _wide(t):
+    """A bf16 tensor widened to f32 (exactly); any other as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def _prod(h, wht):
+    """h . wht as the kernels take it: against a bf16 wht, h rounded to
+    bf16 and the (exact) products summed in f32."""
+    if wht.dtype == torch.bfloat16:
+        return torch.matmul(h.to(wht.dtype).float(), wht.float())
+    return torch.matmul(h, wht)
+
+
 def bilstm_forward_reference(zx, wht, with_c=True, h0=None, c0=None):
     """Plain version of the forward: a loop over T with ``torch.matmul``
     from ``h0``, ``c0`` (zeros where None); ``(hs, cs)``, or ``hs`` alone
-    when ``with_c`` is False."""
+    when ``with_c`` is False.  A bf16 form's stacks are f32."""
     t, nd, b, h4 = zx.shape
     hdim = h4 // 4
-    h = zx.new_zeros(nd, b, hdim) if h0 is None else h0
-    c = zx.new_zeros(nd, b, hdim) if c0 is None else c0
+    dt = _wide(zx[:0]).dtype
+    h = zx.new_zeros(nd, b, hdim, dtype=dt) if h0 is None else h0
+    c = zx.new_zeros(nd, b, hdim, dtype=dt) if c0 is None else c0
     hs, cs = [], []
     for step in range(t):
-        i, f, g, o = _gates(zx[step] + torch.matmul(h, wht), hdim)
+        i, f, g, o = _gates(_wide(zx[step]) + _prod(h, wht), hdim)
         c = f * c + i * g
         h = o * torch.tanh(c)
         hs.append(h)
         cs.append(c)
-    hs = torch.stack(hs) if hs else zx.new_zeros(0, nd, b, hdim)
-    cs = torch.stack(cs) if cs else zx.new_zeros(0, nd, b, hdim)
+    hs = torch.stack(hs) if hs else zx.new_zeros(0, nd, b, hdim, dtype=dt)
+    cs = torch.stack(cs) if cs else zx.new_zeros(0, nd, b, hdim, dtype=dt)
     return (hs, cs) if with_c else hs
 
 
 def bilstm_backward_reference(zx, wht, hs, cs, gout, h0=None, c0=None):
     """Plain version of the backward: dzx, from a reverse loop over T that
     recomputes the gates from zx[t] + hprev . wht (hprev, cprev h0, c0 or
-    zeros at t = 0)."""
+    zeros at t = 0).  A bf16 form's dzx is f32."""
     hdim = wht.shape[1]
     hprev, cprev = rec.shift_prev(hs, h0), rec.shift_prev(cs, c0)
-    dh = zx.new_zeros(hs.shape[1:])
-    dc = zx.new_zeros(hs.shape[1:])
-    dzx = torch.empty_like(zx)
+    dh = hs.new_zeros(hs.shape[1:])
+    dc = hs.new_zeros(hs.shape[1:])
+    dzx = torch.empty_like(zx, dtype=hs.dtype)
     wh = wht.transpose(1, 2)
     for step in reversed(range(zx.shape[0])):
-        i, f, g, o = _gates(zx[step] + torch.matmul(hprev[step], wht), hdim)
+        i, f, g, o = _gates(_wide(zx[step]) + _prod(hprev[step], wht), hdim)
         tc = torch.tanh(cs[step])
         dh_tot = gout[step] + dh
         dc_tot = dc + dh_tot * o * (1.0 - tc * tc)
@@ -138,7 +191,7 @@ def bilstm_backward_reference(zx, wht, hs, cs, gout, h0=None, c0=None):
                         dc_tot * i * (1.0 - g * g),
                         dh_tot * tc * o * (1.0 - o)], dim=-1)
         dzx[step] = dz
-        dh = torch.matmul(dz, wh)
+        dh = _prod(dz, wh)
         dc = dc_tot * f
     return dzx
 
@@ -150,34 +203,34 @@ def bilstm_dwh_reference(hs, dzx, h0=None):
 
 
 def bilstm_forward(zx, wht, with_c=True, h0=None, c0=None):
-    """The recurrence over ``zx`` (T, D, B, 4H) f32 and ``wht`` (D, H, 4H)
-    f32 from ``h0``, ``c0`` (D, B, H) f32 (zeros where None).  Returns
-    ``(hs, cs)``, each (T, D, B, H), or ``hs`` alone when ``with_c`` is
-    False."""
+    """The recurrence over ``zx`` (T, D, B, 4H) and ``wht`` (D, H, 4H)
+    (``FORMS``) from ``h0``, ``c0`` (D, B, H) f32 (zeros where None).
+    Returns ``(hs, cs)``, each (T, D, B, H) f32, or ``hs`` alone when
+    ``with_c`` is False."""
     if zx.device.type == "cpu":
         return bilstm_forward_reference(zx, wht, with_c, h0, c0)
     t, nd, b, hdim = _check_inputs(zx, wht)
     rec.check_states(_KERNEL, zx.device, (nd, b, hdim), h0=h0, c0=c0)
-    hs = zx.new_empty(t, nd, b, hdim)
-    cs = zx.new_empty(t, nd, b, hdim) if with_c else None
+    hs = zx.new_empty(t, nd, b, hdim, dtype=torch.float32)
+    cs = hs.new_empty(t, nd, b, hdim) if with_c else None
     _run("fwd", [zx, wht, h0, c0, hs, cs], t, nd, b, hdim)
-    bilstm_forward.launches += 1
+    _build.count_launch(bilstm_forward, wht.dtype)
     return (hs, cs) if with_c else hs
 
 
 def bilstm_backward(zx, wht, hs, cs, gout, h0=None, c0=None):
-    """dzx (T, D, B, 4H) from the forward's ``zx``, ``wht``, ``hs``, ``cs``,
-    ``h0`` and ``c0`` (zeros where None) and the cotangent ``gout`` of
-    hs."""
+    """dzx (T, D, B, 4H) f32 from the forward's ``zx``, ``wht``, ``hs``,
+    ``cs``, ``h0`` and ``c0`` (zeros where None) and the f32 cotangent
+    ``gout`` of hs."""
     if zx.device.type == "cpu":
         return bilstm_backward_reference(zx, wht, hs, cs, gout, h0, c0)
     t, nd, b, hdim = _check_inputs(zx, wht)
     for v, name in ((hs, "hs"), (cs, "cs"), (gout, "gout")):
         _check(v, name, zx.device, (t, nd, b, hdim))
     rec.check_states(_KERNEL, zx.device, (nd, b, hdim), h0=h0, c0=c0)
-    dzx = torch.empty_like(zx)
+    dzx = torch.empty_like(zx, dtype=torch.float32)
     _run("bwd", [zx, wht, hs, cs, h0, c0, gout, dzx], t, nd, b, hdim)
-    bilstm_backward.launches += 1
+    _build.count_launch(bilstm_backward, wht.dtype)
     return dzx
 
 
@@ -212,8 +265,8 @@ def bilstm_dwh(hs, dzx, h0=None):
     return dwht
 
 
-bilstm_forward.launches = 0
-bilstm_backward.launches = 0
+bilstm_forward.launches = bilstm_forward.launches_bf16 = 0
+bilstm_backward.launches = bilstm_backward.launches_bf16 = 0
 bilstm_dwh.launches = 0
 
 
@@ -228,8 +281,9 @@ def _check_inputs(zx, wht):
     t, nd, b, h4 = zx.shape
     rec.check_hidden(_KERNEL, h4 // 4, MAX_HIDDEN, smem_bytes)
     rec.check_device(_KERNEL, zx)
-    _check(zx, "zx", zx.device, (t, nd, b, h4))
-    _check(wht, "wht", zx.device, (nd, h4 // 4, h4))
+    entry("fwd", zx.dtype, wht.dtype)
+    rec.check(_KERNEL, zx, "zx", zx.device, (t, nd, b, h4), zx.dtype)
+    rec.check(_KERNEL, wht, "wht", zx.device, (nd, h4 // 4, h4), wht.dtype)
     return t, nd, b, h4 // 4
 
 
@@ -237,7 +291,7 @@ def _run(which, tensors, t, nd, b, hdim, kernel=_KERNEL):
     """One launch of the forward (``fwd``) or backward entry under the
     plan of the shape; ``kernel`` names the wrapper in an error."""
     lib = _lib()
-    fn = lib.bigdl_lstm_fwd_f32 if which == "fwd" else lib.bigdl_lstm_bwd_f32
+    fn = getattr(lib, entry(which, tensors[0].dtype, tensors[1].dtype))
     ptrs = [rec.ptr(v) for v in tensors]
     err = fn(*ptrs, t, nd, b, hdim, 0, 0,
              *_build.device_stream(tensors[0].device))
@@ -261,7 +315,8 @@ class _BiLSTM(torch.autograd.Function):
     def backward(ctx, gout, _):
         zx, wht, hs, cs, h0, c0 = ctx.saved_tensors
         dzx = bilstm_backward(zx, wht, hs, cs, gout.contiguous(), h0, c0)
-        return dzx, bilstm_dwh(hs, dzx, h0), None, None
+        dwht = bilstm_dwh(hs, dzx, h0)
+        return dzx.to(zx.dtype), dwht.to(wht.dtype), None, None
 
 
 def bilstm_recurrence(zx, wht, h0=None, c0=None, with_last_c=False):

@@ -10,6 +10,16 @@ writes no z.  On CUDA tensors the two wrappers launch the hand-written
 versions beside them.  There is no other path.  ``lrn_forward.launches``
 and ``lrn_backward.launches`` count kernel launches only.
 
+Each kernel has an f32 and a bf16 form (``FORMS``), picked by x's dtype
+(a ``TypeError`` for any other): the bf16 form reads x and g in bf16,
+computes in f32 and stores y and dx in bf16, as the JAX kernel does
+(pallas_kernels.py:377-405).  Its residual z stays f32, as the JAX
+kernel's does: the backward then reads the z the forward computed, not
+a rounding of it, at 4 bytes an element against bf16's 2 (z is written
+once and read once a step; the JAX kernel's bf16 form keeps it f32 too).
+``launches`` counts the f32 form's launches, ``launches_bf16`` the bf16
+form's.
+
 ``F.local_response_norm`` is not this function: it pads the channel window
 (size//2, (size-1)//2), the mirror of the JAX window for even sizes.
 """
@@ -29,14 +39,23 @@ _D = ctypes.c_double
 _HYPER = [_LL, _I, _I, _I, _D, _D, _D, _I, _VP]  # N C HW size a b k dev st
 _lib_cache = []
 
+FORMS = _build.FORMS
+
+
+def entry(which: str, dtype: torch.dtype) -> str:
+    """The C entry of the ``which`` ("fwd" or "bwd") kernel's form for
+    ``dtype``; a ``TypeError`` where the kernel has none."""
+    return _build.form_entry("lrn", which, dtype)
+
 
 def _lib() -> ctypes.CDLL:
     if not _lib_cache:
         lib = _build.load("lrn")
-        lib.bigdl_lrn_fwd_f32.argtypes = [_VP, _VP, _VP, *_HYPER]
-        lib.bigdl_lrn_fwd_f32.restype = _I
-        lib.bigdl_lrn_bwd_f32.argtypes = [_VP, _VP, _VP, _VP, *_HYPER]
-        lib.bigdl_lrn_bwd_f32.restype = _I
+        for dtype in FORMS:
+            fwd, bwd = (getattr(lib, entry(w, dtype)) for w in ("fwd", "bwd"))
+            fwd.argtypes = [_VP, _VP, _VP, *_HYPER]
+            bwd.argtypes = [_VP, _VP, _VP, _VP, *_HYPER]
+            fwd.restype = bwd.restype = _I
         lib.bigdl_cuda_error_string.argtypes = [_I]
         lib.bigdl_cuda_error_string.restype = ctypes.c_char_p
         _lib_cache.append(lib)
@@ -69,14 +88,22 @@ def _pow(z, beta: float):
 
 
 def lrn_forward_reference(x, size, alpha, beta, k):
-    """Plain version of the forward: ``(y, z)``."""
+    """Plain version of the forward: ``(y, z)``; a bf16 x is computed on
+    in f32, y rounded to bf16 and z kept f32."""
+    if x.dtype == torch.bfloat16:
+        y, z = lrn_forward_reference(x.float(), size, alpha, beta, k)
+        return y.to(x.dtype), z
     z = k + (alpha / size) * _window_sum(x * x, size)
     return x / _pow(z, beta), z
 
 
 def lrn_backward_reference(x, z, g, size, alpha, beta, k):
     """Plain version of the backward from the stored z:
-    dx = g z^-b - (2 a b / size) x * adjoint-window-sum(g x z^(-b-1))."""
+    dx = g z^-b - (2 a b / size) x * adjoint-window-sum(g x z^(-b-1));
+    for bf16 x and g in f32, dx rounded to bf16."""
+    if x.dtype == torch.bfloat16:
+        return lrn_backward_reference(x.float(), z, g.float(), size, alpha,
+                                      beta, k).to(x.dtype)
     zpow = _pow(z, beta)
     u = g * x / (zpow * z)
     return (g / zpow - (2.0 * alpha * beta / size) * x
@@ -84,44 +111,46 @@ def lrn_backward_reference(x, z, g, size, alpha, beta, k):
 
 
 def lrn_forward(x, size, alpha, beta, k, with_z=True):
-    """LRN of ``x`` (N, C, H, W) f32 over ``size`` channels.  Returns
-    ``(y, z)``, or ``y`` alone when ``with_z`` is False."""
+    """LRN of ``x`` (N, C, H, W) f32 or bf16 over ``size`` channels.
+    Returns ``(y, z)`` (z f32), or ``y`` alone when ``with_z`` is
+    False."""
     _check_hyper(size)
     if x.device.type == "cpu":
         y, z = lrn_forward_reference(x, size, alpha, beta, k)
         return (y, z) if with_z else y
     if x.device.type != "cuda":
         raise ValueError(f"lrn: no kernel for device {x.device}")
-    _check(x, "x")
+    _check(x, "x", x.dtype)
     y = torch.empty_like(x)
-    z = torch.empty_like(x) if with_z else None
+    z = torch.empty_like(x, dtype=torch.float32) if with_z else None
     _run("fwd", (x, y, z), x.shape, size, alpha, beta, k)
-    lrn_forward.launches += 1
+    _build.count_launch(lrn_forward, x.dtype)
     return (y, z) if with_z else y
 
 
 def lrn_backward(x, z, g, size, alpha, beta, k):
-    """dx from the forward's input ``x``, its residual ``z`` and the
-    cotangent ``g``, all (N, C, H, W) f32."""
+    """dx from the forward's input ``x``, its residual ``z`` (f32) and
+    the cotangent ``g``, all (N, C, H, W), x and g f32 or both bf16."""
     _check_hyper(size)
     if g.device.type == "cpu":
         return lrn_backward_reference(x, z, g, size, alpha, beta, k)
     if g.device.type != "cuda":
         raise ValueError(f"lrn: no kernel for device {g.device}")
-    for t, name in ((x, "x"), (z, "z"), (g, "g")):
-        _check(t, name)
+    for t, name, dtype in ((x, "x", x.dtype), (z, "z", torch.float32),
+                           (g, "g", x.dtype)):
+        _check(t, name, dtype)
         if t.shape != g.shape or t.device != g.device:
             raise ValueError(f"lrn: {name} {tuple(t.shape)} on {t.device} "
                              f"does not match g {tuple(g.shape)} on "
                              f"{g.device}")
     dx = torch.empty_like(g)
     _run("bwd", (x, z, g, dx), g.shape, size, alpha, beta, k)
-    lrn_backward.launches += 1
+    _build.count_launch(lrn_backward, x.dtype)
     return dx
 
 
-lrn_forward.launches = 0
-lrn_backward.launches = 0
+lrn_forward.launches = lrn_forward.launches_bf16 = 0
+lrn_backward.launches = lrn_backward.launches_bf16 = 0
 
 
 def _check_hyper(size):
@@ -129,9 +158,12 @@ def _check_hyper(size):
         raise ValueError(f"lrn: size must be a positive int, got {size}")
 
 
-def _check(t, name):
-    if t.dtype != torch.float32:
-        raise TypeError(f"lrn: {name} must be float32, got {t.dtype}")
+def _check(t, name, dtype):
+    """A contiguous NCHW tensor of ``dtype``, one the kernels have a form
+    for."""
+    entry("fwd", t.dtype)
+    if t.dtype != dtype:
+        raise TypeError(f"lrn: {name} must be {dtype}, got {t.dtype}")
     if t.dim() != 4 or not t.is_contiguous():
         raise ValueError(f"lrn: {name} must be a contiguous NCHW tensor, "
                          f"got shape {tuple(t.shape)}")
@@ -140,7 +172,7 @@ def _check(t, name):
 def _run(which, tensors, shape, size, alpha, beta, k):
     n, c, h, w = shape
     lib = _lib()
-    fn = lib.bigdl_lrn_fwd_f32 if which == "fwd" else lib.bigdl_lrn_bwd_f32
+    fn = getattr(lib, entry(which, tensors[0].dtype))
     ptrs = [None if t is None else t.data_ptr() for t in tensors]
     err = fn(*ptrs, n, c, h * w, int(size), float(alpha), float(beta),
              float(k), *_build.device_stream(tensors[0].device))

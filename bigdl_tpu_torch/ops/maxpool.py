@@ -10,6 +10,15 @@ wrappers launch the hand-written ``csrc/maxpool2d.cu`` kernels or raise;
 on CPU tensors they run the plain versions beside them.  There is no other
 path.  ``maxpool2d_forward.launches`` and ``maxpool2d_backward.launches``
 count kernel launches only.
+
+Each kernel has an f32 and a bf16 form (``FORMS``; the bf16 form is the
+pool a reduced dtype policy runs): bf16 in and out, the compares in f32
+(exact for bf16 values), the argmax int32, and the backward's sums of
+overlapping windows taken in f32 and rounded once, as the JAX kernel's
+(pallas_kernels.py:1118-1142).  The wrappers pick the form by the
+tensor's dtype and raise a ``TypeError`` for any other; the plain
+versions compute the same function in each dtype.  ``launches`` counts
+the f32 form's launches, ``launches_bf16`` the bf16 form's.
 """
 from __future__ import annotations
 
@@ -26,16 +35,23 @@ _LL = ctypes.c_longlong
 _GEOM = [_LL, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I]  # NC H W OH OW k s pad
 _lib_cache = []
 
+FORMS = _build.FORMS
+
+
+def entry(which: str, dtype: torch.dtype) -> str:
+    """The C entry of the ``which`` ("fwd" or "bwd") kernel's form for
+    ``dtype``; a ``TypeError`` where the kernel has none."""
+    return _build.form_entry("maxpool2d", which, dtype)
+
 
 def _lib() -> ctypes.CDLL:
     if not _lib_cache:
         lib = _build.load("maxpool2d")
-        lib.bigdl_maxpool2d_fwd_f32.argtypes = [_VP, _VP, _VP, *_GEOM,
-                                                _I, _VP]
-        lib.bigdl_maxpool2d_fwd_f32.restype = _I
-        lib.bigdl_maxpool2d_bwd_f32.argtypes = [_VP, _VP, _VP, *_GEOM,
-                                                _I, _VP]
-        lib.bigdl_maxpool2d_bwd_f32.restype = _I
+        for which in ("fwd", "bwd"):
+            for dtype in FORMS:
+                fn = getattr(lib, entry(which, dtype))
+                fn.argtypes = [_VP, _VP, _VP, *_GEOM, _I, _VP]
+                fn.restype = _I
         lib.bigdl_cuda_error_string.argtypes = [_I]
         lib.bigdl_cuda_error_string.restype = ctypes.c_char_p
         _lib_cache.append(lib)
@@ -82,7 +98,11 @@ def maxpool2d_forward_reference(x, window, strides, pads):
 def maxpool2d_backward_reference(argmax, g, window, strides, pads, xshape):
     """Plain version of the backward: each output's cotangent goes to the
     tap its argmax names (a one-hot scatter into the unfolded windows),
-    and ``fold`` sums the windows back onto the padded frame."""
+    and ``fold`` sums the windows back onto the padded frame, in f32 at
+    least (a bf16 g's sums are taken in f32 and rounded once)."""
+    if g.dtype == torch.bfloat16:
+        return maxpool2d_backward_reference(argmax, g.float(), window,
+                                            strides, pads, xshape).to(g.dtype)
     (kh, kw), (sh, sw) = window, strides
     (plh, phh), (plw, phw) = pads
     n, c, h, w = xshape
@@ -97,8 +117,9 @@ def maxpool2d_backward_reference(argmax, g, window, strides, pads, xshape):
 
 
 def maxpool2d_forward(x, window, strides, pads, with_argmax=True):
-    """Max pool of ``x`` (N, C, H, W) f32 over ``window`` = (kh, kw) with
-    ``strides`` = (sh, sw) and ``pads`` = ((lo_h, hi_h), (lo_w, hi_w)).
+    """Max pool of ``x`` (N, C, H, W) f32 or bf16 over ``window`` = (kh,
+    kw) with ``strides`` = (sh, sw) and ``pads`` = ((lo_h, hi_h), (lo_w,
+    hi_w)).
     Returns ``(y, argmax)``, or ``y`` alone when ``with_argmax`` is
     False."""
     if x.device.type == "cpu":
@@ -106,14 +127,14 @@ def maxpool2d_forward(x, window, strides, pads, with_argmax=True):
         return (y, arg) if with_argmax else y
     if x.device.type != "cuda":
         raise ValueError(f"maxpool2d: no kernel for device {x.device}")
-    _check(x, torch.float32, "x")
+    _check(x, "x")
     n, c, h, w = x.shape
     oh, ow = out_size(h, w, window, strides, pads)
     y = torch.empty(n, c, oh, ow, dtype=x.dtype, device=x.device)
     arg = (torch.empty(n, c, oh, ow, dtype=torch.int32, device=x.device)
            if with_argmax else None)
     _run("fwd", x, y, arg, x.shape, (oh, ow), window, strides, pads)
-    maxpool2d_forward.launches += 1
+    _build.count_launch(maxpool2d_forward, x.dtype)
     return (y, arg) if with_argmax else y
 
 
@@ -125,8 +146,8 @@ def maxpool2d_backward(argmax, g, window, strides, pads, xshape):
                                             xshape)
     if g.device.type != "cuda":
         raise ValueError(f"maxpool2d: no kernel for device {g.device}")
-    _check(g, torch.float32, "g")
-    _check(argmax, torch.int32, "argmax")
+    _check(g, "g")
+    _check(argmax, "argmax", torch.int32)
     n, c, h, w = xshape
     oh, ow = out_size(h, w, window, strides, pads)
     if (tuple(g.shape) != (n, c, oh, ow) or argmax.shape != g.shape
@@ -136,16 +157,20 @@ def maxpool2d_backward(argmax, g, window, strides, pads, xshape):
                          f"match the output {(n, c, oh, ow)} on {g.device}")
     dx = torch.empty(xshape, dtype=g.dtype, device=g.device)
     _run("bwd", g, argmax, dx, xshape, (oh, ow), window, strides, pads)
-    maxpool2d_backward.launches += 1
+    _build.count_launch(maxpool2d_backward, g.dtype)
     return dx
 
 
-maxpool2d_forward.launches = 0
-maxpool2d_backward.launches = 0
+maxpool2d_forward.launches = maxpool2d_forward.launches_bf16 = 0
+maxpool2d_backward.launches = maxpool2d_backward.launches_bf16 = 0
 
 
-def _check(t, dtype, name):
-    if t.dtype != dtype:
+def _check(t, name, dtype=None):
+    """A contiguous NCHW tensor of ``dtype``, or (None) of a dtype the
+    kernels have a form for."""
+    if dtype is None:
+        entry("fwd", t.dtype)
+    elif t.dtype != dtype:
         raise TypeError(f"maxpool2d: {name} must be {dtype}, got {t.dtype}")
     if t.dim() != 4 or not t.is_contiguous():
         raise ValueError(f"maxpool2d: {name} must be a contiguous NCHW "
@@ -156,8 +181,7 @@ def _run(which, a, b, c, xshape, oshape, window, strides, pads):
     n, ch, h, w = xshape
     (plh, _), (plw, _) = pads
     lib = _lib()
-    fn = (lib.bigdl_maxpool2d_fwd_f32 if which == "fwd"
-          else lib.bigdl_maxpool2d_bwd_f32)
+    fn = getattr(lib, entry(which, a.dtype))
     err = fn(a.data_ptr(), b.data_ptr(),
              None if c is None else c.data_ptr(), n * ch, h, w, *oshape,
              *window, *strides, plh, plw, *_build.device_stream(a.device))

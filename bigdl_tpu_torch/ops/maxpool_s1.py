@@ -15,6 +15,15 @@ window's first tap.  The ``launches`` counts count kernel launches
 only.  :func:`plan` mirrors how the kernels cut a launch into groups
 (whole planes, row bands, or the unstaged kernels), so that the CPU tests
 reach it; :func:`kernel_plan` asks the built library itself.
+
+Each kernel has an f32 and a bf16 form (``FORMS``), picked by the
+tensors' dtype (a ``TypeError`` for any other): the bf16 form reads and
+writes bf16 and compares and sums in f32, as the JAX kernel does
+(pallas_kernels.py:196-246).  It takes the unstaged kernels at every
+shape: the bulk-copy ring sizes its stages in whole 16-byte granules of
+f32 rows, and a bf16 plane (98 bytes at Inception's 7x7) would need a
+plan of its own; so ``plan`` of a bf16 launch is "direct".  ``launches``
+counts the f32 form's launches, ``launches_bf16`` the bf16 form's.
 """
 from __future__ import annotations
 
@@ -34,6 +43,8 @@ _GEOM = [_LL, *[_I] * 9, _VP]  # NC, H W OH OW kh kw plh plw dev, stream
 _S1 = (1, 1)
 _lib_cache = []
 
+FORMS = _build.FORMS
+
 # csrc/maxpool2d_s1.cu's constants: a block's threads (a group's tasks),
 # the rows a task slides down, the ring's stages, a bulk copy's alignment
 # in bytes, the shared bytes a block takes at most while two fit an SM,
@@ -49,13 +60,20 @@ _PLAN_KEYS = ("path", "planes", "rows", "xrows", "grows", "threads",
               "groups", "smem_bytes")
 
 
+def entry(which: str, dtype: torch.dtype) -> str:
+    """The C entry of the ``which`` ("fwd" or "bwd") kernel's form for
+    ``dtype``; a ``TypeError`` where the kernel has none."""
+    return _build.form_entry("maxpool2d_s1", which, dtype)
+
+
 def _lib() -> ctypes.CDLL:
     if not _lib_cache:
         lib = _build.load("maxpool2d_s1")
-        lib.bigdl_maxpool2d_s1_fwd_f32.argtypes = [_VP, _VP, *_GEOM]
-        lib.bigdl_maxpool2d_s1_fwd_f32.restype = _I
-        lib.bigdl_maxpool2d_s1_bwd_f32.argtypes = [_VP, _VP, _VP, *_GEOM]
-        lib.bigdl_maxpool2d_s1_bwd_f32.restype = _I
+        for dtype in FORMS:
+            fwd, bwd = (getattr(lib, entry(w, dtype)) for w in ("fwd", "bwd"))
+            fwd.argtypes = [_VP, _VP, *_GEOM]
+            bwd.argtypes = [_VP, _VP, _VP, *_GEOM]
+            fwd.restype = bwd.restype = _I
         lib.bigdl_maxpool2d_s1_plan.argtypes = [_LL, *[_I] * 7, _VP]
         lib.bigdl_maxpool2d_s1_plan.restype = None
         lib.bigdl_cuda_error_string.argtypes = [_I]
@@ -107,13 +125,14 @@ def _sized(nc, h, w, oh, ow, kh, kw, bwd, planes, rows):
                    "groups": -(-nc // planes) * bands, "smem_bytes": smem}
 
 
-def plan(shape, window, pads, backward=False):
+def plan(shape, window, pads, backward=False, dtype=torch.float32):
     """How csrc/maxpool2d_s1.cu cuts a forward (or backward) launch on x
     of ``shape``, as its ``make_plan``: a dict of ``path`` ("planes":
     ``planes`` whole planes a group; "bands": one band of ``rows`` rows of
-    one plane; "direct": the unstaged kernels), ``rows`` (of y forward, dx
-    backward, a group), ``xrows`` / ``grows`` (staged rows of x and g a
-    plane), ``threads``, ``groups``, ``stages`` and ``smem_bytes``."""
+    one plane; "direct": the unstaged kernels, the bf16 form's at every
+    shape), ``rows`` (of y forward, dx backward, a group), ``xrows`` /
+    ``grows`` (staged rows of x and g a plane), ``threads``, ``groups``,
+    ``stages`` and ``smem_bytes``."""
     n, c, h, w = shape
     kh, kw = window
     oh, ow = out_size(h, w, window, _S1, pads)
@@ -121,7 +140,7 @@ def plan(shape, window, pads, backward=False):
     out = {"path": "direct", "planes": 0, "rows": 0, "xrows": 0,
            "grows": 0, "threads": 0, "groups": 0, "smem_bytes": 0,
            "stages": STAGES}
-    if backward and _tap_bytes(kh, kw) == 0:
+    if (backward and _tap_bytes(kh, kw) == 0) or FORMS[dtype] != "f32":
         return out
     total = h if backward else oh
     tasks, sized = _sized(nc, h, w, oh, ow, kh, kw, backward, 1, total)
@@ -168,14 +187,15 @@ def maxpool2d_s1_forward_reference(x, window, pads):
 
 def maxpool2d_s1_backward_reference(x, g, window, pads):
     """Plain version of the backward: the first max recomputed from x,
-    then the cotangents gathered onto it."""
+    then the cotangents gathered onto it (in f32 for bf16, rounded
+    once)."""
     _, arg = maxpool2d_forward_reference(x, window, _S1, pads)
     return maxpool2d_backward_reference(arg, g, window, _S1, pads, x.shape)
 
 
 def maxpool2d_s1_forward(x, window, pads):
-    """Stride-1 max pool of ``x`` (N, C, H, W) f32 over ``window`` =
-    (kh, kw) with ``pads`` = ((lo_h, hi_h), (lo_w, hi_w))."""
+    """Stride-1 max pool of ``x`` (N, C, H, W) f32 or bf16 over
+    ``window`` = (kh, kw) with ``pads`` = ((lo_h, hi_h), (lo_w, hi_w))."""
     if x.device.type == "cpu":
         return maxpool2d_s1_forward_reference(x, window, pads)
     if x.device.type != "cuda":
@@ -185,7 +205,7 @@ def maxpool2d_s1_forward(x, window, pads):
     oh, ow = out_size(h, w, window, _S1, pads)
     y = torch.empty(n, c, oh, ow, dtype=x.dtype, device=x.device)
     _run("fwd", (x, y), x.shape, (oh, ow), window, pads)
-    maxpool2d_s1_forward.launches += 1
+    _build.count_launch(maxpool2d_s1_forward, x.dtype)
     return y
 
 
@@ -200,24 +220,23 @@ def maxpool2d_s1_backward(x, g, window, pads):
     _check(g, "g")
     n, c, h, w = x.shape
     oh, ow = out_size(h, w, window, _S1, pads)
-    if tuple(g.shape) != (n, c, oh, ow) or x.device != g.device:
-        raise ValueError(f"maxpool2d_s1: g {tuple(g.shape)} on {g.device} "
-                         f"does not match the output {(n, c, oh, ow)} on "
-                         f"{x.device}")
+    if (tuple(g.shape) != (n, c, oh, ow) or x.device != g.device
+            or x.dtype != g.dtype):
+        raise ValueError(f"maxpool2d_s1: g {tuple(g.shape)} {g.dtype} on "
+                         f"{g.device} does not match the output "
+                         f"{(n, c, oh, ow)} {x.dtype} on {x.device}")
     dx = torch.empty_like(x)
     _run("bwd", (x, g, dx), x.shape, (oh, ow), window, pads)
-    maxpool2d_s1_backward.launches += 1
+    _build.count_launch(maxpool2d_s1_backward, x.dtype)
     return dx
 
 
-maxpool2d_s1_forward.launches = 0
-maxpool2d_s1_backward.launches = 0
+maxpool2d_s1_forward.launches = maxpool2d_s1_forward.launches_bf16 = 0
+maxpool2d_s1_backward.launches = maxpool2d_s1_backward.launches_bf16 = 0
 
 
 def _check(t, name):
-    if t.dtype != torch.float32:
-        raise TypeError(f"maxpool2d_s1: {name} must be float32, got "
-                        f"{t.dtype}")
+    entry("fwd", t.dtype)   # a TypeError where the kernels have no form
     if t.dim() != 4 or not t.is_contiguous():
         raise ValueError(f"maxpool2d_s1: {name} must be a contiguous NCHW "
                          f"tensor, got shape {tuple(t.shape)}")
@@ -227,8 +246,7 @@ def _run(which, tensors, xshape, oshape, window, pads):
     n, c, h, w = xshape
     (plh, _), (plw, _) = pads
     lib = _lib()
-    fn = (lib.bigdl_maxpool2d_s1_fwd_f32 if which == "fwd"
-          else lib.bigdl_maxpool2d_s1_bwd_f32)
+    fn = getattr(lib, entry(which, tensors[0].dtype))
     err = fn(*[t.data_ptr() for t in tensors], n * c, h, w, *oshape,
              *window, plh, plw, *_build.device_stream(tensors[0].device))
     if err != 0:

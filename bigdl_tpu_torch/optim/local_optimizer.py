@@ -55,6 +55,7 @@ from bigdl_tpu_torch.nn.module import leaves_of, tree_of
 from bigdl_tpu_torch.optim import trigger as triggers
 from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.optim_method import SGD, Default, OptimMethod
+from bigdl_tpu_torch.tensor import policy
 from bigdl_tpu_torch.utils import file as File
 from bigdl_tpu_torch.utils.device import pin_fp32, resolve_device
 from bigdl_tpu_torch.utils.random import RNG
@@ -264,11 +265,13 @@ class _CapturedChunk:
 
 def _capture_key(params, model, opt_state, x, y, hyper):
     """What a capture is a function of besides its inputs' values: the
-    batch shapes and types, the address of every parameter, gradient,
-    module buffer and optimizer-state tensor, and the hyper-parameters
-    other than lr."""
-    return (tuple(x.shape), x.dtype, tuple(y.shape), y.dtype,
-            tuple((p.data_ptr(), p.grad.data_ptr()) for p in params),
+    dtype policy its forward read (a step after ``set_policy`` captures
+    anew, as the JAX serving cache keys its programs on it), the batch
+    shapes and types, the address of every parameter, gradient, module
+    buffer and optimizer-state tensor, and the hyper-parameters other than
+    lr."""
+    return (policy().key(), tuple(x.shape), x.dtype, tuple(y.shape),
+            y.dtype, tuple((p.data_ptr(), p.grad.data_ptr()) for p in params),
             tuple(b.data_ptr() for b in model.buffers()),
             tuple(t.data_ptr() for v in opt_state.values() for t in v),
             tuple(sorted((k, repr(v)) for k, v in hyper.items()

@@ -27,6 +27,12 @@ from the global token count and places counted in global token order.
 expert's tokens on the ranks before this one (an exclusive prefix over
 an all-gather of the (E,) counts, :func:`global_offset`), so that a
 rank's places are the global ones.
+
+Under a reduced dtype policy (bigdl_tpu/nn/moe.py:58-76) the router's
+logits are a product in the compute dtype cast to f32, the tokens are
+dispatched in the compute dtype, each expert's two products take compute
+operands and add their f32 biases in f32, and the combine multiplies the
+expert's output and the gate, both in the compute dtype.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from bigdl_tpu_torch.parallel import collectives as coll
+from bigdl_tpu_torch.tensor import policy
 
 Route = collections.namedtuple(
     "Route", ["expert", "place", "local", "keep", "gate"])
@@ -103,18 +110,39 @@ def dispatch(x: torch.Tensor, route: Route, n_experts: int, capacity: int):
     return buf.view(n_experts, capacity + 1, -1)[:, :capacity], flat
 
 
+def router_logits(x: torch.Tensor, router_w: torch.Tensor) -> torch.Tensor:
+    """(T, E) logits x · router, under a reduced policy a product in the
+    compute dtype cast to f32."""
+    p = policy()
+    if not p.reduced:
+        return x @ router_w
+    return (p.cast_compute(x) @ p.cast_compute(router_w)).float()
+
+
 def experts(xe, w1, b1, w2, b2):
-    """Each expert's FFN on its (C, D) rows: relu(x W1 + b1) W2 + b2."""
-    h = torch.relu(torch.bmm(xe, w1) + b1[:, None])
-    return torch.bmm(h, w2) + b2[:, None]
+    """Each expert's FFN on its (C, D) rows: relu(x W1 + b1) W2 + b2; under
+    a reduced policy each product's operands in the compute dtype, its
+    result in f32 before the bias."""
+    p = policy()
+    if not p.reduced:
+        h = torch.relu(torch.bmm(xe, w1) + b1[:, None])
+        return torch.bmm(h, w2) + b2[:, None]
+    cc = p.cast_compute
+    h = torch.relu(torch.bmm(cc(xe), cc(w1)).float() + b1[:, None])
+    return torch.bmm(cc(h), cc(w2)).float() + b2[:, None]
 
 
 def combine(ye: torch.Tensor, flat: torch.Tensor, route: Route):
     """Each token's expert output at its place times its gate; 0 for a
-    dropped token."""
+    dropped token.  Under a reduced policy both factors in the compute
+    dtype, the product in the output dtype."""
+    p = policy()
+    gate = route.gate * route.keep
+    if p.reduced:
+        ye, gate = p.cast_compute(ye), p.cast_compute(gate)
     ye = F.pad(ye, (0, 0, 0, 1))            # the extra place, zeros
-    y = ye.reshape(-1, ye.shape[-1]).index_select(0, flat)
-    return y * (route.gate * route.keep)[:, None]
+    y = ye.reshape(-1, ye.shape[-1]).index_select(0, flat) * gate[:, None]
+    return y.to(p.output_dtype) if p.reduced else y
 
 
 def moe_apply(router_w, expert_w1, expert_b1, expert_w2, expert_b2, x,
@@ -132,7 +160,7 @@ def moe_apply(router_w, expert_w1, expert_b1, expert_w2, expert_b2, x,
     e_local = expert_w1.shape[0]
     n_expert = e_local * n
     cap = expert_capacity(x.shape[0], n_expert, capacity_factor)
-    route = top1_route(x @ router_w, n_expert, cap)
+    route = top1_route(router_logits(x, router_w), n_expert, cap)
     xe, flat = dispatch(coll.sum_grad(x, group), route, n_expert, cap)
     own = xe[idx * e_local:(idx + 1) * e_local]
     out = experts(own, expert_w1, expert_b1, expert_w2, expert_b2)
@@ -151,7 +179,7 @@ def moe_apply_sharded_tokens(router_w, expert_w1, expert_b1, expert_w2,
     e_local = expert_w1.shape[0]
     n_expert = e_local * n
     cap = expert_capacity(x.shape[0], n_expert, capacity_factor)
-    route = top1_route(x @ router_w, n_expert, cap)
+    route = top1_route(router_logits(x, router_w), n_expert, cap)
     xe, flat = dispatch(x, route, n_expert, cap)
     d = x.shape[1]
     # (owner, e_local, C, D) -> every owner receives (source, e_local, C, D)

@@ -35,10 +35,21 @@ import torch
 from bigdl_tpu_torch.parallel.collectives import RingSend, _members
 
 
+def _up(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in f32 at least: bf16 scores, probabilities' products and
+    softmax statistics are taken in f32 (a product of two bf16 values is
+    exact in f32, so this is a bf16 product accumulated in f32, the JAX
+    ``preferred_element_type=float32``)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool = False) -> torch.Tensor:
+    """Softmax attention over (B, T, H, hd) q, k, v: the scores and the
+    softmax in f32 at least, the probabilities cast to v's dtype for the
+    product with v (bigdl_tpu/parallel/ring_attention.py:120-130)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    s = torch.einsum("bqhd,bkhd->bhqk", _up(q), _up(k)) * scale
     if causal:
         tq, tk = q.shape[1], k.shape[1]
         mask = (torch.arange(tq, device=q.device)[:, None]
@@ -75,14 +86,13 @@ def block_forward(q, k, v, q_off, k_off, causal, scale, state=None):
     ``ring_attention`` step merges them (``_block_attn`` and its
     rescales).  q, k, v in (B, H, T, hd); m, l (B, H, Tq) and o (B, H,
     Tq, hd) in fp32 at least.  Returns the new state."""
-    s = _scores(q, k, q_off, k_off, causal, scale)
+    s = _scores(_up(q), _up(k), q_off, k_off, causal, scale)
     bm = s.amax(dim=-1)
     # a row the mask hides wholly keeps a finite shift: its p is 0
     bm = torch.where(torch.isinf(bm), torch.zeros_like(bm), bm)
     p = torch.exp(s - bm[..., None])
     bl = p.sum(dim=-1)
-    bpv = torch.matmul(p.to(v.dtype), v).to(
-        torch.promote_types(v.dtype, torch.float32))
+    bpv = torch.matmul(_up(p.to(v.dtype)), _up(v))
     if state is None:
         return bm, bl, bpv
     m, l, o = state
@@ -104,7 +114,8 @@ def block_backward(q, k, v, do, lse, delta, q_off, k_off, causal, scale):
     """One hop of the backward: the held block's probabilities recomputed
     from the saved log-sum-exp, then its parts of dq, dk and dv.  ``do``
     is the output's gradient and ``delta`` the row sums of ``do · out``,
-    all in (B, H, T, ·)."""
+    all in (B, H, T, ·); q, k and v are taken in f32 at least."""
+    q, k, v = _up(q), _up(k), _up(v)
     s = _scores(q, k, q_off, k_off, causal, scale)
     p = torch.exp(s - lse[..., None])
     dv = torch.matmul(p.transpose(-1, -2), do)

@@ -26,6 +26,8 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py --parallel-vs-cpu  # VGG's pipeline against the
                                              # CPU at microbatches of 2
                                              # and 4, a reading
+    python3 chip_smoke.py --bf16     # the bf16 forms' checks and phase 20
+                                     # alone, no result line
 
 Each option runs part of one phase table (``ONLY``); every phase runs
 even where one before it failed, and a failed phase makes the exit
@@ -268,7 +270,20 @@ non-zero with no result line.  Phases:
     beside one card's, the schedule's bubble (idle ticks over ticks),
     each rank's peak memory, the NCCL kernels' device time by name and
     the leaves that ran gathered; with fewer cards a line says so;
-20. one JSON line of kernels, then the card line, then the result line.
+20. the dtype policy (``--bf16`` runs it alone, with its kernel phase):
+    the bf16 forms of the any-stride pool (LeNet-5's, VGG's, Inception's
+    and ResNet-50's s2 pools), the stride-1 pool and LRN (Inception's)
+    and the LSTM recurrence (the Bi-LSTM's width, zx bf16 and f32, and
+    ``lstm_scan``) against their plain versions, timed beside their
+    bounds and the library's bf16 calls (cuDNN's bf16 ``nn.LSTM`` as the
+    layer's yardstick); then bench.py's six configurations at full width
+    and batch under FP32 and BF16_COMPUTE, bench.py's steps a dispatch
+    through the CUDA-graph route: ms a step, records a second, device
+    busy, idle share and peak memory each way, the bf16 forms' launches,
+    the first loss against FP32's and a small-batch run against the CPU
+    under the same policy; and ``Recurrent(LSTMCell)`` under it through
+    the bf16-weight forms and ``lstm_scan``'s;
+21. one JSON line of kernels, then the card line, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -3483,22 +3498,29 @@ class Routes:
 
     def _pool(self, m, args, out):
         from bigdl_tpu_torch.nn.pooling import _pads
+        from bigdl_tpu_torch.tensor import policy
 
         torch = self.torch
         x = args[0] if args[0].dim() == 4 else args[0][None]
         win, st = (m.kh, m.kw), (m.dh, m.dw)
         pads = _pads(m, x.shape[2:])
+        # the module pools an f32 input in a reduced policy's compute
+        # dtype: its first max is that of the rounded input
+        dt = policy().compute_dtype
+        cast = x.dtype == torch.float32 and dt != torch.float32
+        xc = x.to(dt) if cast else x
         if self.replay is not None:
             idx = next(self.replay).to(x.device)
-            self._count(self._first_max(x, win, st, pads), idx)
-            y = x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+            self._count(self._first_max(xc, win, st, pads), idx)
+            y = xc.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+            y = y.to(x.dtype) if cast else y
             return y if args[0].dim() == 4 else y[0]
         if st == (1, 1):
             self.s1.add((tuple(x.shape), win, pads))
         else:
             self.pools.add((tuple(x.shape), win, st, pads))
         if not self.geometry_only:
-            self.route.append(self._first_max(x, win, st, pads).cpu())
+            self.route.append(self._first_max(xc, win, st, pads).cpu())
         return None
 
     def _first_max(self, x, win, st, pads):
@@ -7573,6 +7595,832 @@ def phase_parallel_cards(torch, ops):
         Engine.reset()
 
 
+# -- the dtype policy: the kernels' bf16 forms and bench.py's six
+# configurations trained under BF16_COMPUTE ---------------------------------
+
+BF16_FLOPS = 989e12               # H100 SXM data sheet, bf16 dense
+# the pools the six configurations give the bf16 forms: LeNet-5's two at
+# batch 256, VGG's five at 128, Inception-v1's four 3x3 s2 at 128 and
+# ResNet-50's stem at 64 (bench.py:286-364); the stride-1 pools and LRNs
+# are Inception's (INCEPTION_S1_POOLS, INCEPTION_LRNS)
+BF16_S2_POOLS = ([((256, 6, 24, 24), (2, 2), (2, 2), ((0, 0), (0, 0))),
+                  ((256, 12, 8, 8), (2, 2), (2, 2), ((0, 0), (0, 0)))]
+                 + VGG_POOLS + INCEPTION_POOLS
+                 + [((64,) + RESNET50_POOL[0][1:],) + RESNET50_POOL[1:]])
+# (T, D, B, H, zx in bf16): small cases of either zx dtype, the Bi-LSTM
+# configuration's width (zx bf16: BiRecurrent's projection), one
+# direction (zx f32: Recurrent's) and the largest H (filled in at run
+# time); lstm_scan at the classifier's width from a given state
+BF16_BILSTM_CASES = [(7, 2, 3, 5, True), (9, 1, 4, 5, False),
+                     (13, 2, 37, 100, True), (7, 2, 37, 203, False),
+                     (2, 1, 3, None, True), (TSEQ, 2, TBATCH, THIDDEN, True),
+                     (TSEQ, 1, TBATCH, THIDDEN, False)]
+# the six configurations against FP32 on the card: the first step's loss
+# from the same parameters and batch (BF16_LOSS_RTOL relative); against
+# the CPU under the same policy at a small batch, dropout off: the first
+# batch's loss (BF16_LOSS_RTOL), its whole-model gradient (||card - CPU||
+# / ||CPU||, BF16_GRAD_RTOL), BF16_CHECK_STEPS steps' losses and the final
+# parameters (BF16_PARAM_ATOL).  Each rounds a bf16 product's result at
+# its own place (cuDNN against oneDNN): the limits are two bf16 ulps
+# (1.6e-2) with room, as the CPU tests hold the port to JAX
+BF16_LOSS_RTOL, BF16_GRAD_RTOL, BF16_PARAM_ATOL = 2e-2, 3e-2, 1e-3
+BF16_CHECK_STEPS, BF16_LR = 2, 0.01
+# the dispatches a timed (and a traced) call replays past the one that
+# captures
+BENCH_DISPATCHES = 3
+# the wrappers whose kernels have a bf16 form: their launches under the
+# policy count as <name>_bf16
+BF16_FORMS = ("maxpool2d_forward", "maxpool2d_backward",
+              "maxpool2d_s1_forward", "maxpool2d_s1_backward",
+              "lrn_forward", "lrn_backward", "bilstm_forward",
+              "bilstm_backward", "lstm_scan")
+
+
+def bench_configs():
+    """bench.py's six configurations (bench.py:286-364) from the port's
+    models: (label, build(device, generator), input shape, classes,
+    records a batch, unit, steps a dispatch (bench.py:360-364), kernel
+    launches a step besides fused_sgd, the CPU check's batch and depth).
+    VGG's CPU
+    check runs at 64 images: under BF16_COMPUTE its gradient moves with
+    the last bits of an f32 sum (a bf16 rounding flips, and BN over a
+    small batch spreads it), and at 8 images that alone parts two CPU
+    runs past BF16_GRAD_RTOL (vgg_bf16_sensitivity.py)."""
+    from bigdl_tpu_torch.models.inception import Inception_v1
+    from bigdl_tpu_torch.models.lenet import LeNet5
+    from bigdl_tpu_torch.models.resnet import ResNet
+    from bigdl_tpu_torch.models.textclassifier import TextClassifierBiLSTM
+    from bigdl_tpu_torch.models.transformer import TransformerClassifier
+    from bigdl_tpu_torch.models.vgg import VggForCifar10
+
+    def transformer(layers):
+        return lambda dev, gen: TransformerClassifier(
+            A_CLASSES, d_model=D_MODEL, n_heads=HEADS, n_layers=layers,
+            hidden=HIDDEN, device=dev, generator=gen)
+
+    pools = lambda n: {"maxpool2d_forward": n, "maxpool2d_backward": n}
+    return [
+        ("LeNet-5 bs256", lambda dev, gen: LeNet5(10, dev, gen),
+         (256, 1, 28, 28), 10, 256, "images/s", 32, pools(2), (16, None)),
+        ("VGG-16 bs128", lambda dev, gen: VggForCifar10(10, device=dev,
+                                                        generator=gen),
+         (128, 3, 32, 32), 10, 128, "images/s", 32, pools(5), (64, None)),
+        ("Inception-v1 bs128", lambda dev, gen: Inception_v1(
+            ICLASSES, device=dev, generator=gen),
+         (128, 3, 224, 224), ICLASSES, 128, "images/s", 8,
+         {**pools(4), "maxpool2d_s1_forward": 9, "maxpool2d_s1_backward": 9,
+          "lrn_forward": 2, "lrn_backward": 2}, (2, None)),
+        ("Bi-LSTM bs128 T500", lambda dev, gen: TextClassifierBiLSTM(
+            TCLASSES, TEMBED, THIDDEN, device=dev, generator=gen),
+         (TBATCH, TSEQ, TEMBED), TCLASSES, TBATCH * TSEQ, "tokens/s", 8,
+         {"bilstm_forward": 1, "bilstm_backward": 1, "bilstm_dwh": 1},
+         (4, None)),
+        ("ResNet-50 bs64", lambda dev, gen: ResNet(50, ICLASSES, device=dev,
+                                                   generator=gen),
+         (64, 3, 224, 224), ICLASSES, 64, "images/s", 8, pools(1),
+         (2, None)),
+        ("Transformer-enc bs16 T512 d1024", transformer(LAYERS),
+         (A_BATCH, A_T, D_MODEL), A_CLASSES, A_BATCH * A_T, "tokens/s", 8,
+         {}, (2, transformer(A_CHECK_LAYERS))),
+    ]
+
+
+def bf16_name(name):
+    return f"{name}_bf16" if name in BF16_FORMS else name
+
+
+def bf16_ulps(torch, a, b):
+    """The largest |a - b| in bf16 ulps of the larger magnitude of the
+    two (0 where both are 0)."""
+    a, b = a.float(), b.float()
+    big = torch.maximum(a.abs(), b.abs())
+    ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
+    return float(((a - b).abs() / ulp).max())
+
+
+def held_ulps(torch, name, got, want, limit):
+    """``got`` within ``limit`` bf16 ulps of ``want`` (0: bit for bit);
+    returns the largest |got - want|."""
+    if limit == 0:
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: not bit for bit")
+    elif bf16_ulps(torch, got, want) > limit:
+        raise AssertionError(f"{name}: {bf16_ulps(torch, got, want)} bf16 "
+                             f"ulps from the plain version, limit {limit}")
+    return float((got.float() - want.float()).abs().max())
+
+
+def bf16_tied(torch, g, shape):
+    """N(0, 1) rounded to halves, in bf16: ties in every window."""
+    return (torch.randn(shape, generator=g, device="cuda").mul_(2).round_()
+            .div_(2).bfloat16())
+
+
+def check_pool_bf16(torch, ops, g, shape, win, st, pads):
+    """The bf16 form of the any-stride pool against its plain version on
+    tied inputs: y, the primal y and the argmax bit for bit; dx bit for
+    bit where windows do not overlap, within one bf16 ulp where they do;
+    the autograd path the wrappers' bits.  Returns (forward error,
+    backward error)."""
+    x = bf16_tied(torch, g, shape)
+    y, arg = ops.maxpool2d_forward(x, win, st, pads)
+    y_only = ops.maxpool2d_forward(x, win, st, pads, with_argmax=False)
+    y_ref, arg_ref = ops.maxpool2d_forward_reference(x, win, st, pads)
+    gy = torch.randn(y.shape, generator=g, device="cuda").bfloat16()
+    dx = ops.maxpool2d_backward(arg, gy, win, st, pads, shape)
+    dx_ref = ops.maxpool2d_backward_reference(arg_ref, gy, win, st, pads,
+                                              shape)
+    xg = x.clone().requires_grad_()
+    ops.maxpool2d(xg, win, st, pads).backward(gy)
+    torch.cuda.synchronize()
+    name = f"maxpool2d bf16 {shape} {win} s{st}"
+    e_f = held_ulps(torch, name + " y", y, y_ref, 0)
+    held_ulps(torch, name + " primal y", y_only, y, 0)
+    if not torch.equal(arg, arg_ref):
+        raise AssertionError(f"{name}: the argmax differs")
+    overlap = win[0] > st[0] or win[1] > st[1]
+    e_b = held_ulps(torch, name + " dx", dx, dx_ref, 1 if overlap else 0)
+    held_ulps(torch, name + " autograd dx", xg.grad, dx, 0)
+    return e_f, e_b
+
+
+def pool_times_bf16(torch, ops, flush, g, shape, win, st, pads):
+    """The bf16 form's forward (with argmax) and backward rows: kernel,
+    plain and library (``F.max_pool2d`` on bf16 with indices, and its
+    backward) times; bounds: x read, y (2 bytes) and the argmax (4)
+    written; g and the argmax read, dx written."""
+    import torch.nn.functional as F
+
+    x = torch.randn(shape, generator=g, device="cuda").bfloat16()
+    y, arg = ops.maxpool2d_forward(x, win, st, pads)
+    gy = torch.randn(y.shape, generator=g, device="cuda").bfloat16()
+    (plh, phh), (plw, phw) = pads
+    ceil = phh > plh or phw > plw
+    lib = dict(kernel_size=win, stride=st, padding=(plh, plw),
+               ceil_mode=ceil)
+    y_lib, idx = F.max_pool2d(x, return_indices=True, **lib)
+    if not torch.equal(y_lib, y):
+        raise AssertionError("F.max_pool2d on bf16 is not the same pool")
+    fwd = timed(torch, flush,
+                lambda: ops.maxpool2d_forward(x, win, st, pads),
+                lambda: ops.maxpool2d_forward_reference(x, win, st, pads),
+                lambda: F.max_pool2d(x, return_indices=True, **lib))
+    bwd = timed(
+        torch, flush,
+        lambda: ops.maxpool2d_backward(arg, gy, win, st, pads, shape),
+        lambda: ops.maxpool2d_backward_reference(arg, gy, win, st, pads,
+                                                 shape),
+        lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+            gy, x, win, st, (plh, plw), (1, 1), ceil, idx))
+    for row in (fwd, bwd):
+        row.update(byte_bound(2 * x.numel() + 6 * y.numel(), 0))
+    return fwd, bwd
+
+
+def check_pool_s1_bf16(torch, ops, g, shape, win, pads):
+    """The stride-1 pool's bf16 form against its plain version on tied
+    inputs: y bit for bit (and the any-stride form's y); dx within one
+    bf16 ulp (3x3 windows overlap); the autograd path the wrappers'
+    bits."""
+    x = bf16_tied(torch, g, shape)
+    y = ops.maxpool2d_s1_forward(x, win, pads)
+    y_ref = ops.maxpool2d_s1_forward_reference(x, win, pads)
+    y_any = ops.maxpool2d_forward(x, win, (1, 1), pads, with_argmax=False)
+    gy = torch.randn(y.shape, generator=g, device="cuda").bfloat16()
+    dx = ops.maxpool2d_s1_backward(x, gy, win, pads)
+    dx_ref = ops.maxpool2d_s1_backward_reference(x, gy, win, pads)
+    xg = x.clone().requires_grad_()
+    ops.maxpool2d_s1(xg, win, pads).backward(gy)
+    torch.cuda.synchronize()
+    name = f"maxpool2d_s1 bf16 {shape} {win}"
+    e_f = held_ulps(torch, name + " y", y, y_ref, 0)
+    held_ulps(torch, name + " any-stride y", y_any, y, 0)
+    e_b = held_ulps(torch, name + " dx", dx, dx_ref, 1)
+    held_ulps(torch, name + " autograd dx", xg.grad, dx, 0)
+    return e_f, e_b
+
+
+def pool_s1_times_bf16(torch, ops, flush, g, shape, win, pads):
+    """The stride-1 bf16 form's rows; library ``F.max_pool2d`` on bf16
+    with indices and its backward; bounds at 2 bytes an element."""
+    import torch.nn.functional as F
+
+    (plh, _), (plw, _) = pads
+    x = torch.randn(shape, generator=g, device="cuda").bfloat16()
+    y = ops.maxpool2d_s1_forward(x, win, pads)
+    gy = torch.randn(y.shape, generator=g, device="cuda").bfloat16()
+    lib = dict(kernel_size=win, stride=1, padding=(plh, plw))
+    _, idx = F.max_pool2d(x, return_indices=True, **lib)
+    taps = win[0] * win[1]
+    fwd = timed(torch, flush, lambda: ops.maxpool2d_s1_forward(x, win, pads),
+                lambda: ops.maxpool2d_s1_forward_reference(x, win, pads),
+                lambda: F.max_pool2d(x, return_indices=True, **lib))
+    fwd.update(byte_bound(2 * (x.numel() + y.numel()), taps * y.numel()))
+    bwd = timed(
+        torch, flush, lambda: ops.maxpool2d_s1_backward(x, gy, win, pads),
+        lambda: ops.maxpool2d_s1_backward_reference(x, gy, win, pads),
+        lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+            gy, x, win, (1, 1), (plh, plw), (1, 1), False, idx))
+    bwd.update(byte_bound(2 * (2 * x.numel() + y.numel()),
+                          taps * (y.numel() + 2 * x.numel())))
+    return fwd, bwd
+
+
+def check_lrn_bf16(torch, ops, g, shape, hyper):
+    """The LRN's bf16 form against its plain version: y and dx within one
+    bf16 ulp, z (f32) within LRN_FWD_TOL, the primal y and the autograd
+    path the wrappers' bits."""
+    x = torch.randn(shape, generator=g, device="cuda").bfloat16()
+    gy = torch.randn(shape, generator=g, device="cuda").bfloat16()
+    y, z = ops.lrn_forward(x, *hyper)
+    y_only = ops.lrn_forward(x, *hyper, with_z=False)
+    y_ref, z_ref = ops.lrn_forward_reference(x, *hyper)
+    dx = ops.lrn_backward(x, z, gy, *hyper)
+    dx_ref = ops.lrn_backward_reference(x, z_ref, gy, *hyper)
+    xg = x.clone().requires_grad_()
+    ops.lrn_channel(xg, *hyper).backward(gy)
+    torch.cuda.synchronize()
+    name = f"lrn bf16 {shape}"
+    if z.dtype != torch.float32:
+        raise AssertionError(f"{name}: z is {z.dtype}")
+    torch.testing.assert_close(z, z_ref, **LRN_FWD_TOL)
+    e_f = held_ulps(torch, name + " y", y, y_ref, 1)
+    held_ulps(torch, name + " primal y", y_only, y, 0)
+    e_b = held_ulps(torch, name + " dx", dx, dx_ref, 1)
+    held_ulps(torch, name + " autograd dx", xg.grad, dx, 0)
+    return e_f, e_b
+
+
+def lrn_times_bf16(torch, ops, flush, g, shape, hyper):
+    """The LRN's bf16 rows; library ``F.local_response_norm`` on bf16 and
+    its backward; bounds: x read, y written (2 bytes), z written (4);
+    backward x, g read, dx written (2), z read (4); operations as the f32
+    rows'."""
+    import torch.nn.functional as F
+
+    size, alpha, beta, k = hyper
+    x = torch.randn(shape, generator=g, device="cuda").bfloat16()
+    gy = torch.randn(shape, generator=g, device="cuda").bfloat16()
+    _, z = ops.lrn_forward(x, *hyper)
+    xl = x.clone().requires_grad_()
+    yl = F.local_response_norm(xl, size, alpha, beta, k)
+    n = x.numel()
+    fwd = timed(torch, flush, lambda: ops.lrn_forward(x, *hyper),
+                lambda: ops.lrn_forward_reference(x, *hyper),
+                lambda: F.local_response_norm(x, size, alpha, beta, k))
+    fwd.update(byte_bound(8 * n, (2 * size + 6) * n))
+    bwd = timed(torch, flush, lambda: ops.lrn_backward(x, z, gy, *hyper),
+                lambda: ops.lrn_backward_reference(x, z, gy, *hyper),
+                lambda: torch.autograd.grad(yl, xl, gy, retain_graph=True))
+    bwd.update(byte_bound(10 * n, (size + 11) * n))
+    return fwd, bwd
+
+
+def bf16_bilstm_inputs(torch, g, t, nd, b, h, zx_bf16):
+    zx, wht, gout = bilstm_inputs(torch, g, t, nd, b, h)
+    return (zx.bfloat16() if zx_bf16 else zx), wht.bfloat16(), gout
+
+
+def check_bilstm_bf16(torch, ops, g, case):
+    """The recurrence's bf16 forms against the plain versions: the
+    forward's h and c, the backward's dzx and the weight gradient, each
+    by ``held`` (within the f32 tolerances, or no further from a float64
+    run on the same bf16 operands, exact in float64, than twice the
+    plain version); the autograd path is the wrappers' bits, its
+    gradients cast to zx's and wht's dtypes."""
+    *shape, zx_bf16 = case
+    zx, wht, gout = bf16_bilstm_inputs(torch, g, *shape, zx_bf16)
+    hs, cs = ops.bilstm_forward(zx, wht)
+    h_only = ops.bilstm_forward(zx, wht, with_c=False)
+    dzx = ops.bilstm_backward(zx, wht, hs, cs, gout)
+    dwh = ops.bilstm_dwh(hs, dzx)
+    zg, wg = zx.clone().requires_grad_(), wht.clone().requires_grad_()
+    ops.bilstm_recurrence(zg, wg).backward(gout)
+    torch.cuda.synchronize()
+    if not (torch.equal(h_only, hs) and torch.equal(zg.grad, dzx.to(zx.dtype))
+            and torch.equal(wg.grad, dwh.to(wht.dtype))
+            and hs.dtype == dzx.dtype == torch.float32):
+        raise AssertionError(f"bilstm bf16 {case}: the primal forward or the "
+                             f"autograd path differs from the wrappers")
+    hs_p, cs_p = ops.bilstm_forward_reference(zx, wht)
+    dzx_p = ops.bilstm_backward_reference(zx, wht, hs, cs, gout)
+    dwh_p = ops.bilstm_dwh_reference(hs, dzx)
+    z64, w64, h64, c64 = zx.double(), wht.double(), hs.double(), cs.double()
+    hs_64, cs_64 = ops.bilstm_forward_reference(z64, w64)
+    dzx_64 = ops.bilstm_backward_reference(z64, w64, h64, c64, gout.double())
+    dwh_64 = ops.bilstm_dwh_reference(h64, dzx.double())
+    name = f"bilstm bf16 {case}"
+    return {"h": held(torch, name + " h", hs, hs_p, hs_64, BILSTM_FWD_TOL),
+            "c": held(torch, name + " c", cs, cs_p, cs_64, BILSTM_FWD_TOL),
+            "dzx": held(torch, name + " dzx", dzx, dzx_p, dzx_64,
+                        BILSTM_BWD_TOL),
+            "dwh": held(torch, name + " dwh", dwh, dwh_p, dwh_64,
+                        BILSTM_BWD_TOL)}
+
+
+def check_lstm_scan_bf16(torch, ops, g):
+    """``lstm_scan`` on a bf16 wht (zx f32, Recurrent's route) from a
+    given state against its plain version by ``held``, and from zero
+    state the bits of ``bilstm_forward``'s bf16 form at D = 1."""
+    zx, wht, _ = bf16_bilstm_inputs(torch, g, TSEQ, 1, TBATCH, THIDDEN,
+                                    False)
+    h0 = torch.randn(TBATCH, THIDDEN, generator=g, device="cuda") * 0.5
+    c0 = torch.randn(TBATCH, THIDDEN, generator=g, device="cuda") * 0.5
+    hs = ops.lstm_scan(zx[:, 0], wht[0], h0, c0)
+    hs_p = ops.lstm_scan_reference(zx[:, 0], wht[0], h0, c0)
+    hs_64 = ops.lstm_scan_reference(zx[:, 0].double(), wht[0].double(),
+                                    h0.double(), c0.double())
+    zero = torch.zeros_like(h0)
+    if not torch.equal(ops.lstm_scan(zx[:, 0], wht[0], zero, zero),
+                       ops.bilstm_forward(zx, wht, with_c=False)[:, 0]):
+        raise AssertionError("lstm_scan bf16 from zero state is not "
+                             "bilstm_forward's bits")
+    return held(torch, "lstm_scan bf16 h", hs, hs_p, hs_64, BILSTM_FWD_TOL)
+
+
+def bilstm_times_bf16(torch, ops, flush, g):
+    """The recurrence's bf16 rows at the Bi-LSTM configuration's width
+    (zx bf16): forward (with c) and backward.  Bounds: forward zx (2
+    bytes) and wht (2) read, hs and cs (4) written; backward zx, wht,
+    hs, cs and gout read, dzx (4) written; the recurrent products at the
+    bf16 dense peak (the gate arithmetic left out)."""
+    case = (TSEQ, 2, TBATCH, THIDDEN)
+    zx, wht, gout = bf16_bilstm_inputs(torch, g, *case, True)
+    hs, cs = ops.bilstm_forward(zx, wht)
+    n_h, n_w = hs.numel(), wht.numel()
+    flops = 2 * n_h * 4 * THIDDEN
+    rows = {
+        "forward": (lambda: ops.bilstm_forward(zx, wht),
+                    lambda: ops.bilstm_forward_reference(zx, wht),
+                    2 * 4 * n_h + 2 * n_w + 4 * 2 * n_h, flops),
+        "backward": (lambda: ops.bilstm_backward(zx, wht, hs, cs, gout),
+                     lambda: ops.bilstm_backward_reference(zx, wht, hs, cs,
+                                                           gout),
+                     2 * 4 * n_h + 2 * n_w + 4 * 3 * n_h + 4 * 4 * n_h,
+                     2 * flops)}
+    out = {}
+    for name, (kernel, plain, nbytes, n_ops) in rows.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_ops / BF16_FLOPS * 1e3
+        out[name] = {"ms": time_ms(torch, kernel, flush),
+                     "plain_ms": time_ms(torch, plain, flush, reps=5),
+                     "queued_ms": time_queued_ms(torch, kernel),
+                     "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+                     "bytes": nbytes,
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations"}
+    return out
+
+
+def bf16_layer_times(torch, flush, g):
+    """The yardstick the port never calls: cuDNN's bidirectional
+    ``nn.LSTM`` in bf16 at the configuration's width beside the port's
+    ``BiRecurrent`` under BF16_COMPUTE (its bf16 kernels), forward
+    (autograd on) and backward ms over one (128, 500, 200) batch."""
+    from bigdl_tpu_torch import tensor as bt
+    from bigdl_tpu_torch.nn import BiRecurrent, LSTMCell
+    from bigdl_tpu_torch.utils.random import generator
+
+    gen = generator(3)
+    port = BiRecurrent(*[LSTMCell(TEMBED, THIDDEN, device="cuda",
+                                  generator=gen) for _ in range(2)])
+    lib = torch.nn.LSTM(TEMBED, THIDDEN, batch_first=True,
+                        bidirectional=True).cuda().bfloat16()
+    lib.flatten_parameters()
+    x = torch.randn(TBATCH, TSEQ, TEMBED, generator=g, device="cuda")
+    gy = torch.randn(TBATCH, TSEQ, 2 * THIDDEN, generator=g, device="cuda")
+    xb, gb = x.bfloat16().requires_grad_(), gy.bfloat16()
+    xp = x.clone().requires_grad_()
+    bt.set_policy(bt.BF16_COMPUTE)
+    try:
+        yl, yp = lib(xb)[0], port(xp)
+        return {"library_fwd_ms": time_ms(torch, lambda: lib(xb), flush),
+                "port_fwd_ms": time_ms(torch, lambda: port(xp), flush),
+                "library_bwd_ms": time_ms(torch, lambda: torch.autograd.grad(
+                    yl, [xb, *lib.parameters()], gb, retain_graph=True),
+                    flush),
+                "port_bwd_ms": time_ms(torch, lambda: torch.autograd.grad(
+                    yp, [xp, *port.parameters()], gy, retain_graph=True),
+                    flush)}
+    finally:
+        bt.set_policy(bt.FP32)
+
+
+def phase_bf16_kernels(torch, ops):
+    """The bf16 forms of the pool, stride-1 pool, LRN and LSTM kernels
+    against their plain versions at the shapes the six configurations
+    give them, timed (L2 flushed, median of 25) beside their bounds, the
+    plain versions and the library calls; H one past MAX_HIDDEN refused
+    on a bf16 weight too."""
+    from bigdl_tpu_torch.ops import bilstm
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+    flush = torch.empty(64 * 2**20, device="cuda")   # 256 MB > 50 MB L2
+    errs = {name: [0.0] for name in BF16_FORMS}
+    rows, sums = {}, {}
+    for case in BF16_S2_POOLS:
+        e_f, e_b = check_pool_bf16(torch, ops, g, *case)
+        errs["maxpool2d_forward"].append(e_f)
+        errs["maxpool2d_backward"].append(e_b)
+    for case in INCEPTION_POOLS:
+        for name, row in zip(("forward", "backward"),
+                             pool_times_bf16(torch, ops, flush, g, *case)):
+            print_pool_row(f"maxpool2d_{name}_bf16", case, row)
+            step_sum(sums, f"maxpool2d_{name}", row, 1)
+            rows.setdefault(f"maxpool2d_{name}", row)   # the first: 3x3 s2
+    for *case, n in INCEPTION_S1_POOLS:
+        e_f, e_b = check_pool_s1_bf16(torch, ops, g, *case)
+        errs["maxpool2d_s1_forward"].append(e_f)
+        errs["maxpool2d_s1_backward"].append(e_b)
+        for name, row in zip(("forward", "backward"),
+                             pool_s1_times_bf16(torch, ops, flush, g, *case)):
+            print_pool_row(f"maxpool2d_s1_{name}_bf16",
+                           (case[0], case[1], None, case[2]), row)
+            step_sum(sums, f"maxpool2d_s1_{name}", row, n)
+            if case[0] == S1_CASES[4][0]:
+                rows[f"maxpool2d_s1_{name}"] = row
+    for case in INCEPTION_LRNS:
+        e_f, e_b = check_lrn_bf16(torch, ops, g, *case)
+        errs["lrn_forward"].append(e_f)
+        errs["lrn_backward"].append(e_b)
+        for name, row in zip(("forward", "backward"),
+                             lrn_times_bf16(torch, ops, flush, g, *case)):
+            print_pool_row(f"lrn_{name}_bf16", (case[0], (5, 5), None, "-"),
+                           row)
+            step_sum(sums, f"lrn_{name}", row, 1)
+            rows[f"lrn_{name}"] = row   # the last: Inception-v1's 2nd
+    for name in ("maxpool2d_forward", "maxpool2d_backward",
+                 "maxpool2d_s1_forward", "maxpool2d_s1_backward",
+                 "lrn_forward", "lrn_backward"):
+        rows[name] = dict(rows[name], **sums[name])
+        print(f"{name}_bf16: Inception-v1's step, "
+              f"{sums[name]['inception_launches_step']} launches: kernel "
+              f"{sums[name]['inception_ms']:.5f} ms, bound "
+              f"{sums[name]['inception_bound_ms']:.5f} ms, library "
+              f"{sums[name]['inception_library_ms']:.5f} ms")
+    cases = [c if c[3] is not None else c[:3] + (bilstm.MAX_HIDDEN, c[4])
+             for c in BF16_BILSTM_CASES]
+    rec_errs = {case: check_bilstm_bf16(torch, ops, g, case)
+                for case in cases}
+    print_errs("bilstm bf16", rec_errs)
+    for t, nd, b, h, _ in cases:
+        for bwd in (False, True):
+            plan = bilstm.plan(nd, b, h, bwd, dtype=torch.bfloat16)
+            got = bilstm.kernel_plan(nd, b, h, bwd, dtype=torch.bfloat16)
+            if plan != got:
+                raise AssertionError(f"bilstm bf16 plan at {(nd, b, h)} "
+                                     f"bwd={bwd}: the mirror's {plan}, the "
+                                     f"library's {got}")
+            print(f"bilstm bf16 {(t, nd, b, h)} {'LstmBwdBf16' if bwd else 'LstmFwdBf16'}: "
+                  f"C={plan['C']} R={plan['R']} RT={plan['RT']} "
+                  f"KP={plan['KP']} depth={plan['depth']} weight "
+                  f"{'in shared memory' if plan['staged'] else 'through L2'} "
+                  f"smem={plan['bytes']} B")
+    scan = check_lstm_scan_bf16(torch, ops, g)
+    print(f"lstm_scan bf16 (T {TSEQ}, B {TBATCH}, H {THIDDEN}) from h0, c0: "
+          f"max_abs_err={scan['err']:.3e} ({scan['rule']}; vs float64 card "
+          f"{scan['card_vs_64']:.3e} plain {scan['plain_vs_64']:.3e}); from "
+          f"zero state bilstm_forward's bits")
+    h = bilstm.MAX_HIDDEN + 1
+    refused(torch, f"bilstm bf16 H={h}", lambda: ops.bilstm_forward(
+        torch.zeros(2, 1, 3, 4 * h, device="cuda", dtype=torch.bfloat16),
+        torch.zeros(1, h, 4 * h, device="cuda", dtype=torch.bfloat16)))
+    rec = bilstm_times_bf16(torch, ops, flush, g)
+    layer = bf16_layer_times(torch, flush, g)
+    for name, key in (("forward", "fwd"), ("backward", "bwd")):
+        rec[name]["layer_library_ms"] = layer[f"library_{key}_ms"]
+        rec[name]["layer_port_ms"] = layer[f"port_{key}_ms"]
+        rows[f"bilstm_{name}"] = rec[name]
+    print_rows("bilstm_bf16", (TSEQ, 2, TBATCH, THIDDEN), rec)
+    zx, wht, _ = bf16_bilstm_inputs(torch, g, TSEQ, 1, TBATCH, THIDDEN, False)
+    h0 = torch.zeros(TBATCH, THIDDEN, device="cuda")
+    n_h = TSEQ * TBATCH * THIDDEN
+    t_bytes = (4 * 4 * n_h + 2 * wht.numel() + 4 * n_h) / HBM_BYTES_PER_S
+    t_ops = 2 * n_h * 4 * THIDDEN / BF16_FLOPS
+    rows["lstm_scan"] = {
+        "ms": time_ms(torch, lambda: ops.lstm_scan(zx[:, 0], wht[0], h0, h0),
+                      flush),
+        "plain_ms": time_ms(torch, lambda: ops.lstm_scan_reference(
+            zx[:, 0], wht[0], h0, h0), flush, reps=5),
+        "queued_ms": time_queued_ms(
+            torch, lambda: ops.lstm_scan(zx[:, 0], wht[0], h0, h0)),
+        "library_ms": None, "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print(f"lstm_scan_bf16 {(TSEQ, TBATCH, THIDDEN)}: kernel_ms="
+          f"{rows['lstm_scan']['ms']:.5f} plain_ms="
+          f"{rows['lstm_scan']['plain_ms']:.5f} bound_ms="
+          f"{rows['lstm_scan']['bound_ms']:.5f}")
+    errs["bilstm_forward"] = [max(max(r["h"]["err"], r["c"]["err"])
+                                  for r in rec_errs.values())]
+    errs["bilstm_backward"] = [max(r["dzx"]["err"]
+                                   for r in rec_errs.values())]
+    errs["lstm_scan"] = [scan["err"]]
+    src = "bigdl_tpu_torch/csrc/"
+    at = "bigdl_tpu/ops/pallas_kernels.py:"
+    where = {"maxpool2d_forward": ("maxpool2d.cu", 1164),
+             "maxpool2d_backward": ("maxpool2d.cu", 1204),
+             "maxpool2d_s1_forward": ("maxpool2d_s1.cu", 264),
+             "maxpool2d_s1_backward": ("maxpool2d_s1.cu", 288),
+             "lrn_forward": ("lrn.cu", 408), "lrn_backward": ("lrn.cu", 408),
+             "bilstm_forward": ("bilstm.cu", 606),
+             "bilstm_backward": ("bilstm.cu", 631),
+             "lstm_scan": ("bilstm.cu", 148)}
+    print(f"bf16 forms: {len(BF16_S2_POOLS)} any-stride pools, "
+          f"{len(INCEPTION_S1_POOLS)} stride-1 pools, "
+          f"{len(INCEPTION_LRNS)} LRNs, {len(cases)} recurrences and "
+          f"lstm_scan held; max_abs_err "
+          + ", ".join(f"{n} {max(errs[n]):.3e}" for n in where))
+    return [{"name": bf16_name(name), "route": "cuda", "ok": True,
+             "source": src + where[name][0],
+             "replaces": at + str(where[name][1]),
+             "max_abs_err": max(errs[name]), **rows[name]}
+            for name in where]
+
+
+def bench_batch(shape, classes, seed):
+    """bench.py's synthetic batch: N(0, 1) inputs and labels 1..classes."""
+    from bigdl_tpu_torch.dataset.sample import MiniBatch
+
+    rs = np.random.RandomState(seed)
+    return MiniBatch(rs.randn(*shape).astype(np.float32),
+                     rs.randint(1, classes + 1, (shape[0],)).astype(
+                         np.float32))
+
+
+def bench_opt(torch, model, batch, n, dispatches, device="cuda", graph=True):
+    """``model`` on ``batch`` repeated, SGD at lr BF16_LR through
+    ``Optimizer``, ``n`` steps a dispatch (one CUDA graph on the card)."""
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import Optimizer
+    from bigdl_tpu_torch.utils.table import T
+
+    rows = len(batch.labels)
+    data = _FixedBatches([batch] * (n * dispatches), n * dispatches * rows)
+    opt = Optimizer(model, data, ClassNLLCriterion(),
+                    state=T(learningRate=BF16_LR), device=device)
+    return graph_or_eager(opt, n, graph and device == "cuda")
+
+
+def dispatch_walls(torch, opt, dispatches, trace=False):
+    """One call of ``opt`` (n steps a dispatch, one CUDA graph each) of
+    ``1 + dispatches`` dispatches: the first captures, the rest replay.
+    The loop's end trigger records a CUDA event on the loop's stream at
+    the top of each iteration, so the card's ms between two events is one
+    dispatch as the card lived it (the replay, and any wait for the host's
+    batch); returns those ms for the ``dispatches`` past the capturing
+    one.  With ``trace``, the card alone is traced over those dispatches,
+    and the device busy ms and the wall ms of that span come too: the
+    profiler starts at the top of the first replayed dispatch (the card
+    still runs the capturing one's replay, as in any steady state), busy
+    is what the card ran from then to the end, wall the host's clock over
+    the same span.  Busy sums the raw trace's device events: building the
+    profiler's event tables for a few replayed dispatches of these models
+    costs seconds a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch.optim import max_iteration
+
+    n = opt.iters_per_dispatch
+    end = max_iteration(int(opt.state["neval"]) - 1 + (1 + dispatches) * n)
+    events, window = [], {}
+    prof = profile(activities=[ProfilerActivity.CUDA]) if trace else None
+
+    def trigger(state):
+        if prof is not None and len(events) == 1:
+            prof.start()
+            window["t0"] = time.perf_counter()
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        return end(state)
+
+    opt.set_end_when(trigger).optimize()
+    torch.cuda.synchronize()
+    walls = [a.elapsed_time(b) for a, b in zip(events[1:-1], events[2:])]
+    if prof is None:
+        return walls
+    wall = (time.perf_counter() - window["t0"]) * 1e3
+    prof.stop()
+    cuda = torch.autograd.DeviceType.CUDA
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda) / 1e6
+    return walls, busy, wall
+
+
+def bench_run(torch, ops, cfg, init, batch, pol):
+    """One configuration under policy ``pol`` from ``init``: n steps a
+    dispatch through ``Optimizer(...).optimize()`` on the card, one CUDA
+    graph a dispatch after the first (eager) chunk.  A first call of n
+    steps (the eager chunk: the first loss, and the warm-up); a call of
+    1 + BENCH_DISPATCHES dispatches from zero launch counts, whose
+    dispatches past the capturing one give the ms a step (their median,
+    ``dispatch_walls``); another such call with the card traced over the
+    replayed ones, whose busy and wall give the idle share.  A call
+    captures its first dispatch anew (each starts from zero velocity),
+    and the capture is left out of both.  Returns the figures and the
+    timed call's launch counts (one capture's n steps)."""
+    from bigdl_tpu_torch import tensor as bt
+    from bigdl_tpu_torch.optim import max_iteration
+    from bigdl_tpu_torch.utils.random import RNG
+
+    label, build, _, _, records, unit, n = cfg[:7]
+    bt.set_policy(pol)
+    try:
+        RNG.set_seed(0)
+        model = with_init(build("cuda", None), init)
+        opt = bench_opt(torch, model, batch, n, 3 + 2 * BENCH_DISPATCHES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        opt.set_end_when(max_iteration(n)).optimize()
+        first = opt.loss_log[0][1]
+        walls, counts, _ = run_path(torch, ops, lambda: dispatch_walls(
+            torch, opt, BENCH_DISPATCHES))
+        step_ms = statistics.median(walls) / n
+        _, busy, window = dispatch_walls(torch, opt, BENCH_DISPATCHES,
+                                         trace=True)
+        steps = BENCH_DISPATCHES * n
+        peak = torch.cuda.max_memory_allocated()
+        losses = [l for _, l in opt.loss_log]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{label} {pol}: losses {losses}")
+        return {"step_ms": step_ms, "rate": records / step_ms * 1e3,
+                "unit": unit, "spread": (min(walls) / n, max(walls) / n),
+                "busy_ms": busy / steps, "window_ms": window / steps,
+                "idle": 1 - busy / window, "peak": peak,
+                "first_loss": first, "last_loss": losses[-1],
+                "captures": opt.captures, "replays": opt.replays}, counts
+    finally:
+        bt.set_policy(bt.FP32)
+        torch.cuda.empty_cache()
+
+
+def bf16_vs_cpu(torch, cfg, init):
+    """The configuration under BF16_COMPUTE on the card against the CPU
+    (plain versions) at the check's batch (and depth), dropout off, from
+    the same parameters: the first batch's loss and whole-model gradient,
+    then BF16_CHECK_STEPS eager steps' losses and the final parameters.
+    The CPU runs replay the card's routing (``Routes``: its ReLU masks and
+    pool argmaxes, which bf16's rounding makes ties of far more often than
+    f32's), so the runs part by their arithmetic, not by a flipped tie.
+    The losses hold BF16_LOSS_RTOL, the gradient BF16_GRAD_RTOL and the
+    parameters BF16_PARAM_ATOL."""
+    from bigdl_tpu_torch import tensor as bt
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import max_iteration
+    from bigdl_tpu_torch.optim.local_optimizer import to_device
+    from bigdl_tpu_torch.utils.random import generator
+
+    label, build, shape, classes = cfg[:4]
+    check_batch, check_build = cfg[8]
+    if check_build is not None:   # a cut depth: its own parameters
+        build, init = check_build, init_of(check_build("cpu", generator(1)))
+    batch = bench_batch((check_batch,) + shape[1:], classes, 1)
+    out, routes = {}, {}
+
+    def run(device):
+        bt.set_policy(bt.BF16_COMPUTE)
+        try:
+            model = with_init(build(device, None), init, dropout=0.0)
+            dev = torch.device(device)
+            model.train()
+            with Routes(torch, model, replay=routes.get("probe")) as seen:
+                loss = ClassNLLCriterion()(model(to_device(batch.data, dev)),
+                                           to_device(batch.labels, dev))
+            routes.setdefault("probe", seen)
+            loss.backward()
+            grads = [p.grad.detach().float().cpu()
+                     for p in model.parameters()]
+            model.zero_grad(set_to_none=True)
+            model.load_state(init["state"])
+            opt = bench_opt(torch, model, batch, 1, BF16_CHECK_STEPS,
+                            device=device, graph=False)
+            opt.set_end_when(max_iteration(BF16_CHECK_STEPS))
+            with Routes(torch, model, replay=routes.get("steps")) as steps:
+                opt.optimize()
+            routes.setdefault("steps", steps)
+        finally:
+            bt.set_policy(bt.FP32)
+        out[device] = (float(loss.detach()), grads,
+                     [l for _, l in opt.loss_log], _params(torch, model),
+                     (seen.differ, seen.choices, steps.differ,
+                      steps.choices))
+
+    run("cuda")
+    run("cpu")
+    (l_g, g_g, ls_g, p_g, _), (l_c, g_c, ls_c, p_c, flips) = (
+        out["cuda"], out["cpu"])
+    diff = {"loss": (l_g, l_c), "loss_rel": abs(l_g - l_c) / abs(l_c),
+            "grad_rel": model_rel(g_g, g_c),
+            "steps_rel": float(np.max(np.abs(np.subtract(ls_g, ls_c))
+                                      / np.abs(ls_c))),
+            "param_abs": float((p_g - p_c).abs().max())}
+    failed = [part for part, bad in (
+        ("first loss", diff["loss_rel"] > BF16_LOSS_RTOL),
+        ("gradients", diff["grad_rel"] > BF16_GRAD_RTOL),
+        ("losses", diff["steps_rel"] > BF16_LOSS_RTOL),
+        ("params", diff["param_abs"] > BF16_PARAM_ATOL)) if bad]
+    print(f"bf16 {label} vs CPU, batch {check_batch}"
+          f"{' at depth ' + str(A_CHECK_LAYERS) if check_build else ''}, "
+          f"BF16_COMPUTE on both: first loss card {l_g:.6f} CPU {l_c:.6f} "
+          f"({diff['loss_rel']:.3e} relative, limit {BF16_LOSS_RTOL}); "
+          f"gradient ||card - CPU|| / ||CPU|| {diff['grad_rel']:.3e} (limit "
+          f"{BF16_GRAD_RTOL}); {BF16_CHECK_STEPS} steps' losses "
+          f"{diff['steps_rel']:.3e} apart; params {diff['param_abs']:.3e} "
+          f"(limit {BF16_PARAM_ATOL}); the CPU took the card's "
+          f"routing ({flips[0]} of its own {flips[1]} first-batch choices "
+          f"and {flips[2]} of {flips[3]} in the steps differed)")
+    if failed:
+        raise AssertionError(f"bf16 {label}: the card's training left the "
+                             f"CPU's: {', '.join(failed)}")
+    return diff
+
+
+def phase_bf16(torch, ops, profile: bool):
+    """bench.py's six configurations (bench.py:286-364) at their full
+    width and batch, from the port's models, trained through
+    ``Optimizer(...).optimize()`` under FP32 and under BF16_COMPUTE
+    (bench.py:420) at bench.py's steps a dispatch, each dispatch after the
+    first one CUDA graph: ms a step, records a second, device busy, idle
+    share and peak memory each way; under BF16_COMPUTE the launch counts
+    show each pool, LRN and recurrence ran its bf16 form (fused_sgd f32);
+    the first step's loss within BF16_LOSS_RTOL of FP32's from the same
+    parameters and batch; each configuration under BF16_COMPUTE against
+    the CPU (``bf16_vs_cpu``).  Then the LSTM classifier's single
+    direction (``Recurrent(LSTMCell)``, zx f32) 2 steps and one validation
+    batch under BF16_COMPUTE: the recurrence's bf16-weight form and
+    ``lstm_scan``'s."""
+    from bigdl_tpu_torch import tensor as bt
+    from bigdl_tpu_torch.optim import max_iteration
+    from bigdl_tpu_torch.utils.random import generator
+
+    smi = smi_line()
+    by_path = {}
+    for i, cfg in enumerate(bench_configs()):
+        t_cfg = time.perf_counter()
+        label, build, shape, classes, _, unit, n, per_step = cfg[:8]
+        init = init_of(build("cpu", generator(i)))
+        batch = bench_batch(shape, classes, i)
+        fig, fig_counts = {}, {}
+        for name, pol in (("FP32", bt.FP32), ("BF16_COMPUTE",
+                                               bt.BF16_COMPUTE)):
+            fig[name], fig_counts[name] = bench_run(torch, ops, cfg, init,
+                                                    batch, pol)
+        step = {"fused_sgd": 1, **per_step}
+        for name, rename in (("FP32", lambda k: k), ("BF16_COMPUTE",
+                                                     bf16_name)):
+            # the timed call's one capture: n steps (a replay calls none)
+            want = {rename(k): v * n for k, v in step.items()}
+            only_counts(f"bf16 {label} {name}", fig_counts[name], want)
+        rel = abs(fig["BF16_COMPUTE"]["first_loss"] - fig["FP32"]["first_loss"]
+                  ) / abs(fig["FP32"]["first_loss"])
+        for name, f in fig.items():
+            print(f"bf16 {label} {name}: {f['step_ms']:.4f} ms/step (the "
+                  f"median of {BENCH_DISPATCHES} replayed dispatches of {n} "
+                  f"steps on the card's clock; they ranged "
+                  f"{f['spread'][0]:.4f}-{f['spread'][1]:.4f}), "
+                  f"{f['rate']:.1f} {unit}; over another call's "
+                  f"{BENCH_DISPATCHES} replayed dispatches traced, device "
+                  f"busy {f['busy_ms']:.4f} ms/step of {f['window_ms']:.4f} "
+                  f"ms/step of wall, idle share {f['idle']:.4f}; "
+                  f"max_memory_allocated {f['peak']} B; "
+                  f"{n} steps a dispatch, {f['captures']} captures "
+                  f"{f['replays']} replays; losses {f['first_loss']:.6f} -> "
+                  f"{f['last_loss']:.6f}; launches "
+                  f"{ops_nonzero(fig_counts[name])} [{smi}]")
+        print(f"bf16 {label}: BF16_COMPUTE {fig['FP32']['step_ms'] / fig['BF16_COMPUTE']['step_ms']:.3f}x "
+              f"FP32's rate; first step's loss {rel:.3e} from FP32's "
+              f"(limit {BF16_LOSS_RTOL})")
+        if rel > BF16_LOSS_RTOL:
+            raise AssertionError(f"bf16 {label}: the first loss is {rel:.3e} "
+                                 f"from FP32's")
+        t_cpu = time.perf_counter()
+        bf16_vs_cpu(torch, cfg, init)
+        t_cpu = time.perf_counter() - t_cpu
+        by_path[f"bf16 {label}"] = fig_counts["BF16_COMPUTE"]
+        print(f"bf16 {label}: {time.perf_counter() - t_cfg:.1f} s (wall), "
+              f"{t_cpu:.1f} s of it against the CPU")
+    # Recurrent(LSTMCell) under the policy: zx f32 (the bf16w form), and
+    # the no-grad validation through lstm_scan's bf16 form
+    docs = text_docs(3 * TBATCH)
+    init = init_of(lstm_classifier("cpu", generator(0)))["params"]
+    bt.set_policy(bt.BF16_COMPUTE)
+    try:
+        opt = bilstm_run(torch, "cuda", init, docs[:2 * TBATCH], TBATCH,
+                         max_iteration(2), docs[2 * TBATCH:],
+                         build=lstm_classifier)
+        _, counts, wall = run_path(torch, ops, opt.optimize)
+    finally:
+        bt.set_policy(bt.FP32)
+    only_counts("bf16 LSTM classifier", counts, {
+        "fused_sgd": 2, "bilstm_forward_bf16": 2, "bilstm_backward_bf16": 2,
+        "bilstm_dwh": 2, "lstm_scan_bf16": len(opt.validation_log)})
+    print(f"bf16 LSTM classifier (Recurrent(LSTMCell), zx f32): 2 steps "
+          f"and 1 validation batch in {wall:.4f} s; losses "
+          f"{[round(l, 6) for _, l in opt.loss_log]}; launches "
+          f"{ops_nonzero(counts)}")
+    by_path["bf16 LSTM classifier"] = counts
+    return by_path, {}
+
+
 def phase_table(torch, ops, profile, rows):
     """Every phase in run order: (name, kind, run).  A "kernels" phase's
     ``run()`` returns its rows of the kernels line (the state phase adds
@@ -7611,6 +8459,7 @@ def phase_table(torch, ops, profile, rows):
          lambda: phase_state_kernels(torch, ops, rows) or []),
         ("verify_kernels", "kernels",
          lambda: phase_verify_kernels(torch, ops, rows) or []),
+        ("bf16_kernels", "kernels", lambda: phase_bf16_kernels(torch, ops)),
         ("serving", "path", slice_),
         ("serving_int8", "path", lambda: ({
             "serving_int8": phase_serving_int8(
@@ -7642,6 +8491,7 @@ def phase_table(torch, ops, profile, rows):
          lambda: phase_parallel_cards(torch, ops)),
         ("parallel_vs_cpu", "path",
          lambda: phase_parallel_vs_cpu(torch, ops, profile)),
+        ("bf16", "path", lambda: phase_bf16(torch, ops, profile)),
     ]
 
 
@@ -7656,7 +8506,7 @@ ONLY = {
     # the kernel phases: to time two trees' kernels in turns
     "--kernels": ("kernels", "train_kernels", "conv_kernels",
                   "bilstm_kernels", "lstm_scan_kernels", "rnn_gru_kernels",
-                  "state_kernels", "verify_kernels"),
+                  "state_kernels", "verify_kernels", "bf16_kernels"),
     # serving: the attention kernels (the verify window among them), the
     # greedy fp32 and int8 paths and the request features
     "--serve": ("kernels", "verify_kernels", "serving", "serving_int8",
@@ -7684,6 +8534,9 @@ ONLY = {
     "--parallel-cards": ("parallel_cards",),
     # VGG's pipeline against the CPU at two microbatch sizes, a reading
     "--parallel-vs-cpu": ("parallel_vs_cpu",),
+    # the dtype policy: the kernels' bf16 forms and bench.py's six
+    # configurations under BF16_COMPUTE
+    "--bf16": ("bf16_kernels", "bf16"),
 }
 # the kernels line: each row's keys (queued_ms: calls queued back to back,
 # the device's time where it outlasts the wrapper's host work, no L2

@@ -290,6 +290,22 @@ def runs(specs: list) -> list:
     return out
 
 
+def policy_case(name: str, specs: list) -> list:
+    """:func:`runs` of ``specs`` under the port's dtype policy ``name``
+    (process state: each rank sets it), FP32 restored after; each run
+    also names the compute dtype it ran under."""
+    from bigdl_tpu_torch import tensor
+
+    tensor.set_policy(getattr(tensor, name))
+    try:
+        out = runs(specs)
+        for o in out:
+            o["compute_dtype"] = str(tensor.policy().compute_dtype)
+        return out
+    finally:
+        tensor.set_policy(tensor.FP32)
+
+
 def calls(jobs: list) -> list:
     """Several case functions in one process group, one after another:
     ``jobs`` a list of (function, arguments); their results."""

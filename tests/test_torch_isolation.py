@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``bigdl_tpu_torch`` and none of
 ``chip_smoke.py``, ``recurrence_ab.py``, ``recurrence_plans.py``,
-``pool_s1_split.py``, ``inception_host_probe.py`` and ``model_flops.py``
-imports JAX or the JAX package (the machine with the card has no JAX).
+``pool_s1_split.py``, ``inception_host_probe.py``, ``model_flops.py`` and
+``vgg_bf16_sensitivity.py`` imports JAX or the JAX package (the machine with the card has no JAX).
 Top-level names are matched exactly, since ``bigdl_tpu_torch`` starts
 with ``bigdl_tpu``."""
 import ast
@@ -49,7 +49,8 @@ def test_no_source_names_jax_or_the_jax_package():
     files = sorted((ROOT / "bigdl_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "recurrence_ab.py",
               ROOT / "recurrence_plans.py", ROOT / "pool_s1_split.py",
-              ROOT / "inception_host_probe.py", ROOT / "model_flops.py"]
+              ROOT / "inception_host_probe.py", ROOT / "model_flops.py",
+              ROOT / "vgg_bf16_sensitivity.py"]
     assert len(files) > 20
     hits = [f"{p.relative_to(ROOT)}:{line} imports {root}"
             for p in files for root, line in _imported_roots(p)

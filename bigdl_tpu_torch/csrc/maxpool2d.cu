@@ -28,29 +28,33 @@
 // rows of one (n, c) plane (the plane on blockIdx.x, the tile on
 // blockIdx.y), or per run of whole planes where planes are small.  The
 // block stages the g and argmax rows of the outputs that cover its rows
-// in shared memory, each read once in coalesced 16-byte copies, beside a
-// table of the covering output rows of each of its input rows and of the
-// covering output columns of each input column, so no element divides.
-// Each thread then forms runs of four consecutive dx from shared memory
-// with 32-bit indices inside the block's run and writes each as one
-// float4 (scalar stores before the first 16-byte boundary and after the
-// last).  Where even one input row's covering
-// outputs do not fit shared memory (a huge window), the same kernel
-// reads g and argmax through L1 and computes the bounds per element.
-// The TPU kernel's phase-folded NHWC frame and row blocking exist for
-// its lanes and VMEM and are not carried over: NCHW stays as it is, with
-// no transpose or padding pass.
+// in shared memory, each read once in coalesced 16-byte copies where both
+// runs start on a 16-byte boundary (element by element at their ends and
+// where they do not), beside a table of the covering output rows of each
+// of its input rows and of the covering output columns of each input
+// column, so no element divides.  Each thread then forms quads of four
+// consecutive dx from shared memory with 32-bit indices inside the
+// block's run and writes each as one vector store (a float4; 8 bytes in
+// bf16), with scalar stores before the first quad boundary and after the
+// last.
+// Where even one input row's covering outputs do not fit shared memory
+// (a huge window), the same kernel reads g and argmax through L1 and
+// computes the bounds per element.  The TPU kernel's phase-folded NHWC
+// frame and row blocking exist for its lanes and VMEM and are not carried
+// over: NCHW stays as it is, with no transpose or padding pass.
 //
 // The bf16 forms (the pool under a reduced dtype policy; the JAX kernels
 // on bf16 I/O): x, y, g and dx bf16, the argmax int32.  The forward is
 // the same kernel on bf16 loads, compared in f32 (exact for bf16 values,
 // so the max and its first-max argmax are the f32 kernel's on the same
-// values).  The backward is one thread a dx element gathering over its
-// covering outputs through L1, in (oh, ow) order, the sum of overlapping
-// windows' g taken in f32 and rounded to bf16 once, as the JAX kernel
-// does (pallas_kernels.py:1118-1142): a simple form, the staged tiles of
-// the f32 backward not carried over (at 2 bytes an element its reads of g
-// and argmax are 6 bytes an output against dx's 2 an input).
+// values).  The backward is the same staged kernel templated on the type
+// of g and dx: g staged in bf16 (16-byte copies of eight where the g
+// and argmax runs both start aligned: a tile of whole 56- or 112-wide
+// rows does), widened where read, the covering outputs' g summed in f32
+// in (oh, ow) order from 0.0f, as the f32 form and the JAX kernel
+// (pallas_kernels.py:1118-1142) do, and rounded to bf16 once; dx out in
+// quads (8 bytes).  At 2 bytes an element its bytes are g's 2 and the
+// argmax's 4 an output, dx's 2 an input.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -146,11 +150,68 @@ __host__ __device__ inline int stage_rows(const Geom& gm, int TH) {
 
 __host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
 
-// Shared memory of a backward block of PB planes of TH input rows: the
-// two bounds tables and the staged g and argmax rows.
-inline long long bwd_smem_bytes(const Geom& gm, int TH, int PB) {
-  return 4LL * round4(TH + gm.W) +
-         8LL * round4(PB * stage_rows(gm, TH) * gm.OW);
+// Shared memory of a backward block of PB planes of TH input rows of
+// `eb`-byte g: the two bounds tables, the staged g rows and the argmax
+// rows, each in whole 16-byte vectors.
+inline long long bwd_smem_bytes(const Geom& gm, int TH, int PB, int eb) {
+  const long long n = (long long)PB * stage_rows(gm, TH) * gm.OW;
+  const int v = 16 / eb;
+  return 4LL * round4(TH + gm.W) + eb * ((n + v - 1) / v * v) +
+         4LL * round4((int)n);
+}
+
+// Elements of T a 16-byte vector holds.
+template <class T>
+constexpr int kVec = 16 / (int)sizeof(T);
+
+// Stages the runs gs[0, n) of g and as[0, n) of the argmax into gd and
+// ad (16-byte aligned) by the block's threads: in 16-byte copies where
+// both runs start on a 16-byte boundary (both in one loop, their loads in
+// flight together), element by element for the unaligned ends and for a
+// pair that does not.
+template <class T>
+__device__ __forceinline__ void stage_runs(T* gd, const T* gs, int* ad,
+                                           const int* as, int n) {
+  constexpr int VS = kVec<T>;
+  const bool vec = ((reinterpret_cast<uintptr_t>(gs) |
+                     reinterpret_cast<uintptr_t>(as)) & 15) == 0;
+  const int na = vec ? n / 4 : 0, ng = vec ? n / VS : 0;
+  for (int e = threadIdx.x; e < na; e += blockDim.x) {
+    reinterpret_cast<int4*>(ad)[e] = reinterpret_cast<const int4*>(as)[e];
+    if (e < ng)
+      reinterpret_cast<uint4*>(gd)[e] = reinterpret_cast<const uint4*>(gs)[e];
+  }
+  // the ends (VS * ng <= 4 * na): g alone, then both, a pair a thread
+  for (int e = VS * ng + threadIdx.x; e < n; e += blockDim.x) {
+    gd[e] = gs[e];
+    if (e >= 4 * na) ad[e] = as[e];
+  }
+}
+
+// dx a thread stores at once: four, one float4 (16 bytes) or four bf16
+// (8 bytes).  Eight bf16 (16-byte stores, 40 registers against 32) ran
+// within 2% of four at Inception's 112- and 56-wide planes on an H100
+// (recurrence_ab.py --pools), so both forms keep the one width.
+constexpr int kQuad = 4;
+
+// Elements of T from the kQuad-element boundary below `p` to `p`.
+template <class T>
+__device__ __forceinline__ int lead_in(const T* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) % (kQuad * sizeof(T))) /
+               sizeof(T));
+}
+
+// Four values as one store of four elements of T.
+__device__ __forceinline__ void store_quad(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store_quad(__nv_bfloat16* p,
+                                           const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                 *reinterpret_cast<const uint32_t*>(&hi));
 }
 
 // dx of the tiles of a block: PB planes from blockIdx.x * PB, rows [ih0,
@@ -161,24 +222,25 @@ inline long long bwd_smem_bytes(const Geom& gm, int TH, int PB) {
 // else from device memory.  MR, MC > 0: an element has at most MR x MC
 // covering outputs (ceil(kh / sh), ceil(kw / sw)), tried in an unrolled
 // loop; 0: any window.  Each element sums g over its covering outputs in
-// (oh, ow) order, as the per-element gather always has.
-template <bool STAGED, int MR, int MC>
+// (oh, ow) order, in f32 from 0.0f, and rounds the sum to T once.
+template <class T, bool STAGED, int MR, int MC>
 __global__ void __launch_bounds__(kThreads)
-    maxpool2d_bwd_kernel(const float* __restrict__ g,
-                         const int* __restrict__ argmax, float* __restrict__ dx,
+    maxpool2d_bwd_kernel(const T* __restrict__ g,
+                         const int* __restrict__ argmax, T* __restrict__ dx,
                          Geom gm, int NC, int PB, int TH, int tiles) {
   extern __shared__ float4 smem4[];
+  constexpr int VS = kVec<T>;   // elements of a 16-byte staging copy
   const int W = gm.W, OH = gm.OH, OW = gm.OW, nt = blockDim.x;
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * PB, np = imin(PB, NC - p0);
-  const float* gp = g + (size_t)p0 * OH * OW;
+  const T* gp = g + (size_t)p0 * OH * OW;
   const int* ap = argmax + (size_t)p0 * OH * OW;
   const int nr = stage_rows(gm, TH);
   int* cols = reinterpret_cast<int*>(smem4);   // [W]: covering ow
   int* rows = cols + W;                        // [TH]: covering oh
-  float* g_s = reinterpret_cast<float*>(smem4 + round4(W + TH) / 4);
-  int* a_s = reinterpret_cast<int*>(g_s + round4(PB * nr * OW));
   // g_s, a_s: [np][nr][OW], 16-byte aligned
+  T* g_s = reinterpret_cast<T*>(smem4 + round4(W + TH) / 4);
+  int* a_s = reinterpret_cast<int*>(g_s + (PB * nr * OW + VS - 1) / VS * VS);
   if (STAGED) {
     for (int iw = tid; iw < W; iw += nt)
       cols[iw] = pack(cover(iw + gm.plw, gm.kw, gm.sw, OW));
@@ -190,28 +252,14 @@ __global__ void __launch_bounds__(kThreads)
     const int ob = cover(ih0 + th - 1 + gm.plh, gm.kh, gm.sh, OH).y;
     // a plane's outputs: staged, nr rows from oa, or in device memory
     const int base = STAGED ? oa : 0, pstride = (STAGED ? nr : OH) * OW;
-    const float* G = STAGED ? g_s : gp;
+    const T* G = STAGED ? g_s : gp;
     const int* A = STAGED ? a_s : ap;
     if (STAGED) {
       __syncthreads();   // the previous tile's reads are done
       for (int r = tid; r < th; r += nt)
         rows[r] = pack(cover(ih0 + r + gm.plh, gm.kh, gm.sh, OH));
-      // one run each, in 16-byte copies where both start aligned
-      const float* gr = gp + oa * OW;
-      const int* ar = ap + oa * OW;
-      const int ns = np * (ob - oa + 1) * OW;
-      const int ns4 = ((reinterpret_cast<uintptr_t>(gr) |
-                        reinterpret_cast<uintptr_t>(ar)) & 15) == 0 ? ns / 4
-                                                                   : 0;
-      for (int e = tid; e < ns4; e += nt) {
-        reinterpret_cast<float4*>(g_s)[e] =
-            reinterpret_cast<const float4*>(gr)[e];
-        reinterpret_cast<int4*>(a_s)[e] = reinterpret_cast<const int4*>(ar)[e];
-      }
-      for (int e = 4 * ns4 + tid; e < ns; e += nt) {
-        g_s[e] = gr[e];
-        a_s[e] = ar[e];
-      }
+      stage_runs(g_s, gp + oa * OW, a_s, ap + oa * OW,
+                 np * (ob - oa + 1) * OW);
       __syncthreads();
     }
     const auto row_bounds = [&](int r) {
@@ -238,50 +286,51 @@ __global__ void __launch_bounds__(kThreads)
           for (int v = 0; v < MC; ++v) {
             const int ow = cb.x + v;
             if (ow > cb.y) break;
-            if (A[o + ow] == i * gm.kw + (pw - ow * gm.sw)) acc += G[o + ow];
+            if (A[o + ow] == i * gm.kw + (pw - ow * gm.sw))
+              acc += widen(G[o + ow]);
           }
         }
       } else {
         for (int oh = rb.x; oh <= rb.y; ++oh) {
           const int i = ph - oh * gm.sh, o = o0 + oh * OW;
           for (int ow = cb.x; ow <= cb.y; ++ow)
-            if (A[o + ow] == i * gm.kw + (pw - ow * gm.sw)) acc += G[o + ow];
+            if (A[o + ow] == i * gm.kw + (pw - ow * gm.sw))
+              acc += widen(G[o + ow]);
         }
       }
       return acc;
     };
     // the block's dx is one run of np * th * W elements: scalars up to
-    // its first 16-byte boundary, float4s, then scalars
-    float* dt = dx + ((size_t)p0 * gm.H + ih0) * W;
+    // its first quad boundary, quads, then scalars
+    T* dt = dx + ((size_t)p0 * gm.H + ih0) * W;
     const int plane = th * W, n = np * plane;
-    const int head = imin(
-        (int)((16 - (reinterpret_cast<uintptr_t>(dt) & 15)) & 15) / 4, n);
-    const int n4 = (n - head) / 4, scalars = n - 4 * n4;
+    const int head = imin((kQuad - lead_in(dt)) % kQuad, n);
+    const int n4 = (n - head) / kQuad, scalars = n - kQuad * n4;
     // every quad four of one row (the same path in every lane)
     const bool in_rows = STAGED && (W & 3) == 0 && head == 0;
     for (int k = tid; k < scalars; k += nt) {
-      const int e = k < head ? k : k + 4 * n4;
+      const int e = k < head ? k : k + kQuad * n4;
       const int pl = e / plane, rest = e - pl * plane;
       const int r = rest / W, iw = rest - r * W;
-      dt[e] = value(pl, r, iw, row_bounds(r), col_bounds(iw));
+      dt[e] = narrow<T>(value(pl, r, iw, row_bounds(r), col_bounds(iw)));
     }
     for (int q = tid; q < n4; q += nt) {
-      const int e = head + 4 * q;
+      const int e = head + kQuad * q;
       int pl = e / plane, r = (e - pl * plane) / W;
       int iw = e - pl * plane - r * W;
       int2 rb = row_bounds(r);
-      float v[4];
+      float v[kQuad];
       if (in_rows) {
         const int4 c = *reinterpret_cast<const int4*>(cols + iw);
         const int cv[4] = {c.x, c.y, c.z, c.w};
 #pragma unroll
-        for (int k = 0; k < 4; ++k)
+        for (int k = 0; k < kQuad; ++k)
           v[k] = value(pl, r, iw + k, rb, unpack(cv[k]));
       } else {
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
+        for (int k = 0; k < kQuad; ++k) {
           v[k] = value(pl, r, iw, rb, col_bounds(iw));
-          if (++iw == W && k < 3) {
+          if (++iw == W && k < kQuad - 1) {
             iw = 0;
             if (++r == th) {
               r = 0;
@@ -291,56 +340,96 @@ __global__ void __launch_bounds__(kThreads)
           }
         }
       }
-      *reinterpret_cast<float4*>(dt + e) = make_float4(v[0], v[1], v[2], v[3]);
+      store_quad(dt + e, v);
     }
   }
 }
 
-template <bool STAGED, int MR, int MC>
-void launch_bwd(const float* g, const int* argmax, float* dx, const Geom& gm,
-                int NC, int PB, int TH, cudaStream_t st) {
-  const int tiles = (gm.H + TH - 1) / TH;
-  const long long quads = ((long long)PB * TH * gm.W + 3) / 4;
+// A backward launch's plan: staged or through L1, planes a block (PB),
+// input rows a tile (TH), threads, the unrolled covering bounds (MR x MC;
+// 0 x 0 any window) and the dynamic shared bytes.
+struct BwdPlan {
+  int staged, PB, TH, threads, mr, mc;
+  long long smem;
+};
+
+// A block takes about kTileElems input elements: whole rows of one plane,
+// evenly split, or as many whole planes as fit where a plane is smaller
+// and its outputs are staged whole; fewer rows where their staged outputs
+// would pass kStageBytes, and no staging where one row's would; a thread
+// a quad of dx, 64 to kThreads; `eb`: the bytes of g's element.
+BwdPlan bwd_plan(long long NC, const Geom& gm, int eb) {
+  const int H = gm.H, W = gm.W, OH = gm.OH, kh = gm.kh, sh = gm.sh;
+  const long long per = ((long long)H * W + kTileElems - 1) / kTileElems;
+  int TH = (int)((H + per - 1) / per), PB = 1;
+  if (2LL * H * W <= kTileElems && cover(gm.plh, kh, sh, OH).x == 0 &&
+      cover(H - 1 + gm.plh, kh, sh, OH).y == OH - 1 &&
+      stage_rows(gm, H) == OH) {
+    // as many whole planes as fit, and at least kMinBlocks blocks
+    const long long fit = kTileElems / ((long long)H * W);
+    const long long spread = (NC + kMinBlocks - 1) / kMinBlocks;
+    PB = (int)(fit < spread ? fit : spread);
+    while (PB > 1 && bwd_smem_bytes(gm, H, PB, eb) > kStageBytes) --PB;
+  }
+  while (TH > 1 && bwd_smem_bytes(gm, TH, PB, eb) > kStageBytes)
+    TH = (TH + 1) / 2;
+  BwdPlan p;
+  p.staged = bwd_smem_bytes(gm, TH, PB, eb) <= kStageBytes && OH < 32768 &&
+             gm.OW < 32768;
+  if (!p.staged) PB = 1;
+  p.PB = PB;
+  p.TH = TH;
+  const long long quads = ((long long)PB * TH * W + kQuad - 1) / kQuad;
   const long long warps = (quads + 31) / 32 * 32;
-  const int threads =
-      warps > kThreads ? kThreads : (warps < 64 ? 64 : (int)warps);
-  const dim3 grid((unsigned)((NC + PB - 1) / PB),
+  p.threads = warps > kThreads ? kThreads : (warps < 64 ? 64 : (int)warps);
+  p.mr = (kh + sh - 1) / sh;
+  p.mc = (gm.kw + gm.sw - 1) / gm.sw;
+  if (!p.staged || !((p.mr == 1 && p.mc == 1) || (p.mr == 2 && p.mc == 2)))
+    p.mr = p.mc = 0;
+  p.smem = p.staged ? bwd_smem_bytes(gm, TH, PB, eb) : 0;
+  return p;
+}
+
+template <class T, bool STAGED, int MR, int MC>
+void launch_bwd(const T* g, const int* argmax, T* dx, const Geom& gm, int NC,
+                const BwdPlan& p, cudaStream_t st) {
+  const int tiles = (gm.H + p.TH - 1) / p.TH;
+  const dim3 grid((unsigned)((NC + p.PB - 1) / p.PB),
                   (unsigned)imin(tiles, 65535));
-  const size_t smem = STAGED ? bwd_smem_bytes(gm, TH, PB) : 0;
-  maxpool2d_bwd_kernel<STAGED, MR, MC><<<grid, threads, smem, st>>>(
-      g, argmax, dx, gm, NC, PB, TH, tiles);
+  maxpool2d_bwd_kernel<T, STAGED, MR, MC><<<grid, p.threads, p.smem, st>>>(
+      g, argmax, dx, gm, NC, p.PB, p.TH, tiles);
 }
 
 unsigned grid_for(long long total) {
   return (unsigned)((total + kThreads - 1) / kThreads);
 }
 
-// The bf16 backward: dx[e] of one (n, c, ih, iw) a thread, the g of its
-// covering outputs whose argmax names it summed in f32 in (oh, ow) order.
-__global__ void __launch_bounds__(kThreads)
-    maxpool2d_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ g,
-                              const int* __restrict__ argmax,
-                              __nv_bfloat16* __restrict__ dx, Geom gm,
-                              long long total) {
-  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (e >= total) return;
-  const int iw = (int)(e % gm.W);
-  const long long t = e / gm.W;
-  const int ih = (int)(t % gm.H);
-  const long long nc = t / gm.H;
-  const int ph = ih + gm.plh, pw = iw + gm.plw;
-  const int2 rb = cover(ph, gm.kh, gm.sh, gm.OH);
-  const int2 cb = cover(pw, gm.kw, gm.sw, gm.OW);
-  const size_t base = (size_t)nc * gm.OH * gm.OW;
-  float acc = 0.0f;
-  for (int oh = rb.x; oh <= rb.y; ++oh) {
-    const int i = ph - oh * gm.sh;
-    const size_t o = base + (size_t)oh * gm.OW;
-    for (int ow = cb.x; ow <= cb.y; ++ow)
-      if (argmax[o + ow] == i * gm.kw + (pw - ow * gm.sw))
-        acc += __bfloat162float(g[o + ow]);
+// Backward: dx (NC, H, W) from the cotangent g and the argmax (NC, OH,
+// OW) under `bwd_plan`.  One launch.
+template <class T>
+int launch_bwd_planned(const T* g, const int* argmax, T* dx, long long NC,
+                       int H, int W, int OH, int OW, int kh, int kw, int sh,
+                       int sw, int plh, int plw, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (NC == 0 || H == 0 || W == 0) return 0;
+  if (NC > 0x7fffffff || (long long)H * W > 0x7fffffff ||
+      (long long)OH * OW > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Geom gm{H, W, OH, OW, kh, kw, sh, sw, plh, plw};
+  const BwdPlan p = bwd_plan(NC, gm, (int)sizeof(T));
+  const int NCi = (int)NC;
+  if (!p.staged) {
+    launch_bwd<T, false, 0, 0>(g, argmax, dx, gm, NCi, p, st);
+  } else if (p.mr == 1) {
+    launch_bwd<T, true, 1, 1>(g, argmax, dx, gm, NCi, p, st);
+  } else if (p.mr == 2) {
+    launch_bwd<T, true, 2, 2>(g, argmax, dx, gm, NCi, p, st);
+  } else {
+    launch_bwd<T, true, 0, 0>(g, argmax, dx, gm, NCi, p, st);
   }
-  dx[e] = __float2bfloat16_rn(acc);
+  return (int)cudaGetLastError();
 }
 
 template <class T>
@@ -385,68 +474,34 @@ int bigdl_maxpool2d_fwd_bf16(const bf16* x, bf16* y, int* argmax,
                     device, stream);
 }
 
-// The bf16 form of the backward: g and dx bf16, one launch of one thread
-// a dx element.
-int bigdl_maxpool2d_bwd_bf16(const bf16* g, const int* argmax, bf16* dx,
-                             long long NC, int H, int W, int OH, int OW,
-                             int kh, int kw, int sh, int sw, int plh, int plw,
-                             int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const long long total = NC * H * W;
-  if (total == 0) return 0;
-  if ((long long)OH * OW > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const Geom gm{H, W, OH, OW, kh, kw, sh, sw, plh, plw};
-  maxpool2d_bwd_bf16_kernel<<<grid_for(total), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      g, argmax, dx, gm, total);
-  return (int)cudaGetLastError();
-}
-
 // Backward: dx (NC, H, W) from the cotangent g and the argmax (NC, OH,
-// OW).  A block takes about kTileElems input elements: whole rows of one
-// plane, evenly split, or as many whole planes as fit where a plane is
-// smaller and its outputs are staged whole; fewer rows where their
-// staged outputs would pass kStageBytes, and no staging where one row's
-// would; a quarter as many threads as elements, 64 to kThreads.  One
-// launch.
+// OW) (`launch_bwd_planned`).  The _bf16 form takes g and dx in bf16.
 int bigdl_maxpool2d_bwd_f32(const float* g, const int* argmax, float* dx,
                             long long NC, int H, int W, int OH, int OW, int kh,
                             int kw, int sh, int sw, int plh, int plw,
                             int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (NC == 0 || H == 0 || W == 0) return 0;
-  if (NC > 0x7fffffff || (long long)H * W > 0x7fffffff ||
-      (long long)OH * OW > 0x7fffffff)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Geom gm{H, W, OH, OW, kh, kw, sh, sw, plh, plw};
-  const long long per = ((long long)H * W + kTileElems - 1) / kTileElems;
-  int TH = (int)((H + per - 1) / per), PB = 1;
-  if (2LL * H * W <= kTileElems && cover(plh, kh, sh, OH).x == 0 &&
-      cover(H - 1 + plh, kh, sh, OH).y == OH - 1 && stage_rows(gm, H) == OH) {
-    // as many whole planes as fit, and at least kMinBlocks blocks
-    const long long fit = kTileElems / ((long long)H * W);
-    const long long spread = (NC + kMinBlocks - 1) / kMinBlocks;
-    PB = (int)(fit < spread ? fit : spread);
-    while (PB > 1 && bwd_smem_bytes(gm, H, PB) > kStageBytes) --PB;
-  }
-  while (TH > 1 && bwd_smem_bytes(gm, TH, PB) > kStageBytes) TH = (TH + 1) / 2;
-  const bool staged = bwd_smem_bytes(gm, TH, PB) <= kStageBytes &&
-                      OH < 32768 && OW < 32768;
-  const int mr = (kh + sh - 1) / sh, mc = (kw + sw - 1) / sw;
-  const int NCi = (int)NC;
-  if (!staged) {
-    launch_bwd<false, 0, 0>(g, argmax, dx, gm, NCi, 1, TH, st);
-  } else if (mr == 1 && mc == 1) {
-    launch_bwd<true, 1, 1>(g, argmax, dx, gm, NCi, PB, TH, st);
-  } else if (mr == 2 && mc == 2) {
-    launch_bwd<true, 2, 2>(g, argmax, dx, gm, NCi, PB, TH, st);
-  } else {
-    launch_bwd<true, 0, 0>(g, argmax, dx, gm, NCi, PB, TH, st);
-  }
-  return (int)cudaGetLastError();
+  return launch_bwd_planned(g, argmax, dx, NC, H, W, OH, OW, kh, kw, sh, sw,
+                            plh, plw, device, stream);
+}
+
+int bigdl_maxpool2d_bwd_bf16(const bf16* g, const int* argmax, bf16* dx,
+                             long long NC, int H, int W, int OH, int OW,
+                             int kh, int kw, int sh, int sw, int plh, int plw,
+                             int device, void* stream) {
+  return launch_bwd_planned(g, argmax, dx, NC, H, W, OH, OW, kh, kw, sh, sw,
+                            plh, plw, device, stream);
+}
+
+// The backward's plan for `eb`-byte g and dx (4 f32, 2 bf16) into out[7]:
+// staged, planes a block, rows a tile, threads, MR, MC, shared bytes.
+void bigdl_maxpool2d_bwd_plan(long long NC, int H, int W, int OH, int OW,
+                              int kh, int kw, int sh, int sw, int plh,
+                              int plw, int eb, long long* out) {
+  const BwdPlan p = bwd_plan(NC, Geom{H, W, OH, OW, kh, kw, sh, sw, plh, plw},
+                             eb);
+  const long long v[7] = {p.staged, p.PB, p.TH, p.threads, p.mr, p.mc,
+                          p.smem};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
 }
 
 const char* bigdl_cuda_error_string(int err) {

@@ -35,10 +35,11 @@
 //   mbarrier: no per-element address arithmetic, no halo columns (a tap
 //   outside the plane is an index test in registers and reads -inf).  The
 //   copy takes the run's 16-byte-aligned cover: a bulk copy needs 16-byte
-//   addresses and sizes, and a 7x7 plane is 196 bytes.  The cover lies in
-//   the 16-byte granules the run touches, so it cannot fault; the run
-//   starts `lead` floats into the staged buffer.  One path fits every
-//   alignment, so the plan never picks a copy path.
+//   addresses and sizes, and a 7x7 plane is 196 bytes (98 in bf16).  The
+//   cover lies in the 16-byte granules the run touches, so it cannot
+//   fault; the run starts `lead` elements into the staged buffer.  One
+//   path fits every alignment and element type, so the plan never picks a
+//   copy path.
 // - Blocks are persistent (grid = resident blocks, each walks groups
 //   blockIdx.x + k * gridDim.x) with a ring of kStages staged groups: group
 //   k + kStages is in flight while group k computes.  The backward stages
@@ -50,10 +51,11 @@
 //   thread decodes its task once for a group shape and keeps it while the
 //   groups keep it (all but a tail group or an edge band), so the loop
 //   does no integer division, and whole planes take no 64-bit one.
-// - Outputs go to a shared buffer, then to device memory in float4 stores
-//   from consecutive threads (the run's unaligned ends in floats).  The
-//   forward's y buffer is doubled, so a group takes one block barrier; the
-//   backward takes two (its taps are read by other threads' gathers).
+// - Outputs go to a shared buffer, then to device memory in 16-byte
+//   stores from consecutive threads (the run's unaligned ends element by
+//   element).  The forward's y buffer is doubled, so a group takes one
+//   block barrier; the backward takes two (its taps are read by other
+//   threads' gathers).
 // - The 3x3 window (Inception's) is compiled unrolled, with the window's
 //   row maxima in registers: a task slides down its column, one new row
 //   of kw taps an output.  The window's first max is the first row, in
@@ -77,13 +79,24 @@
 //   for a shape.
 //
 // The bf16 forms (the pool under a reduced dtype policy; the JAX kernels
-// on bf16 I/O, pallas_kernels.py:196-246): x, y, g and dx bf16, compared
-// and summed in f32, the sums of a dx rounded to bf16 once.  They are the
-// unstaged kernels at every shape: the bulk-copy ring stages whole
-// 16-byte granules of a group's f32 runs, and bf16 runs (a 7x7 plane is
-// 98 bytes) would need a plan of their own, which is later work.  The
-// backward recomputes each covering output's first max from x through
-// L1, kh*kw taps for each of an element's kh*kw outputs.
+// on bf16 I/O, pallas_kernels.py:196-246): x, y, g and dx bf16, the same
+// kernels and plan templated on the element type T.  A run's cover, its
+// lead and the vector stores are counted in elements of T (a bf16 lead is
+// 0-7 elements, a 16-byte vector holds 8 of them), so a 98-byte 7x7 bf16
+// plane takes the same one bulk copy as a 196-byte f32 one; the plan sizes
+// the stages in T's bytes (half the f32 bytes: the same groups at half the
+// shared memory, since a group's tasks, not its bytes, bound it at
+// Inception's planes).  Taps are widened to f32 where they are read, the
+// compares and sums stay f32 and a dx is rounded to bf16 once: the same
+// taps summed in the same row-major order from 0.0f as the unstaged
+// kernels, so the staged bf16 outputs are theirs bit for bit (the
+// `_bf16_unstaged` entries launch them, to hold the two equal on the
+// card).
+// A bf16 y is the max of bf16 values, exact.  What bounds them: their
+// bytes (4 an element forward, 6 backward) bound them at half the f32
+// form's time, but the taps' compares and the gathers' adds, which the
+// element type leaves as they are, set their time: they run at the f32
+// form's, and a deeper ring buys nothing (pool_s1_split.py --stages).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,8 +124,8 @@ enum Path { kDirect = 0, kPlanes = 1, kBands = 2 };
 // A launch's plan: which path, planes a group (1 in bands), the rows of
 // the pass's own output a group (y forward, dx backward; all of them in
 // planes), the staged rows a plane at most (x, and g backward), threads,
-// groups and the dynamic shared bytes; bands a plane, and the floats of a
-// stage's x and g and of the output buffer.
+// groups and the dynamic shared bytes; bands a plane, and the elements
+// (of the launch's T) of a stage's x and g and of the output buffer.
 struct Plan {
   int path, planes, rows, xrows, grows, threads, bands;
   long long groups, smem, xbuf, gbuf, obuf;
@@ -123,7 +136,7 @@ struct Geom {
   int H, W, OH, OW, kh, kw, plh, plw;
   int P, rows, bands;
   long long groups;
-  int xbuf, gbuf, obuf;  // floats: a stage's x and g, the output buffer
+  int xbuf, gbuf, obuf;  // elements of T: a stage's x and g, the output
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -172,43 +185,62 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   } while (!done);
 }
 
-// Floats from the 16-byte boundary below `p` to `p`.
-__device__ __forceinline__ int lead_of(const float* p) {
-  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & (kAlign / 4 - 1));
+// Elements of T a 16-byte vector (and a bulk copy's granule) holds.
+template <class T>
+constexpr int kVec = kAlign / (int)sizeof(T);
+
+// Elements of T from the 16-byte boundary below `p` to `p`.
+template <class T>
+__device__ __forceinline__ int lead_of(const T* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) & (kAlign - 1)) / sizeof(T));
 }
 
-// Bytes of the 16-byte-aligned cover of n floats from src, that is, the
+// Bytes of the 16-byte-aligned cover of n elements from src, that is, the
 // bytes a bulk copy of them moves.
-__device__ __forceinline__ unsigned cover_bytes(const float* src,
-                                                long long n) {
-  return n > 0 ? (unsigned)((lead_of(src) + n + 3) / 4 * kAlign) : 0u;
+template <class T>
+__device__ __forceinline__ unsigned cover_bytes(const T* src, long long n) {
+  return n > 0 ? (unsigned)((lead_of(src) + n + kVec<T> - 1) / kVec<T> *
+                            kAlign)
+               : 0u;
 }
 
-// Starts the copy of n floats from src into buf (16-byte aligned), src[e]
-// landing at buf[lead_of(src) + e].
-__device__ __forceinline__ void stage_run(float* buf, const float* src,
-                                          long long n, uint64_t* bar) {
+// Starts the copy of n elements from src into buf (16-byte aligned),
+// src[e] landing at buf[lead_of(src) + e].
+template <class T>
+__device__ __forceinline__ void stage_run(T* buf, const T* src, long long n,
+                                          uint64_t* bar) {
   const unsigned bytes = cover_bytes(src, n);
   if (bytes) bulk_copy(buf, src - lead_of(src), bytes, bar);
 }
 
-// Writes n floats, src[lead_of(dst) + e] to dst[e]: float4 stores where a
-// vector lies wholly in the run, floats at its two ends.
-__device__ __forceinline__ void store_run(float* dst, const float* src,
-                                          int n) {
+// Writes n elements, src[lead_of(dst) + e] to dst[e]: 16-byte stores where
+// a vector lies wholly in the run, elements at its two ends.
+template <class T>
+__device__ __forceinline__ void store_run(T* dst, const T* src, int n) {
+  constexpr int V = kVec<T>;
   const int lead = lead_of(dst);
-  float* base = dst - lead;
-  const int nv = (lead + n + 3) / 4;
+  T* base = dst - lead;
+  const int nv = (lead + n + V - 1) / V;
   for (int v = threadIdx.x; v < nv; v += blockDim.x) {
-    const int e = 4 * v;
-    if (e >= lead && e + 4 <= lead + n) {
-      *reinterpret_cast<float4*>(base + e) =
-          *reinterpret_cast<const float4*>(src + e);
+    const int e = V * v;
+    if (e >= lead && e + V <= lead + n) {
+      *reinterpret_cast<uint4*>(base + e) =
+          *reinterpret_cast<const uint4*>(src + e);
     } else {
-      for (int k = e; k < e + 4; ++k)
+      for (int k = e; k < e + V; ++k)
         if (k >= lead && k < lead + n) base[k] = src[k];
     }
   }
+}
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
 
 // A group: planes [p0, p0 + np) and rows [r0, r1) of the pass's own
@@ -297,16 +329,16 @@ struct RowMax {
   int a;
 };
 
-template <int KW>
-__device__ __forceinline__ RowMax row_max(const float* xq, int xr0, int H,
+template <int KW, class T>
+__device__ __forceinline__ RowMax row_max(const T* xq, int xr0, int H,
                                           int W, int ih, int iw0,
                                           const bool (&col)[KW]) {
   RowMax r{-CUDART_INF_F, -CUDART_INF_F, 0};
   const bool in = ih >= 0 && ih < H;
-  const float* row = xq + (ih - xr0) * W + iw0;
+  const T* row = xq + (ih - xr0) * W + iw0;
 #pragma unroll
   for (int j = 0; j < KW; ++j) {
-    const float v = (in && col[j]) ? row[j] : -CUDART_INF_F;
+    const float v = (in && col[j]) ? widen(row[j]) : -CUDART_INF_F;
     if (j == 0) r.v0 = v;
     if (v > r.m) {
       r.m = v;
@@ -317,13 +349,14 @@ __device__ __forceinline__ RowMax row_max(const float* xq, int xr0, int H,
 }
 
 // Outputs (oh, ow) for oh in [oh0, oh1) (at most kStripRows) of one
-// staged plane `xq` (its row xr0 first): sink(oh, max, first-max tap).
+// staged plane `xq` of T (its row xr0 first), widened to f32 where read:
+// sink(oh, max, first-max tap).
 // KH, KW > 0: unrolled; the strip's kStripRows + KH - 1 row maxima are
 // read first, into registers, then each output combines KH of them (see
 // the header for why this is the row-major first max).  0: each window is
 // scanned row-major from shared memory.
-template <int KH, int KW, class Sink>
-__device__ __forceinline__ void strip(const float* xq, int xr0, const Geom& g,
+template <int KH, int KW, class T, class Sink>
+__device__ __forceinline__ void strip(const T* xq, int xr0, const Geom& g,
                                       int ow, int oh0, int oh1, Sink sink) {
   const int iw0 = ow - g.plw;
   if constexpr (KH > 0) {
@@ -362,7 +395,7 @@ __device__ __forceinline__ void strip(const float* xq, int xr0, const Geom& g,
       auto at = [&](int i, int j) {
         const int ih = ih0 + i, iw = iw0 + j;
         return (ih >= 0 && ih < g.H && iw >= 0 && iw < g.W)
-                   ? xq[(ih - xr0) * g.W + iw]
+                   ? widen(xq[(ih - xr0) * g.W + iw])
                    : -CUDART_INF_F;
       };
       float best = at(0, 0);
@@ -386,10 +419,11 @@ __device__ __forceinline__ void strip(const float* xq, int xr0, const Geom& g,
 // one new row a dx: each dx sums over taps (i, j) in row-major order,
 // from 0.0f, g where the tap matches and +0.0f where not.  That is the conditional sum bit for bit:
 // a sum from +0.0f is never -0.0f (only -0 + -0 is), and x + 0.0f == x
-// for every other x, NaN and infinities included.
-template <int KH, int KW, class Tap>
-__device__ __forceinline__ void gather(const Tap* tq, const float* gq,
-                                       float* dq, const Geom& g,
+// for every other x, NaN and infinities included.  g is widened to f32
+// where read, and the sum rounded to T once.
+template <int KH, int KW, class Tap, class T>
+__device__ __forceinline__ void gather(const Tap* tq, const T* gq,
+                                       T* dq, const Geom& g,
                                        const Group& G, int iw, int ih0,
                                        int ih1) {
   const int n = ih1 - ih0;
@@ -405,7 +439,7 @@ __device__ __forceinline__ void gather(const Tap* tq, const float* gq,
   float v[KH][KW];
   const int oh_first = ih0 + g.plh - (KH - 1);
   const Tap* trow = tq + (oh_first - G.gr0) * g.OW + iw + g.plw;
-  const float* grow = gq + (oh_first - G.gr0) * g.OW + iw + g.plw;
+  const T* grow = gq + (oh_first - G.gr0) * g.OW + iw + g.plw;
   auto load = [&](int k, Tap* tk, float* vk) {
     const int oh = oh_first + k;
     const bool in = oh >= G.gr0 && oh < G.gr1;
@@ -413,7 +447,7 @@ __device__ __forceinline__ void gather(const Tap* tq, const float* gq,
     for (int j = 0; j < KW; ++j) {
       const bool ok = in && col[j];
       tk[j] = ok ? trow[k * g.OW - j] : (Tap)~(Tap)0;
-      vk[j] = ok ? grow[k * g.OW - j] : 0.0f;
+      vk[j] = ok ? widen(grow[k * g.OW - j]) : 0.0f;
     }
   };
 #pragma unroll
@@ -435,19 +469,20 @@ __device__ __forceinline__ void gather(const Tap* tq, const float* gq,
 #pragma unroll
       for (int j = 0; j < KW; ++j)
         acc += t[KH - 1 - i][j] == i * KW + j ? v[KH - 1 - i][j] : 0.0f;
-    dq[e * g.W] = acc;
+    put(dq + e * g.W, acc);
   }
 }
 
 // Starts group gi's copies into stage buffers xb (and gb) on `bar`.
-__device__ __forceinline__ void stage_group(const float* x, const float* gy,
-                                            float* xb, float* gb,
-                                            uint64_t* bar, const Geom& g,
-                                            long long gi, bool bwd) {
+template <class T>
+__device__ __forceinline__ void stage_group(const T* x, const T* gy, T* xb,
+                                            T* gb, uint64_t* bar,
+                                            const Geom& g, long long gi,
+                                            bool bwd) {
   const Group G = group_at(g, gi, bwd);
-  const float* xs = x + G.p0 * g.H * g.W + (long long)G.xr0 * g.W;
+  const T* xs = x + G.p0 * g.H * g.W + (long long)G.xr0 * g.W;
   const long long nx = (long long)G.np * (G.xr1 - G.xr0) * g.W;
-  const float* gs = bwd ? gy + G.p0 * g.OH * g.OW + (long long)G.gr0 * g.OW
+  const T* gs = bwd ? gy + G.p0 * g.OH * g.OW + (long long)G.gr0 * g.OW
                         : nullptr;
   const long long ng = bwd ? (long long)G.np * (G.gr1 - G.gr0) * g.OW : 0;
   mbar_expect(bar, cover_bytes(xs, nx) + (bwd ? cover_bytes(gs, ng) : 0u));
@@ -455,21 +490,21 @@ __device__ __forceinline__ void stage_group(const float* x, const float* gy,
   if (bwd) stage_run(gb, gs, ng, bar);
 }
 
-template <int KH, int KW>
+template <int KH, int KW, class T>
 __global__ void __launch_bounds__(kMaxThreads, kFwdBlocks)
-    s1_fwd_staged(const float* __restrict__ x, float* __restrict__ y,
-                  Geom g) {
-  extern __shared__ __align__(16) float smem[];
+    s1_fwd_staged(const T* __restrict__ x, T* __restrict__ y, Geom g) {
+  extern __shared__ float4 smem4[];
+  T* smem = reinterpret_cast<T*>(smem4);
   __shared__ __align__(8) uint64_t full[kStages];
-  float* ybuf = smem + kStages * g.xbuf;
+  T* ybuf = smem + kStages * g.xbuf;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) mbar_init(&full[s]);
     mbar_fence_init();
     for (int s = 0; s < kStages; ++s) {
       const long long gi = blockIdx.x + (long long)s * gridDim.x;
       if (gi < g.groups)
-        stage_group(x, nullptr, smem + s * g.xbuf, nullptr, &full[s], g, gi,
-                    false);
+        stage_group<T>(x, nullptr, smem + s * g.xbuf, nullptr, &full[s], g,
+                       gi, false);
     }
   }
   __syncthreads();
@@ -478,39 +513,40 @@ __global__ void __launch_bounds__(kMaxThreads, kFwdBlocks)
   for (long long gi = blockIdx.x; gi < g.groups; gi += gridDim.x, ++k) {
     const int s = k % kStages;
     const Group G = group_at(g, gi, false);
-    const float* xsrc = x + G.p0 * g.H * g.W + (long long)G.xr0 * g.W;
-    const float* xs = smem + s * g.xbuf + lead_of(xsrc);
-    float* ydst = y + G.p0 * g.OH * g.OW + (long long)G.r0 * g.OW;
-    float* ys = ybuf + (k & 1) * g.obuf;
+    const T* xsrc = x + G.p0 * g.H * g.W + (long long)G.xr0 * g.W;
+    const T* xs = smem + s * g.xbuf + lead_of(xsrc);
+    T* ydst = y + G.p0 * g.OH * g.OW + (long long)G.r0 * g.OW;
+    T* ys = ybuf + (k & 1) * g.obuf;
     const int xplane = (G.xr1 - G.xr0) * g.W, yplane = (G.r1 - G.r0) * g.OW;
     mbar_wait(&full[s], (k / kStages) & 1);
     for_tasks(tasks, G.np, g.OW, G.r0, G.r1,
               [&](int q, int ow, int oh0, int oh1) {
-      float* yq = ys + lead_of(ydst) + q * yplane + ow;
+      T* yq = ys + lead_of(ydst) + q * yplane + ow;
       strip<KH, KW>(xs + q * xplane, G.xr0, g, ow, oh0, oh1,
                     [&](int oh, float best, int) {
-                      yq[(oh - G.r0) * g.OW] = best;
+                      put(yq + (oh - G.r0) * g.OW, best);
                     });
     });
     // y of this group is whole; stage s is read; the stores from the
     // other y buffer (group k - 1) are done
     __syncthreads();
     if (threadIdx.x == 0 && gi + (long long)kStages * gridDim.x < g.groups)
-      stage_group(x, nullptr, smem + s * g.xbuf, nullptr, &full[s], g,
-                  gi + (long long)kStages * gridDim.x, false);
+      stage_group<T>(x, nullptr, smem + s * g.xbuf, nullptr, &full[s], g,
+                     gi + (long long)kStages * gridDim.x, false);
     store_run(ydst, ys, G.np * yplane);
   }
 }
 
-template <int KH, int KW, class Tap>
+template <int KH, int KW, class Tap, class T>
 __global__ void __launch_bounds__(kMaxThreads, kBwdBlocks)
-    s1_bwd_staged(const float* __restrict__ x, const float* __restrict__ gy,
-                  float* __restrict__ dx, Geom g) {
-  extern __shared__ __align__(16) float smem[];
+    s1_bwd_staged(const T* __restrict__ x, const T* __restrict__ gy,
+                  T* __restrict__ dx, Geom g) {
+  extern __shared__ float4 smem4[];
+  T* smem = reinterpret_cast<T*>(smem4);
   __shared__ __align__(8) uint64_t full[kStages];
   const int kh = KH > 0 ? KH : g.kh, kw = KW > 0 ? KW : g.kw;
   const int stage = g.xbuf + g.gbuf;
-  float* dxbuf = smem + kStages * stage;
+  T* dxbuf = smem + kStages * stage;
   Tap* taps = reinterpret_cast<Tap*>(dxbuf + g.obuf);
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) mbar_init(&full[s]);
@@ -518,8 +554,8 @@ __global__ void __launch_bounds__(kMaxThreads, kBwdBlocks)
     for (int s = 0; s < kStages; ++s) {
       const long long gi = blockIdx.x + (long long)s * gridDim.x;
       if (gi < g.groups)
-        stage_group(x, gy, smem + s * stage, smem + s * stage + g.xbuf,
-                    &full[s], g, gi, true);
+        stage_group<T>(x, gy, smem + s * stage, smem + s * stage + g.xbuf,
+                       &full[s], g, gi, true);
     }
   }
   __syncthreads();
@@ -528,12 +564,12 @@ __global__ void __launch_bounds__(kMaxThreads, kBwdBlocks)
   for (long long gi = blockIdx.x; gi < g.groups; gi += gridDim.x, ++k) {
     const int s = k % kStages;
     const Group G = group_at(g, gi, true);
-    const float* xsrc = x + G.p0 * g.H * g.W + (long long)G.xr0 * g.W;
-    const float* gsrc = gy + G.p0 * g.OH * g.OW + (long long)G.gr0 * g.OW;
-    const float* xs = smem + s * stage + lead_of(xsrc);
-    const float* gs = smem + s * stage + g.xbuf + lead_of(gsrc);
-    float* dxdst = dx + G.p0 * g.H * g.W + (long long)G.r0 * g.W;
-    float* dxs = dxbuf + lead_of(dxdst);
+    const T* xsrc = x + G.p0 * g.H * g.W + (long long)G.xr0 * g.W;
+    const T* gsrc = gy + G.p0 * g.OH * g.OW + (long long)G.gr0 * g.OW;
+    const T* xs = smem + s * stage + lead_of(xsrc);
+    const T* gs = smem + s * stage + g.xbuf + lead_of(gsrc);
+    T* dxdst = dx + G.p0 * g.H * g.W + (long long)G.r0 * g.W;
+    T* dxs = dxbuf + lead_of(dxdst);
     const int xplane = (G.xr1 - G.xr0) * g.W;
     const int gplane = (G.gr1 - G.gr0) * g.OW;
     const int dplane = (G.r1 - G.r0) * g.W;
@@ -552,8 +588,8 @@ __global__ void __launch_bounds__(kMaxThreads, kBwdBlocks)
     for_tasks(ins, G.np, g.W, G.r0, G.r1,
               [&](int q, int iw, int ih0, int ih1) {
       const Tap* tq = taps + q * gplane;
-      const float* gq = gs + q * gplane;
-      float* dq = dxs + q * dplane + iw;
+      const T* gq = gs + q * gplane;
+      T* dq = dxs + q * dplane + iw;
       if constexpr (KH > 0) {
         gather<KH, KW>(tq, gq, dq + (ih0 - G.r0) * g.W, g, G, iw, ih0, ih1);
         return;
@@ -569,17 +605,17 @@ __global__ void __launch_bounds__(kMaxThreads, kBwdBlocks)
             const int ow = iw + g.plw - j;
             if (ow < 0 || ow >= g.OW) continue;
             const int o = (oh - G.gr0) * g.OW + ow;
-            if (tq[o] == i * kw + j) acc += gq[o];
+            if (tq[o] == i * kw + j) acc += widen(gq[o]);
           }
         }
-        dq[(ih - G.r0) * g.W] = acc;
+        put(dq + (ih - G.r0) * g.W, acc);
       }
     });
     // dx of this group is whole; stage s and the taps are read
     __syncthreads();
     if (threadIdx.x == 0 && gi + (long long)kStages * gridDim.x < g.groups)
-      stage_group(x, gy, smem + s * stage, smem + s * stage + g.xbuf,
-                  &full[s], g, gi + (long long)kStages * gridDim.x, true);
+      stage_group<T>(x, gy, smem + s * stage, smem + s * stage + g.xbuf,
+                     &full[s], g, gi + (long long)kStages * gridDim.x, true);
     store_run(dxdst, dxbuf, G.np * dplane);
   }
 }
@@ -595,16 +631,6 @@ __device__ __forceinline__ float x_at(const __nv_bfloat16* __restrict__ xp,
   return (ih >= 0 && ih < H && iw >= 0 && iw < W)
              ? __bfloat162float(xp[(long long)ih * W + iw])
              : -CUDART_INF_F;
-}
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
 }
 
 // The first maximum of the window whose top-left tap `at(0, 0)` names:
@@ -626,8 +652,8 @@ __device__ __forceinline__ int first_max(At at, int kh, int kw,
   return arg;
 }
 
-// Unstaged forms, for windows no band of shared memory can hold, and the
-// bf16 forms at every shape (T: the element type of x, y, g and dx).
+// Unstaged forms, for windows no band of shared memory can hold (T: the
+// element type of x, y, g and dx).
 template <class T>
 __global__ void __launch_bounds__(256)
     s1_fwd_direct(const T* __restrict__ x, T* __restrict__ y, Geom g) {
@@ -674,7 +700,8 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-long long round4(long long n) { return (n + 3) / 4 * 4; }
+// n rounded up to a multiple of v
+long long round_up(long long n, int v) { return (n + v - 1) / v * v; }
 int strips(int n) { return (n + kStripRows - 1) / kStripRows; }
 
 // Bytes of a first-max tap in the backward's shared array (0: too many
@@ -685,10 +712,11 @@ int tap_bytes(int kh, int kw) {
 }
 
 // Fills the plan's sizes for `planes` planes a group and `rows` rows of
-// the pass's output a group (all of them: one band); returns the group's
-// tasks.
+// the pass's output a group (all of them: one band), at `eb` bytes an
+// element (4 f32, 2 bf16): each buffer holds its run and a lead of up to
+// a vector less one element, in whole vectors; returns the group's tasks.
 long long size_plan(Plan* p, long long NC, int H, int W, int OH, int OW,
-                    int kh, int kw, bool bwd, int planes, int rows) {
+                    int kh, int kw, bool bwd, int planes, int rows, int eb) {
   const int total = bwd ? H : OH;
   const int bands = (total + rows - 1) / rows;
   p->planes = planes;
@@ -710,16 +738,17 @@ long long size_plan(Plan* p, long long NC, int H, int W, int OH, int OW,
   p->threads = (int)((tasks < kMaxThreads ? tasks : kMaxThreads) + 31) / 32 *
                32;
   p->groups = (NC + planes - 1) / planes * bands;
-  p->xbuf = round4((long long)planes * p->xrows * W + 3);
-  p->gbuf = round4((long long)planes * p->grows * OW + 3);
-  p->obuf = round4((long long)planes * rows * (bwd ? W : OW) + 3);
+  const int v = kAlign / eb;
+  p->xbuf = round_up((long long)planes * p->xrows * W + v - 1, v);
+  p->gbuf = round_up((long long)planes * p->grows * OW + v - 1, v);
+  p->obuf = round_up((long long)planes * rows * (bwd ? W : OW) + v - 1, v);
   if (!bwd) {
-    p->smem = 4 * (kStages * p->xbuf + 2 * p->obuf);
+    p->smem = eb * (kStages * p->xbuf + 2 * p->obuf);
   } else {
     const long long tbytes =
         ((long long)planes * p->grows * OW * tap_bytes(kh, kw) + kAlign - 1) /
         kAlign * kAlign;
-    p->smem = 4 * (kStages * (p->xbuf + p->gbuf) + p->obuf) + tbytes;
+    p->smem = eb * (kStages * (p->xbuf + p->gbuf) + p->obuf) + tbytes;
   }
   return tasks;
 }
@@ -728,19 +757,20 @@ long long size_plan(Plan* p, long long NC, int H, int W, int OH, int OW,
 // cap, as many as keep the tasks within kMaxThreads; else bands of rows
 // (strips of kStripRows rows for as many as fit kMaxThreads across the
 // widest row), cut while the bytes exceed the cap, then while they
-// exceed a block's most; else the unstaged kernels.
+// exceed a block's most; else the unstaged kernels.  `eb`: the bytes of
+// an element.
 Plan make_plan(long long NC, int H, int W, int OH, int OW, int kh, int kw,
-               bool bwd) {
+               bool bwd, int eb) {
   Plan p = {};
   if (bwd && tap_bytes(kh, kw) == 0) return p;
   const int total = bwd ? H : OH;
   const long long tasks =
-      size_plan(&p, NC, H, W, OH, OW, kh, kw, bwd, 1, total);
+      size_plan(&p, NC, H, W, OH, OW, kh, kw, bwd, 1, total, eb);
   if (tasks <= kMaxThreads && p.smem <= (long long)kSmemCap) {
     long long planes = kMaxThreads / tasks;
     if (planes > NC) planes = NC;
     for (;; --planes) {
-      size_plan(&p, NC, H, W, OH, OW, kh, kw, bwd, (int)planes, total);
+      size_plan(&p, NC, H, W, OH, OW, kh, kw, bwd, (int)planes, total, eb);
       if (planes == 1 || p.smem <= (long long)kSmemCap) break;
     }
     p.path = kPlanes;
@@ -752,7 +782,7 @@ Plan make_plan(long long NC, int H, int W, int OH, int OW, int kh, int kw,
   const size_t caps[2] = {kSmemCap, kSmemMax};
   for (const size_t cap : caps) {
     for (int rows = first;; --rows) {
-      size_plan(&p, NC, H, W, OH, OW, kh, kw, bwd, 1, rows);
+      size_plan(&p, NC, H, W, OH, OW, kh, kw, bwd, 1, rows, eb);
       if (rows == 1 || p.smem <= (long long)cap) break;
     }
     if (p.smem <= (long long)cap) {
@@ -813,39 +843,26 @@ cudaError_t persistent_grid(K kernel, const Plan& p, int device,
   return cudaSuccess;
 }
 
-}  // namespace
-
-extern "C" {
-
-// The plan of a forward (bwd 0) or backward (1) launch, as
-// ops/maxpool_s1.py `plan` mirrors it: out[0..7] = path (0 unstaged, 1
-// planes, 2 bands), planes, rows, xrows, grows, threads, groups, shared
-// bytes.
-void bigdl_maxpool2d_s1_plan(long long NC, int H, int W, int OH, int OW,
-                             int kh, int kw, int bwd, long long* out) {
-  const Plan p = make_plan(NC, H, W, OH, OW, kh, kw, bwd != 0);
-  const long long v[8] = {p.path,  p.planes,  p.rows,   p.xrows,
-                          p.grows, p.threads, p.groups, p.smem};
-  for (int i = 0; i < 8; ++i) out[i] = v[i];
-}
-
-// Forward over NC = N * C planes.  Returns the cudaError_t of the launch.
-int bigdl_maxpool2d_s1_fwd_f32(const float* x, float* y, long long NC, int H,
-                               int W, int OH, int OW, int kh, int kw, int plh,
-                               int plw, int device, void* stream) {
+// One forward launch of T under the plan of the shape, or (unstaged) on
+// the unstaged kernel.
+template <class T>
+int launch_fwd(const T* x, T* y, long long NC, int H, int W, int OH, int OW,
+               int kh, int kw, int plh, int plw, int device, void* stream,
+               bool unstaged) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (NC == 0 || OH == 0 || OW == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Plan p = make_plan(NC, H, W, OH, OW, kh, kw, false);
+  const Plan p = unstaged ? Plan{}
+                          : make_plan(NC, H, W, OH, OW, kh, kw, false,
+                                      (int)sizeof(T));
   const Geom g = make_geom(p, NC, H, W, OH, OW, kh, kw, plh, plw);
   if (p.path == kDirect) {
     const long long total = NC * OH * OW;
-    s1_fwd_direct<float><<<grid_cap((total + 255) / 256), 256, 0, st>>>(x, y,
-                                                                       g);
+    s1_fwd_direct<T><<<grid_cap((total + 255) / 256), 256, 0, st>>>(x, y, g);
   } else {
-    auto kernel = (kh == 3 && kw == 3) ? s1_fwd_staged<3, 3>
-                                       : s1_fwd_staged<0, 0>;
+    auto kernel = (kh == 3 && kw == 3) ? s1_fwd_staged<3, 3, T>
+                                       : s1_fwd_staged<0, 0, T>;
     unsigned grid = 0;
     err = persistent_grid(kernel, p, device, &grid);
     if (err != cudaSuccess) return (int)err;
@@ -854,25 +871,27 @@ int bigdl_maxpool2d_s1_fwd_f32(const float* x, float* y, long long NC, int H,
   return (int)cudaGetLastError();
 }
 
-// Backward: dx (NC, H, W) from x and the cotangent g (NC, OH, OW).
-int bigdl_maxpool2d_s1_bwd_f32(const float* x, const float* gy, float* dx,
-                               long long NC, int H, int W, int OH, int OW,
-                               int kh, int kw, int plh, int plw, int device,
-                               void* stream) {
+// One backward launch of T, as launch_fwd.
+template <class T>
+int launch_bwd(const T* x, const T* gy, T* dx, long long NC, int H, int W,
+               int OH, int OW, int kh, int kw, int plh, int plw, int device,
+               void* stream, bool unstaged) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (NC == 0 || H == 0 || W == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Plan p = make_plan(NC, H, W, OH, OW, kh, kw, true);
+  const Plan p = unstaged ? Plan{}
+                          : make_plan(NC, H, W, OH, OW, kh, kw, true,
+                                      (int)sizeof(T));
   const Geom g = make_geom(p, NC, H, W, OH, OW, kh, kw, plh, plw);
   if (p.path == kDirect) {
     const long long total = NC * H * W;
-    s1_bwd_direct<float><<<grid_cap((total + 255) / 256), 256, 0, st>>>(
+    s1_bwd_direct<T><<<grid_cap((total + 255) / 256), 256, 0, st>>>(
         x, gy, dx, g);
   } else {
-    auto kernel = (kh == 3 && kw == 3) ? s1_bwd_staged<3, 3, uint8_t>
-                  : tap_bytes(kh, kw) == 1 ? s1_bwd_staged<0, 0, uint8_t>
-                                           : s1_bwd_staged<0, 0, uint16_t>;
+    auto kernel = (kh == 3 && kw == 3) ? s1_bwd_staged<3, 3, uint8_t, T>
+                  : tap_bytes(kh, kw) == 1 ? s1_bwd_staged<0, 0, uint8_t, T>
+                                           : s1_bwd_staged<0, 0, uint16_t, T>;
     unsigned grid = 0;
     err = persistent_grid(kernel, p, device, &grid);
     if (err != cudaSuccess) return (int)err;
@@ -881,37 +900,77 @@ int bigdl_maxpool2d_s1_bwd_f32(const float* x, const float* gy, float* dx,
   return (int)cudaGetLastError();
 }
 
-// The bf16 forms: x, y (forward), g and dx (backward) bf16, the unstaged
-// kernels at every shape.
-int bigdl_maxpool2d_s1_fwd_bf16(const __nv_bfloat16* x, __nv_bfloat16* y,
-                                long long NC, int H, int W, int OH, int OW,
-                                int kh, int kw, int plh, int plw, int device,
-                                void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (NC == 0 || OH == 0 || OW == 0) return 0;
-  const Geom g = make_geom(Plan{}, NC, H, W, OH, OW, kh, kw, plh, plw);
-  const long long total = NC * OH * OW;
-  s1_fwd_direct<__nv_bfloat16>
-      <<<grid_cap((total + 255) / 256), 256, 0,
-         static_cast<cudaStream_t>(stream)>>>(x, y, g);
-  return (int)cudaGetLastError();
+using bf16 = __nv_bfloat16;
+
+}  // namespace
+
+extern "C" {
+
+// The plan of a forward (bwd 0) or backward (1) launch of `eb`-byte
+// elements (4 f32, 2 bf16), as ops/maxpool_s1.py `plan` mirrors it:
+// out[0..7] = path (0 unstaged, 1 planes, 2 bands), planes, rows, xrows,
+// grows, threads, groups, shared bytes.
+void bigdl_maxpool2d_s1_plan(long long NC, int H, int W, int OH, int OW,
+                             int kh, int kw, int bwd, int eb,
+                             long long* out) {
+  const Plan p = make_plan(NC, H, W, OH, OW, kh, kw, bwd != 0, eb);
+  const long long v[8] = {p.path,  p.planes,  p.rows,   p.xrows,
+                          p.grows, p.threads, p.groups, p.smem};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
 }
 
-int bigdl_maxpool2d_s1_bwd_bf16(const __nv_bfloat16* x,
-                                const __nv_bfloat16* gy, __nv_bfloat16* dx,
+// Forward over NC = N * C planes.  Returns the cudaError_t of the launch.
+// The _bf16 form takes x and y in bf16.
+int bigdl_maxpool2d_s1_fwd_f32(const float* x, float* y, long long NC, int H,
+                               int W, int OH, int OW, int kh, int kw, int plh,
+                               int plw, int device, void* stream) {
+  return launch_fwd(x, y, NC, H, W, OH, OW, kh, kw, plh, plw, device, stream,
+                    false);
+}
+
+int bigdl_maxpool2d_s1_fwd_bf16(const bf16* x, bf16* y, long long NC, int H,
+                                int W, int OH, int OW, int kh, int kw,
+                                int plh, int plw, int device, void* stream) {
+  return launch_fwd(x, y, NC, H, W, OH, OW, kh, kw, plh, plw, device, stream,
+                    false);
+}
+
+// Backward: dx (NC, H, W) from x and the cotangent g (NC, OH, OW).  The
+// _bf16 form takes x, g and dx in bf16.
+int bigdl_maxpool2d_s1_bwd_f32(const float* x, const float* gy, float* dx,
+                               long long NC, int H, int W, int OH, int OW,
+                               int kh, int kw, int plh, int plw, int device,
+                               void* stream) {
+  return launch_bwd(x, gy, dx, NC, H, W, OH, OW, kh, kw, plh, plw, device,
+                    stream, false);
+}
+
+int bigdl_maxpool2d_s1_bwd_bf16(const bf16* x, const bf16* gy, bf16* dx,
                                 long long NC, int H, int W, int OH, int OW,
                                 int kh, int kw, int plh, int plw, int device,
                                 void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (NC == 0 || H == 0 || W == 0) return 0;
-  const Geom g = make_geom(Plan{}, NC, H, W, OH, OW, kh, kw, plh, plw);
-  const long long total = NC * H * W;
-  s1_bwd_direct<__nv_bfloat16>
-      <<<grid_cap((total + 255) / 256), 256, 0,
-         static_cast<cudaStream_t>(stream)>>>(x, gy, dx, g);
-  return (int)cudaGetLastError();
+  return launch_bwd(x, gy, dx, NC, H, W, OH, OW, kh, kw, plh, plw, device,
+                    stream, false);
+}
+
+// The bf16 forms on the unstaged kernels at any shape, as the entries
+// above take them: a test entry, to hold the staged forms to them (PR
+// 19's bf16 forms at every shape) bit for bit.
+int bigdl_maxpool2d_s1_fwd_bf16_unstaged(const bf16* x, bf16* y,
+                                         long long NC, int H, int W, int OH,
+                                         int OW, int kh, int kw, int plh,
+                                         int plw, int device, void* stream) {
+  return launch_fwd(x, y, NC, H, W, OH, OW, kh, kw, plh, plw, device, stream,
+                    true);
+}
+
+int bigdl_maxpool2d_s1_bwd_bf16_unstaged(const bf16* x, const bf16* gy,
+                                         bf16* dx, long long NC, int H, int W,
+                                         int OH, int OW, int kh, int kw,
+                                         int plh, int plw, int device,
+                                         void* stream) {
+  return launch_bwd(x, gy, dx, NC, H, W, OH, OW, kh, kw, plh, plw, device,
+                    stream, true);
 }
 
 const char* bigdl_cuda_error_string(int err) {

@@ -14,6 +14,8 @@
 
 #include <cuda_runtime.h>
 
+#include "recurrence_cluster.cuh"
+
 namespace {
 
 // tiled products: 64 x 64 outputs a block, 16-deep slices, 256 threads
@@ -123,11 +125,12 @@ enum Epi { kIdentity, kSigmoid, kTanh };
 // left[row] . W[d][:, n]) for rows m = t * B + b of direction blockIdx.z
 // (sh.slice unused).  With RH, columns n < K also write rh[row, n] =
 // out[row, n] * left[row][n] (gru.cu: r o hprev, `left` the h stack at
-// t - 1).
-template <int EPI, bool RH>
+// t - 1).  W of WT: against a bf16 W (rnn.cu's bf16-weight form) each
+// left value is rounded to bf16 at the product, as the forward rounds h.
+template <int EPI, bool RH, class WT>
 __global__ void __launch_bounds__(kGemmThreads)
     prepass_kernel(const float* __restrict__ in,
-                   const float* __restrict__ w, Stack left,
+                   const WT* __restrict__ w, Stack left,
                    float* __restrict__ out, float* __restrict__ rh,
                    DwhShape sh) {
   __shared__ __align__(16) float As[kBK][kBM + kPad];
@@ -137,7 +140,7 @@ __global__ void __launch_bounds__(kGemmThreads)
   const long long m0 = (long long)blockIdx.x * kBM;
   const int n0 = blockIdx.y * kBN;
   const int ty = tid / 16, tx = tid % 16;
-  const float* W = w + (size_t)d * H * J;
+  const WT* W = w + (size_t)d * H * J;
   const int am = tid / 4, ak = (tid % 4) * 4;
   const int bk = tid / 16, bn = (tid % 16) * 4;
   const float* arow =
@@ -147,9 +150,11 @@ __global__ void __launch_bounds__(kGemmThreads)
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int k = k0 + ak + q;
-      As[ak + q][am] = (arow != nullptr && k < H) ? arow[k] : 0.0f;
+      As[ak + q][am] =
+          (arow != nullptr && k < H) ? at_product<WT>(arow[k]) : 0.0f;
       const int n = n0 + bn + q, kb = k0 + bk;
-      Bs[bk][bn + q] = (kb < H && n < J) ? W[(size_t)kb * J + n] : 0.0f;
+      Bs[bk][bn + q] =
+          (kb < H && n < J) ? widen(W[(size_t)kb * J + n]) : 0.0f;
     }
     __syncthreads();
     tile_fma(As, Bs, acc, ty, tx);
@@ -177,14 +182,14 @@ __global__ void __launch_bounds__(kGemmThreads)
 }
 
 // The pre-pass's launch: rows t * B + b of D directions, J columns.
-template <int EPI, bool RH>
-void launch_prepass(const float* in, const float* w, const Stack& left,
+template <int EPI, bool RH, class WT>
+void launch_prepass(const float* in, const WT* w, const Stack& left,
                   float* out, float* rh, const DwhShape& sh, cudaStream_t st) {
   const long long M = (long long)sh.T * sh.B;
   const dim3 grid((unsigned)((M + kBM - 1) / kBM), (sh.J + kBN - 1) / kBN,
                   sh.D);
-  prepass_kernel<EPI, RH><<<grid, kGemmThreads, 0, st>>>(in, w, left, out,
-                                                          rh, sh);
+  prepass_kernel<EPI, RH, WT><<<grid, kGemmThreads, 0, st>>>(in, w, left,
+                                                              out, rh, sh);
 }
 
 // dw[e] = sum_s part[s][e], slices in order.

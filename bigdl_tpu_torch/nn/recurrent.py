@@ -45,15 +45,18 @@ where the policy's output dtype is f32 (``kernel_gate``, the JAX
 ``_pallas_gate``): under ``BF16_ACT`` every cell takes the step route,
 whose gates round through bf16, and a ``BiRecurrent`` of two LSTMs its
 fused step loop.  That is the JAX package's own route decision, not a
-fall back.  Under ``BF16_COMPUTE`` the LSTM's input projection is a bf16
-product summed in f32 plus the bias and its recurrent weight bf16 (the
-kernels' bf16-weight form); a ``BiRecurrent`` of LSTMs holds its
-projection and its output stack in bf16 (the recurrence's carries stay
-f32); the GRU computes in f32 under every policy, as the JAX cell does;
-and ``Recurrent(RnnCell)`` on the kernel route raises
-``NotImplementedError``: the JAX package feeds its kernel a bf16 weight,
-whose form the port has yet to write (ROADMAP queue 2).  The cells'
-steps take the JAX ``_step`` casts.
+fall back.  Under ``BF16_COMPUTE`` the LSTM's and the RNN's input
+projections are bf16 products summed in f32 plus the biases (the RNN's
+both, as the JAX kernel route adds them) and their recurrent weights bf16
+(the kernels' bf16-weight forms, whose gradient reaches the f32 weight
+through the cast); a ``BiRecurrent`` of LSTMs holds its projection and
+its output stack in bf16 (the recurrence's carries stay f32); the GRU
+computes in f32 under every policy, as the JAX cell does.  The JAX
+package runs its RNN kernel for Tanh at full BPTT only and a ``lax.scan``
+of ``RnnCell._step`` otherwise; the port keeps the kernel route for every
+kind and for truncated chunks, the same function with the biases summed
+in another order (an f32 rounding apart).  The cells' steps take the JAX
+``_step`` casts.
 
 A cell's step protocol is the JAX ``Cell``'s: ``init_hidden(batch)`` (a
 tuple (h, c) for the LSTM), ``step(x_t, hidden) -> (out, hidden)`` in
@@ -306,12 +309,14 @@ def _one_direction(cell, xs, k):
 
 
 def _rnn(cell: RnnCell, xs, k, act):
-    """The h stack (T, N, H) under ``act``; with 0 < k < T and a gradient
-    to take, in chunks of k steps, each from the last h of the one before,
+    """The h stack (T, N, H) under ``act`` over the f32 projection plus
+    both biases and h2h^T (in the compute dtype under a reduced policy:
+    the JAX kernel route's operands); with 0 < k < T and a gradient to
+    take, in chunks of k steps, each from the last h of the one before,
     detached."""
-    zx = (torch.matmul(xs, cell.i2h.t()) + cell.bias_i
+    zx = (_mm_f32(xs, cell.i2h.t()) + cell.bias_i
           + cell.bias_h)[:, None]                             # (T, 1, N, H)
-    wh = cell.h2h.t()[None].contiguous()
+    wh = _recurrent_weight(cell.h2h.t())[None].contiguous()
     if not (_takes_grad(zx, wh) and 0 < k < zx.shape[0]):
         return rnn_recurrence(zx, wh, act=act)[:, 0]
 
@@ -375,11 +380,6 @@ class Recurrent(Container):
         elif kind in (LSTMCell, GRUCell):
             outs = _one_direction(cell, xs, k)
         elif act is not None:
-            if policy().reduced:
-                raise NotImplementedError(
-                    "Recurrent(RnnCell) under a reduced dtype policy: the "
-                    "rnn kernel's bf16-weight form is not written yet "
-                    "(ROADMAP queue 2)")
             outs = _rnn(cell, xs, k, act)
         else:
             outs = _steps(cell, xs, k)

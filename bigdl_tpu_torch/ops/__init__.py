@@ -3,8 +3,8 @@ bigdl_tpu/ops/pallas_kernels.py), each beside its plain PyTorch version.
 
 ``KERNELS`` lists every kernel wrapper; each carries a ``launches`` count
 that only a real kernel launch increments.  A wrapper whose kernel has a
-bf16 form (the pools, the LRN, the LSTM recurrence and ``lstm_scan``)
-counts that form's launches apart, in ``launches_bf16``:
+bf16 form (the pools, the LRN, the LSTM and RNN recurrences and
+``lstm_scan``) counts that form's launches apart, in ``launches_bf16``:
 ``launch_counts()`` reports them as ``<name>_bf16``.  ``Act`` describes the
 element-wise activation the RNN kernels apply.
 """

@@ -6,7 +6,10 @@ so a build takes seconds).  Builds run at first use, land in
 ``bigdl_tpu_torch/build/`` and are cached by a hash of the source, the
 local headers it includes (``#include "..."``, followed through the
 headers they include) and the flags; :func:`build` starts one ``nvcc``
-per missing library, all at once.  Nothing here runs at import time.
+per missing library, all at once.  :func:`start` starts them without
+waiting, so that a program runs on the first libraries while the slower
+ones compile: :func:`load` (and :func:`build`) of a library waits for its
+own ``nvcc``.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -31,11 +34,15 @@ SOURCES = {"paged_attention": "paged_attention.cu",
            "lrn": "lrn.cu",
            "bilstm": "bilstm.cu",
            "rnn": "rnn.cu",
+           "rnn_bf16": "rnn_bf16.cu",
            "gru": "gru.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict = {}
+# name -> (nvcc process, temporary output, output, start time) of the
+# builds start() began and no one has waited for yet
+_PENDING: dict = {}
 
 
 def build_dir() -> Path:
@@ -78,24 +85,35 @@ def target(name: str) -> Path:
     return build_dir() / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names=None) -> dict:
-    """Compile every missing library of ``names`` (default: all) in
-    parallel.  Returns ``{name: {"seconds": s, "log": nvcc output}}`` for
-    the ones built now; raises with the compiler's output on failure."""
+def start(names=None) -> None:
+    """Start one ``nvcc`` for every missing library of ``names`` (default:
+    all) that is not compiling yet, and return without waiting."""
     names = list(SOURCES) if names is None else list(names)
     build_dir().mkdir(parents=True, exist_ok=True)
-    procs = {}
     for name in names:
         out = target(name)
-        if out.exists():
+        if out.exists() or name in _PENDING:
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out, time.perf_counter())
+        _PENDING[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True),
+                          tmp, out, time.perf_counter())
+
+
+def build(names=None) -> dict:
+    """Compile every missing library of ``names`` (default: all) in
+    parallel, waiting for those :func:`start` began.  Returns ``{name:
+    {"seconds": s, "log": nvcc output}}`` for the ones built now; raises
+    with the compiler's output on failure."""
+    names = list(SOURCES) if names is None else list(names)
+    start(names)
     built, failed = {}, []
-    for name, (proc, tmp, out, t0) in procs.items():
+    for name in names:
+        if name not in _PENDING:
+            continue
+        proc, tmp, out, t0 = _PENDING.pop(name)
         log, _ = proc.communicate()
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)

@@ -230,6 +230,14 @@ def raise_on(lib, err, kernel, which, hdim):
                            f"H={hdim}: {msg}")
 
 
+def product(h, wht):
+    """h . wht as the kernels take it: against a bf16 wht, h rounded to
+    bf16 and the (exact) products summed in f32."""
+    if wht.dtype == torch.bfloat16:
+        return torch.matmul(h.to(wht.dtype).float(), wht.float())
+    return torch.matmul(h, wht)
+
+
 def shift_prev(xs, x0=None):
     """xs[t] -> xs[t-1] along time, ``x0`` (zeros when None) at t = 0."""
     first = torch.zeros_like(xs[:1]) if x0 is None else x0[None]

@@ -142,14 +142,6 @@ def _wide(t):
     return t.float() if t.dtype == torch.bfloat16 else t
 
 
-def _prod(h, wht):
-    """h . wht as the kernels take it: against a bf16 wht, h rounded to
-    bf16 and the (exact) products summed in f32."""
-    if wht.dtype == torch.bfloat16:
-        return torch.matmul(h.to(wht.dtype).float(), wht.float())
-    return torch.matmul(h, wht)
-
-
 def bilstm_forward_reference(zx, wht, with_c=True, h0=None, c0=None):
     """Plain version of the forward: a loop over T with ``torch.matmul``
     from ``h0``, ``c0`` (zeros where None); ``(hs, cs)``, or ``hs`` alone
@@ -161,7 +153,7 @@ def bilstm_forward_reference(zx, wht, with_c=True, h0=None, c0=None):
     c = zx.new_zeros(nd, b, hdim, dtype=dt) if c0 is None else c0
     hs, cs = [], []
     for step in range(t):
-        i, f, g, o = _gates(_wide(zx[step]) + _prod(h, wht), hdim)
+        i, f, g, o = _gates(_wide(zx[step]) + rec.product(h, wht), hdim)
         c = f * c + i * g
         h = o * torch.tanh(c)
         hs.append(h)
@@ -182,7 +174,8 @@ def bilstm_backward_reference(zx, wht, hs, cs, gout, h0=None, c0=None):
     dzx = torch.empty_like(zx, dtype=hs.dtype)
     wh = wht.transpose(1, 2)
     for step in reversed(range(zx.shape[0])):
-        i, f, g, o = _gates(_wide(zx[step]) + _prod(hprev[step], wht), hdim)
+        i, f, g, o = _gates(_wide(zx[step]) + rec.product(hprev[step], wht),
+                            hdim)
         tc = torch.tanh(cs[step])
         dh_tot = gout[step] + dh
         dc_tot = dc + dh_tot * o * (1.0 - tc * tc)
@@ -191,7 +184,7 @@ def bilstm_backward_reference(zx, wht, hs, cs, gout, h0=None, c0=None):
                         dc_tot * i * (1.0 - g * g),
                         dh_tot * tc * o * (1.0 - o)], dim=-1)
         dzx[step] = dz
-        dh = _prod(dz, wh)
+        dh = rec.product(dz, wh)
         dc = dc_tot * f
     return dzx
 

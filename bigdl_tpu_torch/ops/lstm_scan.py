@@ -25,7 +25,7 @@ import torch
 from bigdl_tpu_torch.ops import _build
 from bigdl_tpu_torch.ops import _recurrence as rec
 from bigdl_tpu_torch.ops import bilstm
-from bigdl_tpu_torch.ops.bilstm import _gates, _prod, _wide
+from bigdl_tpu_torch.ops.bilstm import _gates, _wide
 
 _KERNEL = "lstm_scan"
 
@@ -66,7 +66,8 @@ def lstm_scan_reference(zx, wht, h0, c0):
     hdim = wht.shape[0]
     h, c, hs = h0, c0, []
     for step in range(zx.shape[0]):
-        i, f, g, o = _gates(_wide(zx[step]) + _prod(h, wht), hdim)
+        i, f, g, o = _gates(_wide(zx[step]) + rec.product(h, wht),
+                            hdim)
         c = f * c + i * g
         h = o * torch.tanh(c)
         hs.append(h)

@@ -14,11 +14,14 @@ count kernel launches only.
 Each kernel has an f32 and a bf16 form (``FORMS``; the bf16 form is the
 pool a reduced dtype policy runs): bf16 in and out, the compares in f32
 (exact for bf16 values), the argmax int32, and the backward's sums of
-overlapping windows taken in f32 and rounded once, as the JAX kernel's
-(pallas_kernels.py:1118-1142).  The wrappers pick the form by the
-tensor's dtype and raise a ``TypeError`` for any other; the plain
-versions compute the same function in each dtype.  ``launches`` counts
-the f32 form's launches, ``launches_bf16`` the bf16 form's.
+overlapping windows taken in f32 in (oh, ow) order and rounded once, as
+the JAX kernel's (pallas_kernels.py:1118-1142).  Both forms of the
+backward are the one staged tile kernel (g staged in its own dtype, dx
+out in 16-byte vectors).  The wrappers pick the form by the tensor's
+dtype and raise a ``TypeError`` for any other; the plain versions
+compute the same function in each dtype (the backward's sums in
+``F.fold``'s order: within one bf16 ulp of the kernel's).  ``launches``
+counts the f32 form's launches, ``launches_bf16`` the bf16 form's.
 """
 from __future__ import annotations
 
@@ -52,10 +55,33 @@ def _lib() -> ctypes.CDLL:
                 fn = getattr(lib, entry(which, dtype))
                 fn.argtypes = [_VP, _VP, _VP, *_GEOM, _I, _VP]
                 fn.restype = _I
+        lib.bigdl_maxpool2d_bwd_plan.argtypes = [*_GEOM, _I, _VP]
+        lib.bigdl_maxpool2d_bwd_plan.restype = None
         lib.bigdl_cuda_error_string.argtypes = [_I]
         lib.bigdl_cuda_error_string.restype = ctypes.c_char_p
         _lib_cache.append(lib)
     return _lib_cache[0]
+
+
+_BWD_PLAN_KEYS = ("staged", "planes", "rows", "threads", "mr", "mc",
+                  "smem_bytes")
+
+
+def kernel_plan(xshape, window, strides, pads, dtype=torch.float32):
+    """How the built library (needs nvcc) cuts a backward launch of
+    ``dtype`` onto x of ``xshape``: a dict of ``staged`` (g and the
+    argmax staged in shared memory, else read through L1), ``planes`` a
+    block, ``rows`` a tile, ``threads``, the unrolled covering bounds
+    ``mr`` x ``mc`` (0 x 0: any window) and ``smem_bytes``."""
+    entry("bwd", dtype)
+    n, c, h, w = xshape
+    (plh, _), (plw, _) = pads
+    oh, ow = out_size(h, w, window, strides, pads)
+    got = (ctypes.c_longlong * len(_BWD_PLAN_KEYS))()
+    _lib().bigdl_maxpool2d_bwd_plan(n * c, h, w, oh, ow, *window, *strides,
+                                    plh, plw, torch.finfo(dtype).bits // 8,
+                                    got)
+    return dict(zip(_BWD_PLAN_KEYS, got))
 
 
 def out_size(h: int, w: int, window, strides, pads):

@@ -19,11 +19,17 @@ reach it; :func:`kernel_plan` asks the built library itself.
 Each kernel has an f32 and a bf16 form (``FORMS``), picked by the
 tensors' dtype (a ``TypeError`` for any other): the bf16 form reads and
 writes bf16 and compares and sums in f32, as the JAX kernel does
-(pallas_kernels.py:196-246).  It takes the unstaged kernels at every
-shape: the bulk-copy ring sizes its stages in whole 16-byte granules of
-f32 rows, and a bf16 plane (98 bytes at Inception's 7x7) would need a
-plan of its own; so ``plan`` of a bf16 launch is "direct".  ``launches``
-counts the f32 form's launches, ``launches_bf16`` the bf16 form's.
+(pallas_kernels.py:196-246).  Both forms run the same staged design:
+the bulk-copy ring's runs, leads and vector stores are counted in
+elements, so a bf16 plane (98 bytes at Inception's 7x7) takes one copy as
+an f32 one does, and ``plan(..., dtype=torch.bfloat16)`` sizes the stages
+in 2-byte elements (the same groups as f32 at Inception's planes, in half
+the shared memory).  The unstaged kernels stay for windows too tall for a
+band of one row, in both forms; :func:`unstaged_forward` and
+:func:`unstaged_backward` launch them in bf16 at any shape (the bf16
+form's kernels before it was staged), to hold the staged bf16 forms to
+them bit for bit on the card (no count).  ``launches`` counts the f32
+form's launches, ``launches_bf16`` the bf16 form's.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ _S1 = (1, 1)
 _lib_cache = []
 
 FORMS = _build.FORMS
+_EBYTES = {torch.float32: 4, torch.bfloat16: 2}
 
 # csrc/maxpool2d_s1.cu's constants: a block's threads (a group's tasks),
 # the rows a task slides down, the ring's stages, a bulk copy's alignment
@@ -69,12 +76,14 @@ def entry(which: str, dtype: torch.dtype) -> str:
 def _lib() -> ctypes.CDLL:
     if not _lib_cache:
         lib = _build.load("maxpool2d_s1")
-        for dtype in FORMS:
-            fwd, bwd = (getattr(lib, entry(w, dtype)) for w in ("fwd", "bwd"))
+        for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, ""),
+                           (torch.bfloat16, "_unstaged")):
+            fwd, bwd = (getattr(lib, entry(w, dtype) + sfx)
+                        for w in ("fwd", "bwd"))
             fwd.argtypes = [_VP, _VP, *_GEOM]
             bwd.argtypes = [_VP, _VP, _VP, *_GEOM]
             fwd.restype = bwd.restype = _I
-        lib.bigdl_maxpool2d_s1_plan.argtypes = [_LL, *[_I] * 7, _VP]
+        lib.bigdl_maxpool2d_s1_plan.argtypes = [_LL, *[_I] * 8, _VP]
         lib.bigdl_maxpool2d_s1_plan.restype = None
         lib.bigdl_cuda_error_string.argtypes = [_I]
         lib.bigdl_cuda_error_string.restype = ctypes.c_char_p
@@ -82,8 +91,8 @@ def _lib() -> ctypes.CDLL:
     return _lib_cache[0]
 
 
-def _round4(n):
-    return (n + 3) // 4 * 4
+def _round_up(n, v):
+    return (n + v - 1) // v * v
 
 
 def _strips(n):
@@ -96,9 +105,10 @@ def _tap_bytes(kh, kw):
     return 1 if kh * kw <= 256 else (2 if kh * kw <= 65536 else 0)
 
 
-def _sized(nc, h, w, oh, ow, kh, kw, bwd, planes, rows):
+def _sized(nc, h, w, oh, ow, kh, kw, bwd, planes, rows, eb):
     """(tasks of a group, plan sizes) at ``planes`` planes and ``rows``
-    rows of the pass's own output a group, as ``size_plan``."""
+    rows of the pass's own output a group, elements of ``eb`` bytes, as
+    ``size_plan``."""
     total = h if bwd else oh
     bands = -(-total // rows)
     if bands == 1:
@@ -111,14 +121,15 @@ def _sized(nc, h, w, oh, ow, kh, kw, bwd, planes, rows):
     tasks = planes * ow * _strips(grows if bwd else rows)
     if bwd:
         tasks = max(tasks, planes * w * _strips(rows))
-    xbuf = _round4(planes * xrows * w + 3)
-    obuf = _round4(planes * rows * (w if bwd else ow) + 3)
+    v = ALIGN // eb
+    xbuf = _round_up(planes * xrows * w + v - 1, v)
+    obuf = _round_up(planes * rows * (w if bwd else ow) + v - 1, v)
     if bwd:
-        gbuf = _round4(planes * grows * ow + 3)
+        gbuf = _round_up(planes * grows * ow + v - 1, v)
         taps = -(-planes * grows * ow * _tap_bytes(kh, kw) // ALIGN) * ALIGN
-        smem = 4 * (STAGES * (xbuf + gbuf) + obuf) + taps
+        smem = eb * (STAGES * (xbuf + gbuf) + obuf) + taps
     else:
-        smem = 4 * (STAGES * xbuf + 2 * obuf)
+        smem = eb * (STAGES * xbuf + 2 * obuf)
     return tasks, {"planes": planes, "rows": rows, "xrows": xrows,
                    "grows": grows,
                    "threads": (min(tasks, MAX_THREADS) + 31) // 32 * 32,
@@ -127,12 +138,12 @@ def _sized(nc, h, w, oh, ow, kh, kw, bwd, planes, rows):
 
 def plan(shape, window, pads, backward=False, dtype=torch.float32):
     """How csrc/maxpool2d_s1.cu cuts a forward (or backward) launch on x
-    of ``shape``, as its ``make_plan``: a dict of ``path`` ("planes":
-    ``planes`` whole planes a group; "bands": one band of ``rows`` rows of
-    one plane; "direct": the unstaged kernels, the bf16 form's at every
-    shape), ``rows`` (of y forward, dx backward, a group), ``xrows`` /
-    ``grows`` (staged rows of x and g a plane), ``threads``, ``groups``,
-    ``stages`` and ``smem_bytes``."""
+    of ``shape`` and ``dtype``, as its ``make_plan``: a dict of ``path``
+    ("planes": ``planes`` whole planes a group; "bands": one band of
+    ``rows`` rows of one plane; "direct": the unstaged kernels), ``rows``
+    (of y forward, dx backward, a group), ``xrows`` / ``grows`` (staged
+    rows of x and g a plane), ``threads``, ``groups``, ``stages`` and
+    ``smem_bytes``."""
     n, c, h, w = shape
     kh, kw = window
     oh, ow = out_size(h, w, window, _S1, pads)
@@ -140,15 +151,17 @@ def plan(shape, window, pads, backward=False, dtype=torch.float32):
     out = {"path": "direct", "planes": 0, "rows": 0, "xrows": 0,
            "grows": 0, "threads": 0, "groups": 0, "smem_bytes": 0,
            "stages": STAGES}
-    if (backward and _tap_bytes(kh, kw) == 0) or FORMS[dtype] != "f32":
+    entry("fwd", dtype)
+    eb = _EBYTES[dtype]
+    if backward and _tap_bytes(kh, kw) == 0:
         return out
     total = h if backward else oh
-    tasks, sized = _sized(nc, h, w, oh, ow, kh, kw, backward, 1, total)
+    tasks, sized = _sized(nc, h, w, oh, ow, kh, kw, backward, 1, total, eb)
     if tasks <= MAX_THREADS and sized["smem_bytes"] <= SMEM_CAP:
         planes = min(MAX_THREADS // tasks, nc)
         while True:
             _, sized = _sized(nc, h, w, oh, ow, kh, kw, backward, planes,
-                              total)
+                              total, eb)
             if planes == 1 or sized["smem_bytes"] <= SMEM_CAP:
                 break
             planes -= 1
@@ -158,7 +171,8 @@ def plan(shape, window, pads, backward=False, dtype=torch.float32):
     for cap in (SMEM_CAP, SMEM_MAX):
         rows = first
         while True:
-            _, sized = _sized(nc, h, w, oh, ow, kh, kw, backward, 1, rows)
+            _, sized = _sized(nc, h, w, oh, ow, kh, kw, backward, 1, rows,
+                              eb)
             if rows == 1 or sized["smem_bytes"] <= cap:
                 break
             rows -= 1
@@ -167,14 +181,14 @@ def plan(shape, window, pads, backward=False, dtype=torch.float32):
     return out | sized | {"path": "direct"}
 
 
-def kernel_plan(shape, window, pads, backward=False):
+def kernel_plan(shape, window, pads, backward=False, dtype=torch.float32):
     """The plan the built library computes (needs nvcc), to hold
     :func:`plan` to it on the card."""
     n, c, h, w = shape
     oh, ow = out_size(h, w, window, _S1, pads)
     got = (ctypes.c_longlong * 8)()
     _lib().bigdl_maxpool2d_s1_plan(n * c, h, w, oh, ow, *window,
-                                   int(backward), got)
+                                   int(backward), _EBYTES[dtype], got)
     out = dict(zip(_PLAN_KEYS, got)) | {"stages": STAGES}
     out["path"] = PATHS[out["path"]]
     return out
@@ -235,6 +249,36 @@ maxpool2d_s1_forward.launches = maxpool2d_s1_forward.launches_bf16 = 0
 maxpool2d_s1_backward.launches = maxpool2d_s1_backward.launches_bf16 = 0
 
 
+def unstaged_forward(x, window, pads):
+    """The bf16 forward on the unstaged kernel at any shape (CUDA tensors;
+    no launch count): the reference the staged bf16 form equals bit for
+    bit."""
+    _check_unstaged(x)
+    n, c, h, w = x.shape
+    oh, ow = out_size(h, w, window, _S1, pads)
+    y = torch.empty(n, c, oh, ow, dtype=x.dtype, device=x.device)
+    _run("fwd", (x, y), x.shape, (oh, ow), window, pads, unstaged=True)
+    return y
+
+
+def unstaged_backward(x, g, window, pads):
+    """The bf16 backward on the unstaged kernel, as
+    :func:`unstaged_forward`."""
+    _check_unstaged(x)
+    _check(g, "g")
+    oh, ow = out_size(*x.shape[2:], window, _S1, pads)
+    dx = torch.empty_like(x)
+    _run("bwd", (x, g, dx), x.shape, (oh, ow), window, pads, unstaged=True)
+    return dx
+
+
+def _check_unstaged(x):
+    if x.dtype != torch.bfloat16 or x.device.type != "cuda":
+        raise TypeError(f"maxpool2d_s1: the unstaged entries take bf16 CUDA "
+                        f"tensors, got {x.dtype} on {x.device}")
+    _check(x, "x")
+
+
 def _check(t, name):
     entry("fwd", t.dtype)   # a TypeError where the kernels have no form
     if t.dim() != 4 or not t.is_contiguous():
@@ -242,11 +286,12 @@ def _check(t, name):
                          f"tensor, got shape {tuple(t.shape)}")
 
 
-def _run(which, tensors, xshape, oshape, window, pads):
+def _run(which, tensors, xshape, oshape, window, pads, unstaged=False):
     n, c, h, w = xshape
     (plh, _), (plw, _) = pads
     lib = _lib()
-    fn = getattr(lib, entry(which, tensors[0].dtype))
+    fn = getattr(lib, entry(which, tensors[0].dtype)
+                 + ("_unstaged" if unstaged else ""))
     err = fn(*[t.data_ptr() for t in tensors], n * c, h, w, *oshape,
              *window, plh, plw, *_build.device_stream(tensors[0].device))
     if err != 0:

@@ -1088,17 +1088,21 @@ def check_pool_s1(torch, ops, g, shape, win, pads, nan=False):
             float((dx - dx_ref).abs().max()))
 
 
-def pool_s1_plan_line(ops, shape, win, pads):
-    """The plan each pass takes at ``shape`` (``ops.maxpool_s1.plan``),
-    held equal to the one the built library computes; one line."""
+def pool_s1_plan_line(ops, shape, win, pads, dtype=None):
+    """The plan each pass takes at ``shape`` (``ops.maxpool_s1.plan``) for
+    ``dtype`` (f32 where None), held equal to the one the built library
+    computes; one line."""
+    import torch
+
+    dtype = dtype or torch.float32
     plans = []
     for bwd in (False, True):
-        want = ops.maxpool_s1.plan(shape, win, pads, bwd)
-        got = ops.maxpool_s1.kernel_plan(shape, win, pads, bwd)
+        want = ops.maxpool_s1.plan(shape, win, pads, bwd, dtype)
+        got = ops.maxpool_s1.kernel_plan(shape, win, pads, bwd, dtype)
         if want != got:
             raise AssertionError(f"maxpool2d_s1 plan at {shape} {win} "
-                                 f"{pads} bwd={bwd}: the library's {got}, "
-                                 f"the mirror's {want}")
+                                 f"{pads} bwd={bwd} {dtype}: the library's "
+                                 f"{got}, the mirror's {want}")
         if want["path"] == "planes":
             how = f"planes, {want['planes']} a group"
         elif want["path"] == "bands":
@@ -1109,8 +1113,9 @@ def pool_s1_plan_line(ops, shape, win, pads):
             how += (f" ({want['threads']} threads, {want['groups']} groups, "
                     f"{want['stages']} stages, {want['smem_bytes']} B)")
         plans.append(how)
-    return (f"maxpool2d_s1 plan {shape} {win[0]}x{win[1]} pads {pads}: "
-            f"forward {plans[0]}; backward {plans[1]}")
+    form = " bf16" if dtype == torch.bfloat16 else ""
+    return (f"maxpool2d_s1{form} plan {shape} {win[0]}x{win[1]} pads "
+            f"{pads}: forward {plans[0]}; backward {plans[1]}")
 
 
 def pool_s1_times(torch, ops, flush, g, shape, win, pads):
@@ -2872,7 +2877,8 @@ def rnn_run(torch, device, init_tree, tokens, dictionary, end_trigger,
     ``seqLength`` 8 in batches of 4, ``SimpleRNN`` with ``bptt`` (or
     ``build(vocab, device)``),
     ``TimeDistributedCriterion(ClassNLLCriterion(), size_average=True)``,
-    SGD at lr 0.1, one iteration a dispatch.  An optimizer ready to
+    SGD at lr 0.1, one iteration a dispatch, through ``Optimizer(...)``
+    (a ``LocalOptimizer`` for this dataset).  An optimizer ready to
     run."""
     from bigdl_tpu_torch.dataset import DataSet, SampleToBatch
     from bigdl_tpu_torch.dataset.text import (LabeledSentenceToSample,
@@ -2880,7 +2886,7 @@ def rnn_run(torch, device, init_tree, tokens, dictionary, end_trigger,
     from bigdl_tpu_torch.models.rnn import SimpleRNN
     from bigdl_tpu_torch.nn import (ClassNLLCriterion,
                                     TimeDistributedCriterion)
-    from bigdl_tpu_torch.optim import LocalOptimizer
+    from bigdl_tpu_torch.optim import Optimizer
     from bigdl_tpu_torch.utils.table import T
 
     vocab = dictionary.vocab_size() + 1
@@ -2891,7 +2897,7 @@ def rnn_run(torch, device, init_tree, tokens, dictionary, end_trigger,
     model = (SimpleRNN(vocab, RHIDDEN, vocab, bptt_truncate=bptt,
                        device=device) if build is None
              else build(vocab, device)).load_params(init_tree)
-    opt = LocalOptimizer(model, ds, TimeDistributedCriterion(
+    opt = Optimizer(model, ds, TimeDistributedCriterion(
         ClassNLLCriterion(), size_average=True), device=device)
     opt.set_state(T(learningRate=RLR)).set_end_when(end_trigger)
     return opt.set_iterations_per_dispatch(1)
@@ -7633,7 +7639,17 @@ BENCH_DISPATCHES = 3
 BF16_FORMS = ("maxpool2d_forward", "maxpool2d_backward",
               "maxpool2d_s1_forward", "maxpool2d_s1_backward",
               "lrn_forward", "lrn_backward", "bilstm_forward",
-              "bilstm_backward", "lstm_scan")
+              "bilstm_backward", "lstm_scan", "rnn_forward", "rnn_backward")
+# the rnn's bf16-weight form (Recurrent(RnnCell) under BF16_COMPUTE):
+# (T, D, B, H, from h0, activation kind) at SimpleRNN's bptt-8 sequence
+# from zeros and from an h0, and at (500, 2, 128, 128) under tanh (no
+# pre-pass) and sigmoid (the pre-pass on the bf16 weight)
+BF16_RNN_CASES = [(RSEQ, 1, RBATCH, RHIDDEN, False, "tanh"),
+                  (RSEQ, 1, RBATCH, RHIDDEN, True, "tanh"),
+                  (TSEQ, 2, TBATCH, THIDDEN, False, "tanh"),
+                  (TSEQ, 2, TBATCH, THIDDEN, True, "sigmoid")]
+# SimpleRNN under BF16_COMPUTE: steps of examples/train_rnn.py's defaults
+BF16_RNN_STEPS = 8
 
 
 def bench_configs():
@@ -7716,12 +7732,49 @@ def bf16_tied(torch, g, shape):
             .div_(2).bfloat16())
 
 
+def pool_bwd_in_gather_order(torch, arg, gy, win, st, pads, xshape):
+    """The any-stride pool's backward as the gather kernels sum it (and
+    the one-thread-an-element bf16 kernel before the staged one did):
+    each dx the g of its covering outputs whose argmax names it, added
+    in (oh, ow) order in f32 from 0.0f, rounded to g's dtype once.  For
+    one element the outputs in (oh, ow) order are its taps (i, j) in
+    descending order, so the windows' taps are added tap by tap from
+    (kh - 1, kw - 1) down, each onto the frame's strided view (+0.0f
+    where the argmax names another tap: x + 0.0f == x)."""
+    (kh, kw), (sh, sw) = win, st
+    (plh, phh), (plw, phw) = pads
+    n, c, h, w = xshape
+    oh, ow = arg.shape[2:]
+    frame = torch.zeros(n, c, h + plh + phh + kh, w + plw + phw + kw,
+                        device=gy.device)
+    g32 = gy.float()
+    for i in reversed(range(kh)):
+        for j in reversed(range(kw)):
+            frame[:, :, i:i + sh * oh:sh, j:j + sw * ow:sw] += torch.where(
+                arg == i * kw + j, g32, torch.zeros_like(g32))
+    return frame[:, :, plh:plh + h, plw:plw + w].to(gy.dtype)
+
+
+def pool_bwd_plan_line(ops, shape, win, st, pads, dtype):
+    """The plan the built library takes for the any-stride pool's
+    backward of ``dtype`` at ``shape``; one line."""
+    p = ops.maxpool.kernel_plan(shape, win, st, pads, dtype)
+    how = (f"staged, {p['planes']} planes a block, {p['rows']} rows a tile, "
+           f"{p['smem_bytes']} B" if p["staged"] else "through L1")
+    loop = f"{p['mr']}x{p['mc']} unrolled" if p["mr"] else "any window"
+    return (f"maxpool2d_backward {str(dtype).replace('torch.', '')} plan "
+            f"{shape} {win[0]}x{win[1]} s{st[0]}: {how}, {p['threads']} "
+            f"threads, {loop}"), p
+
+
 def check_pool_bf16(torch, ops, g, shape, win, st, pads):
     """The bf16 form of the any-stride pool against its plain version on
     tied inputs: y, the primal y and the argmax bit for bit; dx bit for
-    bit where windows do not overlap, within one bf16 ulp where they do;
-    the autograd path the wrappers' bits.  Returns (forward error,
-    backward error)."""
+    bit where windows do not overlap, within one bf16 ulp where they do,
+    and bit for bit against the sum in the gather's (oh, ow) order (what
+    the one-thread-an-element bf16 kernel wrote); the autograd path the
+    wrappers' bits; the backward's plan printed (staged).  Returns
+    (forward error, backward error)."""
     x = bf16_tied(torch, g, shape)
     y, arg = ops.maxpool2d_forward(x, win, st, pads)
     y_only = ops.maxpool2d_forward(x, win, st, pads, with_argmax=False)
@@ -7741,6 +7794,14 @@ def check_pool_bf16(torch, ops, g, shape, win, st, pads):
     overlap = win[0] > st[0] or win[1] > st[1]
     e_b = held_ulps(torch, name + " dx", dx, dx_ref, 1 if overlap else 0)
     held_ulps(torch, name + " autograd dx", xg.grad, dx, 0)
+    held_ulps(torch, name + " dx against the (oh, ow)-order sum", dx,
+              pool_bwd_in_gather_order(torch, arg, gy, win, st, pads,
+                                       shape), 0)
+    line, plan = pool_bwd_plan_line(ops, shape, win, st, pads,
+                                    torch.bfloat16)
+    print(line)
+    if not plan["staged"]:
+        raise AssertionError(f"{name}: the backward is not staged")
     return e_f, e_b
 
 
@@ -7780,8 +7841,10 @@ def pool_times_bf16(torch, ops, flush, g, shape, win, st, pads):
 def check_pool_s1_bf16(torch, ops, g, shape, win, pads):
     """The stride-1 pool's bf16 form against its plain version on tied
     inputs: y bit for bit (and the any-stride form's y); dx within one
-    bf16 ulp (3x3 windows overlap); the autograd path the wrappers'
-    bits."""
+    bf16 ulp (3x3 windows overlap); y and dx bit for bit against the
+    unstaged bf16 kernels (the form's kernels before it was staged); the
+    autograd path the wrappers' bits; the plan (the mirror held to the
+    library's) staged."""
     x = bf16_tied(torch, g, shape)
     y = ops.maxpool2d_s1_forward(x, win, pads)
     y_ref = ops.maxpool2d_s1_forward_reference(x, win, pads)
@@ -7797,6 +7860,15 @@ def check_pool_s1_bf16(torch, ops, g, shape, win, pads):
     held_ulps(torch, name + " any-stride y", y_any, y, 0)
     e_b = held_ulps(torch, name + " dx", dx, dx_ref, 1)
     held_ulps(torch, name + " autograd dx", xg.grad, dx, 0)
+    s1 = ops.maxpool_s1
+    held_ulps(torch, name + " y against the unstaged kernel", y,
+              s1.unstaged_forward(x, win, pads), 0)
+    held_ulps(torch, name + " dx against the unstaged kernel", dx,
+              s1.unstaged_backward(x, gy, win, pads), 0)
+    print(pool_s1_plan_line(ops, shape, win, pads, torch.bfloat16))
+    for bwd in (False, True):
+        if s1.plan(shape, win, pads, bwd, torch.bfloat16)["path"] == "direct":
+            raise AssertionError(f"{name}: the bf16 plan is unstaged")
     return e_f, e_b
 
 
@@ -8006,12 +8078,172 @@ def bf16_layer_times(torch, flush, g):
         bt.set_policy(bt.FP32)
 
 
+def check_rnn_bf16(torch, ops, g, case):
+    """The rnn's bf16-weight form (zx f32, wht bf16) against its plain
+    version by ``held`` (within the f32 tolerances, or no further from a
+    float64 run on the same bf16 weight, exact in float64, than twice the
+    plain version): the forward's h, the backward's dzx and the weight
+    gradient; the autograd path is the wrappers' bits, its weight
+    gradient cast to bf16."""
+    t, nd, b, h, with_h0, kind = case
+    act = ops.Act(kind)
+    zx, wht, gout, h0 = rnn_inputs(torch, g, t, nd, b, h, with_h0)
+    wht = wht.bfloat16()
+    hs = ops.rnn_forward(zx, wht, h0, act)
+    dzx = ops.rnn_backward(wht, hs, gout, act, zx, h0)
+    dwh = ops.rnn_dwh(hs, dzx, h0)
+    zg, wg = zx.clone().requires_grad_(), wht.clone().requires_grad_()
+    y = ops.rnn_recurrence(zg, wg, h0, act)
+    y.backward(gout)
+    torch.cuda.synchronize()
+    if not (torch.equal(y, hs) and torch.equal(zg.grad, dzx)
+            and torch.equal(wg.grad, dwh.bfloat16())
+            and hs.dtype == dzx.dtype == dwh.dtype == torch.float32):
+        raise AssertionError(f"rnn bf16 {case}: the autograd path differs "
+                             f"from the wrappers")
+    d64 = lambda v: None if v is None else v.double()
+    z64, w64, h64, g64 = zx.double(), wht.double(), hs.double(), gout.double()
+    name = f"rnn bf16 {case}"
+    return {"h": held(torch, name + " h", hs,
+                      ops.rnn_forward_reference(zx, wht, h0, act),
+                      ops.rnn_forward_reference(z64, w64, d64(h0), act),
+                      BILSTM_FWD_TOL),
+            "dzx": held(torch, name + " dzx", dzx,
+                        ops.rnn_backward_reference(wht, hs, gout, act, zx, h0),
+                        ops.rnn_backward_reference(w64, h64, g64, act, z64,
+                                                   d64(h0)),
+                        BILSTM_BWD_TOL),
+            "dwh": held(torch, name + " dwh", dwh,
+                        ops.rnn_dwh_reference(hs, dzx, h0),
+                        ops.rnn_dwh_reference(h64, dzx.double(), d64(h0)),
+                        BILSTM_BWD_TOL)}
+
+
+def rnn_times_bf16(torch, ops, flush, g, case):
+    """The rnn bf16 form's forward and backward rows at ``case`` (tanh,
+    from zeros).  Bounds: forward zx (4 bytes) and wht (2) read, hs (4)
+    written; backward wht, hs and gout read, dzx written; the recurrent
+    product at the bf16 dense peak (tanh left out)."""
+    zx, wht, gout, _ = rnn_inputs(torch, g, *case, False)
+    wht = wht.bfloat16()
+    hs = ops.rnn_forward(zx, wht)
+    n_h, n_w = hs.numel(), wht.numel()
+    flops = 2 * n_h * case[3]
+    out = {}
+    for name, kernel, plain, nbytes in (
+            ("forward", lambda: ops.rnn_forward(zx, wht),
+             lambda: ops.rnn_forward_reference(zx, wht),
+             4 * 2 * n_h + 2 * n_w),
+            ("backward", lambda: ops.rnn_backward(wht, hs, gout),
+             lambda: ops.rnn_backward_reference(wht, hs, gout),
+             4 * 3 * n_h + 2 * n_w)):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS * 1e3
+        out[name] = {"ms": time_ms(torch, kernel, flush),
+                     "plain_ms": time_ms(torch, plain, flush, reps=5),
+                     "queued_ms": time_queued_ms(torch, kernel),
+                     "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+                     "bytes": nbytes,
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations"}
+    return out
+
+
+def rnn_bf16_layer_times(torch, flush, g):
+    """The yardstick the port never calls: cuDNN's ``nn.RNN`` (tanh) in
+    bf16 at the classifier's width (batch 128, T 500, 200 -> 128), with
+    the port's ``Recurrent(RnnCell)`` weights, beside that layer under
+    BF16_COMPUTE (the rnn's bf16-weight form): forward (autograd on) and
+    backward ms, and how far apart their outputs are."""
+    from bigdl_tpu_torch import tensor as bt
+    from bigdl_tpu_torch.nn import Recurrent, RnnCell
+    from bigdl_tpu_torch.utils.random import generator
+
+    port = Recurrent().add(RnnCell(TEMBED, THIDDEN, device="cuda",
+                                   generator=generator(5)))
+    lib = torch.nn.RNN(TEMBED, THIDDEN, nonlinearity="tanh",
+                       batch_first=True).cuda()
+    with torch.no_grad():
+        cell = port.cell
+        for mine, theirs in ((cell.i2h, "weight_ih_l0"),
+                             (cell.h2h, "weight_hh_l0"),
+                             (cell.bias_i, "bias_ih_l0"),
+                             (cell.bias_h, "bias_hh_l0")):
+            getattr(lib, theirs).copy_(mine)
+    lib = lib.bfloat16()
+    lib.flatten_parameters()   # else cuDNN compacts the weights every call
+    x = torch.randn(TBATCH, TSEQ, TEMBED, generator=g, device="cuda")
+    gy = torch.randn(TBATCH, TSEQ, THIDDEN, generator=g, device="cuda")
+    xb, gb = x.bfloat16().requires_grad_(), gy.bfloat16()
+    xp = x.clone().requires_grad_()
+    bt.set_policy(bt.BF16_COMPUTE)
+    try:
+        yl, yp = lib(xb)[0], port(xp)
+        return {"same_layer_diff": float((yl.float() - yp).detach().abs()
+                                         .max()),
+                "library_fwd_ms": time_ms(torch, lambda: lib(xb), flush),
+                "port_fwd_ms": time_ms(torch, lambda: port(xp), flush),
+                "library_bwd_ms": time_ms(torch, lambda: torch.autograd.grad(
+                    yl, [xb, *lib.parameters()], gb, retain_graph=True),
+                    flush),
+                "port_bwd_ms": time_ms(torch, lambda: torch.autograd.grad(
+                    yp, [xp, *port.parameters()], gy, retain_graph=True),
+                    flush)}
+    finally:
+        bt.set_policy(bt.FP32)
+
+
+def phase_rnn_bf16(torch, ops, g, flush):
+    """The rnn's bf16-weight form at BF16_RNN_CASES by ``check_rnn_bf16``,
+    each case's plans (the mirror held to the library's), H one past
+    MAX_HIDDEN refused on a bf16 weight, the rows at (500, 2, 128, 128)
+    with cuDNN's bf16 ``nn.RNN`` as the layer's yardstick; returns
+    ({row name: row}, {row name: max_abs_err})."""
+    from bigdl_tpu_torch.ops import rnn
+
+    errs = {case: check_rnn_bf16(torch, ops, g, case)
+            for case in BF16_RNN_CASES}
+    print_errs("rnn bf16", errs)
+    for t, nd, b, h, *_ in BF16_RNN_CASES:
+        for cell, bwd in (("RnnFwdBf16", False), ("RnnBwdBf16", True)):
+            cluster_plan_line(f"rnn bf16 {(t, nd, b, h)} {cell}", "rnn_bf16",
+                              cell,
+                              rnn.plan(nd, b, h, bwd, torch.bfloat16),
+                              rnn.kernel_plan(nd, b, h, bwd, torch.bfloat16),
+                              nd, b)
+    h = rnn.MAX_HIDDEN + 1
+    refused(torch, f"rnn bf16 H={h}", lambda: ops.rnn_forward(
+        torch.zeros(2, 1, 3, h, device="cuda"),
+        torch.zeros(1, h, h, device="cuda", dtype=torch.bfloat16)))
+    full = (TSEQ, 2, TBATCH, THIDDEN)
+    rows = rnn_times_bf16(torch, ops, flush, g, full)
+    layer = rnn_bf16_layer_times(torch, flush, g)
+    for name, key in (("forward", "fwd"), ("backward", "bwd")):
+        rows[name]["layer_library_ms"] = layer[f"library_{key}_ms"]
+        rows[name]["layer_port_ms"] = layer[f"port_{key}_ms"]
+    print_rows("rnn_bf16", full, rows)
+    print(f"rnn bf16 layer (128, 500, 200) -> (128, 500, 128): port "
+          f"Recurrent(RnnCell) under BF16_COMPUTE forward "
+          f"{layer['port_fwd_ms']:.5f} ms, backward "
+          f"{layer['port_bwd_ms']:.5f} ms; cuDNN bf16 nn.RNN forward "
+          f"{layer['library_fwd_ms']:.5f} ms, backward "
+          f"{layer['library_bwd_ms']:.5f} ms; outputs "
+          f"{layer['same_layer_diff']:.3e} apart (cuDNN rounds its "
+          f"projection and h to bf16)")
+    return ({f"rnn_{name}": row for name, row in rows.items()},
+            {"rnn_forward": max(r["h"]["err"] for r in errs.values()),
+             "rnn_backward": max(r["dzx"]["err"] for r in errs.values())})
+
+
 def phase_bf16_kernels(torch, ops):
-    """The bf16 forms of the pool, stride-1 pool, LRN and LSTM kernels
-    against their plain versions at the shapes the six configurations
-    give them, timed (L2 flushed, median of 25) beside their bounds, the
-    plain versions and the library calls; H one past MAX_HIDDEN refused
-    on a bf16 weight too."""
+    """The bf16 forms of the pool, stride-1 pool, LRN, LSTM and RNN
+    kernels against their plain versions at the shapes the six
+    configurations (and SimpleRNN) give them, the staged pools also bit
+    for bit against the outputs of the kernels they replaced (the
+    unstaged stride-1 kernels, the (oh, ow)-order sum) with their plans
+    printed, timed (L2 flushed,
+    median of 25) beside their bounds, the plain versions and the library
+    calls; H one past MAX_HIDDEN refused on a bf16 weight too."""
     from bigdl_tpu_torch.ops import bilstm
 
     g = torch.Generator(device="cuda").manual_seed(19)
@@ -8028,10 +8260,11 @@ def phase_bf16_kernels(torch, ops):
             print_pool_row(f"maxpool2d_{name}_bf16", case, row)
             step_sum(sums, f"maxpool2d_{name}", row, 1)
             rows.setdefault(f"maxpool2d_{name}", row)   # the first: 3x3 s2
-    for *case, n in INCEPTION_S1_POOLS:
+    for case in [c[:3] for c in INCEPTION_S1_POOLS] + [INCEPTION_V2_S1]:
         e_f, e_b = check_pool_s1_bf16(torch, ops, g, *case)
         errs["maxpool2d_s1_forward"].append(e_f)
         errs["maxpool2d_s1_backward"].append(e_b)
+    for *case, n in INCEPTION_S1_POOLS:
         for name, row in zip(("forward", "backward"),
                              pool_s1_times_bf16(torch, ops, flush, g, *case)):
             print_pool_row(f"maxpool2d_s1_{name}_bf16",
@@ -8110,6 +8343,10 @@ def phase_bf16_kernels(torch, ops):
           f"{rows['lstm_scan']['ms']:.5f} plain_ms="
           f"{rows['lstm_scan']['plain_ms']:.5f} bound_ms="
           f"{rows['lstm_scan']['bound_ms']:.5f}")
+    rnn_rows, rnn_errs = phase_rnn_bf16(torch, ops, g, flush)
+    rows |= rnn_rows
+    errs["rnn_forward"] = [rnn_errs["rnn_forward"]]
+    errs["rnn_backward"] = [rnn_errs["rnn_backward"]]
     errs["bilstm_forward"] = [max(max(r["h"]["err"], r["c"]["err"])
                                   for r in rec_errs.values())]
     errs["bilstm_backward"] = [max(r["dzx"]["err"]
@@ -8124,11 +8361,14 @@ def phase_bf16_kernels(torch, ops):
              "lrn_forward": ("lrn.cu", 408), "lrn_backward": ("lrn.cu", 408),
              "bilstm_forward": ("bilstm.cu", 606),
              "bilstm_backward": ("bilstm.cu", 631),
-             "lstm_scan": ("bilstm.cu", 148)}
+             "lstm_scan": ("bilstm.cu", 148),
+             "rnn_forward": ("rnn_bf16.cu", 948),
+             "rnn_backward": ("rnn_bf16.cu", 969)}
     print(f"bf16 forms: {len(BF16_S2_POOLS)} any-stride pools, "
-          f"{len(INCEPTION_S1_POOLS)} stride-1 pools, "
-          f"{len(INCEPTION_LRNS)} LRNs, {len(cases)} recurrences and "
-          f"lstm_scan held; max_abs_err "
+          f"{len(INCEPTION_S1_POOLS) + 1} stride-1 pools, "
+          f"{len(INCEPTION_LRNS)} LRNs, {len(cases)} LSTM recurrences, "
+          f"lstm_scan and {len(BF16_RNN_CASES)} RNN recurrences held; "
+          f"max_abs_err "
           + ", ".join(f"{n} {max(errs[n]):.3e}" for n in where))
     return [{"name": bf16_name(name), "route": "cuda", "ok": True,
              "source": src + where[name][0],
@@ -8334,6 +8574,49 @@ def bf16_vs_cpu(torch, cfg, init):
     return diff
 
 
+def simple_rnn_bf16(torch, ops):
+    """examples/train_rnn.py's SimpleRNN at the smoke's defaults (hidden
+    40, batch 4, seqLength 8, bptt 4) under BF16_COMPUTE: BF16_RNN_STEPS
+    steps through ``Optimizer(...).optimize()``, each two chunks of the
+    rnn's bf16-weight form (the launch counts say so: ``rnn_*_bf16``, the
+    f32 forms none), and RCHECK_STEPS steps against the CPU under the
+    same policy through ``held_vs_cpu``.  Returns the launch counts."""
+    from bigdl_tpu_torch import tensor as bt
+    from bigdl_tpu_torch.models.rnn import SimpleRNN
+    from bigdl_tpu_torch.nn.module import export_params
+    from bigdl_tpu_torch.optim import max_iteration
+    from bigdl_tpu_torch.utils.random import generator
+
+    tokens, dictionary, vocab = rnn_data(rnn_corpus(RSENTENCES))
+    init = export_params(SimpleRNN(vocab, RHIDDEN, vocab, RBPTT, device="cpu",
+                                   generator=generator(0)))
+    run = lambda device, steps: rnn_run(torch, device, init, tokens,
+                                        dictionary, max_iteration(steps))
+    bt.set_policy(bt.BF16_COMPUTE)
+    try:
+        run("cuda", 2).optimize()     # warm-up
+        opt = run("cuda", BF16_RNN_STEPS)
+        _, counts, wall = run_path(torch, ops, opt.optimize)
+        diff = card_vs_cpu(torch, init,
+                           lambda device: run(device, RCHECK_STEPS))
+    finally:
+        bt.set_policy(bt.FP32)
+    steps = BF16_RNN_STEPS
+    only_counts("bf16 SimpleRNN", counts, {
+        "fused_sgd": steps, "rnn_forward_bf16": 2 * steps,
+        "rnn_backward_bf16": 2 * steps, "rnn_dwh": 2 * steps})
+    losses = [l for _, l in opt.loss_log]
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"bf16 SimpleRNN losses: {losses}")
+    print(f"bf16 SimpleRNN (Recurrent(RnnCell), zx f32, wht bf16) at bptt "
+          f"{RBPTT}: {steps} steps in {wall:.4f} s ({wall / steps * 1e3:.4f} "
+          f"ms/step); losses {[round(l, 6) for l in losses]}; launches "
+          f"{ops_nonzero(counts)}")
+    print_vs_cpu("bf16 simple_rnn", RBATCH, diff, PARAM_ATOL)
+    held_vs_cpu("bf16 SimpleRNN", diff)
+    return counts
+
+
 def phase_bf16(torch, ops, profile: bool):
     """bench.py's six configurations (bench.py:286-364) at their full
     width and batch, from the port's models, trained through
@@ -8341,13 +8624,16 @@ def phase_bf16(torch, ops, profile: bool):
     (bench.py:420) at bench.py's steps a dispatch, each dispatch after the
     first one CUDA graph: ms a step, records a second, device busy, idle
     share and peak memory each way; under BF16_COMPUTE the launch counts
-    show each pool, LRN and recurrence ran its bf16 form (fused_sgd f32);
+    show each pool, LRN and recurrence ran its bf16 form (fused_sgd f32;
+    the stride-1 pool's and the s2 backward's staged kernels, whose plans
+    ``phase_bf16_kernels`` held at these shapes);
     the first step's loss within BF16_LOSS_RTOL of FP32's from the same
     parameters and batch; each configuration under BF16_COMPUTE against
     the CPU (``bf16_vs_cpu``).  Then the LSTM classifier's single
     direction (``Recurrent(LSTMCell)``, zx f32) 2 steps and one validation
     batch under BF16_COMPUTE: the recurrence's bf16-weight form and
-    ``lstm_scan``'s."""
+    ``lstm_scan``'s; then SimpleRNN under BF16_COMPUTE
+    (``simple_rnn_bf16``): the rnn's bf16-weight form."""
     from bigdl_tpu_torch import tensor as bt
     from bigdl_tpu_torch.optim import max_iteration
     from bigdl_tpu_torch.utils.random import generator
@@ -8418,6 +8704,7 @@ def phase_bf16(torch, ops, profile: bool):
           f"{[round(l, 6) for _, l in opt.loss_log]}; launches "
           f"{ops_nonzero(counts)}")
     by_path["bf16 LSTM classifier"] = counts
+    by_path["bf16 SimpleRNN"] = simple_rnn_bf16(torch, ops)
     return by_path, {}
 
 
@@ -8596,13 +8883,12 @@ def main(argv) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} device "
           f"{torch.cuda.get_device_name(0)}")
+    # one nvcc a library, all started now; the phases run on the first
+    # libraries while the slower compile, each load waiting for its own
     t0 = time.perf_counter()
-    built = _build.build()
-    print(f"kernel build: {len(built)} built in "
-          f"{time.perf_counter() - t0:.2f} s (wall, parallel)")
-    for name, info in built.items():
-        for line in ptxas_lines(info["log"]):
-            print(f"  {name}: {line}")
+    _build.start()
+    print(f"kernel build: {len(_build.SOURCES)} libraries started "
+          f"(parallel; a phase waits for the ones it loads)")
 
     only = next((ONLY[a] for a in argv if a in ONLY), None)
     rows, by_path, graph_ran, failed = [], {}, {}, []
@@ -8626,6 +8912,14 @@ def main(argv) -> int:
         else:
             by_path |= out[0]
             graph_ran |= out[1]
+    built = _build.build()   # any library no phase loaded
+    print(f"kernel build: {len(built)} left to wait for after the phases; "
+          f"every library built from the checkout's sources "
+          f"({time.perf_counter() - t0:.1f} s since the build started)")
+    for name in _build.SOURCES:
+        log = _build.target(name).with_suffix(".log")
+        for line in ptxas_lines(log.read_text() if log.exists() else ""):
+            print(f"  {name}: {line}")
     for row in rows:
         row["launches_by_path"] = {path: counts.get(row["name"], 0)
                                    for path, counts in by_path.items()}

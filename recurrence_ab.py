@@ -1,7 +1,7 @@
 """A/B of the port's recurrence and paged-attention kernels between two
 trees, on one card.
 
-    python3 recurrence_ab.py [--recurrence] PARENT_TREE CHANGE_TREE
+    python3 recurrence_ab.py [--recurrence | --pools] PARENT_TREE CHANGE_TREE
 
 Each tree is a checkout of the repository (unpack the other one with
 ``git archive`` into a directory that ``.gitignore`` lists).  The trees
@@ -39,7 +39,9 @@ and the pool backward's dx at each timed shape, and the stride-1 pool's
 y and dx at each of its shapes, are digested (sha256); their largest
 differences between the trees are printed, and whether each tree's bits
 repeat across its two turns.  ``--recurrence`` runs the recurrence
-wrappers alone (no pool, attention or serving).  Prints the card's name
+wrappers alone (no pool, attention or serving).  ``--pools`` runs the
+pool wrappers alone, in both forms: the timed shapes above with f32 and
+bf16 tensors (digests and times of each form).  Prints the card's name
 and power limit first; exits 1 if a turn fails, a tree's outputs do not
 repeat, or an rnn, bilstm, gru or ``lstm_scan`` output or a pool digest
 differs from the parent's in a bit.
@@ -80,7 +82,11 @@ PAGED = {"full": [[-1]] + [[int(round(1023 * i / 6))] for i in range(7)],
 
 
 def _digest(v):
-    return hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()
+    """The sha256 of a tensor's bytes (any dtype, bf16 too)."""
+    import torch
+
+    raw = v.detach().cpu().contiguous().view(-1).view(torch.uint8)
+    return hashlib.sha256(raw.numpy().tobytes()).hexdigest()
 
 
 def _ms(torch, fn, flush, reps=25, warm=3):
@@ -216,6 +222,57 @@ def serving(torch, model, kv_quant):
     return out
 
 
+def pool_cases(torch, ops, r, dtypes):
+    """The pool wrappers' output digests and timed calls at POOLS (the
+    s2 backward) and S1_POOLS (both stride-1 passes), on tied inputs of
+    each dtype (the bf16 ones named so)."""
+    digests, calls = {}, {}
+    for dtype in dtypes:
+        form = "" if dtype == torch.float32 else " bf16"
+        for shape in POOLS:
+            x = r(*shape).mul_(2).round_().div_(2).to(dtype)   # ties
+            geom = ((3, 3), (2, 2), ((0, 1), (0, 1)))
+            _, arg = ops.maxpool2d_forward(x, *geom)
+            gy = r(*arg.shape).to(dtype)
+            call = (lambda arg=arg, gy=gy, geom=geom, shape=shape:
+                    ops.maxpool2d_backward(arg, gy, *geom, shape))
+            digests[f"maxpool2d_backward{form} dx {shape}"] = _digest(call())
+            calls[f"maxpool2d_backward{form} {shape}"] = call
+        for shape in S1_POOLS:
+            x = r(*shape).mul_(2).round_().div_(2).to(dtype)   # ties
+            y = ops.maxpool2d_s1_forward(x, *S1_GEOM)
+            gy = r(*y.shape).to(dtype)
+            digests[f"maxpool2d_s1{form} y {shape}"] = _digest(y)
+            digests[f"maxpool2d_s1{form} dx {shape}"] = _digest(
+                ops.maxpool2d_s1_backward(x, gy, *S1_GEOM))
+            calls[f"maxpool2d_s1_forward{form} {shape}"] = (
+                lambda x=x: ops.maxpool2d_s1_forward(x, *S1_GEOM))
+            calls[f"maxpool2d_s1_backward{form} {shape}"] = (
+                lambda x=x, gy=gy: ops.maxpool2d_s1_backward(x, gy,
+                                                             *S1_GEOM))
+    return digests, calls
+
+
+def pool_turn(tree, keep):
+    """One tree's pool times and digests in both forms (``--pools``)."""
+    sys.path.insert(0, tree)
+    import torch
+
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.utils.device import pin_fp32
+
+    pin_fp32(torch.device("cuda"))
+    g = torch.Generator(device="cuda").manual_seed(4)
+    digests, calls = pool_cases(
+        torch, ops, lambda *s: torch.randn(*s, generator=g, device="cuda"),
+        (torch.float32, torch.bfloat16))
+    torch.save({}, keep)
+    flush = torch.empty(64 * 2 ** 20, device="cuda")
+    times = {name: _ms(torch, fn, flush) for name, fn in calls.items()}
+    return {"ms": times, "top_us_per_call": [], "pool_digests": digests,
+            "gru_vs_float64": {}}
+
+
 def turn(tree, keep, recurrence_only=False):
     """One tree's times, top kernels and gru distances, as a dict; its
     bilstm, rnn, gru, lstm_scan and attention outputs saved to ``keep``
@@ -258,27 +315,8 @@ def turn(tree, keep, recurrence_only=False):
             kept[f"gru {label} {(t, nd, b, h)}"] = v.cpu()
             gru_vs_64[f"gru {label} {(t, nd, b, h)}"] = float(
                 (v.double() - ref).abs().max())
-    pool_digests, pool_calls = {}, {}
-    for shape in [] if recurrence_only else POOLS:
-        x = r(*shape).mul_(2).round_().div_(2)   # ties
-        geom = ((3, 3), (2, 2), ((0, 1), (0, 1)))
-        _, arg = ops.maxpool2d_forward(x, *geom)
-        gy = r(*arg.shape)
-        call = (lambda arg=arg, gy=gy, geom=geom, shape=shape:
-                ops.maxpool2d_backward(arg, gy, *geom, shape))
-        pool_digests[f"maxpool2d_backward dx {shape}"] = _digest(call())
-        pool_calls[f"maxpool2d_backward {shape}"] = call
-    for shape in [] if recurrence_only else S1_POOLS:
-        x = r(*shape).mul_(2).round_().div_(2)   # ties
-        y = ops.maxpool2d_s1_forward(x, *S1_GEOM)
-        gy = r(*y.shape)
-        pool_digests[f"maxpool2d_s1 y {shape}"] = _digest(y)
-        pool_digests[f"maxpool2d_s1 dx {shape}"] = _digest(
-            ops.maxpool2d_s1_backward(x, gy, *S1_GEOM))
-        pool_calls[f"maxpool2d_s1_forward {shape}"] = (
-            lambda x=x: ops.maxpool2d_s1_forward(x, *S1_GEOM))
-        pool_calls[f"maxpool2d_s1_backward {shape}"] = (
-            lambda x=x, gy=gy: ops.maxpool2d_s1_backward(x, gy, *S1_GEOM))
+    pool_digests, pool_calls = pool_cases(
+        torch, ops, r, () if recurrence_only else (torch.float32,))
     for t, nd, b, h in [FULL] + SIMPLE:
         zr, wr, go = r(t, nd, b, h), u(h, nd, h, h), r(t, nd, b, h)
         hr = ops.rnn_forward(zr, wr)
@@ -381,10 +419,12 @@ def turn(tree, keep, recurrence_only=False):
 
 def main(argv) -> int:
     if len(argv) == 4 and argv[0] == "--turn":
-        print(json.dumps(turn(argv[1], argv[2], argv[3] == "recurrence")))
+        print(json.dumps(pool_turn(argv[1], argv[2]) if argv[3] == "pools"
+                         else turn(argv[1], argv[2], argv[3] == "recurrence")))
         return 0
-    only = "--recurrence" in argv
-    argv = [a for a in argv if a != "--recurrence"]
+    mode = ("recurrence" if "--recurrence" in argv
+            else "pools" if "--pools" in argv else "all")
+    argv = [a for a in argv if a not in ("--recurrence", "--pools")]
     if len(argv) != 2:
         print(__doc__, file=sys.stderr)
         return 2
@@ -397,7 +437,7 @@ def main(argv) -> int:
     keep = [os.path.join(KEEP, f"turn{i}.pt") for i in range(4)]
     for i, tag in enumerate(("parent", "change", "change", "parent")):
         out = subprocess.run([sys.executable, __file__, "--turn", trees[tag],
-                              keep[i], "recurrence" if only else "all"],
+                              keep[i], mode],
                              capture_output=True, text=True, timeout=900)
         if out.returncode != 0:
             print(f"{tag} ({trees[tag]}) failed:\n{out.stderr}",

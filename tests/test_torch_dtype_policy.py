@@ -9,7 +9,8 @@ the two JAX tests of the policy's rewrites word for word; three steps of
 LeNet-5, the Bi-LSTM classifier and the Transformer classifier at small
 sizes; the routes the policy picks (the recurrence kernels only where
 the output dtype is f32, a CUDA graph keyed on the policy, ``Recurrent(
-RnnCell)`` refused under a reduced one); and the ``DistriOptimizer``
+RnnCell)`` on its kernel route under BF16_COMPUTE); and the
+``DistriOptimizer``
 under BF16_COMPUTE on two gloo ranks against ``LocalOptimizer``.
 
 The JAX side runs as its own tests run it on the CPU: the Mosaic pools
@@ -463,15 +464,57 @@ def test_bf16_act_takes_the_step_route_as_jax_does():
             assert rec.step_route_calls - before == stepped, (make, name)
 
 
-def test_rnn_cell_kernel_route_refused_under_a_reduced_policy():
+# Recurrent(RnnCell) under BF16_COMPUTE: the port's kernel route (its
+# bf16-weight form's plain version) for every kind and for truncated
+# chunks, against the JAX module with shared weights: the JAX kernel route
+# (interpreted) for Tanh at full BPTT, its lax.scan of ``_step`` for
+# another kind and for a truncated run.  The file's bf16 tolerances: the
+# step route sums the biases in another order than the kernel route (an
+# f32 rounding, which can flip a bf16 rounding of h at the product), and
+# its backward carries the cotangents through ``_step``'s bf16 casts (a
+# bf16 product's gradient is bf16) where the kernel keeps dz f32 and
+# rounds it at the product only: the outputs agree within ~1e-7, the
+# gradients of the step-route cases within ~3e-2 (i2h's), Tanh's within
+# ~6e-7.
+RNN_CELLS = {"tanh": (lambda: jnn.Tanh(), lambda: nn.Tanh(), 0),
+             "relu": (lambda: jnn.ReLU(), lambda: nn.ReLU(), 0),
+             "tanh_truncated": (lambda: jnn.Tanh(), lambda: nn.Tanh(), 2)}
+
+
+@pytest.mark.parametrize("case", sorted(RNN_CELLS))
+def test_rnn_cell_under_bf16_compute_matches_jax(monkeypatch, case):
+    from bigdl_tpu_torch.nn import recurrent as rec
+
+    monkeypatch.setattr(jax_recurrent, "_PALLAS_BILSTM", "interpret")
+    j_act, p_act, k = RNN_CELLS[case]
+    set_seed(5)
+    jm = jnn.Recurrent(bptt_truncate=k).add(
+        jnn.RnnCell(RNN_D, RNN_H, j_act()))
+    pm = nn.Recurrent(bptt_truncate=k).add(
+        nn.RnnCell(RNN_D, RNN_H, p_act(), device="cpu"))
+    before = rec.step_route_calls
+    res = run_pair(jm, pm, _x((RNN_B, RNN_T, RNN_D), 6), "BF16_COMPUTE",
+                   training=True)
+    assert rec.step_route_calls == before      # the kernel route, no step
+    check_pair(res, "BF16_COMPUTE")
+
+
+def test_rnn_cell_routes_under_each_policy():
+    """BF16_ACT takes the step route (its output bf16), as JAX does;
+    BF16_COMPUTE the kernel route with an f32 output and the bf16-weight
+    form; FP32 the f32 form."""
+    from bigdl_tpu_torch.nn import recurrent as rec
+
     m = nn.Recurrent().add(nn.RnnCell(3, 4, device="cpu"))
     x = torch.from_numpy(_x((2, 4, 3)))
-    with policy("BF16_COMPUTE"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-            m(x)
-    with policy("BF16_ACT"):
-        assert m(x).dtype == torch.bfloat16     # the step route, as JAX
-    assert m(x).dtype == torch.float32
+    for name, dtype, stepped in (("BF16_COMPUTE", torch.float32, 0),
+                                 ("BF16_ACT", torch.bfloat16, 1),
+                                 ("FP32", torch.float32, 0)):
+        before = rec.step_route_calls
+        with policy(name):
+            y = m(x)
+        assert y.dtype == dtype, name
+        assert rec.step_route_calls - before == stepped, name
 
 
 # -- the slice's gate: three steps of three models ---------------------------

@@ -177,7 +177,8 @@ def test_plan_mirrors_the_kernel_source():
     bulk copy's alignment and both shared-memory caps; and the source's
     plan takes the rules the mirror takes: whole planes where one plane's
     tasks and bytes fit, bands cut against the two caps in turn, taps of
-    one or two bytes, copies of the 16-byte cover of a run."""
+    one or two bytes, copies of the 16-byte cover of a run counted in
+    elements, buffers sized in the element's bytes."""
     src = (Path(maxpool_s1.__file__).parents[1] / "csrc"
            / "maxpool2d_s1.cu").read_text()
 
@@ -199,11 +200,14 @@ def test_plan_mirrors_the_kernel_source():
             "long long planes = kMaxThreads / tasks;",
             "const size_t caps[2] = {kSmemCap, kSmemMax};",
             "return taps <= 256 ? 1 : (taps <= 65536 ? 2 : 0);",
-            "return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & "
-            "(kAlign / 4 - 1));",
-            "return n > 0 ? (unsigned)((lead_of(src) + n + 3) / 4 * kAlign) "
-            ": 0u;",
-            "if (bytes) bulk_copy(buf, src - lead_of(src), bytes, bar);"):
+            "constexpr int kVec = kAlign / (int)sizeof(T);",
+            "return (int)((reinterpret_cast<uintptr_t>(p) & (kAlign - 1)) / "
+            "sizeof(T));",
+            "return n > 0 ? (unsigned)((lead_of(src) + n + kVec<T> - 1) / "
+            "kVec<T> *",
+            "if (bytes) bulk_copy(buf, src - lead_of(src), bytes, bar);",
+            "p->xbuf = round_up((long long)planes * p->xrows * W + v - 1, v);",
+            "p->smem = eb * (kStages * p->xbuf + 2 * p->obuf);"):
         assert line in src, line
     assert maxpool_s1._tap_bytes(16, 16) == 1
     assert maxpool_s1._tap_bytes(16, 17) == 2

@@ -152,11 +152,13 @@ def test_no_kernel_for_other_devices():
 
 
 def test_hidden_limit_mirrors_the_kernel_source():
-    """The wrapper's cells and sizes are csrc/rnn.cu's, on the cluster
-    plan of csrc/recurrence_cluster.cuh; the limit is the largest H whose
-    16-block cluster of one batch row fits a block's shared memory, at
-    least PR 5's 14,528, and every H up to it has a plan."""
-    src = (CSRC / "rnn.cu").read_text()
+    """The wrapper's cells and sizes are csrc/rnn.cu's (its cells in
+    rnn_cells.cuh, which rnn_bf16.cu shares), on the cluster plan of
+    csrc/recurrence_cluster.cuh; the limit is the largest H whose 16-block
+    cluster of one batch row fits a block's shared memory, at least PR
+    5's 14,528, and every H up to it has a plan."""
+    src = "".join((CSRC / f).read_text() for f in ("rnn.cu",
+                                                     "rnn_cells.cuh"))
     assert '#include "recurrence_cluster.cuh"' in src
     assert '#include "recurrence_block.cuh"' not in src
     # the forward's one input is zx; the backward's two are gout and h
@@ -281,19 +283,23 @@ def test_weight_gradient_slices(t, b, k, j, nd, want):
 
 
 @pytest.mark.parametrize("header,moved", [
-    ("recurrence_dwh.cuh", {"bilstm", "rnn", "gru"}),
-    ("recurrence_cluster.cuh", {"rnn", "bilstm", "gru"}),
+    ("recurrence_dwh.cuh", {"bilstm", "rnn", "rnn_bf16", "gru"}),
+    ("recurrence_cluster.cuh", {"rnn", "rnn_bf16", "bilstm", "gru"}),
+    ("rnn_cells.cuh", {"rnn", "rnn_bf16"}),
 ])
 def test_build_key_follows_included_headers(tmp_path, monkeypatch, header,
                                             moved):
     """A library's cache key hashes its source and every local header it
     includes: editing recurrence_dwh.cuh or recurrence_cluster.cuh moves
-    the keys of the three recurrence libraries, and nothing else."""
+    the keys of the recurrence libraries (the rnn's two forms among them),
+    rnn_cells.cuh the rnn's two, and nothing else."""
     csrc = tmp_path / "csrc"
     shutil.copytree(CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
-    assert [p.name for p in _build.sources("rnn")] == [
-        "rnn.cu", "recurrence_cluster.cuh", "recurrence_dwh.cuh"]
+    for name in ("rnn", "rnn_bf16"):
+        assert [p.name for p in _build.sources(name)] == [
+            f"{name}.cu", "rnn_cells.cuh", "recurrence_cluster.cuh",
+            "recurrence_dwh.cuh"]
     assert [p.name for p in _build.sources("bilstm")] == [
         "bilstm.cu", "recurrence_cluster.cuh", "recurrence_dwh.cuh"]
     assert [p.name for p in _build.sources("gru")] == [
@@ -303,6 +309,32 @@ def test_build_key_follows_included_headers(tmp_path, monkeypatch, header,
     path.write_text(path.read_text() + "\n// edited\n")
     after = {n: _build.target(n) for n in _build.SOURCES}
     assert {n for n in _build.SOURCES if before[n] != after[n]} == moved
+
+
+def test_start_builds_in_the_background_and_build_waits(tmp_path,
+                                                       monkeypatch):
+    """``_build.start`` starts one compiler a library and returns at once;
+    ``build`` (which ``load`` calls) of a library waits for its own
+    compiler and leaves the others running; ``build()`` collects the
+    rest, and a library already built starts nothing."""
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\nwhile [ $# -gt 0 ]; do\n"
+                    '  if [ "$1" = "-o" ]; then out="$2"; fi; shift\n'
+                    'done\nsleep 0.5\necho built > "$out"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "build_dir", lambda: tmp_path / "build")
+    names = ["rnn", "rnn_bf16", "gru"]
+    _build.start(names)
+    assert set(_build._PENDING) == set(names)
+    assert not any(_build.target(n).exists() for n in names)
+    assert set(_build.build(["rnn"])) == {"rnn"}
+    assert _build.target("rnn").exists()
+    assert set(_build._PENDING) == {"rnn_bf16", "gru"}
+    assert set(_build.build(names)) == {"rnn_bf16", "gru"}
+    assert not _build._PENDING
+    _build.start(names)
+    assert not _build._PENDING and _build.build(names) == {}
 
 
 # every kind of ops.Act with parameters, beside an independent float64
@@ -384,9 +416,9 @@ def test_every_activation_against_a_float64_loop(act, lib, domain):
 
 
 def test_activation_kinds_mirror_the_kernel_source():
-    """ops._activation.KINDS lists csrc/rnn.cu's ActKind codes in order,
-    and the backward reads h for tanh alone."""
-    src = (CSRC / "rnn.cu").read_text()
+    """ops._activation.KINDS lists csrc/rnn.cu's ActKind codes (in
+    rnn_cells.cuh) in order, and the backward reads h for tanh alone."""
+    src = (CSRC / "rnn_cells.cuh").read_text()
     body = src[src.index("enum ActKind {"):]
     body = body[:body.index("};")]
     names = [n.strip() for n in body[body.index("{") + 1:].split(",")]

@@ -12,7 +12,10 @@ every port model in nn/module.py and re-exported here).
 The decode step (:func:`_lm_forward_window`) reads the KV cache, fp32 or
 int8 (``quant/kv.py``), through ``ops.paged_attention``: on the card that
 is the hand-written CUDA page walk, always — the port has no
-gathered-view attention path on the card.
+gathered-view attention path on the card.  Under tensor parallelism it
+runs on one rank's shard of the weights (its heads, its FFN hidden
+rows) and sums each branch's output projection over the ``model`` axis
+(``group``).
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import bigdl_tpu_torch.nn as nn
 from bigdl_tpu_torch.nn.module import export_params, load_jax_params  # noqa: F401
 from bigdl_tpu_torch.nn.normalization import layer_norm
 from bigdl_tpu_torch.ops import paged_attention
+from bigdl_tpu_torch.parallel.collectives import all_reduce
 from bigdl_tpu_torch.quant import kv as kvq
 from bigdl_tpu_torch.utils.device import pin_fp32, resolve_device
 
@@ -192,7 +196,9 @@ def new_pools(handles: _LMHandles, n_pages: int, page_size: int,
     or under ``kv_quant="int8"`` four arrays, int8 pools and their f32
     scales (layers, n_pages + 1, page_size, H) (``quant/kv.py``).  Page
     ``n_pages`` is the scratch page that gated writes land on; no page
-    table ever points at it."""
+    table ever points at it.  H is ``handles.n_heads``: a tensor-parallel
+    rank's handles hold its own heads, so its pools are its own
+    contiguous arrays of them."""
     shape = (handles.n_layers, n_pages + 1, page_size, handles.n_heads,
              handles.hd)
     if kv_quant == "int8":
@@ -205,7 +211,8 @@ def new_pools(handles: _LMHandles, n_pages: int, page_size: int,
             torch.zeros(shape, device=device))
 
 
-def _lm_forward_window(tok, i, caches, handles, pe, pages, valid=None):
+def _lm_forward_window(tok, i, caches, handles, pe, pages, valid=None,
+                       group=None):
     """Paged multi-position forward: token ids (B, S) at per-row
     positions ``i`` (B, S) against block-paged KV pools.
 
@@ -229,7 +236,16 @@ def _lm_forward_window(tok, i, caches, handles, pe, pages, valid=None):
     where XLA drops them; PyTorch would raise or fault there, so the port
     keeps one page no table references.  The gate is a correctness
     contract: a stale write from a finished row must never reach a page
-    another request owns."""
+    another request owns.
+
+    ``group`` (a ``model`` axis, or None) makes the call one rank's part
+    of a tensor-parallel step: ``handles`` hold the rank's heads and FFN
+    hidden rows (``serve.decode._tp_local``), and each branch's output
+    projection is summed over the group by one in-place all-reduce
+    before its bias, ``x + allreduce(o @ wo) + bo`` and ``x +
+    allreduce(hid @ lin2ᵀ) + lin2.bias``: two all-reduces a block, the
+    JAX ``psum`` merges in their order.  Every rank of the group gets the
+    same sums, so the same log-probs."""
     h_ = handles
     quantized = len(caches) == 4
     kpool, vpool = caches[:2]
@@ -263,23 +279,31 @@ def _lm_forward_window(tok, i, caches, handles, pe, pages, valid=None):
             kpool[li, phys, off] = k
             vpool[li, phys, off] = v
             o = paged_attention(q, kpool[li], vpool[li], ptab, pos)
-        x = x + o.reshape(bsz, S, h_.n_heads * h_.hd) @ m["wo"] + m["bo"]
+        proj = o.reshape(bsz, S, h_.n_heads * h_.hd) @ m["wo"]
+        if group is not None:
+            all_reduce(proj, group)
+        x = x + proj + m["bo"]
         a2 = layer_norm(x, ln2["weight"], ln2["bias"], h_.block_eps[li][1])
         hid = torch.relu(a2 @ lin1["weight"].t() + lin1["bias"])
-        x = x + hid @ lin2["weight"].t() + lin2["bias"]
+        proj = hid @ lin2["weight"].t()
+        if group is not None:
+            all_reduce(proj, group)
+        x = x + proj + lin2["bias"]
     xf = layer_norm(x, h_.ln_f["weight"], h_.ln_f["bias"], h_.eps_f)
     logp = torch.log_softmax(xf @ h_.head["weight"].t() + h_.head["bias"],
                              dim=-1)
     return logp, tuple(caches)
 
 
-def _lm_forward_one(tok, i, caches, handles, pe, pages, valid=None):
+def _lm_forward_one(tok, i, caches, handles, pe, pages, valid=None,
+                    group=None):
     """One decode position for all rows: token ids (B,) at per-row
     positions ``i`` (B,) -> (log-probs (B, vocab), caches).  The paged
     branch of the JAX ``_lm_forward_one``: the window at S = 1."""
     v = None if valid is None else valid[:, None]
     logp, caches = _lm_forward_window(tok[:, None], i[:, None], caches,
-                                      handles, pe, pages, valid=v)
+                                      handles, pe, pages, valid=v,
+                                      group=group)
     return logp[:, 0], caches
 
 

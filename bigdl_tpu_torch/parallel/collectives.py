@@ -40,7 +40,8 @@ def axis_size(group=None) -> int:
 
 def all_reduce(x: torch.Tensor, group=None, op=dist.ReduceOp.SUM):
     """Sum (or ``op``) across the axis, in place; returns ``x`` (the
-    reference's whole AllReduceParameter cycle)."""
+    reference's whole AllReduceParameter cycle; the tensor-parallel
+    decode step's no-grad merge of a branch's partial projection)."""
     dist.all_reduce(x, op=op, group=_group(group))
     return x
 

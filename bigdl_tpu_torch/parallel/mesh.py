@@ -12,7 +12,10 @@ group.  The axes:
 - ``expert``: the experts of every ``nn.MoE`` split over the ranks of a
   data slice (expert parallelism, ``parallel/moe.py``);
 - ``model``: the leaves that ``sharding.shard_params_rule`` shards split
-  on dim 0 over the ranks of a data slice (tensor parallelism);
+  on dim 0 over the ranks of a data slice (tensor parallelism); the
+  serving decoder (``ContinuousDecoder(mesh=)``) splits its heads and
+  FFN hidden rows over it, a mesh without it, or with it of size 1,
+  serving on one device;
 - ``pipe``: the stages of a ``Sequential`` model, one a rank
   (pipeline parallelism, ``parallel/pipeline.py``).
 

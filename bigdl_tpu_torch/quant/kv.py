@@ -10,7 +10,9 @@ Scheme: **per-page-row, per-head scales**, one float32 scale per
 values, in parallel ``(layers, n_pages, page_size, H)`` arrays beside
 the pools.  A write never touches a neighbouring row (no requantizing of
 a page), and the scales are indexed by the physical page id exactly like
-the values, so whatever moves a page moves its scales.
+the values, so whatever moves a page moves its scales.  Under tensor
+parallelism a rank quantizes its own heads' rows: its scales are its
+pools' (..., H/tp), with no traffic between ranks.
 
 Write: ``q = clip(round(k / s), +-127)`` with ``s = max|k|_hd / 127``
 (``torch.round`` rounds half to even, as ``jnp.round`` does, and the

@@ -48,13 +48,44 @@ S = k+1 for a speculative verify window.  On top of the pool:
   ``on_tokens(cb)`` turns on delivery of the new tokens at each boundary
   from the boundary's one slab read, the callbacks on a delivery thread.
 
-Not ported yet (ROADMAP.md queue 1, item 7): tensor parallelism, the
-host KV tier and prefill page adoption (``adopt_pages``), the flight
-recorder, the metrics registry and its TTFT / ITL histograms (the
-decoder keeps their counts in :meth:`ContinuousDecoder.stats`).
+**Tensor-parallel serving** (``mesh=``, a ``parallel.mesh`` mesh with a
+``model`` axis, e.g. ``hybrid_mesh(1, tp)``): Megatron sharding of the
+decode step over that axis, as in the JAX decoder.  Each rank holds
+whole attention heads (wq/wk/wv by output columns, wo by input rows)
+and its rows of every FFN's hidden dim (lin1 rows, lin2 columns); the
+embeddings, LayerNorms and the LM head are whole on every rank
+(:func:`_tp_weight_specs`, :func:`_tp_local`).  Its KV pools are its own
+contiguous arrays of H/tp heads (int8: scales too), and
+``ops.paged_attention`` walks them.  Each branch's output projection is
+summed over the axis by one all-reduce before its bias: two a block.
+The mesh's other axes replicate.
+
+The port runs one process a rank, so TP serving is SPMD: every rank of
+the axis builds the decoder on the same weights and submits the same
+requests in the same order, and then runs the same host loop
+(admission, pages, prefix cache, boundaries).  An all-reduce hands every
+rank the same sums, so the same log-probs, tokens and host decisions;
+each rank's futures resolve to the same rows, and each rank delivers
+its own stream (the caller picks the rank that answers).  Only the
+submissions can part the ranks, so at every boundary, after admission,
+the ranks compare a digest of the requests admitted so far and of the
+queue's length: one int64 all-reduce (MAX of the digest and of its
+negation) on the axis.  A mismatch fails every open future and raises
+:class:`ReplicaMismatchError` naming this rank's digest and the group's
+range, on every rank at the same boundary, before a step: the decoder
+neither hangs nor serves on.  The check runs at every boundary, not only
+at the ones that admit, because whether a boundary admits is itself
+what parted ranks may disagree on.  A sampled request under TP names
+its seed: one drawn at submit would differ from rank to rank.
+
+Not ported yet (ROADMAP.md queue 1, item 7): the host KV tier and
+prefill page adoption (``adopt_pages``), the flight recorder, the
+metrics registry and its TTFT / ITL histograms (the decoder keeps their
+counts in :meth:`ContinuousDecoder.stats`).
 """
 from __future__ import annotations
 
+import hashlib
 import os
 import time
 import weakref
@@ -62,11 +93,14 @@ from collections import deque
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bigdl_tpu_torch.models.transformer import (DEFAULT_PAGE_SIZE,
                                                 _handles_to, _lm_forward_one,
                                                 _lm_forward_window,
                                                 _lm_handles, new_pools)
+from bigdl_tpu_torch.parallel.collectives import all_reduce
+from bigdl_tpu_torch.parallel.sharding import model_slice
 from bigdl_tpu_torch.quant import kv_mode_default, normalize_mode
 from bigdl_tpu_torch.quant import kv as kvq
 from bigdl_tpu_torch.serve import sampling as smp
@@ -98,6 +132,82 @@ def _pages_needed(steps: int, page_size: int) -> int:
     no page: window positions past a slot's capacity are gated to the
     scratch page."""
     return -(-steps // page_size)
+
+
+class ReplicaMismatchError(RuntimeError):
+    """The ranks of a tensor-parallel decoder were handed different
+    requests: their admission digests part at a boundary."""
+
+
+#: the dim each attention leaf splits on over the model axis (None: whole
+#: on every rank): wq/wk/wv by output columns, head-major, so that a rank
+#: holds whole heads, their biases to match; wo by input rows; bo whole
+#: (added once, after the sum)
+_TP_ATTN = {"wq": 1, "wk": 1, "wv": 1, "bq": 0, "bk": 0, "bv": 0,
+            "wo": 0, "bo": None}
+
+
+def _tp_weight_specs(handles) -> dict:
+    """The counterpart of the JAX decoder's ``_tp_weight_specs``
+    (bigdl_tpu/serve/decode.py:172-201), as the dim each decode weight
+    splits on over the ``model`` axis, None where it is whole: the
+    attention by :data:`_TP_ATTN`; lin1 (hidden, d) by its hidden rows
+    and bias, lin2 (d, hidden) by its hidden columns, its bias whole; the
+    embeddings, LayerNorms and the LM head whole."""
+    def whole(d):
+        return dict.fromkeys(d)
+
+    blocks = []
+    for (ln1, m, ln2, lin1, lin2) in handles.blocks:
+        if set(m) != set(_TP_ATTN):
+            raise ValueError(
+                f"attention param keys {sorted(m)} diverged from the TP "
+                f"sharding map {sorted(_TP_ATTN)} — update _tp_weight_specs")
+        blocks.append((whole(ln1), dict(_TP_ATTN), whole(ln2),
+                       {"weight": 0, "bias": 0}, {"weight": 1, "bias": None}))
+    return {"emb": whole(handles.emb), "blocks": blocks,
+            "ln_f": whole(handles.ln_f), "head": whole(handles.head)}
+
+
+def _tp_local(handles, index: int, tp: int):
+    """Rank ``index``'s handles of ``tp``: each leaf :func:`_tp_weight_specs`
+    splits cut to the rank's ``parallel.sharding.model_slice`` of that dim
+    (a contiguous tensor of its own), the rest whole, and ``n_heads`` the
+    rank's H / tp.  Raises the JAX decoder's errors where tp divides
+    neither the heads nor an FFN's hidden dim (decode.py:636-648)."""
+    H = handles.n_heads
+    if H % tp:
+        raise ValueError(f"tensor parallelism {tp} must divide "
+                         f"n_heads={H}")
+    for li, (_, _, _, lin1, _) in enumerate(handles.blocks):
+        hidden = int(lin1["weight"].shape[0])
+        if hidden % tp:
+            raise ValueError(
+                f"tensor parallelism {tp} must divide the FFN hidden dim "
+                f"({hidden}, block {li})")
+    specs = _tp_weight_specs(handles)
+
+    def cut(d, spec):
+        out = {}
+        for k, t in d.items():
+            if spec[k] is None:
+                out[k] = t
+                continue
+            sl = model_slice(t.shape[spec[k]], index, tp)
+            out[k] = t.narrow(spec[k], sl.start,
+                              sl.stop - sl.start).contiguous()
+        return out
+
+    blocks = [tuple(cut(d, sp) for d, sp in zip(b, sb))
+              for b, sb in zip(handles.blocks, specs["blocks"])]
+    return handles._replace(blocks=blocks, n_heads=H // tp)
+
+
+def _digest_step(prev: bytes, *parts) -> bytes:
+    """The admission chain's next link: 8 bytes of blake2b over the last
+    link and ``parts`` (the same on every process, unlike ``hash``)."""
+    return hashlib.blake2b(prev + repr(parts).encode(),
+                           digest_size=8).digest()
 
 
 def _close_delivery(box):
@@ -155,7 +265,16 @@ class ContinuousDecoder:
     ``device`` defaults to ``"cuda"`` and raises when there is no card;
     the weights are used on that device (moved there once if the model
     lives elsewhere).  :meth:`close` stops the delivery thread and
-    releases the prefix cache's pages."""
+    releases the prefix cache's pages.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``; None: one device) serves tensor
+    parallel over its ``model`` axis, SPMD as the module docstring sets
+    out: every rank of the axis constructs the decoder and submits the
+    same requests in the same order.  A mesh with no ``model`` axis, or
+    one of size 1, is ``tp == 1``.  The rank's handles (its shards and
+    the whole leaves) are cut once here and only they are moved to
+    ``device``; the axis's process group is used as given (gloo takes
+    CUDA tensors too, staging through the host)."""
 
     def __init__(self, model, max_slots: int = 4, n_pos: int = 64,
                  sync_interval: int | None = None,
@@ -164,7 +283,8 @@ class ContinuousDecoder:
                  spec_k: int | None = None, draft_layers: int | None = None,
                  kv_quant: str | None = None,
                  max_stop_seqs: int | None = None,
-                 max_stop_len: int | None = None, device="cuda"):
+                 max_stop_len: int | None = None, device="cuda",
+                 mesh=None):
         self.kv_quant = (kv_mode_default() if kv_quant is None else
                          normalize_mode(kv_quant, kvq.ON_MODES, "kv_quant"))
         self.device = dev = resolve_device(device)
@@ -192,7 +312,23 @@ class ContinuousDecoder:
         self._pool = PagePool(int(n_pages), ps)
         self._prefix = PrefixCache(self._pool) if use_prefix else None
         self._n_view = n_view = self.pages_per_slot * ps
-        self._handles = h = _handles_to(_lm_handles(model), dev)
+        whole = _lm_handles(model)
+        self.mesh = mesh
+        axis = (mesh.axis("model") if mesh is not None
+                and "model" in mesh.axis_names else None)
+        self.tp = axis.size if axis is not None else 1
+        # the model axis the step's all-reduces run over (None: tp == 1)
+        self._tp_group = axis if self.tp > 1 else None
+        if self._tp_group is not None:
+            whole = _tp_local(whole, axis.index, self.tp)
+            # the admission digest: a CPU tensor for gloo, which reads no
+            # device for it; NCCL takes the card's
+            self._digest_dev = (torch.device("cpu")
+                                if dist.get_backend(axis.group) == "gloo"
+                                else dev)
+            self._admit_chain = b""
+            self.tp_checks = 0
+        self._handles = h = _handles_to(whole, dev)
         L = h.n_layers
         self.draft_layers = Ld = (max(1, L // 2) if draft_layers is None
                                   else min(L, max(1, int(draft_layers))))
@@ -201,8 +337,10 @@ class ContinuousDecoder:
         self._pe = h.mods[1].table(n_view).to(dev)
         self._caches = new_pools(h, self._pool.n_pages, ps, dev,
                                  self.kv_quant)
+        # the whole model's, as in the JAX decoder: every rank's pools
+        # together hold a token at this cost
         self.kv_bytes_per_token = kvq.bytes_per_token(
-            L, h.n_heads, h.hd, self.kv_quant)
+            L, h.n_heads * self.tp, h.hd, self.kv_quant)
 
         def z(*shape, dtype=torch.int32):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -310,7 +448,8 @@ class ContinuousDecoder:
                           self._prev)
         logp, self._caches = _lm_forward_one(
             tok, wp, self._caches, self._handles, self._pe,
-            (self._ptab_live, self.page_size), valid=live)
+            (self._ptab_live, self.page_size), valid=live,
+            group=self._tp_group)
         nxt = self._next_token(logp, pos)
         self._gen[rows, torch.where(live, wp, self._n_view)] = nxt
         self._prev = torch.where(live, nxt, self._prev)
@@ -350,7 +489,7 @@ class ContinuousDecoder:
         for _ in range(k):
             dlogp, self._caches = _lm_forward_one(
                 d_tok, clip(d_pos), self._caches, self._draft, self._pe,
-                pages, valid=live & (d_pos < cap))
+                pages, valid=live & (d_pos < cap), group=self._tp_group)
             d_draft = dlogp.argmax(dim=-1).to(torch.int32)
             if sampled_lane:
                 lq = smp.filter_logits(dlogp, *self._filters())
@@ -373,7 +512,7 @@ class ContinuousDecoder:
         # -- one verify window through the full model
         logp, self._caches = _lm_forward_window(
             W, wp, self._caches, self._handles, self._pe, pages,
-            valid=valid)
+            valid=valid, group=self._tp_group)
         g = logp.argmax(dim=-1).to(torch.int32)               # (B, k+1)
         # greedy lane: draft j+1 survives iff it equals the verify argmax
         # at j (seed-forced positions always survive), so the committed
@@ -509,10 +648,17 @@ class ContinuousDecoder:
             raise ValueError("seed_ids must be one flat non-empty id row")
         if n_words < 1:
             raise ValueError("n_words must be >= 1")
-        params = smp.SamplingParams.of(sampling).resolved()
+        asked = smp.SamplingParams.of(sampling)
+        params = asked.resolved()
         if params.max_tokens is not None:
             n_words = min(int(n_words), params.max_tokens)
         req = _DecodeReq(seed.tolist(), n_words, params)
+        if self.tp > 1 and not asked.greedy and asked.seed is None:
+            req.future.set_exception(ValueError(
+                "a sampled request under tensor parallelism names its "
+                "seed (SamplingParams(seed=...)): a seed drawn at submit "
+                "differs from rank to rank"))
+            return req.future
         if (len(params.stop) > self.max_stop_seqs
                 or any(len(s) > self.max_stop_len for s in params.stop)):
             req.future.set_exception(ValueError(
@@ -570,6 +716,10 @@ class ContinuousDecoder:
                 break   # head-of-line: wait for retirements to free pages
             self._pending.popleft()
             req.slot = slot
+            if self._tp_group is not None:
+                self._admit_chain = _digest_step(
+                    self._admit_chain, slot, req.seed, req.n_words,
+                    req.params.to_dict(), req.start_pos)
             self._apply_admit(slot, req)
             self._slots[slot] = req
             self.admitted += 1
@@ -598,11 +748,42 @@ class ContinuousDecoder:
                        any(0 < p.top_p < 1 for p in sampled),
                        any(r.params.stop for r in live))
 
+    def _check_replicas(self):
+        """The tensor-parallel ranks' admissions agree: one int64
+        all-reduce (MAX) of this rank's digest and of its negation over
+        the model axis gives the group's largest and smallest digest.
+        Where they differ, every open future fails and the call raises,
+        on every rank of the group alike."""
+        d = int.from_bytes(_digest_step(self._admit_chain,
+                                        len(self._pending)), "big") >> 2
+        t = torch.tensor([d, -d], dtype=torch.int64,
+                         device=self._digest_dev)
+        all_reduce(t, self._tp_group, op=dist.ReduceOp.MAX)
+        hi, neg_lo = t.tolist()
+        lo = -neg_lo
+        self.tp_checks += 1
+        if hi == lo:
+            return
+        err = ReplicaMismatchError(
+            f"tensor-parallel ranks admitted different requests: this "
+            f"rank (model index {self._tp_group.index} of {self.tp}) has "
+            f"admission digest {d:#018x}, the model group's digests "
+            f"range from {lo:#018x} to {hi:#018x}; every rank must submit "
+            f"the same requests in the same order")
+        for r in list(self._pending) + [r for r in self._slots
+                                        if r is not None]:
+            if not r.future.done():
+                r.future.set_exception(err)
+        self._pending.clear()
+        raise err
+
     def step_boundary(self) -> int:
         """One admit -> ``sync_interval`` steps -> retire cycle.  Returns
         the number of slots served (0: nothing admissible)."""
         spec = self.spec_k > 0
         self._admit_waiting()
+        if self._tp_group is not None:
+            self._check_replicas()
         live = [r for r in self._slots if r is not None]
         if not live:
             if self._pending:   # pragma: no cover - defensive
@@ -747,6 +928,7 @@ class ContinuousDecoder:
                "admitted": self.admitted, "retired": self.retired,
                "slots": self.B, "live_hwm": self.live_hwm,
                "n_pos": self.n_pos, "sync_interval": self.sync_interval,
+               "tp": self.tp,
                "kv_quant": self.kv_quant,
                "kv_bytes_per_token": self.kv_bytes_per_token,
                "sampled": self.sampled, "stop_retired": self.stop_retired,
@@ -754,6 +936,8 @@ class ContinuousDecoder:
                "pool": self._pool.stats()}
         if self._prefix is not None:
             out["prefix"] = self._prefix.stats()
+        if self.tp > 1:
+            out["tp_checks"] = self.tp_checks
         if self.streams:
             out["stream"] = {
                 "streams": self.streams, "tokens": self.stream_tokens,
@@ -776,15 +960,16 @@ class ContinuousDecoder:
 def continuous_decode(model, seed_rows, n_words, max_slots: int = 4,
                       n_pos: int | None = None,
                       sync_interval: int | None = None, device="cuda",
-                      sampling=None, **decoder_kwargs):
+                      sampling=None, mesh=None, **decoder_kwargs):
     """One-shot: decode every seed row with a shared decoder.  ``n_pos``
     defaults to the largest request's need; ``sampling`` is None (greedy),
     one ``SamplingParams`` (or its dict) for every row, or a list of one
-    per row; other keyword arguments (``page_size``, ``n_pages``,
-    ``prefix_cache``, ``spec_k``, ``draft_layers``, ``kv_quant``, ...)
-    pass through to :class:`ContinuousDecoder`.  Returns the extended rows
-    in submission order (``lm_decode`` greedy semantics per greedy
-    row)."""
+    per row; ``mesh`` (with a ``model`` axis) serves tensor parallel,
+    every rank of it calling this alike; other keyword arguments
+    (``page_size``, ``n_pages``, ``prefix_cache``, ``spec_k``,
+    ``draft_layers``, ``kv_quant``, ...) pass through to
+    :class:`ContinuousDecoder`.  Returns the extended rows in submission
+    order (``lm_decode`` greedy semantics per greedy row)."""
     reqs = [np.asarray(s, np.int64) for s in seed_rows]
     per_row = (list(sampling) if isinstance(sampling, (list, tuple))
                else [sampling] * len(reqs))
@@ -795,7 +980,7 @@ def continuous_decode(model, seed_rows, n_words, max_slots: int = 4,
         n_pos = max(int(s.size) + int(n_words) - 1 for s in reqs)
     dec = ContinuousDecoder(model, max_slots=max_slots, n_pos=n_pos,
                             sync_interval=sync_interval, device=device,
-                            **decoder_kwargs)
+                            mesh=mesh, **decoder_kwargs)
     try:
         futs = [dec.submit(s, n_words, sampling=sp)
                 for s, sp in zip(reqs, per_row)]

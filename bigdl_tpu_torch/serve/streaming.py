@@ -21,6 +21,12 @@ The JAX package also lands each failure in its event stream; the port
 has no event stream yet and logs it.  Do not block inside an
 ``on_tokens`` callback on the same future's ``result()``: the result is
 resolved on the delivery thread the callback occupies.
+
+Under tensor parallelism (``ContinuousDecoder(mesh=)``) every rank of the
+model axis runs its own decoder, futures and delivery thread, and every
+rank's stream carries the same tokens at the same boundaries.  The
+caller picks the rank that answers a client (rank 0 in the smoke and the
+tests) and leaves the other ranks' streams unconsumed or for checks.
 """
 from __future__ import annotations
 

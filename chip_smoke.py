@@ -17,6 +17,8 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py --serve    # the attention kernels (the verify
                                      # window among them) and phase 3
                                      # alone, no result line
+    python3 chip_smoke.py --serve-cards  # the serving path and phase 3's
+                                         # four-card decoder alone
     python3 chip_smoke.py --attention  # the attention and SGD kernels'
                                        # checks and phase 17 alone, no
                                        # result line
@@ -31,7 +33,11 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 Each option runs part of one phase table (``ONLY``); every phase runs
 even where one before it failed, and a failed phase makes the exit
-non-zero with no result line.  Phases:
+non-zero with no result line.  The run with no arguments takes each
+reading's repeats about once (``READ``: the plain versions' and library
+calls' times, profiled windows, timed dispatches; no check or gate
+reads them), and runs phase 3 right after the attention kernels, while
+the recurrences' libraries still compile.  Phases:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, and the build of every CUDA kernel from
@@ -87,6 +93,18 @@ non-zero with no result line.  Phases:
    rows, time to first token and inter-token latency printed beside the
    card's name and power limit; (f) sampled ``lm_decode`` twice under one
    key, ``lm_beam_search(beam_size=1)`` equal to greedy ``lm_decode``;
+   (g) tensor parallelism: ``ContinuousDecoder(mesh=hybrid_mesh(1, 2))``
+   as two gloo ranks on the one card, each the model's shard (two of
+   the four heads, half of each FFN) and its own pools of two heads,
+   serving the four shortest requests greedy with fp32 pools and with
+   int8 pools and speculative decode (k = 2): every rank's rows
+   identical, each rank's launches the path's and no other kernel,
+   every token teacher-forced against the whole model, each rank's
+   pools half the whole's bytes; (h) the same over four NCCL cards
+   where the machine has them (a line says why not otherwise), ms a
+   step beside one card's and the NCCL kernels' share; with phase 2,
+   both page walks at a rank's heads (H = 2 and 1, serving's context)
+   against their plain versions;
 4. training: ``LeNet5`` (seed 0) trains two epochs of synthetic MNIST
    through ``Optimizer(...).optimize()`` with its default ``SGD``,
    validating Top1 every epoch; the launch counts show every step went
@@ -516,6 +534,15 @@ ACT_SHAPES = [(TSEQ, 1, TBATCH, THIDDEN), (RBPTT, 1, RBATCH, RHIDDEN)]
 # passes that traffic, the pages its longest request reaches (24)
 SERVE_POS = [[int(p)] for p in np.linspace(15, 256 + N_WORDS - 1, SLOTS)]
 SERVE_PAGES = -(-(256 + N_WORDS) // PAGE)
+# serving's tensor parallelism: the model axis as two gloo ranks on the
+# one card (TP_ONE_CARD) and as four NCCL ranks across four cards
+# (TP_CARDS), each rank's heads (the kernel rows' H), the requests of the
+# serving phase each serves (its TP_REQ shortest: the longest seed's
+# prefill sets a wave's steps) and the drafts of its speculative run (the
+# serving features' DRAFT_LAYERS blocks; each draft costs DRAFT_LAYERS
+# forwards of all-reduces through the host on the one card)
+TP_ONE_CARD, TP_CARDS, TP_REQ, TP_SPEC_K = 2, 4, SLOTS // 2, 2
+TP_HEADS = (HEADS // TP_ONE_CARD, HEADS // TP_CARDS)
 # tests/test_pallas_ops.py:37-44
 # the harness (n steps a dispatch, the prefetch, checkpoints): LeNet-5 and
 # SimpleRNN take HSTEPS steps at HDISPATCH a dispatch after HDISPATCH
@@ -671,6 +698,31 @@ def time_ms(torch, fn, flush, reps=25, warm=3):
     return statistics.median(times)
 
 
+# the repeats of readings no gate reads: the plain versions' and the
+# library calls' times (and a whole layer's, a same-bytes copy's), the
+# bf16 configurations' timed and traced dispatches, the pipeline's
+# steady-state pairs and profiled steps, the profiled steps after a
+# harness run's held ones, a training path's profiled window.
+# The option runs PERF.md's tables are read from keep these counts; the
+# run with no arguments, whose limit is 1200 s, takes each about once
+# (``short_readings``)
+READ = {"yard_reps": 25, "yard_warm": 3, "dispatches": 3, "pairs": 3,
+        "profiled": None, "pipe_profiled": None, "train_profiled": None}
+
+
+def short_readings():
+    READ.update(yard_reps=3, yard_warm=1, dispatches=1, pairs=1,
+                profiled=HDISPATCH, pipe_profiled=2, train_profiled=1)
+
+
+def yard_ms(torch, fn, flush, reps=25):
+    """``time_ms`` of a yardstick (a plain version, a library call, a
+    whole layer, a copy of the same bytes): ``reps`` repeats or READ's,
+    the fewer."""
+    return time_ms(torch, fn, flush, reps=min(reps, READ["yard_reps"]),
+                   warm=READ["yard_warm"])
+
+
 def time_queued_ms(torch, fn, reps=20):
     """Mean time of ``reps`` calls queued back to back between two
     events: the host runs ahead of the card, so where the device work of
@@ -701,8 +753,8 @@ def timed(torch, flush, kernel, plain, library):
     """A kernel row's times: the wrapper, its plain version and the
     library call, each L2-flushed, and the wrapper queued."""
     return {"ms": time_ms(torch, kernel, flush),
-            "plain_ms": time_ms(torch, plain, flush),
-            "library_ms": time_ms(torch, library, flush),
+            "plain_ms": yard_ms(torch, plain, flush),
+            "library_ms": yard_ms(torch, library, flush),
             "queued_ms": time_queued_ms(torch, kernel)}
 
 
@@ -825,6 +877,72 @@ def paged_bound(args):
                                  else "operations"), kv + io
 
 
+def local_head_rows(torch, ops, flush, int8):
+    """The page walk at a tensor-parallel rank's heads (TP_HEADS: the
+    serving model's H / tp), at serving's context (B 8, hd 256, the
+    24-page table), fp32 or int8 pools: against its plain version and the
+    plain split-and-merge version at the plan's split count and at one,
+    timed beside the plain version, the library's yardstick (SDPA over
+    the gathered view; int8: dequantize it first) and the bound.  Its own
+    generator: the phase's other inputs stay as they were.  Returns
+    {H: row}."""
+    import torch.nn.functional as F
+
+    from bigdl_tpu_torch.quant.kv import dequantize_view
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    hd = D_MODEL // HEADS
+    out = {}
+    for H in TP_HEADS:
+        if int8:
+            args = paged_int8_case(torch, g, SLOTS, 1, H, hd, PAGE,
+                                   SERVE_PAGES, 512, SERVE_POS)
+            err = check_paged_int8(torch, ops, args)
+            kernel, plain = (ops.paged_attention_int8,
+                             ops.paged_attention_int8_reference)
+            q, k, v, ptab, pos, ks, vs = args
+            n_view = ptab.shape[1] * PAGE
+            mask = (torch.arange(n_view, device="cuda")[None, None, None, :]
+                    <= pos[:, None, :, None])
+
+            def library():
+                kv = [dequantize_view(p[ptab.long()], sc[ptab.long()])
+                      .reshape(SLOTS, n_view, H, hd).transpose(1, 2)
+                      for p, sc in ((k, ks), (v, vs))]
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), *kv, attn_mask=mask)
+            bound = paged_int8_bound(args)
+        else:
+            args = paged_case(torch, g, SLOTS, 1, H, hd, PAGE, SERVE_PAGES,
+                              512, SERVE_POS)
+            err = check_paged(torch, ops, args)
+            kernel, plain = (ops.paged_attention,
+                             ops.paged_attention_reference)
+            view = sdpa_view(torch, args)
+
+            def library():
+                return F.scaled_dot_product_attention(*view[:3],
+                                                      attn_mask=view[3])
+            b, by, nbytes = paged_bound(args)
+            bound = {"bound_ms": b, "bound_by": by, "bytes": nbytes}
+        split_errs, plan, _ = check_splits(torch, ops, args, (None, 1))
+        row = {"splits": plan, "max_abs_err": max(err, *split_errs.values()),
+               "ms": time_ms(torch, lambda: kernel(*args), flush),
+               "plain_ms": yard_ms(torch, lambda: plain(*args), flush),
+               ("dequant_sdpa_ms" if int8 else "library_ms"):
+                   yard_ms(torch, library, flush), **bound}
+        out[H] = row
+        print(f"paged_attention{'_int8' if int8 else ''} at a rank's heads "
+              f"(B={SLOTS} S=1 H={H} hd={hd} ps={PAGE} P={SERVE_PAGES}, "
+              f"serving's context, {plan} splits): kernel_ms={row['ms']:.5f}"
+              f" plain_ms={row['plain_ms']:.5f} "
+              f"{'dequant_sdpa_ms' if int8 else 'library_ms'}="
+              f"{row.get('dequant_sdpa_ms', row.get('library_ms')):.5f} "
+              f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}, "
+              f"{row['bytes']} bytes) max_abs_err={row['max_abs_err']:.3e}")
+    return out
+
+
 def phase_kernels(torch, ops):
     import importlib
 
@@ -869,9 +987,9 @@ def phase_kernels(torch, ops):
     view = sdpa_view(torch, full)
     times = {
         "ms": time_ms(torch, lambda: ops.paged_attention(*full), flush),
-        "plain_ms": time_ms(
+        "plain_ms": yard_ms(
             torch, lambda: ops.paged_attention_reference(*full), flush),
-        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+        "library_ms": yard_ms(torch, lambda: F.scaled_dot_product_attention(
             *view[:3], attn_mask=view[3]), flush),
     }
     bound, bound_by, nbytes = paged_bound(full)
@@ -911,9 +1029,12 @@ def phase_kernels(torch, ops):
           f"{serving['serving_plain_ms']:.5f} library_ms="
           f"{serving['serving_library_ms']:.5f} bound_ms="
           f"{serving['serving_bound_ms']:.5f}")
+    local = local_head_rows(torch, ops, flush, int8=False)
+    errs += [r["max_abs_err"] for r in local.values()]
     return {"name": "paged_attention", "route": "cuda",
             "source": "bigdl_tpu_torch/csrc/paged_attention.cu",
             "replaces": "bigdl_tpu/ops/pallas_kernels.py:1299",
+            "local_heads": local,
             "max_abs_err": max(errs), "bound_ms": bound,
             "bound_by": bound_by, "ok": True, "splits": plan, **times,
             **serving,
@@ -1149,8 +1270,8 @@ def pool_s1_times(torch, ops, flush, g, shape, win, pads):
         # what the card reaches for the same bytes: a copy (x read, y
         # written) and an add (x and g read, dx written)
         out = torch.empty_like(x)
-        fwd["same_bytes_ms"] = time_ms(torch, lambda: out.copy_(x), flush)
-        bwd["same_bytes_ms"] = time_ms(
+        fwd["same_bytes_ms"] = yard_ms(torch, lambda: out.copy_(x), flush)
+        bwd["same_bytes_ms"] = yard_ms(
             torch, lambda: torch.add(x, gy, out=out), flush)
     return fwd, bwd
 
@@ -1506,7 +1627,7 @@ def recurrence_times(torch, flush, rows_of):
     filled in by the caller where a PyTorch call computes the same
     function)."""
     return {name: {"ms": time_ms(torch, kernel, flush),
-                   "plain_ms": time_ms(torch, plain, flush, reps=5),
+                   "plain_ms": yard_ms(torch, plain, flush, reps=5),
                    "queued_ms": time_queued_ms(torch, kernel),
                    "library_ms": None, **byte_bound(nbytes, n_ops)}
             for name, (kernel, plain, nbytes, n_ops) in rows_of.items()}
@@ -1517,7 +1638,7 @@ def einsum_yardstick(torch, flush, row, hs, dzx, kernel):
     t - 1 and dzx (the t = 0 term is zero), timed beside ``kernel()``;
     the yardstick only, the port never calls it."""
     library = lambda: torch.einsum("tdbk,tdbj->dkj", hs[:-1], dzx[1:])
-    row["library_ms"] = time_ms(torch, library, flush)
+    row["library_ms"] = yard_ms(torch, library, flush)
     row["library_diff"] = float((library() - kernel()).abs().max())
 
 
@@ -1572,7 +1693,7 @@ def gru_times(torch, ops, flush, g, case):
                 4 * (5 * n_h + n_w), flops)})
     # no one PyTorch call computes both weight gradients; two einsums do
     # (beside the row, not its library_ms)
-    rows["dwh"]["two_einsum_ms"] = time_ms(torch, lambda: (
+    rows["dwh"]["two_einsum_ms"] = yard_ms(torch, lambda: (
         torch.einsum("tdbk,tdbj->dkj", hs[:-1], dzrz[1:]),
         torch.einsum("tdbk,tdbj->dkj", rh, dzn)), flush)
     return rows
@@ -1634,11 +1755,11 @@ def layer_times(torch, flush, g, port, lib, width, same):
             raise AssertionError(f"{same} is not the same layer: "
                                  f"{out['same_layer_diff']:.3e}")
     return out | {
-        "library_fwd_ms": time_ms(torch, lambda: lib(x), flush),
-        "port_fwd_ms": time_ms(torch, lambda: port(x), flush),
-        "library_bwd_ms": time_ms(torch, lambda: torch.autograd.grad(
+        "library_fwd_ms": yard_ms(torch, lambda: lib(x), flush),
+        "port_fwd_ms": yard_ms(torch, lambda: port(x), flush),
+        "library_bwd_ms": yard_ms(torch, lambda: torch.autograd.grad(
             yl, [xl, *lib.parameters()], gy, retain_graph=True), flush),
-        "port_bwd_ms": time_ms(torch, lambda: torch.autograd.grad(
+        "port_bwd_ms": yard_ms(torch, lambda: torch.autograd.grad(
             yp, [xp, *port.parameters()], gy, retain_graph=True), flush)}
 
 
@@ -2150,12 +2271,12 @@ def phase_int8_attention_kernels(torch, ops):
                       - ops.paged_attention_int8(*full)[live]).abs().max())
     row = {"ms": time_ms(torch, lambda: ops.paged_attention_int8(*full),
                          flush),
-           "plain_ms": time_ms(torch, lambda: (
+           "plain_ms": yard_ms(torch, lambda: (
                ops.paged_attention_int8_reference(*full)), flush),
            "queued_ms": time_queued_ms(
                torch, lambda: ops.paged_attention_int8(*full)),
            "library_ms": None,
-           "dequant_sdpa_ms": time_ms(torch, dequant_sdpa, flush),
+           "dequant_sdpa_ms": yard_ms(torch, dequant_sdpa, flush),
            **paged_int8_bound(full)}
     window_ms = time_ms(torch, lambda: ops.paged_attention_int8(*window),
                         flush)
@@ -2195,9 +2316,12 @@ def phase_int8_attention_kernels(torch, ops):
           f"{SERVE_POS[0][0]}..{SERVE_POS[-1][0]}): kernel_ms="
           f"{row['serving_ms']:.5f} plain_ms={row['serving_plain_ms']:.5f} "
           f"bound_ms={row['serving_bound_ms']:.5f}")
+    local = local_head_rows(torch, ops, flush, int8=True)
+    errs |= {f"H={h}": r["max_abs_err"] for h, r in local.items()}
     return {"name": "paged_attention_int8", "route": "cuda",
             "source": "bigdl_tpu_torch/csrc/paged_attention.cu",
             "replaces": "bigdl_tpu/ops/pallas_kernels.py:1299",
+            "local_heads": local,
             "max_abs_err": max(errs.values()), "ok": True, **row}
 
 
@@ -2233,8 +2357,8 @@ def lstm_scan_layer_times(torch, flush, g):
         if diff > 1e-3:
             raise AssertionError(f"nn.LSTM is not the same layer: {diff:.3e}")
         return {"same_layer_diff": diff,
-                "layer_library_ms": time_ms(torch, lambda: lib(x), flush),
-                "layer_port_ms": time_ms(torch, lambda: port(x), flush)}
+                "layer_library_ms": yard_ms(torch, lambda: lib(x), flush),
+                "layer_port_ms": yard_ms(torch, lambda: port(x), flush)}
 
 
 def phase_lstm_scan_kernels(torch, ops):
@@ -2550,13 +2674,14 @@ def phase_train(torch, ops, profile: bool):
 
 
 def profile_train(torch, make_opt, n):
-    """Device time by kernel over a window of ``n`` train steps (no
-    validation) of the optimizer ``make_opt(end_trigger)`` builds, after
-    two warm steps."""
+    """Device time by kernel over a window of ``n`` train steps
+    (READ["train_profiled"] where it is set; no validation) of the
+    optimizer ``make_opt(end_trigger)`` builds, after two warm steps."""
     from torch.profiler import ProfilerActivity, profile
 
     from bigdl_tpu_torch.optim import max_iteration
 
+    n = READ["train_profiled"] or n
     opt = make_opt(max_iteration(2))
     opt.optimize()
     opt.set_end_when(max_iteration(2 + n))
@@ -4388,6 +4513,241 @@ def phase_serve_features(torch, ops, model, seeds, fp_rows):
 
 
 # ---------------------------------------------------------------------------
+# serving's tensor parallelism: ContinuousDecoder(mesh=) with each rank's
+# heads, its own pools and two all-reduces a block
+# ---------------------------------------------------------------------------
+
+#: the tensor-parallel runs: (kv_quant, spec_k); the fp32 pools greedy,
+#: the int8 pools with speculative decode, both with the prefix cache
+TP_JOBS = (("off", 0), ("int8", TP_SPEC_K))
+
+
+def serve_tp_child(backend, seeds, jobs, profile_nccl):
+    """One rank of the tensor-parallel serving runs: the serving model
+    from seed 0 built on the CPU, its shard moved to this rank's card by
+    ``ContinuousDecoder(mesh=hybrid_mesh(1, world))``, the model axis
+    over ``backend``'s group (gloo ranks share the one card).  Each job
+    of ``jobs`` serves ``seeds`` after a warm-up, from zeroed launch
+    counts and a count of the step's all-reduces; with ``profile_nccl``
+    the greedy job is served again under the profiler, for the NCCL
+    kernels' device time.  Returns each job's rows, launch counts,
+    all-reduces, wall, stats and pools."""
+    import torch
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.models import transformer as tt
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.parallel.mesh import hybrid_mesh
+    from bigdl_tpu_torch.serve import ContinuousDecoder, continuous_decode
+    from bigdl_tpu_torch.utils.device import pin_fp32
+    from bigdl_tpu_torch.utils.random import generator
+
+    pin_fp32(torch.device("cuda"))
+    model = TransformerLM(VOCAB, D_MODEL, HEADS, LAYERS, HIDDEN,
+                          dropout=0.0, device="cpu",
+                          generator=generator(0)).evaluate()
+    mesh = hybrid_mesh(1, dist.get_world_size(),
+                       "cpu" if backend == "gloo" else "cuda")
+    reduces, all_reduce = [0], tt.all_reduce
+
+    def counted(*args, **kwargs):
+        reduces[0] += 1
+        return all_reduce(*args, **kwargs)
+
+    tt.all_reduce = counted
+    out = []
+    for kv, spec in jobs:
+        kw = dict(max_slots=SLOTS, n_pos=N_POS, page_size=PAGE,
+                  kv_quant=kv, spec_k=spec, draft_layers=DRAFT_LAYERS,
+                  prefix_cache=True, device="cuda", mesh=mesh)
+        continuous_decode(model, [[1, 2, 3]], 4, **kw)     # warm-up
+        dec = ContinuousDecoder(model, **kw)
+        futs = [dec.submit(s, N_WORDS) for s in seeds]
+        dist.barrier()
+        reduces[0] = 0
+        _, counts, wall = run_path(torch, ops, dec.run)
+        res = {"rows": [f.result(timeout=60) for f in futs],
+               "counts": counts, "reduces": reduces[0], "wall": wall,
+               "stats": dec.stats(),
+               "index": mesh.axis("model").index,
+               "pools": [tuple(c.shape) for c in dec._caches],
+               "pool_bytes": sum(c.numel() * c.element_size()
+                                 for c in dec._caches)}
+        dec.close()
+        if profile_nccl and spec == 0:
+            res["nccl"] = nccl_serve_window(torch, model, seeds, kw)
+        out.append(res)
+        dist.barrier()
+    return out
+
+
+def nccl_serve_window(torch, model, seeds, kw):
+    """The greedy job again under the profiler: (the NCCL kernels' device
+    ms, the whole run's wall ms, steps)."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch.serve import ContinuousDecoder
+
+    dec = ContinuousDecoder(model, **kw)
+    for s in seeds:
+        dec.submit(s, N_WORDS)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        dec.run()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    nccl = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda and "nccl" in e.name().lower())
+    steps = dec.steps
+    dec.close()
+    return nccl / 1e6, wall, steps
+
+
+def held_tp_runs(torch, ops, model, seeds, ranks, label):
+    """The rank results of ``serve_tp_child``, job by job: every rank's
+    rows identical; each rank's launches exactly its path's (the greedy
+    job ``paged_attention`` LAYERS a step, the speculative int8 job
+    ``paged_attention_int8`` k x DRAFT_LAYERS + LAYERS a window) and
+    no other kernel, and two all-reduces a block of each forward; every
+    generated token within 1e-3 of its position's maximum under the
+    whole model on this card (the plain int8 window forward for int8
+    pools); each rank's pools its own H/tp heads, the whole pool's bytes
+    over tp.  Returns {path: counts} and each job's
+    (rows, ms a step, steps)."""
+    mp = len(ranks)
+    by_path, jobs = {}, []
+    for j, (kv, spec) in enumerate(TP_JOBS):
+        runs = [r[j] for r in ranks]
+        rows = runs[0]["rows"]
+        if any(r["rows"] != rows for r in runs):
+            raise AssertionError(f"{label} {kv}: the ranks' rows differ")
+        path = f"{label}" + ("_int8" if kv == "int8" else "")
+        for r in runs:
+            st = r["stats"]
+            if spec:
+                want = ("paged_attention_int8",
+                        st["steps"] * (spec * DRAFT_LAYERS + LAYERS))
+            else:
+                want = ("paged_attention", st["steps"] * LAYERS)
+            only_kernel(r["counts"], *want, f"{path} rank {r['index']}")
+            if r["reduces"] != 2 * want[1]:
+                raise AssertionError(f"{path} rank {r['index']}: "
+                                     f"{r['reduces']} all-reduces, not two "
+                                     f"a block of {want[1]}")
+            by_path[f"{path}_r{r['index']}"] = r["counts"]
+            tokens = (st["pool"]["pages"] + 1) * PAGE
+            whole = tokens * st["kv_bytes_per_token"]
+            if (st["tp"] != mp or r["pool_bytes"] * mp != whole
+                    or any(s[3] != HEADS // mp for s in r["pools"])):
+                raise AssertionError(
+                    f"{path} rank {r['index']}: tp {st['tp']}, pools "
+                    f"{r['pools']} of {r['pool_bytes']} B, the whole pool "
+                    f"{whole} B")
+        worst = forced_worst(torch, ops, model, rows, seeds, kv == "int8")
+        st = runs[0]["stats"]
+        step_ms = max(r["wall"] for r in runs) / st["steps"] * 1e3
+        print(f"{label} {kv}{f' spec k={spec}' if spec else ''} at mp "
+              f"{mp}: {len(seeds)} requests, {st['steps']} steps, "
+              f"{st['host_syncs']} host syncs, {st['tp_checks']} digest "
+              f"checks, {step_ms:.4f} ms/step (the slowest rank's wall), "
+              f"every rank's rows identical, teacher forcing largest gap "
+              f"{worst:.3e} (limit 1e-3); launches a rank "
+              f"{ops_nonzero(runs[0]['counts'])}, all-reduces "
+              f"{runs[0]['reduces']}; pools a rank "
+              f"{runs[0]['pool_bytes']} B {runs[0]['pools'][0]} "
+              f"(the whole pool {runs[0]['pool_bytes'] * mp} B)")
+        jobs.append((rows, step_ms, st["steps"]))
+    return by_path, jobs
+
+
+def same_share(rows, want, seeds):
+    """The share of generated tokens of ``rows`` equal to ``want``'s."""
+    same = total = 0
+    for row, w, s in zip(rows, want, seeds):
+        same += sum(a == b for a, b in zip(row[len(s):], w[len(s):]))
+        total += len(row) - len(s)
+    return same / total
+
+
+def tp_requests(seeds, fp_rows):
+    """The serving phase's TP_REQ shortest requests, in its order, and
+    their one-card rows."""
+    keep = sorted(sorted(range(len(seeds)), key=lambda i: len(seeds[i]))
+                  [:TP_REQ])
+    return [seeds[i] for i in keep], [fp_rows[i] for i in keep]
+
+
+def phase_serve_tp(torch, ops, model, seeds, fp_rows):
+    """Serving's tensor parallelism on the one card: the model axis of
+    ``hybrid_mesh(1, TP_ONE_CARD)`` as gloo ranks (gloo's all-reduce takes
+    CUDA tensors, through the host; NCCL takes no two ranks on one card),
+    each rank the serving model's shard on the card, TP_JOBS over the
+    serving phase's TP_REQ shortest requests; held by ``held_tp_runs``.  The
+    step time is a reading of this layout, not a tensor-parallel speed.
+    Returns the paths' launch counts."""
+    from bigdl_tpu_torch.parallel.launch import launch
+
+    seeds, fp_rows = tp_requests(seeds, fp_rows)
+    ranks = launch(serve_tp_child, TP_ONE_CARD, "gloo",
+                   args=("gloo", seeds, TP_JOBS, False))
+    by_path, jobs = held_tp_runs(torch, ops, model, seeds, ranks, "serve_tp")
+    smi = smi_line()
+    print(f"serve_tp: fp32 rows' tokens equal to the one-card serving "
+          f"phase's {same_share(jobs[0][0], fp_rows, seeds):.4f}, the int8 "
+          f"speculative rows' {same_share(jobs[1][0], fp_rows, seeds):.4f} "
+          f"(a reading); {jobs[0][1]:.4f} / {jobs[1][1]:.4f} ms/step with "
+          f"{TP_ONE_CARD} gloo ranks on one card [{smi}]")
+    return by_path
+
+
+def phase_serve_cards(torch, ops, model, seeds, fp_rows):
+    """Serving's tensor parallelism across TP_CARDS cards, one NCCL rank a
+    card, where the machine has them: TP_JOBS over the TP_REQ shortest
+    requests held by ``held_tp_runs``; ms a step beside the one-card
+    decoder's on the same requests and the NCCL kernels' share of a
+    profiled greedy run's wall."""
+    from bigdl_tpu_torch.parallel.launch import launch
+    from bigdl_tpu_torch.serve import ContinuousDecoder
+
+    smi = smi_line()
+    if torch.cuda.device_count() < TP_CARDS:
+        print(f"serve cards: {torch.cuda.device_count()} card(s): the "
+              f"{TP_CARDS}-card tensor-parallel decoder needs {TP_CARDS}; "
+              f"[{smi}]")
+        return {}
+    seeds, fp_rows = tp_requests(seeds, fp_rows)
+    ranks = launch(serve_tp_child, TP_CARDS, "nccl",
+                   args=("nccl", seeds, TP_JOBS, True))
+    by_path, jobs = held_tp_runs(torch, ops, model, seeds, ranks,
+                                 "serve_cards")
+    one = []
+    for kv, spec in TP_JOBS:
+        dec = ContinuousDecoder(model, max_slots=SLOTS, n_pos=N_POS,
+                                page_size=PAGE, kv_quant=kv, spec_k=spec,
+                                draft_layers=DRAFT_LAYERS, device="cuda")
+        futs = [dec.submit(s, N_WORDS) for s in seeds]
+        _, _, wall = run_path(torch, ops, dec.run)
+        one.append((wall / dec.steps * 1e3,
+                    [f.result(timeout=60) for f in futs]))
+        dec.close()
+    nccl_ms, wall_ms, steps = ranks[0][0]["nccl"]
+    print(f"serve_cards: ms/step {jobs[0][1]:.4f} (fp32) and "
+          f"{jobs[1][1]:.4f} (int8 spec) on {TP_CARDS} cards against one "
+          f"card's {one[0][0]:.4f} and {one[1][0]:.4f}; rows' tokens equal "
+          f"to one card's {same_share(jobs[0][0], one[0][1], seeds):.4f} / "
+          f"{same_share(jobs[1][0], one[1][1], seeds):.4f}; the NCCL "
+          f"kernels {nccl_ms / steps:.4f} device ms a step of a profiled "
+          f"greedy run's {wall_ms / steps:.4f} ms/step (share "
+          f"{nccl_ms / wall_ms:.4f}, rank 0) [{smi}]")
+    return by_path
+
+
+# ---------------------------------------------------------------------------
 # the training harness's host side: n steps a dispatch as one CUDA graph,
 # the background prefetch, checkpoints that resume the same trajectory
 # ---------------------------------------------------------------------------
@@ -4469,11 +4829,11 @@ def dispatch_runs(torch, ops, label, make, steps, per_step):
     ``per_step`` for each of the HDISPATCH steps its one capture
     recorded.  The graph run is held to the eager loop (bits where the
     deterministic algorithms give them, else GRAPH_TOL) and to the CPU.
-    Then each card run takes ``steps`` more steps under the profiler: its
-    device ms a step, and its kernels as the card ran them, counted by
-    name (``per_step`` a step in every run, the graph's replays
-    included).  Returns the graph run's wrapper counts, the kernels its
-    profiled replays ran."""
+    Then each card run takes ``steps`` more steps (READ["profiled"] where
+    it is set) under the profiler: its device ms a step, and its kernels
+    as the card ran them, counted by name (``per_step`` a step in every
+    run, the graph's replays included).  Returns the graph run's wrapper
+    counts, the kernels its profiled replays ran."""
     from bigdl_tpu_torch.optim import max_iteration
 
     runs = {}
@@ -4517,28 +4877,30 @@ def dispatch_runs(torch, ops, label, make, steps, per_step):
     held_to_cpu_run(torch, f"{label} graph", graph,
                     runs[f"n={HDISPATCH} cpu"][0])
     ran = {}
-    want_ran = {k: v * steps for k, v in per_step.items()}
+    profiled = READ["profiled"] or steps
+    want_ran = {k: v * profiled for k, v in per_step.items()}
     for name, (opt, c, wall, fetch) in runs.items():
         if name.endswith("cpu"):
             continue
         step_ms = wall / steps * 1e3
         with prefetch_set(fetch):
-            busy, ran[name] = profiled_run(torch, opt, steps)
+            busy, ran[name] = profiled_run(torch, opt, profiled)
         print(f"{label} {name}: {step_ms:.4f} ms/step, device "
               f"{busy:.4f} ms/step busy, idle share "
               f"{1 - busy / step_ms:.4f}; launches counted by the "
               f"wrappers {ops_nonzero(c)}; kernels the card ran under the "
-              f"profiler, {steps} steps {ran[name]}")
+              f"profiler, {profiled} steps {ran[name]}")
         if ran[name] != want_ran:
             raise AssertionError(f"{label} {name}: the card ran "
                                  f"{ran[name]} of the port's kernels in "
-                                 f"{steps} steps, expected {want_ran}")
+                                 f"{profiled} steps, expected {want_ran}")
     losses = [l for _, l in graph.loss_log]
     print(f"{label}: n={HDISPATCH} steps a dispatch as one CUDA graph, "
           f"{replays} replays of one capture; the wrappers counted the "
           f"capture's launches ({per_step} a step x {HDISPATCH} steps), the "
           f"profiler counted the replays' kernels ({per_step} a step x "
-          f"{steps} steps); held to the eager n={HDISPATCH} loop by {rule}; "
+          f"{profiled} steps); held to the eager n={HDISPATCH} loop by "
+          f"{rule}; "
           f"losses {losses[0]:.6f} -> {losses[-1]:.6f}")
     return counts, ran[f"n={HDISPATCH} graph"]
 
@@ -4586,9 +4948,9 @@ def prefetch_graph_run(torch, ops, label, make, per_step):
     the loop's own dispatch leaves the host, so the producer's batches
     overlap the replays.  A warm-up chunk, then two dispatches timed and
     counted (the wrappers count ``per_step`` a step of the one capture),
-    then two more under the profiler, which counts the kernels the
-    replays ran (``per_step`` a step).  Returns the wrapper counts and
-    the profiler's."""
+    then two more (READ["profiled"] steps where it is set) under the
+    profiler, which counts the kernels the replays ran (``per_step`` a
+    step).  Returns the wrapper counts and the profiler's."""
     from bigdl_tpu_torch.optim import max_iteration
     from bigdl_tpu_torch.utils.random import RNG
 
@@ -4601,10 +4963,11 @@ def prefetch_graph_run(torch, ops, label, make, per_step):
         fetch0, _ = opt.metrics.get("data fetch time")
         _, counts, wall = run_path(torch, ops, opt.optimize)
         fetch_s = opt.metrics.get("data fetch time")[0] - fetch0
-        busy, ran = profiled_run(torch, opt, steps)
+        profiled = READ["profiled"] or steps
+        busy, ran = profiled_run(torch, opt, profiled)
     want = {**dict.fromkeys(counts, 0),
             **{k: v * HDISPATCH for k, v in per_step.items()}}
-    want_ran = {k: v * steps for k, v in per_step.items()}
+    want_ran = {k: v * profiled for k, v in per_step.items()}
     losses = [l for _, l in opt.loss_log]
     if counts != want or ran != want_ran or opt.replays < 2 \
             or not np.isfinite(losses).all():
@@ -4618,7 +4981,7 @@ def prefetch_graph_run(torch, ops, label, make, per_step):
           f"wait) {fetch_s / wall:.4f} of the loop, device {busy:.4f} "
           f"ms/step busy, idle share {1 - busy / step_ms:.4f}; the wrappers "
           f"counted the capture's launches {ops_nonzero(counts)}, the "
-          f"profiler the replays' kernels in {steps} steps {ran}; losses "
+          f"profiler the replays' kernels in {profiled} steps {ran}; losses "
           f"{' '.join(f'{l:.6f}' for l in losses[-steps:])}")
     return counts, ran
 
@@ -5270,7 +5633,8 @@ def phase_bn_harness(torch, ops):
             if counts != {**dict.fromkeys(counts, 0), "fused_sgd": per_run}:
                 raise AssertionError(f"bn_harness {name}: the wrappers "
                                      f"counted {counts}")
-            busy, ran[name] = profiled_run(torch, opt, 2 * HDISPATCH)
+            profiled = READ["profiled"] or 2 * HDISPATCH
+            busy, ran[name] = profiled_run(torch, opt, profiled)
             step_ms = wall / HSTEPS * 1e3
             print(f"bn_harness {name} (n={opt.iters_per_dispatch}): "
                   f"{step_ms:.4f} ms/step, "
@@ -5278,8 +5642,8 @@ def phase_bn_harness(torch, ops):
                   f"{busy:.4f} ms/step busy, idle share "
                   f"{1 - busy / step_ms:.4f}; the wrappers counted "
                   f"{ops_nonzero(counts)}; the profiler, "
-                  f"{2 * HDISPATCH} steps: {ran[name]}")
-            if ran[name] != {"fused_sgd": 2 * HDISPATCH}:
+                  f"{profiled} steps: {ran[name]}")
+            if ran[name] != {"fused_sgd": profiled}:
                 raise AssertionError(f"bn_harness {name}: the card ran "
                                      f"{ran[name]}")
     moved = state_moved(torch, graph.model, init)
@@ -6021,6 +6385,7 @@ def distri_inception(torch, mode, steps, profile_n=0, batch=IBATCH,
         out["busy_ms"] = sum(e.device_time_total for e in rows) / 1e3 \
             / profile_n
         out["window_ms"] = window / profile_n * 1e3
+        out["profiled"] = profile_n
         nccl = [(e.key, e.device_time_total / 1e3 / profile_n,
                  e.count / profile_n) for e in rows if is_nccl_kernel(e.key)]
         # NCCL's kernels, and the ``nccl:<op>`` spans the profiler lays
@@ -6184,7 +6549,8 @@ def phase_distri(torch, ops, profile: bool):
                     distri_inception(torch, mode, 2, inputs=inputs)
                 for mode in ("local", "plain", "zero1", "bf16"):
                     runs[mode] = distri_inception(
-                        torch, mode, DSTEPS, DPROFILE_STEPS
+                        torch, mode, DSTEPS, (READ["train_profiled"]
+                                              or DPROFILE_STEPS)
                         if mode != "local" else 0, inputs=inputs)
                 # the bf16 wire against LocalOptimizer: one step's reduced
                 # gradient, and ICHECK_STEPS steps (the JAX test's horizon
@@ -6263,7 +6629,7 @@ def phase_distri(torch, ops, profile: bool):
                   f"{sum(ms for _, ms, _ in run['nccl']):.4f} ms ({nccl}; "
                   f"the collectives' spans on the device timeline: "
                   f"{spans}); "
-                  f"profiled over {DPROFILE_STEPS} steps: wall "
+                  f"profiled over {run['profiled']} steps: wall "
                   f"{run['window_ms']:.4f} ms/step, device busy "
                   f"{run['busy_ms']:.4f} ms/step, idle share "
                   f"{idle:.4f}; launches {ops_nonzero(run['counts'])}; "
@@ -6886,7 +7252,8 @@ def phase_attention_cards(torch, ops):
 # images) one fp32 rounding of the parameters carries the CPU against
 # itself past the params limit within two steps (``--parallel-vs-cpu``)
 PSTEPS, PWARM, PSHORT, PHELD_STEPS, PPROFILE = 20, 2, 4, 3, 8
-# the steady state's short and long calls, this many pairs (the median)
+# the steady state's short and long calls, this many pairs (the median;
+# READ["pairs"] in this process, the default in a spawned rank's)
 STEADY_PAIRS = 3
 PCHECK_STEPS, PCHECK_MICRO = 3, 4
 # a schedule against the serial program in its order: bits, or within
@@ -7046,7 +7413,8 @@ def only_counts(label, counts, want):
 
 def steady_ms(torch, ops, opt, short, long):
     """``opt``'s ms a step in its steady state, after a warm-up call:
-    STEADY_PAIRS times a call of ``short`` more steps, then one of ``long``,
+    READ["pairs"] times a call of ``short`` more steps, then one of
+    ``long``,
     each from zero counts; the difference of a pair's walls over ``long -
     short`` steps leaves out what a call spends before its first step
     and after its last (a pipeline's stages moved and gathered, the
@@ -7058,7 +7426,7 @@ def steady_ms(torch, ops, opt, short, long):
 
     done = int(opt.state["neval"]) - 1
     steps, setups = [], []
-    for _ in range(STEADY_PAIRS):
+    for _ in range(READ["pairs"]):
         walls = []
         for n in (short, long):
             done += n
@@ -7141,15 +7509,16 @@ def parallel_vgg_one(torch, ops, init, images, val, smi):
         counts, step_ms, setup_ms, peak, opt = pipe_vgg_timed(
             torch, ops, init, images, 1, schedule)
         only_counts(label, counts, pipe_counts(PSTEPS))
-        busy, window, _ = nccl_window(torch, opt, PPROFILE)
+        profiled = READ["pipe_profiled"] or PPROFILE
+        busy, window, _ = nccl_window(torch, opt, profiled)
         losses = [l for _, l in opt.loss_log]
         print(f"{label}: VggForCifar10 in 1 stage, {PMICRO} microbatches "
               f"of {VBATCH // PMICRO}: {step_ms:.4f} ms/step in the steady "
-              f"state (the median of {STEADY_PAIRS} pairs of calls of "
+              f"state (the median of {READ['pairs']} pairs of calls of "
               f"{PSHORT} and {PSTEPS} steps; a call's own set-up "
               f"{setup_ms:.4f} ms), {VBATCH / step_ms * 1e3:.1f} "
               f"images/s; device busy {busy:.4f} ms/step over a profiled "
-              f"call of {PPROFILE} steps, {window:.4f} ms/step of its wall "
+              f"call of {profiled} steps, {window:.4f} ms/step of its wall "
               f"(its set-up inside), idle share {1 - busy / window:.4f}; "
               f"max_memory_allocated {peak} B; peak microbatches in flight "
               f"{opt.pipe_result.peak_in_flight}; launches "
@@ -7631,9 +8000,6 @@ BF16_BILSTM_CASES = [(7, 2, 3, 5, True), (9, 1, 4, 5, False),
 # (1.6e-2) with room, as the CPU tests hold the port to JAX
 BF16_LOSS_RTOL, BF16_GRAD_RTOL, BF16_PARAM_ATOL = 2e-2, 3e-2, 1e-3
 BF16_CHECK_STEPS, BF16_LR = 2, 0.01
-# the dispatches a timed (and a traced) call replays past the one that
-# captures
-BENCH_DISPATCHES = 3
 # the wrappers whose kernels have a bf16 form: their launches under the
 # policy count as <name>_bf16
 BF16_FORMS = ("maxpool2d_forward", "maxpool2d_backward",
@@ -8035,7 +8401,7 @@ def bilstm_times_bf16(torch, ops, flush, g):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_ops / BF16_FLOPS * 1e3
         out[name] = {"ms": time_ms(torch, kernel, flush),
-                     "plain_ms": time_ms(torch, plain, flush, reps=5),
+                     "plain_ms": yard_ms(torch, plain, flush, reps=5),
                      "queued_ms": time_queued_ms(torch, kernel),
                      "library_ms": None, "bound_ms": max(t_bytes, t_ops),
                      "bytes": nbytes,
@@ -8066,12 +8432,12 @@ def bf16_layer_times(torch, flush, g):
     bt.set_policy(bt.BF16_COMPUTE)
     try:
         yl, yp = lib(xb)[0], port(xp)
-        return {"library_fwd_ms": time_ms(torch, lambda: lib(xb), flush),
-                "port_fwd_ms": time_ms(torch, lambda: port(xp), flush),
-                "library_bwd_ms": time_ms(torch, lambda: torch.autograd.grad(
+        return {"library_fwd_ms": yard_ms(torch, lambda: lib(xb), flush),
+                "port_fwd_ms": yard_ms(torch, lambda: port(xp), flush),
+                "library_bwd_ms": yard_ms(torch, lambda: torch.autograd.grad(
                     yl, [xb, *lib.parameters()], gb, retain_graph=True),
                     flush),
-                "port_bwd_ms": time_ms(torch, lambda: torch.autograd.grad(
+                "port_bwd_ms": yard_ms(torch, lambda: torch.autograd.grad(
                     yp, [xp, *port.parameters()], gy, retain_graph=True),
                     flush)}
     finally:
@@ -8140,7 +8506,7 @@ def rnn_times_bf16(torch, ops, flush, g, case):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / BF16_FLOPS * 1e3
         out[name] = {"ms": time_ms(torch, kernel, flush),
-                     "plain_ms": time_ms(torch, plain, flush, reps=5),
+                     "plain_ms": yard_ms(torch, plain, flush, reps=5),
                      "queued_ms": time_queued_ms(torch, kernel),
                      "library_ms": None, "bound_ms": max(t_bytes, t_ops),
                      "bytes": nbytes,
@@ -8181,12 +8547,12 @@ def rnn_bf16_layer_times(torch, flush, g):
         yl, yp = lib(xb)[0], port(xp)
         return {"same_layer_diff": float((yl.float() - yp).detach().abs()
                                          .max()),
-                "library_fwd_ms": time_ms(torch, lambda: lib(xb), flush),
-                "port_fwd_ms": time_ms(torch, lambda: port(xp), flush),
-                "library_bwd_ms": time_ms(torch, lambda: torch.autograd.grad(
+                "library_fwd_ms": yard_ms(torch, lambda: lib(xb), flush),
+                "port_fwd_ms": yard_ms(torch, lambda: port(xp), flush),
+                "library_bwd_ms": yard_ms(torch, lambda: torch.autograd.grad(
                     yl, [xb, *lib.parameters()], gb, retain_graph=True),
                     flush),
-                "port_bwd_ms": time_ms(torch, lambda: torch.autograd.grad(
+                "port_bwd_ms": yard_ms(torch, lambda: torch.autograd.grad(
                     yp, [xp, *port.parameters()], gy, retain_graph=True),
                     flush)}
     finally:
@@ -8333,7 +8699,7 @@ def phase_bf16_kernels(torch, ops):
     rows["lstm_scan"] = {
         "ms": time_ms(torch, lambda: ops.lstm_scan(zx[:, 0], wht[0], h0, h0),
                       flush),
-        "plain_ms": time_ms(torch, lambda: ops.lstm_scan_reference(
+        "plain_ms": yard_ms(torch, lambda: ops.lstm_scan_reference(
             zx[:, 0], wht[0], h0, h0), flush, reps=5),
         "queued_ms": time_queued_ms(
             torch, lambda: ops.lstm_scan(zx[:, 0], wht[0], h0, h0)),
@@ -8451,7 +8817,7 @@ def bench_run(torch, ops, cfg, init, batch, pol):
     dispatch through ``Optimizer(...).optimize()`` on the card, one CUDA
     graph a dispatch after the first (eager) chunk.  A first call of n
     steps (the eager chunk: the first loss, and the warm-up); a call of
-    1 + BENCH_DISPATCHES dispatches from zero launch counts, whose
+    1 + READ["dispatches"] dispatches from zero launch counts, whose
     dispatches past the capturing one give the ms a step (their median,
     ``dispatch_walls``); another such call with the card traced over the
     replayed ones, whose busy and wall give the idle share.  A call
@@ -8467,17 +8833,18 @@ def bench_run(torch, ops, cfg, init, batch, pol):
     try:
         RNG.set_seed(0)
         model = with_init(build("cuda", None), init)
-        opt = bench_opt(torch, model, batch, n, 3 + 2 * BENCH_DISPATCHES)
+        dispatches = READ["dispatches"]
+        opt = bench_opt(torch, model, batch, n, 3 + 2 * dispatches)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         opt.set_end_when(max_iteration(n)).optimize()
         first = opt.loss_log[0][1]
         walls, counts, _ = run_path(torch, ops, lambda: dispatch_walls(
-            torch, opt, BENCH_DISPATCHES))
+            torch, opt, dispatches))
         step_ms = statistics.median(walls) / n
-        _, busy, window = dispatch_walls(torch, opt, BENCH_DISPATCHES,
+        _, busy, window = dispatch_walls(torch, opt, dispatches,
                                          trace=True)
-        steps = BENCH_DISPATCHES * n
+        steps = dispatches * n
         peak = torch.cuda.max_memory_allocated()
         losses = [l for _, l in opt.loss_log]
         if not np.isfinite(losses).all():
@@ -8660,11 +9027,11 @@ def phase_bf16(torch, ops, profile: bool):
                   ) / abs(fig["FP32"]["first_loss"])
         for name, f in fig.items():
             print(f"bf16 {label} {name}: {f['step_ms']:.4f} ms/step (the "
-                  f"median of {BENCH_DISPATCHES} replayed dispatches of {n} "
+                  f"median of {READ['dispatches']} replayed dispatches of {n} "
                   f"steps on the card's clock; they ranged "
                   f"{f['spread'][0]:.4f}-{f['spread'][1]:.4f}), "
                   f"{f['rate']:.1f} {unit}; over another call's "
-                  f"{BENCH_DISPATCHES} replayed dispatches traced, device "
+                  f"{READ['dispatches']} replayed dispatches traced, device "
                   f"busy {f['busy_ms']:.4f} ms/step of {f['window_ms']:.4f} "
                   f"ms/step of wall, idle share {f['idle']:.4f}; "
                   f"max_memory_allocated {f['peak']} B; "
@@ -8730,10 +9097,24 @@ def phase_table(torch, ops, profile, rows):
     def counts_of(name, phase):
         return lambda: ({name: phase(torch, ops, profile)}, {})
 
+    # the serving phases load the attention library alone and run while
+    # the recurrences' libraries, the slowest, compile
     return [
         ("kernels", "kernels", lambda: [
             phase_kernels(torch, ops),
             phase_int8_attention_kernels(torch, ops)]),
+        ("verify_kernels", "kernels",
+         lambda: phase_verify_kernels(torch, ops, rows) or []),
+        ("serving", "path", slice_),
+        ("serving_int8", "path", lambda: ({
+            "serving_int8": phase_serving_int8(
+                torch, ops, *carry["serving"], profile)}, {})),
+        ("serve_features", "path", lambda: (phase_serve_features(
+            torch, ops, *carry["serving"]), {})),
+        ("serve_tp", "path", lambda: (phase_serve_tp(
+            torch, ops, *carry["serving"]), {})),
+        ("serve_cards", "path", lambda: (phase_serve_cards(
+            torch, ops, *carry["serving"]), {})),
         ("train_kernels", "kernels", lambda: phase_train_kernels(torch, ops)),
         ("conv_kernels", "kernels", lambda: phase_conv_kernels(torch, ops)),
         ("bilstm_kernels", "kernels",
@@ -8744,15 +9125,7 @@ def phase_table(torch, ops, profile, rows):
          lambda: phase_rnn_gru_kernels(torch, ops)),
         ("state_kernels", "kernels",
          lambda: phase_state_kernels(torch, ops, rows) or []),
-        ("verify_kernels", "kernels",
-         lambda: phase_verify_kernels(torch, ops, rows) or []),
         ("bf16_kernels", "kernels", lambda: phase_bf16_kernels(torch, ops)),
-        ("serving", "path", slice_),
-        ("serving_int8", "path", lambda: ({
-            "serving_int8": phase_serving_int8(
-                torch, ops, *carry["serving"], profile)}, {})),
-        ("serve_features", "path", lambda: (phase_serve_features(
-            torch, ops, *carry["serving"]), {})),
         ("lenet", "path", counts_of("lenet", phase_train)),
         ("inception", "path", counts_of("inception", phase_inception)),
         ("bilstm", "path", counts_of("bilstm", phase_bilstm)),
@@ -8797,7 +9170,10 @@ ONLY = {
     # serving: the attention kernels (the verify window among them), the
     # greedy fp32 and int8 paths and the request features
     "--serve": ("kernels", "verify_kernels", "serving", "serving_int8",
-                "serve_features"),
+                "serve_features", "serve_tp", "serve_cards"),
+    # serving's tensor parallelism across four cards: the serving phase
+    # (its model and requests) and the four-card decoder
+    "--serve-cards": ("serving", "serve_cards"),
     # the training kernels' checks and the harness
     "--harness": ("train_kernels", "harness"),
     # the batch-normalisation slice: its kernel checks and four paths
@@ -8836,10 +9212,12 @@ ONLY = {
 # the rnn forward and backward rows also their time at SimpleRNN's chunk;
 # the attention rows their split count, their time at serving's own
 # context and on the speculative verify window (verify_*: S = 5, shared
-# head pages; SDPA for fp32, dequantize + SDPA for int8); the pool rows the sums over an Inception step's pools at their
-# own shapes (kernel, bound and library ms, launches a step); the s2 pool
-# rows also over a VGG step's five pools and ResNet-50's stem pool; the
-# stride-1 rows a PyTorch copy or add moving their bytes; the bilstm and
+# head pages; SDPA for fp32, dequantize + SDPA for int8), and at a
+# tensor-parallel rank's heads (local_heads: by H, its split count, the
+# kernel's, plain and yardstick times and bound); the pool rows the sums
+# over an Inception step's pools at their own shapes (kernel, bound and
+# library ms, launches a step); the s2 pool rows also over a VGG step's
+# five pools and ResNet-50's stem pool; the stride-1 rows a PyTorch copy or add moving their bytes; the bilstm and
 # gru rows their time at the truncated classifiers' chunk from zeros and
 # from a carried state; the rnn forward and backward rows their time
 # under each activation kind; the harness's kernels the runs of their
@@ -8862,7 +9240,7 @@ ROW_EXTRA = ("layer_library_ms", "layer_port_ms", "same_size_library_ms",
              "chunk_state_ms", "act_ms", "device_lr_ms",
              "graph_kernel_runs", "verify_ms", "verify_plain_ms",
              "verify_library_ms", "verify_dequant_sdpa_ms",
-             "verify_bound_ms")
+             "verify_bound_ms", "local_heads")
 
 
 def main(argv) -> int:
@@ -8891,6 +9269,8 @@ def main(argv) -> int:
           f"(parallel; a phase waits for the ones it loads)")
 
     only = next((ONLY[a] for a in argv if a in ONLY), None)
+    if only is None and "--profile" not in argv:
+        short_readings()
     rows, by_path, graph_ran, failed = [], {}, {}, []
     for name, kind, run in phase_table(torch, ops, "--profile" in argv,
                                        rows):

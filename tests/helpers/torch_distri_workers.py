@@ -629,3 +629,104 @@ def bn_oracle_case(init, init_state, x, y, n_micro, mb, arch, step=1):
     out["serial_loss"] = float(total)
     out["serial_grads"], out["serial_state"] = stage_of(serial)
     return out
+
+
+# -- serving's tensor parallelism ---------------------------------------
+
+def _tp_numpy(handles) -> dict:
+    """A decoder's weight handles as ``{path: array}``: ``emb/weight``,
+    ``blocks/<li>/<ln1|attn|ln2|lin1|lin2>/<key>``, ``ln_f/..``,
+    ``head/..``."""
+    out = {}
+    for part in ("emb", "ln_f", "head"):
+        for k, t in getattr(handles, part).items():
+            out[f"{part}/{k}"] = t.numpy().copy()
+    for li, blk in enumerate(handles.blocks):
+        for name, d in zip(("ln1", "attn", "ln2", "lin1", "lin2"), blk):
+            for k, t in d.items():
+                out[f"blocks/{li}/{name}/{k}"] = t.numpy().copy()
+    return out
+
+
+def _tp_decode(model, mesh, seeds, n_words, kw, sampling, waves, alter):
+    """One decoder (``mesh`` None: one device) serving ``seeds`` ``waves``
+    times over, every wave from the same decoder; the rows, stats and
+    the attention calls and all-reduces the steps made."""
+    from bigdl_tpu_torch.models import transformer as tt
+    from bigdl_tpu_torch.serve.decode import ContinuousDecoder
+
+    calls = {"attention": 0, "all_reduce": 0}
+    attend, reduce = tt.paged_attention, tt.all_reduce
+
+    def counted_attention(*a, **k):
+        calls["attention"] += 1
+        return attend(*a, **k)
+
+    def counted_reduce(*a, **k):
+        calls["all_reduce"] += 1
+        return reduce(*a, **k)
+
+    tt.paged_attention, tt.all_reduce = counted_attention, counted_reduce
+    try:
+        dec = ContinuousDecoder(model, device="cpu", mesh=mesh, **kw)
+        rows, stats = [], []
+        for _ in range(waves):
+            sub = [list(s) for s in seeds]
+            if alter:
+                sub[1] = sub[1] + [1]
+            futs = [dec.submit(s, n_words, sampling=sp)
+                    for s, sp in zip(sub, sampling)]
+            try:
+                dec.run()
+            except Exception as e:   # the mismatch under test, returned
+                return {"raised": (type(e).__name__, str(e)),
+                        "futures": [type(f.exception(timeout=5)).__name__
+                                    for f in futs]}
+            rows.append([f.result(timeout=30) for f in futs])
+            stats.append(dec.stats())
+        out = {"rows": rows, "stats": stats, "calls": dict(calls),
+               "pools": [(tuple(c.shape), str(c.dtype), c.is_contiguous())
+                         for c in dec._caches]}
+        if mesh is not None:
+            out["handles"] = _tp_numpy(dec._handles)
+        dec.close()
+        return out
+    finally:
+        tt.paged_attention, tt.all_reduce = attend, reduce
+
+
+def tp_decode_case(arch, params, dp, mp, cases):
+    """Serving's tensor parallelism on this rank: the LM of ``arch`` with
+    the JAX parameters ``params``, ``hybrid_mesh(dp, mp)`` under gloo and
+    each case of ``cases`` (dicts of ``seeds``, ``n_words``, the decoder's
+    keyword arguments ``kw`` and optionally ``sampling`` (one a seed),
+    ``waves`` (the seeds served that many times from one decoder) and
+    ``alter`` (a rank whose index is it submits its second request one
+    token longer)) served through ``ContinuousDecoder(mesh=)`` and, but
+    for ``alter``, through the one-device decoder.  Each case's results,
+    or the (type, text) of what the decoder's construction raised."""
+    from bigdl_tpu_torch.parallel.mesh import hybrid_mesh
+
+    model = load_jax_params(build("lm", arch), params).evaluate()
+    mesh = hybrid_mesh(dp, mp, "cpu")
+    out = []
+    for case in cases:
+        seeds = case["seeds"]
+        sampling = case.get("sampling") or [None] * len(seeds)
+        waves = case.get("waves", 1)
+        alter = case.get("alter")
+        res = {"rank": Engine.process_index(),
+               "model_index": mesh.axis("model").index}
+        try:
+            res["tp"] = _tp_decode(
+                model, mesh, seeds, case["n_words"], case["kw"], sampling,
+                waves, alter is not None
+                and mesh.axis("model").index == alter)
+        except ValueError as e:   # the refusal under test, returned
+            res["refused"] = (type(e).__name__, str(e))
+        if alter is None and "refused" not in res:
+            res["one"] = _tp_decode(model, None, seeds, case["n_words"],
+                                    case["kw"], sampling, waves, False)
+        out.append(res)
+        dist.barrier()
+    return out

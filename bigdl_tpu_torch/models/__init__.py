@@ -6,7 +6,8 @@ from bigdl_tpu_torch.models.inception import (Inception_v1,
                                               Inception_v2, inception_module,
                                               inception_v2_module)
 from bigdl_tpu_torch.models.lenet import LeNet5
-from bigdl_tpu_torch.models.resnet import ResNet, ResNetCifar
+from bigdl_tpu_torch.models.resnet import (ResNet, ResNetCifar, basic_block,
+                                           bottleneck)
 from bigdl_tpu_torch.models.rnn import BiLSTMClassifier, SimpleRNN, generate
 from bigdl_tpu_torch.models.textclassifier import (TextClassifierBiLSTM,
                                                    TextClassifierConv)
@@ -19,5 +20,6 @@ __all__ = ["AlexNet", "AlexNet_OWT", "Autoencoder", "BiLSTMClassifier",
            "LeNet5", "ResNet", "ResNetCifar", "SimpleRNN",
            "TextClassifierBiLSTM", "TextClassifierConv",
            "TransformerClassifier", "TransformerLM",
-           "Vgg_16", "Vgg_19", "VggForCifar10", "generate",
+           "Vgg_16", "Vgg_19", "VggForCifar10", "basic_block", "bottleneck",
+           "generate",
            "inception_module", "inception_v2_module"]

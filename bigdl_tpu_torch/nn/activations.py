@@ -255,8 +255,11 @@ class PReLU(TensorModule):
     def __init__(self, n_output_plane: int = 0, device=None):
         super().__init__()
         self.n_output_plane = n_output_plane
-        self._add_param("weight", torch.full((max(1, n_output_plane),),
-                                             0.25), device)
+        self._add_param("weight", self._draw()["weight"], device)
+
+    def _draw(self, generator=None) -> dict:
+        """The initial value (``Module.reset`` sets it again)."""
+        return {"weight": torch.full((max(1, self.n_output_plane),), 0.25)}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight

@@ -48,13 +48,18 @@ class MultiHeadSelfAttention(TensorModule):
         self.d_model = d_model
         self.n_heads = n_heads
         self.causal = causal
-        for name in ("wq", "wk", "wv", "wo"):
-            self._add_param(name, init_.default_linear(
-                (d_model, d_model), d_model, generator), device)
-            self._add_param(name.replace("w", "b"), torch.zeros(d_model),
-                            device)
+        for k, v in self._draw(generator).items():
+            self._add_param(k, v, device)
         self.seq_axis = None
         self.model_axis = None
+
+    def _draw(self, generator=None) -> dict:
+        """The initial values (``Module.reset`` draws them again)."""
+        d, out = self.d_model, {}
+        for name in ("wq", "wk", "wv", "wo"):
+            out[name] = init_.default_linear((d, d), d, generator)
+            out[name.replace("w", "b")] = torch.zeros(d)
+        return out
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, d = x.shape

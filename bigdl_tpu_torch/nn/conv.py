@@ -74,32 +74,35 @@ class SpatialConvolution(TensorModule):
         self.n_group = n_group
         self.propagate_back = propagate_back
         self.init_method = init_method
-        shape = (n_output_plane, n_input_plane // n_group, kernel_h,
-                 kernel_w)
-        if init_method == init_.Xavier:
-            area = kernel_h * kernel_w
-            weight = init_.xavier(shape, n_input_plane // n_group * area,
-                                  n_output_plane // n_group * area,
-                                  generator)
-            bias = torch.zeros(n_output_plane)
-        elif init_method == init_.MSRA:
-            weight = init_.msra(shape, kernel_w * kernel_h * n_output_plane,
-                                generator)
-            bias = torch.zeros(n_output_plane)
-        elif init_method == init_.Default:
-            stdv = 1.0 / math.sqrt(kernel_w * kernel_h * n_input_plane)
-            weight = init_.uniform(shape, -stdv, stdv, generator)
-            bias = (init_.uniform((n_output_plane,), -stdv, stdv, generator)
-                    if with_bias else None)
-        else:
-            raise ValueError(f"SpatialConvolution: no init method "
-                             f"{init_method!r} in this port")
-        self._add_param("weight", weight, device)
+        self.with_bias = with_bias
+        draws = self._draw(generator)
+        self._add_param("weight", draws["weight"], device)
         if with_bias:
-            self._add_param("bias", bias, device)
+            self._add_param("bias", draws["bias"], device)
         else:
             self.bias = None
         self.model_axis = None
+
+    def _draw(self, generator=None) -> dict:
+        """The initial values (``Module.reset`` draws them again)."""
+        n_in, n_out, g = self.n_input_plane, self.n_output_plane, self.n_group
+        kw, kh = self.kernel_w, self.kernel_h
+        shape = (n_out, n_in // g, kh, kw)
+        if self.init_method == init_.Xavier:
+            return {"weight": init_.xavier(shape, n_in // g * kh * kw,
+                                           n_out // g * kh * kw, generator),
+                    "bias": torch.zeros(n_out)}
+        if self.init_method == init_.MSRA:
+            return {"weight": init_.msra(shape, kw * kh * n_out, generator),
+                    "bias": torch.zeros(n_out)}
+        if self.init_method != init_.Default:
+            raise ValueError(f"SpatialConvolution: no init method "
+                             f"{self.init_method!r} in this port")
+        stdv = 1.0 / math.sqrt(kw * kh * n_in)
+        out = {"weight": init_.uniform(shape, -stdv, stdv, generator)}
+        if self.with_bias:
+            out["bias"] = init_.uniform((n_out,), -stdv, stdv, generator)
+        return out
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         was3d = x.dim() == 3
@@ -153,19 +156,23 @@ class SpatialDilatedConvolution(TensorModule):
         self.pad_w, self.pad_h = pad_w, pad_h
         self.dilation_w, self.dilation_h = dilation_w, dilation_h
         self.init_method = init_method
-        shape = (n_output_plane, n_input_plane, kh, kw)
-        fan_in = n_input_plane * kh * kw
-        if init_method == init_.Xavier:
-            weight = init_.xavier(shape, fan_in, n_output_plane * kh * kw,
-                                  generator)
-            bias = torch.zeros(n_output_plane)
-        else:
-            stdv = 1.0 / math.sqrt(fan_in)
-            weight = init_.uniform(shape, -stdv, stdv, generator)
-            bias = init_.uniform((n_output_plane,), -stdv, stdv, generator)
         dev = resolve_device(device)
-        self._add_param("weight", weight, dev)
-        self._add_param("bias", bias, dev)
+        for k, v in self._draw(generator).items():
+            self._add_param(k, v, dev)
+
+    def _draw(self, generator=None) -> dict:
+        n_in, n_out, kh, kw = (self.n_input_plane, self.n_output_plane,
+                               self.kh, self.kw)
+        shape = (n_out, n_in, kh, kw)
+        fan_in = n_in * kh * kw
+        if self.init_method == init_.Xavier:
+            return {"weight": init_.xavier(shape, fan_in, n_out * kh * kw,
+                                           generator),
+                    "bias": torch.zeros(n_out)}
+        stdv = 1.0 / math.sqrt(fan_in)
+        w = init_.uniform(shape, -stdv, stdv, generator)
+        return {"weight": w,
+                "bias": init_.uniform((n_out,), -stdv, stdv, generator)}
 
     def forward(self, x):
         x, was3d = _batched(x)
@@ -206,20 +213,24 @@ class SpatialFullConvolution(TensorModule):
         self.n_group = n_group
         self.no_bias = no_bias
         self.init_method = init_method
-        shape = (n_input_plane, n_output_plane // n_group, kh, kw)
-        if init_method == init_.BilinearFiller:
-            weight = init_.bilinear_filler(shape)
-            bias = torch.zeros(n_output_plane)
-        else:
-            stdv = 1.0 / math.sqrt((n_input_plane // n_group) * kh * kw)
-            weight = init_.uniform(shape, -stdv, stdv, generator)
-            bias = init_.uniform((n_output_plane,), -stdv, stdv, generator)
+        draws = self._draw(generator)
         dev = resolve_device(device)
-        self._add_param("weight", weight, dev)
+        self._add_param("weight", draws["weight"], dev)
         if no_bias:
             self.bias = None
         else:
-            self._add_param("bias", bias, dev)
+            self._add_param("bias", draws["bias"], dev)
+
+    def _draw(self, generator=None) -> dict:
+        n_in, n_out, g = self.n_input_plane, self.n_output_plane, self.n_group
+        shape = (n_in, n_out // g, self.kh, self.kw)
+        if self.init_method == init_.BilinearFiller:
+            return {"weight": init_.bilinear_filler(shape),
+                    "bias": torch.zeros(n_out)}
+        stdv = 1.0 / math.sqrt((n_in // g) * self.kh * self.kw)
+        w = init_.uniform(shape, -stdv, stdv, generator)
+        return {"weight": w,
+                "bias": init_.uniform((n_out,), -stdv, stdv, generator)}
 
     def forward(self, x):
         x, was3d = _batched(x)
@@ -254,15 +265,19 @@ class SpatialConvolutionMap(TensorModule):
         for f, t in conn:
             mask[t - 1, f - 1] = 1.0
         self.mask = mask
-        fan_in = mask.sum((1, 2, 3)).clamp_min(1.0) * (kw * kh)
-        stdv = 1.0 / fan_in.sqrt()
-        weight = init_.uniform((self.n_output_plane, self.n_input_plane, kh,
-                                kw), -1.0, 1.0, generator)
-        bias = init_.uniform((self.n_output_plane,), -1.0, 1.0, generator)
         dev = resolve_device(device)
-        self._add_param("weight", weight * stdv[:, None, None, None] * mask,
-                        dev)
-        self._add_param("bias", bias * stdv, dev)
+        for k, v in self._draw(generator).items():
+            self._add_param(k, v, dev)
+
+    def _draw(self, generator=None) -> dict:
+        mask = self.mask
+        fan_in = mask.sum((1, 2, 3)).clamp_min(1.0) * (self.kw * self.kh)
+        stdv = 1.0 / fan_in.sqrt()
+        weight = init_.uniform((self.n_output_plane, self.n_input_plane,
+                                self.kh, self.kw), -1.0, 1.0, generator)
+        bias = init_.uniform((self.n_output_plane,), -1.0, 1.0, generator)
+        return {"weight": weight * stdv[:, None, None, None] * mask,
+                "bias": bias * stdv}
 
     @staticmethod
     def full(n_in: int, n_out: int) -> np.ndarray:

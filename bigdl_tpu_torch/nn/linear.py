@@ -69,19 +69,25 @@ class Linear(TensorModule):
         self.output_size = output_size
         self.with_bias = with_bias
         self.init_method = init_method
-        shape = (output_size, input_size)
-        if init_method == init_.Xavier:
-            w = init_.xavier(shape, input_size, output_size, generator)
-            b = torch.zeros(output_size)
-        else:
-            w = init_.default_linear(shape, input_size, generator)
-            b = init_.default_linear((output_size,), input_size, generator)
-        self._add_param("weight", w, device)
+        draws = self._draw(generator)
+        self._add_param("weight", draws["weight"], device)
         if with_bias:
-            self._add_param("bias", b, device)
+            self._add_param("bias", draws["bias"], device)
         else:
             self.bias = None
         self.model_axis = None
+
+    def _draw(self, generator=None) -> dict:
+        """The initial values (``Module.reset`` draws them again)."""
+        shape = (self.output_size, self.input_size)
+        if self.init_method == init_.Xavier:
+            return {"weight": init_.xavier(shape, self.input_size,
+                                           self.output_size, generator),
+                    "bias": torch.zeros(self.output_size)}
+        w = init_.default_linear(shape, self.input_size, generator)
+        return {"weight": w,
+                "bias": init_.default_linear((self.output_size,),
+                                             self.input_size, generator)}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         axis = self.model_axis
@@ -108,13 +114,20 @@ class Bilinear(TensorModule):
         self.input_size2 = input_size2
         self.output_size = output_size
         self.bias_res = bias_res
-        stdv = 1.0 / math.sqrt(input_size1)
-        self._add_param("weight", init_.uniform(
-            (output_size, input_size1, input_size2), -stdv, stdv, generator),
-            dev)
+        draws = self._draw(generator)
+        self._add_param("weight", draws["weight"], dev)
         if bias_res:
-            self._add_param("bias", init_.uniform(
-                (output_size,), -stdv, stdv, generator), dev)
+            self._add_param("bias", draws["bias"], dev)
+
+    def _draw(self, generator=None) -> dict:
+        stdv = 1.0 / math.sqrt(self.input_size1)
+        out = {"weight": init_.uniform(
+            (self.output_size, self.input_size1, self.input_size2), -stdv,
+            stdv, generator)}
+        if self.bias_res:
+            out["bias"] = init_.uniform((self.output_size,), -stdv, stdv,
+                                        generator)
+        return out
 
     def forward(self, x):
         x = as_table(x)
@@ -129,10 +142,12 @@ class CMul(TensorModule):
     def __init__(self, size, device="cuda", generator=None):
         super().__init__()
         self.size = tuple(size)
-        stdv = 1.0 / math.sqrt(math.prod(self.size))
-        self._add_param("weight", init_.uniform(self.size, -stdv, stdv,
-                                                generator),
+        self._add_param("weight", self._draw(generator)["weight"],
                         resolve_device(device))
+
+    def _draw(self, generator=None) -> dict:
+        stdv = 1.0 / math.sqrt(math.prod(self.size))
+        return {"weight": init_.uniform(self.size, -stdv, stdv, generator)}
 
     def forward(self, x):
         return x * self.weight
@@ -145,10 +160,12 @@ class CAdd(TensorModule):
     def __init__(self, size, device="cuda", generator=None):
         super().__init__()
         self.size = tuple(size)
-        stdv = 1.0 / math.sqrt(math.prod(self.size))
-        self._add_param("bias", init_.uniform(self.size, -stdv, stdv,
-                                              generator),
+        self._add_param("bias", self._draw(generator)["bias"],
                         resolve_device(device))
+
+    def _draw(self, generator=None) -> dict:
+        stdv = 1.0 / math.sqrt(math.prod(self.size))
+        return {"bias": init_.uniform(self.size, -stdv, stdv, generator)}
 
     def forward(self, x):
         return x + self.bias
@@ -160,8 +177,11 @@ class Mul(TensorModule):
 
     def __init__(self, device="cuda", generator=None):
         super().__init__()
-        self._add_param("weight", init_.uniform((1,), -1.0, 1.0, generator),
+        self._add_param("weight", self._draw(generator)["weight"],
                         resolve_device(device))
+
+    def _draw(self, generator=None) -> dict:
+        return {"weight": init_.uniform((1,), -1.0, 1.0, generator)}
 
     def forward(self, x):
         return x * self.weight[0]
@@ -176,10 +196,13 @@ class Add(TensorModule):
         super().__init__()
         self.input_size = 1 if scalar else input_size
         self.scalar = scalar
-        stdv = 1.0 / math.sqrt(self.input_size)
-        self._add_param("bias", init_.uniform((self.input_size,), -stdv,
-                                              stdv, generator),
+        self._add_param("bias", self._draw(generator)["bias"],
                         resolve_device(device))
+
+    def _draw(self, generator=None) -> dict:
+        stdv = 1.0 / math.sqrt(self.input_size)
+        return {"bias": init_.uniform((self.input_size,), -stdv, stdv,
+                                      generator)}
 
     def forward(self, x):
         return x + (self.bias[0] if self.scalar else self.bias)
@@ -253,10 +276,13 @@ class Cosine(TensorModule):
         super().__init__()
         self.input_size = input_size
         self.output_size = output_size
-        stdv = 1.0 / math.sqrt(input_size)
-        self._add_param("weight", init_.uniform(
-            (output_size, input_size), -stdv, stdv, generator),
-            resolve_device(device))
+        self._add_param("weight", self._draw(generator)["weight"],
+                        resolve_device(device))
+
+    def _draw(self, generator=None) -> dict:
+        stdv = 1.0 / math.sqrt(self.input_size)
+        return {"weight": init_.uniform(
+            (self.output_size, self.input_size), -stdv, stdv, generator)}
 
     def forward(self, x):
         w = self.weight
@@ -275,10 +301,13 @@ class Euclidean(TensorModule):
         super().__init__()
         self.input_size = input_size
         self.output_size = output_size
-        stdv = 1.0 / math.sqrt(input_size)
-        self._add_param("weight", init_.uniform(
-            (input_size, output_size), -stdv, stdv, generator),
-            resolve_device(device))
+        self._add_param("weight", self._draw(generator)["weight"],
+                        resolve_device(device))
+
+    def _draw(self, generator=None) -> dict:
+        stdv = 1.0 / math.sqrt(self.input_size)
+        return {"weight": init_.uniform(
+            (self.input_size, self.output_size), -stdv, stdv, generator)}
 
     def forward(self, x):
         diff = x[..., :, None] - self.weight
@@ -307,9 +336,12 @@ class LookupTable(TensorModule):
         self.padding_value = padding_value
         self.max_norm = max_norm
         self.norm_type = norm_type
-        self._add_param("weight", init_.normal((n_index, n_output), 0.0, 1.0,
-                                               generator),
+        self._add_param("weight", self._draw(generator)["weight"],
                         resolve_device(device))
+
+    def _draw(self, generator=None) -> dict:
+        return {"weight": init_.normal((self.n_index, self.n_output), 0.0,
+                                       1.0, generator)}
 
     def forward(self, x):
         w = self.weight

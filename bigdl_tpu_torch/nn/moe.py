@@ -49,21 +49,24 @@ class MoE(TensorModule):
         self.n_experts = n_experts
         self.capacity_factor = capacity_factor
         device = resolve_device(device)
-        d, h, e = d_model, hidden, n_experts
-        self._add_param("router", init_.default_linear((d, e), d, generator),
-                        device)
-        self._add_param("w1", init_.default_linear((e, d, h), d, generator),
-                        device)
-        self._add_param("b1", torch.zeros(e, h), device)
-        self._add_param("w2", init_.default_linear((e, h, d), h, generator),
-                        device)
-        self._add_param("b2", torch.zeros(e, d), device)
+        for k, v in self._draw(generator).items():
+            self._add_param(k, v, device)
         self.gate_axis = None
         self.expert_axis = None
         #: tokens dropped by the last forward (a device scalar), and its
         #: token count
         self.dropped = None
         self.tokens = 0
+
+    def _draw(self, generator=None) -> dict:
+        """The initial values (``Module.reset`` draws them again)."""
+        d, h, e = self.d_model, self.hidden, self.n_experts
+        router = init_.default_linear((d, e), d, generator)
+        w1 = init_.default_linear((e, d, h), d, generator)
+        b1 = torch.zeros(e, h)
+        w2 = init_.default_linear((e, h, d), h, generator)
+        return {"router": router, "w1": w1, "b1": b1, "w2": w2,
+                "b2": torch.zeros(e, d)}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d, e = x.shape[-1], self.n_experts

@@ -79,17 +79,30 @@ class BatchNormalization(TensorModule):
         self.momentum = momentum
         self.affine = affine
         if affine:
-            self._add_param("weight", init_.uniform((n_output,), 0.0, 1.0,
-                                                    generator), device)
-            self._add_param("bias", torch.zeros(n_output), device)
+            for k, v in self._draw(generator).items():
+                self._add_param(k, v, device)
         else:
             self.weight = self.bias = None
         self._add_buffer("running_mean", torch.zeros(n_output), device)
         self._add_buffer("running_var", torch.ones(n_output), device)
         self.process_group = None
 
+    def _draw(self, generator=None) -> dict:
+        """The initial values (``Module.reset`` draws them again)."""
+        if not self.affine:
+            return {}
+        return {"weight": init_.uniform((self.n_output,), 0.0, 1.0,
+                                        generator),
+                "bias": torch.zeros(self.n_output)}
+
+    def _reset_state(self):
+        """The running statistics back to their start (``reset``)."""
+        with torch.no_grad():
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
     def __getstate__(self):
-        state = dict(self.__dict__)
+        state = super().__getstate__()
         state["process_group"] = None
         return state
 
@@ -239,9 +252,15 @@ class LayerNorm(TensorModule):
         self.d_model = d_model
         self.eps = eps
         self.affine = affine
-        if affine:
-            self._add_param("weight", torch.ones(d_model), device)
-            self._add_param("bias", torch.zeros(d_model), device)
+        for k, v in self._draw().items():
+            self._add_param(k, v, device)
+
+    def _draw(self, generator=None) -> dict:
+        """The initial values (``Module.reset`` sets them again)."""
+        if not self.affine:
+            return {}
+        return {"weight": torch.ones(self.d_model),
+                "bias": torch.zeros(self.d_model)}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if policy().compute_dtype != torch.float32:

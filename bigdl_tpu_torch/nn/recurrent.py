@@ -123,10 +123,15 @@ class Cell(Module):
     def _uniform(self, shapes, device, generator):
         """Each (name, shape) parameter U(-1/sqrt(H), 1/sqrt(H)), drawn in
         order, as the JAX cells draw them."""
+        self._param_shapes = tuple(shapes)
+        for name, v in self._draw(generator).items():
+            self._add_param(name, v, device)
+
+    def _draw(self, generator=None) -> dict:
+        """The initial values (``Module.reset`` draws them again)."""
         stdv = 1.0 / math.sqrt(self.hidden_size)
-        for name, shape in shapes:
-            self._add_param(name, init_.uniform(shape, -stdv, stdv,
-                                                generator), device)
+        return {name: init_.uniform(shape, -stdv, stdv, generator)
+                for name, shape in getattr(self, "_param_shapes", ())}
 
     def init_hidden(self, batch: int):
         """Zeros (batch, H) on the parameters' device and dtype."""

@@ -5,8 +5,10 @@ bigdl_tpu/ops/pallas_kernels.py), each beside its plain PyTorch version.
 that only a real kernel launch increments.  A wrapper whose kernel has a
 bf16 form (the pools, the LRN, the LSTM and RNN recurrences and
 ``lstm_scan``) counts that form's launches apart, in ``launches_bf16``:
-``launch_counts()`` reports them as ``<name>_bf16``.  ``Act`` describes the
-element-wise activation the RNN kernels apply.
+``launch_counts()`` reports them as ``<name>_bf16``; ``fused_sgd``'s
+scaled form (per-parameter learning rates) is counted apart likewise, in
+``launches_scaled``, reported as ``fused_sgd_scaled``.  ``Act`` describes
+the element-wise activation the RNN kernels apply.
 """
 from bigdl_tpu_torch.ops._activation import Act
 from bigdl_tpu_torch.ops.bilstm import (bilstm_backward,
@@ -46,17 +48,23 @@ KERNELS = (paged_attention, paged_attention_int8, fused_sgd,
            gru_dwh, lstm_scan)
 
 
+#: the forms a wrapper counts apart from ``launches``: (attribute, suffix)
+FORMS = (("launches_bf16", "_bf16"), ("launches_scaled", "_scaled"))
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
-        if hasattr(k, "launches_bf16"):
-            k.launches_bf16 = 0
+        for attr, _ in FORMS:
+            if hasattr(k, attr):
+                setattr(k, attr, 0)
 
 
 def launch_counts() -> dict:
     counts = {k.__name__: k.launches for k in KERNELS}
-    counts |= {f"{k.__name__}_bf16": k.launches_bf16 for k in KERNELS
-               if hasattr(k, "launches_bf16")}
+    for attr, suffix in FORMS:
+        counts |= {f"{k.__name__}{suffix}": getattr(k, attr)
+                   for k in KERNELS if hasattr(k, attr)}
     return counts
 
 

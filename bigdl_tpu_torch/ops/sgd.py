@@ -19,6 +19,17 @@ step captured in a CUDA graph after one eager step uploads nothing.
 device that the kernel reads when it runs: the form a captured graph
 needs, since a scheduled lr changes between replays.  Both forms give
 the same bits.
+
+``scales`` (per-parameter learning rates, the reference's
+``learningRates``): one float32 tensor a leaf, of the leaf's shape or
+broadcastable to it, on its device; the step direction is multiplied by
+it before the rate, the velocity is not.  The kernel's scaled form reads
+them from the same leaf table, one launch a step as before;
+``fused_sgd.launches_scaled`` counts its launches apart from
+``launches``.  The scales are checked when a table is built, and a
+broadcast one is materialised then and kept with the table: a table's
+key holds each scale's address and version counter, so a scale written
+in place gets a new table.
 """
 from __future__ import annotations
 
@@ -48,7 +59,7 @@ def _lib() -> ctypes.CDLL:
         lib.bigdl_fused_sgd_f32.argtypes = [
             _VP, _I, _I, _I,            # table n_leaves n_chunks chunk
             _F, _VP, _F, _F, _F, _I,    # lr lr_dev mom wd damp nesterov
-            _VP, _I, _VP]               # finite device stream
+            _I, _VP, _I, _VP]           # scaled finite device stream
         lib.bigdl_fused_sgd_f32.restype = _I
         lib.bigdl_cuda_error_string.argtypes = [_I]
         lib.bigdl_cuda_error_string.restype = ctypes.c_char_p
@@ -58,14 +69,18 @@ def _lib() -> ctypes.CDLL:
 
 def fused_sgd_reference(params, grads, velocity, lr, momentum=0.0,
                         weight_decay=0.0, dampening=0.0, nesterov=False,
-                        finite=None):
+                        finite=None, scales=None):
     """Plain version: the unfused math of ``SGD.update``
-    (bigdl_tpu/optim/optim_method.py:135-147) leaf by leaf, written into
+    (bigdl_tpu/optim/optim_method.py:135-150) leaf by leaf, written into
     ``params`` and ``velocity``; with ``momentum == 0`` the velocity is
-    untouched.  ``lr`` is a float or a one-element float32 tensor.  ``finite`` (a bool tensor or None) keeps every leaf as it
-    was where it is False."""
+    untouched.  ``lr`` is a float or a one-element float32 tensor.
+    ``finite`` (a bool tensor or None) keeps every leaf as it was where it
+    is False.  ``scales`` (None, or one tensor a leaf, broadcastable to
+    it) multiply the step direction before the rate."""
+    if scales is None:
+        scales = [None] * len(params)
     with torch.no_grad():
-        for p, g, v in zip(params, grads, velocity):
+        for p, g, v, s in zip(params, grads, velocity, scales):
             if weight_decay != 0.0:
                 g = g + weight_decay * p
             if momentum != 0.0:
@@ -73,6 +88,8 @@ def fused_sgd_reference(params, grads, velocity, lr, momentum=0.0,
                 step = g + momentum * v_new if nesterov else v_new
             else:
                 v_new, step = v, g
+            if s is not None:
+                step = step * s
             p_new = p - lr * step
             if finite is not None:
                 p_new = torch.where(finite, p_new, p)
@@ -84,37 +101,77 @@ def fused_sgd_reference(params, grads, velocity, lr, momentum=0.0,
 
 
 def fused_sgd(params, grads, velocity, lr, momentum=0.0, weight_decay=0.0,
-              dampening=0.0, nesterov=False, finite=None):
+              dampening=0.0, nesterov=False, finite=None, scales=None):
     """One momentum-SGD step over lists of leaves ``params``, ``grads``,
     ``velocity`` (f32, one shape per triple), in place; returns
     ``(params, velocity)``.  ``lr``: a float, or a one-element float32
     tensor on the leaves' device, read when the kernel runs.  ``finite``:
     None, or a one-element bool tensor on the leaves' device; where it is
-    False nothing changes."""
+    False nothing changes.  ``scales``: None, or one float32 tensor a
+    leaf (the leaf's shape or broadcastable to it, on its device), the
+    per-parameter learning rates."""
     dev = params[0].device
     if dev.type == "cpu":
-        return fused_sgd_reference(params, grads, velocity, lr, momentum,
-                                   weight_decay, dampening, nesterov, finite)
+        return fused_sgd_reference(
+            params, grads, velocity, lr, momentum, weight_decay, dampening,
+            nesterov, finite,
+            None if scales is None else _checked_scales(params, scales))
     if dev.type != "cuda":
         raise ValueError(f"fused_sgd: no kernel for device {dev}")
     _launch(params, grads, velocity, lr, momentum, weight_decay, dampening,
-            nesterov, finite)
+            nesterov, finite, scales)
     return params, velocity
 
 
-fused_sgd.launches = 0
+fused_sgd.launches = fused_sgd.launches_scaled = 0
 
 
-def _leaf_table(params, grads, velocity):
-    """(n_leaves, 6) int64 rows (p, g, v, n, first chunk, vec), and the
-    number of chunks, after checking every leaf's device, dtype, layout
-    and shapes."""
+def _checked_scales(params, scales):
+    """One float32 scale a leaf, on the leaf's device, of its shape: a
+    scale of the leaf's shape as it is (contiguous), a broadcastable one
+    materialised."""
+    scales = list(scales)
+    if len(scales) != len(params):
+        raise ValueError(f"fused_sgd: {len(scales)} scales for "
+                         f"{len(params)} params")
+    out = []
+    for k, (p, s) in enumerate(zip(params, scales)):
+        if not isinstance(s, torch.Tensor):
+            raise TypeError(f"fused_sgd: scale {k} must be a tensor, got "
+                            f"{type(s).__name__}")
+        if s.dtype != torch.float32:
+            raise TypeError(f"fused_sgd: scale {k} must be float32, got "
+                            f"{s.dtype}")
+        if s.device != p.device:
+            raise ValueError(f"fused_sgd: scale {k} on {s.device}, param "
+                             f"on {p.device}")
+        if s.shape == p.shape and s.is_contiguous():
+            out.append(s)
+            continue
+        try:
+            shape = torch.broadcast_shapes(s.shape, p.shape)
+        except RuntimeError:
+            shape = None
+        if shape != p.shape:
+            raise ValueError(f"fused_sgd: scale {k} of shape "
+                             f"{tuple(s.shape)} does not broadcast to "
+                             f"{tuple(p.shape)}")
+        out.append(s.expand(p.shape).contiguous())
+    return out
+
+
+def _leaf_table(params, grads, velocity, scales=None):
+    """(n_leaves, 7) int64 rows (p, g, v, s, n, first chunk, vec; s 0
+    without scales), and the number of chunks, after checking every
+    leaf's device, dtype, layout and shapes."""
     if not (len(params) == len(grads) == len(velocity)) or not params:
         raise ValueError(f"fused_sgd: {len(params)} params, {len(grads)} "
                          f"grads, {len(velocity)} velocities")
     dev = params[0].device
+    if scales is None:
+        scales = [None] * len(params)
     rows, first = [], 0
-    for k, (p, g, v) in enumerate(zip(params, grads, velocity)):
+    for k, (p, g, v, s) in enumerate(zip(params, grads, velocity, scales)):
         for name, t in (("param", p), ("grad", g), ("velocity", v)):
             if t.device != dev:
                 raise ValueError(f"fused_sgd: {name} {k} on {t.device}, "
@@ -129,25 +186,34 @@ def _leaf_table(params, grads, velocity):
             raise ValueError(f"fused_sgd: leaf {k} shapes {tuple(p.shape)}, "
                              f"{tuple(g.shape)}, {tuple(v.shape)} differ")
         ptrs = (p.data_ptr(), g.data_ptr(), v.data_ptr())
+        if s is not None:
+            ptrs += (s.data_ptr(),)
         n = p.numel()
         vec = int(all(a % 16 == 0 for a in ptrs))
-        rows.append((*ptrs, n, first, vec))
+        rows.append((*ptrs[:3], 0 if s is None else ptrs[3], n, first, vec))
         first += -(-n // CHUNK)
     return np.asarray(rows, np.int64), first
 
 
-def _device_table(params, grads, velocity):
+def _device_table(params, grads, velocity, scales=None):
     """(table on the card, n_leaves, n_chunks): the cached table when
-    every leaf's pointers and sizes are those it was built for, else a new
-    one, checked and uploaded."""
-    key = (params[0].device, len(params), len(grads), len(velocity),
+    every leaf's pointers and sizes, and each scale's pointer and
+    version, are those it was built for, else a new one, checked and
+    uploaded (with the scales it reads, materialised where they
+    broadcast)."""
+    sp = None
+    if scales is not None and all(isinstance(s, torch.Tensor)
+                                  for s in scales):
+        sp = tuple((s.data_ptr(), s._version) for s in scales)
+    key = (params[0].device, len(params), len(grads), len(velocity), sp,
            *((p.data_ptr(), g.data_ptr(), v.data_ptr(),
               p.numel(), g.numel(), v.numel())
              for p, g, v in zip(params, grads, velocity)))
-    hit = _tables.get(key)
+    hit = _tables.get(key) if scales is None or sp is not None else None
     if hit is not None:
-        return hit
-    rows, n_chunks = _leaf_table(params, grads, velocity)
+        return hit[:3]
+    full = None if scales is None else _checked_scales(params, scales)
+    rows, n_chunks = _leaf_table(params, grads, velocity, full)
     if n_chunks >= 2**31:
         raise ValueError(f"fused_sgd: {n_chunks} chunks exceed one grid")
     # pinned and non-blocking: the host does not wait for the card; the
@@ -156,12 +222,12 @@ def _device_table(params, grads, velocity):
                                                    non_blocking=True)
     if len(_tables) >= _MAX_TABLES:
         del _tables[next(iter(_tables))]
-    _tables[key] = (table, len(rows), n_chunks)
-    return _tables[key]
+    _tables[key] = (table, len(rows), n_chunks, full)
+    return _tables[key][:3]
 
 
 def _launch(params, grads, velocity, lr, momentum, weight_decay, dampening,
-            nesterov, finite):
+            nesterov, finite, scales=None):
     dev = params[0].device
     if finite is not None and (finite.device != dev
                                or finite.dtype != torch.bool
@@ -177,17 +243,21 @@ def _launch(params, grads, velocity, lr, momentum, weight_decay, dampening,
                              f"on {dev}, got {lr.dtype} {tuple(lr.shape)} "
                              f"on {lr.device}")
         lr_dev, lr = lr.data_ptr(), 0.0
-    table, n_leaves, n_chunks = _device_table(params, grads, velocity)
+    table, n_leaves, n_chunks = _device_table(params, grads, velocity,
+                                              scales)
     if n_chunks == 0:
         return
     lib = _lib()
     err = lib.bigdl_fused_sgd_f32(
         table.data_ptr(), n_leaves, n_chunks, CHUNK, float(lr), lr_dev,
         float(momentum), float(weight_decay), float(dampening),
-        int(bool(nesterov)),
+        int(bool(nesterov)), int(scales is not None),
         None if finite is None else finite.data_ptr(),
         *_build.device_stream(dev))
     if err != 0:
         raise RuntimeError("fused_sgd kernel launch failed: "
                            + lib.bigdl_cuda_error_string(err).decode())
-    fused_sgd.launches += 1
+    if scales is None:
+        fused_sgd.launches += 1
+    else:
+        fused_sgd.launches_scaled += 1

@@ -149,7 +149,9 @@ from bigdl_tpu_torch.nn.shape_ops import Identity
 from bigdl_tpu_torch.nn.table_ops import (CAddTable, CDivTable, CMaxTable,
                                           CMinTable, CMulTable, CSubTable)
 from bigdl_tpu_torch.optim.local_optimizer import (LocalOptimizer,
-                                                   _BufferSnapshot, to_device,
+                                                   _BufferSnapshot,
+                                                   export_scalar,
+                                                   resume_scalar, to_device,
                                                    validate)
 from bigdl_tpu_torch.optim.straggler import StragglerPolicy
 from bigdl_tpu_torch.parallel import collectives as coll
@@ -671,9 +673,12 @@ class DistriOptimizer(LocalOptimizer):
 
     def _pipe_resume(self, opt_state):
         """This stage's row of a stage-stacked ``(P, max_p)`` optimizer
-        state (the JAX layout) into its flat buffer."""
+        state (the JAX layout) into its flat buffer; a scalar (Adagrad's
+        step, the same on every stage) as it is."""
         st = self._pipe
         for key, stacked in self._resume_opt_state.items():
+            if resume_scalar(opt_state[key], stacked):
+                continue
             arr = np.asarray(stacked, np.float32)
             if arr.shape != (st.plan.n_stages, st.plan.max_p):
                 raise ValueError(
@@ -694,7 +699,11 @@ class DistriOptimizer(LocalOptimizer):
         if st is None or not opt_state:
             return {}
         out = {}
-        for key, (flat,) in opt_state.items():
+        for key, leaves in opt_state.items():
+            if isinstance(leaves, torch.Tensor):
+                out[key] = export_scalar(leaves)
+                continue
+            (flat,) = leaves
             row = torch.zeros(st.plan.max_p, device=self.device)
             for v, (lo, hi) in zip(st.jax_views(flat), st.jax_spans()):
                 row[lo:hi] = v.reshape(-1)
@@ -1126,6 +1135,20 @@ class DistriOptimizer(LocalOptimizer):
                                     for p, b in zip(parts, bufs)])
 
     # -- optimizer state ----------------------------------------------------
+    def _local_scale(self, i, scale):
+        """This rank's rows of parameter ``i``'s rate under tensor
+        parallelism."""
+        return self._local_leaf(i, scale)
+
+    def _scales_of(self, params):
+        """The rates of the leaves this rank updates: under
+        ``expert_parallel`` an expert-stacked leaf's owned rows."""
+        scales = super()._scales_of(params)
+        if scales is None or not self.expert_parallel:
+            return scales
+        return [s if own is None else s[own].contiguous()
+                for s, own in zip(scales, self._own_rows)]
+
     def _initial_opt_state(self, params):
         if self.pipeline_stages is not None:
             # filled at the first step, when the stage is known
@@ -1135,6 +1158,8 @@ class DistriOptimizer(LocalOptimizer):
             resume = self._resume_opt_state
             with torch.no_grad():
                 for key, tree in (resume or {}).items():
+                    if resume_scalar(opt_state[key], tree):
+                        continue
                     for t, v, own in zip(opt_state[key],
                                          leaves_of(self.model, tree),
                                          self._own_rows):
@@ -1146,6 +1171,8 @@ class DistriOptimizer(LocalOptimizer):
             opt_state = self.optim_method.init_state(params)
             with torch.no_grad():
                 for key, tree in (resume or {}).items():
+                    if resume_scalar(opt_state[key], tree):
+                        continue
                     for i, (t, v) in enumerate(zip(
                             opt_state[key], leaves_of(self.model, tree))):
                         t.copy_(torch.from_numpy(
@@ -1155,6 +1182,8 @@ class DistriOptimizer(LocalOptimizer):
         if resume is not None:
             own = self._part.owned(self._zidx)
             for key, tree in resume.items():
+                if resume_scalar(opt_state[key], tree):
+                    continue
                 full = np.zeros(self._part.length, np.float32)
                 for i, (v, leaf) in enumerate(zip(
                         self._part.views(full), leaves_of(self.model, tree))):
@@ -1172,6 +1201,9 @@ class DistriOptimizer(LocalOptimizer):
             axis = self.mesh.axis("expert")
             out = {}
             for key, leaves in opt_state.items():
+                if isinstance(leaves, torch.Tensor):
+                    out[key] = export_scalar(leaves)
+                    continue
                 full = []
                 for t, own in zip(leaves, self._own_rows):
                     if own is not None and axis.size > 1:
@@ -1184,6 +1216,9 @@ class DistriOptimizer(LocalOptimizer):
             return self._pipe_export(opt_state)
         out = {}
         for key, leaves in opt_state.items():
+            if isinstance(leaves, torch.Tensor):
+                out[key] = export_scalar(leaves)
+                continue
             if self.zero1:
                 (piece,) = leaves
                 leaves = self._part.views(coll.all_gather(piece,

@@ -39,6 +39,10 @@ OptimMethod's update in place.  What the JAX loop keeps, this one keeps:
   backward, its dropout masks and running statistics as the first run
   left them (the JAX step's ``jax.checkpoint``); such a run takes the
   eager n-step loop.
+- per-parameter learning rates (``state['learningRates']``, a tree in
+  the params' layout, SGD only as in JAX): each leaf is materialised on
+  the device at the parameter's shape once a run, and the update takes
+  ``fused_sgd``'s scaled form.
 
 Not ported yet: taps and summaries, and fault drills.
 """
@@ -55,6 +59,7 @@ from bigdl_tpu_torch.nn.module import leaves_of, tree_of
 from bigdl_tpu_torch.optim import trigger as triggers
 from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.optim_method import SGD, Default, OptimMethod
+from bigdl_tpu_torch.optim.validation import AccuracyResult, Loss, LossResult
 from bigdl_tpu_torch.tensor import policy
 from bigdl_tpu_torch.utils import file as File
 from bigdl_tpu_torch.utils.device import pin_fp32, resolve_device
@@ -268,14 +273,27 @@ def _capture_key(params, model, opt_state, x, y, hyper):
     dtype policy its forward read (a step after ``set_policy`` captures
     anew, as the JAX serving cache keys its programs on it), the batch
     shapes and types, the address of every parameter, gradient, module
-    buffer and optimizer-state tensor, and the hyper-parameters other than
-    lr."""
+    buffer, optimizer-state tensor and per-parameter rate, and the other
+    hyper-parameters but lr."""
     return (policy().key(), tuple(x.shape), x.dtype, tuple(y.shape),
             y.dtype, tuple((p.data_ptr(), p.grad.data_ptr()) for p in params),
             tuple(b.data_ptr() for b in model.buffers()),
-            tuple(t.data_ptr() for v in opt_state.values() for t in v),
-            tuple(sorted((k, repr(v)) for k, v in hyper.items()
+            tuple(t.data_ptr() for t in _state_tensors(opt_state)),
+            tuple(sorted((k, _hyper_key(v)) for k, v in hyper.items()
                          if k != "lr")))
+
+
+def _state_tensors(opt_state) -> list:
+    """Every tensor of an optimizer state: its per-leaf lists' and its
+    scalars (Adagrad's step)."""
+    return [t for v in opt_state.values()
+            for t in ([v] if isinstance(v, torch.Tensor) else v)]
+
+
+def _hyper_key(v):
+    if isinstance(v, (list, tuple)):
+        return tuple(t.data_ptr() for t in v)
+    return repr(v)
 
 
 class LocalOptimizer:
@@ -312,6 +330,9 @@ class LocalOptimizer:
         #: the optimizer's own state of the last run, in place ({'velocity':
         #: one tensor a parameter}); each ``optimize()`` starts it anew
         self.opt_state = None
+        #: this run's per-parameter learning rates on the device (one
+        #: tensor a parameter, its shape), or None
+        self._lr_scales = None
         self._window = None
         self._train_pipeline = None
         self._chunk = self._side = None
@@ -397,8 +418,34 @@ class LocalOptimizer:
             # Torch default, as the JAX loop has it: dampening = momentum
             "dampening": float(s.get("dampening", s.get("momentum", 0.0))),
             "nesterov": bool(s.get("nesterov", False)),
-            "lr_scales": s.get("learningRates", None),
+            "lr_decay": float(s.get("learningRateDecay", 0.0)),
+            "lr_scales": self._lr_scales,
         }
+
+    def _scales_of(self, params):
+        """``state['learningRates']`` (a tree in the params' layout) as
+        one float32 tensor a parameter, at its shape on its device, or
+        None; a method other than SGD raises, as in JAX."""
+        tree = self.state.get("learningRates", None)
+        if tree is None:
+            return None
+        if not isinstance(self.optim_method, SGD):
+            raise ValueError(
+                "state['learningRates'] (per-param lr scales) is only "
+                f"supported by SGD, not {type(self.optim_method).__name__}"
+                " — it would be silently ignored")
+        out = []
+        for i, (leaf, p) in enumerate(zip(leaves_of(self.model, tree),
+                                          params)):
+            t = (leaf.detach().cpu() if isinstance(leaf, torch.Tensor)
+                 else torch.from_numpy(np.array(leaf)))
+            t = self._local_scale(i, t.to(torch.float32))
+            out.append(t.to(p.device).expand(p.shape).contiguous())
+        return out
+
+    def _local_scale(self, i, scale):
+        """This process's part of parameter ``i``'s rate (all of it)."""
+        return scale
 
     def _current_lr(self):
         schedule = self.state.get("learningRateSchedule", Default())
@@ -413,14 +460,18 @@ class LocalOptimizer:
         if resume is not None:
             with torch.no_grad():
                 for key, tree in resume.items():
+                    if resume_scalar(opt_state[key], tree):
+                        continue
                     for t, v in zip(opt_state[key],
                                     leaves_of(self.model, tree)):
                         t.copy_(torch.from_numpy(np.array(v)))
         return opt_state
 
     def _export_opt_state(self, opt_state):
-        return {key: tree_of(self.model, [t.detach().cpu().numpy()
-                                          for t in leaves])
+        return {key: (export_scalar(leaves)
+                      if isinstance(leaves, torch.Tensor) else
+                      tree_of(self.model, [t.detach().cpu().numpy()
+                                           for t in leaves]))
                 for key, leaves in opt_state.items()}
 
     # -- one step ------------------------------------------------------------
@@ -509,6 +560,7 @@ class LocalOptimizer:
         pin_fp32(self.device)
         self.model.to(self.device).train()
         params = list(self.model.parameters())
+        self._lr_scales = self._scales_of(params)
         opt_state = self.opt_state = self._initial_opt_state(params)
         n = self.iters_per_dispatch
 
@@ -741,6 +793,22 @@ class LocalOptimizer:
             prune_checkpoints(path, keep, just_written=neval)
 
 
+def export_scalar(t: torch.Tensor) -> np.ndarray:
+    """A scalar of an optimizer state (Adagrad's step) as the JAX state
+    keeps it: a 0-d numpy array of its dtype."""
+    return np.asarray(t.detach().cpu().numpy())
+
+
+def resume_scalar(dst, value) -> bool:
+    """Copy a checkpoint's scalar ``value`` into the state's 0-d tensor
+    ``dst``; False where ``dst`` is a list of leaves."""
+    if not isinstance(dst, torch.Tensor):
+        return False
+    with torch.no_grad():
+        dst.copy_(torch.as_tensor(np.asarray(value)).to(dst.dtype))
+    return True
+
+
 def _fired_within(trig, state, n):
     """The first neval of this dispatch's (neval - n, neval] at which
     ``trig`` fires, or None: a periodic trigger is not skipped because
@@ -793,3 +861,38 @@ def validate(model, dataset, methods, device, shard=None):
     logger.info("validate model throughput is %.2f records / second "
                 "(%d records in %.3fs)", count / max(dt, 1e-9), count, dt)
     return list(zip(methods, totals))
+
+
+def distri_validate(model, dataset, methods, device="cuda", group=None):
+    """Validation over the ranks of ``group`` (default: the world; ref
+    DistriValidator.scala:32): each rank evaluates its share (its own
+    records where ``dataset`` is a rank's shard, else every N-th batch,
+    ``validate(..., shard=)``), then each method's (correct, count) or
+    (loss, count) pair is summed over the group, in float64.  Without a
+    process group, or in a world of one, ``validate`` itself."""
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch.dataset.dataset import is_distributed_dataset
+
+    if not dist.is_initialized() or dist.get_world_size(group) == 1:
+        return validate(model, dataset, methods, device)
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    shard = None if is_distributed_dataset(dataset) else (rank, world)
+    local = validate(model, dataset, methods, device, shard=shard)
+    wire = torch.device("cuda", torch.cuda.current_device()) \
+        if dist.get_backend(group) == "nccl" else torch.device("cpu")
+    pairs = torch.tensor(
+        [[0.0, 0.0] if r is None else
+         [r.loss if isinstance(method, Loss) else r.correct, r.count]
+         for method, r in local], dtype=torch.float64, device=wire)
+    dist.all_reduce(pairs, group=group)
+    merged = []
+    for (method, r), (value, count) in zip(local, pairs.tolist()):
+        if count == 0:
+            merged.append((method, None))
+        elif isinstance(method, Loss):
+            merged.append((method, LossResult(value, int(count))))
+        else:
+            merged.append((method, AccuracyResult(int(round(value)),
+                                                  int(count))))
+    return merged

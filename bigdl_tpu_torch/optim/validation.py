@@ -79,6 +79,19 @@ def _topk_correct(output, target, k):
     return int(correct.sum()), int(output.shape[0])
 
 
+class EvaluateMethods:
+    """Raw accuracy helpers (ref EvaluateMethods.scala:23): ``(correct,
+    count)`` without the result object."""
+
+    @staticmethod
+    def calc_accuracy(output, target):
+        return _topk_correct(output, target, 1)
+
+    @staticmethod
+    def calc_top5_accuracy(output, target):
+        return _topk_correct(output, target, 5)
+
+
 class Top1Accuracy(ValidationMethod):
     def __call__(self, output, target):
         return AccuracyResult(*_topk_correct(output, target, 1))

@@ -8,6 +8,9 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py --kernels  # phases 1-2 alone, no result line
     python3 chip_smoke.py --harness  # fused_sgd's checks and phase 10
                                      # alone, no result line
+    python3 chip_smoke.py --harness-api  # fused_sgd's checks (its scaled
+                                         # form) and phase 10b alone,
+                                         # no result line
     python3 chip_smoke.py --bn       # the pool, LRN and SGD checks and
                                      # phases 11-14 alone, no result line
     python3 chip_smoke.py --inventory  # fused_sgd's checks and phase 15
@@ -50,7 +53,10 @@ the recurrences' libraries still compile.  Phases:
    and at Inception-v1's four 3x3 s2 pools at batch 128, and on inputs
    with NaNs at three, timed at each of Inception's pools of either pool
    kernel (the step's sums beside the rows); fused SGD on six hyper
-   sets, timed at LeNet's and at the serving model's parameter counts;
+   sets, timed at LeNet's and at the serving model's parameter counts,
+   and its scaled form (per-parameter rates) on the same sets at odd
+   leaves and Inception-v1's layout (all-ones rates the unscaled bits),
+   timed beside it;
    the LRN
    (forward with and without z, backward) at six shapes, Inception-v1's
    two among them; the stride-1 pool on tied inputs at ten geometries
@@ -187,6 +193,20 @@ the recurrences' libraries still compile.  Phases:
     the card from a checkpoint past corrupt snapshots and ends where the
     uninterrupted run does, and without the random payload does not, the
     checkpoint's wall cost printed;
+10b. the rest of the harness's API (``harness_api``): Inception-v1
+    fine-tuned at full width through ``Optimizer(...).optimize()`` with
+    ``learningRates`` 0 on every leaf but the classifier's (one
+    ``fused_sgd_scaled`` launch a step, the frozen leaves bit-equal, two
+    steps at batch 16 against the CPU); the Bi-LSTM classifier with
+    ``Adagrad`` at BASELINE config 4, 8 steps at 4 a dispatch eager and
+    as one CUDA graph (equal; the step counter on the card), three
+    steps at batch 16 against the CPU (the parameters as a whole);
+    LeNet-5's full-batch ``LBFGS().optimize(feval, x)`` over 1,024
+    synthetic images (the loss falls; the first losses the CPU's); the
+    ``Validator`` (Top1, Top5, Loss) over Inception-v1 against the CPU,
+    ``predict`` against the eval forward and ``backward`` against
+    autograd; the serving step with each module's ``forward_time`` on
+    and off, in turns;
 11. VGG on CIFAR-10 (``VggForCifar10``: 14,991,946 parameters, 9,472
     running-statistic values; examples/train_vgg.py on its synthetic
     data, batch 128, lr 0.01, momentum 0.9, weight decay 5e-4) trains 20
@@ -2479,11 +2499,70 @@ def check_sgd(torch, ops, g, shapes=None):
     return err
 
 
+def check_sgd_scaled(torch, ops, g, shapes=None):
+    """The kernel's scaled form (per-parameter learning rates) on every
+    hyper set: three steps against the plain version at rates 0, 0.5
+    and 2 drawn per element (the first leaf's rate one broadcast value),
+    the rates moved to new memory before the last step (the cached leaf
+    table must give way); an element at rate 0 keeps its bits; at
+    all-ones rates its bits are the unscaled form's; a step with the
+    finite flag False writes nothing."""
+    shapes = shapes or [(130, 7), (7,), (4097,), (100,), (3, 5, 5),
+                        (10001,)]
+    rates = torch.tensor([0.0, 0.5, 2.0], device="cuda")
+    err = 0.0
+    for h in SGD_HYPERS:
+        kw = dict(momentum=h.get("momentum", 0.0),
+                  weight_decay=h.get("weight_decay", 0.0),
+                  dampening=h.get("dampening", 0.0),
+                  nesterov=h.get("nesterov", False))
+        p, gr, v = sgd_leaves(torch, g, shapes)
+        p0 = [t.clone() for t in p]
+        p2, v2 = [t.clone() for t in p], [t.clone() for t in v]
+        sc = [rates[torch.randint(0, 3, s, generator=g, device="cuda")]
+              for s in shapes]
+        sc[0] = torch.full((1,) * len(shapes[0]), 0.5, device="cuda")
+        for step in range(3):
+            if step == 2:
+                sc = [t.clone() for t in sc]
+            ops.fused_sgd(p, gr, v, h["lr"], scales=sc, **kw)
+            ops.fused_sgd_reference(p2, gr, v2, h["lr"], scales=sc, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(p + v, p2 + v2):
+            torch.testing.assert_close(a, b, **SGD_TOL)
+            err = max(err, float((a - b).abs().max()))
+        for a, a0, s in zip(p[1:], p0[1:], sc[1:]):
+            if not torch.equal(a[s == 0], a0[s == 0]):
+                raise AssertionError("fused_sgd scaled: a rate-0 element "
+                                     "moved")
+        q, u = [t.clone() for t in p0], [t.clone() for t in v2]
+        q1, u1 = [t.clone() for t in p0], [t.clone() for t in v2]
+        ones = [torch.ones(s, device="cuda") for s in shapes]
+        for _ in range(3):
+            ops.fused_sgd(q, gr, u, h["lr"], scales=ones, **kw)
+            ops.fused_sgd(q1, gr, u1, h["lr"], **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(q + u, q1 + u1)):
+            raise AssertionError("fused_sgd: the scaled form at all-ones "
+                                 "rates differs from the unscaled form's "
+                                 "bits")
+        kept = [t.clone() for t in p + v]
+        ops.fused_sgd(p, gr, v, h["lr"], scales=sc, finite=torch.zeros(
+            (), dtype=torch.bool, device="cuda"), **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(p + v, kept)):
+            raise AssertionError("fused_sgd scaled wrote on a non-finite "
+                                 "step")
+    return err
+
+
 def sgd_times(torch, ops, flush, g, shapes):
     """Kernel, plain and library (``torch.optim.SGD(fused=True).step()``,
     timing only: its first step's dampening differs) times of one step
     of the training slice's hypers over leaves of ``shapes``, and the
-    byte bound: p, g, v read and p, v written, 20 bytes a parameter."""
+    byte bound: p, g, v read and p, v written, 20 bytes a parameter; then
+    the scaled form's kernel and plain times (rates U(0, 2)) and its
+    bound, 24 bytes a parameter (the rate read too)."""
     p, gr, v = sgd_leaves(torch, g, shapes)
     ok = torch.ones((), dtype=torch.bool, device="cuda")
     kw = dict(momentum=MOMENTUM, dampening=MOMENTUM)
@@ -2502,6 +2581,14 @@ def sgd_times(torch, ops, flush, g, shapes):
         p, gr, v, lr_dev, finite=ok, **kw), flush)
     row["params"] = sum(t.numel() for t in p)
     row.update(byte_bound(20 * row["params"], 0))
+    sc = [torch.rand(s, generator=g, device="cuda") * 2 for s in shapes]
+    row["scaled_ms"] = time_ms(torch, lambda: ops.fused_sgd(
+        p, gr, v, LR, finite=ok, scales=sc, **kw), flush)
+    row["scaled_queued_ms"] = time_queued_ms(torch, lambda: ops.fused_sgd(
+        p, gr, v, LR, finite=ok, scales=sc, **kw))
+    row["scaled_plain_ms"] = yard_ms(torch, lambda: ops.fused_sgd_reference(
+        p, gr, v, LR, finite=ok, scales=sc, **kw), flush)
+    row["scaled_bound_ms"] = byte_bound(24 * row["params"], 0)["bound_ms"]
     return row
 
 
@@ -2512,6 +2599,7 @@ def phase_train_kernels(torch, ops):
     3x3 s2 pools at batch 128, the BN paths' pools (VGG's, ResNet-50's,
     model_zoo's), the serving model's parameters; ``fused_sgd`` also over
     VGG's and ResNet-50's layouts."""
+    from bigdl_tpu_torch.models.inception import Inception_v1
     from bigdl_tpu_torch.models.lenet import LeNet5
     from bigdl_tpu_torch.models.resnet import ResNet
     from bigdl_tpu_torch.models.transformer import TransformerLM
@@ -2530,6 +2618,13 @@ def phase_train_kernels(torch, ops):
            .parameters()]
     sgd_err = max(check_sgd(torch, ops, g, shapes)
                   for shapes in (None, vgg, r50))
+    # the scaled form at the kernel phase's leaves and at Inception-v1's
+    # layout (the fine-tune's, harness_api)
+    inception = [tuple(p.shape) for p in Inception_v1(
+        ICLASSES, device="meta").parameters()]
+    scaled_err = max(check_sgd_scaled(torch, ops, g, shapes)
+                     for shapes in (None, inception))
+    sgd_err = max(sgd_err, scaled_err)
     flush = torch.empty(64 * 2**20, device="cuda")   # 256 MB > 50 MB L2
     sums = {}
     for case in POOL_CASES[-3:] + INCEPTION_POOLS + BN_POOLS + PIPE_POOLS:
@@ -2557,7 +2652,11 @@ def phase_train_kernels(torch, ops):
               f"{sgd['device_lr_ms']:.5f} plain_ms={sgd['plain_ms']:.5f} "
               f"library_ms={sgd['library_ms']:.5f} "
               f"bound_ms={sgd['bound_ms']:.5f} ({20 * sgd['params']} bytes) "
-              f"queued_ms={sgd['queued_ms']:.5f}")
+              f"queued_ms={sgd['queued_ms']:.5f}; scaled form: "
+              f"kernel_ms={sgd['scaled_ms']:.5f} queued_ms="
+              f"{sgd['scaled_queued_ms']:.5f} plain_ms="
+              f"{sgd['scaled_plain_ms']:.5f} bound_ms="
+              f"{sgd['scaled_bound_ms']:.5f} ({24 * sgd['params']} bytes)")
     for name, row in (("forward", fwd), ("backward", bwd)):
         row.update(sums[name])
     fwd_err = max(e[0] for e in errs)
@@ -2568,9 +2667,12 @@ def phase_train_kernels(torch, ops):
           f"{len(NAN_POOL_CASES)} with NaNs, forward and argmax equal, "
           f"backward max_abs_err={bwd_err:.3e}; fused_sgd: "
           f"{len(SGD_HYPERS)} hyper sets x 3 steps over 6 odd leaves, "
-          f"VGG's {len(vgg)} and ResNet-50's {len(r50)}, max_abs_err="
-          f"{sgd_err:.3e}, the device-lr form bit-equal to the host-lr "
-          f"form, a non-finite step writes nothing")
+          f"VGG's {len(vgg)} and ResNet-50's {len(r50)}, the scaled form "
+          f"over the 6 leaves and Inception-v1's {len(inception)}, "
+          f"max_abs_err={sgd_err:.3e} (scaled {scaled_err:.3e}), the "
+          f"device-lr form bit-equal to the host-lr form, the scaled form "
+          f"at all-ones rates bit-equal to the unscaled form, a rate-0 "
+          f"element unmoved, a non-finite step writes nothing")
     common = {"route": "cuda", "ok": True}
     pool_src = {"source": "bigdl_tpu_torch/csrc/maxpool2d.cu"}
     return [
@@ -3815,10 +3917,14 @@ def card_vs_cpu(torch, init, make_run, make_probe=None, routed=False):
     e_cpu = [rel(a, b, s) for a, b, s in zip(grad_c, cpu_64, scale)]
     init_leaves = [torch.from_numpy(v) for v in _leaves(init)]
     p_abs, p_step = [], []
+    gap2 = moved2 = 0.0
     for a, b, p0 in zip(card.model.parameters(), cpu.model.parameters(),
                         init_leaves):
-        p_abs.append(float((a.detach().cpu() - b.detach()).abs().max()))
+        d = a.detach().cpu().double() - b.detach().double()
+        p_abs.append(float(d.abs().max()))
         p_step.append(float((b.detach() - p0).abs().max()))
+        gap2 += float(d.pow(2).sum())
+        moved2 += float((b.detach().double() - p0.double()).pow(2).sum())
     got_l = np.asarray([l for _, l in card.loss_log])
     want_l = np.asarray([l for _, l in cpu.loss_log])
     gi, pi = int(np.argmax(g_rel)), int(np.argmax(p_abs))
@@ -3841,6 +3947,7 @@ def card_vs_cpu(torch, init, make_run, make_probe=None, routed=False):
                                      / np.abs(want_l))),
             "param_abs": p_abs[pi], "param_leaf": names[pi],
             "param_step": p_step[pi],
+            "update_rel": (gap2 / max(moved2, 1e-300)) ** 0.5,
             "cpu_s": cpu_s, **norm}
 
 
@@ -4931,6 +5038,11 @@ def profiled_run(torch, opt, steps):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
+        # one throwaway kernel, run to its end, before the counted steps:
+        # a window's first kernel record went missing once as the
+        # profiler started (SimpleRNN's first rnn_forward, 15 of 16)
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
         opt.optimize()
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages()
@@ -5223,6 +5335,387 @@ def phase_harness(torch, ops):
           f"restore_rng=False ends {fork:.3e} from them")
     by_path["harness_checkpoint"] = counts
     return by_path, ran
+
+
+# -- harness_api: the rest of the training harness's API ----------------
+
+# the fine-tune (learningRates 0 but on the classifier), FT_STEPS steps of
+# IBATCH over FT_STEPS x IBATCH images, FT_CHECK_STEPS at inception's
+# check batch (its images: the same first batch) against the CPU; the
+# Bi-LSTM with Adagrad at BASELINE config 4, AG_DISPATCH steps a dispatch
+# over AG_DOCS documents, AG_STEPS steps; LeNet-5's full-batch L-BFGS over
+# LB_IMAGES images, LB_ITERS iterations, its first LB_HELD losses held to
+# the CPU's; the Validator over VAL_IMAGES images in batches of VAL_BATCH
+FT_STEPS, FT_CHECK_STEPS = 3, 2
+AG_LR, AG_LRD, AG_DOCS, AG_DISPATCH, AG_STEPS = 0.01, 0.01, 512, 4, 8
+# the Adagrad run against the CPU, parameters as a whole (see
+# harness_adagrad): a few sign flips of an lr-sized step among 364,616
+# parameters move the ratio by ~1e-3; a wrong rate or decay by ~1e-1
+AG_UPDATE_RTOL = 1e-2
+LB_IMAGES, LB_ITERS, LB_HELD = 1024, 6, 3
+VAL_IMAGES, VAL_BATCH = 16, 8
+# the serving step with the modules' forward_time on and off: FT_REQ
+# requests of FT_WORDS words each way, in turns (on, off, off, on)
+FT_REQ, FT_WORDS = 16, 32
+
+
+def finetune_scales(init):
+    """``state['learningRates']`` of the fine-tune: 0 for every leaf but
+    the final classifier's (Inception-v1's child '24'), 1 there; each a
+    0-d array, broadcast over its leaf."""
+    def rates(tree, r):
+        return {k: ({n: np.float32(r) for n in sub} if k == "~"
+                    else rates(sub, r)) for k, sub in tree.items()}
+    return {k: rates({k: sub}, float(k == "24"))[k]
+            for k, sub in init.items()}
+
+
+def finetune_run(torch, device, init, images, batch, end_trigger):
+    """examples/train_inception.py's run (``inception_run``) with the
+    classifier alone learning: ``learningRates`` in the state, dropout
+    off."""
+    from bigdl_tpu_torch.utils.table import T
+
+    opt = inception_run(torch, device, init, images, batch, end_trigger,
+                        dropout=0.0)
+    opt.set_state(T(learningRates=finetune_scales(init)))
+    return opt
+
+
+def harness_finetune(torch, ops):
+    from bigdl_tpu_torch.models.inception import Inception_v1
+    from bigdl_tpu_torch.nn.module import export_params
+    from bigdl_tpu_torch.optim import max_iteration
+    from bigdl_tpu_torch.utils.random import generator
+
+    init = export_params(Inception_v1(ICLASSES, device="cpu",
+                                      generator=generator(0)))
+    images = inception_images(FT_STEPS * IBATCH, ISIZE, 3)
+    opt = finetune_run(torch, "cuda", init, images, IBATCH,
+                       max_iteration(FT_STEPS))
+    _, counts, wall = run_path(torch, ops, opt.optimize)
+    after = export_params(opt.model)
+    moved = [k for k in after if k not in ("~", "24")
+             and any(not np.array_equal(a, b) for a, b in
+                     zip(_leaves(after[k]), _leaves(init[k])))]
+    grew = any(not np.array_equal(a, b) for a, b in
+               zip(_leaves(after["24"]), _leaves(init["24"])))
+    steps = int(opt.state["neval"]) - 1
+    want = {**dict.fromkeys(counts, 0), "fused_sgd_scaled": steps,
+            "lrn_forward": 2 * steps, "lrn_backward": 2 * steps,
+            "maxpool2d_s1_forward": 9 * steps,
+            "maxpool2d_s1_backward": 9 * steps,
+            "maxpool2d_forward": 4 * steps, "maxpool2d_backward": 4 * steps}
+    losses = [l for _, l in opt.loss_log]
+    print(f"harness_api finetune: Inception-v1 {steps} steps of {IBATCH} "
+          f"through Optimizer(...).optimize(), learningRates 0 on 114 "
+          f"leaves and 1 on the classifier's 2; {wall / steps * 1e3:.4f} "
+          f"ms/step; frozen leaves bit-equal: {not moved}, the classifier "
+          f"moved: {grew}; launches {ops_nonzero(counts)}; losses "
+          f"{' '.join(f'{l:.6f}' for l in losses)}")
+    if moved or not grew or counts != want or steps != FT_STEPS \
+            or not np.isfinite(losses).all():
+        raise AssertionError(f"finetune: moved {moved}, classifier moved "
+                             f"{grew}, launches {counts} (expected {want})")
+    check = inception_images(ICHECK_BATCH * FT_CHECK_STEPS, ISIZE, 2)
+    diff = card_vs_cpu(torch, init, lambda device: finetune_run(
+        torch, device, init, check, ICHECK_BATCH,
+        max_iteration(FT_CHECK_STEPS)))
+    print_vs_cpu("harness_api finetune", ICHECK_BATCH, diff, IPARAM_ATOL)
+    held_vs_cpu("the fine-tune", diff, IPARAM_ATOL)
+    return counts, wall / steps * 1e3
+
+
+def adagrad_bilstm_run(torch, device, init, docs, batch, end_trigger):
+    """``bilstm_run``'s Bi-LSTM classifier with ``Adagrad`` (lr AG_LR,
+    learningRateDecay AG_LRD) in place of SGD."""
+    from bigdl_tpu_torch.optim import Adagrad
+    from bigdl_tpu_torch.utils.table import T
+
+    opt = bilstm_run(torch, device, init, docs, batch, end_trigger)
+    opt.set_optim_method(Adagrad())
+    opt.set_state(T(learningRate=AG_LR, learningRateDecay=AG_LRD))
+    return opt
+
+
+def harness_adagrad(torch, ops):
+    """The Bi-LSTM with Adagrad: AG_STEPS steps at AG_DISPATCH a dispatch
+    as the eager loop and as one CUDA graph (a warm-up chunk, then one
+    capture replayed), equal to each other; three steps at batch 16
+    against the CPU."""
+    from bigdl_tpu_torch.models.textclassifier import TextClassifierBiLSTM
+    from bigdl_tpu_torch.nn.module import export_params
+    from bigdl_tpu_torch.optim import max_iteration
+    from bigdl_tpu_torch.utils.random import generator
+
+    init = export_params(TextClassifierBiLSTM(
+        TCLASSES, TEMBED, THIDDEN, device="cpu", generator=generator(0)))
+    docs = text_docs(AG_DOCS, seed=5)
+    runs = {}
+    with deterministic(torch):
+        for graph in (False, True):
+            opt = graph_or_eager(adagrad_bilstm_run(
+                torch, "cuda", init, docs, TBATCH, max_iteration(AG_STEPS)),
+                AG_DISPATCH, graph)
+            _, counts, wall = run_path(torch, ops, opt.optimize)
+            runs[graph] = (opt, counts, wall)
+    (eager, ec, ew), (graph, gc, gw) = runs[False], runs[True]
+    want = {**dict.fromkeys(ec, 0), "bilstm_forward": AG_STEPS,
+            "bilstm_backward": AG_STEPS, "bilstm_dwh": AG_STEPS}
+    rule = held_same(torch, "harness_api adagrad graph vs eager", eager,
+                     graph, GRAPH_TOL)
+    step = int(graph.opt_state["step"])
+    print(f"harness_api adagrad: TextClassifierBiLSTM at {TBATCH} x {TSEQ} "
+          f"x {TEMBED}, Adagrad lr {AG_LR} decay {AG_LRD}, {AG_STEPS} "
+          f"steps at {AG_DISPATCH} a dispatch: eager {ew / AG_STEPS * 1e3:.4f}"
+          f" ms/step, graph {gw / AG_STEPS * 1e3:.4f} ms/step ({graph.captures}"
+          f" capture, {graph.replays} replay), held by {rule}; the step "
+          f"counter {step} on the card; launches eager {ops_nonzero(ec)} "
+          f"graph {ops_nonzero(gc)} (the wrappers count the warm-up chunk "
+          f"and the capture)")
+    if ec != want or gc != want or graph.captures != 1 \
+            or graph.replays != 1 or step != AG_STEPS:
+        raise AssertionError(f"adagrad: launches {ec} / {gc}, expected "
+                             f"{want}; {graph.captures} captures, "
+                             f"{graph.replays} replays, step {step}")
+    check = docs[:TCHECK_BATCH * TCHECK_STEPS]
+    diff = card_vs_cpu(torch, init, lambda device: adagrad_bilstm_run(
+        torch, device, init, check, TCHECK_BATCH,
+        max_iteration(TCHECK_STEPS)))
+    print_vs_cpu("harness_api adagrad", TCHECK_BATCH, diff, PARAM_ATOL)
+    # Adagrad's step is lr * g / (|g| + 1e-10) on its first step: an
+    # element whose gradient sits within rounding of zero may take
+    # +lr on one device and -lr on the other, so the parameters are held
+    # as a whole: card - CPU over the CPU's update, both as norms
+    print(f"harness_api adagrad vs CPU: parameters ||card - CPU|| / "
+          f"||CPU - init|| {diff['update_rel']:.3e} (limit "
+          f"{AG_UPDATE_RTOL}), largest element {diff['param_abs']:.3e}")
+    failed = vs_cpu_failures(diff, float("inf"))
+    if failed or diff["update_rel"] > AG_UPDATE_RTOL:
+        raise AssertionError(f"the card's Adagrad Bi-LSTM left the CPU's: "
+                             f"{failed}, update {diff['update_rel']:.3e}")
+    return gc, gw / AG_STEPS * 1e3
+
+
+def lbfgs_lenet(torch, device, init, images, labels):
+    """Full-batch ``LBFGS().optimize(feval, x)`` over LeNet-5's
+    parameters (the JAX tree of tensors on ``device``): each feval loads
+    ``x`` into the model and returns the mean NLL over every image and
+    its gradient tree.  (f_hist, fevals)."""
+    from bigdl_tpu_torch.models.lenet import LeNet5
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.nn.module import tree_of
+    from bigdl_tpu_torch.optim import LBFGS
+    from bigdl_tpu_torch.utils.table import T
+
+    dev = torch.device(device)
+    model = LeNet5(10, device=device).load_params(init)
+    crit = ClassNLLCriterion()
+    x = torch.from_numpy(images).to(dev)
+    y = torch.from_numpy(labels).to(dev)
+    calls = [0]
+
+    def feval(params):
+        calls[0] += 1
+        model.load_params(params)
+        model.zero_grad(set_to_none=True)
+        loss = crit(model(x), y)
+        loss.backward()
+        return loss.detach(), tree_of(model, [p.grad for p in
+                                              model.parameters()])
+
+    start = tree_of(model, [p.detach().clone() for p in model.parameters()])
+    _, hist = LBFGS().optimize(feval, start, T(maxIter=LB_ITERS))
+    return hist, calls[0]
+
+
+def harness_lbfgs(torch, ops):
+    from bigdl_tpu_torch.dataset import (DataSet, ImgNormalizer, ImgToBatch,
+                                         mnist)
+    from bigdl_tpu_torch.models.lenet import LeNet5
+    from bigdl_tpu_torch.nn.module import export_params
+    from bigdl_tpu_torch.utils.random import generator
+
+    init = export_params(LeNet5(10, device="cpu", generator=generator(0)))
+    full = next((DataSet.array(mnist.synthetic(LB_IMAGES, seed=2))
+                 >> ImgNormalizer(mnist.TRAIN_MEAN, mnist.TRAIN_STD)
+                 >> ImgToBatch(LB_IMAGES)).data(train=False))
+    images = np.asarray(full.data, np.float32)
+    labels = np.asarray(full.labels, np.float32)
+    (hist, fevals), counts, wall = run_path(
+        torch, ops, lambda: lbfgs_lenet(torch, "cuda", init, images, labels))
+    t0 = time.perf_counter()
+    cpu_hist, _ = lbfgs_lenet(torch, "cpu", init, images, labels)
+    cpu_s = time.perf_counter() - t0
+    n = min(LB_HELD, len(hist), len(cpu_hist))
+    rel = float(np.max(np.abs(np.asarray(hist[:n]) - cpu_hist[:n])
+                       / np.abs(cpu_hist[:n])))
+    want = {**dict.fromkeys(counts, 0), "maxpool2d_forward": 2 * fevals,
+            "maxpool2d_backward": 2 * fevals}
+    print(f"harness_api lbfgs: LeNet-5 {sum(v.size for v in _leaves(init))}"
+          f" params, full batch of {LB_IMAGES} synthetic MNIST images, "
+          f"{len(hist) - 1} iterations, {fevals} fevals in {wall:.4f} s "
+          f"({wall / fevals * 1e3:.4f} ms a feval); f_hist card "
+          f"{' '.join(f'{f:.6f}' for f in hist)}; CPU "
+          f"{' '.join(f'{f:.6f}' for f in cpu_hist)} ({cpu_s:.2f} s); the "
+          f"first {n} within {rel:.3e} relative (limit {LOSS_RTOL}); "
+          f"launches {ops_nonzero(counts)}")
+    if hist[-1] >= hist[0] or rel > LOSS_RTOL or counts != want:
+        raise AssertionError(f"lbfgs: f_hist {hist}, CPU {cpu_hist}, "
+                             f"launches {counts} (expected {want})")
+    return counts, wall / fevals * 1e3
+
+
+def harness_validator(torch, ops):
+    """``Validator(model, val).test`` with Top1, Top5 and Loss over
+    Inception-v1 at full width on the card and on the CPU; then
+    ``predict`` against the eval forward, and the Torch-style
+    ``update_output`` / ``backward`` against autograd on the card."""
+    from bigdl_tpu_torch.dataset import DataSet, ImgNormalizer, ImgToBatch
+    from bigdl_tpu_torch.models.inception import Inception_v1
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import (Loss, Top1Accuracy, Top5Accuracy,
+                                       Validator)
+    from bigdl_tpu_torch.utils.random import RNG, generator
+
+    norm = ImgNormalizer((123.0, 117.0, 104.0), (1.0, 1.0, 1.0))
+    val = DataSet.array(inception_images(VAL_IMAGES, ICROP, 6)) >> norm \
+        >> ImgToBatch(VAL_BATCH)
+    methods = [Top1Accuracy(), Top5Accuracy(), Loss(ClassNLLCriterion())]
+    res, secs = {}, {}
+    for role, device in (("card", "cuda"), ("cpu", "cpu")):
+        model = Inception_v1(ICLASSES, device=device, generator=generator(0))
+        if role == "card":
+            (out, counts, wall) = run_path(
+                torch, ops, lambda: Validator(model, val, device).test(
+                    methods))
+            card_model = model
+        else:
+            t0 = time.perf_counter()
+            out = Validator(model, val, device).test(methods)
+            wall = time.perf_counter() - t0
+        res[role] = [r.result() for _, r in out]
+        secs[role] = wall
+    (c1, n1), (c5, n5), (loss, nl) = res["card"]
+    (d1, m1), (d5, m5), (cpu_loss, ml) = res["cpu"]
+    loss_rel = abs(loss - cpu_loss) / abs(cpu_loss)
+    batches = -(-VAL_IMAGES // VAL_BATCH)
+    want = {**dict.fromkeys(counts, 0), "lrn_forward": 2 * batches,
+            "maxpool2d_s1_forward": 9 * batches,
+            "maxpool2d_forward": 4 * batches}
+    print(f"harness_api validator: Inception-v1 over {VAL_IMAGES} images "
+          f"in batches of {VAL_BATCH}: card Top1 {c1:.4f} Top5 {c5:.4f} "
+          f"Loss {loss:.8f} ({n1} records, {secs['card'] * 1e3:.4f} ms); "
+          f"CPU Top1 {d1:.4f} Top5 {d5:.4f} Loss {cpu_loss:.8f} "
+          f"({secs['cpu']:.2f} s); loss {loss_rel:.3e} relative apart "
+          f"(limit {RTOL}); launches {ops_nonzero(counts)}")
+    if (c1, c5, n1, n5, nl) != (d1, d5, m1, m5, ml) or n1 != VAL_IMAGES \
+            or loss_rel > RTOL or counts != want:
+        raise AssertionError(f"validator: card {res['card']}, CPU "
+                             f"{res['cpu']}, launches {counts} (expected "
+                             f"{want})")
+    # predict and the Torch-style gradient methods on the card
+    x = torch.from_numpy(next(val.data(train=False)).data[:8]).cuda()
+    with deterministic(torch):
+        pred = card_model.predict(x)
+        card_model.eval()
+        with torch.no_grad():
+            ref = card_model(x)
+        card_model.train()
+        gy = torch.randn(pred.shape, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(0))
+        card_model.zero_grad_parameters()
+        card_model.update_output(x)
+        gx = card_model.backward(x, gy)
+        grads = [p.grad.clone() for p in card_model.parameters()]
+        card_model.zero_grad_parameters()
+        xx = x.clone().requires_grad_(True)
+        RNG.generator(x.device).set_state(card_model._replay)
+        card_model(xx).backward(gy)
+    g_rel = max(leaf_rel(a.cpu(), b.cpu().double())
+                for a, b in zip([gx] + grads, [xx.grad] + [
+                    p.grad for p in card_model.parameters()]))
+    same = torch.equal(pred, ref)
+    print(f"harness_api module api: predict bit-equal to the eval "
+          f"forward: {same}; backward's gradInput and {len(grads)} "
+          f"parameter gradients against autograd, largest |a - b| / "
+          f"max|b| {g_rel:.3e} (limit {RTOL}); forward_time "
+          f"{card_model.forward_time:.4f} s, backward_time "
+          f"{card_model.backward_time:.4f} s")
+    if not same or g_rel > RTOL:
+        raise AssertionError("the Module API's predict or backward left "
+                             "the plain calls'")
+    return counts, secs["card"] / batches * 1e3
+
+
+def forward_time_cost(torch, ops, serving):
+    """The serving step with each module's ``forward_time`` kept (the
+    port's ``Module.__call__``) and without (torch's own ``__call__``), in
+    turns on, off, off, on: ms a step each, and the rows equal."""
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.nn.module import Module
+    from bigdl_tpu_torch.serve.decode import ContinuousDecoder
+    from bigdl_tpu_torch.utils.random import generator
+
+    if serving is None:
+        model = TransformerLM(VOCAB, D_MODEL, HEADS, LAYERS, HIDDEN,
+                              dropout=0.0, device="cuda",
+                              generator=generator(0)).evaluate()
+        rs = np.random.RandomState(0)
+        seeds = [rs.randint(0, VOCAB, size=int(rs.randint(16, 257))).tolist()
+                 for _ in range(N_REQ)]
+    else:
+        model, seeds, _ = serving
+    timed_call = Module.__call__
+    out = {}
+    try:
+        for turn, on in enumerate((True, False, False, True)):
+            Module.__call__ = timed_call if on else torch.nn.Module.__call__
+            dec = ContinuousDecoder(model, max_slots=SLOTS, n_pos=N_POS,
+                                    page_size=PAGE, device="cuda")
+            futs = [dec.submit(s, FT_WORDS) for s in seeds[:FT_REQ]]
+            _, _, wall = run_path(torch, ops, dec.run)
+            out.setdefault(on, []).append(
+                (wall / dec.steps * 1e3, [f.result() for f in futs]))
+    finally:
+        Module.__call__ = timed_call
+    rows = {on: [r for _, r in v] for on, v in out.items()}
+    if any(r != rows[True][0] for v in rows.values() for r in v):
+        raise AssertionError("forward_time: the served rows differ with "
+                             "the timing on and off")
+    on = [ms for ms, _ in out[True]]
+    off = [ms for ms, _ in out[False]]
+    print(f"harness_api forward_time: the serving step ({FT_REQ} requests,"
+          f" {FT_WORDS} words) with each module's forward_time kept "
+          f"{on[0]:.4f} / {on[1]:.4f} ms, without {off[0]:.4f} / "
+          f"{off[1]:.4f} ms (turns on, off, off, on): "
+          f"{statistics.mean(on) / statistics.mean(off):.4f}x; the rows "
+          f"equal")
+
+
+def phase_harness_api(torch, ops, serving=None):
+    """The rest of the training harness's API on the card at full width,
+    each path read from zeroed launch counts: Inception-v1 fine-tuned
+    with per-parameter learning rates (``fused_sgd``'s scaled form, one
+    launch a step; the frozen leaves bit-equal), the Bi-LSTM classifier
+    with ``Adagrad`` eager and as one CUDA graph, LeNet-5's full-batch
+    L-BFGS, the ``Validator`` and the Module API over Inception-v1, each
+    held against the CPU; and the serving step with the modules'
+    ``forward_time`` on and off."""
+    out, ms = {}, {}
+    t0 = time.perf_counter()
+    for name, path in (("finetune", harness_finetune),
+                       ("adagrad", harness_adagrad),
+                       ("lbfgs", harness_lbfgs),
+                       ("validator", harness_validator)):
+        out[f"api_{name}"], ms[name] = path(torch, ops)
+    forward_time_cost(torch, ops, serving)
+    print(f"harness_api: ms a step (finetune, adagrad graph), a feval "
+          f"(lbfgs), a batch (validator): "
+          f"{ {k: round(v, 4) for k, v in ms.items()} }; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out, {}
+
 
 
 def with_init(model, init, dropout=None):
@@ -9137,6 +9630,8 @@ def phase_table(torch, ops, profile, rows):
             torch, ops, profile, {"lstm": carry["lstm"],
                                   "gru": carry["gru"]}), {})),
         ("harness", "path", lambda: phase_harness(torch, ops)),
+        ("harness_api", "path",
+         lambda: phase_harness_api(torch, ops, carry.get("serving"))),
         ("vgg", "path", counts_of("vgg", phase_vgg)),
         ("resnet50", "path", counts_of("resnet50", phase_resnet50)),
         ("bn_harness", "path", lambda: phase_bn_harness(torch, ops)),
@@ -9176,6 +9671,9 @@ ONLY = {
     "--serve-cards": ("serving", "serve_cards"),
     # the training kernels' checks and the harness
     "--harness": ("train_kernels", "harness"),
+    # the rest of the harness's API: fused_sgd's checks (its scaled form)
+    # and the harness_api phase
+    "--harness-api": ("train_kernels", "harness_api"),
     # the batch-normalisation slice: its kernel checks and four paths
     "--bn": ("train_kernels", "conv_kernels", "vgg", "resnet50",
              "bn_harness", "model_zoo"),
@@ -9236,7 +9734,8 @@ ROW_EXTRA = ("layer_library_ms", "layer_port_ms", "same_size_library_ms",
              "resnet50_bound_ms", "resnet50_library_ms",
              "resnet50_launches_step", "vgg_pipe_ms", "vgg_pipe_bound_ms",
              "vgg_pipe_library_ms", "vgg_pipe_launches_step",
-             "same_bytes_ms", "chunk_ms",
+             "same_bytes_ms", "chunk_ms", "scaled_ms", "scaled_queued_ms",
+             "scaled_plain_ms", "scaled_bound_ms", "scaled_launches",
              "chunk_state_ms", "act_ms", "device_lr_ms",
              "graph_kernel_runs", "verify_ms", "verify_plain_ms",
              "verify_library_ms", "verify_dequant_sdpa_ms",
@@ -9304,6 +9803,10 @@ def main(argv) -> int:
         row["launches_by_path"] = {path: counts.get(row["name"], 0)
                                    for path, counts in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
+        if "scaled_ms" in row:
+            row["scaled_launches"] = sum(
+                counts.get(f"{row['name']}_scaled", 0)
+                for counts in by_path.values())
         ran = {path: c[row["name"]] for path, c in graph_ran.items()
                if row["name"] in c}
         if ran:
@@ -9318,7 +9821,7 @@ def main(argv) -> int:
                           "failed": failed}))
         return 1 if failed else 0
     for row in rows:
-        if row["launches"] == 0:
+        if row["launches"] == 0 or row.get("scaled_launches") == 0:
             raise AssertionError(f"{row['name']}: no launch on any path")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -177,7 +177,8 @@ def run(spec: dict) -> dict:
     ``iters``, ``n_disp``, ``drop`` (straggler arguments with a
     ``Schedule``), ``poison`` ({rank: step}: that rank's input is NaN at
     that step), ``checkpoint`` ((path, every n)), ``opt_state`` (a tree
-    to resume from), ``validate`` ((xs, ys, batch)).
+    to resume from), ``validate`` ((xs, ys, batch)), ``method``
+    ("adagrad": the OptimMethod, default SGD).
     """
     model = build(spec["model"], spec.get("arch"))
     load_jax_params(model, spec["init"])
@@ -206,6 +207,9 @@ def run(spec: dict) -> dict:
     else:
         opt.set_state(T(**spec.get("state", {"learningRate": 0.1})))
     opt.set_end_when(max_iteration(spec["iters"]))
+    if spec.get("method") == "adagrad":
+        from bigdl_tpu_torch.optim import Adagrad
+        opt.set_optim_method(Adagrad())
     if spec.get("n_disp"):
         opt.set_iterations_per_dispatch(spec["n_disp"])
     if spec.get("drop") is not None:
@@ -266,8 +270,8 @@ def run(spec: dict) -> dict:
             out["peak_in_flight"] = opt.pipe_result.peak_in_flight
             out["bubble"] = opt.pipe_result.bubble
             out["ranges"] = opt._pipe.plan.ranges
-        out["velocity_numel"] = sum(v.numel()
-                                    for v in opt.opt_state["velocity"])
+        out["velocity_numel"] = sum(
+            v.numel() for v in opt.opt_state.get("velocity", []))
         out["per_node"] = opt.metrics.per_node("computing time average",
                                                opt.mesh)
         if opt._straggler is not None:
@@ -279,6 +283,43 @@ def run(spec: dict) -> dict:
             out["predict"] = model(torch.from_numpy(
                 np.asarray(spec["predict"], np.float32))).numpy()
     return out
+
+
+def validator_case(spec: dict) -> dict:
+    """The validators on this rank over ``spec``'s model (``init``) and
+    records (``xs`` / ``ys`` in batches of ``batch``): ``DistriValidator``
+    over the whole set on every rank (each takes every N-th batch),
+    the ``Validator`` factory over a sharded set (it routes to the
+    distributed evaluation) and ``distri_validate`` over the same; each
+    result as (value, count)."""
+    from bigdl_tpu_torch.optim import (DistriValidator, Loss, Top1Accuracy,
+                                       Top5Accuracy, Validator,
+                                       distri_validate)
+
+    model = build(spec["model"], spec.get("arch"))
+    load_jax_params(model, spec["init"])
+    methods = [Top1Accuracy(), Top5Accuracy(), Loss(nn.ClassNLLCriterion())]
+    whole = DataSet.array(samples_of(spec["xs"], spec["ys"])) \
+        >> SampleToBatch(spec["batch"])
+    shard = DataSet.array(samples_of(spec["xs"], spec["ys"]),
+                          distributed=True) >> SampleToBatch(spec["batch"])
+
+    def values(results):
+        return [r.result() for _, r in results]
+    return {"distri": values(DistriValidator(model, whole, device="cpu")
+                             .test(methods)),
+            "factory": values(Validator(model, shard, device="cpu")
+                              .test(methods)),
+            "function": values(distri_validate(model, shard, methods,
+                                               "cpu"))}
+
+
+def global_batch_case(xs, ys, global_batch: int) -> list:
+    """The row counts of ``SampleToBatch(global_batch_size=)``'s batches
+    on this rank (the global batch over the live world)."""
+    ds = DataSet.array(samples_of(xs, ys), distributed=True) \
+        >> SampleToBatch(global_batch_size=global_batch)
+    return [int(b.data.shape[0]) for b in ds.data(train=False)]
 
 
 def runs(specs: list) -> list:

@@ -123,8 +123,29 @@ def test_no_plain_path_off_the_cpu():
         ops.fused_sgd(p, g, v, 0.1, momentum=0.9)
 
 
-def test_lr_scales_raise():
-    p, g, v = (_torch(t) for t in _trees(5))
-    with pytest.raises(NotImplementedError, match="learning rates"):
-        SGD(fused=True).update(g, {"velocity": v}, p,
-                               {"lr": 0.1, "lr_scales": [1.0] * len(p)})
+@pytest.mark.parametrize("h", HYPERS, ids=lambda h: "-".join(h))
+def test_sgd_update_with_lr_scales_matches_jax(h):
+    """Per-parameter learning rates (``hyper['lr_scales']``, the
+    reference's ``learningRates``): the port's ``SGD.update``, which
+    takes ``fused_sgd``'s scaled form, equals the JAX ``SGD.update`` (its
+    unfused path) over three steps, with rates 0, 0.5 and 2 and a scalar
+    rate broadcast over its leaf."""
+    p, g, _ = _trees(5)
+    rs = np.random.RandomState(9)
+    scales = {"w": rs.choice([0.0, 0.5, 2.0], SHAPES["w"]).astype(
+        np.float32), "b": np.float32(0.5),
+        "big": np.full(SHAPES["big"], 2.0, np.float32),
+        "odd": np.zeros(SHAPES["odd"], np.float32)}
+    jp = {k: jnp.asarray(a) for k, a in p.items()}
+    jg = {k: jnp.asarray(a) for k, a in g.items()}
+    js = JaxSGD().init_state(jp)
+    tp, tg = _torch(p), _torch(g)
+    ts = SGD().init_state(tp)
+    jh = dict(h, lr_scales={k: jnp.asarray(v) for k, v in scales.items()})
+    th = dict(h, lr_scales=[torch.as_tensor(scales[k]) for k in SHAPES])
+    for _ in range(3):
+        jp, js = JaxSGD().update(jg, js, jp, jh)
+        SGD().update(tg, ts, tp, th)
+    _assert_close(tp, jp)
+    _assert_close(ts["velocity"], js["velocity"])
+    assert torch.equal(tp[3], torch.from_numpy(p["odd"]))   # rate 0

@@ -42,6 +42,21 @@
 //  - `finite` (a device bool, or null): a block that reads false returns
 //    before any write, so a step with non-finite gradients leaves p and v
 //    as they were, without a host sync.
+//
+// The taps form (a template flag, `taps` non-null: the JAX package's
+// `obs/taps.py` `compute`, "a single fused pass over tensors the backward
+// already has") adds, while each element's p, g and p' sit in registers,
+// four sums into `taps` (float64): sum p^2, sum (p' - p)^2, sum g^2 (the
+// raw gradient, before weight decay) and the count of non-finite g.  Each
+// thread sums its elements in fp32, the block reduces them (warp shuffles,
+// then one shared row a warp), and thread 0 adds the block's four partials
+// with four float64 atomics.  p' and v' come from the same `update` as the
+// form without taps, so their bits are the same.  On a step whose `finite`
+// reads false the block still reads and sums (its p' is p: the update
+// ratio reads 0, as the JAX step's skip-select gives) and writes nothing
+// but the sums.  The form reads the same 20 bytes a parameter (24 scaled)
+// and adds 32 bytes of atomics a block: its bound is the form without
+// taps'.
 
 #include <cuda_runtime.h>
 
@@ -67,13 +82,60 @@ __device__ __forceinline__ void update(float& p, float g, float& v, float s,
   p = p - lr * d;
 }
 
-template <bool NESTEROV, bool SCALED>
+// the taps form's per-thread sums: p^2, (p' - p)^2, g^2, non-finite g
+struct Sums {
+  float p2 = 0.f, d2 = 0.f, g2 = 0.f, bad = 0.f;
+};
+
+template <bool TAPS>
+__device__ __forceinline__ void tap(Sums& t, float p0, float p1, float g,
+                                    bool write) {
+  if (!TAPS) return;
+  t.p2 += p0 * p0;
+  t.g2 += g * g;
+  t.bad += isfinite(g) ? 0.f : 1.f;
+  if (write) {
+    const float d = p1 - p0;
+    t.d2 += d * d;
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// the block's four sums into taps[0..3] (order: g2, p2, d2, bad)
+__device__ __forceinline__ void block_taps(Sums t, double* taps) {
+  __shared__ float part[kThreads / 32][4];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  t.g2 = warp_sum(t.g2);
+  t.p2 = warp_sum(t.p2);
+  t.d2 = warp_sum(t.d2);
+  t.bad = warp_sum(t.bad);
+  if (lane == 0) {
+    part[warp][0] = t.g2;
+    part[warp][1] = t.p2;
+    part[warp][2] = t.d2;
+    part[warp][3] = t.bad;
+  }
+  __syncthreads();
+  if (threadIdx.x < 4) {
+    float s = 0.f;
+    for (int w = 0; w < kThreads / 32; ++w) s += part[w][threadIdx.x];
+    atomicAdd(taps + threadIdx.x, (double)s);
+  }
+}
+
+template <bool NESTEROV, bool SCALED, bool TAPS>
 __global__ void __launch_bounds__(kThreads)
     fused_sgd_kernel(const Leaf* __restrict__ leaves, int n_leaves, int chunk,
                      float lr_arg, const float* __restrict__ lr_dev,
                      float mom, float wd, float damp,
-                     const unsigned char* __restrict__ finite) {
-  if (finite != nullptr && *finite == 0) return;
+                     const unsigned char* __restrict__ finite,
+                     double* __restrict__ taps) {
+  const bool write = finite == nullptr || *finite != 0;
+  if (!TAPS && !write) return;
   const float lr = lr_dev != nullptr ? *lr_dev : lr_arg;
   // the last leaf whose first chunk is <= this block
   const long long c = blockIdx.x;
@@ -92,6 +154,7 @@ __global__ void __launch_bounds__(kThreads)
   const float* S = SCALED ? reinterpret_cast<const float*>(leaf.s) + start
                           : nullptr;
   const bool has_mom = mom != 0.0f;
+  Sums t;
   int done = 0;
   if (leaf.vec) {
     const int n4 = len >> 2;
@@ -100,7 +163,8 @@ __global__ void __launch_bounds__(kThreads)
     float4* V4 = reinterpret_cast<float4*>(V);
     const float4* S4 = reinterpret_cast<const float4*>(S);
     for (int i = threadIdx.x; i < n4; i += kThreads) {
-      float4 p = P4[i];
+      const float4 p0 = P4[i];
+      float4 p = p0;
       const float4 g = G4[i];
       float4 v = has_mom ? V4[i] : make_float4(0.f, 0.f, 0.f, 0.f);
       const float4 s = SCALED ? S4[i] : make_float4(1.f, 1.f, 1.f, 1.f);
@@ -112,27 +176,52 @@ __global__ void __launch_bounds__(kThreads)
                                has_mom);
       update<NESTEROV, SCALED>(p.w, g.w, v.w, s.w, lr, mom, wd, damp,
                                has_mom);
-      P4[i] = p;
-      if (has_mom) V4[i] = v;
+      tap<TAPS>(t, p0.x, p.x, g.x, write);
+      tap<TAPS>(t, p0.y, p.y, g.y, write);
+      tap<TAPS>(t, p0.z, p.z, g.z, write);
+      tap<TAPS>(t, p0.w, p.w, g.w, write);
+      if (write) {
+        P4[i] = p;
+        if (has_mom) V4[i] = v;
+      }
     }
     done = n4 << 2;
   }
   for (int i = done + threadIdx.x; i < len; i += kThreads) {
-    float p = P[i];
+    const float p0 = P[i];
+    const float g = G[i];
+    float p = p0;
     float v = has_mom ? V[i] : 0.0f;
-    update<NESTEROV, SCALED>(p, G[i], v, SCALED ? S[i] : 1.0f, lr, mom, wd,
+    update<NESTEROV, SCALED>(p, g, v, SCALED ? S[i] : 1.0f, lr, mom, wd,
                              damp, has_mom);
-    P[i] = p;
-    if (has_mom) V[i] = v;
+    tap<TAPS>(t, p0, p, g, write);
+    if (write) {
+      P[i] = p;
+      if (has_mom) V[i] = v;
+    }
   }
+  if (TAPS) block_taps(t, taps);
+}
+
+template <bool NESTEROV, bool SCALED, bool TAPS>
+void launch(const Leaf* leaves, int n_leaves, int n_chunks, int chunk,
+            float lr, const float* lr_dev, float mom, float wd, float damp,
+            const unsigned char* finite, double* taps, cudaStream_t st) {
+  fused_sgd_kernel<NESTEROV, SCALED, TAPS><<<n_chunks, kThreads, 0, st>>>(
+      leaves, n_leaves, chunk, lr, lr_dev, mom, wd, damp, finite, taps);
 }
 
 template <bool NESTEROV, bool SCALED>
-void launch(const Leaf* leaves, int n_leaves, int n_chunks, int chunk,
-            float lr, const float* lr_dev, float mom, float wd, float damp,
-            const unsigned char* finite, cudaStream_t st) {
-  fused_sgd_kernel<NESTEROV, SCALED><<<n_chunks, kThreads, 0, st>>>(
-      leaves, n_leaves, chunk, lr, lr_dev, mom, wd, damp, finite);
+void launch_taps(const Leaf* leaves, int n_leaves, int n_chunks, int chunk,
+                 float lr, const float* lr_dev, float mom, float wd,
+                 float damp, const unsigned char* finite, double* taps,
+                 cudaStream_t st) {
+  if (taps != nullptr)
+    launch<NESTEROV, SCALED, true>(leaves, n_leaves, n_chunks, chunk, lr,
+                                   lr_dev, mom, wd, damp, finite, taps, st);
+  else
+    launch<NESTEROV, SCALED, false>(leaves, n_leaves, n_chunks, chunk, lr,
+                                    lr_dev, mom, wd, damp, finite, taps, st);
 }
 
 }  // namespace
@@ -143,29 +232,31 @@ extern "C" {
 // elements (a multiple of 4); `table` is the device copy of n_leaves rows
 // of (p, g, v, s, n, first chunk, vec) int64; lr is `*lr_dev` where that
 // is non-null, else `lr`; `scaled` (every leaf's s non-null) selects the
-// per-parameter-rate form.  Returns the cudaError_t of the launch (0 on
+// per-parameter-rate form; a non-null `taps` (4 float64 on the device)
+// selects the taps form, which adds the step's sums g^2, p^2, (p' - p)^2
+// and non-finite g into it.  Returns the cudaError_t of the launch (0 on
 // success).
 int bigdl_fused_sgd_f32(const long long* table, int n_leaves, int n_chunks,
                         int chunk, float lr, const float* lr_dev, float mom,
                         float wd, float damp, int nesterov, int scaled,
-                        const unsigned char* finite, int device,
+                        const unsigned char* finite, double* taps, int device,
                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Leaf* leaves = reinterpret_cast<const Leaf*>(table);
   if (nesterov && scaled)
-    launch<true, true>(leaves, n_leaves, n_chunks, chunk, lr, lr_dev, mom,
-                       wd, damp, finite, st);
+    launch_taps<true, true>(leaves, n_leaves, n_chunks, chunk, lr, lr_dev,
+                            mom, wd, damp, finite, taps, st);
   else if (nesterov)
-    launch<true, false>(leaves, n_leaves, n_chunks, chunk, lr, lr_dev, mom,
-                        wd, damp, finite, st);
+    launch_taps<true, false>(leaves, n_leaves, n_chunks, chunk, lr, lr_dev,
+                             mom, wd, damp, finite, taps, st);
   else if (scaled)
-    launch<false, true>(leaves, n_leaves, n_chunks, chunk, lr, lr_dev, mom,
-                        wd, damp, finite, st);
+    launch_taps<false, true>(leaves, n_leaves, n_chunks, chunk, lr, lr_dev,
+                             mom, wd, damp, finite, taps, st);
   else
-    launch<false, false>(leaves, n_leaves, n_chunks, chunk, lr, lr_dev, mom,
-                         wd, damp, finite, st);
+    launch_taps<false, false>(leaves, n_leaves, n_chunks, chunk, lr, lr_dev,
+                              mom, wd, damp, finite, taps, st);
   return (int)cudaGetLastError();
 }
 

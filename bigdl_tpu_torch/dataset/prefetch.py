@@ -153,18 +153,22 @@ def _is_pure_map(stage) -> bool:
 
 class Item:
     """One produced batch (or chunk): host arrays, device tensors and the
-    event they are ready at once transferred, and the stream's state and
-    the records' order after its draws."""
+    event they are ready at once transferred, the stream's state and the
+    records' order after its draws, its place in the stream (``seq``) and
+    the output queue's depth when it was taken."""
 
-    __slots__ = ("x", "y", "device", "event", "np_state", "order")
+    __slots__ = ("x", "y", "device", "event", "np_state", "order", "seq",
+                 "queue_depth")
 
-    def __init__(self, x, y, np_state=None, order=None):
+    def __init__(self, x, y, np_state=None, order=None, seq=0):
         self.x = x
         self.y = y
         self.device = None
         self.event = None
         self.np_state = np_state
         self.order = order
+        self.seq = seq
+        self.queue_depth = 0
 
 
 class _End:
@@ -245,6 +249,13 @@ class PipelineRunner:
         self._work_lock = threading.Lock()
         self._closed = False
         self._count = 0
+        # the threads' walls, drained by the consuming loop into its spans
+        # (``take_fetch``: the producer's draws, ``take_h2d``: the copies)
+        self._stats_lock = threading.Lock()
+        self._fetch_seconds, self._fetch_count = 0.0, 0
+        self._h2d_seconds, self._h2d_count = 0.0, 0
+        self.stall_seconds = 0.0
+        self.consumed = 0
         self._pool = None
         self._split = None
         if self._train and self._n_workers > 0:
@@ -360,6 +371,7 @@ class PipelineRunner:
             if self._stream is not None:
                 RNG.own_stream(self._stream)
             self._it = self._make_iter()
+            seq = 0
             while not self._stop.is_set():
                 if self._pause.is_set():
                     time.sleep(0.002)
@@ -367,6 +379,7 @@ class PipelineRunner:
                 with self._work_lock:
                     if self._pause.is_set():
                         continue
+                    t0 = time.perf_counter()
                     if self._chunk <= 1:
                         try:
                             b = next(self._it)
@@ -382,9 +395,14 @@ class PipelineRunner:
                     self._advance_epoch(records)
                     snap = (self._stream.get_state()
                             if self._stream is not None else None)
+                    wall = time.perf_counter() - t0
+                with self._stats_lock:
+                    self._fetch_seconds += wall
+                    self._fetch_count += 1
                 if not self._put(self._host_q,
-                                 Item(x, y, snap, self._order_now)):
+                                 Item(x, y, snap, self._order_now, seq)):
                     return
+                seq += 1
         except BaseException as e:
             self._put(self._host_q, _Error(e))
 
@@ -410,12 +428,17 @@ class PipelineRunner:
                     self._put(self._out_q, item)
                     return
                 try:
+                    t0 = time.perf_counter()
                     pinned, k = self._ring.stage((item.x, item.y))
                     item.device = tuple(p.to(self._device, non_blocking=True)
                                         for p in pinned)
                     item.event = torch.cuda.Event()
                     item.event.record(self._side)
                     self._ring.mark(k, item.event)
+                    wall = time.perf_counter() - t0
+                    with self._stats_lock:
+                        self._h2d_seconds += wall
+                        self._h2d_count += 1
                 except BaseException as e:
                     self._put(self._out_q, _Error(e))
                     return
@@ -435,6 +458,9 @@ class PipelineRunner:
             raise StopIteration
         if isinstance(item, _Error):
             raise item.exc
+        self.stall_seconds += waited
+        self.consumed += 1
+        item.queue_depth = self._out_q.qsize()
         if item.event is not None:
             cur = torch.cuda.current_stream(self._device)
             cur.wait_event(item.event)
@@ -445,6 +471,22 @@ class PipelineRunner:
         if item.order is not None:
             self._last_order = item.order
         return item, waited
+
+    def take_h2d(self):
+        """Drain the transfer thread's (seconds, batches) since the last
+        call: the consuming loop books them to its ``h2d`` span."""
+        with self._stats_lock:
+            out = (self._h2d_seconds, self._h2d_count)
+            self._h2d_seconds, self._h2d_count = 0.0, 0
+        return out
+
+    def take_fetch(self):
+        """Drain the producer's (seconds, batches) of draws since the
+        last call: the ``data-load/fetch`` span."""
+        with self._stats_lock:
+            out = (self._fetch_seconds, self._fetch_count)
+            self._fetch_seconds, self._fetch_count = 0.0, 0
+        return out
 
     def rng_snapshot(self) -> dict:
         """The checkpoint's random payload: the stream and the order as of

@@ -7,7 +7,9 @@ bf16 form (the pools, the LRN, the LSTM and RNN recurrences and
 ``lstm_scan``) counts that form's launches apart, in ``launches_bf16``:
 ``launch_counts()`` reports them as ``<name>_bf16``; ``fused_sgd``'s
 scaled form (per-parameter learning rates) is counted apart likewise, in
-``launches_scaled``, reported as ``fused_sgd_scaled``.  ``Act`` describes
+``launches_scaled``, reported as ``fused_sgd_scaled``, and its taps
+form's (``obs/taps.py``) in ``launches_taps`` as ``fused_sgd_taps``
+besides its count in ``launches`` (or ``launches_scaled``).  ``Act`` describes
 the element-wise activation the RNN kernels apply.
 """
 from bigdl_tpu_torch.ops._activation import Act
@@ -49,7 +51,8 @@ KERNELS = (paged_attention, paged_attention_int8, fused_sgd,
 
 
 #: the forms a wrapper counts apart from ``launches``: (attribute, suffix)
-FORMS = (("launches_bf16", "_bf16"), ("launches_scaled", "_scaled"))
+FORMS = (("launches_bf16", "_bf16"), ("launches_scaled", "_scaled"),
+         ("launches_taps", "_taps"))
 
 
 def reset_launch_counts() -> None:

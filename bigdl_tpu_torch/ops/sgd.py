@@ -30,6 +30,15 @@ them from the same leaf table, one launch a step as before;
 broadcast one is materialised then and kept with the table: a table's
 key holds each scale's address and version counter, so a scale written
 in place gets a new table.
+
+``taps`` (the training-health taps, ``obs/taps.py``): a float64 tensor
+of 4 on the leaves' device; the kernel's taps form adds the step's sums
+g^2, p^2, (p' - p)^2 and the count of non-finite g into it as it
+updates (p' and v' keep the bits of the form without taps; on a step
+whose ``finite`` is False it sums and writes nothing else).  Its
+launches count in ``launches`` (``launches_scaled``) as before and apart
+in ``launches_taps``.  The plain version adds the same sums, leaf by
+leaf (``obs.taps.sums``).
 """
 from __future__ import annotations
 
@@ -59,7 +68,7 @@ def _lib() -> ctypes.CDLL:
         lib.bigdl_fused_sgd_f32.argtypes = [
             _VP, _I, _I, _I,            # table n_leaves n_chunks chunk
             _F, _VP, _F, _F, _F, _I,    # lr lr_dev mom wd damp nesterov
-            _I, _VP, _I, _VP]           # scaled finite device stream
+            _I, _VP, _VP, _I, _VP]      # scaled finite taps device stream
         lib.bigdl_fused_sgd_f32.restype = _I
         lib.bigdl_cuda_error_string.argtypes = [_I]
         lib.bigdl_cuda_error_string.restype = ctypes.c_char_p
@@ -69,18 +78,23 @@ def _lib() -> ctypes.CDLL:
 
 def fused_sgd_reference(params, grads, velocity, lr, momentum=0.0,
                         weight_decay=0.0, dampening=0.0, nesterov=False,
-                        finite=None, scales=None):
+                        finite=None, scales=None, taps=None):
     """Plain version: the unfused math of ``SGD.update``
     (bigdl_tpu/optim/optim_method.py:135-150) leaf by leaf, written into
     ``params`` and ``velocity``; with ``momentum == 0`` the velocity is
     untouched.  ``lr`` is a float or a one-element float32 tensor.
     ``finite`` (a bool tensor or None) keeps every leaf as it was where it
     is False.  ``scales`` (None, or one tensor a leaf, broadcastable to
-    it) multiply the step direction before the rate."""
+    it) multiply the step direction before the rate.  ``taps`` (None, or
+    4 float64) gains the step's sums g^2, p^2, (p' - p)^2 and non-finite
+    g (``obs.taps.sums``; p' is p where ``finite`` is False)."""
+    from bigdl_tpu_torch.obs.taps import leaf_sums
+
     if scales is None:
         scales = [None] * len(params)
     with torch.no_grad():
         for p, g, v, s in zip(params, grads, velocity, scales):
+            g_raw, p_old = g, (p.clone() if taps is not None else None)
             if weight_decay != 0.0:
                 g = g + weight_decay * p
             if momentum != 0.0:
@@ -97,11 +111,14 @@ def fused_sgd_reference(params, grads, velocity, lr, momentum=0.0,
             p.copy_(p_new)
             if momentum != 0.0:
                 v.copy_(v_new)
+            if taps is not None:
+                taps += leaf_sums(g_raw, p_old, p).to(taps.device)
     return params, velocity
 
 
 def fused_sgd(params, grads, velocity, lr, momentum=0.0, weight_decay=0.0,
-              dampening=0.0, nesterov=False, finite=None, scales=None):
+              dampening=0.0, nesterov=False, finite=None, scales=None,
+              taps=None):
     """One momentum-SGD step over lists of leaves ``params``, ``grads``,
     ``velocity`` (f32, one shape per triple), in place; returns
     ``(params, velocity)``.  ``lr``: a float, or a one-element float32
@@ -109,21 +126,30 @@ def fused_sgd(params, grads, velocity, lr, momentum=0.0, weight_decay=0.0,
     None, or a one-element bool tensor on the leaves' device; where it is
     False nothing changes.  ``scales``: None, or one float32 tensor a
     leaf (the leaf's shape or broadcastable to it, on its device), the
-    per-parameter learning rates."""
+    per-parameter learning rates.  ``taps``: None, or a float64 tensor of
+    4 on the leaves' device that gains the step's taps sums."""
     dev = params[0].device
+    if taps is not None and (taps.device != dev
+                             or taps.dtype != torch.float64
+                             or taps.numel() != 4
+                             or not taps.is_contiguous()):
+        raise ValueError(f"fused_sgd: taps must be 4 contiguous float64 on "
+                         f"{dev}, got {taps.dtype} {tuple(taps.shape)} on "
+                         f"{taps.device}")
     if dev.type == "cpu":
         return fused_sgd_reference(
             params, grads, velocity, lr, momentum, weight_decay, dampening,
             nesterov, finite,
-            None if scales is None else _checked_scales(params, scales))
+            None if scales is None else _checked_scales(params, scales),
+            taps)
     if dev.type != "cuda":
         raise ValueError(f"fused_sgd: no kernel for device {dev}")
     _launch(params, grads, velocity, lr, momentum, weight_decay, dampening,
-            nesterov, finite, scales)
+            nesterov, finite, scales, taps)
     return params, velocity
 
 
-fused_sgd.launches = fused_sgd.launches_scaled = 0
+fused_sgd.launches = fused_sgd.launches_scaled = fused_sgd.launches_taps = 0
 
 
 def _checked_scales(params, scales):
@@ -227,7 +253,7 @@ def _device_table(params, grads, velocity, scales=None):
 
 
 def _launch(params, grads, velocity, lr, momentum, weight_decay, dampening,
-            nesterov, finite, scales=None):
+            nesterov, finite, scales=None, taps=None):
     dev = params[0].device
     if finite is not None and (finite.device != dev
                                or finite.dtype != torch.bool
@@ -253,6 +279,7 @@ def _launch(params, grads, velocity, lr, momentum, weight_decay, dampening,
         float(momentum), float(weight_decay), float(dampening),
         int(bool(nesterov)), int(scales is not None),
         None if finite is None else finite.data_ptr(),
+        None if taps is None else taps.data_ptr(),
         *_build.device_stream(dev))
     if err != 0:
         raise RuntimeError("fused_sgd kernel launch failed: "
@@ -261,3 +288,5 @@ def _launch(params, grads, velocity, lr, momentum, weight_decay, dampening,
         fused_sgd.launches += 1
     else:
         fused_sgd.launches_scaled += 1
+    if taps is not None:
+        fused_sgd.launches_taps += 1

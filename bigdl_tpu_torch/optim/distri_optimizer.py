@@ -148,6 +148,7 @@ from bigdl_tpu_torch.nn.reductions import Mean
 from bigdl_tpu_torch.nn.shape_ops import Identity
 from bigdl_tpu_torch.nn.table_ops import (CAddTable, CDivTable, CMaxTable,
                                           CMinTable, CMulTable, CSubTable)
+from bigdl_tpu_torch.obs import taps as obs_taps
 from bigdl_tpu_torch.optim.local_optimizer import (LocalOptimizer,
                                                    _BufferSnapshot,
                                                    export_scalar,
@@ -369,6 +370,9 @@ class DistriOptimizer(LocalOptimizer):
         #: first step), whether the other stages are off the card, and
         #: the last step's schedule
         self._pipe, self._pipe_offloaded = None, False
+        #: the taps' gradient sums come from each rank's local gradient
+        #: (the compressed or masked ``zero1`` step; set a run)
+        self._local_taps = False
         self.pipe_result = None
         for name in ("computing time average", "aggregate gradient time"):
             self.metrics.declare(name)
@@ -630,10 +634,12 @@ class DistriOptimizer(LocalOptimizer):
                 self._pipe_resume(opt_state)
         return st
 
-    def _train_step(self, params, opt_state, x, y, hyper):
+    def _train_step(self, params, opt_state, x, y, hyper, taps=None):
         if self.pipeline_stages is None:
-            return super()._train_step(params, opt_state, x, y, hyper)
+            return super()._train_step(params, opt_state, x, y, hyper,
+                                       taps=taps)
         st = self._pipe_ready(x, opt_state)
+        taps = obs_taps.new_sums(x.device) if self._taps_on else None
         pipe, data = self.mesh.axis("pipe"), self._data
         st.gflat.zero_()
         st.kept.save()
@@ -666,10 +672,10 @@ class DistriOptimizer(LocalOptimizer):
         loss = meta[0]
         finite = (meta[1] == 0) & torch.isfinite(loss)
         self.optim_method.update([st.gflat], opt_state, [st.pflat], hyper,
-                                 finite=finite)
+                                 finite=finite, taps=taps)
         pipe_mod.merge_state_over(st.buffers, data)
         st.kept.restore_unless(finite)
-        return loss, finite
+        return loss, finite, taps
 
     def _pipe_resume(self, opt_state):
         """This stage's row of a stage-stacked ``(P, max_p)`` optimizer
@@ -1064,9 +1070,18 @@ class DistriOptimizer(LocalOptimizer):
                     coll.all_reduce(flag, other, op=dist.ReduceOp.MIN)
                     finite = flag[0] > 0
                 return self._gbuf[n].clone(), finite
-            meta = torch.stack([scaled.float(),
-                                (~torch.isfinite(held).all()).float()])
+            parts = [scaled.float(), (~torch.isfinite(held).all()).float()]
+            if self._local_taps:
+                # the JAX shard_map step's taps_merge: each rank's
+                # local-gradient norm and non-finite count ride this
+                # all-reduce, their replica mean read after it
+                g = self._gbuf[:n]
+                parts += [torch.linalg.vector_norm(g),
+                          (~torch.isfinite(g)).sum().float()]
+            meta = torch.stack(parts)
             coll.all_reduce(meta, self.mesh)
+            if self._local_taps:
+                self._taps_local = meta[2:] / self._world
             if self._tp is not None:
                 # the model ranks of a data slice each added its loss
                 meta[0] /= self._tp.size
@@ -1106,17 +1121,67 @@ class DistriOptimizer(LocalOptimizer):
         padded flat length at the wire's dtype)."""
         return self._part.length * (2 if self.gradient_compression else 4)
 
-    def _update(self, grads, opt_state, params, hyper, finite):
+    def _update(self, grads, opt_state, params, hyper, finite, taps=None):
         if self.expert_parallel:
             # the owner update: an expert-stacked leaf's own rows alone
             return super()._update(self._upd_grads, opt_state,
                                    self._upd_params, hyper, finite)
         if not self.zero1:
-            return super()._update(grads, opt_state, params, hyper, finite)
-        # the owner update on this rank's slice, then every slice back
+            return super()._update(grads, opt_state, params, hyper, finite,
+                                   taps)
+        # the owner update on this rank's slice, then every slice back;
+        # the slice's tap sums are summed over the ranks at the window's
+        # read (``_taps_host``), never a step
         self.optim_method.update([self._gsl], opt_state, [self._psl], hyper,
-                                 finite=finite)
+                                 finite=finite, taps=taps)
+        if taps is not None and self._local_taps:
+            taps[0] = self._taps_local[0].double().square()
+            taps[3] = self._taps_local[1].double()
         coll.all_gather(self._psl, self._zgroup, out=self._pflat)
+
+    # -- the taps over the ranks (the JAX merge rule) -----------------------
+    def _taps_supported(self) -> bool:
+        """The taps need each leaf's sums once: tensor and expert
+        parallelism hold some leaves as rows and the rest whole on every
+        rank of an axis, so their runs have no taps."""
+        if self._tp is not None or self.expert_parallel:
+            logger.info("taps: off under tensor / expert parallelism")
+            return False
+        return True
+
+    def _taps_plan(self):
+        """(columns, axis) of the tap sums to sum over ranks at a window
+        read: ``zero1``'s slices over its group (the gradient's two only
+        where each rank's come from its local gradient: the compressed
+        or masked ``zero1`` step, whose norms ride the step's metadata
+        all-reduce already), a pipeline's stages over ``pipe``; else
+        None (the step's sums are global)."""
+        if self.pipeline_stages is not None:
+            return [0, 1, 2, 3], self.mesh.axis("pipe")
+        if self.zero1:
+            return ([1, 2] if self._local_taps else [0, 1, 2, 3]), \
+                self._zgroup
+        return None
+
+    def _start_obs_run(self):
+        monitor = super()._start_obs_run()
+        self._local_taps = (self._taps_on and self.zero1
+                            and self._shard_local
+                            and self.pipeline_stages is None)
+        return monitor
+
+    def _taps_host(self, t):
+        plan = self._taps_plan()
+        if plan is None:
+            return t
+        cols, axis = plan
+        if axis.size <= 1:
+            return t
+        part = t[:, cols].contiguous()
+        coll.all_reduce(part, axis)
+        t = t.clone()
+        t[:, cols] = part
+        return t
 
     def _merge_state(self):
         """Per-shard statistics: the running statistics' (masked) mean

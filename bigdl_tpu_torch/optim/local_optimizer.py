@@ -44,7 +44,20 @@ OptimMethod's update in place.  What the JAX loop keeps, this one keeps:
   the device at the parameter's shape once a run, and the update takes
   ``fused_sgd``'s scaled form.
 
-Not ported yet: taps and summaries, and fault drills.
+- observability (``bigdl_tpu_torch.obs``, the JAX loop's): the taps
+  (on by default; ``set_taps``) come out of the step as four device sums
+  (the ``fused_sgd`` kernel's taps form on the SGD path) and are read
+  with the loss in the cadence window; phase spans (``data-load``,
+  ``h2d``, ``dispatch``, ``host-wait``, ``validate``, ``checkpoint``)
+  under ``torch.profiler`` ranges; ``run_start``, ``step``,
+  ``validation``, ``checkpoint``, ``prefetch_stall`` and ``run_end``
+  events; TensorBoard scalars (``set_train_summary``,
+  ``set_val_summary``); the ``train_mfu`` gauge at each window from the
+  step's flops (counted once a step shape on an eager step) over an
+  NVIDIA card's data-sheet peak; and on a non-finite abort an ``abort``
+  event and a crash bundle.
+
+Not ported yet: fault drills.
 """
 from __future__ import annotations
 
@@ -56,6 +69,9 @@ import torch
 
 from bigdl_tpu_torch.dataset import prefetch
 from bigdl_tpu_torch.nn.module import leaves_of, tree_of
+from bigdl_tpu_torch.obs import events as obs_events
+from bigdl_tpu_torch.obs import taps as obs_taps
+from bigdl_tpu_torch.obs.spans import SpanTracker
 from bigdl_tpu_torch.optim import trigger as triggers
 from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.optim_method import SGD, Default, OptimMethod
@@ -67,9 +83,6 @@ from bigdl_tpu_torch.utils.random import RNG
 from bigdl_tpu_torch.utils.table import T, Table
 
 logger = logging.getLogger("bigdl_tpu_torch.optim")
-#: iterations between host reads of loss and finite flag (the JAX
-#: package's default taps cadence)
-SYNC_CADENCE = 10
 
 
 class NonFiniteGradError(RuntimeError):
@@ -163,25 +176,33 @@ def remat(fn, x, buffers):
     return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
+def _three(out):
+    """A step's (loss, finite, taps): a ``_train_step`` replaced by one
+    that returns (loss, finite) has no taps."""
+    return out if len(out) == 3 else (*out, None)
+
+
 class _PendingStep:
     """One dispatched but not yet read dispatch: its device scalars (one
     a step: (n,) at n steps a dispatch) and the host bookkeeping taken at
     dispatch."""
 
-    __slots__ = ("neval0", "epoch", "count", "loss", "finite", "lr",
-                 "records", "fetch_t", "train_t")
+    __slots__ = ("neval0", "epoch", "count", "loss", "finite", "taps", "lr",
+                 "records", "fetch_t", "train_t", "extra")
 
-    def __init__(self, neval0, epoch, count, loss, finite, lr, records,
-                 fetch_t, train_t):
+    def __init__(self, neval0, epoch, count, loss, finite, taps, lr,
+                 records, fetch_t, train_t, extra=None):
         self.neval0 = neval0
         self.epoch = epoch
         self.count = count
         self.loss = loss
         self.finite = finite
+        self.taps = taps         # the four tap sums ((n, 4) a chunk), or None
         self.lr = lr
         self.records = records
         self.fetch_t = fetch_t
         self.train_t = train_t
+        self.extra = extra or {}
 
 
 class _HostSyncWindow:
@@ -210,23 +231,39 @@ class _HostSyncWindow:
         return bool(self.pending) and \
             (self.pending[-1].neval0 - self._last_flush) >= self.cadence
 
-    def flush(self):
-        """Read every pending dispatch in one device-to-host copy.
-        Returns (entries, [losses of each], [finite flags of each],
-        window wall seconds)."""
+    def flush(self, taps_fn=None):
+        """Read every pending dispatch in one device-to-host copy: losses,
+        finite flags and the tap sums (``taps_fn`` maps the pending taps,
+        one (k, 4) tensor, before the copy: a data-parallel loop's sum over
+        ranks).  Returns (entries, [losses of each], [finite flags of
+        each], [taps of each: (n, 4) or None], window wall seconds)."""
         entries, self.pending = self.pending, []
         sizes = [e.loss.numel() for e in entries]
-        both = torch.stack([
-            torch.cat([e.loss.reshape(-1).float() for e in entries]),
-            torch.cat([e.finite.reshape(-1) for e in entries]).float()
-        ]).cpu().numpy()
+        parts = [torch.cat([e.loss.reshape(-1).double() for e in entries]),
+                 torch.cat([e.finite.reshape(-1) for e in entries]).double()]
+        tapped = [e for e in entries if e.taps is not None]
+        if tapped:
+            t = torch.cat([e.taps.reshape(-1, 4) for e in tapped])
+            if taps_fn is not None:
+                t = taps_fn(t)
+            parts.append(t.reshape(-1).to(parts[0].device))
+        host = torch.cat(parts).cpu().numpy()
         wall = (time.perf_counter() - self._t0) if self._t0 else 0.0
         self._t0 = None
         self._last_flush = entries[-1].neval0
+        n = sum(sizes)
         bounds = np.cumsum([0] + sizes)
-        return (entries, [both[0, a:b] for a, b in zip(bounds, bounds[1:])],
-                [both[1, a:b] != 0 for a, b in zip(bounds, bounds[1:])],
-                wall)
+        taps = host[2 * n:].reshape(-1, 4)
+        out_taps, k = [], 0
+        for e, size in zip(entries, sizes):
+            if e.taps is None:
+                out_taps.append(None)
+            else:
+                out_taps.append(taps[k:k + size])
+                k += size
+        return (entries, [host[a:b] for a, b in zip(bounds, bounds[1:])],
+                [host[n + a:n + b] != 0 for a, b in zip(bounds, bounds[1:])],
+                out_taps, wall)
 
 
 class _CapturedChunk:
@@ -239,12 +276,16 @@ class _CapturedChunk:
     def __init__(self, opt, params, opt_state, x, y, hyper, stream):
         dev = x.device
         n = x.shape[0]
-        self.key = _capture_key(params, opt.model, opt_state, x, y, hyper)
+        self.key = _capture_key(params, opt.model, opt_state, x, y, hyper,
+                                opt._taps_on)
         self.x = torch.empty_like(x)
         self.y = torch.empty_like(y)
         self.lr = torch.zeros((), dtype=torch.float32, device=dev)
         self.losses = torch.empty(n, dtype=torch.float32, device=dev)
         self.finites = torch.empty(n, dtype=torch.bool, device=dev)
+        # the tap sums of each step, written by the update in the capture
+        self.taps = (torch.zeros(n, len(obs_taps.SUMS), dtype=torch.float64,
+                                 device=dev) if opt._taps_on else None)
         self.graph = torch.cuda.CUDAGraph()
         # the dropout masks' generator advances at every replay
         self.graph.register_generator_state(RNG.generator(dev))
@@ -254,9 +295,10 @@ class _CapturedChunk:
         with torch.cuda.graph(self.graph, stream=stream,
                               capture_error_mode="thread_local"):
             for i in range(n):
-                loss, finite = opt._train_step(params, opt_state, self.x[i],
-                                               self.y[i],
-                                               dict(hyper, lr=self.lr))
+                loss, finite, _ = opt._train_step(
+                    params, opt_state, self.x[i], self.y[i],
+                    dict(hyper, lr=self.lr),
+                    taps=None if self.taps is None else self.taps[i])
                 self.losses[i].copy_(loss)
                 self.finites[i].copy_(finite)
 
@@ -265,18 +307,20 @@ class _CapturedChunk:
         self.y.copy_(y)
         self.lr.fill_(lr)
         self.graph.replay()
-        return self.losses.clone(), self.finites.clone()
+        return (self.losses.clone(), self.finites.clone(),
+                None if self.taps is None else self.taps.clone())
 
 
-def _capture_key(params, model, opt_state, x, y, hyper):
+def _capture_key(params, model, opt_state, x, y, hyper, taps_on=False):
     """What a capture is a function of besides its inputs' values: the
     dtype policy its forward read (a step after ``set_policy`` captures
     anew, as the JAX serving cache keys its programs on it), the batch
-    shapes and types, the address of every parameter, gradient, module
-    buffer, optimizer-state tensor and per-parameter rate, and the other
-    hyper-parameters but lr."""
+    shapes and types, whether the taps are on, the address of every
+    parameter, gradient, module buffer, optimizer-state tensor and
+    per-parameter rate, and the other hyper-parameters but lr."""
     return (policy().key(), tuple(x.shape), x.dtype, tuple(y.shape),
-            y.dtype, tuple((p.data_ptr(), p.grad.data_ptr()) for p in params),
+            y.dtype, bool(taps_on),
+            tuple((p.data_ptr(), p.grad.data_ptr()) for p in params),
             tuple(b.data_ptr() for b in model.buffers()),
             tuple(t.data_ptr() for t in _state_tensors(opt_state)),
             tuple(sorted((k, _hyper_key(v)) for k, v in hyper.items()
@@ -348,6 +392,22 @@ class LocalOptimizer:
         self.loss_log: list = []
         #: (neval, epoch, {method: value}) of every validation
         self.validation_log: list = []
+        # observability: the taps (None: BIGDL_OBS_TAPS /
+        # BIGDL_OBS_TAPS_CADENCE), the phase spans, the TensorBoard sinks
+        self._taps_enabled = None
+        self._taps_cadence = None
+        self._taps_monitor = None
+        self._taps_on = False
+        self._train_summary = None
+        self._val_summary = None
+        self.spans = SpanTracker(self.metrics)
+        #: the ledger's name for this loop's step program (its flops are
+        #: counted once a step shape, ``_counted_step``)
+        self._step_fn_key = ("train_step", type(self).__name__, id(self))
+        #: the data-sheet peak ``train_mfu`` divides by (None: the device's,
+        #: looked up at the first step; none on the CPU: no gauge, and no
+        #: flop count)
+        self._peak_flops = None
 
     # -- builder config (ref Optimizer.scala:66-124) ----------------------
     def set_state(self, state: Table):
@@ -400,6 +460,29 @@ class LocalOptimizer:
         tricks, SpatialShareConvolution and ResNet.shareGradInput, did the
         same job).  A pipeline's GPipe schedule checkpoints each stage."""
         self.remat = bool(enabled)
+        return self
+
+    def set_taps(self, enabled: bool | None = None,
+                 cadence: int | None = None):
+        """Override the taps' gating for the next ``optimize()`` (None
+        defers to ``BIGDL_OBS_TAPS`` / ``BIGDL_OBS_TAPS_CADENCE``).  The
+        cadence is also the loop's host-read cadence."""
+        self._taps_enabled = enabled
+        self._taps_cadence = cadence
+        return self
+
+    def set_train_summary(self, summary):
+        """TensorBoard training-curve sink (``obs.TrainSummary``): Loss,
+        LearningRate and Throughput a step, the taps at their cadence.
+        Under data parallelism attach it on rank 0 only (the reference's
+        TrainSummary lives on the job's master)."""
+        self._train_summary = summary
+        return self
+
+    def set_val_summary(self, summary):
+        """TensorBoard validation sink (``obs.ValidationSummary``): one
+        scalar a validation method at each validation."""
+        self._val_summary = summary
         return self
 
     def set_nonfinite_policy(self, abort_after: int | None = 10):
@@ -475,7 +558,17 @@ class LocalOptimizer:
                 for key, leaves in opt_state.items()}
 
     # -- one step ------------------------------------------------------------
-    def _train_step(self, params, opt_state, x, y, hyper):
+    def _train_step(self, params, opt_state, x, y, hyper, taps=None):
+        """One step in place: (loss, finite flag, the four tap sums or
+        None), all on the device.  ``taps`` is where the sums go (a
+        captured chunk's row); with taps on and none given, a new one."""
+        if self._taps_on:
+            if taps is None:
+                taps = obs_taps.new_sums(x.device)
+            else:
+                taps.zero_()
+        else:
+            taps = None
         self._zero_grads(params)
         kept = self._kept
         if kept is None or not kept.holds(self.model):
@@ -487,10 +580,35 @@ class LocalOptimizer:
         self._backward(loss, y)
         grads = [p.grad for p in params]
         loss, finite = self._reduce(loss.detach(), grads)
-        self._update(grads, opt_state, params, hyper, finite)
+        self._update(grads, opt_state, params, hyper, finite, taps)
         self._merge_state()
         kept.restore_unless(finite)
-        return loss, finite
+        return loss, finite, taps
+
+    def _counted_step(self, params, opt_state, x, y, hyper):
+        """``_train_step`` that counts its flops into the ledger the first
+        time a step of this shape runs (an eager step, never inside a
+        capture), where ``train_mfu`` has a peak to divide by: the key is
+        what a capture keys on that moves the count, the dtype policy,
+        the batch's shapes and types and the taps."""
+        from bigdl_tpu_torch.obs import ledger as obs_ledger
+
+        step = lambda: self._train_step(  # noqa: E731
+            params, opt_state, x, y, hyper)
+        if self._peak() is None:
+            return _three(step())
+        key = (self._step_fn_key, policy().key(), tuple(x.shape), x.dtype,
+               tuple(y.shape), y.dtype, self._taps_on)
+        return _three(obs_ledger.get().counted(self._step_fn_key, key, step))
+
+    def _peak(self):
+        """The data-sheet peak ``train_mfu`` divides by: ``_peak_flops``
+        where set, else the device's (None on the CPU)."""
+        from bigdl_tpu_torch.obs import ledger as obs_ledger
+
+        if self._peak_flops is None:
+            self._peak_flops = obs_ledger.device_peak_flops(self.device)
+        return self._peak_flops
 
     # -- the step's hooks: a data-parallel step overrides them -------------
     def _zero_grads(self, params):
@@ -511,21 +629,25 @@ class LocalOptimizer:
         its finite flag)."""
         return loss, _finite_all(loss, grads)
 
-    def _update(self, grads, opt_state, params, hyper, finite):
+    def _update(self, grads, opt_state, params, hyper, finite, taps=None):
         self.optim_method.update(grads, opt_state, params, hyper,
-                                 finite=finite)
+                                 finite=finite, taps=taps)
 
     def _merge_state(self):
         """The module state's merge after the update (none here)."""
 
     def _eager_chunk(self, params, opt_state, xs, ys, hyper):
-        out = [self._train_step(params, opt_state, x, y, hyper)
-               for x, y in zip(xs, ys)]
-        return (torch.stack([l for l, _ in out]),
-                torch.stack([f for _, f in out]))
+        out = [_three((self._counted_step if i == 0 else self._train_step)(
+            params, opt_state, x, y, hyper))
+            for i, (x, y) in enumerate(zip(xs, ys))]
+        return (torch.stack([l for l, _, _ in out]),
+                torch.stack([f for _, f, _ in out]),
+                None if out[0][2] is None else
+                torch.stack([t for _, _, t in out]))
 
     def _run_chunk(self, params, opt_state, xs, ys, lr):
-        """n steps on the (n, B, ...) batches: (n losses, n flags)."""
+        """n steps on the (n, B, ...) batches: (n losses, n flags, (n, 4)
+        tap sums or None)."""
         hyper = self._hyper(lr)
         if self.device.type != "cuda" or not self._cuda_graph or self.remat:
             # the checkpoint's generator states are host reads: no capture
@@ -541,11 +663,12 @@ class LocalOptimizer:
                 out = self._eager_chunk(params, opt_state, xs, ys, hyper)
             cur.wait_stream(self._side)
             for t in out:   # read later on this stream: no early reuse
-                t.record_stream(cur)
+                if t is not None:
+                    t.record_stream(cur)
             return out
         chunk = self._chunk
         if chunk is None or chunk.key != _capture_key(
-                params, self.model, opt_state, xs, ys, hyper):
+                params, self.model, opt_state, xs, ys, hyper, self._taps_on):
             chunk = self._chunk = _CapturedChunk(
                 self, params, opt_state, xs, ys, hyper, self._side)
             self.captures += 1
@@ -563,6 +686,7 @@ class LocalOptimizer:
         self._lr_scales = self._scales_of(params)
         opt_state = self.opt_state = self._initial_opt_state(params)
         n = self.iters_per_dispatch
+        self._start_obs_run()
 
         count = 0
         epoch_size = self.dataset.size()
@@ -582,34 +706,45 @@ class LocalOptimizer:
                 epoch0 = int(state["epoch"])
                 self._window.arm()
                 fetch_start = time.perf_counter()
-                if pipeline is not None:
-                    item, _ = pipeline.get()
-                    x, y = (item.device if item.device is not None else
-                            (to_device(item.x, self.device),
-                             to_device(item.y, self.device)))
-                else:
-                    if n <= 1:
-                        batch = next(data_iter)
-                        xh, yh = batch.data, batch.labels
+                extra = {}
+                with self.spans.span("data-load"):
+                    if pipeline is not None:
+                        # the span is the consumer's wait; the producer's
+                        # draws ride data-load/fetch
+                        item, waited = pipeline.get()
+                        self._drain_pipeline_obs(pipeline, item, waited,
+                                                 neval0)
+                        extra["queue_depth"] = int(item.queue_depth)
                     else:
-                        xh, yh = prefetch.stack_chunk(
-                            [next(data_iter) for _ in range(n)])
-                    xh, yh = self._local_batch(xh, yh, n > 1)
-                    x = to_device(xh, self.device)
-                    y = to_device(yh, self.device)
+                        if n <= 1:
+                            batch = next(data_iter)
+                            xh, yh = batch.data, batch.labels
+                        else:
+                            xh, yh = prefetch.stack_chunk(
+                                [next(data_iter) for _ in range(n)])
+                        xh, yh = self._local_batch(xh, yh, n > 1)
+                if pipeline is not None and item.device is not None:
+                    x, y = item.device
+                else:
+                    if pipeline is not None:
+                        xh, yh = item.x, item.y
+                    with self.spans.span("h2d"):
+                        x = to_device(xh, self.device)
+                        y = to_device(yh, self.device)
                 fetch_time = time.perf_counter() - fetch_start
                 if not self._admit():
                     continue   # the batch is consumed, neval stays
 
                 train_start = time.perf_counter()
-                lr = self._current_lr()
-                if n <= 1:
-                    loss, finite = self._train_step(params, opt_state, x, y,
-                                                    self._hyper(lr))
-                else:
-                    loss, finite = self._run_chunk(params, opt_state, x, y,
-                                                   lr)
-                self._after_step(fetch_time, train_start)
+                with self.spans.span("dispatch"):
+                    lr = self._current_lr()
+                    if n <= 1:
+                        loss, finite, taps = self._counted_step(
+                            params, opt_state, x, y, self._hyper(lr))
+                    else:
+                        loss, finite, taps = self._run_chunk(
+                            params, opt_state, x, y, lr)
+                    self._after_step(fetch_time, train_start)
                 train_time = time.perf_counter() - train_start
 
                 b = self._records(x.shape[0] * x.shape[1] if n > 1
@@ -619,9 +754,11 @@ class LocalOptimizer:
                 state["evalCounter"] = state.get("evalCounter", 0) + n
                 self.metrics.add("data fetch time", fetch_time)
                 self.metrics.add("train time", train_time)
+                # loss, flag and taps stay on the device until the window
+                # reads them (no per-step device-to-host read)
                 self._window.push(_PendingStep(
-                    neval0, epoch0, count, loss, finite, lr, b, fetch_time,
-                    train_time))
+                    neval0, epoch0, count, loss, finite, taps, lr, b,
+                    fetch_time, train_time, extra))
 
                 rolled = count >= epoch_size
                 count, data_iter = self._advance_epochs(
@@ -650,9 +787,25 @@ class LocalOptimizer:
                 pipeline.close()
             self._train_pipeline = None
             self._chunk = None   # its graph holds this run's velocity
+        self._end_obs_run(state, wall_start)
         logger.info("Training finished in %.1fs",
                     time.perf_counter() - wall_start)
         return self.model
+
+    def _drain_pipeline_obs(self, pipeline, item, waited, neval0):
+        """Book the pipeline threads' walls to the spans (the copies to
+        ``h2d``, the producer's draws to ``data-load/fetch``) and emit a
+        ``prefetch_stall`` where the queue failed to hide the fetch."""
+        sec, k = pipeline.take_h2d()
+        if k:
+            self.spans.record("h2d", sec, count=k)
+        sec, k = pipeline.take_fetch()
+        if k:
+            self.spans.record("data-load/fetch", sec, count=k)
+        if waited > 0.01 and item.seq >= pipeline.depth:
+            obs_events.emit("prefetch_stall", step=int(neval0),
+                            seconds=round(waited, 6),
+                            queue_depth=int(item.queue_depth))
 
     # -- the loop's hooks: a data-parallel loop overrides them -------------
     def _local_batch(self, xh, yh, chunked: bool):
@@ -671,7 +824,9 @@ class LocalOptimizer:
         return rows
 
     def _sync_cadence(self) -> int:
-        return SYNC_CADENCE
+        """Iterations between host reads of loss, flags and taps: the taps
+        cadence (``BIGDL_OBS_TAPS_CADENCE`` / ``set_taps``, default 10)."""
+        return obs_taps.cadence(self._taps_cadence)
 
     def _advance_epochs(self, state, count, epoch_size, n, data_iter,
                         pipeline):
@@ -687,25 +842,42 @@ class LocalOptimizer:
                 if pipeline is None:
                     self.dataset.shuffle()
                     data_iter = self.dataset.data(train=True)
+                self.spans.emit_phase_events(obs_events.get(),
+                                             int(state["neval"]))
             return count, data_iter
+        rolled = count >= epoch_size
         while count >= epoch_size:
             state["epoch"] = state["epoch"] + 1
             count -= epoch_size
             if pipeline is None:
                 self.dataset.shuffle()
                 data_iter = self.dataset.data(train=True)
+        if rolled:
+            self.spans.emit_phase_events(obs_events.get(),
+                                         int(state["neval"]))
         return count, data_iter
 
     def _flush_window(self, state, reason: str):
+        """Read the pending window (one device-to-host copy: the
+        ``host-wait`` span), then the per-step host work: the loss log,
+        the non-finite count, step events, the taps at their cadence and
+        TensorBoard scalars.  An abort is raised after every pending
+        step's events are out."""
         w = self._window
         if w is None or not w.pending:
             return
-        entries, losses, finites, wall = w.flush()
+        with self.spans.span("host-wait"):
+            # an unwinding rank reads its own sums: the others may not
+            # join a collective there
+            entries, losses, finites, taps, wall = w.flush(
+                None if reason == "exception" else self._taps_host)
         self.host_syncs += 1
         rate = sum(e.records for e in entries) / max(wall, 1e-9)
+        self._note_window_utilization(entries, wall)
         epoch_size = self.dataset.size()
+        monitor = self._taps_monitor
         abort = None
-        for e, ls, oks in zip(entries, losses, finites):
+        for e, ls, oks, tp in zip(entries, losses, finites, taps):
             state["loss"] = float(ls[-1])
             self.loss_log += [(e.neval0 + i, float(v))
                               for i, v in enumerate(ls)]
@@ -720,8 +892,48 @@ class LocalOptimizer:
                         self._note_finite(bool(ok), state)
                     except NonFiniteGradError as exc:
                         abort = exc  # log the remaining steps first
+            tap_vals = (monitor.push(e.neval0, tp)
+                        if monitor is not None and tp is not None else None)
+            self._emit_step_event(e.neval0, float(ls[-1]), e.lr, rate,
+                                  tap_vals, **e.extra)
         if abort is not None:
             raise abort
+
+    def _taps_host(self, t):
+        """The window's tap sums before their copy to the host (as they
+        are here; a data-parallel loop sums what each rank holds of
+        them)."""
+        return t
+
+    def _note_window_utilization(self, entries, wall):
+        """``train_step_wall_seconds`` and ``train_mfu`` at each window
+        read, never a step: the step's ledger flops times the window's
+        iterations over (the window's wall times the card's data-sheet
+        peak).  No peak (the CPU, a card the table lacks): no
+        ``train_mfu``."""
+        if wall <= 0 or not entries:
+            return
+        try:
+            from bigdl_tpu_torch.obs import ledger as obs_ledger
+            from bigdl_tpu_torch.obs import metrics as obs_metrics
+            iters = len(entries) * max(1, int(self.iters_per_dispatch))
+            label = ("distri" if type(self).__name__.startswith("Distri")
+                     else "local")
+            reg = obs_metrics.get()
+            reg.gauge("train_step_wall_seconds",
+                      "windowed mean train-step wall (fetch + dispatch "
+                      "+ sync)", agg="max",
+                      optimizer=label).set(wall / iters)
+            flops = obs_ledger.get().flops_for(self._step_fn_key)
+            peak = self._peak()
+            if flops and peak:
+                reg.gauge("train_mfu",
+                          "windowed model flops utilization of the "
+                          "training loop (ledger flops x step rate / "
+                          "data-sheet peak)", agg="max",
+                          optimizer=label).set(flops * iters / (wall * peak))
+        except Exception as e:  # pragma: no cover - obs mid-teardown
+            logger.warning("train utilization gauge failed: %s", e)
 
     def _note_finite(self, ok: bool, state):
         if ok:
@@ -737,6 +949,19 @@ class LocalOptimizer:
             self._nonfinite_streak)
         if self.nonfinite_abort and \
                 self._nonfinite_streak >= self.nonfinite_abort:
+            # the postmortem before the raise: the abort event and the
+            # crash bundle explain this death from the run directory alone
+            from bigdl_tpu_torch.obs import diagnostics
+            obs_events.emit("abort", step=int(state["neval"]),
+                            reason="nonfinite",
+                            skips=int(self._nonfinite_skips),
+                            streak=int(self._nonfinite_streak))
+            diagnostics.dump_crash_bundle(
+                "nonfinite-abort",
+                extra={"neval": int(state["neval"]),
+                       "streak": int(self._nonfinite_streak),
+                       "skips": int(self._nonfinite_skips),
+                       "threshold": int(self.nonfinite_abort)})
             raise NonFiniteGradError(
                 f"{self._nonfinite_streak} consecutive non-finite-gradient "
                 f"steps (threshold {self.nonfinite_abort}, iteration "
@@ -750,7 +975,7 @@ class LocalOptimizer:
             # the records an epoch shuffle reorders
             pipeline.pause()
         try:
-            with self.metrics.timer("validate"):
+            with self.metrics.timer("validate"), self.spans.span("validate"):
                 results = self._validation_results()
         finally:
             if pipeline is not None:
@@ -758,7 +983,13 @@ class LocalOptimizer:
         values = {}
         for method, result in results:
             logger.info("%s is %s", method, result)
-            values[str(method)] = state[str(method)] = result.result()[0]
+            val = values[str(method)] = state[str(method)] = \
+                result.result()[0]
+            obs_events.emit("validation", step=int(state["neval"]),
+                            method=str(method), value=float(val))
+            if self._val_summary is not None:
+                self._val_summary.add_scalar(str(method), val,
+                                             int(state["neval"]))
         self.validation_log.append((int(state["neval"]), int(state["epoch"]),
                                     values))
 
@@ -768,9 +999,11 @@ class LocalOptimizer:
 
     # -- checkpoints (the JAX _maybe_checkpoint :956-1008) ----------------
     def _checkpoint(self, opt_state, state, neval):
-        with self.metrics.timer("checkpoint"):
+        with self.metrics.timer("checkpoint"), self.spans.span("checkpoint"):
             self._save_checkpoint(self._export_opt_state(opt_state), state,
                                   neval)
+        obs_events.emit("checkpoint", step=int(neval),
+                        path=f"{self.checkpoint_path}/model.{neval}")
 
     def _save_checkpoint(self, opt_tree, state, neval):
         """``model.N`` and ``state.N`` under the checkpoint path: the
@@ -791,6 +1024,81 @@ class LocalOptimizer:
         keep = keep_count()
         if keep:
             prune_checkpoints(path, keep, just_written=neval)
+
+
+    # -- observability plumbing (the JAX loop's :858-926) -----------------
+    def _obs_flags(self) -> dict:
+        """The run's configuration stamped into ``run_start``: enough to
+        tell two runs apart in a pile of JSONL."""
+        flags = {"optimizer": type(self).__name__,
+                 "taps": obs_taps.enabled(self._taps_enabled),
+                 "taps_cadence": obs_taps.cadence(self._taps_cadence),
+                 "iters_per_dispatch": self.iters_per_dispatch,
+                 "nonfinite_abort": self.nonfinite_abort,
+                 "prefetch": prefetch.enabled(),
+                 "prefetch_depth": prefetch.depth(),
+                 "sync_cadence": self._sync_cadence(),
+                 "optim_method": type(self.optim_method).__name__,
+                 "device": str(self.device)}
+        mesh = getattr(self, "mesh", None)
+        if mesh is not None:
+            flags["mesh"] = {k: int(v) for k, v in dict(mesh.shape).items()}
+        return flags
+
+    def _taps_supported(self) -> bool:
+        """Whether this run's step can produce the taps (always here)."""
+        return True
+
+    def _start_obs_run(self):
+        """A fresh taps monitor and the ``run_start`` event."""
+        self._taps_monitor = obs_taps.TapsMonitor(self._taps_cadence,
+                                                  self._taps_enabled)
+        self._taps_on = self._taps_monitor.enabled and self._taps_supported()
+        try:
+            from bigdl_tpu_torch.obs import ledger as obs_ledger
+            obs_ledger.maybe_start_sampler_from_env()
+        except Exception:   # pragma: no cover - obs layer unavailable
+            pass
+        obs_events.emit("run_start", flags=self._obs_flags())
+        return self._taps_monitor
+
+    def _end_obs_run(self, state, wall_start):
+        """The taps' tail (a short run still logs one sample), the phase
+        breakdown and ``run_end``."""
+        ev = obs_events.get()
+        tail = self._taps_monitor.flush() if self._taps_monitor else None
+        if ev is not None:
+            self.spans.emit_phase_events(ev, int(state["neval"]))
+            fields = {"steps": int(state["neval"]) - 1,
+                      "wall": time.perf_counter() - wall_start}
+            if tail:
+                fields["taps"] = tail
+            ev.emit("run_end", **fields)
+
+    def _emit_step_event(self, neval, loss, lr, throughput, tap_vals,
+                         **extra):
+        """One ``step`` event and the TensorBoard scalars; ``tap_vals`` is
+        the monitor's dict at a cadence boundary (None between)."""
+        ev = obs_events.get()
+        if ev is None and self._train_summary is None:
+            return
+        fields = dict(step=int(neval), loss=float(loss), lr=float(lr),
+                      throughput=float(throughput))
+        if tap_vals:
+            fields["taps"] = tap_vals
+        if self._nonfinite_skips:
+            fields["skips"] = int(self._nonfinite_skips)
+        fields.update(extra)
+        if ev is not None:
+            ev.emit("step", **fields)
+        ts = self._train_summary
+        if ts is not None:
+            ts.add_scalar("Loss", loss, neval)
+            ts.add_scalar("LearningRate", lr, neval)
+            ts.add_scalar("Throughput", throughput, neval)
+            if tap_vals:
+                for k, v in tap_vals.items():
+                    ts.add_scalar("Taps/" + k, v, neval)
 
 
 def export_scalar(t: torch.Tensor) -> np.ndarray:

@@ -43,6 +43,16 @@ class Metrics:
         if distributed:
             self._distributed.add(name)
 
+    def accumulate(self, name: str, value: float, count: int = 1,
+                   distributed: bool = False):
+        """``add`` with an explicit sample count: intervals timed on a
+        background thread and booked in lumps (``count=0`` adds seconds
+        to samples already counted, so the mean stays right)."""
+        self._sums[name] += value
+        self._counts[name] += count
+        if distributed:
+            self._distributed.add(name)
+
     def get(self, name: str):
         return self._sums[name], self._counts[name]
 
@@ -110,3 +120,9 @@ class Metrics:
                     lines.append(f"  per node : [{per}]")
         lines.append("=====================================")
         return "\n".join(lines)
+
+    def reset(self):
+        self._sums.clear()
+        self._counts.clear()
+        self._distributed.clear()
+        self._per_node_cache.clear()

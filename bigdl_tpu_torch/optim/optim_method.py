@@ -19,7 +19,11 @@ Two faces, as in the JAX package:
   values into ``params`` and the optimizer's state in place (no
   model-sized copy) and returns them; ``finite`` (a bool tensor on the
   leaves' device, or None) makes a step with non-finite gradients leave
-  all of them as they were, without a host sync.
+  all of them as they were, without a host sync; ``taps`` (4 float64 on
+  the leaves' device, or None) gains the step's tap sums
+  (``obs/taps.py``): SGD's kernel adds them as it updates, another
+  method through :meth:`OptimMethod._tap`, a plain pass over a pre-step
+  copy of the parameters kept only while taps are on.
 """
 from __future__ import annotations
 
@@ -70,11 +74,34 @@ class OptimMethod:
     def init_state(self, params):
         return {}
 
-    def update(self, grads, opt_state, params, hyper, finite=None):
+    def update(self, grads, opt_state, params, hyper, finite=None,
+               taps=None):
         """One step in place; returns ``(params, opt_state)``.  ``hyper``
         holds lr, weight_decay, momentum, dampening, nesterov, lr_decay
-        and lr_scales."""
+        and lr_scales; ``taps`` gains the step's tap sums."""
         raise NotImplementedError
+
+    def _pre_step(self, params, taps):
+        """The parameters' pre-step copy for :meth:`_tap` (None while
+        taps are off), in buffers kept across steps for one set of
+        parameter addresses."""
+        if taps is None:
+            return None
+        key = tuple((p.data_ptr(), p.numel()) for p in params)
+        kept = getattr(self, "_kept_params", None)
+        if kept is None or kept[0] != key:
+            kept = self._kept_params = (key, [torch.empty_like(p)
+                                              for p in params])
+        with torch.no_grad():
+            torch._foreach_copy_(kept[1], params)
+        return kept[1]
+
+    @staticmethod
+    def _tap(grads, before, params, taps):
+        """Add the step's tap sums (``obs.taps.sums``) into ``taps``."""
+        if taps is not None:
+            from bigdl_tpu_torch.obs.taps import sums
+            sums(grads, before, params, out=taps)
 
 
 class SGD(OptimMethod):
@@ -150,7 +177,8 @@ class SGD(OptimMethod):
     def init_state(self, params):
         return {"velocity": [torch.zeros_like(p) for p in params]}
 
-    def update(self, grads, opt_state, params, hyper, finite=None):
+    def update(self, grads, opt_state, params, hyper, finite=None,
+               taps=None):
         lr = hyper.get("lr", 1e-3)
         wd = hyper.get("weight_decay", 0.0)
         mom = hyper.get("momentum", 0.0)
@@ -158,7 +186,7 @@ class SGD(OptimMethod):
         nesterov = hyper.get("nesterov", False)
         fused_sgd(params, grads, opt_state["velocity"], lr, momentum=mom,
                   weight_decay=wd, dampening=damp, nesterov=nesterov,
-                  finite=finite, scales=hyper.get("lr_scales"))
+                  finite=finite, scales=hyper.get("lr_scales"), taps=taps)
         return params, opt_state
 
 
@@ -209,10 +237,12 @@ class Adagrad(OptimMethod):
                 "step": torch.zeros((), dtype=torch.int32,
                                     device=params[0].device)}
 
-    def update(self, grads, opt_state, params, hyper, finite=None):
+    def update(self, grads, opt_state, params, hyper, finite=None,
+               taps=None):
         """bigdl_tpu/optim/optim_method.py:178-189 in place: ``lr`` a
         float or a 0-d float32 tensor on the device (a captured graph's),
         the rate ``lr / (1 + step * lr_decay)`` a device scalar."""
+        before, raw = self._pre_step(params, taps), grads
         lr = hyper.get("lr", 1e-3)
         lrd = hyper.get("lr_decay", 0.0)
         wd = hyper.get("weight_decay", 0.0)
@@ -238,6 +268,7 @@ class Adagrad(OptimMethod):
                 for dst, src in zip(params + variance, new + var):
                     dst.copy_(torch.where(finite, src, dst))
                 step.add_(finite.to(step.dtype))
+        self._tap(raw, before, params, taps)
         return params, opt_state
 
 

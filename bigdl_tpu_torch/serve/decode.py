@@ -78,14 +78,27 @@ at the ones that admit, because whether a boundary admits is itself
 what parted ranks may disagree on.  A sampled request under TP names
 its seed: one drawn at submit would differ from rank to rank.
 
+**Telemetry** (``bigdl_tpu_torch.obs``, the JAX decoder's): every
+counter, gauge and histogram of the JAX decoder in the process metrics
+registry under ``decoder=<name>`` (steps, admissions, retirements, host
+syncs, slots, pages, prefix hits, the speculative acceptance lengths,
+TTFT and ITL), from which :meth:`ContinuousDecoder.stats` reads;
+``decode_model_flops_util`` and ``decode_tokens_per_s`` set once a sync
+boundary (the step's flops counted once a step shape on an eager step,
+over an NVIDIA card's data-sheet peak: no utilization gauge on the CPU);
+a request submitted with ``trace=`` (an ``obs.trace.Trace``) gains
+``decode_admit``, ``first_token`` and ``retire`` hops and flight-recorder
+notes (its replay recipe and committed row); ``serve`` events of kinds
+``stream`` (a streamed request at retire) and ``decode`` (at the end of
+:meth:`ContinuousDecoder.run`).
+
 Not ported yet (ROADMAP.md queue 1, item 7): the host KV tier and
-prefill page adoption (``adopt_pages``), the flight recorder, the
-metrics registry and its TTFT / ITL histograms (the decoder keeps their
-counts in :meth:`ContinuousDecoder.stats`).
+prefill page adoption (``adopt_pages``).
 """
 from __future__ import annotations
 
 import hashlib
+import itertools
 import os
 import time
 import weakref
@@ -95,6 +108,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from bigdl_tpu_torch.obs import events as obs_events
+from bigdl_tpu_torch.obs import ledger as obs_ledger
+from bigdl_tpu_torch.obs import metrics as obs_metrics
+from bigdl_tpu_torch.obs import recorder as obs_recorder
 from bigdl_tpu_torch.models.transformer import (DEFAULT_PAGE_SIZE,
                                                 _handles_to, _lm_forward_one,
                                                 _lm_forward_window,
@@ -116,6 +133,7 @@ ENV_STOP_SEQS = "BIGDL_SERVE_MAX_STOP_SEQS"
 DEFAULT_STOP_SEQS = 2
 ENV_STOP_LEN = "BIGDL_SERVE_MAX_STOP_LEN"
 DEFAULT_STOP_LEN = 8
+_DECODER_SEQ = itertools.count()
 
 
 def _env_int(name, default):
@@ -210,19 +228,24 @@ def _digest_step(prev: bytes, *parts) -> bytes:
                            digest_size=8).digest()
 
 
-def _close_delivery(box):
-    """``weakref.finalize`` target: stop the delivery thread of a decoder
-    nobody closed."""
+def _decoder_gc_cleanup(reg, name, box):
+    """``weakref.finalize`` target for a decoder nobody closed: stop its
+    delivery thread and drop its series from the metrics registry."""
     for d in box:
-        d.close(timeout=2.0)
+        try:
+            d.close(timeout=2.0)
+        except Exception:  # pragma: no cover - teardown
+            pass
+    reg.drop_series(decoder=name)
 
 
 class _DecodeReq:
     __slots__ = ("seed", "n_words", "params", "future", "slot",
                  "steps_needed", "start_pos", "pos", "pages", "t_submit",
-                 "first_ts", "streamed")
+                 "first_ts", "streamed", "rid", "trace", "t_admit",
+                 "last_ts", "timeline", "stop_retired")
 
-    def __init__(self, seed, n_words, params):
+    def __init__(self, seed, n_words, params, trace=None):
         self.seed = [int(t) for t in seed]
         self.n_words = int(n_words)
         self.params = params
@@ -233,9 +256,15 @@ class _DecodeReq:
         self.start_pos = 0       # > 0 on a prefix-cache hit
         self.pos = 0             # the position at the boundary's start
         self.pages = []          # pool page ids, logical order
+        self.rid = 0
+        self.trace = trace       # obs.trace.Trace of a traced request
         self.t_submit = time.perf_counter()
+        self.t_admit = None      # slot admission boundary
         self.first_ts = None     # first-token boundary
+        self.last_ts = None      # last boundary that delivered tokens
         self.streamed = 0        # generated tokens delivered so far
+        self.timeline = []       # [(perf_counter ts, n new tokens)]
+        self.stop_retired = False
 
 
 class ContinuousDecoder:
@@ -267,6 +296,10 @@ class ContinuousDecoder:
     lives elsewhere).  :meth:`close` stops the delivery thread and
     releases the prefix cache's pages.
 
+    ``name`` labels the decoder's series in the metrics registry
+    (``decoder=<name>``; default ``decoder<N>``); :meth:`close`, or the
+    decoder's collection, drops them.
+
     ``mesh`` (a ``parallel.mesh.Mesh``; None: one device) serves tensor
     parallel over its ``model`` axis, SPMD as the module docstring sets
     out: every rank of the axis constructs the decoder and submits the
@@ -284,7 +317,7 @@ class ContinuousDecoder:
                  kv_quant: str | None = None,
                  max_stop_seqs: int | None = None,
                  max_stop_len: int | None = None, device="cuda",
-                 mesh=None):
+                 mesh=None, name: str | None = None):
         self.kv_quant = (kv_mode_default() if kv_quant is None else
                          normalize_mode(kv_quant, kvq.ON_MODES, "kv_quant"))
         self.device = dev = resolve_device(device)
@@ -379,22 +412,128 @@ class ContinuousDecoder:
         self._slots: list = [None] * B
         self._delivery = None
         self._delivery_box: list = []
-        self._finalize = weakref.finalize(self, _close_delivery,
-                                          self._delivery_box)
-        self.steps = 0
-        self.host_syncs = 0
-        self.admitted = 0
-        self.retired = 0
+        self.name = name or f"decoder{next(_DECODER_SEQ)}"
+        self._flags_cache = None
+        self._peak_flops = obs_ledger.device_peak_flops(dev)
+        #: the served weights' version, where the caller keeps one; the
+        #: flight recorder notes it a traced request
+        self.weights_version = None
+        self._instruments(self.name)
+        # a decoder nobody closes: its delivery thread stops and its
+        # series leave the registry at collection
+        self._finalize = weakref.finalize(
+            self, _decoder_gc_cleanup, self._reg, self.name,
+            self._delivery_box)
+        self._req_seq = itertools.count(1)
         self.live_hwm = 0
         self.spec_windows = 0
         self.spec_accepted = 0
-        self.sampled = 0           # admitted requests with temperature > 0
-        self.stop_retired = 0      # requests retired on a stop match
-        self.steps_saved = 0       # step-slots reclaimed by those
-        self.streams = 0           # requests that streamed >= 1 token
-        self.stream_tokens = 0
         self.stream_boundaries = 0
-        self._ttft_sum = 0.0
+        # the utilization gauges' window; the step's flops key
+        self._step_fn_key = ("decode_step", self.name)
+        self._util_t_last = time.perf_counter()
+        obs_ledger.note_tenant(
+            "kv_pool", obs_ledger.tree_nbytes(self._caches),
+            decoder=self.name, kv_quant=self.kv_quant)
+
+    def _instruments(self, name):
+        """The JAX decoder's registry series (bigdl_tpu/serve/decode.py
+        :933-1010), labelled ``decoder=<name>``."""
+        reg = self._reg = obs_metrics.get()
+        lab = {"decoder": name}
+        self._m_steps = reg.counter(
+            "decode_steps_total", "decode steps driven", **lab)
+        self._m_admitted = reg.counter(
+            "decode_admitted_total", "requests admitted into slots", **lab)
+        self._m_retired = reg.counter(
+            "decode_retired_total", "requests retired from slots", **lab)
+        self._m_syncs = reg.counter(
+            "decode_host_syncs_total", "boundary device->host fetches",
+            **lab)
+        self._m_slots = reg.gauge(
+            "decode_slots_active", "occupied decode slots", **lab)
+        self._m_slots_hwm = reg.gauge(
+            "decode_slots_hwm", "live-request high-water mark", agg="max",
+            **lab)
+        reg.gauge("decode_kv_bytes_per_token",
+                  "KV bytes per pooled token incl. scales",
+                  **lab).set(self.kv_bytes_per_token)
+        # only where the card has a data-sheet peak: no gauge on the CPU
+        self._m_util = (reg.gauge(
+            "decode_model_flops_util",
+            "model flops utilization of the decode step over the last "
+            "sync-boundary window", agg="max", **lab)
+            if self._peak_flops else None)
+        self._m_toks = reg.gauge(
+            "decode_tokens_per_s",
+            "committed tokens per second over the last sync-boundary "
+            "window", **lab)
+        self._m_pages = reg.gauge(
+            "decode_pages_in_use", "allocated KV pool pages", **lab)
+        reg.gauge("decode_pages_total", "KV pool size in pages",
+                  **lab).set(self._pool.n_pages)
+        self._m_pfx_hit = reg.counter(
+            "decode_prefix_hits_total",
+            "requests admitted with >=1 cached prefix page", **lab)
+        self._m_pfx_miss = reg.counter(
+            "decode_prefix_misses_total",
+            "requests admitted with no cached prefix page", **lab)
+        self._m_pfx_pages = reg.counter(
+            "decode_prefix_pages_total",
+            "prefill pages served from the prefix cache", **lab)
+        if self.spec_k:
+            self._m_accept = reg.histogram(
+                "decode_spec_accept_len",
+                "accepted draft tokens per speculative window",
+                bounds=obs_metrics.SPEC_ACCEPT_BUCKETS, **lab)
+        self._m_ttft = reg.histogram(
+            "decode_ttft_seconds",
+            "submit-to-first-streamed-token latency", **lab)
+        self._m_itl = reg.histogram(
+            "decode_itl_seconds",
+            "inter-token gap of streamed tokens (per-token, averaged "
+            "within a boundary)", bounds=obs_metrics.ITL_BUCKETS, **lab)
+        self._m_stream_toks = reg.counter(
+            "decode_stream_tokens_total",
+            "tokens delivered incrementally at sync boundaries", **lab)
+        self._m_sampled = reg.counter(
+            "decode_sampled_total",
+            "sampled (temperature > 0) requests admitted", **lab)
+        self._m_stop_retired = reg.counter(
+            "decode_stop_retired_total",
+            "requests retired early on a stop-sequence match", **lab)
+        self._m_steps_saved = reg.counter(
+            "decode_steps_saved_total",
+            "decode step-slots reclaimed by stop-sequence early "
+            "retirement", **lab)
+
+    # the decoder's counts: its registry series (the instruments it
+    # holds, which a registry reset or ``close`` does not clear)
+    steps = property(lambda self: int(self._m_steps.value))
+    host_syncs = property(lambda self: int(self._m_syncs.value))
+    admitted = property(lambda self: int(self._m_admitted.value))
+    retired = property(lambda self: int(self._m_retired.value))
+    sampled = property(lambda self: int(self._m_sampled.value))
+    stop_retired = property(lambda self: int(self._m_stop_retired.value))
+    steps_saved = property(lambda self: int(self._m_steps_saved.value))
+    streams = property(lambda self: self._m_ttft.state()[2])
+    stream_tokens = property(lambda self: int(self._m_stream_toks.value))
+
+    def decode_flags(self) -> dict:
+        """The constructor recipe a replay needs to rebuild an equivalent
+        decoder for a recorded request (the flight recorder notes it a
+        traced request)."""
+        if self._flags_cache is None:
+            self._flags_cache = {
+                "max_slots": self.B, "n_pos": self.n_pos,
+                "sync_interval": self.sync_interval, "paged": True,
+                "page_size": self.page_size, "n_pages": self._pool.n_pages,
+                "prefix_cache": self._prefix is not None,
+                "spec_k": self.spec_k, "draft_layers": self.draft_layers,
+                "kv_quant": self.kv_quant,
+                "max_stop_seqs": self.max_stop_seqs,
+                "max_stop_len": self.max_stop_len}
+        return self._flags_cache
 
     # -- the device step ------------------------------------------------------
     def _filters(self):
@@ -625,7 +764,8 @@ class ContinuousDecoder:
         self._active[slot] = False
 
     # -- submit -------------------------------------------------------------
-    def submit(self, seed_ids, n_words: int, sampling=None) -> StreamFuture:
+    def submit(self, seed_ids, n_words: int, sampling=None,
+               trace=None) -> StreamFuture:
         """Queue one request; the future resolves to the full token row
         (seed + up to ``n_words`` generated ids), ``lm_decode``'s greedy
         output for the same seed by default.
@@ -642,7 +782,10 @@ class ContinuousDecoder:
 
         The future streams too: ``on_tokens(cb)`` (or ``request_stream``)
         turns on delivery of the generated tokens at each boundary, equal
-        to the resolved row's tail."""
+        to the resolved row's tail.  ``trace`` (an ``obs.trace.Trace``)
+        gains ``decode_admit`` / ``first_token`` / ``retire`` hops as the
+        request moves, and the flight recorder notes its replay recipe
+        and committed row under its trace id."""
         seed = np.asarray(seed_ids, np.int64)
         if seed.ndim != 1 or seed.size == 0:
             raise ValueError("seed_ids must be one flat non-empty id row")
@@ -652,7 +795,20 @@ class ContinuousDecoder:
         params = asked.resolved()
         if params.max_tokens is not None:
             n_words = min(int(n_words), params.max_tokens)
-        req = _DecodeReq(seed.tolist(), n_words, params)
+        req = _DecodeReq(seed.tolist(), n_words, params, trace=trace)
+        req.rid = next(self._req_seq)
+        if trace is not None:
+            # the flight recorder's identity of the request: what a replay
+            # needs to rebuild an equivalent decoder (host dict merges)
+            obs_recorder.note(
+                trace.trace_id, rid=f"{self.name}/{req.rid}",
+                decoder=self.name,
+                seed_hash=obs_recorder.seed_hash(req.seed),
+                seed_len=len(req.seed), n_words=req.n_words,
+                flags=self.decode_flags(),
+                weights_version=self.weights_version)
+            if not params.is_default:
+                obs_recorder.note(trace.trace_id, sampling=params.to_dict())
         if self.tp > 1 and not asked.greedy and asked.seed is None:
             req.future.set_exception(ValueError(
                 "a sampled request under tensor parallelism names its "
@@ -705,6 +861,11 @@ class ContinuousDecoder:
         req.start_pos = req.pos = len(shared) * self.page_size
         if self._prefix is not None:
             self._prefix.note_request(len(shared))
+            if shared:
+                self._m_pfx_hit.inc()
+                self._m_pfx_pages.inc(len(shared))
+            else:
+                self._m_pfx_miss.inc()
         return True
 
     def _admit_waiting(self):
@@ -722,9 +883,18 @@ class ContinuousDecoder:
                     req.params.to_dict(), req.start_pos)
             self._apply_admit(slot, req)
             self._slots[slot] = req
-            self.admitted += 1
+            req.t_admit = time.perf_counter()
+            if req.trace is not None:
+                req.trace.stamp("decode_admit", req.t_admit)
+                obs_recorder.note(req.trace.trace_id,
+                                  start_pos=req.start_pos,
+                                  kv_pages=len(req.pages),
+                                  prefix_pages=req.start_pos
+                                  // self.page_size)
+            self._m_admitted.inc()
             if not req.params.greedy:
-                self.sampled += 1
+                self._m_sampled.inc()
+        self._m_pages.set(self._pool.in_use)
 
     def _retire_req(self, req: _DecodeReq):
         """Free the slot; donate the full pages inside the seed to the
@@ -738,8 +908,9 @@ class ContinuousDecoder:
             self._prefix.insert(req.seed, req.pages[:donate])
         for pid in req.pages[donate:]:
             self._pool.release(pid)
+        self._m_pages.set(self._pool.in_use)
         self._slots[req.slot] = None
-        self.retired += 1
+        self._m_retired.inc()
 
     def _set_lanes(self, live):
         sampled = [r.params for r in live if not r.params.greedy]
@@ -781,11 +952,15 @@ class ContinuousDecoder:
         """One admit -> ``sync_interval`` steps -> retire cycle.  Returns
         the number of slots served (0: nothing admissible)."""
         spec = self.spec_k > 0
+        w0, a0 = self.spec_windows, self.spec_accepted
         self._admit_waiting()
         if self._tp_group is not None:
             self._check_replicas()
         live = [r for r in self._slots if r is not None]
         if not live:
+            # an idle boundary restarts the utilization window: the wait
+            # between submissions is not the next boundary's
+            self._util_t_last = time.perf_counter()
             if self._pending:   # pragma: no cover - defensive
                 # submit() guarantees every queued request fits an empty
                 # pool; fail the futures loudly rather than drop them
@@ -795,6 +970,8 @@ class ContinuousDecoder:
                 self._pending.clear()
             return 0
         self.live_hwm = max(self.live_hwm, len(live))
+        self._m_slots.set(len(live))
+        self._m_slots_hwm.set(self.live_hwm)
         self._set_lanes(live)
         has_stop = self._lanes[3]
         # the cycle's steps read no page past their rows' reach: a row
@@ -808,9 +985,17 @@ class ContinuousDecoder:
                                   self.page_size) for r in live)
         self._ptab_live = self._ptab[:, :width].contiguous()
         step = self._run_spec_step if spec else self._run_step
-        for _ in range(self.sync_interval):
+        if self._m_util is not None:
+            # the step's flops, counted on its first run of this shape:
+            # the utilization gauge's numerator (none without a peak)
+            key = (self._step_fn_key, self.B, self.spec_k,
+                   self.draft_layers, self.kv_quant, self._lanes)
+            obs_ledger.get().counted(self._step_fn_key, key, step)
+        else:
             step()
-        self.steps += self.sync_interval
+        for _ in range(self.sync_interval - 1):
+            step()
+        self._m_steps.inc(self.sync_interval)
         pos_host = fin_host = None
         if spec or has_stop:
             # positions (and stop flags, and the acceptance counts) in one
@@ -819,7 +1004,7 @@ class ContinuousDecoder:
             if spec:
                 parts.append(self._acc_hist)
             got = torch.cat(parts).cpu().numpy()
-            self.host_syncs += 1
+            self._m_syncs.inc()
             pos_host, fin_host = got[:self.B], got[self.B:2 * self.B]
             if spec:
                 self._drain_accept_hist(got[2 * self.B:])
@@ -838,7 +1023,7 @@ class ContinuousDecoder:
         if done or streaming:
             gen_host = self._gen.cpu().numpy()
             if pos_host is None:
-                self.host_syncs += 1
+                self._m_syncs.inc()
         ts = time.perf_counter()
         delivered = False
         for r in streaming:
@@ -851,23 +1036,59 @@ class ContinuousDecoder:
             row = r.seed + [int(t) for t in
                             gen_host[r.slot, s - 1:s - 1 + n_gen]]
             if n_gen < r.n_words:
-                self.stop_retired += 1
-                self.steps_saved += r.steps_needed - r.pos
+                r.stop_retired = True
+                saved = r.steps_needed - r.pos
+                self._m_stop_retired.inc()
+                self._m_steps_saved.inc(saved)
+            if r.trace is not None:
+                # the committed row, from the boundary's one slab read
+                obs_recorder.note(r.trace.trace_id, tokens=row)
+                if r.stop_retired:
+                    obs_recorder.note(r.trace.trace_id, stop_retired=True)
+                if self.spec_k:
+                    obs_recorder.note(r.trace.trace_id,
+                                      spec_windows=self.spec_windows,
+                                      spec_accepted=self.spec_accepted)
             # retire before resolving: a client woken by the future must
             # see the slot free
             self._retire_req(r)
             if r.future.streaming:
-                # the catch-up to the row's final length, then the
-                # resolution, both through the delivery FIFO: the last
-                # chunk lands before result() returns
+                # the catch-up to the row's final length, the stream's
+                # epilogue, then the resolution, through the delivery
+                # FIFO: the last chunk lands before result() returns
                 delivered |= self._feed_stream(
                     r, gen_host, min(r.pos, r.steps_needed), ts)
+                self._finish_stream(r, ts)
                 self._ensure_delivery().resolve(r.future, row)
             else:
                 r.future.set_result(row)
+        if done:
+            self._m_slots.set(sum(1 for r in self._slots if r is not None))
         if delivered:
             self.stream_boundaries += 1
+        if spec:
+            # a window commits its accepted drafts and the verify token
+            tokens = ((self.spec_windows - w0)
+                      + (self.spec_accepted - a0))
+        else:
+            tokens = len(live) * self.sync_interval
+        self._note_util(tokens)
         return len(live)
+
+    def _note_util(self, tokens: int):
+        """``decode_tokens_per_s`` and ``decode_model_flops_util``, set
+        once a sync boundary (never a token or a step): the window runs
+        from boundary entry to boundary entry, so queued device work
+        spreads over boundaries without a read of its own."""
+        now = time.perf_counter()
+        wall, self._util_t_last = now - self._util_t_last, now
+        if wall <= 0:
+            return
+        self._m_toks.set(tokens / wall)
+        flops = obs_ledger.get().flops_for(self._step_fn_key)
+        if flops and self._m_util is not None:
+            self._m_util.set(flops * self.sync_interval
+                             / (wall * self._peak_flops))
 
     def _drain_accept_hist(self, counts):
         """Fold the device-accumulated acceptance counts, read with the
@@ -876,11 +1097,14 @@ class ContinuousDecoder:
         self.accept_counts = counts.astype(np.int64)
         self.spec_windows += int(delta.sum())
         self.spec_accepted += int((delta * np.arange(len(delta))).sum())
+        for a, n in enumerate(delta):
+            if int(n) > 0:
+                self._m_accept.observe_n(float(a), int(n))
 
     # -- streaming delivery -------------------------------------------------
     def _ensure_delivery(self) -> TokenDelivery:
         if self._delivery is None:
-            self._delivery = TokenDelivery()
+            self._delivery = TokenDelivery(name=self.name)
             self._delivery_box.append(self._delivery)
         return self._delivery
 
@@ -895,14 +1119,44 @@ class ContinuousDecoder:
             return False
         toks = [int(t) for t in
                 gen_host[req.slot, s - 1 + req.streamed:s - 1 + avail]]
+        new = avail - req.streamed
         start, req.streamed = req.streamed, avail
         if req.first_ts is None:
             req.first_ts = ts
-            self.streams += 1
-            self._ttft_sum += ts - req.t_submit
-        self.stream_tokens += len(toks)
+            self._m_ttft.observe(ts - req.t_submit)
+            if req.trace is not None:
+                req.trace.stamp("first_token", ts)
+        else:
+            # n tokens landing dt after the previous delivery are n
+            # observations of dt / n (the first boundary's are TTFT's)
+            gap = ts - req.last_ts
+            if gap > 0:
+                self._m_itl.observe_n(gap / new, new)
+        req.last_ts = ts
+        req.timeline.append((ts, new))
+        self._m_stream_toks.inc(len(toks))
         self._ensure_delivery().enqueue(req.future, toks, start, ts)
         return True
+
+    def _finish_stream(self, req, ts: float):
+        """A streamed request's epilogue at retire: the ``retire`` hop and
+        one ``serve`` event of kind ``stream`` with its token timeline
+        (ms since submit, tokens a boundary)."""
+        if req.trace is not None:
+            req.trace.stamp("retire", ts)
+        if req.first_ts is None:   # pragma: no cover - n_words >= 1
+            return
+        rel = req.t_submit
+        obs_events.emit(
+            "serve", kind="stream", request=f"{self.name}/{req.rid}",
+            decoder=self.name, tokens=req.streamed, n_seed=len(req.seed),
+            admit_ms=(None if req.t_admit is None
+                      else round((req.t_admit - rel) * 1e3, 3)),
+            ttft_ms=round((req.first_ts - rel) * 1e3, 3),
+            retire_ms=round((ts - rel) * 1e3, 3),
+            boundaries=len(req.timeline),
+            timeline=[[round((t - rel) * 1e3, 3), n]
+                      for t, n in req.timeline])
 
     def run(self) -> "ContinuousDecoder":
         """Drive the decoder until every submitted request has retired (a
@@ -911,19 +1165,63 @@ class ContinuousDecoder:
         while self._pending or any(r is not None for r in self._slots):
             if self.step_boundary() == 0:
                 break
+        self.emit_decode_event()
         return self
 
+    def emit_decode_event(self):
+        """The decoder's ``serve`` event of kind ``decode`` (``run`` emits
+        one a drain), the JAX event's fields."""
+        ps = self._pool.stats()
+        extra = dict(paged=True, page_size=self.page_size,
+                     pages=ps["pages"], pages_hwm=ps["in_use_hwm"],
+                     live_hwm=self.live_hwm)
+        if self._prefix is not None:
+            pf = self._prefix.stats()
+            extra.update(prefix_hits=pf["hits"], prefix_misses=pf["misses"],
+                         prefix_pages=pf["pages_reused"])
+        if self.kv_quant != "off":
+            extra.update(kv_quant=self.kv_quant,
+                         kv_bytes_per_token=self.kv_bytes_per_token)
+        if self.spec_k:
+            extra.update(spec_k=self.spec_k, spec_windows=self.spec_windows,
+                         accept_mean=(self.spec_accepted
+                                      / max(1, self.spec_windows)))
+        if self.sampled:
+            extra.update(sampled=self.sampled,
+                         greedy=self.admitted - self.sampled)
+        if self.stop_retired:
+            extra.update(stop_retired=self.stop_retired,
+                         steps_saved=self.steps_saved)
+        if self.streams:
+            # required where a decode event reports streaming (schema v4)
+            extra.update(streaming=True, streams=self.streams,
+                         stream_tokens=self.stream_tokens,
+                         stream_boundaries=self.stream_boundaries,
+                         first_token_ms=self._ttft_mean_ms())
+        obs_events.emit("serve", kind="decode", decoder=self.name,
+                        steps=self.steps, host_syncs=self.host_syncs,
+                        admitted=self.admitted, retired=self.retired,
+                        slots=self.B, **extra)
+        return self
+
+    def _ttft_mean_ms(self):
+        _, total, n = self._m_ttft.state()
+        return total / n * 1e3 if n else None
+
     def close(self):
-        """Stop the delivery thread (after everything queued on it) and
-        release the prefix cache's pages.  Idempotent."""
+        """Stop the delivery thread (after everything queued on it),
+        release the prefix cache's pages and drop this decoder's series
+        from the metrics registry.  Idempotent."""
         if self._delivery is not None:
             self._delivery.close()
             self._delivery_box.clear()
             self._delivery = None
         if self._prefix is not None:
             self._prefix.drop_all()
+        self._finalize()
 
     def stats(self) -> dict:
+        """The decoder's counts, from its registry series."""
         out = {"steps": self.steps, "host_syncs": self.host_syncs,
                "admitted": self.admitted, "retired": self.retired,
                "slots": self.B, "live_hwm": self.live_hwm,
@@ -931,6 +1229,7 @@ class ContinuousDecoder:
                "tp": self.tp,
                "kv_quant": self.kv_quant,
                "kv_bytes_per_token": self.kv_bytes_per_token,
+               "name": self.name,
                "sampled": self.sampled, "stop_retired": self.stop_retired,
                "steps_saved": self.steps_saved,
                "pool": self._pool.stats()}
@@ -938,11 +1237,14 @@ class ContinuousDecoder:
             out["prefix"] = self._prefix.stats()
         if self.tp > 1:
             out["tp_checks"] = self.tp_checks
-        if self.streams:
+        ttft_counts, _, n_ttft = self._m_ttft.state()
+        if n_ttft:
             out["stream"] = {
-                "streams": self.streams, "tokens": self.stream_tokens,
+                "streams": n_ttft, "tokens": self.stream_tokens,
                 "boundaries": self.stream_boundaries,
-                "ttft_mean_ms": self._ttft_sum / self.streams * 1e3}
+                "ttft_mean_ms": self._ttft_mean_ms(),
+                "ttft_p50_ms": obs_metrics.quantile(
+                    self._m_ttft.bounds, ttft_counts, 50) * 1e3}
         if self.spec_k:
             total = int(self.accept_counts.sum())
             out.update(

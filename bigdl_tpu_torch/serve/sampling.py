@@ -101,6 +101,12 @@ class SamplingParams:
     def greedy(self) -> bool:
         return self.temperature <= 0
 
+    @property
+    def is_default(self) -> bool:
+        """True for the plain greedy request (nothing worth recording)."""
+        return (self.greedy and not self.stop and not self.top_k
+                and not self.top_p and self.max_tokens is None)
+
     @classmethod
     def of(cls, val) -> "SamplingParams":
         """Coerce ``None`` (greedy), a dict (``to_dict``'s form) or an

@@ -13,12 +13,12 @@ callback safety (counterpart of bigdl_tpu/serve/streaming.py).
   (:class:`TokenDelivery`), never the decode step loop, so a slow or
   raising consumer cannot stall the device;
 - a raising consumer (``on_tokens`` or ``add_done_callback``) fails only
-  its own registration: it is dropped with a logged warning, and the
-  stream, its future and the delivery thread keep running
-  (:class:`SafeFuture` is the ``add_done_callback`` half).
+  its own registration: it is dropped with a logged warning and an obs
+  ``serve`` event of kind ``error``, and the stream, its future and the
+  delivery thread keep running (:class:`SafeFuture` is the
+  ``add_done_callback`` half).
 
-The JAX package also lands each failure in its event stream; the port
-has no event stream yet and logs it.  Do not block inside an
+Do not block inside an
 ``on_tokens`` callback on the same future's ``result()``: the result is
 resolved on the delivery thread the callback occupies.
 
@@ -40,18 +40,25 @@ logger = logging.getLogger("bigdl_tpu_torch.serve")
 
 
 def _consumer_error(where: str, exc: BaseException):
-    """One warning per raising user callback: the callback is the
-    failure, never the stream machinery around it."""
+    """One warning and one obs ``serve`` error event per raising user
+    callback: the callback is the failure, never the stream machinery
+    around it."""
     logger.warning("serve %s callback raised: %s: %s", where,
                    type(exc).__name__, exc)
+    try:
+        from bigdl_tpu_torch.obs import events
+        events.emit("serve", kind="error",
+                    error=f"{type(exc).__name__}: {exc}", callback=where)
+    except Exception:  # pragma: no cover - telemetry must not mask
+        pass
 
 
 class SafeFuture(Future):
     """A Future whose user callbacks can never kill the resolving thread:
     every ``add_done_callback`` call -- at set-time on the delivery
     thread, or inline when the future is already done -- is guarded, and
-    a raise (``BaseException`` included) is logged instead of
-    propagating."""
+    a raise (``BaseException`` included) is logged and lands in the event
+    stream instead of propagating."""
 
     def add_done_callback(self, fn):
         # CPython's implementation, so the already-done inline call raises

@@ -33,6 +33,7 @@ Run from the repository root on a machine with an NVIDIA H100:
                                              # and 4, a reading
     python3 chip_smoke.py --bf16     # the bf16 forms' checks and phase 20
                                      # alone, no result line
+    python3 chip_smoke.py --obs      # phase 21 alone, no result line
 
 Each option runs part of one phase table (``ONLY``); every phase runs
 even where one before it failed, and a failed phase makes the exit
@@ -56,7 +57,12 @@ the recurrences' libraries still compile.  Phases:
    sets, timed at LeNet's and at the serving model's parameter counts,
    and its scaled form (per-parameter rates) on the same sets at odd
    leaves and Inception-v1's layout (all-ones rates the unscaled bits),
-   timed beside it;
+   timed beside it; and its taps form (the four sums of
+   ``obs/taps.py`` as it updates) on the same sets, unscaled and scaled,
+   at odd leaves and the serving model's layout: p' and v' the bits of
+   the form without taps, the sums within 1e-5 of the plain version's,
+   a non-finite step's NaN and inf counted and nothing written; timed
+   beside the form without taps in turns;
    the LRN
    (forward with and without z, backward) at six shapes, Inception-v1's
    two among them; the stride-1 pool on tied inputs at ten geometries
@@ -321,12 +327,25 @@ the recurrences' libraries still compile.  Phases:
     the first loss against FP32's and a small-batch run against the CPU
     under the same policy; and ``Recurrent(LSTMCell)`` under it through
     the bf16-weight forms and ``lstm_scan``'s;
-21. one JSON line of kernels, then the card line, then the result line.
+21. the observability plane (``--obs`` runs it alone): LeNet-5 through
+    ``Optimizer`` with events to a directory, a ``TrainSummary`` and the
+    taps read every 2 steps, and with obs off, in turns (the losses bit
+    for bit, every event valid, ``fused_sgd_taps`` once a step, the same
+    device-to-host syncs under ``torch.cuda.set_sync_debug_mode`` on and
+    off, ``train_mfu`` in (0, 1]), a profiled run whose trace holds the
+    phase spans as ``record_function`` ranges, then the serving model's
+    16 requests with every request traced and every other streamed, and
+    with obs off (the hops, one TTFT a streamed request and one ITL a
+    later token, the flight recorder's rows the served ones,
+    ``decode_model_flops_util`` in (0, 1], the same rows); ms a step of
+    both paths on and off;
+22. one JSON line of kernels, then the card line, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import statistics
@@ -2556,6 +2575,76 @@ def check_sgd_scaled(torch, ops, g, shapes=None):
     return err
 
 
+TAPS_RTOL = 1e-5   # the taps form's sums against the plain version's
+
+
+def check_sgd_taps(torch, ops, g, shapes=None, hypers=SGD_HYPERS):
+    """The kernel's taps form (``obs/taps.py``'s sums: g^2, p^2,
+    (p' - p)^2, non-finite g) on each hyper set, unscaled and scaled
+    (rates U(0, 2)): three steps beside the form without taps on copies
+    of the same leaves, p' and v' bit-equal to it, each step's four sums
+    within TAPS_RTOL of the plain version's (``fused_sgd_reference(...,
+    taps=)``) on the same leaves; then a step with NaN and inf in the
+    gradients and the finite flag False: nothing written, the non-finite
+    count the plain version's, (p' - p)^2 zero.  Returns the largest
+    relative error of a sum."""
+    shapes = shapes or [(130, 7), (7,), (4097,), (100,), (3, 5, 5),
+                        (10001,)]
+    worst = 0.0
+    off = torch.zeros((), dtype=torch.bool, device="cuda")
+    for h in hypers:
+        kw = dict(momentum=h.get("momentum", 0.0),
+                  weight_decay=h.get("weight_decay", 0.0),
+                  dampening=h.get("dampening", 0.0),
+                  nesterov=h.get("nesterov", False))
+        for scaled in (False, True):
+            p, gr, v = sgd_leaves(torch, g, shapes)
+            sc = ([torch.rand(s, generator=g, device="cuda") * 2
+                   for s in shapes] if scaled else None)
+            q, u = [t.clone() for t in p], [t.clone() for t in v]
+            for _ in range(3):
+                before = [t.clone() for t in p]
+                vb = [t.clone() for t in v]
+                got = torch.zeros(4, dtype=torch.float64, device="cuda")
+                want = torch.zeros(4, dtype=torch.float64, device="cuda")
+                ops.fused_sgd(p, gr, v, h["lr"], scales=sc, taps=got, **kw)
+                ops.fused_sgd(q, gr, u, h["lr"], scales=sc, **kw)
+                ops.fused_sgd_reference(before, gr, vb, h["lr"], scales=sc,
+                                        taps=want, **kw)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(p + v, q + u)):
+                    raise AssertionError(
+                        f"fused_sgd taps: p', v' differ from the form "
+                        f"without taps ({h}, scaled={scaled})")
+                rel = ((got - want).abs() / want.abs().clamp_min(1e-30))
+                worst = max(worst, float(rel[:3].max()))
+                if float(rel[:3].max()) > TAPS_RTOL or got[3] != want[3]:
+                    raise AssertionError(
+                        f"fused_sgd taps: sums {got.tolist()} against the "
+                        f"plain version's {want.tolist()} ({h}, "
+                        f"scaled={scaled})")
+            bad = [t.clone() for t in gr]
+            bad[0].view(-1)[0] = float("nan")
+            bad[-1].view(-1)[-1] = float("inf")
+            kept = [t.clone() for t in p + v]
+            got = torch.zeros(4, dtype=torch.float64, device="cuda")
+            want = torch.zeros(4, dtype=torch.float64, device="cuda")
+            ops.fused_sgd(p, bad, v, h["lr"], scales=sc, finite=off,
+                          taps=got, **kw)
+            ops.fused_sgd_reference([t.clone() for t in p], bad,
+                                    [t.clone() for t in v], h["lr"],
+                                    scales=sc, finite=off, taps=want, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(p + v, kept)):
+                raise AssertionError("fused_sgd taps wrote on a non-finite "
+                                     "step")
+            if got[3] != want[3] or got[3] != 2 or got[2] != 0:
+                raise AssertionError(f"fused_sgd taps on a non-finite step: "
+                                     f"{got.tolist()}, plain "
+                                     f"{want.tolist()}")
+    return worst
+
+
 def sgd_times(torch, ops, flush, g, shapes):
     """Kernel, plain and library (``torch.optim.SGD(fused=True).step()``,
     timing only: its first step's dampening differs) times of one step
@@ -2589,6 +2678,22 @@ def sgd_times(torch, ops, flush, g, shapes):
     row["scaled_plain_ms"] = yard_ms(torch, lambda: ops.fused_sgd_reference(
         p, gr, v, LR, finite=ok, scales=sc, **kw), flush)
     row["scaled_bound_ms"] = byte_bound(24 * row["params"], 0)["bound_ms"]
+    # the taps form: the same 20 bytes a parameter read and written (the
+    # sums' 32 bytes of atomics a block aside); its plain version the
+    # unfused update and the four sums leaf by leaf
+    buf = torch.zeros(4, dtype=torch.float64, device="cuda")
+    row["taps_ms"] = time_ms(torch, lambda: ops.fused_sgd(
+        p, gr, v, LR, finite=ok, taps=buf, **kw), flush)
+    row["taps_queued_ms"] = time_queued_ms(torch, lambda: ops.fused_sgd(
+        p, gr, v, LR, finite=ok, taps=buf, **kw))
+    row["taps_plain_ms"] = yard_ms(torch, lambda: ops.fused_sgd_reference(
+        p, gr, v, LR, finite=ok, taps=buf, **kw), flush)
+    row["taps_bound_ms"] = row["bound_ms"]
+    # in turns with the form without taps, L2 flushed: their ratio
+    pair = [time_ms(torch, lambda: ops.fused_sgd(
+        p, gr, v, LR, finite=ok, taps=t, **kw), flush, reps=10)
+        for t in (None, buf, buf, None)]
+    row["taps_ratio"] = (pair[1] + pair[2]) / (pair[0] + pair[3])
     return row
 
 
@@ -2625,6 +2730,15 @@ def phase_train_kernels(torch, ops):
     scaled_err = max(check_sgd_scaled(torch, ops, g, shapes)
                      for shapes in (None, inception))
     sgd_err = max(sgd_err, scaled_err)
+    # the taps form at the odd leaves on every hyper set, and at serving's
+    # layout on the training slice's two (momentum, and nesterov with
+    # weight decay)
+    serving = [tuple(p.shape) for p in TransformerLM(
+        VOCAB, D_MODEL, HEADS, LAYERS, HIDDEN, dropout=0.0,
+        device="meta").parameters()]
+    taps_rel = max(check_sgd_taps(torch, ops, g),
+                   check_sgd_taps(torch, ops, g, serving,
+                                  [SGD_HYPERS[3], SGD_HYPERS[5]]))
     flush = torch.empty(64 * 2**20, device="cuda")   # 256 MB > 50 MB L2
     sums = {}
     for case in POOL_CASES[-3:] + INCEPTION_POOLS + BN_POOLS + PIPE_POOLS:
@@ -2642,9 +2756,6 @@ def phase_train_kernels(torch, ops):
         if case == POOL_CASES[-1]:
             fwd, bwd = rows   # the rows' shape
     lenet = [tuple(p.shape) for p in LeNet5(device="cuda").parameters()]
-    serving = [tuple(p.shape) for p in TransformerLM(
-        VOCAB, D_MODEL, HEADS, LAYERS, HIDDEN, dropout=0.0,
-        device="meta").parameters()]
     for shapes in (lenet, vgg, r50, serving):   # the row: serving's
         sgd = sgd_times(torch, ops, flush, g, shapes)
         print(f"fused_sgd {sgd['params']} params in {len(shapes)} leaves: "
@@ -2656,7 +2767,12 @@ def phase_train_kernels(torch, ops):
               f"kernel_ms={sgd['scaled_ms']:.5f} queued_ms="
               f"{sgd['scaled_queued_ms']:.5f} plain_ms="
               f"{sgd['scaled_plain_ms']:.5f} bound_ms="
-              f"{sgd['scaled_bound_ms']:.5f} ({24 * sgd['params']} bytes)")
+              f"{sgd['scaled_bound_ms']:.5f} ({24 * sgd['params']} bytes); "
+              f"taps form: kernel_ms={sgd['taps_ms']:.5f} queued_ms="
+              f"{sgd['taps_queued_ms']:.5f} plain_ms="
+              f"{sgd['taps_plain_ms']:.5f} bound_ms="
+              f"{sgd['taps_bound_ms']:.5f}, {sgd['taps_ratio']:.4f}x the "
+              f"form without taps (turns off, on, on, off)")
     for name, row in (("forward", fwd), ("backward", bwd)):
         row.update(sums[name])
     fwd_err = max(e[0] for e in errs)
@@ -2672,13 +2788,20 @@ def phase_train_kernels(torch, ops):
           f"max_abs_err={sgd_err:.3e} (scaled {scaled_err:.3e}), the "
           f"device-lr form bit-equal to the host-lr form, the scaled form "
           f"at all-ones rates bit-equal to the unscaled form, a rate-0 "
-          f"element unmoved, a non-finite step writes nothing")
+          f"element unmoved, a non-finite step writes nothing; the taps "
+          f"form on the 6 hyper sets unscaled and scaled at the 6 leaves "
+          f"and on 2 at serving's {len(serving)} leaves: p', v' bit-equal "
+          f"to the form without taps, the sums within "
+          f"{taps_rel:.3e} relative of the plain version's (limit "
+          f"{TAPS_RTOL}), a non-finite step writes nothing and counts its "
+          f"NaN and inf")
     common = {"route": "cuda", "ok": True}
     pool_src = {"source": "bigdl_tpu_torch/csrc/maxpool2d.cu"}
     return [
         {"name": "fused_sgd", "source": "bigdl_tpu_torch/csrc/fused_sgd.cu",
          "replaces": "bigdl_tpu/ops/pallas_kernels.py:59",
-         "max_abs_err": sgd_err, **common, **sgd},
+         "max_abs_err": sgd_err, "taps_max_rel_err": taps_rel, **common,
+         **sgd},
         {"name": "maxpool2d_forward", **pool_src,
          "replaces": "bigdl_tpu/ops/pallas_kernels.py:1162",
          "max_abs_err": fwd_err, **common, **fwd},
@@ -2909,7 +3032,7 @@ def phase_inception(torch, ops, profile: bool):
     counts = ops.launch_counts()
     steps = int(opt.state["neval"]) - 1
     val_batches = len(opt.validation_log) * -(-IVAL // IBATCH)
-    want = {**dict.fromkeys(counts, 0), "fused_sgd": steps,
+    want = {**untapped(counts), "fused_sgd": steps,
             "lrn_forward": 2 * steps + 2 * val_batches,
             "lrn_backward": 2 * steps,
             "maxpool2d_s1_forward": 9 * steps + 9 * val_batches,
@@ -3034,7 +3157,7 @@ def phase_bilstm(torch, ops, profile: bool):
     counts = ops.launch_counts()
     steps = int(opt.state["neval"]) - 1
     val_batches = len(opt.validation_log) * (len(val) // TBATCH)
-    want = {**dict.fromkeys(counts, 0), "fused_sgd": steps,
+    want = {**untapped(counts), "fused_sgd": steps,
             "bilstm_forward": steps + val_batches,
             "bilstm_backward": steps, "bilstm_dwh": steps}
     if steps != TEPOCHS * (split // TBATCH) or counts != want:
@@ -3168,7 +3291,7 @@ def phase_simple_rnn(torch, ops, profile: bool):
     _, counts, wall = run_path(torch, ops, opt.optimize)
     steps = int(opt.state["neval"]) - 1
     batches = -(-len(tokens) // RBATCH)
-    want = {**dict.fromkeys(counts, 0), "fused_sgd": steps,
+    want = {**untapped(counts), "fused_sgd": steps,
             "rnn_forward": 2 * steps, "rnn_backward": 2 * steps,
             "rnn_dwh": 2 * steps}
     if steps != REPOCHS * batches or counts != want:
@@ -3200,7 +3323,7 @@ def phase_simple_rnn(torch, ops, profile: bool):
     opt8 = rnn_run(torch, "cuda", init, tokens, dictionary, max_iteration(8),
                    bptt=RSEQ)
     _, counts8, wall8 = run_path(torch, ops, opt8.optimize)
-    want8 = {**dict.fromkeys(counts8, 0), "fused_sgd": 8, "rnn_forward": 8,
+    want8 = {**untapped(counts8), "fused_sgd": 8, "rnn_forward": 8,
              "rnn_backward": 8, "rnn_dwh": 8}
     if counts8 != want8:
         raise AssertionError(f"SimpleRNN at bptt {RSEQ}: launches {counts8}, "
@@ -3216,7 +3339,7 @@ def phase_simple_rnn(torch, ops, profile: bool):
     cpu_model = SimpleRNN(vocab, RHIDDEN, vocab, RBPTT, device="cpu")
     cpu_ids = generate(cpu_model.load_params(trained), dictionary, seed,
                        RWORDS, np.random.RandomState(0))
-    want_g = {**dict.fromkeys(counts_g, 0), "rnn_forward": RWORDS}
+    want_g = {**untapped(counts_g), "rnn_forward": RWORDS}
     if counts_g != want_g or len(ids) != len(seed) + RWORDS:
         raise AssertionError(f"generate: launches {counts_g}, expected "
                              f"{want_g}, {len(ids)} ids")
@@ -3284,7 +3407,7 @@ def phase_gru(torch, ops, profile: bool):
     _, counts, wall = run_path(torch, ops, opt.optimize)
     steps = int(opt.state["neval"]) - 1
     val_batches = len(opt.validation_log) * (len(val) // TBATCH)
-    want = {**dict.fromkeys(counts, 0), "fused_sgd": steps,
+    want = {**untapped(counts), "fused_sgd": steps,
             "gru_forward": steps + val_batches, "gru_backward": steps,
             "gru_dwh": steps}
     if steps != split // TBATCH or counts != want:
@@ -3363,7 +3486,7 @@ def phase_lstm(torch, ops, profile: bool):
     _, counts, wall = run_path(torch, ops, opt.optimize)
     steps = int(opt.state["neval"]) - 1
     val_batches = len(opt.validation_log) * (len(val) // TBATCH)
-    want = {**dict.fromkeys(counts, 0), "fused_sgd": steps,
+    want = {**untapped(counts), "fused_sgd": steps,
             "bilstm_forward": steps, "bilstm_backward": steps,
             "bilstm_dwh": steps, "lstm_scan": val_batches}
     if steps != split // TBATCH or val_batches == 0 or counts != want:
@@ -3429,7 +3552,7 @@ def truncated_classifier(torch, ops, profile, label, build, per_step,
     steps = int(opt.state["neval"]) - 1
     val_batches = len(opt.validation_log) * (len(val) // TBATCH)
     chunks = -(-TSEQ // TBPTT)
-    want = {**dict.fromkeys(counts, 0), "fused_sgd": steps,
+    want = {**untapped(counts), "fused_sgd": steps,
             **{k: v * steps for k, v in per_step(chunks).items()}}
     val_counts = per_step(0, val_batches)
     for k, v in val_counts.items():
@@ -3524,7 +3647,7 @@ def phase_truncation(torch, ops, profile, figures):
         routes = recurrent.step_route_calls
         _, counts, wall = run_path(torch, ops, opt.optimize)
         steps = int(opt.state["neval"]) - 1
-        want = {**dict.fromkeys(counts, 0), "fused_sgd": steps,
+        want = {**untapped(counts), "fused_sgd": steps,
                 "rnn_forward": 2 * steps, "rnn_backward": 2 * steps,
                 "rnn_dwh": 2 * steps}
         if (steps != REPOCHS * batches or counts != want
@@ -4049,7 +4172,7 @@ def phase_slice(torch, ops, profile: bool):
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     rows = [f.result() for f in futs]
-    if counts != {**dict.fromkeys(counts, 0),
+    if counts != {**untapped(counts),
                   "paged_attention": LAYERS * dec.steps}:
         raise AssertionError(f"serving launches {counts}, expected "
                              f"paged_attention {LAYERS} x {dec.steps} steps "
@@ -4147,7 +4270,7 @@ def phase_serving_int8(torch, ops, model, seeds, fp_rows, profile: bool):
     _, counts, wall = run_path(torch, ops, dec.run)
     rows = [f.result() for f in futs]
     st = dec.stats()
-    if counts != {**dict.fromkeys(counts, 0),
+    if counts != {**untapped(counts),
                   "paged_attention_int8": LAYERS * dec.steps}:
         raise AssertionError(f"int8 serving launches {counts}, expected "
                              f"paged_attention_int8 {LAYERS} x {dec.steps} "
@@ -4326,7 +4449,7 @@ def serve_run(torch, ops, dec, reqs):
 
 
 def only_kernel(counts, name, n, label):
-    if counts != {**dict.fromkeys(counts, 0), name: n}:
+    if counts != {**untapped(counts), name: n}:
         raise AssertionError(f"{label} launches {counts}, expected {name} "
                              f"{n} and no other kernel")
 
@@ -4968,7 +5091,7 @@ def dispatch_runs(torch, ops, label, make, steps, per_step):
         if name.endswith("cpu"):
             continue
         per_run = HDISPATCH if opt is graph else steps
-        want = {**dict.fromkeys(c, 0),
+        want = {**untapped(c),
                 **{k: v * per_run for k, v in per_step.items()}}
         if c != want:
             raise AssertionError(f"{label} {name}: the wrappers counted "
@@ -5014,6 +5137,17 @@ def dispatch_runs(torch, ops, label, make, steps, per_step):
 
 def ops_nonzero(counts):
     return {k: v for k, v in counts.items() if v}
+
+
+def untapped(counts):
+    """Every count of ``counts`` at 0 but ``fused_sgd_taps``, kept: the
+    gate a path's launches are held to.  The taps form's launches count
+    in ``fused_sgd`` (or ``fused_sgd_scaled``) as every SGD launch does,
+    and apart in ``fused_sgd_taps`` where the run had its taps on (the
+    default; off under tensor and expert parallelism): the ``obs`` phase
+    gates that count, the kernels line sums it by path."""
+    return {**dict.fromkeys(counts, 0),
+            **{k: v for k, v in counts.items() if k == "fused_sgd_taps"}}
 
 
 def kernel_of(name):
@@ -5077,7 +5211,7 @@ def prefetch_graph_run(torch, ops, label, make, per_step):
         fetch_s = opt.metrics.get("data fetch time")[0] - fetch0
         profiled = READ["profiled"] or steps
         busy, ran = profiled_run(torch, opt, profiled)
-    want = {**dict.fromkeys(counts, 0),
+    want = {**untapped(counts),
             **{k: v * HDISPATCH for k, v in per_step.items()}}
     want_ran = {k: v * profiled for k, v in per_step.items()}
     losses = [l for _, l in opt.loss_log]
@@ -5401,7 +5535,7 @@ def harness_finetune(torch, ops):
     grew = any(not np.array_equal(a, b) for a, b in
                zip(_leaves(after["24"]), _leaves(init["24"])))
     steps = int(opt.state["neval"]) - 1
-    want = {**dict.fromkeys(counts, 0), "fused_sgd_scaled": steps,
+    want = {**untapped(counts), "fused_sgd_scaled": steps,
             "lrn_forward": 2 * steps, "lrn_backward": 2 * steps,
             "maxpool2d_s1_forward": 9 * steps,
             "maxpool2d_s1_backward": 9 * steps,
@@ -5460,7 +5594,7 @@ def harness_adagrad(torch, ops):
             _, counts, wall = run_path(torch, ops, opt.optimize)
             runs[graph] = (opt, counts, wall)
     (eager, ec, ew), (graph, gc, gw) = runs[False], runs[True]
-    want = {**dict.fromkeys(ec, 0), "bilstm_forward": AG_STEPS,
+    want = {**untapped(ec), "bilstm_forward": AG_STEPS,
             "bilstm_backward": AG_STEPS, "bilstm_dwh": AG_STEPS}
     rule = held_same(torch, "harness_api adagrad graph vs eager", eager,
                      graph, GRAPH_TOL)
@@ -5550,7 +5684,7 @@ def harness_lbfgs(torch, ops):
     n = min(LB_HELD, len(hist), len(cpu_hist))
     rel = float(np.max(np.abs(np.asarray(hist[:n]) - cpu_hist[:n])
                        / np.abs(cpu_hist[:n])))
-    want = {**dict.fromkeys(counts, 0), "maxpool2d_forward": 2 * fevals,
+    want = {**untapped(counts), "maxpool2d_forward": 2 * fevals,
             "maxpool2d_backward": 2 * fevals}
     print(f"harness_api lbfgs: LeNet-5 {sum(v.size for v in _leaves(init))}"
           f" params, full batch of {LB_IMAGES} synthetic MNIST images, "
@@ -5600,7 +5734,7 @@ def harness_validator(torch, ops):
     (d1, m1), (d5, m5), (cpu_loss, ml) = res["cpu"]
     loss_rel = abs(loss - cpu_loss) / abs(cpu_loss)
     batches = -(-VAL_IMAGES // VAL_BATCH)
-    want = {**dict.fromkeys(counts, 0), "lrn_forward": 2 * batches,
+    want = {**untapped(counts), "lrn_forward": 2 * batches,
             "maxpool2d_s1_forward": 9 * batches,
             "maxpool2d_forward": 4 * batches}
     print(f"harness_api validator: Inception-v1 over {VAL_IMAGES} images "
@@ -5716,6 +5850,310 @@ def phase_harness_api(torch, ops, serving=None):
           f"{time.perf_counter() - t0:.1f} s")
     return out, {}
 
+
+
+OBS_STEPS, OBS_CADENCE, OBS_PROFILED, OBS_TIMED = 16, 2, 4, 48
+OBS_PHASES = ("data-load", "h2d", "dispatch", "host-wait")
+
+
+@contextlib.contextmanager
+def obs_env(on: bool, run_dir=None):
+    """The observability switches of a run: on, events under ``run_dir``
+    and every request traced (``BIGDL_OBS_TRACE_SAMPLE=1``); off,
+    ``BIGDL_OBS=0`` and no trace.  The process's settings come back
+    after."""
+    import os
+
+    from bigdl_tpu_torch.obs import events, recorder
+
+    keys = ("BIGDL_OBS", "BIGDL_OBS_TRACE_SAMPLE")
+    old = {k: os.environ.get(k) for k in keys}
+    os.environ.update(BIGDL_OBS="1" if on else "0",
+                      BIGDL_OBS_TRACE_SAMPLE="1" if on else "0")
+    events.reset()
+    recorder.reset()
+    if on and run_dir is not None:
+        events.configure(run_dir)
+    try:
+        yield
+    finally:
+        events.reset()
+        recorder.reset()
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def obs_lenet(torch, ops, init, on, run_dir, steps=OBS_STEPS, debug=True):
+    """``steps`` steps of LeNet-5 (batches of BATCH) through
+    ``Optimizer``, obs on (events and a ``TrainSummary`` under
+    ``run_dir``, taps read every OBS_CADENCE steps) or off (taps off,
+    ``BIGDL_OBS=0``), under ``torch.cuda.set_sync_debug_mode`` where
+    ``debug``: (the optimizer, its launch counts, wall s, the
+    device-to-host syncs the debug mode reported, by file and line)."""
+    import warnings
+
+    from bigdl_tpu_torch.obs import summary
+    from bigdl_tpu_torch.optim import max_iteration
+
+    with obs_env(on, run_dir):
+        opt = lenet_run(torch, "cuda", init, max_iteration(steps),
+                        validate=False)
+        opt.set_taps(on, OBS_CADENCE)
+        if on:
+            opt.set_train_summary(summary.TrainSummary(run_dir, "lenet"))
+
+        def run():
+            torch.cuda.set_sync_debug_mode("warn" if debug else 0)
+            try:
+                opt.optimize()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            _, counts, wall = run_path(torch, ops, run)
+        if on:
+            opt._train_summary.close()
+    syncs = [(w.filename.rsplit("/", 1)[-1], w.lineno) for w in seen
+             if "synchroniz" in str(w.message)]
+    return opt, counts, wall, syncs
+
+
+def obs_serve(torch, ops, model, seeds, on, run_dir, name):
+    """The flagship's requests through ``ContinuousDecoder`` (every
+    other one streamed), obs on (every request traced, its chain
+    finalized in the flight recorder and emitted) or off: (decoder,
+    traces, rows, launch counts, wall s)."""
+    from bigdl_tpu_torch.obs import recorder, trace
+    from bigdl_tpu_torch.serve.decode import ContinuousDecoder
+
+    with obs_env(on, run_dir):
+        sampler = trace.Sampler()
+        dec = ContinuousDecoder(model, max_slots=SLOTS, n_pos=N_POS,
+                                page_size=PAGE, device="cuda", name=name)
+        traces = [sampler.next() for _ in seeds]
+        futs = [dec.submit(s, N_WORDS, trace=t)
+                for s, t in zip(seeds, traces)]
+        for f in futs[::2]:
+            f.request_stream()
+        _, counts, wall = run_path(torch, ops, dec.run)
+        rows = [f.result(timeout=60) for f in futs]
+        for t in traces:
+            if t is not None and recorder.finalize(
+                    t.trace_id, "ok", trace=t, head_sampled=True):
+                t.emit("ok")
+        records = {t.trace_id: recorder.get().get(t.trace_id)
+                   for t in traces if t is not None}
+    return dec, traces, rows, counts, wall, records
+
+
+def phase_obs(torch, ops, serving=None):
+    """The observability plane on the main paths (``bigdl_tpu_torch.obs``):
+    LeNet-5 trained with events to a directory, a ``TrainSummary`` and
+    the taps read at cadence 2, and with obs off, in turns on, off, off,
+    on, the same losses bit for bit: every event validates, the taps land
+    at the cadence's steps, ``fused_sgd_taps`` launched once a step, the
+    debug mode saw the same device-to-host syncs on and off, ``train_mfu``
+    in (0, 1]; a profiled run whose trace holds the phase spans as
+    ``record_function`` ranges; then the flagship's 16 requests served
+    with every request traced and with obs off: the streamed requests'
+    ``decode_admit → first_token → retire`` hops, one TTFT a streamed
+    request and one ITL a later token, the recorder's rows the served
+    ones, ``decode_model_flops_util`` in (0, 1], the rows the same on and
+    off.  ms a step of each, on and off."""
+    import glob
+    import tempfile
+
+    from bigdl_tpu_torch.models.lenet import LeNet5
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.nn.module import export_params
+    from bigdl_tpu_torch.obs import events, metrics, summary
+    from bigdl_tpu_torch.optim import max_iteration
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.serve.decode import continuous_decode
+    from bigdl_tpu_torch.utils.random import generator
+
+    t0 = time.perf_counter()
+    smi = smi_line()
+    init = export_params(LeNet5(10, device="cuda", generator=generator(0)))
+    if serving is None:
+        model = TransformerLM(VOCAB, D_MODEL, HEADS, LAYERS, HIDDEN,
+                              dropout=0.0, device="cuda",
+                              generator=generator(0)).evaluate()
+        rs = np.random.RandomState(0)
+        seeds = [rs.randint(0, VOCAB, size=int(rs.randint(16, 257)))
+                 .tolist() for _ in range(N_REQ)]
+    else:
+        model, seeds, _ = serving
+    print(f"obs: the models ready in {time.perf_counter() - t0:.1f} s")
+    out = {}
+    with tempfile.TemporaryDirectory(dir=_build.build_dir()) as tmp:
+        metrics.reset()
+        turns = {}
+        with deterministic(torch):   # the turns' losses held bit for bit
+            # warm-up: cuDNN's algorithm choice, allocator, the SGD table
+            lenet_run(torch, "cuda", init, max_iteration(3),
+                      validate=False).optimize()
+            for k, on in enumerate((True, False, False, True)):
+                turns.setdefault(on, []).append(obs_lenet(
+                    torch, ops, init, on, f"{tmp}/lenet{k}"))
+        # ms a step, three epochs a turn in three pairs of turns, without
+        # the checks' modes
+        walls = {True: [], False: []}
+        for k, on in enumerate((True, False, False, True, True, False)):
+            walls[on].append(obs_lenet(torch, ops, init, on,
+                                       f"{tmp}/timed{k}", OBS_TIMED,
+                                       debug=False)[2])
+        t_lenet = time.perf_counter() - t0
+        (opt, counts, wall, syncs), (opt2, _, wall2, syncs2) = turns[True]
+        (off, counts_off, wall_off, syncs_off), (_, _, wall_off2, syncs_off2) \
+            = turns[False]
+        losses = [[l for _, l in o.loss_log]
+                  for o in (opt, opt2, off, turns[False][1][0])]
+        if any(l != losses[0] for l in losses):
+            raise AssertionError("obs: LeNet-5's losses differ with obs on "
+                                 "and off")
+        steps = OBS_STEPS
+        if counts["fused_sgd"] != steps or counts["fused_sgd_taps"] != steps \
+                or counts_off["fused_sgd_taps"] != 0 \
+                or counts_off["fused_sgd"] != steps:
+            raise AssertionError(f"obs: launches on {ops_nonzero(counts)}, "
+                                 f"off {ops_nonzero(counts_off)}")
+        evs = events.read_events(f"{tmp}/lenet0/events.p0.jsonl")
+        for e in evs:
+            events.validate_event(e)
+        kinds = [e["type"] for e in evs]
+        tapped = [e["step"] for e in evs
+                  if e["type"] == "step" and "taps" in e]
+        if kinds[0] != "run_start" or kinds[-1] != "run_end" or [
+                e["step"] for e in evs if e["type"] == "step"] != list(
+                    range(1, steps + 1)) or tapped != list(
+                        range(OBS_CADENCE, steps + 1, OBS_CADENCE)):
+            raise AssertionError(f"obs: LeNet-5's events {kinds}, taps at "
+                                 f"{tapped}")
+        scalars = summary.read_scalars(glob.glob(
+            f"{tmp}/lenet0/lenet/train/events.out.tfevents.*")[0])
+        n_loss = sum(t == "Loss" for _, t, _ in scalars)
+        n_taps = sum(t == "Taps/grad_norm" for _, t, _ in scalars)
+        if (n_loss, n_taps) != (steps, steps // OBS_CADENCE):
+            raise AssertionError(f"obs: the TrainSummary holds {n_loss} "
+                                 f"losses and {n_taps} grad norms")
+        # each turn's syncs by the line that made them (the turns after
+        # the first of each kind: a first run's one-time set-up aside)
+        print(f"obs lenet: device-to-host syncs by line, turns on, off, "
+              f"off, on: {[collections.Counter(x) for x in (syncs, syncs_off, syncs_off2, syncs2)]}")
+        # no sync between cadence boundaries: each one is the window's
+        # read, once a window, taps on as off
+        if len(syncs2) != len(syncs_off2) or opt.host_syncs != \
+                off.host_syncs or len(syncs2) != opt2.host_syncs or any(
+                    f != "local_optimizer.py" for f, _ in syncs2):
+            raise AssertionError(f"obs: device-to-host syncs on "
+                                 f"{len(syncs2)} (window reads "
+                                 f"{opt.host_syncs}), off {len(syncs_off2)} "
+                                 f"({off.host_syncs})")
+        snap = metrics.get().snapshot()
+        mfu = metrics.family_total(snap, "train_mfu", optimizer="local")
+        if not 0 < mfu <= 1:
+            raise AssertionError(f"obs: train_mfu {mfu}")
+        last = opt._taps_monitor.last()
+        on_ms = [w / OBS_TIMED * 1e3 for w in walls[True]]
+        off_ms = [w / OBS_TIMED * 1e3 for w in walls[False]]
+        chk_ms = [w / steps * 1e3 for w in (wall, wall_off, wall_off2, wall2)]
+        print(f"obs lenet: {steps} steps of {BATCH}, taps at cadence "
+              f"{OBS_CADENCE} (last {last}), {len(evs)} events valid, "
+              f"the TrainSummary {len(scalars)} scalars; fused_sgd_taps "
+              f"{counts['fused_sgd_taps']} of fused_sgd "
+              f"{counts['fused_sgd']}; device-to-host syncs the debug mode "
+              f"saw on {len(syncs)} / {len(syncs2)}, off {len(syncs_off)} / "
+              f"{len(syncs_off2)} (window reads "
+              f"{opt.host_syncs} / {off.host_syncs}); train_mfu {mfu:.6g}; "
+              f"ms a step ({OBS_TIMED} steps a turn, turns on, off, off, "
+              f"on, on, off) on {' / '.join(f'{m:.4f}' for m in on_ms)}, "
+              f"off {' / '.join(f'{m:.4f}' for m in off_ms)}, medians "
+              f"{statistics.median(on_ms):.4f} / "
+              f"{statistics.median(off_ms):.4f} (the checked turns, "
+              f"cuDNN's deterministic algorithms and the sync debug mode "
+              f"on, "
+              f"{' / '.join(f'{m:.4f}' for m in chk_ms)}); the losses "
+              f"equal; {t_lenet:.1f} s; [{smi}]")
+        out["obs_lenet"] = counts
+
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            obs_lenet(torch, ops, init, True, f"{tmp}/prof", OBS_PROFILED)
+        names = {e.name for e in prof.events()}
+        missing = [n for n in OBS_PHASES if n not in names]
+        if missing:
+            raise AssertionError(f"obs: the profiler's trace lacks the "
+                                 f"spans {missing}")
+        print(f"obs profiler: the spans {list(OBS_PHASES)} are "
+              f"record_function ranges of the trace ({len(names)} names); "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        metrics.reset()
+        # warm-up: the decode path's first-call costs (allocator, cuBLAS)
+        continuous_decode(model, [[1, 2, 3]], 4, max_slots=SLOTS,
+                          n_pos=N_POS, device="cuda")
+        dec, traces, rows, scounts, swall, records = obs_serve(
+            torch, ops, model, seeds, True, f"{tmp}/serve", "obs_on")
+        dec_off, traces_off, rows_off, _, swall_off, _ = obs_serve(
+            torch, ops, model, seeds, False, f"{tmp}/serve_off", "obs_off")
+        only_kernel(scounts, "paged_attention", LAYERS * dec.steps,
+                    "obs serving")
+        if rows != rows_off or any(t is not None for t in traces_off):
+            raise AssertionError("obs: the served rows differ with obs on "
+                                 "and off, or obs off traced")
+        streamed = traces[::2]
+        if any([h[0] for h in t.hops] != ["decode_admit", "first_token",
+                                          "retire"] for t in streamed) or \
+                any([h[0] for h in t.hops] != ["decode_admit"]
+                    for t in traces[1::2]):
+            raise AssertionError(f"obs: hops {[t.hops for t in traces]}")
+        if any(records[t.trace_id]["tokens"] != r
+               for t, r in zip(traces, rows)):
+            raise AssertionError("obs: the recorder's rows are not the "
+                                 "served ones")
+        sevs = events.read_events(f"{tmp}/serve/events.p0.jsonl")
+        for e in sevs:
+            events.validate_event(e)
+        snap = metrics.get().snapshot()
+        ttft = metrics.merged_histogram(snap, "decode_ttft_seconds",
+                                        decoder="obs_on")
+        itl = metrics.merged_histogram(snap, "decode_itl_seconds",
+                                       decoder="obs_on")
+        firsts = sum(e["timeline"][0][1] for e in sevs
+                     if e.get("kind") == "stream")
+        tokens = metrics.family_total(snap, "decode_stream_tokens_total",
+                                      decoder="obs_on")
+        if ttft[3] != len(streamed) or itl[3] != tokens - firsts:
+            raise AssertionError(f"obs: TTFT {ttft[3]} of {len(streamed)} "
+                                 f"streams, ITL {itl[3]} of "
+                                 f"{tokens - firsts} later tokens")
+        util = metrics.family_total(snap, "decode_model_flops_util",
+                                    decoder="obs_on")
+        if not 0 < util <= 1:
+            raise AssertionError(f"obs: decode_model_flops_util {util}")
+        n_trace = sum(e["type"] == "trace" for e in sevs)
+        q = metrics.histogram_quantiles(snap, "decode_ttft_seconds",
+                                        decoder="obs_on")
+        print(f"obs serving: {len(seeds)} requests x {N_WORDS} words, "
+              f"{dec.steps} steps, every request traced ({n_trace} trace "
+              f"events, {len(streamed)} streamed with decode_admit -> "
+              f"first_token -> retire), {len(sevs)} events valid; TTFT "
+              f"{ttft[3]} observations (p50 {q['p50']:.4f} s), ITL {itl[3]} "
+              f"= streamed tokens {tokens} - first-boundary {firsts}; "
+              f"decode_model_flops_util {util:.6g}, decode_tokens_per_s "
+              f"{metrics.family_total(snap, 'decode_tokens_per_s', decoder='obs_on'):.1f}; "
+              f"ms a step on {swall / dec.steps * 1e3:.4f}, off "
+              f"{swall_off / dec_off.steps * 1e3:.4f}; rows equal; [{smi}]")
+        out["obs_serving"] = scounts
+        dec.close()
+        dec_off.close()
+    print(f"obs: {time.perf_counter() - t0:.1f} s")
+    return out, {}
 
 
 def with_init(model, init, dropout=None):
@@ -5862,7 +6300,7 @@ def phase_vgg(torch, ops, profile: bool):
     counts, wall = timed_path(torch, ops, opt)
     steps = int(opt.state["neval"]) - 1
     val_batches = len(opt.validation_log) * -(-VVAL // VBATCH)
-    want = {**dict.fromkeys(counts, 0), "fused_sgd": steps,
+    want = {**untapped(counts), "fused_sgd": steps,
             "maxpool2d_forward": 5 * steps + 5 * val_batches,
             "maxpool2d_backward": 5 * steps}
     if steps != VSTEPS or val_batches != 4 or counts != want:
@@ -5991,7 +6429,7 @@ def phase_resnet50(torch, ops, profile: bool):
                        max_iteration(R50_STEPS))
     counts, wall = timed_path(torch, ops, opt)
     steps = int(opt.state["neval"]) - 1
-    want = {**dict.fromkeys(counts, 0), "fused_sgd": steps,
+    want = {**untapped(counts), "fused_sgd": steps,
             "maxpool2d_forward": steps, "maxpool2d_backward": steps}
     if steps != R50_STEPS or counts != want:
         raise AssertionError(f"ResNet-50 launches {counts} after {steps} "
@@ -6123,7 +6561,7 @@ def phase_bn_harness(torch, ops):
         ran = {}
         for name, (opt, counts, wall) in runs.items():
             per_run = HDISPATCH if opt is graph else HSTEPS
-            if counts != {**dict.fromkeys(counts, 0), "fused_sgd": per_run}:
+            if counts != {**untapped(counts), "fused_sgd": per_run}:
                 raise AssertionError(f"bn_harness {name}: the wrappers "
                                      f"counted {counts}")
             profiled = READ["profiled"] or 2 * HDISPATCH
@@ -6267,7 +6705,7 @@ def phase_model_zoo(torch, ops):
         (res_g, seen), counts, _ = run_path(
             torch, ops, lambda: zoo_forward_backward(
                 torch, card, xt.cuda(), y.cuda(), mse))
-        want = {**dict.fromkeys(counts, 0), **per_call}
+        want = {**untapped(counts), **per_call}
         if counts != want:
             raise AssertionError(f"model_zoo {name}: launches {counts}, "
                                  f"expected {want}")
@@ -6387,7 +6825,7 @@ def phase_autoencoder(torch, ops):
     steps = len(opt.loss_log)
     if steps != AE_EPOCHS * per_epoch:
         raise AssertionError(f"inventory Autoencoder: {steps} steps")
-    want = {**dict.fromkeys(counts, 0), "fused_sgd": steps}
+    want = {**untapped(counts), "fused_sgd": steps}
     if counts != want:
         raise AssertionError(f"inventory Autoencoder: launches {counts}, "
                              f"expected {want}")
@@ -7031,7 +7469,7 @@ def phase_distri(torch, ops, profile: bool):
     print(f"distri: world {g} ({g} NCCL rank(s), one a card); a multi-rank "
           f"run on the card: {'yes' if g > 1 else 'no'}; [{smi}]")
     runs, by_path = {}, {}
-    want = {**dict.fromkeys(ops.launch_counts(), 0),
+    want = {**untapped(ops.launch_counts()),
             **inception_step_counts(DSTEPS)}
     try:
         if g == 1:
@@ -7084,7 +7522,8 @@ def phase_distri(torch, ops, profile: bool):
             if run["type"] != "DistriOptimizer" or run["world"] != g:
                 raise AssertionError(f"distri {mode}: {run['type']} over "
                                      f"{run['world']} ranks")
-            if run["counts"] != want:
+            if run["counts"] != {**want, "fused_sgd_taps":
+                                 run["counts"].get("fused_sgd_taps", 0)}:
                 raise AssertionError(f"distri {mode}: launches "
                                      f"{ops_nonzero(run['counts'])}, "
                                      f"expected {ops_nonzero(want)}")
@@ -7167,7 +7606,7 @@ def phase_distri(torch, ops, profile: bool):
         # each rank validates every w-th batch of a validation
         val_batches = len(opt.validation_log) * -(-(-(-N_VAL // BATCH))
                                                    // w)
-        lenet_want = {**dict.fromkeys(counts, 0), "fused_sgd": steps,
+        lenet_want = {**untapped(counts), "fused_sgd": steps,
                       "maxpool2d_backward": 2 * steps,
                       "maxpool2d_forward": 2 * steps + 2 * val_batches}
         top1 = [v["Top1Accuracy"] for _, _, v in opt.validation_log]
@@ -7323,7 +7762,7 @@ def attention_path(torch, ops, label, make, n_params, ops_step, smi,
     counts, wall = timed_path(torch, ops, opt)
     peak = torch.cuda.max_memory_allocated()
     steps = int(opt.state["neval"]) - 1
-    want = {**dict.fromkeys(counts, 0), "fused_sgd": steps}
+    want = {**untapped(counts), "fused_sgd": steps}
     if counts != want:
         raise AssertionError(f"{label}: launches {ops_nonzero(counts)} "
                              f"after {steps} steps, expected "
@@ -7647,7 +8086,7 @@ def phase_attention(torch, ops, profile: bool):
     opt = lm_run(torch, "cuda", init, windows, dictionary, L_BATCH,
                  max_iteration(L_STEPS))
     counts, wall = timed_path(torch, ops, opt)
-    want = {**dict.fromkeys(counts, 0), "fused_sgd": L_STEPS}
+    want = {**untapped(counts), "fused_sgd": L_STEPS}
     if counts != want:
         raise AssertionError(f"the LM launched {ops_nonzero(counts)}")
     by_path["attention_lm"] = counts
@@ -7829,7 +8268,7 @@ def vgg_serial(torch, init, images, micro, val_images=None, order="1f1b"):
     opt.validation_trigger = several_iteration(PHELD_STEPS + 1)
     mods = list(opt.model._modules.values())
 
-    def step(params, opt_state, x, y, hyper):
+    def step(params, opt_state, x, y, hyper, taps=None):
         opt._zero_grads(params)
         run = stage_function(mods, 0, int(opt.state["neval"]), x.device)
         mb = x.shape[0] // micro
@@ -7898,7 +8337,7 @@ def pipe_counts(steps, fwd_runs=1):
 
 
 def only_counts(label, counts, want):
-    want = {**dict.fromkeys(counts, 0), **want}
+    want = {**untapped(counts), **want}
     if counts != want:
         raise AssertionError(f"{label}: launches {ops_nonzero(counts)}, "
                              f"expected {ops_nonzero(want)}")
@@ -9632,6 +10071,7 @@ def phase_table(torch, ops, profile, rows):
         ("harness", "path", lambda: phase_harness(torch, ops)),
         ("harness_api", "path",
          lambda: phase_harness_api(torch, ops, carry.get("serving"))),
+        ("obs", "path", lambda: phase_obs(torch, ops, carry.get("serving"))),
         ("vgg", "path", counts_of("vgg", phase_vgg)),
         ("resnet50", "path", counts_of("resnet50", phase_resnet50)),
         ("bn_harness", "path", lambda: phase_bn_harness(torch, ops)),
@@ -9698,6 +10138,8 @@ ONLY = {
     # the dtype policy: the kernels' bf16 forms and bench.py's six
     # configurations under BF16_COMPUTE
     "--bf16": ("bf16_kernels", "bf16"),
+    # the observability plane on the LeNet-5 and serving paths
+    "--obs": ("obs",),
 }
 # the kernels line: each row's keys (queued_ms: calls queued back to back,
 # the device's time where it outlasts the wrapper's host work, no L2
@@ -9739,7 +10181,9 @@ ROW_EXTRA = ("layer_library_ms", "layer_port_ms", "same_size_library_ms",
              "chunk_state_ms", "act_ms", "device_lr_ms",
              "graph_kernel_runs", "verify_ms", "verify_plain_ms",
              "verify_library_ms", "verify_dequant_sdpa_ms",
-             "verify_bound_ms", "local_heads")
+             "verify_bound_ms", "local_heads", "taps_ms", "taps_queued_ms",
+             "taps_plain_ms", "taps_bound_ms", "taps_launches", "taps_ratio",
+             "taps_max_rel_err")
 
 
 def main(argv) -> int:
@@ -9807,6 +10251,10 @@ def main(argv) -> int:
             row["scaled_launches"] = sum(
                 counts.get(f"{row['name']}_scaled", 0)
                 for counts in by_path.values())
+        if "taps_ms" in row:
+            row["taps_launches"] = sum(
+                counts.get(f"{row['name']}_taps", 0)
+                for counts in by_path.values())
         ran = {path: c[row["name"]] for path, c in graph_ran.items()
                if row["name"] in c}
         if ran:
@@ -9821,7 +10269,8 @@ def main(argv) -> int:
                           "failed": failed}))
         return 1 if failed else 0
     for row in rows:
-        if row["launches"] == 0 or row.get("scaled_launches") == 0:
+        if row["launches"] == 0 or row.get("scaled_launches") == 0 \
+                or row.get("taps_launches") == 0:
             raise AssertionError(f"{row['name']}: no launch on any path")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -205,10 +205,13 @@ def is_distributed_dataset(ds) -> bool:
     """Whether ``ds``, or the root of its transformer chain, is a rank's
     shard: the one predicate the ``Optimizer`` factory routes on and the
     ``DistriOptimizer`` reads its global batch from
-    (bigdl_tpu/optim/optimizer.py:16-29)."""
+    (bigdl_tpu/optim/optimizer.py:16-29).  A streaming root says so with
+    its ``distributed`` attribute (``ShardFolder(..., distributed=True)``,
+    ``SeqFileDataSet(distributed=True)``)."""
     while isinstance(ds, TransformedDataSet):
         ds = ds.base
-    return isinstance(ds, ShardedDataSet)
+    return isinstance(ds, ShardedDataSet) or bool(
+        getattr(ds, "distributed", False))
 
 
 class DataSet:
@@ -222,3 +225,54 @@ class DataSet:
         if distributed:
             return ShardedDataSet(data, seed=seed)
         return LocalArrayDataSet(data, seed)
+
+    @staticmethod
+    def image_folder(path, distributed: bool = False, seed: int = 1):
+        """Class-per-subfolder image dataset (ref DataSet.ImageFolder
+        :322-379): ``(path, label)`` records, the labels 1-based floats in
+        the sorted order of the class folders; decode happens in the
+        transformer chain."""
+        import os
+
+        classes = sorted(d for d in os.listdir(path)
+                         if os.path.isdir(os.path.join(path, d)))
+        records = []
+        for li, cls in enumerate(classes):
+            d = os.path.join(path, cls)
+            for f in sorted(os.listdir(d)):
+                records.append((os.path.join(d, f), float(li + 1)))
+        return DataSet.array(records, seed, distributed)
+
+    @staticmethod
+    def seq_file_folder(path, distributed: bool = False, class_num=None,
+                        seed: int = 1):
+        """Streaming packed-record dataset (ref DataSet.SeqFileFolder
+        DataSet.scala:384-455): a folder of ``*.seq`` files is read as
+        Hadoop SequenceFiles (``dataset.seqfile``), any other as a folder
+        of the port's packed shards (``dataset.shardfile``, written by
+        ``write_shards`` or ``imagenet_tools``).  A folder holding both
+        raises, and so does ``class_num`` on a shard folder."""
+        from bigdl_tpu_torch.dataset import seqfile
+
+        # one listing decides the wire format
+        names = seqfile.folder_listing(path)
+        seq_files = seqfile.find_seq_files(path, names=names)
+        if seq_files:
+            bdts = [n for n in names if n.endswith(".bdts")]
+            if bdts:
+                raise ValueError(
+                    f"{path} holds BOTH Hadoop SequenceFiles "
+                    f"({len(seq_files)} *.seq) and packed shards "
+                    f"({len(bdts)} *.bdts) — format selection would be "
+                    "silent and order-dependent; split the folder (or "
+                    "remove the stray files) so it holds exactly one "
+                    "wire format")
+            return seqfile.SeqFileDataSet(path, class_num=class_num,
+                                          distributed=distributed,
+                                          files=seq_files, seed=seed)
+        if class_num is not None:
+            raise ValueError(
+                f"class_num is only supported for Hadoop SequenceFile "
+                f"folders; {path} holds no .seq files")
+        from bigdl_tpu_torch.dataset.shardfile import ShardFolder
+        return ShardFolder(path, distributed=distributed, seed=seed)

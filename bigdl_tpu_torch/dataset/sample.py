@@ -2,7 +2,8 @@
 dataset/Sample.scala:33, Types.scala:74).
 
 ``Sample`` is a (feature, label) numpy pair on the host; ``MiniBatch`` a
-batched pair; ``LabeledSentence`` a token-id sequence and its labels.
+batched pair; ``ByteRecord`` an encoded image and its label, before
+decode; ``LabeledSentence`` a token-id sequence and its labels.
 Host data stays numpy until a whole batch crosses to the device.
 """
 from __future__ import annotations
@@ -54,6 +55,18 @@ class MiniBatch:
     def __repr__(self):
         return (f"MiniBatch(data{tuple(self.data.shape)}, "
                 f"labels{tuple(self.labels.shape)})")
+
+
+class ByteRecord:
+    """Raw bytes + label (ref Types.scala:81): an image record before
+    decode.  The label is a float, or the key's text where it is not a
+    number (``read_shard`` of a ``--hasName`` shard)."""
+
+    __slots__ = ("data", "label")
+
+    def __init__(self, data: bytes, label):
+        self.data = data
+        self.label = label
 
 
 class LabeledSentence:

@@ -14,7 +14,9 @@ tests hold the two bit for bit), taken only with ``native=False``.
 Every image function takes and returns float32 images, HWC or HW (grey,
 as one channel), and writes into ``out`` when given (a C-contiguous
 float32 array of the result's shape, such as one row of a batch buffer).
-The decoders (:func:`u8_to_f32`, :func:`cifar_decode`) take bytes.
+The decoders (:func:`u8_to_f32`, :func:`cifar_decode`) take bytes;
+:func:`png_unfilter` undoes the scanline filters of a PNG's inflated
+image data.
 """
 from __future__ import annotations
 
@@ -80,6 +82,8 @@ def lib() -> ctypes.CDLL:
             so.hostops_hflip.argtypes = [_P, _P, _I64, _I64, _I64]
             so.hostops_hwc_to_chw.argtypes = [_P, _P, _I64, _I64, _I64]
             so.hostops_cifar_decode.argtypes = [_P, _P, _P, _I64]
+            so.hostops_png_unfilter.argtypes = [_P, _P, _I64, _I64, _I64]
+            so.hostops_png_unfilter.restype = _I64
             for fn in (so.hostops_normalize, so.hostops_u8_to_f32,
                        so.hostops_crop, so.hostops_hflip,
                        so.hostops_hwc_to_chw, so.hostops_cifar_decode):
@@ -217,3 +221,54 @@ def cifar_decode(raw, native=True):
     images = np.empty((n, 32, 32, 3), np.float32)
     lib().hostops_cifar_decode(_fp(raw), _fp(labels), _fp(images), n)
     return labels, images
+
+
+def png_unfilter(raw, h: int, stride: int, bpp: int,
+                 native=True) -> np.ndarray:
+    """A PNG's inflated image data (bytes), ``h`` rows of one filter-type
+    byte and ``stride`` bytes, with the five scanline filters (None, Sub, Up,
+    Average, Paeth; RFC 2083 section 6) undone: (h, stride) uint8.
+    ``bpp`` is the bytes of a pixel (bit depth 8).  A filter type
+    outside 0-4 raises."""
+    raw = np.frombuffer(raw, np.uint8)
+    if raw.size != h * (stride + 1):
+        raise ValueError(f"PNG image data holds {raw.size} bytes, "
+                         f"{h} rows of 1 + {stride} need {h * (stride + 1)}")
+    out = np.empty((h, stride), np.uint8)
+    if not native:
+        _png_unfilter_plain(raw.reshape(h, stride + 1), out, bpp)
+        return out
+    bad = lib().hostops_png_unfilter(_fp(raw), _fp(out), h, stride, bpp)
+    if bad:
+        kind = int(raw[(bad - 1) * (stride + 1)])
+        raise ValueError(f"PNG row {bad - 1}: unknown filter type {kind}")
+    return out
+
+
+def _png_unfilter_plain(rows, out, bpp):
+    prev = np.zeros(out.shape[1], np.int32)
+    for y, row in enumerate(rows):
+        kind, cur = int(row[0]), row[1:].astype(np.int32)
+        if kind == 0:
+            res = cur
+        elif kind == 1:
+            res = np.cumsum(cur.reshape(-1, bpp), axis=0).reshape(-1)
+        elif kind == 2:
+            res = cur + prev
+        elif kind in (3, 4):
+            res = cur.copy()
+            for i in range(0, cur.size, bpp):
+                b = prev[i:i + bpp]
+                a = res[i - bpp:i] & 0xFF if i else np.zeros(bpp, np.int32)
+                if kind == 3:
+                    res[i:i + bpp] += (a + b) >> 1
+                    continue
+                c = prev[i - bpp:i] if i else np.zeros(bpp, np.int32)
+                p = a + b - c
+                pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+                res[i:i + bpp] += np.where((pa <= pb) & (pa <= pc), a,
+                                           np.where(pb <= pc, b, c))
+        else:
+            raise ValueError(f"PNG row {y}: unknown filter type {kind}")
+        prev = res & 0xFF
+        out[y] = prev

@@ -3,7 +3,9 @@
 // (bigdl_tpu_torch/native/__init__.py).
 //
 // The port's own copy of bigdl_tpu/native/hostops.cpp (the functions the
-// image transformers and the CIFAR-10 reader use).  Every function is an element-wise fp32 copy
+// image transformers and the CIFAR-10 reader use), and the PNG decoder's
+// scanline unfilter (hostops_png_unfilter, the port's own: byte integer
+// arithmetic).  Every function is an element-wise fp32 copy
 // or (x - mean) / std, so its output has the bits of the numpy expression
 // it replaces; the build passes -ffp-contract=off so that no a * b + c is
 // fused into one rounding.
@@ -119,6 +121,60 @@ void hostops_cifar_decode(const uint8_t* in, float* labels, float* images,
       }
     }
   });
+}
+
+// PNG scanline filters undone (RFC 2083 section 6): `raw` holds h rows
+// of one filter-type byte and `stride` bytes, `out` gets the h rows of
+// `stride` bytes, `bpp` the bytes of a pixel (bit depth 8).  The rows run
+// in order (each reads the one above it).  Returns 0, or 1 + the index of
+// the first row whose filter type is not 0-4 (the rows before it done).
+int64_t hostops_png_unfilter(const uint8_t* raw, uint8_t* out, int64_t h,
+                             int64_t stride, int64_t bpp) {
+  for (int64_t y = 0; y < h; ++y) {
+    const uint8_t* in = raw + y * (stride + 1);
+    const uint8_t kind = in[0];
+    ++in;
+    uint8_t* row = out + y * stride;
+    const uint8_t* up = y > 0 ? row - stride : nullptr;
+    switch (kind) {
+      case 0:
+        std::memcpy(row, in, stride);
+        break;
+      case 1:
+        for (int64_t i = 0; i < stride; ++i) {
+          row[i] = static_cast<uint8_t>(in[i] + (i >= bpp ? row[i - bpp] : 0));
+        }
+        break;
+      case 2:
+        for (int64_t i = 0; i < stride; ++i) {
+          row[i] = static_cast<uint8_t>(in[i] + (up ? up[i] : 0));
+        }
+        break;
+      case 3:
+        for (int64_t i = 0; i < stride; ++i) {
+          const int a = i >= bpp ? row[i - bpp] : 0;
+          const int b = up ? up[i] : 0;
+          row[i] = static_cast<uint8_t>(in[i] + ((a + b) >> 1));
+        }
+        break;
+      case 4:
+        for (int64_t i = 0; i < stride; ++i) {
+          const int a = i >= bpp ? row[i - bpp] : 0;
+          const int b = up ? up[i] : 0;
+          const int c = (up && i >= bpp) ? up[i - bpp] : 0;
+          const int p = a + b - c;
+          const int pa = p > a ? p - a : a - p;
+          const int pb = p > b ? p - b : b - p;
+          const int pc = p > c ? p - c : c - p;
+          const int pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+          row[i] = static_cast<uint8_t>(in[i] + pred);
+        }
+        break;
+      default:
+        return y + 1;
+    }
+  }
+  return 0;
 }
 
 int hostops_version() { return 1; }

@@ -1,15 +1,17 @@
 """Utilities of the port (counterpart of bigdl_tpu/utils): the 1-based
 Table, the random streams, the engine, module and snapshot files, the
-model broadcast and logging."""
+Torch7 and Caffe weight import, the model broadcast and logging."""
 from bigdl_tpu_torch.parallel.broadcast import \
     model_broadcast as ModelBroadcast
+from bigdl_tpu_torch.utils import caffe_loader as CaffeLoader
 from bigdl_tpu_torch.utils import file as File
+from bigdl_tpu_torch.utils import torch_file as TorchFile
 from bigdl_tpu_torch.utils.engine import Engine
 from bigdl_tpu_torch.utils.random import RandomGenerator
 from bigdl_tpu_torch.utils.table import T, Table
 
-__all__ = ["Engine", "File", "ModelBroadcast", "RandomGenerator", "T",
-           "Table", "kth_largest"]
+__all__ = ["CaffeLoader", "Engine", "File", "ModelBroadcast",
+           "RandomGenerator", "T", "Table", "TorchFile", "kth_largest"]
 
 
 def kth_largest(values, k):

@@ -15,9 +15,13 @@ import time
 logger = logging.getLogger("bigdl_tpu_torch.utils")
 
 
+def is_url(path) -> bool:
+    return isinstance(path, str) and "://" in path
+
+
 def _local(path) -> str:
     path = os.fspath(path)
-    if "://" in path:
+    if is_url(path):
         raise ValueError(f"{path}: the port reads and writes local paths "
                          f"only (no fsspec)")
     return path
@@ -39,6 +43,10 @@ def listdir(path) -> list:
 
 def join(base, *parts) -> str:
     return os.path.join(_local(base), *parts)
+
+
+def open_file(path, mode: str = "rb"):
+    return open(_local(path), mode)
 
 
 def read_bytes(path) -> bytes:

@@ -34,6 +34,8 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py --bf16     # the bf16 forms' checks and phase 20
                                      # alone, no result line
     python3 chip_smoke.py --obs      # phase 21 alone, no result line
+    python3 chip_smoke.py --imagenet # the SGD and pool checks and phase
+                                     # 12b alone, no result line
 
 Each option runs part of one phase table (``ONLY``); every phase runs
 even where one before it failed, and a failed phase makes the exit
@@ -230,6 +232,27 @@ the recurrences' libraries still compile.  Phases:
     ``fused_sgd``; two steps at batch 8 and lr 0.01 equal the CPU's, held
     as VGG's are (the gradient probe's zeroed BN weights drawn U(0, 1));
     the buffer snapshot's time a step;
+12b. ImageNet-style input (config 5; ``--imagenet`` runs it alone with
+    the SGD and pool checks): 768 smooth seeded PNGs of 224-320 px a side
+    in 16 class folders, written by this script's own PNG writer (zlib
+    and struct, the rows under the five filter types in turn: it needs
+    no Pillow), packed into 4 shards by
+    ``imagenet_tools.generate``; ResNet-50 trains one epoch (3 steps of
+    256) through ``Optimizer(...)`` over ``ShardFolder(distributed=True)``
+    and examples/train_resnet50_imagenet.py's chain (the port's PNG
+    decode, resize to 256, random crop, flip, colour jitter, lighting,
+    normalisation): the ``DistriOptimizer`` at a world of one,
+    ``fused_sgd`` and the stem pool's ``maxpool2d`` once a step, two
+    steps at batch 8 equal the CPU's; then a ``.caffemodel`` of a seeded
+    Inception-v1's named layers (this script's protobuf writer) loads
+    into a card model by ``CaffeLoader.load`` (every copied blob bit for
+    bit), examples/model_validator.py's chain validates it over 128 of
+    the PNGs (Top1, Top5; the LRN and both pools' launches counted), its
+    logits equal the CPU's on 8, and ``TorchFile`` round-trips it bit
+    for bit; then 256 of the images go through a SequenceFile
+    (``BGRImgToLocalSeqFile``, ``DataSet.seq_file_folder``,
+    ``SeqBytesToBGRImg``) bit for bit, and ``MTLabeledImgToBatch`` reads
+    them at 1 and 8 threads (the same batches; images a second);
 13. the harness with module state: ``ResNetCifar(20)`` (batch 128,
     examples/train_resnet.py's SGD) at 8 steps a dispatch as one CUDA
     graph bit-equal to the eager loop in parameters, velocities and
@@ -348,11 +371,15 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import os
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import time
 import types
+import zlib
 
 import numpy as np
 
@@ -612,6 +639,14 @@ R50_PARAMS = 25557032
 # and lr R50_CHECK_LR (at lr 0.1 a rounding's perturbation of the init
 # ends 3.0e-3 from the CPU's params after three steps, past IPARAM_ATOL)
 R50_CHECK_BATCH, R50_CHECK_STEPS, R50_CHECK_LR = 8, 2, 0.01
+# config 5's input path: IN_IMAGES PNGs of IN_CLASSES classes, IN_SIDES
+# px a side, in IN_SHARDS shards (ResNet-50 trains one epoch of them at
+# R50_BATCH); the validator's IN_VAL of them in batches of IN_VAL_BATCH,
+# its logits against the CPU's on IN_VAL_CPU; IN_SEQ of them through a
+# SequenceFile, read IN_SEQ_BATCH at a time
+IN_IMAGES, IN_CLASSES, IN_SIDES, IN_SHARDS = 768, 16, (224, 320), 4
+IN_VAL, IN_VAL_BATCH, IN_VAL_CPU, IN_SEQ, IN_SEQ_BATCH = 128, 32, 8, 256, 32
+IN_MEAN, IN_STD = (123.0, 117.0, 104.0), (58.4, 57.1, 57.4)
 # the harness with module state: ResNetCifar(20), examples/train_resnet.py
 # (batch 128; 512 synthetic images, 4 steps an epoch)
 BN_DEPTH, BN_BATCH, BN_PARAMS = 20, 128, 269722
@@ -6466,6 +6501,375 @@ def phase_resnet50(torch, ops, profile: bool):
     return counts
 
 
+def png_encode(px, level=1):
+    """PNG bytes of the uint8 RGB image ``px`` (h, w, 3): colour type 2,
+    bit depth 8, row y under filter type y % 5 (None, Sub, Up, Average,
+    Paeth), zlib at ``level``: the writer of the ``imagenet`` phase's
+    folder, which needs no Pillow."""
+    h, w, _ = px.shape
+    p = px.reshape(h, w * 3).astype(np.int16)
+    zero_row, zero_px = np.zeros((1, w * 3), np.int16), np.zeros((h, 3),
+                                                                 np.int16)
+    up = np.vstack([zero_row, p[:-1]])
+    left = np.hstack([zero_px, p[:, :-3]])
+    ul = np.hstack([zero_px, up[:, :-3]])
+    pa, pb = np.abs(up - ul), np.abs(left - ul)
+    pc = np.abs(left + up - 2 * ul)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, ul))
+    kind = (np.arange(h) % 5)[:, None]
+    pred = np.select([kind == 1, kind == 2, kind == 3, kind == 4],
+                     [left, up, (left + up) >> 1, paeth], 0)
+    raw = np.hstack([kind.astype(np.uint8),
+                     ((p - pred) & 0xFF).astype(np.uint8)]).tobytes()
+
+    def chunk(tag, body):
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, level))
+            + chunk(b"IEND", b""))
+
+
+def imagenet_folder(root, n, classes, seed):
+    """``n`` smooth seeded RGB images, ``IN_SIDES`` px a side, in
+    ``classes`` class folders under ``root`` as PNGs (threads: zlib lets
+    go of the GIL); (the folder, the files in class order, the raw
+    pixels of each, seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    rs = np.random.RandomState(seed)
+    specs = [(i % classes, rs.randint(IN_SIDES[0], IN_SIDES[1] + 1, 2),
+              rs.uniform(0, 1, (4, 3))) for i in range(n)]
+
+    def one(i):
+        c, (h, w), r = specs[i]
+        y = np.arange(h, dtype=np.float32)[:, None, None] / h
+        x = np.arange(w, dtype=np.float32)[None, :, None] / w
+        base = 40.0 + 180.0 * c / (classes - 1)
+        img = (base + 60.0 * np.sin(6.0 * (r[0] + 1) * x + 9.0 * r[1])
+               * np.cos(4.0 * (r[2] + 1) * y + 9.0 * r[3]))
+        px = np.clip(img, 0, 255).astype(np.uint8)
+        path = os.path.join(root, f"n{c:04d}", f"{i:05d}.png")
+        with open(path, "wb") as f:
+            f.write(png_encode(px))
+        return path, px
+
+    t0 = time.perf_counter()
+    for c in range(classes):
+        os.makedirs(os.path.join(root, f"n{c:04d}"), exist_ok=True)
+    with ThreadPoolExecutor(8) as pool:
+        out = list(pool.map(one, range(n)))
+    return out, time.perf_counter() - t0
+
+
+def pb_varint(v) -> bytes:
+    """A protobuf varint."""
+    out = b""
+    while True:
+        b, v = v & 0x7F, v >> 7
+        if not v:
+            return out + bytes([b])
+        out += bytes([b | 0x80])
+
+
+def pb_field(num, payload, wire=2):
+    """A protobuf field: its tag, then ``payload`` (length-delimited for
+    wire type 2, a varint's bytes for 0)."""
+    tag = pb_varint((num << 3) | wire)
+    return tag + (pb_varint(len(payload)) + payload if wire == 2
+                  else payload)
+
+
+def caffemodel_bytes(layers):
+    """A .caffemodel (NetParameter) of ``layers`` [(name, [blobs])]: each
+    a LayerParameter (field 100: name 1, type 2, blobs 7), each blob a
+    BlobProto (shape 7 as BlobShape's dims, data 5 packed floats).  This
+    script's own writer, which needs no protobuf package."""
+    def blob(a):
+        dims = b"".join(pb_field(1, pb_varint(d), 0) for d in a.shape)
+        return pb_field(7, dims) + pb_field(
+            5, np.ascontiguousarray(a, np.float32).tobytes())
+
+    return b"".join(
+        pb_field(100, pb_field(1, name.encode()) + pb_field(2, b"Convolution")
+                 + b"".join(pb_field(7, blob(b)) for b in blobs))
+        for name, blobs in layers)
+
+
+def imagenet_run(torch, device, init, shards, batch, end_trigger,
+                 lr=R50_LR):
+    """examples/train_resnet50_imagenet.py:60-84 without ``--synthetic``
+    from ``init``: ``ShardFolder(shards, distributed=True) >>
+    BytesToImg(256) >> ImgRdmCropper(224, 224) >> HFlip() >>
+    ColorJitter(channel_order="rgb") >> Lighting() >> ImgNormalizer >>
+    ImgToBatch(batch)`` into ``Optimizer(...)``, which routes it to the
+    ``DistriOptimizer`` (a world of one on ``device``'s backend), with
+    the example's SGD (``lr`` in place of 0.1 when given).  An optimizer
+    ready to run."""
+    from bigdl_tpu_torch.dataset import (BytesToImg, ColorJitter, HFlip,
+                                         ImgNormalizer, ImgRdmCropper,
+                                         ImgToBatch, Lighting)
+    from bigdl_tpu_torch.dataset.shardfile import ShardFolder
+    from bigdl_tpu_torch.models.resnet import ResNet
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import EpochStep, Optimizer
+    from bigdl_tpu_torch.utils.table import T
+
+    world_for(torch, device)
+    train = (ShardFolder(shards, distributed=True) >> BytesToImg(ISIZE)
+             >> ImgRdmCropper(ICROP, ICROP) >> HFlip()
+             >> ColorJitter(channel_order="rgb") >> Lighting()
+             >> ImgNormalizer(IN_MEAN, IN_STD) >> ImgToBatch(batch))
+    model = with_init(ResNet(50, ICLASSES, device=device), init)
+    return Optimizer(model, train, ClassNLLCriterion(), state=T(
+        learningRate=lr, weightDecay=R50_WD, momentum=0.9,
+        dampening=0.0, nesterov=True,
+        learningRateSchedule=EpochStep(30, 0.1)),
+        end_trigger=end_trigger, device=device)
+
+
+def imagenet_train(torch, ops, root, smi):
+    """The folder, its shards and ResNet-50's epoch over them; the CPU
+    check.  (the path's counts, the files, their pixels)."""
+    from bigdl_tpu_torch.dataset import BytesToImg, ByteRecord
+    from bigdl_tpu_torch.dataset import imagenet_tools
+    from bigdl_tpu_torch.dataset.image import _resize
+    from bigdl_tpu_torch.dataset.shardfile import ShardFolder
+    from bigdl_tpu_torch.models.resnet import ResNet
+    from bigdl_tpu_torch.optim import (DistriOptimizer, max_epoch,
+                                       max_iteration)
+    from bigdl_tpu_torch.utils.engine import Engine
+    from bigdl_tpu_torch.utils.random import generator
+
+    files, write_s = imagenet_folder(os.path.join(root, "train"),
+                                     IN_IMAGES, IN_CLASSES, 0)
+    nbytes = sum(os.path.getsize(f) for f, _ in files)
+    t0 = time.perf_counter()
+    shards, n_classes = imagenet_tools.generate(
+        os.path.join(root, "train"), os.path.join(root, "shards"),
+        IN_SHARDS)
+    pack_s = time.perf_counter() - t0
+    print(f"imagenet: {IN_IMAGES} PNGs ({nbytes} B, {IN_SIDES[0]}-"
+          f"{IN_SIDES[1]} px a side, the five filters by row) written in "
+          f"{write_s:.2f} s; {len(shards)} shards of {n_classes} classes "
+          f"packed in {pack_s:.2f} s")
+    if n_classes != IN_CLASSES or len(shards) != IN_SHARDS:
+        raise AssertionError(f"imagenet: {len(shards)} shards, "
+                             f"{n_classes} classes")
+    # the host's decode alone (the port's PNG decoder), then the resize
+    # to 256, over 64 of the records, each scaled to a batch
+    recs = [ByteRecord(open(f, "rb").read(), 1.0) for f, _ in files[:64]]
+    t0 = time.perf_counter()
+    direct = list(BytesToImg()(iter(recs)))
+    t1 = time.perf_counter()
+    resized = [_resize(d.data, ISIZE, ISIZE) for d in direct]
+    t2 = time.perf_counter()
+    decode_ms, resize_ms = ((b - a) / len(recs) * R50_BATCH * 1e3
+                            for a, b in ((t0, t1), (t1, t2)))
+    if not all(np.array_equal(d.data, px) for d, (_, px)
+               in zip(direct, files)) or len(resized) != len(recs):
+        raise AssertionError("imagenet: the PNG decode left the written "
+                             "pixels")
+
+    init = init_of(ResNet(50, ICLASSES, device="cpu",
+                          generator=generator(0)))
+    folder = os.path.join(root, "shards")
+    try:
+        opt = imagenet_run(torch, "cuda", init, folder, R50_BATCH,
+                           max_epoch(1))
+        if not isinstance(opt, DistriOptimizer) or opt.mesh.size != 1:
+            raise AssertionError(f"imagenet: Optimizer gave {type(opt)}")
+        counts, wall = timed_path(torch, ops, opt)
+        steps = int(opt.state["neval"]) - 1
+        want = {**untapped(counts), "fused_sgd": steps,
+                "maxpool2d_forward": steps, "maxpool2d_backward": steps}
+        if steps != IN_IMAGES // R50_BATCH or counts != want:
+            raise AssertionError(f"imagenet ResNet-50 launches {counts} "
+                                 f"after {steps} steps, expected {want}")
+        moved = state_moved(torch, opt.model, init)
+        step_ms = train_line(torch, f"imagenet: ResNet(50) through "
+                             f"DistriOptimizer (world {opt.mesh.size}) "
+                             f"over ShardFolder(distributed=True), one "
+                             f"epoch of {IN_IMAGES} PNGs (running "
+                             f"statistics moved up to {moved:.4f})", opt,
+                             wall, R50_BATCH, R50_PARAMS, counts)
+        fetch_s, fetches = opt.metrics.get("data fetch time")
+        print(f"imagenet host: the PNG decode {decode_ms:.1f} ms and the "
+              f"resize to {ISIZE} {resize_ms:.1f} ms a batch of "
+              f"{R50_BATCH} (one thread, from 64 records); the whole chain "
+              f"and H2D {fetch_s / fetches * 1e3:.1f} ms a batch; "
+              f"{step_ms:.1f} ms a step; [{smi}]")
+        del opt
+        check_init = ungated(init)
+        diff = card_vs_cpu(
+            torch, init["params"], lambda device: imagenet_run(
+                torch, device, init, folder, R50_CHECK_BATCH,
+                max_iteration(R50_CHECK_STEPS), R50_CHECK_LR),
+            make_probe=lambda device: imagenet_run(
+                torch, device, check_init, folder, R50_CHECK_BATCH,
+                max_iteration(R50_CHECK_STEPS)), routed=True)
+    finally:
+        Engine.reset()
+    print_vs_cpu("imagenet", R50_CHECK_BATCH, diff, IPARAM_ATOL)
+    held_vs_cpu("imagenet", diff, IPARAM_ATOL, scope="model")
+    if ShardFolder(folder).size() != IN_IMAGES:
+        raise AssertionError("imagenet: the shards lost records")
+    return counts, files
+
+
+def imagenet_validator(torch, ops, root, files, smi):
+    """A .caffemodel of a seeded Inception-v1's named layers into a card
+    model; examples/model_validator.py's chain over IN_VAL of the PNGs;
+    the logits against the CPU's; the model through a .t7 and back."""
+    from bigdl_tpu_torch.dataset import (ByteRecord, BytesToImg, DataSet,
+                                         ImgCropper, ImgNormalizer,
+                                         ImgToBatch)
+    from bigdl_tpu_torch.models.inception import Inception_v1
+    from bigdl_tpu_torch.optim import Top1Accuracy, Top5Accuracy, validate
+    from bigdl_tpu_torch.utils import CaffeLoader, TorchFile
+    from bigdl_tpu_torch.utils.random import generator
+
+    src = Inception_v1(ICLASSES, device="cpu", generator=generator(3))
+    named = CaffeLoader._named_param_modules(src)
+    layers = [(n, [m.weight.detach().numpy(), m.bias.detach().numpy()])
+              for n, m in sorted(named.items())]
+    path = os.path.join(root, "inception.caffemodel")
+    with open(path, "wb") as f:
+        f.write(caffemodel_bytes(layers))
+    models = {}
+    for device in ("cuda", "cpu"):
+        m = Inception_v1(ICLASSES, device=device, generator=generator(0))
+        _, copied = CaffeLoader.load(m, path, match_all=False)
+        models[device] = m
+        if copied != set(named):
+            raise AssertionError(f"imagenet caffe: copied {copied}")
+    card = models["cuda"]
+    got = CaffeLoader._named_param_modules(card)
+    same = all(torch.equal(got[n].weight.cpu(), torch.from_numpy(w))
+               and torch.equal(got[n].bias.cpu(), torch.from_numpy(b))
+               for n, (w, b) in layers)
+    if not same:
+        raise AssertionError("imagenet caffe: a copied blob differs")
+    # examples/model_validator.py:64-68's chain; its ``image_folder``
+    # yields (path, label) pairs that BytesToImg cannot read, so the
+    # records are the files' bytes
+    step = len(files) // IN_VAL
+    recs = [ByteRecord(open(f, "rb").read(), float(i % IN_CLASSES + 1))
+            for i, (f, _) in enumerate(files) if i % step == 0][:IN_VAL]
+    norm = ImgNormalizer((123.0, 117.0, 104.0), (1.0, 1.0, 1.0))
+    val = (DataSet.array(recs) >> BytesToImg(ISIZE)
+           >> ImgCropper(ICROP, ICROP) >> norm >> ImgToBatch(IN_VAL_BATCH))
+    (res, counts, wall) = run_path(torch, ops, lambda: validate(
+        card, val, [Top1Accuracy(), Top5Accuracy()], "cuda"))
+    batches = IN_VAL // IN_VAL_BATCH
+    want = {**untapped(counts), "lrn_forward": 2 * batches,
+            "maxpool2d_s1_forward": 9 * batches,
+            "maxpool2d_forward": 4 * batches}
+    (_, top1), (_, top5) = res
+    if counts != want or top1.result()[1] != IN_VAL:
+        raise AssertionError(f"imagenet validator: launches {counts} "
+                             f"(expected {want}), {top1.result()}")
+    x = next(val.data(train=False)).data[:IN_VAL_CPU]
+    with torch.no_grad():
+        card.eval()
+        models["cpu"].eval()
+        lc = card(torch.from_numpy(x).cuda()).cpu()
+        lp = models["cpu"](torch.from_numpy(x))
+    logit_rel = leaf_rel(lc, lp.double())
+    t7 = os.path.join(root, "inception.t7")
+    TorchFile.save_module(card, t7)
+    back = Inception_v1(ICLASSES, device="cuda", generator=generator(1))
+    TorchFile.load_module_weights(back, t7)
+    t7_same = all(torch.equal(a, b) for a, b in
+                  zip(back.parameters(), card.parameters()))
+    print(f"imagenet validator: {len(copied)} Caffe layers "
+          f"({', '.join(sorted(copied))}) copied bit for bit; "
+          f"Inception-v1 over {IN_VAL} PNGs in batches of {IN_VAL_BATCH}: "
+          f"Top1 {top1.result()[0]:.4f} Top5 {top5.result()[0]:.4f} in "
+          f"{wall * 1e3:.1f} ms; launches {ops_nonzero(counts)}; logits "
+          f"of {IN_VAL_CPU} against the CPU {logit_rel:.3e} of the largest "
+          f"(limit {RTOL}); .t7 round trip bit for bit: {t7_same} "
+          f"({os.path.getsize(t7)} B); [{smi}]")
+    if logit_rel > RTOL or not t7_same:
+        raise AssertionError("imagenet validator: logits or .t7 round trip")
+    return counts
+
+
+def imagenet_seqfile(torch, root, files, smi):
+    """IN_SEQ of the images through a SequenceFile and back, bit for bit;
+    ``MTLabeledImgToBatch`` over them at 1 and 8 threads."""
+    from bigdl_tpu_torch.dataset import (ByteRecord, BytesToImg, DataSet,
+                                         HFlip, ImgNormalizer,
+                                         ImgRdmCropper, MTLabeledImgToBatch)
+    from bigdl_tpu_torch.dataset.seqfile import (BGRImgToLocalSeqFile,
+                                                 SeqBytesToBGRImg)
+
+    step = len(files) // IN_SEQ
+    picked = [(f, px) for i, (f, px) in enumerate(files) if i % step == 0]
+    recs = [ByteRecord(open(f, "rb").read(), float(i % IN_CLASSES + 1))
+            for i, (f, _) in enumerate(picked)]
+    seq_dir = os.path.join(root, "seq")
+    t0 = time.perf_counter()
+    written = list(BGRImgToLocalSeqFile(IN_SEQ // 2, os.path.join(
+        seq_dir, "imagenet"), normalize=1.0)(BytesToImg()(iter(recs))))
+    write_s = time.perf_counter() - t0
+    back = list((DataSet.seq_file_folder(seq_dir)
+                 >> SeqBytesToBGRImg(normalize=1.0)).data(train=False))
+    exact = len(back) == len(picked) and all(
+        np.array_equal(b.data, px[..., ::-1]) and b.order == "bgr"
+        for b, (_, px) in zip(back, picked))
+    if not exact or len(written) != 2:
+        raise AssertionError("imagenet: the SequenceFile round trip "
+                             "left the pixels")
+    rates, runs = {}, {}
+    for threads in (1, 8):
+        chain = (SeqBytesToBGRImg(normalize=1.0) >> ImgRdmCropper(ICROP,
+                                                                  ICROP)
+                 >> HFlip() >> ImgNormalizer((104.0, 117.0, 123.0),
+                                             (57.4, 57.1, 58.4)))
+        ds = DataSet.seq_file_folder(seq_dir, seed=5) >> \
+            MTLabeledImgToBatch(ICROP, ICROP, IN_SEQ_BATCH, chain,
+                                num_threads=threads)
+        t0 = time.perf_counter()
+        runs[threads] = list(ds.data(train=False))
+        rates[threads] = IN_SEQ / (time.perf_counter() - t0)
+    same = all(np.array_equal(a.data, b.data) and
+               np.array_equal(a.labels, b.labels)
+               for a, b in zip(runs[1], runs[8]))
+    print(f"imagenet seqfile: {IN_SEQ} images to {len(written)} "
+          f"SequenceFiles in {write_s:.2f} s and back bit for bit; "
+          f"MTLabeledImgToBatch (read, crop, flip, normalise; batches of "
+          f"{IN_SEQ_BATCH}) {rates[1]:.1f} images/s at 1 thread, "
+          f"{rates[8]:.1f} at 8 (host; the same batches: {same}); [{smi}]")
+    if not same or len(runs[1]) != IN_SEQ // IN_SEQ_BATCH:
+        raise AssertionError("imagenet: MTLabeledImgToBatch's batches "
+                             "depend on its threads")
+
+
+def phase_imagenet(torch, ops, profile: bool):
+    """Config 5's input path at full width (``imagenet_train``), the
+    weight import and the validator (``imagenet_validator``), the
+    SequenceFile path (``imagenet_seqfile``); the files live in a
+    temporary directory, removed after."""
+    import tempfile
+
+    del profile
+    smi = smi_line()
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="bigdl-imagenet-")
+    try:
+        train_counts, files = imagenet_train(torch, ops, root, smi)
+        val_counts = imagenet_validator(torch, ops, root, files, smi)
+        imagenet_seqfile(torch, root, files, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"imagenet: {time.perf_counter() - t0:.1f} s")
+    return {"imagenet": train_counts, "imagenet_validate": val_counts}, {}
+
+
 def bn_set(images, batch):
     """examples/train_resnet.py's chain: normalised, padded by 4 and
     cropped back to 32 at random, flipped, batched."""
@@ -10074,6 +10478,7 @@ def phase_table(torch, ops, profile, rows):
         ("obs", "path", lambda: phase_obs(torch, ops, carry.get("serving"))),
         ("vgg", "path", counts_of("vgg", phase_vgg)),
         ("resnet50", "path", counts_of("resnet50", phase_resnet50)),
+        ("imagenet", "path", lambda: phase_imagenet(torch, ops, profile)),
         ("bn_harness", "path", lambda: phase_bn_harness(torch, ops)),
         ("model_zoo", "path", lambda: (phase_model_zoo(torch, ops), {})),
         ("inventory", "path", lambda: phase_inventory(torch, ops)),
@@ -10140,6 +10545,8 @@ ONLY = {
     "--bf16": ("bf16_kernels", "bf16"),
     # the observability plane on the LeNet-5 and serving paths
     "--obs": ("obs",),
+    # config 5's input path: the SGD and pool checks and the imagenet phase
+    "--imagenet": ("train_kernels", "conv_kernels", "imagenet"),
 }
 # the kernels line: each row's keys (queued_ms: calls queued back to back,
 # the device's time where it outlasts the wrapper's host work, no L2

@@ -37,16 +37,9 @@ from bigdl_tpu_torch.utils.table import T
 # names of the JAX __all__s the port does not export yet, each with the
 # ROADMAP.md queue item it waits for
 WAITING = {
-    "utils": {"TorchFile": "item 9", "CaffeLoader": "item 9"},
+    "utils": {},
     "optim": {"Predictor": "item 7.6", "DLClassifier": "item 7.6"},
-    "dataset": {name: "item 4.5" for name in (
-        "ByteRecord", "BytesToImg", "BytesToBGRImg", "BytesToGreyImg",
-        "ImgPixelNormalizer", "ImgCropper", "BGRImgCropper",
-        "GreyImgCropper", "ColorJitter", "ColoJitter", "Lighting",
-        "ImgToSample", "ImgToImageVector", "MTLabeledImgToBatch",
-        "BGRImgNormalizer", "BGRImgPixelNormalizer", "BGRImgRdmCropper",
-        "BGRImgToBatch", "BGRImgToSample", "BGRImgToImageVector",
-        "MTLabeledBGRImgToBatch")},
+    "dataset": {},
     "models": {},
 }
 PACKAGES = {"utils": (jutils, putils), "models": (jmodels, pmodels),
